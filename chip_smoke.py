@@ -15,7 +15,19 @@
    shipped) and with the bf16 pool -- and checks that every kernel was
    launched there, that the embeddings are finite and agree with a run
    through the plain twins, that both pools return the same ids, and that
-   every query that copies a candidate finds it in its top 10.
+   every query that copies a candidate finds it in its top 10;
+3. checks K3, the attention backward, against its twin at the CLIP-L vision
+   and text shapes (and against autograd through the plain forward);
+4. drives the training path through the port's own entry points -- seeded
+   CLIP-SF ViT-L/14 with fp32 masters and bf16 compute, `make_clip_optimizer`,
+   `make_clip_train_step`, `train_one_epoch` over synthetic collated batches
+   of 32 pairs, then 105 pairs (the reference's per-GPU batch) with remat --
+   and checks that K1 and K3 were launched, that the loss falls on a repeated
+   batch, that one step's loss and gradients through the kernels agree with
+   the twins, and that a saved train checkpoint restores bit-equal and serves.
+
+With `--profile` it also prints a torch.profiler breakdown of the 32-pair
+train step by kernel group.
 
 Prints, before the last line, the card's name and power limit and one JSON
 line with each kernel's launches, error and times; the last line is
@@ -45,6 +57,11 @@ POOL_ROWS, POOL_DIM, N_QUERIES = 5_600_000, 768, 256
 N_CANDS, N_QUERY_PAIRS, BATCH = 512, 256, 64
 K = 10
 MODEL, DEVICE = "ViT-L/14", "cuda"  # the main path's model and device
+# the training path: 32 pairs (64 rows) without remat, then the reference's
+# per-GPU batch of 105 pairs (840 over 8 GPUs) with remat; lr of
+# configs/clip_sf/large/train/inbatch/inbatch.yaml
+TRAIN_BS, REMAT_BS, TRAIN_LR = 32, 105, 1e-5
+TRAIN_BATCHES, REMAT_BATCHES, REPEAT_STEPS = 6, 3, 8
 
 
 def fail(msg: str) -> None:
@@ -229,20 +246,31 @@ def make_items(rng, n: int, image_size: int):
     return items
 
 
-def collate(items, ids, id_key: str, cfg) -> dict:
-    """A batch in the collator's format (MBEIRCandidatePoolCollator / MBEIRMainCollator, eval)."""
-    n_valid = len(items)
-    items = items + [items[-1]] * (BATCH - n_valid)  # pad_last: repeat the last row
-    ids = list(ids) + [ids[-1]] * (BATCH - n_valid)
+def collate_rows(items, cfg) -> dict:
+    """The model inputs of a collated batch, one row per item."""
     zero = np.zeros((cfg.image_size, cfg.image_size, 3), np.float32)
     return {
         "txt_batched": hash_tokenize([t for t, _, _, _ in items], cfg.context_length, cfg.vocab_size),
         "image_batched": np.stack([zero if im is None else im for _, im, _, _ in items]),
         "txt_mask_batched": np.asarray([m for _, _, m, _ in items], np.int32),
         "image_mask_batched": np.asarray([m for _, _, _, m in items], np.int32),
-        id_key: np.asarray(ids, np.int64),
-        "n_valid": np.int32(n_valid),
     }
+
+
+def collate(items, ids, id_key: str, cfg) -> dict:
+    """A batch in the collator's format (MBEIRCandidatePoolCollator / MBEIRMainCollator, eval)."""
+    n_valid = len(items)
+    items = items + [items[-1]] * (BATCH - n_valid)  # pad_last: repeat the last row
+    ids = list(ids) + [ids[-1]] * (BATCH - n_valid)
+    return {**collate_rows(items, cfg), id_key: np.asarray(ids, np.int64), "n_valid": np.int32(n_valid)}
+
+
+def make_train_batch(rng, bs: int, cfg) -> dict:
+    """bs (query, positive) pairs in MBEIRMainCollator's train layout: rows
+    [0, bs) queries, [bs, 2bs) positives, of mixed modality."""
+    pairs = np.arange(bs, dtype=np.int32)[:, None]
+    return {**collate_rows(make_items(rng, 2 * bs, cfg.image_size), cfg),
+            "index_mapping": {"query": pairs, "pos_cand": bs + pairs}}
 
 
 def batches(items, ids, id_key, cfg):
@@ -385,7 +413,209 @@ def drive_main_path(results: dict) -> None:
     check(cos >= 0.999, "embeddings through the kernel disagree with the plain path")
 
 
+# -------------------------------------------------------------- phase 4: K3
+
+
+def check_attention_bwd(results: dict) -> None:
+    from uniir_tpu_torch.ops.attention import attention_bwd, attention_bwd_reference, attention_reference
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = 0.0
+    for tag, (B, L, H, causal) in {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True)}.items():
+        q, k, v, do = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(4))
+        out = attention_bwd(q, k, v, do, H, causal=causal)
+        torch.cuda.synchronize()
+        ref = attention_bwd_reference(q, k, v, do, H, causal=causal)
+        for name, o, r in zip(("dq", "dk", "dv"), out, ref):
+            err, cos, top = (o.float() - r.float()).abs().max().item(), cosine(o, r), r.abs().max().item()
+            log(f"K3 attention_bwd {tag} [{B},{L},{H * 64}] H={H} causal={causal} {name}: max_abs_err={err} "
+                f"cosine={cos} max_abs_ref={top}")
+            # same rounding points as the twin; fp32 sums in another order can
+            # flip a bf16 rounding of ds or of an output: ~2 ulps (2^-7 relative)
+            check(err <= 1e-2 * max(1.0, top) and cos >= 0.9999, f"K3 {name} disagrees with its twin at {tag} shapes")
+            worst = max(worst, err)
+        ms = cuda_ms(lambda: attention_bwd(q, k, v, do, H, causal=causal), 20)
+        plain_ms = cuda_ms(lambda: attention_bwd_reference(q, k, v, do, H, causal=causal), 5)
+        log(f"K3 attention_bwd {tag}: kernel_ms={ms} plain_ms={plain_ms}")
+        if tag == "vision":
+            results["K3"].update(ms=ms, plain_ms=plain_ms)
+            # an independent oracle: fp32 autograd through the plain forward
+            leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            oracle = torch.autograd.grad(attention_reference(*leaves, H, causal=causal), leaves, do.float())
+            for name, o, r in zip(("dq", "dk", "dv"), out, oracle):
+                err, cos = (o.float() - r).abs().max().item(), cosine(o, r)
+                log(f"K3 {tag} {name} vs autograd through the plain forward: max_abs_err={err} cosine={cos}")
+                # bf16 p and ds against fp32 ones: ~2^-8 relative per term
+                check(err <= 6e-2 * max(1.0, r.abs().max().item()) and cos >= 0.999,
+                      f"K3 {name} disagrees with autograd through the plain forward")
+            del leaves, oracle
+    results["K3"]["max_abs_err"] = worst
+
+
+# -------------------------------------------------- phase 5: training path
+
+
+def drive_train_path(results: dict) -> None:
+    from uniir_tpu_torch.core.checkpoint import CHECKPOINT_FILE, load_train_checkpoint, save_train_checkpoint
+    from uniir_tpu_torch.core.config import Config
+    from uniir_tpu_torch.models import layers
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import load_torch_checkpoint, seeded_clip_sf, seeded_clip_sf_train
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.train.engine import train_one_epoch
+    from uniir_tpu_torch.train.optimizer import make_clip_optimizer
+    from uniir_tpu_torch.train.state import TrainState
+    from uniir_tpu_torch.train.steps import clip_loss, make_clip_train_step, make_embed_step
+
+    cfg = CLIP_CONFIGS[MODEL]
+    rng = np.random.default_rng(SEED + 3)
+    # self-attention blocks through K1/K3 per step: the pooled last block of
+    # each tower attends from one row and stays plain
+    blocks = (cfg.vision_layers - 1) + (cfg.text_layers - 1)
+
+    def setup(remat: bool, seed: int = SEED):
+        model = seeded_clip_sf_train(cfg, DEVICE, seed=seed, dtype=torch.bfloat16, remat=remat)
+        return TrainState(model, *make_clip_optimizer(model, TRAIN_LR, total_steps=1000)), make_clip_train_step(model)
+
+    def train(bs: int, remat: bool, n_batches: int):
+        state, step = setup(remat)
+        batches = [make_train_batch(rng, bs, cfg) for _ in range(n_batches + 1)]
+        state, _ = step(state, batches.pop())  # warm-up: first-call set-up stays out of the times
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attn_mod.attention.launches = attn_mod.attention_bwd.launches = 0
+        config = Config.from_dict({"trainer_config": {"print_freq": n_batches}})
+        t0 = time.perf_counter()
+        state, stats = train_one_epoch(step, state, batches, 0, config)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / n_batches
+        k1, k3 = attn_mod.attention.launches, attn_mod.attention_bwd.launches
+        peak = torch.cuda.max_memory_allocated()
+        log(f"train {MODEL} bs={bs} pairs ({2 * bs} rows) remat={remat}: {n_batches} steps, step_ms={step_s * 1e3} "
+            f"pairs_per_s={bs / step_s} max_memory_allocated={peak} ({peak / 2**30:.2f} GiB); "
+            f"loss={stats['loss']} inbatch_accuracy={stats['inbatch_accuracy']}; launches K1={k1} K3={k3}")
+        check(np.isfinite(float(stats["loss"])), f"train loss is not finite at bs={bs}")
+        # remat recomputes each block's forward in the backward pass
+        check(k1 == n_batches * blocks * (2 if remat else 1) and k3 == n_batches * blocks,
+              f"K1 / K3 launched {k1} / {k3} times in {n_batches} steps of {blocks} blocks (remat={remat})")
+        results["K1"]["launches"] += k1
+        results["K3"]["launches"] += k3
+        return state, step
+
+    state, step = train(TRAIN_BS, False, TRAIN_BATCHES)
+
+    # the loss falls on one batch repeated
+    batch = make_train_batch(rng, TRAIN_BS, cfg)
+    losses = []
+    for _ in range(REPEAT_STEPS):
+        state, metrics = step(state, dict(batch))
+        losses.append(metrics["loss"])
+    losses = [float(x) for x in losses]
+    log(f"loss over {REPEAT_STEPS} steps on one batch of {TRAIN_BS} pairs: {losses}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the loss does not fall on a repeated batch")
+
+    # one step's loss and gradients through K1/K3 against the plain twins
+    model = state.model
+    params = list(model.parameters())
+    out = clip_loss(model, batch)
+    grads = torch.autograd.grad(out["loss"], params)
+    layers.attention = attn_mod.attention_twin
+    try:
+        ref = clip_loss(model, batch)
+        ref_grads = torch.autograd.grad(ref["loss"], params)
+    finally:
+        layers.attention = attn_mod.attention
+    names = [n for n, _ in model.named_parameters()]
+    coss = [cosine(g_, r_) for g_, r_ in zip(grads, ref_grads)]
+    finite = all(bool(torch.isfinite(g_).all()) for g_ in grads)
+    worst = int(np.argmin(coss))
+    loss_err = abs(out["loss"].item() - ref["loss"].item())
+    log(f"train step through K1/K3 vs the twins: loss {out['loss'].item()} vs {ref['loss'].item()}, "
+        f"min gradient cosine {coss[worst]} ({names[worst]}), all gradients finite={finite}")
+    # bf16 attention outputs and gradients that round in other places: each
+    # gradient's direction and the loss (~log 32) survive
+    check(finite and loss_err <= 1e-2 and coss[worst] >= 0.99, "train-step gradients through K1/K3 disagree with the twins")
+    del grads, ref_grads, out, ref
+
+    # checkpoint round trip, and the saved model serves
+    path = save_train_checkpoint(str(WORK / "ckpt"), "clip_sf", state, 0)
+    fresh, _ = setup(False, seed=SEED + 1)
+    fresh, epoch = load_train_checkpoint(path, fresh)
+    same = all(torch.equal(p, q) for p, q in zip(model.parameters(), fresh.model.parameters()))
+    a, b = state.optimizer.state_dict(), fresh.optimizer.state_dict()
+    same_opt = a["param_groups"] == b["param_groups"] and all(
+        torch.equal(v, b["state"][i][key]) for i, st in a["state"].items() for key, v in st.items())
+    log(f"train checkpoint round trip: parameters bit-equal={same}, optimizer state bit-equal={same_opt}, "
+        f"step {fresh.step}, epoch {epoch}")
+    check(same and same_opt and fresh.step == state.step and epoch == 0, "train checkpoint round trip is not exact")
+    del fresh
+    served = seeded_clip_sf(cfg, DEVICE, seed=SEED + 1, dtype=torch.bfloat16)
+    load_torch_checkpoint(served, os.path.join(path, CHECKPOINT_FILE))
+    small = make_train_batch(rng, 4, cfg)
+    emb = make_embed_step(served)(small).float()
+    emb_train = make_embed_step(model)(small).float()
+    cos = torch.nn.functional.cosine_similarity(emb, emb_train, dim=1).min().item()
+    log(f"the saved model serves: embeddings {tuple(emb.shape)}, min cosine to the trained module's {cos}")
+    check(emb.shape == (8, cfg.embed_dim) and bool(torch.isfinite(emb).all()) and cos >= 0.9999,
+          "the saved train checkpoint does not serve")
+    del state, step, model, params, served
+    shutil.rmtree(WORK / "ckpt", ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    train(REMAT_BS, True, REMAT_BATCHES)
+    torch.cuda.empty_cache()
+
+
+def profile_train_step() -> None:
+    """torch.profiler over 3 train steps of TRAIN_BS pairs: device time by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import seeded_clip_sf_train
+    from uniir_tpu_torch.train.optimizer import make_clip_optimizer
+    from uniir_tpu_torch.train.state import TrainState
+    from uniir_tpu_torch.train.steps import make_clip_train_step
+
+    cfg = CLIP_CONFIGS[MODEL]
+    model = seeded_clip_sf_train(cfg, DEVICE, seed=SEED, dtype=torch.bfloat16)
+    state = TrainState(model, *make_clip_optimizer(model, TRAIN_LR, total_steps=1000))
+    step = make_clip_train_step(model)
+    rng = np.random.default_rng(SEED + 4)
+    batches = [make_train_batch(rng, TRAIN_BS, cfg) for _ in range(3)]
+    state, _ = step(state, make_train_batch(rng, TRAIN_BS, cfg))  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # the step without the profiler's overhead
+    for b in batches:
+        state, _ = step(state, dict(b))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(batches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            state, _ = step(state, b)
+        torch.cuda.synchronize()
+    groups = {"K1 attention_fwd": ("attention_fwd",), "K3 attention_bwd": ("attention_bwd",),
+              "GEMM": ("gemm", "xmma", "cutlass", "nvjet", "cublas"), "AdamW": ("multi_tensor", "adam"),
+              "reduction / norm / softmax": ("reduce", "norm", "softmax"), "elementwise / copy": ("elementwise", "copy"),
+              "host-to-device copy": ("memcpy htod",)}
+    totals: dict = {}
+    # device kernels and copies; record_function ranges would count their kernels twice
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    for e in rows:
+        name = e.key.lower()
+        group = next((g for g, keys in groups.items() if any(k in name for k in keys)), "other")
+        totals[group] = totals.get(group, 0.0) + e.self_device_time_total / 1e3 / len(batches)
+    busy = sum(totals.values())
+    log(f"profile of a {TRAIN_BS}-pair train step: step_ms={wall * 1e3} (host clock, without the profiler), "
+        f"device busy_ms={busy} (idle share {1 - busy / (wall * 1e3):.4f})")
+    for group, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
+        log(f"  {group}: {ms} ms per step ({ms / busy:.4f} of device time)")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:25]:
+        log(f"  {e.self_device_time_total / 1e3 / len(batches):10.3f} ms  x{e.count // len(batches):4d}  {e.key[:110]}")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke runs the port's kernels on an NVIDIA GPU")
     if not (REPO / "uniir_tpu_torch").is_dir():
@@ -399,7 +629,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    for name in ("attention", "topk"):
+    names = ("attention", "attention_bwd", "topk")
+    _build.build_all(names)  # one nvcc per source, all at once
+    for name in names:
         _build.load(name)
         log(f"built {name}: {_build.build_seconds[name]:.1f} s\n{_build.ptxas_report(name)}")
 
@@ -410,10 +642,17 @@ def main() -> None:
                "replaces": "uniir_tpu/ops/topk_pallas.py:118"},
         "K4": {"name": "bucket_max_i8", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
                "replaces": "uniir_tpu/ops/topk_pallas.py:291"},
+        "K3": {"name": "attention_bwd", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention_bwd.cu",
+               "replaces": "uniir_tpu/ops/attention_pallas.py:652", "launches": 0},
     }
     check_attention(results)
     check_sweeps(results)
     drive_main_path(results)
+    check_attention_bwd(results)
+    drive_train_path(results)  # adds its K1 launches to the serving path's
+    if "--profile" in sys.argv[1:]:
+        profile_train_step()
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")
 
     fields = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms")
     print(json.dumps({"kernels": [{f: r[f] for f in fields} for r in results.values()]}))

@@ -183,13 +183,14 @@ def test_torch_checkpoint_loads_with_ddp_and_uniir_prefixes(tmp_path):
 def test_unported_options_raise():
     from uniir_tpu_torch.core.config import Config
     from uniir_tpu_torch.models.registry import build_model_from_config
+    from uniir_tpu_torch.train.steps import make_clip_train_step
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model_from_config(Config.from_dict({"model": {"name": "BLIPFeatureFusion"}}))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MultiHeadAttention(32, 2, quant=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(32, 1, 2, remat=True)
+        make_clip_train_step(CLIPScoreFusion(CFG), with_dropout=True)  # CLIP-FF's T5 dropout
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CLIPVisionTower(CFG, pool="none")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -8,10 +8,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "uniir_tpu_torch"
-# every port module chip_smoke.py reaches, and the script itself
+# every port module chip_smoke.py reaches (serving and training), the
+# trainer, and the script itself
 SMOKE_MODULES = [
     "chip_smoke",
     "uniir_tpu_torch._build",
+    "uniir_tpu_torch.core.checkpoint",
     "uniir_tpu_torch.core.config",
     "uniir_tpu_torch.data.registry",
     "uniir_tpu_torch.models.clip",
@@ -25,8 +27,14 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.retrieval.eval",
     "uniir_tpu_torch.retrieval.index",
     "uniir_tpu_torch.retrieval.search",
+    "uniir_tpu_torch.train.engine",
+    "uniir_tpu_torch.train.losses",
+    "uniir_tpu_torch.train.optimizer",
+    "uniir_tpu_torch.train.state",
     "uniir_tpu_torch.train.steps",
+    "uniir_tpu_torch.train.trainer",
     "uniir_tpu_torch.tools.pipeline",
+    "uniir_tpu_torch.utils.logging",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "yaml", "uniir_tpu")
 

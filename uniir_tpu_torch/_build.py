@@ -17,6 +17,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -33,6 +34,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "attention": {
         "uniir_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+    },
+    "attention_bwd": {
+        "uniir_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -81,16 +85,31 @@ def _compile(name: str, target: Path) -> None:
     os.replace(tmp, target)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library `csrc/<name>.cu`, compiled first if needed."""
-    if name in _loaded:
-        return _loaded[name]
+def _ensure_built(name: str) -> float:
+    """Compile `csrc/<name>.cu` unless its library exists; returns the seconds spent."""
     target = library_path(name)
     t0 = time.perf_counter()
     if not target.exists():
         _compile(name, target)
-    build_seconds[name] = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(target))
+    return time.perf_counter() - t0
+
+
+def build_all(names) -> None:
+    """Compile the named libraries concurrently, one nvcc each, so a cold
+    start costs the slowest build rather than the sum."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        for name, seconds in zip(names, pool.map(_ensure_built, names)):
+            build_seconds[name] = seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library `csrc/<name>.cu`, compiled first if needed."""
+    if name in _loaded:
+        return _loaded[name]
+    if name not in build_seconds:
+        build_seconds[name] = _ensure_built(name)
+    lib = ctypes.CDLL(str(library_path(name)))
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int

@@ -7,7 +7,9 @@
     computes only the EOT row (EOT has the highest token id), ln_final and
     text_projection.
 
-Parameter names are OpenAI CLIP's.  Initialisers mirror the JAX package's
+Parameter names are OpenAI CLIP's.  Each tower computes in its `dtype`
+(flax's `dtype=`): it casts its input and the parameters it uses there, so
+fp32 parameters train with bf16 compute.  Initialisers mirror the JAX package's
 (clip.py:115-121,144-146,169-173,195-197 and flax's lecun_normal / xavier
 defaults), so seeded ViT-L/14 activations stay finite in bf16.  Only the
 pooled towers (`pool="cls"` / `pool="eot"`) are ported: CLIP-FF's full-token
@@ -76,10 +78,11 @@ def _reset_transformer(transformer: Transformer, generator: Optional[torch.Gener
 
 
 class CLIPVisionTower(nn.Module):
-    def __init__(self, cfg: CLIPConfig, pool: str = "cls", remat: bool = False, quant: bool = False):
+    def __init__(self, cfg: CLIPConfig, pool: str = "cls", remat: bool = False, quant: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_pool(pool, "cls")
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
         W = cfg.vision_width
         n_tokens = (cfg.image_size // cfg.patch_size) ** 2 + 1
         self.conv1 = PatchEmbed(W, cfg.patch_size)
@@ -102,8 +105,8 @@ class CLIPVisionTower(nn.Module):
         _reset_transformer(self.transformer, generator)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: [B, H, W, 3] NHWC -> [B, embed_dim] in the parameter dtype."""
-        dtype = self.proj.dtype
+        """images: [B, H, W, 3] NHWC -> [B, embed_dim] in the compute dtype."""
+        dtype = self.dtype
         x = self.conv1(images.to(dtype))
         B = x.shape[0]
         cls = self.class_embedding.to(dtype).expand(B, 1, -1)
@@ -111,14 +114,15 @@ class CLIPVisionTower(nn.Module):
         x = self.ln_pre(x)
         # pooled tower: the last block only computes the CLS row (exact)
         x = self.transformer(x, pool_idx=torch.zeros(B, dtype=torch.long, device=x.device))
-        return self.ln_post(x[:, 0]) @ self.proj
+        return self.ln_post(x[:, 0]) @ self.proj.to(dtype)
 
 
 class CLIPTextTower(nn.Module):
-    def __init__(self, cfg: CLIPConfig, pool: str = "eot", remat: bool = False, quant: bool = False):
+    def __init__(self, cfg: CLIPConfig, pool: str = "eot", remat: bool = False, quant: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         _check_pool(pool, "eot")
-        self.cfg = cfg
+        self.cfg, self.dtype = cfg, dtype
         W = cfg.text_width
         self.token_embedding = nn.Embedding(cfg.vocab_size, W)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, W))
@@ -136,15 +140,15 @@ class CLIPTextTower(nn.Module):
         _reset_transformer(self.transformer, generator)
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:
-        """text: [B, L] int token ids -> [B, embed_dim] in the parameter dtype."""
-        dtype = self.text_projection.dtype
+        """text: [B, L] int token ids -> [B, embed_dim] in the compute dtype."""
+        dtype = self.dtype
         text = text.long()
         x = self.token_embedding(text).to(dtype) + self.positional_embedding.to(dtype)[: text.shape[1]]
         eot = text.argmax(dim=-1)  # EOT has the highest token id
         # pooled tower: the last block only computes the EOT row (exact; it
         # attends to positions <= its own)
         x = self.transformer(x, pool_idx=eot)
-        return self.ln_final(x[:, 0]) @ self.text_projection
+        return self.ln_final(x[:, 0]) @ self.text_projection.to(dtype)
 
 
 def clip_logit_scale_init() -> float:

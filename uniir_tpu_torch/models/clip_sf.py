@@ -3,6 +3,10 @@
 Score-level fusion: fused = img_emb * img_mask + txt_emb * txt_mask, masked
 in the compute dtype and returned in fp32 (clip_sf.py:45-47).
 
+`dtype` is the compute dtype of both towers.  Training keeps fp32
+parameters and casts them at each use (flax's `dtype=`); serving casts
+them once in place (`to_compute_dtype`).
+
 The module has OpenAI CLIP's layout: the text tower's parameters sit at the
 root (`token_embedding`, `transformer`, `ln_final`, ...) and the vision
 tower under `visual`, so an OpenAI CLIP state dict loads as it is.
@@ -20,9 +24,9 @@ from uniir_tpu_torch.models.layers import LayerNorm
 
 
 class CLIPScoreFusion(CLIPTextTower):
-    def __init__(self, cfg: CLIPConfig, remat: bool = False, quant: bool = False):
-        super().__init__(cfg, pool="eot", remat=remat, quant=quant)
-        self.visual = CLIPVisionTower(cfg, pool="cls", remat=remat, quant=quant)
+    def __init__(self, cfg: CLIPConfig, remat: bool = False, quant: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, pool="eot", remat=remat, quant=quant, dtype=dtype)
+        self.visual = CLIPVisionTower(cfg, pool="cls", remat=remat, quant=quant, dtype=dtype)
         self.logit_scale = nn.Parameter(torch.empty(()))
         self.logit_scale.data.fill_(clip_logit_scale_init())
 
@@ -35,11 +39,13 @@ class CLIPScoreFusion(CLIPTextTower):
 
     @torch.no_grad()
     def to_compute_dtype(self, dtype: torch.dtype) -> "CLIPScoreFusion":
-        """Cast the parameters once, in place, for serving (bf16 on the card).
+        """Compute in `dtype` and cast the parameters once, in place, for
+        serving (bf16 on the card).
 
         The JAX package keeps fp32 parameters and casts them at each use;
         casting once gives the same values.  LayerNorm parameters (flax
         normalises in fp32) and logit_scale stay fp32."""
+        self.dtype = self.visual.dtype = dtype
         fp32 = {id(p) for m in self.modules() if isinstance(m, LayerNorm) for p in m.parameters()}
         fp32.add(id(self.logit_scale))
         for p in self.parameters():

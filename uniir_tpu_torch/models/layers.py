@@ -1,14 +1,20 @@
-"""Transformer building blocks, bf16 serving path (counterpart of uniir_tpu/models/layers.py).
+"""Transformer building blocks (counterpart of uniir_tpu/models/layers.py).
 
 Parameter names follow OpenAI CLIP's state dict (`attn.in_proj_weight`,
 `mlp.c_fc`, `ln_1`, `transformer.resblocks.<i>`, ...), so a published
-checkpoint loads directly.  Arithmetic follows the JAX package: LayerNorm
-statistics in fp32 with eps 1e-6 (flax's default), matmuls in the module's
-parameter dtype, fp32 softmax, and bf16 self-attention through kernel K1
-(`ops.attention.attention`).
+checkpoint loads directly.  Arithmetic follows the JAX package: the compute
+dtype is the input's (the towers cast their input to it), and every
+parameter is cast to it at each use, as flax's `dtype=` does, so training
+keeps fp32 parameters while the residual stream and the matmuls run in
+bf16 (serving casts the parameters once instead, with the same values).
+LayerNorm statistics are fp32 with eps 1e-6 (flax's default), softmax is
+fp32, and bf16 self-attention goes through the differentiable
+`ops.attention.attention` (kernels K1 forward, K3 backward).
+`Transformer(remat=True)` recomputes each block in the backward pass
+(`torch.utils.checkpoint`, the counterpart of `nn.remat`).
 
-Not carried over here: int8 projections (`quant`), the padded-flat tower
-(`flat`) and rematerialisation (`remat`).  Asking for quant or remat raises.
+Not carried over here: int8 projections (`quant`) and the padded-flat tower
+(`flat`).  Asking for quant raises.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from uniir_tpu_torch.ops.attention import attention
 
@@ -40,6 +47,13 @@ def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Genera
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
+class Linear(nn.Linear):
+    """nn.Linear whose weight and bias are cast to the input's dtype at use."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class LayerNorm(nn.LayerNorm):
     """flax LayerNorm: fp32 statistics and affine, output in the input's dtype."""
 
@@ -54,9 +68,12 @@ class LayerNorm(nn.LayerNorm):
 def qkv_project(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, kv: Optional[torch.Tensor] = None):
     """The fused [3W, W] in_proj applied as three row-sliced products
     (layers.py:61-85): each of q, k, v comes out contiguous for K1."""
-    W = weight.shape[1]
+    W, dtype = weight.shape[1], x.dtype
     kv = x if kv is None else kv
-    return tuple(F.linear(inp, weight[i * W : (i + 1) * W], bias[i * W : (i + 1) * W]) for i, inp in enumerate((x, kv, kv)))
+    return tuple(
+        F.linear(inp, weight[i * W : (i + 1) * W].to(dtype), bias[i * W : (i + 1) * W].to(dtype))
+        for i, inp in enumerate((x, kv, kv))
+    )
 
 
 class MultiHeadAttention(nn.Module):
@@ -73,7 +90,7 @@ class MultiHeadAttention(nn.Module):
         self.width, self.num_heads, self.causal = width, num_heads, causal
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
-        self.out_proj = nn.Linear(width, width)
+        self.out_proj = Linear(width, width)
         self.reset_parameters()
 
     @torch.no_grad()
@@ -112,8 +129,8 @@ class MLP(nn.Module):
         if quant:
             raise _not_ported("int8 MLP projections", "Queue 1 item 6")
         self.width, self.hidden_width = width, hidden_width
-        self.c_fc = nn.Linear(width, hidden_width)
-        self.c_proj = nn.Linear(hidden_width, width)
+        self.c_fc = Linear(width, hidden_width)
+        self.c_proj = Linear(hidden_width, width)
         self.reset_parameters()
 
     @torch.no_grad()
@@ -160,13 +177,14 @@ class TransformerBlock(nn.Module):
 
 class Transformer(nn.Module):
     """Stack of pre-LN blocks; with `pool_idx` the last block computes only
-    the pooled token and the stack returns [B, 1, W]."""
+    the pooled token and the stack returns [B, 1, W].  With `remat` each
+    block keeps only its input for the backward pass and is recomputed
+    there (every block, as `nn.remat(TransformerBlock)` at layers.py:400)."""
 
     def __init__(self, width: int, layers: int, num_heads: int, causal: bool = False, quant: bool = False,
                  remat: bool = False):
         super().__init__()
-        if remat:
-            raise _not_ported("activation checkpointing (remat)", "Queue 1 item 3, the training path")
+        self.remat = remat
         self.resblocks = nn.ModuleList(
             TransformerBlock(width, num_heads, causal=causal, quant=quant) for _ in range(layers)
         )
@@ -174,7 +192,11 @@ class Transformer(nn.Module):
     def forward(self, x: torch.Tensor, pool_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
         last = len(self.resblocks) - 1
         for i, blk in enumerate(self.resblocks):
-            x = blk(x, pool_idx if i == last else None)
+            idx = pool_idx if i == last else None
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(blk, x, idx, use_reentrant=False)
+            else:
+                x = blk(x, idx)
         return x
 
 
@@ -200,4 +222,4 @@ class PatchEmbed(nn.Module):
         p = self.patch_size
         gh, gw = H // p, W // p
         x = x[:, : gh * p, : gw * p].reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 5, 2, 4)
-        return x.reshape(B, gh * gw, C * p * p) @ self.weight.reshape(self.width, -1).T
+        return x.reshape(B, gh * gw, C * p * p) @ self.weight.reshape(self.width, -1).T.to(x.dtype)

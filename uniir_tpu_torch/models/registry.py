@@ -1,10 +1,14 @@
 """Model registry (counterpart of uniir_tpu/models/registry.py): CLIP-SF only.
 
-`build_clip_sf` returns a `ModelBundle`: the module on its device in its
-compute dtype, the tokenizer and the image transforms.  Weights come from a
-torch checkpoint in OpenAI CLIP / UniIR layout when the config names one,
-otherwise from a seeded `torch.Generator` with the JAX package's
-initialisers.  The other three retrievers raise until they are ported.
+`build_clip_sf` returns a `ModelBundle`: the module on its device, the
+tokenizer and the image transforms.  For serving the parameters are cast
+once to the compute dtype; for training (`train=True`) they stay fp32
+masters, cast at each use, and `model.remat` switches on per-block
+recomputation.  Weights come from a torch checkpoint in OpenAI CLIP / UniIR
+layout (or the port's own train checkpoint directory) when the config
+names one, otherwise from a seeded `torch.Generator` with the JAX
+package's initialisers.  The other three retrievers raise until they are
+ported.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Any, Callable
 
 import torch
 
+from uniir_tpu_torch.core.checkpoint import CHECKPOINT_FILE
 from uniir_tpu_torch.models.clip import CLIP_CONFIGS, CLIPConfig
 from uniir_tpu_torch.models.clip_sf import CLIPScoreFusion
 
@@ -24,7 +29,7 @@ MODEL_NAMES = ("CLIPScoreFusion", "CLIPFeatureFusion", "BLIPScoreFusion", "BLIPF
 @dataclass
 class ModelBundle:
     name: str
-    model: Any  # nn.Module, on its device, in its compute dtype
+    model: Any  # nn.Module on its device
     tokenizer: Callable
     img_preprocess_fn: Callable
     img_preprocess_fn_eval: Callable
@@ -32,17 +37,28 @@ class ModelBundle:
     embed_dim: int
 
 
-def seeded_clip_sf(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16) -> CLIPScoreFusion:
-    """CLIP-SF with weights drawn from `seed` on `device`, cast to `dtype`.
-
-    The module is built without storage and filled in place on the device,
-    so a ViT-L/14 never takes a CPU round trip."""
+def _seeded(cfg: CLIPConfig, device, seed: int, **kwargs) -> CLIPScoreFusion:
+    # built without storage and filled in place on the device, so a ViT-L/14
+    # never takes a CPU round trip
     device = torch.device(device)
     with torch.device("meta"):
-        model = CLIPScoreFusion(cfg)
+        model = CLIPScoreFusion(cfg, **kwargs)
     model = model.to_empty(device=device)
     model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
-    return model.to_compute_dtype(dtype).eval()
+    return model
+
+
+def seeded_clip_sf(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16) -> CLIPScoreFusion:
+    """CLIP-SF for serving: weights drawn from `seed` on `device`, cast to `dtype`."""
+    return _seeded(cfg, device, seed).to_compute_dtype(dtype).eval()
+
+
+def seeded_clip_sf_train(
+    cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16, remat: bool = False
+) -> CLIPScoreFusion:
+    """CLIP-SF for training: fp32 master weights drawn from `seed` on
+    `device`, computing in `dtype`, with per-block recomputation if `remat`."""
+    return _seeded(cfg, device, seed, dtype=dtype, remat=remat).train()
 
 
 def _strip(sd: dict) -> dict:
@@ -65,7 +81,7 @@ def load_torch_checkpoint(model: CLIPScoreFusion, path: str) -> None:
     model.load_state_dict(sd, strict=True)
 
 
-def build_clip_sf(config, device=None) -> ModelBundle:
+def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     from uniir_tpu.data.preprocess import clip_transform
     from uniir_tpu.data.tokenizers.clip_bpe import CLIPTokenizer
 
@@ -75,17 +91,24 @@ def build_clip_sf(config, device=None) -> ModelBundle:
         raise NotImplementedError("int8 serving is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 6)")
     device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
     dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
-    model = seeded_clip_sf(cfg, device, int(getattr(config, "seed", 0)), dtype)
+    seed = int(getattr(config, "seed", 0))
+    if train:
+        model = seeded_clip_sf_train(cfg, device, seed, dtype, remat=bool(getattr(model_config, "remat", False)))
+    else:
+        model = seeded_clip_sf(cfg, device, seed, dtype)
 
     ckpt_paths = [getattr(model_config, "pretrained_torch_ckpt", None)]
     ckpt_cfg = getattr(model_config, "ckpt_config", None)
-    if ckpt_cfg is not None and getattr(ckpt_cfg, "ckpt_name", ""):
+    # in training, ckpt_config names the checkpoint to resume (the trainer's job)
+    if not train and ckpt_cfg is not None and getattr(ckpt_cfg, "ckpt_name", ""):
         ckpt_paths.append(os.path.join(config.uniir_dir, ckpt_cfg.ckpt_dir, ckpt_cfg.ckpt_name))
     for path in filter(None, ckpt_paths):
+        if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):  # the port's train checkpoint directory
+            path = os.path.join(path, CHECKPOINT_FILE)
         if not path.endswith((".pt", ".pth")):
             raise NotImplementedError(
-                f"{path}: only torch state dicts (.pt / .pth) load into uniir_tpu_torch; "
-                "JAX train-state checkpoints wait for core/checkpoint.py (ROADMAP.md, Queue 1 item 2)"
+                f"{path}: only torch state dicts (.pt / .pth) and the port's train checkpoints load into "
+                "uniir_tpu_torch; JAX (orbax) train-state checkpoints are not read yet (ROADMAP.md, Queue 1 item 3)"
             )
         load_torch_checkpoint(model, path)
         print(f"Loaded CLIPScoreFusion weights from {path}")
@@ -107,10 +130,10 @@ def build_clip_sf(config, device=None) -> ModelBundle:
     )
 
 
-def build_model_from_config(config, device=None) -> ModelBundle:
+def build_model_from_config(config, device=None, train: bool = False) -> ModelBundle:
     name = config.model.name
     if name == "CLIPScoreFusion":
-        return build_clip_sf(config, device)
+        return build_clip_sf(config, device, train)
     if name in MODEL_NAMES:
         raise NotImplementedError(f"{name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 items 4-5)")
     raise ValueError(f"Unknown model name {name!r}; expected one of {MODEL_NAMES}")
