@@ -187,8 +187,9 @@ def test_unported_options_raise():
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model_from_config(Config.from_dict({"model": {"name": "BLIPFeatureFusion"}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiHeadAttention(32, 2, quant=True)
+    assert MultiHeadAttention(32, 2, quant=True).qkv_proj.weight_q.dtype == torch.int8  # int8 is ported
+    with pytest.raises(ValueError, match="inference only"):
+        Transformer(32, 2, 2, quant=True, remat=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_clip_train_step(CLIPScoreFusion(CFG), with_dropout=True)  # CLIP-FF's T5 dropout
     with pytest.raises(NotImplementedError, match="ROADMAP"):

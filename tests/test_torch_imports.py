@@ -1,10 +1,13 @@
 """Import guard: the port and chip_smoke.py stay free of JAX, flax, Pillow,
 PyYAML and the JAX package (the GPU host has none of them)."""
 
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "uniir_tpu_torch"
@@ -15,13 +18,22 @@ SMOKE_MODULES = [
     "uniir_tpu_torch._build",
     "uniir_tpu_torch.core.checkpoint",
     "uniir_tpu_torch.core.config",
+    "uniir_tpu_torch.data.collator",
+    "uniir_tpu_torch.data.data_utils",
+    "uniir_tpu_torch.data.dataset",
+    "uniir_tpu_torch.data.loader",
+    "uniir_tpu_torch.data.preprocess",
     "uniir_tpu_torch.data.registry",
+    "uniir_tpu_torch.data.tokenizers.clip_bpe",
     "uniir_tpu_torch.models.clip",
     "uniir_tpu_torch.models.clip_sf",
     "uniir_tpu_torch.models.convert",
     "uniir_tpu_torch.models.layers",
     "uniir_tpu_torch.models.registry",
     "uniir_tpu_torch.ops.attention",
+    "uniir_tpu_torch.ops.calibrate",
+    "uniir_tpu_torch.ops.mlp",
+    "uniir_tpu_torch.ops.quant",
     "uniir_tpu_torch.ops.topk",
     "uniir_tpu_torch.retrieval.embedder",
     "uniir_tpu_torch.retrieval.eval",
@@ -33,10 +45,15 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.train.state",
     "uniir_tpu_torch.train.steps",
     "uniir_tpu_torch.train.trainer",
+    "uniir_tpu_torch.tools.calibrate_int8",
     "uniir_tpu_torch.tools.pipeline",
     "uniir_tpu_torch.utils.logging",
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "yaml", "uniir_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "yaml", "regex", "uniir_tpu")
+# never imported by the port, at any depth / only inside functions
+NEVER = ("jax", "jaxlib", "flax", "uniir_tpu")
+NOT_AT_TOP = ("PIL", "yaml", "regex")
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
 def test_smoke_modules_import_no_jax_pil_or_yaml():
@@ -60,6 +77,46 @@ def test_no_port_file_imports_jax():
         if any(line.lstrip().startswith(("import jax", "from jax")) for line in path.read_text().splitlines())
     ]
     assert offenders == []
+
+
+def _imported_roots(node: ast.AST):
+    """Top-level package names an Import / ImportFrom node brings in."""
+    if isinstance(node, ast.Import):
+        return [alias.name.split(".")[0] for alias in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+        return [node.module.split(".")[0]]
+    return []
+
+
+def forbidden_imports(source: str):
+    """(line, package) of every import of a NEVER package at any depth --
+    inside functions, classes, try blocks -- and of a NOT_AT_TOP package
+    outside a function."""
+    tree = ast.parse(source)
+    found = [(n.lineno, root) for n in ast.walk(tree) for root in _imported_roots(n) if root in NEVER]
+
+    def outside_functions(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            found.extend((child.lineno, root) for root in _imported_roots(child) if root in NOT_AT_TOP)
+            outside_functions(child)
+
+    outside_functions(tree)
+    return sorted(found)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_imports_nothing_forbidden_at_any_depth(path):
+    assert forbidden_imports(path.read_text()) == []
+
+
+def test_import_walk_sees_inside_functions():
+    lazy = "def f():\n    from uniir_tpu.data.dataset import Mode\n    import PIL\n"
+    assert forbidden_imports(lazy) == [(2, "uniir_tpu")]
+    top = "try:\n    import yaml\nexcept ImportError:\n    yaml = None\nclass A:\n    import regex\n"
+    assert forbidden_imports(top) == [(2, "yaml"), (6, "regex")]
+    assert forbidden_imports("import uniir_tpu_torch.ops\nfrom . import x\n") == []
 
 
 def test_chip_smoke_refuses_to_run_without_the_repo(tmp_path):

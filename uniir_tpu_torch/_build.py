@@ -29,14 +29,21 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry points of each library: name -> (argtypes); every one returns the
 # CUDA error code of its launch.
 SIGNATURES = {
     "attention": {
-        "uniir_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P),
+        "uniir_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "attention_bwd": {
-        "uniir_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _P),
+        "uniir_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
+    },
+    "int8_matmul": {
+        "uniir_int8_matmul": (_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P),
+    },
+    "int8_mlp": {
+        "uniir_int8_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),

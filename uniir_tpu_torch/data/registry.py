@@ -1,8 +1,9 @@
-"""M-BEIR task table and id hashing used by retrieval (counterpart of uniir_tpu/data/registry.py).
+"""M-BEIR task table, id hashing and text canonicalisation (counterpart of
+uniir_tpu/data/registry.py).
 
 Byte-compatible with the JAX package's tables and hash scheme (a test holds
-them equal).  Kept port-local because `uniir_tpu/data/__init__.py` imports
-the image dataset and with it Pillow, which the GPU host does not have.
+them equal).  The port keeps its own copy: it imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -48,3 +49,20 @@ def get_mbeir_task_name(task_id: int):
         if id_ == task_id:
             return name
     return None
+
+
+def get_mbeir_task_id(source_modality, target_modality):
+    return MBEIR_TASK.get(f"{source_modality} -> {target_modality}", None)
+
+
+def format_string(s) -> str:
+    """Canonicalize a text string (reference utils.py:110-116).
+
+    Strip, remove carriage returns and surrounding double quotes, capitalize
+    the first character, and terminate with '.' unless already punctuated.
+    """
+    s = (s or "").replace("\r", "").strip().strip('"')
+    if s:
+        s = s[0].upper() + s[1:]
+        s = s + "." if s[-1] not in [".", "?", "!"] else s
+    return s

@@ -9,7 +9,8 @@
 
 Parameter names are OpenAI CLIP's.  Each tower computes in its `dtype`
 (flax's `dtype=`): it casts its input and the parameters it uses there, so
-fp32 parameters train with bf16 compute.  Initialisers mirror the JAX package's
+fp32 parameters train with bf16 compute.  `quant` with `int8_mode` and
+`mlp_route` makes the blocks' Dense layers int8 (`models/layers.py`).  Initialisers mirror the JAX package's
 (clip.py:115-121,144-146,169-173,195-197 and flax's lecun_normal / xavier
 defaults), so seeded ViT-L/14 activations stay finite in bf16.  Only the
 pooled towers (`pool="cls"` / `pool="eot"`) are ported: CLIP-FF's full-token
@@ -79,7 +80,7 @@ def _reset_transformer(transformer: Transformer, generator: Optional[torch.Gener
 
 class CLIPVisionTower(nn.Module):
     def __init__(self, cfg: CLIPConfig, pool: str = "cls", remat: bool = False, quant: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
         _check_pool(pool, "cls")
         self.cfg, self.dtype = cfg, dtype
@@ -89,7 +90,8 @@ class CLIPVisionTower(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(W))
         self.positional_embedding = nn.Parameter(torch.empty(n_tokens, W))
         self.ln_pre = LayerNorm(W)
-        self.transformer = Transformer(W, cfg.vision_layers, cfg.vision_heads, quant=quant, remat=remat)
+        self.transformer = Transformer(W, cfg.vision_layers, cfg.vision_heads, quant=quant, remat=remat,
+                                       int8_mode=int8_mode, mlp_route=mlp_route)
         self.ln_post = LayerNorm(W)
         self.proj = nn.Parameter(torch.empty(W, cfg.embed_dim))
         self.reset_parameters()
@@ -119,14 +121,15 @@ class CLIPVisionTower(nn.Module):
 
 class CLIPTextTower(nn.Module):
     def __init__(self, cfg: CLIPConfig, pool: str = "eot", remat: bool = False, quant: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
         _check_pool(pool, "eot")
         self.cfg, self.dtype = cfg, dtype
         W = cfg.text_width
         self.token_embedding = nn.Embedding(cfg.vocab_size, W)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, W))
-        self.transformer = Transformer(W, cfg.text_layers, cfg.text_heads, causal=True, quant=quant, remat=remat)
+        self.transformer = Transformer(W, cfg.text_layers, cfg.text_heads, causal=True, quant=quant, remat=remat,
+                                       int8_mode=int8_mode, mlp_route=mlp_route)
         self.ln_final = LayerNorm(W)
         self.text_projection = nn.Parameter(torch.empty(W, cfg.embed_dim))
         CLIPTextTower.reset_parameters(self)

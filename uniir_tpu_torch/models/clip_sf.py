@@ -7,6 +7,11 @@ in the compute dtype and returned in fp32 (clip_sf.py:45-47).
 parameters and casts them at each use (flax's `dtype=`); serving casts
 them once in place (`to_compute_dtype`).
 
+`quant=True` builds the int8 serving twin (inference only): the blocks'
+Dense layers hold int8 weights, filled from a float model by
+`ops.quant.quantize_state_dict`; `int8_mode` and `mlp_route` pick the
+activation mode and the static MLP route (`ops/quant.py`).
+
 The module has OpenAI CLIP's layout: the text tower's parameters sit at the
 root (`token_embedding`, `transformer`, `ln_final`, ...) and the vision
 tower under `visual`, so an OpenAI CLIP state dict loads as it is.
@@ -24,9 +29,11 @@ from uniir_tpu_torch.models.layers import LayerNorm
 
 
 class CLIPScoreFusion(CLIPTextTower):
-    def __init__(self, cfg: CLIPConfig, remat: bool = False, quant: bool = False, dtype: torch.dtype = torch.float32):
-        super().__init__(cfg, pool="eot", remat=remat, quant=quant, dtype=dtype)
-        self.visual = CLIPVisionTower(cfg, pool="cls", remat=remat, quant=quant, dtype=dtype)
+    def __init__(self, cfg: CLIPConfig, remat: bool = False, quant: bool = False, dtype: torch.dtype = torch.float32,
+                 int8_mode: str = "dynamic", mlp_route: str = "fused"):
+        int8 = dict(quant=quant, int8_mode=int8_mode, mlp_route=mlp_route)
+        super().__init__(cfg, pool="eot", remat=remat, dtype=dtype, **int8)
+        self.visual = CLIPVisionTower(cfg, pool="cls", remat=remat, dtype=dtype, **int8)
         self.logit_scale = nn.Parameter(torch.empty(()))
         self.logit_scale.data.fill_(clip_logit_scale_init())
 

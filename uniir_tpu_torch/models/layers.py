@@ -13,12 +13,22 @@ fp32, and bf16 self-attention goes through the differentiable
 `Transformer(remat=True)` recomputes each block in the backward pass
 (`torch.utils.checkpoint`, the counterpart of `nn.remat`).
 
-Not carried over here: int8 projections (`quant`) and the padded-flat tower
-(`flat`).  Asking for quant raises.
+With `quant` the four Dense layers of each block are `QuantLinear`s over
+int8 weights (`ops/quant.py`, kernel K5) in the activation mode
+`int8_mode` ("dynamic", "wonly" or "static"), and under "static" with
+calibrated `act_scales` the MLP half-block is one call of kernel K6
+(`ops/mlp.py`) unless `mlp_route` is "xla".  Quantised layers are
+inference only.  Calibration (`ops/calibrate.py`) hooks the outputs of
+`ln_1`, `ln_2` and `c_fc` and the input of `out_proj` (the attention
+output, the JAX package's `attn_pre_out` probe) on the float modules.
+
+Not carried over here: the padded-flat tower (`flat`), whose math is that
+of the 3-D path.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -27,13 +37,34 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from uniir_tpu_torch.ops import mlp as mlp_ops
+from uniir_tpu_torch.ops import quant as quant_ops
 from uniir_tpu_torch.ops.attention import attention
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (PyTorch's and OpenAI CLIP's is 1e-5)
 
 
-def _not_ported(what: str, queue: str):
-    return NotImplementedError(f"{what} is not ported to uniir_tpu_torch yet (ROADMAP.md, {queue})")
+class _ActScales:
+    """Mixin for quantised modules that may carry a calibrated `act_scales`
+    buffer (two fp32 scales): a host copy is read once, at first use, so a
+    forward never waits on the device for them."""
+
+    def _init_act_scales(self) -> None:
+        self.register_buffer("act_scales", None)  # absent from the state dict until calibrated
+        self._act_host = None
+
+    def set_act_scales(self, values) -> None:
+        ref = next(self.buffers())
+        self.register_buffer("act_scales", torch.as_tensor(values, dtype=torch.float32).to(ref.device))
+        self._act_host = None
+
+    def static_scales(self):
+        """(a, b) as Python floats under the static mode when calibrated, else None."""
+        if self.int8_mode != "static" or getattr(self, "act_scales", None) is None:
+            return None
+        if self._act_host is None:
+            self._act_host = tuple(float(v) for v in self.act_scales.tolist())
+        return self._act_host
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -76,18 +107,28 @@ def qkv_project(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, kv: O
     )
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(nn.Module, _ActScales):
     """Multi-head attention with a fused in_proj (OpenAI CLIP's nn.MultiheadAttention layout).
 
     bf16 self-attention with no explicit mask goes through kernel K1; every
     other case (fp32, cross/pooled attention, an explicit mask) takes the
-    plain einsum path, as in the JAX package."""
+    plain einsum path, as in the JAX package.
 
-    def __init__(self, width: int, num_heads: int, causal: bool = False, quant: bool = False):
+    With `quant` the projections are int8 (`qkv_proj`, `out_proj`): one
+    fused [3W, W] weight whose thirds are applied as column-sliced products,
+    so q, k and v share one activation quantisation and each comes out
+    contiguous; calibrated `act_scales` = [a_qkv, a_out] make both static."""
+
+    def __init__(self, width: int, num_heads: int, causal: bool = False, quant: bool = False,
+                 int8_mode: str = "dynamic"):
         super().__init__()
-        if quant:
-            raise _not_ported("int8 attention projections", "Queue 1 item 6")
         self.width, self.num_heads, self.causal = width, num_heads, causal
+        self.quant, self.int8_mode = quant, int8_mode
+        if quant:
+            self.qkv_proj = quant_ops.QuantLinear(width, 3 * width, mode=int8_mode)
+            self.out_proj = quant_ops.QuantLinear(width, width, mode=int8_mode)
+            self._init_act_scales()
+            return
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
         self.out_proj = Linear(width, width)
@@ -95,17 +136,36 @@ class MultiHeadAttention(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.quant:  # quantised weights come from a float model, not from a seed
+            return
         lecun_normal_(self.in_proj_weight, self.width, generator)
         self.in_proj_bias.zero_()
         nn.init.xavier_uniform_(self.out_proj.weight, generator=generator)
         self.out_proj.bias.zero_()
 
+    def _qkv_int8(self, x: torch.Tensor, kv: Optional[torch.Tensor], a_in: Optional[float]):
+        W, proj = self.width, self.qkv_proj
+        if kv is None:
+            # one quantisation of x for the three column-sliced products
+            shared = None if self.int8_mode == "wonly" else quant_ops.quantize_input(x, self.int8_mode, a_in)
+            return tuple(proj(x, columns=(i * W, (i + 1) * W), a_static=a_in, quantized=shared) for i in range(3))
+        # cross operand: x pays only the q third, kv the k / v two thirds
+        q = proj(x, columns=(0, W), a_static=a_in)
+        kv_out = proj(kv, columns=(W, 3 * W), a_static=a_in)
+        return q, kv_out[..., :W], kv_out[..., W:]
+
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None, mask: Optional[torch.Tensor] = None):
-        q, k, v = qkv_project(x, self.in_proj_weight, self.in_proj_bias, kv)
+        if self.quant:
+            a_attn = self.static_scales()
+            q, k, v = self._qkv_int8(x, kv, None if a_attn is None else a_attn[0])
+            out_proj = functools.partial(self.out_proj, a_static=None if a_attn is None else a_attn[1])
+        else:
+            q, k, v = qkv_project(x, self.in_proj_weight, self.in_proj_bias, kv)
+            out_proj = self.out_proj
         head_dim = self.width // self.num_heads
         scale = head_dim**-0.5
         if kv is None and mask is None and q.dtype == torch.bfloat16:
-            return self.out_proj(attention(q, k, v, self.num_heads, scale, self.causal))
+            return out_proj(attention(q, k, v, self.num_heads, scale, self.causal))
 
         B, Lq, Lk = x.shape[0], q.shape[1], k.shape[1]
         if self.causal and mask is None:
@@ -118,42 +178,69 @@ class MultiHeadAttention(nn.Module):
             logits = torch.where(mask, logits, torch.finfo(torch.float32).min)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, Lq, self.width)
-        return self.out_proj(out)
+        return out_proj(out)
 
 
-class MLP(nn.Module):
-    """c_fc -> QuickGELU -> c_proj; with `res` the residual add is part of it."""
+class MLP(nn.Module, _ActScales):
+    """c_fc -> QuickGELU -> c_proj; with `res` the residual add is part of it.
 
-    def __init__(self, width: int, hidden_width: int, quant: bool = False):
+    That ownership lets the static int8 mode run the whole half-block as one
+    call of kernel K6 (`ops/mlp.py`), the hidden never leaving the chip: it
+    needs `quant`, `int8_mode="static"`, calibrated `act_scales` = [a1, a2]
+    and `res`.  `mlp_route="xla"`, or a shape K6 does not take, runs two
+    static int8 products around a hidden in the compute dtype instead;
+    without calibrated scales both products quantise dynamically."""
+
+    def __init__(self, width: int, hidden_width: int, quant: bool = False, int8_mode: str = "dynamic",
+                 mlp_route: str = "fused"):
         super().__init__()
-        if quant:
-            raise _not_ported("int8 MLP projections", "Queue 1 item 6")
         self.width, self.hidden_width = width, hidden_width
+        self.quant, self.int8_mode, self.mlp_route = quant, int8_mode, mlp_route
+        if quant:
+            self.c_fc = quant_ops.QuantLinear(width, hidden_width, mode=int8_mode)
+            self.c_proj = quant_ops.QuantLinear(hidden_width, width, mode=int8_mode)
+            self._init_act_scales()
+            return
         self.c_fc = Linear(width, hidden_width)
         self.c_proj = Linear(hidden_width, width)
         self.reset_parameters()
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.quant:
+            return
         lecun_normal_(self.c_fc.weight, self.width, generator)
         lecun_normal_(self.c_proj.weight, self.hidden_width, generator)
         self.c_fc.bias.zero_()
         self.c_proj.bias.zero_()
 
     def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.c_proj(quick_gelu(self.c_fc(x)))
-        return x if res is None else res + x
+        if not self.quant:
+            x = self.c_proj(quick_gelu(self.c_fc(x)))
+            return x if res is None else res + x
+        a = self.static_scales()
+        fc1, fc2 = self.c_fc, self.c_proj
+        if (a is not None and res is not None and self.mlp_route == "fused"
+                and (x.device.type == "cpu" or mlp_ops.int8_mlp_supported(self.width, self.hidden_width, "quick_gelu"))):
+            return mlp_ops.int8_mlp(
+                x, res, fc1.weight_q, fc1.scale, fc1.bias, fc2.weight_q, fc2.scale, fc2.bias, a[0], a[1],
+                act="quick_gelu",
+            ).to(x.dtype)
+        h = quick_gelu(fc1(x, a_static=None if a is None else a[0]))
+        h = fc2(h, a_static=None if a is None else a[1])
+        return h if res is None else res + h
 
 
 class TransformerBlock(nn.Module):
     """Pre-LN residual block (CLIP's ResidualAttentionBlock)."""
 
-    def __init__(self, width: int, num_heads: int, causal: bool = False, quant: bool = False):
+    def __init__(self, width: int, num_heads: int, causal: bool = False, quant: bool = False,
+                 int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
         self.causal = causal
-        self.attn = MultiHeadAttention(width, num_heads, causal=causal, quant=quant)
+        self.attn = MultiHeadAttention(width, num_heads, causal=causal, quant=quant, int8_mode=int8_mode)
         self.ln_1 = LayerNorm(width)
-        self.mlp = MLP(width, 4 * width, quant=quant)
+        self.mlp = MLP(width, 4 * width, quant=quant, int8_mode=int8_mode, mlp_route=mlp_route)
         self.ln_2 = LayerNorm(width)
 
     def forward(self, x: torch.Tensor, pool_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -182,11 +269,14 @@ class Transformer(nn.Module):
     there (every block, as `nn.remat(TransformerBlock)` at layers.py:400)."""
 
     def __init__(self, width: int, layers: int, num_heads: int, causal: bool = False, quant: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
+        if quant and remat:
+            raise ValueError("int8 layers are inference only: quant and remat do not combine")
         self.remat = remat
         self.resblocks = nn.ModuleList(
-            TransformerBlock(width, num_heads, causal=causal, quant=quant) for _ in range(layers)
+            TransformerBlock(width, num_heads, causal=causal, quant=quant, int8_mode=int8_mode, mlp_route=mlp_route)
+            for _ in range(layers)
         )
 
     def forward(self, x: torch.Tensor, pool_idx: Optional[torch.Tensor] = None) -> torch.Tensor:

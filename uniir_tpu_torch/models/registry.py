@@ -7,21 +7,34 @@ masters, cast at each use, and `model.remat` switches on per-block
 recomputation.  Weights come from a torch checkpoint in OpenAI CLIP / UniIR
 layout (or the port's own train checkpoint directory) when the config
 names one, otherwise from a seeded `torch.Generator` with the JAX
-package's initialisers.  The other three retrievers raise until they are
-ported.
+package's initialisers.  With `model.int8` the loaded fp32 weights are
+quantised into the int8 serving twin (`quantize_clip_sf`); the activation
+mode and the static MLP route are read from the environment once, here
+(`UNIIR_INT8_BACKEND`, `UNIIR_INT8_MLP`; see `ops/quant.py`), and
+`model.int8_calibration` names the .npz of calibrated activation scales the
+static mode needs.  The other three retrievers raise until they are ported.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from uniir_tpu_torch.core.checkpoint import CHECKPOINT_FILE
+from uniir_tpu_torch.data.preprocess import clip_transform
+from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
 from uniir_tpu_torch.models.clip import CLIP_CONFIGS, CLIPConfig
 from uniir_tpu_torch.models.clip_sf import CLIPScoreFusion
+from uniir_tpu_torch.ops.calibrate import act_scales_by_module, load_act_scales
+from uniir_tpu_torch.ops.quant import (
+    int8_mlp_route_from_env,
+    int8_mode_from_env,
+    load_quantized_state_dict,
+    quantize_state_dict,
+)
 
 MODEL_NAMES = ("CLIPScoreFusion", "CLIPFeatureFusion", "BLIPScoreFusion", "BLIPFeatureFusion")
 
@@ -53,6 +66,22 @@ def seeded_clip_sf(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = 
     return _seeded(cfg, device, seed).to_compute_dtype(dtype).eval()
 
 
+def quantize_clip_sf(model: CLIPScoreFusion, int8_mode: str = "dynamic", mlp_route: str = "fused",
+                     act_scales: Optional[dict] = None) -> CLIPScoreFusion:
+    """The int8 serving twin of a float CLIP-SF, on its device, computing in
+    its dtype: every block's Dense weights quantised per output channel from
+    the model's weights as they are (quantise before `to_compute_dtype` to
+    start from fp32).  `act_scales`: calibrated pairs keyed by flax module
+    path (`ops.calibrate.load_act_scales`); a stale key is an error."""
+    device = next(model.parameters()).device
+    state = quantize_state_dict(model.state_dict(), None if act_scales is None else act_scales_by_module(act_scales))
+    with torch.device("meta"):
+        twin = CLIPScoreFusion(model.cfg, quant=True, dtype=model.dtype, int8_mode=int8_mode, mlp_route=mlp_route)
+    twin = twin.to_empty(device=device)
+    load_quantized_state_dict(twin, state)
+    return twin.eval()
+
+
 def seeded_clip_sf_train(
     cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16, remat: bool = False
 ) -> CLIPScoreFusion:
@@ -81,19 +110,38 @@ def load_torch_checkpoint(model: CLIPScoreFusion, path: str) -> None:
     model.load_state_dict(sd, strict=True)
 
 
-def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
-    from uniir_tpu.data.preprocess import clip_transform
-    from uniir_tpu.data.tokenizers.clip_bpe import CLIPTokenizer
+def _int8_settings(model_config):
+    """(mode, MLP route, calibrated scales or None) of `model.int8`, read
+    once; the static mode without a calibration artifact is an error."""
+    mode, route = int8_mode_from_env(), int8_mlp_route_from_env()
+    act_scales = None
+    calib_path = getattr(model_config, "int8_calibration", None)
+    if calib_path:
+        act_scales = load_act_scales(calib_path)
+        print(f"Loaded {len(act_scales)} calibrated act scales from {calib_path}")
+    elif mode == "static":
+        raise ValueError(
+            "UNIIR_INT8_BACKEND=static needs calibrated activation scales: "
+            "run tools/calibrate_int8.py and set model.int8_calibration to "
+            "the .npz it writes"
+        )
+    return mode, route, act_scales
 
+
+def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     model_config = config.model
     cfg = CLIP_CONFIGS[model_config.clip_vision_model_name]
-    if getattr(model_config, "int8", False):
-        raise NotImplementedError("int8 serving is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 6)")
+    int8 = bool(getattr(model_config, "int8", False))
+    if int8 and train:
+        raise ValueError("model.int8 is a serving mode: int8 layers do not train")
+    int8_settings = _int8_settings(model_config) if int8 else None
     device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
     dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
     seed = int(getattr(config, "seed", 0))
     if train:
         model = seeded_clip_sf_train(cfg, device, seed, dtype, remat=bool(getattr(model_config, "remat", False)))
+    elif int8:
+        model = _seeded(cfg, device, seed)  # fp32 until quantised: the weights quantise from fp32
     else:
         model = seeded_clip_sf(cfg, device, seed, dtype)
 
@@ -112,6 +160,11 @@ def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
             )
         load_torch_checkpoint(model, path)
         print(f"Loaded CLIPScoreFusion weights from {path}")
+
+    if int8:
+        mode, route, act_scales = int8_settings
+        model = quantize_clip_sf(model, mode, route, act_scales).to_compute_dtype(dtype)
+        print(f"Quantized CLIPScoreFusion to int8 serving mode ({mode})")
 
     tokenizer = CLIPTokenizer(bpe_path=getattr(model_config, "clip_bpe_path", None))
 

@@ -16,6 +16,9 @@ import numpy as np
 import torch
 
 from uniir_tpu_torch.core.config import parse_image_size
+from uniir_tpu_torch.data.collator import MBEIRCandidatePoolCollator, MBEIRMainCollator
+from uniir_tpu_torch.data.dataset import MBEIRCandidatePoolDataset, MBEIRMainDataset, Mode
+from uniir_tpu_torch.data.loader import MBEIRLoader
 from uniir_tpu_torch.train.steps import make_embed_step
 
 
@@ -44,11 +47,6 @@ def generate_embeds_and_ids_for_dataset(embed_step: Callable, data_loader: Itera
 
 
 def _loader_for(split_name, dataset_name, cand_pool_name, bundle, config, image_size):
-    # the file-reading dataset pulls in Pillow: imported only here
-    from uniir_tpu.data.collator import MBEIRCandidatePoolCollator, MBEIRMainCollator
-    from uniir_tpu.data.dataset import MBEIRCandidatePoolDataset, MBEIRMainDataset, Mode
-    from uniir_tpu.data.loader import MBEIRLoader
-
     data_config = config.data_config
     split_dir = getattr(data_config, f"{split_name}_dir_name")
     if split_name == "cand_pool":

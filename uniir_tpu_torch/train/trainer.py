@@ -7,10 +7,10 @@
 build the model with fp32 master weights -> AdamW in the CLIP groups with
 the cosine schedule over all updates -> train state -> resume -> loaders
 (epoch-shuffled) -> epoch loop with a checkpoint per epoch and optional
-in-batch validation.  The file-reading data path (the JAX package's
-dataset, collator, `MBEIRLoader` and `EpochShuffleSampler`, which need
-Pillow) is imported inside `build_train_setup` only; `train_one_epoch`
-takes any iterable of collated batches.  The other retrievers, and training
+in-batch validation.  The file-reading data path is the port's own
+(`uniir_tpu_torch/data`: dataset, collator, `MBEIRLoader`,
+`EpochShuffleSampler`; Pillow is needed only once an image is opened);
+`train_one_epoch` takes any iterable of collated batches.  The other retrievers, and training
 over several processes, raise until they are ported (ROADMAP.md, Queue 1).
 """
 
@@ -24,6 +24,9 @@ import torch
 
 from uniir_tpu_torch.core.checkpoint import load_train_checkpoint, save_train_checkpoint
 from uniir_tpu_torch.core.config import load_config, parse_image_size
+from uniir_tpu_torch.data.collator import MBEIRMainCollator
+from uniir_tpu_torch.data.dataset import MBEIRMainDataset, Mode
+from uniir_tpu_torch.data.loader import EpochShuffleSampler, MBEIRLoader
 from uniir_tpu_torch.models.registry import build_model_from_config
 from uniir_tpu_torch.train.engine import eval_engine, train_one_epoch
 from uniir_tpu_torch.train.optimizer import cosine_schedule, make_clip_optimizer
@@ -48,11 +51,6 @@ def log_results(train_stats, val_stats, test_stats, epoch=None, best_epoch=None)
 
 def build_train_setup(config, bundle=None, device=None) -> dict:
     """Everything main() needs, reusable from tests: returns a dict."""
-    # the file-reading data path pulls in Pillow: imported only here
-    from uniir_tpu.data.collator import MBEIRMainCollator
-    from uniir_tpu.data.dataset import MBEIRMainDataset, Mode
-    from uniir_tpu.data.loader import EpochShuffleSampler, MBEIRLoader
-
     model_name = config.model.name
     if model_name != "CLIPScoreFusion":
         raise NotImplementedError(
