@@ -5,8 +5,11 @@
 
 1. builds the port's kernels (uniir_tpu_torch/csrc, nvcc for sm_90a) from the
    checkout and checks each against its plain PyTorch twin at the shapes the
-   serving path gives it: K1 attention at CLIP-L vision and text shapes and
-   the main path's batch, K2 / K4 sweeps at the main path's small pool and
+   serving paths give it: K1 attention at CLIP-L vision and text shapes, at
+   BLIP's L = 197 and the main path's batch, K8 / K9 (the stand-alone
+   `mha_nocausal` / `mha_paired`) at the BLIP and CLIP shapes, K7 (fused
+   image preprocessing) at uint8 [64, 256, 256, 3] -> 224 in both methods
+   and output types, K2 / K4 sweeps at the main path's small pool and
    on a seeded 5.6M x 768 pool with 256 queries (also against brute force),
    K5 (int8 matmul) at the CLIP-L projection shapes in its dynamic and
    static modes, K6 (fused int8 MLP) at the vision and text widths, with
@@ -29,7 +32,17 @@
    their twins inside the model;
 4. checks K3, the attention backward, against its twin at the CLIP-L vision
    and text shapes (and against autograd through the plain forward);
-5. drives the training path through the port's own entry points -- seeded
+5. drives BLIP-ScoreFusion serving at the full width and depth of
+   `configs/blip_sf/large` (ViT-L/16, 24 blocks; MED, 12 layers) in bf16:
+   seeded uint8 256 x 256 images go through K7 on the card (bicubic, bf16)
+   into collated batches of 64 with hash token ids and padding masks of
+   mixed lengths, then the embedder's loop, `create_index` and
+   `run_retrieval` with the int8 and the bf16 pool -- and checks the K7 / K1
+   launch counts against the depth (23 K1 a vision batch, none from MED),
+   finite embeddings, agreement with the same model through the twins, that
+   padding does not leak, that both pools return the same ids and that
+   copied candidates are found;
+6. drives the training path through the port's own entry points -- seeded
    CLIP-SF ViT-L/14 with fp32 masters and bf16 compute, `make_clip_optimizer`,
    `make_clip_train_step`, `train_one_epoch` over synthetic collated batches
    of 32 pairs, then 105 pairs (the reference's per-GPU batch) with remat --
@@ -38,16 +51,18 @@
    the twins, and that a saved train checkpoint restores bit-equal and serves.
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
-of the 32-pair train step and of the embed step at batch 64 in bf16 and in
-each int8 mode.
+of the 32-pair train step, of the CLIP-SF embed step at batch 64 in bf16 and
+in each int8 mode, and of the BLIP-SF forward at batch 64.
 
 Prints, before the last line, the card's name and power limit and one JSON
 line with each kernel's launches, error, times and bound (the least time
 the card could take: bytes moved over 3.35 TB/s or operations over the
-tensor cores' dense peak, whichever is larger); the last line is
+peak rate for their type -- the tensor cores' dense peak, or for K7's fp32
+products the CUDA cores' -- whichever is larger); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 there is no CUDA card or a check fails.  Weights and the tokenizer are
-seeded stand-ins (the CLIP-L checkpoint and BPE files are not in the repo).
+seeded stand-ins (the CLIP-L and BLIP checkpoints, the BPE files and BERT's
+vocabulary are not in the repo).
 """
 
 from __future__ import annotations
@@ -60,6 +75,7 @@ import sys
 import time
 import zlib
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -78,7 +94,10 @@ TRAIN_BS, REMAT_BS, TRAIN_LR = 32, 105, 1e-5
 TRAIN_BATCHES, REMAT_BATCHES, REPEAT_STEPS = 6, 3, 8
 # published dense peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 HBM_BYTES_PER_S, BF16_OPS_PER_S, INT8_OPS_PER_S = 3.35e12, 989e12, 1979e12
+FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores (the same data sheet): K7's products
 EXPT = "CLIP_SF/Large/Seeded/"  # the bf16 path's experiment directory
+# the BLIP-SF path: configs/blip_sf/large (vit: large, tokenizer_max_length: 50), fed by uint8 images of this side
+BLIP_SIZE, BLIP_EXPT, BLIP_MAX_LEN, RAW_SIDE = "large", "BLIP_SF/Large/Seeded/", 50, 256
 
 
 def fail(msg: str) -> None:
@@ -132,7 +151,8 @@ def check_attention(results: dict) -> None:
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = 0.0
-    for tag, (B, L, H, causal) in {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True)}.items():
+    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "blip vision": (BATCH, 197, 16, False)}
+    for tag, (B, L, H, causal) in shapes.items():
         q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
         out = attention(q, k, v, H, causal=causal)
         torch.cuda.synchronize()
@@ -154,6 +174,115 @@ def check_attention(results: dict) -> None:
         if tag == "vision":
             results["K1"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
     results["K1"]["max_abs_err"] = worst
+
+
+def check_attention_norm_first(results: dict) -> None:
+    """K8 (`mha_nocausal`, [B, L, H, D]) and K9 (`mha_paired`, [B, L, H*D])
+    against their twin at the BLIP and CLIP shapes."""
+    from uniir_tpu_torch.ops.attention import attention_twopass_reference, mha_nocausal, mha_paired
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    cases = [("K8", "blip vision", (BATCH, 197, 16, False)), ("K8", "clip vision", (BATCH, 257, 16, False)),
+             ("K9", "blip vision", (BATCH, 197, 16, False)), ("K9", "clip text", (BATCH, 77, 12, True))]
+    worst = {"K8": 0.0, "K9": 0.0}
+    for name, tag, (B, L, H, causal) in cases:
+        q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
+        if name == "K8":
+            q4, k4, v4 = (t.view(B, L, H, 64) for t in (q, k, v))
+            run = lambda: mha_nocausal(q4, k4, v4).view(B, L, H * 64)
+        else:
+            run = lambda: mha_paired(q, k, v, H, causal=causal)
+        out = run()
+        torch.cuda.synchronize()
+        ref = attention_twopass_reference(q, k, v, H, causal=causal)
+        err, cos = (out.float() - ref.float()).abs().max().item(), cosine(out, ref)
+        ms = cuda_ms(run, 20)
+        plain_ms = cuda_ms(lambda: attention_twopass_reference(q, k, v, H, causal=causal), 10)
+        heads = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads, is_causal=causal), 20)
+        limit = bound(nbytes(q, k, v, out), 4 * B * H * L * L * 64, BF16_OPS_PER_S)
+        log(f"{name} {tag} [{B},{L},{H}x64] causal={causal}: max_abs_err={err} cosine={cos} kernel_ms={ms} "
+            f"plain_ms={plain_ms} library_ms={library_ms} {limit}")
+        # the twin's rounding points; the fp32 row sum in another order can move a probability by
+        # one bf16 step: two bf16 steps of softmax-averaged outputs below 1 (2 x 2^-8)
+        check(err <= 8e-3 and cos >= 0.9999, f"{name} disagrees with its twin at {tag} shapes")
+        worst[name] = max(worst[name], err)
+        if tag == "blip vision":
+            results[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
+
+
+def zero_standalone() -> None:
+    """K8 / K9 are stand-alone entry points, as in the JAX package: every
+    path sets their counts to 0 with its own before it starts."""
+    from uniir_tpu_torch.ops import attention as attn_mod
+
+    attn_mod.mha_nocausal.launches = attn_mod.mha_paired.launches = 0
+
+
+def read_standalone(results: dict, path: str) -> None:
+    """Read K8 / K9's counts just after a path: no model calls them."""
+    from uniir_tpu_torch.ops import attention as attn_mod
+
+    for name, fn in (("K8", attn_mod.mha_nocausal), ("K9", attn_mod.mha_paired)):
+        results[name]["launches"] = results[name].get("launches", 0) + fn.launches
+        check(fn.launches == 0, f"stand-alone kernel {name} was launched {fn.launches} times on the {path} path")
+
+
+# ---------------------------------------------------------------- phase 1: K7
+
+
+def library_preprocess(images_u8: torch.Tensor, out_size: int, method: str, mean, std, out_dtype):
+    """K7's function through one library resize: `F.interpolate(antialias=True)`
+    on the float NCHW batch, then the normalisation (timed beside the kernel
+    only; its border taps differ from PIL's window)."""
+    x = images_u8.permute(0, 3, 1, 2).float() / 255.0
+    x = torch.nn.functional.interpolate(x, size=(out_size, out_size), mode=method, antialias=True, align_corners=False)
+    return ((x - mean[:, None, None]) / std[:, None, None]).permute(0, 2, 3, 1).to(out_dtype)
+
+
+def check_preprocess(results: dict) -> None:
+    """K7 against its twin (and the numpy reference on a few images) at the
+    BLIP path's shape: uint8 [64, 256, 256, 3] -> 224."""
+    from uniir_tpu_torch.ops import image_ops as I
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    B, S, O = BATCH, RAW_SIDE, 224
+    img = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    mean, std = (torch.from_numpy(v).cuda() for v in (I.CLIP_MEAN, I.CLIP_STD))
+    dense_ops = B * 3 * 2 * (O * S * S + O * S * O)  # both products multiplied densely, as the kernel does
+    worst = 0.0
+    for method, dtype in (("bilinear", torch.float32), ("bicubic", torch.bfloat16)):
+        # what the function needs: a multiply-add for each non-zero tap of this run's [O, S] matrix,
+        # as A_h over the S columns of a plane and as A_w over the O rows of the intermediate
+        taps = int(np.count_nonzero(I.resize_matrix(S, O, method)))
+        ops = B * 3 * 2 * taps * (S + O)
+        out = I.fused_preprocess(img, O, method, dtype)
+        torch.cuda.synchronize()
+        ref = I.fused_preprocess_reference(img, O, method, dtype)
+        err = (out.float() - ref.float()).abs().max().item()
+        numpy_ref = torch.from_numpy(I.preprocess_reference_numpy(img[:4].cpu().numpy(), O, method)).cuda()
+        err_np = (out[:4].float() - numpy_ref).abs().max().item()
+        ms = cuda_ms(lambda: I.fused_preprocess(img, O, method, dtype), 20)
+        plain_ms = cuda_ms(lambda: I.fused_preprocess_reference(img, O, method, dtype), 10)
+        library_ms = cuda_ms(lambda: library_preprocess(img, O, method, mean, std, dtype), 10)
+        matrices = 2 * O * S * 4
+        limit = bound(nbytes(img, out) + matrices, ops, FP32_OPS_PER_S)
+        log(f"K7 fused_preprocess uint8 [{B},{S},{S},3] -> {O} {method} {str(dtype).split('.')[-1]}: max_abs_err={err} "
+            f"vs numpy reference (4 images)={err_np} kernel_ms={ms} ({dense_ops / ms / 1e9:.2f} TFLOP/s fp32 of the "
+            f"{dense_ops / 1e9:.2f} GFLOP it multiplies densely; the {taps} taps of a matrix need {ops / 1e9:.3f} GFLOP) "
+            f"plain_ms={plain_ms} library_ms={library_ms} (F.interpolate antialias + normalise; other border taps) {limit}")
+        # against the twin, which has the kernel's arithmetic: the fp32 sums in another order move a
+        # value below 4 by an fp32 step or two (2^-22 each), and in bf16 by at most one step (2^-6);
+        # the numpy reference divides by 255 and std where the kernel multiplies: atol 1e-4 on top
+        tol = 2.0**-21 if dtype == torch.float32 else 2.0**-6
+        check(err <= tol, f"K7 disagrees with its twin ({method}, {dtype}): {err} > {tol}")
+        check(err_np <= tol + 1e-4, f"K7 disagrees with the numpy reference ({method}, {dtype}): {err_np}")
+        worst = max(worst, err)
+        if method == "bicubic":  # the BLIP path's call
+            results["K7"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+    results["K7"]["max_abs_err"] = worst
 
 
 # ----------------------------------------------------------- phase 1: K2 / K4
@@ -386,17 +515,21 @@ def smoke_dataset() -> dict:
                 dids=[hash_did(f"9:{i}") for i in range(N_CANDS)], qids=[hash_qid(f"9:{j}") for j in range(N_QUERY_PAIRS)])
 
 
-def embed_and_save(embed_step, data: dict, cfg, embed_dir: str) -> dict:
+def embed_and_save(embed_step, data: dict, cfg, embed_dir: str, make_batches=None) -> dict:
     """Embed the candidates and the queries through the embedder's loop and
-    write the .npy artifacts `create_index` / `run_retrieval` read."""
+    write the .npy artifacts `create_index` / `run_retrieval` read.
+    `make_batches(items, ids, id_key, cfg)` yields the collated batches
+    (`batches` unless given)."""
     from uniir_tpu_torch.retrieval.embedder import generate_embeds_and_ids_for_dataset
+
+    make_batches = make_batches or batches
 
     out = {}
     for split, items, ids, key, name in (
         ("cand_pool", data["cands"], data["dids"], "did_list", "mscoco_task0_cand_pool"),
         ("test", data["queries"], data["qids"], "qid_list", "mscoco_task0_test"),
     ):
-        emb, got_ids = generate_embeds_and_ids_for_dataset(embed_step, batches(items, ids, key, cfg))
+        emb, got_ids = generate_embeds_and_ids_for_dataset(embed_step, make_batches(items, ids, key, cfg))
         check(emb.shape == (len(items), cfg.embed_dim) and emb.dtype == np.float16, f"{split} embeddings {emb.shape}")
         check(bool(np.isfinite(emb).all()), f"{split} embeddings are not finite")
         os.makedirs(os.path.join(embed_dir, split), exist_ok=True)
@@ -406,24 +539,63 @@ def embed_and_save(embed_step, data: dict, cfg, embed_dir: str) -> dict:
     return out
 
 
+def write_qrels(root: str, data: dict) -> None:
+    os.makedirs(os.path.join(root, "mbeir_data", "qrels", "test"), exist_ok=True)
+    with open(os.path.join(root, "mbeir_data", "qrels", "test", "mbeir_mscoco_task0_test_qrels.txt"), "w") as f:
+        for j, c in data["relevant"].items():
+            f.write(f"9:{j} 0 9:{c} 1 8\n")
+
+
+def retrieve_and_check(root: str, expt: str, embed_dim: int, data: dict, tag: str) -> None:
+    """`create_index`, then `run_retrieval` with the int8 pool (as shipped)
+    and with the bf16 pool: both return the same ids, and every query that
+    copies a candidate finds it in its top 10."""
+    from uniir_tpu_torch.retrieval.eval import run_retrieval
+    from uniir_tpu_torch.retrieval.index import create_index
+
+    create_index(eval_config(root, f"results_{tag}_int8", "int8", embed_dim, expt))
+    stats = {}
+    for dtype in ("int8", "bf16"):
+        out: list = []
+        res = run_retrieval(eval_config(root, f"results_{tag}_{dtype}", dtype, embed_dim, expt), device=DEVICE, stats_out=out)
+        stats[dtype] = (res, out[0])
+    torch.cuda.synchronize()
+    for dtype, (res, st) in stats.items():
+        (row,) = res
+        log(f"{tag} retrieval pool_dtype={dtype}: Recall@1={row['Recall@1']} Recall@5={row['Recall@5']} "
+            f"Recall@10={row['Recall@10']} guard_pass_rate={st['guard_pass_rate']} exact_reruns={st['exact_reruns']}")
+    runs = {d: read_run(os.path.join(root, f"results_{tag}_{d}", expt, "run_files",
+                                     "mbeir_mscoco_task0_single_pool_test_k10_run.txt")) for d in stats}
+    ids = {d: {q: [did for did, _ in rows] for q, rows in run.items()} for d, run in runs.items()}
+    differ = [q for q in ids["bf16"] if ids["bf16"][q] != ids["int8"][q]]
+    for q in differ[:3]:
+        log(f"  {q} bf16: {runs['bf16'][q]}\n  {q} int8: {runs['int8'][q]}")
+    check(not differ, f"{tag}: int8 and bf16 retrieval returned different ids for {len(differ)} queries")
+    missing = [j for j, c in data["copied"].items() if f"9:{c}" not in ids["bf16"][f"9:{j}"]]
+    check(not missing, f"{tag}: duplicated candidates missing from their queries' top 10: {missing[:5]}")
+
+
+def log_candidate_spread(embed_dir: str) -> None:
+    cand_emb = np.load(os.path.join(embed_dir, "cand_pool", "mbeir_mscoco_task0_cand_pool_embed.npy")).astype(np.float32)
+    cand_emb /= np.linalg.norm(cand_emb, axis=1, keepdims=True)
+    sims = cand_emb @ cand_emb.T
+    off = sims[~np.eye(len(sims), dtype=bool)]
+    log(f"candidate embeddings: off-diagonal cosine mean {off.mean():.4f} max {off.max():.4f}")
+
+
 def drive_main_path(results: dict, data: dict) -> None:
     from uniir_tpu_torch.models import layers
     from uniir_tpu_torch.models.clip import CLIP_CONFIGS
     from uniir_tpu_torch.models.registry import seeded_clip_sf
     from uniir_tpu_torch.ops import attention as attn_mod
     from uniir_tpu_torch.ops import topk as T
-    from uniir_tpu_torch.retrieval.eval import run_retrieval
-    from uniir_tpu_torch.retrieval.index import create_index
     from uniir_tpu_torch.train.steps import make_embed_step
 
     shutil.rmtree(WORK, ignore_errors=True)
     root = str(WORK)
     cfg = CLIP_CONFIGS[MODEL]
-    cands, dids, copied = data["cands"], data["dids"], data["copied"]
-    os.makedirs(os.path.join(root, "mbeir_data", "qrels", "test"))
-    with open(os.path.join(root, "mbeir_data", "qrels", "test", "mbeir_mscoco_task0_test_qrels.txt"), "w") as f:
-        for j, c in data["relevant"].items():
-            f.write(f"9:{j} 0 9:{c} 1 8\n")
+    cands, dids = data["cands"], data["dids"]
+    write_qrels(root, data)
 
     t0 = time.perf_counter()
     model = seeded_clip_sf(cfg, DEVICE, seed=SEED, dtype=torch.bfloat16)
@@ -435,45 +607,22 @@ def drive_main_path(results: dict, data: dict) -> None:
     counters = (attn_mod.attention, T.bucket_max_scores, T.bucket_max_scores_i8)
     for fn in counters:
         fn.launches = 0
+    zero_standalone()
     t0 = time.perf_counter()
     embed_step = make_embed_step(model)
     embed_dir = os.path.join(root, "embed", EXPT)
     embed_and_save(embed_step, data, cfg, embed_dir)
     torch.cuda.synchronize()
     t_embed = time.perf_counter() - t0
-    create_index(eval_config(root, "results_int8", "int8", cfg.embed_dim))
-    stats = {}
-    for dtype in ("int8", "bf16"):
-        out: list = []
-        res = run_retrieval(eval_config(root, f"results_{dtype}", dtype, cfg.embed_dim), device=DEVICE, stats_out=out)
-        stats[dtype] = (res, out[0])
-    torch.cuda.synchronize()
+    retrieve_and_check(root, EXPT, cfg.embed_dim, data, "clip")
     launches = {"K1": attn_mod.attention.launches, "K2": T.bucket_max_scores.launches,
                 "K4": T.bucket_max_scores_i8.launches}
     log(f"main path: embed {t_embed:.2f} s (host clock, includes first-call set-up); launches {launches}")
     for name, n in launches.items():
         results[name]["launches"] = n
         check(n > 0, f"kernel {name} was not launched on the main path")
-
-    # correctness of what came out
-    for dtype, (res, st) in stats.items():
-        (row,) = res
-        log(f"retrieval pool_dtype={dtype}: Recall@1={row['Recall@1']} Recall@5={row['Recall@5']} "
-            f"Recall@10={row['Recall@10']} guard_pass_rate={st['guard_pass_rate']} exact_reruns={st['exact_reruns']}")
-    cand_emb = np.load(os.path.join(embed_dir, "cand_pool", "mbeir_mscoco_task0_cand_pool_embed.npy")).astype(np.float32)
-    cand_emb /= np.linalg.norm(cand_emb, axis=1, keepdims=True)
-    sims = cand_emb @ cand_emb.T
-    off = sims[~np.eye(len(sims), dtype=bool)]
-    log(f"candidate embeddings: off-diagonal cosine mean {off.mean():.4f} max {off.max():.4f}")
-    runs = {d: read_run(os.path.join(root, f"results_{d}", EXPT, "run_files",
-                                     "mbeir_mscoco_task0_single_pool_test_k10_run.txt")) for d in stats}
-    ids = {d: {q: [did for did, _ in rows] for q, rows in run.items()} for d, run in runs.items()}
-    differ = [q for q in ids["bf16"] if ids["bf16"][q] != ids["int8"][q]]
-    for q in differ[:3]:
-        log(f"  {q} bf16: {runs['bf16'][q]}\n  {q} int8: {runs['int8'][q]}")
-    check(not differ, f"int8 and bf16 retrieval returned different ids for {len(differ)} queries")
-    missing = [j for j, c in copied.items() if f"9:{c}" not in ids["bf16"][f"9:{j}"]]
-    check(not missing, f"duplicated candidates missing from their queries' top 10: {missing[:5]}")
+    read_standalone(results, "main")
+    log_candidate_spread(embed_dir)
 
     # the same forward through the plain twins, on a small batch
     small = collate(cands[:8], dids[:8], "did_list", cfg)
@@ -692,6 +841,7 @@ def drive_int8_path(results: dict, data: dict) -> dict:
             models[mode] = model
             for fn in (attn_mod.attention, Q.int8_matmul, M_.int8_mlp):
                 fn.launches = 0
+            zero_standalone()
             expt = f"CLIP_SF/Large/SeededInt8-{mode}/"
             t0 = time.perf_counter()
             emb = embed_and_save(make_embed_step(model), data, cfg, os.path.join(root, "embed", expt))
@@ -709,6 +859,7 @@ def drive_int8_path(results: dict, data: dict) -> dict:
             results["K1"]["launches"] += k1
             results["K5"]["launches"] += k5
             results["K6"]["launches"] += k6
+            read_standalone(results, f"int8 ({mode})")
 
             cos = np.concatenate([np.sum(emb[s_] * bf16[s_], 1) / (np.linalg.norm(emb[s_], axis=1) * np.linalg.norm(bf16[s_], axis=1))
                                   for s_ in ("cand_pool", "test")])
@@ -745,6 +896,174 @@ def drive_int8_path(results: dict, data: dict) -> dict:
     for name in ("K5", "K6"):
         check(results[name]["launches"] > 0, f"kernel {name} was not launched on the int8 path")
     return models
+
+
+# ------------------------------------------------ phase 5: BLIP-SF serving
+
+
+def bert_hash_tokenize(texts, max_length: int = BLIP_MAX_LEN, vocab_size: int = 30524) -> dict:
+    """Deterministic stand-in for the WordPiece tokenizer with its layout:
+    [CLS] = 101, one id per word, [SEP] = 102, [PAD] = 0 under a 0 mask."""
+    ids = np.zeros((len(texts), max_length), np.int32)
+    mask = np.zeros((len(texts), max_length), np.int32)
+    for i, text in enumerate(texts):
+        row = [101] + [1000 + zlib.crc32(w.encode()) % (vocab_size - 1000) for w in text.split()][: max_length - 2] + [102]
+        ids[i, : len(row)] = row
+        mask[i, : len(row)] = 1
+    return {"input_ids": ids, "attention_mask": mask}
+
+
+def make_blip_items(rng, n: int):
+    """n (text, uint8 image, txt_mask, img_mask) items of mixed modality; the
+    texts have 3 to 46 words, so the padding masks have mixed lengths <= 50."""
+    items = []
+    for i in range(n):
+        kind = i % 3  # 0: text, 1: image, 2: image + text
+        text = " ".join(rng.choice(WORDS, size=rng.integers(3, 47))) if kind != 1 else ""
+        img = rng.integers(0, 256, (RAW_SIDE, RAW_SIDE, 3), dtype=np.uint8) if kind != 0 else None
+        items.append((text, img, int(kind != 1), int(kind != 0)))
+    return items
+
+
+def blip_dataset() -> dict:
+    """As `smoke_dataset`, with raw uint8 images for the device-side preprocessing."""
+    from uniir_tpu_torch.data.registry import hash_did, hash_qid
+
+    rng = np.random.default_rng(SEED + 12)
+    cands, queries = make_blip_items(rng, N_CANDS), make_blip_items(rng, N_QUERY_PAIRS)
+    copied = {j: int(rng.integers(0, N_CANDS)) for j in range(0, N_QUERY_PAIRS, 4)}
+    for j, c in copied.items():
+        queries[j] = cands[c]
+    relevant = {j: copied.get(j, int(rng.integers(0, N_CANDS))) for j in range(N_QUERY_PAIRS)}
+    return dict(cands=cands, queries=queries, copied=copied, relevant=relevant,
+                dids=[hash_did(f"9:{i}") for i in range(N_CANDS)], qids=[hash_qid(f"9:{j}") for j in range(N_QUERY_PAIRS)])
+
+
+def blip_rows(items, image_size: int, preprocess) -> dict:
+    """The model inputs of a collated BLIP batch: the uint8 images cross to
+    the card as they are and `preprocess` (K7, or its twin) resizes and
+    normalises them there; a missing image is a black one under a 0 mask."""
+    black = np.zeros((RAW_SIDE, RAW_SIDE, 3), np.uint8)
+    raw = torch.from_numpy(np.stack([black if im is None else im for _, im, _, _ in items])).to(DEVICE)
+    return {
+        "txt_batched": bert_hash_tokenize([t for t, _, _, _ in items]),
+        "image_batched": preprocess(raw, image_size, "bicubic", torch.bfloat16),
+        "txt_mask_batched": np.asarray([m for _, _, m, _ in items], np.int32),
+        "image_mask_batched": np.asarray([m for _, _, _, m in items], np.int32),
+    }
+
+
+def drive_blip_path(results: dict, profile: bool = False) -> None:
+    from uniir_tpu_torch.models import layers
+    from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
+    from uniir_tpu_torch.models.med import MED_CONFIGS
+    from uniir_tpu_torch.models.registry import seeded_blip_sf
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.ops import image_ops as I
+    from uniir_tpu_torch.ops import topk as T
+    from uniir_tpu_torch.train.steps import make_embed_step, model_inputs
+
+    root = str(WORK)
+    vit_cfg, med_cfg = BLIP_VIT_CONFIGS[BLIP_SIZE], MED_CONFIGS[BLIP_SIZE]
+    shape = SimpleNamespace(embed_dim=768)  # what `embed_and_save` reads of a model configuration
+    data = blip_dataset()
+    write_qrels(root, data)
+    n_batches = -(-N_CANDS // BATCH) + -(-N_QUERY_PAIRS // BATCH)
+
+    t0 = time.perf_counter()
+    model = seeded_blip_sf(vit_cfg, med_cfg, DEVICE, seed=SEED, dtype=torch.bfloat16, embed_dim=shape.embed_dim)
+    torch.cuda.synchronize()
+    log(f"BLIP path: seeded BLIP-SF vit={BLIP_SIZE} (ViT-L/{vit_cfg.patch_size}, {vit_cfg.layers} blocks, L = "
+        f"{(vit_cfg.image_size // vit_cfg.patch_size) ** 2 + 1}; MED {med_cfg.num_hidden_layers} layers, hidden {med_cfg.hidden_size}, "
+        f"{BLIP_MAX_LEN} tokens) bf16 ({sum(p.numel() for p in model.parameters())} parameters) in {time.perf_counter() - t0:.1f} s; "
+        f"{N_CANDS} candidates, {N_QUERY_PAIRS} queries, batch {BATCH}, uint8 {RAW_SIDE} x {RAW_SIDE} images through K7")
+
+    def make_batches(items, ids, id_key, _cfg, preprocess=I.fused_preprocess):
+        for i in range(0, len(items), BATCH):
+            part, part_ids = items[i : i + BATCH], list(ids[i : i + BATCH])
+            n_valid = len(part)
+            part = part + [part[-1]] * (BATCH - n_valid)  # pad_last: repeat the last row
+            part_ids = part_ids + [part_ids[-1]] * (BATCH - n_valid)
+            yield {**blip_rows(part, vit_cfg.image_size, preprocess), id_key: np.asarray(part_ids, np.int64),
+                   "n_valid": np.int32(n_valid)}
+
+    counters = (attn_mod.attention, I.fused_preprocess, T.bucket_max_scores, T.bucket_max_scores_i8)
+    for fn in counters:
+        fn.launches = 0
+    zero_standalone()
+    t0 = time.perf_counter()
+    embed_step = make_embed_step(model)
+    embed_dir = os.path.join(root, "embed", BLIP_EXPT)
+    embed_and_save(embed_step, data, shape, embed_dir, make_batches)
+    torch.cuda.synchronize()
+    t_embed = time.perf_counter() - t0
+    k1, k7 = attn_mod.attention.launches, I.fused_preprocess.launches
+    retrieve_and_check(root, BLIP_EXPT, shape.embed_dim, data, "blip")
+    k2, k4 = T.bucket_max_scores.launches, T.bucket_max_scores_i8.launches
+    log(f"BLIP path: embed {t_embed:.2f} s (host clock, {n_batches} batches of {BATCH}, seeded images made on the host); "
+        f"launches K7={k7} K1={k1} K2={k2} K4={k4}; expected K7 = {n_batches} (one a batch), K1 = {n_batches} x "
+        f"{vit_cfg.layers - 1} (the trimmed last block and MED take the einsum path)")
+    check(k7 == n_batches and k1 == n_batches * (vit_cfg.layers - 1), f"K7 / K1 launched {k7} / {k1} times on the BLIP path")
+    check(k2 > 0 and k4 > 0, "the sweeps were not launched on the BLIP path")
+    results["K7"]["launches"] = k7
+    for name, n in (("K1", k1), ("K2", k2), ("K4", k4)):
+        results[name]["launches"] += n
+    read_standalone(results, "BLIP")
+    log_candidate_spread(embed_dir)
+
+    # the same 8 candidates through K7 and K1, and through their twins
+    small_items = data["cands"][:8]
+    with_kernels = embed_step(blip_rows(small_items, vit_cfg.image_size, I.fused_preprocess)).float()
+    layers.attention = attn_mod.attention_reference
+    try:
+        plain = embed_step(blip_rows(small_items, vit_cfg.image_size, I.fused_preprocess_reference)).float()
+    finally:
+        layers.attention = attn_mod.attention
+    cos = torch.nn.functional.cosine_similarity(with_kernels, plain, dim=1).min().item()
+    log(f"BLIP embeddings through K7 + K1 vs through their twins (8 candidates): min cosine {cos}")
+    check(cos >= 0.999, "BLIP embeddings through the kernels disagree with the plain path")
+
+    # padding does not leak: other token ids under the 0 mask leave every row as it was
+    rows = blip_rows(small_items, vit_cfg.image_size, I.fused_preprocess)
+    txt = rows["txt_batched"]
+    lengths = txt["attention_mask"].sum(1)
+    noise = np.random.default_rng(SEED + 13).integers(1000, 30524, txt["input_ids"].shape).astype(np.int32)
+    rows["txt_batched"] = {"input_ids": np.where(txt["attention_mask"] == 1, txt["input_ids"], noise),
+                           "attention_mask": txt["attention_mask"]}
+    leak = (embed_step(rows).float() - with_kernels).abs().max().item()
+    log(f"BLIP padding: token lengths {lengths.tolist()} of {BLIP_MAX_LEN}; max abs change of the embeddings when "
+        f"the ids under the padding mask change: {leak}")
+    # a masked key's logit is -1e9 in fp32: its probability is exactly 0
+    check(leak == 0.0, "padding tokens leak into the BLIP embeddings")
+
+    # one resident batch of image + text rows as model inputs on the card
+    batch = model_inputs(blip_rows(data["cands"][2::3][:BATCH], vit_cfg.image_size, I.fused_preprocess), torch.device(DEVICE))
+    with torch.inference_mode():
+        fwd = cuda_ms(lambda: model(*batch), 3)
+    log(f"BLIP-SF forward of one resident image+text batch of {BATCH}, bf16: {fwd} ms = {BATCH / fwd * 1e3:.1f} pairs/s")
+    if profile:
+        profile_forward(model, batch, "BLIP-SF bf16")
+
+
+def profile_forward(model, batch, tag: str) -> None:
+    """torch.profiler over 3 forwards of a resident batch: device time by kernel group."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        model(*batch)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            model(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model(*batch)
+            torch.cuda.synchronize()
+    log(f"profile of the embed forward at batch {BATCH}, {tag}: forward_ms={wall * 1e3} "
+        f"(host clock, without the profiler) = {BATCH / wall:.1f} pairs/s")
+    log_device_time_by_group(prof, 3, wall * 1e3)
 
 
 # -------------------------------------------------------------- phase 4: K3
@@ -793,7 +1112,7 @@ def check_attention_bwd(results: dict) -> None:
     results["K3"]["max_abs_err"] = worst
 
 
-# -------------------------------------------------- phase 5: training path
+# -------------------------------------------------- phase 6: training path
 
 
 def drive_train_path(results: dict) -> None:
@@ -825,6 +1144,7 @@ def drive_train_path(results: dict) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         attn_mod.attention.launches = attn_mod.attention_bwd.launches = 0
+        zero_standalone()
         config = Config.from_dict({"trainer_config": {"print_freq": n_batches}})
         t0 = time.perf_counter()
         state, stats = train_one_epoch(step, state, batches, 0, config)
@@ -841,6 +1161,7 @@ def drive_train_path(results: dict) -> None:
               f"K1 / K3 launched {k1} / {k3} times in {n_batches} steps of {blocks} blocks (remat={remat})")
         results["K1"]["launches"] += k1
         results["K3"]["launches"] += k3
+        read_standalone(results, "training")
         return state, step
 
     state, step = train(TRAIN_BS, False, TRAIN_BATCHES)
@@ -941,6 +1262,7 @@ def profile_train_step() -> None:
 PROFILE_GROUPS = {
     "K1 attention_fwd": ("attention_fwd",), "K3 attention_bwd": ("attention_bwd",),
     "K5 int8_matmul": ("int8_matmul_kernel",), "K6 int8_mlp": ("int8_mlp_kernel",),
+    "K7 preprocess": ("preprocess_kernel",),
     "GEMM": ("gemm", "xmma", "cutlass", "nvjet", "cublas"), "AdamW": ("multi_tensor", "adam"),
     "reduction / norm / softmax": ("reduce", "norm", "softmax"), "elementwise / copy": ("elementwise", "copy"),
     "host-to-device copy": ("memcpy htod",),
@@ -968,8 +1290,6 @@ def log_device_time_by_group(prof, n_steps: int, wall_ms: float) -> None:
 def profile_embed_steps(int8_models: dict) -> None:
     """torch.profiler over 3 forwards of a resident image+text batch of
     BATCH rows, in bf16 and in each int8 mode: device time by kernel group."""
-    from torch.profiler import ProfilerActivity, profile
-
     from uniir_tpu_torch.models.clip import CLIP_CONFIGS
     from uniir_tpu_torch.models.registry import seeded_clip_sf
 
@@ -977,21 +1297,7 @@ def profile_embed_steps(int8_models: dict) -> None:
     batch = resident_batch(cfg)
     models = {"bf16": seeded_clip_sf(cfg, DEVICE, seed=SEED, dtype=torch.bfloat16), **int8_models}
     for mode, model in models.items():
-        with torch.inference_mode():
-            model(*batch)  # warm-up
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                model(*batch)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 3
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    model(*batch)
-                torch.cuda.synchronize()
-        log(f"profile of the embed forward at batch {BATCH}, mode {mode}: forward_ms={wall * 1e3} "
-            f"(host clock, without the profiler) = {BATCH / wall:.1f} pairs/s")
-        log_device_time_by_group(prof, 3, wall * 1e3)
+        profile_forward(model, batch, f"CLIP-SF mode {mode}")
 
 
 def main() -> None:
@@ -1009,7 +1315,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp")
+    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)
@@ -1028,8 +1334,18 @@ def main() -> None:
                "replaces": "uniir_tpu/ops/quant_pallas.py:145", "launches": 0},
         "K6": {"name": "int8_mlp", "route": "cuda", "source": "uniir_tpu_torch/csrc/int8_mlp.cu",
                "replaces": "uniir_tpu/ops/mlp_pallas.py:94", "launches": 0, "library_ms": None},
+        "K7": {"name": "fused_preprocess", "route": "cuda", "source": "uniir_tpu_torch/csrc/preprocess.cu",
+               "replaces": "uniir_tpu/ops/image_ops.py:106"},
+        # K8 / K9 are stand-alone entry points, as in the JAX package: no model calls them, and
+        # `read_standalone` holds their counts to 0 after every path
+        "K8": {"name": "mha_nocausal", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
+               "replaces": "uniir_tpu/ops/attention_pallas.py:55"},
+        "K9": {"name": "mha_paired", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
+               "replaces": "uniir_tpu/ops/attention_pallas.py:158"},
     }
     check_attention(results)
+    check_attention_norm_first(results)
+    check_preprocess(results)
     check_sweeps(results)
     check_int8_matmul(results)
     check_int8_mlp(results)
@@ -1039,6 +1355,8 @@ def main() -> None:
     if "--profile" in sys.argv[1:]:
         profile_embed_steps(int8_models)
     del data, int8_models  # the training phase reads peak memory
+    torch.cuda.empty_cache()
+    drive_blip_path(results, profile="--profile" in sys.argv[1:])  # adds its K1 / K2 / K4 launches too
     torch.cuda.empty_cache()
     check_attention_bwd(results)
     drive_train_path(results)  # adds its K1 launches too

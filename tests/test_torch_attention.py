@@ -1,9 +1,10 @@
-"""Kernel K1 (attention forward): the plain twin against the JAX Pallas kernel,
-and on a card the CUDA kernel against the twin.
+"""Kernels K1, K8 and K9 (attention forward): each plain twin against its JAX
+Pallas kernel, and on a card the CUDA kernels against the twins.
 
 Inputs come from numpy with a seed and go through both frameworks as the
-same bf16 values.  The JAX side runs `mha_paired_stack` in interpret mode,
-as the JAX package's own tests do on the CPU.  JAX is imported inside the
+same bf16 values.  The JAX side runs `mha_paired_stack` (K1),
+`mha_nocausal` (K8) and `mha_paired` (K9) in interpret mode, as the JAX
+package's own tests do on the CPU.  JAX is imported inside the
 parity tests only, so the GPU cases also run on a host without it:
 `python -m pytest tests/test_torch_attention.py -m gpu --noconftest`.
 """
@@ -12,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from uniir_tpu_torch.ops.attention import attention, attention_reference
+from uniir_tpu_torch.ops.attention import (
+    attention,
+    attention_reference,
+    attention_twopass_reference,
+    mha_nocausal,
+    mha_paired,
+)
 
 # The twin rounds at the kernel's points (bf16 q*scale, fp32 softmax, bf16
 # probabilities, fp32 PV, bf16 output), so it may differ from the Pallas
@@ -94,6 +101,74 @@ def test_wrapper_rejects_bad_arguments():
         attention(q, k, v, 2, l_valid=9)
 
 
+# K8 / K9: the twin keeps `_attn_kernel`'s / `_paired_kernel`'s rounding
+# points (fp32 scores scaled after the product, p = bf16(e / rowsum) before
+# the PV product).  Measured bit-equal to both Pallas kernels in interpret
+# mode on every case below; the tolerance stated is 0.
+TWOPASS_ATOL = 0.0
+
+
+def _qkv4(B, L, H, D, seed=0):
+    return [t.view(B, L, H, D) for t in _qkv(B, L, H * D, seed)]
+
+
+@pytest.mark.parametrize("L", [13, 21, 29, 32])
+@pytest.mark.parametrize("D", [16, 64])
+def test_mha_nocausal_twin_matches_pallas_kernel(L, D):
+    from uniir_tpu.ops.attention_pallas import mha_nocausal as jax_mha_nocausal
+
+    B, H = 2, 2
+    q, k, v = _qkv4(B, L, H, D, seed=L)
+    ref = jax_mha_nocausal(_jax(q), _jax(k), _jax(v), interpret=True)
+    before = mha_nocausal.launches
+    out = mha_nocausal(q, k, v)
+    assert mha_nocausal.launches == before  # a CPU tensor runs the twin
+    assert out.dtype == torch.bfloat16 and out.shape == (B, L, H, D)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), rtol=0, atol=TWOPASS_ATOL)
+
+
+@pytest.mark.parametrize("L", [13, 21, 29, 32])
+@pytest.mark.parametrize("D", [16, 64])
+@pytest.mark.parametrize("causal", [False, True])
+def test_mha_paired_twin_matches_pallas_kernel(L, D, causal):
+    from uniir_tpu.ops.attention_pallas import mha_paired as jax_mha_paired
+
+    B, H = 2, 2
+    q, k, v = _qkv(B, L, H * D, seed=L + 1)
+    ref = jax_mha_paired(_jax(q), _jax(k), _jax(v), H, interpret=True, causal=causal)
+    before = mha_paired.launches
+    out = mha_paired(q, k, v, H, causal=causal)
+    assert mha_paired.launches == before
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), rtol=0, atol=TWOPASS_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_twopass_twin_matches_mha_reference(causal):
+    """Within 2e-2 of `mha_reference` on the same bf16 inputs, as
+    tests/test_topk_pallas.py holds the Pallas kernels."""
+    from uniir_tpu.ops.attention_pallas import mha_reference
+
+    B, L, H, D = 2, 29, 2, 64
+    q, k, v = _qkv(B, L, H * D, seed=4)
+    ref = mha_reference(*(_jax(t.view(B, L, H, D)) for t in (q, k, v)), causal=causal)
+    out = attention_twopass_reference(q, k, v, H, causal=causal)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32).reshape(B, L, H * D), atol=EINSUM_ATOL)
+    if not causal:
+        four = mha_nocausal(*(t.view(B, L, H, D) for t in (q, k, v)))
+        torch.testing.assert_close(four.view(B, L, H * D), out, rtol=0, atol=0)
+
+
+def test_standalone_wrappers_reject_bad_arguments():
+    q, k, v = _qkv(1, 8, 128)
+    with pytest.raises(ValueError):
+        mha_nocausal(q, k, v)  # [B, L, H, D] wanted
+    with pytest.raises(ValueError):
+        mha_paired(q, k[:, :4], v, 2)
+    with pytest.raises(ValueError):
+        mha_paired(q, k, v, 3)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -113,3 +188,35 @@ def test_cuda_kernel_matches_twin(cuda, B, L, H, causal):
     assert attention.launches == before + 1
     ref = attention_reference(q, k, v, H, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+# K8 / K9 on the card: the twin's rounding points; the fp32 row sum in
+# another order can move a probability by one bf16 step: a couple of bf16
+# ulps of outputs of magnitude < 4.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,causal", [(8, 197, 16, False), (8, 257, 16, False), (8, 77, 12, True), (3, 100, 3, True)])
+def test_cuda_norm_first_kernel_matches_twin(cuda, B, L, H, causal):
+    q, k, v = (t.to(cuda) for t in _qkv(B, L, H * 64, seed=5))
+    before = mha_paired.launches
+    out = mha_paired(q, k, v, H, causal=causal)
+    torch.cuda.synchronize()
+    assert mha_paired.launches == before + 1
+    ref = attention_twopass_reference(q, k, v, H, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    if not causal:
+        before = mha_nocausal.launches
+        four = mha_nocausal(*(t.view(B, L, H, 64) for t in (q, k, v)))
+        torch.cuda.synchronize()
+        assert mha_nocausal.launches == before + 1
+        assert torch.equal(four.view(B, L, H * 64), out)  # the same kernel over the same memory
+    with pytest.raises(ValueError):
+        mha_paired(q[..., : H * 32].contiguous(), k[..., : H * 32].contiguous(), v[..., : H * 32].contiguous(), H)
+
+
+@pytest.mark.gpu
+def test_cuda_k1_at_blip_length(cuda):
+    """K1 at BLIP's L = 197: rows 197..207 of the padded key tile are masked."""
+    q, k, v = (t.to(cuda) for t in _qkv(8, 197, 1024, seed=6))
+    out = attention(q, k, v, 16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), attention_reference(q, k, v, 16).float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)

@@ -226,3 +226,49 @@ def test_dataset_factory_equals_jax(mbeir_root, kind):
     ours_ds.seed(2), theirs_ds.seed(2)
     assert len(ours_ds) == len(theirs_ds)
     assert_same(ours_coll([ours_ds[i] for i in range(3)]), theirs_coll([theirs_ds[i] for i in range(3)]), kind)
+
+
+# --------------------------------------------------- BERT WordPiece tokenizer
+
+
+BERT_TEXTS = [
+    "A red dress.", "the cats photo", "", "Dogs matching the style of news images",
+    "unknownword red", "café  dog\tphoto\n", "red " * 60, "blue-shirt, (cat)!", "狗 cat",
+]
+
+
+@pytest.mark.parametrize("max_length", [8, 16, 50])
+def test_bert_tokenizer_equals_jax(max_length):
+    from tests.helpers import tiny_bert_vocab
+    from uniir_tpu.data.tokenizers.bert_wordpiece import BertTokenizer as JaxBertTokenizer
+    from uniir_tpu_torch.data.tokenizers.bert_wordpiece import BertTokenizer
+
+    ours, theirs = BertTokenizer(tiny_bert_vocab()), JaxBertTokenizer(tiny_bert_vocab())
+    assert_same(ours(BERT_TEXTS, max_length=max_length), theirs(BERT_TEXTS, max_length=max_length), "batch")
+    out = ours(BERT_TEXTS, max_length=max_length)
+    assert out["input_ids"].dtype == np.int32 and out["input_ids"].shape == (len(BERT_TEXTS), max_length)
+    # truncation keeps [CLS] first and [SEP] last; padding is masked out
+    long_row = out["input_ids"][6]
+    assert long_row[0] == ours.cls_token_id and long_row[-1] == ours.sep_token_id and out["attention_mask"][6].all()
+    assert (out["input_ids"][2][:2] == [ours.cls_token_id, ours.sep_token_id]).all() and out["attention_mask"][2].sum() == 2
+    assert ((out["attention_mask"] == 0) <= (out["input_ids"] == ours.pad_token_id)).all()
+    for text in BERT_TEXTS:
+        assert ours.tokenize(text) == theirs.tokenize(text) and ours.encode(text) == theirs.encode(text)
+
+
+def test_bert_tokenizer_blip_special_tokens_and_vocab_file(tmp_path):
+    from tests.helpers import tiny_bert_vocab
+    from uniir_tpu.data.tokenizers.bert_wordpiece import BertTokenizer as JaxBertTokenizer
+    from uniir_tpu_torch.data.tokenizers.bert_wordpiece import DEC, ENC, BertTokenizer
+
+    words = tiny_bert_vocab()
+    path = tmp_path / "vocab.txt"
+    path.write_text("\n".join(words) + "\n", encoding="utf-8")
+    ours, theirs = BertTokenizer(str(path)), JaxBertTokenizer(str(path))
+    # BLIP appends [DEC] and [ENC] after the vocabulary (30522 + 2 for bert-base-uncased)
+    assert ours.vocab == theirs.vocab and ours.vocab_size == len(words) + 2
+    assert (ours.bos_token_id, ours.enc_token_id) == (ours.vocab[DEC], ours.vocab[ENC]) == (len(words), len(words) + 1)
+    assert (ours.bos_token_id, ours.enc_token_id) == (theirs.bos_token_id, theirs.enc_token_id)
+    plain = BertTokenizer(words, add_blip_special_tokens=False)
+    assert plain.vocab_size == len(words) and plain.enc_token_id is None
+    assert_same(ours("a red dress", max_length=8), theirs("a red dress", max_length=8), "single string")

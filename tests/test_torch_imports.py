@@ -18,20 +18,26 @@ SMOKE_MODULES = [
     "uniir_tpu_torch._build",
     "uniir_tpu_torch.core.checkpoint",
     "uniir_tpu_torch.core.config",
+    "uniir_tpu_torch.core.device",
     "uniir_tpu_torch.data.collator",
     "uniir_tpu_torch.data.data_utils",
     "uniir_tpu_torch.data.dataset",
     "uniir_tpu_torch.data.loader",
     "uniir_tpu_torch.data.preprocess",
     "uniir_tpu_torch.data.registry",
+    "uniir_tpu_torch.data.tokenizers.bert_wordpiece",
     "uniir_tpu_torch.data.tokenizers.clip_bpe",
+    "uniir_tpu_torch.models.blip_sf",
+    "uniir_tpu_torch.models.blip_vit",
     "uniir_tpu_torch.models.clip",
     "uniir_tpu_torch.models.clip_sf",
     "uniir_tpu_torch.models.convert",
     "uniir_tpu_torch.models.layers",
+    "uniir_tpu_torch.models.med",
     "uniir_tpu_torch.models.registry",
     "uniir_tpu_torch.ops.attention",
     "uniir_tpu_torch.ops.calibrate",
+    "uniir_tpu_torch.ops.image_ops",
     "uniir_tpu_torch.ops.mlp",
     "uniir_tpu_torch.ops.quant",
     "uniir_tpu_torch.ops.topk",
@@ -68,6 +74,12 @@ def test_smoke_modules_import_no_jax_pil_or_yaml():
     assert proc.returncode == 0, proc.stderr
     loaded = set(__import__("json").loads(proc.stdout.strip().splitlines()[-1]))
     assert not loaded & set(FORBIDDEN), sorted(loaded & set(FORBIDDEN))
+
+
+def test_smoke_module_list_covers_every_port_module():
+    """A new port file joins the subprocess import check by being listed."""
+    on_disk = {".".join(p.relative_to(REPO).with_suffix("").parts) for p in PORT.rglob("*.py") if p.name != "__init__.py"}
+    assert on_disk <= set(SMOKE_MODULES), sorted(on_disk - set(SMOKE_MODULES))
 
 
 def test_no_port_file_imports_jax():

@@ -1,9 +1,10 @@
 """The slice as a whole: embed -> create_index -> run_retrieval in the JAX
 package and in the port, on the same miniature M-BEIR tree and weights.
 
-The JAX bundle is `tiny_clip_bundle` (fp32 test-tiny); the port gets the same
-weights through `state_dict_from_jax`, and the same tokenizer and image
-transform.  Query instructions are off so both runs embed the same text.
+The JAX bundle is `tiny_clip_bundle` (fp32 test-tiny), or a tiny BLIP-SF
+built the same way; the port gets the same weights through
+`state_dict_from_jax`, and the same tokenizer and image transform.  Query
+instructions are off so both runs embed the same text.
 """
 
 import os
@@ -11,8 +12,15 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
-from tests.helpers import build_pipeline_tree, make_eval_config, tiny_clip_bundle
+from tests.helpers import (
+    build_pipeline_tree,
+    identity_image_transform,
+    make_eval_config,
+    simple_bert_tokenizer,
+    tiny_clip_bundle,
+)
 from uniir_tpu.data.registry import MBEIR_TASK as JAX_MBEIR_TASK
 from uniir_tpu.data.registry import hash_did as jax_hash_did
 from uniir_tpu.data.registry import hash_qid as jax_hash_qid
@@ -21,13 +29,17 @@ from uniir_tpu.retrieval.eval import run_retrieval as jax_run_retrieval
 from uniir_tpu.retrieval.index import create_index as jax_create_index
 from uniir_tpu_torch.core.config import Config
 from uniir_tpu_torch.data import registry as port_registry
+from uniir_tpu_torch.models.blip_sf import BLIPScoreFusion
+from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
 from uniir_tpu_torch.models.clip import CLIP_CONFIGS
 from uniir_tpu_torch.models.clip_sf import CLIPScoreFusion
 from uniir_tpu_torch.models.convert import state_dict_from_jax
-from uniir_tpu_torch.models.registry import ModelBundle
+from uniir_tpu_torch.models.med import MED_CONFIGS
+from uniir_tpu_torch.models.registry import ModelBundle, build_model_from_config
 from uniir_tpu_torch.retrieval.embedder import generate_embeds_and_ids_for_dataset, generate_embeds_for_config
 from uniir_tpu_torch.retrieval.eval import run_retrieval
 from uniir_tpu_torch.retrieval.index import DenseIndex, create_index
+from uniir_tpu_torch.retrieval.search import search_dense_index
 from uniir_tpu_torch.train.steps import make_embed_step
 
 JAX_EXPT = "CLIP_SF/TinyJax/NoInstruct/InBatch/"
@@ -106,6 +118,82 @@ def test_port_pipeline_matches_jax(trees, pool_dtype):
     assert _tsv(root, expt) == _tsv(root, JAX_EXPT)
 
 
+BLIP_JAX_EXPT = "BLIP_SF/TinyJax/NoInstruct/InBatch/"
+
+
+def tiny_blip_bundle():
+    """fp32 test-tiny BLIP-SF in the JAX package, with a hash BERT-style tokenizer."""
+    from uniir_tpu.models.blip_sf import BLIPScoreFusion as JaxBLIPSF
+    from uniir_tpu.models.blip_vit import BLIP_VIT_CONFIGS as JAX_VIT
+    from uniir_tpu.models.med import MED_CONFIGS as JAX_MED
+    from uniir_tpu.models.registry import ModelBundle as JaxModelBundle
+
+    vit, med = JAX_VIT["test-tiny"], JAX_MED["test-tiny"]
+    model = JaxBLIPSF(vit_cfg=vit, med_cfg=med, embed_dim=16)
+    tok = simple_bert_tokenizer(max_len=16, vocab_size=97)
+    img_fn = identity_image_transform(vit.image_size)
+    ones = np.ones(2, np.int32)
+    params = model.init(jax.random.PRNGKey(0), tok(["x", "y"]), np.zeros((2, vit.image_size, vit.image_size, 3), np.float32),
+                        ones, ones)["params"]
+    # flax zero-initialises cls_token / pos_embed: give them values so positions matter
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    for name in ("cls_token", "pos_embed"):
+        params["visual_encoder"][name] = (0.02 * rng.standard_normal(params["visual_encoder"][name].shape)).astype(np.float32)
+    return JaxModelBundle("BLIPScoreFusion", model, params, tok, img_fn, img_fn, (vit.image_size, vit.image_size), 16)
+
+
+@pytest.fixture(scope="module")
+def blip_trees(trees):
+    root, _ = trees
+    jax_bundle = tiny_blip_bundle()
+    config = _config(root, BLIP_JAX_EXPT)
+    jax_embed(jax_bundle, config)
+    jax_create_index(config)
+    jax_run_retrieval(config)
+    return root, jax_bundle
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
+def test_port_blip_sf_pipeline_matches_jax(blip_trees, pool_dtype):
+    """BLIP-SF through the same entry points: its text input is a dict
+    {"input_ids", "attention_mask"} from the collator to the model."""
+    root, jax_bundle = blip_trees
+    model = BLIPScoreFusion(BLIP_VIT_CONFIGS["test-tiny"], MED_CONFIGS["test-tiny"], 16)
+    model.load_state_dict(state_dict_from_jax(jax_bundle.params))
+    bundle = ModelBundle("BLIPScoreFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
+                         jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim)
+    expt = f"BLIP_SF/TinyTorch-{pool_dtype}/NoInstruct/InBatch/"
+    config = _config(root, expt, pool_dtype)
+    assert len(generate_embeds_for_config(bundle, config)) == 8
+    assert len(create_index(config)) == 2
+    assert run_retrieval(config, device="cpu")
+    for split, name in [("test", "mscoco_task0_test"), ("train", "mscoco_task0_train"),
+                        ("cand_pool", "mscoco_task0_cand_pool"), ("cand_pool", "union_cand_pool")]:
+        base = os.path.join(root, "embed", "{}", split, f"mbeir_{name}")
+        ours, ref = np.load(base.format(expt) + "_embed.npy"), np.load(base.format(BLIP_JAX_EXPT) + "_embed.npy")
+        assert ours.dtype == np.float16 and ours.shape == ref.shape
+        np.testing.assert_allclose(ours.astype(np.float32), ref.astype(np.float32), atol=EMBED_ATOL)
+        np.testing.assert_array_equal(np.load(base.format(expt) + "_ids.npy"), np.load(base.format(BLIP_JAX_EXPT) + "_ids.npy"))
+    assert _run_rows(root, expt) == _run_rows(root, BLIP_JAX_EXPT)
+    assert _tsv(root, expt) == _tsv(root, BLIP_JAX_EXPT)
+
+
+def test_no_device_named_and_no_card_raises(monkeypatch):
+    """The card is the default device: without one, an entry point that was
+    given no device raises and says how to ask for the CPU; it never carries
+    on there unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = Config.from_dict({"model": {"name": "CLIPScoreFusion", "clip_vision_model_name": "test-tiny"}})
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_model_from_config(config)
+    index = DenseIndex(np.eye(4, 16, dtype=np.float16), np.arange(4, dtype=np.int64))
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        search_dense_index(np.ones((2, 16), np.float32), index, 2)
+    scores, ids = search_dense_index(np.ones((2, 16), np.float32), index, 2, device="cpu")  # asked for: runs
+    assert scores.shape == ids.shape == (2, 2)
+
+
 def test_index_files_interoperate(trees):
     """The port reads the JAX package's .index files (same npz format)."""
     root, _ = trees
@@ -174,7 +262,7 @@ def test_pipeline_cli_index_and_retrieval(trees, tmp_path):
     path = str(tmp_path / "retrieval.yaml")
     save_config(Config.from_dict(config.to_dict(resolve=False)), path)
     main(["--config_path", path, "--uniir_dir", root, "--mbeir_data_dir", os.path.join(root, "mbeir_data"),
-          "--enable_create_index", "--enable_retrieval"])
+          "--enable_create_index", "--enable_retrieval", "--device", "cpu"])
     assert _tsv(root, expt) == _tsv(root, JAX_EXPT)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(["--config_path", path, "--enable_hard_negative_mining"])

@@ -35,6 +35,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "attention": {
         "uniir_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "uniir_attention_norm_first_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     },
     "attention_bwd": {
         "uniir_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
@@ -44,6 +45,9 @@ SIGNATURES = {
     },
     "int8_mlp": {
         "uniir_int8_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
+    },
+    "preprocess": {
+        "uniir_fused_preprocess": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),

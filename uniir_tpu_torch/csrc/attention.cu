@@ -1,8 +1,11 @@
-// K1: fused attention forward over model-native [B, L, H*D] bf16 tensors.
+// K1, K8, K9: fused attention forward over model-native [B, L, H*D] bf16 tensors.
 //
-// Replaces uniir_tpu/ops/attention_pallas.py::mha_paired_stack
+// K1 replaces uniir_tpu/ops/attention_pallas.py::mha_paired_stack
 // (_paired_stack_kernel), reached from uniir_tpu/models/layers.py:208-216 on
-// every block but the pooled last one of both CLIP towers.
+// every block but the pooled last one of the CLIP towers and of the BLIP ViT.
+// K8 and K9 replace mha_nocausal (_attn_kernel, over [B, L, H, D], which is
+// the same memory) and mha_paired (_paired_kernel) of the same file: the
+// NORM_FIRST variant of the kernel below, described after K1.
 //
 // Computes, per (batch, head): out = softmax(q k^T * scale) v with
 //   * q rounded to bf16 after the scale multiply (as the TPU kernel does),
@@ -25,6 +28,15 @@
 // scores, exp, row sum and PV), which reproduces the reference kernel's
 // rounding points exactly at the price of 1.5x the QK^T work.  A faster
 // wgmma/TMA version is later work.
+//
+// NORM_FIRST (K8 / K9) keeps the other two Pallas kernels' rounding points:
+//   * q is NOT pre-scaled: s = fp32(q k^T) * scale, in fp32 after the product,
+//   * masked keys -> -1e30, fp32 row max, e = exp(s - max), fp32 row sum,
+//   * p = bf16(e / rowsum): normalised BEFORE the PV product,
+//   * o = fp32-accumulated p v, cast to bf16 with no further multiply.
+// The row sum must be known before the first p is formed, so this variant
+// walks the keys three times (max; sum; p v): 2x the QK^T work.  Same tiles,
+// same shared-memory layout, same launch geometry as K1.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -42,6 +54,7 @@ constexpr int QT = 16 * WARPS;  // query rows per block
 constexpr int KS = D + 8;       // K row stride in shared memory (conflict-free B loads)
 constexpr float NEG = -1e30f;   // the reference kernel's mask value
 
+template <bool NORM_FIRST>
 __global__ void __launch_bounds__(WARPS * 32)
 attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                      bf16* __restrict__ o, int L, int H, int l_valid, int causal, float scale, int l_pad) {
@@ -75,7 +88,8 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
   if (q0 >= L) return;  // no block-wide barrier follows
   const int row_lo = q0 + g, row_hi = q0 + g + 8;
 
-  // Q fragments, scaled and rounded to bf16 (q * bf16(scale) in the reference).
+  // Q fragments: K1 scales and rounds to bf16 (q * bf16(scale) in the
+  // reference); NORM_FIRST takes q as it is and scales the fp32 scores.
   uint32_t qa[D / 16][4];
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
@@ -86,8 +100,9 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
       float lo = 0.f, hi = 0.f;
       if (row < L) {
         const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(q + base + (size_t)row * W + col);
-        lo = __bfloat162float(x.x) * scale;
-        hi = __bfloat162float(x.y) * scale;
+        lo = __bfloat162float(x.x);
+        hi = __bfloat162float(x.y);
+        if (!NORM_FIRST) { lo *= scale; hi *= scale; }
       }
       qa[ks][r] = pack_bf16x2(lo, hi);
     }
@@ -98,6 +113,10 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
   int kmax = l_valid;
   if (causal) kmax = min(kmax, q0 + 16);
   const int kend = (kmax + 15) / 16 * 16;
+  // NORM_FIRST scales the fp32 score; __fmul_rn keeps the product a rounding
+  // point of its own (no contraction into the subtraction of the row max).
+  // K1 folded the scale into q.
+  auto scaled = [scale](float x) { return NORM_FIRST ? __fmul_rn(x, scale) : x; };
 
   // Pass 1: row maxima of the masked scores.
   float m_lo = -INFINITY, m_hi = -INFINITY;
@@ -115,7 +134,7 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
       const int key = n0 + 2 * t + (e & 1);
       const int row = e < 2 ? row_lo : row_hi;
       const bool keep = key < l_valid && (!causal || key <= row);
-      const float val = keep ? s[e] : NEG;
+      const float val = keep ? scaled(s[e]) : NEG;
       if (e < 2) m_lo = fmaxf(m_lo, val); else m_hi = fmaxf(m_hi, val);
     }
   }
@@ -125,11 +144,39 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
     m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
   }
 
-  // Pass 2: e = exp(s - m) in fp32, fp32 row sums, bf16(e) @ V in fp32.
+  // NORM_FIRST only: the fp32 row sums of e = exp(s - m), before any p is formed.
+  float l_lo = 0.f, l_hi = 0.f;
+  if (NORM_FIRST) {
+    for (int n0 = 0; n0 < kend; n0 += 8) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      const bf16* kr = Ks + (n0 + g) * KS + 2 * t;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
+        mma_bf16_16816(s, qa[ks], b0, b1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n0 + 2 * t + (e & 1);
+        const int row = e < 2 ? row_lo : row_hi;
+        const bool keep = key < l_valid && (!causal || key <= row);
+        const float p = keep ? expf(scaled(s[e]) - (e < 2 ? m_lo : m_hi)) : 0.f;
+        if (e < 2) l_lo += p; else l_hi += p;
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+  }
+
+  // Last pass: e = exp(s - m) in fp32; K1 sums the rows here and feeds
+  // bf16(e) to the PV product, NORM_FIRST feeds bf16(e / rowsum).
   float acc[D / 8][4];
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float l_lo = 0.f, l_hi = 0.f;
   for (int n0 = 0; n0 < kend; n0 += 16) {
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
@@ -146,9 +193,13 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
         const int key = n0 + 8 * j + 2 * t + (e & 1);
         const int row = e < 2 ? row_lo : row_hi;
         const bool keep = key < l_valid && (!causal || key <= row);
-        const float p = keep ? expf(s[j][e] - (e < 2 ? m_lo : m_hi)) : 0.f;
-        s[j][e] = p;
-        if (e < 2) l_lo += p; else l_hi += p;
+        const float p = keep ? expf(scaled(s[j][e]) - (e < 2 ? m_lo : m_hi)) : 0.f;
+        if (NORM_FIRST) {
+          s[j][e] = p / (e < 2 ? l_lo : l_hi);
+        } else {
+          s[j][e] = p;
+          if (e < 2) l_lo += p; else l_hi += p;
+        }
       }
     }
     // The score C fragments of keys [n0, n0+16) are the A fragment of PV.
@@ -162,12 +213,14 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
       mma_bf16_16816(acc[dn], pa, b0, b1);
     }
   }
+  if (!NORM_FIRST) {
 #pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
-    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
   }
-  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  const float inv_lo = NORM_FIRST ? 1.f : 1.f / l_lo, inv_hi = NORM_FIRST ? 1.f : 1.f / l_hi;
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
     const int col = dn * 8 + 2 * t;
@@ -187,6 +240,21 @@ int smem_bytes(int L) {
   return l_pad * KS * 2 + D * (l_pad + 8) * 2;
 }
 
+template <bool NORM_FIRST>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid, int causal,
+           float scale, void* stream) {
+  const int l_pad = (L + 15) / 16 * 16;
+  const int smem = smem_bytes(L);
+  cudaError_t err =
+      cudaFuncSetAttribute(attention_fwd_kernel<NORM_FIRST>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + QT - 1) / QT, H, B);
+  attention_fwd_kernel<NORM_FIRST><<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      L, H, l_valid, causal, scale, l_pad);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -195,15 +263,14 @@ extern "C" {
 // `stream`; returns the CUDA error code of the launch (0 on success).
 int uniir_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid,
                         int causal, float scale, void* stream) {
-  const int l_pad = (L + 15) / 16 * 16;
-  const int smem = smem_bytes(L);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + QT - 1) / QT, H, B);
-  attention_fwd_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      L, H, l_valid, causal, scale, l_pad);
-  return (int)cudaGetLastError();
+  return launch<false>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+}
+
+// K8 / K9: the same tensors through the NORM_FIRST rounding points; `scale`
+// is the fp32 scale applied to the scores (q is not pre-scaled).
+int uniir_attention_norm_first_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+                                   int l_valid, int causal, float scale, void* stream) {
+  return launch<true>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
 }
 
 const char* uniir_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

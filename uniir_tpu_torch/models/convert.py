@@ -1,14 +1,21 @@
 """JAX parameter tree -> the port's state dict (inverse of the JAX converter).
 
-`uniir_tpu/models/convert.py::convert_clip_sf_params` maps an OpenAI CLIP
-state dict onto the JAX package's CLIP-SF pytree.  The port's modules take
-OpenAI CLIP's names directly, so moving JAX weights (numpy) into the port
-inverts that map:
+`uniir_tpu/models/convert.py` maps an OpenAI CLIP state dict onto the JAX
+package's CLIP-SF pytree (`convert_clip_sf_params`) and a BLIP state dict
+onto its BLIP pytrees (`convert_blip_sf_params`, `convert_blip_vit`,
+`convert_med_bert`).  The port's modules take the torch names directly, so
+moving JAX weights (numpy) into the port inverts those maps:
 
   * conv HWIO -> OIHW;
   * Dense kernel [in, out] -> Linear weight [out, in];
   * LayerNorm `scale` -> `weight`;
-  * fused `qkv_proj/kernel` [W, 3W] -> `attn.in_proj_weight` [3W, W].
+  * fused `qkv_proj/kernel` [W, 3W] -> `attn.in_proj_weight` [3W, W]
+    (CLIP) or `attn.qkv.weight` (BLIP's ViT);
+  * `temp` / `logit_scale` as 0-d tensors.
+
+`state_dict_from_jax` dispatches on the tree: CLIP-SF (float or quantised),
+BLIP-SF, a bare `MedBertModel` tree (with or without cross-attention and
+pooler) or a bare `BLIPVisionTransformer` tree.
 
 A tree quantised by the JAX package's `quantize_tree` converts too, onto the
 state dict of the port's int8 modules, so both packages run the same int8
@@ -64,9 +71,91 @@ def _resblocks(tree: dict, prefix: str) -> dict:
     return out
 
 
+def _blip_vit(tree: dict, prefix: str = "") -> dict:
+    """BLIPVisionTransformer params -> timm / BLIP names (inverse of `convert_blip_vit`)."""
+    conv = tree["patch_embed"]["proj"]
+    out = {
+        f"{prefix}patch_embed.proj.weight": np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)),
+        f"{prefix}patch_embed.proj.bias": conv["bias"],
+        f"{prefix}cls_token": tree["cls_token"],
+        f"{prefix}pos_embed": tree["pos_embed"],
+        **_ln(tree["norm"], f"{prefix}norm"),
+    }
+    i = 0
+    while f"blocks_{i}" in tree:
+        blk, p = tree[f"blocks_{i}"], f"{prefix}blocks.{i}"
+        out.update(_ln(blk["norm1"], f"{p}.norm1"))
+        out.update(_ln(blk["norm2"], f"{p}.norm2"))
+        out.update(_dense(blk["attn"]["qkv_proj"], f"{p}.attn.qkv"))
+        out.update(_dense(blk["attn"]["out_proj"], f"{p}.attn.proj"))
+        out.update(_dense(blk["mlp"]["fc1"], f"{p}.mlp.fc1"))
+        out.update(_dense(blk["mlp"]["fc2"], f"{p}.mlp.fc2"))
+        i += 1
+    return out
+
+
+def _bert_attention(tree: dict, prefix: str) -> dict:
+    return {
+        **_dense(tree["query"], f"{prefix}.self.query"),
+        **_dense(tree["key"], f"{prefix}.self.key"),
+        **_dense(tree["value"], f"{prefix}.self.value"),
+        **_dense(tree["output_dense"], f"{prefix}.output.dense"),
+        **_ln(tree["output_ln"], f"{prefix}.output.LayerNorm"),
+    }
+
+
+def _med_bert(tree: dict, prefix: str = "") -> dict:
+    """MedBertModel params -> HF BERT names (inverse of `convert_med_bert`;
+    the token-type row stays folded into the position table)."""
+    out = {
+        f"{prefix}embeddings.word_embeddings.weight": tree["word_embeddings"],
+        f"{prefix}embeddings.position_embeddings.weight": tree["position_embeddings"],
+        **_ln(tree["embeddings_ln"], f"{prefix}embeddings.LayerNorm"),
+    }
+    i = 0
+    while f"layer_{i}" in tree:
+        layer, p = tree[f"layer_{i}"], f"{prefix}encoder.layer.{i}"
+        out.update(_bert_attention(layer["attention"], f"{p}.attention"))
+        if "crossattention" in layer:
+            out.update(_bert_attention(layer["crossattention"], f"{p}.crossattention"))
+        out.update(_dense(layer["intermediate"], f"{p}.intermediate.dense"))
+        out.update(_dense(layer["output_dense"], f"{p}.output.dense"))
+        out.update(_ln(layer["output_ln"], f"{p}.output.LayerNorm"))
+        i += 1
+    if "pooler" in tree:
+        out.update(_dense(tree["pooler"], f"{prefix}pooler.dense"))
+    return out
+
+
+def _blip_sf(params_np: dict) -> dict:
+    """BLIPScoreFusion params -> BLIP names (inverse of `convert_blip_sf_params`)."""
+    return {
+        **_blip_vit(params_np["visual_encoder"], "visual_encoder."),
+        **_med_bert(params_np["text_encoder"], "text_encoder."),
+        **_dense(params_np["vision_proj"], "vision_proj"),
+        **_dense(params_np["text_proj"], "text_proj"),
+        "temp": np.asarray(params_np["temp"]).reshape(()),
+    }
+
+
+def _tensors(sd: dict) -> Dict[str, torch.Tensor]:
+    return {
+        k: torch.from_numpy(np.array(v, dtype=np.int8 if k.endswith(".weight_q") else np.float32))
+        for k, v in sd.items()
+    }
+
+
 def state_dict_from_jax(params_np) -> Dict[str, torch.Tensor]:
-    """JAX CLIPScoreFusion params (numpy leaves), float or quantised ->
-    CLIPScoreFusion state dict (fp32; int8 for `weight_q`)."""
+    """JAX params (numpy leaves) -> the state dict of the port's module of
+    the same name: CLIPScoreFusion (float or quantised), BLIPScoreFusion, a
+    bare MedBertModel or a bare BLIPVisionTransformer tree (fp32; int8 for
+    `weight_q`)."""
+    if "visual_encoder" in params_np:
+        return _tensors(_blip_sf(params_np))
+    if "word_embeddings" in params_np:
+        return _tensors(_med_bert(params_np))
+    if "patch_embed" in params_np:
+        return _tensors(_blip_vit(params_np))
     vis, txt = params_np["visual"], params_np["text"]
     sd = {
         "visual.conv1.weight": np.transpose(np.asarray(vis["conv1"]["proj"]["kernel"]), (3, 2, 0, 1)),
@@ -83,7 +172,4 @@ def state_dict_from_jax(params_np) -> Dict[str, torch.Tensor]:
         **_resblocks(txt["transformer"], "transformer"),
         "logit_scale": params_np["logit_scale"],
     }
-    return {
-        k: torch.from_numpy(np.array(v, dtype=np.int8 if k.endswith(".weight_q") else np.float32))
-        for k, v in sd.items()
-    }
+    return _tensors(sd)

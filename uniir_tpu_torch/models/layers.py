@@ -2,12 +2,15 @@
 
 Parameter names follow OpenAI CLIP's state dict (`attn.in_proj_weight`,
 `mlp.c_fc`, `ln_1`, `transformer.resblocks.<i>`, ...), so a published
-checkpoint loads directly.  Arithmetic follows the JAX package: the compute
+checkpoint loads directly (BLIP's ViT maps timm's names onto them where its
+state dict is read and written, `models/blip_vit.py`).  Arithmetic follows
+the JAX package: the compute
 dtype is the input's (the towers cast their input to it), and every
 parameter is cast to it at each use, as flax's `dtype=` does, so training
 keeps fp32 parameters while the residual stream and the matmuls run in
 bf16 (serving casts the parameters once instead, with the same values).
-LayerNorm statistics are fp32 with eps 1e-6 (flax's default), softmax is
+LayerNorm statistics are fp32 with eps 1e-6 (flax's default; MED's BERT
+layers pass 1e-12), softmax is
 fp32, and bf16 self-attention goes through the differentiable
 `ops.attention.attention` (kernels K1 forward, K3 backward).
 `Transformer(remat=True)` recomputes each block in the backward pass
@@ -40,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 from uniir_tpu_torch.ops import mlp as mlp_ops
 from uniir_tpu_torch.ops import quant as quant_ops
 from uniir_tpu_torch.ops.attention import attention
+from uniir_tpu_torch.ops.image_ops import cubic_resize_matrix
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (PyTorch's and OpenAI CLIP's is 1e-5)
 
@@ -72,6 +76,14 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact erf GELU (timm ViT and HF BERT), not the tanh form."""
+    return F.gelu(x)
+
+
+ACTIVATIONS: dict = {"gelu": gelu_exact, "quick_gelu": quick_gelu, "relu": F.relu}
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's lecun_normal: a normal truncated at 2 std, rescaled to variance 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -88,8 +100,8 @@ class Linear(nn.Linear):
 class LayerNorm(nn.LayerNorm):
     """flax LayerNorm: fp32 statistics and affine, output in the input's dtype."""
 
-    def __init__(self, width: int):
-        super().__init__(width, eps=LN_EPS)
+    def __init__(self, width: int, eps: float = LN_EPS):
+        super().__init__(width, eps=eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = self.weight.float(), self.bias.float()
@@ -108,7 +120,9 @@ def qkv_project(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, kv: O
 
 
 class MultiHeadAttention(nn.Module, _ActScales):
-    """Multi-head attention with a fused in_proj (OpenAI CLIP's nn.MultiheadAttention layout).
+    """Multi-head attention with a fused in_proj (OpenAI CLIP's
+    nn.MultiheadAttention layout: `in_proj_weight`, `in_proj_bias`,
+    `out_proj`).
 
     bf16 self-attention with no explicit mask goes through kernel K1; every
     other case (fp32, cross/pooled attention, an explicit mask) takes the
@@ -182,7 +196,9 @@ class MultiHeadAttention(nn.Module, _ActScales):
 
 
 class MLP(nn.Module, _ActScales):
-    """c_fc -> QuickGELU -> c_proj; with `res` the residual add is part of it.
+    """c_fc -> act -> c_proj; `act` is one of
+    ACTIVATIONS (CLIP's QuickGELU by default, "gelu" for BLIP's exact erf
+    form).  With `res` the residual add is part of it.
 
     That ownership lets the static int8 mode run the whole half-block as one
     call of kernel K6 (`ops/mlp.py`), the hidden never leaving the chip: it
@@ -192,9 +208,9 @@ class MLP(nn.Module, _ActScales):
     without calibrated scales both products quantise dynamically."""
 
     def __init__(self, width: int, hidden_width: int, quant: bool = False, int8_mode: str = "dynamic",
-                 mlp_route: str = "fused"):
+                 mlp_route: str = "fused", act: str = "quick_gelu"):
         super().__init__()
-        self.width, self.hidden_width = width, hidden_width
+        self.width, self.hidden_width, self.act = width, hidden_width, act
         self.quant, self.int8_mode, self.mlp_route = quant, int8_mode, mlp_route
         if quant:
             self.c_fc = quant_ops.QuantLinear(width, hidden_width, mode=int8_mode)
@@ -209,24 +225,26 @@ class MLP(nn.Module, _ActScales):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         if self.quant:
             return
-        lecun_normal_(self.c_fc.weight, self.width, generator)
-        lecun_normal_(self.c_proj.weight, self.hidden_width, generator)
-        self.c_fc.bias.zero_()
-        self.c_proj.bias.zero_()
+        fc1, fc2 = self.c_fc, self.c_proj
+        lecun_normal_(fc1.weight, self.width, generator)
+        lecun_normal_(fc2.weight, self.hidden_width, generator)
+        fc1.bias.zero_()
+        fc2.bias.zero_()
 
     def forward(self, x: torch.Tensor, res: Optional[torch.Tensor] = None) -> torch.Tensor:
+        fc1, fc2 = self.c_fc, self.c_proj
+        act = ACTIVATIONS[self.act]
         if not self.quant:
-            x = self.c_proj(quick_gelu(self.c_fc(x)))
+            x = fc2(act(fc1(x)))
             return x if res is None else res + x
         a = self.static_scales()
-        fc1, fc2 = self.c_fc, self.c_proj
         if (a is not None and res is not None and self.mlp_route == "fused"
-                and (x.device.type == "cpu" or mlp_ops.int8_mlp_supported(self.width, self.hidden_width, "quick_gelu"))):
+                and (x.device.type == "cpu" or mlp_ops.int8_mlp_supported(self.width, self.hidden_width, self.act))):
             return mlp_ops.int8_mlp(
                 x, res, fc1.weight_q, fc1.scale, fc1.bias, fc2.weight_q, fc2.scale, fc2.bias, a[0], a[1],
-                act="quick_gelu",
+                act=self.act,
             ).to(x.dtype)
-        h = quick_gelu(fc1(x, a_static=None if a is None else a[0]))
+        h = act(fc1(x, a_static=None if a is None else a[0]))
         h = fc2(h, a_static=None if a is None else a[1])
         return h if res is None else res + h
 
@@ -291,20 +309,24 @@ class Transformer(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Bias-free patch embedding over NHWC images with an OIHW weight.
+    """Patch embedding over NHWC images with an OIHW weight; bias-free for
+    CLIP, with a bias (`use_bias`) for BLIP's ViT.
 
     A VALID stride-p convolution is a product of each p x p patch with the
     flattened weight, computed here as one matmul."""
 
-    def __init__(self, width: int, patch_size: int):
+    def __init__(self, width: int, patch_size: int, use_bias: bool = False):
         super().__init__()
         self.width, self.patch_size = width, patch_size
         self.weight = nn.Parameter(torch.empty(width, 3, patch_size, patch_size))
+        self.bias = nn.Parameter(torch.empty(width)) if use_bias else None
         self.reset_parameters()
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         lecun_normal_(self.weight, 3 * self.patch_size**2, generator)
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: [B, H, W, 3] -> [B, (H/p)*(W/p), width]
@@ -312,4 +334,41 @@ class PatchEmbed(nn.Module):
         p = self.patch_size
         gh, gw = H // p, W // p
         x = x[:, : gh * p, : gw * p].reshape(B, gh, p, gw, p, C).permute(0, 1, 3, 5, 2, 4)
-        return x.reshape(B, gh * gw, C * p * p) @ self.weight.reshape(self.width, -1).T.to(x.dtype)
+        x = x.reshape(B, gh * gw, C * p * p) @ self.weight.reshape(self.width, -1).T.to(x.dtype)
+        return x if self.bias is None else x + self.bias.to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm DropPath): identity in eval mode."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def interpolate_pos_embed(pos_embed: torch.Tensor, num_patches_new: int, num_prefix_tokens: int = 1) -> torch.Tensor:
+    """Bicubic 2-D resize of grid position embeddings on a resolution change
+    (counterpart of layers.py:452-472, i.e. of `jax.image.resize`): two
+    products with `ops.image_ops.cubic_resize_matrix`.  pos_embed: [L, D] or [1, L, D]
+    with `num_prefix_tokens` leading tokens that are kept as they are."""
+    squeeze = pos_embed.dim() == 2
+    if squeeze:
+        pos_embed = pos_embed[None]
+    prefix, grid = pos_embed[:, :num_prefix_tokens], pos_embed[:, num_prefix_tokens:]
+    gs_old, gs_new = int(round(grid.shape[1] ** 0.5)), int(round(num_patches_new**0.5))
+    if gs_old != gs_new:
+        D = grid.shape[-1]
+        A = torch.from_numpy(cubic_resize_matrix(gs_old, gs_new)).to(grid.device)
+        g = grid.reshape(gs_old, gs_old, D).float()
+        g = torch.einsum("oh,hwd->owd", A, g)
+        g = torch.einsum("pw,owd->opd", A, g)
+        grid = g.reshape(1, gs_new * gs_new, D).to(pos_embed.dtype)
+    out = torch.cat([prefix, grid], dim=1)
+    return out[0] if squeeze else out

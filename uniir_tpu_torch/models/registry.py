@@ -1,7 +1,9 @@
-"""Model registry (counterpart of uniir_tpu/models/registry.py): CLIP-SF only.
+"""Model registry (counterpart of uniir_tpu/models/registry.py): CLIP-SF and BLIP-SF.
 
-`build_clip_sf` returns a `ModelBundle`: the module on its device, the
-tokenizer and the image transforms.  For serving the parameters are cast
+`build_clip_sf` / `build_blip_sf` return a `ModelBundle`: the module on its
+device, the tokenizer and the image transforms.  The device is the CUDA
+card unless the caller names one: with no card and no device named the
+build raises (`core.device.resolve_device`).  For serving the parameters are cast
 once to the compute dtype; for training (`train=True`) they stay fp32
 masters, cast at each use, and `model.remat` switches on per-block
 recomputation.  Weights come from a torch checkpoint in OpenAI CLIP / UniIR
@@ -12,22 +14,36 @@ quantised into the int8 serving twin (`quantize_clip_sf`); the activation
 mode and the static MLP route are read from the environment once, here
 (`UNIIR_INT8_BACKEND`, `UNIIR_INT8_MLP`; see `ops/quant.py`), and
 `model.int8_calibration` names the .npz of calibrated activation scales the
-static mode needs.  The other three retrievers raise until they are ported.
+static mode needs.
+
+BLIP-SF (`build_blip_sf`) reads `vit`, `image_size`, `embed_dim`,
+`tokenizer_max_length` and `bert_vocab_path` from the config; a missing
+vocabulary path raises FileNotFoundError.  A BLIP `.pth` state dict loads
+through `load_blip_checkpoint`.  `model.int8` on a BLIP model, BLIP
+training, CLIP-FF and BLIP-FF raise until they are ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
+import re
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
 
 from uniir_tpu_torch.core.checkpoint import CHECKPOINT_FILE
-from uniir_tpu_torch.data.preprocess import clip_transform
+from uniir_tpu_torch.core.device import resolve_device
+from uniir_tpu_torch.data.preprocess import blip_transform, clip_transform
+from uniir_tpu_torch.data.tokenizers.bert_wordpiece import BertTokenizer
 from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
+from uniir_tpu_torch.models.blip_sf import BLIPScoreFusion
+from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS, BLIPViTConfig
 from uniir_tpu_torch.models.clip import CLIP_CONFIGS, CLIPConfig
 from uniir_tpu_torch.models.clip_sf import CLIPScoreFusion
+from uniir_tpu_torch.models.layers import interpolate_pos_embed
+from uniir_tpu_torch.models.med import MED_CONFIGS, MedConfig
 from uniir_tpu_torch.ops.calibrate import act_scales_by_module, load_act_scales
 from uniir_tpu_torch.ops.quant import (
     int8_mlp_route_from_env,
@@ -50,15 +66,26 @@ class ModelBundle:
     embed_dim: int
 
 
-def _seeded(cfg: CLIPConfig, device, seed: int, **kwargs) -> CLIPScoreFusion:
-    # built without storage and filled in place on the device, so a ViT-L/14
+def _seeded_module(factory: Callable, device, seed: int):
+    # built without storage and filled in place on the device, so a ViT-L
     # never takes a CPU round trip
     device = torch.device(device)
     with torch.device("meta"):
-        model = CLIPScoreFusion(cfg, **kwargs)
+        model = factory()
     model = model.to_empty(device=device)
     model.reset_parameters(torch.Generator(device=device).manual_seed(seed))
     return model
+
+
+def _seeded(cfg: CLIPConfig, device, seed: int, **kwargs) -> CLIPScoreFusion:
+    return _seeded_module(lambda: CLIPScoreFusion(cfg, **kwargs), device, seed)
+
+
+def seeded_blip_sf(vit_cfg: BLIPViTConfig, med_cfg: MedConfig, device, seed: int = 0,
+                   dtype: torch.dtype = torch.bfloat16, embed_dim: int = 768) -> BLIPScoreFusion:
+    """BLIP-SF for serving: weights drawn from `seed` on `device`, cast to `dtype`."""
+    model = _seeded_module(lambda: BLIPScoreFusion(vit_cfg, med_cfg, embed_dim), device, seed)
+    return model.to_compute_dtype(dtype).eval()
 
 
 def seeded_clip_sf(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16) -> CLIPScoreFusion:
@@ -128,6 +155,28 @@ def _int8_settings(model_config):
     return mode, route, act_scales
 
 
+def _checkpoint_paths(config, train: bool) -> list:
+    """The torch state dicts the config names, in load order: `model.
+    pretrained_torch_ckpt`, then (serving only: in training `ckpt_config`
+    names the checkpoint to resume, the trainer's job) `model.ckpt_config`."""
+    model_config = config.model
+    paths = [getattr(model_config, "pretrained_torch_ckpt", None)]
+    ckpt_cfg = getattr(model_config, "ckpt_config", None)
+    if not train and ckpt_cfg is not None and getattr(ckpt_cfg, "ckpt_name", ""):
+        paths.append(os.path.join(config.uniir_dir, ckpt_cfg.ckpt_dir, ckpt_cfg.ckpt_name))
+    out = []
+    for path in filter(None, paths):
+        if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):  # the port's train checkpoint directory
+            path = os.path.join(path, CHECKPOINT_FILE)
+        if not path.endswith((".pt", ".pth")):
+            raise NotImplementedError(
+                f"{path}: only torch state dicts (.pt / .pth) and the port's train checkpoints load into "
+                "uniir_tpu_torch; JAX (orbax) train-state checkpoints are not read yet (ROADMAP.md, Queue 1 item 3)"
+            )
+        out.append(path)
+    return out
+
+
 def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     model_config = config.model
     cfg = CLIP_CONFIGS[model_config.clip_vision_model_name]
@@ -135,7 +184,7 @@ def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     if int8 and train:
         raise ValueError("model.int8 is a serving mode: int8 layers do not train")
     int8_settings = _int8_settings(model_config) if int8 else None
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
     dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
     seed = int(getattr(config, "seed", 0))
     if train:
@@ -145,19 +194,7 @@ def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     else:
         model = seeded_clip_sf(cfg, device, seed, dtype)
 
-    ckpt_paths = [getattr(model_config, "pretrained_torch_ckpt", None)]
-    ckpt_cfg = getattr(model_config, "ckpt_config", None)
-    # in training, ckpt_config names the checkpoint to resume (the trainer's job)
-    if not train and ckpt_cfg is not None and getattr(ckpt_cfg, "ckpt_name", ""):
-        ckpt_paths.append(os.path.join(config.uniir_dir, ckpt_cfg.ckpt_dir, ckpt_cfg.ckpt_name))
-    for path in filter(None, ckpt_paths):
-        if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):  # the port's train checkpoint directory
-            path = os.path.join(path, CHECKPOINT_FILE)
-        if not path.endswith((".pt", ".pth")):
-            raise NotImplementedError(
-                f"{path}: only torch state dicts (.pt / .pth) and the port's train checkpoints load into "
-                "uniir_tpu_torch; JAX (orbax) train-state checkpoints are not read yet (ROADMAP.md, Queue 1 item 3)"
-            )
+    for path in _checkpoint_paths(config, train):
         load_torch_checkpoint(model, path)
         print(f"Loaded CLIPScoreFusion weights from {path}")
 
@@ -183,10 +220,98 @@ def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     )
 
 
+# Keys of a published BLIP-SF checkpoint that the module does not take, by
+# construction (the JAX converter's expected-unused list): momentum twins and
+# queues (train state), HF buffers, the token-type table (folded into the
+# positions), pretraining heads, the frozen cross-attention and the pooler
+# that score fusion never runs.
+_BLIP_SF_UNUSED = (
+    r"_m\.", r"^(vision_proj_m|text_proj_m)\.", r"(^|\.)(image|text|idx|query|cand|ptr)_queue$", r"^queue_ptr$",
+    r"\.position_ids$", r"\.token_type_embeddings\.weight$", r"^(itm_head|text_decoder)\.",
+    r"^text_encoder\.encoder\.layer\.\d+\.crossattention\.", r"^text_encoder\.pooler\.",
+)
+
+
+def load_blip_checkpoint(model: BLIPScoreFusion, path: str, strict: bool = False) -> None:
+    """Load a BLIP / UniIR BLIP-SF state dict (.pth) into the module.
+
+    `module.` prefixes are stripped; cross-attention, momentum and queue keys
+    are dropped, as the JAX converter ignores them; row 0 of the token-type
+    table is added to every position embedding (BLIP always passes token
+    type 0, and the module has no such table); `pos_embed` is interpolated
+    when the checkpoint's patch grid differs from the model's.  A key that is
+    neither taken nor expected-unused is reported, and is an error with
+    `strict`; a parameter the checkpoint lacks is always an error."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"], dict):
+        sd = sd["model"]
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+    pos_key, tt_key = "text_encoder.embeddings.position_embeddings.weight", "text_encoder.embeddings.token_type_embeddings.weight"
+    if tt_key in sd:
+        sd[pos_key] = sd[pos_key] + sd[tt_key][0][None, :]
+    wanted = model.state_dict()
+    n_tokens = wanted["visual_encoder.pos_embed"].shape[1]
+    if sd["visual_encoder.pos_embed"].shape[1] != n_tokens:
+        sd["visual_encoder.pos_embed"] = interpolate_pos_embed(sd["visual_encoder.pos_embed"].float(), n_tokens - 1)
+    unexpected = [k for k in sd if k not in wanted and not any(re.search(p, k) for p in _BLIP_SF_UNUSED)]
+    if unexpected:
+        detail = "\n  ".join(unexpected[:40])
+        if strict:
+            raise ValueError(f"strict load: checkpoint keys the model does not take:\n  {detail}")
+        print(f"WARNING checkpoint keys the model does not take:\n  {detail}")
+    taken = {k: v.reshape(wanted[k].shape) if k == "temp" else v for k, v in sd.items() if k in wanted}
+    model.load_state_dict(taken, strict=True)
+
+
+def build_blip_sf(config, device=None, train: bool = False) -> ModelBundle:
+    model_config = config.model
+    if train:
+        raise NotImplementedError(
+            "training BLIPScoreFusion (momentum distillation) is not ported to uniir_tpu_torch yet "
+            "(ROADMAP.md, Queue 1 item 5)"
+        )
+    if getattr(model_config, "int8", False):
+        raise NotImplementedError("model.int8 for BLIP models is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 5)")
+    vit = getattr(model_config, "vit", "base")
+    vit_cfg = BLIP_VIT_CONFIGS[vit]
+    image_size = getattr(model_config, "image_size", vit_cfg.image_size)
+    if image_size != vit_cfg.image_size:
+        vit_cfg = dataclasses.replace(vit_cfg, image_size=image_size)
+    med_cfg = dataclasses.replace(MED_CONFIGS.get(vit, MED_CONFIGS["base"]), encoder_width=vit_cfg.width)
+    embed_dim = getattr(model_config, "embed_dim", 768)
+    dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
+    max_len = int(getattr(model_config, "tokenizer_max_length", 64))
+    vocab_path = getattr(model_config, "bert_vocab_path", None)
+    if vocab_path is None:
+        raise FileNotFoundError("BLIP models need model.bert_vocab_path pointing at a bert-base-uncased vocab.txt")
+    tokenizer = BertTokenizer(vocab_path)
+
+    def tokenizer_wrapper(txts):
+        return tokenizer(txts, max_length=max_len)
+
+    device = resolve_device(device)
+    model = seeded_blip_sf(vit_cfg, med_cfg, device, int(getattr(config, "seed", 0)), dtype, embed_dim)
+    strict = bool(getattr(model_config, "strict_convert", False))
+    for path in _checkpoint_paths(config, train):
+        load_blip_checkpoint(model, path, strict=strict)
+        print(f"Loaded BLIPScoreFusion weights from {path}")
+    return ModelBundle(
+        name="BLIPScoreFusion",
+        model=model,
+        tokenizer=tokenizer_wrapper,
+        img_preprocess_fn=blip_transform(vit_cfg.image_size, is_train=True),
+        img_preprocess_fn_eval=blip_transform(vit_cfg.image_size, is_train=False),
+        image_size=(vit_cfg.image_size, vit_cfg.image_size),
+        embed_dim=embed_dim,
+    )
+
+
 def build_model_from_config(config, device=None, train: bool = False) -> ModelBundle:
     name = config.model.name
     if name == "CLIPScoreFusion":
         return build_clip_sf(config, device, train)
+    if name == "BLIPScoreFusion":
+        return build_blip_sf(config, device, train)
     if name in MODEL_NAMES:
         raise NotImplementedError(f"{name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 items 4-5)")
     raise ValueError(f"Unknown model name {name!r}; expected one of {MODEL_NAMES}")

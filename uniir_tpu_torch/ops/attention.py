@@ -1,4 +1,4 @@
-"""Fused attention over model-native [B, L, H*D] tensors: kernels K1 and K3.
+"""Fused attention over model-native [B, L, H*D] tensors: kernels K1, K3, K8, K9.
 
 `attention` is the one op the transformer blocks call for bf16
 self-attention.  It is differentiable: a `torch.autograd.Function` whose
@@ -10,6 +10,14 @@ CUDA tensor each launches its kernel or raises; on a CPU tensor each runs
 its plain PyTorch twin (`attention_reference`, `attention_bwd_reference`).
 `attention_twin` is the same Function over the twins on any device: the
 reference the kernels are held against.
+
+`mha_nocausal` (K8, over [B, L, H, D]) and `mha_paired` (K9, over
+[B, L, H*D], optionally causal) are the counterparts of the JAX package's
+stand-alone Pallas kernels of those names.  They compute K1's function with
+other rounding points (scores scaled in fp32 after the product, the
+probabilities normalised and rounded to bf16 before the PV product): the
+NORM_FIRST variant of `csrc/attention.cu`, with the plain twin
+`attention_twopass_reference`.  Forward only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -242,5 +250,76 @@ def attention_twin(
     return _Attention.apply(q, k, v, heads, scale, causal, lv, attention_reference, attention_bwd_reference)
 
 
+def attention_twopass_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: Optional[float] = None, causal: bool = False
+) -> torch.Tensor:
+    """Plain PyTorch twin of K8 / K9 over [B, L, H*D], with the rounding
+    points of `_attn_kernel` / `_paired_kernel` (attention_pallas.py:35-52,
+    137-155): q, k, v as bf16 values; s = fp32(q k^T) * scale in fp32; future
+    keys (when causal) masked to NEG by select; p = bf16(exp(s - max) /
+    rowsum); o = fp32-accumulated p v, cast to q's dtype.  Any head width."""
+    B, L, W = q.shape
+    D = W // heads
+    sc = D**-0.5 if scale is None else scale
+    qf, kf, vf = (t.to(torch.bfloat16).float().view(B, L, heads, D) for t in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * sc
+    if causal:
+        pos = torch.arange(L, device=q.device)
+        s = torch.where(pos[None, :] <= pos[:, None], s, NEG)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = (e / e.sum(-1, keepdim=True)).to(torch.bfloat16).float()
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).reshape(B, L, W).to(q.dtype)
+
+
+def _norm_first_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool) -> torch.Tensor:
+    """The NORM_FIRST kernel over [B, L, H*64] CUDA tensors (the caller counts the launch)."""
+    _check_cuda({"q": q, "k": k, "v": v}, heads)
+    B, L, W = q.shape
+    l_pad = -(-L // 16) * 16
+    if l_pad * (HEAD_DIM + 8) * 2 + HEAD_DIM * (l_pad + 8) * 2 > MAX_SMEM_BYTES:
+        raise ValueError(f"sequence length {L} needs more shared memory than one block has")
+    lib = _build.load("attention")
+    out = torch.empty_like(q)
+    err = lib.uniir_attention_norm_first_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, heads, L, int(causal),
+        float((W // heads) ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "attention kernel (normalise-first variant)")
+    return out
+
+
+def mha_nocausal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optional[float] = None) -> torch.Tensor:
+    """Fused non-causal attention, q / k / v [B, L, H, D] -> [B, L, H, D]
+    (K8, the counterpart of `mha_nocausal`).  A contiguous [B, L, H, D] is a
+    contiguous [B, L, H*D], so the kernel reads it in place.  On CUDA: bf16,
+    D = 64, or it raises; on the CPU the twin takes any D."""
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one [B, L, H, D] shape, got {q.shape}, {k.shape}, {v.shape}")
+    B, L, H, D = q.shape
+    flat = [t.reshape(B, L, H * D) for t in (q, k, v)]
+    scale = D**-0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return attention_twopass_reference(*flat, H, scale).view(B, L, H, D)
+    out = _norm_first_fwd(*flat, H, scale, False)
+    mha_nocausal.launches += 1
+    return out.view(B, L, H, D)
+
+
+def mha_paired(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: Optional[float] = None, causal: bool = False
+) -> torch.Tensor:
+    """Fused attention over model-native [B, L, H*D] tensors, optionally
+    causal (K9, the counterpart of `mha_paired`).  On CUDA: bf16, D = 64, or
+    it raises; on the CPU the twin takes any D."""
+    _check_args(q, k, v, heads, None)
+    if q.device.type == "cpu":
+        return attention_twopass_reference(q, k, v, heads, scale, causal)
+    out = _norm_first_fwd(q, k, v, heads, scale, causal)
+    mha_paired.launches += 1
+    return out
+
+
 attention.launches = 0
 attention_bwd.launches = 0
+mha_nocausal.launches = 0
+mha_paired.launches = 0

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from uniir_tpu_torch.core.device import resolve_device
 from uniir_tpu_torch.ops.topk import prepare_pool, topk
 from uniir_tpu_torch.retrieval.index import DenseIndex, normalize_l2
 
@@ -37,11 +38,12 @@ def search_dense_index(
     bf16 sweep, so results stay exact w.r.t. bf16 scores.  `stats` receives
     `pool_dtype`, `guard_pass_rate` and `exact_reruns`.  k is clamped to the
     pool size.  Queries go `batch_size` at a time, which bounds the fp32
-    maxima on the card ([batch, N/16]: 1.4 GB at 1024 x 5.6M)."""
+    maxima on the card ([batch, N/16]: 1.4 GB at 1024 x 5.6M).  `device`
+    None means the card; without one it raises (pass "cpu" to run there)."""
     pool_dtype = pool_dtype or "bf16"
     if pool_dtype not in POOL_DTYPES:
         raise ValueError(f"pool_dtype must be one of {POOL_DTYPES}, got {pool_dtype!r}")
-    device = torch.device(device or ("cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(device)
     q = normalize_l2(np.asarray(query_embeddings))
     k = min(num_cand_to_retrieve, index.ntotal)
 

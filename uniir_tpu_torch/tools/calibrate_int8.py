@@ -46,7 +46,7 @@ def parse_arguments(argv=None):
     parser.add_argument("--num_batches", type=int, default=8, help="probe batches to observe")
     parser.add_argument("--batch_size", type=int, default=0, help="0 = config's dataloader batch size")
     parser.add_argument("--margin", type=float, default=1.1, help="amax clip headroom multiplier")
-    parser.add_argument("--device", default=None, help="cuda (default when there is a card) or cpu")
+    parser.add_argument("--device", default=None, help="cuda (the default; without a card it is an error) or cpu")
     return parser.parse_args(argv)
 
 

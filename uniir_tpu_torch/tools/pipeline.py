@@ -24,6 +24,7 @@ def parse_arguments(argv=None):
     parser.add_argument("--enable_hard_negative_mining", action="store_true", help="Enable hard negative mining")
     parser.add_argument("--enable_retrieval", action="store_true", help="Enable retrieval")
     parser.add_argument("--run_automatic_error_analysis", action="store_true", help="Run error analysis")
+    parser.add_argument("--device", default=None, help="cuda (the default; without a card it is an error) or cpu")
     return parser.parse_args(argv)
 
 
@@ -43,7 +44,7 @@ def main(argv=None):
         from uniir_tpu_torch.models.registry import build_model_from_config
         from uniir_tpu_torch.retrieval.embedder import generate_embeds_for_config
 
-        generate_embeds_for_config(build_model_from_config(config), config)
+        generate_embeds_for_config(build_model_from_config(config, device=args.device), config)
 
     if args.enable_create_index:
         from uniir_tpu_torch.retrieval.index import create_index
@@ -53,7 +54,7 @@ def main(argv=None):
     if args.enable_retrieval:
         from uniir_tpu_torch.retrieval.eval import run_retrieval
 
-        run_retrieval(config)
+        run_retrieval(config, device=args.device)
 
 
 if __name__ == "__main__":

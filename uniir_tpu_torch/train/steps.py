@@ -1,4 +1,5 @@
-"""Train, eval and embed steps (counterpart of uniir_tpu/train/steps.py, CLIP-SF).
+"""Train and eval steps (CLIP-SF) and the embed step (CLIP-SF, BLIP-SF): the
+counterpart of uniir_tpu/train/steps.py.
 
 A step takes a collated batch (numpy arrays or tensors) and runs eagerly on
 the model's device.  The train step's forward goes through kernel K1 and
@@ -18,10 +19,19 @@ from uniir_tpu_torch.train.losses import inbatch_contrastive_loss
 from uniir_tpu_torch.train.state import TrainState
 
 
-def _model_inputs(batch: Dict[str, Any], device: torch.device):
+def _to_device(x, device: torch.device):
+    """A collated array (numpy or tensor) on `device`; BLIP's text input, a
+    dict {"input_ids", "attention_mask"}, moves entry by entry."""
+    if isinstance(x, dict):
+        return {key: _to_device(value, device) for key, value in x.items()}
+    return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(device)
+
+
+def model_inputs(batch: Dict[str, Any], device: torch.device):
+    """(txt, image, txt_mask, image_mask) of a collated batch, on `device`."""
     return tuple(
-        torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(device)
-        for x in (batch[key] for key in ("txt_batched", "image_batched", "txt_mask_batched", "image_mask_batched"))
+        _to_device(batch[key], device)
+        for key in ("txt_batched", "image_batched", "txt_mask_batched", "image_mask_batched")
     )
 
 
@@ -36,7 +46,7 @@ def infer_flat_bs(batch: Dict[str, Any], hard_neg_num: int) -> int:
 
 def clip_loss(model: torch.nn.Module, batch: Dict[str, Any], hard_neg_num: int = 0, in_batch_neg_num: int = 0):
     """The train step's forward: {"loss", "accuracy"} of one collated batch."""
-    emb = model(*_model_inputs(batch, model.logit_scale.device))
+    emb = model(*model_inputs(batch, model.logit_scale.device))
     return inbatch_contrastive_loss(
         emb, infer_flat_bs(batch, hard_neg_num), model.logit_scale.exp(), hard_neg_num, in_batch_neg_num
     )
@@ -87,6 +97,6 @@ def make_embed_step(model: torch.nn.Module, out_dtype: torch.dtype = torch.float
 
     def step(batch: Dict[str, Any]) -> torch.Tensor:
         with torch.inference_mode():
-            return model(*_model_inputs(batch, device)).to(out_dtype)
+            return model(*model_inputs(batch, device)).to(out_dtype)
 
     return step

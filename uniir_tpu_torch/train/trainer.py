@@ -186,6 +186,7 @@ def cli(argv=None):
     parser.add_argument("--config_path", default="config.yaml", help="Path to the config file.")
     parser.add_argument("--uniir_dir", type=str, default="/data/UniIR")
     parser.add_argument("--mbeir_data_dir", type=str, default="/data/UniIR/mbeir_data")
+    parser.add_argument("--device", default=None, help="cuda (the default; without a card it is an error) or cpu")
     args = parser.parse_args(argv)
     config = load_config(args.config_path)
     config.uniir_dir = args.uniir_dir
@@ -193,7 +194,7 @@ def cli(argv=None):
     wandb_cfg = getattr(config, "wandb_config", None)
     if wandb_cfg is not None and getattr(wandb_cfg, "enabled", False):
         raise NotImplementedError("wandb logging is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 7)")
-    return main(config)
+    return main(config, device=args.device)
 
 
 if __name__ == "__main__":

@@ -66,7 +66,9 @@ class SmoothedValue:
 
 def device_memory_mb() -> float:
     """Device memory held by tensors on the current card, 0.0 without one."""
-    return torch.cuda.memory_allocated() / (1024.0 * 1024.0) if torch.cuda.is_available() else 0.0
+    if not torch.cuda.is_available():  # a CPU run (asked for by the caller) holds no device memory
+        return 0.0
+    return torch.cuda.memory_allocated() / (1024.0 * 1024.0)
 
 
 class MetricLogger:
