@@ -6,11 +6,15 @@
 1. builds the port's kernels (uniir_tpu_torch/csrc, nvcc for sm_90a) from the
    checkout and checks each against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
-   BLIP's L = 197 and the main path's batch, K8 / K9 (the stand-alone
+   BLIP's L = 197 and the main path's batch, K10 (split-K attention) at the
+   CLIP-L vision shape against its twin and against K1, and that the flag
+   leaves L = 197 and the causal L = 77 to K1, K8 / K9 (the stand-alone
    `mha_nocausal` / `mha_paired`) at the BLIP and CLIP shapes, K7 (fused
    image preprocessing) at uint8 [64, 256, 256, 3] -> 224 in both methods
-   and output types, K2 / K4 sweeps at the main path's small pool and
-   on a seeded 5.6M x 768 pool with 256 queries (also against brute force),
+   and output types, K2 / K4 / K11 sweeps at the main path's small pool, K11
+   on a pool cut inside a chunk's first rows, and all three on a seeded
+   5.6M x 768 pool with 256 queries (also against brute force, and `topk`
+   with the guard through K11),
    K5 (int8 matmul) at the CLIP-L projection shapes in its dynamic and
    static modes, K6 (fused int8 MLP) at the vision and text widths, with
    times for kernel, twin and, where one PyTorch call computes the same
@@ -30,10 +34,19 @@
    retrieves, and checks the embeddings against the bf16 path's, the K5 / K6
    launch counts against what the depth implies, and the kernels against
    their twins inside the model;
-4. checks K3, the attention backward, against its twin at the CLIP-L vision
+4. drives CLIP-FeatureFusion serving at full width and depth (ViT-L/14, 24 +
+   12 blocks, none trimmed; T5 fusion stack, 2 layers, d_model 768) through
+   `build_model_from_config`, the embedder's loop, `create_index` and
+   `run_retrieval` with the bf16, per-row int8 and per-bucket int8 (K11)
+   pools: once with UNIIR_ATTN_SPLITK=1 (24 K10 + 12 K1 launches a batch)
+   and once without (36 K1, no K10), and checks the counts, the cosine of
+   the two runs' embeddings and of kernels against twins inside the model,
+   the pools' ids and the copied candidates;
+5. checks K3, the attention backward, against its twin at the CLIP-L vision
    and text shapes (and against autograd through the plain forward);
-5. drives BLIP-ScoreFusion serving at the full width and depth of
-   `configs/blip_sf/large` (ViT-L/16, 24 blocks; MED, 12 layers) in bf16:
+6. drives BLIP-ScoreFusion serving at the full width and depth of
+   `configs/blip_sf/large` (ViT-L/16, 24 blocks; MED, 12 layers) in bf16
+   through `build_model_from_config`:
    seeded uint8 256 x 256 images go through K7 on the card (bicubic, bf16)
    into collated batches of 64 with hash token ids and padding masks of
    mixed lengths, then the embedder's loop, `create_index` and
@@ -41,18 +54,28 @@
    launch counts against the depth (23 K1 a vision batch, none from MED),
    finite embeddings, agreement with the same model through the twins, that
    padding does not leak, that both pools return the same ids and that
-   copied candidates are found;
-6. drives the training path through the port's own entry points -- seeded
-   CLIP-SF ViT-L/14 with fp32 masters and bf16 compute, `make_clip_optimizer`,
+   copied candidates are found; then BLIP-FeatureFusion `large` the same
+   way through `build_model_from_config` (24 K1 a batch: the ViT's token
+   output feeds MED's cross-attention; retrieval also through K11);
+7. drives the training path through the port's own entry points -- seeded
+   CLIP-SF ViT-L/14 with fp32 masters and bf16 compute from
+   `build_model_from_config(train=True)`, `make_clip_optimizer`,
    `make_clip_train_step`, `train_one_epoch` over synthetic collated batches
    of 32 pairs, then 105 pairs (the reference's per-GPU batch) with remat --
    and checks that K1 and K3 were launched, that the loss falls on a repeated
    batch, that one step's loss and gradients through the kernels agree with
-   the twins, and that a saved train checkpoint restores bit-equal and serves.
+   the twins, and that a saved train checkpoint restores bit-equal and serves;
+8. drives CLIP-FF training the same way by configs/clip_ff/large/train/
+   inbatch/inbatch.yaml (lr 1e-5, T5 group at 1e-4, fusion dropout on) at 32
+   pairs, then with remat and UNIIR_ATTN_SPLITK=1 (K10 forward, K3
+   backward), and checks the K1 / K10 / K3 counts, both learning rates read
+   back from the optimizer, the falling loss, the gradients against the
+   twins under the same dropout draws, and the checkpoint round trip.
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
-of the 32-pair train step, of the CLIP-SF embed step at batch 64 in bf16 and
-in each int8 mode, and of the BLIP-SF forward at batch 64.
+of the 32-pair train steps (CLIP-SF, CLIP-FF), of the CLIP-SF embed step at
+batch 64 in bf16 and in each int8 mode, and of the CLIP-FF, BLIP-SF and
+BLIP-FF forwards at batch 64.
 
 Prints, before the last line, the card's name and power limit and one JSON
 line with each kernel's launches, error, times and bound (the least time
@@ -213,6 +236,50 @@ def check_attention_norm_first(results: dict) -> None:
         results[name]["max_abs_err"] = err
 
 
+def check_attention_splitk(results: dict) -> None:
+    """K10 against its twin and against K1 at the CLIP vision shape, and the
+    flag's routing: lengths outside K10's condition launch K1."""
+    from uniir_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    B, L, H = BATCH, 257, 16
+    q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
+    before = (A.attention.launches, A.attention_splitk.launches)
+    out = A.attention(q, k, v, H, splitk=True)
+    torch.cuda.synchronize()
+    check((A.attention.launches, A.attention_splitk.launches) == (before[0], before[1] + 1),
+          "attention(splitk=True) at L = 257 did not launch K10 alone")
+    ref = A.attention_splitk_reference(q, k, v, H)
+    k1 = A.attention(q, k, v, H)
+    err, cos = (out.float() - ref.float()).abs().max().item(), cosine(out, ref)
+    err_k1, cos_k1 = (out.float() - k1.float()).abs().max().item(), cosine(out, k1)
+    ms = cuda_ms(lambda: A.attention(q, k, v, H, splitk=True), 20)
+    k1_ms = cuda_ms(lambda: A.attention(q, k, v, H), 20)
+    ms_again = cuda_ms(lambda: A.attention(q, k, v, H, splitk=True), 20)  # K10, K1, K10: one card, in turns
+    plain_ms = cuda_ms(lambda: A.attention_splitk_reference(q, k, v, H), 10)
+    heads = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
+    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads), 20)
+    limit = bound(nbytes(q, k, v, out), 4 * B * H * L * L * 64, BF16_OPS_PER_S)  # K1's bytes and operations
+    log(f"K10 split-K attention vision [{B},{L},{H * 64}] H={H}: max_abs_err={err} cosine={cos}; against K1 on the same "
+        f"input max_abs_diff={err_k1} cosine={cos_k1}; kernel_ms={ms} / {ms_again} (K1 between them {k1_ms}) "
+        f"plain_ms={plain_ms} library_ms={library_ms} {limit}")
+    # the twin's rounding points, fp32 sums in another order: K1's limit, a couple of bf16 ulps of
+    # outputs of magnitude < 4.  Against K1 only the last key's term rounds elsewhere (its score a
+    # sum of bf16 products, its value term rounded on its own): the same few bf16 steps.
+    check(err <= 3e-2 and cos >= 0.9999, "K10 disagrees with its twin at the vision shape")
+    check(err_k1 <= 3e-2 and cos_k1 >= 0.9999, "K10 left K1's output at the vision shape")
+    for tag, (L2, H2, causal) in {"blip vision": (197, 16, False), "text": (77, 12, True)}.items():
+        q2, k2, v2 = (torch.randn(B, L2, H2 * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
+        before = (A.attention.launches, A.attention_splitk.launches)
+        flagged = A.attention(q2, k2, v2, H2, causal=causal, splitk=True)
+        torch.cuda.synchronize()
+        routed = (A.attention.launches - before[0], A.attention_splitk.launches - before[1])
+        same = torch.equal(flagged, A.attention(q2, k2, v2, H2, causal=causal))
+        log(f"K10 routing with the flag on at {tag} L={L2} causal={causal}: launches (K1, K10)={routed}, equals K1's output={same}")
+        check(routed == (1, 0) and same, f"the split-K flag did not leave {tag} shapes to K1")
+    results["K10"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+
+
 def zero_standalone() -> None:
     """K8 / K9 are stand-alone entry points, as in the JAX package: every
     path sets their counts to 0 with its own before it starts."""
@@ -331,6 +398,24 @@ def library_bucket_max(queries, pool, valid_n: int, int8=None):
     return torch.cat(out, dim=1)
 
 
+def library_bucket_max_i8b(q_q, q_scale, pool_q, bucket_scale, valid_n: int):
+    """K11's function through `torch._int_mm` in the twins' row steps: the
+    int32 scores masked, the strided-bucket `amax` in int32, then the
+    dequantisation of the maxima in torch ops (timed beside the kernel only)."""
+    from uniir_tpu_torch.ops import topk as T
+
+    Q, out = q_q.shape[0], []
+    for r0 in range(0, pool_q.shape[0], T.ROWS_PER_STEP):
+        acc = torch._int_mm(q_q, pool_q[r0 : r0 + T.ROWS_PER_STEP].T)
+        n = acc.shape[1]
+        rows = torch.arange(r0, r0 + n, device=acc.device)
+        acc = torch.where(rows < valid_n, acc, -(2**31 - 1))
+        out.append(acc.view(Q, n // T.CHUNK, T.GROUP, T.LANES).amax(dim=2).reshape(Q, n // T.GROUP))
+    deq = torch.cat(out, dim=1).float() * q_scale[:, None] * bucket_scale[None, :]
+    first = T._bucket_rows(torch.arange(pool_q.shape[0] // T.GROUP, device=deq.device))[:, 0]
+    return torch.where(first < valid_n, deq, T.NEG)
+
+
 def check_sweeps(results: dict) -> None:
     from uniir_tpu_torch.ops import topk as T
 
@@ -344,9 +429,24 @@ def check_sweeps(results: dict) -> None:
     pq, ps = T.quantize_pool(small_pool)
     exact8 = torch.equal(T.bucket_max_scores_i8(small_q, pq, ps, N_CANDS),
                          T.bucket_max_scores_i8_reference(q_q, q_scale, pq, ps, N_CANDS))
-    log(f"K2 / K4 at the main path's pool [{T.CHUNK}, {POOL_DIM}], valid {N_CANDS}, {N_QUERY_PAIRS} queries: "
-        f"K2 max_abs_err={err}, K4 bit-equal={exact8}")
-    check(err <= 1e-3 and exact8, "K2 / K4 disagree with their twins at the main path's pool")
+    pqb, psb = T.quantize_pool(small_pool, per_bucket=True)
+    exact8b = torch.equal(T.bucket_max_scores_i8(small_q, pqb, psb, N_CANDS),
+                          T.bucket_max_scores_i8b_reference(q_q, q_scale, pqb, psb, N_CANDS))
+    log(f"K2 / K4 / K11 at the main path's pool [{T.CHUNK}, {POOL_DIM}], valid {N_CANDS}, {N_QUERY_PAIRS} queries: "
+        f"K2 max_abs_err={err}, K4 bit-equal={exact8}, K11 bit-equal={exact8b}")
+    check(err <= 1e-3 and exact8 and exact8b, "K2 / K4 / K11 disagree with their twins at the main path's pool")
+    # a pool whose valid_n cuts a chunk inside its first 128 rows: buckets whose first member is
+    # padding write NEG after the dequantisation, the rest mask their padding members in int32
+    two = torch.randn(2 * T.CHUNK, POOL_DIM, generator=g, device="cuda").bfloat16()
+    two_q, two_s = T.quantize_pool(two, per_bucket=True)
+    cut = T.CHUNK + 100
+    got = T.bucket_max_scores_i8(small_q, two_q, two_s, cut)
+    want = T.bucket_max_scores_i8b_reference(q_q, q_scale, two_q, two_s, cut)
+    n_neg = int((got == T.NEG).sum())
+    log(f"K11 on a [{2 * T.CHUNK}, {POOL_DIM}] pool cut at valid_n={cut}: bit-equal={torch.equal(got, want)}, "
+        f"padding buckets at NEG={n_neg} (expected {N_QUERY_PAIRS * (T.LANES - 100)})")
+    check(torch.equal(got, want) and n_neg == N_QUERY_PAIRS * (T.LANES - 100), "K11 disagrees with its twin on a cut chunk")
+    del two, two_q, two_s, got, want
 
     n_pad = -(-POOL_ROWS // T.CHUNK) * T.CHUNK
     pool = torch.zeros((n_pad, POOL_DIM), dtype=torch.bfloat16, device="cuda")
@@ -383,6 +483,24 @@ def check_sweeps(results: dict) -> None:
     check(err4 == 0.0, "K4 disagrees with its twin (int8 sums are exact in both)")
     del ref8, out, out8
 
+    # K11: the same pool with one scale per strided bucket; valid_n = 5.6M cuts the last chunk
+    pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
+    out11 = T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, POOL_ROWS)  # hands over by the scales' shape
+    torch.cuda.synchronize()
+    ref11 = T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS)
+    err11 = (out11 - ref11).abs().max().item()
+    ms11 = cuda_ms(lambda: T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, POOL_ROWS), 5)
+    ms4_again = cuda_ms(lambda: T.bucket_max_scores_i8(queries, pool_q, pool_scale, POOL_ROWS), 5)
+    ms11_again = cuda_ms(lambda: T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, POOL_ROWS), 5)
+    plain11 = cuda_ms(lambda: T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS), 3)
+    lib11 = cuda_ms(lambda: library_bucket_max_i8b(q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS), 3)
+    limit11 = bound(nbytes(queries, pool_qb, bucket_scale, out11), 2 * N_QUERIES * POOL_ROWS * POOL_DIM, INT8_OPS_PER_S)
+    log(f"K11 int8 per-bucket sweep: max_abs_err={err11} kernel_ms={ms11} / {ms11_again} (K4 between them {ms4_again}, "
+        f"before them {ms4}) plain_ms={plain11} library_ms={lib11} {limit11}")
+    # the integers are exact (|acc| <= 768 * 127^2 < 2^24) and the dequantisation is two rounded multiplies
+    check(err11 == 0.0 and torch.equal(out11, ref11), "K11 disagrees with its twin (bit-equal expected)")
+    del ref11, out11
+
     bf_s, bf_i = brute_force_topk(queries, pool, POOL_ROWS, K)
     s16, i16 = T.topk(queries, pool, K, valid_n=POOL_ROWS)
     s8, i8, ok = T.topk(queries, pool, K, valid_n=POOL_ROWS, pool_quant=(pool_q, pool_scale), with_guard=True)
@@ -394,9 +512,16 @@ def check_sweeps(results: dict) -> None:
         f"(guard_pass_rate={ok.float().mean().item()}, exact_rerun={rerun}), "
         f"max score err={(s16 - bf_s).abs().max().item()}")
     check(eq16 and eq8, "top-k ids differ from brute force")
+    # topk through K11 with the guard: where the guard passes, the bf16 pool's ids
+    _, i11, ok11 = T.topk(queries, pool, K, valid_n=POOL_ROWS, pool_quant=(pool_qb, bucket_scale), with_guard=True)
+    eq11 = same_ranking(i11[ok11], i16[ok11], s16[ok11])
+    log(f"top-{K} through K11 (per-bucket int8 pool): guard_pass_rate={ok11.float().mean().item()}, "
+        f"ids equal to the bf16 pool's where the guard passed={eq11}")
+    check(eq11 and bool(ok11.any()), "top-k through K11 differs from the bf16 pool's where its guard passed")
     results["K2"].update(max_abs_err=err2, ms=ms2, plain_ms=plain2, library_ms=lib2, **limit2)
     results["K4"].update(max_abs_err=err4, ms=ms4, plain_ms=plain4, library_ms=lib4, **limit4)
-    del pool, pool_q, pool_scale
+    results["K11"].update(max_abs_err=err11, ms=ms11, plain_ms=plain11, library_ms=lib11, **limit11)
+    del pool, pool_q, pool_scale, pool_qb, bucket_scale
     torch.cuda.empty_cache()
 
 
@@ -546,16 +671,19 @@ def write_qrels(root: str, data: dict) -> None:
             f.write(f"9:{j} 0 9:{c} 1 8\n")
 
 
-def retrieve_and_check(root: str, expt: str, embed_dim: int, data: dict, tag: str) -> None:
-    """`create_index`, then `run_retrieval` with the int8 pool (as shipped)
-    and with the bf16 pool: both return the same ids, and every query that
-    copies a candidate finds it in its top 10."""
+def retrieve_and_check(root: str, expt: str, embed_dim: int, data: dict, tag: str,
+                       pool_dtypes=("int8", "bf16"), must_find=None) -> None:
+    """`create_index`, then `run_retrieval` with the int8 pool (as shipped),
+    where asked the per-bucket int8 pool (K11), and the bf16 pool: all return
+    the same ids, and every query that copies a candidate finds it in its
+    top 10 (`must_find(candidate index)` says which copies are held to that;
+    all of them unless given)."""
     from uniir_tpu_torch.retrieval.eval import run_retrieval
     from uniir_tpu_torch.retrieval.index import create_index
 
     create_index(eval_config(root, f"results_{tag}_int8", "int8", embed_dim, expt))
     stats = {}
-    for dtype in ("int8", "bf16"):
+    for dtype in pool_dtypes:
         out: list = []
         res = run_retrieval(eval_config(root, f"results_{tag}_{dtype}", dtype, embed_dim, expt), device=DEVICE, stats_out=out)
         stats[dtype] = (res, out[0])
@@ -567,11 +695,17 @@ def retrieve_and_check(root: str, expt: str, embed_dim: int, data: dict, tag: st
     runs = {d: read_run(os.path.join(root, f"results_{tag}_{d}", expt, "run_files",
                                      "mbeir_mscoco_task0_single_pool_test_k10_run.txt")) for d in stats}
     ids = {d: {q: [did for did, _ in rows] for q, rows in run.items()} for d, run in runs.items()}
-    differ = [q for q in ids["bf16"] if ids["bf16"][q] != ids["int8"][q]]
-    for q in differ[:3]:
-        log(f"  {q} bf16: {runs['bf16'][q]}\n  {q} int8: {runs['int8'][q]}")
-    check(not differ, f"{tag}: int8 and bf16 retrieval returned different ids for {len(differ)} queries")
+    for dtype in (d for d in pool_dtypes if d != "bf16"):
+        differ = [q for q in ids["bf16"] if ids["bf16"][q] != ids[dtype][q]]
+        for q in differ[:3]:
+            log(f"  {q} bf16: {runs['bf16'][q]}\n  {q} {dtype}: {runs[dtype][q]}")
+        check(not differ, f"{tag}: {dtype} and bf16 retrieval returned different ids for {len(differ)} queries")
     missing = [j for j, c in data["copied"].items() if f"9:{c}" not in ids["bf16"][f"9:{j}"]]
+    if must_find is not None:
+        held = [j for j in missing if must_find(data["copied"][j])]
+        log(f"{tag}: copied candidates missing from their queries' top 10: {len(missing)} of {len(data['copied'])}, "
+            f"{len(held)} of them among the copies held to it")
+        missing = held
     check(not missing, f"{tag}: duplicated candidates missing from their queries' top 10: {missing[:5]}")
 
 
@@ -628,7 +762,7 @@ def drive_main_path(results: dict, data: dict) -> None:
     small = collate(cands[:8], dids[:8], "did_list", cfg)
     small.pop("did_list"), small.pop("n_valid")
     with_kernel = embed_step(dict(small)).float()
-    layers.attention = attn_mod.attention_reference
+    layers.attention = attn_mod.attention_twin
     try:
         plain = embed_step(dict(small)).float()
     finally:
@@ -898,7 +1032,7 @@ def drive_int8_path(results: dict, data: dict) -> dict:
     return models
 
 
-# ------------------------------------------------ phase 5: BLIP-SF serving
+# ------------------------------------ phase 6: BLIP-SF and BLIP-FF serving
 
 
 def bert_hash_tokenize(texts, max_length: int = BLIP_MAX_LEN, vocab_size: int = 30524) -> dict:
@@ -953,75 +1087,104 @@ def blip_rows(items, image_size: int, preprocess) -> dict:
     }
 
 
-def drive_blip_path(results: dict, profile: bool = False) -> None:
+def drive_blip_path(results: dict, name: str, profile: bool = False) -> None:
+    """BLIP `large` serving through the registry, for `name` =
+    BLIPScoreFusion (the last ViT block trimmed to CLS: 23 K1 a batch) or
+    BLIPFeatureFusion (the ViT's token output into MED's cross-attention:
+    all 24 blocks through K1; retrieval also with the per-bucket int8 pool,
+    K11): uint8 images through K7, then index and retrieval."""
+    from uniir_tpu_torch.core.config import Config
     from uniir_tpu_torch.models import layers
-    from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
-    from uniir_tpu_torch.models.med import MED_CONFIGS
-    from uniir_tpu_torch.models.registry import seeded_blip_sf
+    from uniir_tpu_torch.models.registry import build_model_from_config
     from uniir_tpu_torch.ops import attention as attn_mod
     from uniir_tpu_torch.ops import image_ops as I
     from uniir_tpu_torch.ops import topk as T
     from uniir_tpu_torch.train.steps import make_embed_step, model_inputs
 
     root = str(WORK)
-    vit_cfg, med_cfg = BLIP_VIT_CONFIGS[BLIP_SIZE], MED_CONFIGS[BLIP_SIZE]
-    shape = SimpleNamespace(embed_dim=768)  # what `embed_and_save` reads of a model configuration
+    ff = name == "BLIPFeatureFusion"
+    tag, expt = ("BLIP-FF", "BLIP_FF/Large/Seeded/") if ff else ("BLIP-SF", BLIP_EXPT)
     data = blip_dataset()
     write_qrels(root, data)
     n_batches = -(-N_CANDS // BATCH) + -(-N_QUERY_PAIRS // BATCH)
+    vocab = os.path.join(root, "vocab.txt")  # for the registry's tokenizer; the batches here are hash-tokenised
+    with open(vocab, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS) + "\n")
+    config = Config.from_dict({"uniir_dir": root, "seed": SEED, "model": {
+        "name": name, "vit": BLIP_SIZE, "tokenizer_max_length": BLIP_MAX_LEN, "bert_vocab_path": vocab}})
 
     t0 = time.perf_counter()
-    model = seeded_blip_sf(vit_cfg, med_cfg, DEVICE, seed=SEED, dtype=torch.bfloat16, embed_dim=shape.embed_dim)
+    bundle = build_model_from_config(config, device=DEVICE)
+    model = bundle.model
     torch.cuda.synchronize()
-    log(f"BLIP path: seeded BLIP-SF vit={BLIP_SIZE} (ViT-L/{vit_cfg.patch_size}, {vit_cfg.layers} blocks, L = "
+    vit_cfg, med_cfg = model.vit_cfg, model.med_cfg
+    shape = SimpleNamespace(embed_dim=bundle.embed_dim)  # what `embed_and_save` reads of a model configuration
+    k1_blocks = vit_cfg.layers if ff else vit_cfg.layers - 1
+    log(f"{tag} path: seeded {name} vit={BLIP_SIZE} (ViT-L/{vit_cfg.patch_size}, {vit_cfg.layers} blocks, L = "
         f"{(vit_cfg.image_size // vit_cfg.patch_size) ** 2 + 1}; MED {med_cfg.num_hidden_layers} layers, hidden {med_cfg.hidden_size}, "
-        f"{BLIP_MAX_LEN} tokens) bf16 ({sum(p.numel() for p in model.parameters())} parameters) in {time.perf_counter() - t0:.1f} s; "
-        f"{N_CANDS} candidates, {N_QUERY_PAIRS} queries, batch {BATCH}, uint8 {RAW_SIDE} x {RAW_SIDE} images through K7")
+        f"{BLIP_MAX_LEN} tokens) bf16 ({sum(p.numel() for p in model.parameters())} parameters) through "
+        f"build_model_from_config in {time.perf_counter() - t0:.1f} s; {N_CANDS} candidates, {N_QUERY_PAIRS} queries, "
+        f"batch {BATCH}, uint8 {RAW_SIDE} x {RAW_SIDE} images through K7")
 
-    def make_batches(items, ids, id_key, _cfg, preprocess=I.fused_preprocess):
+    def make_batches(items, ids, id_key, _cfg):
         for i in range(0, len(items), BATCH):
             part, part_ids = items[i : i + BATCH], list(ids[i : i + BATCH])
             n_valid = len(part)
             part = part + [part[-1]] * (BATCH - n_valid)  # pad_last: repeat the last row
             part_ids = part_ids + [part_ids[-1]] * (BATCH - n_valid)
-            yield {**blip_rows(part, vit_cfg.image_size, preprocess), id_key: np.asarray(part_ids, np.int64),
+            yield {**blip_rows(part, vit_cfg.image_size, I.fused_preprocess), id_key: np.asarray(part_ids, np.int64),
                    "n_valid": np.int32(n_valid)}
 
-    counters = (attn_mod.attention, I.fused_preprocess, T.bucket_max_scores, T.bucket_max_scores_i8)
+    counters = (attn_mod.attention, attn_mod.attention_splitk, I.fused_preprocess, T.bucket_max_scores,
+                T.bucket_max_scores_i8, T.bucket_max_scores_i8b)
     for fn in counters:
         fn.launches = 0
     zero_standalone()
     t0 = time.perf_counter()
     embed_step = make_embed_step(model)
-    embed_dir = os.path.join(root, "embed", BLIP_EXPT)
+    embed_dir = os.path.join(root, "embed", expt)
     embed_and_save(embed_step, data, shape, embed_dir, make_batches)
     torch.cuda.synchronize()
     t_embed = time.perf_counter() - t0
-    k1, k7 = attn_mod.attention.launches, I.fused_preprocess.launches
-    retrieve_and_check(root, BLIP_EXPT, shape.embed_dim, data, "blip")
-    k2, k4 = T.bucket_max_scores.launches, T.bucket_max_scores_i8.launches
-    log(f"BLIP path: embed {t_embed:.2f} s (host clock, {n_batches} batches of {BATCH}, seeded images made on the host); "
-        f"launches K7={k7} K1={k1} K2={k2} K4={k4}; expected K7 = {n_batches} (one a batch), K1 = {n_batches} x "
-        f"{vit_cfg.layers - 1} (the trimmed last block and MED take the einsum path)")
-    check(k7 == n_batches and k1 == n_batches * (vit_cfg.layers - 1), f"K7 / K1 launched {k7} / {k1} times on the BLIP path")
-    check(k2 > 0 and k4 > 0, "the sweeps were not launched on the BLIP path")
-    results["K7"]["launches"] = k7
-    for name, n in (("K1", k1), ("K2", k2), ("K4", k4)):
-        results[name]["launches"] += n
-    read_standalone(results, "BLIP")
+    k1, k10, k7 = attn_mod.attention.launches, attn_mod.attention_splitk.launches, I.fused_preprocess.launches
+    if ff:
+        # With seeded weights the text-only rows (a black image under cross-attention) collapse: their
+        # embeddings' pairwise cosine is 0.9999 in fp32 as in bf16, below what a bf16 pool resolves, so
+        # a text-only copy ties its neighbours.  The copies that carry an image are held to the top 10.
+        has_image = lambda c: data["cands"][c][1] is not None  # noqa: E731
+        retrieve_and_check(root, expt, shape.embed_dim, data, "blip_ff", ("int8", "int8_bucket", "bf16"), has_image)
+    else:
+        retrieve_and_check(root, expt, shape.embed_dim, data, "blip")
+    k2, k4, k11 = T.bucket_max_scores.launches, T.bucket_max_scores_i8.launches, T.bucket_max_scores_i8b.launches
+    log(f"{tag} path: embed {t_embed:.2f} s (host clock, {n_batches} batches of {BATCH}, seeded images made on the host); "
+        f"launches K7={k7} K1={k1} K10={k10} K2={k2} K4={k4} K11={k11}; expected K7 = {n_batches} (one a batch), K1 = "
+        f"{n_batches} x {k1_blocks} (" + ("every ViT block" if ff else "the trimmed last block takes the einsum path")
+        + "; so does MED), K10 = 0 (L = 197)")
+    check(k7 == n_batches and k1 == n_batches * k1_blocks and k10 == 0,
+          f"K7 / K1 / K10 launched {k7} / {k1} / {k10} times on the {tag} path")
+    check(k2 > 0 and k4 > 0 and (k11 > 0) == ff, f"the sweeps were launched K2={k2} K4={k4} K11={k11} times on the {tag} path")
+    for kernel, n in (("K7", k7), ("K1", k1), ("K2", k2), ("K4", k4), ("K11", k11)):
+        results[kernel]["launches"] += n
+    read_standalone(results, tag)
     log_candidate_spread(embed_dir)
+    cand_emb = torch.from_numpy(np.load(os.path.join(embed_dir, "cand_pool", "mbeir_mscoco_task0_cand_pool_embed.npy"))).float()
+    cand_emb = torch.nn.functional.normalize(cand_emb, dim=1)
+    for kind, kind_name in enumerate(("text only", "image only", "image + text")):
+        rows = cand_emb[kind::3]
+        sims = (rows @ rows.T)[~torch.eye(len(rows), dtype=torch.bool)]
+        log(f"{tag} candidate embeddings, {kind_name}: off-diagonal cosine mean {sims.mean():.6f} min {sims.min():.6f}")
 
     # the same 8 candidates through K7 and K1, and through their twins
     small_items = data["cands"][:8]
     with_kernels = embed_step(blip_rows(small_items, vit_cfg.image_size, I.fused_preprocess)).float()
-    layers.attention = attn_mod.attention_reference
+    layers.attention = attn_mod.attention_twin
     try:
         plain = embed_step(blip_rows(small_items, vit_cfg.image_size, I.fused_preprocess_reference)).float()
     finally:
         layers.attention = attn_mod.attention
     cos = torch.nn.functional.cosine_similarity(with_kernels, plain, dim=1).min().item()
-    log(f"BLIP embeddings through K7 + K1 vs through their twins (8 candidates): min cosine {cos}")
-    check(cos >= 0.999, "BLIP embeddings through the kernels disagree with the plain path")
+    log(f"{tag} embeddings through K7 + K1 vs through their twins (8 candidates): min cosine {cos}")
+    check(cos >= 0.999, f"{tag} embeddings through the kernels disagree with the plain path")
 
     # padding does not leak: other token ids under the 0 mask leave every row as it was
     rows = blip_rows(small_items, vit_cfg.image_size, I.fused_preprocess)
@@ -1031,18 +1194,126 @@ def drive_blip_path(results: dict, profile: bool = False) -> None:
     rows["txt_batched"] = {"input_ids": np.where(txt["attention_mask"] == 1, txt["input_ids"], noise),
                            "attention_mask": txt["attention_mask"]}
     leak = (embed_step(rows).float() - with_kernels).abs().max().item()
-    log(f"BLIP padding: token lengths {lengths.tolist()} of {BLIP_MAX_LEN}; max abs change of the embeddings when "
+    log(f"{tag} padding: token lengths {lengths.tolist()} of {BLIP_MAX_LEN}; max abs change of the embeddings when "
         f"the ids under the padding mask change: {leak}")
     # a masked key's logit is -1e9 in fp32: its probability is exactly 0
-    check(leak == 0.0, "padding tokens leak into the BLIP embeddings")
+    check(leak == 0.0, f"padding tokens leak into the {tag} embeddings")
 
     # one resident batch of image + text rows as model inputs on the card
     batch = model_inputs(blip_rows(data["cands"][2::3][:BATCH], vit_cfg.image_size, I.fused_preprocess), torch.device(DEVICE))
     with torch.inference_mode():
         fwd = cuda_ms(lambda: model(*batch), 3)
-    log(f"BLIP-SF forward of one resident image+text batch of {BATCH}, bf16: {fwd} ms = {BATCH / fwd * 1e3:.1f} pairs/s")
+    log(f"{tag} forward of one resident image+text batch of {BATCH}, bf16: {fwd} ms = {BATCH / fwd * 1e3:.1f} pairs/s")
     if profile:
-        profile_forward(model, batch, "BLIP-SF bf16")
+        profile_forward(model, batch, f"{tag} bf16")
+
+
+# ------------------------------------------------ phase 4: CLIP-FF serving
+
+FF_EXPT = "CLIP_FF/Large/Seeded"  # + "-splitk/" or "-k1/"
+# configs/clip_ff/large/train/inbatch/inbatch.yaml: t5_learning_rate, seed (its learning_rate is TRAIN_LR)
+FF_T5_LR, FF_SEED = 1e-4, 2023
+FF_TRAIN_BATCHES, FF_REMAT_BATCHES = 4, 2
+
+
+def build_clip(name: str, splitk: bool = False, seed: int = SEED, train: bool = False, **model):
+    """A seeded CLIP retriever at ViT-L/14 (bf16) through the registry, with
+    a BPE merges file for its tokenizer (the batches here are hash-tokenised)
+    and `UNIIR_ATTN_SPLITK` set for the build, where it is read."""
+    from uniir_tpu_torch.core.config import Config
+    from uniir_tpu_torch.models.registry import build_model_from_config
+
+    merges = os.path.join(str(WORK), "merges.txt")
+    with open(merges, "w") as f:
+        f.write("#version: 0.2\nt h\nth e\n")
+    config = Config.from_dict({"uniir_dir": str(WORK), "seed": seed, "model": {
+        "name": name, "clip_vision_model_name": MODEL, "clip_bpe_path": merges, **model}})
+    saved = os.environ.get("UNIIR_ATTN_SPLITK")
+    os.environ["UNIIR_ATTN_SPLITK"] = "1" if splitk else "0"
+    try:
+        return build_model_from_config(config, device=DEVICE, train=train)
+    finally:
+        os.environ.pop("UNIIR_ATTN_SPLITK", None) if saved is None else os.environ.__setitem__("UNIIR_ATTN_SPLITK", saved)
+
+
+def drive_clip_ff_path(results: dict, data: dict, profile: bool = False) -> None:
+    """CLIP-FF serving at full width and depth through the registry, the
+    embedder's loop, the index and retrieval over three pool types: once
+    with `UNIIR_ATTN_SPLITK=1` (the vision tower through K10) and once
+    without (every block through K1)."""
+    from uniir_tpu_torch.models import layers
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.ops import topk as T
+    from uniir_tpu_torch.train.steps import make_embed_step
+
+    root = str(WORK)
+    cfg = CLIP_CONFIGS[MODEL]
+    write_qrels(root, data)
+    n_batches = -(-N_CANDS // BATCH) + -(-N_QUERY_PAIRS // BATCH)
+    embeds, forwards = {}, {}
+    for splitk in (True, False):
+        tag = "splitk" if splitk else "k1"
+        t0 = time.perf_counter()
+        bundle = build_clip("CLIPFeatureFusion", splitk)
+        model = bundle.model
+        torch.cuda.synchronize()
+        t5 = model.t5_layers.cfg
+        log(f"CLIP-FF path ({tag}): seeded CLIP-FF {MODEL} bf16 ({cfg.vision_layers} + {cfg.text_layers} blocks, T5 "
+            f"{t5.num_layers} layers, d_model {t5.d_model}, {t5.num_heads} heads; {sum(p.numel() for p in model.parameters())} "
+            f"parameters) through build_model_from_config in {time.perf_counter() - t0:.1f} s, UNIIR_ATTN_SPLITK={int(splitk)}")
+        counters = (attn_mod.attention, attn_mod.attention_splitk, T.bucket_max_scores, T.bucket_max_scores_i8,
+                    T.bucket_max_scores_i8b)
+        for fn in counters:
+            fn.launches = 0
+        zero_standalone()
+        expt = f"{FF_EXPT}-{tag}/"
+        t0 = time.perf_counter()
+        embed_step = make_embed_step(model)
+        embeds[tag] = embed_and_save(embed_step, data, cfg, os.path.join(root, "embed", expt))
+        torch.cuda.synchronize()
+        t_embed = time.perf_counter() - t0
+        k1, k10 = attn_mod.attention.launches, attn_mod.attention_splitk.launches
+        retrieve_and_check(root, expt, cfg.embed_dim, data, f"clip_ff_{tag}", ("int8", "int8_bucket", "bf16"))
+        k2, k4, k11 = T.bucket_max_scores.launches, T.bucket_max_scores_i8.launches, T.bucket_max_scores_i8b.launches
+        want = (n_batches * cfg.text_layers, n_batches * cfg.vision_layers) if splitk else \
+            (n_batches * (cfg.vision_layers + cfg.text_layers), 0)
+        log(f"CLIP-FF path ({tag}): embed {t_embed:.2f} s (host clock, {n_batches} batches of {BATCH}); launches K1={k1} "
+            f"K10={k10} K2={k2} K4={k4} K11={k11}; expected K1, K10 = {want} ({n_batches} batches x "
+            f"{cfg.text_layers} text + {cfg.vision_layers} vision blocks, none trimmed)")
+        check((k1, k10) == want, f"K1 / K10 launched {k1} / {k10} times on the CLIP-FF path ({tag}), expected {want}")
+        check(k2 > 0 and k4 > 0 and k11 > 0, f"a sweep was not launched on the CLIP-FF path ({tag}): K2={k2} K4={k4} K11={k11}")
+        for name, n in (("K1", k1), ("K10", k10), ("K2", k2), ("K4", k4), ("K11", k11)):
+            results[name]["launches"] += n
+        read_standalone(results, f"CLIP-FF ({tag})")
+        log_candidate_spread(os.path.join(root, "embed", expt))
+
+        # the same forward through the plain twins (of K1, and of K10 where the flag is on), on a small batch
+        small = collate(data["cands"][:8], data["dids"][:8], "did_list", cfg)
+        small.pop("did_list"), small.pop("n_valid")
+        with_kernel = embed_step(dict(small)).float()
+        layers.attention = attn_mod.attention_twin
+        try:
+            plain = embed_step(dict(small)).float()
+        finally:
+            layers.attention = attn_mod.attention
+        cos = torch.nn.functional.cosine_similarity(with_kernel, plain, dim=1).min().item()
+        log(f"CLIP-FF embeddings through the kernels vs through their twins ({tag}, 8 candidates): min cosine {cos}")
+        check(cos >= 0.999, f"CLIP-FF embeddings through the kernels disagree with the plain path ({tag})")
+        forwards[tag] = forward_ms(model, cfg)
+        log(f"CLIP-FF forward of one resident image+text batch of {BATCH}, bf16 ({tag}): {forwards[tag]} ms = "
+            f"{BATCH / forwards[tag] * 1e3:.1f} pairs/s")
+        if profile:
+            profile_forward(model, resident_batch(cfg), f"CLIP-FF bf16 ({tag})")
+        del model, bundle, embed_step
+        torch.cuda.empty_cache()
+    cos = np.concatenate([np.sum(embeds["splitk"][s_] * embeds["k1"][s_], 1)
+                          / (np.linalg.norm(embeds["splitk"][s_], axis=1) * np.linalg.norm(embeds["k1"][s_], axis=1))
+                          for s_ in ("cand_pool", "test")])
+    log(f"CLIP-FF embeddings with K10 against without: per-row cosine min {cos.min():.6f} mean {cos.mean():.6f}; forward "
+        f"{forwards['splitk']} ms with K10, {forwards['k1']} ms without")
+    # 24 layers of attention outputs that may differ by a bf16 step; the direction of every embedding survives
+    check(cos.min() >= 0.999, f"CLIP-FF embeddings with and without K10 disagree: min cosine {cos.min()}")
 
 
 def profile_forward(model, batch, tag: str) -> None:
@@ -1066,7 +1337,7 @@ def profile_forward(model, batch, tag: str) -> None:
     log_device_time_by_group(prof, 3, wall * 1e3)
 
 
-# -------------------------------------------------------------- phase 4: K3
+# -------------------------------------------------------------- phase 5: K3
 
 
 def check_attention_bwd(results: dict) -> None:
@@ -1112,136 +1383,175 @@ def check_attention_bwd(results: dict) -> None:
     results["K3"]["max_abs_err"] = worst
 
 
-# -------------------------------------------------- phase 6: training path
+# -------------------------------------- phases 7 and 8: the training paths
 
 
-def drive_train_path(results: dict) -> None:
+def train_setup(name: str, remat: bool = False, splitk: bool = False, seed: int = SEED):
+    """(train state, train step) of a seeded CLIP retriever through the
+    registry: CLIP-SF by configs/clip_sf/large/train/inbatch/inbatch.yaml (lr
+    1e-5), CLIP-FF by configs/clip_ff/... (the T5 group at 1e-4 on its own
+    cosine schedule, fusion dropout on)."""
+    from uniir_tpu_torch.train.optimizer import make_clip_optimizer
+    from uniir_tpu_torch.train.state import TrainState
+    from uniir_tpu_torch.train.steps import make_clip_train_step
+
+    ff = name == "CLIPFeatureFusion"
+    model = build_clip(name, splitk, seed, train=True, remat=remat).model
+    optimizer = make_clip_optimizer(model, TRAIN_LR, total_steps=1000, fusion_learning_rate=FF_T5_LR if ff else None)
+    return TrainState(model, *optimizer), make_clip_train_step(model, with_dropout=ff, seed=FF_SEED)
+
+
+def drive_train_path(results: dict, name: str) -> None:
+    """Training of `name` (CLIPScoreFusion or CLIPFeatureFusion) through the
+    registry, `make_clip_optimizer`, `make_clip_train_step` and
+    `train_one_epoch`: 32 pairs, then CLIP-SF at the reference's 105 pairs
+    with remat, CLIP-FF at 32 pairs with remat and UNIIR_ATTN_SPLITK=1 (K10
+    forward, K3 backward)."""
     from uniir_tpu_torch.core.checkpoint import CHECKPOINT_FILE, load_train_checkpoint, save_train_checkpoint
     from uniir_tpu_torch.core.config import Config
     from uniir_tpu_torch.models import layers
     from uniir_tpu_torch.models.clip import CLIP_CONFIGS
-    from uniir_tpu_torch.models.registry import load_torch_checkpoint, seeded_clip_sf, seeded_clip_sf_train
     from uniir_tpu_torch.ops import attention as attn_mod
     from uniir_tpu_torch.train.engine import train_one_epoch
-    from uniir_tpu_torch.train.optimizer import make_clip_optimizer
-    from uniir_tpu_torch.train.state import TrainState
-    from uniir_tpu_torch.train.steps import clip_loss, make_clip_train_step, make_embed_step
+    from uniir_tpu_torch.train.steps import clip_loss, make_clip_eval_step, make_embed_step
 
     cfg = CLIP_CONFIGS[MODEL]
-    rng = np.random.default_rng(SEED + 3)
-    # self-attention blocks through K1/K3 per step: the pooled last block of
-    # each tower attends from one row and stays plain
-    blocks = (cfg.vision_layers - 1) + (cfg.text_layers - 1)
+    ff = name == "CLIPFeatureFusion"
+    rng = np.random.default_rng(SEED + (15 if ff else 3))
+    # self-attention blocks through K1 (or K10) and K3 per step: CLIP-SF's pooled last block of each
+    # tower attends from one row and stays plain; CLIP-FF's towers return every token, none trimmed
+    vision, text = (cfg.vision_layers, cfg.text_layers) if ff else (cfg.vision_layers - 1, cfg.text_layers - 1)
 
-    def setup(remat: bool, seed: int = SEED):
-        model = seeded_clip_sf_train(cfg, DEVICE, seed=seed, dtype=torch.bfloat16, remat=remat)
-        return TrainState(model, *make_clip_optimizer(model, TRAIN_LR, total_steps=1000)), make_clip_train_step(model)
-
-    def train(bs: int, remat: bool, n_batches: int):
-        state, step = setup(remat)
+    def train(bs: int, remat: bool, splitk: bool, n_batches: int):
+        state, step = train_setup(name, remat, splitk)
         batches = [make_train_batch(rng, bs, cfg) for _ in range(n_batches + 1)]
         state, _ = step(state, batches.pop())  # warm-up: first-call set-up stays out of the times
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        attn_mod.attention.launches = attn_mod.attention_bwd.launches = 0
+        attn_mod.attention.launches = attn_mod.attention_splitk.launches = attn_mod.attention_bwd.launches = 0
         zero_standalone()
         config = Config.from_dict({"trainer_config": {"print_freq": n_batches}})
         t0 = time.perf_counter()
         state, stats = train_one_epoch(step, state, batches, 0, config)
         torch.cuda.synchronize()
         step_s = (time.perf_counter() - t0) / n_batches
-        k1, k3 = attn_mod.attention.launches, attn_mod.attention_bwd.launches
+        k1, k10, k3 = attn_mod.attention.launches, attn_mod.attention_splitk.launches, attn_mod.attention_bwd.launches
         peak = torch.cuda.max_memory_allocated()
-        log(f"train {MODEL} bs={bs} pairs ({2 * bs} rows) remat={remat}: {n_batches} steps, step_ms={step_s * 1e3} "
-            f"pairs_per_s={bs / step_s} max_memory_allocated={peak} ({peak / 2**30:.2f} GiB); "
-            f"loss={stats['loss']} inbatch_accuracy={stats['inbatch_accuracy']}; launches K1={k1} K3={k3}")
-        check(np.isfinite(float(stats["loss"])), f"train loss is not finite at bs={bs}")
-        # remat recomputes each block's forward in the backward pass
-        check(k1 == n_batches * blocks * (2 if remat else 1) and k3 == n_batches * blocks,
-              f"K1 / K3 launched {k1} / {k3} times in {n_batches} steps of {blocks} blocks (remat={remat})")
-        results["K1"]["launches"] += k1
-        results["K3"]["launches"] += k3
-        read_standalone(results, "training")
+        log(f"train {name} {MODEL} bs={bs} pairs ({2 * bs} rows) remat={remat} UNIIR_ATTN_SPLITK={int(splitk)} "
+            f"dropout={'on' if ff else 'none'}: {n_batches} steps, step_ms={step_s * 1e3} pairs_per_s={bs / step_s} "
+            f"max_memory_allocated={peak} ({peak / 2**30:.2f} GiB); loss={stats['loss']} "
+            f"inbatch_accuracy={stats['inbatch_accuracy']}; launches K1={k1} K10={k10} K3={k3}")
+        check(np.isfinite(float(stats["loss"])), f"{name} train loss is not finite at bs={bs}")
+        # remat recomputes each block's forward in the backward pass; with the flag the vision tower's forward is K10
+        fwd = n_batches * (2 if remat else 1)
+        want = (fwd * text, fwd * vision) if splitk else (fwd * (text + vision), 0)
+        check((k1, k10) == want and k3 == n_batches * (vision + text),
+              f"K1 / K10 / K3 launched {k1} / {k10} / {k3} times in {n_batches} {name} steps (remat={remat}, splitk={splitk})")
+        for kernel, n in (("K1", k1), ("K10", k10), ("K3", k3)):
+            results[kernel]["launches"] += n
+        read_standalone(results, f"{name} training")
         return state, step
 
-    state, step = train(TRAIN_BS, False, TRAIN_BATCHES)
+    state, step = train(TRAIN_BS, False, False, FF_TRAIN_BATCHES if ff else TRAIN_BATCHES)
+    model = state.model
 
-    # the loss falls on one batch repeated
+    # the learning rates, read back from the optimizer after the updates so far
+    lrs = [g["lr"] for g in state.optimizer.param_groups]
+    sizes = [sum(p.numel() for p in g["params"]) for g in state.optimizer.param_groups]
+    log(f"{name} optimizer groups (decay / no decay" + (", T5 decay / no decay" if ff else "") + f"): lr={lrs} parameters={sizes}")
+    check(lrs[0] == lrs[1] and 0.99 * TRAIN_LR < lrs[0] <= TRAIN_LR, "the backbone groups do not train at the config's rate")
+    if ff:
+        check(len(lrs) == 4 and lrs[2] == lrs[3] and abs(lrs[2] / lrs[0] - FF_T5_LR / TRAIN_LR) < 1e-6
+              and sizes[2] + sizes[3] == sum(p.numel() for p in model.t5_layers.parameters()),
+              "the T5 group does not train at its own learning rate")
+
+    # the loss falls on one batch repeated: the steps' own losses, and the eval step's (deterministic:
+    # CLIP-FF's dropout off) before and after them
     batch = make_train_batch(rng, TRAIN_BS, cfg)
+    eval_step = make_clip_eval_step(model)
+    before = float(eval_step(dict(batch))["loss"])
     losses = []
     for _ in range(REPEAT_STEPS):
         state, metrics = step(state, dict(batch))
         losses.append(metrics["loss"])
     losses = [float(x) for x in losses]
-    log(f"loss over {REPEAT_STEPS} steps on one batch of {TRAIN_BS} pairs: {losses}")
-    check(all(np.isfinite(losses)) and losses[-1] < losses[0], "the loss does not fall on a repeated batch")
+    after = float(eval_step(dict(batch))["loss"])
+    log(f"{name} loss over {REPEAT_STEPS} steps on one batch of {TRAIN_BS} pairs: {losses}; eval loss {before} -> {after}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0] and after < before,
+          f"the {name} loss does not fall on a repeated batch")
 
-    # one step's loss and gradients through K1/K3 against the plain twins
-    model = state.model
+    # one step's loss and gradients through K1/K3 against the plain twins (CLIP-FF: under the same dropout draws)
     params = list(model.parameters())
-    out = clip_loss(model, batch)
-    grads = torch.autograd.grad(out["loss"], params)
+
+    def loss_and_grads():
+        if ff:
+            model.t5_layers.train()
+            model.t5_layers.set_dropout_generator(torch.Generator(device=DEVICE).manual_seed(FF_SEED + 1))
+        out = clip_loss(model, batch)
+        return out["loss"].item(), torch.autograd.grad(out["loss"], params)
+
+    loss, grads = loss_and_grads()
     layers.attention = attn_mod.attention_twin
     try:
-        ref = clip_loss(model, batch)
-        ref_grads = torch.autograd.grad(ref["loss"], params)
+        ref_loss, ref_grads = loss_and_grads()
     finally:
         layers.attention = attn_mod.attention
     names = [n for n, _ in model.named_parameters()]
-    coss = [cosine(g_, r_) for g_, r_ in zip(grads, ref_grads)]
+    # per-tensor cosine; a 0-d parameter's cosine is only its sign, so logit_scale (whose gradient
+    # is near 0 at a loss of log 32) is held by its value instead
+    coss = {i: cosine(g_, ref_grads[i]) for i, g_ in enumerate(grads) if g_.numel() > 1}
+    scalars = {names[i]: (grads[i].item(), ref_grads[i].item()) for i in range(len(grads)) if i not in coss}
     finite = all(bool(torch.isfinite(g_).all()) for g_ in grads)
-    worst = int(np.argmin(coss))
-    loss_err = abs(out["loss"].item() - ref["loss"].item())
-    log(f"train step through K1/K3 vs the twins: loss {out['loss'].item()} vs {ref['loss'].item()}, "
-        f"min gradient cosine {coss[worst]} ({names[worst]}), all gradients finite={finite}")
-    # bf16 attention outputs and gradients that round in other places: each
-    # gradient's direction and the loss (~log 32) survive
-    check(finite and loss_err <= 1e-2 and coss[worst] >= 0.99, "train-step gradients through K1/K3 disagree with the twins")
-    del grads, ref_grads, out, ref
+    worst = min(coss, key=coss.get)
+    log(f"{name} train step through K1/K3 vs the twins: loss {loss} vs {ref_loss}, min gradient cosine {coss[worst]} "
+        f"({names[worst]}) over {len(coss)} tensors, scalar gradients (kernels, twins) {scalars}, all gradients finite={finite}")
+    # bf16 attention outputs and gradients that round in other places: each gradient's direction and the
+    # loss (~log 32) survive
+    check(finite and abs(loss - ref_loss) <= 1e-2 and coss[worst] >= 0.99
+          and all(abs(a - b) <= 1e-3 for a, b in scalars.values()),
+          f"{name} train-step gradients through K1/K3 disagree with the twins")
+    del grads, ref_grads
 
-    # checkpoint round trip, and the saved model serves
-    path = save_train_checkpoint(str(WORK / "ckpt"), "clip_sf", state, 0)
-    fresh, _ = setup(False, seed=SEED + 1)
+    # checkpoint round trip, and the saved model serves through the registry
+    path = save_train_checkpoint(str(WORK / "ckpt"), name.lower(), state, 0)
+    fresh, _ = train_setup(name, seed=SEED + 1)
     fresh, epoch = load_train_checkpoint(path, fresh)
     same = all(torch.equal(p, q) for p, q in zip(model.parameters(), fresh.model.parameters()))
     a, b = state.optimizer.state_dict(), fresh.optimizer.state_dict()
     same_opt = a["param_groups"] == b["param_groups"] and all(
         torch.equal(v, b["state"][i][key]) for i, st in a["state"].items() for key, v in st.items())
-    log(f"train checkpoint round trip: parameters bit-equal={same}, optimizer state bit-equal={same_opt}, "
+    log(f"{name} train checkpoint round trip: parameters bit-equal={same}, optimizer state bit-equal={same_opt}, "
         f"step {fresh.step}, epoch {epoch}")
-    check(same and same_opt and fresh.step == state.step and epoch == 0, "train checkpoint round trip is not exact")
+    check(same and same_opt and fresh.step == state.step and epoch == 0, f"{name} train checkpoint round trip is not exact")
     del fresh
-    served = seeded_clip_sf(cfg, DEVICE, seed=SEED + 1, dtype=torch.bfloat16)
-    load_torch_checkpoint(served, os.path.join(path, CHECKPOINT_FILE))
+    served = build_clip(name, seed=SEED + 1, pretrained_torch_ckpt=os.path.join(path, CHECKPOINT_FILE)).model
     small = make_train_batch(rng, 4, cfg)
     emb = make_embed_step(served)(small).float()
+    model.eval()  # CLIP-FF: the fusion dropout off, as the served model's
     emb_train = make_embed_step(model)(small).float()
     cos = torch.nn.functional.cosine_similarity(emb, emb_train, dim=1).min().item()
-    log(f"the saved model serves: embeddings {tuple(emb.shape)}, min cosine to the trained module's {cos}")
+    log(f"the saved {name} model serves: embeddings {tuple(emb.shape)}, min cosine to the trained module's {cos}")
     check(emb.shape == (8, cfg.embed_dim) and bool(torch.isfinite(emb).all()) and cos >= 0.9999,
-          "the saved train checkpoint does not serve")
-    del state, step, model, params, served
+          f"the saved {name} train checkpoint does not serve")
+    del state, step, model, params, served, eval_step
     shutil.rmtree(WORK / "ckpt", ignore_errors=True)
     torch.cuda.empty_cache()
 
-    train(REMAT_BS, True, REMAT_BATCHES)
+    if ff:
+        train(TRAIN_BS, True, True, FF_REMAT_BATCHES)
+    else:
+        train(REMAT_BS, True, False, REMAT_BATCHES)
     torch.cuda.empty_cache()
 
 
-def profile_train_step() -> None:
-    """torch.profiler over 3 train steps of TRAIN_BS pairs: device time by kernel group."""
+def profile_train_step(name: str) -> None:
+    """torch.profiler over 3 train steps of TRAIN_BS pairs of `name`: device time by kernel group."""
     from torch.profiler import ProfilerActivity, profile
 
     from uniir_tpu_torch.models.clip import CLIP_CONFIGS
-    from uniir_tpu_torch.models.registry import seeded_clip_sf_train
-    from uniir_tpu_torch.train.optimizer import make_clip_optimizer
-    from uniir_tpu_torch.train.state import TrainState
-    from uniir_tpu_torch.train.steps import make_clip_train_step
 
     cfg = CLIP_CONFIGS[MODEL]
-    model = seeded_clip_sf_train(cfg, DEVICE, seed=SEED, dtype=torch.bfloat16)
-    state = TrainState(model, *make_clip_optimizer(model, TRAIN_LR, total_steps=1000))
-    step = make_clip_train_step(model)
+    state, step = train_setup(name)
     rng = np.random.default_rng(SEED + 4)
     batches = [make_train_batch(rng, TRAIN_BS, cfg) for _ in range(3)]
     state, _ = step(state, make_train_batch(rng, TRAIN_BS, cfg))  # warm-up
@@ -1255,12 +1565,13 @@ def profile_train_step() -> None:
         for b in batches:
             state, _ = step(state, b)
         torch.cuda.synchronize()
-    log(f"profile of a {TRAIN_BS}-pair train step: step_ms={wall * 1e3} (host clock, without the profiler)")
+    log(f"profile of a {TRAIN_BS}-pair {name} train step: step_ms={wall * 1e3} (host clock, without the profiler)")
     log_device_time_by_group(prof, len(batches), wall * 1e3)
 
 
 PROFILE_GROUPS = {
-    "K1 attention_fwd": ("attention_fwd",), "K3 attention_bwd": ("attention_bwd",),
+    "K1 attention_fwd": ("attention_fwd",), "K10 attention_splitk": ("attention_splitk",),
+    "K3 attention_bwd": ("attention_bwd",),
     "K5 int8_matmul": ("int8_matmul_kernel",), "K6 int8_mlp": ("int8_mlp_kernel",),
     "K7 preprocess": ("preprocess_kernel",),
     "GEMM": ("gemm", "xmma", "cutlass", "nvjet", "cublas"), "AdamW": ("multi_tensor", "adam"),
@@ -1335,15 +1646,20 @@ def main() -> None:
         "K6": {"name": "int8_mlp", "route": "cuda", "source": "uniir_tpu_torch/csrc/int8_mlp.cu",
                "replaces": "uniir_tpu/ops/mlp_pallas.py:94", "launches": 0, "library_ms": None},
         "K7": {"name": "fused_preprocess", "route": "cuda", "source": "uniir_tpu_torch/csrc/preprocess.cu",
-               "replaces": "uniir_tpu/ops/image_ops.py:106"},
+               "replaces": "uniir_tpu/ops/image_ops.py:106", "launches": 0},
         # K8 / K9 are stand-alone entry points, as in the JAX package: no model calls them, and
         # `read_standalone` holds their counts to 0 after every path
         "K8": {"name": "mha_nocausal", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
                "replaces": "uniir_tpu/ops/attention_pallas.py:55"},
         "K9": {"name": "mha_paired", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
                "replaces": "uniir_tpu/ops/attention_pallas.py:158"},
+        "K10": {"name": "attention_splitk", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
+                "replaces": "uniir_tpu/ops/attention_pallas.py:314", "launches": 0},
+        "K11": {"name": "bucket_max_i8b", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
+                "replaces": "uniir_tpu/ops/topk_pallas.py:254", "launches": 0},
     }
     check_attention(results)
+    check_attention_splitk(results)
     check_attention_norm_first(results)
     check_preprocess(results)
     check_sweeps(results)
@@ -1354,14 +1670,22 @@ def main() -> None:
     int8_models = drive_int8_path(results, data)  # adds its K1 launches to the bf16 serving path's
     if "--profile" in sys.argv[1:]:
         profile_embed_steps(int8_models)
-    del data, int8_models  # the training phase reads peak memory
+    del int8_models
     torch.cuda.empty_cache()
-    drive_blip_path(results, profile="--profile" in sys.argv[1:])  # adds its K1 / K2 / K4 launches too
+    drive_clip_ff_path(results, data, profile="--profile" in sys.argv[1:])  # K10, K11; adds its K1 / K2 / K4 launches too
+    del data  # the training phases read peak memory
     torch.cuda.empty_cache()
+    for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):  # add their K7 / K1 / K2 / K4 / K11 launches too
+        drive_blip_path(results, name, profile="--profile" in sys.argv[1:])
+        torch.cuda.empty_cache()
     check_attention_bwd(results)
-    drive_train_path(results)  # adds its K1 launches too
+    for name in ("CLIPScoreFusion", "CLIPFeatureFusion"):  # add their K1 / K10 / K3 launches too
+        drive_train_path(results, name)
     if "--profile" in sys.argv[1:]:
-        profile_train_step()
+        profile_train_step("CLIPScoreFusion")
+        profile_train_step("CLIPFeatureFusion")
+    for name in ("K10", "K11"):
+        check(results[name]["launches"] > 0, f"kernel {name} was not launched on a main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")
 
     fields = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -1,10 +1,10 @@
-"""Kernels K1, K8 and K9 (attention forward): each plain twin against its JAX
-Pallas kernel, and on a card the CUDA kernels against the twins.
+"""Kernels K1, K8, K9 and K10 (attention forward): each plain twin against its
+JAX Pallas kernel, and on a card the CUDA kernels against the twins.
 
 Inputs come from numpy with a seed and go through both frameworks as the
-same bf16 values.  The JAX side runs `mha_paired_stack` (K1),
-`mha_nocausal` (K8) and `mha_paired` (K9) in interpret mode, as the JAX
-package's own tests do on the CPU.  JAX is imported inside the
+same bf16 values.  The JAX side runs `mha_paired_stack` (K1; K10 under
+`UNIIR_ATTN_SPLITK=1`), `mha_nocausal` (K8) and `mha_paired` (K9) in
+interpret mode, as the JAX package's own tests do on the CPU.  JAX is imported inside the
 parity tests only, so the GPU cases also run on a host without it:
 `python -m pytest tests/test_torch_attention.py -m gpu --noconftest`.
 """
@@ -16,9 +16,13 @@ import torch
 from uniir_tpu_torch.ops.attention import (
     attention,
     attention_reference,
+    attention_splitk,
+    attention_splitk_reference,
+    attention_twin,
     attention_twopass_reference,
     mha_nocausal,
     mha_paired,
+    splitk_applies,
 )
 
 # The twin rounds at the kernel's points (bf16 q*scale, fp32 softmax, bf16
@@ -169,6 +173,87 @@ def test_standalone_wrappers_reject_bad_arguments():
         mha_paired(q, k, v, 3)
 
 
+# ------------------------------------------------------------------- K10
+# The split-K twin rounds at `_paired_stack_splitk_kernel`'s points (the last
+# key's products rounded to bf16 one by one, its term added to the row sum
+# after the main block's), so it may differ from the Pallas kernel only by
+# the order of fp32 sums: the same 2 bf16 ulps of the output as K1.
+
+
+@pytest.mark.parametrize("B,L,H,l_valid", [(2, 129, 2, None), (1, 257, 4, None), (2, 136, 2, 129)])
+def test_splitk_twin_matches_pallas_splitk_kernel(monkeypatch, B, L, H, l_valid):
+    from uniir_tpu.ops.attention_pallas import mha_paired_stack
+
+    monkeypatch.setenv("UNIIR_ATTN_SPLITK", "1")
+    D = 64
+    q, k, v = _qkv(B, L, H * D, seed=L)
+    ref = mha_paired_stack(_jax(q), _jax(k), _jax(v), H, D**-0.5, interpret=True, l_valid=l_valid)
+    lv = l_valid or L
+    before = attention_splitk.launches
+    out = attention(q, k, v, H, D**-0.5, l_valid=l_valid, splitk=True)
+    assert attention_splitk.launches == before  # a CPU tensor runs the twin
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out, attention_splitk_reference(q, k, v, H, D**-0.5, lv), rtol=0, atol=0)
+    np.testing.assert_allclose(out.float().numpy()[:, :lv], np.asarray(ref, np.float32)[:, :lv],
+                               rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+def test_splitk_twin_is_not_k1_behind_a_view():
+    """Same function, other rounding points: close to K1's twin (a few bf16
+    steps) and not equal to it."""
+    q, k, v = _qkv(2, 257, 128, seed=9)
+    a = attention_splitk_reference(q, k, v, 2)
+    b = attention_reference(q, k, v, 2)
+    assert not torch.equal(a, b)
+    torch.testing.assert_close(a.float(), b.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+@pytest.mark.parametrize("L,causal,l_valid", [(130, False, None), (129, True, None), (77, True, None), (197, False, None),
+                                              (257, False, 200), (128, False, None), (1, False, None)])
+def test_splitk_flag_runs_k1_where_the_condition_fails(monkeypatch, L, causal, l_valid):
+    """`attention(..., splitk=True)` outside `l_valid % 128 == 1 and l_valid >
+    128`, or causal: K1's twin, bit for bit, as `mha_paired_stack` keeps its
+    base kernel there with the flag set."""
+    from uniir_tpu.ops.attention_pallas import mha_paired_stack
+
+    assert not splitk_applies(l_valid or L, causal)
+    q, k, v = _qkv(1, L, 128, seed=L + 3)
+    out = attention(q, k, v, 2, causal=causal, l_valid=l_valid, splitk=True)
+    torch.testing.assert_close(out, attention_reference(q, k, v, 2, None, causal, l_valid), rtol=0, atol=0)
+    if L in (130, 129):
+        monkeypatch.setenv("UNIIR_ATTN_SPLITK", "1")
+        flagged = mha_paired_stack(_jax(q), _jax(k), _jax(v), 2, interpret=True, causal=causal)
+        monkeypatch.setenv("UNIIR_ATTN_SPLITK", "0")
+        base = mha_paired_stack(_jax(q), _jax(k), _jax(v), 2, interpret=True, causal=causal)
+        np.testing.assert_array_equal(np.asarray(flagged, np.float32), np.asarray(base, np.float32))
+
+
+def test_splitk_condition_and_wrapper_arguments():
+    assert splitk_applies(257, False) and splitk_applies(129, False) and splitk_applies(385, False)
+    assert not splitk_applies(257, True) and not splitk_applies(1, False) and not splitk_applies(256, False)
+    q, k, v = _qkv(1, 130, 128)
+    with pytest.raises(ValueError, match="l_valid % 128 == 1"):
+        attention_splitk(q, k, v, 2)
+    out = attention_splitk(q, k, v, 2, l_valid=129)  # the valid length decides, not the array's
+    torch.testing.assert_close(out, attention_splitk_reference(q, k, v, 2, None, 129), rtol=0, atol=0)
+
+
+def test_splitk_forward_keeps_the_k3_backward():
+    """The gradient of `attention(splitk=True)` is K3's twin on the same
+    q, k, v, as `_paired_bwd` serves both forwards."""
+    from uniir_tpu_torch.ops.attention import attention_bwd_reference
+
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 129, 128, seed=11))
+    g = _qkv(1, 129, 128, seed=12)[0]
+    out = attention(q, k, v, 2, splitk=True)
+    out.backward(g)
+    dq, dk, dv = attention_bwd_reference(q.detach(), k.detach(), v.detach(), g, 2)
+    for got, want in ((q.grad, dq), (k.grad, dk), (v.grad, dv)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    twin = attention_twin(q.detach(), k.detach(), v.detach(), 2, splitk=True)
+    torch.testing.assert_close(out.detach(), twin, rtol=0, atol=0)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -220,3 +305,30 @@ def test_cuda_k1_at_blip_length(cuda):
     out = attention(q, k, v, 16)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), attention_reference(q, k, v, 16).float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+# K10 on the card: the twin's rounding points, fp32 sums in another order.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,l_valid", [(8, 257, 16, None), (3, 129, 2, None), (2, 264, 4, 257)])
+def test_cuda_splitk_kernel_matches_twin(cuda, B, L, H, l_valid):
+    q, k, v = (t.to(cuda) for t in _qkv(B, L, H * 64, seed=7))
+    lv = l_valid or L
+    before = (attention.launches, attention_splitk.launches)
+    out = attention(q, k, v, H, l_valid=l_valid, splitk=True)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention_splitk.launches) == (before[0], before[1] + 1)
+    ref = attention_splitk_reference(q, k, v, H, None, lv)
+    torch.testing.assert_close(out.float()[:, :lv], ref.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    k1 = attention(q, k, v, H, l_valid=l_valid)
+    torch.testing.assert_close(out.float()[:, :lv], k1.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,H,causal", [(197, 16, False), (77, 12, True)])
+def test_cuda_splitk_flag_launches_k1_elsewhere(cuda, L, H, causal):
+    q, k, v = (t.to(cuda) for t in _qkv(4, L, H * 64, seed=8))
+    before = (attention.launches, attention_splitk.launches)
+    out = attention(q, k, v, H, causal=causal, splitk=True)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention_splitk.launches) == (before[0] + 1, before[1])
+    assert torch.equal(out, attention(q, k, v, H, causal=causal))

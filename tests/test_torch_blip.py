@@ -477,9 +477,12 @@ def test_unported_blip_options_raise(tmp_path):
         build_model_from_config(_registry_config(tmp_path, int8=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model_from_config(_registry_config(tmp_path), device="cpu", train=True)
-    for name in ("BLIPFeatureFusion", "CLIPFeatureFusion"):
+    # feature fusion serves; its int8 and its training wait like score fusion's
+    for kwargs, train in (({"int8": True}, False), ({}, True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model_from_config(Config.from_dict({"model": {"name": name}}), device="cpu")
+            build_model_from_config(_registry_config(tmp_path, name="BLIPFeatureFusion", **kwargs), device="cpu", train=train)
+    with pytest.raises(ValueError, match="Unknown model name"):
+        build_model_from_config(Config.from_dict({"model": {"name": "BLIPFusion"}}), device="cpu")
 
 
 @pytest.fixture

@@ -27,14 +27,17 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.registry",
     "uniir_tpu_torch.data.tokenizers.bert_wordpiece",
     "uniir_tpu_torch.data.tokenizers.clip_bpe",
+    "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",
     "uniir_tpu_torch.models.blip_vit",
     "uniir_tpu_torch.models.clip",
+    "uniir_tpu_torch.models.clip_ff",
     "uniir_tpu_torch.models.clip_sf",
     "uniir_tpu_torch.models.convert",
     "uniir_tpu_torch.models.layers",
     "uniir_tpu_torch.models.med",
     "uniir_tpu_torch.models.registry",
+    "uniir_tpu_torch.models.t5_fusion",
     "uniir_tpu_torch.ops.attention",
     "uniir_tpu_torch.ops.calibrate",
     "uniir_tpu_torch.ops.image_ops",

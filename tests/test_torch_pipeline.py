@@ -1,8 +1,8 @@
 """The slice as a whole: embed -> create_index -> run_retrieval in the JAX
 package and in the port, on the same miniature M-BEIR tree and weights.
 
-The JAX bundle is `tiny_clip_bundle` (fp32 test-tiny), or a tiny BLIP-SF
-built the same way; the port gets the same weights through
+The JAX bundle is `tiny_clip_bundle` (fp32 test-tiny), or a tiny CLIP-FF,
+BLIP-SF or BLIP-FF built the same way; the port gets the same weights through
 `state_dict_from_jax`, and the same tokenizer and image transform.  Query
 instructions are off so both runs embed the same text.
 """
@@ -29,9 +29,11 @@ from uniir_tpu.retrieval.eval import run_retrieval as jax_run_retrieval
 from uniir_tpu.retrieval.index import create_index as jax_create_index
 from uniir_tpu_torch.core.config import Config
 from uniir_tpu_torch.data import registry as port_registry
+from uniir_tpu_torch.models.blip_ff import BLIPFeatureFusion
 from uniir_tpu_torch.models.blip_sf import BLIPScoreFusion
 from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
 from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+from uniir_tpu_torch.models.clip_ff import CLIPFeatureFusion
 from uniir_tpu_torch.models.clip_sf import CLIPScoreFusion
 from uniir_tpu_torch.models.convert import state_dict_from_jax
 from uniir_tpu_torch.models.med import MED_CONFIGS
@@ -47,8 +49,8 @@ JAX_EXPT = "CLIP_SF/TinyJax/NoInstruct/InBatch/"
 EMBED_ATOL = 2e-3
 
 
-def _config(root, expt, pool_dtype=None):
-    config = make_eval_config(root)
+def _config(root, expt, pool_dtype=None, embed_dim=16):
+    config = make_eval_config(root, embed_dim=embed_dim)
     config.data_config.enable_query_instruct = False
     config.experiment.path_suffix = expt
     if pool_dtype is not None:
@@ -177,6 +179,124 @@ def test_port_blip_sf_pipeline_matches_jax(blip_trees, pool_dtype):
         np.testing.assert_array_equal(np.load(base.format(expt) + "_ids.npy"), np.load(base.format(BLIP_JAX_EXPT) + "_ids.npy"))
     assert _run_rows(root, expt) == _run_rows(root, BLIP_JAX_EXPT)
     assert _tsv(root, expt) == _tsv(root, BLIP_JAX_EXPT)
+
+
+def _assert_same_artifacts(root, expt, jax_expt):
+    """fp16 embeddings within EMBED_ATOL, equal ids, and the same ids in the
+    same order in every run file with the same Recall values in the TSV."""
+    for split, name in [("test", "mscoco_task0_test"), ("train", "mscoco_task0_train"),
+                        ("cand_pool", "mscoco_task0_cand_pool"), ("cand_pool", "union_cand_pool")]:
+        base = os.path.join(root, "embed", "{}", split, f"mbeir_{name}")
+        ours, ref = np.load(base.format(expt) + "_embed.npy"), np.load(base.format(jax_expt) + "_embed.npy")
+        assert ours.dtype == np.float16 and ours.shape == ref.shape
+        np.testing.assert_allclose(ours.astype(np.float32), ref.astype(np.float32), atol=EMBED_ATOL)
+        np.testing.assert_array_equal(np.load(base.format(expt) + "_ids.npy"), np.load(base.format(jax_expt) + "_ids.npy"))
+    assert _run_rows(root, expt) == _run_rows(root, jax_expt)
+    assert _tsv(root, expt) == _tsv(root, jax_expt)
+
+
+def _jax_pipeline(root, jax_bundle, expt):
+    config = _config(root, expt, embed_dim=jax_bundle.embed_dim)
+    jax_embed(jax_bundle, config)
+    jax_create_index(config)
+    jax_run_retrieval(config)
+
+
+def _port_pipeline(root, bundle, expt, pool_dtype):
+    config = _config(root, expt, pool_dtype, embed_dim=bundle.embed_dim)
+    assert len(generate_embeds_for_config(bundle, config)) == 8
+    assert len(create_index(config)) == 2
+    stats = []
+    assert run_retrieval(config, device="cpu", stats_out=stats)
+    assert stats and all(s["pool_dtype"] == pool_dtype for s in stats)
+
+
+CLIP_FF_JAX_EXPT = "CLIP_FF/TinyJax/NoInstruct/InBatch/"
+
+
+def tiny_clip_ff_bundle():
+    """fp32 test-tiny-ff CLIP-FF in the JAX package, with the hash tokenizer."""
+    from tests.helpers import simple_tokenizer
+    from uniir_tpu.models.clip import CLIP_CONFIGS as JAX_CONFIGS
+    from uniir_tpu.models.clip_ff import CLIPFeatureFusion as JaxCLIPFF
+    from uniir_tpu.models.registry import ModelBundle as JaxModelBundle
+
+    cfg = JAX_CONFIGS["test-tiny-ff"]
+    model = JaxCLIPFF(cfg)
+    tok = simple_tokenizer(max_len=cfg.context_length, vocab_size=cfg.vocab_size)
+    img_fn = identity_image_transform(cfg.image_size)
+    ones = np.ones(2, np.int32)
+    params = model.init(jax.random.PRNGKey(0), tok(["x", "y"]), np.zeros((2, cfg.image_size, cfg.image_size, 3), np.float32),
+                        ones, ones)["params"]
+    return JaxModelBundle("CLIPFeatureFusion", model, jax.tree_util.tree_map(np.asarray, params), tok, img_fn, img_fn,
+                          (cfg.image_size, cfg.image_size), cfg.embed_dim)
+
+
+@pytest.fixture(scope="module")
+def clip_ff_trees(trees):
+    root, _ = trees
+    jax_bundle = tiny_clip_ff_bundle()
+    _jax_pipeline(root, jax_bundle, CLIP_FF_JAX_EXPT)
+    return root, jax_bundle
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8", "int8_bucket"])
+def test_port_clip_ff_pipeline_matches_jax(clip_ff_trees, pool_dtype):
+    """CLIP-FF through the same entry points; the per-bucket int8 pool (the
+    sweep K11 serves on a card) retrieves the same ids as the JAX run."""
+    root, jax_bundle = clip_ff_trees
+    model = CLIPFeatureFusion(CLIP_CONFIGS["test-tiny-ff"])
+    model.load_state_dict(state_dict_from_jax(jax_bundle.params))
+    bundle = ModelBundle("CLIPFeatureFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
+                         jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim)
+    expt = f"CLIP_FF/TinyTorch-{pool_dtype}/NoInstruct/InBatch/"
+    _port_pipeline(root, bundle, expt, pool_dtype)
+    _assert_same_artifacts(root, expt, CLIP_FF_JAX_EXPT)
+
+
+BLIP_FF_JAX_EXPT = "BLIP_FF/TinyJax/NoInstruct/InBatch/"
+
+
+def tiny_blip_ff_bundle():
+    """fp32 test-tiny BLIP-FF in the JAX package, with a hash BERT-style tokenizer."""
+    from uniir_tpu.models.blip_ff import BLIPFeatureFusion as JaxBLIPFF
+    from uniir_tpu.models.blip_vit import BLIP_VIT_CONFIGS as JAX_VIT
+    from uniir_tpu.models.med import MED_CONFIGS as JAX_MED
+    from uniir_tpu.models.registry import ModelBundle as JaxModelBundle
+
+    vit, med = JAX_VIT["test-tiny"], JAX_MED["test-tiny"]
+    model = JaxBLIPFF(vit_cfg=vit, med_cfg=med)
+    tok = simple_bert_tokenizer(max_len=16, vocab_size=97)
+    img_fn = identity_image_transform(vit.image_size)
+    ones = np.ones(2, np.int32)
+    params = model.init(jax.random.PRNGKey(0), tok(["x", "y"]), np.zeros((2, vit.image_size, vit.image_size, 3), np.float32),
+                        ones, ones)["params"]
+    rng = np.random.default_rng(0)
+    params = jax.tree_util.tree_map(np.asarray, params)
+    for name in ("cls_token", "pos_embed"):  # zero-initialised in flax: give them values so positions matter
+        params["visual_encoder"][name] = (0.02 * rng.standard_normal(params["visual_encoder"][name].shape)).astype(np.float32)
+    return JaxModelBundle("BLIPFeatureFusion", model, params, tok, img_fn, img_fn, (vit.image_size, vit.image_size),
+                          med.hidden_size)
+
+
+@pytest.fixture(scope="module")
+def blip_ff_trees(trees):
+    root, _ = trees
+    jax_bundle = tiny_blip_ff_bundle()
+    _jax_pipeline(root, jax_bundle, BLIP_FF_JAX_EXPT)
+    return root, jax_bundle
+
+
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8_bucket"])
+def test_port_blip_ff_pipeline_matches_jax(blip_ff_trees, pool_dtype):
+    root, jax_bundle = blip_ff_trees
+    model = BLIPFeatureFusion(BLIP_VIT_CONFIGS["test-tiny"], MED_CONFIGS["test-tiny"])
+    model.load_state_dict(state_dict_from_jax(jax_bundle.params))
+    bundle = ModelBundle("BLIPFeatureFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
+                         jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim)
+    expt = f"BLIP_FF/TinyTorch-{pool_dtype}/NoInstruct/InBatch/"
+    _port_pipeline(root, bundle, expt, pool_dtype)
+    _assert_same_artifacts(root, expt, BLIP_FF_JAX_EXPT)
 
 
 def test_no_device_named_and_no_card_raises(monkeypatch):

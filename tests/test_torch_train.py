@@ -1,6 +1,7 @@
-"""The CLIP-SF training path of the port against the JAX package at `test-tiny`:
-the in-batch loss, the optimizer and schedule, one train step (fp32 and
-bf16), remat, the checkpoint and the trainer end to end.
+"""The CLIP-SF and CLIP-FF training paths of the port against the JAX package at
+`test-tiny` / `test-tiny-ff`: the in-batch loss, the optimizer groups and
+schedules, one train step (fp32 and bf16), remat, the fusion dropout, the
+checkpoint and the trainer end to end.
 
 Inputs come from numpy with a seed; weights move from JAX with
 `state_dict_from_jax`, which also maps a JAX gradient tree onto the port's
@@ -382,14 +383,304 @@ def test_trainer_trains_resumes_and_serves(tmp_path):
     assert emb.shape == (8, CFG.embed_dim) and torch.isfinite(emb.float()).all()
 
 
-def test_unported_training_options_raise():
-    model = CLIPScoreFusion(CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_clip_optimizer(model, LR, TOTAL_STEPS, fusion_learning_rate=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from uniir_tpu_torch.train.trainer import build_train_setup
+# ------------------------------------------------------------------ CLIP-FF
 
-        build_train_setup(Config.from_dict({"model": {"name": "BLIPScoreFusion"}}))
+FF_CFG = CLIP_CONFIGS["test-tiny-ff"]
+FUSION_LR = 4e-3
+
+
+def _jax_ff():
+    from uniir_tpu.models.clip import CLIP_CONFIGS as JAX_CONFIGS
+    from uniir_tpu.models.clip_ff import CLIPFeatureFusion as JaxCLIPFF
+
+    return JaxCLIPFF(JAX_CONFIGS["test-tiny-ff"])
+
+
+@pytest.fixture(scope="module")
+def jax_ff_params():
+    import jax
+
+    b = _batch()
+    init = jax.jit(_jax_ff().init)(jax.random.PRNGKey(0), *(b[k][:2] for k in b))
+    return jax.tree_util.tree_map(np.asarray, init["params"])
+
+
+def _port_ff(params, dtype=torch.float32, remat=False):
+    from uniir_tpu_torch.models.clip_ff import CLIPFeatureFusion
+
+    model = CLIPFeatureFusion(FF_CFG, dtype=dtype, remat=remat)
+    model.load_state_dict(state_dict_from_jax(params))
+    return model
+
+
+def test_fusion_groups_match_the_jax_labels(jax_ff_params):
+    """The four groups: {backbone, fusion} x {decay, no decay}, by the JAX
+    package's label tree and decay mask."""
+    import jax
+
+    from uniir_tpu.train.optimizer import clip_decay_mask as jax_mask
+
+    model = _port_ff(jax_ff_params)
+    optimizer, _ = make_clip_optimizer(model, LR, TOTAL_STEPS, fusion_learning_rate=FUSION_LR)
+    group_of = {id(p): i for i, g in enumerate(optimizer.param_groups) for p in g["params"]}
+    decay = jax.tree_util.tree_map(lambda m, p: np.full(np.shape(p), m), jax_mask(jax_ff_params), jax_ff_params)
+    decay = {name: bool(t.flatten()[0]) for name, t in state_dict_from_jax(decay).items()}
+    assert clip_decay_mask(model) == decay
+    for name, p in model.named_parameters():
+        fusion = name.startswith("t5_layers.")
+        assert group_of[id(p)] == 2 * fusion + (not decay[name]), name
+    assert [g["lr"] for g in optimizer.param_groups] == [LR, LR, FUSION_LR, FUSION_LR]
+    assert [g["weight_decay"] for g in optimizer.param_groups] == [0.2, 0.0, 0.2, 0.0]
+    assert not decay["t5_layers.block.0.layer.0.SelfAttention.relative_attention_bias.weight"]
+    assert decay["t5_layers.block.0.layer.0.SelfAttention.q.weight"] and not decay["t5_layers.final_layer_norm.weight"]
+
+
+@pytest.mark.parametrize("warmup", [0, 2])
+def test_both_schedules_are_read_back_from_the_optimizer(jax_ff_params, warmup):
+    from uniir_tpu.train.optimizer import cosine_schedule as jax_schedule
+
+    model = _port_ff(jax_ff_params)
+    optimizer, scheduler = make_clip_optimizer(model, LR, TOTAL_STEPS, warmup_steps=warmup, fusion_learning_rate=FUSION_LR)
+    ref, ref_fusion = jax_schedule(LR, TOTAL_STEPS, warmup), jax_schedule(FUSION_LR, TOTAL_STEPS, warmup)
+    for count in range(TOTAL_STEPS + 1):
+        lrs = [g["lr"] for g in optimizer.param_groups]
+        # optax evaluates 1 + cos in fp32: near the end of the decay its relative rounding reaches 1e-6
+        np.testing.assert_allclose(lrs[:2], float(ref(count)), rtol=1e-5, atol=1e-12)
+        np.testing.assert_allclose(lrs[2:], float(ref_fusion(count)), rtol=1e-5, atol=1e-12)
+        optimizer.step()
+        scheduler.step()
+
+
+@pytest.mark.parametrize("accum,warmup", [(1, 0), (2, 2)])
+def test_adamw_with_fusion_group_matches_optax_multi_transform(jax_ff_params, accum, warmup):
+    import jax
+    import optax
+
+    from uniir_tpu.train.optimizer import make_clip_optimizer as jax_optimizer
+
+    grads = _grad_trees(jax_ff_params, 3 * accum, seed=1)
+    tx = jax_optimizer(jax_ff_params, LR, TOTAL_STEPS, warmup_steps=warmup, accumulation_steps=accum,
+                       fusion_learning_rate=FUSION_LR)
+    params, opt_state = jax_ff_params, tx.init(jax_ff_params)
+    update = jax.jit(tx.update)
+    for g in grads:
+        updates, opt_state = update(g, opt_state, params)
+        params = optax.apply_updates(params, updates)
+
+    model = _port_ff(jax_ff_params)
+    state = TrainState(
+        model, *make_clip_optimizer(model, LR, TOTAL_STEPS, warmup_steps=warmup, fusion_learning_rate=FUSION_LR),
+        accumulation_steps=accum,
+    )
+    for g in grads:
+        sd = state_dict_from_jax(g)
+        for name, p in model.named_parameters():
+            p.grad = sd[name].clone() if p.grad is None else p.grad + sd[name]
+        state.apply_gradients()
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params))
+    for name, p in model.named_parameters():
+        # the fusion group steps by up to FUSION_LR: its rounding scales with it
+        atol = ADAM_ATOL * (FUSION_LR / LR if name.startswith("t5_layers.") else 1.0)
+        torch.testing.assert_close(p.detach(), want[name], rtol=0, atol=atol, msg=lambda m, name=name: f"{name}: {m}")
+
+
+def _jax_ff_loss_and_grads(params, batch, dtype):
+    import jax
+    import jax.numpy as jnp
+
+    from uniir_tpu.train.losses import inbatch_contrastive_loss as jax_loss
+
+    model = _jax_ff().clone(dtype=dtype)
+
+    def loss_fn(p):
+        emb = model.apply({"params": p}, *(batch[k] for k in batch))
+        out = jax_loss(emb, batch["image_batched"].shape[0] // 2, jnp.exp(p["logit_scale"]))
+        return out["loss"], out
+
+    (loss, out), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    return float(loss), float(out["accuracy"]), state_dict_from_jax(jax.tree_util.tree_map(np.asarray, grads))
+
+
+def test_clip_ff_train_step_fp32_matches_jax_without_dropout(jax_ff_params):
+    """Dropout cannot match across frameworks: both sides run the step with
+    it off.  Loss and gradients of one batch, then the parameters after two
+    updates with the T5 group at its own rate."""
+    import jax
+
+    from uniir_tpu.train.optimizer import make_clip_optimizer as jax_optimizer
+    from uniir_tpu.train.state import TrainState as JaxTrainState
+    from uniir_tpu.train.steps import make_clip_train_step as jax_train_step
+
+    batch = _batch()
+    loss, acc, grads = _jax_ff_loss_and_grads(jax_ff_params, batch, np.float32)
+    model = _port_ff(jax_ff_params)
+    model.t5_layers.eval()
+    out = clip_loss(model, batch)
+    out["loss"].backward()
+    np.testing.assert_allclose(out["loss"].item(), loss, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    assert out["accuracy"].item() == acc
+    for name, p in model.named_parameters():
+        _assert_step_close(p.grad, grads[name], name)
+
+    jax_state = JaxTrainState.create(jax_ff_params, jax_optimizer(jax_ff_params, LR, TOTAL_STEPS, fusion_learning_rate=FUSION_LR))
+    jax_step = jax_train_step(_jax_ff(), with_dropout=False)
+    model = _port_ff(jax_ff_params)
+    state = TrainState(model, *make_clip_optimizer(model, LR, TOTAL_STEPS, fusion_learning_rate=FUSION_LR))
+    step = make_clip_train_step(model, with_dropout=False)
+    for seed in (0, 1):
+        b = _batch(seed=seed)
+        jax_state, jax_metrics = jax_step(jax_state, b)
+        state, metrics = step(state, b)
+        np.testing.assert_allclose(metrics["loss"].item(), float(jax_metrics["loss"]), rtol=STEP_RTOL)
+        assert metrics["inbatch_accuracy"].item() == float(jax_metrics["inbatch_accuracy"])
+    assert not model.t5_layers.training  # with_dropout=False keeps the fusion stack in eval mode
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jax_state.params))
+    for name, p in model.named_parameters():
+        got = p.detach()
+        lr = FUSION_LR if name.startswith("t5_layers.") else LR
+        if name.endswith("attn.in_proj_bias"):
+            # the key bias's true gradient is 0 (see the CLIP-SF test): bounded, not compared
+            W = got.numel() // 3
+            assert (got[W : 2 * W] - want[name][W : 2 * W]).abs().max() <= 2 * 2 * 2 * lr, name
+            keep = torch.ones(3 * W, dtype=torch.bool)
+            keep[W : 2 * W] = False
+            got, want[name] = got[keep], want[name][keep]
+        # Adam divides each gradient element by its own magnitude: an element
+        # within rounding noise of 0 moves by what the noise sets, 5% of a step.
+        close = torch.isclose(got, want[name], rtol=STEP_RTOL, atol=STEP_ATOL + 0.05 * lr)
+        if name.startswith("t5_layers."):
+            # The fusion stack adds two discrete effects: a ReLU input within
+            # rounding of 0 is on in one framework and off in the other, and
+            # the unscaled logits' q / k gradients are the smallest of the
+            # model.  Measured: at most 2 elements of a tensor off, by 20% of
+            # a step.  Allowed: 1 element in 10^4, each within the two steps'
+            # bound.
+            assert (~close).sum().item() <= max(1, got.numel() // 10_000), name
+            assert (got - want[name]).abs().max() <= 2 * 2 * lr, name
+        else:
+            assert close.all(), f"{name}: {(got - want[name]).abs().max()}"
+
+
+def test_clip_ff_train_step_bf16_matches_jax(jax_ff_params):
+    """bf16 compute over fp32 parameters: JAX through Pallas K1 / K3
+    (interpret), the port through their twins; the fusion stack is an einsum
+    on both sides."""
+    import jax.numpy as jnp
+
+    batch = _batch()
+    loss, _, grads = _jax_ff_loss_and_grads(jax_ff_params, batch, jnp.bfloat16)
+    model = _port_ff(jax_ff_params, torch.bfloat16)
+    model.t5_layers.eval()
+    out = clip_loss(model, batch)
+    out["loss"].backward()
+    assert abs(out["loss"].item() - loss) <= BF16_LOSS_ATOL
+    for name, p in model.named_parameters():
+        assert p.dtype == torch.float32 and p.grad.dtype == torch.float32, name
+        assert _cosine(p.grad, grads[name]) >= BF16_MIN_COSINE, name
+
+
+def test_clip_ff_dropout_step_is_seeded_and_the_eval_step_deterministic(jax_ff_params):
+    from uniir_tpu_torch.train.steps import make_clip_eval_step
+
+    batch = _batch()
+    losses = []
+    for seed in (11, 11, 12):
+        model = _port_ff(jax_ff_params)
+        state = TrainState(model, *make_clip_optimizer(model, LR, TOTAL_STEPS, fusion_learning_rate=FUSION_LR))
+        step = make_clip_train_step(model, with_dropout=True, seed=seed)
+        state, first = step(state, dict(batch))
+        assert model.t5_layers.training
+        state, second = step(state, dict(batch))
+        losses.append((first["loss"].item(), second["loss"].item()))
+    assert losses[0] == losses[1] and losses[0] != losses[2]
+    plain = clip_loss(_port_ff(jax_ff_params).eval(), batch)["loss"].item()
+    assert losses[0][0] != plain  # dropout really acted
+    eval_step = make_clip_eval_step(model)
+    a, b = eval_step(dict(batch)), eval_step(dict(batch))
+    assert a["loss"].item() == b["loss"].item() and not model.t5_layers.training
+
+
+def test_clip_ff_remat_gives_the_same_loss_and_gradients(jax_ff_params):
+    batch = _batch(seed=2)
+    results = []
+    for remat in (False, True):
+        model = _port_ff(jax_ff_params, torch.bfloat16, remat=remat)
+        model.t5_layers.eval()
+        out = clip_loss(model, batch)
+        out["loss"].backward()
+        results.append((out["loss"].detach(), {n: p.grad for n, p in model.named_parameters()}))
+    (loss, grads), (loss_r, grads_r) = results
+    torch.testing.assert_close(loss_r, loss, rtol=0, atol=0)
+    for name, g in grads.items():
+        torch.testing.assert_close(grads_r[name], g, rtol=0, atol=0, msg=lambda m, name=name: f"{name}: {m}")
+
+
+def _ff_train_config(root, epochs, resume_from=""):
+    config = _train_config(root, epochs, resume_from)
+    config.model.name, config.model.short_name = "CLIPFeatureFusion", "TEST_FF"
+    config.model.clip_vision_model_name = "test-tiny-ff"
+    config.trainer_config.t5_learning_rate = 6e-3
+    return config
+
+
+def _ff_bundle():
+    from tests.helpers import identity_image_transform, simple_tokenizer
+    from uniir_tpu_torch.models.registry import seeded_clip_ff_train
+
+    tok = simple_tokenizer(max_len=FF_CFG.context_length, vocab_size=FF_CFG.vocab_size)
+    img_fn = identity_image_transform(FF_CFG.image_size)
+    model = seeded_clip_ff_train(FF_CFG, "cpu", seed=0, dtype=torch.float32)
+    return ModelBundle("CLIPFeatureFusion", model, tok, img_fn, img_fn, (FF_CFG.image_size,) * 2, FF_CFG.embed_dim)
+
+
+def test_trainer_trains_clip_ff_with_the_t5_group_and_serves(tmp_path):
+    from tests.helpers import build_mbeir_fixture, tiny_clip_merges
+    from uniir_tpu_torch.models.clip_ff import CLIPFeatureFusion
+    from uniir_tpu_torch.models.registry import build_model_from_config
+    from uniir_tpu_torch.train import trainer
+    from uniir_tpu_torch.train.steps import make_embed_step
+
+    root = str(tmp_path)
+    build_mbeir_fixture(os.path.join(root, "mbeir_data"), n_queries=16, n_cands=24)
+    with open(os.path.join(root, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in tiny_clip_merges()))
+
+    setup = trainer.build_train_setup(_ff_train_config(root, epochs=1), device="cpu")  # the model from the registry
+    model = setup["bundle"].model
+    assert isinstance(model, CLIPFeatureFusion) and all(p.dtype == torch.float32 for p in model.parameters())
+    assert model.training and model.dtype == torch.float32
+    assert [g["lr"] for g in setup["state"].optimizer.param_groups] == [3e-3, 3e-3, 6e-3, 6e-3]
+    fusion = {id(p) for p in model.t5_layers.parameters()}
+    assert {id(p) for g in setup["state"].optimizer.param_groups[2:] for p in g["params"]} == fusion
+
+    first = trainer.main(_ff_train_config(root, epochs=1), bundle=_ff_bundle())
+    ckpt_dir = os.path.join(root, "checkpoint/test")
+    assert os.path.isfile(os.path.join(ckpt_dir, "test_ff_epoch_0", CHECKPOINT_FILE))
+    assert first["state"].step == 2
+    assert first["state"].model.t5_layers.dropout.generator.initial_seed() == 2023  # the dropout's generator: config.seed
+    assert "val_loss" in first["stats"]
+    second = trainer.main(_ff_train_config(root, epochs=2, resume_from="test_ff_epoch_0"), bundle=_ff_bundle())
+    assert second["stats"]["epoch"] == 1 and second["state"].step == 4
+    assert [g["lr"] for g in second["state"].optimizer.param_groups][::2] == pytest.approx([0.0, 0.0])  # both cosines end
+
+    config = _ff_train_config(root, epochs=2)
+    config.model.ckpt_config.ckpt_name = "test_ff_epoch_1"
+    served = build_model_from_config(config, device="cpu")
+    for (name, p), q in zip(second["state"].model.named_parameters(), served.model.parameters()):
+        assert torch.equal(p, q), name
+    emb = make_embed_step(served.model)(_batch())
+    assert emb.shape == (8, FF_CFG.embed_dim) and torch.isfinite(emb.float()).all()
+
+
+def test_unported_training_options_raise():
+    from uniir_tpu_torch.train.trainer import build_train_setup
+
+    for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+            build_train_setup(Config.from_dict({"model": {"name": name}}))
+    # the T5 group is ported: a model without fusion parameters leaves it empty
+    optimizer, _ = make_clip_optimizer(CLIPScoreFusion(CFG), LR, TOTAL_STEPS, fusion_learning_rate=1e-4)
+    assert [len(g["params"]) > 0 for g in optimizer.param_groups] == [True, True, False, False]
 
 
 @pytest.fixture

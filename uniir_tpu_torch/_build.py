@@ -36,6 +36,7 @@ SIGNATURES = {
     "attention": {
         "uniir_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "uniir_attention_norm_first_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "uniir_attention_splitk_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "attention_bwd": {
         "uniir_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
@@ -52,6 +53,7 @@ SIGNATURES = {
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
         "uniir_bucket_max_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "uniir_bucket_max_i8b": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

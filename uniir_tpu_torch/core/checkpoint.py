@@ -5,8 +5,10 @@
   * `checkpoint.pth`: one torch file in the reference UniIR layout,
     {"model", "optimizer", "scheduler", "epoch", "config"} (reference
     clip_scorefusion/train.py:64-79; no GradScaler state, bf16 needs none),
-    whose `model` entry is the CLIP-SF state dict, so
-    `models.registry.load_torch_checkpoint` serves a trained checkpoint;
+    whose `model` entry is the module's state dict (CLIP-SF, or CLIP-FF's
+    `clip_model.*` / `t5_layers.*`), so `models.registry.
+    load_torch_checkpoint` / `load_clip_ff_checkpoint` serve a trained
+    checkpoint;
   * `meta.json`: the JAX package's marker {"epoch", "step", "items",
     "config"}, written last, so its presence means the checkpoint is whole.
 

@@ -1,4 +1,4 @@
-// K1, K8, K9: fused attention forward over model-native [B, L, H*D] bf16 tensors.
+// K1, K8, K9, K10: fused attention forward over model-native [B, L, H*D] bf16 tensors.
 //
 // K1 replaces uniir_tpu/ops/attention_pallas.py::mha_paired_stack
 // (_paired_stack_kernel), reached from uniir_tpu/models/layers.py:208-216 on
@@ -37,6 +37,25 @@
 // The row sum must be known before the first p is formed, so this variant
 // walks the keys three times (max; sum; p v): 2x the QK^T work.  Same tiles,
 // same shared-memory layout, same launch geometry as K1.
+//
+// K10 (attention_splitk_kernel) replaces _paired_stack_splitk_kernel of the
+// same file, which mha_paired_stack selects (UNIIR_ATTN_SPLITK=1) for a
+// non-causal call whose valid length is one past a multiple of 128: CLIP's
+// vision tower, L = 257.  It is K1's function with the last key taken out of
+// the tensor-core products and folded in as a rank-1 term, at these rounding
+// points (attention_pallas.py:352-403):
+//   * s_main = fp32 tensor-core scores over the first Km = l_valid - 1 keys,
+//     every column valid: no mask, and no padded key tile (K1 pads 257 keys
+//     to 272; 256 is 16 whole tiles),
+//   * s_last = the fp32 sum over the head's 64 lanes of bf16(q * k_last): each
+//     product is rounded to bf16 before the sum,
+//   * m = max(max(s_main), s_last); rsum = sum(exp(s_main - m)), then
+//     + exp(s_last - m),
+//   * o = (fp32(bf16(e) v_main) + fp32(bf16(bf16(e_last) * v_last))) / rsum.
+// On the TPU this saved a third 128-lane key tile; here it saves one
+// mostly-masked 16-key tile of 17 and the per-score mask selects, at the
+// price of a few CUDA-core products per row.  Same tiles and launch geometry
+// as K1; the last K and V rows sit in shared memory beside the main block.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -233,6 +252,156 @@ attention_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, con
   }
 }
 
+// K10: see the file header.  km = l_valid - 1 is a multiple of 128 (the
+// wrapper checks), so the main block is whole 16-key tiles.
+__global__ void __launch_bounds__(WARPS * 32)
+attention_splitk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                        bf16* __restrict__ o, int L, int H, int km, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [km][KS]
+  bf16* Vt = Ks + km * KS;                   // [D][VS], V transposed
+  const int VS = km + 8;
+  bf16* last = Vt + D * VS;                  // k_last[D], v_last[D]: row km of K and of V
+  const int W = H * D;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const size_t base = (size_t)b * L * W + (size_t)h * D;
+
+  for (int idx = threadIdx.x; idx < km * (D / 8); idx += blockDim.x) {
+    const int row = idx / (D / 8), c = idx % (D / 8);
+    *reinterpret_cast<uint4*>(Ks + row * KS + c * 8) = *reinterpret_cast<const uint4*>(k + base + (size_t)row * W + c * 8);
+    const uint4 vv = *reinterpret_cast<const uint4*>(v + base + (size_t)row * W + c * 8);
+    const bf16* ve = reinterpret_cast<const bf16*>(&vv);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) Vt[(c * 8 + i) * VS + row] = ve[i];
+  }
+  if (threadIdx.x < 2 * (D / 8)) {
+    const int which = threadIdx.x / (D / 8), c = threadIdx.x % (D / 8);
+    const bf16* src = which ? v : k;
+    *reinterpret_cast<uint4*>(last + which * D + c * 8) =
+        *reinterpret_cast<const uint4*>(src + base + (size_t)km * W + c * 8);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * QT + warp * 16;
+  if (q0 >= L) return;  // no block-wide barrier follows
+  const int row_lo = q0 + g, row_hi = q0 + g + 8;
+
+  // Q fragments, scaled and rounded to bf16 as in K1, and the last key's
+  // score: each q * k_last product is exact in fp32 (two 8-bit mantissas)
+  // and rounded to bf16 on its own before the fp32 sum over the 64 lanes.
+  uint32_t qa[D / 16][4];
+  float sl_lo = 0.f, sl_hi = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = (r & 1) ? row_hi : row_lo;
+      const int col = ks * 16 + 2 * t + ((r & 2) ? 8 : 0);
+      float lo = 0.f, hi = 0.f;
+      if (row < L) {
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(q + base + (size_t)row * W + col);
+        lo = __bfloat162float(x.x) * scale;
+        hi = __bfloat162float(x.y) * scale;
+      }
+      const __nv_bfloat162 qs = __floats2bfloat162_rn(lo, hi);
+      qa[ks][r] = *reinterpret_cast<const uint32_t*>(&qs);
+      const float p0 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(__bfloat162float(qs.x), __bfloat162float(last[col]))));
+      const float p1 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(__bfloat162float(qs.y), __bfloat162float(last[col + 1]))));
+      if (r & 1) sl_hi += p0 + p1; else sl_lo += p0 + p1;
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    sl_lo += __shfl_xor_sync(0xffffffffu, sl_lo, off);
+    sl_hi += __shfl_xor_sync(0xffffffffu, sl_hi, off);
+  }
+
+  // Pass 1: row maxima over the main block, then the last key's score.
+  float m_lo = -INFINITY, m_hi = -INFINITY;
+  for (int n0 = 0; n0 < km; n0 += 8) {
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    const bf16* kr = Ks + (n0 + g) * KS + 2 * t;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
+      mma_bf16_16816(s, qa[ks], b0, b1);
+    }
+    m_lo = fmaxf(m_lo, fmaxf(s[0], s[1]));
+    m_hi = fmaxf(m_hi, fmaxf(s[2], s[3]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, off));
+    m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, off));
+  }
+  m_lo = fmaxf(m_lo, sl_lo);
+  m_hi = fmaxf(m_hi, sl_hi);
+
+  // Pass 2: e = exp(s - m) in fp32, summed by row; bf16(e) feeds the PV product.
+  float l_lo = 0.f, l_hi = 0.f;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int n0 = 0; n0 < km; n0 += 16) {
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const bf16* kr = Ks + (n0 + 8 * j + g) * KS + 2 * t;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + ks * 16);
+        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + ks * 16 + 8);
+        mma_bf16_16816(s[j], qa[ks], b0, b1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - (e < 2 ? m_lo : m_hi));
+        if (e < 2) l_lo += s[j][e]; else l_hi += s[j][e];
+      }
+    }
+    const uint32_t pa[4] = {pack_bf16x2(s[0][0], s[0][1]), pack_bf16x2(s[0][2], s[0][3]),
+                            pack_bf16x2(s[1][0], s[1][1]), pack_bf16x2(s[1][2], s[1][3])};
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const bf16* vr = Vt + (dn * 8 + g) * VS + n0 + 2 * t;
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(vr);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(vr + 8);
+      mma_bf16_16816(acc[dn], pa, b0, b1);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  // The last key: its term joins the row sum after the main block's, and its
+  // value row enters as bf16(bf16(e_last) * v_last), one rounded product each.
+  const float e_lo = expf(sl_lo - m_lo), e_hi = expf(sl_hi - m_hi);
+  l_lo += e_lo;
+  l_hi += e_hi;
+  const float p_lo = __bfloat162float(__float2bfloat16_rn(e_lo)), p_hi = __bfloat162float(__float2bfloat16_rn(e_hi));
+  const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+  const bf16* v_last = last + D;
+#pragma unroll
+  for (int dn = 0; dn < D / 8; ++dn) {
+    const int col = dn * 8 + 2 * t;
+    const float v0 = __bfloat162float(v_last[col]), v1 = __bfloat162float(v_last[col + 1]);
+    const float t00 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_lo, v0)));
+    const float t01 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_lo, v1)));
+    const float t10 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_hi, v0)));
+    const float t11 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_hi, v1)));
+    if (row_lo < L)
+      *reinterpret_cast<uint32_t*>(o + base + (size_t)row_lo * W + col) =
+          pack_bf16x2(__fmul_rn(__fadd_rn(acc[dn][0], t00), inv_lo), __fmul_rn(__fadd_rn(acc[dn][1], t01), inv_lo));
+    if (row_hi < L)
+      *reinterpret_cast<uint32_t*>(o + base + (size_t)row_hi * W + col) =
+          pack_bf16x2(__fmul_rn(__fadd_rn(acc[dn][2], t10), inv_hi), __fmul_rn(__fadd_rn(acc[dn][3], t11), inv_hi));
+  }
+}
+
 // Shared memory the kernel needs at sequence length L (bytes); the wrapper
 // in ops/attention.py computes the same bound to refuse too long a sequence.
 int smem_bytes(int L) {
@@ -271,6 +440,21 @@ int uniir_attention_fwd(const void* q, const void* k, const void* v, void* o, in
 int uniir_attention_norm_first_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
                                    int l_valid, int causal, float scale, void* stream) {
   return launch<true>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+}
+
+// K10: as uniir_attention_fwd for a non-causal call with l_valid % 128 == 1
+// and l_valid > 128 (the wrapper checks); `scale` is bf16(scale) as for K1.
+int uniir_attention_splitk_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid,
+                               float scale, void* stream) {
+  const int km = l_valid - 1;
+  const int smem = km * KS * 2 + D * (km + 8) * 2 + 2 * D * 2;
+  cudaError_t err = cudaFuncSetAttribute(attention_splitk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + QT - 1) / QT, H, B);
+  attention_splitk_kernel<<<grid, WARPS * 32, smem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o), L, H,
+      km, scale);
+  return (int)cudaGetLastError();
 }
 
 const char* uniir_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

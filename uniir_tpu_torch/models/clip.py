@@ -1,20 +1,24 @@
 """CLIP towers in PyTorch (counterpart of uniir_tpu/models/clip.py).
 
   * vision: NHWC patch embedding (no bias), class token, learned positions,
-    ln_pre, pre-LN transformer with QuickGELU whose last block computes only
-    the CLS row, ln_post and projection;
-  * text: token and position embeddings, causal transformer whose last block
-    computes only the EOT row (EOT has the highest token id), ln_final and
-    text_projection.
+    ln_pre, pre-LN transformer with QuickGELU, ln_post and projection.
+    `pool="cls"` gives the pooled embedding (the last block computes only
+    the CLS row); `pool="none"` keeps all tokens, ln_post and the projection
+    applied to each (CLIP-FF's vision tower);
+  * text: token and position embeddings, causal transformer, ln_final.
+    `pool="eot"` gives the EOT token (the highest token id; the last block
+    computes only that row) through text_projection; `pool="none"` returns
+    ln_final of the whole sequence, and the tower then owns no
+    text_projection (CLIP-FF's text tower).
 
 Parameter names are OpenAI CLIP's.  Each tower computes in its `dtype`
 (flax's `dtype=`): it casts its input and the parameters it uses there, so
 fp32 parameters train with bf16 compute.  `quant` with `int8_mode` and
-`mlp_route` makes the blocks' Dense layers int8 (`models/layers.py`).  Initialisers mirror the JAX package's
+`mlp_route` makes the blocks' Dense layers int8 (`models/layers.py`), and
+`attn_splitk` makes K10 the attention forward of the vision tower where its
+length allows (L = 257).  Initialisers mirror the JAX package's
 (clip.py:115-121,144-146,169-173,195-197 and flax's lecun_normal / xavier
-defaults), so seeded ViT-L/14 activations stay finite in bf16.  Only the
-pooled towers (`pool="cls"` / `pool="eot"`) are ported: CLIP-FF's full-token
-outputs wait for that model.
+defaults), so seeded ViT-L/14 activations stay finite in bf16.
 """
 
 from __future__ import annotations
@@ -60,13 +64,8 @@ CLIP_CONFIGS = {
         vocab_size=128, context_length=16, text_width=32, text_layers=2, text_heads=2, embed_dim=16,
     ),
 }
-
-
-def _check_pool(pool: str, expected: str) -> None:
-    if pool != expected:
-        raise NotImplementedError(
-            f"pool={pool!r} (CLIP-FF's token outputs) is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 4)"
-        )
+# feature fusion needs text_width == embed_dim (like B/32's 512 and L/14's 768)
+CLIP_CONFIGS["test-tiny-ff"] = dataclasses.replace(CLIP_CONFIGS["test-tiny"], embed_dim=32)
 
 
 @torch.no_grad()
@@ -80,10 +79,10 @@ def _reset_transformer(transformer: Transformer, generator: Optional[torch.Gener
 
 class CLIPVisionTower(nn.Module):
     def __init__(self, cfg: CLIPConfig, pool: str = "cls", remat: bool = False, quant: bool = False,
-                 dtype: torch.dtype = torch.float32, int8_mode: str = "dynamic", mlp_route: str = "fused"):
+                 dtype: torch.dtype = torch.float32, int8_mode: str = "dynamic", mlp_route: str = "fused",
+                 attn_splitk: bool = False):
         super().__init__()
-        _check_pool(pool, "cls")
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.pool = cfg, dtype, pool
         W = cfg.vision_width
         n_tokens = (cfg.image_size // cfg.patch_size) ** 2 + 1
         self.conv1 = PatchEmbed(W, cfg.patch_size)
@@ -91,7 +90,7 @@ class CLIPVisionTower(nn.Module):
         self.positional_embedding = nn.Parameter(torch.empty(n_tokens, W))
         self.ln_pre = LayerNorm(W)
         self.transformer = Transformer(W, cfg.vision_layers, cfg.vision_heads, quant=quant, remat=remat,
-                                       int8_mode=int8_mode, mlp_route=mlp_route)
+                                       int8_mode=int8_mode, mlp_route=mlp_route, attn_splitk=attn_splitk)
         self.ln_post = LayerNorm(W)
         self.proj = nn.Parameter(torch.empty(W, cfg.embed_dim))
         self.reset_parameters()
@@ -107,13 +106,16 @@ class CLIPVisionTower(nn.Module):
         _reset_transformer(self.transformer, generator)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images: [B, H, W, 3] NHWC -> [B, embed_dim] in the compute dtype."""
+        """images: [B, H, W, 3] NHWC -> [B, embed_dim] in the compute dtype,
+        or with pool="none" every token: [B, L + 1, embed_dim]."""
         dtype = self.dtype
         x = self.conv1(images.to(dtype))
         B = x.shape[0]
         cls = self.class_embedding.to(dtype).expand(B, 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
         x = self.ln_pre(x)
+        if self.pool == "none":  # token sequence through ln_post and proj
+            return self.ln_post(self.transformer(x)) @ self.proj.to(dtype)
         # pooled tower: the last block only computes the CLS row (exact)
         x = self.transformer(x, pool_idx=torch.zeros(B, dtype=torch.long, device=x.device))
         return self.ln_post(x[:, 0]) @ self.proj.to(dtype)
@@ -123,30 +125,34 @@ class CLIPTextTower(nn.Module):
     def __init__(self, cfg: CLIPConfig, pool: str = "eot", remat: bool = False, quant: bool = False,
                  dtype: torch.dtype = torch.float32, int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
-        _check_pool(pool, "eot")
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.pool = cfg, dtype, pool
         W = cfg.text_width
         self.token_embedding = nn.Embedding(cfg.vocab_size, W)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, W))
         self.transformer = Transformer(W, cfg.text_layers, cfg.text_heads, causal=True, quant=quant, remat=remat,
                                        int8_mode=int8_mode, mlp_route=mlp_route)
         self.ln_final = LayerNorm(W)
-        self.text_projection = nn.Parameter(torch.empty(W, cfg.embed_dim))
+        if pool == "eot":  # the token-output tower has no projection
+            self.text_projection = nn.Parameter(torch.empty(W, cfg.embed_dim))
         CLIPTextTower.reset_parameters(self)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         nn.init.normal_(self.token_embedding.weight, 0.0, 0.02, generator=generator)
         nn.init.normal_(self.positional_embedding, 0.0, 0.01, generator=generator)
-        nn.init.normal_(self.text_projection, 0.0, self.cfg.text_width**-0.5, generator=generator)
+        if self.pool == "eot":
+            nn.init.normal_(self.text_projection, 0.0, self.cfg.text_width**-0.5, generator=generator)
         self.ln_final.reset_parameters()
         _reset_transformer(self.transformer, generator)
 
     def forward(self, text: torch.Tensor) -> torch.Tensor:
-        """text: [B, L] int token ids -> [B, embed_dim] in the compute dtype."""
+        """text: [B, L] int token ids -> [B, embed_dim] in the compute dtype,
+        or with pool="none" ln_final of every token: [B, L, text_width]."""
         dtype = self.dtype
         text = text.long()
         x = self.token_embedding(text).to(dtype) + self.positional_embedding.to(dtype)[: text.shape[1]]
+        if self.pool == "none":
+            return self.ln_final(self.transformer(x))
         eot = text.argmax(dim=-1)  # EOT has the highest token id
         # pooled tower: the last block only computes the EOT row (exact; it
         # attends to positions <= its own)

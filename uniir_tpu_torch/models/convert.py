@@ -14,8 +14,11 @@ moving JAX weights (numpy) into the port inverts those maps:
   * `temp` / `logit_scale` as 0-d tensors.
 
 `state_dict_from_jax` dispatches on the tree: CLIP-SF (float or quantised),
-BLIP-SF, a bare `MedBertModel` tree (with or without cross-attention and
-pooler) or a bare `BLIPVisionTransformer` tree.
+CLIP-FF (towers without `text_projection` under `clip_model.`, `t5_layers`
+with HF T5Stack's names), BLIP-SF, BLIP-FF (cross-attention and pooler
+kept, no projection heads), a bare `MedBertModel` tree (with or without
+cross-attention and pooler), a bare `BLIPVisionTransformer` tree or a bare
+`T5FusionStack` tree.
 
 A tree quantised by the JAX package's `quantize_tree` converts too, onto the
 state dict of the port's int8 modules, so both packages run the same int8
@@ -127,15 +130,60 @@ def _med_bert(tree: dict, prefix: str = "") -> dict:
     return out
 
 
-def _blip_sf(params_np: dict) -> dict:
-    """BLIPScoreFusion params -> BLIP names (inverse of `convert_blip_sf_params`)."""
-    return {
+def _blip(params_np: dict) -> dict:
+    """BLIPScoreFusion / BLIPFeatureFusion params -> BLIP names (inverse of
+    `convert_blip_sf_params` / `convert_blip_ff_params`; only score fusion
+    has the projection heads)."""
+    out = {
         **_blip_vit(params_np["visual_encoder"], "visual_encoder."),
         **_med_bert(params_np["text_encoder"], "text_encoder."),
-        **_dense(params_np["vision_proj"], "vision_proj"),
-        **_dense(params_np["text_proj"], "text_proj"),
         "temp": np.asarray(params_np["temp"]).reshape(()),
     }
+    for head in ("vision_proj", "text_proj"):
+        if head in params_np:
+            out.update(_dense(params_np[head], head))
+    return out
+
+
+def _t5_stack(tree: dict, prefix: str = "") -> dict:
+    """T5FusionStack params -> HF T5Stack names (inverse of `convert_t5_fusion_params`)."""
+    out = {f"{prefix}final_layer_norm.weight": tree["final_ln"]["weight"]}
+    i = 0
+    while f"block_{i}" in tree:
+        blk, p = tree[f"block_{i}"], f"{prefix}block.{i}"
+        for name in ("q", "k", "v", "o"):
+            out[f"{p}.layer.0.SelfAttention.{name}.weight"] = _t(blk["attn"][name]["kernel"])
+        if "relative_attention_bias" in blk["attn"]:
+            out[f"{p}.layer.0.SelfAttention.relative_attention_bias.weight"] = blk["attn"]["relative_attention_bias"]
+        out[f"{p}.layer.0.layer_norm.weight"] = blk["attn_ln"]["weight"]
+        out[f"{p}.layer.1.DenseReluDense.wi.weight"] = _t(blk["wi"]["kernel"])
+        out[f"{p}.layer.1.DenseReluDense.wo.weight"] = _t(blk["wo"]["kernel"])
+        out[f"{p}.layer.1.layer_norm.weight"] = blk["ff_ln"]["weight"]
+        i += 1
+    return out
+
+
+def _clip(params_np: dict, prefix: str = "") -> dict:
+    """CLIP towers and logit_scale -> OpenAI CLIP names under `prefix`; the
+    token-output text tower of CLIP-FF has no `text_projection`."""
+    vis, txt = params_np["visual"], params_np["text"]
+    sd = {
+        f"{prefix}visual.conv1.weight": np.transpose(np.asarray(vis["conv1"]["proj"]["kernel"]), (3, 2, 0, 1)),
+        f"{prefix}visual.class_embedding": vis["class_embedding"],
+        f"{prefix}visual.positional_embedding": vis["positional_embedding"],
+        f"{prefix}visual.proj": vis["proj"],
+        **_ln(vis["ln_pre"], f"{prefix}visual.ln_pre"),
+        **_ln(vis["ln_post"], f"{prefix}visual.ln_post"),
+        **_resblocks(vis["transformer"], f"{prefix}visual.transformer"),
+        f"{prefix}token_embedding.weight": txt["token_embedding"],
+        f"{prefix}positional_embedding": txt["positional_embedding"],
+        **_ln(txt["ln_final"], f"{prefix}ln_final"),
+        **_resblocks(txt["transformer"], f"{prefix}transformer"),
+        f"{prefix}logit_scale": params_np["logit_scale"],
+    }
+    if "text_projection" in txt:
+        sd[f"{prefix}text_projection"] = txt["text_projection"]
+    return sd
 
 
 def _tensors(sd: dict) -> Dict[str, torch.Tensor]:
@@ -147,29 +195,18 @@ def _tensors(sd: dict) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_jax(params_np) -> Dict[str, torch.Tensor]:
     """JAX params (numpy leaves) -> the state dict of the port's module of
-    the same name: CLIPScoreFusion (float or quantised), BLIPScoreFusion, a
-    bare MedBertModel or a bare BLIPVisionTransformer tree (fp32; int8 for
+    the same name: CLIPScoreFusion (float or quantised), CLIPFeatureFusion,
+    BLIPScoreFusion, BLIPFeatureFusion, a bare MedBertModel, a bare
+    BLIPVisionTransformer or a bare T5FusionStack tree (fp32; int8 for
     `weight_q`)."""
     if "visual_encoder" in params_np:
-        return _tensors(_blip_sf(params_np))
+        return _tensors(_blip(params_np))
     if "word_embeddings" in params_np:
         return _tensors(_med_bert(params_np))
     if "patch_embed" in params_np:
         return _tensors(_blip_vit(params_np))
-    vis, txt = params_np["visual"], params_np["text"]
-    sd = {
-        "visual.conv1.weight": np.transpose(np.asarray(vis["conv1"]["proj"]["kernel"]), (3, 2, 0, 1)),
-        "visual.class_embedding": vis["class_embedding"],
-        "visual.positional_embedding": vis["positional_embedding"],
-        "visual.proj": vis["proj"],
-        **_ln(vis["ln_pre"], "visual.ln_pre"),
-        **_ln(vis["ln_post"], "visual.ln_post"),
-        **_resblocks(vis["transformer"], "visual.transformer"),
-        "token_embedding.weight": txt["token_embedding"],
-        "positional_embedding": txt["positional_embedding"],
-        "text_projection": txt["text_projection"],
-        **_ln(txt["ln_final"], "ln_final"),
-        **_resblocks(txt["transformer"], "transformer"),
-        "logit_scale": params_np["logit_scale"],
-    }
-    return _tensors(sd)
+    if "final_ln" in params_np:
+        return _tensors(_t5_stack(params_np))
+    if "t5_layers" in params_np:
+        return _tensors({**_clip(params_np, "clip_model."), **_t5_stack(params_np["t5_layers"], "t5_layers.")})
+    return _tensors(_clip(params_np))

@@ -12,7 +12,8 @@ bf16 (serving casts the parameters once instead, with the same values).
 LayerNorm statistics are fp32 with eps 1e-6 (flax's default; MED's BERT
 layers pass 1e-12), softmax is
 fp32, and bf16 self-attention goes through the differentiable
-`ops.attention.attention` (kernels K1 forward, K3 backward).
+`ops.attention.attention` (kernels K1 forward, K3 backward; with
+`attn_splitk` K10 is the forward at the lengths it takes, CLIP's L = 257).
 `Transformer(remat=True)` recomputes each block in the backward pass
 (`torch.utils.checkpoint`, the counterpart of `nn.remat`).
 
@@ -134,9 +135,9 @@ class MultiHeadAttention(nn.Module, _ActScales):
     contiguous; calibrated `act_scales` = [a_qkv, a_out] make both static."""
 
     def __init__(self, width: int, num_heads: int, causal: bool = False, quant: bool = False,
-                 int8_mode: str = "dynamic"):
+                 int8_mode: str = "dynamic", attn_splitk: bool = False):
         super().__init__()
-        self.width, self.num_heads, self.causal = width, num_heads, causal
+        self.width, self.num_heads, self.causal, self.attn_splitk = width, num_heads, causal, attn_splitk
         self.quant, self.int8_mode = quant, int8_mode
         if quant:
             self.qkv_proj = quant_ops.QuantLinear(width, 3 * width, mode=int8_mode)
@@ -179,7 +180,7 @@ class MultiHeadAttention(nn.Module, _ActScales):
         head_dim = self.width // self.num_heads
         scale = head_dim**-0.5
         if kv is None and mask is None and q.dtype == torch.bfloat16:
-            return out_proj(attention(q, k, v, self.num_heads, scale, self.causal))
+            return out_proj(attention(q, k, v, self.num_heads, scale, self.causal, splitk=self.attn_splitk))
 
         B, Lq, Lk = x.shape[0], q.shape[1], k.shape[1]
         if self.causal and mask is None:
@@ -253,10 +254,11 @@ class TransformerBlock(nn.Module):
     """Pre-LN residual block (CLIP's ResidualAttentionBlock)."""
 
     def __init__(self, width: int, num_heads: int, causal: bool = False, quant: bool = False,
-                 int8_mode: str = "dynamic", mlp_route: str = "fused"):
+                 int8_mode: str = "dynamic", mlp_route: str = "fused", attn_splitk: bool = False):
         super().__init__()
         self.causal = causal
-        self.attn = MultiHeadAttention(width, num_heads, causal=causal, quant=quant, int8_mode=int8_mode)
+        self.attn = MultiHeadAttention(width, num_heads, causal=causal, quant=quant, int8_mode=int8_mode,
+                                       attn_splitk=attn_splitk)
         self.ln_1 = LayerNorm(width)
         self.mlp = MLP(width, 4 * width, quant=quant, int8_mode=int8_mode, mlp_route=mlp_route)
         self.ln_2 = LayerNorm(width)
@@ -287,13 +289,14 @@ class Transformer(nn.Module):
     there (every block, as `nn.remat(TransformerBlock)` at layers.py:400)."""
 
     def __init__(self, width: int, layers: int, num_heads: int, causal: bool = False, quant: bool = False,
-                 remat: bool = False, int8_mode: str = "dynamic", mlp_route: str = "fused"):
+                 remat: bool = False, int8_mode: str = "dynamic", mlp_route: str = "fused", attn_splitk: bool = False):
         super().__init__()
         if quant and remat:
             raise ValueError("int8 layers are inference only: quant and remat do not combine")
         self.remat = remat
         self.resblocks = nn.ModuleList(
-            TransformerBlock(width, num_heads, causal=causal, quant=quant, int8_mode=int8_mode, mlp_route=mlp_route)
+            TransformerBlock(width, num_heads, causal=causal, quant=quant, int8_mode=int8_mode, mlp_route=mlp_route,
+                             attn_splitk=attn_splitk)
             for _ in range(layers)
         )
 

@@ -1,7 +1,9 @@
-"""Model registry (counterpart of uniir_tpu/models/registry.py): CLIP-SF and BLIP-SF.
+"""Model registry (counterpart of uniir_tpu/models/registry.py): the four
+retrievers, CLIP-SF, CLIP-FF, BLIP-SF and BLIP-FF.
 
-`build_clip_sf` / `build_blip_sf` return a `ModelBundle`: the module on its
-device, the tokenizer and the image transforms.  The device is the CUDA
+`build_clip_sf` / `build_clip_ff` / `build_blip_sf` / `build_blip_ff` return
+a `ModelBundle`: the module on its device, the tokenizer and the image
+transforms.  The device is the CUDA
 card unless the caller names one: with no card and no device named the
 build raises (`core.device.resolve_device`).  For serving the parameters are cast
 once to the compute dtype; for training (`train=True`) they stay fp32
@@ -14,13 +16,21 @@ quantised into the int8 serving twin (`quantize_clip_sf`); the activation
 mode and the static MLP route are read from the environment once, here
 (`UNIIR_INT8_BACKEND`, `UNIIR_INT8_MLP`; see `ops/quant.py`), and
 `model.int8_calibration` names the .npz of calibrated activation scales the
-static mode needs.
+static mode needs.  `UNIIR_ATTN_SPLITK=1` is read here too, once, and handed
+to the CLIP models as `attn_splitk`: the vision tower's attention forward is
+then kernel K10 (`ops/attention.py`).
+
+CLIP-FF (`build_clip_ff`) serves and trains; a `.pt` / `.pth` in the UniIR
+CLIP-FF layout (`clip_model.*`, `t5_layers.*`) or a bare OpenAI CLIP state
+dict (towers only; the fusion stack stays seeded) loads through
+`load_clip_ff_checkpoint`, `text_projection` dropped either way.
 
 BLIP-SF (`build_blip_sf`) reads `vit`, `image_size`, `embed_dim`,
 `tokenizer_max_length` and `bert_vocab_path` from the config; a missing
 vocabulary path raises FileNotFoundError.  A BLIP `.pth` state dict loads
-through `load_blip_checkpoint`.  `model.int8` on a BLIP model, BLIP
-training, CLIP-FF and BLIP-FF raise until they are ported.
+through `load_blip_checkpoint`, which for BLIP-FF (`build_blip_ff`) keeps
+the cross-attention and pooler keys that BLIP-SF drops.  `model.int8` on
+CLIP-FF or a BLIP model and BLIP training raise until they are ported.
 """
 
 from __future__ import annotations
@@ -38,12 +48,15 @@ from uniir_tpu_torch.core.device import resolve_device
 from uniir_tpu_torch.data.preprocess import blip_transform, clip_transform
 from uniir_tpu_torch.data.tokenizers.bert_wordpiece import BertTokenizer
 from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
+from uniir_tpu_torch.models.blip_ff import BLIPFeatureFusion
 from uniir_tpu_torch.models.blip_sf import BLIPScoreFusion
 from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS, BLIPViTConfig
 from uniir_tpu_torch.models.clip import CLIP_CONFIGS, CLIPConfig
+from uniir_tpu_torch.models.clip_ff import CLIPFeatureFusion
 from uniir_tpu_torch.models.clip_sf import CLIPScoreFusion
 from uniir_tpu_torch.models.layers import interpolate_pos_embed
 from uniir_tpu_torch.models.med import MED_CONFIGS, MedConfig
+from uniir_tpu_torch.ops.attention import attn_splitk_from_env
 from uniir_tpu_torch.ops.calibrate import act_scales_by_module, load_act_scales
 from uniir_tpu_torch.ops.quant import (
     int8_mlp_route_from_env,
@@ -88,13 +101,37 @@ def seeded_blip_sf(vit_cfg: BLIPViTConfig, med_cfg: MedConfig, device, seed: int
     return model.to_compute_dtype(dtype).eval()
 
 
-def seeded_clip_sf(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16) -> CLIPScoreFusion:
+def seeded_blip_ff(vit_cfg: BLIPViTConfig, med_cfg: MedConfig, device, seed: int = 0,
+                   dtype: torch.dtype = torch.bfloat16, embed_dim: int = 768) -> BLIPFeatureFusion:
+    """BLIP-FF for serving: weights drawn from `seed` on `device`, cast to `dtype`."""
+    model = _seeded_module(lambda: BLIPFeatureFusion(vit_cfg, med_cfg, embed_dim), device, seed)
+    return model.to_compute_dtype(dtype).eval()
+
+
+def seeded_clip_sf(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                   attn_splitk: bool = False) -> CLIPScoreFusion:
     """CLIP-SF for serving: weights drawn from `seed` on `device`, cast to `dtype`."""
-    return _seeded(cfg, device, seed).to_compute_dtype(dtype).eval()
+    return _seeded(cfg, device, seed, attn_splitk=attn_splitk).to_compute_dtype(dtype).eval()
+
+
+def seeded_clip_ff(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                   attn_splitk: bool = False) -> CLIPFeatureFusion:
+    """CLIP-FF for serving: weights drawn from `seed` on `device`, cast to `dtype`."""
+    model = _seeded_module(lambda: CLIPFeatureFusion(cfg, attn_splitk=attn_splitk), device, seed)
+    return model.to_compute_dtype(dtype).eval()
+
+
+def seeded_clip_ff_train(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+                         remat: bool = False, attn_splitk: bool = False) -> CLIPFeatureFusion:
+    """CLIP-FF for training: fp32 master weights drawn from `seed` on
+    `device`, computing in `dtype`, with per-block recomputation of the
+    towers if `remat` (the fusion stack is never recomputed)."""
+    factory = lambda: CLIPFeatureFusion(cfg, remat=remat, dtype=dtype, attn_splitk=attn_splitk)  # noqa: E731
+    return _seeded_module(factory, device, seed).train()
 
 
 def quantize_clip_sf(model: CLIPScoreFusion, int8_mode: str = "dynamic", mlp_route: str = "fused",
-                     act_scales: Optional[dict] = None) -> CLIPScoreFusion:
+                     act_scales: Optional[dict] = None, attn_splitk: bool = False) -> CLIPScoreFusion:
     """The int8 serving twin of a float CLIP-SF, on its device, computing in
     its dtype: every block's Dense weights quantised per output channel from
     the model's weights as they are (quantise before `to_compute_dtype` to
@@ -103,18 +140,20 @@ def quantize_clip_sf(model: CLIPScoreFusion, int8_mode: str = "dynamic", mlp_rou
     device = next(model.parameters()).device
     state = quantize_state_dict(model.state_dict(), None if act_scales is None else act_scales_by_module(act_scales))
     with torch.device("meta"):
-        twin = CLIPScoreFusion(model.cfg, quant=True, dtype=model.dtype, int8_mode=int8_mode, mlp_route=mlp_route)
+        twin = CLIPScoreFusion(model.cfg, quant=True, dtype=model.dtype, int8_mode=int8_mode, mlp_route=mlp_route,
+                               attn_splitk=attn_splitk)
     twin = twin.to_empty(device=device)
     load_quantized_state_dict(twin, state)
     return twin.eval()
 
 
 def seeded_clip_sf_train(
-    cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16, remat: bool = False
+    cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16, remat: bool = False,
+    attn_splitk: bool = False,
 ) -> CLIPScoreFusion:
     """CLIP-SF for training: fp32 master weights drawn from `seed` on
     `device`, computing in `dtype`, with per-block recomputation if `remat`."""
-    return _seeded(cfg, device, seed, dtype=dtype, remat=remat).train()
+    return _seeded(cfg, device, seed, dtype=dtype, remat=remat, attn_splitk=attn_splitk).train()
 
 
 def _strip(sd: dict) -> dict:
@@ -127,14 +166,34 @@ def _strip(sd: dict) -> dict:
     return out
 
 
-def load_torch_checkpoint(model: CLIPScoreFusion, path: str) -> None:
-    """Load an OpenAI CLIP / UniIR CLIP-SF state dict (.pt / .pth) into the module."""
+def _read_state_dict(path: str) -> dict:
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"], dict):
         sd = sd["model"]
+    return sd
+
+
+def load_torch_checkpoint(model: CLIPScoreFusion, path: str) -> None:
+    """Load an OpenAI CLIP / UniIR CLIP-SF state dict (.pt / .pth) into the module."""
     wanted = model.state_dict()
-    sd = {k: v for k, v in _strip(sd).items() if k in wanted}
+    sd = {k: v for k, v in _strip(_read_state_dict(path)).items() if k in wanted}
     model.load_state_dict(sd, strict=True)
+
+
+def load_clip_ff_checkpoint(model: CLIPFeatureFusion, path: str) -> None:
+    """Load a state dict (.pt / .pth) into CLIP-FF: the UniIR CLIP-FF layout
+    (`clip_model.*` and `t5_layers.*`; also the port's own train checkpoint),
+    every parameter required, or a bare OpenAI CLIP / CLIP-SF state dict,
+    which fills the towers and logit_scale and leaves the fusion stack as it
+    is.  A `text_projection` key is dropped, never loaded: the token-output
+    text tower has none."""
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in _read_state_dict(path).items()}
+    if any(k.startswith(("clip_model.", "t5_layers.")) for k in sd):
+        wanted = model.state_dict()
+        model.load_state_dict({k: v for k, v in sd.items() if k in wanted}, strict=True)
+    else:
+        wanted = model.clip_model.state_dict()
+        model.clip_model.load_state_dict({k: v for k, v in sd.items() if k in wanted}, strict=True)
 
 
 def _int8_settings(model_config):
@@ -177,32 +236,7 @@ def _checkpoint_paths(config, train: bool) -> list:
     return out
 
 
-def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
-    model_config = config.model
-    cfg = CLIP_CONFIGS[model_config.clip_vision_model_name]
-    int8 = bool(getattr(model_config, "int8", False))
-    if int8 and train:
-        raise ValueError("model.int8 is a serving mode: int8 layers do not train")
-    int8_settings = _int8_settings(model_config) if int8 else None
-    device = resolve_device(device)
-    dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
-    seed = int(getattr(config, "seed", 0))
-    if train:
-        model = seeded_clip_sf_train(cfg, device, seed, dtype, remat=bool(getattr(model_config, "remat", False)))
-    elif int8:
-        model = _seeded(cfg, device, seed)  # fp32 until quantised: the weights quantise from fp32
-    else:
-        model = seeded_clip_sf(cfg, device, seed, dtype)
-
-    for path in _checkpoint_paths(config, train):
-        load_torch_checkpoint(model, path)
-        print(f"Loaded CLIPScoreFusion weights from {path}")
-
-    if int8:
-        mode, route, act_scales = int8_settings
-        model = quantize_clip_sf(model, mode, route, act_scales).to_compute_dtype(dtype)
-        print(f"Quantized CLIPScoreFusion to int8 serving mode ({mode})")
-
+def _clip_bundle(name: str, model, model_config, cfg: CLIPConfig) -> ModelBundle:
     tokenizer = CLIPTokenizer(bpe_path=getattr(model_config, "clip_bpe_path", None))
 
     def tokenizer_wrapper(txts):
@@ -210,7 +244,7 @@ def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
 
     transform = clip_transform(cfg.image_size)
     return ModelBundle(
-        name="CLIPScoreFusion",
+        name=name,
         model=model,
         tokenizer=tokenizer_wrapper,
         img_preprocess_fn=transform,
@@ -220,32 +254,84 @@ def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     )
 
 
-# Keys of a published BLIP-SF checkpoint that the module does not take, by
-# construction (the JAX converter's expected-unused list): momentum twins and
-# queues (train state), HF buffers, the token-type table (folded into the
-# positions), pretraining heads, the frozen cross-attention and the pooler
-# that score fusion never runs.
-_BLIP_SF_UNUSED = (
+def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
+    model_config = config.model
+    cfg = CLIP_CONFIGS[model_config.clip_vision_model_name]
+    int8 = bool(getattr(model_config, "int8", False))
+    if int8 and train:
+        raise ValueError("model.int8 is a serving mode: int8 layers do not train")
+    int8_settings = _int8_settings(model_config) if int8 else None
+    splitk = attn_splitk_from_env()
+    device = resolve_device(device)
+    dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
+    seed = int(getattr(config, "seed", 0))
+    if train:
+        model = seeded_clip_sf_train(cfg, device, seed, dtype, remat=bool(getattr(model_config, "remat", False)),
+                                     attn_splitk=splitk)
+    elif int8:
+        model = _seeded(cfg, device, seed)  # fp32 until quantised: the weights quantise from fp32
+    else:
+        model = seeded_clip_sf(cfg, device, seed, dtype, attn_splitk=splitk)
+
+    for path in _checkpoint_paths(config, train):
+        load_torch_checkpoint(model, path)
+        print(f"Loaded CLIPScoreFusion weights from {path}")
+
+    if int8:
+        mode, route, act_scales = int8_settings
+        model = quantize_clip_sf(model, mode, route, act_scales, attn_splitk=splitk).to_compute_dtype(dtype)
+        print(f"Quantized CLIPScoreFusion to int8 serving mode ({mode})")
+    return _clip_bundle("CLIPScoreFusion", model, model_config, cfg)
+
+
+def build_clip_ff(config, device=None, train: bool = False) -> ModelBundle:
+    model_config = config.model
+    cfg = CLIP_CONFIGS[model_config.clip_vision_model_name]
+    if getattr(model_config, "int8", False):
+        raise NotImplementedError(
+            "model.int8 for CLIPFeatureFusion is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 4)"
+        )
+    splitk = attn_splitk_from_env()
+    device = resolve_device(device)
+    dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
+    seed = int(getattr(config, "seed", 0))
+    if train:
+        model = seeded_clip_ff_train(cfg, device, seed, dtype, remat=bool(getattr(model_config, "remat", False)),
+                                     attn_splitk=splitk)
+    else:
+        model = seeded_clip_ff(cfg, device, seed, dtype, attn_splitk=splitk)
+    for path in _checkpoint_paths(config, train):
+        load_clip_ff_checkpoint(model, path)
+        print(f"Loaded CLIPFeatureFusion weights from {path}")
+    return _clip_bundle("CLIPFeatureFusion", model, model_config, cfg)
+
+
+# Keys of a published BLIP checkpoint that no module takes, by construction
+# (the JAX converter's expected-unused list): momentum twins and queues
+# (train state), HF buffers, the token-type table (folded into the
+# positions), pretraining heads.  Score fusion also never runs the frozen
+# cross-attention and the pooler, which feature fusion takes.
+_BLIP_UNUSED = (
     r"_m\.", r"^(vision_proj_m|text_proj_m)\.", r"(^|\.)(image|text|idx|query|cand|ptr)_queue$", r"^queue_ptr$",
     r"\.position_ids$", r"\.token_type_embeddings\.weight$", r"^(itm_head|text_decoder)\.",
-    r"^text_encoder\.encoder\.layer\.\d+\.crossattention\.", r"^text_encoder\.pooler\.",
 )
+_BLIP_SF_UNUSED = _BLIP_UNUSED + (r"^text_encoder\.encoder\.layer\.\d+\.crossattention\.", r"^text_encoder\.pooler\.")
 
 
-def load_blip_checkpoint(model: BLIPScoreFusion, path: str, strict: bool = False) -> None:
-    """Load a BLIP / UniIR BLIP-SF state dict (.pth) into the module.
+def load_blip_checkpoint(model, path: str, strict: bool = False) -> None:
+    """Load a BLIP / UniIR BLIP state dict (.pth) into a BLIPScoreFusion or
+    BLIPFeatureFusion module.
 
-    `module.` prefixes are stripped; cross-attention, momentum and queue keys
-    are dropped, as the JAX converter ignores them; row 0 of the token-type
+    `module.` prefixes are stripped; momentum and queue keys are dropped, as
+    the JAX converter ignores them, and so are the cross-attention and pooler
+    keys for score fusion (feature fusion takes them); row 0 of the token-type
     table is added to every position embedding (BLIP always passes token
     type 0, and the module has no such table); `pos_embed` is interpolated
     when the checkpoint's patch grid differs from the model's.  A key that is
     neither taken nor expected-unused is reported, and is an error with
     `strict`; a parameter the checkpoint lacks is always an error."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(sd, dict) and "model" in sd and isinstance(sd["model"], dict):
-        sd = sd["model"]
-    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in sd.items()}
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v for k, v in _read_state_dict(path).items()}
+    unused = _BLIP_UNUSED if isinstance(model, BLIPFeatureFusion) else _BLIP_SF_UNUSED
     pos_key, tt_key = "text_encoder.embeddings.position_embeddings.weight", "text_encoder.embeddings.token_type_embeddings.weight"
     if tt_key in sd:
         sd[pos_key] = sd[pos_key] + sd[tt_key][0][None, :]
@@ -253,7 +339,7 @@ def load_blip_checkpoint(model: BLIPScoreFusion, path: str, strict: bool = False
     n_tokens = wanted["visual_encoder.pos_embed"].shape[1]
     if sd["visual_encoder.pos_embed"].shape[1] != n_tokens:
         sd["visual_encoder.pos_embed"] = interpolate_pos_embed(sd["visual_encoder.pos_embed"].float(), n_tokens - 1)
-    unexpected = [k for k in sd if k not in wanted and not any(re.search(p, k) for p in _BLIP_SF_UNUSED)]
+    unexpected = [k for k in sd if k not in wanted and not any(re.search(p, k) for p in unused)]
     if unexpected:
         detail = "\n  ".join(unexpected[:40])
         if strict:
@@ -264,10 +350,18 @@ def load_blip_checkpoint(model: BLIPScoreFusion, path: str, strict: bool = False
 
 
 def build_blip_sf(config, device=None, train: bool = False) -> ModelBundle:
+    return _build_blip(config, "BLIPScoreFusion", seeded_blip_sf, device, train)
+
+
+def build_blip_ff(config, device=None, train: bool = False) -> ModelBundle:
+    return _build_blip(config, "BLIPFeatureFusion", seeded_blip_ff, device, train)
+
+
+def _build_blip(config, name: str, seeded: Callable, device, train: bool) -> ModelBundle:
     model_config = config.model
     if train:
         raise NotImplementedError(
-            "training BLIPScoreFusion (momentum distillation) is not ported to uniir_tpu_torch yet "
+            f"training {name} (momentum distillation) is not ported to uniir_tpu_torch yet "
             "(ROADMAP.md, Queue 1 item 5)"
         )
     if getattr(model_config, "int8", False):
@@ -290,13 +384,13 @@ def build_blip_sf(config, device=None, train: bool = False) -> ModelBundle:
         return tokenizer(txts, max_length=max_len)
 
     device = resolve_device(device)
-    model = seeded_blip_sf(vit_cfg, med_cfg, device, int(getattr(config, "seed", 0)), dtype, embed_dim)
+    model = seeded(vit_cfg, med_cfg, device, int(getattr(config, "seed", 0)), dtype, embed_dim)
     strict = bool(getattr(model_config, "strict_convert", False))
     for path in _checkpoint_paths(config, train):
         load_blip_checkpoint(model, path, strict=strict)
-        print(f"Loaded BLIPScoreFusion weights from {path}")
+        print(f"Loaded {name} weights from {path}")
     return ModelBundle(
-        name="BLIPScoreFusion",
+        name=name,
         model=model,
         tokenizer=tokenizer_wrapper,
         img_preprocess_fn=blip_transform(vit_cfg.image_size, is_train=True),
@@ -310,8 +404,10 @@ def build_model_from_config(config, device=None, train: bool = False) -> ModelBu
     name = config.model.name
     if name == "CLIPScoreFusion":
         return build_clip_sf(config, device, train)
+    if name == "CLIPFeatureFusion":
+        return build_clip_ff(config, device, train)
     if name == "BLIPScoreFusion":
         return build_blip_sf(config, device, train)
-    if name in MODEL_NAMES:
-        raise NotImplementedError(f"{name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 items 4-5)")
+    if name == "BLIPFeatureFusion":
+        return build_blip_ff(config, device, train)
     raise ValueError(f"Unknown model name {name!r}; expected one of {MODEL_NAMES}")

@@ -1,4 +1,4 @@
-"""Fused attention over model-native [B, L, H*D] tensors: kernels K1, K3, K8, K9.
+"""Fused attention over model-native [B, L, H*D] tensors: kernels K1, K3, K8, K9, K10.
 
 `attention` is the one op the transformer blocks call for bf16
 self-attention.  It is differentiable: a `torch.autograd.Function` whose
@@ -11,6 +11,14 @@ its plain PyTorch twin (`attention_reference`, `attention_bwd_reference`).
 `attention_twin` is the same Function over the twins on any device: the
 reference the kernels are held against.
 
+With `splitk=True` (the JAX package's `UNIIR_ATTN_SPLITK=1`) a non-causal
+call whose valid length is one past a multiple of 128 -- CLIP's vision
+tower, L = 257 -- takes K10 as its forward (`attention_splitk`, the
+counterpart of `_paired_stack_splitk_kernel`): K1's function with the last
+key folded in as a rank-1 term at other rounding points, with the plain twin
+`attention_splitk_reference`.  Every other call runs K1, as
+`mha_paired_stack` does; the backward stays K3 either way.
+
 `mha_nocausal` (K8, over [B, L, H, D]) and `mha_paired` (K9, over
 [B, L, H*D], optionally causal) are the counterparts of the JAX package's
 stand-alone Pallas kernels of those names.  They compute K1's function with
@@ -22,6 +30,7 @@ NORM_FIRST variant of `csrc/attention.cu`, with the plain twin
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import torch
@@ -99,6 +108,96 @@ def attention_reference(
     inv = (1.0 / e.sum(-1, keepdim=True)).permute(0, 2, 1, 3)  # [B, Lq, H, 1]
     o = torch.einsum("bhqk,bkhd->bqhd", e.to(torch.bfloat16).float(), vf) * inv
     return o.reshape(B, L, W).to(q.dtype)
+
+
+def attn_splitk_from_env() -> bool:
+    """`UNIIR_ATTN_SPLITK` (the JAX package's opt-in, default "0"): "1" makes
+    K10 the forward of the attention calls it takes.  Read once, where a
+    model is built (`models/registry.py`)."""
+    value = os.environ.get("UNIIR_ATTN_SPLITK", "0")
+    if value not in ("0", "1"):
+        raise ValueError(f"UNIIR_ATTN_SPLITK must be 0 or 1, got {value!r}")
+    return value == "1"
+
+
+def splitk_applies(l_valid: int, causal: bool) -> bool:
+    """The shapes `mha_paired_stack` gives its split-K kernel
+    (attention_pallas.py:466-472, without the flag)."""
+    return not causal and l_valid % 128 == 1 and l_valid > 128
+
+
+def attention_splitk_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: Optional[float] = None,
+    l_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch twin of K10, with the rounding points of
+    `_paired_stack_splitk_kernel` (attention_pallas.py:352-403).
+
+    qs = bf16(q * bf16(scale)); s_main = fp32 scores over the first Km =
+    l_valid - 1 keys, unmasked; s_last = the fp32 sum over a head's lanes of
+    bf16(qs * k_last), each product rounded to bf16; m = max(max(s_main),
+    s_last); rsum = sum(exp(s_main - m)) + exp(s_last - m), in that order; o =
+    (fp32(bf16(e) v_main) + fp32(bf16(bf16(e_last) * v_last))) * (1 / rsum).
+    Non-causal; output rows >= l_valid are the caller's to discard."""
+    B, L, W = q.shape
+    D = W // heads
+    lv = L if l_valid is None else l_valid
+    km = lv - 1
+    sc = _bf16_scale(D**-0.5 if scale is None else scale)
+    qs = (q.float() * sc).to(torch.bfloat16).view(B, L, heads, D)
+    kb, vb = (t.to(torch.bfloat16).view(B, L, heads, D) for t in (k, v))
+    s_main = torch.einsum("bqhd,bkhd->bqhk", qs.float(), kb[:, :km].float())
+    s_last = (qs * kb[:, km : km + 1]).float().sum(-1, keepdim=True)  # bf16 products, fp32 sum: [B, L, H, 1]
+    m = torch.maximum(s_main.amax(-1, keepdim=True), s_last)
+    e, e_last = torch.exp(s_main - m), torch.exp(s_last - m)
+    rsum = e.sum(-1, keepdim=True) + e_last
+    o = torch.einsum("bqhk,bkhd->bqhd", e.to(torch.bfloat16).float(), vb[:, :km].float())
+    o = o + (e_last.to(torch.bfloat16) * vb[:, km : km + 1]).float()
+    return (o * (1.0 / rsum)).reshape(B, L, W).to(q.dtype)
+
+
+def attention_splitk(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: Optional[float] = None,
+    l_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """K10, forward only: split-K attention over [B, L, H*64] for a valid
+    length that is one past a multiple of 128.  On a CUDA tensor it launches
+    the kernel or raises; on a CPU tensor it runs the twin."""
+    lv = _check_args(q, k, v, heads, l_valid)
+    if not splitk_applies(lv, causal=False):
+        raise ValueError(f"split-K attention takes l_valid % 128 == 1 and l_valid > 128, got {lv}")
+    if q.device.type == "cpu":
+        return attention_splitk_reference(q, k, v, heads, scale, lv)
+    _check_cuda({"q": q, "k": k, "v": v}, heads)
+    B, L, W = q.shape
+    km = lv - 1
+    if km * (HEAD_DIM + 8) * 2 + HEAD_DIM * (km + 8) * 2 + 4 * HEAD_DIM > MAX_SMEM_BYTES:
+        raise ValueError(f"sequence length {lv} needs more shared memory than one block has")
+    lib = _build.load("attention")
+    out = torch.empty_like(q)
+    err = lib.uniir_attention_splitk_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, heads, lv,
+        _bf16_scale((W // heads) ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, "split-K attention kernel")
+    attention_splitk.launches += 1
+    return out
+
+
+def _splitk_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool, l_valid: int) -> torch.Tensor:
+    return attention_splitk(q, k, v, heads, scale, l_valid)
+
+
+def _splitk_twin(q, k, v, heads: int, scale: Optional[float], causal: bool, l_valid: int) -> torch.Tensor:
+    return attention_splitk_reference(q, k, v, heads, scale, l_valid)
 
 
 def attention_bwd_reference(
@@ -229,11 +328,14 @@ def attention(
     scale: Optional[float] = None,
     causal: bool = False,
     l_valid: Optional[int] = None,
+    splitk: bool = False,
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v per head over [B, L, H*D], differentiable:
-    K1 forward (csrc/attention.cu), K3 backward (csrc/attention_bwd.cu)."""
+    K1 forward (csrc/attention.cu), K3 backward (csrc/attention_bwd.cu).
+    `splitk` makes K10 the forward where `splitk_applies`, K1 elsewhere."""
     lv = _check_args(q, k, v, heads, l_valid)
-    return _Attention.apply(q, k, v, heads, scale, causal, lv, _attention_fwd, attention_bwd)
+    fwd = _splitk_fwd if splitk and splitk_applies(lv, causal) else _attention_fwd
+    return _Attention.apply(q, k, v, heads, scale, causal, lv, fwd, attention_bwd)
 
 
 def attention_twin(
@@ -244,10 +346,12 @@ def attention_twin(
     scale: Optional[float] = None,
     causal: bool = False,
     l_valid: Optional[int] = None,
+    splitk: bool = False,
 ) -> torch.Tensor:
-    """`attention` through the plain twins of K1 and K3 on any device."""
+    """`attention` through the plain twins of K1 (or K10) and K3 on any device."""
     lv = _check_args(q, k, v, heads, l_valid)
-    return _Attention.apply(q, k, v, heads, scale, causal, lv, attention_reference, attention_bwd_reference)
+    fwd = _splitk_twin if splitk and splitk_applies(lv, causal) else attention_reference
+    return _Attention.apply(q, k, v, heads, scale, causal, lv, fwd, attention_bwd_reference)
 
 
 def attention_twopass_reference(
@@ -320,6 +424,7 @@ def mha_paired(
 
 
 attention.launches = 0
+attention_splitk.launches = 0
 attention_bwd.launches = 0
 mha_nocausal.launches = 0
 mha_paired.launches = 0

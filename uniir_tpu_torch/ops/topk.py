@@ -1,4 +1,4 @@
-"""Exact top-k inner-product search: the sweep kernels K2 / K4 and their epilogue.
+"""Exact top-k inner-product search: the sweep kernels K2 / K4 / K11 and their epilogue.
 
 Counterpart of `uniir_tpu/ops/topk_pallas.py` (and the numpy helpers of
 `uniir_tpu/ops/topk.py`).  The pipeline is the reference's:
@@ -6,8 +6,12 @@ Counterpart of `uniir_tpu/ops/topk_pallas.py` (and the numpy helpers of
   1. a sweep over the whole pool that writes, per query, the fp32 maximum of
      every strided bucket -- member m of bucket (i, l) is pool row
      i*CHUNK + m*128 + l, its output column i*128 + l.  bf16 pools use K2
-     (`bucket_max_scores`), int8 pools K4 (`bucket_max_scores_i8`); on a CPU
-     tensor each runs its plain PyTorch twin;
+     (`bucket_max_scores`), int8 pools with one scale per row K4
+     (`bucket_max_scores_i8`), int8 pools with one scale per bucket
+     (`quantize_pool(per_bucket=True)`) K11 (`bucket_max_scores_i8b`, which
+     takes the bucket maximum in int32 and dequantises only the maxima;
+     `bucket_max_scores_i8` hands over to it by the shape of the scales); on
+     a CPU tensor each runs its plain PyTorch twin;
   2. a plain-torch epilogue (`topk`): hierarchical top-k over the maxima,
      gather of the selected buckets' rows, fp32-accumulated rescore against
      the bf16 pool, final top-k and, for int8, the certainty guard.
@@ -52,24 +56,48 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def quantize_pool(pool: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8 pool: (pool_q [N, D] int8, scale [N] fp32).
+def quantize_buckets(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with one scale per strided bucket, for whole chunks
+    (`_quantize_pool_bucketed_impl`, topk_pallas.py:216-226): the bucket's
+    amax over its GROUP members (rows i*CHUNK + m*LANES + l), the scale from
+    it as in `quantize_rows`, every row divided by its bucket's scale.
+    Returns (values int8 [n, D], scale fp32 [n / GROUP])."""
+    n = x.shape[0]
+    x = x.float()
+    inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
+    amax = x.abs().amax(dim=1).view(n // CHUNK, GROUP, LANES).amax(dim=1)  # [chunks, LANES]
+    scale = amax.clamp_min(1e-6) * inv127
+    row_scale = scale[:, None, :].expand(-1, GROUP, -1).reshape(n)
+    q = torch.round(x / row_scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.reshape(-1)
 
-    Quantised in row steps, so a multi-GB pool never gets a full fp32 copy
-    (17 GB at 5.6M x 768)."""
+
+def quantize_pool(pool: torch.Tensor, per_bucket: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 pool: (pool_q [N, D] int8, scale fp32).
+
+    One scale per row ([N], for K4) or, with `per_bucket`, one per strided
+    bucket ([N / GROUP], for K11; N must be a CHUNK multiple).  Quantised in
+    row steps of whole chunks, so a multi-GB pool never gets a full fp32
+    copy (17 GB at 5.6M x 768)."""
     N, D = pool.shape
+    if per_bucket and N % CHUNK:
+        raise ValueError(f"per-bucket scales need a pool of whole chunks: {N} rows is not a multiple of {CHUNK}")
     pool_q = torch.empty((N, D), dtype=torch.int8, device=pool.device)
-    scale = torch.empty((N,), dtype=torch.float32, device=pool.device)
+    scale = torch.empty((N // GROUP if per_bucket else N,), dtype=torch.float32, device=pool.device)
+    rows_per_scale = GROUP if per_bucket else 1
+    quantize = quantize_buckets if per_bucket else quantize_rows
     for r0 in range(0, N, ROWS_PER_STEP):
-        pool_q[r0 : r0 + ROWS_PER_STEP], scale[r0 : r0 + ROWS_PER_STEP] = quantize_rows(pool[r0 : r0 + ROWS_PER_STEP])
+        r1 = min(r0 + ROWS_PER_STEP, N)
+        pool_q[r0:r1], scale[r0 // rows_per_scale : r1 // rows_per_scale] = quantize(pool[r0:r1])
     return pool_q, scale
 
 
 def prepare_pool(
-    embeds: np.ndarray, device, int8: bool = False
+    embeds: np.ndarray, device, int8: bool = False, per_bucket: bool = False
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Upload a host pool once: bf16 [N_pad, D] (N_pad a CHUNK multiple, zero
-    rows past N) and, with `int8`, its per-row int8 quantisation.
+    rows past N) and, with `int8`, its int8 quantisation: one scale per row,
+    or with `per_bucket` one per strided bucket of the padded pool.
 
     Both come from the host values (fp16 in a DenseIndex) in row steps, as
     the reference quantises the fp16 pool and casts it to bf16 for the sweep."""
@@ -80,13 +108,18 @@ def prepare_pool(
     if int8:
         quant = (
             torch.zeros((n_pad, D), dtype=torch.int8, device=device),
-            torch.ones((n_pad,), dtype=torch.float32, device=device),  # padding rows: q = 0
+            torch.ones((n_pad // GROUP if per_bucket else n_pad,), dtype=torch.float32, device=device),  # padding: q = 0
         )
     for r0 in range(0, N, ROWS_PER_STEP):
         part = torch.from_numpy(np.ascontiguousarray(embeds[r0 : r0 + ROWS_PER_STEP])).to(device)
-        pool[r0 : r0 + len(part)] = part.to(torch.bfloat16)
-        if int8:
-            quant[0][r0 : r0 + len(part)], quant[1][r0 : r0 + len(part)] = quantize_rows(part)
+        r1 = r0 + len(part)
+        pool[r0:r1] = part.to(torch.bfloat16)
+        if int8 and per_bucket:
+            r1 = -(-r1 // CHUNK) * CHUNK  # the last step's chunk is completed with zero rows, as the padded pool's
+            part = torch.cat([part, part.new_zeros((r1 - r0 - len(part), D))])
+            quant[0][r0:r1], quant[1][r0 // GROUP : r1 // GROUP] = quantize_buckets(part)
+        elif int8:
+            quant[0][r0:r1], quant[1][r0:r1] = quantize_rows(part)
     return pool, quant
 
 
@@ -132,6 +165,32 @@ def bucket_max_scores_i8_reference(
     return torch.cat(out, dim=1)
 
 
+def bucket_max_scores_i8b_reference(
+    q_q: torch.Tensor, q_scale: torch.Tensor, pool_q: torch.Tensor, bucket_scale: torch.Tensor,
+    valid_n: Optional[int] = None
+) -> torch.Tensor:
+    """Plain twin of K11 (`_bucket_max_kernel_i8b`): int8 dot products, rows
+    >= valid_n set to the int32 sentinel -(2^31 - 1), the bucket maximum in
+    int32, then (max * q_scale) * bucket_scale; a bucket whose first member
+    is >= valid_n scores NEG."""
+    N, D = pool_q.shape
+    if D * 127 * 127 >= 2**24:
+        raise ValueError(f"fp32 cannot hold int8 dot products of width {D} exactly")
+    valid_n = N if valid_n is None else valid_n
+    qf = q_q.float()
+    Q = qf.shape[0]
+    out = []
+    for r0 in range(0, N, ROWS_PER_STEP):
+        acc = (qf @ pool_q[r0 : r0 + ROWS_PER_STEP].float().T).to(torch.int32)  # exact integers
+        n = acc.shape[1]
+        rows = torch.arange(r0, r0 + n, device=acc.device)
+        acc = torch.where(rows < valid_n, acc, -(2**31 - 1))
+        out.append(acc.view(Q, n // CHUNK, GROUP, LANES).amax(dim=2).reshape(Q, n // GROUP))
+    deq = torch.cat(out, dim=1).float() * q_scale[:, None] * bucket_scale[None, :]
+    first = _bucket_rows(torch.arange(N // GROUP, device=deq.device))[:, 0]  # each bucket's first member
+    return torch.where(first < valid_n, deq, NEG)
+
+
 def _check_sweep_args(queries: torch.Tensor, pool: torch.Tensor, valid_n: int, dtype, d_multiple: int) -> None:
     Q, D = queries.shape
     N = pool.shape[0]
@@ -171,33 +230,61 @@ def bucket_max_scores(queries: torch.Tensor, pool: torch.Tensor, valid_n: Option
 bucket_max_scores.launches = 0
 
 
-def bucket_max_scores_i8(
-    queries: torch.Tensor, pool_q: torch.Tensor, pool_scale: torch.Tensor, valid_n: Optional[int] = None
-) -> torch.Tensor:
-    """K4: approximate strided-bucket maxima [Q, N/GROUP] fp32 over an int8
-    pool with per-row scales; the queries are quantised per row first."""
+def _int8_sweep(queries: torch.Tensor, pool_q: torch.Tensor, scale: torch.Tensor, valid_n: Optional[int],
+                wrapper, reference, entry: str, scales_per: str) -> torch.Tensor:
+    """What K4 and K11 share: quantise the queries per row, run the twin on
+    a CPU pool, else check the arguments and launch `entry` of csrc/topk.cu,
+    counting the launch on `wrapper`.  `scale` holds one fp32 value per row
+    (K4) or per bucket (K11); its length tells which."""
     N = pool_q.shape[0]
     valid_n = N if valid_n is None else int(valid_n)
     q_q, q_scale = quantize_rows(queries)
     if pool_q.device.type == "cpu":
-        return bucket_max_scores_i8_reference(q_q, q_scale, pool_q, pool_scale, valid_n)
+        return reference(q_q, q_scale, pool_q, scale, valid_n)
     _check_sweep_args(q_q, pool_q, valid_n, torch.int8, 64)
-    if (pool_scale.shape != (N,) or pool_scale.dtype != torch.float32 or not pool_scale.is_contiguous()
-            or pool_scale.device != pool_q.device):
-        raise ValueError(f"pool_scale must be a contiguous fp32 [{N}] tensor of per-row scales on {pool_q.device}")
+    n_scales = N if scales_per == "row" else N // GROUP
+    if (scale.shape != (n_scales,) or scale.dtype != torch.float32 or not scale.is_contiguous()
+            or scale.device != pool_q.device):
+        raise ValueError(f"the pool's scales must be a contiguous fp32 [{n_scales}] tensor (one per {scales_per}) on {pool_q.device}")
     Q, D = q_q.shape
     out = torch.empty((Q, N // GROUP), dtype=torch.float32, device=pool_q.device)
     lib = _build.load("topk")
-    err = lib.uniir_bucket_max_i8(
-        q_q.data_ptr(), q_scale.data_ptr(), pool_q.data_ptr(), pool_scale.data_ptr(), out.data_ptr(),
+    err = getattr(lib, entry)(
+        q_q.data_ptr(), q_scale.data_ptr(), pool_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         Q, N, D, valid_n, torch.cuda.current_stream(pool_q.device).cuda_stream,
     )
-    _build.check(lib, err, "int8 bucket-max kernel")
-    bucket_max_scores_i8.launches += 1
+    _build.check(lib, err, f"int8 bucket-max kernel (one scale per {scales_per})")
+    wrapper.launches += 1
     return out
 
 
+def bucket_max_scores_i8(
+    queries: torch.Tensor, pool_q: torch.Tensor, pool_scale: torch.Tensor, valid_n: Optional[int] = None
+) -> torch.Tensor:
+    """K4: approximate strided-bucket maxima [Q, N/GROUP] fp32 over an int8
+    pool with per-row scales; the queries are quantised per row first.
+    `pool_scale` selects the kernel by shape, as the reference does: [N] is
+    K4, [N / GROUP] (one scale per bucket) hands over to K11."""
+    if pool_scale.shape == (pool_q.shape[0] // GROUP,):
+        return bucket_max_scores_i8b(queries, pool_q, pool_scale, valid_n)
+    return _int8_sweep(queries, pool_q, pool_scale, valid_n, bucket_max_scores_i8, bucket_max_scores_i8_reference,
+                       "uniir_bucket_max_i8", "row")
+
+
 bucket_max_scores_i8.launches = 0
+
+
+def bucket_max_scores_i8b(
+    queries: torch.Tensor, pool_q: torch.Tensor, bucket_scale: torch.Tensor, valid_n: Optional[int] = None
+) -> torch.Tensor:
+    """K11: approximate strided-bucket maxima [Q, N/GROUP] fp32 over an int8
+    pool with one scale per bucket (`quantize_pool(per_bucket=True)`): the
+    maximum is taken over the int32 dot products and only it is dequantised."""
+    return _int8_sweep(queries, pool_q, bucket_scale, valid_n, bucket_max_scores_i8b, bucket_max_scores_i8b_reference,
+                       "uniir_bucket_max_i8b", "bucket")
+
+
+bucket_max_scores_i8b.launches = 0
 
 
 def _bucket_rows(bucket_ids: torch.Tensor) -> torch.Tensor:

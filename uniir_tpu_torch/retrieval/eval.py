@@ -183,9 +183,9 @@ def run_retrieval(config, device=None, stats_out: list | None = None) -> List[di
                 query_embeds, index, num_cand_to_retrieve=k,
                 pool_dtype=getattr(retrieval_config, "pool_dtype", None), stats=search_stats, device=device,
             )
-            if search_stats["pool_dtype"] == "int8":
+            if search_stats["pool_dtype"] != "bf16":
                 print(
-                    f"Retriever: int8 pool sweep, guard_pass_rate="
+                    f"Retriever: {search_stats['pool_dtype']} pool sweep, guard_pass_rate="
                     f"{search_stats['guard_pass_rate']:.4f}, exact_reruns={search_stats['exact_reruns']}"
                 )
 

@@ -8,6 +8,7 @@ kernels on the card (the small-pool XLA path was a TPU choice).
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -17,7 +18,7 @@ from uniir_tpu_torch.core.device import resolve_device
 from uniir_tpu_torch.ops.topk import prepare_pool, topk
 from uniir_tpu_torch.retrieval.index import DenseIndex, normalize_l2
 
-POOL_DTYPES = ("bf16", "int8")
+POOL_DTYPES = ("bf16", "int8", "int8_bucket")
 
 
 def search_dense_index(
@@ -31,23 +32,28 @@ def search_dense_index(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Exact inner-product search; queries are L2-normalised first.
 
-    `pool_dtype` "bf16" (default) sweeps the bf16 pool (K2).  "int8" sweeps
-    the int8 pool (K4) with twice the candidate buckets, rescores them
-    against the bf16 pool and runs the certainty guard on every batch; a
-    batch in which any query fails the guard is re-run whole on the exact
-    bf16 sweep, so results stay exact w.r.t. bf16 scores.  `stats` receives
+    `pool_dtype` "bf16" (the default; the environment's `UNIIR_TOPK_POOL`
+    when None, as in the JAX package) sweeps the bf16 pool (K2).  "int8"
+    sweeps the int8 pool with one scale per row (K4), "int8_bucket" (the
+    port's own value: the JAX search quantises per row only) the int8 pool
+    with one scale per strided bucket (K11); both select twice the candidate
+    buckets, rescore them against the bf16 pool and run the certainty guard
+    on every batch; a batch in which any query fails the guard is re-run
+    whole on the exact bf16 sweep, so results stay exact w.r.t. bf16 scores.  `stats` receives
     `pool_dtype`, `guard_pass_rate` and `exact_reruns`.  k is clamped to the
     pool size.  Queries go `batch_size` at a time, which bounds the fp32
     maxima on the card ([batch, N/16]: 1.4 GB at 1024 x 5.6M).  `device`
     None means the card; without one it raises (pass "cpu" to run there)."""
-    pool_dtype = pool_dtype or "bf16"
+    pool_dtype = pool_dtype or os.environ.get("UNIIR_TOPK_POOL", "bf16")
     if pool_dtype not in POOL_DTYPES:
         raise ValueError(f"pool_dtype must be one of {POOL_DTYPES}, got {pool_dtype!r}")
     device = resolve_device(device)
     q = normalize_l2(np.asarray(query_embeddings))
     k = min(num_cand_to_retrieve, index.ntotal)
 
-    pool, pool_quant = prepare_pool(index.embeds, device, int8=pool_dtype == "int8")
+    pool, pool_quant = prepare_pool(
+        index.embeds, device, int8=pool_dtype != "bf16", per_bucket=pool_dtype == "int8_bucket"
+    )
     n_guard, n_guard_ok, n_reruns = 0, 0, 0
     all_scores, all_idx = [], []
     for i in range(0, q.shape[0], batch_size):

@@ -114,7 +114,9 @@ def main(argv=None, bundle=None):
     if getattr(config.model, "int8", False):
         config.model.int8 = False
     if config.model.name != "CLIPScoreFusion":
-        raise NotImplementedError(f"{config.model.name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1)")
+        raise NotImplementedError(
+            f"int8 serving of {config.model.name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 items 4-5)"
+        )
     if bundle is None:
         bundle = build_model_from_config(config, device=args.device)
     calibrate(bundle, config, args.out, args.num_batches, args.batch_size, args.margin)

@@ -1,5 +1,5 @@
 """AdamW in the CLIP parameter groups and the cosine schedule
-(counterpart of uniir_tpu/train/optimizer.py, CLIP-SF).
+(counterpart of uniir_tpu/train/optimizer.py, the CLIP family).
 
 Parameters with ndim < 2, or whose name contains bn / ln / bias /
 logit_scale, get no weight decay; the rest get `weight_decay` (0.2 for
@@ -8,7 +8,10 @@ as an optax decay mask.  `torch.optim.AdamW` with betas (0.9, 0.98) and eps
 1e-6 computes optax.adamw's update (decay on the pre-update parameter).
 The schedule is optax's cosine decay to 0 over the optimizer updates, with
 an optional linear warm-up from 0, evaluated at the update count before
-each update.  Gradient accumulation (optax.MultiSteps' meaning: the mean
+each update.  CLIP-FF adds a group: parameters whose name contains "t5"
+(the fusion stack) train at `fusion_learning_rate` on a cosine schedule of
+their own, with the same decay split -- the JAX package's
+optax.multi_transform over {backbone, fusion}.  Gradient accumulation (optax.MultiSteps' meaning: the mean
 of k micro-batch gradients, one update every k micro-batches) lives in
 `train.state.TrainState`.
 """
@@ -56,24 +59,32 @@ def make_clip_optimizer(
     weight_decay: float = 0.2,
     warmup_steps: int = 0,
     fusion_learning_rate: Optional[float] = None,
+    fusion_name_sub: str = "t5",
 ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
-    """AdamW(betas=(0.9, 0.98), eps=1e-6) over the two CLIP groups, and its
-    per-update cosine schedule."""
-    if fusion_learning_rate is not None:
-        raise NotImplementedError(
-            "the T5 fusion learning-rate group belongs to CLIP-FF, which is not ported to uniir_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 4)"
-        )
+    """AdamW(betas=(0.9, 0.98), eps=1e-6) over the CLIP groups, and its
+    per-update cosine schedules: {decay, no decay} at `learning_rate`, and
+    with `fusion_learning_rate` the same pair for the parameters whose name
+    contains `fusion_name_sub`, at that rate."""
     mask = clip_decay_mask(model)
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
+    rates = {False: learning_rate}
+    if fusion_learning_rate is not None:
+        rates[True] = fusion_learning_rate
+
+    def is_fusion(name: str) -> bool:
+        return fusion_learning_rate is not None and fusion_name_sub in name.lower()
+
     groups = [
-        {"params": [p for n, p in named if mask[n]], "weight_decay": weight_decay},
-        {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0},
+        {"params": [p for n, p in named if is_fusion(n) == fusion and mask[n] == decay],
+         "weight_decay": weight_decay if decay else 0.0, "lr": lr}
+        for fusion, lr in rates.items() for decay in (True, False)
     ]
     optimizer = torch.optim.AdamW(groups, lr=learning_rate, betas=(0.9, 0.98), eps=1e-6)
-    schedule = cosine_schedule(learning_rate, total_steps, warmup_steps)
-    # LambdaLR multiplies the group's initial lr by the factor
-    scheduler = torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda count: schedule(count) / learning_rate if learning_rate else 0.0
-    )
+
+    def factor(lr: float) -> Callable[[int], float]:
+        # LambdaLR multiplies the group's initial lr by the factor
+        schedule = cosine_schedule(lr, total_steps, warmup_steps)
+        return lambda count: schedule(count) / lr if lr else 0.0
+
+    scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, [factor(g["lr"]) for g in groups])
     return optimizer, scheduler

@@ -1,11 +1,17 @@
-"""Train and eval steps (CLIP-SF) and the embed step (CLIP-SF, BLIP-SF): the
-counterpart of uniir_tpu/train/steps.py.
+"""Train and eval steps (CLIP-SF, CLIP-FF) and the embed step (all four
+retrievers): the counterpart of uniir_tpu/train/steps.py.
 
 A step takes a collated batch (numpy arrays or tensors) and runs eagerly on
-the model's device.  The train step's forward goes through kernel K1 and
-its backward through K3 (`ops.attention`).  Metrics come back as 0-d
-device tensors, so a loop can defer fetching them (`train.engine`).  No
-GradScaler: bf16 needs no loss scaling.
+the model's device.  The train step's forward goes through kernel K1 (K10
+where the model was built with `attn_splitk`) and its backward through K3
+(`ops.attention`).  Metrics come back as 0-d device tensors, so a loop can
+defer fetching them (`train.engine`).  No GradScaler: bf16 needs no loss
+scaling.
+
+CLIP-FF's T5 fusion stack is the one part with stochastic layers.  The
+train step puts it in train mode only `with_dropout`, and its dropout then
+draws from one `torch.Generator` on the model's device, seeded from `seed`
+when the step is made; the eval step runs it in eval mode, deterministic.
 """
 
 from __future__ import annotations
@@ -52,22 +58,34 @@ def clip_loss(model: torch.nn.Module, batch: Dict[str, Any], hard_neg_num: int =
     )
 
 
+def _set_fusion_mode(model: torch.nn.Module, training: bool) -> None:
+    """Train / eval mode of the T5 fusion stack, if the model has one (the
+    CLIP towers have no stochastic layer)."""
+    fusion = getattr(model, "t5_layers", None)
+    if fusion is not None:
+        fusion.train(training)
+
+
 def make_clip_train_step(
     model: torch.nn.Module,
     hard_neg_num: int = 0,
     in_batch_neg_num: int = 0,
     with_dropout: bool = False,
+    seed: int = 0,
 ) -> Callable[[TrainState, Dict[str, Any]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Train step for CLIP-SF: forward, in-batch contrastive loss, backward
-    and one `TrainState.apply_gradients`.  step(state, batch) returns
-    (state, {"loss", "inbatch_accuracy"}) with the metrics as device tensors."""
+    """Train step for the CLIP family (SF and FF share the loss): forward,
+    in-batch contrastive loss, backward and one `TrainState.apply_gradients`.
+    step(state, batch) returns (state, {"loss", "inbatch_accuracy"}) with the
+    metrics as device tensors.  `with_dropout` switches on CLIP-FF's fusion
+    dropout, drawn from a generator seeded with `seed` (config.seed)."""
     if with_dropout:
-        raise NotImplementedError(
-            "stochastic layers belong to CLIP-FF's T5 fusion, which is not ported to uniir_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 4)"
-        )
+        if not hasattr(model, "t5_layers"):
+            raise ValueError(f"with_dropout: {type(model).__name__} has no stochastic layer")
+        device = model.logit_scale.device
+        model.t5_layers.set_dropout_generator(torch.Generator(device=device).manual_seed(seed))
 
     def step(state: TrainState, batch: Dict[str, Any]):
+        _set_fusion_mode(model, with_dropout)
         out = clip_loss(model, batch, hard_neg_num, in_batch_neg_num)
         out["loss"].backward()
         state.apply_gradients()
@@ -80,6 +98,7 @@ def make_clip_eval_step(model: torch.nn.Module, hard_neg_num: int = 0, in_batch_
     """No-grad twin of the train step: step(batch) -> {"loss", "inbatch_accuracy"}."""
 
     def step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        _set_fusion_mode(model, False)
         with torch.inference_mode():
             out = clip_loss(model, batch, hard_neg_num, in_batch_neg_num)
         return {"loss": out["loss"], "inbatch_accuracy": out["accuracy"]}

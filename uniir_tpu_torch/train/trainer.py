@@ -1,17 +1,19 @@
-"""Trainer entry point for CLIP-SF, one process on one device
+"""Trainer entry point for CLIP-SF and CLIP-FF, one process on one device
 (counterpart of uniir_tpu/train/trainer.py).
 
     python -m uniir_tpu_torch.train.trainer --config_path configs/clip_sf/large/train/inbatch/inbatch.yaml \
         --uniir_dir /data/UniIR --mbeir_data_dir /data/UniIR/mbeir_data
 
 build the model with fp32 master weights -> AdamW in the CLIP groups with
-the cosine schedule over all updates -> train state -> resume -> loaders
+the cosine schedule over all updates (CLIP-FF: the T5 fusion stack at
+`trainer_config.t5_learning_rate`, and its dropout on) -> train state -> resume -> loaders
 (epoch-shuffled) -> epoch loop with a checkpoint per epoch and optional
 in-batch validation.  The file-reading data path is the port's own
 (`uniir_tpu_torch/data`: dataset, collator, `MBEIRLoader`,
 `EpochShuffleSampler`; Pillow is needed only once an image is opened);
-`train_one_epoch` takes any iterable of collated batches.  The other retrievers, and training
-over several processes, raise until they are ported (ROADMAP.md, Queue 1).
+`train_one_epoch` takes any iterable of collated batches.  The BLIP
+retrievers, and training over several processes, raise until they are
+ported (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -52,9 +54,9 @@ def log_results(train_stats, val_stats, test_stats, epoch=None, best_epoch=None)
 def build_train_setup(config, bundle=None, device=None) -> dict:
     """Everything main() needs, reusable from tests: returns a dict."""
     model_name = config.model.name
-    if model_name != "CLIPScoreFusion":
+    if model_name not in ("CLIPScoreFusion", "CLIPFeatureFusion"):
         raise NotImplementedError(
-            f"training {model_name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 items 4-5)"
+            f"training {model_name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 5)"
         )
     trainer_config, data_config = config.trainer_config, config.data_config
     if bundle is None:
@@ -103,13 +105,19 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
     warmup = int(getattr(trainer_config, "warmup_steps", 0))
 
     model = bundle.model
+    fusion_lr = getattr(trainer_config, "t5_learning_rate", None)
     optimizer, scheduler = make_clip_optimizer(
-        model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.2)), warmup_steps=warmup
+        model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.2)), warmup_steps=warmup,
+        fusion_learning_rate=float(fusion_lr) if fusion_lr else None,
     )
     return {
         "bundle": bundle,
         "state": TrainState(model, optimizer, scheduler, accumulation_steps=accum),
-        "train_step": make_clip_train_step(model, hard_neg_num=hard_neg_num, in_batch_neg_num=in_batch_neg_num),
+        "train_step": make_clip_train_step(
+            model, hard_neg_num=hard_neg_num, in_batch_neg_num=in_batch_neg_num,
+            with_dropout=(model_name == "CLIPFeatureFusion"),  # T5 fusion dropout
+            seed=int(config.seed),
+        ),
         "eval_step": make_clip_eval_step(model, hard_neg_num=hard_neg_num, in_batch_neg_num=in_batch_neg_num),
         "train_loader": train_loader,
         "train_sampler": train_sampler,
@@ -182,7 +190,7 @@ def main(config, bundle=None, device=None) -> dict:
 
 
 def cli(argv=None):
-    parser = argparse.ArgumentParser(description="uniir_tpu_torch trainer (CLIP-SF, one device)")
+    parser = argparse.ArgumentParser(description="uniir_tpu_torch trainer (CLIP-SF / CLIP-FF, one device)")
     parser.add_argument("--config_path", default="config.yaml", help="Path to the config file.")
     parser.add_argument("--uniir_dir", type=str, default="/data/UniIR")
     parser.add_argument("--mbeir_data_dir", type=str, default="/data/UniIR/mbeir_data")
