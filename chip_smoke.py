@@ -6,7 +6,9 @@
 1. builds the port's kernels (uniir_tpu_torch/csrc, nvcc for sm_90a) from the
    checkout and checks each against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
-   BLIP's L = 197 and the main path's batch, K10 (split-K attention) at the
+   BLIP's L = 197 and the main path's batch -- its one-block-a-head kernel
+   and its general-length kernel both, timed in turns, and the general one
+   also at L = 577, which only it takes -- K10 (split-K attention) at the
    CLIP-L vision shape against its twin and against K1, and that the flag
    leaves L = 197 and the causal L = 77 to K1, K8 / K9 (the stand-alone
    `mha_nocausal` / `mha_paired`) at the BLIP and CLIP shapes, K7 (fused
@@ -43,7 +45,9 @@
    the two runs' embeddings and of kernels against twins inside the model,
    the pools' ids and the copied candidates;
 5. checks K3, the attention backward, against its twin at the CLIP-L vision
-   and text shapes (and against autograd through the plain forward);
+   and text shapes (and against autograd through the plain forward): its
+   one-block-a-head kernel and its general-length kernels both, timed in
+   turns, and the general ones also at L = 400, which only they take;
 6. drives BLIP-ScoreFusion serving at the full width and depth of
    `configs/blip_sf/large` (ViT-L/16, 24 blocks; MED, 12 layers) in bf16
    through `build_model_from_config`:
@@ -138,10 +142,14 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
-    """Mean device time of fn() over `iters` runs after one warm-up (CUDA events)."""
+    """Mean device time of fn() over `iters` runs after one warm-up (CUDA
+    events).  The runs are queued behind a few milliseconds of a spinning
+    kernel, so the host has them enqueued before the first one starts and a
+    short kernel's time is the device's, not the rate Python launches at."""
     fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(5_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -170,33 +178,52 @@ def nbytes(*tensors) -> int:
 
 
 def check_attention(results: dict) -> None:
-    from uniir_tpu_torch.ops.attention import attention, attention_reference
+    """K1: the one-block-a-head kernel and the general-length kernel against
+    the twin and timed in turns (new, old, new) at the three shapes the
+    models use; then the general kernel at a length only it takes."""
+    from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    worst = 0.0
-    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "blip vision": (BATCH, 197, 16, False)}
+    worst = {"K1": 0.0, "K1g": 0.0}
+    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "blip vision": (BATCH, 197, 16, False),
+              "long (384-pixel BLIP)": (8, 577, 16, False)}
     for tag, (B, L, H, causal) in shapes.items():
         q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
-        out = attention(q, k, v, H, causal=causal)
+        before = (A.attention.launches, A.attention_fwd_general.launches)
+        out = A.attention(q, k, v, H, causal=causal)
         torch.cuda.synchronize()
-        ref = attention_reference(q, k, v, H, causal=causal)
-        err = (out.float() - ref.float()).abs().max().item()
-        cos = cosine(out, ref)
-        ms = cuda_ms(lambda: attention(q, k, v, H, causal=causal), 20)
-        plain_ms = cuda_ms(lambda: attention_reference(q, k, v, H, causal=causal), 20)
+        routed = (A.attention.launches - before[0], A.attention_fwd_general.launches - before[1])
+        route = A.forward_route(64, L)
+        check(routed == ((1, 0) if route == "fused" else (0, 1)), f"attention at L={L} launched {routed}, route {route}")
+        ref = A.attention_reference(q, k, v, H, causal=causal)
+        old = A.attention_fwd_general(q, k, v, H, causal=causal)
+        err, cos = (out.float() - ref.float()).abs().max().item(), cosine(out, ref)
+        old_err, old_cos = (old.float() - ref.float()).abs().max().item(), cosine(old, ref)
+        ms = cuda_ms(lambda: A.attention(q, k, v, H, causal=causal), 20)
+        old_ms = cuda_ms(lambda: A.attention_fwd_general(q, k, v, H, causal=causal), 20)
+        ms_again = cuda_ms(lambda: A.attention(q, k, v, H, causal=causal), 20)
+        plain_ms = cuda_ms(lambda: A.attention_reference(q, k, v, H, causal=causal), 20)
         # the library call: F.scaled_dot_product_attention over [B, H, L, D] views of the same tensors
         heads = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads, is_causal=causal), 20)
         limit = bound(nbytes(q, k, v, out), 4 * B * H * L * L * 64, BF16_OPS_PER_S)
-        log(f"K1 attention {tag} [{B},{L},{H * 64}] H={H} causal={causal}: max_abs_err={err} cosine={cos} "
-            f"kernel_ms={ms} plain_ms={plain_ms} library_ms={library_ms} {limit}")
+        log(f"K1 attention {tag} [{B},{L},{H * 64}] H={H} causal={causal} route={route}: max_abs_err={err} cosine={cos} "
+            f"kernel_ms={ms} / {ms_again} (general-length kernel between them: {old_ms}, max_abs_err={old_err} "
+            f"cosine={old_cos}) plain_ms={plain_ms} library_ms={library_ms} {limit}")
         # same rounding points as the twin; fp32 sums in another order -> a
         # couple of bf16 ulps of outputs of magnitude < 4
         check(err <= 3e-2 and cos >= 0.9999, f"K1 disagrees with its twin at {tag} shapes")
-        worst = max(worst, err)
+        check(old_err <= 3e-2 and old_cos >= 0.9999, f"the general-length K1 disagrees with its twin at {tag} shapes")
+        if route == "fused":
+            check(max(ms, ms_again) < old_ms, f"the one-block-a-head K1 is not faster than the general kernel at {tag} shapes")
+            worst["K1"] = max(worst["K1"], err)
+        worst["K1g"] = max(worst["K1g"], old_err)
         if tag == "vision":
             results["K1"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
-    results["K1"]["max_abs_err"] = worst
+        if route == "general":  # the general kernel's row: the length only it takes
+            results["K1g"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
 
 
 def check_attention_norm_first(results: dict) -> None:
@@ -280,21 +307,28 @@ def check_attention_splitk(results: dict) -> None:
     results["K10"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
 
 
-def zero_standalone() -> None:
-    """K8 / K9 are stand-alone entry points, as in the JAX package: every
-    path sets their counts to 0 with its own before it starts."""
+def _off_path_kernels():
     from uniir_tpu_torch.ops import attention as attn_mod
 
-    attn_mod.mha_nocausal.launches = attn_mod.mha_paired.launches = 0
+    return (("K8", attn_mod.mha_nocausal), ("K9", attn_mod.mha_paired),
+            ("K1g", attn_mod.attention_fwd_general), ("K3g", attn_mod.attention_bwd_general))
+
+
+def zero_standalone() -> None:
+    """K8 / K9 are stand-alone entry points, as in the JAX package, and the
+    general-length K1 / K3 serve lengths past 272, which no model of these
+    paths has: every path sets their counts to 0 with its own before it starts."""
+    for _, fn in _off_path_kernels():
+        fn.launches = 0
 
 
 def read_standalone(results: dict, path: str) -> None:
-    """Read K8 / K9's counts just after a path: no model calls them."""
-    from uniir_tpu_torch.ops import attention as attn_mod
-
-    for name, fn in (("K8", attn_mod.mha_nocausal), ("K9", attn_mod.mha_paired)):
+    """Read their counts just after a path: no model calls K8 / K9, and the
+    static route sends every length of these paths (77, 197, 257) to the
+    one-block-a-head K1 / K3."""
+    for name, fn in _off_path_kernels():
         results[name]["launches"] = results[name].get("launches", 0) + fn.launches
-        check(fn.launches == 0, f"stand-alone kernel {name} was launched {fn.launches} times on the {path} path")
+        check(fn.launches == 0, f"off-path kernel {name} was launched {fn.launches} times on the {path} path")
 
 
 # ---------------------------------------------------------------- phase 1: K7
@@ -1341,25 +1375,40 @@ def profile_forward(model, batch, tag: str) -> None:
 
 
 def check_attention_bwd(results: dict) -> None:
-    from uniir_tpu_torch.ops.attention import attention_bwd, attention_bwd_reference, attention_reference
+    """K3: the one-block-a-head kernel and the general-length kernels against
+    the twin and timed in turns (new, old, new) at the two shapes training
+    uses; then the general kernels at a length only they take."""
+    from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    worst = 0.0
-    for tag, (B, L, H, causal) in {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True)}.items():
+    worst = {"K3": 0.0, "K3g": 0.0}
+    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "long": (8, 400, 16, False)}
+    for tag, (B, L, H, causal) in shapes.items():
         q, k, v, do = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(4))
-        out = attention_bwd(q, k, v, do, H, causal=causal)
+        before = (A.attention_bwd.launches, A.attention_bwd_general.launches)
+        out = A.attention_bwd(q, k, v, do, H, causal=causal)
         torch.cuda.synchronize()
-        ref = attention_bwd_reference(q, k, v, do, H, causal=causal)
-        for name, o, r in zip(("dq", "dk", "dv"), out, ref):
-            err, cos, top = (o.float() - r.float()).abs().max().item(), cosine(o, r), r.abs().max().item()
-            log(f"K3 attention_bwd {tag} [{B},{L},{H * 64}] H={H} causal={causal} {name}: max_abs_err={err} "
-                f"cosine={cos} max_abs_ref={top}")
-            # same rounding points as the twin; fp32 sums in another order can
-            # flip a bf16 rounding of ds or of an output: ~2 ulps (2^-7 relative)
-            check(err <= 1e-2 * max(1.0, top) and cos >= 0.9999, f"K3 {name} disagrees with its twin at {tag} shapes")
-            worst = max(worst, err)
-        ms = cuda_ms(lambda: attention_bwd(q, k, v, do, H, causal=causal), 20)
-        plain_ms = cuda_ms(lambda: attention_bwd_reference(q, k, v, do, H, causal=causal), 5)
+        routed = (A.attention_bwd.launches - before[0], A.attention_bwd_general.launches - before[1])
+        route = A.backward_route(64, L)
+        check(routed == ((1, 0) if route == "fused" else (0, 1)), f"attention_bwd at L={L} launched {routed}, route {route}")
+        ref = A.attention_bwd_reference(q, k, v, do, H, causal=causal)
+        old = A.attention_bwd_general(q, k, v, do, H, causal=causal)
+        for which, got in (("K3", out), ("K3g", old)):
+            for name, o, r in zip(("dq", "dk", "dv"), got, ref):
+                err, cos, top = (o.float() - r.float()).abs().max().item(), cosine(o, r), r.abs().max().item()
+                log(f"{which} attention_bwd {tag} [{B},{L},{H * 64}] H={H} causal={causal} {name}: max_abs_err={err} "
+                    f"cosine={cos} max_abs_ref={top}")
+                # same rounding points as the twin; fp32 sums in another order can
+                # flip a bf16 rounding of ds or of an output: ~2 ulps (2^-7 relative)
+                check(err <= 1e-2 * max(1.0, top) and cos >= 0.9999, f"{which} {name} disagrees with its twin at {tag} shapes")
+                if which == "K3g" or route == "fused":
+                    worst[which] = max(worst[which], err)
+        again = A.attention_bwd(q, k, v, do, H, causal=causal)
+        check(all(torch.equal(a, b) for a, b in zip(out, again)), f"K3 is not deterministic at {tag} shapes")
+        ms = cuda_ms(lambda: A.attention_bwd(q, k, v, do, H, causal=causal), 20)
+        old_ms = cuda_ms(lambda: A.attention_bwd_general(q, k, v, do, H, causal=causal), 20)
+        ms_again = cuda_ms(lambda: A.attention_bwd(q, k, v, do, H, causal=causal), 20)
+        plain_ms = cuda_ms(lambda: A.attention_bwd_reference(q, k, v, do, H, causal=causal), 5)
         # the library call: the backward of F.scaled_dot_product_attention on the same tensors
         leaves = [t.view(B, L, H, 64).transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
         sdpa = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal)
@@ -1367,12 +1416,17 @@ def check_attention_bwd(results: dict) -> None:
         library_ms = cuda_ms(lambda: torch.autograd.grad(sdpa, leaves, g_heads, retain_graph=True), 20)
         del leaves, sdpa
         limit = bound(nbytes(q, k, v, do, *out), 10 * B * H * L * L * 64, BF16_OPS_PER_S)  # five L x L x D products a head
-        log(f"K3 attention_bwd {tag}: kernel_ms={ms} plain_ms={plain_ms} library_ms={library_ms} {limit}")
+        log(f"K3 attention_bwd {tag} route={route}: kernel_ms={ms} / {ms_again} (general-length kernels between them: "
+            f"{old_ms}) plain_ms={plain_ms} library_ms={library_ms} {limit}")
+        if route == "fused":
+            check(max(ms, ms_again) < old_ms, f"the one-block-a-head K3 is not faster than the general kernels at {tag} shapes")
+        else:
+            results["K3g"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
         if tag == "vision":
             results["K3"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
             # an independent oracle: fp32 autograd through the plain forward
             leaves = [t.float().requires_grad_() for t in (q, k, v)]
-            oracle = torch.autograd.grad(attention_reference(*leaves, H, causal=causal), leaves, do.float())
+            oracle = torch.autograd.grad(A.attention_reference(*leaves, H, causal=causal), leaves, do.float())
             for name, o, r in zip(("dq", "dk", "dv"), out, oracle):
                 err, cos = (o.float() - r).abs().max().item(), cosine(o, r)
                 log(f"K3 {tag} {name} vs autograd through the plain forward: max_abs_err={err} cosine={cos}")
@@ -1380,7 +1434,8 @@ def check_attention_bwd(results: dict) -> None:
                 check(err <= 6e-2 * max(1.0, r.abs().max().item()) and cos >= 0.999,
                       f"K3 {name} disagrees with autograd through the plain forward")
             del leaves, oracle
-    results["K3"]["max_abs_err"] = worst
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
 
 
 # -------------------------------------- phases 7 and 8: the training paths
@@ -1570,8 +1625,8 @@ def profile_train_step(name: str) -> None:
 
 
 PROFILE_GROUPS = {
-    "K1 attention_fwd": ("attention_fwd",), "K10 attention_splitk": ("attention_splitk",),
-    "K3 attention_bwd": ("attention_bwd",),
+    "K1 attention_fwd": ("attention_fused_fwd", "attention_fwd"), "K10 attention_splitk": ("attention_splitk",),
+    "K3 attention_bwd": ("attention_fused_bwd", "attention_bwd"),
     "K5 int8_matmul": ("int8_matmul_kernel",), "K6 int8_mlp": ("int8_mlp_kernel",),
     "K7 preprocess": ("preprocess_kernel",),
     "GEMM": ("gemm", "xmma", "cutlass", "nvjet", "cublas"), "AdamW": ("multi_tensor", "adam"),
@@ -1655,6 +1710,13 @@ def main() -> None:
                "replaces": "uniir_tpu/ops/attention_pallas.py:158"},
         "K10": {"name": "attention_splitk", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
                 "replaces": "uniir_tpu/ops/attention_pallas.py:314", "launches": 0},
+        # the general-length kernels of K1 / K3 (272 < L): timed at a length only they take; the static
+        # route sends every length of the main paths to the one-block-a-head kernels, so `read_standalone`
+        # holds their counts to 0 after every path
+        "K1g": {"name": "attention_fwd_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
+                "replaces": "uniir_tpu/ops/attention_pallas.py:413"},
+        "K3g": {"name": "attention_bwd_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention_bwd.cu",
+                "replaces": "uniir_tpu/ops/attention_pallas.py:652"},
         "K11": {"name": "bucket_max_i8b", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
                 "replaces": "uniir_tpu/ops/topk_pallas.py:254", "launches": 0},
     }

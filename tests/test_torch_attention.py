@@ -15,11 +15,15 @@ import torch
 
 from uniir_tpu_torch.ops.attention import (
     attention,
+    attention_fwd_general,
     attention_reference,
     attention_splitk,
     attention_splitk_reference,
     attention_twin,
     attention_twopass_reference,
+    backward_route,
+    forward_route,
+    kernel_supported,
     mha_nocausal,
     mha_paired,
     splitk_applies,
@@ -254,6 +258,50 @@ def test_splitk_forward_keeps_the_k3_backward():
     torch.testing.assert_close(out.detach(), twin, rtol=0, atol=0)
 
 
+# ------------------------------------------------------- the static route
+# Which kernel a CUDA bf16 call launches is a rule over the shape alone
+# (head width, length, whether a gradient will be asked), settled before any
+# launch: the one-block-a-head kernels to L = 272, the general-length K1 to
+# L = 848 and K3 to L = 544 (what their shared memory holds), no kernel for
+# another head width or a longer sequence -- the layer then takes its einsum.
+ROUTES = {  # L -> (forward, backward) at head width 64
+    1: ("fused", "fused"), 77: ("fused", "fused"), 197: ("fused", "fused"), 257: ("fused", "fused"),
+    334: ("general", "general"), 577: ("general", None), 900: (None, None),
+}
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("L", sorted(ROUTES))
+@pytest.mark.parametrize("D", [16, 64, 80])
+def test_route_table(D, L, training):
+    fwd, bwd = ROUTES[L] if D == 64 else (None, None)
+    assert forward_route(D, L) == fwd and backward_route(D, L) == bwd
+    want = fwd is not None and (not training or bwd is not None)
+    assert kernel_supported(16, 16 * D, L, training) is want
+    assert kernel_supported(12, 12 * D, L, training) is want  # the head count does not enter
+
+
+@pytest.mark.parametrize("L,fwd,bwd", [(272, "fused", "fused"), (273, "general", "general"), (544, "general", "general"),
+                                       (545, "general", None), (848, "general", None), (849, None, None)])
+def test_route_edges(L, fwd, bwd):
+    assert (forward_route(64, L), backward_route(64, L)) == (fwd, bwd)
+    assert not kernel_supported(3, 100, L, False)  # a width the heads do not divide
+
+
+def test_layer_on_the_cpu_runs_the_twin_at_any_head_width():
+    """The rule guards CUDA launches only: a CPU bf16 tensor runs K1's twin
+    through `attention` at `test-tiny`'s head width 16, as before."""
+    from uniir_tpu_torch.models import layers
+
+    torch.manual_seed(0)
+    mha = layers.MultiHeadAttention(64, 4).bfloat16()
+    x = torch.randn(2, 9, 64).bfloat16()
+    q, k, v = layers.qkv_project(x, mha.in_proj_weight, mha.in_proj_bias, None)
+    want = mha.out_proj(attention_reference(q, k, v, 4, 16**-0.5))
+    assert not kernel_supported(4, 64, 9, False)
+    torch.testing.assert_close(mha(x), want, rtol=0, atol=0)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -332,3 +380,67 @@ def test_cuda_splitk_flag_launches_k1_elsewhere(cuda, L, H, causal):
     torch.cuda.synchronize()
     assert (attention.launches, attention_splitk.launches) == (before[0] + 1, before[1])
     assert torch.equal(out, attention(q, k, v, H, causal=causal))
+
+
+# The one-block-a-head K1 at every tile count, with padding, small batches
+# and both head counts; the same limits as above.
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [12, 16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("L,causal,l_valid", [(1, False, None), (16, False, None), (64, False, None), (77, True, None),
+                                              (197, False, None), (257, False, None), (272, False, None),
+                                              (272, False, 257), (200, True, 130), (80, False, 3)])
+def test_cuda_fused_k1_matches_twin(cuda, B, L, H, causal, l_valid):
+    q, k, v = (t.to(cuda) for t in _qkv(B, L, H * 64, seed=L + H))
+    lv = l_valid or L
+    if l_valid:  # padding must not leak: NaN past l_valid in k and v
+        k[:, lv:], v[:, lv:] = float("nan"), float("nan")
+    before = (attention.launches, attention_fwd_general.launches)
+    out = attention(q, k, v, H, causal=causal, l_valid=l_valid)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention_fwd_general.launches) == (before[0] + 1, before[1])
+    ref = attention_reference(q, k, v, H, causal=causal, l_valid=l_valid)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    old = attention_fwd_general(q, k, v, H, causal=causal, l_valid=l_valid)  # the general kernel takes short lengths too
+    torch.testing.assert_close(old.float()[:, :lv], ref.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,causal", [(577, False), (273, True), (848, False)])
+def test_cuda_general_k1_takes_the_long_lengths(cuda, L, causal):
+    """L > 272 launches the general-length kernel (its own counter), e.g. a 384-pixel BLIP's 577 tokens."""
+    q, k, v = (t.to(cuda) for t in _qkv(2, L, 16 * 64, seed=L))
+    before = (attention.launches, attention_fwd_general.launches)
+    out = attention(q, k, v, 16, causal=causal)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention_fwd_general.launches) == (before[0], before[1] + 1)
+    ref = attention_reference(q, k, v, 16, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention(*(t.to(cuda) for t in _qkv(1, 849, 64)), 1)
+
+
+@pytest.mark.gpu
+def test_cuda_layer_takes_the_einsum_where_no_kernel_fits(cuda):
+    """Head width 16 in bf16 on the card: no launch and no error, the layer's
+    einsum path; `test-tiny` serves and agrees with its fp32 self."""
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import seeded_clip_sf
+
+    cfg = CLIP_CONFIGS["test-tiny"]
+    rng = np.random.default_rng(0)
+    txt = np.zeros((6, cfg.context_length), np.int64)
+    for i in range(6):
+        n = 3 + i
+        txt[i, :n] = rng.integers(1, cfg.vocab_size - 1, n)
+        txt[i, n] = cfg.vocab_size - 1
+    img = rng.random((6, cfg.image_size, cfg.image_size, 3)).astype(np.float32)
+    inputs = [torch.from_numpy(a).to(cuda) for a in (txt, img, np.array([1, 1, 0, 1, 0, 1]), np.array([1, 0, 1, 1, 1, 0]))]
+    before = (attention.launches, attention_fwd_general.launches)
+    with torch.inference_mode():
+        low = seeded_clip_sf(cfg, cuda, seed=0, dtype=torch.bfloat16)(*inputs).float()
+        full = seeded_clip_sf(cfg, cuda, seed=0, dtype=torch.float32)(*inputs).float()
+    assert (attention.launches, attention_fwd_general.launches) == before
+    assert torch.isfinite(low).all()
+    assert torch.nn.functional.cosine_similarity(low, full, dim=1).min().item() >= 0.999

@@ -16,7 +16,9 @@ import torch
 from uniir_tpu_torch.ops.attention import (
     attention,
     attention_bwd,
+    attention_bwd_general,
     attention_bwd_reference,
+    attention_fwd_general,
     attention_reference,
     attention_twin,
 )
@@ -158,4 +160,69 @@ def test_cuda_autograd_launches_k1_then_k3(cuda):
     torch.cuda.synchronize()
     assert (attention.launches, attention_bwd.launches) == (before[0] + 1, before[1] + 1)
     for got, want in zip(grads, attention_bwd_reference(q, k, v, g, 12, causal=True)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+# The one-block-a-head K3 at every tile count, with padding (NaN past l_valid
+# in all four inputs), small batches and both head counts; the same limits.
+# The general-length kernels on the same inputs, which they take too.
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [12, 16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("L,causal,l_valid", [(1, False, None), (16, False, None), (64, False, None), (77, True, None),
+                                              (197, False, None), (257, False, None), (272, False, None),
+                                              (272, False, 257), (200, True, 130), (80, False, 3)])
+def test_cuda_fused_k3_matches_twin(cuda, B, L, H, causal, l_valid):
+    q, k, v, g = (t.to(cuda) for t in _inputs(B, L, H * 64, seed=L + H))
+    lv = l_valid or L
+    for t in (q, k, v, g):
+        t[:, lv:] = float("nan")
+    before = (attention_bwd.launches, attention_bwd_general.launches)
+    out = attention_bwd(q, k, v, g, H, causal=causal, l_valid=l_valid)
+    torch.cuda.synchronize()
+    assert (attention_bwd.launches, attention_bwd_general.launches) == (before[0] + 1, before[1])
+    again = attention_bwd(q, k, v, g, H, causal=causal, l_valid=l_valid)
+    ref = attention_bwd_reference(q, k, v, g, H, causal=causal, l_valid=l_valid)
+    old = attention_bwd_general(q, k, v, g, H, causal=causal, l_valid=l_valid)
+    for name, o, a, r, w in zip(("dq", "dk", "dv"), out, again, ref, old):
+        assert torch.isfinite(o.float()).all(), name
+        assert (o[:, lv:] == 0).all(), name
+        assert torch.equal(o, a), f"{name} is not deterministic"
+        torch.testing.assert_close(o.float(), r.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL, msg=name)
+        torch.testing.assert_close(w.float(), r.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL, msg=f"general {name}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,causal", [(530, False), (273, True)])
+def test_cuda_general_k3_takes_the_long_lengths(cuda, L, causal):
+    """272 < L <= 544 launches the general-length kernels (their own counter); longer raises."""
+    q, k, v, g = (t.to(cuda) for t in _inputs(2, L, 16 * 64, seed=L))
+    before = (attention_bwd.launches, attention_bwd_general.launches)
+    out = attention_bwd(q, k, v, g, 16, causal=causal)
+    torch.cuda.synchronize()
+    assert (attention_bwd.launches, attention_bwd_general.launches) == (before[0], before[1] + 1)
+    for name, o, r in zip(("dq", "dk", "dv"), out, attention_bwd_reference(q, k, v, g, 16, causal=causal)):
+        torch.testing.assert_close(o.float(), r.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL, msg=name)
+    with pytest.raises(ValueError, match="shared memory"):
+        attention_bwd(*(t.to(cuda) for t in _inputs(1, 545, 64)), 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,causal,routes", [(3, 257, 16, False, (1, 0, 1, 0)), (2, 77, 12, True, (1, 0, 1, 0)),
+                                                 (2, 300, 4, False, (0, 1, 0, 1))])
+def test_cuda_gradients_through_attention_match_the_twin(cuda, B, L, H, causal, routes):
+    """`attention` (K1 forward, K3 backward behind one autograd Function)
+    against `attention_twin` on the same leaves, and which kernels ran."""
+    q, k, v, g = (t.to(cuda) for t in _inputs(B, L, H * 64, seed=L))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    counters = (attention, attention_fwd_general, attention_bwd, attention_bwd_general)
+    before = [f.launches for f in counters]
+    out = attention(*leaves, H, causal=causal)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert tuple(f.launches - b for f, b in zip(counters, before)) == routes
+    twin = attention_twin(*leaves, H, causal=causal)
+    twin_grads = torch.autograd.grad(twin, leaves, g)
+    torch.testing.assert_close(out.float(), twin.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    for got, want in zip(grads, twin_grads):
         torch.testing.assert_close(got.float(), want.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)

@@ -27,7 +27,7 @@ from uniir_tpu_torch.models.registry import ModelBundle, seeded_clip_sf_train
 from uniir_tpu_torch.train.losses import inbatch_contrastive_loss
 from uniir_tpu_torch.train.optimizer import clip_decay_mask, cosine_schedule, make_clip_optimizer
 from uniir_tpu_torch.train.state import TrainState
-from uniir_tpu_torch.train.steps import clip_loss, make_clip_train_step
+from uniir_tpu_torch.train.steps import clip_loss, make_clip_train_step, make_embed_step, step_seed
 
 CFG = CLIP_CONFIGS["test-tiny"]
 # fp32 on both sides: the loss and optimizer differ only by summation order
@@ -615,6 +615,98 @@ def test_clip_ff_remat_gives_the_same_loss_and_gradients(jax_ff_params):
         torch.testing.assert_close(grads_r[name], g, rtol=0, atol=0, msg=lambda m, name=name: f"{name}: {m}")
 
 
+def _seeded_ff_state(seed=0):
+    from uniir_tpu_torch.models.registry import seeded_clip_ff_train
+
+    model = seeded_clip_ff_train(FF_CFG, "cpu", seed=seed, dtype=torch.float32)
+    return TrainState(model, *make_clip_optimizer(model, LR, TOTAL_STEPS, fusion_learning_rate=FUSION_LR))
+
+
+def test_embed_step_after_a_dropout_train_step_is_deterministic():
+    """The embed step applies the model deterministically whatever mode the
+    last train step left the fusion stack in: two calls on the same object
+    agree with each other and with the `.eval()` model's output."""
+    state = _seeded_ff_state()
+    step = make_clip_train_step(state.model, with_dropout=True, seed=5)
+    state, _ = step(state, _batch())
+    assert state.model.t5_layers.training  # the train step left the dropout on
+    batch = _batch(seed=3)
+    a = make_embed_step(state.model)(dict(batch))
+    state, _ = step(state, _batch(seed=1))  # dropout on again before the second embed step is made
+    assert state.model.t5_layers.training
+    frozen = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+    b, c = make_embed_step(state.model)(dict(batch)), make_embed_step(state.model)(dict(batch))
+    assert torch.equal(b, c)
+    assert not state.model.t5_layers.training
+    from uniir_tpu_torch.train.steps import model_inputs
+
+    with torch.inference_mode():
+        want = state.model.eval()(*model_inputs(batch, torch.device("cpu"))).to(torch.float16)
+    assert torch.equal(b, want)
+    assert a.shape == b.shape and not torch.equal(a, b)  # the parameters moved between the two
+    for n, p in state.model.named_parameters():
+        assert torch.equal(p, frozen[n]), n
+
+
+def test_step_seed_is_a_function_of_seed_and_step():
+    seeds = {step_seed(s, t) for s in (0, 1, 2023) for t in range(50)}
+    assert len(seeds) == 150 and all(0 <= x < 2**63 for x in seeds)
+    assert step_seed(2023, 7) == step_seed(2023, 7)
+
+
+def test_resumed_clip_ff_run_draws_the_uninterrupted_runs_masks(tmp_path):
+    """4 steps straight against 2 steps + checkpoint round trip + 2 steps,
+    dropout on: every parameter bit-equal.  The dropout generator is seeded
+    from (seed, state.step) each step, so nothing of it needs saving."""
+    batches = [_batch(seed=10 + i) for i in range(4)]
+
+    straight = _seeded_ff_state()
+    step = make_clip_train_step(straight.model, with_dropout=True, seed=7)
+    losses = []
+    for b in batches:
+        straight, metrics = step(straight, dict(b))
+        losses.append(metrics["loss"].item())
+
+    first = _seeded_ff_state()
+    step = make_clip_train_step(first.model, with_dropout=True, seed=7)
+    for b in batches[:2]:
+        first, _ = step(first, dict(b))
+    path = save_train_checkpoint(str(tmp_path), "clip_ff", first, 0, Config.from_dict({"seed": 7}))
+    resumed, _ = load_train_checkpoint(path, _seeded_ff_state(seed=1))  # other weights until the checkpoint loads
+    assert resumed.step == 2
+    step = make_clip_train_step(resumed.model, with_dropout=True, seed=7)  # a new step function, as a new process makes
+    resumed_losses = []
+    for b in batches[2:]:
+        resumed, metrics = step(resumed, dict(b))
+        resumed_losses.append(metrics["loss"].item())
+
+    assert resumed_losses == losses[2:]
+    assert losses[2] != losses[0]
+    for (name, p), r in zip(straight.model.named_parameters(), resumed.model.parameters()):
+        assert torch.equal(p, r), name
+
+
+def test_trainer_logs_to_wandb_when_it_is_there_and_goes_on_when_not(monkeypatch, capsys):
+    """`wandb_config.enabled`: a run when the package imports, None and a
+    printed reason when it does not (the reference's gate); off: None."""
+    import sys
+    import types
+
+    from uniir_tpu_torch.train import trainer
+
+    config = Config.from_dict({"seed": 1, "wandb_config": {"enabled": True, "experiment_name": "exp"}})
+    monkeypatch.setitem(sys.modules, "wandb", None)  # import wandb -> ImportError
+    assert trainer.init_wandb(config) is None
+    assert "wandb disabled" in capsys.readouterr().out
+    calls = {}
+    fake = types.ModuleType("wandb")
+    fake.init = lambda **kw: calls.setdefault("init", kw) and "run"
+    monkeypatch.setitem(sys.modules, "wandb", fake)
+    assert trainer.init_wandb(config) == "run" and calls["init"]["name"] == "exp"
+    assert trainer.init_wandb(Config.from_dict({"seed": 1, "wandb_config": {"enabled": False}})) is None
+    assert trainer.init_wandb(Config.from_dict({"seed": 1})) is None
+
+
 def _ff_train_config(root, epochs, resume_from=""):
     config = _train_config(root, epochs, resume_from)
     config.model.name, config.model.short_name = "CLIPFeatureFusion", "TEST_FF"
@@ -657,7 +749,8 @@ def test_trainer_trains_clip_ff_with_the_t5_group_and_serves(tmp_path):
     ckpt_dir = os.path.join(root, "checkpoint/test")
     assert os.path.isfile(os.path.join(ckpt_dir, "test_ff_epoch_0", CHECKPOINT_FILE))
     assert first["state"].step == 2
-    assert first["state"].model.t5_layers.dropout.generator.initial_seed() == 2023  # the dropout's generator: config.seed
+    # the dropout's generator: seeded from (config.seed, the step count) at the top of the last step
+    assert first["state"].model.t5_layers.dropout.generator.initial_seed() == step_seed(2023, 1)
     assert "val_loss" in first["stats"]
     second = trainer.main(_ff_train_config(root, epochs=2, resume_from="test_ff_epoch_0"), bundle=_ff_bundle())
     assert second["stats"]["epoch"] == 1 and second["state"].step == 4

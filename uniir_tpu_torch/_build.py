@@ -34,11 +34,13 @@ _F = ctypes.c_float
 # CUDA error code of its launch.
 SIGNATURES = {
     "attention": {
+        "uniir_attention_fused_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "uniir_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "uniir_attention_norm_first_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "uniir_attention_splitk_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "attention_bwd": {
+        "uniir_attention_fused_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
         "uniir_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     },
     "int8_matmul": {

@@ -5,7 +5,7 @@
 // every block but the pooled last one of the CLIP towers and of the BLIP ViT.
 // K8 and K9 replace mha_nocausal (_attn_kernel, over [B, L, H, D], which is
 // the same memory) and mha_paired (_paired_kernel) of the same file: the
-// NORM_FIRST variant of the kernel below, described after K1.
+// NORM_FIRST variant of the general-length kernel below, described after K1.
 //
 // Computes, per (batch, head): out = softmax(q k^T * scale) v with
 //   * q rounded to bf16 after the scale multiply (as the TPU kernel does),
@@ -16,18 +16,55 @@
 //     by multiplying with 0), V rows >= l_valid zeroed by select.
 // Scores and probabilities never reach device memory.
 //
-// What bounds it on an H100: at CLIP shapes (L=257/77, D=64) the work is
-// small matrix products plus an exp per score; the kernel is latency- and
-// issue-bound, not HBM-bound (q, k, v, o are read or written once).  Design:
-// one block per (query tile of 64 rows, head, batch); K and V^T for all of L
-// sit in shared memory (~75 KB at L=257, above the 48 KB default, hence the
-// dynamic shared-memory attribute), read [B, L, H*D] in place with no
-// transpose in device memory.  Each warp owns 16 query rows, keeps its Q
-// fragments in registers and runs mma.sync m16n8k16 (bf16 in, fp32 out).
-// Softmax is two-pass over the keys (pass 1: row max; pass 2: recompute the
-// scores, exp, row sum and PV), which reproduces the reference kernel's
-// rounding points exactly at the price of 1.5x the QK^T work.  A faster
-// wgmma/TMA version is later work.
+// Two kernels compute it; ops/attention.py::forward_route picks one by shape
+// before the launch.
+//
+// attention_fused_fwd_kernel (L <= 272: every length the models use).  What
+// bounded K1 on an H100 was neither HBM (q, k, v, o move once: 0.04 ms at
+// CLIP's vision shape) nor the tensor cores (17 GFLOP: 0.02 ms) but how the
+// products were fed: the general kernel below stages a head's K and V five
+// times at L = 257 (once a 64-row tile, the fifth for one valid row), through
+// a bank-conflicted scalar transpose, with nothing in flight meanwhile, and
+// computes q k^T twice.  Design:
+//   * one block (one warpgroup) per (batch, head) stages the head's K and V
+//     once, with 16-byte cp.async into row-major tiles in the 128-byte
+//     swizzle (mma.cuh), K and V as two groups so that the V copy runs under
+//     the first q k^T and softmax; 70 KB and 231 registers: two blocks an SM,
+//     one staging or in its softmax while the other's products run;
+//   * wgmma for both products (wgmma.cuh), m64nNk16 with A in registers: q k^T
+//     reads the K tile as a K-major B operand through its descriptor, p v
+//     reads the V tile row-major through the transposed-B descriptor.  No
+//     transposed copy, no ldmatrix, no B fragment in registers;
+//   * the warpgroup walks the head's 64-query tiles and keeps a tile's whole
+//     fp32 score row in registers (NT n8 tiles, a template parameter: 136
+//     registers a thread at 272 keys, as four products of 64 keys and one of 16): q k^T once,
+//     the exact row max, e = exp(s - m) as one FFMA and one ex2.approx, the
+//     fp32 row sum, bf16(e) straight from the accumulators into the A operand
+//     of p v, one multiply by 1 / rowsum.  These are the twin's rounding
+//     points, with the fp32 sums in another order and exp within 2 ulp of
+//     fp32 (far below the bf16 rounding of e): two products where the general
+//     kernel does three;
+//   * q is read from device memory in fragment layout a tile ahead, so the
+//     loads fly under the current tile's softmax;
+//   * keys past l_valid are masked by select only in the last n8 tiles, which
+//     alone can hold one; a warp whose 16 rows are all past L (three of four
+//     in the fifth tile of L = 257) skips the softmax and feeds zeros.
+// What bounds it now (0.090 ms at [64,257,1024]; measured by leaving parts
+// out of the version that took 0.103 ms, before q was read a tile ahead): the
+// staging alone is 0.024 ms, near HBM's rate; the softmax's ALU work (max,
+// FFMA, ex2, sum, pack: 89 M scores) is 0.045 ms, of which ex2 is 0.013; the
+// fifth tile, one valid row, costs 13 %.  The products are the small part:
+// going from mma.sync + ldmatrix (0.120 ms) to wgmma freed issue slots more
+// than tensor time.  Next: a persistent block that loads the next head under
+// this one, and two warpgroups that share one staging.
+//
+// attention_fwd_kernel<false> (the general-length K1, 272 < L <= 848): one
+// block per (query tile of 64 rows, head, batch); K and V^T for all of L sit
+// in shared memory (75 KB at L=257, 232 KB at L=848), V transposed by scalar
+// stores; each warp owns 16 query rows and runs mma.sync with 32-bit
+// shared-memory B fragments.  Softmax is two-pass over the keys (pass 1: row
+// max; pass 2: recompute the scores, exp, row sum and PV): the same rounding
+// points at 1.5x the QK^T work, with registers that do not grow with L.
 //
 // NORM_FIRST (K8 / K9) keeps the other two Pallas kernels' rounding points:
 //   * q is NOT pre-scaled: s = fp32(q k^T) * scale, in fp32 after the product,
@@ -60,12 +97,12 @@
 #include <cuda_bf16.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using uniir::mma_bf16_16816;
-using uniir::pack_bf16x2;
+using namespace uniir;
 
 constexpr int D = 64;          // head dim (the wrapper checks)
 constexpr int WARPS = 4;
@@ -402,6 +439,132 @@ attention_splitk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, 
   }
 }
 
+// K1 for L <= 272: see the file header.  NT = the n8 key tiles of a score row
+// (l_valid <= 8 NT, and > 8 (NT - 8) for the smallest instantiation that holds
+// it, so only the last 8 tiles can hold a key >= l_valid and select; CAUSAL
+// tests every tile that reaches the diagonal).  Block (head, batch) of one
+// warpgroup, which walks the head's 64-query tiles; two blocks an SM.
+template <int NT, bool CAUSAL>
+__global__ void __launch_bounds__(128, 2)
+attention_fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                           bf16* __restrict__ o, int L, int H, int l_valid, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr int kpad = NT * 8;  // keys staged
+  constexpr int EDGE = NT > 10 ? NT - 8 : 0;
+  // the hardware's swizzle is a function of the address: the tiles start on a 1024-byte boundary
+  unsigned char* Ks = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  unsigned char* Vs = Ks + kpad * TILE_ROW_BYTES;
+  const int W = H * D;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t base = (size_t)b * L * W + (size_t)h * D;
+
+  // rows >= l_valid are zero: a masked key's score is never NaN and padding never reaches PV
+  stage_head_rows(Ks, k, base, W, kpad, l_valid);
+  cp_async_commit();
+  stage_head_rows(Vs, v, base, W, kpad, l_valid);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t k_desc = wgmma_desc(smem_u32(Ks)), v_desc = wgmma_desc(smem_u32(Vs));
+
+  cp_async_wait<1>();  // K has landed
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t qraw[D / 16][4];
+  load_a_words(qraw, q, base, W, L, warp * 16);
+  for (int q0 = 0; q0 < L; q0 += 64) {
+    const int wq0 = q0 + warp * 16;  // this warp's 16 rows of the tile
+    const int row_lo = wq0 + g, row_hi = wq0 + g + 8;
+    // Q fragments, scaled and rounded to bf16 (q * bf16(scale) in the reference), from the raw
+    // words loaded a tile ahead
+    uint32_t qa[D / 16][4];
+    scale_words(qa, qraw, scale);
+    float s[NT][4];
+    wgmma_fence();
+    wgmma_row_kmajor<NT>(s, qa, k_desc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs<4 * NT>(&s[0][0]);
+    load_a_words(qraw, q, base, W, L, wq0 + 64);  // the next tile's rows: the loads fly under this tile's softmax
+
+    uint32_t pa[NT / 2][4];
+    float l_lo = 0.f, l_hi = 0.f;
+    if (wq0 < L) {  // warp-uniform: a warp with no valid row skips the softmax
+      float m_lo = -INFINITY, m_hi = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (CAUSAL ? (j * 8 + 8 > l_valid || j * 8 + 7 > wq0) : j >= EDGE) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = j * 8 + 2 * t + (e & 1);
+            const int row = e < 2 ? row_lo : row_hi;
+            const bool keep = key < l_valid && (!CAUSAL || key <= row);
+            s[j][e] = keep ? s[j][e] : NEG;
+          }
+        }
+        m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
+        m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
+      }
+      // exp(s - m) = 2^(s log2e - m log2e): one FFMA and one ex2.approx a score
+      const float c_lo = quad_max(m_lo) * LOG2E, c_hi = quad_max(m_hi) * LOG2E;
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+        for (int j = 2 * kk; j < 2 * kk + 2; ++j) {
+          s[j][0] = exp2_approx(fmaf(s[j][0], LOG2E, -c_lo));
+          s[j][1] = exp2_approx(fmaf(s[j][1], LOG2E, -c_lo));
+          s[j][2] = exp2_approx(fmaf(s[j][2], LOG2E, -c_hi));
+          s[j][3] = exp2_approx(fmaf(s[j][3], LOG2E, -c_hi));
+          l_lo += s[j][0] + s[j][1];
+          l_hi += s[j][2] + s[j][3];
+        }
+        c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    }
+    if (q0 == 0) {
+      cp_async_wait<0>();  // V has landed, under the first tile's q k^T and softmax
+      fence_proxy_async();
+      __syncthreads();
+    }
+    float acc[D / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      wgmma_m64n64k16_bt(&acc[0][0], pa[kk], v_desc + desc_rows(16 * kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs<D / 2>(&acc[0][0]);
+    const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      if (row_lo < L)
+        *reinterpret_cast<uint32_t*>(o + base + (size_t)row_lo * W + col) =
+            pack_bf16x2(acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
+      if (row_hi < L)
+        *reinterpret_cast<uint32_t*>(o + base + (size_t)row_hi * W + col) =
+            pack_bf16x2(acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
+    }
+  }
+}
+
+template <int NT>
+int launch_fused(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid, int causal,
+              float scale, void* stream) {
+  const int smem = 2 * NT * 8 * TILE_ROW_BYTES + 1024;  // two tiles and the slack to align them
+  auto kern = causal ? attention_fused_fwd_kernel<NT, true> : attention_fused_fwd_kernel<NT, false>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(H, B), 128, smem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      L, H, l_valid, scale);
+  return (int)cudaGetLastError();
+}
+
 // Shared memory the kernel needs at sequence length L (bytes); the wrapper
 // in ops/attention.py computes the same bound to refuse too long a sequence.
 int smem_bytes(int L) {
@@ -428,8 +591,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int L, i
 
 extern "C" {
 
-// q, k, v, o: contiguous [B, L, H*64] bf16 on the device.  Launches on
-// `stream`; returns the CUDA error code of the launch (0 on success).
+// K1 for L <= 272 (the wrapper checks).  q, k, v, o: contiguous [B, L, H*64]
+// bf16 on the device; `scale` is bf16(scale).  Launches on `stream`; returns
+// the CUDA error code of the launch (0 on success).
+int uniir_attention_fused_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid,
+                              int causal, float scale, void* stream) {
+  const int nt = (l_valid + 7) / 8;  // n8 key tiles; the smallest instantiation that holds them
+  if (L > 272 || l_valid < 1 || l_valid > L) return (int)cudaErrorInvalidValue;
+  if (nt <= 10) return launch_fused<10>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+  if (nt <= 18) return launch_fused<18>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+  if (nt <= 26) return launch_fused<26>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+  return launch_fused<34>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+}
+
+// The general-length K1: the same tensors and arguments, any L whose K and
+// V^T fit one block's shared memory (the wrapper checks).
 int uniir_attention_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid,
                         int causal, float scale, void* stream) {
   return launch<false>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);

@@ -43,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from uniir_tpu_torch.ops import mlp as mlp_ops
 from uniir_tpu_torch.ops import quant as quant_ops
-from uniir_tpu_torch.ops.attention import attention
+from uniir_tpu_torch.ops.attention import attention, kernel_supported
 from uniir_tpu_torch.ops.image_ops import cubic_resize_matrix
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (PyTorch's and OpenAI CLIP's is 1e-5)
@@ -125,9 +125,12 @@ class MultiHeadAttention(nn.Module, _ActScales):
     nn.MultiheadAttention layout: `in_proj_weight`, `in_proj_bias`,
     `out_proj`).
 
-    bf16 self-attention with no explicit mask goes through kernel K1; every
-    other case (fp32, cross/pooled attention, an explicit mask) takes the
-    plain einsum path, as in the JAX package.
+    bf16 self-attention with no explicit mask goes through kernel K1 where
+    `ops.attention.kernel_supported` has a kernel for the shape (head width
+    64, a length within a kernel's budget; a CPU tensor runs K1's twin at any
+    shape); every other case (fp32, cross/pooled attention, an explicit
+    mask, another head width) takes the plain einsum path, as in the JAX
+    package.
 
     With `quant` the projections are int8 (`qkv_proj`, `out_proj`): one
     fused [3W, W] weight whose thirds are applied as column-sliced products,
@@ -179,7 +182,11 @@ class MultiHeadAttention(nn.Module, _ActScales):
             out_proj = self.out_proj
         head_dim = self.width // self.num_heads
         scale = head_dim**-0.5
-        if kv is None and mask is None and q.dtype == torch.bfloat16:
+        # the route is settled by shape before any launch: a head width or a length no kernel takes
+        # runs the einsum below (the JAX layer asks `paired_attention_supported` the same way)
+        training = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+        if (kv is None and mask is None and q.dtype == torch.bfloat16
+                and (not q.is_cuda or kernel_supported(self.num_heads, self.width, q.shape[1], training))):
             return out_proj(attention(q, k, v, self.num_heads, scale, self.causal, splitk=self.attn_splitk))
 
         B, Lq, Lk = x.shape[0], q.shape[1], k.shape[1]

@@ -11,6 +11,19 @@ its plain PyTorch twin (`attention_reference`, `attention_bwd_reference`).
 `attention_twin` is the same Function over the twins on any device: the
 reference the kernels are held against.
 
+Which kernel runs is a static rule over the shape, settled before any
+launch (`forward_route`, `backward_route`, `kernel_supported`).  K1 and K3
+each have two kernels of one function: the one-block-a-head kernels
+(`attention_fused_fwd_kernel`, `attention_fused_bwd_kernel`: a head's K and V
+staged once, the score row in registers) for L <= FUSED_MAX_L, which covers
+every length the models use (77, 197, 257), and the general-length kernels
+(`attention_fwd_general`, `attention_bwd_general`: a block per 64-row tile)
+for longer sequences up to what their shared memory holds.  A head width
+other than 64, or a length no kernel takes, has no kernel: the model's
+attention layer asks `kernel_supported` and takes its einsum path, as the
+JAX layer asks `paired_attention_supported`; called directly, the wrappers
+raise.
+
 With `splitk=True` (the JAX package's `UNIIR_ATTN_SPLITK=1`) a non-causal
 call whose valid length is one past a multiple of 128 -- CLIP's vision
 tower, L = 257 -- takes K10 as its forward (`attention_splitk`, the
@@ -30,6 +43,7 @@ NORM_FIRST variant of `csrc/attention.cu`, with the plain twin
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable, Optional
 
@@ -40,10 +54,55 @@ from uniir_tpu_torch import _build
 NEG = -1e30  # score of a masked key (the reference kernel's value)
 HEAD_DIM = 64  # the CUDA kernels' head width
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
+FUSED_MAX_L = 272  # the one-block-a-head kernels keep a 64-row tile's scores over all keys in registers
 
 
+def _general_fwd_smem(L: int) -> int:
+    l_pad = -(-L // 16) * 16
+    return l_pad * (HEAD_DIM + 8) * 2 + HEAD_DIM * (l_pad + 8) * 2  # K rows and V^T (smem_bytes in attention.cu)
+
+
+def _general_bwd_smem(L: int) -> int:
+    l_pad = -(-L // 16) * 16
+    return 2 * l_pad * (HEAD_DIM + 8) * 2 + HEAD_DIM * (l_pad + 8) * 2  # K, V rows and K^T (dq_smem_bytes)
+
+
+def _route(head_dim: int, L: int, general_smem: Callable[[int], int]) -> Optional[str]:
+    if head_dim != HEAD_DIM or L < 1:
+        return None
+    if L <= FUSED_MAX_L:
+        return "fused"
+    return "general" if general_smem(L) <= MAX_SMEM_BYTES else None
+
+
+def forward_route(head_dim: int, L: int) -> Optional[str]:
+    """The K1 kernel a CUDA bf16 call of this shape launches: "fused" (one
+    block a head, L <= 272), "general" (L <= 848), or None where no kernel
+    takes the shape."""
+    return _route(head_dim, L, _general_fwd_smem)
+
+
+def backward_route(head_dim: int, L: int) -> Optional[str]:
+    """The K3 kernel for this shape: "fused" (L <= 272), "general"
+    (L <= 544), or None."""
+    return _route(head_dim, L, _general_bwd_smem)
+
+
+def kernel_supported(heads: int, width: int, L: int, training: bool) -> bool:
+    """Whether `attention` has a kernel for [B, L, width] with `heads` heads:
+    K1 for the forward and, when a gradient will be asked (`training`), K3
+    for the backward.  The model's attention layer takes its einsum path
+    where this is False, as the JAX layer does where
+    `paired_attention_supported` is."""
+    if heads < 1 or width % heads:
+        return False
+    head_dim = width // heads
+    return forward_route(head_dim, L) is not None and (not training or backward_route(head_dim, L) is not None)
+
+
+@functools.lru_cache(maxsize=None)
 def _bf16_scale(scale: float) -> float:
-    # the reference kernel multiplies bf16 q by bf16(scale)
+    # the reference kernel multiplies bf16 q by bf16(scale); cached: the wrappers run it every launch
     return float(torch.tensor(scale, dtype=torch.bfloat16))
 
 
@@ -248,23 +307,101 @@ def attention_bwd_reference(
     return tuple(d.reshape(B, L, W).to(t.dtype) for d, t in ((dq, q), (dk, k), (dv, v)))
 
 
-def _attention_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool, l_valid: int) -> torch.Tensor:
-    """K1 on a CUDA tensor, its twin on a CPU tensor."""
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, heads, scale, causal, l_valid)
-    _check_cuda({"q": q, "k": k, "v": v}, heads)
+def _launch_fwd(entry: str, what: str, q, k, v, heads: int, scale: Optional[float], causal: bool, l_valid: int):
     B, L, W = q.shape
-    l_pad = -(-L // 16) * 16
-    if l_pad * (HEAD_DIM + 8) * 2 + HEAD_DIM * (l_pad + 8) * 2 > MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {L} needs more shared memory than one block has")
     lib = _build.load("attention")
     out = torch.empty_like(q)
-    err = lib.uniir_attention_fwd(
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, heads, l_valid, int(causal),
         _bf16_scale((W // heads) ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(lib, err, "attention kernel")
+    _build.check(lib, err, what)
+    return out
+
+
+def attention_fwd_general(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: Optional[float] = None,
+    causal: bool = False,
+    l_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """K1's general-length kernel (a block per 64-query tile, K and V^T of
+    all keys in shared memory), forward only, on CUDA tensors: what
+    `attention` launches for 272 < L <= 848.  It takes the shorter lengths
+    too, which is how the two kernels are timed side by side."""
+    lv = _check_args(q, k, v, heads, l_valid)
+    _check_cuda({"q": q, "k": k, "v": v}, heads)
+    if _general_fwd_smem(q.shape[1]) > MAX_SMEM_BYTES:
+        raise ValueError(f"sequence length {q.shape[1]} needs more shared memory than one block has")
+    out = _launch_fwd("uniir_attention_fwd", "attention kernel (general length)", q, k, v, heads, scale, causal, lv)
+    attention_fwd_general.launches += 1
+    return out
+
+
+def _attention_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool, l_valid: int) -> torch.Tensor:
+    """K1 on a CUDA tensor (the kernel `forward_route` names), its twin on a CPU tensor."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, heads, scale, causal, l_valid)
+    _check_cuda({"q": q, "k": k, "v": v}, heads)
+    route = forward_route(q.shape[2] // heads, q.shape[1])
+    if route == "general":
+        return attention_fwd_general(q, k, v, heads, scale, causal, l_valid)
+    if route is None:
+        raise ValueError(f"sequence length {q.shape[1]} needs more shared memory than one block has")
+    out = _launch_fwd("uniir_attention_fused_fwd", "attention kernel", q, k, v, heads, scale, causal, l_valid)
     attention.launches += 1
+    return out
+
+
+def _launch_bwd(entry: str, what: str, q, k, v, g, heads: int, scale: Optional[float], causal: bool, l_valid: int,
+                stats: Optional[torch.Tensor]):
+    W = q.shape[2]
+    lib = _build.load("attention_bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    sc = (W // heads) ** -0.5 if scale is None else scale
+    scratch = () if stats is None else (stats.data_ptr(),)
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *scratch, q.shape[0], q.shape[1], heads, l_valid, int(causal), _bf16_scale(sc), sc,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, what)
+    return dq, dk, dv
+
+
+def _check_bwd_args(q, k, v, g, heads: int, l_valid: Optional[int]) -> int:
+    lv = _check_args(q, k, v, heads, l_valid)
+    if g.shape != q.shape:
+        raise ValueError(f"g must have q's shape {q.shape}, got {g.shape}")
+    return lv
+
+
+def attention_bwd_general(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    g: torch.Tensor,
+    heads: int,
+    scale: Optional[float] = None,
+    causal: bool = False,
+    l_valid: Optional[int] = None,
+):
+    """K3's general-length kernels (two launches, a block per 64-row tile,
+    the row statistics through an fp32 scratch in device memory) on CUDA
+    tensors: what `attention_bwd` launches for 272 < L <= 544.  It takes the
+    shorter lengths too, which is how the two are timed side by side."""
+    lv = _check_bwd_args(q, k, v, g, heads, l_valid)
+    _check_cuda({"q": q, "k": k, "v": v, "g": g}, heads)
+    B, L, _ = q.shape
+    if _general_bwd_smem(L) > MAX_SMEM_BYTES:
+        raise ValueError(f"sequence length {L} needs more shared memory than one backward block has")
+    stats = torch.empty(3 * B * heads * L, dtype=torch.float32, device=q.device)  # row max, row sum, delta
+    out = _launch_bwd("uniir_attention_bwd", "attention backward kernel (general length)", q, k, v, g, heads, scale,
+                      causal, lv, stats)
+    attention_bwd_general.launches += 1
     return out
 
 
@@ -278,29 +415,22 @@ def attention_bwd(
     causal: bool = False,
     l_valid: Optional[int] = None,
 ):
-    """(dq, dk, dv) of `attention` for the cotangent g; see K3 in csrc/attention_bwd.cu."""
-    lv = _check_args(q, k, v, heads, l_valid)
-    if g.shape != q.shape:
-        raise ValueError(f"g must have q's shape {q.shape}, got {g.shape}")
+    """(dq, dk, dv) of `attention` for the cotangent g; see K3 in
+    csrc/attention_bwd.cu.  On CUDA tensors the kernel `backward_route`
+    names, on CPU tensors the twin."""
+    lv = _check_bwd_args(q, k, v, g, heads, l_valid)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, g, heads, scale, causal, lv)
     _check_cuda({"q": q, "k": k, "v": v, "g": g}, heads)
-    B, L, W = q.shape
-    l_pad = -(-L // 16) * 16
-    if 2 * l_pad * (HEAD_DIM + 8) * 2 + HEAD_DIM * (l_pad + 8) * 2 > MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {L} needs more shared memory than one backward block has")
-    lib = _build.load("attention_bwd")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(3 * B * heads * L, dtype=torch.float32, device=q.device)  # row max, row sum, delta
-    sc = (W // heads) ** -0.5 if scale is None else scale
-    err = lib.uniir_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        stats.data_ptr(), B, L, heads, lv, int(causal), _bf16_scale(sc), sc,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, err, "attention backward kernel")
+    route = backward_route(q.shape[2] // heads, q.shape[1])
+    if route == "general":
+        return attention_bwd_general(q, k, v, g, heads, scale, causal, lv)
+    if route is None:
+        raise ValueError(f"sequence length {q.shape[1]} needs more shared memory than one backward block has")
+    out = _launch_bwd("uniir_attention_fused_bwd", "attention backward kernel", q, k, v, g, heads, scale, causal, lv,
+                      None)
     attention_bwd.launches += 1
-    return dq, dk, dv
+    return out
 
 
 class _Attention(torch.autograd.Function):
@@ -331,7 +461,8 @@ def attention(
     splitk: bool = False,
 ) -> torch.Tensor:
     """softmax(q k^T * scale) v per head over [B, L, H*D], differentiable:
-    K1 forward (csrc/attention.cu), K3 backward (csrc/attention_bwd.cu).
+    K1 forward (csrc/attention.cu), K3 backward (csrc/attention_bwd.cu), each
+    through the kernel its route names (`forward_route`, `backward_route`).
     `splitk` makes K10 the forward where `splitk_applies`, K1 elsewhere."""
     lv = _check_args(q, k, v, heads, l_valid)
     fwd = _splitk_fwd if splitk and splitk_applies(lv, causal) else _attention_fwd
@@ -379,8 +510,7 @@ def _norm_first_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool) -
     """The NORM_FIRST kernel over [B, L, H*64] CUDA tensors (the caller counts the launch)."""
     _check_cuda({"q": q, "k": k, "v": v}, heads)
     B, L, W = q.shape
-    l_pad = -(-L // 16) * 16
-    if l_pad * (HEAD_DIM + 8) * 2 + HEAD_DIM * (l_pad + 8) * 2 > MAX_SMEM_BYTES:
+    if _general_fwd_smem(L) > MAX_SMEM_BYTES:
         raise ValueError(f"sequence length {L} needs more shared memory than one block has")
     lib = _build.load("attention")
     out = torch.empty_like(q)
@@ -424,7 +554,9 @@ def mha_paired(
 
 
 attention.launches = 0
+attention_fwd_general.launches = 0
 attention_splitk.launches = 0
 attention_bwd.launches = 0
+attention_bwd_general.launches = 0
 mha_nocausal.launches = 0
 mha_paired.launches = 0

@@ -10,8 +10,11 @@ scaling.
 
 CLIP-FF's T5 fusion stack is the one part with stochastic layers.  The
 train step puts it in train mode only `with_dropout`, and its dropout then
-draws from one `torch.Generator` on the model's device, seeded from `seed`
-when the step is made; the eval step runs it in eval mode, deterministic.
+draws from one `torch.Generator` on the model's device, seeded anew from
+(`seed`, `state.step`) at the top of every step -- the counterpart of
+`fold_in(PRNGKey(seed), state.step)` -- so a resumed run draws the masks the
+uninterrupted run would have drawn and a checkpoint saves no generator
+state.  The eval and embed steps run the stack in eval mode, deterministic.
 """
 
 from __future__ import annotations
@@ -66,6 +69,12 @@ def _set_fusion_mode(model: torch.nn.Module, training: bool) -> None:
         fusion.train(training)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The dropout generator's seed for micro-batch `step` of a run seeded
+    with `seed`: a function of the pair alone, distinct across both."""
+    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
 def make_clip_train_step(
     model: torch.nn.Module,
     hard_neg_num: int = 0,
@@ -77,15 +86,18 @@ def make_clip_train_step(
     in-batch contrastive loss, backward and one `TrainState.apply_gradients`.
     step(state, batch) returns (state, {"loss", "inbatch_accuracy"}) with the
     metrics as device tensors.  `with_dropout` switches on CLIP-FF's fusion
-    dropout, drawn from a generator seeded with `seed` (config.seed)."""
+    dropout, drawn from a generator that every step seeds from (`seed`,
+    `state.step`), `seed` being config.seed."""
+    generator = None
     if with_dropout:
         if not hasattr(model, "t5_layers"):
             raise ValueError(f"with_dropout: {type(model).__name__} has no stochastic layer")
-        device = model.logit_scale.device
-        model.t5_layers.set_dropout_generator(torch.Generator(device=device).manual_seed(seed))
+        generator = torch.Generator(device=model.logit_scale.device)
 
     def step(state: TrainState, batch: Dict[str, Any]):
         _set_fusion_mode(model, with_dropout)
+        if generator is not None:
+            model.t5_layers.set_dropout_generator(generator.manual_seed(step_seed(seed, state.step)))
         out = clip_loss(model, batch, hard_neg_num, in_batch_neg_num)
         out["loss"].backward()
         state.apply_gradients()
@@ -115,6 +127,7 @@ def make_embed_step(model: torch.nn.Module, out_dtype: torch.dtype = torch.float
     device = next(model.parameters()).device
 
     def step(batch: Dict[str, Any]) -> torch.Tensor:
+        _set_fusion_mode(model, False)  # deterministic, as the eval step
         with torch.inference_mode():
             return model(*model_inputs(batch, device)).to(out_dtype)
 

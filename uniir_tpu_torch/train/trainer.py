@@ -8,8 +8,9 @@ build the model with fp32 master weights -> AdamW in the CLIP groups with
 the cosine schedule over all updates (CLIP-FF: the T5 fusion stack at
 `trainer_config.t5_learning_rate`, and its dropout on) -> train state -> resume -> loaders
 (epoch-shuffled) -> epoch loop with a checkpoint per epoch and optional
-in-batch validation.  The file-reading data path is the port's own
-(`uniir_tpu_torch/data`: dataset, collator, `MBEIRLoader`,
+in-batch validation, logged to wandb when `wandb_config.enabled` and the
+package is installed.  The file-reading data path is the port's own
+(`uniir_tpu_torch/data`: `build_mbeir_dataset_from_config`, `MBEIRLoader`,
 `EpochShuffleSampler`; Pillow is needed only once an image is opened);
 `train_one_epoch` takes any iterable of collated batches.  The BLIP
 retrievers, and training over several processes, raise until they are
@@ -25,9 +26,8 @@ import numpy as np
 import torch
 
 from uniir_tpu_torch.core.checkpoint import load_train_checkpoint, save_train_checkpoint
-from uniir_tpu_torch.core.config import load_config, parse_image_size
-from uniir_tpu_torch.data.collator import MBEIRMainCollator
-from uniir_tpu_torch.data.dataset import MBEIRMainDataset, Mode
+from uniir_tpu_torch.core.config import load_config
+from uniir_tpu_torch.data.data_utils import DatasetType, build_mbeir_dataset_from_config
 from uniir_tpu_torch.data.loader import EpochShuffleSampler, MBEIRLoader
 from uniir_tpu_torch.models.registry import build_model_from_config
 from uniir_tpu_torch.train.engine import eval_engine, train_one_epoch
@@ -63,27 +63,10 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
         bundle = build_model_from_config(config, device, train=True)
     hard_neg_num = int(getattr(data_config, "hard_neg_num", 0))
     in_batch_neg_num = int(getattr(data_config, "in_batch_neg_num", 0))
-    returns = getattr(data_config, "returns", None)
-    returns = dict(returns.items()) if returns is not None and hasattr(returns, "items") else (returns or {})
 
-    def loader(split: str, img_preprocess_fn, batch_size):
-        # uniir_tpu/data/data_utils.py's MAIN_TRAIN / IN_BATCH_VAL datasets
-        # (in-batch validation computes the train loss, as the reference)
-        dataset = MBEIRMainDataset(
-            mbeir_data_dir=config.mbeir_data_dir,
-            query_data_path=getattr(data_config, f"{split}_query_data_path"),
-            cand_pool_path=getattr(data_config, f"{split}_cand_pool_path"),
-            query_instruct_path=data_config.query_instruct_path,
-            img_preprocess_fn=img_preprocess_fn,
-            mode=Mode.TRAIN,
-            enable_query_instruct=data_config.enable_query_instruct,
-            shuffle_cand=data_config.shuffle_cand,
-            hard_neg_num=hard_neg_num,
-            returns={"hashed_p_did": True, "hashed_n_dids": hard_neg_num > 0, **returns},
-        )
-        collator = MBEIRMainCollator(
-            tokenizer=bundle.tokenizer, image_size=parse_image_size(data_config.image_size), mode=Mode.TRAIN,
-            hard_neg_num=hard_neg_num,
+    def loader(dataset_type: DatasetType, img_preprocess_fn, batch_size):
+        dataset, collator = build_mbeir_dataset_from_config(
+            config=config, tokenizer=bundle.tokenizer, img_preprocess_fn=img_preprocess_fn, dataset_type=dataset_type
         )
         sampler = EpochShuffleSampler(len(dataset), num_replicas=1, rank=0, seed=int(config.seed))
         return dataset, sampler, MBEIRLoader(
@@ -92,11 +75,13 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
         )
 
     train_dataset, train_sampler, train_loader = loader(
-        "train", bundle.img_preprocess_fn, config.dataloader_config.train_batch_size
+        DatasetType.MAIN_TRAIN, bundle.img_preprocess_fn, config.dataloader_config.train_batch_size
     )
     valid_loader = None
     if config.evaluator.enable_eval:
-        valid_loader = loader("val", bundle.img_preprocess_fn_eval, config.dataloader_config.valid_batch_size)[2]
+        valid_loader = loader(
+            DatasetType.IN_BATCH_VAL, bundle.img_preprocess_fn_eval, config.dataloader_config.valid_batch_size
+        )[2]
 
     accum = int(getattr(trainer_config, "gradient_accumulation_steps", 1))
     num_epochs = int(trainer_config.num_train_epochs)
@@ -147,7 +132,7 @@ def _setup_file_logging(config) -> None:
     logging.getLogger(__name__).info(config.to_dict())
 
 
-def main(config, bundle=None, device=None) -> dict:
+def main(config, bundle=None, device=None, wandb_run=None) -> dict:
     np.random.seed(int(config.seed))
     torch.manual_seed(int(config.seed))
     _setup_file_logging(config)
@@ -186,7 +171,28 @@ def main(config, bundle=None, device=None) -> dict:
                 best_epoch = epoch
         save_train_checkpoint(ckpt_dir, short_name, state, epoch, config)
         last_stats = log_results(train_stats, val_stats, None, epoch, best_epoch)
+        if wandb_run is not None:
+            wandb_run.log(last_stats)
     return {"state": state, "stats": last_stats, "best_epoch": best_epoch}
+
+
+def init_wandb(config):
+    """A wandb run when `wandb_config.enabled` and the package is there;
+    None, with a printed reason, when it is missing or offline (the reference
+    gates it the same way and trains on)."""
+    wandb_cfg = getattr(config, "wandb_config", None)
+    if wandb_cfg is None or not getattr(wandb_cfg, "enabled", False):
+        return None
+    try:
+        import wandb
+
+        return wandb.init(
+            project=os.environ.get("WANDB_PROJECT"), entity=os.environ.get("WANDB_ENTITY"),
+            name=wandb_cfg.experiment_name, config=config.to_dict(),
+        )
+    except Exception as e:  # wandb not installed / offline: say so and go on
+        print(f"wandb disabled: {e}")
+        return None
 
 
 def cli(argv=None):
@@ -199,10 +205,11 @@ def cli(argv=None):
     config = load_config(args.config_path)
     config.uniir_dir = args.uniir_dir
     config.mbeir_data_dir = args.mbeir_data_dir
-    wandb_cfg = getattr(config, "wandb_config", None)
-    if wandb_cfg is not None and getattr(wandb_cfg, "enabled", False):
-        raise NotImplementedError("wandb logging is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 7)")
-    return main(config, device=args.device)
+    wandb_run = init_wandb(config)
+    result = main(config, device=args.device, wandb_run=wandb_run)
+    if wandb_run is not None:
+        wandb_run.finish()
+    return result
 
 
 if __name__ == "__main__":
