@@ -6,12 +6,16 @@
 1. builds the port's kernels (uniir_tpu_torch/csrc, nvcc for sm_90a) from the
    checkout and checks each against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
-   BLIP's L = 197 and the main path's batch -- its one-block-a-head kernel
-   and its general-length kernel both, timed in turns, and the general one
-   also at L = 577, which only it takes -- K10 (split-K attention) at the
-   CLIP-L vision shape against its twin and against K1, and that the flag
-   leaves L = 197 and the causal L = 77 to K1, K8 / K9 (the stand-alone
-   `mha_nocausal` / `mha_paired`) at the BLIP and CLIP shapes, K7 (fused
+   BLIP's L = 197, the `base` configs' shapes (ViT-B/32 vision L = 50 and
+   text L = 77 at width 512) and the main path's batch -- its
+   one-block-a-head kernel and its general-length kernel both, timed in
+   turns, and the general one also at L = 577, which only it takes -- K10
+   (split-K attention) at the CLIP-L vision shape against its twin and
+   against K1, its two kernels timed in turns and the general one also at
+   l_valid = 385, and that the flag leaves L = 197 and the causal L = 77 to
+   K1, K8 / K9 (the stand-alone `mha_nocausal` / `mha_paired`) at the BLIP,
+   CLIP and `base` shapes, their two kernels timed in turns and the general
+   one also at L = 577, K7 (fused
    image preprocessing) at uint8 [64, 256, 256, 3] -> 224 in both methods
    and output types, K2 / K4 / K11 sweeps at the main path's small pool, K11
    on a pool cut inside a chunk's first rows, and all three on a seeded
@@ -45,7 +49,8 @@
    the two runs' embeddings and of kernels against twins inside the model,
    the pools' ids and the copied candidates;
 5. checks K3, the attention backward, against its twin at the CLIP-L vision
-   and text shapes (and against autograd through the plain forward): its
+   and text shapes and the `base` shapes (and against autograd through the
+   plain forward): its
    one-block-a-head kernel and its general-length kernels both, timed in
    turns, and the general ones also at L = 400, which only they take;
 6. drives BLIP-ScoreFusion serving at the full width and depth of
@@ -77,7 +82,8 @@
    twins under the same dropout draws, and the checkpoint round trip.
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
-of the 32-pair train steps (CLIP-SF, CLIP-FF), of the CLIP-SF embed step at
+of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
+UNIIR_ATTN_SPLITK=1), of the CLIP-SF embed step at
 batch 64 in bf16 and in each int8 mode, and of the CLIP-FF, BLIP-SF and
 BLIP-FF forwards at batch 64.
 
@@ -180,12 +186,14 @@ def nbytes(*tensors) -> int:
 def check_attention(results: dict) -> None:
     """K1: the one-block-a-head kernel and the general-length kernel against
     the twin and timed in turns (new, old, new) at the three shapes the
-    models use; then the general kernel at a length only it takes."""
+    large models use and the two of the `base` configs (ViT-B/32); then the
+    general kernel at a length only it takes."""
     from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"K1": 0.0, "K1g": 0.0}
     shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "blip vision": (BATCH, 197, 16, False),
+              "base vision": (BATCH, 50, 12, False), "base text": (BATCH, 77, 8, True),
               "long (384-pixel BLIP)": (8, 577, 16, False)}
     for tag, (B, L, H, causal) in shapes.items():
         q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
@@ -227,74 +235,120 @@ def check_attention(results: dict) -> None:
 
 
 def check_attention_norm_first(results: dict) -> None:
-    """K8 (`mha_nocausal`, [B, L, H, D]) and K9 (`mha_paired`, [B, L, H*D])
-    against their twin at the BLIP and CLIP shapes."""
-    from uniir_tpu_torch.ops.attention import attention_twopass_reference, mha_nocausal, mha_paired
+    """K8 (`mha_nocausal`, [B, L, H, D]) and K9 (`mha_paired`, [B, L, H*D]):
+    the normalise-first variant of the one-block-a-head kernel and the
+    general-length kernel against their twin and timed in turns (new, old,
+    new) at the BLIP, CLIP and `base` shapes; then the general kernel at a
+    length only it takes."""
+    from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 10)
     cases = [("K8", "blip vision", (BATCH, 197, 16, False)), ("K8", "clip vision", (BATCH, 257, 16, False)),
-             ("K9", "blip vision", (BATCH, 197, 16, False)), ("K9", "clip text", (BATCH, 77, 12, True))]
-    worst = {"K8": 0.0, "K9": 0.0}
+             ("K9", "blip vision", (BATCH, 197, 16, False)), ("K9", "clip vision", (BATCH, 257, 16, False)),
+             ("K9", "clip text", (BATCH, 77, 12, True)), ("K8", "base vision", (BATCH, 50, 12, False)),
+             # BLIP's length less the fourth query tile's 5 rows: what the partial tile costs at L = 197
+             ("K9", "blip vision, whole tiles", (BATCH, 192, 16, False)),
+             ("K9", "base text", (BATCH, 77, 8, True)), ("K8", "long", (8, 577, 16, False)),
+             ("K9", "long", (8, 577, 16, False))]
+    worst = {"K8": 0.0, "K9": 0.0, "K9g": 0.0}
     for name, tag, (B, L, H, causal) in cases:
         q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
         if name == "K8":
             q4, k4, v4 = (t.view(B, L, H, 64) for t in (q, k, v))
-            run = lambda: mha_nocausal(q4, k4, v4).view(B, L, H * 64)
+            run, counter = (lambda: A.mha_nocausal(q4, k4, v4).view(B, L, H * 64)), A.mha_nocausal
         else:
-            run = lambda: mha_paired(q, k, v, H, causal=causal)
+            run, counter = (lambda: A.mha_paired(q, k, v, H, causal=causal)), A.mha_paired
+        general = lambda: A.norm_first_general(q, k, v, H, causal=causal)
+        before = (counter.launches, A.norm_first_general.launches)
         out = run()
         torch.cuda.synchronize()
-        ref = attention_twopass_reference(q, k, v, H, causal=causal)
+        routed = (counter.launches - before[0], A.norm_first_general.launches - before[1])
+        route = A.norm_first_route(64, L)
+        check(routed == ((1, 0) if route == "fused" else (0, 1)), f"{name} at L={L} launched {routed}, route {route}")
+        ref = A.attention_twopass_reference(q, k, v, H, causal=causal)
+        old = general()
         err, cos = (out.float() - ref.float()).abs().max().item(), cosine(out, ref)
+        old_err, old_cos = (old.float() - ref.float()).abs().max().item(), cosine(old, ref)
         ms = cuda_ms(run, 20)
-        plain_ms = cuda_ms(lambda: attention_twopass_reference(q, k, v, H, causal=causal), 10)
+        old_ms = cuda_ms(general, 20)
+        ms_again = cuda_ms(run, 20)
+        plain_ms = cuda_ms(lambda: A.attention_twopass_reference(q, k, v, H, causal=causal), 10)
         heads = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
         library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads, is_causal=causal), 20)
         limit = bound(nbytes(q, k, v, out), 4 * B * H * L * L * 64, BF16_OPS_PER_S)
-        log(f"{name} {tag} [{B},{L},{H}x64] causal={causal}: max_abs_err={err} cosine={cos} kernel_ms={ms} "
-            f"plain_ms={plain_ms} library_ms={library_ms} {limit}")
-        # the twin's rounding points; the fp32 row sum in another order can move a probability by
-        # one bf16 step: two bf16 steps of softmax-averaged outputs below 1 (2 x 2^-8)
+        log(f"{name} {tag} [{B},{L},{H}x64] causal={causal} route={route}: max_abs_err={err} cosine={cos} "
+            f"kernel_ms={ms} / {ms_again} (general-length kernel between them: {old_ms}, max_abs_err={old_err} "
+            f"cosine={old_cos}) plain_ms={plain_ms} library_ms={library_ms} {limit}")
+        # the twin's rounding points; the fp32 row sum in another order, and one reciprocal a row where the
+        # twin divides, can move a probability by one bf16 step: two bf16 steps of softmax-averaged outputs
+        # below 1 (2 x 2^-8)
         check(err <= 8e-3 and cos >= 0.9999, f"{name} disagrees with its twin at {tag} shapes")
-        worst[name] = max(worst[name], err)
+        check(old_err <= 8e-3 and old_cos >= 0.9999, f"the general-length {name} disagrees with its twin at {tag} shapes")
+        if route == "fused":
+            check(max(ms, ms_again) < old_ms, f"the one-block-a-head {name} is not faster than the general kernel at {tag} shapes")
+            worst[name] = max(worst[name], err)
+        worst["K9g"] = max(worst["K9g"], old_err)
         if tag == "blip vision":
             results[name].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+        if route == "general" and name == "K9":  # the general kernel's row: the length only it takes
+            results["K9g"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
 
 
 def check_attention_splitk(results: dict) -> None:
-    """K10 against its twin and against K1 at the CLIP vision shape, and the
-    flag's routing: lengths outside K10's condition launch K1."""
+    """K10's one-block-a-head kernel and its general-length kernel against
+    the twin and against K1 at the CLIP vision shape, timed in turns (new,
+    K1, old, new); the general kernel at a valid length only it takes; and
+    the flag's routing: lengths outside K10's condition launch K1."""
     from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 14)
-    B, L, H = BATCH, 257, 16
-    q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
-    before = (A.attention.launches, A.attention_splitk.launches)
-    out = A.attention(q, k, v, H, splitk=True)
-    torch.cuda.synchronize()
-    check((A.attention.launches, A.attention_splitk.launches) == (before[0], before[1] + 1),
-          "attention(splitk=True) at L = 257 did not launch K10 alone")
-    ref = A.attention_splitk_reference(q, k, v, H)
-    k1 = A.attention(q, k, v, H)
-    err, cos = (out.float() - ref.float()).abs().max().item(), cosine(out, ref)
-    err_k1, cos_k1 = (out.float() - k1.float()).abs().max().item(), cosine(out, k1)
-    ms = cuda_ms(lambda: A.attention(q, k, v, H, splitk=True), 20)
-    k1_ms = cuda_ms(lambda: A.attention(q, k, v, H), 20)
-    ms_again = cuda_ms(lambda: A.attention(q, k, v, H, splitk=True), 20)  # K10, K1, K10: one card, in turns
-    plain_ms = cuda_ms(lambda: A.attention_splitk_reference(q, k, v, H), 10)
-    heads = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads), 20)
-    limit = bound(nbytes(q, k, v, out), 4 * B * H * L * L * 64, BF16_OPS_PER_S)  # K1's bytes and operations
-    log(f"K10 split-K attention vision [{B},{L},{H * 64}] H={H}: max_abs_err={err} cosine={cos}; against K1 on the same "
-        f"input max_abs_diff={err_k1} cosine={cos_k1}; kernel_ms={ms} / {ms_again} (K1 between them {k1_ms}) "
-        f"plain_ms={plain_ms} library_ms={library_ms} {limit}")
-    # the twin's rounding points, fp32 sums in another order: K1's limit, a couple of bf16 ulps of
-    # outputs of magnitude < 4.  Against K1 only the last key's term rounds elsewhere (its score a
-    # sum of bf16 products, its value term rounded on its own): the same few bf16 steps.
-    check(err <= 3e-2 and cos >= 0.9999, "K10 disagrees with its twin at the vision shape")
-    check(err_k1 <= 3e-2 and cos_k1 >= 0.9999, "K10 left K1's output at the vision shape")
+    counters = (A.attention, A.attention_fwd_general, A.attention_splitk, A.attention_splitk_general)
+    worst = {"K10": 0.0, "K10g": 0.0}
+    for tag, (B, L, H) in {"vision": (BATCH, 257, 16), "long": (8, 385, 16)}.items():
+        q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
+        route = A.splitk_route(64, L, L)
+        before = [f.launches for f in counters]
+        out = A.attention(q, k, v, H, splitk=True)
+        torch.cuda.synchronize()
+        routed = [f.launches - n for f, n in zip(counters, before)]
+        check(routed == ([0, 0, 1, 0] if route == "fused" else [0, 0, 0, 1]),
+              f"attention(splitk=True) at L = {L} launched (K1, K1g, K10, K10g) {routed}, route {route}")
+        ref = A.attention_splitk_reference(q, k, v, H)
+        k1 = A.attention(q, k, v, H)
+        old = A.attention_splitk_general(q, k, v, H)
+        err, cos = (out.float() - ref.float()).abs().max().item(), cosine(out, ref)
+        err_k1, cos_k1 = (out.float() - k1.float()).abs().max().item(), cosine(out, k1)
+        old_err, old_cos = (old.float() - ref.float()).abs().max().item(), cosine(old, ref)
+        ms = cuda_ms(lambda: A.attention(q, k, v, H, splitk=True), 20)
+        k1_ms = cuda_ms(lambda: A.attention(q, k, v, H), 20)
+        old_ms = cuda_ms(lambda: A.attention_splitk_general(q, k, v, H), 20)
+        ms_again = cuda_ms(lambda: A.attention(q, k, v, H, splitk=True), 20)  # one card, in turns
+        plain_ms = cuda_ms(lambda: A.attention_splitk_reference(q, k, v, H), 10)
+        heads = [t.view(B, L, H, 64).transpose(1, 2) for t in (q, k, v)]
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads), 20)
+        limit = bound(nbytes(q, k, v, out), 4 * B * H * L * L * 64, BF16_OPS_PER_S)  # K1's bytes and operations
+        log(f"K10 split-K attention {tag} [{B},{L},{H * 64}] H={H} route={route}: max_abs_err={err} cosine={cos}; "
+            f"against K1 on the same input max_abs_diff={err_k1} cosine={cos_k1}; kernel_ms={ms} / {ms_again} (K1 "
+            f"between them {k1_ms}, general-length K10 {old_ms}, max_abs_err={old_err} cosine={old_cos}) "
+            f"plain_ms={plain_ms} library_ms={library_ms} {limit}")
+        # the twin's rounding points, fp32 sums in another order: K1's limit, a couple of bf16 ulps of
+        # outputs of magnitude < 4.  Against K1 only the last key's term rounds elsewhere (its score a
+        # sum of bf16 products, its value term rounded on its own): the same few bf16 steps.
+        check(err <= 3e-2 and cos >= 0.9999, f"K10 disagrees with its twin at the {tag} shape")
+        check(err_k1 <= 3e-2 and cos_k1 >= 0.9999, f"K10 left K1's output at the {tag} shape")
+        check(old_err <= 3e-2 and old_cos >= 0.9999, f"the general-length K10 disagrees with its twin at the {tag} shape")
+        if route == "fused":
+            check(max(ms, ms_again) < old_ms, f"the one-block-a-head K10 is not faster than the general kernel at {tag}")
+            worst["K10"] = max(worst["K10"], err)
+            results["K10"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+        else:
+            results["K10g"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+        worst["K10g"] = max(worst["K10g"], old_err)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
+    B = BATCH
     for tag, (L2, H2, causal) in {"blip vision": (197, 16, False), "text": (77, 12, True)}.items():
         q2, k2, v2 = (torch.randn(B, L2, H2 * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
         before = (A.attention.launches, A.attention_splitk.launches)
@@ -304,28 +358,29 @@ def check_attention_splitk(results: dict) -> None:
         same = torch.equal(flagged, A.attention(q2, k2, v2, H2, causal=causal))
         log(f"K10 routing with the flag on at {tag} L={L2} causal={causal}: launches (K1, K10)={routed}, equals K1's output={same}")
         check(routed == (1, 0) and same, f"the split-K flag did not leave {tag} shapes to K1")
-    results["K10"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
 
 
 def _off_path_kernels():
     from uniir_tpu_torch.ops import attention as attn_mod
 
-    return (("K8", attn_mod.mha_nocausal), ("K9", attn_mod.mha_paired),
-            ("K1g", attn_mod.attention_fwd_general), ("K3g", attn_mod.attention_bwd_general))
+    return (("K8", attn_mod.mha_nocausal), ("K9", attn_mod.mha_paired), ("K9g", attn_mod.norm_first_general),
+            ("K1g", attn_mod.attention_fwd_general), ("K3g", attn_mod.attention_bwd_general),
+            ("K10g", attn_mod.attention_splitk_general))
 
 
 def zero_standalone() -> None:
     """K8 / K9 are stand-alone entry points, as in the JAX package, and the
-    general-length K1 / K3 serve lengths past 272, which no model of these
-    paths has: every path sets their counts to 0 with its own before it starts."""
+    general-length K1 / K3 / K8 / K9 / K10 serve lengths past 272, which no
+    model of these paths has: every path sets their counts to 0 with its own
+    before it starts."""
     for _, fn in _off_path_kernels():
         fn.launches = 0
 
 
 def read_standalone(results: dict, path: str) -> None:
     """Read their counts just after a path: no model calls K8 / K9, and the
-    static route sends every length of these paths (77, 197, 257) to the
-    one-block-a-head K1 / K3."""
+    static routes send every length of these paths (77, 197, 257) to the
+    one-block-a-head K1 / K3 / K10."""
     for name, fn in _off_path_kernels():
         results[name]["launches"] = results[name].get("launches", 0) + fn.launches
         check(fn.launches == 0, f"off-path kernel {name} was launched {fn.launches} times on the {path} path")
@@ -1377,12 +1432,14 @@ def profile_forward(model, batch, tag: str) -> None:
 def check_attention_bwd(results: dict) -> None:
     """K3: the one-block-a-head kernel and the general-length kernels against
     the twin and timed in turns (new, old, new) at the two shapes training
-    uses; then the general kernels at a length only they take."""
+    uses and the two of the `base` configs; then the general kernels at a
+    length only they take."""
     from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     worst = {"K3": 0.0, "K3g": 0.0}
-    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "long": (8, 400, 16, False)}
+    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "base vision": (BATCH, 50, 12, False),
+              "base text": (BATCH, 77, 8, True), "long": (8, 400, 16, False)}
     for tag, (B, L, H, causal) in shapes.items():
         q, k, v, do = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(4))
         before = (A.attention_bwd.launches, A.attention_bwd_general.launches)
@@ -1599,14 +1656,15 @@ def drive_train_path(results: dict, name: str) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_train_step(name: str) -> None:
-    """torch.profiler over 3 train steps of TRAIN_BS pairs of `name`: device time by kernel group."""
+def profile_train_step(name: str, remat: bool = False, splitk: bool = False) -> None:
+    """torch.profiler over 3 train steps of TRAIN_BS pairs of `name` (with
+    remat and UNIIR_ATTN_SPLITK=1 where asked): device time by kernel group."""
     from torch.profiler import ProfilerActivity, profile
 
     from uniir_tpu_torch.models.clip import CLIP_CONFIGS
 
     cfg = CLIP_CONFIGS[MODEL]
-    state, step = train_setup(name)
+    state, step = train_setup(name, remat, splitk)
     rng = np.random.default_rng(SEED + 4)
     batches = [make_train_batch(rng, TRAIN_BS, cfg) for _ in range(3)]
     state, _ = step(state, make_train_batch(rng, TRAIN_BS, cfg))  # warm-up
@@ -1620,7 +1678,8 @@ def profile_train_step(name: str) -> None:
         for b in batches:
             state, _ = step(state, b)
         torch.cuda.synchronize()
-    log(f"profile of a {TRAIN_BS}-pair {name} train step: step_ms={wall * 1e3} (host clock, without the profiler)")
+    log(f"profile of a {TRAIN_BS}-pair {name} train step (remat={remat}, UNIIR_ATTN_SPLITK={int(splitk)}): "
+        f"step_ms={wall * 1e3} (host clock, without the profiler)")
     log_device_time_by_group(prof, len(batches), wall * 1e3)
 
 
@@ -1710,9 +1769,13 @@ def main() -> None:
                "replaces": "uniir_tpu/ops/attention_pallas.py:158"},
         "K10": {"name": "attention_splitk", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
                 "replaces": "uniir_tpu/ops/attention_pallas.py:314", "launches": 0},
-        # the general-length kernels of K1 / K3 (272 < L): timed at a length only they take; the static
-        # route sends every length of the main paths to the one-block-a-head kernels, so `read_standalone`
-        # holds their counts to 0 after every path
+        # the general-length kernels of K1 / K3 / K8 and K9 (one kernel) / K10 (272 < L): timed at a length
+        # only they take; the static routes send every length of the main paths to the one-block-a-head
+        # kernels, so `read_standalone` holds their counts to 0 after every path
+        "K9g": {"name": "norm_first_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
+                "replaces": "uniir_tpu/ops/attention_pallas.py:158"},
+        "K10g": {"name": "attention_splitk_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
+                 "replaces": "uniir_tpu/ops/attention_pallas.py:314"},
         "K1g": {"name": "attention_fwd_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
                 "replaces": "uniir_tpu/ops/attention_pallas.py:413"},
         "K3g": {"name": "attention_bwd_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention_bwd.cu",
@@ -1746,6 +1809,7 @@ def main() -> None:
     if "--profile" in sys.argv[1:]:
         profile_train_step("CLIPScoreFusion")
         profile_train_step("CLIPFeatureFusion")
+        profile_train_step("CLIPFeatureFusion", remat=True, splitk=True)
     for name in ("K10", "K11"):
         check(results[name]["launches"] > 0, f"kernel {name} was not launched on a main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")

@@ -1,5 +1,6 @@
 """Kernels K1, K8, K9 and K10 (attention forward): each plain twin against its
-JAX Pallas kernel, and on a card the CUDA kernels against the twins.
+JAX Pallas kernel, the static routes to each function's two kernels, and on
+a card the CUDA kernels against the twins.
 
 Inputs come from numpy with a seed and go through both frameworks as the
 same bf16 values.  The JAX side runs `mha_paired_stack` (K1; K10 under
@@ -15,9 +16,12 @@ import torch
 
 from uniir_tpu_torch.ops.attention import (
     attention,
+    attention_bwd,
+    attention_bwd_general,
     attention_fwd_general,
     attention_reference,
     attention_splitk,
+    attention_splitk_general,
     attention_splitk_reference,
     attention_twin,
     attention_twopass_reference,
@@ -26,7 +30,10 @@ from uniir_tpu_torch.ops.attention import (
     kernel_supported,
     mha_nocausal,
     mha_paired,
+    norm_first_general,
+    norm_first_route,
     splitk_applies,
+    splitk_route,
 )
 
 # The twin rounds at the kernel's points (bf16 q*scale, fp32 softmax, bf16
@@ -213,7 +220,8 @@ def test_splitk_twin_is_not_k1_behind_a_view():
 
 
 @pytest.mark.parametrize("L,causal,l_valid", [(130, False, None), (129, True, None), (77, True, None), (197, False, None),
-                                              (257, False, 200), (128, False, None), (1, False, None)])
+                                              (257, False, 200), (128, False, None), (1, False, None),
+                                              (257, True, None)])
 def test_splitk_flag_runs_k1_where_the_condition_fails(monkeypatch, L, causal, l_valid):
     """`attention(..., splitk=True)` outside `l_valid % 128 == 1 and l_valid >
     128`, or causal: K1's twin, bit for bit, as `mha_paired_stack` keeps its
@@ -300,6 +308,79 @@ def test_layer_on_the_cpu_runs_the_twin_at_any_head_width():
     want = mha.out_proj(attention_reference(q, k, v, 4, 16**-0.5))
     assert not kernel_supported(4, 64, 9, False)
     torch.testing.assert_close(mha(x), want, rtol=0, atol=0)
+
+
+# K8 / K9 and K10 have a static route of their own, as K1 has: the
+# one-block-a-head kernel to L = 272 (K10: at l_valid = 129 or 257), the
+# general-length kernel while its shared memory holds the keys (K8 / K9 to L =
+# 848; K10 to l_valid = 769), no kernel past that or at another head width.
+NORM_FIRST_ROUTES = {1: "fused", 50: "fused", 77: "fused", 197: "fused", 257: "fused", 272: "fused",
+                     273: "general", 577: "general", 848: "general", 849: None, 900: None}
+
+
+@pytest.mark.parametrize("L", sorted(NORM_FIRST_ROUTES))
+@pytest.mark.parametrize("D", [16, 64, 80])
+def test_norm_first_route_table(D, L):
+    want = NORM_FIRST_ROUTES[L] if D == 64 else None
+    assert norm_first_route(D, L) == want
+    assert norm_first_route(D, L) == forward_route(D, L)  # the same shared-memory bounds as K1's two kernels
+
+
+@pytest.mark.parametrize("L,l_valid,want", [
+    (129, 129, "fused"), (136, 129, "fused"), (257, 257, "fused"), (264, 257, "fused"), (272, 257, "fused"),
+    (273, 257, "general"), (300, 129, "general"), (385, 385, "general"), (400, 385, "general"),
+    (769, 769, "general"), (897, 897, None), (130, 130, None), (256, 256, None), (257, 200, None), (1, 1, None),
+])
+def test_splitk_route_table(L, l_valid, want):
+    assert splitk_route(64, L, l_valid) == want
+    assert splitk_route(80, L, l_valid) is None  # no kernel at another head width
+    # the route exists exactly where the split-K condition holds and a kernel fits
+    assert (want is not None) <= splitk_applies(l_valid, causal=False)
+
+
+def _all_counters():
+    return (attention, attention_fwd_general, attention_splitk, attention_splitk_general, mha_nocausal, mha_paired,
+            norm_first_general, attention_bwd, attention_bwd_general)
+
+
+@pytest.mark.parametrize("L,causal", [(50, False), (77, True), (197, False), (300, True), (577, False)])
+def test_cpu_norm_first_runs_the_twin_and_counts_no_launch(L, causal):
+    """On CPU tensors `mha_paired` and `mha_nocausal` run the twin at every
+    length, both routes' lengths included, and no counter moves."""
+    B, H, D = 1, 2, 64
+    q, k, v = _qkv(B, L, H * D, seed=L)
+    before = [f.launches for f in _all_counters()]
+    want = attention_twopass_reference(q, k, v, H, causal=causal)
+    torch.testing.assert_close(mha_paired(q, k, v, H, causal=causal), want, rtol=0, atol=0)
+    if not causal:
+        four = mha_nocausal(*(t.view(B, L, H, D) for t in (q, k, v)))
+        torch.testing.assert_close(four.view(B, L, H * D), want, rtol=0, atol=0)
+    assert [f.launches for f in _all_counters()] == before
+
+
+@pytest.mark.parametrize("L,l_valid", [(129, None), (136, 129), (257, None), (272, 257), (385, None), (400, 385)])
+def test_cpu_splitk_runs_the_twin_and_counts_no_launch(L, l_valid):
+    """`attention(splitk=True)` and `attention_splitk` on CPU tensors run
+    K10's twin on both routes' lengths, and no counter moves."""
+    q, k, v = _qkv(1, L, 128, seed=L + 7)
+    lv = l_valid or L
+    before = [f.launches for f in _all_counters()]
+    want = attention_splitk_reference(q, k, v, 2, None, lv)
+    torch.testing.assert_close(attention(q, k, v, 2, l_valid=l_valid, splitk=True), want, rtol=0, atol=0)
+    torch.testing.assert_close(attention_splitk(q, k, v, 2, l_valid=l_valid), want, rtol=0, atol=0)
+    assert [f.launches for f in _all_counters()] == before
+
+
+def test_general_length_wrappers_take_cuda_tensors_only():
+    """The general-length kernels have no CPU mode: their wrappers raise on a
+    CPU tensor, as `attention_fwd_general` does."""
+    q, k, v = _qkv(1, 385, 128)
+    for call in (lambda: norm_first_general(q, k, v, 2), lambda: attention_splitk_general(q, k, v, 2),
+                 lambda: attention_fwd_general(q, k, v, 2)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="l_valid % 128 == 1"):
+        attention_splitk_general(q, k, v, 2, l_valid=384)
 
 
 @pytest.fixture
@@ -444,3 +525,128 @@ def test_cuda_layer_takes_the_einsum_where_no_kernel_fits(cuda):
     assert (attention.launches, attention_fwd_general.launches) == before
     assert torch.isfinite(low).all()
     assert torch.nn.functional.cosine_similarity(low, full, dim=1).min().item() >= 0.999
+
+
+# The normalise-first variant of the one-block-a-head kernel (K8 / K9 to L =
+# 272) at every tile count, small batches and both head counts; the limits of
+# `test_cuda_norm_first_kernel_matches_twin`.  The general-length kernel on the
+# same inputs, which it takes too.
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [12, 16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("L,causal", [(1, False), (16, False), (64, False), (77, True), (197, False), (257, False),
+                                      (272, False), (50, False), (130, True)])
+def test_cuda_fused_norm_first_matches_twin(cuda, B, L, H, causal):
+    q, k, v = (t.to(cuda) for t in _qkv(B, L, H * 64, seed=L + H + 1))
+    before = (mha_paired.launches, mha_nocausal.launches, norm_first_general.launches)
+    out = mha_paired(q, k, v, H, causal=causal)
+    four = None if causal else mha_nocausal(*(t.view(B, L, H, 64) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert (mha_paired.launches, mha_nocausal.launches, norm_first_general.launches) == (
+        before[0] + 1, before[1] + (not causal), before[2])
+    ref = attention_twopass_reference(q, k, v, H, causal=causal)
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), ref.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    if four is not None:
+        assert torch.equal(four.view(B, L, H * 64), out)  # the same kernel over the same memory
+    old = norm_first_general(q, k, v, H, causal=causal)
+    torch.testing.assert_close(old.float(), ref.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,causal", [(577, False), (273, True), (848, False)])
+def test_cuda_general_norm_first_takes_the_long_lengths(cuda, L, causal):
+    """272 < L <= 848 launches K8 / K9's general-length kernel (its own counter); longer raises."""
+    q, k, v = (t.to(cuda) for t in _qkv(2, L, 16 * 64, seed=L + 1))
+    before = (mha_paired.launches, mha_nocausal.launches, norm_first_general.launches)
+    out = mha_paired(q, k, v, 16, causal=causal)
+    four = None if causal else mha_nocausal(*(t.view(2, L, 16, 64) for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert (mha_paired.launches, mha_nocausal.launches, norm_first_general.launches) == (
+        before[0], before[1], before[2] + 1 + (not causal))
+    ref = attention_twopass_reference(q, k, v, 16, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    if four is not None:
+        assert torch.equal(four.view(2, L, 16 * 64), out)
+    with pytest.raises(ValueError, match="shared memory"):
+        mha_paired(*(t.to(cuda) for t in _qkv(1, 849, 64)), 1)
+
+
+# The one-block-a-head K10 at both main-block sizes, with L = l_valid and L >
+# l_valid (query rows past l_valid compute like any other and are discarded;
+# keys past l_valid are never staged: NaN there must not reach a valid row),
+# against its twin and K1; the general-length kernel on the same inputs.
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [12, 16])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("L,l_valid", [(129, None), (136, 129), (257, None), (264, 257), (272, 257)])
+def test_cuda_fused_splitk_matches_twin(cuda, B, L, H, l_valid):
+    q, k, v = (t.to(cuda) for t in _qkv(B, L, H * 64, seed=L + H + 2))
+    lv = l_valid or L
+    k[:, lv:], v[:, lv:] = float("nan"), float("nan")
+    counters = (attention, attention_splitk, attention_splitk_general)
+    before = [f.launches for f in counters]
+    out = attention(q, k, v, H, l_valid=l_valid, splitk=True)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [0, 1, 0]
+    assert torch.isfinite(out.float()[:, :lv]).all()
+    ref = attention_splitk_reference(q, k, v, H, None, lv)
+    torch.testing.assert_close(out.float()[:, :lv], ref.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    k1 = attention(q, k, v, H, l_valid=l_valid)
+    torch.testing.assert_close(out.float()[:, :lv], k1.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    old = attention_splitk_general(q, k, v, H, l_valid=l_valid)
+    torch.testing.assert_close(old.float()[:, :lv], ref.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,l_valid", [(385, None), (400, 385), (300, 257), (769, None)])
+def test_cuda_general_splitk_takes_the_long_lengths(cuda, L, l_valid):
+    """Where `splitk_route` says "general" the general-length K10 runs (its own counter)."""
+    q, k, v = (t.to(cuda) for t in _qkv(2, L, 16 * 64, seed=L + 3))
+    lv = l_valid or L
+    counters = (attention, attention_fwd_general, attention_splitk, attention_splitk_general)
+    before = [f.launches for f in counters]
+    out = attention(q, k, v, 16, l_valid=l_valid, splitk=True)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [0, 0, 0, 1]
+    ref = attention_splitk_reference(q, k, v, 16, None, lv)
+    torch.testing.assert_close(out.float()[:, :lv], ref.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,H,l_valid", [(3, 257, 16, None), (2, 136, 4, 129), (2, 385, 4, None)])
+def test_cuda_gradients_through_splitk_match_the_twin(cuda, B, L, H, l_valid):
+    """`attention(splitk=True)` (K10 forward, K3 backward) against
+    `attention_twin(splitk=True)` on the same leaves."""
+    q, k, v = (t.to(cuda) for t in _qkv(B, L, H * 64, seed=L + 4))
+    g = _qkv(B, L, H * 64, seed=L + 5)[0].to(cuda)
+    lv = l_valid or L
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention(*leaves, H, l_valid=l_valid, splitk=True)
+    grads = torch.autograd.grad(out, leaves, g)
+    twin = attention_twin(*leaves, H, l_valid=l_valid, splitk=True)
+    twin_grads = torch.autograd.grad(twin, leaves, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float()[:, :lv], twin.float()[:, :lv], rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    for got, want in zip(grads, twin_grads):
+        torch.testing.assert_close(got.float(), want.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+
+
+# The `base` configs' shapes (ViT-B/32: vision L = 50, W = 768, H = 12; text
+# L = 77, W = 512, H = 8, causal), which take the NT = 10 instantiations: K1,
+# K3 and K8 / K9 against their twins.
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,H,causal", [(50, 12, False), (77, 8, True)])
+def test_cuda_base_shapes(cuda, L, H, causal):
+    from uniir_tpu_torch.ops.attention import attention_bwd_reference
+
+    q, k, v, g = (t.to(cuda) for t in _qkv(4, L, H * 64, seed=L + 6) + _qkv(4, L, H * 64, seed=L + 7)[:1])
+    out = attention(q, k, v, H, causal=causal)
+    torch.testing.assert_close(out.float(), attention_reference(q, k, v, H, causal=causal).float(),
+                               rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    for got, want in zip(attention_bwd(q, k, v, g, H, causal=causal),
+                         attention_bwd_reference(q, k, v, g, H, causal=causal)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=PALLAS_RTOL, atol=PALLAS_ATOL)
+    torch.testing.assert_close(mha_paired(q, k, v, H, causal=causal).float(),
+                               attention_twopass_reference(q, k, v, H, causal=causal).float(),
+                               rtol=PALLAS_RTOL, atol=PALLAS_ATOL)

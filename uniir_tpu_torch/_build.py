@@ -36,7 +36,9 @@ SIGNATURES = {
     "attention": {
         "uniir_attention_fused_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "uniir_attention_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "uniir_attention_norm_first_fused_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "uniir_attention_norm_first_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "uniir_attention_splitk_fused_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
         "uniir_attention_splitk_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     },
     "attention_bwd": {
@@ -141,8 +143,15 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def ptxas_report(name: str) -> str:
-    """Register / shared-memory / spill lines nvcc printed for a library."""
+    """Each kernel of a library (its mangled name, which spells out the
+    template arguments) with the register and spill lines nvcc printed."""
     log = library_path(name).with_suffix(".log")
     if not log.exists():
         return ""
-    return "\n".join(l for l in log.read_text().splitlines() if "ptxas info" in l and ("Used" in l or "spill" in l))
+    out = []
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            out.append(line.split("'")[1])
+        elif "spill" in line or ("ptxas info" in line and "Used" in line):
+            out.append("    " + line.replace("ptxas info    : ", "").strip())
+    return "\n".join(out)

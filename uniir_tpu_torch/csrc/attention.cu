@@ -5,7 +5,8 @@
 // every block but the pooled last one of the CLIP towers and of the BLIP ViT.
 // K8 and K9 replace mha_nocausal (_attn_kernel, over [B, L, H, D], which is
 // the same memory) and mha_paired (_paired_kernel) of the same file: the
-// NORM_FIRST variant of the general-length kernel below, described after K1.
+// NORM_FIRST variant, described after K1.  K10 replaces
+// _paired_stack_splitk_kernel of the same file, described last.
 //
 // Computes, per (batch, head): out = softmax(q k^T * scale) v with
 //   * q rounded to bf16 after the scale multiply (as the TPU kernel does),
@@ -16,16 +17,19 @@
 //     by multiplying with 0), V rows >= l_valid zeroed by select.
 // Scores and probabilities never reach device memory.
 //
-// Two kernels compute it; ops/attention.py::forward_route picks one by shape
-// before the launch.
+// Each of the three functions has two kernels, and ops/attention.py picks
+// one by shape before the launch (forward_route, norm_first_route,
+// splitk_route): a one-block-a-head kernel for L <= 272, which covers every
+// length the models use, and a general-length kernel (a block per 64-query
+// tile) for longer sequences, up to what its shared memory holds.
 //
-// attention_fused_fwd_kernel (L <= 272: every length the models use).  What
-// bounded K1 on an H100 was neither HBM (q, k, v, o move once: 0.04 ms at
-// CLIP's vision shape) nor the tensor cores (17 GFLOP: 0.02 ms) but how the
-// products were fed: the general kernel below stages a head's K and V five
-// times at L = 257 (once a 64-row tile, the fifth for one valid row), through
-// a bank-conflicted scalar transpose, with nothing in flight meanwhile, and
-// computes q k^T twice.  Design:
+// attention_fused_fwd_kernel (K1, and K8 / K9 through NORM_FIRST, for
+// L <= 272).  What bounded K1 on an H100 was neither HBM (q, k, v, o move
+// once: 0.04 ms at CLIP's vision shape) nor the tensor cores (17 GFLOP: 0.02
+// ms) but how the products were fed: the general kernel below stages a
+// head's K and V five times at L = 257 (once a 64-row tile, the fifth for one
+// valid row), through a bank-conflicted scalar transpose, with nothing in
+// flight meanwhile, and computes q k^T twice.  Design:
 //   * one block (one warpgroup) per (batch, head) stages the head's K and V
 //     once, with 16-byte cp.async into row-major tiles in the 128-byte
 //     swizzle (mma.cuh), K and V as two groups so that the V copy runs under
@@ -71,28 +75,44 @@
 //   * masked keys -> -1e30, fp32 row max, e = exp(s - max), fp32 row sum,
 //   * p = bf16(e / rowsum): normalised BEFORE the PV product,
 //   * o = fp32-accumulated p v, cast to bf16 with no further multiply.
-// The row sum must be known before the first p is formed, so this variant
-// walks the keys three times (max; sum; p v): 2x the QK^T work.  Same tiles,
-// same shared-memory layout, same launch geometry as K1.
+// The row sum must be known before the first p is formed.  On the main route
+// it is a template parameter of attention_fused_fwd_kernel (a variant, not a
+// second kernel: the staging, products and tiles are K1's), which holds the
+// whole score row in registers anyway: q k^T once, each score scaled by a
+// multiply of its own (__fmul_rn, never folded into the exp's FFMA), the
+// exp over the whole register row, the quad sums, then a second walk over
+// the registers -- not over the keys -- packs p = bf16(e * (1 / rowsum))
+// into the A operand of p v as each score dies.  One reciprocal a row where
+// the twin divides: it moves an fp32 p by an ulp at most and only rarely its
+// bf16 rounding.  The general-length attention_fwd_kernel<true> (L up to
+// 848), whose registers do not hold a row, walks the keys three times (max;
+// sum; p v): 2x the QK^T work.
 //
-// K10 (attention_splitk_kernel) replaces _paired_stack_splitk_kernel of the
-// same file, which mha_paired_stack selects (UNIIR_ATTN_SPLITK=1) for a
-// non-causal call whose valid length is one past a multiple of 128: CLIP's
-// vision tower, L = 257.  It is K1's function with the last key taken out of
-// the tensor-core products and folded in as a rank-1 term, at these rounding
+// K10 is selected by mha_paired_stack (UNIIR_ATTN_SPLITK=1) for a non-causal
+// call whose valid length is one past a multiple of 128: CLIP's vision
+// tower, L = 257.  It is K1's function with the last key taken out of the
+// tensor-core products and folded in as a rank-1 term, at these rounding
 // points (attention_pallas.py:352-403):
 //   * s_main = fp32 tensor-core scores over the first Km = l_valid - 1 keys,
 //     every column valid: no mask, and no padded key tile (K1 pads 257 keys
-//     to 272; 256 is 16 whole tiles),
+//     to 272; 256 is four whole 64-key products),
 //   * s_last = the fp32 sum over the head's 64 lanes of bf16(q * k_last): each
 //     product is rounded to bf16 before the sum,
 //   * m = max(max(s_main), s_last); rsum = sum(exp(s_main - m)), then
 //     + exp(s_last - m),
 //   * o = (fp32(bf16(e) v_main) + fp32(bf16(bf16(e_last) * v_last))) / rsum.
-// On the TPU this saved a third 128-lane key tile; here it saves one
-// mostly-masked 16-key tile of 17 and the per-score mask selects, at the
-// price of a few CUDA-core products per row.  Same tiles and launch geometry
-// as K1; the last K and V rows sit in shared memory beside the main block.
+// attention_splitk_fused_kernel (l_valid = 129 or 257, L <= 272) is K1's
+// design over the main keys alone, a sibling of attention_fused_fwd_kernel
+// on the same staging, wgmma and packing helpers: a block a (batch, head)
+// stages the Km main K and V rows once with cp.async in the 128-byte swizzle
+// and k_last, v_last as two plain 128-byte rows beside them (no other key is
+// staged, so no select anywhere); s_main is Km / 64 whole wgmma products
+// with no 16-key one; s_last is a dot on the CUDA cores from the thread's
+// own scaled q fragments, formed while the tensor cores run q k^T; the
+// rank-1 value term joins the p v accumulators in the epilogue.
+// attention_splitk_kernel, a block per 64-query tile with V transposed
+// by scalar stores and the keys walked twice, stays as the general-length
+// K10 (l_valid = 385, ..., while its shared memory holds the main block).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -439,12 +459,11 @@ attention_splitk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, 
   }
 }
 
-// K1 for L <= 272: see the file header.  NT = the n8 key tiles of a score row
-// (l_valid <= 8 NT, and > 8 (NT - 8) for the smallest instantiation that holds
-// it, so only the last 8 tiles can hold a key >= l_valid and select; CAUSAL
-// tests every tile that reaches the diagonal).  Block (head, batch) of one
-// warpgroup, which walks the head's 64-query tiles; two blocks an SM.
-template <int NT, bool CAUSAL>
+// K1 for L <= 272, and K8 / K9 with NORM_FIRST: see the file header.  NT = the n8 key tiles of a score
+// row (l_valid <= 8 NT, and > 8 (NT - 8) for the smallest instantiation that holds it, so only the last 8
+// tiles can hold a key >= l_valid and select; CAUSAL tests every tile that reaches the diagonal).  Block
+// (head, batch) of one warpgroup, which walks the head's 64-query tiles; two blocks an SM.
+template <int NT, bool CAUSAL, bool NORM_FIRST>
 __global__ void __launch_bounds__(128, 2)
 attention_fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
                            bf16* __restrict__ o, int L, int H, int l_valid, float scale) {
@@ -476,10 +495,17 @@ attention_fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
   for (int q0 = 0; q0 < L; q0 += 64) {
     const int wq0 = q0 + warp * 16;  // this warp's 16 rows of the tile
     const int row_lo = wq0 + g, row_hi = wq0 + g + 8;
-    // Q fragments, scaled and rounded to bf16 (q * bf16(scale) in the reference), from the raw
-    // words loaded a tile ahead
+    // Q fragments from the raw words loaded a tile ahead: K1 scales and rounds them to bf16 (q * bf16(scale)
+    // in the reference); NORM_FIRST takes q as it is and scales the fp32 scores
     uint32_t qa[D / 16][4];
-    scale_words(qa, qraw, scale);
+    if constexpr (NORM_FIRST) {
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qa[ks][r] = qraw[ks][r];
+    } else {
+      scale_words(qa, qraw, scale);
+    }
     float s[NT][4];
     wgmma_fence();
     wgmma_row_kmajor<NT>(s, qa, k_desc);
@@ -494,6 +520,11 @@ attention_fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       float m_lo = -INFINITY, m_hi = -INFINITY;
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
+        if constexpr (NORM_FIRST) {
+          // the twin's rounding point: fp32(q k^T) * scale is a product of its own, before the mask and the max
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+        }
         if (CAUSAL ? (j * 8 + 8 > l_valid || j * 8 + 7 > wq0) : j >= EDGE) {
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -508,10 +539,11 @@ attention_fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
       }
       // exp(s - m) = 2^(s log2e - m log2e): one FFMA and one ex2.approx a score
       const float c_lo = quad_max(m_lo) * LOG2E, c_hi = quad_max(m_hi) * LOG2E;
+      if constexpr (NORM_FIRST) {
+        // e over the whole register row and its fp32 sum first; then a second walk over the registers packs
+        // p = bf16(e / rowsum), as one multiply by the row's reciprocal, into the A operand of p v
 #pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-#pragma unroll
-        for (int j = 2 * kk; j < 2 * kk + 2; ++j) {
+        for (int j = 0; j < NT; ++j) {
           s[j][0] = exp2_approx(fmaf(s[j][0], LOG2E, -c_lo));
           s[j][1] = exp2_approx(fmaf(s[j][1], LOG2E, -c_lo));
           s[j][2] = exp2_approx(fmaf(s[j][2], LOG2E, -c_hi));
@@ -519,7 +551,30 @@ attention_fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
           l_lo += s[j][0] + s[j][1];
           l_hi += s[j][2] + s[j][3];
         }
-        c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+        const float r_lo = 1.f / quad_sum(l_lo), r_hi = 1.f / quad_sum(l_hi);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          s[j][0] *= r_lo;
+          s[j][1] *= r_lo;
+          s[j][2] *= r_hi;
+          s[j][3] *= r_hi;
+        }
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+          for (int j = 2 * kk; j < 2 * kk + 2; ++j) {
+            s[j][0] = exp2_approx(fmaf(s[j][0], LOG2E, -c_lo));
+            s[j][1] = exp2_approx(fmaf(s[j][1], LOG2E, -c_lo));
+            s[j][2] = exp2_approx(fmaf(s[j][2], LOG2E, -c_hi));
+            s[j][3] = exp2_approx(fmaf(s[j][3], LOG2E, -c_hi));
+            l_lo += s[j][0] + s[j][1];
+            l_hi += s[j][2] + s[j][3];
+          }
+          c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+        }
       }
     } else {
 #pragma unroll
@@ -538,30 +593,196 @@ attention_fused_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ 
     wgmma_commit();
     wgmma_wait<0>();
     wgmma_fence_regs<D / 2>(&acc[0][0]);
-    const float inv_lo = 1.f / quad_sum(l_lo), inv_hi = 1.f / quad_sum(l_hi);
+    // K1 multiplies by 1 / rowsum here; NORM_FIRST's p was normalised already, and o = bf16(acc)
+    float inv_lo = 1.f, inv_hi = 1.f;
+    if constexpr (!NORM_FIRST) {
+      inv_lo = 1.f / quad_sum(l_lo);
+      inv_hi = 1.f / quad_sum(l_hi);
+    }
 #pragma unroll
     for (int dn = 0; dn < D / 8; ++dn) {
       const int col = dn * 8 + 2 * t;
       if (row_lo < L)
         *reinterpret_cast<uint32_t*>(o + base + (size_t)row_lo * W + col) =
-            pack_bf16x2(acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
+            NORM_FIRST ? pack_bf16x2(acc[dn][0], acc[dn][1]) : pack_bf16x2(acc[dn][0] * inv_lo, acc[dn][1] * inv_lo);
       if (row_hi < L)
         *reinterpret_cast<uint32_t*>(o + base + (size_t)row_hi * W + col) =
-            pack_bf16x2(acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
+            NORM_FIRST ? pack_bf16x2(acc[dn][2], acc[dn][3]) : pack_bf16x2(acc[dn][2] * inv_hi, acc[dn][3] * inv_hi);
     }
   }
 }
 
+// K10 for l_valid = 8 NT + 1 (129 or 257) and L <= 272: see the file header.  NT = the n8 tiles of the
+// km = 8 NT main keys, 16 or 32: whole 64-key products.  Block (head, batch) of one warpgroup, which walks
+// the head's 64-query tiles; two blocks an SM.
 template <int NT>
+__global__ void __launch_bounds__(128, 2)
+attention_splitk_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                              bf16* __restrict__ o, int L, int H, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  constexpr int km = NT * 8;  // main keys, all valid
+  unsigned char* Ks = smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+  unsigned char* Vs = Ks + km * TILE_ROW_BYTES;
+  const bf16* k_last = reinterpret_cast<const bf16*>(Vs + km * TILE_ROW_BYTES);  // row km of K, then of V: plain rows
+  const bf16* v_last = k_last + D;
+  const int W = H * D;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const size_t base = (size_t)b * L * W + (size_t)h * D;
+  const size_t last_row = base + (size_t)km * W;
+
+  // the main rows and the last row of K as one group, of V as the next; no key past l_valid is staged
+  stage_head_rows(Ks, k, base, W, km, km);
+  if (threadIdx.x < D / 8) cp_async16(smem_u32(k_last + 8 * threadIdx.x), k + last_row + 8 * threadIdx.x);
+  cp_async_commit();
+  stage_head_rows(Vs, v, base, W, km, km);
+  if (threadIdx.x < D / 8) cp_async16(smem_u32(v_last + 8 * threadIdx.x), v + last_row + 8 * threadIdx.x);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t k_desc = wgmma_desc(smem_u32(Ks)), v_desc = wgmma_desc(smem_u32(Vs));
+
+  cp_async_wait<1>();  // K and k_last have landed
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t qraw[D / 16][4];
+  load_a_words(qraw, q, base, W, L, warp * 16);
+  for (int q0 = 0; q0 < L; q0 += 64) {
+    const int wq0 = q0 + warp * 16;
+    const int row_lo = wq0 + g, row_hi = wq0 + g + 8;
+    uint32_t qa[D / 16][4];
+    scale_words(qa, qraw, scale);  // bf16(q * bf16(scale)), as K1
+    float s[NT][4];
+    wgmma_fence();
+    wgmma_row_kmajor<NT>(s, qa, k_desc);
+    wgmma_commit();
+    // the last key's score on the CUDA cores while the tensor cores run s_main.  The A registers may not be
+    // read before the wait, so qs = bf16(q * scale) is formed again from the raw words.  Each qs * k_last
+    // product is exact in fp32 (two 8-bit mantissas) and rounded to bf16 on its own before the fp32 sum.
+    float sl_lo = 0.f, sl_hi = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int col = ks * 16 + 2 * t + ((r & 2) ? 8 : 0);
+        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&qraw[ks][r]);
+        const __nv_bfloat162 qs = __floats2bfloat162_rn(__bfloat162float(x.x) * scale, __bfloat162float(x.y) * scale);
+        const __nv_bfloat162 kl = *reinterpret_cast<const __nv_bfloat162*>(k_last + col);
+        const float p0 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(__bfloat162float(qs.x), __bfloat162float(kl.x))));
+        const float p1 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(__bfloat162float(qs.y), __bfloat162float(kl.y))));
+        if (r & 1) sl_hi += p0 + p1; else sl_lo += p0 + p1;
+      }
+    }
+    sl_lo = quad_sum(sl_lo);
+    sl_hi = quad_sum(sl_hi);
+    wgmma_wait<0>();
+    wgmma_fence_regs<4 * NT>(&s[0][0]);
+    load_a_words(qraw, q, base, W, L, wq0 + 64);  // the next tile's rows, under this tile's softmax
+
+    uint32_t pa[NT / 2][4];
+    float l_lo = 0.f, l_hi = 0.f, e_lo = 0.f, e_hi = 0.f;
+    if (wq0 < L) {  // warp-uniform: a warp with no valid row skips the softmax
+      float m_lo = -INFINITY, m_hi = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        m_lo = fmaxf(m_lo, fmaxf(s[j][0], s[j][1]));
+        m_hi = fmaxf(m_hi, fmaxf(s[j][2], s[j][3]));
+      }
+      m_lo = fmaxf(quad_max(m_lo), sl_lo);
+      m_hi = fmaxf(quad_max(m_hi), sl_hi);
+      const float c_lo = m_lo * LOG2E, c_hi = m_hi * LOG2E;
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+#pragma unroll
+        for (int j = 2 * kk; j < 2 * kk + 2; ++j) {
+          s[j][0] = exp2_approx(fmaf(s[j][0], LOG2E, -c_lo));
+          s[j][1] = exp2_approx(fmaf(s[j][1], LOG2E, -c_lo));
+          s[j][2] = exp2_approx(fmaf(s[j][2], LOG2E, -c_hi));
+          s[j][3] = exp2_approx(fmaf(s[j][3], LOG2E, -c_hi));
+          l_lo += s[j][0] + s[j][1];
+          l_hi += s[j][2] + s[j][3];
+        }
+        c_to_a(pa[kk], s[2 * kk], s[2 * kk + 1]);
+      }
+      // the last key's term joins the row sum after the main keys'
+      e_lo = exp2_approx(fmaf(sl_lo, LOG2E, -c_lo));
+      e_hi = exp2_approx(fmaf(sl_hi, LOG2E, -c_hi));
+      l_lo = quad_sum(l_lo) + e_lo;
+      l_hi = quad_sum(l_hi) + e_hi;
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) pa[kk][0] = pa[kk][1] = pa[kk][2] = pa[kk][3] = 0u;
+    }
+    if (q0 == 0) {
+      cp_async_wait<0>();  // V and v_last have landed, under the first tile's q k^T and softmax
+      fence_proxy_async();
+      __syncthreads();
+    }
+    float acc[D / 8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      wgmma_m64n64k16_bt(&acc[0][0], pa[kk], v_desc + desc_rows(16 * kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_fence_regs<D / 2>(&acc[0][0]);
+    // o = (acc + bf16(bf16(e_last) * v_last)) * (1 / rsum), each step rounded on its own
+    const float p_lo = __bfloat162float(__float2bfloat16_rn(e_lo)), p_hi = __bfloat162float(__float2bfloat16_rn(e_hi));
+    const float inv_lo = 1.f / l_lo, inv_hi = 1.f / l_hi;
+#pragma unroll
+    for (int dn = 0; dn < D / 8; ++dn) {
+      const int col = dn * 8 + 2 * t;
+      const __nv_bfloat162 vl = *reinterpret_cast<const __nv_bfloat162*>(v_last + col);
+      const float v0 = __bfloat162float(vl.x), v1 = __bfloat162float(vl.y);
+      const float t00 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_lo, v0)));
+      const float t01 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_lo, v1)));
+      const float t10 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_hi, v0)));
+      const float t11 = __bfloat162float(__float2bfloat16_rn(__fmul_rn(p_hi, v1)));
+      if (row_lo < L)
+        *reinterpret_cast<uint32_t*>(o + base + (size_t)row_lo * W + col) =
+            pack_bf16x2(__fmul_rn(__fadd_rn(acc[dn][0], t00), inv_lo), __fmul_rn(__fadd_rn(acc[dn][1], t01), inv_lo));
+      if (row_hi < L)
+        *reinterpret_cast<uint32_t*>(o + base + (size_t)row_hi * W + col) =
+            pack_bf16x2(__fmul_rn(__fadd_rn(acc[dn][2], t10), inv_hi), __fmul_rn(__fadd_rn(acc[dn][3], t11), inv_hi));
+    }
+  }
+}
+
+template <int NT, bool NORM_FIRST>
 int launch_fused(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid, int causal,
-              float scale, void* stream) {
+                 float scale, void* stream) {
   const int smem = 2 * NT * 8 * TILE_ROW_BYTES + 1024;  // two tiles and the slack to align them
-  auto kern = causal ? attention_fused_fwd_kernel<NT, true> : attention_fused_fwd_kernel<NT, false>;
+  auto kern = causal ? attention_fused_fwd_kernel<NT, true, NORM_FIRST> : attention_fused_fwd_kernel<NT, false, NORM_FIRST>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(H, B), 128, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
       L, H, l_valid, scale);
+  return (int)cudaGetLastError();
+}
+
+// The smallest instantiation whose row holds l_valid keys.
+template <bool NORM_FIRST>
+int launch_fused_by_length(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid,
+                           int causal, float scale, void* stream) {
+  const int nt = (l_valid + 7) / 8;
+  if (L > 272 || l_valid < 1 || l_valid > L) return (int)cudaErrorInvalidValue;
+  if (nt <= 10) return launch_fused<10, NORM_FIRST>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+  if (nt <= 18) return launch_fused<18, NORM_FIRST>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+  if (nt <= 26) return launch_fused<26, NORM_FIRST>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+  return launch_fused<34, NORM_FIRST>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+}
+
+template <int NT>
+int launch_splitk_fused(const void* q, const void* k, const void* v, void* o, int B, int L, int H, float scale,
+                        void* stream) {
+  const int smem = 2 * NT * 8 * TILE_ROW_BYTES + 2 * TILE_ROW_BYTES + 1024;  // main K, V; k_last, v_last; alignment
+  cudaError_t err =
+      cudaFuncSetAttribute(attention_splitk_fused_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_splitk_fused_kernel<NT><<<dim3(H, B), 128, smem, (cudaStream_t)stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      L, H, scale);
   return (int)cudaGetLastError();
 }
 
@@ -596,12 +817,7 @@ extern "C" {
 // the CUDA error code of the launch (0 on success).
 int uniir_attention_fused_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid,
                               int causal, float scale, void* stream) {
-  const int nt = (l_valid + 7) / 8;  // n8 key tiles; the smallest instantiation that holds them
-  if (L > 272 || l_valid < 1 || l_valid > L) return (int)cudaErrorInvalidValue;
-  if (nt <= 10) return launch_fused<10>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
-  if (nt <= 18) return launch_fused<18>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
-  if (nt <= 26) return launch_fused<26>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
-  return launch_fused<34>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+  return launch_fused_by_length<false>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
 }
 
 // The general-length K1: the same tensors and arguments, any L whose K and
@@ -611,15 +827,34 @@ int uniir_attention_fwd(const void* q, const void* k, const void* v, void* o, in
   return launch<false>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
 }
 
-// K8 / K9: the same tensors through the NORM_FIRST rounding points; `scale`
-// is the fp32 scale applied to the scores (q is not pre-scaled).
+// K8 / K9 for L <= 272: the same tensors through the NORM_FIRST rounding
+// points; `scale` is the fp32 scale applied to the scores (q is not
+// pre-scaled).
+int uniir_attention_norm_first_fused_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+                                         int l_valid, int causal, float scale, void* stream) {
+  return launch_fused_by_length<true>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
+}
+
+// The general-length K8 / K9: the same arguments, any L whose K and V^T fit
+// one block's shared memory (the wrapper checks).
 int uniir_attention_norm_first_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
                                    int l_valid, int causal, float scale, void* stream) {
   return launch<true>(q, k, v, o, B, L, H, l_valid, causal, scale, stream);
 }
 
-// K10: as uniir_attention_fwd for a non-causal call with l_valid % 128 == 1
-// and l_valid > 128 (the wrapper checks); `scale` is bf16(scale) as for K1.
+// K10 for l_valid = 129 or 257 and L <= 272 (the wrapper checks): as
+// uniir_attention_fused_fwd for a non-causal call; `scale` is bf16(scale).
+int uniir_attention_splitk_fused_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H,
+                                     int l_valid, float scale, void* stream) {
+  if (L > 272 || l_valid > L) return (int)cudaErrorInvalidValue;
+  if (l_valid == 129) return launch_splitk_fused<16>(q, k, v, o, B, L, H, scale, stream);
+  if (l_valid == 257) return launch_splitk_fused<32>(q, k, v, o, B, L, H, scale, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The general-length K10: a non-causal call with l_valid % 128 == 1 and
+// l_valid > 128 whose main block fits one block's shared memory (the wrapper
+// checks); `scale` is bf16(scale) as for K1.
 int uniir_attention_splitk_fwd(const void* q, const void* k, const void* v, void* o, int B, int L, int H, int l_valid,
                                float scale, void* stream) {
   const int km = l_valid - 1;

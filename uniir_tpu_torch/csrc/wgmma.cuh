@@ -112,19 +112,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_bt(float* d, const uint32_t (&a)
 }
 
 // d (64 rows x 8 NT keys, as NT n8 tiles of 4 registers) = A (64 x 64, four k16 fragments) . B^T, B the
-// K-major tile rows that `b_desc` starts at: (NT - 2) / 8 products of 64 keys and one of 16, each over
-// the four k16 steps.  NT = 8 c + 2.
+// K-major tile rows that `b_desc` starts at, each product over the four k16 steps: NT = 8 c + 2 (K1, K3:
+// a padded row) is c products of 64 keys and one of 16; NT = 8 c (K10's main keys) is c products of 64.
 template <int NT>
 __device__ __forceinline__ void wgmma_row_kmajor(float (&d)[NT][4], const uint32_t (&a)[4][4], uint64_t b_desc) {
-  static_assert(NT % 8 == 2, "a score row is whole 64-key products and one of 16 keys");
+  static_assert(NT % 8 == 2 || NT % 8 == 0, "a score row is whole 64-key products, and perhaps one of 16 keys");
 #pragma unroll
   for (int c = 0; c < NT / 8; ++c)
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
       wgmma_m64n64k16(&d[8 * c][0], a[ks], b_desc + desc_rows(64 * c) + 2 * ks, ks > 0);
+  if constexpr (NT % 8 == 2) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-    wgmma_m64n16k16(&d[NT - 2][0], a[ks], b_desc + desc_rows(8 * (NT - 2)) + 2 * ks, ks > 0);
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n16k16(&d[NT - 2][0], a[ks], b_desc + desc_rows(8 * (NT - 2)) + 2 * ks, ks > 0);
+  }
 }
 
 }  // namespace uniir

@@ -39,6 +39,14 @@ other rounding points (scores scaled in fp32 after the product, the
 probabilities normalised and rounded to bf16 before the PV product): the
 NORM_FIRST variant of `csrc/attention.cu`, with the plain twin
 `attention_twopass_reference`.  Forward only, as in the JAX package.
+
+K8 / K9 and K10 have two kernels each, as K1 has, chosen by a static rule
+over the shape before any launch: `norm_first_route` sends L <= 272 to the
+NORM_FIRST instantiation of `attention_fused_fwd_kernel` and longer
+sequences to the general-length `norm_first_general`; `splitk_route` sends
+l_valid = 129 or 257 with L <= 272 to `attention_splitk_fused_kernel` and
+other valid lengths of the split-K condition to `attention_splitk_general`.
+The general-length kernels count their launches on their own.
 """
 
 from __future__ import annotations
@@ -86,6 +94,32 @@ def backward_route(head_dim: int, L: int) -> Optional[str]:
     """The K3 kernel for this shape: "fused" (L <= 272), "general"
     (L <= 544), or None."""
     return _route(head_dim, L, _general_bwd_smem)
+
+
+def norm_first_route(head_dim: int, L: int) -> Optional[str]:
+    """The K8 / K9 kernel for this shape: "fused" (the NORM_FIRST variant of
+    the one-block-a-head kernel, L <= 272, causal or not), "general" (L <=
+    848, what the general kernel's shared memory holds), or None (the
+    wrappers raise)."""
+    return _route(head_dim, L, _general_fwd_smem)
+
+
+def _general_splitk_smem(l_valid: int) -> int:
+    km = l_valid - 1
+    return km * (HEAD_DIM + 8) * 2 + HEAD_DIM * (km + 8) * 2 + 4 * HEAD_DIM  # main K rows, V^T, k_last and v_last
+
+
+def splitk_route(head_dim: int, L: int, l_valid: int) -> Optional[str]:
+    """The K10 kernel for a non-causal call of this shape: "fused" (one block
+    a head, L <= 272, l_valid = 129 or 257), "general" (another valid length
+    of the split-K condition whose main block fits one block's shared
+    memory: l_valid <= 769), or None where split-K does not apply or no
+    kernel fits."""
+    if head_dim != HEAD_DIM or not 0 < l_valid <= L or not splitk_applies(l_valid, causal=False):
+        return None
+    if L <= FUSED_MAX_L:
+        return "fused"
+    return "general" if _general_splitk_smem(l_valid) <= MAX_SMEM_BYTES else None
 
 
 def kernel_supported(heads: int, width: int, L: int, training: bool) -> bool:
@@ -219,6 +253,54 @@ def attention_splitk_reference(
     return (o * (1.0 / rsum)).reshape(B, L, W).to(q.dtype)
 
 
+def _head_scale(q: torch.Tensor, heads: int, scale: Optional[float]) -> float:
+    return (q.shape[2] // heads) ** -0.5 if scale is None else scale
+
+
+def _launch_fwd(entry: str, what: str, q, k, v, heads: int, *args) -> torch.Tensor:
+    """Launch a forward entry point of csrc/attention.cu, whose arguments are
+    (q, k, v, out, B, L, heads, *args, stream), into a new output."""
+    B, L, _ = q.shape
+    lib = _build.load("attention")
+    out = torch.empty_like(q)
+    err = getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, heads, *args,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, err, what)
+    return out
+
+
+def _check_splitk_args(q, k, v, heads: int, l_valid: Optional[int]) -> int:
+    lv = _check_args(q, k, v, heads, l_valid)
+    if not splitk_applies(lv, causal=False):
+        raise ValueError(f"split-K attention takes l_valid % 128 == 1 and l_valid > 128, got {lv}")
+    return lv
+
+
+def attention_splitk_general(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    heads: int,
+    scale: Optional[float] = None,
+    l_valid: Optional[int] = None,
+) -> torch.Tensor:
+    """K10's general-length kernel (a block per 64-query tile, the main K
+    rows and V^T in shared memory), on CUDA tensors: what `attention_splitk`
+    launches where `splitk_route` says "general" (l_valid = 385, 513, 641,
+    769).  It takes l_valid = 129 and 257 too, which is how the two kernels
+    are timed side by side."""
+    lv = _check_splitk_args(q, k, v, heads, l_valid)
+    _check_cuda({"q": q, "k": k, "v": v}, heads)
+    if _general_splitk_smem(lv) > MAX_SMEM_BYTES:
+        raise ValueError(f"sequence length {lv} needs more shared memory than one block has")
+    out = _launch_fwd("uniir_attention_splitk_fwd", "split-K attention kernel (general length)", q, k, v, heads, lv,
+                      _bf16_scale(_head_scale(q, heads, scale)))
+    attention_splitk_general.launches += 1
+    return out
+
+
 def attention_splitk(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -229,24 +311,19 @@ def attention_splitk(
 ) -> torch.Tensor:
     """K10, forward only: split-K attention over [B, L, H*64] for a valid
     length that is one past a multiple of 128.  On a CUDA tensor it launches
-    the kernel or raises; on a CPU tensor it runs the twin."""
-    lv = _check_args(q, k, v, heads, l_valid)
-    if not splitk_applies(lv, causal=False):
-        raise ValueError(f"split-K attention takes l_valid % 128 == 1 and l_valid > 128, got {lv}")
+    the kernel `splitk_route` names or raises; on a CPU tensor it runs the
+    twin."""
+    lv = _check_splitk_args(q, k, v, heads, l_valid)
     if q.device.type == "cpu":
         return attention_splitk_reference(q, k, v, heads, scale, lv)
     _check_cuda({"q": q, "k": k, "v": v}, heads)
-    B, L, W = q.shape
-    km = lv - 1
-    if km * (HEAD_DIM + 8) * 2 + HEAD_DIM * (km + 8) * 2 + 4 * HEAD_DIM > MAX_SMEM_BYTES:
+    route = splitk_route(q.shape[2] // heads, q.shape[1], lv)
+    if route == "general":
+        return attention_splitk_general(q, k, v, heads, scale, lv)
+    if route is None:
         raise ValueError(f"sequence length {lv} needs more shared memory than one block has")
-    lib = _build.load("attention")
-    out = torch.empty_like(q)
-    err = lib.uniir_attention_splitk_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, heads, lv,
-        _bf16_scale((W // heads) ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, err, "split-K attention kernel")
+    out = _launch_fwd("uniir_attention_splitk_fused_fwd", "split-K attention kernel", q, k, v, heads, lv,
+                      _bf16_scale(_head_scale(q, heads, scale)))
     attention_splitk.launches += 1
     return out
 
@@ -307,18 +384,6 @@ def attention_bwd_reference(
     return tuple(d.reshape(B, L, W).to(t.dtype) for d, t in ((dq, q), (dk, k), (dv, v)))
 
 
-def _launch_fwd(entry: str, what: str, q, k, v, heads: int, scale: Optional[float], causal: bool, l_valid: int):
-    B, L, W = q.shape
-    lib = _build.load("attention")
-    out = torch.empty_like(q)
-    err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, heads, l_valid, int(causal),
-        _bf16_scale((W // heads) ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, err, what)
-    return out
-
-
 def attention_fwd_general(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -336,7 +401,8 @@ def attention_fwd_general(
     _check_cuda({"q": q, "k": k, "v": v}, heads)
     if _general_fwd_smem(q.shape[1]) > MAX_SMEM_BYTES:
         raise ValueError(f"sequence length {q.shape[1]} needs more shared memory than one block has")
-    out = _launch_fwd("uniir_attention_fwd", "attention kernel (general length)", q, k, v, heads, scale, causal, lv)
+    out = _launch_fwd("uniir_attention_fwd", "attention kernel (general length)", q, k, v, heads, lv, int(causal),
+                      _bf16_scale(_head_scale(q, heads, scale)))
     attention_fwd_general.launches += 1
     return out
 
@@ -351,7 +417,8 @@ def _attention_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool, l_
         return attention_fwd_general(q, k, v, heads, scale, causal, l_valid)
     if route is None:
         raise ValueError(f"sequence length {q.shape[1]} needs more shared memory than one block has")
-    out = _launch_fwd("uniir_attention_fused_fwd", "attention kernel", q, k, v, heads, scale, causal, l_valid)
+    out = _launch_fwd("uniir_attention_fused_fwd", "attention kernel", q, k, v, heads, l_valid, int(causal),
+                      _bf16_scale(_head_scale(q, heads, scale)))
     attention.launches += 1
     return out
 
@@ -506,19 +573,37 @@ def attention_twopass_reference(
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).reshape(B, L, W).to(q.dtype)
 
 
-def _norm_first_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool) -> torch.Tensor:
-    """The NORM_FIRST kernel over [B, L, H*64] CUDA tensors (the caller counts the launch)."""
+def norm_first_general(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int, scale: Optional[float] = None, causal: bool = False
+) -> torch.Tensor:
+    """K8 / K9's general-length kernel (a block per 64-query tile, the keys
+    walked three times) over [B, L, H*64] CUDA tensors: what `mha_nocausal`
+    and `mha_paired` launch for 272 < L <= 848.  It takes the shorter
+    lengths too, which is how the two kernels are timed side by side."""
+    _check_args(q, k, v, heads, None)
     _check_cuda({"q": q, "k": k, "v": v}, heads)
-    B, L, W = q.shape
-    if _general_fwd_smem(L) > MAX_SMEM_BYTES:
-        raise ValueError(f"sequence length {L} needs more shared memory than one block has")
-    lib = _build.load("attention")
-    out = torch.empty_like(q)
-    err = lib.uniir_attention_norm_first_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, heads, L, int(causal),
-        float((W // heads) ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, err, "attention kernel (normalise-first variant)")
+    if _general_fwd_smem(q.shape[1]) > MAX_SMEM_BYTES:
+        raise ValueError(f"sequence length {q.shape[1]} needs more shared memory than one block has")
+    # the fp32 scale multiplies the fp32 scores (q is not pre-scaled); every key is valid
+    out = _launch_fwd("uniir_attention_norm_first_fwd", "attention kernel (normalise-first, general length)",
+                      q, k, v, heads, q.shape[1], int(causal), float(_head_scale(q, heads, scale)))
+    norm_first_general.launches += 1
+    return out
+
+
+def _norm_first_fwd(q, k, v, heads: int, scale: Optional[float], causal: bool, counted: Callable) -> torch.Tensor:
+    """The NORM_FIRST kernel `norm_first_route` names, over [B, L, H*64]
+    CUDA tensors; a launch of the one-block-a-head kernel adds one to
+    `counted` (`mha_nocausal` or `mha_paired`)."""
+    _check_cuda({"q": q, "k": k, "v": v}, heads)
+    route = norm_first_route(q.shape[2] // heads, q.shape[1])
+    if route == "general":
+        return norm_first_general(q, k, v, heads, scale, causal)
+    if route is None:
+        raise ValueError(f"sequence length {q.shape[1]} needs more shared memory than one block has")
+    out = _launch_fwd("uniir_attention_norm_first_fused_fwd", "attention kernel (normalise-first variant)",
+                      q, k, v, heads, q.shape[1], int(causal), float(_head_scale(q, heads, scale)))
+    counted.launches += 1
     return out
 
 
@@ -534,9 +619,7 @@ def mha_nocausal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: Optio
     scale = D**-0.5 if scale is None else scale
     if q.device.type == "cpu":
         return attention_twopass_reference(*flat, H, scale).view(B, L, H, D)
-    out = _norm_first_fwd(*flat, H, scale, False)
-    mha_nocausal.launches += 1
-    return out.view(B, L, H, D)
+    return _norm_first_fwd(*flat, H, scale, False, mha_nocausal).view(B, L, H, D)
 
 
 def mha_paired(
@@ -548,15 +631,15 @@ def mha_paired(
     _check_args(q, k, v, heads, None)
     if q.device.type == "cpu":
         return attention_twopass_reference(q, k, v, heads, scale, causal)
-    out = _norm_first_fwd(q, k, v, heads, scale, causal)
-    mha_paired.launches += 1
-    return out
+    return _norm_first_fwd(q, k, v, heads, scale, causal, mha_paired)
 
 
 attention.launches = 0
 attention_fwd_general.launches = 0
 attention_splitk.launches = 0
+attention_splitk_general.launches = 0
 attention_bwd.launches = 0
 attention_bwd_general.launches = 0
 mha_nocausal.launches = 0
 mha_paired.launches = 0
+norm_first_general.launches = 0
