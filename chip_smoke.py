@@ -22,7 +22,9 @@
    5.6M x 768 pool with 256 queries (also against brute force, and `topk`
    with the guard through K11),
    K5 (int8 matmul) at the CLIP-L projection shapes in its dynamic and
-   static modes, K6 (fused int8 MLP) at the vision and text widths, with
+   static modes (beside `torch._int_mm` alone, and at the vision and text
+   shapes its main loop's two tiles in turns), K6 (fused int8 MLP) at the
+   vision and text widths (beside K5 at its two product shapes), with
    times for kernel, twin and, where one PyTorch call computes the same
    function, that call (used nowhere in the port);
 2. drives the serving path once through the port's own entry points --
@@ -887,11 +889,16 @@ def library_int8_matmul(xq, a_rows, wq, w_scale, bias):
     return ((torch._int_mm(xq, wq.T).float() * a_rows[:, None]) * w_scale + bias).to(torch.bfloat16)
 
 
+K5_MS: dict = {}  # K5's time by shape tag, for K6's comparison with its two products
+
+
 def check_int8_matmul(results: dict) -> None:
     """K5 against its twin at the shapes int8 serving gives it at batch 64:
     vision M = 64 * 257, text M = 64 * 77, the trimmed last block M = 64;
     per-row (dynamic) and static scales, with and without bias, whole weights
-    and column ranges (the thirds of the fused qkv projection)."""
+    and column ranges (the thirds of the fused qkv projection).  At each
+    shape `torch._int_mm` alone is timed beside it, and at the vision and
+    text shapes the main loop's two tiles in turns (a, b, b, a)."""
     from uniir_tpu_torch.ops import quant as Q
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -919,15 +926,25 @@ def check_int8_matmul(results: dict) -> None:
                 errs.append((out.float() - ref.float()).abs().max().item())
         worst = max(worst, *errs)
         n = N if cols is None else cols[1] - cols[0]
+        lo = 0 if cols is None else cols[0]
         ms = cuda_ms(lambda: Q.int8_matmul(xq, a_rows, wq, ws, bias, cols), 10)
+        K5_MS[tag] = ms
+        w_cols = wq[lo : lo + n]
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, w_cols.T), 10) if M > 16 else None
         log(f"K5 int8_matmul {tag} M={M} K={K} N={n} (weight rows {N}): max_abs_err dynamic/static x bias/none={errs} "
-            f"kernel_ms={ms} ({2 * M * K * n / ms / 1e9:.1f} TOP/s)")
+            f"kernel_ms={ms} ({2 * M * K * n / ms / 1e9:.1f} TOP/s); torch._int_mm alone {int_mm_ms} ms")
+        if tag.startswith("vision") or tag.startswith("text"):
+            order = list(Q.INT8_TILES) + list(Q.INT8_TILES)[::-1]
+            tiles = {name: [] for name in Q.INT8_TILES}
+            for name in order:
+                tiles[name].append(cuda_ms(
+                    lambda: Q._launch_int8_matmul(xq, a_rows, wq, ws, bias, lo, n, Q.INT8_TILES[name]), 10))
+            log(f"K5 {tag}: tiles of the main loop, ms in turns {order}: {tiles}")
         # exact integer sums, the same separately rounded fp32 epilogue: bit-equal bf16
         check(max(errs) == 0.0, f"K5 disagrees with its twin at {tag}")
         if tag == "vision fc1":
             plain_ms = cuda_ms(lambda: Q.int8_matmul_twin(xq, a_rows, wq, ws, bias), 3)
             library_ms = cuda_ms(lambda: library_int8_matmul(xq, a_rows, wq, ws, bias), 10)
-            int_mm_ms = cuda_ms(lambda: torch._int_mm(xq, wq.T), 10)
             limit = bound(nbytes(xq, wq, a_rows, ws, bias) + 2 * M * N, 2 * M * K * N, INT8_OPS_PER_S)
             log(f"K5 {tag}: plain_ms={plain_ms} library_ms={library_ms} (torch._int_mm alone {int_mm_ms}) {limit}")
             results["K5"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
@@ -983,8 +1000,10 @@ def check_int8_mlp(results: dict) -> None:
         two_int_mm = cuda_ms(lambda: (torch._int_mm(xq, w1q.T), torch._int_mm(hq, w2q.T)), 10)
         del xq, hq
         limit = bound(nbytes(h, res, out, w1q, w2q, s1, b1, s2, b2), 4 * M * W * H, INT8_OPS_PER_S)
+        products = K5_MS[f"{tag} fc1"] + K5_MS[f"{tag} fc2"]
         log(f"K6 int8_mlp {tag}: kernel_ms={ms} ({4 * M * W * H / ms / 1e9:.1f} TOP/s) plain_ms={plain_ms} "
             f"MLP module static route fused (K6)={routes['fused']} ms, xla (two K5 + bf16 hidden)={routes['xla']} ms; "
+            f"K5 at the fc1 and fc2 shapes together {products} ms (K6 over them: {ms - products} ms); "
             f"no single library call computes it: two torch._int_mm of these shapes alone take {two_int_mm} ms; {limit}")
         if tag == "vision":
             results["K6"].update(ms=ms, plain_ms=plain_ms, **limit)
@@ -1686,7 +1705,8 @@ def profile_train_step(name: str, remat: bool = False, splitk: bool = False) -> 
 PROFILE_GROUPS = {
     "K1 attention_fwd": ("attention_fused_fwd", "attention_fwd"), "K10 attention_splitk": ("attention_splitk",),
     "K3 attention_bwd": ("attention_fused_bwd", "attention_bwd"),
-    "K5 int8_matmul": ("int8_matmul_kernel",), "K6 int8_mlp": ("int8_mlp_kernel",),
+    # K5 and K6 share int8_gemm.cuh's kernel; its epilogue type, in the name, tells them apart
+    "K5 int8_matmul": ("dequantbf16",), "K6 int8_mlp": ("actquanti8", "dequantresbf16", "quantise_rows"),
     "K7 preprocess": ("preprocess_kernel",),
     "GEMM": ("gemm", "xmma", "cutlass", "nvjet", "cublas"), "AdamW": ("multi_tensor", "adam"),
     "reduction / norm / softmax": ("reduce", "norm", "softmax"), "elementwise / copy": ("elementwise", "copy"),

@@ -139,9 +139,9 @@ def test_support_gate_and_argument_checks():
     assert M_.int8_mlp_supported(1024, 4096, "quick_gelu") and M_.int8_mlp_supported(768, 3072, "gelu")
     assert M_.int8_mlp_supported(32, 128, "gelu_tanh")  # narrow test widths run the kernel too
     assert not M_.int8_mlp_supported(1000, 4000, "quick_gelu")  # not cut into 32-value steps
-    assert not M_.int8_mlp_supported(2048, 8192, "quick_gelu")  # the 32-row hidden outgrows shared memory
+    # the hidden no longer lives in a block's shared memory: no width limit
+    assert M_.int8_mlp_supported(1440, 5760, "quick_gelu") and M_.int8_mlp_supported(2048, 8192, "quick_gelu")
     assert not M_.int8_mlp_supported(1024, 4096, "relu")
-    assert M_.int8_mlp_smem_bytes(1024, 4096) == 32 * (1088 + 4160)
     pargs = _port_args(*_case(8))
     with pytest.raises(ValueError, match="activation"):
         M_.int8_mlp(*pargs, act="relu")
@@ -149,6 +149,21 @@ def test_support_gate_and_argument_checks():
         M_.int8_mlp(pargs[0], pargs[1][:4], *pargs[2:])
     with pytest.raises(RuntimeError, match="inference only"):
         M_.int8_mlp(pargs[0].float().requires_grad_(), *pargs[1:])
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_twin_at_a_width_the_old_gate_refused(act):
+    """W = 1440, H = 5760: the smallest CLIP-shaped MLP whose 32-row hidden
+    did not fit the old kernel's shared memory, which the gate now takes.
+    The twin against the JAX package's jnp oracle, as at the small widths
+    (the Pallas kernel refuses widths that are not multiples of 128)."""
+    from uniir_tpu.ops.mlp_pallas import reference_int8_mlp
+
+    case = _case(6, W=1440, H=5760, seed=3)
+    jargs, pargs = _jax_args(*case), _port_args(*case)
+    oracle = torch.from_numpy(np.asarray(reference_int8_mlp(*jargs[:8], case[6], case[7], act=act), np.float32))
+    out = M_.int8_mlp(*pargs, act=act)
+    assert out.shape == (6, 1440) and _bf16_ulps(out.float(), oracle) <= OUT_ULPS
 
 
 @pytest.fixture
@@ -178,3 +193,29 @@ def test_kernel_matches_twin_on_card(cuda, M, W, act):
     assert M_.int8_mlp.launches - before == 1
     ref = M_.int8_mlp_twin(h, res, w1q, s1, b1, w2q, s2, b2, a1, a2, act=act)
     assert _bf16_ulps(out.float().cpu(), ref.float().cpu()) <= OUT_ULPS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("act", ACTS)
+@pytest.mark.parametrize("W", [96, 768, 1024])
+@pytest.mark.parametrize("M", [1, 50, 1028, 16448])
+def test_kernel_matches_twin_at_tile_edges(cuda, M, W, act):
+    """K6 at the edges of the main loop's 128-row tiles (M = 1, 50, 1028) and
+    at the vision batch's 16448 rows, at three widths: within one bf16 step
+    of the twin on at most 1e-3 of the outputs, and one count a call for its
+    three launches."""
+    H = 4 * W
+    g = torch.Generator(device="cuda").manual_seed(M + W)
+    h = (torch.randn(M, W, generator=g, device=cuda) * 0.5).bfloat16()
+    res = torch.randn(M, W, generator=g, device=cuda).bfloat16()
+    w1q, s1 = quantize_weight(torch.randn(H, W, generator=g, device=cuda) * W**-0.5)
+    w2q, s2 = quantize_weight(torch.randn(W, H, generator=g, device=cuda) * H**-0.5)
+    b1, b2 = torch.randn(H, generator=g, device=cuda) * 0.1, torch.randn(W, generator=g, device=cuda) * 0.1
+    a1, a2 = float(h.abs().max()) / 127.0, 2.0 / 127.0
+    before = M_.int8_mlp.launches
+    out = M_.int8_mlp(h, res, w1q, s1, b1, w2q, s2, b2, a1, a2, act=act)
+    torch.cuda.synchronize()
+    assert M_.int8_mlp.launches - before == 1
+    ref = M_.int8_mlp_twin(h, res, w1q, s1, b1, w2q, s2, b2, a1, a2, act=act)
+    assert _bf16_ulps(out.float().cpu(), ref.float().cpu()) <= OUT_ULPS
+    assert (out != ref).float().mean().item() <= HIDDEN_FLIP_SHARE

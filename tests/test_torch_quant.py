@@ -166,6 +166,30 @@ def test_columns_equal_slicing_the_full_output(mode):
                                    rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("M", [1, 63, 65, 129])
+@pytest.mark.parametrize("K,N", [(32, 8), (96, 40), (96, 264)])
+def test_twin_at_tile_edges_equals_jax(M, K, N):
+    """The shapes at the edges of K5's 128-row, 128 / 256-column tiles and
+    its 128-byte k steps: the twin against the JAX package's int8_matmul,
+    bit-equal in the static mode, one bf16 step at most in the dynamic mode
+    (the Pallas epilogue order against XLA's)."""
+    import jax.numpy as jnp
+
+    from uniir_tpu.ops.quant import int8_matmul
+
+    rng = np.random.default_rng(8)
+    _, b, q, s, wq, ws, bias = _layer(rng, K, N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    a = np.float32(np.abs(x).max() * 0.8 / 127.0)
+    ref = int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), jnp.asarray(b), a_static=a)
+    out = Q.int8_matmul(*Q.quantize_input(torch.from_numpy(x), "static", float(a)), wq, ws, bias)
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(ref.astype(jnp.bfloat16), np.float32))
+    xla = np.asarray(int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), jnp.asarray(b)).astype(jnp.bfloat16),
+                     np.float32)
+    out = Q.int8_matmul(*Q.quantize_input(torch.from_numpy(x), "dynamic"), wq, ws, bias)
+    assert out.shape == (M, N) and _bf16_ulps(out.float().numpy(), xla) <= 1
+
+
 def test_exact_int_matmul_is_exact_past_fp32_range():
     """K = 4096 of +-127 overflows fp32's exact integers; the pieces do not."""
     xq = torch.full((2, 4096), 127, dtype=torch.int8)
@@ -244,6 +268,35 @@ def test_kernel_equals_twin_on_card(cuda, M, K, N, static):
         torch.cuda.synchronize()
         assert torch.equal(out, Q.int8_matmul_twin(xq, a, wq, ws, b, cols))
     assert Q.int8_matmul.launches - before == 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 129, 16448])
+@pytest.mark.parametrize("N", [8, 40, 248, 256, 264, 4096])
+def test_kernel_equals_twin_at_tile_edges(cuda, M, N):
+    """K5 at the edges of its 128-row tiles, 128 / 256-column tiles and
+    128-byte k steps (K = 32 and 96 are a ragged first step), bit-equal to
+    the twin: per-row and static scales, with and without bias, the whole
+    weight and a column range starting 136 rows in (a multiple of 8, not of
+    128); each tile of the main loop, and the rule's choice through
+    `int8_matmul`."""
+    g = torch.Generator(device="cuda").manual_seed(M * 7 + N)
+    lo = 136
+    before = Q.int8_matmul.launches
+    for K in (32, 96, 1024, 4096):
+        xq = torch.randint(-127, 128, (M, K), generator=g, device=cuda, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (lo + N, K), generator=g, device=cuda, dtype=torch.int8)
+        ws = torch.rand(lo + N, generator=g, device=cuda) * 1e-3
+        bias = torch.randn(lo + N, generator=g, device=cuda)
+        for a in (torch.rand(M, generator=g, device=cuda) * 0.05, 0.0123):
+            for b, cols in [(bias, (lo, lo + N)), (None, (lo, lo + N)), (bias, None)]:
+                ref = Q.int8_matmul_twin(xq, a, wq, ws, b, cols)
+                assert torch.equal(Q.int8_matmul(xq, a, wq, ws, b, cols), ref), (K, cols)
+            for tile in Q.INT8_TILES.values():
+                out = Q._launch_int8_matmul(xq, a, wq, ws, bias, lo, N, tile)
+                assert torch.equal(out, Q.int8_matmul_twin(xq, a, wq, ws, bias, (lo, lo + N))), (K, tile)
+    torch.cuda.synchronize()
+    assert Q.int8_matmul.launches - before == 4 * 2 * 3  # the launches of a named tile are not counted
 
 
 @pytest.mark.gpu

@@ -46,10 +46,10 @@ SIGNATURES = {
         "uniir_attention_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P),
     },
     "int8_matmul": {
-        "uniir_int8_matmul": (_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _P),
+        "uniir_int8_matmul": (_P, _P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "int8_mlp": {
-        "uniir_int8_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
+        "uniir_int8_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
     },
     "preprocess": {
         "uniir_fused_preprocess": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),

@@ -209,11 +209,13 @@ class MLP(nn.Module, _ActScales):
     form).  With `res` the residual add is part of it.
 
     That ownership lets the static int8 mode run the whole half-block as one
-    call of kernel K6 (`ops/mlp.py`), the hidden never leaving the chip: it
-    needs `quant`, `int8_mode="static"`, calibrated `act_scales` = [a1, a2]
-    and `res`.  `mlp_route="xla"`, or a shape K6 does not take, runs two
-    static int8 products around a hidden in the compute dtype instead;
-    without calibrated scales both products quantise dynamically."""
+    call of kernel K6 (`ops/mlp.py`), the hidden leaving the chip only as
+    int8 (held on chip, it would force row blocks too small for the card's
+    tensor cores): it needs `quant`, `int8_mode="static"`, calibrated
+    `act_scales` = [a1, a2] and `res`.  `mlp_route="xla"`, or a shape K6
+    does not take, runs two static int8 products around a hidden in the
+    compute dtype instead; without calibrated scales both products quantise
+    dynamically."""
 
     def __init__(self, width: int, hidden_width: int, quant: bool = False, int8_mode: str = "dynamic",
                  mlp_route: str = "fused", act: str = "quick_gelu"):

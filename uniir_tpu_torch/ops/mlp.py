@@ -1,20 +1,25 @@
 """Fused static-int8 MLP half-block: kernel K6 and its plain twin.
 
-Counterpart of `uniir_tpu/ops/mlp_pallas.py`.  One kernel computes the whole
+Counterpart of `uniir_tpu/ops/mlp_pallas.py`.  One call computes the whole
 pre-LN transformer MLP half-block on int8 tensor cores:
 
     y = res + fc2( quant_a2( act( fc1( quant_a1(h) ) ) ) )
 
 with h = ln_2(x) in bf16, res the residual stream, and a1, a2 the calibrated
-static activation scales (`ops/calibrate.py`).  Both int8 products, the two
-quantisations, the activation and the residual add happen on chip: the
-[M, 4W] hidden never reaches device memory.
+static activation scales (`ops/calibrate.py`).  The TPU kernel keeps the
+[M, 4W] hidden on chip; on an H100 that forces 32-row blocks that each read
+every weight from L2.  Here the hidden leaves the chip only as int8: K6
+(`csrc/int8_mlp.cu`, which replaces `mlp_pallas.py::fused_int8_mlp`) runs
+one quantising pass over h and then the `wgmma` main loop of
+`csrc/int8_gemm.cuh` twice -- fc1 with the activation and the second
+quantisation in its epilogue, writing the int8 hidden to a scratch tensor,
+and fc2 with the dequantisation and the residual add in its epilogue.  The
+hidden is `int8_mlp_hidden`'s tensor, rounded in the kernel as in the twin.
 
-`int8_mlp` launches K6 (`csrc/int8_mlp.cu`, which replaces
-`mlp_pallas.py::fused_int8_mlp`) for CUDA tensors, or raises, and runs
-`int8_mlp_twin` for CPU tensors; it counts its launches.  The twin repeats
-the kernel's arithmetic: multiply by 1/a1 and 1/a2 computed once in fp32,
-exact integer sums, every fp32 step rounded on its own.
+`int8_mlp` launches K6 for CUDA tensors, or raises, and runs
+`int8_mlp_twin` for CPU tensors; it counts one launch a call.  The twin
+repeats the kernel's arithmetic: multiply by 1/a1 and 1/a2 computed once in
+fp32, exact integer sums, every fp32 step rounded on its own.
 `reference_int8_mlp` is the JAX package's oracle, which divides by a1 and
 a2 instead.
 """
@@ -31,8 +36,6 @@ from uniir_tpu_torch import _build
 from uniir_tpu_torch.ops.quant import exact_int_matmul
 
 ACTS = ("quick_gelu", "gelu", "gelu_tanh")
-ROWS_PER_BLOCK = 32  # K6's row tile (csrc/int8_mlp.cu)
-MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
 
 
 def _act(name: str, x: torch.Tensor) -> torch.Tensor:
@@ -52,8 +55,9 @@ def _scalars(a1: float, a2: float) -> Tuple[float, float, float]:
 
 
 def int8_mlp_hidden(h, w1_q, w1_scale, b1, a1: float, a2: float, act: str = "quick_gelu") -> torch.Tensor:
-    """The quantised hidden [M, 4W] int8 of `int8_mlp_twin` (never stored by
-    the kernel; exposed so tests can count values one step off)."""
+    """The quantised hidden [M, 4W] int8 of `int8_mlp_twin`: the tensor the
+    kernel writes between its two products (exposed so tests can count values
+    one step off)."""
     inv_a1, inv_a2, _ = _scalars(a1, a2)
     xq = torch.round(h.to(torch.bfloat16).float() * inv_a1).clamp(-127.0, 127.0).to(torch.int8)
     s1 = float(np.float32(a1)) * w1_scale.float()
@@ -83,22 +87,11 @@ def reference_int8_mlp(h, res, w1_q, w1_scale, b1, w2_q, w2_scale, b2, a1: float
     return (y + res.float()).to(torch.bfloat16)
 
 
-def _row_stride(k: int) -> int:
-    """Bytes per shared-memory row of an int8 [rows, k] operand in K6: k plus
-    the padding that spreads a quarter warp's 16-byte loads over all banks
-    (the stride in 16-byte units is 4 mod 8)."""
-    return k + ((4 - (k // 16) % 8) % 8) * 16
-
-
-def int8_mlp_smem_bytes(width: int, hidden: int) -> int:
-    return ROWS_PER_BLOCK * (_row_stride(width) + _row_stride(hidden))
-
-
 def int8_mlp_supported(width: int, hidden: int, act: str) -> bool:
-    """What K6 takes: widths it can cut into 32-value mma steps and 32-column
-    warp tiles, a row block that fits one SM's shared memory, a known act."""
-    return (width % 32 == 0 and hidden % 32 == 0 and act in ACTS
-            and int8_mlp_smem_bytes(width, hidden) <= MAX_SMEM_BYTES)
+    """What K6 takes: widths of whole k32 steps and of whole 16-byte output
+    vectors, and a known act.  No shared-memory term: the hidden no longer
+    lives in a block, and the main loop's ring is the same at every width."""
+    return width % 32 == 0 and hidden % 32 == 0 and act in ACTS
 
 
 def _as_rows(h: torch.Tensor, res: torch.Tensor):
@@ -149,12 +142,15 @@ def int8_mlp(h, res, w1_q, w1_scale, b1, w2_q, w2_scale, b2, a1: float, a2: floa
         raise ValueError("scales and biases must hold one value per output channel")
     M = h2.shape[0]
     out = torch.empty((M, W), dtype=torch.bfloat16, device=h2.device)
+    # scratch of the three launches: quant_a1(h) and the int8 hidden
+    xq = torch.empty((M, W), dtype=torch.int8, device=h2.device)
+    hq = torch.empty((M, H), dtype=torch.int8, device=h2.device)
     inv_a1, inv_a2, a2f = _scalars(a1, a2)
     lib = _build.load("int8_mlp")
     err = lib.uniir_int8_mlp(
         h2.data_ptr(), r2.data_ptr(), w1_q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2_q.data_ptr(),
-        w2_scale.data_ptr(), b2.data_ptr(), out.data_ptr(), M, W, H, inv_a1, inv_a2, a2f, ACTS.index(act),
-        torch.cuda.current_stream(h2.device).cuda_stream,
+        w2_scale.data_ptr(), b2.data_ptr(), xq.data_ptr(), hq.data_ptr(), out.data_ptr(), M, W, H,
+        inv_a1, inv_a2, a2f, ACTS.index(act), torch.cuda.current_stream(h2.device).cuda_stream,
     )
     _build.check(lib, err, "fused int8 MLP kernel")
     int8_mlp.launches += 1

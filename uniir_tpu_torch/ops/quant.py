@@ -18,11 +18,12 @@ is built (`int8_mode_from_env`):
   * "wonly": int8 weights cast to bf16 feed a plain bf16 product and the
     per-channel scale rides the epilogue; no kernel of the port is involved.
 
-K5 (`csrc/int8_matmul.cu`) replaces `quant_pallas.py::fused_int8_matmul`.
-`int8_matmul` launches it for CUDA tensors (or raises) and runs its plain
-twin `int8_matmul_twin` for CPU tensors; it counts its launches.  The weight
-is stored [out, in] (the state-dict layout), K-contiguous like the
-activations, which is the "row.col" operand pair `mma.sync` takes.
+K5 (`csrc/int8_matmul.cu`, on the `wgmma` main loop of `csrc/int8_gemm.cuh`)
+replaces `quant_pallas.py::fused_int8_matmul`.  `int8_matmul` launches it
+for CUDA tensors (or raises) and runs its plain twin `int8_matmul_twin` for
+CPU tensors; it counts its launches.  The weight is stored [out, in] (the
+state-dict layout), K-contiguous like the activations: the K-major operand
+pair `wgmma` reads from shared memory, with no transposed copy.
 
 Inference only: a quantised layer refuses an input that requires grad.
 """
@@ -143,8 +144,8 @@ def int8_matmul_twin(
 
 
 def int8_matmul_supported(K: int, N: int) -> bool:
-    """What K5 takes: 16-byte rows it can cut into 32-value mma steps, and
-    output rows of whole 16-byte vectors."""
+    """What K5 takes: rows of whole k32 steps (TMA needs K % 16), and output
+    rows of whole 16-byte vectors."""
     return K % 32 == 0 and N % 8 == 0
 
 
@@ -198,20 +199,35 @@ def int8_matmul(
         raise ValueError("xq and weight_q must be 16-byte aligned")
     if w_scale.shape[0] != weight_q.shape[0] or (bias is not None and bias.shape[0] != weight_q.shape[0]):
         raise ValueError("w_scale and bias must hold one value per output channel")
+    out = _launch_int8_matmul(xq, a_scale, weight_q, w_scale, bias, lo, n)
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
+
+
+# the main loop's two output tiles (`int8_gemm.cuh::GemmTile`)
+INT8_TILES = {"128x256": 1, "128x128 two blocks an SM": 2}
+
+
+def _launch_int8_matmul(xq, a_scale, weight_q, w_scale, bias, lo: int, n: int, tile: int = 0) -> torch.Tensor:
+    """Launch K5 on checked CUDA tensors: output columns lo .. lo + n.
+    `tile` is a value of INT8_TILES, or 0 for the kernel's rule by shape
+    (`int8_gemm.cuh::int8_gemm_tile`); `int8_matmul` passes 0, and the tests
+    and chip_smoke.py hold and time the tiles against each other."""
+    M, K = xq.shape
+    per_row = isinstance(a_scale, torch.Tensor)
     out = torch.empty((M, n), dtype=torch.bfloat16, device=xq.device)
     lib = _build.load("int8_matmul")
     err = lib.uniir_int8_matmul(
         xq.data_ptr(), weight_q.data_ptr() + lo * K,
         a_scale.data_ptr() if per_row else None, 1.0 if per_row else float(a_scale),
         w_scale.data_ptr() + 4 * lo, None if bias is None else bias.data_ptr() + 4 * lo,
-        out.data_ptr(), M, n, K, torch.cuda.current_stream(xq.device).cuda_stream,
+        out.data_ptr(), M, n, K, tile, torch.cuda.current_stream(xq.device).cuda_stream,
     )
     _build.check(lib, err, "int8 matmul kernel")
-    int8_matmul.launches += 1
     return out
-
-
-int8_matmul.launches = 0
 
 
 def weight_only_matmul(x: torch.Tensor, weight_q: torch.Tensor, w_scale: torch.Tensor,
