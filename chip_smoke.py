@@ -18,9 +18,14 @@
    one also at L = 577, K7 (fused
    image preprocessing) at uint8 [64, 256, 256, 3] -> 224 in both methods
    and output types, K2 / K4 / K11 sweeps at the main path's small pool, K11
-   on a pool cut inside a chunk's first rows, and all three on a seeded
-   5.6M x 768 pool with 256 queries (also against brute force, and `topk`
-   with the guard through K11),
+   on a pool cut inside a chunk's first rows, and on a seeded 5.6M x 768
+   pool K2 and K4 at 256 queries and at the search's batch of 1024 -- the
+   TMA-fed wgmma kernel (its machine code checked for wgmma products fed
+   by TMA and no mma.sync) and the general-width kernel both, timed in
+   turns new / general / new -- K11 at 256 queries (also against brute
+   force, and `topk` with the guard through K11), and `topk` over one
+   1024-query batch at k = 50, bf16 and int8 with the guard, with the
+   sweep's share of it,
    K5 (int8 matmul) at the CLIP-L projection shapes in its dynamic and
    static modes (beside `torch._int_mm` alone, and at the vision and text
    shapes its main loop's two tiles in turns), K6 (fused int8 MLP) at the
@@ -119,6 +124,8 @@ REPO = Path(__file__).resolve().parent
 WORK = REPO / "build" / "chip_smoke"
 SEED = 0
 POOL_ROWS, POOL_DIM, N_QUERIES = 5_600_000, 768, 256
+# the search's query batch (retrieval/search.py) and the shipped retrieval.yaml's k
+SEARCH_BATCH, SEARCH_K = 1024, 50
 N_CANDS, N_QUERY_PAIRS, BATCH = 512, 256, 64
 K = 10
 MODEL, DEVICE = "ViT-L/14", "cuda"  # the main path's model and device
@@ -364,25 +371,29 @@ def check_attention_splitk(results: dict) -> None:
 
 def _off_path_kernels():
     from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.ops import topk as T
 
     return (("K8", attn_mod.mha_nocausal), ("K9", attn_mod.mha_paired), ("K9g", attn_mod.norm_first_general),
             ("K1g", attn_mod.attention_fwd_general), ("K3g", attn_mod.attention_bwd_general),
-            ("K10g", attn_mod.attention_splitk_general))
+            ("K10g", attn_mod.attention_splitk_general), ("K2g", T.bucket_max_scores_general),
+            ("K4g", T.bucket_max_scores_i8_general))
 
 
 def zero_standalone() -> None:
-    """K8 / K9 are stand-alone entry points, as in the JAX package, and the
-    general-length K1 / K3 / K8 / K9 / K10 serve lengths past 272, which no
-    model of these paths has: every path sets their counts to 0 with its own
-    before it starts."""
+    """K8 / K9 are stand-alone entry points, as in the JAX package, the
+    general-length K1 / K3 / K8 / K9 / K10 serve lengths past 272 and the
+    general-width K2 / K4 widths past 768 / 1152, which no model of these
+    paths has: every path sets their counts to 0 with its own before it
+    starts."""
     for _, fn in _off_path_kernels():
         fn.launches = 0
 
 
 def read_standalone(results: dict, path: str) -> None:
-    """Read their counts just after a path: no model calls K8 / K9, and the
+    """Read their counts just after a path: no model calls K8 / K9, the
     static routes send every length of these paths (77, 197, 257) to the
-    one-block-a-head K1 / K3 / K10."""
+    one-block-a-head K1 / K3 / K10 and every width (768, 256) to the wgmma
+    K2 / K4."""
     for name, fn in _off_path_kernels():
         results[name]["launches"] = results[name].get("launches", 0) + fn.launches
         check(fn.launches == 0, f"off-path kernel {name} was launched {fn.launches} times on the {path} path")
@@ -507,6 +518,35 @@ def library_bucket_max_i8b(q_q, q_scale, pool_q, bucket_scale, valid_n: int):
     return torch.where(first < valid_n, deq, T.NEG)
 
 
+def check_sweep_machine_code() -> None:
+    """The wgmma sweeps' machine code (`cuobjdump -sass` of the built
+    library): K2's kernel multiplies with HGMMA (wgmma bf16), K4's with IGMMA
+    (wgmma s8), both are fed by TMA (UTMALDG), and neither holds an HMMA /
+    IMMA (mma.sync)."""
+    import re
+    from collections import Counter
+
+    from uniir_tpu_torch import _build
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path("topk"))], capture_output=True, text=True,
+                          check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split(":", 1)[1].strip()
+            kernel = ("K2" if "nv_bfloat16" in name else "K4") if "bucket_max_wgmma_kernel" in name else None
+            if kernel:
+                counts[kernel] = Counter()
+        elif kernel:
+            counts[kernel].update(re.findall(r"\b(HGMMA|IGMMA|HMMA|IMMA|UTMALDG)\b", line))
+    log(f"sweep machine code (SASS opcodes of bucket_max_wgmma_kernel): {dict((k, dict(v)) for k, v in counts.items())}")
+    for kernel, product in (("K2", "HGMMA"), ("K4", "IGMMA")):
+        c = counts.get(kernel, Counter())
+        check(c[product] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == c["IMMA"] == 0,
+              f"{kernel}'s sweep kernel is not TMA-fed wgmma ({product}) without mma.sync: {dict(c)}")
+
+
 def check_sweeps(results: dict) -> None:
     from uniir_tpu_torch.ops import topk as T
 
@@ -516,7 +556,7 @@ def check_sweeps(results: dict) -> None:
     small_pool = torch.randn(T.CHUNK, POOL_DIM, generator=g, device="cuda").bfloat16()
     err = (T.bucket_max_scores(small_q, small_pool, N_CANDS)
            - T.bucket_max_scores_reference(small_q, small_pool, N_CANDS)).abs().max().item()
-    q_q, q_scale = T.quantize_rows(small_q)
+    q_q, q_scale = T.quantize_queries(small_q)
     pq, ps = T.quantize_pool(small_pool)
     exact8 = torch.equal(T.bucket_max_scores_i8(small_q, pq, ps, N_CANDS),
                          T.bucket_max_scores_i8_reference(q_q, q_scale, pq, ps, N_CANDS))
@@ -544,35 +584,52 @@ def check_sweeps(results: dict) -> None:
     for r0 in range(0, POOL_ROWS, 1 << 20):  # L2-normalised Gaussian rows, like index embeddings
         rows = torch.randn(min(1 << 20, POOL_ROWS - r0), POOL_DIM, generator=g, device="cuda")
         pool[r0 : r0 + len(rows)] = torch.nn.functional.normalize(rows, dim=1).bfloat16()
-    queries = torch.nn.functional.normalize(torch.randn(N_QUERIES, POOL_DIM, generator=g, device="cuda"), dim=1)
+    all_queries = torch.nn.functional.normalize(torch.randn(SEARCH_BATCH, POOL_DIM, generator=g, device="cuda"), dim=1)
     pool_q, pool_scale = T.quantize_pool(pool)
-    log(f"sweep pool: [{POOL_ROWS}, {POOL_DIM}] bf16 padded to {n_pad} rows, {N_QUERIES} queries")
-
-    out = T.bucket_max_scores(queries, pool, POOL_ROWS)
-    torch.cuda.synchronize()
-    ref = T.bucket_max_scores_reference(queries, pool, POOL_ROWS)
-    err2 = (out - ref).abs().max().item()
-    ms2 = cuda_ms(lambda: T.bucket_max_scores(queries, pool, POOL_ROWS), 5)
-    plain2 = cuda_ms(lambda: T.bucket_max_scores_reference(queries, pool, POOL_ROWS), 3)
-    qb = queries.bfloat16()
-    lib2 = cuda_ms(lambda: library_bucket_max(qb, pool, POOL_ROWS), 3)
-    limit2 = bound(nbytes(qb, pool, out), 2 * N_QUERIES * POOL_ROWS * POOL_DIM, BF16_OPS_PER_S)
-    log(f"K2 bf16 sweep: max_abs_err={err2} kernel_ms={ms2} plain_ms={plain2} library_ms={lib2} {limit2}")
-    check(err2 <= 1e-5, "K2 disagrees with its twin")  # fp32 sums of 768 products of |x| < 1
-    del ref
-
-    out8 = T.bucket_max_scores_i8(queries, pool_q, pool_scale, POOL_ROWS)
-    torch.cuda.synchronize()
-    q_q, q_scale = T.quantize_rows(queries)
-    ref8 = T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, pool_scale, POOL_ROWS)
-    err4 = (out8 - ref8).abs().max().item()
-    ms4 = cuda_ms(lambda: T.bucket_max_scores_i8(queries, pool_q, pool_scale, POOL_ROWS), 5)
-    plain4 = cuda_ms(lambda: T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, pool_scale, POOL_ROWS), 3)
-    lib4 = cuda_ms(lambda: library_bucket_max(q_q, pool_q, POOL_ROWS, int8=(q_q, q_scale, pool_scale)), 3)
-    limit4 = bound(nbytes(queries, pool_q, pool_scale, out8), 2 * N_QUERIES * POOL_ROWS * POOL_DIM, INT8_OPS_PER_S)
-    log(f"K4 int8 sweep: max_abs_err={err4} kernel_ms={ms4} plain_ms={plain4} library_ms={lib4} {limit4}")
-    check(err4 == 0.0, "K4 disagrees with its twin (int8 sums are exact in both)")
-    del ref8, out, out8
+    log(f"sweep pool: [{POOL_ROWS}, {POOL_DIM}] bf16 padded to {n_pad} rows; {N_QUERIES} queries and the search's "
+        f"batch of {SEARCH_BATCH}")
+    sweep_ms = {}
+    for n_q in (N_QUERIES, SEARCH_BATCH):
+        queries = all_queries[:n_q]
+        ops = 2 * n_q * POOL_ROWS * POOL_DIM
+        iters, plain_iters = (5, 3) if n_q == N_QUERIES else (3, 1)
+        q_q, q_scale = T.quantize_queries(queries)
+        qb = queries.bfloat16()
+        int8_args = (q_q, q_scale, pool_q, pool_scale, POOL_ROWS)
+        kernels = (  # name, new wrapper, general wrapper, twin, error limit, library call, inputs, peak
+            ("K2", lambda: T.bucket_max_scores(queries, pool, POOL_ROWS),
+             lambda: T.bucket_max_scores_general(queries, pool, POOL_ROWS),
+             lambda: T.bucket_max_scores_reference(queries, pool, POOL_ROWS), 1e-5,  # fp32 sums of 768 products of |x| < 1
+             lambda: library_bucket_max(qb, pool, POOL_ROWS), (qb, pool), BF16_OPS_PER_S),
+            ("K4", lambda: T.bucket_max_scores_i8(queries, pool_q, pool_scale, POOL_ROWS),
+             lambda: T.bucket_max_scores_i8_general(queries, pool_q, pool_scale, POOL_ROWS),
+             lambda: T.bucket_max_scores_i8_reference(*int8_args), 0.0,  # int8 sums are exact in both
+             lambda: library_bucket_max(q_q, pool_q, POOL_ROWS, int8=(q_q, q_scale, pool_scale)),
+             (queries, pool_q, pool_scale), INT8_OPS_PER_S),
+        )
+        for name, new, general, twin, tol, library, inputs, peak in kernels:
+            out = new()
+            out_g = general()
+            torch.cuda.synchronize()
+            ref = twin()
+            err, err_g = (out - ref).abs().max().item(), (out_g - ref).abs().max().item()
+            check(err <= tol and err_g <= tol, f"{name} at {n_q} queries disagrees with its twin: new {err}, general {err_g}")
+            del ref, out_g
+            ms_new, ms_old, ms_new2 = cuda_ms(new, iters), cuda_ms(general, iters), cuda_ms(new, iters)
+            plain = cuda_ms(twin, plain_iters)
+            lib = cuda_ms(library, plain_iters)
+            limit = bound(nbytes(*inputs, out), ops, peak)
+            del out
+            log(f"{name} sweep, {n_q} queries: max_abs_err={err} (general kernel {err_g}) kernel_ms={ms_new} / {ms_new2} "
+                f"(general kernel between them {ms_old}; {ops / ms_new / 1e9:.1f} TOP/s) plain_ms={plain} "
+                f"library_ms={lib} {limit}")
+            sweep_ms[name, n_q] = ms_new
+            if n_q == SEARCH_BATCH:  # the kernels line: the search's launch shape
+                results[name].update(max_abs_err=err, ms=(ms_new + ms_new2) / 2, plain_ms=plain, library_ms=lib, **limit)
+                results[name + "g"].update(max_abs_err=err_g, ms=ms_old, plain_ms=plain, library_ms=lib, **limit)
+        torch.cuda.empty_cache()
+    queries = all_queries[:N_QUERIES]
+    q_q, q_scale = T.quantize_queries(queries)
 
     # K11: the same pool with one scale per strided bucket; valid_n = 5.6M cuts the last chunk
     pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
@@ -587,7 +644,7 @@ def check_sweeps(results: dict) -> None:
     lib11 = cuda_ms(lambda: library_bucket_max_i8b(q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS), 3)
     limit11 = bound(nbytes(queries, pool_qb, bucket_scale, out11), 2 * N_QUERIES * POOL_ROWS * POOL_DIM, INT8_OPS_PER_S)
     log(f"K11 int8 per-bucket sweep: max_abs_err={err11} kernel_ms={ms11} / {ms11_again} (K4 between them {ms4_again}, "
-        f"before them {ms4}) plain_ms={plain11} library_ms={lib11} {limit11}")
+        f"before them {sweep_ms['K4', N_QUERIES]}) plain_ms={plain11} library_ms={lib11} {limit11}")
     # the integers are exact (|acc| <= 768 * 127^2 < 2^24) and the dequantisation is two rounded multiplies
     check(err11 == 0.0 and torch.equal(out11, ref11), "K11 disagrees with its twin (bit-equal expected)")
     del ref11, out11
@@ -609,10 +666,26 @@ def check_sweeps(results: dict) -> None:
     log(f"top-{K} through K11 (per-bucket int8 pool): guard_pass_rate={ok11.float().mean().item()}, "
         f"ids equal to the bf16 pool's where the guard passed={eq11}")
     check(eq11 and bool(ok11.any()), "top-k through K11 differs from the bf16 pool's where its guard passed")
-    results["K2"].update(max_abs_err=err2, ms=ms2, plain_ms=plain2, library_ms=lib2, **limit2)
-    results["K4"].update(max_abs_err=err4, ms=ms4, plain_ms=plain4, library_ms=lib4, **limit4)
     results["K11"].update(max_abs_err=err11, ms=ms11, plain_ms=plain11, library_ms=lib11, **limit11)
-    del pool, pool_q, pool_scale, pool_qb, bucket_scale
+    del pool_qb, bucket_scale
+
+    # what a user of run_retrieval pays a batch: `topk` over the search's 1024 queries at the shipped
+    # retrieval.yaml's k, bf16 and int8 with the guard (and the search's whole-batch re-run where it fails)
+    reruns = []
+
+    def search_batch_int8():
+        _, _, ok = T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS, pool_quant=(pool_q, pool_scale), with_guard=True)
+        reruns.append(not bool(ok.all()))
+        if reruns[-1]:
+            T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS)
+
+    ms_b16 = cuda_ms(lambda: T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS), 3)
+    ms_b8 = cuda_ms(search_batch_int8, 3)
+    log(f"topk over one batch of {SEARCH_BATCH} queries, k={SEARCH_K}: bf16 {ms_b16} ms "
+        f"({SEARCH_BATCH / ms_b16 * 1e3:.0f} queries/s; K2 sweep {sweep_ms['K2', SEARCH_BATCH] / ms_b16:.1%} of it), "
+        f"int8 with the guard {ms_b8} ms ({SEARCH_BATCH / ms_b8 * 1e3:.0f} queries/s; K4 sweep "
+        f"{sweep_ms['K4', SEARCH_BATCH] / ms_b8:.1%} of it; whole-batch exact re-runs {sum(reruns)} of {len(reruns)})")
+    del pool, pool_q, pool_scale, all_queries
     torch.cuda.empty_cache()
 
 
@@ -1802,11 +1875,19 @@ def main() -> None:
                 "replaces": "uniir_tpu/ops/attention_pallas.py:652"},
         "K11": {"name": "bucket_max_i8b", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
                 "replaces": "uniir_tpu/ops/topk_pallas.py:254", "launches": 0},
+        # the general-width kernels of K2 / K4 (bf16 D > 768, int8 D > 1152): timed beside the wgmma kernels;
+        # `sweep_route` sends every width of the main paths to the wgmma kernels, so `read_standalone` holds
+        # their counts to 0 after every path
+        "K2g": {"name": "bucket_max_bf16_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
+                "replaces": "uniir_tpu/ops/topk_pallas.py:118"},
+        "K4g": {"name": "bucket_max_i8_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
+                "replaces": "uniir_tpu/ops/topk_pallas.py:291"},
     }
     check_attention(results)
     check_attention_splitk(results)
     check_attention_norm_first(results)
     check_preprocess(results)
+    check_sweep_machine_code()
     check_sweeps(results)
     check_int8_matmul(results)
     check_int8_mlp(results)

@@ -3,8 +3,12 @@ JAX package, on the same seeded numpy inputs.
 
 The JAX side runs `bucket_max_scores`, `bucket_max_scores_i8` (with per-row
 scales, K4, and with per-bucket scales, K11) and `pallas_topk` in interpret
-mode.  On a card the CUDA kernels are held
-against their twins; JAX is imported inside the parity tests only, so
+mode, also at the wgmma sweep's tile edges (Q around 128, valid_n cutting
+the first, a middle and the last chunk).  `sweep_route`'s table is checked
+here.  On a card the CUDA kernels are held against their twins: the wgmma
+K2 / K4 at Q = 1 ... 1024 x D = 64 ... 768 with three valid_n cuts and on a
+300-chunk pool, the general kernels at the widths only they take, and the
+search over 2500 queries; JAX is imported inside the parity tests only, so
 `python -m pytest tests/test_torch_topk.py -m gpu --noconftest` runs on a
 host without it.
 """
@@ -74,6 +78,25 @@ def test_int8_twin_matches_pallas_sweep():
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
+def test_int8_sweep_quantises_queries_as_the_jax_sweep():
+    """The JAX sweep quantises its queries outside any jit, with a true
+    division by 127 (the pool's jitted quantisation multiplies by the
+    reciprocal): at 300 queries some scales differ between the two roundings,
+    and the port's K4 output is still bit-equal to the JAX sweep's."""
+    import jax.numpy as jnp
+
+    from uniir_tpu.ops.topk_pallas import bucket_max_scores_i8 as jax_bucket_max_i8
+    from uniir_tpu.ops.topk_pallas import quantize_pool as jax_quantize_pool
+
+    queries, pool = _data(seed=22, n=2048, d=64, q=300)
+    q = torch.from_numpy(queries)
+    assert not torch.equal(T.quantize_queries(q)[1], T.quantize_rows(q)[1])
+    ref_q, ref_s = jax_quantize_pool(jnp.asarray(pool))
+    ref = jax_bucket_max_i8(jnp.asarray(queries), ref_q, ref_s, valid_n=2000, interpret=True)
+    pool_q, scale = T.quantize_pool(torch.from_numpy(pool))
+    np.testing.assert_array_equal(T.bucket_max_scores_i8(q, pool_q, scale, 2000).numpy(), np.asarray(ref))
+
+
 def test_prepare_pool_pads_to_chunks_and_quantizes_host_values():
     _, pool = _data(seed=3, n=3000)
     dev_pool, (pool_q, scale) = T.prepare_pool(pool, "cpu", int8=True)
@@ -134,6 +157,53 @@ def test_guard_matches_pallas_topk(flat):
     # ties among int8 maxima go to the lower index in both (lax.top_k's
     # rule), so even the uncertain rows pick the same buckets
     np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_allclose(vals.numpy(), np.asarray(ref_vals), rtol=0, atol=BF16_ATOL)
+
+
+@pytest.mark.parametrize("per_bucket", [False, True])
+def test_topk_quantises_queries_as_the_jitted_pallas_topk(monkeypatch, per_bucket):
+    """`pallas_topk` is jitted, so XLA quantises its queries with a multiply
+    by the reciprocal of 127 (`quantize_rows`), not the stand-alone sweep's
+    true division: at 300 queries the two roundings differ on some rows, and
+    `topk`'s maxima are still bit-equal to the jitted JAX sweep's, its guard,
+    ids and scores equal to `pallas_topk`'s."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from uniir_tpu.ops.topk_pallas import bucket_max_scores_i8 as jax_bucket_max_i8
+    from uniir_tpu.ops.topk_pallas import pallas_topk
+    from uniir_tpu.ops.topk_pallas import quantize_pool as jax_quantize_pool
+
+    queries, pool = _flat_margin_pool(seed=23, q=300)
+    q = torch.from_numpy(queries)
+    assert not torch.equal(T.quantize_queries(q)[1], T.quantize_rows(q)[1])
+    k, valid_n = 5, 4000
+    ref_q, ref_s = jax_quantize_pool(jnp.asarray(pool), per_bucket=per_bucket)
+    ref_vals, ref_idx, ref_ok = pallas_topk(
+        jnp.asarray(queries), jnp.asarray(pool), k, valid_n=valid_n, interpret=True,
+        pool_quant=(ref_q, ref_s), with_guard=True,
+    )
+    jitted_sweep = jax.jit(functools.partial(jax_bucket_max_i8, valid_n=valid_n, interpret=True))
+    ref_maxima = np.asarray(jitted_sweep(jnp.asarray(queries), ref_q, ref_s))
+
+    seen = []
+    sweep = T.bucket_max_scores_i8
+    monkeypatch.setattr(T, "bucket_max_scores_i8", lambda *a, **kw: seen.append(sweep(*a, **kw)) or seen[-1])
+    dev_pool, quant = T.prepare_pool(pool, "cpu", int8=True, per_bucket=per_bucket)
+    vals, idx, ok = T.topk(q, dev_pool, k, valid_n=valid_n, pool_quant=quant, with_guard=True)
+    np.testing.assert_array_equal(seen[0].numpy(), ref_maxima)
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(ref_ok))
+    assert not ok.all(), "the flat-margin pool must exercise guard failures"
+    # the pool's near-copies leave a few exact scores closer than the rescore's fp32 summation order, so
+    # the two frameworks may pick either of such rows: ids differ only where their exact scores tie
+    q64 = q.bfloat16().double().numpy()
+    pool64 = dev_pool.double().numpy()
+    ref_idx = np.asarray(ref_idx)
+    apart = idx.numpy() != ref_idx
+    np.testing.assert_allclose(np.einsum("qkd,qd->qk", pool64[idx.numpy()], q64)[apart],
+                               np.einsum("qkd,qd->qk", pool64[ref_idx], q64)[apart], rtol=0, atol=BF16_ATOL)
     np.testing.assert_allclose(vals.numpy(), np.asarray(ref_vals), rtol=0, atol=BF16_ATOL)
 
 
@@ -296,6 +366,80 @@ def test_search_rejects_an_unknown_pool_type(monkeypatch):
         search_dense_index(queries, index, 5, device="cpu")
 
 
+# ------------------------------------------- the sweep route and the tile's edges
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 32, "wgmma"), (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 512, "wgmma"),
+    (torch.bfloat16, 768, "wgmma"), (torch.bfloat16, 800, "general"), (torch.bfloat16, 1024, "general"),
+    (torch.bfloat16, 48, None), (torch.bfloat16, 0, None),
+    (torch.int8, 64, "wgmma"), (torch.int8, 512, "wgmma"), (torch.int8, 768, "wgmma"),
+    (torch.int8, 1152, "wgmma"), (torch.int8, 1216, "general"), (torch.int8, 96, None),
+    (torch.float32, 768, None),
+])
+def test_sweep_route_table(dtype, D, want):
+    """bf16 to D = 768 and int8 to D = 1152 on the wgmma kernel (its query
+    tile, 64 rows bf16 / 128 int8, stays in shared memory beside a ring of 4
+    stages), wider multiples of 32 / 64 on the general kernels, none for
+    another width or type."""
+    assert T.sweep_route(dtype, D) == want
+
+
+def _launch_counts():
+    return (T.bucket_max_scores.launches, T.bucket_max_scores_general.launches, T.bucket_max_scores_i8.launches,
+            T.bucket_max_scores_i8_general.launches, T.bucket_max_scores_i8b.launches)
+
+
+@pytest.mark.parametrize("d", [64, 800])
+def test_cpu_sweeps_take_the_twins_through_both_routes(d):
+    """On CPU tensors every K2 / K4 entry, the wgmma route's (D = 64) and the
+    general one's (bf16 D = 800), runs its twin and counts no launch."""
+    queries, pool = _data(seed=16, n=2048, d=d, q=5)
+    q, bf_pool = torch.from_numpy(queries), torch.from_numpy(pool).bfloat16()
+    before = _launch_counts()
+    want = T.bucket_max_scores_reference(q, bf_pool, 1500)
+    assert torch.equal(T.bucket_max_scores(q, bf_pool, 1500), want)
+    assert torch.equal(T.bucket_max_scores_general(q, bf_pool, 1500), want)
+    if T.sweep_route(torch.int8, d) is not None:
+        pool_q, scale = T.quantize_pool(bf_pool)
+        q_q, q_scale = T.quantize_queries(q)
+        want8 = T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, scale, 1500)
+        assert torch.equal(T.bucket_max_scores_i8(q, pool_q, scale, 1500), want8)
+        assert torch.equal(T.bucket_max_scores_i8_general(q, pool_q, scale, 1500), want8)
+    assert _launch_counts() == before
+
+
+EDGE_N, EDGE_D = 3 * 2048, 64
+
+
+@pytest.mark.parametrize("q", [1, 127, 128, 129])
+@pytest.mark.parametrize("valid_n", [700, 2048 + 1000, 2 * 2048 + 1500])
+@pytest.mark.parametrize("int8", [False, True])
+def test_twins_match_pallas_sweeps_at_the_tile_edges(q, valid_n, int8):
+    """The wgmma kernel's tile is 128 queries x one 2048-row chunk: query
+    counts on either side of it, and valid_n cutting the first, a middle and
+    the last of three chunks, against the JAX sweeps in interpret mode."""
+    import jax.numpy as jnp
+
+    from uniir_tpu.ops.topk_pallas import bucket_max_scores as jax_bucket_max
+    from uniir_tpu.ops.topk_pallas import bucket_max_scores_i8 as jax_bucket_max_i8
+    from uniir_tpu.ops.topk_pallas import quantize_pool as jax_quantize_pool
+
+    queries, pool = _data(seed=17 + q, n=EDGE_N, d=EDGE_D, q=q)
+    if int8:
+        ref_q, ref_s = jax_quantize_pool(jnp.asarray(pool))
+        ref = jax_bucket_max_i8(jnp.asarray(queries), ref_q, ref_s, valid_n=valid_n, interpret=True)
+        pool_q, scale = T.quantize_pool(torch.from_numpy(pool))
+        out = T.bucket_max_scores_i8(torch.from_numpy(queries), pool_q, scale, valid_n)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    else:
+        ref = jax_bucket_max(jnp.asarray(queries), jnp.asarray(pool), valid_n=valid_n, interpret=True)
+        out = T.bucket_max_scores(torch.from_numpy(queries), torch.from_numpy(pool).bfloat16(), valid_n)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=BF16_ATOL)
+    n_pad = sum(1 for b in range(EDGE_N // T.GROUP) if (b // T.LANES) * T.CHUNK + b % T.LANES >= valid_n)
+    assert out.shape == (q, EDGE_N // T.GROUP) and (out.numpy() == np.float32(T.NEG)).sum() == q * n_pad
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -317,7 +461,7 @@ def test_cuda_sweeps_match_twins(cuda):
     pool_q, scale = T.quantize_pool(pool)
     out8 = T.bucket_max_scores_i8(queries, pool_q, scale, valid_n)
     torch.cuda.synchronize()
-    q_q, q_scale = T.quantize_rows(queries)
+    q_q, q_scale = T.quantize_queries(queries)
     ref8 = T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, scale, valid_n)
     assert torch.equal(out8, ref8)
 
@@ -336,5 +480,159 @@ def test_cuda_per_bucket_sweep_matches_twin(cuda, cut):
     out = T.bucket_max_scores_i8(queries, pool_q, scale, valid_n)
     torch.cuda.synchronize()
     assert (T.bucket_max_scores_i8.launches, T.bucket_max_scores_i8b.launches) == (before[0], before[1] + 1)
-    q_q, q_scale = T.quantize_rows(queries)
+    q_q, q_scale = T.quantize_queries(queries)
     assert torch.equal(out, T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_q, scale, valid_n))
+
+
+# ------------------------------------------------ the wgmma sweeps on the card
+
+GRID_CHUNKS = 40  # 2 or 3 chunks a block at Q > 896 (16 walkers a query tile), one at smaller Q
+
+
+def _sweep_inputs(device, seed, q, d, n_chunks):
+    g = torch.Generator(device=device).manual_seed(seed)
+    queries = torch.randn(q, d, generator=g, device=device)
+    pool = torch.randn(n_chunks * T.CHUNK, d, generator=g, device=device).bfloat16()
+    return queries, pool
+
+
+def _check_new_sweeps(queries, pool, cuts):
+    """New K2 within rtol 1e-5 / atol 1e-3 of its twin (fp32 sums of bf16
+    products in another order), new K4 bit-equal (exact integers, the same
+    two rounded multiplies); each launch counted on the new kernel's counter."""
+    pool_q, scale = T.quantize_pool(pool)
+    q_q, q_scale = T.quantize_queries(queries)
+    for cut in cuts:
+        valid_n = pool.shape[0] - cut
+        before = _launch_counts()
+        out = T.bucket_max_scores(queries, pool, valid_n)
+        out8 = T.bucket_max_scores_i8(queries, pool_q, scale, valid_n)
+        torch.cuda.synchronize()
+        b = before
+        assert _launch_counts() == (b[0] + 1, b[1], b[2] + 1, b[3], b[4]), f"cut {cut}: launched another kernel"
+        ref = T.bucket_max_scores_reference(queries, pool, valid_n)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
+        assert torch.equal(out8, T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, scale, valid_n)), f"cut {cut}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 63, 64, 65, 127, 128, 129, 256, 1000, 1024])
+@pytest.mark.parametrize("d", [64, 256, 512, 768])
+def test_cuda_wgmma_sweeps_match_twins(cuda, q, d):
+    """Query counts around the 64-query warpgroup and 128-query block tiles,
+    the widths of the tiny, `base` and `large` configs, and valid_n cutting
+    nothing, the last chunk, and the second-to-last (the last all padding)."""
+    queries, pool = _sweep_inputs(cuda, 100 + q + d, q, d, GRID_CHUNKS)
+    _check_new_sweeps(queries, pool, (0, 777, 2048 + 5))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 129, 1024])
+@pytest.mark.parametrize("d", [512, 768])
+def test_cuda_wgmma_sweeps_walk_many_chunks(cuda, q, d):
+    """300 chunks: every block of the persistent grid walks several, so the
+    ring and K4's two chunk-scale slots wrap many times."""
+    queries, pool = _sweep_inputs(cuda, 200 + q + d, q, d, 300)
+    _check_new_sweeps(queries, pool, (777,))
+
+
+def _i8_sweep_exact(q_q, q_scale, pool_q, pool_scale, valid_n):
+    """K4's function where fp32 cannot hold the integer sums (D > 1040): the
+    sums exact in fp64, rounded to fp32 as the kernel's convert does, then
+    the two rounded fp32 multiplies."""
+    acc = (q_q.double() @ pool_q.double().T).float()
+    scores = acc * q_scale[:, None] * pool_scale[None, :]
+    return T._bucket_max(T._masked(scores, 0, valid_n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 129, 1024])
+@pytest.mark.parametrize("d", [1024, 1152])
+def test_cuda_wgmma_int8_sweep_at_its_widest(cuda, q, d):
+    """int8 widths past 768 on the wgmma kernel, up to the widest it takes
+    (its query tile in 8 and 9 boxes of 128 bytes, a ring of 5 and 4
+    stages), bit-equal to K4's function with the sums exact in fp64."""
+    queries, pool = _sweep_inputs(cuda, 600 + q + d, q, d, GRID_CHUNKS)
+    assert T.sweep_route(torch.int8, d) == "wgmma"
+    pool_q, scale = T.quantize_pool(pool)
+    q_q, q_scale = T.quantize_queries(queries)
+    for cut in (0, 777, 2048 + 5):
+        valid_n = pool.shape[0] - cut
+        before = _launch_counts()
+        out8 = T.bucket_max_scores_i8(queries, pool_q, scale, valid_n)
+        torch.cuda.synchronize()
+        assert _launch_counts() == before[:2] + (before[2] + 1,) + before[3:], f"cut {cut}: launched another kernel"
+        assert torch.equal(out8, _i8_sweep_exact(q_q, q_scale, pool_q, scale, valid_n)), f"cut {cut}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 129, 256])
+def test_cuda_general_sweeps_at_widths_only_they_take(cuda, q):
+    """bf16 D = 1024 and int8 D = 1216 route to the general kernels, counted
+    on their own counters, and agree with the twin / the exact function."""
+    queries, pool = _sweep_inputs(cuda, 300 + q, q, 1024, 8)
+    valid_n = pool.shape[0] - 777
+    before = _launch_counts()
+    out = T.bucket_max_scores(queries, pool, valid_n)
+    torch.cuda.synchronize()
+    assert _launch_counts() == (before[0], before[1] + 1) + before[2:]
+    torch.testing.assert_close(out, T.bucket_max_scores_reference(queries, pool, valid_n), rtol=1e-5, atol=1e-3)
+
+    queries, pool = _sweep_inputs(cuda, 400 + q, q, 1216, 8)
+    pool_q, scale = T.quantize_pool(pool)
+    q_q, q_scale = T.quantize_queries(queries)
+    before = _launch_counts()
+    out8 = T.bucket_max_scores_i8(queries, pool_q, scale, valid_n)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before[:3] + (before[3] + 1, before[4])
+    assert torch.equal(out8, _i8_sweep_exact(q_q, q_scale, pool_q, scale, valid_n))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [512, 768])
+def test_cuda_general_sweeps_match_twins_at_wgmma_widths(cuda, d):
+    """The general kernels, called directly, at the widths the rule gives to
+    the wgmma kernel (how chip_smoke.py times the two side by side)."""
+    queries, pool = _sweep_inputs(cuda, 500 + d, 129, d, 8)
+    valid_n = pool.shape[0] - 777
+    pool_q, scale = T.quantize_pool(pool)
+    q_q, q_scale = T.quantize_queries(queries)
+    before = _launch_counts()
+    out = T.bucket_max_scores_general(queries, pool, valid_n)
+    out8 = T.bucket_max_scores_i8_general(queries, pool_q, scale, valid_n)
+    torch.cuda.synchronize()
+    assert _launch_counts() == (before[0], before[1] + 1, before[2], before[3] + 1, before[4])
+    torch.testing.assert_close(out, T.bucket_max_scores_reference(queries, pool, valid_n), rtol=1e-5, atol=1e-3)
+    assert torch.equal(out8, T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, scale, valid_n))
+
+
+def _same_ids_up_to_ties(ids, ref_ids, ref_scores, tie=1e-5):
+    """Equal ids, except where the reference's neighbouring scores tie within
+    `tie` (the card and the host sum the rescoring products in other orders)."""
+    diff = ids != ref_ids
+    near_tie = np.zeros_like(diff)
+    near_tie[:, 1:] |= np.abs(np.diff(ref_scores, axis=1)) < tie
+    near_tie[:, :-1] |= np.abs(np.diff(ref_scores, axis=1)) < tie
+    return bool((~diff | near_tie).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
+def test_cuda_search_returns_the_twins_ids(cuda, pool_dtype):
+    """`search_dense_index` on the card at 2500 queries -- two full batches
+    of 1024 and a remainder of 452 -- returns the ids of the same search on
+    the host through the twins."""
+    rng = np.random.default_rng(21)
+    pool = rng.standard_normal((20000, 768)).astype(np.float16)
+    queries = rng.standard_normal((2500, 768)).astype(np.float32)
+    index = DenseIndex.build(pool, np.arange(len(pool)) + 10_000_000)
+    before = _launch_counts()
+    stats = {}
+    scores, ids = search_dense_index(queries, index, 10, pool_dtype=pool_dtype, stats=stats, device=cuda)
+    launched = np.subtract(_launch_counts(), before)
+    ref_scores, ref_ids = search_dense_index(queries, index, 10, pool_dtype=pool_dtype, device="cpu")
+    reruns = stats["exact_reruns"]
+    want = (3, 0, 0, 0, 0) if pool_dtype == "bf16" else (reruns, 0, 3, 0, 0)
+    assert tuple(launched) == want
+    assert _same_ids_up_to_ties(ids, ref_ids, ref_scores)
+    np.testing.assert_allclose(scores, ref_scores, rtol=0, atol=1e-4)

@@ -57,8 +57,17 @@ SIGNATURES = {
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
         "uniir_bucket_max_i8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "uniir_bucket_max_bf16_general": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "uniir_bucket_max_i8_general": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "uniir_bucket_max_i8b": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
+}
+
+# macros each library is compiled with, for limits the Python wrappers share with the C side:
+# the widest D each retrieval sweep's wgmma kernel takes (its query tile beside a ring of 4 pool
+# stages in shared memory; csrc/topk.cu holds it to that), read by ops/topk.py::sweep_route
+DEFINES = {
+    "topk": {"UNIIR_SWEEP_MAX_D_BF16": 768, "UNIIR_SWEEP_MAX_D_I8": 1152},
 }
 
 _loaded: dict = {}
@@ -74,8 +83,12 @@ def _nvcc() -> str:
     return found
 
 
+def _flags(name: str) -> list:
+    return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in DEFINES.get(name, {}).items())]
+
+
 def _source_hash(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -92,7 +105,7 @@ def _compile(name: str, target: Path) -> None:
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = target.with_suffix(".log")
     log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)

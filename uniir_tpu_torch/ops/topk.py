@@ -11,7 +11,11 @@ Counterpart of `uniir_tpu/ops/topk_pallas.py` (and the numpy helpers of
      (`quantize_pool(per_bucket=True)`) K11 (`bucket_max_scores_i8b`, which
      takes the bucket maximum in int32 and dequantises only the maxima;
      `bucket_max_scores_i8` hands over to it by the shape of the scales); on
-     a CPU tensor each runs its plain PyTorch twin;
+     a CPU tensor each runs its plain PyTorch twin.  K2 and K4 launch the
+     TMA-fed `wgmma` kernel at the widths `sweep_route` gives it and their
+     general-width kernels (`bucket_max_scores_general`,
+     `bucket_max_scores_i8_general`, each with its own launch count) at the
+     rest;
   2. a plain-torch epilogue (`topk`): hierarchical top-k over the maxima,
      gather of the selected buckets' rows, fp32-accumulated rescore against
      the bf16 pool, final top-k and, for int8, the certainty guard.
@@ -35,6 +39,11 @@ LANES = 128  # buckets per chunk
 GROUP = CHUNK // LANES  # members per bucket
 NEG = -3e38  # score of a padding row
 ROWS_PER_STEP = 64 * CHUNK  # pool rows per step of the plain twins and of quantize_pool
+# the widths each sweep takes (a multiple of the kernels' k step), and the widest the wgmma kernel takes
+# (set with the C side's other build macros in _build.DEFINES)
+D_MULTIPLE = {torch.bfloat16: 32, torch.int8: 64}
+WGMMA_MAX_D = {torch.bfloat16: _build.DEFINES["topk"]["UNIIR_SWEEP_MAX_D_BF16"],
+               torch.int8: _build.DEFINES["topk"]["UNIIR_SWEEP_MAX_D_I8"]}
 
 
 def topk_numpy_reference(queries: np.ndarray, pool: np.ndarray, k: int):
@@ -46,12 +55,25 @@ def topk_numpy_reference(queries: np.ndarray, pool: np.ndarray, k: int):
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric per-row int8: (values int8, scale fp32), from fp32 math --
-    the queries of K4 (topk_pallas.py:321-324) and each step of the pool."""
+    each step of the pool (`_quantize_pool_impl`, jitted in the reference)."""
     x = x.float()
     # XLA compiles the reference's `/ 127.0` as a multiply by the fp32
     # reciprocal; doing the same keeps the scales bit-equal to the reference's
     inv127 = torch.tensor(1.0 / 127.0, dtype=torch.float32, device=x.device)
     scale = x.abs().amax(dim=1).clamp_min(1e-6) * inv127
+    q = torch.round(x / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_queries(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 of the queries of a stand-alone K4 / K11 call,
+    as the JAX sweep quantises them when it is called outside any jit
+    (topk_pallas.py:321-324): the scale is amax / 127 by a true division.
+    Under jit (`pallas_topk`, hence `topk` and the search) XLA multiplies by
+    the reciprocal, which is `quantize_rows`; the two scales differ by one
+    fp32 step on a few rows in a hundred."""
+    x = x.float()
+    scale = x.abs().amax(dim=1).clamp_min(1e-6) / 127.0
     q = torch.round(x / scale[:, None]).clamp(-127, 127).to(torch.int8)
     return q, scale
 
@@ -207,46 +229,85 @@ def _check_sweep_args(queries: torch.Tensor, pool: torch.Tensor, valid_n: int, d
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned {dtype} tensor on {pool.device}")
 
 
-def bucket_max_scores(queries: torch.Tensor, pool: torch.Tensor, valid_n: Optional[int] = None) -> torch.Tensor:
-    """K2: [Q, D] x [N, D] -> strided-bucket maxima [Q, N/GROUP] fp32 (bf16 sweep)."""
+def sweep_route(dtype: torch.dtype, D: int) -> Optional[str]:
+    """The K2 (bf16) / K4 (int8) kernel a CUDA sweep of this width
+    launches: "wgmma" (the TMA-fed kernel, whose query tile stays in shared
+    memory: bf16 D <= 768, int8 D <= 1152), "general" (the mma.sync kernel
+    fed straight from device memory, any wider multiple of 32 / 64), or None
+    where no kernel takes the width."""
+    if dtype not in D_MULTIPLE or D <= 0 or D % D_MULTIPLE[dtype]:
+        return None
+    return "wgmma" if D <= WGMMA_MAX_D[dtype] else "general"
+
+
+def _sweep_kernel(dtype: torch.dtype, D: int, general: bool):
+    """The C entry a K2 / K4 launch of width D calls and the wrapper whose
+    count it moves: the kernel `sweep_route` picks, or with `general` the
+    general-width one."""
+    return _SWEEP_KERNELS[dtype, "general" if general else sweep_route(dtype, D)]
+
+
+def _bf16_sweep(queries: torch.Tensor, pool: torch.Tensor, valid_n: Optional[int], general: bool) -> torch.Tensor:
+    """K2 on a CUDA pool through `_sweep_kernel`; the twin on a CPU pool."""
     N = pool.shape[0]
     valid_n = N if valid_n is None else int(valid_n)
     if pool.device.type == "cpu":
         return bucket_max_scores_reference(queries, pool, valid_n)
     queries = queries.to(torch.bfloat16).contiguous()
-    _check_sweep_args(queries, pool, valid_n, torch.bfloat16, 32)
+    _check_sweep_args(queries, pool, valid_n, torch.bfloat16, D_MULTIPLE[torch.bfloat16])
     Q, D = queries.shape
+    entry, counter = _sweep_kernel(torch.bfloat16, D, general)
     out = torch.empty((Q, N // GROUP), dtype=torch.float32, device=pool.device)
     lib = _build.load("topk")
-    err = lib.uniir_bucket_max_bf16(
+    err = getattr(lib, entry)(
         queries.data_ptr(), pool.data_ptr(), out.data_ptr(), Q, N, D, valid_n,
         torch.cuda.current_stream(pool.device).cuda_stream,
     )
-    _build.check(lib, err, "bf16 bucket-max kernel")
-    bucket_max_scores.launches += 1
+    _build.check(lib, err, f"bf16 bucket-max kernel ({entry})")
+    counter.launches += 1
     return out
 
 
+def bucket_max_scores(queries: torch.Tensor, pool: torch.Tensor, valid_n: Optional[int] = None) -> torch.Tensor:
+    """K2: [Q, D] x [N, D] -> strided-bucket maxima [Q, N/GROUP] fp32 (bf16
+    sweep), through the kernel `sweep_route` picks for D."""
+    return _bf16_sweep(queries, pool, valid_n, general=False)
+
+
+def bucket_max_scores_general(queries: torch.Tensor, pool: torch.Tensor, valid_n: Optional[int] = None) -> torch.Tensor:
+    """K2's general-width kernel: what `bucket_max_scores` launches where
+    `sweep_route` says "general".  It takes the narrower widths too, which is
+    how the two kernels are timed side by side."""
+    return _bf16_sweep(queries, pool, valid_n, general=True)
+
+
 bucket_max_scores.launches = 0
+bucket_max_scores_general.launches = 0
 
 
 def _int8_sweep(queries: torch.Tensor, pool_q: torch.Tensor, scale: torch.Tensor, valid_n: Optional[int],
-                wrapper, reference, entry: str, scales_per: str) -> torch.Tensor:
-    """What K4 and K11 share: quantise the queries per row, run the twin on
-    a CPU pool, else check the arguments and launch `entry` of csrc/topk.cu,
-    counting the launch on `wrapper`.  `scale` holds one fp32 value per row
-    (K4) or per bucket (K11); its length tells which."""
+                query_quant: Optional[Tuple[torch.Tensor, torch.Tensor]], general: bool) -> torch.Tensor:
+    """What K4 and K11 share: take the queries' int8 values and scales from
+    `query_quant`, or quantise them with `quantize_queries`, run the twin on
+    a CPU pool, else check the arguments and launch.  `scale` holds one fp32
+    value per row (K4, through `_sweep_kernel`) or per bucket (K11); its
+    length tells which."""
     N = pool_q.shape[0]
     valid_n = N if valid_n is None else int(valid_n)
-    q_q, q_scale = quantize_rows(queries)
+    per_bucket = scale.shape == (N // GROUP,)
+    q_q, q_scale = quantize_queries(queries) if query_quant is None else query_quant
     if pool_q.device.type == "cpu":
+        reference = bucket_max_scores_i8b_reference if per_bucket else bucket_max_scores_i8_reference
         return reference(q_q, q_scale, pool_q, scale, valid_n)
-    _check_sweep_args(q_q, pool_q, valid_n, torch.int8, 64)
-    n_scales = N if scales_per == "row" else N // GROUP
-    if (scale.shape != (n_scales,) or scale.dtype != torch.float32 or not scale.is_contiguous()
-            or scale.device != pool_q.device):
-        raise ValueError(f"the pool's scales must be a contiguous fp32 [{n_scales}] tensor (one per {scales_per}) on {pool_q.device}")
+    _check_sweep_args(q_q, pool_q, valid_n, torch.int8, D_MULTIPLE[torch.int8])
+    scales_per = "bucket" if per_bucket else "row"
+    if (scale.shape not in ((N,), (N // GROUP,)) or scale.dtype != torch.float32 or not scale.is_contiguous()
+            or scale.device != pool_q.device or scale.data_ptr() % 16):
+        raise ValueError(f"the pool's scales must be a contiguous, 16-byte aligned fp32 [{N}] (one per row) or "
+                         f"[{N // GROUP}] (one per bucket) tensor on {pool_q.device}")
     Q, D = q_q.shape
+    entry, wrapper = ("uniir_bucket_max_i8b", bucket_max_scores_i8b) if per_bucket else _sweep_kernel(
+        torch.int8, D, general)
     out = torch.empty((Q, N // GROUP), dtype=torch.float32, device=pool_q.device)
     lib = _build.load("topk")
     err = getattr(lib, entry)(
@@ -259,32 +320,56 @@ def _int8_sweep(queries: torch.Tensor, pool_q: torch.Tensor, scale: torch.Tensor
 
 
 def bucket_max_scores_i8(
-    queries: torch.Tensor, pool_q: torch.Tensor, pool_scale: torch.Tensor, valid_n: Optional[int] = None
+    queries: torch.Tensor, pool_q: torch.Tensor, pool_scale: torch.Tensor, valid_n: Optional[int] = None,
+    query_quant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """K4: approximate strided-bucket maxima [Q, N/GROUP] fp32 over an int8
-    pool with per-row scales; the queries are quantised per row first.
+    pool with per-row scales, through the kernel `sweep_route` picks for D.
+    The queries are quantised per row first (`quantize_queries`), unless the
+    caller passes their int8 values and scales as `query_quant`.
     `pool_scale` selects the kernel by shape, as the reference does: [N] is
     K4, [N / GROUP] (one scale per bucket) hands over to K11."""
-    if pool_scale.shape == (pool_q.shape[0] // GROUP,):
-        return bucket_max_scores_i8b(queries, pool_q, pool_scale, valid_n)
-    return _int8_sweep(queries, pool_q, pool_scale, valid_n, bucket_max_scores_i8, bucket_max_scores_i8_reference,
-                       "uniir_bucket_max_i8", "row")
+    return _int8_sweep(queries, pool_q, pool_scale, valid_n, query_quant, general=False)
+
+
+def bucket_max_scores_i8_general(
+    queries: torch.Tensor, pool_q: torch.Tensor, pool_scale: torch.Tensor, valid_n: Optional[int] = None,
+    query_quant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """K4's general-width kernel (per-row scales): what
+    `bucket_max_scores_i8` launches where `sweep_route` says "general"; it
+    takes the narrower widths too."""
+    if pool_scale.shape != (pool_q.shape[0],):
+        raise ValueError(f"K4 takes one scale per row, [{pool_q.shape[0]}], got {tuple(pool_scale.shape)}")
+    return _int8_sweep(queries, pool_q, pool_scale, valid_n, query_quant, general=True)
 
 
 bucket_max_scores_i8.launches = 0
+bucket_max_scores_i8_general.launches = 0
 
 
 def bucket_max_scores_i8b(
-    queries: torch.Tensor, pool_q: torch.Tensor, bucket_scale: torch.Tensor, valid_n: Optional[int] = None
+    queries: torch.Tensor, pool_q: torch.Tensor, bucket_scale: torch.Tensor, valid_n: Optional[int] = None,
+    query_quant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """K11: approximate strided-bucket maxima [Q, N/GROUP] fp32 over an int8
     pool with one scale per bucket (`quantize_pool(per_bucket=True)`): the
     maximum is taken over the int32 dot products and only it is dequantised."""
-    return _int8_sweep(queries, pool_q, bucket_scale, valid_n, bucket_max_scores_i8b, bucket_max_scores_i8b_reference,
-                       "uniir_bucket_max_i8b", "bucket")
+    N = pool_q.shape[0]
+    if bucket_scale.shape != (N // GROUP,):
+        raise ValueError(f"K11 takes one scale per bucket, [{N // GROUP}], got {tuple(bucket_scale.shape)}")
+    return _int8_sweep(queries, pool_q, bucket_scale, valid_n, query_quant, general=False)
 
 
 bucket_max_scores_i8b.launches = 0
+
+# (dtype, sweep_route) -> the C entry of csrc/topk.cu and the wrapper that counts its launches
+_SWEEP_KERNELS = {
+    (torch.bfloat16, "wgmma"): ("uniir_bucket_max_bf16", bucket_max_scores),
+    (torch.bfloat16, "general"): ("uniir_bucket_max_bf16_general", bucket_max_scores_general),
+    (torch.int8, "wgmma"): ("uniir_bucket_max_i8", bucket_max_scores_i8),
+    (torch.int8, "general"): ("uniir_bucket_max_i8_general", bucket_max_scores_i8_general),
+}
 
 
 def _bucket_rows(bucket_ids: torch.Tensor) -> torch.Tensor:
@@ -320,7 +405,8 @@ def topk(
     N = pool.shape[0]
     valid_n = N if valid_n is None else int(valid_n)
     if pool_quant is not None:
-        maxima = bucket_max_scores_i8(queries, pool_quant[0], pool_quant[1], valid_n)
+        # the JAX search jits `pallas_topk`, where XLA quantises the queries with a multiply by the reciprocal
+        maxima = bucket_max_scores_i8(queries, pool_quant[0], pool_quant[1], valid_n, query_quant=quantize_rows(queries))
         k_sel = min(overfetch * k, maxima.shape[1])
     else:
         maxima = bucket_max_scores(queries, pool, valid_n)
