@@ -17,15 +17,16 @@
    CLIP and `base` shapes, their two kernels timed in turns and the general
    one also at L = 577, K7 (fused
    image preprocessing) at uint8 [64, 256, 256, 3] -> 224 in both methods
-   and output types, K2 / K4 / K11 sweeps at the main path's small pool, K11
-   on a pool cut inside a chunk's first rows, and on a seeded 5.6M x 768
-   pool K2 and K4 at 256 queries and at the search's batch of 1024 -- the
-   TMA-fed wgmma kernel (its machine code checked for wgmma products fed
-   by TMA and no mma.sync) and the general-width kernel both, timed in
-   turns new / general / new -- K11 at 256 queries (also against brute
-   force, and `topk` with the guard through K11), and `topk` over one
-   1024-query batch at k = 50, bf16 and int8 with the guard, with the
-   sweep's share of it,
+   and output types -- its band kernel against the twin, bit-equal to its
+   dense kernel, the two timed in turns band / dense / band -- K2 / K4 / K11
+   sweeps at the main path's small pool, K11 on a pool cut inside a chunk's
+   first rows, and on a seeded 5.6M x 768 pool K2, K4 and K11 at 256
+   queries and at the search's batch of 1024 -- the TMA-fed wgmma kernel
+   (its machine code checked for wgmma products fed by TMA and no mma.sync)
+   and the general-width kernel both, timed in turns new / general / new --
+   `topk` with the guard through K11 against brute force, and `topk` over
+   one 1024-query batch at k = 50, bf16, int8 and int8_bucket with the
+   guard, with the sweep's share of it,
    K5 (int8 matmul) at the CLIP-L projection shapes in its dynamic and
    static modes (beside `torch._int_mm` alone, and at the vision and text
    shapes its main loop's two tiles in turns), K6 (fused int8 MLP) at the
@@ -63,7 +64,7 @@
 6. drives BLIP-ScoreFusion serving at the full width and depth of
    `configs/blip_sf/large` (ViT-L/16, 24 blocks; MED, 12 layers) in bf16
    through `build_model_from_config`:
-   seeded uint8 256 x 256 images go through K7 on the card (bicubic, bf16)
+   seeded uint8 256 x 256 images go through K7's band kernel on the card (bicubic, bf16)
    into collated batches of 64 with hash token ids and padding masks of
    mixed lengths, then the embedder's loop, `create_index` and
    `run_retrieval` with the int8 and the bf16 pool -- and checks the K7 / K1
@@ -158,18 +159,32 @@ def log(msg: str) -> None:
 
 def cuda_ms(fn, iters: int = 5) -> float:
     """Mean device time of fn() over `iters` runs after one warm-up (CUDA
-    events).  The runs are queued behind a few milliseconds of a spinning
-    kernel, so the host has them enqueued before the first one starts and a
-    short kernel's time is the device's, not the rate Python launches at."""
+    events).  The runs are queued behind a spinning kernel, so the host has
+    them enqueued before the first one starts and a short kernel's time is
+    the device's, not the rate Python launches at.  Where the host took
+    longer to queue them than the spin lasted (a call whose host side is
+    slow, as autograd's, or a pause of the host), the device may have waited
+    for it: the runs are timed once more behind a spin half as long again as
+    the host took.  If the host is slower than that spin too, it was waiting
+    for the device, which was busy all along."""
     fn()
     torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(5_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
+    spin = 5_000_000  # clocks: a few milliseconds
+    for _ in range(2):
+        spun, start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        spun.record()
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin_ms = spun.elapsed_time(start)
+        if host_ms < spin_ms:
+            break
+        spin = int(spin * min(1.5 * host_ms, 1000.0) / spin_ms)  # at most a second
     return start.elapsed_time(stop) / iters
 
 
@@ -371,20 +386,22 @@ def check_attention_splitk(results: dict) -> None:
 
 def _off_path_kernels():
     from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.ops import image_ops as I
     from uniir_tpu_torch.ops import topk as T
 
     return (("K8", attn_mod.mha_nocausal), ("K9", attn_mod.mha_paired), ("K9g", attn_mod.norm_first_general),
             ("K1g", attn_mod.attention_fwd_general), ("K3g", attn_mod.attention_bwd_general),
             ("K10g", attn_mod.attention_splitk_general), ("K2g", T.bucket_max_scores_general),
-            ("K4g", T.bucket_max_scores_i8_general))
+            ("K4g", T.bucket_max_scores_i8_general), ("K11g", T.bucket_max_scores_i8b_general),
+            ("K7g", I.fused_preprocess_dense))
 
 
 def zero_standalone() -> None:
     """K8 / K9 are stand-alone entry points, as in the JAX package, the
-    general-length K1 / K3 / K8 / K9 / K10 serve lengths past 272 and the
-    general-width K2 / K4 widths past 768 / 1152, which no model of these
-    paths has: every path sets their counts to 0 with its own before it
-    starts."""
+    general-length K1 / K3 / K8 / K9 / K10 serve lengths past 272, the
+    general-width K2 / K4 / K11 widths past 768 / 1152, and K7's dense kernel
+    the shapes whose band strip does not fit, which no model of these paths
+    has: every path sets their counts to 0 with its own before it starts."""
     for _, fn in _off_path_kernels():
         fn.launches = 0
 
@@ -392,8 +409,8 @@ def zero_standalone() -> None:
 def read_standalone(results: dict, path: str) -> None:
     """Read their counts just after a path: no model calls K8 / K9, the
     static routes send every length of these paths (77, 197, 257) to the
-    one-block-a-head K1 / K3 / K10 and every width (768, 256) to the wgmma
-    K2 / K4."""
+    one-block-a-head K1 / K3 / K10, every width (768, 256) to the wgmma
+    K2 / K4 / K11 and the BLIP paths' 256 -> 224 to K7's band kernel."""
     for name, fn in _off_path_kernels():
         results[name]["launches"] = results[name].get("launches", 0) + fn.launches
         check(fn.launches == 0, f"off-path kernel {name} was launched {fn.launches} times on the {path} path")
@@ -412,46 +429,66 @@ def library_preprocess(images_u8: torch.Tensor, out_size: int, method: str, mean
 
 
 def check_preprocess(results: dict) -> None:
-    """K7 against its twin (and the numpy reference on a few images) at the
-    BLIP path's shape: uint8 [64, 256, 256, 3] -> 224."""
+    """K7 at the BLIP path's shape, uint8 [64, 256, 256, 3] -> 224, in both
+    methods and output types: the band kernel (the route `fused_preprocess`
+    takes here) against its twin, bit-equal to the dense kernel, and against
+    the numpy reference on a few images; the two timed in turns (band, dense,
+    band)."""
     from uniir_tpu_torch.ops import image_ops as I
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 11)
     B, S, O = BATCH, RAW_SIDE, 224
     img = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
     mean, std = (torch.from_numpy(v).cuda() for v in (I.CLIP_MEAN, I.CLIP_STD))
-    dense_ops = B * 3 * 2 * (O * S * S + O * S * O)  # both products multiplied densely, as the kernel does
-    worst = 0.0
+    dense_ops = B * 3 * 2 * (O * S * S + O * S * O)  # both products multiplied densely, as the dense kernel does
+    worst = {"K7": 0.0, "K7g": 0.0}
     for method, dtype in (("bilinear", torch.float32), ("bicubic", torch.bfloat16)):
         # what the function needs: a multiply-add for each non-zero tap of this run's [O, S] matrix,
         # as A_h over the S columns of a plane and as A_w over the O rows of the intermediate
         taps = int(np.count_nonzero(I.resize_matrix(S, O, method)))
         ops = B * 3 * 2 * taps * (S + O)
+        route = I.preprocess_route(S, S, O, method)
+        before = (I.fused_preprocess.launches, I.fused_preprocess_dense.launches)
         out = I.fused_preprocess(img, O, method, dtype)
+        dense = I.fused_preprocess_dense(img, O, method, dtype)
         torch.cuda.synchronize()
+        check(route == "band" and (I.fused_preprocess.launches - before[0], I.fused_preprocess_dense.launches - before[1])
+              == (1, 1), f"K7 at {S} -> {O} {method}: route {route}, launches band / dense not 1 / 1")
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        same = torch.equal(out.view(bits), dense.view(bits))
         ref = I.fused_preprocess_reference(img, O, method, dtype)
-        err = (out.float() - ref.float()).abs().max().item()
+        err, err_g = (out.float() - ref.float()).abs().max().item(), (dense.float() - ref.float()).abs().max().item()
         numpy_ref = torch.from_numpy(I.preprocess_reference_numpy(img[:4].cpu().numpy(), O, method)).cuda()
         err_np = (out[:4].float() - numpy_ref).abs().max().item()
         ms = cuda_ms(lambda: I.fused_preprocess(img, O, method, dtype), 20)
+        dense_ms = cuda_ms(lambda: I.fused_preprocess_dense(img, O, method, dtype), 20)
+        ms_again = cuda_ms(lambda: I.fused_preprocess(img, O, method, dtype), 20)
         plain_ms = cuda_ms(lambda: I.fused_preprocess_reference(img, O, method, dtype), 10)
         library_ms = cuda_ms(lambda: library_preprocess(img, O, method, mean, std, dtype), 10)
-        matrices = 2 * O * S * 4
-        limit = bound(nbytes(img, out) + matrices, ops, FP32_OPS_PER_S)
-        log(f"K7 fused_preprocess uint8 [{B},{S},{S},3] -> {O} {method} {str(dtype).split('.')[-1]}: max_abs_err={err} "
-            f"vs numpy reference (4 images)={err_np} kernel_ms={ms} ({dense_ops / ms / 1e9:.2f} TFLOP/s fp32 of the "
-            f"{dense_ops / 1e9:.2f} GFLOP it multiplies densely; the {taps} taps of a matrix need {ops / 1e9:.3f} GFLOP) "
-            f"plain_ms={plain_ms} library_ms={library_ms} (F.interpolate antialias + normalise; other border taps) {limit}")
-        # against the twin, which has the kernel's arithmetic: the fp32 sums in another order move a
+        # the band kernel reads the band of each matrix (first index and taps a row), the dense one each
+        # whole [O, S] fp32 matrix
+        limit = bound(nbytes(img, out, *I._bands(S, S, O, method, str(img.device))), ops, FP32_OPS_PER_S)
+        limit_g = bound(nbytes(img, out) + 2 * O * S * 4, ops, FP32_OPS_PER_S)
+        log(f"K7 fused_preprocess uint8 [{B},{S},{S},3] -> {O} {method} {str(dtype).split('.')[-1]}: band kernel "
+            f"max_abs_err={err} (dense kernel {err_g}; band bit-equal to dense: {same}) vs numpy reference (4 images)="
+            f"{err_np} kernel_ms={ms} / {ms_again} (dense kernel between them {dense_ms} = "
+            f"{dense_ops / dense_ms / 1e9:.2f} TFLOP/s fp32 of the {dense_ops / 1e9:.2f} GFLOP it multiplies; the "
+            f"{taps} taps of a matrix need {ops / 1e9:.3f} GFLOP) plain_ms={plain_ms} library_ms={library_ms} "
+            f"(F.interpolate antialias + normalise; other border taps) {limit} (dense kernel's {limit_g})")
+        # against the twin, which has the kernels' arithmetic: the fp32 sums in another order move a
         # value below 4 by an fp32 step or two (2^-22 each), and in bf16 by at most one step (2^-6);
-        # the numpy reference divides by 255 and std where the kernel multiplies: atol 1e-4 on top
+        # the numpy reference divides by 255 and std where the kernels multiply: atol 1e-4 on top
         tol = 2.0**-21 if dtype == torch.float32 else 2.0**-6
-        check(err <= tol, f"K7 disagrees with its twin ({method}, {dtype}): {err} > {tol}")
+        check(err <= tol and err_g <= tol, f"K7 disagrees with its twin ({method}, {dtype}): band {err}, dense {err_g}")
+        check(same, f"K7's band kernel is not bit-equal to its dense kernel ({method}, {dtype})")
         check(err_np <= tol + 1e-4, f"K7 disagrees with the numpy reference ({method}, {dtype}): {err_np}")
-        worst = max(worst, err)
+        check(max(ms, ms_again) < dense_ms, f"K7's band kernel is not faster than the dense kernel ({method}, {dtype})")
+        worst = {"K7": max(worst["K7"], err), "K7g": max(worst["K7g"], err_g)}
         if method == "bicubic":  # the BLIP path's call
-            results["K7"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
-    results["K7"]["max_abs_err"] = worst
+            results["K7"].update(ms=(ms + ms_again) / 2, plain_ms=plain_ms, library_ms=library_ms, **limit)
+            results["K7g"].update(ms=dense_ms, plain_ms=plain_ms, library_ms=library_ms, **limit_g)
+    for name, err in worst.items():
+        results[name]["max_abs_err"] = err
 
 
 # ----------------------------------------------------------- phase 1: K2 / K4
@@ -520,9 +557,9 @@ def library_bucket_max_i8b(q_q, q_scale, pool_q, bucket_scale, valid_n: int):
 
 def check_sweep_machine_code() -> None:
     """The wgmma sweeps' machine code (`cuobjdump -sass` of the built
-    library): K2's kernel multiplies with HGMMA (wgmma bf16), K4's with IGMMA
-    (wgmma s8), both are fed by TMA (UTMALDG), and neither holds an HMMA /
-    IMMA (mma.sync)."""
+    library): K2's kernel multiplies with HGMMA (wgmma bf16), K4's and K11's
+    with IGMMA (wgmma s8), all are fed by TMA (UTMALDG), and none holds an
+    HMMA / IMMA (mma.sync)."""
     import re
     from collections import Counter
 
@@ -535,13 +572,15 @@ def check_sweep_machine_code() -> None:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split(":", 1)[1].strip()
-            kernel = ("K2" if "nv_bfloat16" in name else "K4") if "bucket_max_wgmma_kernel" in name else None
+            kernel = None
+            if "bucket_max_wgmma_kernel" in name:
+                kernel = "K11" if "I8Bucket" in name else ("K2" if "nv_bfloat16" in name else "K4")
             if kernel:
                 counts[kernel] = Counter()
         elif kernel:
             counts[kernel].update(re.findall(r"\b(HGMMA|IGMMA|HMMA|IMMA|UTMALDG)\b", line))
     log(f"sweep machine code (SASS opcodes of bucket_max_wgmma_kernel): {dict((k, dict(v)) for k, v in counts.items())}")
-    for kernel, product in (("K2", "HGMMA"), ("K4", "IGMMA")):
+    for kernel, product in (("K2", "HGMMA"), ("K4", "IGMMA"), ("K11", "IGMMA")):
         c = counts.get(kernel, Counter())
         check(c[product] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == c["IMMA"] == 0,
               f"{kernel}'s sweep kernel is not TMA-fed wgmma ({product}) without mma.sync: {dict(c)}")
@@ -586,6 +625,8 @@ def check_sweeps(results: dict) -> None:
         pool[r0 : r0 + len(rows)] = torch.nn.functional.normalize(rows, dim=1).bfloat16()
     all_queries = torch.nn.functional.normalize(torch.randn(SEARCH_BATCH, POOL_DIM, generator=g, device="cuda"), dim=1)
     pool_q, pool_scale = T.quantize_pool(pool)
+    # K11's pool: the same rows with one scale per strided bucket; valid_n = 5.6M cuts the last chunk
+    pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
     log(f"sweep pool: [{POOL_ROWS}, {POOL_DIM}] bf16 padded to {n_pad} rows; {N_QUERIES} queries and the search's "
         f"batch of {SEARCH_BATCH}")
     sweep_ms = {}
@@ -596,6 +637,7 @@ def check_sweeps(results: dict) -> None:
         q_q, q_scale = T.quantize_queries(queries)
         qb = queries.bfloat16()
         int8_args = (q_q, q_scale, pool_q, pool_scale, POOL_ROWS)
+        i8b_args = (q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS)
         kernels = (  # name, new wrapper, general wrapper, twin, error limit, library call, inputs, peak
             ("K2", lambda: T.bucket_max_scores(queries, pool, POOL_ROWS),
              lambda: T.bucket_max_scores_general(queries, pool, POOL_ROWS),
@@ -606,6 +648,11 @@ def check_sweeps(results: dict) -> None:
              lambda: T.bucket_max_scores_i8_reference(*int8_args), 0.0,  # int8 sums are exact in both
              lambda: library_bucket_max(q_q, pool_q, POOL_ROWS, int8=(q_q, q_scale, pool_scale)),
              (queries, pool_q, pool_scale), INT8_OPS_PER_S),
+            # through `bucket_max_scores_i8`, which hands over to K11 by the scales' shape
+            ("K11", lambda: T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, POOL_ROWS),
+             lambda: T.bucket_max_scores_i8b_general(queries, pool_qb, bucket_scale, POOL_ROWS),
+             lambda: T.bucket_max_scores_i8b_reference(*i8b_args), 0.0,  # exact integers, two rounded multiplies
+             lambda: library_bucket_max_i8b(*i8b_args), (queries, pool_qb, bucket_scale), INT8_OPS_PER_S),
         )
         for name, new, general, twin, tol, library, inputs, peak in kernels:
             out = new()
@@ -614,6 +661,8 @@ def check_sweeps(results: dict) -> None:
             ref = twin()
             err, err_g = (out - ref).abs().max().item(), (out_g - ref).abs().max().item()
             check(err <= tol and err_g <= tol, f"{name} at {n_q} queries disagrees with its twin: new {err}, general {err_g}")
+            if tol == 0.0:  # K4 and K11: bit-equal, NEG included
+                check(torch.equal(out, ref) and torch.equal(out_g, ref), f"{name} at {n_q} queries is not bit-equal to its twin")
             del ref, out_g
             ms_new, ms_old, ms_new2 = cuda_ms(new, iters), cuda_ms(general, iters), cuda_ms(new, iters)
             plain = cuda_ms(twin, plain_iters)
@@ -627,27 +676,9 @@ def check_sweeps(results: dict) -> None:
             if n_q == SEARCH_BATCH:  # the kernels line: the search's launch shape
                 results[name].update(max_abs_err=err, ms=(ms_new + ms_new2) / 2, plain_ms=plain, library_ms=lib, **limit)
                 results[name + "g"].update(max_abs_err=err_g, ms=ms_old, plain_ms=plain, library_ms=lib, **limit)
+        log(f"K11 against K4 at {n_q} queries, the same pool bytes: {sweep_ms['K11', n_q]} / {sweep_ms['K4', n_q]} ms")
         torch.cuda.empty_cache()
     queries = all_queries[:N_QUERIES]
-    q_q, q_scale = T.quantize_queries(queries)
-
-    # K11: the same pool with one scale per strided bucket; valid_n = 5.6M cuts the last chunk
-    pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
-    out11 = T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, POOL_ROWS)  # hands over by the scales' shape
-    torch.cuda.synchronize()
-    ref11 = T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS)
-    err11 = (out11 - ref11).abs().max().item()
-    ms11 = cuda_ms(lambda: T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, POOL_ROWS), 5)
-    ms4_again = cuda_ms(lambda: T.bucket_max_scores_i8(queries, pool_q, pool_scale, POOL_ROWS), 5)
-    ms11_again = cuda_ms(lambda: T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, POOL_ROWS), 5)
-    plain11 = cuda_ms(lambda: T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS), 3)
-    lib11 = cuda_ms(lambda: library_bucket_max_i8b(q_q, q_scale, pool_qb, bucket_scale, POOL_ROWS), 3)
-    limit11 = bound(nbytes(queries, pool_qb, bucket_scale, out11), 2 * N_QUERIES * POOL_ROWS * POOL_DIM, INT8_OPS_PER_S)
-    log(f"K11 int8 per-bucket sweep: max_abs_err={err11} kernel_ms={ms11} / {ms11_again} (K4 between them {ms4_again}, "
-        f"before them {sweep_ms['K4', N_QUERIES]}) plain_ms={plain11} library_ms={lib11} {limit11}")
-    # the integers are exact (|acc| <= 768 * 127^2 < 2^24) and the dequantisation is two rounded multiplies
-    check(err11 == 0.0 and torch.equal(out11, ref11), "K11 disagrees with its twin (bit-equal expected)")
-    del ref11, out11
 
     bf_s, bf_i = brute_force_topk(queries, pool, POOL_ROWS, K)
     s16, i16 = T.topk(queries, pool, K, valid_n=POOL_ROWS)
@@ -666,26 +697,28 @@ def check_sweeps(results: dict) -> None:
     log(f"top-{K} through K11 (per-bucket int8 pool): guard_pass_rate={ok11.float().mean().item()}, "
         f"ids equal to the bf16 pool's where the guard passed={eq11}")
     check(eq11 and bool(ok11.any()), "top-k through K11 differs from the bf16 pool's where its guard passed")
-    results["K11"].update(max_abs_err=err11, ms=ms11, plain_ms=plain11, library_ms=lib11, **limit11)
-    del pool_qb, bucket_scale
 
     # what a user of run_retrieval pays a batch: `topk` over the search's 1024 queries at the shipped
     # retrieval.yaml's k, bf16 and int8 with the guard (and the search's whole-batch re-run where it fails)
-    reruns = []
+    reruns = {"int8": [], "int8_bucket": []}
 
-    def search_batch_int8():
-        _, _, ok = T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS, pool_quant=(pool_q, pool_scale), with_guard=True)
-        reruns.append(not bool(ok.all()))
-        if reruns[-1]:
+    def search_batch(pool_name, quant):
+        _, _, ok = T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS, pool_quant=quant, with_guard=True)
+        reruns[pool_name].append(not bool(ok.all()))
+        if reruns[pool_name][-1]:
             T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS)
 
     ms_b16 = cuda_ms(lambda: T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS), 3)
-    ms_b8 = cuda_ms(search_batch_int8, 3)
+    ms_b8 = cuda_ms(lambda: search_batch("int8", (pool_q, pool_scale)), 3)
+    ms_b8b = cuda_ms(lambda: search_batch("int8_bucket", (pool_qb, bucket_scale)), 3)
     log(f"topk over one batch of {SEARCH_BATCH} queries, k={SEARCH_K}: bf16 {ms_b16} ms "
         f"({SEARCH_BATCH / ms_b16 * 1e3:.0f} queries/s; K2 sweep {sweep_ms['K2', SEARCH_BATCH] / ms_b16:.1%} of it), "
         f"int8 with the guard {ms_b8} ms ({SEARCH_BATCH / ms_b8 * 1e3:.0f} queries/s; K4 sweep "
-        f"{sweep_ms['K4', SEARCH_BATCH] / ms_b8:.1%} of it; whole-batch exact re-runs {sum(reruns)} of {len(reruns)})")
-    del pool, pool_q, pool_scale, all_queries
+        f"{sweep_ms['K4', SEARCH_BATCH] / ms_b8:.1%} of it; whole-batch exact re-runs {sum(reruns['int8'])} of "
+        f"{len(reruns['int8'])}), int8_bucket with the guard {ms_b8b} ms ({SEARCH_BATCH / ms_b8b * 1e3:.0f} queries/s; "
+        f"K11 sweep {sweep_ms['K11', SEARCH_BATCH] / ms_b8b:.1%} of it; whole-batch exact re-runs "
+        f"{sum(reruns['int8_bucket'])} of {len(reruns['int8_bucket'])})")
+    del pool, pool_q, pool_scale, pool_qb, bucket_scale, all_queries
     torch.cuda.empty_cache()
 
 
@@ -1558,7 +1591,9 @@ def check_attention_bwd(results: dict) -> None:
         old_ms = cuda_ms(lambda: A.attention_bwd_general(q, k, v, do, H, causal=causal), 20)
         ms_again = cuda_ms(lambda: A.attention_bwd(q, k, v, do, H, causal=causal), 20)
         plain_ms = cuda_ms(lambda: A.attention_bwd_reference(q, k, v, do, H, causal=causal), 5)
-        # the library call: the backward of F.scaled_dot_product_attention on the same tensors
+        # the library call: the backward of F.scaled_dot_product_attention on the same tensors (autograd's
+        # host side is slower than the backward's device time: `cuda_ms` lengthens its spin until the host
+        # has queued the 20 calls before the first one starts)
         leaves = [t.view(B, L, H, 64).transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
         sdpa = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal)
         g_heads = do.view(B, L, H, 64).transpose(1, 2)
@@ -1780,7 +1815,7 @@ PROFILE_GROUPS = {
     "K3 attention_bwd": ("attention_fused_bwd", "attention_bwd"),
     # K5 and K6 share int8_gemm.cuh's kernel; its epilogue type, in the name, tells them apart
     "K5 int8_matmul": ("dequantbf16",), "K6 int8_mlp": ("actquanti8", "dequantresbf16", "quantise_rows"),
-    "K7 preprocess": ("preprocess_kernel",),
+    "K7 preprocess": ("preprocess_band", "preprocess_dense"),
     "GEMM": ("gemm", "xmma", "cutlass", "nvjet", "cublas"), "AdamW": ("multi_tensor", "adam"),
     "reduction / norm / softmax": ("reduce", "norm", "softmax"), "elementwise / copy": ("elementwise", "copy"),
     "host-to-device copy": ("memcpy htod",),
@@ -1875,13 +1910,20 @@ def main() -> None:
                 "replaces": "uniir_tpu/ops/attention_pallas.py:652"},
         "K11": {"name": "bucket_max_i8b", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
                 "replaces": "uniir_tpu/ops/topk_pallas.py:254", "launches": 0},
-        # the general-width kernels of K2 / K4 (bf16 D > 768, int8 D > 1152): timed beside the wgmma kernels;
-        # `sweep_route` sends every width of the main paths to the wgmma kernels, so `read_standalone` holds
-        # their counts to 0 after every path
+        # the general-width kernels of K2 / K4 / K11 (bf16 D > 768, int8 D > 1152): timed beside the wgmma
+        # kernels; `sweep_route` sends every width of the main paths to the wgmma kernels, so
+        # `read_standalone` holds their counts to 0 after every path
         "K2g": {"name": "bucket_max_bf16_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
                 "replaces": "uniir_tpu/ops/topk_pallas.py:118"},
         "K4g": {"name": "bucket_max_i8_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
                 "replaces": "uniir_tpu/ops/topk_pallas.py:291"},
+        "K11g": {"name": "bucket_max_i8b_general", "route": "cuda", "source": "uniir_tpu_torch/csrc/topk.cu",
+                 "replaces": "uniir_tpu/ops/topk_pallas.py:254"},
+        # K7's dense kernel (the route where the band kernel's strip does not fit): timed beside the band
+        # kernel; `preprocess_route` sends the BLIP paths' 256 -> 224 to the band kernel, so
+        # `read_standalone` holds its count to 0 after every path
+        "K7g": {"name": "fused_preprocess_dense", "route": "cuda", "source": "uniir_tpu_torch/csrc/preprocess.cu",
+                "replaces": "uniir_tpu/ops/image_ops.py:106"},
     }
     check_attention(results)
     check_attention_splitk(results)

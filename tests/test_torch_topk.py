@@ -4,11 +4,12 @@ JAX package, on the same seeded numpy inputs.
 The JAX side runs `bucket_max_scores`, `bucket_max_scores_i8` (with per-row
 scales, K4, and with per-bucket scales, K11) and `pallas_topk` in interpret
 mode, also at the wgmma sweep's tile edges (Q around 128, valid_n cutting
-the first, a middle and the last chunk).  `sweep_route`'s table is checked
-here.  On a card the CUDA kernels are held against their twins: the wgmma
-K2 / K4 at Q = 1 ... 1024 x D = 64 ... 768 with three valid_n cuts and on a
-300-chunk pool, the general kernels at the widths only they take, and the
-search over 2500 queries; JAX is imported inside the parity tests only, so
+the first, a middle and the last chunk).  `sweep_route`'s table and the
+kernels each route launches are checked here.  On a card the CUDA kernels
+are held against their twins: the wgmma K2 / K4 / K11 at Q = 1 ... 1024 x
+D = 64 ... 768 with three valid_n cuts and on a 300-chunk pool, K11 also at
+D = 1152 with four cuts, the general kernels at the widths only they take,
+and the search over 2500 queries through each pool; JAX is imported inside the parity tests only, so
 `python -m pytest tests/test_torch_topk.py -m gpu --noconftest` runs on a
 host without it.
 """
@@ -281,6 +282,28 @@ def test_int8_per_bucket_twin_matches_pallas_sweep(valid_n):
     assert n_neg == n_pad_buckets
 
 
+def test_int8_per_bucket_twin_is_exact_past_what_fp32_holds():
+    """At D = 1152 (the widest the wgmma K11 takes) int8 dot products reach
+    past 2^24: the twin sums them in fp64 and stays bit-equal to the JAX
+    sweep, whose int32 sums are exact."""
+    import jax.numpy as jnp
+
+    from uniir_tpu.ops.topk_pallas import bucket_max_scores_i8 as jax_bucket_max_i8
+    from uniir_tpu.ops.topk_pallas import quantize_pool as jax_quantize_pool
+
+    queries, pool = _data(seed=23, n=2048, d=1152, q=4)
+    queries[0] = np.sign(queries[0])
+    # every row near query 0's signs at full scale: its int8 sums reach about 1152 * 127 * 126
+    pool = (queries[0] * (1 - 0.01 * np.abs(pool.astype(np.float32)))).astype(np.float16)
+    ref_q, ref_s = jax_quantize_pool(jnp.asarray(pool), per_bucket=True)
+    ref = jax_bucket_max_i8(jnp.asarray(queries), ref_q, ref_s, valid_n=2000, interpret=True)
+    pool_q, scale = T.quantize_pool(torch.from_numpy(pool), per_bucket=True)
+    q_q, q_scale = T.quantize_queries(torch.from_numpy(queries))
+    assert (q_q[0].int() @ pool_q.int().T).max() >= 2**24
+    out = T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_q, scale, 2000)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
 def test_negative_maxima_outrank_padding_in_the_boundary_chunk():
     """A dequantised int32 sentinel would be a small negative number: the
     twin writes NEG for an all-padding bucket, so a true negative score wins."""
@@ -378,22 +401,40 @@ def test_search_rejects_an_unknown_pool_type(monkeypatch):
     (torch.float32, 768, None),
 ])
 def test_sweep_route_table(dtype, D, want):
-    """bf16 to D = 768 and int8 to D = 1152 on the wgmma kernel (its query
-    tile, 64 rows bf16 / 128 int8, stays in shared memory beside a ring of 4
-    stages), wider multiples of 32 / 64 on the general kernels, none for
-    another width or type."""
+    """bf16 to D = 768 and int8 (K4 and K11) to D = 1152 on the wgmma kernel
+    (its query tile, 64 rows bf16 / 128 int8, stays in shared memory beside
+    a ring of 4 stages), wider multiples of 32 / 64 on the general kernels,
+    none for another width or type."""
     assert T.sweep_route(dtype, D) == want
+
+
+@pytest.mark.parametrize("pool,D,entry,wrapper", [
+    ("bf16", 768, "uniir_bucket_max_bf16", "bucket_max_scores"),
+    ("bf16", 800, "uniir_bucket_max_bf16_general", "bucket_max_scores_general"),
+    ("int8", 768, "uniir_bucket_max_i8", "bucket_max_scores_i8"),
+    ("int8", 1216, "uniir_bucket_max_i8_general", "bucket_max_scores_i8_general"),
+    ("int8_bucket", 768, "uniir_bucket_max_i8b", "bucket_max_scores_i8b"),
+    ("int8_bucket", 1152, "uniir_bucket_max_i8b", "bucket_max_scores_i8b"),
+    ("int8_bucket", 1216, "uniir_bucket_max_i8b_general", "bucket_max_scores_i8b_general"),
+])
+def test_sweep_kernels_table(pool, D, entry, wrapper):
+    """The C entry of csrc/topk.cu each pool's sweep launches at a width, and
+    the wrapper whose count it moves; with `general` the general-width entry."""
+    assert T._sweep_kernel(pool, D, general=False) == (entry, getattr(T, wrapper))
+    general_entry = T._SWEEP_KERNELS[pool, "general"]
+    assert T._sweep_kernel(pool, D, general=True) == general_entry and general_entry[0].endswith("_general")
 
 
 def _launch_counts():
     return (T.bucket_max_scores.launches, T.bucket_max_scores_general.launches, T.bucket_max_scores_i8.launches,
-            T.bucket_max_scores_i8_general.launches, T.bucket_max_scores_i8b.launches)
+            T.bucket_max_scores_i8_general.launches, T.bucket_max_scores_i8b.launches,
+            T.bucket_max_scores_i8b_general.launches)
 
 
 @pytest.mark.parametrize("d", [64, 800])
 def test_cpu_sweeps_take_the_twins_through_both_routes(d):
-    """On CPU tensors every K2 / K4 entry, the wgmma route's (D = 64) and the
-    general one's (bf16 D = 800), runs its twin and counts no launch."""
+    """On CPU tensors every K2 / K4 / K11 entry, the wgmma route's (D = 64)
+    and the general one's (bf16 D = 800), runs its twin and counts no launch."""
     queries, pool = _data(seed=16, n=2048, d=d, q=5)
     q, bf_pool = torch.from_numpy(queries), torch.from_numpy(pool).bfloat16()
     before = _launch_counts()
@@ -406,6 +447,11 @@ def test_cpu_sweeps_take_the_twins_through_both_routes(d):
         want8 = T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, scale, 1500)
         assert torch.equal(T.bucket_max_scores_i8(q, pool_q, scale, 1500), want8)
         assert torch.equal(T.bucket_max_scores_i8_general(q, pool_q, scale, 1500), want8)
+        pool_qb, bucket_scale = T.quantize_pool(bf_pool, per_bucket=True)
+        want8b = T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, 1500)
+        assert torch.equal(T.bucket_max_scores_i8(q, pool_qb, bucket_scale, 1500), want8b)
+        assert torch.equal(T.bucket_max_scores_i8b(q, pool_qb, bucket_scale, 1500), want8b)
+        assert torch.equal(T.bucket_max_scores_i8b_general(q, pool_qb, bucket_scale, 1500), want8b)
     assert _launch_counts() == before
 
 
@@ -498,21 +544,26 @@ def _sweep_inputs(device, seed, q, d, n_chunks):
 
 def _check_new_sweeps(queries, pool, cuts):
     """New K2 within rtol 1e-5 / atol 1e-3 of its twin (fp32 sums of bf16
-    products in another order), new K4 bit-equal (exact integers, the same
-    two rounded multiplies); each launch counted on the new kernel's counter."""
+    products in another order), new K4 and K11 bit-equal (exact integers, the
+    same two rounded multiplies); each launch counted on the new kernel's
+    counter."""
     pool_q, scale = T.quantize_pool(pool)
+    pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
     q_q, q_scale = T.quantize_queries(queries)
     for cut in cuts:
         valid_n = pool.shape[0] - cut
         before = _launch_counts()
         out = T.bucket_max_scores(queries, pool, valid_n)
         out8 = T.bucket_max_scores_i8(queries, pool_q, scale, valid_n)
+        out8b = T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, valid_n)
         torch.cuda.synchronize()
         b = before
-        assert _launch_counts() == (b[0] + 1, b[1], b[2] + 1, b[3], b[4]), f"cut {cut}: launched another kernel"
+        assert _launch_counts() == (b[0] + 1, b[1], b[2] + 1, b[3], b[4] + 1, b[5]), f"cut {cut}: launched another kernel"
         ref = T.bucket_max_scores_reference(queries, pool, valid_n)
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-3)
         assert torch.equal(out8, T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, scale, valid_n)), f"cut {cut}"
+        want8b = T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, valid_n)
+        assert torch.equal(out8b, want8b), f"cut {cut}"
 
 
 @pytest.mark.gpu
@@ -566,10 +617,33 @@ def test_cuda_wgmma_int8_sweep_at_its_widest(cuda, q, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 127, 128, 129, 1000, 1024])
+@pytest.mark.parametrize("d", [64, 768, 1152])
+def test_cuda_wgmma_per_bucket_sweep_matches_twin(cuda, q, d):
+    """The wgmma K11 bit-equal to its twin around the 128-query block tile,
+    at the narrowest, the main path's and the widest width it takes, with
+    valid_n cutting nothing, the last chunk mid-bucket, the first chunk at
+    its edge (every later chunk padding), and at 0 rows of the last chunk."""
+    queries, pool = _sweep_inputs(cuda, 700 + q + d, q, d, GRID_CHUNKS)
+    assert T.sweep_route(torch.int8, d) == "wgmma"
+    n = pool.shape[0]
+    pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
+    q_q, q_scale = T.quantize_queries(queries)
+    for valid_n in (n, n - 1000, T.CHUNK, n - T.CHUNK):
+        before = _launch_counts()
+        out = T.bucket_max_scores_i8b(queries, pool_qb, bucket_scale, valid_n)
+        torch.cuda.synchronize()
+        assert _launch_counts() == before[:4] + (before[4] + 1, before[5]), f"valid_n {valid_n}: launched another kernel"
+        want = T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, valid_n)
+        assert torch.equal(out, want), f"valid_n {valid_n}"
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("q", [1, 129, 256])
 def test_cuda_general_sweeps_at_widths_only_they_take(cuda, q):
-    """bf16 D = 1024 and int8 D = 1216 route to the general kernels, counted
-    on their own counters, and agree with the twin / the exact function."""
+    """bf16 D = 1024 and int8 D = 1216 route to the general kernels (K11's
+    too), counted on their own counters, and agree with the twin / the exact
+    function."""
     queries, pool = _sweep_inputs(cuda, 300 + q, q, 1024, 8)
     valid_n = pool.shape[0] - 777
     before = _launch_counts()
@@ -584,8 +658,15 @@ def test_cuda_general_sweeps_at_widths_only_they_take(cuda, q):
     before = _launch_counts()
     out8 = T.bucket_max_scores_i8(queries, pool_q, scale, valid_n)
     torch.cuda.synchronize()
-    assert _launch_counts() == before[:3] + (before[3] + 1, before[4])
+    assert _launch_counts() == before[:3] + (before[3] + 1,) + before[4:]
     assert torch.equal(out8, _i8_sweep_exact(q_q, q_scale, pool_q, scale, valid_n))
+
+    pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
+    before = _launch_counts()
+    out8b = T.bucket_max_scores_i8(queries, pool_qb, bucket_scale, valid_n)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before[:5] + (before[5] + 1,)
+    assert torch.equal(out8b, T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, valid_n))
 
 
 @pytest.mark.gpu
@@ -596,14 +677,17 @@ def test_cuda_general_sweeps_match_twins_at_wgmma_widths(cuda, d):
     queries, pool = _sweep_inputs(cuda, 500 + d, 129, d, 8)
     valid_n = pool.shape[0] - 777
     pool_q, scale = T.quantize_pool(pool)
+    pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
     q_q, q_scale = T.quantize_queries(queries)
     before = _launch_counts()
     out = T.bucket_max_scores_general(queries, pool, valid_n)
     out8 = T.bucket_max_scores_i8_general(queries, pool_q, scale, valid_n)
+    out8b = T.bucket_max_scores_i8b_general(queries, pool_qb, bucket_scale, valid_n)
     torch.cuda.synchronize()
-    assert _launch_counts() == (before[0], before[1] + 1, before[2], before[3] + 1, before[4])
+    assert _launch_counts() == (before[0], before[1] + 1, before[2], before[3] + 1, before[4], before[5] + 1)
     torch.testing.assert_close(out, T.bucket_max_scores_reference(queries, pool, valid_n), rtol=1e-5, atol=1e-3)
     assert torch.equal(out8, T.bucket_max_scores_i8_reference(q_q, q_scale, pool_q, scale, valid_n))
+    assert torch.equal(out8b, T.bucket_max_scores_i8b_reference(q_q, q_scale, pool_qb, bucket_scale, valid_n))
 
 
 def _same_ids_up_to_ties(ids, ref_ids, ref_scores, tie=1e-5):
@@ -617,7 +701,7 @@ def _same_ids_up_to_ties(ids, ref_ids, ref_scores, tie=1e-5):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("pool_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("pool_dtype", ["bf16", "int8", "int8_bucket"])
 def test_cuda_search_returns_the_twins_ids(cuda, pool_dtype):
     """`search_dense_index` on the card at 2500 queries -- two full batches
     of 1024 and a remainder of 452 -- returns the ids of the same search on
@@ -632,7 +716,7 @@ def test_cuda_search_returns_the_twins_ids(cuda, pool_dtype):
     launched = np.subtract(_launch_counts(), before)
     ref_scores, ref_ids = search_dense_index(queries, index, 10, pool_dtype=pool_dtype, device="cpu")
     reruns = stats["exact_reruns"]
-    want = (3, 0, 0, 0, 0) if pool_dtype == "bf16" else (reruns, 0, 3, 0, 0)
+    want = {"bf16": (3, 0, 0, 0, 0, 0), "int8": (reruns, 0, 3, 0, 0, 0), "int8_bucket": (reruns, 0, 0, 0, 3, 0)}[pool_dtype]
     assert tuple(launched) == want
     assert _same_ids_up_to_ties(ids, ref_ids, ref_scores)
     np.testing.assert_allclose(scores, ref_scores, rtol=0, atol=1e-4)

@@ -52,7 +52,9 @@ SIGNATURES = {
         "uniir_int8_mlp": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _P),
     },
     "preprocess": {
-        "uniir_fused_preprocess": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+        "uniir_fused_preprocess": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F,
+                                   _P),
+        "uniir_fused_preprocess_dense": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -60,6 +62,7 @@ SIGNATURES = {
         "uniir_bucket_max_bf16_general": (_P, _P, _P, _I, _I, _I, _I, _P),
         "uniir_bucket_max_i8_general": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "uniir_bucket_max_i8b": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "uniir_bucket_max_i8b_general": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
 }
 

@@ -36,13 +36,14 @@
 // read from L2 Q/T times over: with the general kernels' 64-query tiles,
 // 138 GB at Q = 1024 for K2, far more than the L2 gives in 8.9 ms.
 //
-// Design of K2 and K4 (bucket_max_wgmma_kernel, one template; SweepOf holds
-// what differs):
+// Design of K2, K4 and K11 (bucket_max_wgmma_kernel, one template; SweepOf
+// holds what differs):
 //   * a block holds its queries for its life, loaded once by TMA into shared
 //     memory (K-major, 128-byte swizzle: 64 bf16 queries or 128 int8 ones,
 //     96 KB each at D = 768), and walks pool chunks blockIdx.y, + gridDim.y,
 //     ...: a persistent grid, one wave of clusters spread over the query
-//     tiles, so the tiles of a chunk run side by side and share its L2 lines;
+//     tiles, so the tiles of a chunk run side by side and share its L2 lines
+//     (K11's block holds 128 int8 queries, as K4's);
 //   * one producer thread keeps a ring of pool stages full with TMA (a stage
 //     is SLABS slabs x 128 bytes of k; slab m of chunk c is rows c*2048 +
 //     m*128 + 0..127, whose products land in the same accumulator layout for
@@ -53,22 +54,27 @@
 //   * the consumers multiply with wgmma, both operands from shared memory:
 //     K2 one warpgroup on m64n256k16 over two slabs (A read once for 256
 //     rows: shared memory, not the tensor cores, bounds a bf16 sweep with
-//     64-row A tiles), K4 two warpgroups of 64 queries on m64n128k32 s8;
+//     64-row A tiles), K4 and K11 two warpgroups of 64 queries on m64n128k32
+//     s8;
 //   * the strided-bucket maximum is elementwise over the slabs' equal
 //     accumulator layouts.  K4 alternates two accumulator sets: slab m + 1's
 //     first products are issued before slab m is folded (convert, two
 //     rounded multiplies), so the fold runs under the tensor cores; nothing
 //     is in flight across a loop's back edge (ptxas serialises every wgmma
-//     otherwise).  Only a chunk that reaches valid_n selects -3e38;
+//     otherwise).  K11 alternates two sets as K4, folds with one integer max
+//     an accumulator into int32 maxima and has no per-row scale stream (see
+//     SweepOf<I8Bucket>).  Only a chunk that reaches valid_n selects -3e38
+//     (K11: the int32 sentinel);
 //   * a chunk's maxima go straight from registers to device memory as
 //     16-byte vectors, each pair of neighbouring threads swapping one pair
-//     of columns with a shuffle.
+//     of columns with a shuffle; K11 dequantises each maximum on the way,
+//     with the chunk's 128 bucket scales read from L1 / L2.
 // The wgmma kernel takes the widths whose query tile leaves a ring of at
 // least 4 stages: bf16 D % 32 == 0 up to 768, int8 D % 64 == 0 up to 1152
 // (UNIIR_SWEEP_MAX_D_*, set in _build.py::DEFINES and read by
 // ops/topk.py::sweep_route).  Wider pools go to the general kernels below
 // (a block per 64 queries x one chunk, 8 warps of mma.sync fed straight from
-// device memory), whose design K11 keeps.
+// device memory), the sweeps' first design.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -119,7 +125,7 @@ __device__ __forceinline__ void store_maxima(float* out, const float (&mx)[4][2]
   }
 }
 
-// The general kernels (and K11): one block per (query tile of 64, pool chunk), query tiles of one chunk
+// The general kernels: one block per (query tile of 64, pool chunk), query tiles of one chunk
 // launched next to each other so repeated chunk reads hit L2.  The query tile sits in shared memory; each
 // of 8 warps owns 16 bucket lanes (two n8 tiles) and walks the 16 bucket members m, loading pool rows
 // straight from global memory as 16-byte vectors into mma.sync B fragments.  Because a dot product does not
@@ -339,7 +345,7 @@ bucket_max_i8b_kernel(const int8_t* __restrict__ queries, const float* __restric
   }
 }
 
-// ------------------------------------------------ K2 / K4: the wgmma sweep
+// ------------------------------------------ K2 / K4 / K11: the wgmma sweep
 
 constexpr int SWEEP_MAX_STAGES = 8;
 constexpr int SWEEP_MIN_STAGES = 4;       // the ring every width the wgmma kernel takes leaves at least
@@ -389,26 +395,42 @@ __device__ __forceinline__ void wgmma_m64n256k16_bf16_ss(float* d, uint64_t a_de
 //   K2 (bf16, 64 queries, one warpgroup, m64n256 over two slabs): 144 B a clock (two warpgroups on m64n64
 //       halves would need 192, which holds the tensor cores to 67 %);
 //   K4 (int8, 128 queries, two warpgroups on m64n128): 128 B a clock, and registers for two accumulator
-//       sets, so the dequantising fold of one slab runs under the next slab's products.
-template <class T>
+//       sets, so the dequantising fold of one slab runs under the next slab's products;
+//   K11 (int8 with one scale a bucket; tag I8Bucket): K4's shape and two accumulator sets, with int32 maxima
+//       (Max = int), no per-row scale stream (SCALED = false) and the dequantisation at the store (BUCKET),
+//       the chunk's bucket scales read there from L1 / L2.  On an H100 both alternatives were slower at 1024
+//       queries: one accumulator set, as K2 (its fold is as short), and the bucket scales streamed into
+//       shared memory a chunk at a time, as K4's row scales.
+// Elem is the pool's element type.
+struct I8Bucket {};
+template <class Tag>
 struct SweepOf;
 template <>
 struct SweepOf<bf16> {
+  using Elem = bf16;
   using Acc = float;
+  using Max = float;
   static constexpr int QROWS = 64, CONSUMERS = 1, SLABS = 2, CLUSTER = 2, MAX_D = UNIIR_SWEEP_MAX_D_BF16;
   static constexpr int STAGE = SLABS * LANES * 128, THREADS = 128 * (CONSUMERS + 1);
-  static constexpr bool SCALED = false, TWO_ACC = false;
+  static constexpr bool SCALED = false, TWO_ACC = false, BUCKET = false;
   __device__ static void mma(float* d, uint64_t a, uint64_t b, int scale_d) { wgmma_m64n256k16_bf16_ss(d, a, b, scale_d); }
   __device__ static void fence_acc(float* d) { uniir::wgmma_fence_regs<128>(d); }
 };
 template <>
 struct SweepOf<int8_t> {
+  using Elem = int8_t;
   using Acc = int;
+  using Max = float;
   static constexpr int QROWS = 128, CONSUMERS = 2, SLABS = 1, CLUSTER = 1, MAX_D = UNIIR_SWEEP_MAX_D_I8;
   static constexpr int STAGE = SLABS * LANES * 128, THREADS = 128 * (CONSUMERS + 1);
-  static constexpr bool SCALED = true, TWO_ACC = true;
+  static constexpr bool SCALED = true, TWO_ACC = true, BUCKET = false;
   __device__ static void mma(int* d, uint64_t a, uint64_t b, int scale_d) { uniir::wgmma_m64n128k32_s8(d, a, b, scale_d); }
   __device__ static void fence_acc(int* d) { uniir::wgmma_fence_iregs<64>(d); }
+};
+template <>
+struct SweepOf<I8Bucket> : SweepOf<int8_t> {
+  using Max = int;
+  static constexpr bool SCALED = false, BUCKET = true;
 };
 
 // Shared-memory plan of a launch (the same on host and device): the query tile as `kb` boxes of QROWS rows x
@@ -416,11 +438,11 @@ struct SweepOf<int8_t> {
 struct SweepPlan {
   int kb, stages, smem;
 };
-template <class T>
+template <class Tag>
 __host__ __device__ constexpr SweepPlan sweep_plan(int D) {
-  using S = SweepOf<T>;
+  using S = SweepOf<Tag>;
   constexpr int STAGE = S::STAGE;
-  const int kb = (D * (int)sizeof(T) + 127) / 128;
+  const int kb = (D * (int)sizeof(typename S::Elem) + 127) / 128;
   const int fixed = 1024 + kb * S::QROWS * 128 + (S::SCALED ? 2 * CHUNK * 4 : 0) + SWEEP_BARRIER_BYTES;
   int stages = (SWEEP_SMEM_LIMIT - fixed) / STAGE;
   stages = stages > SWEEP_MAX_STAGES ? SWEEP_MAX_STAGES : stages;
@@ -430,6 +452,7 @@ __host__ __device__ constexpr SweepPlan sweep_plan(int D) {
 // ops/topk.py::sweep_route reads too; here it is held to the ring it must leave.
 static_assert(sweep_plan<bf16>(SweepOf<bf16>::MAX_D).stages >= SWEEP_MIN_STAGES, "bf16 MAX_D leaves too short a ring");
 static_assert(sweep_plan<int8_t>(SweepOf<int8_t>::MAX_D).stages >= SWEEP_MIN_STAGES, "int8 MAX_D leaves too short a ring");
+static_assert(sweep_plan<I8Bucket>(SweepOf<I8Bucket>::MAX_D).stages >= SWEEP_MIN_STAGES, "int8 MAX_D leaves too short a ring");
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -520,10 +543,11 @@ struct RingCursor {
 // row 16 warp + g + 8 h of the warpgroup's 64 and stage row 8 j + 2 q + e, that is slab j / 16, bucket lane
 // 8 (j % 16) + 2 q + e, whose running maximum is mx[4 (j % 16) + 2 h + e]; its pool row is row0 + the stage
 // row.  K4 dequantises first, (float(acc) * q_scale) * pool_scale, each multiply rounded on its own; MASK
-// selects -3e38 for rows >= valid_n (only in a chunk that reaches valid_n).
+// selects -3e38 for rows >= valid_n (only in a chunk that reaches valid_n).  K11 (BUCKET) takes the int32
+// maximum of the raw accumulators, the sentinel for rows >= valid_n.
 template <class S, bool MASK>
-__device__ __forceinline__ void fold_slabs(float* mx, const typename S::Acc* acc, int row0, int valid_n, int q,
-                                           const float* slab_scale, const float* qs) {
+__device__ __forceinline__ void fold_slabs(typename S::Max* mx, const typename S::Acc* acc, int row0, int valid_n,
+                                           int q, const float* slab_scale, const float* qs) {
 #pragma unroll
   for (int j = 0; j < S::SLABS * LANES / 8; ++j) {
     float2 ps = make_float2(1.f, 1.f);
@@ -533,30 +557,38 @@ __device__ __forceinline__ void fold_slabs(float* mx, const typename S::Acc* acc
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int i = 4 * j + 2 * h + e;
-        float v;
-        if constexpr (S::SCALED)
-          v = __fmul_rn(__fmul_rn((float)acc[i], qs[h]), e ? ps.y : ps.x);
-        else
-          v = acc[i];
-        if constexpr (MASK) v = row0 + 8 * j + 2 * q + e < valid_n ? v : NEG;
-        mx[i % 64] = fmaxf(mx[i % 64], v);
+        if constexpr (S::BUCKET) {
+          int v = acc[i];
+          if constexpr (MASK) v = row0 + 8 * j + 2 * q + e < valid_n ? v : SENTINEL;
+          mx[i % 64] = max(mx[i % 64], v);
+        } else {
+          float v;
+          if constexpr (S::SCALED)
+            v = __fmul_rn(__fmul_rn((float)acc[i], qs[h]), e ? ps.y : ps.x);
+          else
+            v = acc[i];
+          if constexpr (MASK) v = row0 + 8 * j + 2 * q + e < valid_n ? v : NEG;
+          mx[i % 64] = fmaxf(mx[i % 64], v);
+        }
       }
   }
 }
 
-template <class T>
-__global__ void __cluster_dims__(SweepOf<T>::CLUSTER, 1, 1) __launch_bounds__(SweepOf<T>::THREADS, 1)
+// pool_scale: K4's [N] row scales, K11's [N / 16] bucket scales (indexed like the output columns), K2 none.
+template <class Tag>
+__global__ void __cluster_dims__(SweepOf<Tag>::CLUSTER, 1, 1) __launch_bounds__(SweepOf<Tag>::THREADS, 1)
 bucket_max_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_pool,
                         const float* __restrict__ q_scale, const float* __restrict__ pool_scale,
                         float* __restrict__ out, int Q, int NB, int valid_n, int n_chunks, int kb_count, int stages) {
-  using S = SweepOf<T>;
+  using S = SweepOf<Tag>;
   using Acc = typename S::Acc;
+  using Max = typename S::Max;
   constexpr int NACC = S::SLABS * LANES / 2;  // accumulators a thread, 64 of them a slab
   constexpr int STAGE = S::STAGE;  // SLABS slabs' rows x 128 bytes of k
   constexpr int PRODUCER = 128 * S::CONSUMERS;  // the thread that issues every load
   constexpr int QBOX = S::QROWS * 128;
   constexpr int SCALE_BYTES = S::SCALED ? 2 * CHUNK * 4 : 0;
-  constexpr int K_STEP = 128 / (int)sizeof(T);  // elements of k a stage
+  constexpr int K_STEP = 128 / (int)sizeof(typename S::Elem);  // elements of k a stage
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -627,7 +659,7 @@ bucket_max_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
     const int r_lo = q0 + 64 * wg + 16 * warp + g;  // this thread's query rows: r_lo and r_lo + 8
     float qs[2] = {1.f, 1.f};
-    if constexpr (S::SCALED) {
+    if constexpr (S::SCALED || S::BUCKET) {
       qs[0] = r_lo < Q ? q_scale[r_lo] : 1.f;
       qs[1] = r_lo + 8 < Q ? q_scale[r_lo + 8] : 1.f;
     }
@@ -637,7 +669,7 @@ bucket_max_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_
     uniir::mbar_wait(qfull, 0);
 
     Acc acc_a[NACC], acc_b[S::TWO_ACC ? NACC : 1];
-    float mx[64];
+    Max mx[64];
 #pragma unroll
     for (int i = 0; i < NACC; ++i) acc_a[i] = 0;
 #pragma unroll
@@ -648,7 +680,12 @@ bucket_max_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_
       const float* sc = scales + (ci & 1) * CHUNK;
       if constexpr (S::SCALED) uniir::mbar_wait(&sfull[ci & 1], (ci >> 1) & 1);
 #pragma unroll
-      for (int i = 0; i < 64; ++i) mx[i] = -INFINITY;
+      for (int i = 0; i < 64; ++i) {
+        if constexpr (S::BUCKET)
+          mx[i] = SENTINEL;
+        else
+          mx[i] = -INFINITY;
+      }
       auto fold = [&](const Acc* acc, int m) {
         const int row0 = c * CHUNK + m * LANES;
         if (masked)
@@ -687,8 +724,24 @@ bucket_max_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_
       }
       if constexpr (S::SCALED) arrive_warp(&sempty[ci & 1]);
 
-      // the chunk's maxima of each row: the quad's threads q and q ^ 1 swap one column pair, so each holds
-      // four neighbouring columns (n8 tile j for even q, j + 1 for odd q) and writes one 16-byte vector
+      // the chunk's maxima of row h's columns 8 j + 2 q + {0, 1}; K11 dequantises each, (float(max) *
+      // q_scale) * bucket_scale, each multiply rounded on its own, and writes NEG for a bucket whose first
+      // member (row c * CHUNK + its column) is >= valid_n: a dequantised sentinel could outrank true scores
+      const float* bucket_scale = pool_scale + (size_t)c * LANES;
+      auto pair = [&](int j, int h) -> float2 {
+        const int i = 4 * j + 2 * h;
+        if constexpr (S::BUCKET) {
+          const int col = 8 * j + 2 * q;
+          const float2 bs = __ldg(reinterpret_cast<const float2*>(bucket_scale + col));
+          const bool ok0 = c * CHUNK + col < valid_n, ok1 = c * CHUNK + col + 1 < valid_n;
+          return make_float2(ok0 ? __fmul_rn(__fmul_rn((float)mx[i], qs[h]), bs.x) : NEG,
+                             ok1 ? __fmul_rn(__fmul_rn((float)mx[i + 1], qs[h]), bs.y) : NEG);
+        } else {
+          return make_float2(mx[i], mx[i + 1]);
+        }
+      };
+      // the quad's threads q and q ^ 1 swap one column pair, so each holds four neighbouring columns (n8 tile j
+      // for even q, j + 1 for odd q) and writes one 16-byte vector
       const bool odd = q & 1;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -696,8 +749,8 @@ bucket_max_wgmma_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_
         float* dst = out + (size_t)row * NB + (size_t)c * LANES + 2 * (q & ~1);
 #pragma unroll
         for (int j = 0; j < LANES / 8; j += 2) {
-          const float2 a = make_float2(mx[4 * j + 2 * h], mx[4 * j + 2 * h + 1]);
-          const float2 b = make_float2(mx[4 * j + 4 + 2 * h], mx[4 * j + 4 + 2 * h + 1]);
+          const float2 a = pair(j, h);
+          const float2 b = pair(j + 1, h);
           const float2 send = odd ? a : b;
           const float rx = __shfl_xor_sync(0xffffffffu, send.x, 1), ry = __shfl_xor_sync(0xffffffffu, send.y, 1);
           const float4 v = odd ? make_float4(rx, ry, b.x, b.y) : make_float4(a.x, a.y, rx, ry);
@@ -725,18 +778,19 @@ inline bool encode_sweep_map(CUtensorMap* map, const void* base, int rows, int c
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <class T>
+template <class Tag>
 cudaError_t launch_sweep(const void* queries, const float* q_scale, const void* pool, const float* pool_scale,
                          void* out, int Q, int N, int D, int valid_n, cudaStream_t stream) {
-  using S = SweepOf<T>;
+  using S = SweepOf<Tag>;
+  using T = typename S::Elem;
   if (D > S::MAX_D) return cudaErrorInvalidValue;  // the general kernels take this width
-  const SweepPlan plan = sweep_plan<T>(D);
+  const SweepPlan plan = sweep_plan<Tag>(D);
   if (Q == 0) return cudaSuccess;
   CUtensorMap map_q, map_pool;
   if (!encode_sweep_map<T>(&map_q, queries, Q, D, S::QROWS) ||
       !encode_sweep_map<T>(&map_pool, pool, N, D, S::SLABS * LANES / S::CLUSTER))
     return cudaErrorInvalidValue;
-  const auto kernel = bucket_max_wgmma_kernel<T>;
+  const auto kernel = bucket_max_wgmma_kernel<Tag>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
   if (err != cudaSuccess) return err;
   const int tiles = (Q + S::CLUSTER * S::QROWS - 1) / (S::CLUSTER * S::QROWS) * S::CLUSTER;
@@ -804,10 +858,18 @@ int uniir_bucket_max_i8_general(const void* queries, const void* q_scale, const 
   return (int)cudaGetLastError();
 }
 
-// K11: as uniir_bucket_max_i8_general with one scale per strided bucket:
-// bucket_scale [N/16] fp32, indexed like the output columns.
+// K11: as uniir_bucket_max_i8 with one scale per strided bucket: bucket_scale [N/16] fp32, indexed like the
+// output columns.
 int uniir_bucket_max_i8b(const void* queries, const void* q_scale, const void* pool, const void* bucket_scale,
                          void* out, int Q, int N, int D, int valid_n, void* stream) {
+  return (int)launch_sweep<I8Bucket>(queries, static_cast<const float*>(q_scale), pool,
+                                     static_cast<const float*>(bucket_scale), out, Q, N, D, valid_n,
+                                     (cudaStream_t)stream);
+}
+
+// K11's general-width kernel: as uniir_bucket_max_i8b for any D % 64 == 0.
+int uniir_bucket_max_i8b_general(const void* queries, const void* q_scale, const void* pool, const void* bucket_scale,
+                                 void* out, int Q, int N, int D, int valid_n, void* stream) {
   const int smem = QT * (D + PAD_BYTES);
   cudaError_t err = cudaFuncSetAttribute(bucket_max_i8b_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

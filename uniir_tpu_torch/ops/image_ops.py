@@ -13,13 +13,19 @@ separable, `out = A_h @ img @ A_w^T`, with the interpolation matrices of
     `pallas_fused_preprocess`) on a CUDA tensor, its plain twin
     `fused_preprocess_reference` on a CPU tensor.  Both follow the Pallas
     body's arithmetic: multiply by 1/255, two fp32 products, subtract the
-    mean, multiply by 1/std.
+    mean, multiply by 1/std.  On the card `preprocess_route` picks the
+    kernel: the band kernel, which does only the non-zero taps of
+    `resize_band`'s form of the matrices, or where its strip does not fit
+    in shared memory the dense kernel (`fused_preprocess_dense`, its own
+    launch count), which multiplies the whole matrices; the two are
+    bit-equal.
   * `preprocess_reference_numpy`: the matrix-resize reference for tests.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +34,8 @@ from uniir_tpu_torch import _build
 from uniir_tpu_torch.data.preprocess import CLIP_MEAN, CLIP_STD
 
 MAX_SMEM_BYTES = 232448  # opt-in shared memory per block on sm_90
-STRIP_ROWS = 32  # output rows per block of K7 (R in csrc/preprocess.cu)
+BAND_ROWS = 4  # output rows per block of the band kernel (BAND_R in csrc/preprocess.cu)
+DENSE_ROWS = 32  # output rows per block of the dense kernel (DR there)
 OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -102,6 +109,77 @@ def _matrices(H: int, W: int, out_size: int, method: str, device: str, transpose
     return tuple(torch.from_numpy(np.ascontiguousarray(m.T if transposed else m)).to(device) for m in mats)
 
 
+@lru_cache(maxsize=64)
+def resize_band(src: int, dst: int, method: str = "bilinear") -> Tuple[np.ndarray, np.ndarray]:
+    """`resize_matrix(src, dst, method)` as a band: (first int32 [dst],
+    weights fp32 [dst, taps]) with A[i, first[i] + j] = weights[i, j] and
+    every other entry of A zero.  The windows never step back (`first` is
+    non-decreasing), so a strip of rows reads from its first row's window to
+    its last row's: a row starts at its first non-zero entry, or at a later
+    row's start where that lies earlier (an upscale whose output centre lands
+    on a source pixel has an exact zero first tap, and the next row starts
+    one source row earlier), or earlier still where its window would run past
+    the last source index.  `taps` is the least width that covers every row's
+    non-zero entries from there, so every window lies inside [0, src).  The
+    weights are copied from the matrix: expanding the band gives it back bit
+    for bit."""
+    A = resize_matrix(src, dst, method)
+    nonzero = A != 0
+    lo = np.minimum.accumulate(nonzero.argmax(axis=1)[::-1])[::-1]
+    hi = src - nonzero[:, ::-1].argmax(axis=1)
+    taps = int((hi - lo).max())
+    first = np.minimum(lo, src - taps).astype(np.int32)
+    weights = np.take_along_axis(A, first[:, None] + np.arange(taps)[None, :], axis=1)
+    return first, np.ascontiguousarray(weights)
+
+
+@lru_cache(maxsize=64)
+def band_rows_in(src: int, dst: int, method: str) -> int:
+    """The most source rows a band-kernel block (BAND_ROWS output rows) reads:
+    from its first row's window start to its last row's window end."""
+    first, weights = resize_band(src, dst, method)
+    last = np.minimum(np.arange(0, dst, BAND_ROWS) + BAND_ROWS, dst) - 1
+    return int((first[last] + weights.shape[1] - first[::BAND_ROWS]).max())
+
+
+def band_smem_bytes(H: int, W: int, out_size: int, method: str) -> int:
+    """Shared memory of a band-kernel block (csrc/preprocess.cu:
+    band_smem_bytes) with fp32 output: the strip's source rows as bytes or
+    its staged output rows, whichever is larger, and the [BAND_ROWS, W * 3]
+    fp32 intermediate; a row of bytes padded to a word, the first region to
+    16 bytes."""
+    cs = -(-W * 3 // 4) * 4
+    strip = max(band_rows_in(H, out_size, method) * cs, BAND_ROWS * out_size * 3 * 4)
+    return -(-strip // 16) * 16 + BAND_ROWS * cs * 4
+
+
+def dense_smem_bytes(H: int, W: int) -> int:
+    """Shared memory of a dense-kernel block: a strip of A_h^T, the [W, 36]
+    intermediate strip and the uint8 plane of one channel."""
+    return (H * DENSE_ROWS + W * (DENSE_ROWS + 4)) * 4 + H * W
+
+
+def preprocess_route(H: int, W: int, out_size: int, method: str) -> Optional[str]:
+    """The K7 kernel a CUDA call at these sizes launches: "band" where the
+    band kernel's strip fits in a block's shared memory, else "dense" where
+    the dense kernel's does, else None (no kernel takes the shape)."""
+    if band_smem_bytes(H, W, out_size, method) <= MAX_SMEM_BYTES:
+        return "band"
+    if dense_smem_bytes(H, W) <= MAX_SMEM_BYTES:
+        return "dense"
+    return None
+
+
+@lru_cache(maxsize=16)
+def _bands(H: int, W: int, out_size: int, method: str, device: str):
+    """(first_h, w_h, first_w, w_w) of `resize_band` on `device`, for the band kernel."""
+    tensors = []
+    for src in (H, W):
+        first, weights = resize_band(src, out_size, method)
+        tensors += [torch.from_numpy(first).to(device), torch.from_numpy(weights).to(device)]
+    return tuple(tensors)
+
+
 def _check_images(images_u8: torch.Tensor, out_dtype: torch.dtype) -> None:
     if images_u8.dim() != 4 or images_u8.shape[3] != 3 or images_u8.dtype != torch.uint8:
         raise ValueError(f"images must be uint8 [B, H, W, 3], got {images_u8.dtype} {tuple(images_u8.shape)}")
@@ -154,33 +232,69 @@ def fused_preprocess(
     images_u8: torch.Tensor, out_size: int = 224, method: str = "bilinear", out_dtype: torch.dtype = torch.float32
 ) -> torch.Tensor:
     """Fused convert + resize + normalise, uint8 NHWC in, NHWC `out_dtype`
-    out: K7 on a CUDA tensor (or it raises), the twin on a CPU tensor."""
+    out: K7 on a CUDA tensor, through the kernel `preprocess_route` picks
+    (or it raises), the twin on a CPU tensor."""
     _check_images(images_u8, out_dtype)
     if images_u8.device.type == "cpu":
         return fused_preprocess_reference(images_u8, out_size, method, out_dtype)
+    _, H, W, _ = images_u8.shape
+    route = preprocess_route(H, W, out_size, method)
+    if route is None:
+        raise ValueError(f"no K7 kernel takes {H} x {W} -> {out_size} ({method}): its strip needs more shared "
+                         f"memory than one block has")
+    return _launch(images_u8, out_size, method, out_dtype, route)
+
+
+def fused_preprocess_dense(
+    images_u8: torch.Tensor, out_size: int = 224, method: str = "bilinear", out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """K7's dense kernel: what `fused_preprocess` launches where
+    `preprocess_route` says "dense".  It takes the band kernel's shapes too,
+    which is how the two are timed side by side; the twin on a CPU tensor."""
+    _check_images(images_u8, out_dtype)
+    if images_u8.device.type == "cpu":
+        return fused_preprocess_reference(images_u8, out_size, method, out_dtype)
+    _, H, W, _ = images_u8.shape
+    if dense_smem_bytes(H, W) > MAX_SMEM_BYTES:
+        raise ValueError(f"a {H} x {W} plane needs {dense_smem_bytes(H, W)} bytes of shared memory, more than one block has")
+    return _launch(images_u8, out_size, method, out_dtype, "dense")
+
+
+def _launch(images_u8: torch.Tensor, out_size: int, method: str, out_dtype: torch.dtype, route: str) -> torch.Tensor:
+    """Launch K7's `route` kernel ("band" or "dense") on a CUDA batch and
+    count it on its wrapper."""
     if not images_u8.is_cuda or not images_u8.is_contiguous():
-        raise ValueError(f"fused_preprocess takes a contiguous CUDA or CPU tensor, got one on {images_u8.device}")
+        raise ValueError(f"K7 takes a contiguous CUDA or CPU tensor, got one on {images_u8.device}")
     B, H, W, _ = images_u8.shape
-    smem = (H * STRIP_ROWS + W * (STRIP_ROWS + 4)) * 4 + H * W
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"a {H} x {W} plane needs {smem} bytes of shared memory, more than one block has")
     if not 0 < B <= 65535:
         raise ValueError(f"batch {B} outside the launch grid (1..65535)")
-    ahT, awT = _matrices(H, W, out_size, method, str(images_u8.device), True)
+    device = str(images_u8.device)
     inv255, mean, inv_std = _norm_constants()
     lib = _build.load("preprocess")
     out = torch.empty((B, out_size, out_size, 3), dtype=out_dtype, device=images_u8.device)
-    err = lib.uniir_fused_preprocess(
-        images_u8.data_ptr(), ahT.data_ptr(), awT.data_ptr(), out.data_ptr(), B, H, W, out_size,
-        int(out_dtype == torch.bfloat16), inv255, *mean, *inv_std,
-        torch.cuda.current_stream(images_u8.device).cuda_stream,
-    )
-    _build.check(lib, err, "fused preprocess kernel")
-    fused_preprocess.launches += 1
+    bf16, stream = int(out_dtype == torch.bfloat16), torch.cuda.current_stream(images_u8.device).cuda_stream
+    if route == "band":
+        first_h, w_h, first_w, w_w = _bands(H, W, out_size, method, device)
+        err = lib.uniir_fused_preprocess(
+            images_u8.data_ptr(), first_h.data_ptr(), w_h.data_ptr(), first_w.data_ptr(), w_w.data_ptr(),
+            out.data_ptr(), B, H, W, out_size, w_h.shape[1], w_w.shape[1], band_rows_in(H, out_size, method), bf16,
+            inv255, *mean, *inv_std, stream,
+        )
+        wrapper = fused_preprocess
+    else:
+        ahT, awT = _matrices(H, W, out_size, method, device, True)
+        err = lib.uniir_fused_preprocess_dense(
+            images_u8.data_ptr(), ahT.data_ptr(), awT.data_ptr(), out.data_ptr(), B, H, W, out_size, bf16, inv255,
+            *mean, *inv_std, stream,
+        )
+        wrapper = fused_preprocess_dense
+    _build.check(lib, err, f"fused preprocess {route} kernel")
+    wrapper.launches += 1
     return out
 
 
 fused_preprocess.launches = 0
+fused_preprocess_dense.launches = 0
 
 
 def preprocess_reference_numpy(images_u8: np.ndarray, out_size: int = 224, method: str = "bilinear") -> np.ndarray:

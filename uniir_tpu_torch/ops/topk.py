@@ -11,11 +11,11 @@ Counterpart of `uniir_tpu/ops/topk_pallas.py` (and the numpy helpers of
      (`quantize_pool(per_bucket=True)`) K11 (`bucket_max_scores_i8b`, which
      takes the bucket maximum in int32 and dequantises only the maxima;
      `bucket_max_scores_i8` hands over to it by the shape of the scales); on
-     a CPU tensor each runs its plain PyTorch twin.  K2 and K4 launch the
-     TMA-fed `wgmma` kernel at the widths `sweep_route` gives it and their
-     general-width kernels (`bucket_max_scores_general`,
-     `bucket_max_scores_i8_general`, each with its own launch count) at the
-     rest;
+     a CPU tensor each runs its plain PyTorch twin.  K2, K4 and K11 launch
+     the TMA-fed `wgmma` kernel at the widths `sweep_route` gives it and
+     their general-width kernels (`bucket_max_scores_general`,
+     `bucket_max_scores_i8_general`, `bucket_max_scores_i8b_general`, each
+     with its own launch count) at the rest;
   2. a plain-torch epilogue (`topk`): hierarchical top-k over the maxima,
      gather of the selected buckets' rows, fp32-accumulated rescore against
      the bf16 pool, final top-k and, for int8, the certainty guard.
@@ -194,16 +194,16 @@ def bucket_max_scores_i8b_reference(
     """Plain twin of K11 (`_bucket_max_kernel_i8b`): int8 dot products, rows
     >= valid_n set to the int32 sentinel -(2^31 - 1), the bucket maximum in
     int32, then (max * q_scale) * bucket_scale; a bucket whose first member
-    is >= valid_n scores NEG."""
+    is >= valid_n scores NEG.  The products are summed in fp32 where it
+    holds them exactly (D * 127^2 < 2^24, D <= 1040), else in fp64."""
     N, D = pool_q.shape
-    if D * 127 * 127 >= 2**24:
-        raise ValueError(f"fp32 cannot hold int8 dot products of width {D} exactly")
+    exact = torch.float32 if D * 127 * 127 < 2**24 else torch.float64
     valid_n = N if valid_n is None else valid_n
-    qf = q_q.float()
+    qf = q_q.to(exact)
     Q = qf.shape[0]
     out = []
     for r0 in range(0, N, ROWS_PER_STEP):
-        acc = (qf @ pool_q[r0 : r0 + ROWS_PER_STEP].float().T).to(torch.int32)  # exact integers
+        acc = (qf @ pool_q[r0 : r0 + ROWS_PER_STEP].to(exact).T).to(torch.int32)  # exact integers
         n = acc.shape[1]
         rows = torch.arange(r0, r0 + n, device=acc.device)
         acc = torch.where(rows < valid_n, acc, -(2**31 - 1))
@@ -230,7 +230,7 @@ def _check_sweep_args(queries: torch.Tensor, pool: torch.Tensor, valid_n: int, d
 
 
 def sweep_route(dtype: torch.dtype, D: int) -> Optional[str]:
-    """The K2 (bf16) / K4 (int8) kernel a CUDA sweep of this width
+    """The K2 (bf16) / K4 and K11 (int8) kernel a CUDA sweep of this width
     launches: "wgmma" (the TMA-fed kernel, whose query tile stays in shared
     memory: bf16 D <= 768, int8 D <= 1152), "general" (the mma.sync kernel
     fed straight from device memory, any wider multiple of 32 / 64), or None
@@ -240,11 +240,15 @@ def sweep_route(dtype: torch.dtype, D: int) -> Optional[str]:
     return "wgmma" if D <= WGMMA_MAX_D[dtype] else "general"
 
 
-def _sweep_kernel(dtype: torch.dtype, D: int, general: bool):
-    """The C entry a K2 / K4 launch of width D calls and the wrapper whose
-    count it moves: the kernel `sweep_route` picks, or with `general` the
-    general-width one."""
-    return _SWEEP_KERNELS[dtype, "general" if general else sweep_route(dtype, D)]
+# each sweep by the pool it reads (the names of `UNIIR_TOPK_POOL`) and that pool's element type
+_POOL_DTYPE = {"bf16": torch.bfloat16, "int8": torch.int8, "int8_bucket": torch.int8}
+
+
+def _sweep_kernel(pool: str, D: int, general: bool):
+    """The C entry a K2 ("bf16") / K4 ("int8") / K11 ("int8_bucket") launch
+    of width D calls and the wrapper whose count it moves: the kernel
+    `sweep_route` picks, or with `general` the general-width one."""
+    return _SWEEP_KERNELS[pool, "general" if general else sweep_route(_POOL_DTYPE[pool], D)]
 
 
 def _bf16_sweep(queries: torch.Tensor, pool: torch.Tensor, valid_n: Optional[int], general: bool) -> torch.Tensor:
@@ -256,7 +260,7 @@ def _bf16_sweep(queries: torch.Tensor, pool: torch.Tensor, valid_n: Optional[int
     queries = queries.to(torch.bfloat16).contiguous()
     _check_sweep_args(queries, pool, valid_n, torch.bfloat16, D_MULTIPLE[torch.bfloat16])
     Q, D = queries.shape
-    entry, counter = _sweep_kernel(torch.bfloat16, D, general)
+    entry, counter = _sweep_kernel("bf16", D, general)
     out = torch.empty((Q, N // GROUP), dtype=torch.float32, device=pool.device)
     lib = _build.load("topk")
     err = getattr(lib, entry)(
@@ -286,15 +290,20 @@ bucket_max_scores_general.launches = 0
 
 
 def _int8_sweep(queries: torch.Tensor, pool_q: torch.Tensor, scale: torch.Tensor, valid_n: Optional[int],
-                query_quant: Optional[Tuple[torch.Tensor, torch.Tensor]], general: bool) -> torch.Tensor:
+                query_quant: Optional[Tuple[torch.Tensor, torch.Tensor]], general: bool,
+                pool: Optional[str] = None) -> torch.Tensor:
     """What K4 and K11 share: take the queries' int8 values and scales from
     `query_quant`, or quantise them with `quantize_queries`, run the twin on
-    a CPU pool, else check the arguments and launch.  `scale` holds one fp32
-    value per row (K4, through `_sweep_kernel`) or per bucket (K11); its
-    length tells which."""
+    a CPU pool, else check the arguments and launch through `_sweep_kernel`.
+    `scale` holds one fp32 value per row (K4) or per bucket (K11); its
+    length tells which, and must agree with `pool` ("int8" or
+    "int8_bucket") where the caller names it."""
     N = pool_q.shape[0]
     valid_n = N if valid_n is None else int(valid_n)
     per_bucket = scale.shape == (N // GROUP,)
+    if pool is not None and per_bucket != (pool == "int8_bucket"):
+        want = N // GROUP if pool == "int8_bucket" else N
+        raise ValueError(f"the {pool} sweep takes [{want}] scales, got {tuple(scale.shape)}")
     q_q, q_scale = quantize_queries(queries) if query_quant is None else query_quant
     if pool_q.device.type == "cpu":
         reference = bucket_max_scores_i8b_reference if per_bucket else bucket_max_scores_i8_reference
@@ -306,8 +315,7 @@ def _int8_sweep(queries: torch.Tensor, pool_q: torch.Tensor, scale: torch.Tensor
         raise ValueError(f"the pool's scales must be a contiguous, 16-byte aligned fp32 [{N}] (one per row) or "
                          f"[{N // GROUP}] (one per bucket) tensor on {pool_q.device}")
     Q, D = q_q.shape
-    entry, wrapper = ("uniir_bucket_max_i8b", bucket_max_scores_i8b) if per_bucket else _sweep_kernel(
-        torch.int8, D, general)
+    entry, wrapper = _sweep_kernel("int8_bucket" if per_bucket else "int8", D, general)
     out = torch.empty((Q, N // GROUP), dtype=torch.float32, device=pool_q.device)
     lib = _build.load("topk")
     err = getattr(lib, entry)(
@@ -339,9 +347,7 @@ def bucket_max_scores_i8_general(
     """K4's general-width kernel (per-row scales): what
     `bucket_max_scores_i8` launches where `sweep_route` says "general"; it
     takes the narrower widths too."""
-    if pool_scale.shape != (pool_q.shape[0],):
-        raise ValueError(f"K4 takes one scale per row, [{pool_q.shape[0]}], got {tuple(pool_scale.shape)}")
-    return _int8_sweep(queries, pool_q, pool_scale, valid_n, query_quant, general=True)
+    return _int8_sweep(queries, pool_q, pool_scale, valid_n, query_quant, general=True, pool="int8")
 
 
 bucket_max_scores_i8.launches = 0
@@ -354,21 +360,31 @@ def bucket_max_scores_i8b(
 ) -> torch.Tensor:
     """K11: approximate strided-bucket maxima [Q, N/GROUP] fp32 over an int8
     pool with one scale per bucket (`quantize_pool(per_bucket=True)`): the
-    maximum is taken over the int32 dot products and only it is dequantised."""
-    N = pool_q.shape[0]
-    if bucket_scale.shape != (N // GROUP,):
-        raise ValueError(f"K11 takes one scale per bucket, [{N // GROUP}], got {tuple(bucket_scale.shape)}")
-    return _int8_sweep(queries, pool_q, bucket_scale, valid_n, query_quant, general=False)
+    maximum is taken over the int32 dot products and only it is dequantised;
+    through the kernel `sweep_route` picks for D."""
+    return _int8_sweep(queries, pool_q, bucket_scale, valid_n, query_quant, general=False, pool="int8_bucket")
+
+
+def bucket_max_scores_i8b_general(
+    queries: torch.Tensor, pool_q: torch.Tensor, bucket_scale: torch.Tensor, valid_n: Optional[int] = None,
+    query_quant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """K11's general-width kernel: what `bucket_max_scores_i8b` launches
+    where `sweep_route` says "general"; it takes the narrower widths too."""
+    return _int8_sweep(queries, pool_q, bucket_scale, valid_n, query_quant, general=True, pool="int8_bucket")
 
 
 bucket_max_scores_i8b.launches = 0
+bucket_max_scores_i8b_general.launches = 0
 
-# (dtype, sweep_route) -> the C entry of csrc/topk.cu and the wrapper that counts its launches
+# (pool, sweep_route) -> the C entry of csrc/topk.cu and the wrapper that counts its launches
 _SWEEP_KERNELS = {
-    (torch.bfloat16, "wgmma"): ("uniir_bucket_max_bf16", bucket_max_scores),
-    (torch.bfloat16, "general"): ("uniir_bucket_max_bf16_general", bucket_max_scores_general),
-    (torch.int8, "wgmma"): ("uniir_bucket_max_i8", bucket_max_scores_i8),
-    (torch.int8, "general"): ("uniir_bucket_max_i8_general", bucket_max_scores_i8_general),
+    ("bf16", "wgmma"): ("uniir_bucket_max_bf16", bucket_max_scores),
+    ("bf16", "general"): ("uniir_bucket_max_bf16_general", bucket_max_scores_general),
+    ("int8", "wgmma"): ("uniir_bucket_max_i8", bucket_max_scores_i8),
+    ("int8", "general"): ("uniir_bucket_max_i8_general", bucket_max_scores_i8_general),
+    ("int8_bucket", "wgmma"): ("uniir_bucket_max_i8b", bucket_max_scores_i8b),
+    ("int8_bucket", "general"): ("uniir_bucket_max_i8b_general", bucket_max_scores_i8b_general),
 }
 
 
