@@ -57,7 +57,8 @@
    the two runs' embeddings and of kernels against twins inside the model,
    the pools' ids and the copied candidates;
 5. checks K3, the attention backward, against its twin at the CLIP-L vision
-   and text shapes and the `base` shapes (and against autograd through the
+   and text shapes, the BLIP ViT-L's L = 197 and the `base` shapes (and
+   against autograd through the
    plain forward): its
    one-block-a-head kernel and its general-length kernels both, timed in
    turns, and the general ones also at L = 400, which only they take;
@@ -87,7 +88,17 @@
    pairs, then with remat and UNIIR_ATTN_SPLITK=1 (K10 forward, K3
    backward), and checks the K1 / K10 / K3 counts, both learning rates read
    back from the optimizer, the falling loss, the gradients against the
-   twins under the same dropout draws, and the checkpoint round trip.
+   twins under the same dropout draws, and the checkpoint round trip;
+9. drives BLIP-SF and BLIP-FF momentum-distillation training at `large` by
+   configs/blip_{sf,ff}/large/train/inbatch/inbatch.yaml (queue 57960,
+   momentum 0.995, alpha 0.4, lr 1e-5, wd 0.05; remat off for BLIP-SF, on
+   for BLIP-FF) through `build_model_from_config(train=True)`,
+   `MomentumTrainState`, `make_blip_train_step` (dropout on) and
+   `train_one_epoch` at 40 pairs, then BLIP-FF at the reference's 115 pairs
+   a card, and checks the K1 / K3 counts (46 / 23 a BLIP-SF step, 72 / 24 a
+   BLIP-FF step with remat), a finite loss, the queue pointer, that the
+   momentum twin moved and differs from the online model, and logs step
+   time, pairs/s, peak memory and the device's idle share.
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
 of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
@@ -141,6 +152,15 @@ FP32_OPS_PER_S = 67e12  # fp32 outside the tensor cores (the same data sheet): K
 EXPT = "CLIP_SF/Large/Seeded/"  # the bf16 path's experiment directory
 # the BLIP-SF path: configs/blip_sf/large (vit: large, tokenizer_max_length: 50), fed by uint8 images of this side
 BLIP_SIZE, BLIP_EXPT, BLIP_MAX_LEN, RAW_SIDE = "large", "BLIP_SF/Large/Seeded/", 50, 256
+# BLIP training: the model and trainer sections of configs/blip_{sf,ff}/large/train/inbatch/inbatch.yaml
+# (queue 57960, momentum 0.995, alpha 0.4, lr 1e-5, wd 0.05, seed 2023; tokenizer_max_length 50 / 100;
+# vit_grad_ckpt false / true); 40 pairs divide the queue, and 115 pairs a card are the reference's
+# 920 over 8 GPUs (57960 / 115 = 504)
+BLIP_TRAIN = {"queue_size": 57960, "momentum": 0.995, "alpha": 0.4, "embed_dim": 768, "bf16": True, "vit": BLIP_SIZE}
+BLIP_LR, BLIP_WD, BLIP_SEED = 1e-5, 0.05, 2023
+BLIP_TRAIN_BS, BLIP_FF_BS, BLIP_TRAIN_BATCHES = 40, 115, 3
+# the ViT's attention in those steps: both sides of every pair have an image row
+BLIP_TRAIN_SHAPES = {f"blip train {bs} pairs": (2 * bs, 197, 16, False) for bs in (BLIP_TRAIN_BS, BLIP_FF_BS)}
 
 
 def fail(msg: str) -> None:
@@ -210,14 +230,15 @@ def nbytes(*tensors) -> int:
 def check_attention(results: dict) -> None:
     """K1: the one-block-a-head kernel and the general-length kernel against
     the twin and timed in turns (new, old, new) at the three shapes the
-    large models use and the two of the `base` configs (ViT-B/32); then the
-    general kernel at a length only it takes."""
+    large models use, the BLIP ViT-L's at the two batches of its training
+    phases, and the two of the `base` configs (ViT-B/32); then the general
+    kernel at a length only it takes."""
     from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"K1": 0.0, "K1g": 0.0}
     shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "blip vision": (BATCH, 197, 16, False),
-              "base vision": (BATCH, 50, 12, False), "base text": (BATCH, 77, 8, True),
+              **BLIP_TRAIN_SHAPES, "base vision": (BATCH, 50, 12, False), "base text": (BATCH, 77, 8, True),
               "long (384-pixel BLIP)": (8, 577, 16, False)}
     for tag, (B, L, H, causal) in shapes.items():
         q, k, v = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(3))
@@ -1556,15 +1577,18 @@ def profile_forward(model, batch, tag: str) -> None:
 
 def check_attention_bwd(results: dict) -> None:
     """K3: the one-block-a-head kernel and the general-length kernels against
-    the twin and timed in turns (new, old, new) at the two shapes training
-    uses and the two of the `base` configs; then the general kernels at a
-    length only they take."""
+    the twin and timed in turns (new, old, new) at the three shapes training
+    uses (CLIP-L vision and text, the BLIP ViT-L's L = 197: three whole
+    64-row tiles and one of 5 rows, also at the two batches of the BLIP
+    training phases) and the two of the `base` configs; then the general
+    kernels at a length only they take."""
     from uniir_tpu_torch.ops import attention as A
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 2)
     worst = {"K3": 0.0, "K3g": 0.0}
-    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "base vision": (BATCH, 50, 12, False),
-              "base text": (BATCH, 77, 8, True), "long": (8, 400, 16, False)}
+    shapes = {"vision": (BATCH, 257, 16, False), "text": (BATCH, 77, 12, True), "blip vision": (BATCH, 197, 16, False),
+              **BLIP_TRAIN_SHAPES, "base vision": (BATCH, 50, 12, False), "base text": (BATCH, 77, 8, True),
+              "long": (8, 400, 16, False)}
     for tag, (B, L, H, causal) in shapes.items():
         q, k, v, do = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(4))
         before = (A.attention_bwd.launches, A.attention_bwd_general.launches)
@@ -1783,6 +1807,187 @@ def drive_train_path(results: dict, name: str) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------- phase 9: BLIP training
+
+
+def make_blip_train_batch(rng, gen, bs: int, max_length: int, image_size: int) -> dict:
+    """bs (query, positive) pairs of seeded BLIP train rows in the collator's
+    layout: hash token ids with padding masks of mixed lengths, float images
+    made on the card (the train loaders run the host transform, as the JAX
+    package's do), mixed modality masks and the positives' dids."""
+    n = 2 * bs
+    texts = [" ".join(rng.choice(WORDS, size=rng.integers(3, max_length - 1))) for _ in range(n)]
+    return {
+        "txt_batched": bert_hash_tokenize(texts, max_length),
+        "image_batched": torch.rand(n, image_size, image_size, 3, generator=gen, device=DEVICE),
+        "txt_mask_batched": np.array([int(i % 3 != 1) for i in range(n)], np.int32),
+        "image_mask_batched": np.array([int(i % 3 != 0) for i in range(n)], np.int32),
+        "p_did_list": rng.integers(0, 2**31 - 1, bs).astype(np.int64),
+    }
+
+
+def drive_blip_train_path(results: dict, name: str) -> None:
+    """BLIP momentum-distillation training of `name` (BLIPScoreFusion, or
+    BLIPFeatureFusion) at `large` through `build_model_from_config(train=
+    True)`, `make_blip_optimizer`, `MomentumTrainState`,
+    `make_blip_train_step` (dropout on) and `train_one_epoch` (alpha warmed
+    up in epoch 0): 40 pairs, then BLIP-FF at the reference's 115 pairs a
+    card.  Remat as the configs set it: off for BLIP-SF, on for BLIP-FF.
+    At each batch, one step's loss and gradients through K1 / K3 are held
+    against the same step through the twins, under the same dropout draws."""
+    from uniir_tpu_torch.core.config import Config
+    from uniir_tpu_torch.models import layers
+    from uniir_tpu_torch.models.registry import build_model_from_config
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.train.engine import train_one_epoch
+    from uniir_tpu_torch.train.optimizer import make_blip_optimizer
+    from uniir_tpu_torch.train.state import MomentumTrainState
+    from uniir_tpu_torch.train.steps import blip_loss, make_blip_train_step
+
+    ff = name == "BLIPFeatureFusion"
+    tag = "BLIP-FF" if ff else "BLIP-SF"
+    vocab = os.path.join(str(WORK), "vocab.txt")  # for the registry's tokenizer; the batches here are hash-tokenised
+    with open(vocab, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS) + "\n")
+    max_length = 100 if ff else 50
+    config = Config.from_dict({"uniir_dir": str(WORK), "seed": BLIP_SEED, "model": {
+        **BLIP_TRAIN, "name": name, "tokenizer_max_length": max_length, "bert_vocab_path": vocab, "vit_grad_ckpt": ff}})
+    rng = np.random.default_rng(SEED + 21 + ff)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+
+    def train(bs: int) -> None:
+        t0 = time.perf_counter()
+        bundle = build_model_from_config(config, device=DEVICE, train=True)
+        model, extra = bundle.model, bundle.extra
+        state = MomentumTrainState.create(model, *make_blip_optimizer(model, BLIP_LR, 1000, weight_decay=BLIP_WD),
+                                          queue_size=extra["queue_size"], embed_dim=bundle.embed_dim,
+                                          momentum=extra["momentum"])
+        step = make_blip_train_step(model, seed=BLIP_SEED)
+        torch.cuda.synchronize()
+        vit_cfg, med_cfg = model.vit_cfg, model.med_cfg
+        remat = model.visual_encoder.remat_from_layer > 0
+        check(remat == ff and model.text_encoder.remat == ff, f"{tag}: remat is not as configs/{tag} train sets it")
+        initial_m = [p.detach().clone() for p in state.model_m.parameters()]
+        log(f"train {tag} large: seeded {name} (ViT-L/{vit_cfg.patch_size}, {vit_cfg.layers} blocks, L = "
+            f"{(vit_cfg.image_size // vit_cfg.patch_size) ** 2 + 1}, drop-path {vit_cfg.drop_path_rate}; MED "
+            f"{med_cfg.num_hidden_layers} layers, hidden {med_cfg.hidden_size}, {max_length} tokens; "
+            f"{sum(p.numel() for p in model.parameters())} parameters, fp32 masters, bf16 compute) through "
+            f"build_model_from_config(train=True) and MomentumTrainState (queue {extra['queue_size']}, momentum "
+            f"{extra['momentum']}, alpha {extra['alpha']}) in {time.perf_counter() - t0:.1f} s")
+        batches = [make_blip_train_batch(rng, gen, bs, max_length, vit_cfg.image_size) for _ in range(BLIP_TRAIN_BATCHES + 3)]
+        state, _ = step(state, batches.pop(), extra["alpha"])  # warm-up: first-call set-up stays out of the times
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        attn_mod.attention.launches = attn_mod.attention_splitk.launches = attn_mod.attention_bwd.launches = 0
+        zero_standalone()
+        t0 = time.perf_counter()
+        state, stats = train_one_epoch(step, state, batches[:BLIP_TRAIN_BATCHES],
+                                       0, Config.from_dict({"trainer_config": {"print_freq": BLIP_TRAIN_BATCHES}}),
+                                       is_blip=True, alpha=extra["alpha"])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / BLIP_TRAIN_BATCHES
+        k1, k10, k3 = attn_mod.attention.launches, attn_mod.attention_splitk.launches, attn_mod.attention_bwd.launches
+        peak = torch.cuda.max_memory_allocated()
+        read_standalone(results, f"{tag} training")
+        log(f"train {tag} large bs={bs} pairs ({2 * bs} rows) remat={remat} dropout=on: {BLIP_TRAIN_BATCHES} steps, "
+            f"step_ms={step_s * 1e3} pairs_per_s={bs / step_s} max_memory_allocated={peak} ({peak / 2**30:.2f} GiB); "
+            f"loss={stats['loss']} inbatch_accuracy={stats['inbatch_accuracy']}; launches K1={k1} K10={k10} K3={k3}")
+        check(np.isfinite(float(stats["loss"])), f"{tag} train loss is not finite at bs={bs}")
+        # self-attention blocks through K1 per forward: BLIP-SF's CLS-pooled last block attends from one row
+        # and stays plain, BLIP-FF feeds every token to MED; MED's masked attention is an einsum.  A step runs
+        # the momentum twin's forward, the online forward and, with remat, its recompute; K3 once a block
+        blocks = vit_cfg.layers if ff else vit_cfg.layers - 1
+        want = (BLIP_TRAIN_BATCHES * blocks * (3 if remat else 2), BLIP_TRAIN_BATCHES * blocks)
+        log(f"  expected per step: K1 = {want[0] // BLIP_TRAIN_BATCHES} ({blocks} online + {blocks} momentum"
+            + (f" + {blocks} recomputed" if remat else "") + f"), K3 = {blocks}, K10 = 0")
+        check((k1, k3) == want and k10 == 0, f"K1 / K10 / K3 launched {k1} / {k10} / {k3} times in "
+              f"{BLIP_TRAIN_BATCHES} {tag} steps (remat={remat})")
+        for kernel, n in (("K1", k1), ("K3", k3)):
+            results[kernel]["launches"] += n
+
+        # the device's idle share: torch.profiler over two more steps, against the host time above
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for b in batches[BLIP_TRAIN_BATCHES:]:
+                state, _ = step(state, b, extra["alpha"])
+            torch.cuda.synchronize()
+        log(f"profile of 2 {tag} train steps at {bs} pairs (step_ms={step_s * 1e3} from the run above):")
+        log_device_time_by_group(prof, 2, step_s * 1e3)
+
+        n_steps = 1 + BLIP_TRAIN_BATCHES + 2
+        moved = any(not torch.equal(a, b) for a, b in zip(state.model_m.parameters(), initial_m))
+        apart = any(not torch.equal(a, b) for a, b in zip(state.model_m.parameters(), state.model.parameters()))
+        filled = int((state.queue_idx != -100).sum())
+        log(f"{tag} train state after {n_steps} steps: step {state.step}, queue_ptr {state.queue_ptr} "
+            f"(want {n_steps * bs % extra['queue_size']}), {filled} queue ids filled, params_m moved={moved}, "
+            f"params_m differs from params={apart}, temp={state.model.temp.item()}")
+        check(state.step == n_steps and state.queue_ptr == n_steps * bs % extra["queue_size"]
+              and filled == n_steps * bs, f"{tag}: the queue did not advance by the steps' pairs")
+        check(moved and apart, f"{tag}: the momentum twin did not move, or equals the online model")
+        del initial_m, prof
+
+        # the EMA over every parameter, in place (the port's), against the form that first makes a list of
+        # the p * (1 - m) products, timed in turns
+        pm, p, m = list(state.model_m.parameters()), list(model.parameters()), state.momentum
+
+        def ema_with_products():
+            torch._foreach_mul_(pm, m)
+            torch._foreach_add_(pm, torch._foreach_mul(p, 1.0 - m))
+
+        ema = [cuda_ms(state.momentum_update), cuda_ms(ema_with_products), cuda_ms(state.momentum_update)]
+        n = sum(t.numel() for t in p)
+        log(f"{tag} momentum_update over {n} fp32 parameters: ms={ema[0]} / {ema[2]} (with a product list between "
+            f"them: {ema[1]}) {bound(3 * 4 * n, 3 * n, FP32_OPS_PER_S)}")
+        del pm, p
+
+        # one step's loss and gradients through K1 / K3 against the same step through the twins: the momentum
+        # and online forwards (and BLIP-FF's recompute) at this batch's [2 bs, 197, 1024], dropout drawn alike
+        params = list(model.parameters())
+
+        def loss_and_grads():
+            model.train()
+            model.set_dropout_generator(torch.Generator(device=DEVICE).manual_seed(BLIP_SEED + 1))
+            out = blip_loss(state, batches[0], extra["alpha"])
+            return out["loss"].item(), torch.autograd.grad(out["loss"], params)
+
+        before = (attn_mod.attention.launches, attn_mod.attention_bwd.launches)
+        loss, grads = loss_and_grads()
+        check((attn_mod.attention.launches - before[0], attn_mod.attention_bwd.launches - before[1])
+              == (want[0] // BLIP_TRAIN_BATCHES, blocks), f"{tag}: the kernels' step did not go through K1 / K3")
+        layers.attention = attn_mod.attention_twin
+        try:
+            ref_loss, ref_grads = loss_and_grads()
+        finally:
+            layers.attention = attn_mod.attention
+        names = [k for k, _ in model.named_parameters()]
+        largest = max(r.abs().max().item() for r in ref_grads)
+        # MED's key biases have a true gradient of 0 (a constant over a query's logits): rounding noise on
+        # both sides, held to 1 % of the largest gradient; temp, a scalar, by its value
+        noise = {names[i]: max(g_.abs().max().item(), ref_grads[i].abs().max().item())
+                 for i, g_ in enumerate(grads) if names[i].endswith("key.bias")}
+        coss = {i: cosine(g_, ref_grads[i]) for i, g_ in enumerate(grads) if g_.numel() > 1 and names[i] not in noise}
+        scalars = {names[i]: (grads[i].item(), ref_grads[i].item()) for i in range(len(grads)) if grads[i].numel() == 1}
+        finite = all(bool(torch.isfinite(g_).all()) for g_ in grads)
+        worst = min(coss, key=coss.get)
+        log(f"{tag} train step at {bs} pairs through K1/K3 vs the twins: loss {loss} vs {ref_loss}, min gradient "
+            f"cosine {coss[worst]} ({names[worst]}) over {len(coss)} tensors, largest key-bias gradient "
+            f"{max(noise.values())} (largest gradient {largest}), scalar gradients (kernels, twins) {scalars}, "
+            f"all gradients finite={finite}")
+        # bf16 attention outputs and gradients that round in other places: each gradient's direction, the
+        # loss and temp's gradient survive
+        check(finite and abs(loss - ref_loss) <= 1e-2 and coss[worst] >= 0.99
+              and max(noise.values()) <= 1e-2 * largest
+              and all(abs(a - b) <= 1e-2 * max(1.0, abs(b)) for a, b in scalars.values()),
+              f"{tag} train-step gradients through K1/K3 disagree with the twins at {bs} pairs")
+        del state, step, model, bundle, batches, params, grads, ref_grads
+        torch.cuda.empty_cache()
+
+    train(BLIP_TRAIN_BS)
+    if ff:
+        train(BLIP_FF_BS)
+
+
 def profile_train_step(name: str, remat: bool = False, splitk: bool = False) -> None:
     """torch.profiler over 3 train steps of TRAIN_BS pairs of `name` (with
     remat and UNIIR_ATTN_SPLITK=1 where asked): device time by kernel group."""
@@ -1949,6 +2154,8 @@ def main() -> None:
     check_attention_bwd(results)
     for name in ("CLIPScoreFusion", "CLIPFeatureFusion"):  # add their K1 / K10 / K3 launches too
         drive_train_path(results, name)
+    for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):  # add their K1 / K3 launches too
+        drive_blip_train_path(results, name)
     if "--profile" in sys.argv[1:]:
         profile_train_step("CLIPScoreFusion")
         profile_train_step("CLIPFeatureFusion")

@@ -476,11 +476,13 @@ def test_unported_blip_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model_from_config(_registry_config(tmp_path, int8=True), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model_from_config(_registry_config(tmp_path), device="cpu", train=True)
-    # feature fusion serves; its int8 and its training wait like score fusion's
-    for kwargs, train in (({"int8": True}, False), ({}, True)):
+        build_model_from_config(_registry_config(tmp_path, int8=True), device="cpu", train=True)
+    # both retrievers train (fp32 masters, train mode); int8 waits for feature fusion as for score fusion
+    trained = build_model_from_config(_registry_config(tmp_path), device="cpu", train=True).model
+    assert trained.training and all(p.dtype == torch.float32 for p in trained.parameters())
+    for train in (False, True):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model_from_config(_registry_config(tmp_path, name="BLIPFeatureFusion", **kwargs), device="cpu", train=train)
+            build_model_from_config(_registry_config(tmp_path, name="BLIPFeatureFusion", int8=True), device="cpu", train=train)
     with pytest.raises(ValueError, match="Unknown model name"):
         build_model_from_config(Config.from_dict({"model": {"name": "BLIPFusion"}}), device="cpu")
 

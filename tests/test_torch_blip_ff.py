@@ -273,8 +273,10 @@ def test_published_config_parses_and_raises_only_for_the_missing_vocabulary():
         build_model_from_config(config, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs,train", [({"int8": True}, False), ({}, True)])
+@pytest.mark.parametrize("kwargs,train", [({"int8": True}, False), ({"int8": True}, True)])
 def test_int8_and_training_raise_with_roadmap_pointer(tmp_path, kwargs, train):
+    """int8 raises, in serving and with `train` (BLIP-FF itself trains:
+    tests/test_torch_blip_train.py)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         build_model_from_config(_registry_config(tmp_path, **kwargs), device="cpu", train=train)
 

@@ -765,12 +765,20 @@ def test_trainer_trains_clip_ff_with_the_t5_group_and_serves(tmp_path):
     assert emb.shape == (8, FF_CFG.embed_dim) and torch.isfinite(emb.float()).all()
 
 
-def test_unported_training_options_raise():
-    from uniir_tpu_torch.train.trainer import build_train_setup
+def test_unported_training_options_raise(tmp_path):
+    from tests.helpers import tiny_bert_vocab
+    from uniir_tpu_torch.models.registry import build_model_from_config
 
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(tiny_bert_vocab()) + "\n")
+    # the BLIP retrievers train (tests/test_torch_blip_train.py); their int8 serving mode is not ported
     for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            build_train_setup(Config.from_dict({"model": {"name": name}}))
+        config = Config.from_dict({"model": {"name": name, "vit": "test-tiny", "bert_vocab_path": str(vocab), "int8": True}})
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+            build_model_from_config(config, device="cpu", train=True)
+    config = Config.from_dict({"model": {"name": "CLIPScoreFusion", "clip_vision_model_name": "test-tiny", "int8": True}})
+    with pytest.raises(ValueError, match="int8 layers do not train"):
+        build_model_from_config(config, device="cpu", train=True)
     # the T5 group is ported: a model without fusion parameters leaves it empty
     optimizer, _ = make_clip_optimizer(CLIPScoreFusion(CFG), LR, TOTAL_STEPS, fusion_learning_rate=1e-4)
     assert [len(g["params"]) > 0 for g in optimizer.param_groups] == [True, True, False, False]

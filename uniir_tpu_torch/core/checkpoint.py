@@ -12,6 +12,11 @@
   * `meta.json`: the JAX package's marker {"epoch", "step", "items",
     "config"}, written last, so its presence means the checkpoint is whole.
 
+A BLIP state (`train.state.MomentumTrainState`) adds its extra items to
+the same file -- `model_m` (the momentum twin's state dict), the three
+queues and `queue_ptr` -- so a resumed run continues bit-equal; the serving
+loaders read only `model`.
+
 Reading the JAX package's orbax checkpoints is not ported (ROADMAP.md,
 Queue 1 item 3).
 """
@@ -25,6 +30,7 @@ import torch
 
 CHECKPOINT_FILE = "checkpoint.pth"
 ITEMS = ("model", "optimizer", "scheduler")
+MOMENTUM_ITEMS = ("model_m", "queue_query", "queue_cand", "queue_idx", "queue_ptr")
 
 
 def _config_dict(config):
@@ -47,10 +53,15 @@ def save_train_checkpoint(ckpt_dir: str, name: str, state, epoch: int, config=No
         "epoch": epoch,
         "config": _config_dict(config),
     }
+    items = list(ITEMS)
+    if hasattr(state, "model_m"):
+        blob.update(model_m=state.model_m.state_dict(), queue_query=state.queue_query, queue_cand=state.queue_cand,
+                    queue_idx=state.queue_idx, queue_ptr=state.queue_ptr)
+        items += MOMENTUM_ITEMS
     tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
     torch.save(blob, tmp)
     os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
-    meta = {"epoch": epoch, "step": int(state.step), "items": list(ITEMS), "config": blob["config"]}
+    meta = {"epoch": epoch, "step": int(state.step), "items": items, "config": blob["config"]}
     with open(meta_path, "w") as f:
         json.dump(meta, f, default=str)
     print(f"Saved checkpoint to {path}")
@@ -67,5 +78,10 @@ def load_train_checkpoint(path: str, state):
     state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
     state.scheduler.load_state_dict(blob["scheduler"])
+    if hasattr(state, "model_m"):
+        state.model_m.load_state_dict(blob["model_m"])
+        for name in ("queue_query", "queue_cand", "queue_idx"):
+            getattr(state, name).copy_(blob[name])
+        state.queue_ptr = int(blob["queue_ptr"])
     state.step = int(meta["step"])
     return state, int(meta["epoch"])

@@ -5,7 +5,10 @@ cross-attends to the whole sequence) feed the MED text encoder as
 `encoder_hidden_states`; the pooler output (dense + tanh over CLS) is the
 fused embedding, returned in fp32.  The last MED layer computes only the
 CLS row (`trim_last`, exact).  `temp` is the learned temperature.  The
-momentum encoders and queues are train state and wait for BLIP training.
+momentum encoder and the queues are train state
+(`train.state.MomentumTrainState`).  In train mode the ViT's drop-path and
+MED's dropout draw from the generator `set_dropout_generator` gives them;
+with `remat` every ViT block and every MED layer is recomputed.
 
 The modality masks are accepted and unused, as in the JAX package: a padded
 (all-zero) image simply flows through cross-attention, under an all-ones
@@ -41,6 +44,11 @@ class BLIPFeatureFusion(nn.Module):
         self.visual_encoder.reset_parameters(generator)
         self.text_encoder.reset_parameters(generator)
         self.temp.fill_(TEMP_INIT)
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator every drop-path and dropout draws from in train mode."""
+        self.visual_encoder.set_dropout_generator(generator)
+        self.text_encoder.set_dropout_generator(generator)
 
     @torch.no_grad()
     def to_compute_dtype(self, dtype: torch.dtype) -> "BLIPFeatureFusion":

@@ -3,9 +3,11 @@
 BLIP ViT + MED text encoder in mode="text" (no cross-attention modules: the
 reference freezes and never runs them for this model), the CLS token and a
 linear projection per tower, fused = masked add, returned in fp32.  The
-momentum encoders and queues are train state, not module state, and wait
-for the training slice.  `temp` is the learned temperature (0.07 at
-initialisation).
+momentum encoder and the queues are train state, not module state
+(`train.state.MomentumTrainState` keeps a second module as the momentum
+twin).  `temp` is the learned temperature (0.07 at initialisation),
+clamped by the train step.  In train mode the ViT's drop-path and MED's
+dropout draw from the generator `set_dropout_generator` gives them.
 
 `dtype` is the compute dtype of both towers.  Training keeps fp32
 parameters and casts them at each use; serving casts them once in place
@@ -52,6 +54,11 @@ class BLIPScoreFusion(nn.Module):
         self.visual_encoder.reset_parameters(generator)
         self.text_encoder.reset_parameters(generator)
         self._reset_heads(generator)
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator every drop-path and dropout draws from in train mode."""
+        self.visual_encoder.set_dropout_generator(generator)
+        self.text_encoder.set_dropout_generator(generator)
 
     @torch.no_grad()
     def to_compute_dtype(self, dtype: torch.dtype) -> "BLIPScoreFusion":

@@ -14,7 +14,10 @@ written.
 bf16 self-attention goes through kernel K1 (`ops.attention`); with
 `pool_cls` the last block computes only the CLS row, one query over all
 keys through the plain einsum path.  `remat_from_layer=k` recomputes the
-last k blocks in the backward pass (`torch.utils.checkpoint`).  Position
+last k blocks in the backward pass (`torch.utils.checkpoint`).  Drop-path
+draws one mask per sample from an explicit `torch.Generator`
+(`set_dropout_generator`), identity in eval mode; a recomputed block draws
+the masks its forward drew (`layers.checkpoint_with_generator`).  Position
 embeddings are resized for another resolution by
 `models.layers.interpolate_pos_embed` where a checkpoint is loaded.
 
@@ -29,9 +32,15 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
-from uniir_tpu_torch.models.layers import MLP, DropPath, LayerNorm, MultiHeadAttention, PatchEmbed
+from uniir_tpu_torch.models.layers import (
+    MLP,
+    DropPath,
+    LayerNorm,
+    MultiHeadAttention,
+    PatchEmbed,
+    checkpoint_with_generator,
+    set_dropout_generator,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +130,7 @@ class BLIPVisionTransformer(nn.Module):
     def __init__(self, cfg: BLIPViTConfig, dtype: torch.dtype = torch.float32, remat_from_layer: int = 0):
         super().__init__()
         self.cfg, self.dtype, self.remat_from_layer = cfg, dtype, remat_from_layer
+        self.dropout_generator: Optional[torch.Generator] = None
         n_patches = (cfg.image_size // cfg.patch_size) ** 2
         self.patch_embed = _PatchEmbedProj(cfg.width, cfg.patch_size)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.width))
@@ -144,6 +154,12 @@ class BLIPVisionTransformer(nn.Module):
             elif isinstance(m, LayerNorm):
                 m.reset_parameters()
 
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator the drop-path layers draw from in train mode (also
+        across a recomputed block's forward and recompute)."""
+        self.dropout_generator = generator
+        set_dropout_generator(self, generator)
+
     def forward(self, images: torch.Tensor, pool_cls: bool = False) -> torch.Tensor:
         """images: [B, H, W, 3] NHWC -> [B, L + 1, W], or [B, 1, W] with
         `pool_cls`: the last block then computes only the CLS row, exact when
@@ -156,7 +172,7 @@ class BLIPVisionTransformer(nn.Module):
         for i, blk in enumerate(self.blocks):
             trim = pool_cls and i == last
             if self.remat_from_layer and i > last - self.remat_from_layer and torch.is_grad_enabled():
-                x = checkpoint(blk, x, trim, use_reentrant=False)
+                x = checkpoint_with_generator(blk, x, trim, generator=self.dropout_generator)
             else:
                 x = blk(x, trim)
         return self.norm(x)

@@ -26,6 +26,10 @@ weights: `kernel_q` [in, out] int8 -> `weight_q` [out, in] int8, `scale` and
 `bias` fp32, `act_scales` leaves -> `<module>.act_scales`; the fused
 projection is `attn.qkv_proj` there.  Load such a state dict with
 `ops.quant.load_quantized_state_dict`.
+
+`load_momentum_state_from_jax` carries a whole JAX BLIP train state
+(`params`, `params_m`, the queues and `queue_ptr`) into the port's, so both
+packages can start training from the same state.
 """
 
 from __future__ import annotations
@@ -210,3 +214,17 @@ def state_dict_from_jax(params_np) -> Dict[str, torch.Tensor]:
     if "t5_layers" in params_np:
         return _tensors({**_clip(params_np, "clip_model."), **_t5_stack(params_np["t5_layers"], "t5_layers.")})
     return _tensors(_clip(params_np))
+
+
+def load_momentum_state_from_jax(state, params, params_m, queue_query, queue_cand, queue_idx, queue_ptr) -> None:
+    """Carry a JAX `MomentumTrainState`, given as numpy arrays, into the
+    port's `train.state.MomentumTrainState` in place: the online and the
+    momentum parameters through `state_dict_from_jax` (every key required),
+    the row-major queues and the ring pointer.  The optimizer state and the
+    step stay the port's."""
+    state.model.load_state_dict(state_dict_from_jax(params))
+    state.model_m.load_state_dict(state_dict_from_jax(params_m))
+    for name, value in (("queue_query", queue_query), ("queue_cand", queue_cand), ("queue_idx", queue_idx)):
+        target = getattr(state, name)
+        target.copy_(torch.from_numpy(np.array(value)).to(target.dtype))
+    state.queue_ptr = int(queue_ptr)

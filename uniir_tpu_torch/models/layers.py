@@ -32,6 +32,7 @@ of the 3-D path.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Optional
@@ -350,19 +351,66 @@ class PatchEmbed(nn.Module):
         return x if self.bias is None else x + self.bias.to(x.dtype)
 
 
-class DropPath(nn.Module):
-    """Per-sample stochastic depth (timm DropPath): identity in eval mode."""
+class Dropout(nn.Module):
+    """Inverted dropout from an explicit generator (flax's nn.Dropout: kept
+    values are divided by the keep probability); identity in eval mode.
+    Without a generator it draws from the default one."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        return tuple(x.shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device) < keep
+        mask = torch.rand(self._mask_shape(x), device=x.device, generator=self.generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(Dropout):
+    """Per-sample stochastic depth (timm DropPath): one draw per sample."""
+
+    def _mask_shape(self, x: torch.Tensor) -> tuple:
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+def set_dropout_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """The generator every Dropout / DropPath under `module` draws from in train mode."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+def checkpoint_with_generator(fn, *args, generator: Optional[torch.Generator] = None):
+    """torch.utils.checkpoint of fn(*args) whose recompute draws the dropout
+    masks the forward drew.  checkpoint restores only the default CPU / CUDA
+    generators before it recomputes; here the explicit `generator`'s state
+    (seed and offset, kept on the host) is saved where the forward starts
+    and set again for the recompute, then put back as it was."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    saved = {}
+
+    @contextlib.contextmanager
+    def forward():
+        saved["state"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        now = generator.get_state()
+        generator.set_state(saved["state"])
+        try:
+            yield
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=lambda: (forward(), recompute()))
 
 
 def interpolate_pos_embed(pos_embed: torch.Tensor, num_patches_new: int, num_prefix_tokens: int = 1) -> torch.Tensor:

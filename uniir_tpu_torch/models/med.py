@@ -18,7 +18,11 @@ with `cross_attention=True`.  Parameter names are HF BERT's
 
 Attention is the plain einsum path, as in the JAX package: the padding mask
 is additive, (1 - mask) * -1e9 on fp32 logits, softmax in fp32, the
-probabilities cast to the compute dtype.  Dropout is identity in eval mode.
+probabilities cast to the compute dtype.  Dropout (embeddings, attention
+probabilities, both output denses, rate 0.1) draws from an explicit
+`torch.Generator` (`set_dropout_generator`) and is identity in eval mode;
+with `remat` a recomputed layer draws the masks its forward drew
+(`layers.checkpoint_with_generator`).
 """
 
 from __future__ import annotations
@@ -28,9 +32,15 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
-from uniir_tpu_torch.models.layers import LayerNorm, Linear, gelu_exact, lecun_normal_
+from uniir_tpu_torch.models.layers import (
+    Dropout,
+    LayerNorm,
+    Linear,
+    checkpoint_with_generator,
+    gelu_exact,
+    lecun_normal_,
+    set_dropout_generator,
+)
 
 NEG_INF = -1e9  # the additive mask's value, as the JAX package's
 
@@ -82,7 +92,7 @@ class _Output(nn.Module):
         super().__init__()
         self.dense = Linear(in_width, hidden)
         self.LayerNorm = LayerNorm(hidden, eps)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
         return self.LayerNorm(self.dropout(self.dense(x)) + residual)
@@ -104,7 +114,7 @@ class BertSelfAttentionBlock(nn.Module):
         self.heads, self.is_cross = cfg.num_attention_heads, is_cross
         H = cfg.hidden_size
         setattr(self, "self", _QKV(H, cfg.encoder_width if is_cross else H))
-        self.attn_dropout = nn.Dropout(cfg.attention_probs_dropout_prob)
+        self.attn_dropout = Dropout(cfg.attention_probs_dropout_prob)
         self.output = _Output(H, H, cfg.layer_norm_eps, cfg.hidden_dropout_prob)
 
     def forward(self, hidden, attn_mask=None, kv=None, self_kv=None):
@@ -160,7 +170,7 @@ class _Embeddings(nn.Module):
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
 
 class _Encoder(nn.Module):
@@ -179,6 +189,7 @@ class MedBertModel(nn.Module):
                  remat: bool = False, cross_attention: Optional[bool] = None):
         super().__init__()
         self.cfg, self.dtype, self.remat = cfg, dtype, remat
+        self.dropout_generator: Optional[torch.Generator] = None
         cross_attention = cfg.add_cross_attention if cross_attention is None else cross_attention
         self.embeddings = _Embeddings(cfg)
         self.encoder = _Encoder(cfg, cross_attention)
@@ -198,6 +209,12 @@ class MedBertModel(nn.Module):
                 m.bias.zero_()
             elif isinstance(m, LayerNorm):
                 m.reset_parameters()
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """The generator every dropout draws from in train mode (also across
+        a recomputed layer's forward and recompute)."""
+        self.dropout_generator = generator
+        set_dropout_generator(self, generator)
 
     def forward(
         self,
@@ -230,7 +247,7 @@ class MedBertModel(nn.Module):
         for i, layer in enumerate(self.encoder.layer):
             args = (x, attn_mask, mode, encoder_hidden_states, enc_mask, trim_last and i == last)
             if self.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, *args, use_reentrant=False)
+                x = checkpoint_with_generator(layer, *args, generator=self.dropout_generator)
             else:
                 x = layer(*args)
 

@@ -29,8 +29,13 @@ BLIP-SF (`build_blip_sf`) reads `vit`, `image_size`, `embed_dim`,
 `tokenizer_max_length` and `bert_vocab_path` from the config; a missing
 vocabulary path raises FileNotFoundError.  A BLIP `.pth` state dict loads
 through `load_blip_checkpoint`, which for BLIP-FF (`build_blip_ff`) keeps
-the cross-attention and pooler keys that BLIP-SF drops.  `model.int8` on
-CLIP-FF or a BLIP model and BLIP training raise until they are ported.
+the cross-attention and pooler keys that BLIP-SF drops.  With `train=True`
+a BLIP model keeps fp32 masters, computes in the config's dtype and reads
+`model.vit_grad_ckpt` as `remat` (every ViT block, and in BLIP-FF every MED
+layer too; `vit_ckpt_layer` is ignored, as the JAX package ignores it); its
+bundle carries `queue_size`, `momentum` and `alpha` in `extra`, as the JAX
+bundle's does.  `model.int8` on CLIP-FF or a BLIP model raises until it is
+ported.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
@@ -77,6 +82,7 @@ class ModelBundle:
     img_preprocess_fn_eval: Callable
     image_size: tuple
     embed_dim: int
+    extra: dict = field(default_factory=dict)  # BLIP: queue_size, momentum, alpha
 
 
 def _seeded_module(factory: Callable, device, seed: int):
@@ -106,6 +112,23 @@ def seeded_blip_ff(vit_cfg: BLIPViTConfig, med_cfg: MedConfig, device, seed: int
     """BLIP-FF for serving: weights drawn from `seed` on `device`, cast to `dtype`."""
     model = _seeded_module(lambda: BLIPFeatureFusion(vit_cfg, med_cfg, embed_dim), device, seed)
     return model.to_compute_dtype(dtype).eval()
+
+
+def seeded_blip_sf_train(vit_cfg: BLIPViTConfig, med_cfg: MedConfig, device, seed: int = 0,
+                         dtype: torch.dtype = torch.bfloat16, embed_dim: int = 768, remat: bool = False) -> BLIPScoreFusion:
+    """BLIP-SF for training: fp32 master weights drawn from `seed` on
+    `device`, computing in `dtype`, every ViT block recomputed if `remat`."""
+    factory = lambda: BLIPScoreFusion(vit_cfg, med_cfg, embed_dim, dtype=dtype, remat=remat)  # noqa: E731
+    return _seeded_module(factory, device, seed).train()
+
+
+def seeded_blip_ff_train(vit_cfg: BLIPViTConfig, med_cfg: MedConfig, device, seed: int = 0,
+                         dtype: torch.dtype = torch.bfloat16, embed_dim: int = 768, remat: bool = False) -> BLIPFeatureFusion:
+    """BLIP-FF for training: fp32 master weights drawn from `seed` on
+    `device`, computing in `dtype`, every ViT block and MED layer recomputed
+    if `remat`."""
+    factory = lambda: BLIPFeatureFusion(vit_cfg, med_cfg, embed_dim, dtype=dtype, remat=remat)  # noqa: E731
+    return _seeded_module(factory, device, seed).train()
 
 
 def seeded_clip_sf(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
@@ -350,22 +373,17 @@ def load_blip_checkpoint(model, path: str, strict: bool = False) -> None:
 
 
 def build_blip_sf(config, device=None, train: bool = False) -> ModelBundle:
-    return _build_blip(config, "BLIPScoreFusion", seeded_blip_sf, device, train)
+    return _build_blip(config, "BLIPScoreFusion", seeded_blip_sf_train if train else seeded_blip_sf, device, train)
 
 
 def build_blip_ff(config, device=None, train: bool = False) -> ModelBundle:
-    return _build_blip(config, "BLIPFeatureFusion", seeded_blip_ff, device, train)
+    return _build_blip(config, "BLIPFeatureFusion", seeded_blip_ff_train if train else seeded_blip_ff, device, train)
 
 
 def _build_blip(config, name: str, seeded: Callable, device, train: bool) -> ModelBundle:
     model_config = config.model
-    if train:
-        raise NotImplementedError(
-            f"training {name} (momentum distillation) is not ported to uniir_tpu_torch yet "
-            "(ROADMAP.md, Queue 1 item 5)"
-        )
     if getattr(model_config, "int8", False):
-        raise NotImplementedError("model.int8 for BLIP models is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 5)")
+        raise NotImplementedError("model.int8 for BLIP models is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 5b)")
     vit = getattr(model_config, "vit", "base")
     vit_cfg = BLIP_VIT_CONFIGS[vit]
     image_size = getattr(model_config, "image_size", vit_cfg.image_size)
@@ -384,7 +402,12 @@ def _build_blip(config, name: str, seeded: Callable, device, train: bool) -> Mod
         return tokenizer(txts, max_length=max_len)
 
     device = resolve_device(device)
-    model = seeded(vit_cfg, med_cfg, device, int(getattr(config, "seed", 0)), dtype, embed_dim)
+    seed = int(getattr(config, "seed", 0))
+    if train:
+        model = seeded(vit_cfg, med_cfg, device, seed, dtype, embed_dim,
+                       remat=bool(getattr(model_config, "vit_grad_ckpt", False)))
+    else:
+        model = seeded(vit_cfg, med_cfg, device, seed, dtype, embed_dim)
     strict = bool(getattr(model_config, "strict_convert", False))
     for path in _checkpoint_paths(config, train):
         load_blip_checkpoint(model, path, strict=strict)
@@ -397,6 +420,11 @@ def _build_blip(config, name: str, seeded: Callable, device, train: bool) -> Mod
         img_preprocess_fn_eval=blip_transform(vit_cfg.image_size, is_train=False),
         image_size=(vit_cfg.image_size, vit_cfg.image_size),
         embed_dim=embed_dim,
+        extra={
+            "queue_size": int(getattr(model_config, "queue_size", 57600)),
+            "momentum": float(getattr(model_config, "momentum", 0.995)),
+            "alpha": float(getattr(model_config, "alpha", 0.4)),
+        },
     )
 
 

@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from uniir_tpu_torch.models.layers import lecun_normal_
+from uniir_tpu_torch.models.layers import Dropout as T5Dropout
+from uniir_tpu_torch.models.layers import lecun_normal_, set_dropout_generator
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,23 +71,6 @@ def relative_position_bucket(relative_position: np.ndarray, num_buckets: int = 3
     val_if_large = max_exact + scaled.astype(np.int32)  # truncation, as the JAX function's astype
     val_if_large = np.minimum(val_if_large, num_buckets - 1)
     return (ret + np.where(n < max_exact, n, val_if_large)).astype(np.int32)
-
-
-class T5Dropout(nn.Module):
-    """Inverted dropout from an explicit generator (flax's nn.Dropout:
-    kept values are divided by the keep probability)."""
-
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-        self.generator: Optional[torch.Generator] = None
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.rate == 0.0:
-            return x
-        keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, device=x.device, generator=self.generator) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class T5LayerNorm(nn.Module):
@@ -228,9 +212,7 @@ class T5FusionStack(nn.Module):
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
         """The generator every dropout of the stack draws from in train mode."""
-        for m in self.modules():
-            if isinstance(m, T5Dropout):
-                m.generator = generator
+        set_dropout_generator(self, generator)
 
     def fp32_parameters(self) -> list:
         """Parameters that stay fp32 when a model is cast for serving: the

@@ -1,10 +1,12 @@
-"""Epoch engines (counterpart of uniir_tpu/train/engine.py, the CLIP family).
+"""Epoch engines (counterpart of uniir_tpu/train/engine.py).
 
 `train_one_epoch` feeds every collated batch of an iterable to the train
 step.  Metrics stay 0-d device tensors and are fetched only every
 `print_freq` steps and at the end: a `.item()` per step would wait for the
 card after every step and leave it idle while the host prepares the next
-batch.  The learning rate is logged from the host-side schedule.
+batch.  The learning rate is logged from the host-side schedule.  BLIP's
+steps also take `alpha`, the distillation weight, warmed up over epoch 0
+as alpha * min(1, i / n_batches) (reference blip engine :29-32).
 """
 
 from __future__ import annotations
@@ -30,11 +32,15 @@ def train_one_epoch(
     epoch: int,
     config,
     lr_schedule: Optional[Callable[[int], float]] = None,
+    is_blip: bool = False,
+    alpha: float = 0.4,
 ) -> tuple:
-    """One epoch over `loader`; returns (state, averaged stats dict)."""
+    """One epoch over `loader` (an iterable with a length when `is_blip`);
+    returns (state, averaged stats dict)."""
     metric_logger = MetricLogger()
     print_freq = int(getattr(config.trainer_config, "print_freq", 50))
     header = f"Train Epoch: [{epoch}]"
+    n_batches = len(loader) if is_blip else 0
     pending = []
 
     def flush():
@@ -43,7 +49,11 @@ def train_one_epoch(
         pending.clear()
 
     for i, batch in enumerate(metric_logger.log_every(loader, print_freq, header)):
-        state, metrics = step_fn(state, _prep_batch(batch))
+        if is_blip:
+            alpha_i = alpha * min(1.0, i / max(1, n_batches)) if epoch == 0 else alpha
+            state, metrics = step_fn(state, _prep_batch(batch), alpha_i)
+        else:
+            state, metrics = step_fn(state, _prep_batch(batch))
         if lr_schedule is not None:
             # indexed by the optimizer update count (micro-batches collapsed
             # by accumulation), after this step's update
@@ -58,12 +68,15 @@ def train_one_epoch(
     return state, metric_logger.global_avg_dict()
 
 
-def eval_engine(eval_step: Callable, loader: Iterable, config) -> dict:
-    """In-batch validation (reference engine.py:58-84): averaged loss and accuracy."""
+def eval_engine(eval_step: Callable, loader: Iterable, config, state=None, alpha: Optional[float] = None) -> dict:
+    """In-batch validation (reference engine.py:58-84; blip engine :77-112):
+    averaged loss and accuracy.  A CLIP eval step takes the batch; BLIP's
+    takes (state, batch, alpha), and leaves the state as it was."""
     metric_logger = MetricLogger()
     print_freq = int(getattr(config.evaluator, "print_freq", 10))
     for batch in metric_logger.log_every(loader, print_freq, "Eval:"):
-        metrics = eval_step(_prep_batch(batch))
+        batch = _prep_batch(batch)
+        metrics = eval_step(batch) if alpha is None else eval_step(state, batch, alpha)
         metric_logger.update(**{k: float(v) for k, v in metrics.items()})
     metric_logger.synchronize_between_processes()
     print(f"Averaged eval stats: {metric_logger}")

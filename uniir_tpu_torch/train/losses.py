@@ -1,4 +1,5 @@
-"""In-batch contrastive loss (counterpart of uniir_tpu/train/losses.py, CLIP family).
+"""Contrastive losses (counterpart of uniir_tpu/train/losses.py): the
+in-batch loss of the CLIP family and BLIP's momentum-distilled loss.
 
 The collator's static flat layout: rows [0, bs) queries, [bs, 2bs)
 positives, [2bs, 2bs + bs*neg) hard negatives; with `n_hosts` > 1 the
@@ -75,3 +76,65 @@ def inbatch_contrastive_loss(
     loss = F.cross_entropy(logits, targets)
     accuracy = (logits.argmax(dim=1) == targets).float().mean()
     return {"loss": loss, "accuracy": accuracy}
+
+
+def momentum_distill_contrastive_loss(
+    embeddings: torch.Tensor,
+    embeddings_m: torch.Tensor,
+    bs: int,
+    p_dids: torch.Tensor,
+    queue_query: torch.Tensor,
+    queue_cand: torch.Tensor,
+    queue_idx: torch.Tensor,
+    temp: torch.Tensor,
+    alpha,
+    hard_neg_num: int = 0,
+    n_dids: Optional[torch.Tensor] = None,
+    n_hosts: int = 1,
+) -> Dict[str, torch.Tensor]:
+    """ALBEF-style momentum-distilled symmetric contrastive loss of BLIP
+    (reference blip_sf.py:174-313; the JAX package's function of this name).
+
+    `embeddings` are the online model's rows, `embeddings_m` the momentum
+    twin's (no gradient); the queues are row-major [Q, D] / [Q].  A candidate
+    whose did equals a query's positive did, in the batch or in the queue,
+    is a positive too (`pos_idx`).  The soft targets mix the momentum pair's
+    softmax (weight `alpha`) with those positives and carry no gradient.
+    With hard negatives the first `bs * hard_neg_num` queue rows make way
+    for the momentum negatives.  Everything is fp32.  Returns the loss, the
+    accuracy (the positive mask at each row's argmax) and the momentum rows
+    to enqueue, as in the JAX package."""
+    q, p, _ = split_flat_batch(embeddings.float(), bs, hard_neg_num, n_hosts)
+    q, p = l2_normalize(q), l2_normalize(p)
+    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=q.device)
+    with torch.no_grad():
+        q_m, p_m, n_m = split_flat_batch(embeddings_m.float(), bs, hard_neg_num, n_hosts)
+        q_m, p_m = l2_normalize(q_m), l2_normalize(p_m)
+        if hard_neg_num > 0:
+            n_m = l2_normalize(n_m)
+            hard = bs * hard_neg_num
+            idx_all = torch.cat([p_dids, n_dids.reshape(-1), queue_idx[hard:]])[None, :]
+            cand_m_all = torch.cat([p_m, n_m.reshape(hard, -1), queue_cand[hard:]])
+        else:
+            idx_all = torch.cat([p_dids, queue_idx])[None, :]  # [1, bs + Q]
+            cand_m_all = torch.cat([p_m, queue_cand])  # [bs + Q, D]
+        query_m_all = torch.cat([q_m, queue_query])  # [bs + Q, D]
+
+        pos_idx = (p_dids.reshape(bs, 1) == idx_all).float()  # [bs, bs + Q]
+        sim_targets = pos_idx / pos_idx.sum(dim=1, keepdim=True)
+        t = temp.detach()
+        sim_q2pc_targets = alpha * torch.softmax(q_m @ cand_m_all.T / t, dim=1) + (1 - alpha) * sim_targets
+        sim_pc2q_targets = alpha * torch.softmax(p_m @ query_m_all.T / t, dim=1) + (1 - alpha) * sim_targets
+
+    sim_q2pc = q @ cand_m_all.T / temp
+    sim_pc2q = p @ query_m_all.T / temp
+    loss_q2pc = -(torch.log_softmax(sim_q2pc, dim=1) * sim_q2pc_targets).sum(dim=1).mean()
+    loss_pc2q = -(torch.log_softmax(sim_pc2q, dim=1) * sim_pc2q_targets).sum(dim=1).mean()
+    accuracy = pos_idx.gather(1, sim_q2pc.detach().argmax(dim=1, keepdim=True)).mean()
+    return {
+        "loss": (loss_q2pc + loss_pc2q) / 2,
+        "accuracy": accuracy,
+        "enqueue_query": q_m,
+        "enqueue_pos_cand": p_m,
+        "enqueue_neg_cand": n_m[:, 0, :] if hard_neg_num > 0 else None,
+    }

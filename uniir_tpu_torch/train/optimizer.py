@@ -1,5 +1,5 @@
-"""AdamW in the CLIP parameter groups and the cosine schedule
-(counterpart of uniir_tpu/train/optimizer.py, the CLIP family).
+"""AdamW in the CLIP parameter groups, BLIP's single AdamW group and the
+cosine schedule (counterpart of uniir_tpu/train/optimizer.py).
 
 Parameters with ndim < 2, or whose name contains bn / ln / bias /
 logit_scale, get no weight decay; the rest get `weight_decay` (0.2 for
@@ -87,4 +87,28 @@ def make_clip_optimizer(
         return lambda count: schedule(count) / lr if lr else 0.0
 
     scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, [factor(g["lr"]) for g in groups])
+    return optimizer, scheduler
+
+
+def make_blip_optimizer(
+    model: nn.Module,
+    learning_rate: float,
+    total_steps: int,
+    weight_decay: float = 0.05,
+    warmup_steps: int = 0,
+) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
+    """BLIP: one AdamW group over every trainable parameter, weight decay on
+    all of them (LayerNorm, biases and `temp` too: optax.adamw without a
+    mask, reference uniir_blip/train.py:192-197), optax's defaults betas
+    (0.9, 0.999) and eps 1e-8, on the shared cosine schedule.  A parameter
+    with requires_grad=False is left out: no step and no decay, what the JAX
+    package's `optax.set_to_zero` label does for a frozen subtree.  The
+    port's BLIP-SF has no cross-attention modules, so nothing is frozen
+    there; BLIP-FF trains its cross-attention."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    optimizer = torch.optim.AdamW(params, lr=learning_rate, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
+    schedule = cosine_schedule(learning_rate, total_steps, warmup_steps)
+    scheduler = torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda count: schedule(count) / learning_rate if learning_rate else 0.0
+    )
     return optimizer, scheduler

@@ -1,31 +1,43 @@
-"""Train and eval steps (CLIP-SF, CLIP-FF) and the embed step (all four
-retrievers): the counterpart of uniir_tpu/train/steps.py.
+"""Train and eval steps of the four retrievers and the embed step: the
+counterpart of uniir_tpu/train/steps.py.
 
 A step takes a collated batch (numpy arrays or tensors) and runs eagerly on
-the model's device.  The train step's forward goes through kernel K1 (K10
-where the model was built with `attn_splitk`) and its backward through K3
-(`ops.attention`).  Metrics come back as 0-d device tensors, so a loop can
-defer fetching them (`train.engine`).  No GradScaler: bf16 needs no loss
-scaling.
+the model's device.  The train steps' forwards go through kernel K1 (K10
+where a CLIP model was built with `attn_splitk`) and their backwards
+through K3 (`ops.attention`).  Metrics come back as 0-d device tensors, so a
+loop can defer fetching them (`train.engine`).  No GradScaler: bf16 needs
+no loss scaling.
 
-CLIP-FF's T5 fusion stack is the one part with stochastic layers.  The
-train step puts it in train mode only `with_dropout`, and its dropout then
-draws from one `torch.Generator` on the model's device, seeded anew from
-(`seed`, `state.step`) at the top of every step -- the counterpart of
-`fold_in(PRNGKey(seed), state.step)` -- so a resumed run draws the masks the
-uninterrupted run would have drawn and a checkpoint saves no generator
-state.  The eval and embed steps run the stack in eval mode, deterministic.
+Dropout draws from one `torch.Generator` on the model's device, seeded
+anew from (`seed`, `state.step`) at the top of every step -- the
+counterpart of `fold_in(PRNGKey(seed), state.step)` -- so a resumed run
+draws the masks the uninterrupted run would have drawn and a checkpoint
+saves no generator state.  The masks cannot equal flax's, bit for bit.
+CLIP-FF's T5 fusion stack is the CLIP family's one stochastic part: the
+CLIP train step puts it in train mode only `with_dropout`.  BLIP's train
+step (on by default, as the JAX trainer runs it) puts the whole online
+model in train mode: the ViT's drop-path and MED's dropout.  The eval and
+embed steps are deterministic.
+
+BLIP's step keeps the JAX order of work: clamp `temp` to [0.001, 0.5] in
+place, the EMA update of the momentum twin, the twin's forward (eval mode,
+no gradient), the online forward, the momentum-distilled loss, backward and
+update, then the enqueue.  With hard negatives a fair coin picks whether
+the positives or the first hard negatives are enqueued; it is drawn on the
+host from a generator seeded with (`seed` + 1, `state.step`), the
+counterpart of `fold_in(PRNGKey(seed + 1), step)`, and cannot match JAX's
+draw bit for bit either.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from uniir_tpu_torch.train.losses import inbatch_contrastive_loss
-from uniir_tpu_torch.train.state import TrainState
+from uniir_tpu_torch.train.losses import inbatch_contrastive_loss, momentum_distill_contrastive_loss
+from uniir_tpu_torch.train.state import MomentumTrainState, TrainState
 
 
 def _to_device(x, device: torch.device):
@@ -118,6 +130,82 @@ def make_clip_eval_step(model: torch.nn.Module, hard_neg_num: int = 0, in_batch_
     return step
 
 
+def enqueue_coin(seed: int, step: int) -> bool:
+    """With hard negatives, whether micro-batch `step` enqueues the positives
+    (True) or the first hard negatives: a fair coin from a host generator
+    seeded with step_seed(seed + 1, step)."""
+    generator = torch.Generator().manual_seed(step_seed(seed + 1, step))
+    return bool(torch.rand((), generator=generator) < 0.5)
+
+
+def blip_loss(state: MomentumTrainState, batch: Dict[str, Any], alpha, hard_neg_num: int = 0,
+              temp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The momentum twin's forward (no gradient), the online model's forward
+    in the mode it is in, and the momentum-distilled loss against the
+    queues; `temp` defaults to the model's parameter."""
+    device = state.queue_query.device
+    inputs = model_inputs(batch, device)
+    n_dids = _to_device(batch["nc_dids_list"], device) if hard_neg_num > 0 else None
+    with torch.no_grad():
+        emb_m = state.model_m(*inputs)
+    emb = state.model(*inputs)
+    return momentum_distill_contrastive_loss(
+        emb, emb_m, infer_flat_bs(batch, hard_neg_num), _to_device(batch["p_did_list"], device),
+        state.queue_query, state.queue_cand, state.queue_idx, state.model.temp if temp is None else temp, alpha,
+        hard_neg_num=hard_neg_num, n_dids=n_dids,
+    )
+
+
+def make_blip_train_step(
+    model: torch.nn.Module, hard_neg_num: int = 0, with_dropout: bool = True, seed: int = 0
+) -> Callable[[MomentumTrainState, Dict[str, Any], float], Tuple[MomentumTrainState, Dict[str, torch.Tensor]]]:
+    """Train step for the BLIP family (SF and FF share it).  step(state,
+    batch, alpha) returns (state, {"loss", "inbatch_accuracy"}); `alpha`,
+    the distillation weight, is passed per step (the engine warms it up in
+    epoch 0).  `with_dropout` switches the online model's drop-path and
+    dropout on, drawn from a generator that every step seeds from (`seed`,
+    `state.step`), `seed` being config.seed."""
+    generator = torch.Generator(device=model.temp.device) if with_dropout else None
+
+    def step(state: MomentumTrainState, batch: Dict[str, Any], alpha):
+        model = state.model
+        with torch.no_grad():
+            model.temp.clamp_(0.001, 0.5)
+        state.momentum_update()
+        state.model_m.eval()
+        model.train(with_dropout)
+        if generator is not None:
+            model.set_dropout_generator(generator.manual_seed(step_seed(seed, state.step)))
+        out = blip_loss(state, batch, alpha, hard_neg_num)
+        out["loss"].backward()
+        coin_step = state.step
+        state.apply_gradients()
+        device = state.queue_idx.device
+        cand, idx = out["enqueue_pos_cand"], _to_device(batch["p_did_list"], device)
+        if hard_neg_num > 0 and not enqueue_coin(seed, coin_step):
+            cand, idx = out["enqueue_neg_cand"], _to_device(batch["nc_dids_list"], device)[:, 0]
+        state.enqueue(out["enqueue_query"], cand, idx)
+        return state, {"loss": out["loss"].detach(), "inbatch_accuracy": out["accuracy"]}
+
+    return step
+
+
+def make_blip_eval_step(hard_neg_num: int = 0) -> Callable:
+    """No-grad BLIP eval: step(state, batch, alpha) -> {"loss",
+    "inbatch_accuracy"} against the current queues, both models in eval
+    mode and `temp` clamped out of place.  It changes nothing of the state
+    (PARITY row 3: the reference snapshots and restores it around eval)."""
+
+    def step(state: MomentumTrainState, batch: Dict[str, Any], alpha) -> Dict[str, torch.Tensor]:
+        state.model.eval()
+        state.model_m.eval()
+        with torch.inference_mode():
+            out = blip_loss(state, batch, alpha, hard_neg_num, temp=state.model.temp.clamp(0.001, 0.5))
+        return {"loss": out["loss"], "inbatch_accuracy": out["accuracy"]}
+
+    return step
+
+
 def make_embed_step(model: torch.nn.Module, out_dtype: torch.dtype = torch.float16) -> Callable:
     """Embedding forward for the eval pipeline: the model's compute dtype in,
     `out_dtype` (fp16 artifacts on disk, reference mbeir_embedder.py:56,110) out.
@@ -127,7 +215,7 @@ def make_embed_step(model: torch.nn.Module, out_dtype: torch.dtype = torch.float
     device = next(model.parameters()).device
 
     def step(batch: Dict[str, Any]) -> torch.Tensor:
-        _set_fusion_mode(model, False)  # deterministic, as the eval step
+        model.eval()  # deterministic, whatever mode a train step left the model in
         with torch.inference_mode():
             return model(*model_inputs(batch, device)).to(out_dtype)
 

@@ -1,4 +1,4 @@
-"""Trainer entry point for CLIP-SF and CLIP-FF, one process on one device
+"""Trainer entry point for the four retrievers, one process on one device
 (counterpart of uniir_tpu/train/trainer.py).
 
     python -m uniir_tpu_torch.train.trainer --config_path configs/clip_sf/large/train/inbatch/inbatch.yaml \
@@ -12,9 +12,15 @@ in-batch validation, logged to wandb when `wandb_config.enabled` and the
 package is installed.  The file-reading data path is the port's own
 (`uniir_tpu_torch/data`: `build_mbeir_dataset_from_config`, `MBEIRLoader`,
 `EpochShuffleSampler`; Pillow is needed only once an image is opened);
-`train_one_epoch` takes any iterable of collated batches.  The BLIP
-retrievers, and training over several processes, raise until they are
-ported (ROADMAP.md, Queue 1).
+`train_one_epoch` takes any iterable of collated batches.
+
+BLIP-SF / BLIP-FF train by momentum distillation: one AdamW group (wd
+`trainer_config.weight_decay`, 0.05) over every parameter, a
+`MomentumTrainState` with the momentum twin and the queues
+(`model.queue_size`, `model.momentum`), the BLIP train step with dropout
+on, and `model.alpha` warmed up over epoch 0; the in-batch validation reads
+the queues and changes nothing.  Training over several processes is not
+ported (ROADMAP.md, Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -31,9 +37,16 @@ from uniir_tpu_torch.data.data_utils import DatasetType, build_mbeir_dataset_fro
 from uniir_tpu_torch.data.loader import EpochShuffleSampler, MBEIRLoader
 from uniir_tpu_torch.models.registry import build_model_from_config
 from uniir_tpu_torch.train.engine import eval_engine, train_one_epoch
-from uniir_tpu_torch.train.optimizer import cosine_schedule, make_clip_optimizer
-from uniir_tpu_torch.train.state import TrainState
-from uniir_tpu_torch.train.steps import make_clip_eval_step, make_clip_train_step
+from uniir_tpu_torch.train.optimizer import cosine_schedule, make_blip_optimizer, make_clip_optimizer
+from uniir_tpu_torch.train.state import MomentumTrainState, TrainState
+from uniir_tpu_torch.train.steps import (
+    make_blip_eval_step,
+    make_blip_train_step,
+    make_clip_eval_step,
+    make_clip_train_step,
+)
+
+BLIP_MODELS = ("BLIPScoreFusion", "BLIPFeatureFusion")
 
 
 def log_results(train_stats, val_stats, test_stats, epoch=None, best_epoch=None) -> dict:
@@ -54,10 +67,7 @@ def log_results(train_stats, val_stats, test_stats, epoch=None, best_epoch=None)
 def build_train_setup(config, bundle=None, device=None) -> dict:
     """Everything main() needs, reusable from tests: returns a dict."""
     model_name = config.model.name
-    if model_name not in ("CLIPScoreFusion", "CLIPFeatureFusion"):
-        raise NotImplementedError(
-            f"training {model_name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 5)"
-        )
+    is_blip = model_name in BLIP_MODELS
     trainer_config, data_config = config.trainer_config, config.data_config
     if bundle is None:
         bundle = build_model_from_config(config, device, train=True)
@@ -90,20 +100,35 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
     warmup = int(getattr(trainer_config, "warmup_steps", 0))
 
     model = bundle.model
-    fusion_lr = getattr(trainer_config, "t5_learning_rate", None)
-    optimizer, scheduler = make_clip_optimizer(
-        model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.2)), warmup_steps=warmup,
-        fusion_learning_rate=float(fusion_lr) if fusion_lr else None,
-    )
-    return {
-        "bundle": bundle,
-        "state": TrainState(model, optimizer, scheduler, accumulation_steps=accum),
-        "train_step": make_clip_train_step(
+    if is_blip:
+        optimizer, scheduler = make_blip_optimizer(
+            model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.05)), warmup_steps=warmup
+        )
+        state = MomentumTrainState.create(
+            model, optimizer, scheduler, queue_size=bundle.extra["queue_size"],
+            embed_dim=bundle.embed_dim, momentum=bundle.extra["momentum"], accumulation_steps=accum,
+        )
+        train_step = make_blip_train_step(model, hard_neg_num=hard_neg_num, seed=int(config.seed))
+        eval_step = make_blip_eval_step(hard_neg_num=hard_neg_num)
+    else:
+        fusion_lr = getattr(trainer_config, "t5_learning_rate", None)
+        optimizer, scheduler = make_clip_optimizer(
+            model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.2)), warmup_steps=warmup,
+            fusion_learning_rate=float(fusion_lr) if fusion_lr else None,
+        )
+        state = TrainState(model, optimizer, scheduler, accumulation_steps=accum)
+        train_step = make_clip_train_step(
             model, hard_neg_num=hard_neg_num, in_batch_neg_num=in_batch_neg_num,
             with_dropout=(model_name == "CLIPFeatureFusion"),  # T5 fusion dropout
             seed=int(config.seed),
-        ),
-        "eval_step": make_clip_eval_step(model, hard_neg_num=hard_neg_num, in_batch_neg_num=in_batch_neg_num),
+        )
+        eval_step = make_clip_eval_step(model, hard_neg_num=hard_neg_num, in_batch_neg_num=in_batch_neg_num)
+    return {
+        "bundle": bundle,
+        "is_blip": is_blip,
+        "state": state,
+        "train_step": train_step,
+        "eval_step": eval_step,
         "train_loader": train_loader,
         "train_sampler": train_sampler,
         "train_dataset": train_dataset,
@@ -152,6 +177,8 @@ def main(config, bundle=None, device=None, wandb_run=None) -> dict:
         start_epoch = last_epoch + 1
         print(f"Resuming training from epoch {start_epoch}")
 
+    is_blip = setup["is_blip"]
+    blip = {"alpha": setup["bundle"].extra["alpha"]} if is_blip else {}  # the distillation weight
     best_inbatch_accuracy = 0.0
     best_epoch = 0
     last_stats: dict = {}
@@ -160,11 +187,13 @@ def main(config, bundle=None, device=None, wandb_run=None) -> dict:
         setup["train_sampler"].set_epoch(epoch)
         setup["train_dataset"].seed(int(config.seed) + epoch)
         state, train_stats = train_one_epoch(
-            setup["train_step"], state, setup["train_loader"], epoch, config, lr_schedule=setup["lr_schedule"]
+            setup["train_step"], state, setup["train_loader"], epoch, config, lr_schedule=setup["lr_schedule"],
+            is_blip=is_blip, **blip,
         )
         val_stats = None
         if setup["valid_loader"] is not None and epoch % eval_freq == 0:
-            val_stats = eval_engine(setup["eval_step"], setup["valid_loader"], config)
+            val_stats = eval_engine(setup["eval_step"], setup["valid_loader"], config,
+                                    state=state, **blip)
             inbatch_accuracy = float(val_stats.get("inbatch_accuracy", 0.0))
             if inbatch_accuracy >= best_inbatch_accuracy:
                 best_inbatch_accuracy = inbatch_accuracy
@@ -196,7 +225,7 @@ def init_wandb(config):
 
 
 def cli(argv=None):
-    parser = argparse.ArgumentParser(description="uniir_tpu_torch trainer (CLIP-SF / CLIP-FF, one device)")
+    parser = argparse.ArgumentParser(description="uniir_tpu_torch trainer (CLIP-SF / CLIP-FF / BLIP-SF / BLIP-FF, one device)")
     parser.add_argument("--config_path", default="config.yaml", help="Path to the config file.")
     parser.add_argument("--uniir_dir", type=str, default="/data/UniIR")
     parser.add_argument("--mbeir_data_dir", type=str, default="/data/UniIR/mbeir_data")
