@@ -29,10 +29,13 @@
    guard, with the sweep's share of it,
    K5 (int8 matmul) at the CLIP-L projection shapes in its dynamic and
    static modes (beside `torch._int_mm` alone, and at the vision and text
-   shapes its main loop's two tiles in turns), K6 (fused int8 MLP) at the
-   vision and text widths (beside K5 at its two product shapes), with
-   times for kernel, twin and, where one PyTorch call computes the same
-   function, that call (used nowhere in the port);
+   shapes its main loop's two tiles in turns) and at the int8 CLIP-FF /
+   BLIP paths' shapes (T5 over 334 tokens, MED over 50 and its
+   cross-attention's k / v over 197, the BLIP ViT-L/16, the heads and the
+   pooler), K6 (fused int8 MLP) at the CLIP vision and text widths and at
+   the BLIP ViT-L/16's with the exact GELU (beside K5 at its two product
+   shapes), with times for kernel, twin and, where one PyTorch call
+   computes the same function, that call (used nowhere in the port);
 2. drives the serving path once through the port's own entry points --
    seeded CLIP-SF ViT-L/14 in bf16 embeds collated query and candidate
    batches, `create_index`, then `run_retrieval` with the int8 pool (as
@@ -55,7 +58,14 @@
    pools: once with UNIIR_ATTN_SPLITK=1 (24 K10 + 12 K1 launches a batch)
    and once without (36 K1, no K10), and checks the counts, the cosine of
    the two runs' embeddings and of kernels against twins inside the model,
-   the pools' ids and the copied candidates;
+   the pools' ids and the copied candidates; then int8 CLIP-FF serving:
+   calibrates the bf16 model on two batches (the towers' and the T5
+   stack's entries), round-trips the .npz, builds the quantised model with
+   `build_model_from_config` (`model.int8`) under UNIIR_INT8_BACKEND = xla
+   (K5) and static (K5 + K6), embeds, indexes and retrieves, and checks
+   the K1 / K5 / K6 counts against `expected_int8_model_launches`, the
+   cosine to the bf16 embeddings, the copied candidates and the model
+   through the twins of K5 / K6;
 5. checks K3, the attention backward, against its twin at the CLIP-L vision
    and text shapes, the BLIP ViT-L's L = 197 and the `base` shapes (and
    against autograd through the
@@ -74,7 +84,10 @@
    padding does not leak, that both pools return the same ids and that
    copied candidates are found; then BLIP-FeatureFusion `large` the same
    way through `build_model_from_config` (24 K1 a batch: the ViT's token
-   output feeds MED's cross-attention; retrieval also through K11);
+   output feeds MED's cross-attention; retrieval also through K11); after
+   each, its int8 serving as CLIP-FF's above (MED's attention entries are
+   triples; K6 runs with the exact GELU; K7 one a batch; BLIP-FF holds
+   only image-bearing copies to the top 10);
 7. drives the training path through the port's own entry points -- seeded
    CLIP-SF ViT-L/14 with fp32 masters and bf16 compute from
    `build_model_from_config(train=True)`, `make_clip_optimizer`,
@@ -104,7 +117,7 @@ With `--profile` it also prints torch.profiler breakdowns, by kernel group,
 of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
 UNIIR_ATTN_SPLITK=1), of the CLIP-SF embed step at
 batch 64 in bf16 and in each int8 mode, and of the CLIP-FF, BLIP-SF and
-BLIP-FF forwards at batch 64.
+BLIP-FF forwards at batch 64 in bf16 and in the static int8 mode.
 
 Prints, before the last line, the card's name and power limit and one JSON
 line with each kernel's launches, error, times and bound (the least time
@@ -891,9 +904,10 @@ def write_qrels(root: str, data: dict) -> None:
 
 def retrieve_and_check(root: str, expt: str, embed_dim: int, data: dict, tag: str,
                        pool_dtypes=("int8", "bf16"), must_find=None) -> None:
-    """`create_index`, then `run_retrieval` with the int8 pool (as shipped),
-    where asked the per-bucket int8 pool (K11), and the bf16 pool: all return
-    the same ids, and every query that copies a candidate finds it in its
+    """`create_index`, then `run_retrieval` with each pool of `pool_dtypes`:
+    the int8 pool (as shipped), where asked the per-bucket int8 pool (K11),
+    and the last one, the bf16 pool where asked, which is the reference: all
+    return its ids, and every query that copies a candidate finds it in its
     top 10 (`must_find(candidate index)` says which copies are held to that;
     all of them unless given)."""
     from uniir_tpu_torch.retrieval.eval import run_retrieval
@@ -913,12 +927,13 @@ def retrieve_and_check(root: str, expt: str, embed_dim: int, data: dict, tag: st
     runs = {d: read_run(os.path.join(root, f"results_{tag}_{d}", expt, "run_files",
                                      "mbeir_mscoco_task0_single_pool_test_k10_run.txt")) for d in stats}
     ids = {d: {q: [did for did, _ in rows] for q, rows in run.items()} for d, run in runs.items()}
-    for dtype in (d for d in pool_dtypes if d != "bf16"):
-        differ = [q for q in ids["bf16"] if ids["bf16"][q] != ids[dtype][q]]
+    ref = pool_dtypes[-1]
+    for dtype in pool_dtypes[:-1]:
+        differ = [q for q in ids[ref] if ids[ref][q] != ids[dtype][q]]
         for q in differ[:3]:
-            log(f"  {q} bf16: {runs['bf16'][q]}\n  {q} {dtype}: {runs[dtype][q]}")
-        check(not differ, f"{tag}: {dtype} and bf16 retrieval returned different ids for {len(differ)} queries")
-    missing = [j for j, c in data["copied"].items() if f"9:{c}" not in ids["bf16"][f"9:{j}"]]
+            log(f"  {q} {ref}: {runs[ref][q]}\n  {q} {dtype}: {runs[dtype][q]}")
+        check(not differ, f"{tag}: {dtype} and {ref} retrieval returned different ids for {len(differ)} queries")
+    missing = [j for j, c in data["copied"].items() if f"9:{c}" not in ids[ref][f"9:{j}"]]
     if must_find is not None:
         held = [j for j in missing if must_find(data["copied"][j])]
         log(f"{tag}: copied candidates missing from their queries' top 10: {len(missing)} of {len(data['copied'])}, "
@@ -1037,6 +1052,17 @@ def check_int8_matmul(results: dict) -> None:
              ("text fc1", MT, 768, 3072, None), ("text fc2", MT, 3072, 768, None),
              ("trimmed block k/v", BATCH * 257, 1024, 3072, (1024, 3072)), ("trimmed block q", BATCH, 1024, 3072, (0, 1024)),
              ("trimmed block fc2", BATCH, 4096, 1024, None)]
+    # the int8 CLIP-FF / BLIP paths' shapes: T5 over 77 + 257 tokens (bias-free), MED over 50 tokens and
+    # its cross-attention's k / v over the ViT's 197, the BLIP ViT-L/16, the heads and pooler at M = 64
+    MF, MM, MB = BATCH * 334, BATCH * BLIP_MAX_LEN, BATCH * 197
+    new_cases = [("t5 q/k/v/o", MF, 768, 768, None), ("t5 wi", MF, 768, 3072, None), ("t5 wo", MF, 3072, 768, None),
+                 ("med q/k/v/out", MM, 768, 768, None), ("med intermediate", MM, 768, 3072, None),
+                 ("med output", MM, 3072, 768, None), ("med cross k/v", MB, 1024, 768, None),
+                 ("blip vision qkv third", MB, 1024, 3072, (0, 1024)), ("blip vision out", MB, 1024, 1024, None),
+                 ("blip vision fc1", MB, 1024, 4096, None), ("blip vision fc2", MB, 4096, 1024, None),
+                 ("blip trimmed block k/v", MB, 1024, 3072, (1024, 3072)), ("pooler / text_proj", BATCH, 768, 768, None),
+                 ("vision_proj", BATCH, 1024, 768, None)]
+    cases += new_cases
     worst = 0.0
     for tag, M, K, N, cols in cases:
         xq = torch.randint(-127, 128, (M, K), generator=g, device="cuda", dtype=torch.int8)
@@ -1075,21 +1101,29 @@ def check_int8_matmul(results: dict) -> None:
             limit = bound(nbytes(xq, wq, a_rows, ws, bias) + 2 * M * N, 2 * M * K * N, INT8_OPS_PER_S)
             log(f"K5 {tag}: plain_ms={plain_ms} library_ms={library_ms} (torch._int_mm alone {int_mm_ms}) {limit}")
             results["K5"].update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **limit)
+        elif (tag, M, K, N, cols) in new_cases:
+            # the operands this call reads (the weight rows of its column range) and its bf16 output
+            plain_ms = cuda_ms(lambda: Q.int8_matmul_twin(xq, a_rows, wq, ws, bias, cols), 3)
+            limit = bound(nbytes(xq, w_cols, a_rows) + 8 * n + 2 * M * n, 2 * M * K * n, INT8_OPS_PER_S)
+            log(f"K5 {tag} M={M} K={K} N={n}: kernel_ms={ms} plain_ms={plain_ms} torch._int_mm alone {int_mm_ms} {limit}")
         del xq, wq
     results["K5"]["max_abs_err"] = worst
 
 
 def check_int8_mlp(results: dict) -> None:
-    """K6 against its twin at the vision and text widths at batch 64, and the
-    MLP module's two static routes (K6, or two K5 calls around a bf16 hidden)
-    timed beside each other."""
+    """K6 against its twin at the CLIP vision and text widths and the BLIP
+    ViT-L/16's (exact GELU, the activation it runs there) at batch 64, and
+    the MLP module's two static routes (K6, or two K5 calls around a bf16
+    hidden) timed beside each other, each in the activation of its model."""
     from uniir_tpu_torch.models.layers import MLP
     from uniir_tpu_torch.ops import mlp as M_
     from uniir_tpu_torch.ops import quant as Q
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst = 0.0
-    for tag, M, W in (("vision", BATCH * 257, 1024), ("text", BATCH * 77, 768)):
+    both = ("quick_gelu", "gelu")
+    for tag, M, W, acts in (("vision", BATCH * 257, 1024, both), ("text", BATCH * 77, 768, both),
+                            ("blip vision", BATCH * 197, 1024, ("gelu",))):
         H = 4 * W
         h = (torch.randn(M, W, generator=g, device="cuda") * 0.5).bfloat16()
         res = torch.randn(M, W, generator=g, device="cuda").bfloat16()
@@ -1098,7 +1132,7 @@ def check_int8_mlp(results: dict) -> None:
         b1, b2 = torch.randn(H, generator=g, device="cuda") * 0.1, torch.randn(W, generator=g, device="cuda") * 0.1
         a1, a2 = float(h.float().abs().max()) / 127.0, 2.0 / 127.0  # a2 clips the hidden's top
         args = (h, res, w1q, s1, b1, w2q, s2, b2, a1, a2)
-        for act in ("quick_gelu", "gelu"):
+        for act in acts:
             out = M_.int8_mlp(*args, act=act)
             torch.cuda.synchronize()
             ref = M_.int8_mlp_twin(*args, act=act)
@@ -1111,12 +1145,13 @@ def check_int8_mlp(results: dict) -> None:
             # (2^-5 below 8) on a few outputs
             check(err <= 2.0**-5 and share <= 1e-3, f"K6 disagrees with its twin at {tag} shapes, {act}")
             worst = max(worst, err)
-        ms = cuda_ms(lambda: M_.int8_mlp(*args), 10)
-        plain_ms = cuda_ms(lambda: M_.int8_mlp_twin(*args), 3)
+        act = acts[0]  # the model's: QuickGELU in CLIP, the exact GELU in BLIP's ViT
+        ms = cuda_ms(lambda: M_.int8_mlp(*args, act=act), 10)
+        plain_ms = cuda_ms(lambda: M_.int8_mlp_twin(*args, act=act), 3)
         # the two routes of the static MLP half-block, through the module the model calls
         routes = {}
         for route in ("fused", "xla"):
-            mlp = MLP(W, H, quant=True, int8_mode="static", mlp_route=route).to(DEVICE)
+            mlp = MLP(W, H, quant=True, int8_mode="static", mlp_route=route, act=act).to(DEVICE)
             mlp.load_state_dict({"c_fc.weight_q": w1q, "c_fc.scale": s1, "c_fc.bias": b1, "c_proj.weight_q": w2q,
                                  "c_proj.scale": s2, "c_proj.bias": b2})
             mlp.set_act_scales([a1, a2])
@@ -1128,7 +1163,7 @@ def check_int8_mlp(results: dict) -> None:
         del xq, hq
         limit = bound(nbytes(h, res, out, w1q, w2q, s1, b1, s2, b2), 4 * M * W * H, INT8_OPS_PER_S)
         products = K5_MS[f"{tag} fc1"] + K5_MS[f"{tag} fc2"]
-        log(f"K6 int8_mlp {tag}: kernel_ms={ms} ({4 * M * W * H / ms / 1e9:.1f} TOP/s) plain_ms={plain_ms} "
+        log(f"K6 int8_mlp {tag} act={act}: kernel_ms={ms} ({4 * M * W * H / ms / 1e9:.1f} TOP/s) plain_ms={plain_ms} "
             f"MLP module static route fused (K6)={routes['fused']} ms, xla (two K5 + bf16 hidden)={routes['xla']} ms; "
             f"K5 at the fc1 and fc2 shapes together {products} ms (K6 over them: {ms - products} ms); "
             f"no single library call computes it: two torch._int_mm of these shapes alone take {two_int_mm} ms; {limit}")
@@ -1322,13 +1357,44 @@ def blip_rows(items, image_size: int, preprocess) -> dict:
     }
 
 
-def drive_blip_path(results: dict, name: str, profile: bool = False) -> None:
+def blip_batches(image_size: int):
+    """`make_batches` for `embed_and_save` over BLIP items: collated batches
+    of BATCH rows (the last one padded by repeating its last row), images
+    through K7."""
+    from uniir_tpu_torch.ops import image_ops as I
+
+    def make_batches(items, ids, id_key, _cfg):
+        for i in range(0, len(items), BATCH):
+            part, part_ids = items[i : i + BATCH], list(ids[i : i + BATCH])
+            n_valid = len(part)
+            part = part + [part[-1]] * (BATCH - n_valid)  # pad_last: repeat the last row
+            part_ids = part_ids + [part_ids[-1]] * (BATCH - n_valid)
+            yield {**blip_rows(part, image_size, I.fused_preprocess), id_key: np.asarray(part_ids, np.int64),
+                   "n_valid": np.int32(n_valid)}
+
+    return make_batches
+
+
+def blip_config(name: str, **model):
+    """The registry config of a seeded BLIP `large` retriever, with a
+    vocabulary file for its tokenizer (the batches here are hash-tokenised)."""
+    from uniir_tpu_torch.core.config import Config
+
+    root = str(WORK)
+    vocab = os.path.join(root, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS) + "\n")
+    return Config.from_dict({"uniir_dir": root, "seed": SEED, "model": {
+        "name": name, "vit": BLIP_SIZE, "tokenizer_max_length": BLIP_MAX_LEN, "bert_vocab_path": vocab, **model}})
+
+
+def drive_blip_path(results: dict, name: str, profile: bool = False) -> dict:
     """BLIP `large` serving through the registry, for `name` =
     BLIPScoreFusion (the last ViT block trimmed to CLS: 23 K1 a batch) or
     BLIPFeatureFusion (the ViT's token output into MED's cross-attention:
     all 24 blocks through K1; retrieval also with the per-bucket int8 pool,
-    K11): uint8 images through K7, then index and retrieval."""
-    from uniir_tpu_torch.core.config import Config
+    K11): uint8 images through K7, then index and retrieval.  Returns the
+    seeded data it embedded."""
     from uniir_tpu_torch.models import layers
     from uniir_tpu_torch.models.registry import build_model_from_config
     from uniir_tpu_torch.ops import attention as attn_mod
@@ -1342,14 +1408,9 @@ def drive_blip_path(results: dict, name: str, profile: bool = False) -> None:
     data = blip_dataset()
     write_qrels(root, data)
     n_batches = -(-N_CANDS // BATCH) + -(-N_QUERY_PAIRS // BATCH)
-    vocab = os.path.join(root, "vocab.txt")  # for the registry's tokenizer; the batches here are hash-tokenised
-    with open(vocab, "w") as f:
-        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS) + "\n")
-    config = Config.from_dict({"uniir_dir": root, "seed": SEED, "model": {
-        "name": name, "vit": BLIP_SIZE, "tokenizer_max_length": BLIP_MAX_LEN, "bert_vocab_path": vocab}})
 
     t0 = time.perf_counter()
-    bundle = build_model_from_config(config, device=DEVICE)
+    bundle = build_model_from_config(blip_config(name), device=DEVICE)
     model = bundle.model
     torch.cuda.synchronize()
     vit_cfg, med_cfg = model.vit_cfg, model.med_cfg
@@ -1361,15 +1422,7 @@ def drive_blip_path(results: dict, name: str, profile: bool = False) -> None:
         f"build_model_from_config in {time.perf_counter() - t0:.1f} s; {N_CANDS} candidates, {N_QUERY_PAIRS} queries, "
         f"batch {BATCH}, uint8 {RAW_SIDE} x {RAW_SIDE} images through K7")
 
-    def make_batches(items, ids, id_key, _cfg):
-        for i in range(0, len(items), BATCH):
-            part, part_ids = items[i : i + BATCH], list(ids[i : i + BATCH])
-            n_valid = len(part)
-            part = part + [part[-1]] * (BATCH - n_valid)  # pad_last: repeat the last row
-            part_ids = part_ids + [part_ids[-1]] * (BATCH - n_valid)
-            yield {**blip_rows(part, vit_cfg.image_size, I.fused_preprocess), id_key: np.asarray(part_ids, np.int64),
-                   "n_valid": np.int32(n_valid)}
-
+    make_batches = blip_batches(vit_cfg.image_size)
     counters = (attn_mod.attention, attn_mod.attention_splitk, I.fused_preprocess, T.bucket_max_scores,
                 T.bucket_max_scores_i8, T.bucket_max_scores_i8b)
     for fn in counters:
@@ -1441,6 +1494,7 @@ def drive_blip_path(results: dict, name: str, profile: bool = False) -> None:
     log(f"{tag} forward of one resident image+text batch of {BATCH}, bf16: {fwd} ms = {BATCH / fwd * 1e3:.1f} pairs/s")
     if profile:
         profile_forward(model, batch, f"{tag} bf16")
+    return data
 
 
 # ------------------------------------------------ phase 4: CLIP-FF serving
@@ -1549,6 +1603,172 @@ def drive_clip_ff_path(results: dict, data: dict, profile: bool = False) -> None
         f"{forwards['splitk']} ms with K10, {forwards['k1']} ms without")
     # 24 layers of attention outputs that may differ by a bf16 step; the direction of every embedding survives
     check(cos.min() >= 0.999, f"CLIP-FF embeddings with and without K10 disagree: min cosine {cos.min()}")
+
+
+# ---------------------------- phase 4b / 6b: int8 CLIP-FF, BLIP-SF and BLIP-FF serving
+
+# the int8 model phases' modes: UNIIR_INT8_BACKEND, UNIIR_INT8_MLP and the least per-row cosine to
+# the model's bf16 embeddings (as INT8_MODES'); `wonly` and static with UNIIR_INT8_MLP=xla are held
+# by the CPU tests and the `-m gpu` cases
+INT8_MODEL_MODES = {"xla": ("xla", "fused", 0.99), "static": ("static", "fused", 0.95)}
+
+
+def expected_int8_model_launches(name: str, static: bool):
+    """(K1, K5, K6) launches of one batch of a `large` int8 model, from the
+    code: a full pre-LN block runs q, k, v, out, fc1, fc2 (6 K5), or q, k, v,
+    out and one K6 under the static fused MLP; BLIP-SF's trimmed last ViT
+    block q, k/v (one K5 over the fused weight's last two thirds), out, then
+    the MLP, and its attention takes the einsum path (no K1); a MED layer
+    runs query, key, value, output.dense (4 K5) for each attention and
+    intermediate, output.dense (2 K5); T5 six K5 a block (no fused kernel
+    for its relu FFN)."""
+    per_block = 4 if static else 6
+    if name == "CLIPFeatureFusion":  # 24 + 12 untrimmed tower blocks, two T5 blocks
+        return 36, 36 * per_block + 2 * 6, 36 if static else 0
+    if name == "BLIPScoreFusion":  # 23 ViT blocks + the trimmed one; MED text mode (12 x 6); two heads
+        return 23, 23 * per_block + 3 + (per_block - 4) + 12 * 6 + 2, 24 if static else 0
+    # BLIP-FF: 24 ViT blocks; MED self- and cross-attention and FFN (12 x 10); the pooler
+    return 24, 24 * per_block + 12 * 10 + 1, 24 if static else 0
+
+
+def drive_int8_model_path(results: dict, name: str, data: dict, profile: bool = False) -> None:
+    """int8 serving of CLIP-FF (ViT-L/14, T5), BLIP-SF or BLIP-FF (`large`)
+    through the port's entry points: calibrate the bf16 model on two seeded
+    batches, round-trip the artifact through a file, then in each of
+    INT8_MODEL_MODES `build_model_from_config` with `model.int8`, the
+    embedder's loop, `create_index` and `run_retrieval` over the data the
+    bf16 phase embedded; checks the K1 / K5 / K6 (and K7) counts against
+    `expected_int8_model_launches`, the cosine to the bf16 phase's
+    embeddings, the copied candidates, and the same model through the twins
+    of K5 / K6 on 8 candidates."""
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import build_model_from_config
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.ops import calibrate as C
+    from uniir_tpu_torch.ops import image_ops as I
+    from uniir_tpu_torch.ops import mlp as M_
+    from uniir_tpu_torch.ops import quant as Q
+    from uniir_tpu_torch.ops import topk as T
+    from uniir_tpu_torch.train.steps import make_embed_step, model_inputs
+
+    root = str(WORK)
+    blip = name.startswith("BLIP")
+    tag = {"CLIPFeatureFusion": "CLIP-FF", "BLIPScoreFusion": "BLIP-SF", "BLIPFeatureFusion": "BLIP-FF"}[name]
+    bf16_expt = {"CLIPFeatureFusion": f"{FF_EXPT}-k1/", "BLIPScoreFusion": BLIP_EXPT,
+                 "BLIPFeatureFusion": "BLIP_FF/Large/Seeded/"}[name]
+    write_qrels(root, data)
+    n_batches = -(-N_CANDS // BATCH) + -(-N_QUERY_PAIRS // BATCH)
+    bf16 = {split: np.load(os.path.join(root, "embed", bf16_expt, split,
+                                        f"mbeir_mscoco_task0_{split}_embed.npy")).astype(np.float32)
+            for split in ("cand_pool", "test")}
+    if blip:
+        from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
+
+        def build(**int8):
+            return build_model_from_config(blip_config(name, **int8), device=DEVICE)
+
+        image_size = BLIP_VIT_CONFIGS[BLIP_SIZE].image_size
+        shape, make_batches = SimpleNamespace(embed_dim=768), blip_batches(image_size)
+        rows = lambda items: blip_rows(items, image_size, I.fused_preprocess)  # noqa: E731
+        # image + text rows: two probe batches, and the batch the bf16 phase timed
+        both = data["cands"][2::3]
+        *probes, timed = (model_inputs(rows(both[i : i + BATCH]), torch.device(DEVICE)) for i in (BATCH // 2, BATCH, 0))
+        has_image = (lambda c: data["cands"][c][1] is not None) if name == "BLIPFeatureFusion" else None
+    else:
+        def build(**int8):
+            return build_clip(name, **int8)
+
+        shape, make_batches = CLIP_CONFIGS[MODEL], None
+        rows = lambda items: {k: v for k, v in collate(items, [0] * len(items), "did_list", shape).items()  # noqa: E731
+                              if k not in ("did_list", "n_valid")}
+        *probes, timed = resident_batch(shape, seed=SEED + 8), resident_batch(shape, seed=SEED + 9), resident_batch(shape)
+        has_image = None
+
+    # calibrate the bf16 model (as the CLI does) on two seeded batches; the artifact goes through a file
+    floats = build().model
+    t0 = time.perf_counter()
+    scales = C.calibrate_act_scales(floats, probes, margin=1.1)
+    calib_path = os.path.join(root, f"calib_{tag}.npz")
+    C.save_act_scales(calib_path, scales)
+    loaded = C.load_act_scales(calib_path)
+    owners = sum(isinstance(m, Q.ActScales) for m in floats.modules())
+    triples = sum(v.shape == (3,) for v in scales.values())
+    check(set(loaded) == set(scales) and len(scales) == owners
+          and all(np.array_equal(loaded[k], v) and np.isfinite(v).all() and (v > 0).all() for k, v in scales.items()),
+          f"the {tag} calibration artifact does not round-trip")
+    check(triples == {"CLIPFeatureFusion": 0, "BLIPScoreFusion": 12, "BLIPFeatureFusion": 24}[name],
+          f"{tag} calibration: {triples} MED attention triples")
+    log(f"{tag} int8 path: calibrated {len(scales)} entries ({triples} MED attention triples) on 2 batches of {BATCH} "
+        f"in {time.perf_counter() - t0:.2f} s -> {os.path.basename(calib_path)}")
+    del floats, probes
+
+    saved_env = {k: os.environ.get(k) for k in ("UNIIR_INT8_BACKEND", "UNIIR_INT8_MLP")}
+    counters = (attn_mod.attention, attn_mod.attention_splitk, Q.int8_matmul, M_.int8_mlp, I.fused_preprocess,
+                T.bucket_max_scores, T.bucket_max_scores_i8, T.bucket_max_scores_i8b)
+    try:
+        for mode, (backend, route, min_cos) in INT8_MODEL_MODES.items():
+            os.environ["UNIIR_INT8_BACKEND"], os.environ["UNIIR_INT8_MLP"] = backend, route
+            t0 = time.perf_counter()
+            model = build(int8=True, int8_calibration=calib_path).model
+            torch.cuda.synchronize()
+            t_build = time.perf_counter() - t0
+            for fn in counters:
+                fn.launches = 0
+            zero_standalone()
+            expt = f"{tag}/Large/SeededInt8-{mode}/"
+            t0 = time.perf_counter()
+            embed_step = make_embed_step(model)
+            emb = embed_and_save(embed_step, data, shape, os.path.join(root, "embed", expt), make_batches)
+            torch.cuda.synchronize()
+            t_embed = time.perf_counter() - t0
+            k1, k10, k5, k6, k7 = (attn_mod.attention.launches, attn_mod.attention_splitk.launches, Q.int8_matmul.launches,
+                                   M_.int8_mlp.launches, I.fused_preprocess.launches)
+            want = tuple(n_batches * n for n in expected_int8_model_launches(name, backend == "static"))
+            log(f"{tag} int8 path mode={mode} (UNIIR_INT8_BACKEND={backend}, UNIIR_INT8_MLP={route}): build {t_build:.1f} s, "
+                f"embed {t_embed:.2f} s (host clock, {n_batches} batches of {BATCH}); launches K1={k1} K10={k10} K5={k5} "
+                f"K6={k6} K7={k7}; expected K1, K5, K6 = {want} ({n_batches} batches), K7 = {n_batches if blip else 0}")
+            check((k1, k5, k6) == want and k10 == 0 and k7 == (n_batches if blip else 0),
+                  f"{tag} int8 mode {mode}: K1 / K5 / K6 / K10 / K7 launched {k1} / {k5} / {k6} / {k10} / {k7} times, "
+                  f"expected {want}, 0 and {n_batches if blip else 0}")
+            for kernel, n in (("K1", k1), ("K5", k5), ("K6", k6), ("K7", k7)):
+                results[kernel]["launches"] += n
+
+            cos = np.concatenate([np.sum(emb[s_] * bf16[s_], 1) / (np.linalg.norm(emb[s_], axis=1) * np.linalg.norm(bf16[s_], axis=1))
+                                  for s_ in ("cand_pool", "test")])
+            log(f"{tag} int8 path mode={mode}: cosine to the bf16 path's embeddings min {cos.min():.5f} mean {cos.mean():.5f}")
+            check(cos.min() >= min_cos, f"{tag} int8 embeddings (mode {mode}) left the bf16 path's: min cosine {cos.min()}")
+            retrieve_and_check(root, expt, shape.embed_dim, data, f"{tag}_int8_{mode}", ("int8",), has_image)
+            k2, k4, k11 = T.bucket_max_scores.launches, T.bucket_max_scores_i8.launches, T.bucket_max_scores_i8b.launches
+            # K2 runs only where the int8 pool's guard sends a batch to its exact re-run
+            check(k4 > 0 and k11 == 0, f"{tag} int8 mode {mode}: sweeps launched K2={k2} K4={k4} K11={k11} times")
+            for kernel, n in (("K2", k2), ("K4", k4)):
+                results[kernel]["launches"] += n
+            read_standalone(results, f"{tag} int8 ({mode})")
+
+            # the same int8 model through the plain twins of K5 / K6, on 8 candidates
+            small = rows(data["cands"][:8])
+            with_kernels = embed_step(dict(small)).float()
+            kernels = (Q.int8_matmul, M_.int8_mlp)
+            Q.int8_matmul, M_.int8_mlp = Q.int8_matmul_twin, M_.int8_mlp_plain
+            try:
+                plain = embed_step(dict(small)).float()
+            finally:
+                Q.int8_matmul, M_.int8_mlp = kernels
+            cos = torch.nn.functional.cosine_similarity(with_kernels, plain, dim=1).min().item()
+            log(f"{tag} int8 path mode={mode}: embeddings through K5 / K6 vs through their twins (8 candidates): min cosine {cos}")
+            check(cos >= 0.999, f"{tag} int8 mode {mode}: embeddings through the int8 kernels disagree with the twins")
+
+            with torch.inference_mode():
+                fwd = cuda_ms(lambda: model(*timed), 3)
+            log(f"{tag} int8 forward of one resident image+text batch of {BATCH}, mode {mode}: {fwd} ms = "
+                f"{BATCH / fwd * 1e3:.1f} pairs/s")
+            if profile and backend == "static":
+                profile_forward(model, timed, f"{tag} int8 {mode}")
+            del model, embed_step
+            torch.cuda.empty_cache()
+    finally:
+        for k, v in saved_env.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
 
 
 def profile_forward(model, batch, tag: str) -> None:
@@ -2146,10 +2366,14 @@ def main() -> None:
     del int8_models
     torch.cuda.empty_cache()
     drive_clip_ff_path(results, data, profile="--profile" in sys.argv[1:])  # K10, K11; adds its K1 / K2 / K4 launches too
+    drive_int8_model_path(results, "CLIPFeatureFusion", data, profile="--profile" in sys.argv[1:])  # K5 / K6 in T5
     del data  # the training phases read peak memory
     torch.cuda.empty_cache()
-    for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):  # add their K7 / K1 / K2 / K4 / K11 launches too
-        drive_blip_path(results, name, profile="--profile" in sys.argv[1:])
+    for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):  # add their K7 / K1 / K2 / K4 / K11 (/ K5 / K6) launches too
+        blip_data = drive_blip_path(results, name, profile="--profile" in sys.argv[1:])
+        torch.cuda.empty_cache()
+        drive_int8_model_path(results, name, blip_data, profile="--profile" in sys.argv[1:])  # K5 in MED, K6 with GELU
+        del blip_data
         torch.cuda.empty_cache()
     check_attention_bwd(results)
     for name in ("CLIPScoreFusion", "CLIPFeatureFusion"):  # add their K1 / K10 / K3 launches too

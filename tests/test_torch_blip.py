@@ -473,16 +473,16 @@ def test_published_config_parses_and_raises_only_for_the_missing_vocabulary():
 
 
 def test_unported_blip_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model_from_config(_registry_config(tmp_path, int8=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model_from_config(_registry_config(tmp_path, int8=True), device="cpu", train=True)
-    # both retrievers train (fp32 masters, train mode); int8 waits for feature fusion as for score fusion
+    # both retrievers train (fp32 masters, train mode) and serve in int8; an int8 model does not train
+    from uniir_tpu_torch.ops.quant import QuantLinear
+
     trained = build_model_from_config(_registry_config(tmp_path), device="cpu", train=True).model
     assert trained.training and all(p.dtype == torch.float32 for p in trained.parameters())
-    for train in (False, True):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model_from_config(_registry_config(tmp_path, name="BLIPFeatureFusion", int8=True), device="cpu", train=train)
+    for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):
+        served = build_model_from_config(_registry_config(tmp_path, name=name, int8=True), device="cpu").model
+        assert not served.training and any(isinstance(m, QuantLinear) for m in served.text_encoder.modules())
+        with pytest.raises(ValueError, match="serving"):
+            build_model_from_config(_registry_config(tmp_path, name=name, int8=True), device="cpu", train=True)
     with pytest.raises(ValueError, match="Unknown model name"):
         build_model_from_config(Config.from_dict({"model": {"name": "BLIPFusion"}}), device="cpu")
 

@@ -275,9 +275,15 @@ def test_published_config_parses_and_raises_only_for_the_missing_vocabulary():
 
 @pytest.mark.parametrize("kwargs,train", [({"int8": True}, False), ({"int8": True}, True)])
 def test_int8_and_training_raise_with_roadmap_pointer(tmp_path, kwargs, train):
-    """int8 raises, in serving and with `train` (BLIP-FF itself trains:
-    tests/test_torch_blip_train.py)."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """int8 BLIP-FF serves (tests/test_torch_int8_blip.py) and refuses to
+    train (BLIP-FF itself trains: tests/test_torch_blip_train.py)."""
+    if not train:
+        from uniir_tpu_torch.ops.quant import QuantLinear
+
+        model = build_model_from_config(_registry_config(tmp_path, **kwargs), device="cpu").model
+        assert any(isinstance(m, QuantLinear) for m in model.text_encoder.encoder.layer[0].crossattention.modules())
+        return
+    with pytest.raises(ValueError, match="serving"):
         build_model_from_config(_registry_config(tmp_path, **kwargs), device="cpu", train=train)
 
 

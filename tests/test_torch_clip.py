@@ -185,11 +185,14 @@ def test_unported_options_raise():
     from uniir_tpu_torch.models.registry import build_model_from_config
     from uniir_tpu_torch.train.steps import make_clip_train_step
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # int8 of the feature-fusion models
-        build_model_from_config(Config.from_dict(
-            {"model": {"name": "CLIPFeatureFusion", "clip_vision_model_name": "test-tiny-ff", "int8": True}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model_from_config(Config.from_dict({"model": {"name": "BLIPFeatureFusion", "int8": True}}))
+    # int8 of the feature-fusion models is ported (tests/test_torch_int8_clip_ff.py, test_torch_int8_blip.py)
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.clip_ff import CLIPFeatureFusion
+
+    served = CLIPFeatureFusion(CLIP_CONFIGS["test-tiny-ff"], quant=True)
+    assert served.t5_layers.block[0].layer[1].DenseReluDense.wi.weight_q.dtype == torch.int8
+    with pytest.raises(FileNotFoundError, match="bert_vocab_path"):
+        build_model_from_config(Config.from_dict({"model": {"name": "BLIPFeatureFusion", "int8": True}}), device="cpu")
     assert MultiHeadAttention(32, 2, quant=True).qkv_proj.weight_q.dtype == torch.int8  # int8 is ported
     with pytest.raises(ValueError, match="inference only"):
         Transformer(32, 2, 2, quant=True, remat=True)

@@ -147,10 +147,14 @@ def test_t5_stack_fp32_matches_transformers_t5stack():
 
 
 def test_t5_quant_raises_with_roadmap_pointer():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        T5FusionStack(T5_TINY, quant=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        CLIPFeatureFusion(CFG, quant=True)
+    # int8 T5 / CLIP-FF are ported: six bias-free int8 layers a block; int8 layers do not train
+    from uniir_tpu_torch.ops.quant import QuantLinear
+
+    stack = T5FusionStack(T5_TINY, quant=True)
+    layers = [m for m in stack.modules() if isinstance(m, QuantLinear)]
+    assert len(layers) == 6 * T5_TINY.num_layers and all(m.bias is None for m in layers)
+    with pytest.raises(ValueError, match="inference only"):
+        CLIPFeatureFusion(CFG, quant=True, remat=True)
 
 
 # ----------------------------------------------------------------- dropout
@@ -341,8 +345,13 @@ def test_registry_train_build_keeps_fp32_masters_and_remat(make_config):
 
 
 def test_registry_int8_raises_with_roadmap_pointer(make_config):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build_model_from_config(make_config(int8=True), device="cpu")
+    # int8 CLIP-FF serving is ported: the registry builds the int8 twin, and refuses to train it
+    from uniir_tpu_torch.ops.quant import QuantLinear
+
+    model = build_model_from_config(make_config(int8=True), device="cpu").model
+    assert any(isinstance(m, QuantLinear) for m in model.t5_layers.modules())
+    with pytest.raises(ValueError, match="serving"):
+        build_model_from_config(make_config(int8=True), device="cpu", train=True)
 
 
 @pytest.mark.parametrize("flag,want", [("1", True), ("0", False), (None, False)])

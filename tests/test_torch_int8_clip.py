@@ -121,7 +121,7 @@ def test_quantised_tree_converts_onto_the_int8_modules(jax_models):
     assert set(twin.state_dict()) == set(sd)
     p = "transformer.resblocks.1"
     assert sd[f"{p}.attn.qkv_proj.weight_q"].dtype == torch.int8 and sd[f"{p}.attn.qkv_proj.weight_q"].shape == (96, 32)
-    own = Q.quantize_state_dict(state_dict_from_jax(m["params"]), C.act_scales_by_module(m["scales"]))
+    own = Q.quantize_state_dict(_port_float(m["params"], cfg), C.act_scales_by_module(m["scales"]))
     assert set(own) == set(sd)
     for key in sd:
         assert torch.equal(own[key], sd[key]), key

@@ -208,7 +208,7 @@ def test_quantize_state_dict_layout_and_stale_calibration():
     sd = model.state_dict()
     scales = {"visual.transformer.resblocks.0.mlp": np.array([0.1, 0.2], np.float32),
               "transformer.resblocks.1.attn": np.array([0.3, 0.4], np.float32)}
-    out = Q.quantize_state_dict(sd, scales)
+    out = Q.quantize_state_dict(model, scales)
     p = "visual.transformer.resblocks.0"
     assert out[f"{p}.attn.qkv_proj.weight_q"].shape == (96, 32) and out[f"{p}.attn.qkv_proj.weight_q"].dtype == torch.int8
     assert out[f"{p}.mlp.c_proj.scale"].shape == (32,) and out[f"{p}.attn.qkv_proj.bias"].shape == (96,)
@@ -219,7 +219,7 @@ def test_quantize_state_dict_layout_and_stale_calibration():
     Q.load_quantized_state_dict(twin, out)
     assert set(twin.state_dict()) == set(out)
     with pytest.raises(AssertionError, match="not found"):
-        Q.quantize_state_dict(sd, {"nope.mlp": np.ones(2, np.float32)})
+        Q.quantize_state_dict(model, {"nope.mlp": np.ones(2, np.float32)})
 
 
 def test_modes_from_env_and_inference_only(monkeypatch):

@@ -771,10 +771,10 @@ def test_unported_training_options_raise(tmp_path):
 
     vocab = tmp_path / "vocab.txt"
     vocab.write_text("\n".join(tiny_bert_vocab()) + "\n")
-    # the BLIP retrievers train (tests/test_torch_blip_train.py); their int8 serving mode is not ported
+    # the BLIP retrievers train (tests/test_torch_blip_train.py); their int8 serving twins do not
     for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):
         config = Config.from_dict({"model": {"name": name, "vit": "test-tiny", "bert_vocab_path": str(vocab), "int8": True}})
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+        with pytest.raises(ValueError, match="int8 layers do not train"):
             build_model_from_config(config, device="cpu", train=True)
     config = Config.from_dict({"model": {"name": "CLIPScoreFusion", "clip_vision_model_name": "test-tiny", "int8": True}})
     with pytest.raises(ValueError, match="int8 layers do not train"):

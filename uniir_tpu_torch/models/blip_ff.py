@@ -14,6 +14,10 @@ The modality masks are accepted and unused, as in the JAX package: a padded
 (all-zero) image simply flows through cross-attention, under an all-ones
 encoder attention mask.  Parameter names are BLIP's (`visual_encoder.*`,
 `text_encoder.*` with `crossattention` and `pooler`, `temp`).
+
+`quant=True` builds the int8 serving twin (inference only), as BLIP-SF's:
+the ViT and MED (self- and cross-attention, FFNs, pooler) hold int8
+weights (`models.registry.quantize_blip`).
 """
 
 from __future__ import annotations
@@ -31,11 +35,15 @@ from uniir_tpu_torch.models.med import MedBertModel, MedConfig
 
 class BLIPFeatureFusion(nn.Module):
     def __init__(self, vit_cfg: BLIPViTConfig, med_cfg: MedConfig, embed_dim: int = 768,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False, quant: bool = False,
+                 int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
         self.vit_cfg, self.med_cfg, self.embed_dim, self.dtype = vit_cfg, med_cfg, embed_dim, dtype
-        self.visual_encoder = BLIPVisionTransformer(vit_cfg, dtype=dtype, remat_from_layer=vit_cfg.layers if remat else 0)
-        self.text_encoder = MedBertModel(med_cfg, add_pooling_layer=True, dtype=dtype, remat=remat, cross_attention=True)
+        int8 = dict(quant=quant, int8_mode=int8_mode)
+        self.visual_encoder = BLIPVisionTransformer(
+            vit_cfg, dtype=dtype, remat_from_layer=vit_cfg.layers if remat else 0, mlp_route=mlp_route, **int8)
+        self.text_encoder = MedBertModel(med_cfg, add_pooling_layer=True, dtype=dtype, remat=remat, cross_attention=True,
+                                         **int8)
         self.temp = nn.Parameter(torch.full((), TEMP_INIT))
 
     @torch.no_grad()

@@ -13,6 +13,13 @@ dropout draw from the generator `set_dropout_generator` gives them.
 parameters and casts them at each use; serving casts them once in place
 (`to_compute_dtype`).  Parameter names are BLIP's (`visual_encoder.*`,
 `text_encoder.*`, `vision_proj`, `text_proj`, `temp`).
+
+`quant=True` builds the int8 serving twin (inference only): the ViT, MED
+and the two heads hold int8 weights, filled from a float model by
+`ops.quant.quantize_state_dict` (`models.registry.quantize_blip`);
+`int8_mode` and `mlp_route` pick the activation mode and the ViT's static
+MLP route (`ops/quant.py`).  The heads have no calibrated scales and
+quantise dynamically, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,27 +32,34 @@ from torch import nn
 from uniir_tpu_torch.models.blip_vit import BLIPVisionTransformer, BLIPViTConfig
 from uniir_tpu_torch.models.layers import LayerNorm, Linear, lecun_normal_
 from uniir_tpu_torch.models.med import MedBertModel, MedConfig
+from uniir_tpu_torch.ops.quant import QuantLinear
 
 TEMP_INIT = 0.07
 
 
 class BLIPScoreFusion(nn.Module):
     def __init__(self, vit_cfg: BLIPViTConfig, med_cfg: MedConfig, embed_dim: int = 768,
-                 dtype: torch.dtype = torch.float32, remat: bool = False):
+                 dtype: torch.dtype = torch.float32, remat: bool = False, quant: bool = False,
+                 int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
         self.vit_cfg, self.med_cfg, self.embed_dim, self.dtype = vit_cfg, med_cfg, embed_dim, dtype
-        self.visual_encoder = BLIPVisionTransformer(vit_cfg, dtype=dtype, remat_from_layer=vit_cfg.layers if remat else 0)
-        self.text_encoder = MedBertModel(med_cfg, add_pooling_layer=False, dtype=dtype, cross_attention=False)
-        self.vision_proj = Linear(vit_cfg.width, embed_dim)
-        self.text_proj = Linear(med_cfg.hidden_size, embed_dim)
+        self.visual_encoder = BLIPVisionTransformer(
+            vit_cfg, dtype=dtype, remat_from_layer=vit_cfg.layers if remat else 0, quant=quant, int8_mode=int8_mode,
+            mlp_route=mlp_route)
+        self.text_encoder = MedBertModel(med_cfg, add_pooling_layer=False, dtype=dtype, cross_attention=False,
+                                         quant=quant, int8_mode=int8_mode)
+        head = (lambda i, o: QuantLinear(i, o, mode=int8_mode)) if quant else Linear
+        self.vision_proj = head(vit_cfg.width, embed_dim)
+        self.text_proj = head(med_cfg.hidden_size, embed_dim)
         self.temp = nn.Parameter(torch.full((), TEMP_INIT))
         self._reset_heads(None)
 
     @torch.no_grad()
     def _reset_heads(self, generator: Optional[torch.Generator]) -> None:
         for proj in (self.vision_proj, self.text_proj):
-            lecun_normal_(proj.weight, proj.in_features, generator)
-            proj.bias.zero_()
+            if isinstance(proj, Linear):  # int8 heads come from a float model, not from a seed
+                lecun_normal_(proj.weight, proj.in_features, generator)
+                proj.bias.zero_()
         self.temp.fill_(TEMP_INIT)
 
     @torch.no_grad()

@@ -21,6 +21,16 @@ the masks its forward drew (`layers.checkpoint_with_generator`).  Position
 embeddings are resized for another resolution by
 `models.layers.interpolate_pos_embed` where a checkpoint is loaded.
 
+With `quant` (serving only) each block's attention and MLP are int8
+(`models/layers.py`: kernel K5, and under the static mode with calibrated
+scales K6 with the exact GELU); drop-path is then identity, so the block
+hands its residual to the MLP, which owns the whole half-block.  The trimmed
+last block's single CLS query goes through the fused projection's cross
+operand route (q third from the CLS row, k / v two thirds from the whole
+sequence).  `QUANT_TIMM_NAMES` maps timm's names of the quantised entries
+(`attn.qkv.weight_q`, ..., as the JAX converter writes them) onto the int8
+modules'.
+
 Not carried over: the padded-flat int8 tower (`flat`), a TPU layout
 workaround whose math is that of the 3-D path.
 """
@@ -28,6 +38,7 @@ workaround whose math is that of the 3-D path.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -74,16 +85,25 @@ TIMM_NAMES = {
 }
 
 
-def _from_timm(state_dict: dict, prefix: str, *_unused) -> None:
+# the same for a quantised block: weight_q / scale / bias of each int8 layer
+QUANT_TIMM_NAMES = {
+    f"{timm}.{leaf}": f"{own}.{leaf}"
+    for timm, own in (("attn.qkv", "attn.qkv_proj"), ("attn.proj", "attn.out_proj"), ("mlp.fc1", "mlp.c_fc"),
+                      ("mlp.fc2", "mlp.c_proj"))
+    for leaf in ("weight_q", "scale", "bias")
+}
+
+
+def _from_timm(names: dict, state_dict: dict, prefix: str, *_unused) -> None:
     """Load pre-hook of a block: timm's names -> the modules'."""
-    for timm, own in TIMM_NAMES.items():
+    for timm, own in names.items():
         if prefix + timm in state_dict:
             state_dict[prefix + own] = state_dict.pop(prefix + timm)
 
 
-def _to_timm(_module: nn.Module, state_dict: dict, prefix: str, _metadata) -> None:
+def _to_timm(names: dict, _module: nn.Module, state_dict: dict, prefix: str, _metadata) -> None:
     """State-dict hook of a block: the modules' names -> timm's."""
-    for timm, own in TIMM_NAMES.items():
+    for timm, own in names.items():
         state_dict[prefix + timm] = state_dict.pop(prefix + own)
 
 
@@ -92,17 +112,20 @@ class BLIPBlock(nn.Module):
     exact for the last block of a CLS-pooled consumer (attention keeps the
     full keys and values)."""
 
-    def __init__(self, width: int, heads: int, mlp_ratio: float, drop_path: float = 0.0):
+    def __init__(self, width: int, heads: int, mlp_ratio: float, drop_path: float = 0.0, quant: bool = False,
+                 int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
+        self.quant = quant
         self.norm1 = LayerNorm(width)
-        self.attn = MultiHeadAttention(width, heads)
+        self.attn = MultiHeadAttention(width, heads, quant=quant, int8_mode=int8_mode)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNorm(width)
-        self.mlp = MLP(width, int(width * mlp_ratio), act="gelu")
+        self.mlp = MLP(width, int(width * mlp_ratio), quant=quant, int8_mode=int8_mode, mlp_route=mlp_route, act="gelu")
         self.drop_path2 = DropPath(drop_path)
         # the state dict speaks timm's names, in both directions
-        self._register_load_state_dict_pre_hook(_from_timm)
-        self._register_state_dict_hook(_to_timm)
+        names = QUANT_TIMM_NAMES if quant else TIMM_NAMES
+        self._register_load_state_dict_pre_hook(functools.partial(_from_timm, names))
+        self._register_state_dict_hook(functools.partial(_to_timm, names))
 
     def forward(self, x: torch.Tensor, pool_first: bool = False) -> torch.Tensor:
         h = self.norm1(x)
@@ -112,6 +135,8 @@ class BLIPBlock(nn.Module):
         else:
             h = self.attn(h)
         x = x + self.drop_path1(h)
+        if self.quant:  # inference only: drop-path is identity, and the MLP adds the residual (K6's epilogue)
+            return self.mlp(self.norm2(x), res=x)
         return x + self.drop_path2(self.mlp(self.norm2(x)))
 
 
@@ -127,8 +152,11 @@ class _PatchEmbedProj(nn.Module):
 
 
 class BLIPVisionTransformer(nn.Module):
-    def __init__(self, cfg: BLIPViTConfig, dtype: torch.dtype = torch.float32, remat_from_layer: int = 0):
+    def __init__(self, cfg: BLIPViTConfig, dtype: torch.dtype = torch.float32, remat_from_layer: int = 0,
+                 quant: bool = False, int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
+        if quant and remat_from_layer:
+            raise ValueError("int8 layers are inference only: quant and remat do not combine")
         self.cfg, self.dtype, self.remat_from_layer = cfg, dtype, remat_from_layer
         self.dropout_generator: Optional[torch.Generator] = None
         n_patches = (cfg.image_size // cfg.patch_size) ** 2
@@ -137,7 +165,8 @@ class BLIPVisionTransformer(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches + 1, cfg.width))
         # linear drop-path schedule like timm (rate * i / (layers - 1))
         self.blocks = nn.ModuleList(
-            BLIPBlock(cfg.width, cfg.heads, cfg.mlp_ratio, cfg.drop_path_rate * i / max(1, cfg.layers - 1))
+            BLIPBlock(cfg.width, cfg.heads, cfg.mlp_ratio, cfg.drop_path_rate * i / max(1, cfg.layers - 1),
+                      quant=quant, int8_mode=int8_mode, mlp_route=mlp_route)
             for i in range(cfg.layers)
         )
         self.norm = LayerNorm(cfg.width)

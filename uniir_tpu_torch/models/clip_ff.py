@@ -17,6 +17,12 @@ under `t5_layers` with HF T5Stack's, so such a state dict loads as it is
 (its `clip_model.text_projection` is dropped where it is loaded).  No
 untrimmed last block: every one of the 24 + 12 blocks runs full
 self-attention (K1; with `attn_splitk` the vision tower's are K10).
+
+`quant=True` builds the int8 serving twin (inference only): the towers'
+blocks and the fusion stack's Dense layers hold int8 weights, filled from a
+float model by `ops.quant.quantize_state_dict` (`models.registry.
+quantize_clip_ff`); `int8_mode` and `mlp_route` pick the activation mode
+and the towers' static MLP route (`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -40,9 +46,9 @@ class _CLIPTokenTowers(CLIPTextTower):
     """OpenAI CLIP's layout (text tower at the root, `visual`, `logit_scale`)
     with token outputs and no text_projection."""
 
-    def __init__(self, cfg: CLIPConfig, remat: bool, dtype: torch.dtype, attn_splitk: bool):
-        super().__init__(cfg, pool="none", remat=remat, dtype=dtype)
-        self.visual = CLIPVisionTower(cfg, pool="none", remat=remat, dtype=dtype, attn_splitk=attn_splitk)
+    def __init__(self, cfg: CLIPConfig, remat: bool, dtype: torch.dtype, attn_splitk: bool, **int8):
+        super().__init__(cfg, pool="none", remat=remat, dtype=dtype, **int8)
+        self.visual = CLIPVisionTower(cfg, pool="none", remat=remat, dtype=dtype, attn_splitk=attn_splitk, **int8)
         self.logit_scale = nn.Parameter(torch.full((), clip_logit_scale_init()))
 
     @torch.no_grad()
@@ -54,18 +60,15 @@ class _CLIPTokenTowers(CLIPTextTower):
 
 class CLIPFeatureFusion(nn.Module):
     def __init__(self, cfg: CLIPConfig, remat: bool = False, quant: bool = False, dtype: torch.dtype = torch.float32,
-                 attn_splitk: bool = False):
+                 attn_splitk: bool = False, int8_mode: str = "dynamic", mlp_route: str = "fused"):
         super().__init__()
-        if quant:
-            raise NotImplementedError(
-                "int8 serving of CLIPFeatureFusion is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 4)"
-            )
         if cfg.embed_dim != cfg.text_width:
             # the reference's constraint (ViT-B/32: 512, ViT-L/14: 768)
             raise ValueError("CLIPFeatureFusion requires text_width == embed_dim")
         self.cfg, self.dtype = cfg, dtype
-        self.clip_model = _CLIPTokenTowers(cfg, remat, dtype, attn_splitk)
-        self.t5_layers = T5FusionStack(t5_config_for_clip(cfg), dtype=dtype)
+        self.clip_model = _CLIPTokenTowers(cfg, remat, dtype, attn_splitk, quant=quant, int8_mode=int8_mode,
+                                           mlp_route=mlp_route)
+        self.t5_layers = T5FusionStack(t5_config_for_clip(cfg), dtype=dtype, quant=quant, int8_mode=int8_mode)
 
     @property
     def logit_scale(self) -> torch.Tensor:

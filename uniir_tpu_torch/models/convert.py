@@ -13,7 +13,7 @@ moving JAX weights (numpy) into the port inverts those maps:
     (CLIP) or `attn.qkv.weight` (BLIP's ViT);
   * `temp` / `logit_scale` as 0-d tensors.
 
-`state_dict_from_jax` dispatches on the tree: CLIP-SF (float or quantised),
+`state_dict_from_jax` dispatches on the tree, float or quantised: CLIP-SF,
 CLIP-FF (towers without `text_projection` under `clip_model.`, `t5_layers`
 with HF T5Stack's names), BLIP-SF, BLIP-FF (cross-attention and pooler
 kept, no projection heads), a bare `MedBertModel` tree (with or without
@@ -23,8 +23,10 @@ cross-attention and pooler), a bare `BLIPVisionTransformer` tree or a bare
 A tree quantised by the JAX package's `quantize_tree` converts too, onto the
 state dict of the port's int8 modules, so both packages run the same int8
 weights: `kernel_q` [in, out] int8 -> `weight_q` [out, in] int8, `scale` and
-`bias` fp32, `act_scales` leaves -> `<module>.act_scales`; the fused
-projection is `attn.qkv_proj` there.  Load such a state dict with
+`bias` fp32 (T5's layers have none), `act_scales` leaves ->
+`<module>.act_scales` (pairs, and MED's attention triples); CLIP's fused
+projection is `attn.qkv_proj` there, BLIP's keeps timm's `attn.qkv` (the
+ViT block maps it on load).  Load such a state dict with
 `ops.quant.load_quantized_state_dict`.
 
 `load_momentum_state_from_jax` carries a whole JAX BLIP train state
@@ -49,14 +51,23 @@ def _ln(p: dict, prefix: str) -> dict:
 
 
 def _dense(p: dict, prefix: str, fused_qkv: bool = False) -> dict:
-    """One Dense layer: float {kernel, bias} or quantised {kernel_q, scale, bias}."""
+    """One Dense layer: float {kernel[, bias]} or quantised {kernel_q, scale[, bias]}."""
     if "kernel_q" in p:
         if fused_qkv:
             prefix = prefix[: -len("in_proj")] + "qkv_proj"
-        return {f"{prefix}.weight_q": _t(p["kernel_q"]), f"{prefix}.scale": p["scale"], f"{prefix}.bias": p["bias"]}
-    if fused_qkv:  # OpenAI CLIP's fused in_proj has no `.weight` / `.bias` module
+        out = {f"{prefix}.weight_q": _t(p["kernel_q"]), f"{prefix}.scale": p["scale"]}
+    elif fused_qkv:  # OpenAI CLIP's fused in_proj has no `.weight` / `.bias` module
         return {f"{prefix}_weight": _t(p["kernel"]), f"{prefix}_bias": p["bias"]}
-    return {f"{prefix}.weight": _t(p["kernel"]), f"{prefix}.bias": p["bias"]}
+    else:
+        out = {f"{prefix}.weight": _t(p["kernel"])}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = p["bias"]
+    return out
+
+
+def _act_scales(p: dict, module: str) -> dict:
+    """A calibrated `act_scales` leaf of a quantised tree, if `p` has one."""
+    return {f"{module}.act_scales": p["act_scales"]} if "act_scales" in p else {}
 
 
 def _resblocks(tree: dict, prefix: str) -> dict:
@@ -71,9 +82,8 @@ def _resblocks(tree: dict, prefix: str) -> dict:
         out.update(_dense(attn["out_proj"], f"{p}.attn.out_proj"))
         out.update(_dense(mlp["fc1"], f"{p}.mlp.c_fc"))
         out.update(_dense(mlp["fc2"], f"{p}.mlp.c_proj"))
-        for name, sub in (("attn", attn), ("mlp", mlp)):
-            if "act_scales" in sub:
-                out[f"{p}.{name}.act_scales"] = sub["act_scales"]
+        out.update(_act_scales(attn, f"{p}.attn"))
+        out.update(_act_scales(mlp, f"{p}.mlp"))
         i += 1
     return out
 
@@ -97,6 +107,8 @@ def _blip_vit(tree: dict, prefix: str = "") -> dict:
         out.update(_dense(blk["attn"]["out_proj"], f"{p}.attn.proj"))
         out.update(_dense(blk["mlp"]["fc1"], f"{p}.mlp.fc1"))
         out.update(_dense(blk["mlp"]["fc2"], f"{p}.mlp.fc2"))
+        out.update(_act_scales(blk["attn"], f"{p}.attn"))
+        out.update(_act_scales(blk["mlp"], f"{p}.mlp"))
         i += 1
     return out
 
@@ -108,6 +120,7 @@ def _bert_attention(tree: dict, prefix: str) -> dict:
         **_dense(tree["value"], f"{prefix}.self.value"),
         **_dense(tree["output_dense"], f"{prefix}.output.dense"),
         **_ln(tree["output_ln"], f"{prefix}.output.LayerNorm"),
+        **_act_scales(tree, prefix),
     }
 
 
@@ -128,6 +141,7 @@ def _med_bert(tree: dict, prefix: str = "") -> dict:
         out.update(_dense(layer["intermediate"], f"{p}.intermediate.dense"))
         out.update(_dense(layer["output_dense"], f"{p}.output.dense"))
         out.update(_ln(layer["output_ln"], f"{p}.output.LayerNorm"))
+        out.update(_act_scales(layer, p))
         i += 1
     if "pooler" in tree:
         out.update(_dense(tree["pooler"], f"{prefix}pooler.dense"))
@@ -155,14 +169,17 @@ def _t5_stack(tree: dict, prefix: str = "") -> dict:
     i = 0
     while f"block_{i}" in tree:
         blk, p = tree[f"block_{i}"], f"{prefix}block.{i}"
+        attn, ffn = f"{p}.layer.0.SelfAttention", f"{p}.layer.1.DenseReluDense"
         for name in ("q", "k", "v", "o"):
-            out[f"{p}.layer.0.SelfAttention.{name}.weight"] = _t(blk["attn"][name]["kernel"])
+            out.update(_dense(blk["attn"][name], f"{attn}.{name}"))
         if "relative_attention_bias" in blk["attn"]:
-            out[f"{p}.layer.0.SelfAttention.relative_attention_bias.weight"] = blk["attn"]["relative_attention_bias"]
+            out[f"{attn}.relative_attention_bias.weight"] = blk["attn"]["relative_attention_bias"]
         out[f"{p}.layer.0.layer_norm.weight"] = blk["attn_ln"]["weight"]
-        out[f"{p}.layer.1.DenseReluDense.wi.weight"] = _t(blk["wi"]["kernel"])
-        out[f"{p}.layer.1.DenseReluDense.wo.weight"] = _t(blk["wo"]["kernel"])
+        out.update(_dense(blk["wi"], f"{ffn}.wi"))
+        out.update(_dense(blk["wo"], f"{ffn}.wo"))
         out[f"{p}.layer.1.layer_norm.weight"] = blk["ff_ln"]["weight"]
+        out.update(_act_scales(blk["attn"], attn))  # [a_qkv, a_out]
+        out.update(_act_scales(blk, ffn))  # the JAX block's own leaf: [a_ff_in, a_hidden]
         i += 1
     return out
 
@@ -199,7 +216,7 @@ def _tensors(sd: dict) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_jax(params_np) -> Dict[str, torch.Tensor]:
     """JAX params (numpy leaves) -> the state dict of the port's module of
-    the same name: CLIPScoreFusion (float or quantised), CLIPFeatureFusion,
+    the same name, float or quantised: CLIPScoreFusion, CLIPFeatureFusion,
     BLIPScoreFusion, BLIPFeatureFusion, a bare MedBertModel, a bare
     BLIPVisionTransformer or a bare T5FusionStack tree (fp32; int8 for
     `weight_q`)."""

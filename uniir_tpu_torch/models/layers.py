@@ -50,29 +50,6 @@ from uniir_tpu_torch.ops.image_ops import cubic_resize_matrix
 LN_EPS = 1e-6  # flax nn.LayerNorm's default (PyTorch's and OpenAI CLIP's is 1e-5)
 
 
-class _ActScales:
-    """Mixin for quantised modules that may carry a calibrated `act_scales`
-    buffer (two fp32 scales): a host copy is read once, at first use, so a
-    forward never waits on the device for them."""
-
-    def _init_act_scales(self) -> None:
-        self.register_buffer("act_scales", None)  # absent from the state dict until calibrated
-        self._act_host = None
-
-    def set_act_scales(self, values) -> None:
-        ref = next(self.buffers())
-        self.register_buffer("act_scales", torch.as_tensor(values, dtype=torch.float32).to(ref.device))
-        self._act_host = None
-
-    def static_scales(self):
-        """(a, b) as Python floats under the static mode when calibrated, else None."""
-        if self.int8_mode != "static" or getattr(self, "act_scales", None) is None:
-            return None
-        if self._act_host is None:
-            self._act_host = tuple(float(v) for v in self.act_scales.tolist())
-        return self._act_host
-
-
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's QuickGELU: x * sigmoid(1.702 x)."""
     return x * torch.sigmoid(1.702 * x)
@@ -121,7 +98,7 @@ def qkv_project(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, kv: O
     )
 
 
-class MultiHeadAttention(nn.Module, _ActScales):
+class MultiHeadAttention(nn.Module, quant_ops.ActScales):
     """Multi-head attention with a fused in_proj (OpenAI CLIP's
     nn.MultiheadAttention layout: `in_proj_weight`, `in_proj_bias`,
     `out_proj`).
@@ -204,7 +181,7 @@ class MultiHeadAttention(nn.Module, _ActScales):
         return out_proj(out)
 
 
-class MLP(nn.Module, _ActScales):
+class MLP(nn.Module, quant_ops.ActScales):
     """c_fc -> act -> c_proj; `act` is one of
     ACTIVATIONS (CLIP's QuickGELU by default, "gelu" for BLIP's exact erf
     form).  With `res` the residual add is part of it.

@@ -23,6 +23,16 @@ probabilities, both output denses, rate 0.1) draws from an explicit
 `torch.Generator` (`set_dropout_generator`) and is identity in eval mode;
 with `remat` a recomputed layer draws the masks its forward drew
 (`layers.checkpoint_with_generator`).
+
+With `quant` (serving only) every Dense layer is a `QuantLinear` (kernel
+K5, `ops/quant.py`) in the activation mode `int8_mode`.  MED is post-LN, so
+calibration probes the dense inputs themselves: an attention's `act_scales`
+are [a_q, a_kv, a_ctx] -- q quantises `hidden` with a_q, k and v share one
+quantisation of their source (for cross-attention the ViT's output) with
+a_kv, and `output.dense` quantises the context with a_ctx; a layer's FFN
+takes [a_ffn_in, a_ffn_hid] around the exact GELU (no fused kernel: the
+residual add is followed by a LayerNorm).  The pooler has no scales and
+quantises dynamically, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from uniir_tpu_torch.models.layers import (
     lecun_normal_,
     set_dropout_generator,
 )
+from uniir_tpu_torch.ops.quant import ActScales, QuantLinear, quantize_input
 
 NEG_INF = -1e9  # the additive mask's value, as the JAX package's
 
@@ -75,47 +86,70 @@ MED_CONFIGS = {
 }
 
 
+def _linear(in_width: int, out_width: int, quant: bool, int8_mode: str) -> nn.Module:
+    return QuantLinear(in_width, out_width, mode=int8_mode) if quant else Linear(in_width, out_width)
+
+
+def _apply(layer: nn.Module, x: torch.Tensor, a_static: Optional[float] = None) -> torch.Tensor:
+    """A float or int8 Dense layer on x; a calibrated scale only reaches an int8 one."""
+    return layer(x) if a_static is None else layer(x, a_static=a_static)
+
+
 class _QKV(nn.Module):
     """HF's BertSelfAttention parameters: separate query / key / value layers."""
 
-    def __init__(self, hidden: int, kv_width: int):
+    def __init__(self, hidden: int, kv_width: int, quant: bool, int8_mode: str):
         super().__init__()
-        self.query = Linear(hidden, hidden)
-        self.key = Linear(kv_width, hidden)
-        self.value = Linear(kv_width, hidden)
+        self.query = _linear(hidden, hidden, quant, int8_mode)
+        self.key = _linear(kv_width, hidden, quant, int8_mode)
+        self.value = _linear(kv_width, hidden, quant, int8_mode)
 
 
 class _Output(nn.Module):
     """HF's BertSelfOutput / BertOutput: dense, dropout, add & LayerNorm."""
 
-    def __init__(self, in_width: int, hidden: int, eps: float, dropout: float):
+    def __init__(self, in_width: int, hidden: int, eps: float, dropout: float, quant: bool, int8_mode: str):
         super().__init__()
-        self.dense = Linear(in_width, hidden)
+        self.dense = _linear(in_width, hidden, quant, int8_mode)
         self.LayerNorm = LayerNorm(hidden, eps)
         self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dropout(self.dense(x)) + residual)
+    def forward(self, x: torch.Tensor, residual: torch.Tensor, a_static: Optional[float] = None) -> torch.Tensor:
+        return self.LayerNorm(self.dropout(_apply(self.dense, x, a_static)) + residual)
 
 
 class _Dense(nn.Module):
     """A module holding one `dense` layer (HF's BertIntermediate, BertPooler)."""
 
-    def __init__(self, in_width: int, out_width: int):
+    def __init__(self, in_width: int, out_width: int, quant: bool, int8_mode: str):
         super().__init__()
-        self.dense = Linear(in_width, out_width)
+        self.dense = _linear(in_width, out_width, quant, int8_mode)
 
 
-class BertSelfAttentionBlock(nn.Module):
+class BertSelfAttentionBlock(nn.Module, ActScales):
     """Self- or cross-attention, output projection, add & LN (post-LN)."""
 
-    def __init__(self, cfg: MedConfig, is_cross: bool = False):
+    def __init__(self, cfg: MedConfig, is_cross: bool = False, quant: bool = False, int8_mode: str = "dynamic"):
         super().__init__()
         self.heads, self.is_cross = cfg.num_attention_heads, is_cross
+        self.quant, self.int8_mode = quant, int8_mode
         H = cfg.hidden_size
-        setattr(self, "self", _QKV(H, cfg.encoder_width if is_cross else H))
+        setattr(self, "self", _QKV(H, cfg.encoder_width if is_cross else H, quant, int8_mode))
         self.attn_dropout = Dropout(cfg.attention_probs_dropout_prob)
-        self.output = _Output(H, H, cfg.layer_norm_eps, cfg.hidden_dropout_prob)
+        self.output = _Output(H, H, cfg.layer_norm_eps, cfg.hidden_dropout_prob, quant, int8_mode)
+        if quant:
+            self._init_act_scales()
+
+    def _project_int8(self, hidden: torch.Tensor, kv_src: torch.Tensor, a_q, a_kv):
+        """q, k, v through K5: k and v share one quantisation of their
+        source, and q shares it too where it has the same input and scale."""
+        proj = getattr(self, "self")
+        if self.int8_mode == "wonly":
+            return proj.query(hidden), proj.key(kv_src), proj.value(kv_src)
+        kv_q = quantize_input(kv_src, self.int8_mode, a_kv)
+        q_q = kv_q if kv_src is hidden and a_q == a_kv else quantize_input(hidden, self.int8_mode, a_q)
+        return (proj.query(hidden, a_static=a_q, quantized=q_q), proj.key(kv_src, a_static=a_kv, quantized=kv_q),
+                proj.value(kv_src, a_static=a_kv, quantized=kv_q))
 
     def forward(self, hidden, attn_mask=None, kv=None, self_kv=None):
         """`self_kv`: the full sequence as key / value source of a trimmed
@@ -125,29 +159,39 @@ class BertSelfAttentionBlock(nn.Module):
         proj = getattr(self, "self")
         B, Lq, H = hidden.shape
         Lk, D = kv_src.shape[1], H // self.heads
-        q = proj.query(hidden).view(B, Lq, self.heads, D)
-        k = proj.key(kv_src).view(B, Lk, self.heads, D)
-        v = proj.value(kv_src).view(B, Lk, self.heads, D)
+        a_q, a_kv, a_ctx = self.static_scales() or (None, None, None)
+        if self.quant:
+            q, k, v = self._project_int8(hidden, kv_src, a_q, a_kv)
+        else:
+            q, k, v = proj.query(hidden), proj.key(kv_src), proj.value(kv_src)
+        q = q.view(B, Lq, self.heads, D)
+        k = k.view(B, Lk, self.heads, D)
+        v = v.view(B, Lk, self.heads, D)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * D**-0.5
         if attn_mask is not None:
             logits = logits + attn_mask  # additive [B, 1, 1, Lk]
         probs = self.attn_dropout(torch.softmax(logits, dim=-1).to(v.dtype))
         ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, Lq, H)
-        return self.output(ctx, hidden)
+        return self.output(ctx, hidden, a_ctx)
 
 
-class BertLayer(nn.Module):
+class BertLayer(nn.Module, ActScales):
     """`pool_first` computes only the CLS (index-0) output row: exact for the
     last layer of a CLS-pooled consumer (self- and cross-attention keep the
-    full keys / values; the additive masks broadcast over the query axis)."""
+    full keys / values; the additive masks broadcast over the query axis).
+    Its own `act_scales` (quantised) are the FFN's [a_ffn_in, a_ffn_hid]."""
 
-    def __init__(self, cfg: MedConfig, cross_attention: bool):
+    def __init__(self, cfg: MedConfig, cross_attention: bool, quant: bool = False, int8_mode: str = "dynamic"):
         super().__init__()
-        self.attention = BertSelfAttentionBlock(cfg)
+        self.quant, self.int8_mode = quant, int8_mode
+        self.attention = BertSelfAttentionBlock(cfg, quant=quant, int8_mode=int8_mode)
         if cross_attention:
-            self.crossattention = BertSelfAttentionBlock(cfg, is_cross=True)
-        self.intermediate = _Dense(cfg.hidden_size, cfg.intermediate_size)
-        self.output = _Output(cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps, cfg.hidden_dropout_prob)
+            self.crossattention = BertSelfAttentionBlock(cfg, is_cross=True, quant=quant, int8_mode=int8_mode)
+        self.intermediate = _Dense(cfg.hidden_size, cfg.intermediate_size, quant, int8_mode)
+        self.output = _Output(cfg.intermediate_size, cfg.hidden_size, cfg.layer_norm_eps, cfg.hidden_dropout_prob,
+                              quant, int8_mode)
+        if quant:
+            self._init_act_scales()
 
     def forward(self, hidden, attn_mask, mode: str, enc_hidden=None, enc_mask=None, pool_first: bool = False):
         if pool_first:
@@ -160,8 +204,9 @@ class BertLayer(nn.Module):
             if not hasattr(self, "crossattention"):
                 raise ValueError("this MED model was built without cross-attention (cross_attention=False)")
             hidden = self.crossattention(hidden, enc_mask, kv=enc_hidden)
-        h = gelu_exact(self.intermediate.dense(hidden))
-        return self.output(h, hidden)
+        a_in, a_hid = self.static_scales() or (None, None)
+        h = gelu_exact(_apply(self.intermediate.dense, hidden, a_in))
+        return self.output(h, hidden, a_hid)
 
 
 class _Embeddings(nn.Module):
@@ -174,9 +219,10 @@ class _Embeddings(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: MedConfig, cross_attention: bool):
+    def __init__(self, cfg: MedConfig, cross_attention: bool, quant: bool, int8_mode: str):
         super().__init__()
-        self.layer = nn.ModuleList(BertLayer(cfg, cross_attention) for _ in range(cfg.num_hidden_layers))
+        self.layer = nn.ModuleList(
+            BertLayer(cfg, cross_attention, quant, int8_mode) for _ in range(cfg.num_hidden_layers))
 
 
 def _extend_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -186,15 +232,18 @@ def _extend_mask(mask: torch.Tensor) -> torch.Tensor:
 
 class MedBertModel(nn.Module):
     def __init__(self, cfg: MedConfig, add_pooling_layer: bool = True, dtype: torch.dtype = torch.float32,
-                 remat: bool = False, cross_attention: Optional[bool] = None):
+                 remat: bool = False, cross_attention: Optional[bool] = None, quant: bool = False,
+                 int8_mode: str = "dynamic"):
         super().__init__()
+        if quant and remat:
+            raise ValueError("int8 layers are inference only: quant and remat do not combine")
         self.cfg, self.dtype, self.remat = cfg, dtype, remat
         self.dropout_generator: Optional[torch.Generator] = None
         cross_attention = cfg.add_cross_attention if cross_attention is None else cross_attention
         self.embeddings = _Embeddings(cfg)
-        self.encoder = _Encoder(cfg, cross_attention)
+        self.encoder = _Encoder(cfg, cross_attention, quant, int8_mode)
         if add_pooling_layer:
-            self.pooler = _Dense(cfg.hidden_size, cfg.hidden_size)
+            self.pooler = _Dense(cfg.hidden_size, cfg.hidden_size, quant, int8_mode)
         self.reset_parameters()
 
     @torch.no_grad()

@@ -11,14 +11,16 @@ masters, cast at each use, and `model.remat` switches on per-block
 recomputation.  Weights come from a torch checkpoint in OpenAI CLIP / UniIR
 layout (or the port's own train checkpoint directory) when the config
 names one, otherwise from a seeded `torch.Generator` with the JAX
-package's initialisers.  With `model.int8` the loaded fp32 weights are
-quantised into the int8 serving twin (`quantize_clip_sf`); the activation
-mode and the static MLP route are read from the environment once, here
-(`UNIIR_INT8_BACKEND`, `UNIIR_INT8_MLP`; see `ops/quant.py`), and
-`model.int8_calibration` names the .npz of calibrated activation scales the
-static mode needs.  `UNIIR_ATTN_SPLITK=1` is read here too, once, and handed
-to the CLIP models as `attn_splitk`: the vision tower's attention forward is
-then kernel K10 (`ops/attention.py`).
+package's initialisers.  With `model.int8` (serving only, any of the four
+retrievers) the loaded fp32 weights are quantised into the int8 serving
+twin (`quantize_clip_sf`, `quantize_clip_ff`, `quantize_blip`) and then
+cast to the compute dtype; the activation mode and the static MLP route are
+read from the environment once, here (`UNIIR_INT8_BACKEND`,
+`UNIIR_INT8_MLP`; see `ops/quant.py`), and `model.int8_calibration` names
+the .npz of calibrated activation scales the static mode needs.
+`UNIIR_ATTN_SPLITK=1` is read here too, once, and handed to the CLIP models
+as `attn_splitk`: the vision tower's attention forward is then kernel K10
+(`ops/attention.py`).
 
 CLIP-FF (`build_clip_ff`) serves and trains; a `.pt` / `.pth` in the UniIR
 CLIP-FF layout (`clip_model.*`, `t5_layers.*`) or a bare OpenAI CLIP state
@@ -34,8 +36,7 @@ a BLIP model keeps fp32 masters, computes in the config's dtype and reads
 `model.vit_grad_ckpt` as `remat` (every ViT block, and in BLIP-FF every MED
 layer too; `vit_ckpt_layer` is ignored, as the JAX package ignores it); its
 bundle carries `queue_size`, `momentum` and `alpha` in `extra`, as the JAX
-bundle's does.  `model.int8` on CLIP-FF or a BLIP model raises until it is
-ported.
+bundle's does.
 """
 
 from __future__ import annotations
@@ -153,21 +154,41 @@ def seeded_clip_ff_train(cfg: CLIPConfig, device, seed: int = 0, dtype: torch.dt
     return _seeded_module(factory, device, seed).train()
 
 
-def quantize_clip_sf(model: CLIPScoreFusion, int8_mode: str = "dynamic", mlp_route: str = "fused",
-                     act_scales: Optional[dict] = None, attn_splitk: bool = False) -> CLIPScoreFusion:
-    """The int8 serving twin of a float CLIP-SF, on its device, computing in
-    its dtype: every block's Dense weights quantised per output channel from
-    the model's weights as they are (quantise before `to_compute_dtype` to
-    start from fp32).  `act_scales`: calibrated pairs keyed by flax module
-    path (`ops.calibrate.load_act_scales`); a stale key is an error."""
+def _int8_twin(model, make_twin: Callable, act_scales: Optional[dict]):
+    """The int8 twin `make_twin()` (built without storage) of a float model,
+    on its device, filled with the model's weights quantised as they are
+    (quantise before `to_compute_dtype` to start from fp32).  `act_scales`:
+    calibrated scales keyed by flax module path (`ops.calibrate.
+    load_act_scales`); a stale key is an error."""
     device = next(model.parameters()).device
-    state = quantize_state_dict(model.state_dict(), None if act_scales is None else act_scales_by_module(act_scales))
+    scales = None if act_scales is None else act_scales_by_module(act_scales, model)
+    state = quantize_state_dict(model, scales)
     with torch.device("meta"):
-        twin = CLIPScoreFusion(model.cfg, quant=True, dtype=model.dtype, int8_mode=int8_mode, mlp_route=mlp_route,
-                               attn_splitk=attn_splitk)
+        twin = make_twin()
     twin = twin.to_empty(device=device)
     load_quantized_state_dict(twin, state)
     return twin.eval()
+
+
+def quantize_clip_sf(model: CLIPScoreFusion, int8_mode: str = "dynamic", mlp_route: str = "fused",
+                     act_scales: Optional[dict] = None, attn_splitk: bool = False) -> CLIPScoreFusion:
+    """The int8 serving twin of a float CLIP-SF (`_int8_twin`), computing in its dtype."""
+    return _int8_twin(model, lambda: CLIPScoreFusion(model.cfg, quant=True, dtype=model.dtype, int8_mode=int8_mode,
+                                                     mlp_route=mlp_route, attn_splitk=attn_splitk), act_scales)
+
+
+def quantize_clip_ff(model: CLIPFeatureFusion, int8_mode: str = "dynamic", mlp_route: str = "fused",
+                     act_scales: Optional[dict] = None, attn_splitk: bool = False) -> CLIPFeatureFusion:
+    """The int8 serving twin of a float CLIP-FF: both towers and the T5 stack."""
+    return _int8_twin(model, lambda: CLIPFeatureFusion(model.cfg, quant=True, dtype=model.dtype, int8_mode=int8_mode,
+                                                       mlp_route=mlp_route, attn_splitk=attn_splitk), act_scales)
+
+
+def quantize_blip(model, int8_mode: str = "dynamic", mlp_route: str = "fused", act_scales: Optional[dict] = None):
+    """The int8 serving twin of a float BLIPScoreFusion or BLIPFeatureFusion:
+    the ViT, MED and (score fusion) the two heads."""
+    return _int8_twin(model, lambda: type(model)(model.vit_cfg, model.med_cfg, model.embed_dim, dtype=model.dtype,
+                                                 quant=True, int8_mode=int8_mode, mlp_route=mlp_route), act_scales)
 
 
 def seeded_clip_sf_train(
@@ -219,9 +240,14 @@ def load_clip_ff_checkpoint(model: CLIPFeatureFusion, path: str) -> None:
         model.clip_model.load_state_dict({k: v for k, v in sd.items() if k in wanted}, strict=True)
 
 
-def _int8_settings(model_config):
+def _int8_settings(model_config, train: bool):
     """(mode, MLP route, calibrated scales or None) of `model.int8`, read
-    once; the static mode without a calibration artifact is an error."""
+    once, or None without it; the static mode without a calibration artifact
+    is an error, and so is training an int8 model."""
+    if not getattr(model_config, "int8", False):
+        return None
+    if train:
+        raise ValueError("model.int8 is a serving mode: int8 layers do not train")
     mode, route = int8_mode_from_env(), int8_mlp_route_from_env()
     act_scales = None
     calib_path = getattr(model_config, "int8_calibration", None)
@@ -280,10 +306,8 @@ def _clip_bundle(name: str, model, model_config, cfg: CLIPConfig) -> ModelBundle
 def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
     model_config = config.model
     cfg = CLIP_CONFIGS[model_config.clip_vision_model_name]
-    int8 = bool(getattr(model_config, "int8", False))
-    if int8 and train:
-        raise ValueError("model.int8 is a serving mode: int8 layers do not train")
-    int8_settings = _int8_settings(model_config) if int8 else None
+    int8_settings = _int8_settings(model_config, train)
+    int8 = int8_settings is not None
     splitk = attn_splitk_from_env()
     device = resolve_device(device)
     dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
@@ -301,19 +325,15 @@ def build_clip_sf(config, device=None, train: bool = False) -> ModelBundle:
         print(f"Loaded CLIPScoreFusion weights from {path}")
 
     if int8:
-        mode, route, act_scales = int8_settings
-        model = quantize_clip_sf(model, mode, route, act_scales, attn_splitk=splitk).to_compute_dtype(dtype)
-        print(f"Quantized CLIPScoreFusion to int8 serving mode ({mode})")
+        model = quantize_clip_sf(model, *int8_settings, attn_splitk=splitk).to_compute_dtype(dtype)
+        print(f"Quantized CLIPScoreFusion to int8 serving mode ({int8_settings[0]})")
     return _clip_bundle("CLIPScoreFusion", model, model_config, cfg)
 
 
 def build_clip_ff(config, device=None, train: bool = False) -> ModelBundle:
     model_config = config.model
     cfg = CLIP_CONFIGS[model_config.clip_vision_model_name]
-    if getattr(model_config, "int8", False):
-        raise NotImplementedError(
-            "model.int8 for CLIPFeatureFusion is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 4)"
-        )
+    int8_settings = _int8_settings(model_config, train)
     splitk = attn_splitk_from_env()
     device = resolve_device(device)
     dtype = torch.bfloat16 if getattr(model_config, "bf16", True) else torch.float32
@@ -321,11 +341,14 @@ def build_clip_ff(config, device=None, train: bool = False) -> ModelBundle:
     if train:
         model = seeded_clip_ff_train(cfg, device, seed, dtype, remat=bool(getattr(model_config, "remat", False)),
                                      attn_splitk=splitk)
-    else:
-        model = seeded_clip_ff(cfg, device, seed, dtype, attn_splitk=splitk)
+    else:  # fp32 until quantised where int8: the weights quantise from fp32
+        model = seeded_clip_ff(cfg, device, seed, torch.float32 if int8_settings else dtype, attn_splitk=splitk)
     for path in _checkpoint_paths(config, train):
         load_clip_ff_checkpoint(model, path)
         print(f"Loaded CLIPFeatureFusion weights from {path}")
+    if int8_settings:
+        model = quantize_clip_ff(model, *int8_settings, attn_splitk=splitk).to_compute_dtype(dtype)
+        print(f"Quantized CLIPFeatureFusion to int8 serving mode ({int8_settings[0]})")
     return _clip_bundle("CLIPFeatureFusion", model, model_config, cfg)
 
 
@@ -382,8 +405,7 @@ def build_blip_ff(config, device=None, train: bool = False) -> ModelBundle:
 
 def _build_blip(config, name: str, seeded: Callable, device, train: bool) -> ModelBundle:
     model_config = config.model
-    if getattr(model_config, "int8", False):
-        raise NotImplementedError("model.int8 for BLIP models is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 5b)")
+    int8_settings = _int8_settings(model_config, train)
     vit = getattr(model_config, "vit", "base")
     vit_cfg = BLIP_VIT_CONFIGS[vit]
     image_size = getattr(model_config, "image_size", vit_cfg.image_size)
@@ -406,12 +428,15 @@ def _build_blip(config, name: str, seeded: Callable, device, train: bool) -> Mod
     if train:
         model = seeded(vit_cfg, med_cfg, device, seed, dtype, embed_dim,
                        remat=bool(getattr(model_config, "vit_grad_ckpt", False)))
-    else:
-        model = seeded(vit_cfg, med_cfg, device, seed, dtype, embed_dim)
+    else:  # fp32 until quantised where int8: the weights quantise from fp32
+        model = seeded(vit_cfg, med_cfg, device, seed, torch.float32 if int8_settings else dtype, embed_dim)
     strict = bool(getattr(model_config, "strict_convert", False))
     for path in _checkpoint_paths(config, train):
         load_blip_checkpoint(model, path, strict=strict)
         print(f"Loaded {name} weights from {path}")
+    if int8_settings:
+        model = quantize_blip(model, *int8_settings).to_compute_dtype(dtype)
+        print(f"Quantized {name} to int8 serving mode ({int8_settings[0]})")
     return ModelBundle(
         name=name,
         model=model,

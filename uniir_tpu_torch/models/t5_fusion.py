@@ -28,6 +28,15 @@ once is held equal to it by the tests for every distance.
 Dropout draws from an explicit `torch.Generator` (`set_dropout_generator`)
 and is identity in eval mode.  Parameters are cast to the compute dtype at
 each use (flax's `dtype=`); the norm weights and the bias table stay fp32.
+
+With `quant` (serving only) q / k / v / o / wi / wo are bias-free
+`QuantLinear`s (kernel K5, `ops/quant.py`) in the activation mode
+`int8_mode`.  Calibrated `act_scales` make them static: [a_qkv, a_out] on
+the attention (the attn layer norm's output, the attention output before
+`o`), [a_ff_in, a_hidden] on the FFN (the ff layer norm's output, relu(wi)).
+q, k and v share one quantisation of their input, as XLA's
+common-subexpression elimination shares it in the JAX package.  The relu
+FFN has no fused kernel: it is two K5 calls, as in JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from torch import nn
 
 from uniir_tpu_torch.models.layers import Dropout as T5Dropout
 from uniir_tpu_torch.models.layers import lecun_normal_, set_dropout_generator
+from uniir_tpu_torch.ops.quant import ActScales, QuantLinear, quantize_input
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,19 +105,29 @@ class _Dense(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype))
 
 
-class T5Attention(nn.Module):
-    def __init__(self, cfg: T5FusionConfig, has_relative_bias: bool = False):
+def _dense(in_features: int, out_features: int, quant: bool, int8_mode: str) -> nn.Module:
+    if quant:
+        return QuantLinear(in_features, out_features, bias=False, mode=int8_mode)
+    return _Dense(in_features, out_features)
+
+
+class T5Attention(nn.Module, ActScales):
+    def __init__(self, cfg: T5FusionConfig, has_relative_bias: bool = False, quant: bool = False,
+                 int8_mode: str = "dynamic"):
         super().__init__()
         self.cfg, self.has_relative_bias = cfg, has_relative_bias
+        self.quant, self.int8_mode = quant, int8_mode
         inner = cfg.num_heads * cfg.d_kv
-        self.q = _Dense(cfg.d_model, inner)
-        self.k = _Dense(cfg.d_model, inner)
-        self.v = _Dense(cfg.d_model, inner)
-        self.o = _Dense(inner, cfg.d_model)
+        self.q = _dense(cfg.d_model, inner, quant, int8_mode)
+        self.k = _dense(cfg.d_model, inner, quant, int8_mode)
+        self.v = _dense(cfg.d_model, inner, quant, int8_mode)
+        self.o = _dense(inner, cfg.d_model, quant, int8_mode)
         self.dropout = T5Dropout(cfg.dropout_rate)
         if has_relative_bias:
             self.relative_attention_bias = nn.Embedding(cfg.relative_attention_num_buckets, cfg.num_heads)
             self.register_buffer("buckets", torch.zeros((0, 0), dtype=torch.long), persistent=False)
+        if quant:
+            self._init_act_scales()
 
     def position_bias(self, L: int) -> torch.Tensor:
         """[1, H, L, L] fp32 bias from the bucket table, which is rebuilt on
@@ -124,9 +144,16 @@ class T5Attention(nn.Module):
     def forward(self, x: torch.Tensor, position_bias: Optional[torch.Tensor] = None):
         cfg = self.cfg
         B, L, _ = x.shape
-        q = self.q(x).view(B, L, cfg.num_heads, cfg.d_kv)
-        k = self.k(x).view(B, L, cfg.num_heads, cfg.d_kv)
-        v = self.v(x).view(B, L, cfg.num_heads, cfg.d_kv)
+        if self.quant:
+            a_in, a_out = self.static_scales() or (None, None)
+            shared = None if self.int8_mode == "wonly" else quantize_input(x, self.int8_mode, a_in)
+            q, k, v = (proj(x, a_static=a_in, quantized=shared) for proj in (self.q, self.k, self.v))
+            o = lambda ctx: self.o(ctx, a_static=a_out)  # noqa: E731
+        else:
+            q, k, v, o = self.q(x), self.k(x), self.v(x), self.o
+        q = q.view(B, L, cfg.num_heads, cfg.d_kv)
+        k = k.view(B, L, cfg.num_heads, cfg.d_kv)
+        v = v.view(B, L, cfg.num_heads, cfg.d_kv)
         logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float()  # T5: no 1/sqrt(d) scaling
         if self.has_relative_bias:
             position_bias = self.position_bias(L)
@@ -134,15 +161,15 @@ class T5Attention(nn.Module):
             logits = logits + position_bias
         probs = self.dropout(torch.softmax(logits, dim=-1).to(x.dtype))
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, cfg.num_heads * cfg.d_kv)
-        return self.o(out), position_bias
+        return o(out), position_bias
 
 
 class _SelfAttentionLayer(nn.Module):
     """HF's T5LayerSelfAttention: `layer.0` of a block."""
 
-    def __init__(self, cfg: T5FusionConfig, has_relative_bias: bool):
+    def __init__(self, cfg: T5FusionConfig, has_relative_bias: bool, quant: bool, int8_mode: str):
         super().__init__()
-        self.SelfAttention = T5Attention(cfg, has_relative_bias)
+        self.SelfAttention = T5Attention(cfg, has_relative_bias, quant, int8_mode)
         self.layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
         self.dropout = T5Dropout(cfg.dropout_rate)
 
@@ -151,23 +178,29 @@ class _SelfAttentionLayer(nn.Module):
         return x + self.dropout(out), position_bias
 
 
-class _DenseReluDense(nn.Module):
-    def __init__(self, cfg: T5FusionConfig):
+class _DenseReluDense(nn.Module, ActScales):
+    def __init__(self, cfg: T5FusionConfig, quant: bool, int8_mode: str):
         super().__init__()
-        self.wi = _Dense(cfg.d_model, cfg.d_ff)
-        self.wo = _Dense(cfg.d_ff, cfg.d_model)
+        self.quant, self.int8_mode = quant, int8_mode
+        self.wi = _dense(cfg.d_model, cfg.d_ff, quant, int8_mode)
+        self.wo = _dense(cfg.d_ff, cfg.d_model, quant, int8_mode)
         self.dropout = T5Dropout(cfg.dropout_rate)
+        if quant:
+            self._init_act_scales()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(self.dropout(F.relu(self.wi(x))))
+        if not self.quant:
+            return self.wo(self.dropout(F.relu(self.wi(x))))
+        a_in, a_hidden = self.static_scales() or (None, None)
+        return self.wo(F.relu(self.wi(x, a_static=a_in)), a_static=a_hidden)
 
 
 class _FFLayer(nn.Module):
     """HF's T5LayerFF: `layer.1` of a block."""
 
-    def __init__(self, cfg: T5FusionConfig):
+    def __init__(self, cfg: T5FusionConfig, quant: bool, int8_mode: str):
         super().__init__()
-        self.DenseReluDense = _DenseReluDense(cfg)
+        self.DenseReluDense = _DenseReluDense(cfg, quant, int8_mode)
         self.layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
         self.dropout = T5Dropout(cfg.dropout_rate)
 
@@ -176,9 +209,11 @@ class _FFLayer(nn.Module):
 
 
 class T5Block(nn.Module):
-    def __init__(self, cfg: T5FusionConfig, has_relative_bias: bool = False):
+    def __init__(self, cfg: T5FusionConfig, has_relative_bias: bool = False, quant: bool = False,
+                 int8_mode: str = "dynamic"):
         super().__init__()
-        self.layer = nn.ModuleList([_SelfAttentionLayer(cfg, has_relative_bias), _FFLayer(cfg)])
+        self.layer = nn.ModuleList([_SelfAttentionLayer(cfg, has_relative_bias, quant, int8_mode),
+                                    _FFLayer(cfg, quant, int8_mode)])
 
     def forward(self, x: torch.Tensor, position_bias: Optional[torch.Tensor] = None):
         x, position_bias = self.layer[0](x, position_bias)
@@ -186,14 +221,12 @@ class T5Block(nn.Module):
 
 
 class T5FusionStack(nn.Module):
-    def __init__(self, cfg: T5FusionConfig, dtype: torch.dtype = torch.float32, quant: bool = False):
+    def __init__(self, cfg: T5FusionConfig, dtype: torch.dtype = torch.float32, quant: bool = False,
+                 int8_mode: str = "dynamic"):
         super().__init__()
-        if quant:
-            raise NotImplementedError(
-                "int8 projections for the T5 fusion stack are not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 4)"
-            )
         self.cfg, self.dtype = cfg, dtype
-        self.block = nn.ModuleList(T5Block(cfg, has_relative_bias=(i == 0)) for i in range(cfg.num_layers))
+        self.block = nn.ModuleList(T5Block(cfg, has_relative_bias=(i == 0), quant=quant, int8_mode=int8_mode)
+                                   for i in range(cfg.num_layers))
         self.final_layer_norm = T5LayerNorm(cfg.d_model, cfg.layer_norm_epsilon)
         self.dropout = T5Dropout(cfg.dropout_rate)
         self.reset_parameters()

@@ -1,11 +1,12 @@
 """int8 quantised inference: weights, activations, the int8 matmul (kernel K5).
 
 Counterpart of `uniir_tpu/ops/quant.py` and `uniir_tpu/ops/quant_pallas.py`.
-The Dense matmuls of the transformer blocks (qkv / out projections, MLPs)
-run on int8 weights, quantised per output channel from the trained fp32
-weights; attention itself, LayerNorms, embeddings and the patch embedding
-stay in the compute dtype.  Three activation modes, chosen where the model
-is built (`int8_mode_from_env`):
+Every Dense layer of a retriever (the blocks' qkv / out projections and
+MLPs, T5's and MED's projections, BLIP-SF's heads, MED's pooler) runs on
+int8 weights, quantised per output channel from the trained fp32 weights
+(`quantize_state_dict`); attention itself, LayerNorms, embeddings and the
+patch embedding stay in the compute dtype.  Three activation modes, chosen
+where the model is built (`int8_mode_from_env`):
 
   * "dynamic": per-row int8 activations computed on the fly in bf16 math
     (`quantize_activation`), int8 x int8 -> int32 in K5, dequantised as
@@ -303,53 +304,80 @@ class QuantLinear(nn.Module):
         return quant_linear(x, self.weight_q, self.scale, self.bias, self.mode, a_static, columns, quantized)
 
 
-# float state-dict key suffix -> quantised module name, for the Dense layers
-# of a transformer block (every 2-D Dense kernel the JAX `quantize_tree`
-# replaces in a CLIP tree)
-_DENSE_KEYS = {
-    "attn.in_proj_weight": "attn.qkv_proj",
-    "attn.out_proj.weight": "attn.out_proj",
-    "mlp.c_fc.weight": "mlp.c_fc",
-    "mlp.c_proj.weight": "mlp.c_proj",
-}
-_BIAS_KEYS = {
-    "attn.in_proj_bias": "attn.qkv_proj.bias",
-    "attn.out_proj.bias": "attn.out_proj.bias",
-    "mlp.c_fc.bias": "mlp.c_fc.bias",
-    "mlp.c_proj.bias": "mlp.c_proj.bias",
-}
+class ActScales:
+    """Mixin for a module that owns int8 projections and may carry a
+    calibrated `act_scales` buffer (fp32 scales: two, or three for MED's
+    attention): a host copy is read once, at first use, so a forward never
+    waits on the device for them.  Float modules of those kinds mix it in
+    too, so the owners of calibration entries are known from a float model
+    (`quantize_state_dict`).  `int8_mode` is the module's activation mode."""
+
+    int8_mode = "dynamic"
+
+    def _init_act_scales(self) -> None:
+        self.register_buffer("act_scales", None)  # absent from the state dict until calibrated
+        self._act_host = None
+
+    def set_act_scales(self, values) -> None:
+        ref = next(self.buffers())
+        self.register_buffer("act_scales", torch.as_tensor(values, dtype=torch.float32).to(ref.device))
+        self._act_host = None
+
+    def static_scales(self):
+        """The scales as Python floats under the static mode when calibrated, else None."""
+        if self.int8_mode != "static" or getattr(self, "act_scales", None) is None:
+            return None
+        if self._act_host is None:
+            self._act_host = tuple(float(v) for v in self.act_scales.tolist())
+        return self._act_host
 
 
-def quantize_state_dict(
-    state_dict: Dict[str, torch.Tensor], act_scales: Optional[Dict[str, np.ndarray]] = None
-) -> Dict[str, torch.Tensor]:
-    """Float CLIP state dict -> the quantised modules' state dict
-    (`quant.py::quantize_tree`): each block's four Dense weights become
-    `weight_q` + `scale` (biases fp32), everything else passes through.
+def _persistent_tensors(module: nn.Module):
+    """(local name, tensor) of a module's own parameters and persistent buffers."""
+    for name, t in module.named_parameters(recurse=False):
+        yield name, t
+    for name, t in module.named_buffers(recurse=False):
+        if name not in module._non_persistent_buffers_set:
+            yield name, t
 
-    `act_scales` maps module names (`visual.transformer.resblocks.0.mlp`,
-    `transformer.resblocks.3.attn`; see `ops/calibrate.py`) to calibrated
-    fp32 pairs, stored as `<module>.act_scales`.  A name that matches no
-    quantised module is an error: it catches a stale calibration."""
+
+def quantize_state_dict(model: nn.Module, act_scales: Optional[Dict[str, np.ndarray]] = None) -> Dict[str, torch.Tensor]:
+    """Float model -> the state dict of its int8 twin, by the JAX package's
+    `quantize_tree` rule: every 2-D Dense weight (each `nn.Linear`, and the
+    fused [3W, W] `in_proj_weight` of an attention, which becomes
+    `qkv_proj`) turns into `weight_q` + `scale`, with its bias in fp32 if it
+    has one; everything else (embeddings, the patch embedding, position
+    tables, T5's bias table, norms) passes through.  The keys are module
+    names, read from the modules and not from the state dict, whose BLIP ViT
+    entries carry timm's names.
+
+    `act_scales` maps module names of `ActScales` owners
+    (`visual.transformer.resblocks.0.mlp`, `t5_layers.block.1.layer.0.
+    SelfAttention`, `text_encoder.encoder.layer.2.crossattention`; see
+    `ops/calibrate.py`) to calibrated fp32 scales, stored as
+    `<module>.act_scales`.  A name that matches no owner is an error: it
+    catches a stale calibration."""
+    if any(isinstance(m, QuantLinear) for m in model.modules()):
+        raise ValueError("quantise the float model, not its int8 twin")
     act_scales = dict(act_scales or {})
     out: Dict[str, torch.Tensor] = {}
-    owners = set()
-    for key, value in state_dict.items():
-        dense = next((s for s in _DENSE_KEYS if key.endswith(s)), None)
-        biased = next((s for s in _BIAS_KEYS if key.endswith(s)), None)
-        if dense is not None and value.dim() == 2:
-            prefix = key[: -len(dense)] + _DENSE_KEYS[dense]
-            out[prefix + ".weight_q"], out[prefix + ".scale"] = quantize_weight(value)
-            owners.add(prefix.rsplit(".", 1)[0])  # the attn / mlp module
-        elif biased is not None:
-            out[key[: -len(biased)] + _BIAS_KEYS[biased]] = value.detach().float()
-        else:
-            out[key] = value
-    for name in sorted(act_scales):
-        if name in owners:
-            ref = out[name + (".qkv_proj.scale" if name.endswith(".attn") else ".c_fc.scale")]
-            out[name + ".act_scales"] = torch.as_tensor(
-                np.asarray(act_scales.pop(name), np.float32), device=ref.device)
+    for name, module in model.named_modules():
+        p = name + "." if name else ""
+        if isinstance(module, nn.Linear):
+            out[p + "weight_q"], out[p + "scale"] = quantize_weight(module.weight)
+            if module.bias is not None:
+                out[p + "bias"] = module.bias.detach().float()
+            continue
+        for local, t in _persistent_tensors(module):
+            if local == "in_proj_weight":
+                out[p + "qkv_proj.weight_q"], out[p + "qkv_proj.scale"] = quantize_weight(t)
+            elif local == "in_proj_bias":
+                out[p + "qkv_proj.bias"] = t.detach().float()
+            else:
+                out[p + local] = t.detach()
+        if isinstance(module, ActScales) and name in act_scales:
+            out[p + "act_scales"] = torch.as_tensor(np.asarray(act_scales.pop(name), np.float32),
+                                                    device=next(module.parameters()).device)
     if act_scales:  # an AssertionError, as the JAX package's quantize_tree raises
         raise AssertionError(f"act_scales paths not found in params: {sorted(act_scales)}")
     return out

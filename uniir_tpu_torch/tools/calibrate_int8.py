@@ -1,11 +1,12 @@
 """Offline static-int8 activation calibration CLI (counterpart of
-uniir_tpu/tools/calibrate_int8.py), for CLIP-SF.
+uniir_tpu/tools/calibrate_int8.py), for any of the four retrievers.
 
 Produces the calibration artifact that `UNIIR_INT8_BACKEND=static` serving
-consumes: per-block activation scales (MLP pairs, attention qkv / out
-pairs), measured by running the float model in its compute dtype over real
-M-BEIR probe batches.  The .npz has the JAX package's format, so either
-package can serve from it.
+consumes: activation scales per int8 layer owner (pre-LN MLP and attention
+pairs, T5's attention and FFN pairs, MED's attention triples and FFN pairs),
+measured by running the float model in its compute dtype over real M-BEIR
+probe batches (BLIP's carry the token dict).  The .npz has the JAX
+package's format (whose loader refuses MED's triples).
 
     python -m uniir_tpu_torch.tools.calibrate_int8 \\
         --config_path configs/clip_sf/large/eval/inbatch/embed.yaml \\
@@ -100,7 +101,7 @@ def calibrate(bundle, config, out: str, num_batches: int = 8, batch_size: int = 
         raise ValueError("probe loader yielded no batches")
     scales = calibrate_act_scales(bundle.model, batches, margin=margin)
     save_act_scales(out, scales)
-    print(f"Calibrated {len(scales)} act-scale pairs over {len(batches)} batches -> {out}")
+    print(f"Calibrated {len(scales)} act-scale entries over {len(batches)} batches -> {out}")
     return scales
 
 
@@ -113,10 +114,6 @@ def main(argv=None, bundle=None):
     # calibration observes the FLOAT model's activations
     if getattr(config.model, "int8", False):
         config.model.int8 = False
-    if config.model.name != "CLIPScoreFusion":
-        raise NotImplementedError(
-            f"int8 serving of {config.model.name} is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 items 4-5)"
-        )
     if bundle is None:
         bundle = build_model_from_config(config, device=args.device)
     calibrate(bundle, config, args.out, args.num_batches, args.batch_size, args.margin)

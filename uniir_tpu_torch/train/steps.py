@@ -40,18 +40,18 @@ from uniir_tpu_torch.train.losses import inbatch_contrastive_loss, momentum_dist
 from uniir_tpu_torch.train.state import MomentumTrainState, TrainState
 
 
-def _to_device(x, device: torch.device):
+def to_device(x, device: torch.device):
     """A collated array (numpy or tensor) on `device`; BLIP's text input, a
     dict {"input_ids", "attention_mask"}, moves entry by entry."""
     if isinstance(x, dict):
-        return {key: _to_device(value, device) for key, value in x.items()}
+        return {key: to_device(value, device) for key, value in x.items()}
     return torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x).to(device)
 
 
 def model_inputs(batch: Dict[str, Any], device: torch.device):
     """(txt, image, txt_mask, image_mask) of a collated batch, on `device`."""
     return tuple(
-        _to_device(batch[key], device)
+        to_device(batch[key], device)
         for key in ("txt_batched", "image_batched", "txt_mask_batched", "image_mask_batched")
     )
 
@@ -145,12 +145,12 @@ def blip_loss(state: MomentumTrainState, batch: Dict[str, Any], alpha, hard_neg_
     queues; `temp` defaults to the model's parameter."""
     device = state.queue_query.device
     inputs = model_inputs(batch, device)
-    n_dids = _to_device(batch["nc_dids_list"], device) if hard_neg_num > 0 else None
+    n_dids = to_device(batch["nc_dids_list"], device) if hard_neg_num > 0 else None
     with torch.no_grad():
         emb_m = state.model_m(*inputs)
     emb = state.model(*inputs)
     return momentum_distill_contrastive_loss(
-        emb, emb_m, infer_flat_bs(batch, hard_neg_num), _to_device(batch["p_did_list"], device),
+        emb, emb_m, infer_flat_bs(batch, hard_neg_num), to_device(batch["p_did_list"], device),
         state.queue_query, state.queue_cand, state.queue_idx, state.model.temp if temp is None else temp, alpha,
         hard_neg_num=hard_neg_num, n_dids=n_dids,
     )
@@ -181,9 +181,9 @@ def make_blip_train_step(
         coin_step = state.step
         state.apply_gradients()
         device = state.queue_idx.device
-        cand, idx = out["enqueue_pos_cand"], _to_device(batch["p_did_list"], device)
+        cand, idx = out["enqueue_pos_cand"], to_device(batch["p_did_list"], device)
         if hard_neg_num > 0 and not enqueue_coin(seed, coin_step):
-            cand, idx = out["enqueue_neg_cand"], _to_device(batch["nc_dids_list"], device)[:, 0]
+            cand, idx = out["enqueue_neg_cand"], to_device(batch["nc_dids_list"], device)[:, 0]
         state.enqueue(out["enqueue_query"], cand, idx)
         return state, {"loss": out["loss"].detach(), "inbatch_accuracy": out["accuracy"]}
 
