@@ -111,7 +111,17 @@
    a card, and checks the K1 / K3 counts (46 / 23 a BLIP-SF step, 72 / 24 a
    BLIP-FF step with remat), a finite loss, the queue pointer, that the
    momentum twin moved and differs from the online model, and logs step
-   time, pairs/s, peak memory and the device's idle share.
+   time, pairs/s, peak memory and the device's idle share;
+10. drives the retrieval tools over phase 2's index, embeddings and run
+   files with phase 2's CLIP-SF (re-seeded, held to phase 2's embeddings)
+   in a bundle built in code: one request of 16 text queries through the
+   interactive retriever (K1, K2; its time split into embed, pool upload
+   and sweep, and the upload and sweep again over a 5.6M x 768 host pool),
+   held to `search_dense_index` over the same queries embedded through the
+   twins; UniRAG's raw retrieval with complement pairs over the int8 pool
+   (queries that copy the text candidates: K4 for them, K1 and K2 for the
+   complement queries); hard-negative mining (k = 50, 10 a query; K2)
+   against an fp32 search; and the error analyst over phase 2's run file.
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
 of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
@@ -139,6 +149,7 @@ import subprocess
 import sys
 import time
 import zlib
+from collections import Counter
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -2208,6 +2219,509 @@ def drive_blip_train_path(results: dict, name: str) -> None:
         train(BLIP_FF_BS)
 
 
+# ------------------------------------------ phase 10: UniRAG and the retrieval tools
+
+# the UniRAG run's queries (copies of the text candidates) and hard-negative mining's train split
+RAG_DS, MINE_DS = "mscoco_rag", "mscoco_mine"
+NUM_HARD_NEGS, MINE_K = 10, 50  # retrieval_config of every shipped retrieval.yaml
+REQUEST_QUERIES = 16  # one interactive request: 8 text queries towards images, 8 towards texts
+
+
+def tools_config(root: str, retrieval: dict = None, analysis: dict = None):
+    """The phase's config, as `Config` objects are built from a yaml: the
+    embedder's data and loader sections (the complement retriever's), and
+    the retrieval or analysis section where given."""
+    from uniir_tpu_torch.core.config import Config
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+
+    size = CLIP_CONFIGS[MODEL].image_size
+    d = {
+        "uniir_dir": root, "mbeir_data_dir": os.path.join(root, "mbeir_data"), "experiment": {"path_suffix": EXPT},
+        "data_config": {"image_size": f"{size}, {size}", "enable_query_instruct": False,
+                        "query_instruct_path": "instructions/query_instructions.tsv"},
+        "dataloader_config": {"batch_size": BATCH, "num_workers": 2},
+    }
+    if retrieval is not None:
+        d["retrieval_config"] = {
+            "qrel_dir_name": "qrels", "embed_dir_name": "embed", "index_dir_name": "index", "query_dir_name": "query",
+            "candidate_dir_name": "cand_pool", "hard_negs_dir_name": "hard_negs", "write_to_tsv": True, **retrieval,
+        }
+    if analysis is not None:
+        d["analysis_config"] = {"write_to_tsv": True, **analysis}
+    return Config.from_dict(d)
+
+
+def write_tools_tree(root: str, data: dict) -> list:
+    """The M-BEIR files the phase reads, from phase 2's seeded items: the
+    candidate pool's jsonl (image entries name files that are never opened:
+    no query of the phase has an image), the query instructions, and for the
+    analyst phase 2's queries with qrels whose tasks follow their modality.
+    Returns the candidate entries."""
+    from uniir_tpu_torch.data.dataset import save_jsonl
+
+    mbeir = os.path.join(root, "mbeir_data")
+    modality = {0: "text", 1: "image", 2: "image,text"}  # make_items' kinds
+    cands = []
+    for i, (txt, _, _, _) in enumerate(data["cands"]):
+        entry = {"did": f"9:{i}", "modality": modality[i % 3]}
+        entry.update({"txt": txt} if i % 3 != 1 else {})
+        entry.update({"img_path": f"images/cand_{i}.jpg"} if i % 3 != 0 else {})
+        cands.append(entry)
+    save_jsonl(cands, os.path.join(mbeir, "cand_pool", "mbeir_mscoco_task0_cand_pool.jsonl"))
+    os.makedirs(os.path.join(mbeir, "instructions"), exist_ok=True)
+    with open(os.path.join(mbeir, "instructions", "query_instructions.tsv"), "w") as f:
+        f.write("query_modality\tcand_modality\tdataset\tdataset_id\tprompt1\n")
+        for qm in modality.values():
+            for cm in modality.values():
+                f.write(f"{qm}\t{cm}\tMSCOCO\t9\tfind the {cm} for this {qm}\n")
+    queries = [{"qid": f"9:{j}", "query_modality": modality[j % 3], "query_txt": txt,
+                "pos_cand_list": [f"9:{data['relevant'][j]}"], "neg_cand_list": []}
+               for j, (txt, _, _, _) in enumerate(data["queries"])]
+    save_jsonl(queries, os.path.join(mbeir, "test", "mbeir_mscoco_task0_test.jsonl"))
+    task = {"text": 0, "image": 3, "image,text": 8}  # text -> image, image -> text, image,text -> image,text
+    os.makedirs(os.path.join(mbeir, "qrels_analyst", "test"), exist_ok=True)
+    with open(os.path.join(mbeir, "qrels_analyst", "test", "mbeir_mscoco_task0_test_qrels.txt"), "w") as f:
+        f.writelines(f"{q['qid']} 0 {q['pos_cand_list'][0]} 1 {task[q['query_modality']]}\n" for q in queries)
+    return cands
+
+
+def tools_counters() -> dict:
+    """The wrappers of the kernels phase 10 drives, by name."""
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.ops import topk as T
+
+    return {"K1": attn_mod.attention, "K2": T.bucket_max_scores, "K4": T.bucket_max_scores_i8}
+
+
+def zero_tools_counts() -> None:
+    for fn in tools_counters().values():
+        fn.launches = 0
+    zero_standalone()
+
+
+def read_tools_counts(results: dict, path: str, want: dict) -> dict:
+    """The counts of a part of phase 10, just after it: held to `want` and
+    added to the kernels' line; the off-path kernels held to 0."""
+    launches = {name: fn.launches for name, fn in tools_counters().items()}
+    read_standalone(results, path)
+    check(launches == want, f"{path}: launches {launches}, expected {want}")
+    for name, n in launches.items():
+        results[name]["launches"] += n
+    return launches
+
+
+def synced_s(fn, repeats: int = 3) -> float:
+    """Median host time of fn() with the card synchronised after it, in seconds."""
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def twin_embeds(retriever) -> np.ndarray:
+    """The retriever's queries embedded with K1 swapped for its plain twin."""
+    from uniir_tpu_torch.models import layers
+    from uniir_tpu_torch.ops import attention as attn_mod
+
+    layers.attention = attn_mod.attention_twin
+    try:
+        return retriever._embed_queries()
+    finally:
+        layers.attention = attn_mod.attention
+
+
+def bf16_scores(embeds: np.ndarray, pool_embeds: np.ndarray) -> torch.Tensor:
+    """fp32 scores of the L2-normalised queries against every pool row, both
+    rounded to bf16 first, as the sweeps and `brute_force_topk` take them."""
+    from uniir_tpu_torch.retrieval.index import normalize_l2
+
+    q = torch.from_numpy(normalize_l2(embeds)).bfloat16().float()
+    return q @ torch.from_numpy(pool_embeds).bfloat16().float().T
+
+
+def path_sweeps(batches: list, pool_embeds: np.ndarray, valid_n: int, int8: bool = False) -> list:
+    """K2 (with `int8`, K4 over the per-row int8 pool) on a phase-10 path's
+    own query batches and pool, beside its twin: [(queries, max abs error,
+    bit-equal)].  The path's query counts end in part-filled query blocks,
+    which phase 1's counts fill exactly.  Called after the path's counts
+    are read, so these launches are not counted."""
+    from uniir_tpu_torch.ops import topk as T
+    from uniir_tpu_torch.retrieval.index import normalize_l2
+
+    pool, quant = T.prepare_pool(pool_embeds, DEVICE, int8=int8)
+    out = []
+    for batch in batches:
+        q = torch.from_numpy(normalize_l2(batch)).to(DEVICE)
+        if int8:
+            got = T.bucket_max_scores_i8(q, *quant, valid_n)
+            want = T.bucket_max_scores_i8_reference(*T.quantize_queries(q), *quant, valid_n)
+        else:
+            got, want = T.bucket_max_scores(q, pool, valid_n), T.bucket_max_scores_reference(q, pool, valid_n)
+        out.append((len(batch), (got - want).abs().max().item(), torch.equal(got, want)))
+    return out
+
+
+def check_path_sweeps(path: str, batches: list, pool_embeds: np.ndarray, valid_n: int, int8: bool = False) -> None:
+    """`path_sweeps`, logged and held to phase 1's limits: K2 within 1e-5, K4 bit-equal."""
+    name = "K4" if int8 else "K2"
+    sweeps = path_sweeps(batches, pool_embeds, valid_n, int8)
+    log(f"{path}: {name} against its twin at the path's own query counts [(queries, max_abs_err, bit-equal)]: {sweeps}")
+    check(all(eq if int8 else err <= 1e-5 for _, err, eq in sweeps),
+          f"{path}: {name} disagrees with its twin at the path's own query counts")
+
+
+def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None:
+    """(a) One request of REQUEST_QUERIES text queries through the
+    interactive retriever over phase 2's index: the candidates of an fp32
+    search over the bf16 pool of the queries embedded through the plain
+    twins (ties within the two embeddings' score difference aside); K1 and K2
+    counted, and K2 held against its twin at the request's query count; the
+    request's time split into embed, pool upload and sweep, and the upload
+    and sweep again at the 5.6M pool's size."""
+    from uniir_tpu_torch.data.registry import hash_did
+    from uniir_tpu_torch.ops import topk as T
+    from uniir_tpu_torch.retrieval.index import DenseIndex, normalize_l2
+    from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
+
+    root = str(WORK)
+    index_path = os.path.join(root, "index", EXPT, "cand_pool", "mbeir_mscoco_task0_cand_pool.index")
+    cands_path = os.path.join(root, "mbeir_data", "cand_pool", "mbeir_mscoco_task0_cand_pool.jsonl")
+    retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle, device=DEVICE)
+    rng = np.random.default_rng(SEED + 10)
+    texts = [" ".join(rng.choice(WORDS, size=rng.integers(3, 12))) for _ in range(REQUEST_QUERIES)]
+    retriever.add_queries([("text", t, None, "image" if j % 2 else "text") for j, t in enumerate(texts)])
+    zero_tools_counts()
+    t0 = time.perf_counter()
+    got = retriever.retrieve(k=K)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    per_batch = cfg.vision_layers + cfg.text_layers - 2  # both towers a batch, each last block trimmed
+    launches = read_tools_counts(results, "interactive retriever", {
+        "K1": -(-REQUEST_QUERIES // BATCH) * per_batch, "K2": -(-REQUEST_QUERIES // 100), "K4": 0})
+    log(f"interactive retriever: {REQUEST_QUERIES} text queries, first request {t_first:.3f} s; launches {launches}")
+    index = DenseIndex.load(index_path)
+    emb = retriever._embed_queries()
+    check_path_sweeps("interactive retriever", [emb], index.embeds, index.ntotal)
+
+    # one request again, then its parts as the retriever runs them
+    q = torch.from_numpy(normalize_l2(emb)).to(DEVICE)
+    t_request = synced_s(lambda: retriever.retrieve(k=K))
+    t_embed = synced_s(retriever._embed_queries)
+    t_batches = synced_s(lambda: list(retriever._query_loader()))  # the host's part: dataset, tokens, collation
+    t_upload = synced_s(lambda: T.prepare_pool(index.embeds, DEVICE))
+    pool, _ = T.prepare_pool(index.embeds, DEVICE)
+    t_sweep = synced_s(lambda: T.topk(q, pool, K, valid_n=index.ntotal))
+    log(f"interactive request ({REQUEST_QUERIES} queries, {index.ntotal}-row pool; host clock, synchronised, "
+        f"median of 3): {t_request * 1e3:.3f} ms; embed {t_embed * 1e3:.3f} ms (of it the collated batches "
+        f"{t_batches * 1e3:.3f} ms), pool upload {t_upload * 1e3:.3f} ms, sweep + top-k {t_sweep * 1e3:.3f} ms")
+
+    # the same request's upload and sweep at the union pool's 5.6M rows (fp16 on the host, as a DenseIndex holds it)
+    big = torch.nn.functional.normalize(
+        torch.randn((POOL_ROWS, POOL_DIM), device=DEVICE, generator=torch.Generator(DEVICE).manual_seed(SEED + 11)),
+        dim=1).half().cpu().numpy()
+    t_big_upload = synced_s(lambda: T.prepare_pool(big, DEVICE), repeats=1)
+    big_pool, _ = T.prepare_pool(big, DEVICE)
+    t_big_sweep = synced_s(lambda: T.topk(q, big_pool, K, valid_n=POOL_ROWS))
+    big_request = t_embed + t_big_upload + t_big_sweep
+    log(f"the same request over a {POOL_ROWS} x {POOL_DIM} pool: pool upload {t_big_upload * 1e3:.3f} ms "
+        f"(bf16, one run), sweep + top-k {t_big_sweep * 1e3:.3f} ms (median of 3); the sum of the three parts, "
+        f"each timed on its own, {big_request * 1e3:.3f} ms, the upload {t_big_upload / big_request:.4f} of it")
+    del big, big_pool, pool
+    torch.cuda.empty_cache()
+
+    # the same queries through the plain twins, searched in fp32 over the bf16 pool
+    plain = twin_embeds(retriever)
+    cos = torch.nn.functional.cosine_similarity(torch.from_numpy(emb).float(), torch.from_numpy(plain).float(), dim=1)
+    log(f"interactive queries through K1 vs through its twin: min cosine {cos.min().item()}")
+    check(cos.min().item() >= 0.999, "interactive query embeddings through the kernel disagree with the plain path")
+    ref_scores, ref_rows = brute_force_topk(torch.from_numpy(normalize_l2(plain)).to(DEVICE),
+                                            torch.from_numpy(index.embeds).to(DEVICE).bfloat16(), index.ntotal, K)
+    ids = torch.from_numpy(index.ids[ref_rows.cpu().numpy()])
+    tie = 2 * (bf16_scores(emb, index.embeds) - bf16_scores(plain, index.embeds)).abs().max().item() + 1e-5
+    got_ids = torch.tensor([[hash_did(c["did"]) for c in row] for row in got])
+    by_did = {c["did"]: c for c in cands}
+    hits = dict(Counter(c["modality"] for row in got for c in row))
+    log(f"interactive retriever against the twins' fp32 search: {int((got_ids != ids).sum())} of "
+        f"{got_ids.numel()} ranks differ, tie allowance {tie}; the hits' modalities {hits}")
+    check(same_ranking(got_ids, ids, ref_scores.cpu(), tie),
+          "the interactive retriever's candidates differ from the twins' search beyond ties")
+    check(all(c == by_did[c["did"]] for row in got for c in row), "the retriever returned altered candidate entries")
+
+
+def rag_candidates(cands: list) -> list:
+    """The UniRAG run's candidate entries: `cands`, with every third text
+    entry labelled an image (an img_path that is never opened; its pool row
+    still holds the text's embedding).  Seeded weights put a text query near
+    texts only, so these rows are the image hits its complement query can
+    find."""
+    out, n_text = [], 0
+    for c in cands:
+        if c["modality"] == "text":
+            n_text += 1
+            if n_text % 3 == 2:
+                c = {"did": c["did"], "modality": "image", "img_path": f"images/rag_{c['did'].split(':')[1]}.jpg"}
+        out.append(c)
+    return out
+
+
+def complement_query(cand: dict) -> tuple:
+    """The complement query UniRAG sends for a text or image candidate."""
+    return cand["modality"], cand.get("txt"), cand.get("img_path"), {"text": "image", "image": "text"}[cand["modality"]]
+
+
+def check_complements(rows: list, kernel: np.ndarray, plain: np.ndarray, index, cands: list, k: int = 10) -> tuple:
+    """Every complement of a UniRAG run's retrieved rows, against the rule
+    applied to an fp32 search over the bf16 pool of the complement queries
+    embedded through the plain twins: the first hit of the top k in the other
+    modality that is not the row's query's own image or text, else None.
+    Ties within the kernel and twin embeddings' score difference aside: a
+    complement must be eligible, in the top k and the best eligible row, each
+    up to that allowance, and None only where no eligible row is clearly in
+    the top k.  `kernel` / `plain` are the complement queries' embeddings in
+    the run's order.  Returns (every complement held, found, equal to the
+    reference's choice, tie allowance)."""
+    from uniir_tpu_torch.data.registry import unhash_did
+
+    by_did = {c["did"]: c for c in cands}
+    row_cands = [by_did[unhash_did(h)] for h in index.ids.tolist()]
+    s = bf16_scores(plain, index.embeds)
+    tie = 2 * (bf16_scores(kernel, index.embeds) - s).abs().max().item() + 1e-5
+    held, found, exact, j = True, 0, 0, 0
+    for row in rows:
+        query = row["query"]
+        pairs = [c for c in row["candidates"] if c["modality"] in ("text", "image")]
+        held &= len(pairs) == len(row.get("complement_candidates", []))
+        for cand, got in zip(pairs, row.get("complement_candidates", [])):
+            want_modality = complement_query(cand)[3]
+            eligible = torch.tensor([
+                c["modality"] == want_modality and bool(
+                    (c.get("img_path") and c.get("img_path") != query.get("query_img_path"))
+                    or (c.get("txt") and c.get("txt") != query.get("query_txt")))
+                for c in row_cands])
+            scores = s[j]
+            order = torch.argsort(scores, descending=True)[:k]
+            kth = scores[order[-1]].item()
+            best = scores[eligible].max().item() if eligible.any() else -float("inf")
+            ref = next((row_cands[r] for r in order.tolist() if eligible[r]), None)
+            if got is None:
+                held &= best <= kth + tie
+            else:
+                r = next(i for i, c in enumerate(row_cands) if c["did"] == got["did"])
+                held &= (got == row_cands[r] and bool(eligible[r]) and scores[r].item() >= kth - tie
+                         and scores[r].item() >= best - tie)
+                found += 1
+            exact += got == ref
+            j += 1
+    return held and j == len(plain), found, exact, tie
+
+
+def drive_raw_retrieval(results: dict, bundle, cfg, cands: list) -> None:
+    """(b) UniRAG's retrieval.yaml (raw retrieval, image-text pairs, the int8
+    pool) over queries that copy the text candidates' embeddings, Recall@1:
+    each retrieves its own text candidate through K4, and each complement
+    query is a text query (K1, then K2 over the bf16 pool).  The run reads
+    the split-named candidate jsonl, `rag_candidates`, so that complements
+    are found; each is held to the rule over the twins' search
+    (`check_complements`), and K4 and K2 to their twins at the run's own
+    query counts."""
+    from uniir_tpu_torch.data.dataset import save_jsonl
+    from uniir_tpu_torch.data.registry import hash_qid
+    from uniir_tpu_torch.retrieval.eval import run_retrieval
+    from uniir_tpu_torch.retrieval.index import DenseIndex
+    from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
+
+    root = str(WORK)
+    mbeir = os.path.join(root, "mbeir_data")
+    rag = rag_candidates(cands)
+    rag_path = os.path.join(mbeir, "cand_pool", "mbeir_mscoco_task0_test_cand_pool.jsonl")
+    save_jsonl(rag, rag_path)
+    text_rows = [i for i, c in enumerate(rag) if c["modality"] == "text"]
+    queries = [{"qid": f"9:{j}", "query_modality": "text", "query_txt": rag[i]["txt"],
+                "pos_cand_list": [rag[i]["did"]], "neg_cand_list": []} for j, i in enumerate(text_rows)]
+    save_jsonl(queries, os.path.join(mbeir, "query", "test", f"mbeir_{RAG_DS}_test.jsonl"))
+    with open(os.path.join(mbeir, "qrels", "test", f"mbeir_{RAG_DS}_test_qrels.txt"), "w") as f:
+        f.writelines(f"{q['qid']} 0 {q['pos_cand_list'][0]} 1 1\n" for q in queries)
+    embed_dir = os.path.join(root, "embed", EXPT)
+    cand_emb = np.load(os.path.join(embed_dir, "cand_pool", "mbeir_mscoco_task0_cand_pool_embed.npy"))
+    np.save(os.path.join(embed_dir, "test", f"mbeir_{RAG_DS}_test_embed.npy"), cand_emb[text_rows])
+    np.save(os.path.join(embed_dir, "test", f"mbeir_{RAG_DS}_test_ids.npy"),
+            np.asarray([hash_qid(q["qid"]) for q in queries], np.int64))
+    config = tools_config(root, retrieval={
+        "results_dir_name": "results_unirag", "raw_retrieval": True, "retrieve_image_text_pairs": True,
+        "pool_dtype": "int8",
+        "test_datasets_config": {"enable_retrieve": True, "datasets_name": [RAG_DS],
+                                 "correspond_cand_pools_name": ["mscoco_task0"], "correspond_qrels_name": [RAG_DS],
+                                 "correspond_metrics_name": ["Recall@1"]},
+    })
+    zero_tools_counts()
+    stats: list = []
+    t0 = time.perf_counter()
+    (row,) = run_retrieval(config, device=DEVICE, stats_out=stats, query_embedder_config=tools_config(root),
+                           bundle=bundle)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    n = len(queries)
+    per_batch = cfg.vision_layers + cfg.text_layers - 2
+    launches = read_tools_counts(results, "raw retrieval", {
+        "K1": -(-n // BATCH) * per_batch, "K2": -(-n // 100) + stats[0]["exact_reruns"], "K4": -(-n // SEARCH_BATCH)})
+    with open(os.path.join(root, "results_unirag", EXPT, "retrieved_candidates",
+                           f"mbeir_{RAG_DS}_single_pool_test_k1_retrieved.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    comps = [c for r in rows for c in r.get("complement_candidates", [])]
+    log(f"raw retrieval with complements ({n} queries, int8 pool): {t_run:.3f} s; Recall@1={row['Recall@1']} "
+        f"guard_pass_rate={stats[0]['guard_pass_rate']} exact_reruns={stats[0]['exact_reruns']}; launches {launches}")
+    check(len(rows) == n, f"{len(rows)} retrieved rows for {n} queries")
+    check(row["Recall@1"] == 1.0 and all([c["did"] for c in r["candidates"]] == q["pos_cand_list"]
+                                          for r, q in zip(rows, queries)),
+          "a query that copies a text candidate did not retrieve it first")
+    check(len(comps) == n and all(c is None or c["modality"] == "image" for c in comps),
+          "a text candidate's complement is not None or an image")
+
+    # the complement queries again, through the kernels and through the twins
+    index_path = os.path.join(root, "index", EXPT, "cand_pool", "mbeir_mscoco_task0_cand_pool.index")
+    retriever = InteractiveRetriever(index_path, rag_path, "MSCOCO", tools_config(root), bundle=bundle, device=DEVICE)
+    retriever.add_queries([complement_query(c) for r in rows for c in r["candidates"] if c["modality"] in ("text", "image")])
+    kernel, plain = retriever._embed_queries(), twin_embeds(retriever)
+    index = DenseIndex.load(index_path)
+    held, found, exact, tie = check_complements(rows, kernel, plain, index, rag)
+    log(f"complements found {found} of {len(comps)}; equal to the twins' fp32 search's choice {exact} of {len(comps)}, "
+        f"the rest within the tie allowance {tie}: {held}")
+    check(held and found > 0, "a complement breaks the rule over the twins' search, or none was found")
+    check_path_sweeps("raw retrieval's main sweep", [cand_emb[text_rows]], index.embeds, index.ntotal, int8=True)
+    check_path_sweeps("raw retrieval's complement pass", [kernel[i : i + 100] for i in range(0, len(kernel), 100)],
+                      index.embeds, index.ntotal)
+
+
+def drive_hard_negative_mining(results: dict, data: dict) -> None:
+    """(c) Mining over a train split made of phase 2's queries and their
+    embeddings: no mined negative is a positive, each list grew by
+    NUM_HARD_NEGS, and the mined ids are those of an fp32 search of the same
+    bf16 values, ties aside (`mined_negatives_held`); K2 counted, and held
+    against its twin at the split's query count."""
+    from uniir_tpu_torch.data.dataset import save_jsonl
+    from uniir_tpu_torch.data.registry import unhash_did
+    from uniir_tpu_torch.retrieval.hard_negs import run_hard_negative_mining
+    from uniir_tpu_torch.retrieval.index import DenseIndex, normalize_l2
+
+    root = str(WORK)
+    modality = {0: "text", 1: "image", 2: "image,text"}
+    queries = [{"qid": f"9:{j}", "query_modality": modality[j % 3], "query_txt": txt,
+                "pos_cand_list": [f"9:{data['relevant'][j]}"],
+                "neg_cand_list": [f"9:{(data['relevant'][j] + 1) % N_CANDS}"]}
+               for j, (txt, _, _, _) in enumerate(data["queries"])]
+    save_jsonl(queries, os.path.join(root, "mbeir_data", "train", f"mbeir_{MINE_DS}_train.jsonl"))
+    embed_dir = os.path.join(root, "embed", EXPT)
+    os.makedirs(os.path.join(embed_dir, "train"), exist_ok=True)
+    q_emb = np.load(os.path.join(embed_dir, "test", "mbeir_mscoco_task0_test_embed.npy"))
+    for kind, arr in (("embed", q_emb), ("ids", np.load(os.path.join(embed_dir, "test", "mbeir_mscoco_task0_test_ids.npy")))):
+        np.save(os.path.join(embed_dir, "train", f"mbeir_{MINE_DS}_train_{kind}.npy"), arr)
+    config = tools_config(root, retrieval={
+        "num_hard_negs": NUM_HARD_NEGS, "k": MINE_K,
+        "train_datasets_config": {"enable_retrieve": True, "datasets_name": [MINE_DS],
+                                  "correspond_cand_pools_name": ["mscoco_task0"]},
+    })
+    zero_tools_counts()
+    t0 = time.perf_counter()
+    path = run_hard_negative_mining(config, device=DEVICE)
+    torch.cuda.synchronize()
+    t_mine = time.perf_counter() - t0
+    launches = read_tools_counts(results, "hard-negative mining",
+                                 {"K1": 0, "K2": -(-len(queries) // SEARCH_BATCH), "K4": 0})
+    log(f"hard-negative mining ({len(queries)} queries, k={MINE_K}, {NUM_HARD_NEGS} a query): {t_mine:.3f} s; "
+        f"launches {launches}")
+
+    with open(path) as f:
+        mined = [json.loads(line) for line in f]
+    index = DenseIndex.load(os.path.join(root, "index", EXPT, "cand_pool", "mbeir_mscoco_task0_cand_pool.index"))
+    pool = torch.from_numpy(index.embeds).to(DEVICE).bfloat16()
+    scores, rows = brute_force_topk(torch.from_numpy(normalize_l2(q_emb)).to(DEVICE), pool, index.ntotal, MINE_K)
+    dids = [unhash_did(h) for h in index.ids.tolist()]
+    held, differ = mined_negatives_held(mined, queries, scores.cpu(), rows.cpu(), dids, NUM_HARD_NEGS)
+    log(f"hard negatives equal to the fp32 search's for {len(queries) - differ} of {len(queries)} queries "
+        f"(the rest differ only where the search's neighbouring scores tie): {held}")
+    check(held, "mined negatives differ from the fp32 search's beyond ties, or a positive was mined")
+    check_path_sweeps("hard-negative mining", [q_emb], index.embeds, index.ntotal)
+
+
+def mined_negatives_held(mined: list, queries: list, scores: torch.Tensor, rows: torch.Tensor, dids: list,
+                         num_hard_negs: int, tie: float = 1e-5) -> tuple:
+    """Each mined list against `mine_hard_negatives` over an fp32 search's
+    top rows (`scores`, `rows`: [Q, k]): every list grew by num_hard_negs
+    with no positive among them, and a negative differs from the search's
+    only where the search's scores of it and of a neighbour in its list tie
+    within `tie` (`same_ranking`).  Returns (all held, lists that differ)."""
+    from uniir_tpu_torch.retrieval.hard_negs import mine_hard_negatives
+
+    held, differ = True, 0
+    for m, q, s, r in zip(mined, queries, scores, rows.tolist()):
+        new = m["neg_cand_list"][len(q["neg_cand_list"]):]
+        held &= len(new) == num_hard_negs and not set(new) & set(q["pos_cand_list"])
+        ranked = [dids[i] for i in r]
+        want = mine_hard_negatives(ranked, q["pos_cand_list"], q["neg_cand_list"], num_hard_negs)
+        if new != want:
+            differ += 1
+            score_of = dict(zip(ranked, s.tolist()))
+            code = {d: i for i, d in enumerate(dict.fromkeys(ranked + new))}
+            held &= all(d in score_of for d in new) and same_ranking(
+                torch.tensor([[code[d] for d in new]]), torch.tensor([[code[d] for d in want]]),
+                torch.tensor([[score_of[d] for d in want]]), tie)
+    return held, differ
+
+
+def drive_error_analyst() -> None:
+    """(d) The analyst over phase 2's int8-pool run file: rates in [0, 1] and a TSV."""
+    from uniir_tpu_torch.retrieval.analyst import run_automatic_error_analysis
+
+    root = str(WORK)
+    config = tools_config(root, analysis={
+        "qrel_dir_name": "qrels_analyst", "results_dir_name": "results_clip_int8",
+        "test_datasets_config": {"enable_retrieve": True, "datasets_name": ["mscoco_task0"],
+                                 "correspond_cand_pools_name": ["mscoco_task0"],
+                                 "correspond_qrels_name": ["mscoco_task0"],
+                                 "correspond_metrics_name": ["Recall@1, Recall@5, Recall@10"]},
+    })
+    rows = run_automatic_error_analysis(config)
+    tsv_dir = os.path.join(root, "results_clip_int8", EXPT, "error_tsv")
+    log(f"error analyst over phase 2's run file: {rows}")
+    check(rows and all(0.0 <= r[t] <= 1.0 for r in rows for t in ("Type1", "Type2", "Type3")),
+          "error rates outside [0, 1]")
+    check(len(os.listdir(tsv_dir)) == 1, "the analyst wrote no TSV")
+
+
+def drive_tools_path(results: dict) -> None:
+    """Phase 10: the interactive retriever, UniRAG's raw retrieval with
+    complement pairs, hard-negative mining and the error analyst, over phase
+    2's index, embeddings and run files, with phase 2's model (the same
+    seed) in a bundle built in code (hash tokens: the card's machine has no
+    BPE file)."""
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import ModelBundle, seeded_clip_sf
+    from uniir_tpu_torch.train.steps import make_embed_step
+
+    cfg = CLIP_CONFIGS[MODEL]
+    data = smoke_dataset()
+    model = seeded_clip_sf(cfg, DEVICE, seed=SEED, dtype=torch.bfloat16)
+    bundle = ModelBundle("CLIPScoreFusion", model, lambda t: hash_tokenize(t, cfg.context_length, cfg.vocab_size),
+                         None, None, (cfg.image_size, cfg.image_size), cfg.embed_dim)
+    # phase 2's model again: its first candidate batch embeds as phase 2 saved it
+    saved = np.load(os.path.join(str(WORK), "embed", EXPT, "cand_pool", "mbeir_mscoco_task0_cand_pool_embed.npy"))
+    first = collate(data["cands"][:BATCH], data["dids"][:BATCH], "did_list", cfg)
+    first.pop("did_list"), first.pop("n_valid")
+    again = make_embed_step(model)(first).cpu().numpy()
+    err = float(np.abs(again.astype(np.float32) - saved[:BATCH].astype(np.float32)).max())
+    log(f"phase 10: CLIP-SF {MODEL} bf16 re-seeded; its first candidate batch against phase 2's: max abs {err}")
+    check(err <= 1e-3, "the re-seeded model does not embed as phase 2's did")
+    cands = write_tools_tree(str(WORK), data)
+    drive_interactive_retriever(results, bundle, cfg, cands)
+    drive_raw_retrieval(results, bundle, cfg, cands)
+    drive_hard_negative_mining(results, data)
+    drive_error_analyst()
+
+
 def profile_train_step(name: str, remat: bool = False, splitk: bool = False) -> None:
     """torch.profiler over 3 train steps of TRAIN_BS pairs of `name` (with
     remat and UNIIR_ATTN_SPLITK=1 where asked): device time by kernel group."""
@@ -2384,6 +2898,8 @@ def main() -> None:
         profile_train_step("CLIPScoreFusion")
         profile_train_step("CLIPFeatureFusion")
         profile_train_step("CLIPFeatureFusion", remat=True, splitk=True)
+    torch.cuda.empty_cache()
+    drive_tools_path(results)  # adds its K1 / K2 / K4 launches too
     for name in ("K10", "K11"):
         check(results[name]["launches"] > 0, f"kernel {name} was not launched on a main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")

@@ -89,6 +89,16 @@ def test_jsonl_round_trip_and_registry_helpers(tmp_path):
     assert registry.MBEIR_TASK == jax_registry.MBEIR_TASK
     for q, c in [("text", "image"), ("image,text", "image,text"), ("image", "audio")]:
         assert registry.get_mbeir_task_id(q, c) == jax_registry.get_mbeir_task_id(q, c)
+    assert registry.DATASET_IDS == jax_registry.DATASET_IDS
+    assert registry.MBEIR_DATASET_TO_DOMAIN == jax_registry.MBEIR_DATASET_TO_DOMAIN
+    assert registry.IMAGE_SHORT_SIDE == jax_registry.IMAGE_SHORT_SIDE
+    for name in [*jax_registry.DATASET_IDS, "mscoco", "M-BEIR"]:
+        assert registry.get_dataset_id(name) == jax_registry.get_dataset_id(name)
+    for id_str in ["0:1", "9:123", "5:0", "10:4", "99:1"]:
+        assert registry.get_dataset_name(id_str) == jax_registry.get_dataset_name(id_str)
+    for task_id in range(-1, 11):
+        assert (registry.get_mbeir_query_modality_cand_modality_from_task_id(task_id)
+                == jax_registry.get_mbeir_query_modality_cand_modality_from_task_id(task_id))
 
 
 @pytest.mark.parametrize("hard_neg_num", [0, 2])

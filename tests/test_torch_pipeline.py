@@ -369,7 +369,8 @@ def test_config_interpolation_matches_jax():
 
 
 def test_pipeline_cli_index_and_retrieval(trees, tmp_path):
-    """tools/pipeline.py runs index + retrieval from a YAML config over the JAX embeddings."""
+    """tools/pipeline.py runs index + retrieval from a YAML config over the JAX
+    embeddings, then hard-negative mining and the error analyst over them."""
     import shutil
 
     from uniir_tpu_torch.core.config import save_config
@@ -384,5 +385,9 @@ def test_pipeline_cli_index_and_retrieval(trees, tmp_path):
     main(["--config_path", path, "--uniir_dir", root, "--mbeir_data_dir", os.path.join(root, "mbeir_data"),
           "--enable_create_index", "--enable_retrieval", "--device", "cpu"])
     assert _tsv(root, expt) == _tsv(root, JAX_EXPT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["--config_path", path, "--enable_hard_negative_mining"])
+    main(["--config_path", path, "--uniir_dir", root, "--mbeir_data_dir", os.path.join(root, "mbeir_data"),
+          "--enable_hard_negative_mining", "--run_automatic_error_analysis", "--device", "cpu"])
+    mined = os.path.join(root, "mbeir_data", "train", "hard_negs", "mbeir_mscoco_task0_hard_negs_train.jsonl")
+    with open(mined) as f:
+        assert len(f.readlines()) == 12
+    assert len(os.listdir(os.path.join(root, "retrieval_results", expt, "error_tsv"))) == 1

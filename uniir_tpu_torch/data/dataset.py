@@ -46,6 +46,16 @@ def load_jsonl(path: str) -> list:
         return [json.loads(line) for line in f if line.strip()]
 
 
+def load_candidates(candidates_path: str) -> dict:
+    """did -> candidate entry of a candidate-pool jsonl; a repeated did is an error."""
+    did_to_candidates = {}
+    for c in load_jsonl(candidates_path):
+        if c["did"] in did_to_candidates:
+            raise ValueError(f"dids must be unique: {c['did']} repeats in {candidates_path}")
+        did_to_candidates[c["did"]] = c
+    return did_to_candidates
+
+
 def save_jsonl(entries: list, path: str) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:

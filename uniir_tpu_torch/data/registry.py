@@ -1,5 +1,5 @@
-"""M-BEIR task table, id hashing and text canonicalisation (counterpart of
-uniir_tpu/data/registry.py).
+"""M-BEIR dataset and task tables, id hashing and text canonicalisation
+(counterpart of uniir_tpu/data/registry.py).
 
 Byte-compatible with the JAX package's tables and hash scheme (a test holds
 them equal).  The port keeps its own copy: it imports nothing of the JAX
@@ -7,6 +7,19 @@ package.
 """
 
 from __future__ import annotations
+
+DATASET_IDS = {
+    "VisualNews": 0,
+    "Fashion200K": 1,
+    "WebQA": 2,
+    "EDIS": 3,
+    "NIGHTS": 4,
+    "OVEN": 5,
+    "INFOSEEK": 6,
+    "FashionIQ": 7,
+    "CIRR": 8,
+    "MSCOCO": 9,
+}
 
 MBEIR_TASK = {
     "text -> image": 0,
@@ -19,6 +32,21 @@ MBEIR_TASK = {
     "image,text -> image": 7,
     "image,text -> image,text": 8,
 }
+
+MBEIR_DATASET_TO_DOMAIN = {
+    "VisualNews": "news",
+    "Fashion200K": "fashion",
+    "WebQA": "wiki",
+    "EDIS": "news",
+    "NIGHTS": "common",
+    "OVEN": "wiki",
+    "INFOSEEK": "wiki",
+    "FashionIQ": "fashion",
+    "CIRR": "common",
+    "MSCOCO": "common",
+}
+
+IMAGE_SHORT_SIDE = 256
 
 DATASET_CAN_NUM_UPPER_BOUND = 10_000_000  # max candidates per dataset
 DATASET_QUERY_NUM_UPPER_BOUND = 500_000  # max queries per dataset
@@ -44,6 +72,18 @@ def unhash_did(hashed_did: int) -> str:
     return f"{hashed_did // DATASET_CAN_NUM_UPPER_BOUND}:{hashed_did % DATASET_CAN_NUM_UPPER_BOUND}"
 
 
+def get_dataset_id(dataset_name: str):
+    return DATASET_IDS.get(dataset_name, None)
+
+
+def get_dataset_name(id_str: str):
+    dataset_id = int(id_str.split(":")[0])
+    for name, id_ in DATASET_IDS.items():
+        if id_ == dataset_id:
+            return name
+    return None
+
+
 def get_mbeir_task_name(task_id: int):
     for name, id_ in MBEIR_TASK.items():
         if id_ == task_id:
@@ -53,6 +93,13 @@ def get_mbeir_task_name(task_id: int):
 
 def get_mbeir_task_id(source_modality, target_modality):
     return MBEIR_TASK.get(f"{source_modality} -> {target_modality}", None)
+
+
+def get_mbeir_query_modality_cand_modality_from_task_id(task_id: int):
+    for name, id_ in MBEIR_TASK.items():
+        if id_ == task_id:
+            return name.split(" -> ")
+    return None
 
 
 def format_string(s) -> str:

@@ -5,13 +5,15 @@ Same byte formats as the JAX package and the reference:
   * run file: `qid Q0 did rank score run_id task_id`
   * Recall@k: hit rate -- 1.0 if any relevant doc is in the top k
   * TSV:      TaskID/Task/Dataset/Split/Metric/CandPool/Value/UnionPool/UnionValue
+  * raw retrieval (UniRAG): `retrieved_candidates/{run_id}_retrieved.jsonl`
+    rows {query, candidates[, complement_candidates]}
 The JAX module imports its search at the top, hence this port-local copy.
-The raw-retrieval (UniRAG) dump waits for a later PR.
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import os
 from collections import defaultdict
 from datetime import datetime
@@ -19,6 +21,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from uniir_tpu_torch.data.dataset import load_candidates
 from uniir_tpu_torch.data.registry import get_mbeir_task_name, unhash_did, unhash_qid
 from uniir_tpu_torch.retrieval.index import DenseIndex
 from uniir_tpu_torch.retrieval.search import search_dense_index
@@ -80,6 +83,16 @@ def write_run_file(run_file_path, retrieved_dist, retrieved_indices, hashed_quer
                 run_file.write(f"{qid} Q0 {unhash_did(hashed_doc_id)} {rank} {score} {run_id} {task_id}\n")
 
 
+def load_run_file(run_file_path: str) -> Dict[str, list]:
+    """qid -> [did, ...] in rank order."""
+    run: Dict[str, list] = defaultdict(list)
+    with open(run_file_path, "r") as f:
+        for line in f:
+            qid, _, did, rank, score, run_id, task_id = line.strip().split()
+            run[qid].append((int(rank), did, float(score), task_id))
+    return {qid: [did for _, did, _, _ in sorted(rows)] for qid, rows in run.items()}
+
+
 def evaluate_recall(retrieved_indices, hashed_query_ids, qrel, qid_to_taskid, metric_recall_list) -> Dict[str, Dict[str, float]]:
     """Per-task mean Recall@k."""
     recall_values_by_task: Dict[str, Dict[str, list]] = defaultdict(lambda: defaultdict(list))
@@ -108,20 +121,21 @@ def sort_eval_results(eval_results: List[dict]) -> List[dict]:
     )
 
 
-def write_tsv_report(eval_results: List[dict], tsv_file_path: str) -> None:
-    """Grouped TSV with single-pool vs UNION columns."""
+def write_tsv_report(eval_results: List[dict], tsv_file_path: str, metrics=AVAILABLE_RECALL_METRICS) -> None:
+    """Grouped TSV with single-pool vs UNION columns, a row per metric of
+    `metrics` (Recall@k here, the analyst's error types there)."""
     grouped: Dict[tuple, Dict[str, dict]] = defaultdict(lambda: defaultdict(dict))
     for result in sort_eval_results(eval_results):
         key = (result["TaskID"], result["Task"], result["Dataset"], result["Split"])
-        for metric in AVAILABLE_RECALL_METRICS:
+        for metric in metrics:
             grouped[key][result["CandPool"]].update({metric: result.get(metric, None)})
 
     rows = [["TaskID", "Task", "Dataset", "Split", "Metric", "CandPool", "Value", "UnionPool", "UnionValue"]]
     for (task_id, task, dataset, split), cand_pools in grouped.items():
         union_results = cand_pools.get("union", {})
-        for metric in AVAILABLE_RECALL_METRICS:
-            for cand_pool, metrics in cand_pools.items():
-                value = metrics.get(metric, None)
+        for metric in metrics:
+            for cand_pool, values in cand_pools.items():
+                value = values.get(metric, None)
                 if cand_pool == "union" or value is None:
                     continue
                 row = [task_id, task, dataset, split, metric, cand_pool, value]
@@ -133,23 +147,81 @@ def write_tsv_report(eval_results: List[dict], tsv_file_path: str) -> None:
         writer = csv.writer(tsvfile, delimiter="\t")
         for row in rows:
             writer.writerow(row)
-    print(f"Retriever: Results saved to {tsv_file_path}")
 
 
-def run_retrieval(config, device=None, stats_out: list | None = None) -> List[dict]:
-    """Retrieval sweep driven by retrieval.yaml: run files, Recall@k, TSV.
+COMPLEMENT_MODALITIES = {"text": "image", "image": "text"}
+
+
+def get_raw_retrieved_candidates(queries_path: str, candidates_path: str, retrieved_indices, hashed_query_ids,
+                                 complement_retriever=None) -> dict:
+    """qid -> {query, candidates} for UniRAG.  With a complement retriever,
+    each text or image candidate is sent back as a query of its own modality
+    towards the other one, and the first hit of that other modality that is
+    not the query's own image or text becomes its complement (None if none of
+    the top 10 is), so the results form (image, text) pairs."""
+    qid_to_queries = {}
+    with open(queries_path, "r") as f:
+        for line in f:
+            q = json.loads(line.strip())
+            if q["qid"] in qid_to_queries:
+                raise ValueError(f"qids must be unique: {q['qid']} repeats in {queries_path}")
+            qid_to_queries[q["qid"]] = q
+    did_to_candidates = load_candidates(candidates_path)
+
+    retrieved_dict = {}
+    complement_queries_list = []
+    for idx, indices in enumerate(retrieved_indices):
+        qid = unhash_qid(hashed_query_ids[idx])
+        retrieved_cands = [did_to_candidates[unhash_did(h)] for h in indices]
+        retrieved_dict[qid] = {"query": qid_to_queries[qid], "candidates": retrieved_cands}
+        if complement_retriever:
+            complement_queries = [
+                (c.get("modality"), c.get("txt"), c.get("img_path"), COMPLEMENT_MODALITIES[c.get("modality")])
+                for c in retrieved_cands
+                if c["modality"] in COMPLEMENT_MODALITIES
+            ]
+            complement_queries_list.append((qid, complement_queries))
+            complement_retriever.add_queries(complement_queries)
+
+    if complement_retriever:
+        retrieved_complements = iter(complement_retriever.retrieve(k=10))
+        for qid, complement_queries in complement_queries_list:
+            query = retrieved_dict[qid]["query"]
+            complement_candidates = []
+            for q_modality, *_ in complement_queries:
+                complement_cand = None
+                for cand in next(retrieved_complements):
+                    if cand["modality"] != COMPLEMENT_MODALITIES[q_modality]:
+                        continue
+                    # never the original query itself
+                    if (cand.get("img_path") and cand.get("img_path") != query.get("query_img_path")) or (
+                        cand.get("txt") and cand.get("txt") != query.get("query_txt")
+                    ):
+                        complement_cand = cand
+                        break
+                complement_candidates.append(complement_cand)
+            retrieved_dict[qid]["complement_candidates"] = complement_candidates
+    return retrieved_dict
+
+
+def run_retrieval(config, device=None, stats_out: list | None = None, query_embedder_config=None,
+                  bundle=None) -> List[dict]:
+    """Retrieval sweep driven by retrieval.yaml: run files, Recall@k, TSV,
+    and with `raw_retrieval` the retrieved candidates of every query.
 
     `stats_out`, when given, receives one dict per search (run_id plus the
-    search stats: pool_dtype, guard_pass_rate, exact_reruns)."""
+    search stats: pool_dtype, guard_pass_rate, exact_reruns).  With
+    `retrieve_image_text_pairs` the complement retriever embeds through
+    `bundle`, or a model built from `query_embedder_config` when None."""
     retrieval_config = config.retrieval_config
-    if getattr(retrieval_config, "raw_retrieval", False):
-        raise NotImplementedError("raw_retrieval is not ported to uniir_tpu_torch yet (ROADMAP.md, Queue 1 item 7)")
+    raw_retrieval = getattr(retrieval_config, "raw_retrieval", False)
     uniir_dir, expt_dir_name = config.uniir_dir, config.experiment.path_suffix
     exp_results_dir = os.path.join(uniir_dir, retrieval_config.results_dir_name, expt_dir_name)
     exp_run_file_dir = os.path.join(exp_results_dir, "run_files")
     exp_tsv_results_dir = os.path.join(exp_results_dir, "final_tsv")
-    os.makedirs(exp_run_file_dir, exist_ok=True)
-    os.makedirs(exp_tsv_results_dir, exist_ok=True)
+    exp_retrieved_cands_dir = os.path.join(exp_results_dir, "retrieved_candidates")
+    for d in (exp_run_file_dir, exp_tsv_results_dir, exp_retrieved_cands_dir):
+        os.makedirs(d, exist_ok=True)
 
     splits = []
     for split_name in ("train", "val", "test"):
@@ -173,7 +245,8 @@ def run_retrieval(config, device=None, stats_out: list | None = None) -> List[di
             qrel, qid_to_taskid = load_qrel(os.path.join(qrel_dir, split, f"mbeir_{qrel_name}_{split}_qrels.txt"))
             hashed_query_ids = np.load(os.path.join(dataset_embed_dir, f"mbeir_{dataset_name}_{split}_ids.npy"))
             query_embeds = np.load(os.path.join(dataset_embed_dir, f"mbeir_{dataset_name}_{split}_embed.npy"))
-            index = DenseIndex.load(os.path.join(cand_index_dir, f"mbeir_{cand_pool_name}_cand_pool.index"))
+            cand_index_path = os.path.join(cand_index_dir, f"mbeir_{cand_pool_name}_cand_pool.index")
+            index = DenseIndex.load(cand_index_path)
 
             metric_recall_list = [m.strip() for m in metric_names.split(",") if "recall" in m.lower()]
             k = max(int(m.split("@")[1]) for m in metric_recall_list)
@@ -197,6 +270,33 @@ def run_retrieval(config, device=None, stats_out: list | None = None) -> List[di
             write_run_file(run_file_path, retrieved_dist, retrieved_indices, hashed_query_ids, qid_to_taskid, run_id)
             print(f"Retriever: Run file saved to {run_file_path}")
 
+            if raw_retrieval:
+                mbeir_data_dir = config.mbeir_data_dir
+                queries_path = os.path.join(
+                    mbeir_data_dir, retrieval_config.query_dir_name, split, f"mbeir_{dataset_name}_{split}.jsonl"
+                )
+                cand_dir = os.path.join(mbeir_data_dir, retrieval_config.candidate_dir_name)
+                candidates_path = os.path.join(cand_dir, f"mbeir_{cand_pool_name}_{split}_cand_pool.jsonl")
+                if not os.path.exists(candidates_path):
+                    candidates_path = os.path.join(cand_dir, f"mbeir_{cand_pool_name}_cand_pool.jsonl")
+                complement_retriever = None
+                if getattr(retrieval_config, "retrieve_image_text_pairs", False):
+                    from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
+
+                    # MSCOCO has both text -> image and image -> text tasks
+                    complement_retriever = InteractiveRetriever(
+                        cand_index_path, candidates_path, "MSCOCO", query_embedder_config, bundle=bundle, device=device
+                    )
+                retrieved_dict = get_raw_retrieved_candidates(
+                    queries_path, candidates_path, retrieved_indices, hashed_query_ids, complement_retriever
+                )
+                retrieved_file_path = os.path.join(exp_retrieved_cands_dir, f"{run_id}_retrieved.jsonl")
+                with open(retrieved_file_path, "w") as rf:
+                    for v in retrieved_dict.values():
+                        json.dump(v, rf)
+                        rf.write("\n")
+                print(f"Retriever: Retrieved file saved to {retrieved_file_path}")
+
             per_task = evaluate_recall(retrieved_indices, hashed_query_ids, qrel, qid_to_taskid, metric_recall_list)
             for task_id, metrics in per_task.items():
                 eval_results.append({
@@ -211,4 +311,5 @@ def run_retrieval(config, device=None, stats_out: list | None = None) -> List[di
     if retrieval_config.write_to_tsv:
         tsv_file_path = os.path.join(exp_tsv_results_dir, f"eval_results_{datetime.now().strftime('%m-%d-%H')}.tsv")
         write_tsv_report(eval_results, tsv_file_path)
+        print(f"Retriever: Results saved to {tsv_file_path}")
     return eval_results

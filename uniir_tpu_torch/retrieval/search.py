@@ -1,4 +1,4 @@
-"""Index search (counterpart of uniir_tpu/retrieval/search.py::search_dense_index).
+"""Index search (counterpart of uniir_tpu/retrieval/search.py).
 
 Uploads a DenseIndex to the device once and runs exact top-k with the sweep
 kernels (ops/topk.py).  Returns (scores, hashed ids) with the FAISS path's
@@ -77,3 +77,18 @@ def search_dense_index(
     scores = np.vstack(all_scores)
     pool_rows = np.vstack(all_idx)
     return scores, index.ids[np.clip(pool_rows, 0, index.ntotal - 1)]
+
+
+def search_index(
+    query_embed_path: str,
+    cand_index_path: str,
+    batch_size: int = 2048,
+    num_cand_to_retrieve: int = 10,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """File-level API of the reference's search_index: a query `.npy` against
+    a saved `.index`, at the default pool type."""
+    return search_dense_index(
+        np.load(query_embed_path), DenseIndex.load(cand_index_path),
+        num_cand_to_retrieve=num_cand_to_retrieve, batch_size=batch_size, device=device,
+    )
