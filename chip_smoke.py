@@ -121,7 +121,27 @@
    twins; UniRAG's raw retrieval with complement pairs over the int8 pool
    (queries that copy the text candidates: K4 for them, K1 and K2 for the
    complement queries); hard-negative mining (k = 50, 10 a query; K2)
-   against an fp32 search; and the error analyst over phase 2's run file.
+   against an fp32 search; and the error analyst over phase 2's run file;
+11. drives the port over several processes on the one card through
+   `parallel/multihost.py`'s launcher, each rank a process that loads the
+   kernels built above: (a) one rank over NCCL (world size 1, its device
+   `cuda:LOCAL_RANK`) runs phase 7's CLIP-SF step and is held to the
+   one-process step on the same weights and batch (loss, each gradient and
+   each parameter after the update within 1e-6 relative; bit-equality
+   reported; its K1 / K3 counts equal), with an NCCL all-reduce of the
+   gradients timed alone; (b) two ranks share the card over gloo (NCCL
+   takes one rank a card): a probe of the collectives gloo takes on CUDA
+   tensors, CLIP-SF at 16 + 16 pairs against the one-process 32-pair step
+   (loss within 1e-3, gradient cosine >= 0.99, logit_scale's gradient within
+   1e-3), BLIP-SF `large` at 20 + 20 pairs (dropout off) against the
+   one-process 40-pair step (loss within 1e-3; queues equal on both ranks,
+   queue_ptr 40), phase 2's candidates and queries embedded into part
+   files (joined by rank 0: ids equal to phase 2's, cosine >= 0.9999, no
+   part file left) with `create_index` and `run_retrieval` (the pool
+   sharded, K2 on each half: phase 2's bf16 run-file ids), and
+   `sharded_topk` over phase 1's pool, each rank drawing its 2.8M-row
+   shard from the pool's seeds (ids those of phase 1's `topk` over the
+   whole pool, each rank's sweep and the merge timed).
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
 of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
@@ -538,6 +558,30 @@ def check_preprocess(results: dict) -> None:
 
 # ----------------------------------------------------------- phase 1: K2 / K4
 
+POOL_BLOCK = 350_000  # rows of the sweep pool drawn from one seed: 16 blocks, 8 for each rank of phase 11
+PHASE1_TOPK: dict = {}  # phase 1's `topk` of the search's batch over the whole pool, for phase 11
+
+
+def sweep_pool_rows(r0: int, r1: int) -> torch.Tensor:
+    """Rows [r0, r1) of the seeded 5.6M x 768 sweep pool -- L2-normalised
+    Gaussian rows, like index embeddings -- bf16 on the card, with zero rows
+    to a CHUNK multiple.  Block b of POOL_BLOCK rows is drawn from its own
+    seed, so a rank draws its shard alone (r0 a multiple of POOL_BLOCK)."""
+    from uniir_tpu_torch.ops.topk import CHUNK
+
+    out = torch.zeros((-(-(r1 - r0) // CHUNK) * CHUNK, POOL_DIM), dtype=torch.bfloat16, device="cuda")
+    for b0 in range(r0, r1, POOL_BLOCK):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 1000 + b0 // POOL_BLOCK)
+        rows = torch.randn(min(POOL_BLOCK, r1 - b0), POOL_DIM, generator=g, device="cuda")
+        out[b0 - r0 : b0 - r0 + len(rows)] = torch.nn.functional.normalize(rows, dim=1).bfloat16()
+    return out
+
+
+def sweep_queries() -> torch.Tensor:
+    """The search's batch of seeded unit queries for the sweep pool."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 999)
+    return torch.nn.functional.normalize(torch.randn(SEARCH_BATCH, POOL_DIM, generator=g, device="cuda"), dim=1)
+
 
 def brute_force_topk(queries: torch.Tensor, pool: torch.Tensor, valid_n: int, k: int):
     """fp32 top-k over the whole bf16 pool, in row steps."""
@@ -663,12 +707,9 @@ def check_sweeps(results: dict) -> None:
     check(torch.equal(got, want) and n_neg == N_QUERY_PAIRS * (T.LANES - 100), "K11 disagrees with its twin on a cut chunk")
     del two, two_q, two_s, got, want
 
-    n_pad = -(-POOL_ROWS // T.CHUNK) * T.CHUNK
-    pool = torch.zeros((n_pad, POOL_DIM), dtype=torch.bfloat16, device="cuda")
-    for r0 in range(0, POOL_ROWS, 1 << 20):  # L2-normalised Gaussian rows, like index embeddings
-        rows = torch.randn(min(1 << 20, POOL_ROWS - r0), POOL_DIM, generator=g, device="cuda")
-        pool[r0 : r0 + len(rows)] = torch.nn.functional.normalize(rows, dim=1).bfloat16()
-    all_queries = torch.nn.functional.normalize(torch.randn(SEARCH_BATCH, POOL_DIM, generator=g, device="cuda"), dim=1)
+    pool = sweep_pool_rows(0, POOL_ROWS)
+    n_pad = pool.shape[0]
+    all_queries = sweep_queries()
     pool_q, pool_scale = T.quantize_pool(pool)
     # K11's pool: the same rows with one scale per strided bucket; valid_n = 5.6M cuts the last chunk
     pool_qb, bucket_scale = T.quantize_pool(pool, per_bucket=True)
@@ -754,6 +795,8 @@ def check_sweeps(results: dict) -> None:
             T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS)
 
     ms_b16 = cuda_ms(lambda: T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS), 3)
+    # the one-process search of the search's batch over the whole pool: phase 11's sharded search is held to it
+    PHASE1_TOPK["scores"], PHASE1_TOPK["ids"] = (t.cpu() for t in T.topk(all_queries, pool, SEARCH_K, valid_n=POOL_ROWS))
     ms_b8 = cuda_ms(lambda: search_batch("int8", (pool_q, pool_scale)), 3)
     ms_b8b = cuda_ms(lambda: search_batch("int8_bucket", (pool_qb, bucket_scale)), 3)
     log(f"topk over one batch of {SEARCH_BATCH} queries, k={SEARCH_K}: bf16 {ms_b16} ms "
@@ -2722,6 +2765,428 @@ def drive_tools_path(results: dict) -> None:
     drive_error_analyst()
 
 
+# ------------------------------------------- phase 11: processes on the one card
+
+# the multi-process phase: CLIP-SF at phase 7's 32 pairs (16 a rank in 11b), BLIP-SF at phase 9's 40 (20 a
+# rank), each step after the first timed MH_TIMED times on the same batch; each launch is held to these limits (s)
+MH_SEEDS = {"clip": SEED + 40, "blip": SEED + 42}
+MH_TIMED = 3
+# 11b's gradients against the one-process step's, relative to each tensor's norm: bf16 GEMMs of
+# another M (a cosine of 0.999994 is a relative error near sqrt(2 (1 - cos)) = 3.5e-3), where a
+# gradient summed over the two ranks in place of averaged is off by 1
+MH_GRAD_RTOL = 1e-2
+MH_LAUNCH_S = {"11a": 300, "11b": 600}
+GLOO_PROBE_S = 20  # a collective the probe tries that never completes fails after this long
+
+
+def phase11_dir() -> Path:
+    return WORK / "phase11"
+
+
+def flat(tensors) -> torch.Tensor:
+    return torch.cat([t.detach().float().flatten() for t in tensors])
+
+
+def timed_steps(run) -> float:
+    """Median of MH_TIMED host-clock times of run() (a step), the card synchronised."""
+    times = []
+    for _ in range(MH_TIMED):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def clip_step_once(name: str = "CLIPScoreFusion", block=None) -> dict:
+    """Phase 7's CLIP-SF step (seeded ViT-L/14, fp32 masters, bf16 compute) on
+    its seeded 32-pair batch, or on this rank's host-major `block(batch)` of
+    it: the loss, the averaged gradients and the parameters after the first
+    update, the K1 / K3 launches of that step and of all the steps, and the
+    median time of MH_TIMED more steps on the same batch (`timed_steps`)."""
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.ops import attention as attn_mod
+
+    cfg = CLIP_CONFIGS[MODEL]
+    state, step = train_setup(name)
+    batch = make_train_batch(np.random.default_rng(MH_SEEDS["clip"]), TRAIN_BS, cfg)
+    batch.pop("index_mapping")
+    if block is not None:
+        batch = block(batch)
+    params = list(state.model.parameters())
+    seen = {}
+
+    def first_update(*_):  # the first update's averaged gradients
+        if "grads" not in seen:
+            seen["grads"] = flat(p.grad for p in params)
+
+    state.optimizer.register_step_pre_hook(first_update)
+    attn_mod.attention.launches = attn_mod.attention_bwd.launches = 0
+    state, metrics = step(state, dict(batch))
+    torch.cuda.synchronize()
+    counts = {"K1": attn_mod.attention.launches, "K3": attn_mod.attention_bwd.launches}
+    scale = [i for i, (n, _) in enumerate(state.model.named_parameters()) if n.endswith("logit_scale")]
+    out = {"loss": metrics["loss"].item(), "grads": seen["grads"], "params": flat(params), "counts": counts,
+           "offsets": np.cumsum([0] + [p.numel() for p in params]).tolist(), "scalar_index": scale[0]}
+    out["step_ms"] = timed_steps(lambda: step(state, dict(batch)))
+    out["launches"] = {"K1": attn_mod.attention.launches, "K3": attn_mod.attention_bwd.launches}
+    return out
+
+
+def blip_step_once(block=None) -> dict:
+    """Phase 9's BLIP-SF `large` (its config; dropout off) one step on a
+    seeded 40-pair batch, or on this rank's `block(batch)`: loss, accuracy,
+    the queues' checksum and pointer, the K1 / K3 launches of that step and
+    of all; MH_TIMED more steps timed as `clip_step_once` times them."""
+    from uniir_tpu_torch.core.config import Config
+    from uniir_tpu_torch.models.registry import build_model_from_config
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.train.optimizer import make_blip_optimizer
+    from uniir_tpu_torch.train.state import MomentumTrainState
+    from uniir_tpu_torch.train.steps import make_blip_train_step
+
+    os.makedirs(WORK, exist_ok=True)
+    vocab = os.path.join(str(WORK), "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + WORDS) + "\n")
+    config = Config.from_dict({"uniir_dir": str(WORK), "seed": BLIP_SEED, "model": {
+        **BLIP_TRAIN, "name": "BLIPScoreFusion", "tokenizer_max_length": BLIP_MAX_LEN, "bert_vocab_path": vocab,
+        "vit_grad_ckpt": False}})
+    bundle = build_model_from_config(config, device=DEVICE, train=True)
+    model, extra = bundle.model, bundle.extra
+    state = MomentumTrainState.create(model, *make_blip_optimizer(model, BLIP_LR, 1000, weight_decay=BLIP_WD),
+                                      queue_size=extra["queue_size"], embed_dim=bundle.embed_dim,
+                                      momentum=extra["momentum"])
+    step = make_blip_train_step(model, seed=BLIP_SEED, with_dropout=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(MH_SEEDS["blip"])
+    batch = make_blip_train_batch(np.random.default_rng(MH_SEEDS["blip"]), gen, BLIP_TRAIN_BS, BLIP_MAX_LEN,
+                                  model.vit_cfg.image_size)
+    if block is not None:
+        batch = block(batch)
+    attn_mod.attention.launches = attn_mod.attention_bwd.launches = 0
+    state, metrics = step(state, batch, extra["alpha"])
+    torch.cuda.synchronize()
+    counts = {"K1": attn_mod.attention.launches, "K3": attn_mod.attention_bwd.launches}
+    queues = [getattr(state, k).cpu().numpy() for k in ("queue_query", "queue_cand", "queue_idx")]
+    out = {"loss": metrics["loss"].item(), "accuracy": metrics["inbatch_accuracy"].item(), "queue_ptr": state.queue_ptr,
+           "queue_crc": [zlib.crc32(q.tobytes()) for q in queues], "counts": counts}
+    out["step_ms"] = timed_steps(lambda: step(state, batch, extra["alpha"]))
+    out["launches"] = {"K1": attn_mod.attention.launches, "K3": attn_mod.attention_bwd.launches}
+    return out
+
+
+def host_block_rows(n_pairs: int, rank: int, world: int) -> np.ndarray:
+    """Rows of rank `rank`'s block [q_r | p_r] of a flat batch of n_pairs pairs."""
+    per = n_pairs // world
+    return np.r_[rank * per : (rank + 1) * per, n_pairs + rank * per : n_pairs + (rank + 1) * per]
+
+
+def take_block(batch: dict, n_pairs: int, rank: int, world: int) -> dict:
+    rows = host_block_rows(n_pairs, rank, world)
+    per = n_pairs // world
+
+    def take(key, x):
+        if isinstance(x, dict):
+            return {k: take(k, v) for k, v in x.items()}
+        if key == "p_did_list":
+            return x[rank * per : (rank + 1) * per]
+        return x[torch.as_tensor(rows, device=x.device)] if isinstance(x, torch.Tensor) else x[rows]
+
+    return {key: take(key, value) for key, value in batch.items()}
+
+
+def held_to_reference(got: dict, ref_dir: str) -> dict:
+    """This rank's CLIP step against the one-process step saved in
+    `ref_dir`: the loss, each parameter's gradient and, where asked, the
+    parameters after the update (relative to each tensor's norm), the
+    gradients' cosine per tensor, and whether all is bit-equal."""
+    ref = {k: torch.load(os.path.join(ref_dir, f"{k}.pt"), mmap=True, weights_only=True) for k in ("grads", "params")}
+    offsets = got["offsets"]
+    with open(os.path.join(ref_dir, "loss.json")) as f:
+        ref_loss = json.load(f)
+    out = {"loss_rel": abs(got["loss"] - ref_loss) / abs(ref_loss)}
+    for key in ("grads", "params"):
+        mine, theirs = got[key], ref[key].to(got[key].device)
+        rels, coss = [], []
+        for i in range(len(offsets) - 1):
+            a, b = mine[offsets[i] : offsets[i + 1]].double(), theirs[offsets[i] : offsets[i + 1]].double()
+            rels.append(((a - b).norm() / b.norm().clamp_min(1e-30)).item())
+            if a.numel() > 1:
+                coss.append(torch.nn.functional.cosine_similarity(a, b, dim=0).item())
+        out[f"{key}_max_rel"], out[f"{key}_min_cos"] = max(rels), min(coss)
+        out[f"{key}_bit_equal"] = torch.equal(mine, theirs)
+        if key == "grads":
+            j = offsets[got["scalar_index"]]
+            out["logit_scale_grad"] = (mine[j].item(), theirs[j].item())
+        del theirs
+    return out
+
+
+def phase11a_rank(args) -> dict:
+    """11a: one rank over NCCL (world size 1), `cuda:LOCAL_RANK`: phase 7's
+    step through the launcher, held to the one-process step, and one NCCL
+    all-reduce of the step's gradients timed alone."""
+    from uniir_tpu_torch.core import mesh
+
+    check(mesh.process_count() == 1 and torch.distributed.get_backend() == "nccl", "11a is not one NCCL rank")
+    got = clip_step_once()
+    out = held_to_reference(got, args.task_args["ref"])
+    grads = got["grads"]
+    done = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.distributed.all_reduce(grads)  # warm-up: the communicator's first use
+    done[0].record()
+    torch.distributed.all_reduce(grads)
+    done[1].record()
+    torch.cuda.synchronize()
+    return {**out, "step_ms": got["step_ms"], "counts": got["counts"], "launches": got["launches"],
+            "all_reduce_ms": done[0].elapsed_time(done[1]),
+            "device": str(torch.cuda.current_device()), "grad_bytes": grads.numel() * 4}
+
+
+def gloo_probe(device) -> dict:
+    """Which collectives this gloo takes on tensors of `device`: each tried
+    once on a group of its own with a short timeout (a collective that
+    fails on one rank cannot hang the phase)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = dist.new_group(backend="gloo", timeout=timedelta(seconds=GLOO_PROBE_S))
+    x = torch.ones(world * 4, device=device)
+    ops = {
+        "all_reduce": lambda: dist.all_reduce(x.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0, group=group),
+        "reduce": lambda: dist.reduce(x.clone(), 0, group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(world)], x, group=group),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(torch.empty(world * x.numel(), device=device), x,
+                                                                      group=group),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(torch.empty(4, device=device), x, group=group),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x, group=group),
+        "gather": lambda: dist.gather(x, [torch.empty_like(x) for _ in range(world)] if rank == 0 else None, 0,
+                                      group=group),
+        "scatter": lambda: dist.scatter(torch.empty_like(x), [x.clone() for _ in range(world)] if rank == 0 else None,
+                                        0, group=group),
+    }
+    taken = {}
+    for name, op in ops.items():
+        try:  # the probe's answer is whether the call raises; no kernel of the port runs here
+            op()
+            torch.cuda.synchronize()
+            taken[name] = "yes"
+        except Exception as e:  # noqa: BLE001 -- any refusal is the answer
+            taken[name] = f"no ({type(e).__name__}: {str(e).splitlines()[0][:120]})"
+    return taken
+
+
+def phase11b_rank(args) -> dict:
+    """11b: one of two ranks sharing the card over gloo: the gloo probe, the
+    CLIP-SF and BLIP-SF steps on this rank's half of the global batch, the
+    embedder's part files of phase 2's candidates and queries with
+    `create_index` and `run_retrieval`, and `sharded_topk` over this rank's
+    half of phase 1's pool."""
+    from uniir_tpu_torch.core import mesh
+    from uniir_tpu_torch.data.loader import ContiguousSampler
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import seeded_clip_sf
+    from uniir_tpu_torch.ops import attention as attn_mod
+    from uniir_tpu_torch.ops import topk as T
+    from uniir_tpu_torch.retrieval.embedder import generate_embeds_and_ids_for_dataset, save_embeddings
+    from uniir_tpu_torch.retrieval.eval import run_retrieval
+    from uniir_tpu_torch.retrieval.index import create_index
+    from uniir_tpu_torch.train.steps import make_embed_step
+
+    global WORK
+    world, rank = mesh.process_count(), mesh.process_index()
+    check(world == 2 and torch.distributed.get_backend() == "gloo", "11b is not two gloo ranks")
+    root = str(phase11_dir())
+    WORK = phase11_dir() / f"rank{rank}"  # this rank's files for the registry's tokenizers
+    WORK.mkdir(parents=True, exist_ok=True)
+    out = {"probe": gloo_probe(torch.device(args.device))}
+
+    got = clip_step_once(block=lambda b: take_block(b, TRAIN_BS, rank, world))
+    out["clip"] = {**held_to_reference(got, args.task_args["ref"]), "step_ms": got["step_ms"],
+                   "counts": got["counts"], "launches": got["launches"], "loss": got["loss"]}
+    grads = [got["grads"][i : i + (1 << 26)].clone() for i in range(0, got["grads"].numel(), 1 << 26)]
+    times = []
+    for _ in range(MH_TIMED):  # each behind a barrier, so no rank's time holds its wait for the other
+        mesh.barrier("all_reduce_timing")
+        t0 = time.perf_counter()
+        mesh.all_reduce_mean_(grads)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["clip"]["all_reduce_ms"] = float(np.median(times))
+    del got, grads
+    torch.cuda.empty_cache()
+
+    out["blip"] = blip_step_once(block=lambda b: take_block(b, BLIP_TRAIN_BS, rank, world))
+    torch.cuda.empty_cache()
+
+    # phase 2's candidates and queries, each rank its contiguous half, into part files; rank 0 joins them
+    cfg = CLIP_CONFIGS[MODEL]
+    data = smoke_dataset()
+    model = seeded_clip_sf(cfg, DEVICE, seed=SEED, dtype=torch.bfloat16)
+    embed_step = make_embed_step(model)
+    embed_dir = os.path.join(root, "embed", EXPT)
+    if rank == 0:
+        write_qrels(root, data)
+    attn_mod.attention.launches = T.bucket_max_scores.launches = 0
+    for split, items, ids, key, name in (
+        ("cand_pool", data["cands"], data["dids"], "did_list", "mscoco_task0_cand_pool"),
+        ("test", data["queries"], data["qids"], "qid_list", "mscoco_task0_test"),
+    ):
+        mine = ContiguousSampler(len(items), world, rank).indices()
+        emb, got_ids = generate_embeds_and_ids_for_dataset(
+            embed_step, batches([items[i] for i in mine], [ids[i] for i in mine], key, cfg))
+        os.makedirs(os.path.join(embed_dir, split), exist_ok=True)
+        save_embeddings(os.path.join(embed_dir, split, f"mbeir_{name}_embed.npy"),
+                        os.path.join(embed_dir, split, f"mbeir_{name}_ids.npy"), emb, got_ids, name)
+    k1_embed = attn_mod.attention.launches
+    config = eval_config(root, "results_11", "bf16", cfg.embed_dim)
+    create_index(config)
+    recall = run_retrieval(config, device=DEVICE)
+    out["embed"] = {"K1": k1_embed, "K2": T.bucket_max_scores.launches, "recall": recall[0]}
+    del model, embed_step
+    torch.cuda.empty_cache()
+
+    # phase 1's 5.6M x 768 pool: this rank's 2.8M-row shard drawn on the card from the pool's seeds
+    shard_rows = -(-POOL_ROWS // world)
+    lo, hi = rank * shard_rows, min((rank + 1) * shard_rows, POOL_ROWS)
+    shard = sweep_pool_rows(lo, hi)
+    queries = sweep_queries()
+    T.bucket_max_scores.launches = 0
+    scores, ids = T.sharded_topk(queries, shard, SEARCH_K, POOL_ROWS, shard_rows)
+    torch.cuda.synchronize()
+    k2 = T.bucket_max_scores.launches
+    np.save(os.path.join(root, f"topk_ids_rank{rank}.npy"), ids.cpu().numpy())
+    # its parts timed apart, both ranks at once (they share the card): the shard's sweep and top-k, then the merge
+    mesh.barrier("topk_timing")
+    sweep_ms = cuda_ms(lambda: T.shard_topk(queries, shard, SEARCH_K, POOL_ROWS, shard_rows), 3)
+    partial = T.shard_topk(queries, shard, SEARCH_K, POOL_ROWS, shard_rows)
+    mesh.barrier("merge_timing")
+    merge_ms = timed_steps(lambda: T.merge_shards(*partial, SEARCH_K))
+    out["topk"] = {"K2": k2, "sweep_ms": sweep_ms, "merge_ms": merge_ms, "rows": hi - lo}
+    return out
+
+
+def drive_processes_path(results: dict) -> None:
+    """Phase 11: the port over several processes on the one card, through
+    `parallel.multihost.launch` (each rank a process of its own, loading
+    the kernels built above).  11a: one rank over NCCL runs phase 7's step,
+    held to the one-process step.  11b: two ranks share the card over gloo
+    (NCCL takes one rank a card): the CLIP-SF and BLIP-SF steps at the same
+    global batches, phase 2's embedding in part files with `create_index`
+    and `run_retrieval`, and `sharded_topk` over phase 1's pool, each held
+    to its one-process result."""
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.parallel.multihost import launch
+
+    cfg = CLIP_CONFIGS[MODEL]
+    root = phase11_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    ref_dir = root / "reference"
+    ref_dir.mkdir(parents=True)
+    ref = clip_step_once()
+    torch.save(ref["grads"].cpu(), ref_dir / "grads.pt")
+    torch.save(ref["params"].cpu(), ref_dir / "params.pt")
+    with open(ref_dir / "loss.json", "w") as f:
+        json.dump(ref["loss"], f)
+    ref_scale_grad = ref["grads"][ref["offsets"][ref["scalar_index"]]].item()
+    log(f"phase 11: one-process CLIP-SF {MODEL} step (phase 7's) at {TRAIN_BS} pairs: loss {ref['loss']}, "
+        f"step_ms {ref['step_ms']} (median of {MH_TIMED}), launches {ref['counts']} a step")
+    del ref["grads"], ref["params"]
+    torch.cuda.empty_cache()
+    blip_ref = blip_step_once()
+    log(f"phase 11: one-process BLIP-SF large step at {BLIP_TRAIN_BS} pairs, dropout off: loss {blip_ref['loss']}, "
+        f"step_ms {blip_ref['step_ms']}, queue_ptr {blip_ref['queue_ptr']}, launches {blip_ref['counts']}")
+    torch.cuda.empty_cache()
+    per_step = {"K1": cfg.vision_layers - 1 + cfg.text_layers - 1, "K3": cfg.vision_layers - 1 + cfg.text_layers - 1}
+    check(ref["counts"] == per_step, f"the one-process step launched {ref['counts']}, not {per_step}")
+
+    t0 = time.perf_counter()
+    (a,) = launch(1, str(root / "11a"), device=None, task="chip_smoke:phase11a_rank",
+                  task_args={"ref": str(ref_dir)}, timeout=MH_LAUNCH_S["11a"])
+    log(f"phase 11a: one rank over NCCL (cuda:{a['device']}) in {time.perf_counter() - t0:.1f} s: loss rel err "
+        f"{a['loss_rel']}, gradients max rel err {a['grads_max_rel']} (bit-equal={a['grads_bit_equal']}), "
+        f"parameters after the update max rel err {a['params_max_rel']} (bit-equal={a['params_bit_equal']}); "
+        f"step_ms {a['step_ms']} against the one-process {ref['step_ms']}; NCCL all-reduce of the "
+        f"{a['grad_bytes']}-byte gradients alone {a['all_reduce_ms']} ms (world size 1: a check that it runs, "
+        f"it moves nothing); launches {a['counts']}")
+    check(a["loss_rel"] <= 1e-6 and a["grads_max_rel"] <= 1e-6 and a["params_max_rel"] <= 1e-6,
+          "11a: the NCCL rank's step differs from the one-process step")
+    check(a["counts"] == ref["counts"], f"11a: launches {a['counts']}, not the one-process step's {ref['counts']}")
+    for kernel in ("K1", "K3"):
+        results[kernel]["launches"] += a["launches"][kernel]
+
+    t0 = time.perf_counter()
+    ranks = launch(2, str(root / "11b"), device="cuda:0", backend="gloo", task="chip_smoke:phase11b_rank",
+                   task_args={"ref": str(ref_dir)}, timeout=MH_LAUNCH_S["11b"])
+    log(f"phase 11b: two ranks on cuda:0 over gloo in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 11b: collectives the installed gloo takes on CUDA tensors: {ranks[0]['probe']}")
+    for r, out in enumerate(ranks):
+        c = out["clip"]
+        log(f"phase 11b rank {r}: CLIP-SF {TRAIN_BS // 2} + {TRAIN_BS // 2} pairs: loss {c['loss']} (rel err "
+            f"{c['loss_rel']} to the one-process {TRAIN_BS}-pair step), gradient min cosine {c['grads_min_cos']}, "
+            f"max rel err {c['grads_max_rel']}, parameters after the update max rel err {c['params_max_rel']}, "
+            f"logit_scale gradient {c['logit_scale_grad']}, step_ms {c['step_ms']}, gloo all-reduce of the "
+            f"gradients alone {c['all_reduce_ms']} ms (behind a barrier, median of {MH_TIMED}), launches {c['counts']}")
+        b = out["blip"]
+        log(f"phase 11b rank {r}: BLIP-SF {BLIP_TRAIN_BS // 2} + {BLIP_TRAIN_BS // 2} pairs: loss {b['loss']} "
+            f"(one process {blip_ref['loss']}), queue_ptr {b['queue_ptr']}, queue checksums {b['queue_crc']}, "
+            f"step_ms {b['step_ms']}, launches {b['counts']}")
+        t = out["topk"]
+        log(f"phase 11b rank {r}: sharded_topk over {t['rows']} rows of the {POOL_ROWS}-row pool, {SEARCH_BATCH} "
+            f"queries, k={SEARCH_K}: K2 launches {t['K2']}; the shard's sweep and top-k {t['sweep_ms']} ms (CUDA "
+            f"events, both ranks sweeping), the merge with its collectives {t['merge_ms']} ms (host clock); "
+            f"embedding K1 {out['embed']['K1']}, retrieval K2 {out['embed']['K2']}")
+        check(c["loss_rel"] <= 1e-3 and c["grads_min_cos"] >= 0.99 and c["grads_max_rel"] <= MH_GRAD_RTOL
+              and abs(c["logit_scale_grad"][0] - ref_scale_grad) <= 1e-3,
+              f"11b rank {r}: the two-rank CLIP-SF step differs from the one-process step")
+        check(c["counts"] == ref["counts"], f"11b rank {r}: CLIP launches {c['counts']}")
+        check(abs(b["loss"] - blip_ref["loss"]) <= 1e-3 * abs(blip_ref["loss"]) and b["queue_ptr"] == BLIP_TRAIN_BS,
+              f"11b rank {r}: the two-rank BLIP-SF step differs from the one-process step")
+        check(b["counts"] == blip_ref["counts"] and t["K2"] == 1 and out["embed"]["K1"] > 0 and out["embed"]["K2"] > 0,
+              f"11b rank {r}: launches BLIP {b['counts']} (one process {blip_ref['counts']}), sharded_topk K2 "
+              f"{t['K2']}, embedding {out['embed']}")
+        for kernel in ("K1", "K3"):
+            results[kernel]["launches"] += c["launches"][kernel] + b["launches"][kernel]
+        results["K1"]["launches"] += out["embed"]["K1"]
+        results["K2"]["launches"] += out["embed"]["K2"] + t["K2"]
+    check(ranks[0]["clip"]["loss"] == ranks[1]["clip"]["loss"] and ranks[0]["blip"]["loss"] == ranks[1]["blip"]["loss"],
+          "11b: the ranks' global losses differ")
+    check(ranks[0]["blip"]["queue_crc"] == ranks[1]["blip"]["queue_crc"], "11b: the ranks' queues differ")
+
+    # the joined part files against phase 2's, and the run file of the sharded search against phase 2's bf16 one
+    for split, name in (("cand_pool", "mscoco_task0_cand_pool"), ("test", "mscoco_task0_test")):
+        got_ids, want_ids = (np.load(os.path.join(d, "embed", EXPT, split, f"mbeir_{name}_ids.npy"))
+                             for d in (str(root), str(WORK)))
+        got, want = (np.load(os.path.join(d, "embed", EXPT, split, f"mbeir_{name}_embed.npy")).astype(np.float32)
+                     for d in (str(root), str(WORK)))
+        cos = (got * want).sum(1) / np.linalg.norm(got, axis=1) / np.linalg.norm(want, axis=1)
+        parts = [f for f in os.listdir(os.path.join(str(root), "embed", EXPT, split)) if ".part" in f]
+        log(f"phase 11b: {split} joined from two ranks' part files: {len(got_ids)} rows, ids equal to phase 2's "
+            f"{np.array_equal(got_ids, want_ids)}, min cosine {cos.min()}, bit-equal {np.array_equal(got, want)}, "
+            f"part files left {parts}")
+        check(np.array_equal(got_ids, want_ids) and cos.min() >= 0.9999 and not parts,
+              f"11b: the {split} embeddings from part files differ from phase 2's")
+    run_name = "mbeir_mscoco_task0_single_pool_test_k10_run.txt"
+    got_run = read_run(os.path.join(str(root), "results_11", EXPT, "run_files", run_name))
+    want_run = read_run(os.path.join(str(WORK), "results_clip_bf16", EXPT, "run_files", run_name))
+    differ = [q for q in want_run if [d for d, _ in got_run[q]] != [d for d, _ in want_run[q]]]
+    log(f"phase 11b: run_retrieval over two ranks (the pool sharded, K2 on each half) against phase 2's bf16 run "
+        f"file: {len(want_run)} queries, {len(differ)} with other ids")
+    check(not differ, f"11b: the sharded run file differs from phase 2's for {differ[:3]}")
+
+    ids = [np.load(os.path.join(str(root), f"topk_ids_rank{r}.npy")) for r in range(2)]
+    want_s, want_i = PHASE1_TOPK["scores"], PHASE1_TOPK["ids"]
+    exact = np.array_equal(ids[0], want_i.numpy())
+    held = same_ranking(torch.from_numpy(ids[0]), want_i, want_s)
+    log(f"phase 11b: sharded_topk ids over two ranks against phase 1's one-process topk over the whole pool: "
+        f"equal on both ranks {np.array_equal(ids[0], ids[1])}, bit-equal ids {exact}, equal but for reference "
+        f"ties within 1e-5 {held}")
+    check(np.array_equal(ids[0], ids[1]) and held, "11b: sharded_topk ids differ from phase 1's topk")
+
+
 def profile_train_step(name: str, remat: bool = False, splitk: bool = False) -> None:
     """torch.profiler over 3 train steps of TRAIN_BS pairs of `name` (with
     remat and UNIIR_ATTN_SPLITK=1 where asked): device time by kernel group."""
@@ -2900,6 +3365,8 @@ def main() -> None:
         profile_train_step("CLIPFeatureFusion", remat=True, splitk=True)
     torch.cuda.empty_cache()
     drive_tools_path(results)  # adds its K1 / K2 / K4 launches too
+    torch.cuda.empty_cache()
+    drive_processes_path(results)  # adds its ranks' K1 / K3 / K2 launches too
     for name in ("K10", "K11"):
         check(results[name]["launches"] > 0, f"kernel {name} was not launched on a main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")

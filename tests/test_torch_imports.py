@@ -19,6 +19,7 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.core.checkpoint",
     "uniir_tpu_torch.core.config",
     "uniir_tpu_torch.core.device",
+    "uniir_tpu_torch.core.mesh",
     "uniir_tpu_torch.data.collator",
     "uniir_tpu_torch.data.data_utils",
     "uniir_tpu_torch.data.dataset",
@@ -27,6 +28,7 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.registry",
     "uniir_tpu_torch.data.tokenizers.bert_wordpiece",
     "uniir_tpu_torch.data.tokenizers.clip_bpe",
+    "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",
     "uniir_tpu_torch.models.blip_vit",
@@ -44,6 +46,7 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.ops.mlp",
     "uniir_tpu_torch.ops.quant",
     "uniir_tpu_torch.ops.topk",
+    "uniir_tpu_torch.parallel.multihost",
     "uniir_tpu_torch.retrieval.analyst",
     "uniir_tpu_torch.retrieval.embedder",
     "uniir_tpu_torch.retrieval.eval",

@@ -17,8 +17,13 @@ the same file -- `model_m` (the momentum twin's state dict), the three
 queues and `queue_ptr` -- so a resumed run continues bit-equal; the serving
 loaders read only `model`.
 
-Reading the JAX package's orbax checkpoints is not ported (ROADMAP.md,
-Queue 1 item 3).
+Over several processes rank 0 alone writes the directory, and every rank
+then meets at a barrier, so no rank reads a checkpoint before it is whole;
+on resume every rank loads the same file.
+
+Reading the JAX package's orbax checkpoints is not ported: that bridge
+reads a JAX train checkpoint and writes `checkpoint.pth`, and needs both
+packages (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import json
 import os
 
 import torch
+
+from uniir_tpu_torch.core import mesh
 
 CHECKPOINT_FILE = "checkpoint.pth"
 ITEMS = ("model", "optimizer", "scheduler")
@@ -40,8 +47,16 @@ def _config_dict(config):
 
 
 def save_train_checkpoint(ckpt_dir: str, name: str, state, epoch: int, config=None) -> str:
-    """Write `<ckpt_dir>/<name>_epoch_<epoch>` (overwriting it); returns its path."""
+    """Write `<ckpt_dir>/<name>_epoch_<epoch>` (overwriting it); returns its
+    path.  Every rank calls it; rank 0 writes, and all meet at a barrier."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"{name}_epoch_{epoch}"))
+    if mesh.is_main_process():
+        _write_checkpoint(path, state, epoch, config)
+    mesh.barrier(f"checkpoint_{name}_epoch_{epoch}")
+    return path
+
+
+def _write_checkpoint(path: str, state, epoch: int, config) -> None:
     os.makedirs(path, exist_ok=True)
     meta_path = os.path.join(path, "meta.json")
     if os.path.exists(meta_path):  # an overwrite is incomplete until the new meta.json lands
@@ -65,7 +80,6 @@ def save_train_checkpoint(ckpt_dir: str, name: str, state, epoch: int, config=No
     with open(meta_path, "w") as f:
         json.dump(meta, f, default=str)
     print(f"Saved checkpoint to {path}")
-    return path
 
 
 def load_train_checkpoint(path: str, state):

@@ -279,7 +279,8 @@ def _checkpoint_paths(config, train: bool) -> list:
         if not path.endswith((".pt", ".pth")):
             raise NotImplementedError(
                 f"{path}: only torch state dicts (.pt / .pth) and the port's train checkpoints load into "
-                "uniir_tpu_torch; JAX (orbax) train-state checkpoints are not read yet (ROADMAP.md, Queue 1 item 3)"
+                "uniir_tpu_torch; JAX (orbax) train-state checkpoints are not read: the bridge that would write "
+                "them as checkpoint.pth is not ported (ROADMAP.md, Queue 1)"
             )
         out.append(path)
     return out

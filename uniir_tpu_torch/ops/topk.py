@@ -23,6 +23,11 @@ Counterpart of `uniir_tpu/ops/topk_pallas.py` (and the numpy helpers of
 Unlike the TPU sweep, the CUDA kernels take any query count, and
 `prepare_pool` pads the pool on the device, only to the CHUNK bucket
 granularity.
+
+Over several processes (`core.mesh`) the pool is sharded by rows, one
+shard a rank (`shard_pool`, the JAX rule: shards of ceil(N / W) rows, the
+last one short); `sharded_topk` runs `topk` over each rank's shard (K2 on
+the card) and merges the [Q, k] partials of all ranks.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from uniir_tpu_torch import _build
+from uniir_tpu_torch.core import mesh
 
 CHUNK = 2048  # rows per strided-bucket group
 LANES = 128  # buckets per chunk
@@ -456,3 +462,60 @@ def topk(
         cut = torch.gather(maxima, 1, bucket_ids).amin(dim=1)
         ok = vals[:, k - 1] >= cut
     return vals, idx, ok
+
+
+def shard_pool(embeds: np.ndarray, device) -> Tuple[torch.Tensor, int]:
+    """This rank's row shard of a host pool, uploaded once as `prepare_pool`
+    uploads a pool (bf16, zero rows to a CHUNK multiple, at least one chunk):
+    rows [r * S, (r + 1) * S) of the pool padded to W * S rows, S =
+    ceil(N / W), as the JAX `shard_pool` splits it.  Returns (shard, S)."""
+    N = embeds.shape[0]
+    shard_rows = -(-N // mesh.process_count())
+    lo = min(mesh.process_index() * shard_rows, N)
+    hi = min(lo + shard_rows, N)
+    if hi == lo:
+        return torch.zeros((CHUNK, embeds.shape[1]), dtype=torch.bfloat16, device=device), shard_rows
+    return prepare_pool(embeds[lo:hi], device)[0], shard_rows
+
+
+def merge_topk(scores: torch.Tensor, ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best of [Q, M] candidates by score, ties to the lower id (the
+    rule `lax.top_k` applies to a whole row): a stable sort by id, then a
+    stable sort by score."""
+    ids, order = torch.sort(ids, dim=1, stable=True)
+    vals, pos = _top_k(torch.gather(scores, 1, order), k)
+    return vals, torch.gather(ids, 1, pos)
+
+
+def shard_topk(
+    queries: torch.Tensor, pool_shard: torch.Tensor, k: int, valid_n: int, shard_rows: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's part of `sharded_topk`: `topk` over its shard (K2 on the
+    card, its twin on the CPU), rows past the pool masked before the
+    selection; returns (scores [Q, k], global ids [Q, k])."""
+    base = mesh.process_index() * shard_rows
+    local_valid = max(0, min(valid_n - base, shard_rows))
+    scores, rows = topk(queries, pool_shard, min(k, pool_shard.shape[0]), valid_n=local_valid)
+    return torch.where(rows < local_valid, scores, NEG), rows + base
+
+
+def merge_shards(scores: torch.Tensor, ids: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's [Q, k] partials (scores and global ids), gathered and
+    merged by `merge_topk`: the same result on every rank."""
+    Q = scores.shape[0]
+    all_scores = mesh.gather_rows(scores[None]).permute(1, 0, 2).reshape(Q, -1)
+    all_ids = mesh.gather_rows(ids[None]).permute(1, 0, 2).reshape(Q, -1)
+    return merge_topk(all_scores, all_ids, k)
+
+
+def sharded_topk(
+    queries: torch.Tensor, pool_shard: torch.Tensor, k: int, valid_n: int, shard_rows: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact top-k over a pool sharded by rows over the ranks (the JAX
+    `sharded_topk`): this rank's shard holds global rows [r * shard_rows,
+    ...) of a pool of `valid_n` rows (`shard_pool`).  Each rank sweeps its
+    shard (`shard_topk`) and the ranks merge their partials
+    (`merge_shards`).  Every rank returns the same (scores [Q, k] fp32,
+    global ids [Q, k] int64); k is clamped to `valid_n`."""
+    k = min(k, valid_n)
+    return merge_shards(*shard_topk(queries, pool_shard, k, valid_n, shard_rows), k)

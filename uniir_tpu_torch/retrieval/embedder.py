@@ -1,10 +1,17 @@
-"""Embedding generation (counterpart of uniir_tpu/retrieval/embedder.py), single process.
+"""Embedding generation (counterpart of uniir_tpu/retrieval/embedder.py).
 
 For every enabled split / dataset / pool of embed.yaml: build the dataset and
 loader, run the embed step per collated batch, and save fp16
 `mbeir_{name}_{split}_embed.npy` + `_ids.npy` artifacts with the reference's
-naming.  The union pool is the concatenation of the per-pool artifacts.
-Multi-process part files wait for a later PR.
+naming.  The union pool is the concatenation of the per-pool artifacts,
+written by rank 0.
+
+Over several processes (`core.mesh`) rank r embeds the contiguous rows
+[r * ceil(N / W), ...) (`ContiguousSampler`; its last batch padded by
+repeating its last row and trimmed by `n_valid`, so no pad row reaches a
+file) and writes `<path>.part{r}.npy`; after a barrier rank 0 concatenates
+the parts in rank order into `<path>`, deletes them, and a second barrier
+follows (the reference's tmp-file variant, mbeir_embedder.py:123-191).
 """
 
 from __future__ import annotations
@@ -15,10 +22,11 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.core.config import parse_image_size
 from uniir_tpu_torch.data.collator import MBEIRCandidatePoolCollator, MBEIRMainCollator
 from uniir_tpu_torch.data.dataset import MBEIRCandidatePoolDataset, MBEIRMainDataset, Mode
-from uniir_tpu_torch.data.loader import MBEIRLoader
+from uniir_tpu_torch.data.loader import ContiguousSampler, MBEIRLoader
 from uniir_tpu_torch.train.steps import make_embed_step
 
 
@@ -68,10 +76,32 @@ def _loader_for(split_name, dataset_name, cand_pool_name, bundle, config, image_
             shuffle_cand=data_config.shuffle_cand,
         )
         collator = MBEIRMainCollator(tokenizer=bundle.tokenizer, image_size=image_size, mode=Mode.EVAL)
+    sampler = ContiguousSampler(len(dataset), num_replicas=mesh.process_count(), rank=mesh.process_index())
     return MBEIRLoader(
-        dataset, collator, batch_size=config.dataloader_config.batch_size,
+        dataset, collator, batch_size=config.dataloader_config.batch_size, sampler=sampler,
         num_workers=config.dataloader_config.num_workers, drop_last=False, pad_last=True,
     )
+
+
+def save_embeddings(embed_path: str, id_path: str, embeddings: np.ndarray, ids: np.ndarray, tag: str) -> None:
+    """Write the artifacts; over several processes this rank's part files,
+    concatenated in rank order by rank 0 between two barriers named after
+    `tag` (every rank must call it)."""
+    n_proc, rank = mesh.process_count(), mesh.process_index()
+    if n_proc == 1:
+        np.save(embed_path, embeddings)
+        np.save(id_path, ids)
+        return
+    np.save(f"{embed_path}.part{rank}", embeddings)
+    np.save(f"{id_path}.part{rank}", ids)
+    mesh.barrier(f"embed_{tag}")
+    if rank == 0:
+        for path in (embed_path, id_path):
+            parts = [f"{path}.part{r}.npy" for r in range(n_proc)]
+            np.save(path, np.concatenate([np.load(part) for part in parts], axis=0))
+            for part in parts:
+                os.remove(part)
+    mesh.barrier(f"embed_{tag}_done")
 
 
 def generate_embeds_for_config(bundle, config) -> list:
@@ -108,12 +138,11 @@ def generate_embeds_for_config(bundle, config) -> list:
             os.makedirs(out_dir, exist_ok=True)
             embed_path = os.path.join(out_dir, f"mbeir_{mid_name}_{split_name}_embed.npy")
             id_path = os.path.join(out_dir, f"mbeir_{mid_name}_{split_name}_ids.npy")
-            np.save(embed_path, embedding_list)
-            np.save(id_path, id_list)
-            print(f"Embedder Log: Saved embeddings to {embed_path} ({len(id_list)} rows).")
+            save_embeddings(embed_path, id_path, embedding_list, id_list, f"{mid_name}_{split_name}")
+            print(f"Embedder Log: Saved embeddings to {embed_path} ({len(id_list)} rows of rank {mesh.process_index()}).")
             written.extend([embed_path, id_path])
 
-        if split_name == "cand_pool" and getattr(cand_cfg, "embed_union_pool", False):
+        if split_name == "cand_pool" and getattr(cand_cfg, "embed_union_pool", False) and mesh.is_main_process():
             written.extend(write_union_pool(out_dir, pool_names))
     return written
 

@@ -1,4 +1,4 @@
-"""Retrieval evaluation (counterpart of uniir_tpu/retrieval/eval.py), single process.
+"""Retrieval evaluation (counterpart of uniir_tpu/retrieval/eval.py).
 
 Same byte formats as the JAX package and the reference:
   * qrels:    `qid 0 did relevance task_id` rows
@@ -8,6 +8,8 @@ Same byte formats as the JAX package and the reference:
   * raw retrieval (UniRAG): `retrieved_candidates/{run_id}_retrieved.jsonl`
     rows {query, candidates[, complement_candidates]}
 The JAX module imports its search at the top, hence this port-local copy.
+Over several processes every rank searches (the pool sharded over the
+ranks) and rank 0 alone writes the files, as the JAX `run_retrieval` does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.data.dataset import load_candidates
 from uniir_tpu_torch.data.registry import get_mbeir_task_name, unhash_did, unhash_qid
 from uniir_tpu_torch.retrieval.index import DenseIndex
@@ -212,7 +215,12 @@ def run_retrieval(config, device=None, stats_out: list | None = None, query_embe
     `stats_out`, when given, receives one dict per search (run_id plus the
     search stats: pool_dtype, guard_pass_rate, exact_reruns).  With
     `retrieve_image_text_pairs` the complement retriever embeds through
-    `bundle`, or a model built from `query_embedder_config` when None."""
+    `bundle`, or a model built from `query_embedder_config` when None.
+
+    Every rank calls it; rank 0 writes the run files, the retrieved jsonl
+    and the TSV, and all meet at the barrier `run_retrieval_done` before it
+    returns, so no rank reads a file before it is written."""
+    main_proc = mesh.is_main_process()
     retrieval_config = config.retrieval_config
     raw_retrieval = getattr(retrieval_config, "raw_retrieval", False)
     uniir_dir, expt_dir_name = config.uniir_dir, config.experiment.path_suffix
@@ -221,7 +229,8 @@ def run_retrieval(config, device=None, stats_out: list | None = None, query_embe
     exp_tsv_results_dir = os.path.join(exp_results_dir, "final_tsv")
     exp_retrieved_cands_dir = os.path.join(exp_results_dir, "retrieved_candidates")
     for d in (exp_run_file_dir, exp_tsv_results_dir, exp_retrieved_cands_dir):
-        os.makedirs(d, exist_ok=True)
+        if main_proc:
+            os.makedirs(d, exist_ok=True)
 
     splits = []
     for split_name in ("train", "val", "test"):
@@ -267,8 +276,9 @@ def run_retrieval(config, device=None, stats_out: list | None = None, query_embe
             if stats_out is not None:
                 stats_out.append({"run_id": run_id, **search_stats})
             run_file_path = os.path.join(exp_run_file_dir, f"{run_id}_run.txt")
-            write_run_file(run_file_path, retrieved_dist, retrieved_indices, hashed_query_ids, qid_to_taskid, run_id)
-            print(f"Retriever: Run file saved to {run_file_path}")
+            if main_proc:
+                write_run_file(run_file_path, retrieved_dist, retrieved_indices, hashed_query_ids, qid_to_taskid, run_id)
+                print(f"Retriever: Run file saved to {run_file_path}")
 
             if raw_retrieval:
                 mbeir_data_dir = config.mbeir_data_dir
@@ -291,11 +301,12 @@ def run_retrieval(config, device=None, stats_out: list | None = None, query_embe
                     queries_path, candidates_path, retrieved_indices, hashed_query_ids, complement_retriever
                 )
                 retrieved_file_path = os.path.join(exp_retrieved_cands_dir, f"{run_id}_retrieved.jsonl")
-                with open(retrieved_file_path, "w") as rf:
-                    for v in retrieved_dict.values():
-                        json.dump(v, rf)
-                        rf.write("\n")
-                print(f"Retriever: Retrieved file saved to {retrieved_file_path}")
+                if main_proc:
+                    with open(retrieved_file_path, "w") as rf:
+                        for v in retrieved_dict.values():
+                            json.dump(v, rf)
+                            rf.write("\n")
+                    print(f"Retriever: Retrieved file saved to {retrieved_file_path}")
 
             per_task = evaluate_recall(retrieved_indices, hashed_query_ids, qrel, qid_to_taskid, metric_recall_list)
             for task_id, metrics in per_task.items():
@@ -308,8 +319,9 @@ def run_retrieval(config, device=None, stats_out: list | None = None, query_embe
                     **metrics,
                 })
 
-    if retrieval_config.write_to_tsv:
+    if retrieval_config.write_to_tsv and main_proc:
         tsv_file_path = os.path.join(exp_tsv_results_dir, f"eval_results_{datetime.now().strftime('%m-%d-%H')}.tsv")
         write_tsv_report(eval_results, tsv_file_path)
         print(f"Retriever: Results saved to {tsv_file_path}")
+    mesh.barrier("run_retrieval_done")
     return eval_results

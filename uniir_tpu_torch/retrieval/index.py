@@ -3,7 +3,9 @@
 The index is the L2-normalised fp16 embedding matrix plus hashed ids, in
 the same `.index` npz format, so either package reads the other's files.
 Kept port-local because `uniir_tpu/retrieval/__init__.py` imports the JAX
-search.  Single process: multi-process part files wait for a later PR.
+search.  Over several processes rank 0 alone builds and writes the index
+files, and every rank meets it at the barrier `create_index_done` before a
+later stage reads them.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import os
 from dataclasses import dataclass
 
 import numpy as np
+
+from uniir_tpu_torch.core import mesh
 
 
 def normalize_l2(x: np.ndarray) -> np.ndarray:
@@ -57,7 +61,17 @@ class DenseIndex:
 
 def create_index(config) -> list:
     """Build `mbeir_{pool}_cand_pool.index` for every pool in index_config
-    from the embedder's `_embed.npy` / `_ids.npy` artifacts."""
+    from the embedder's `_embed.npy` / `_ids.npy` artifacts; every rank calls
+    it, rank 0 writes (and returns the paths)."""
+    if not mesh.is_main_process():
+        mesh.barrier("create_index_done")
+        return []
+    written = _create_index(config)
+    mesh.barrier("create_index_done")
+    return written
+
+
+def _create_index(config) -> list:
     index_config = config.index_config
     expt_dir_name = config.experiment.path_suffix
     idx_cfg = index_config.cand_pools_config

@@ -1,7 +1,13 @@
 """Eval pipeline CLI (counterpart of uniir_tpu/tools/pipeline.py): embed /
 hard-negative mining / index / retrieve / error analysis, in that order.
 
-Same flags as the JAX CLI, and `--device`.
+Same flags as the JAX CLI, and `--device`.  Over several processes
+(`UNIIR_TPU_MULTIHOST=1` under torchrun, one process a card) every stage
+runs on every rank: the embedder writes part files that rank 0 joins, the
+search shards the pool over the ranks, and rank 0 writes the index, run
+files and reports (`core.mesh`).
+
+    UNIIR_TPU_MULTIHOST=1 torchrun --nproc_per_node 8 -m uniir_tpu_torch.tools.pipeline --config_path embed.yaml ...
 
     python -m uniir_tpu_torch.tools.pipeline --config_path embed.yaml \
         --uniir_dir /data/UniIR --mbeir_data_dir /data/UniIR/mbeir_data --enable_embed
@@ -17,7 +23,9 @@ from __future__ import annotations
 
 import argparse
 
+from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.core.config import load_config
+from uniir_tpu_torch.core.device import resolve_device
 
 
 def parse_arguments(argv=None):
@@ -35,7 +43,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--enable_hard_negative_mining", action="store_true", help="Enable hard negative mining")
     parser.add_argument("--enable_retrieval", action="store_true", help="Enable retrieval")
     parser.add_argument("--run_automatic_error_analysis", action="store_true", help="Run error analysis")
-    parser.add_argument("--device", default=None, help="cuda (the default; without a card it is an error) or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default: cuda:LOCAL_RANK under torchrun; without a card it is an error) or cpu")
     return parser.parse_args(argv)
 
 
@@ -48,6 +57,8 @@ def _load(path: str, args):
 
 def main(argv=None):
     args = parse_arguments(argv)
+    args.device = resolve_device(args.device)
+    mesh.maybe_initialize_distributed(args.device)
     config = _load(args.config_path, args)
     print(config.to_yaml())
     query_embedder_config = _load(args.query_embedder_config_path, args) if args.query_embedder_config_path else None

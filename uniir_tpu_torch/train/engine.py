@@ -6,13 +6,17 @@ step.  Metrics stay 0-d device tensors and are fetched only every
 card after every step and leave it idle while the host prepares the next
 batch.  The learning rate is logged from the host-side schedule.  BLIP's
 steps also take `alpha`, the distillation weight, warmed up over epoch 0
-as alpha * min(1, i / n_batches) (reference blip engine :29-32).
+as alpha * min(1, i / n_batches) (reference blip engine :29-32).  Over
+several processes each rank feeds its own batches; the metrics the steps
+return are the global batch's, equal on every rank, and only rank 0
+prints them.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Iterable, Optional
 
+from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.utils.logging import MetricLogger
 
 # collator keys the steps do not read
@@ -64,7 +68,8 @@ def train_one_epoch(
 
     flush()
     metric_logger.synchronize_between_processes()
-    print(f"Averaged stats: {metric_logger}")
+    if mesh.is_main_process():
+        print(f"Averaged stats: {metric_logger}")
     return state, metric_logger.global_avg_dict()
 
 
@@ -79,5 +84,6 @@ def eval_engine(eval_step: Callable, loader: Iterable, config, state=None, alpha
         metrics = eval_step(batch) if alpha is None else eval_step(state, batch, alpha)
         metric_logger.update(**{k: float(v) for k, v in metrics.items()})
     metric_logger.synchronize_between_processes()
-    print(f"Averaged eval stats: {metric_logger}")
+    if mesh.is_main_process():
+        print(f"Averaged eval stats: {metric_logger}")
     return metric_logger.global_avg_dict()

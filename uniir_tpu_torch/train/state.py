@@ -5,6 +5,9 @@ optimizer, its learning-rate scheduler and the step count.  `step` counts
 micro-batches, as the JAX TrainState's does; with `accumulation_steps` k
 the gradients of k micro-batches are summed in `.grad` by their backward
 passes and averaged before one optimizer update, optax.MultiSteps' meaning.
+Over several processes the update first averages the gradients over the
+ranks, in one all-reduce an update (`core.mesh.all_reduce_mean_`), not one
+a micro-batch: every rank then takes the same step.
 
 `MomentumTrainState` adds BLIP's machinery (reference blip_sf.py:60-67,
 344-366): `model_m`, the momentum twin -- a second module holding an EMA of
@@ -21,6 +24,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
+from uniir_tpu_torch.core import mesh
+
 
 @dataclass
 class TrainState:
@@ -32,15 +37,15 @@ class TrainState:
 
     def apply_gradients(self) -> None:
         """Count one micro-batch whose gradients are in `.grad`; on every
-        k-th, update with their mean and clear them."""
+        k-th, update with their mean (over the micro-batches and the ranks)
+        and clear them."""
         self.step += 1
         if self.step % self.accumulation_steps:
             return
+        grads = [p.grad for group in self.optimizer.param_groups for p in group["params"] if p.grad is not None]
+        mesh.all_reduce_mean_(grads)
         if self.accumulation_steps > 1:
-            for group in self.optimizer.param_groups:
-                for p in group["params"]:
-                    if p.grad is not None:
-                        p.grad.div_(self.accumulation_steps)
+            torch._foreach_div_(grads, self.accumulation_steps)
         self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)

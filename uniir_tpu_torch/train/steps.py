@@ -12,7 +12,11 @@ Dropout draws from one `torch.Generator` on the model's device, seeded
 anew from (`seed`, `state.step`) at the top of every step -- the
 counterpart of `fold_in(PRNGKey(seed), state.step)` -- so a resumed run
 draws the masks the uninterrupted run would have drawn and a checkpoint
-saves no generator state.  The masks cannot equal flax's, bit for bit.
+saves no generator state.  Over several processes the rank is folded into
+the seed as well, so two ranks draw different masks for their local row i,
+as JAX's global-array dropout draws a mask for every row of the global
+batch; one process keeps the (`seed`, `state.step`) stream.  The masks
+cannot equal flax's, bit for bit.
 CLIP-FF's T5 fusion stack is the CLIP family's one stochastic part: the
 CLIP train step puts it in train mode only `with_dropout`.  BLIP's train
 step (on by default, as the JAX trainer runs it) puts the whole online
@@ -26,7 +30,16 @@ update, then the enqueue.  With hard negatives a fair coin picks whether
 the positives or the first hard negatives are enqueued; it is drawn on the
 host from a generator seeded with (`seed` + 1, `state.step`), the
 counterpart of `fold_in(PRNGKey(seed + 1), step)`, and cannot match JAX's
-draw bit for bit either.
+draw bit for bit either.  The coin is one decision for the global batch:
+it does not depend on the rank.
+
+Over several processes (`core.mesh`) each rank holds its block of the
+host-major global batch.  The steps take `n_hosts = process_count()`, as
+the JAX steps take `jax.process_count()`: the rank's embeddings (and
+BLIP's momentum embeddings and dids, without a gradient) are gathered
+with `gather_rows`, every rank computes the JAX global loss, and the
+update averages the gradients over the ranks (`TrainState.
+apply_gradients`).  The metrics are global and equal on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.train.losses import inbatch_contrastive_loss, momentum_distill_contrastive_loss
 from uniir_tpu_torch.train.state import MomentumTrainState, TrainState
 
@@ -65,11 +79,17 @@ def infer_flat_bs(batch: Dict[str, Any], hard_neg_num: int) -> int:
     return bs
 
 
-def clip_loss(model: torch.nn.Module, batch: Dict[str, Any], hard_neg_num: int = 0, in_batch_neg_num: int = 0):
-    """The train step's forward: {"loss", "accuracy"} of one collated batch."""
+def clip_loss(model: torch.nn.Module, batch: Dict[str, Any], hard_neg_num: int = 0, in_batch_neg_num: int = 0,
+              n_hosts: int = 1):
+    """The train step's forward: {"loss", "accuracy"} of one collated batch;
+    with `n_hosts` > 1 `batch` is this rank's block of the global batch,
+    whose loss it returns."""
     emb = model(*model_inputs(batch, model.logit_scale.device))
+    if n_hosts > 1:
+        emb = mesh.gather_rows(emb)
     return inbatch_contrastive_loss(
-        emb, infer_flat_bs(batch, hard_neg_num), model.logit_scale.exp(), hard_neg_num, in_batch_neg_num
+        emb, infer_flat_bs(batch, hard_neg_num) * n_hosts, model.logit_scale.exp(), hard_neg_num, in_batch_neg_num,
+        n_hosts,
     )
 
 
@@ -81,10 +101,17 @@ def _set_fusion_mode(model: torch.nn.Module, training: bool) -> None:
         fusion.train(training)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
     """The dropout generator's seed for micro-batch `step` of a run seeded
-    with `seed`: a function of the pair alone, distinct across both."""
-    return int(np.random.SeedSequence([int(seed), int(step)]).generate_state(1, np.uint64)[0] >> np.uint64(1))
+    with `seed`: a function of the pair alone, distinct across both; with
+    `rank` (a run over several processes) of the triple."""
+    entropy = [int(seed), int(step)] + ([] if rank is None else [int(rank)])
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> np.uint64(1))
+
+
+def _dropout_seed(seed: int, step: int, n_hosts: int) -> int:
+    """`step_seed` of this rank: the rank folded in over several processes."""
+    return step_seed(seed, step, mesh.process_index() if n_hosts > 1 else None)
 
 
 def make_clip_train_step(
@@ -99,7 +126,9 @@ def make_clip_train_step(
     step(state, batch) returns (state, {"loss", "inbatch_accuracy"}) with the
     metrics as device tensors.  `with_dropout` switches on CLIP-FF's fusion
     dropout, drawn from a generator that every step seeds from (`seed`,
-    `state.step`), `seed` being config.seed."""
+    `state.step`, and the rank over several processes), `seed` being
+    config.seed."""
+    n_hosts = mesh.process_count()
     generator = None
     if with_dropout:
         if not hasattr(model, "t5_layers"):
@@ -109,8 +138,8 @@ def make_clip_train_step(
     def step(state: TrainState, batch: Dict[str, Any]):
         _set_fusion_mode(model, with_dropout)
         if generator is not None:
-            model.t5_layers.set_dropout_generator(generator.manual_seed(step_seed(seed, state.step)))
-        out = clip_loss(model, batch, hard_neg_num, in_batch_neg_num)
+            model.t5_layers.set_dropout_generator(generator.manual_seed(_dropout_seed(seed, state.step, n_hosts)))
+        out = clip_loss(model, batch, hard_neg_num, in_batch_neg_num, n_hosts)
         out["loss"].backward()
         state.apply_gradients()
         return state, {"loss": out["loss"].detach(), "inbatch_accuracy": out["accuracy"]}
@@ -120,11 +149,12 @@ def make_clip_train_step(
 
 def make_clip_eval_step(model: torch.nn.Module, hard_neg_num: int = 0, in_batch_neg_num: int = 0) -> Callable:
     """No-grad twin of the train step: step(batch) -> {"loss", "inbatch_accuracy"}."""
+    n_hosts = mesh.process_count()
 
     def step(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _set_fusion_mode(model, False)
         with torch.inference_mode():
-            out = clip_loss(model, batch, hard_neg_num, in_batch_neg_num)
+            out = clip_loss(model, batch, hard_neg_num, in_batch_neg_num, n_hosts)
         return {"loss": out["loss"], "inbatch_accuracy": out["accuracy"]}
 
     return step
@@ -139,21 +169,31 @@ def enqueue_coin(seed: int, step: int) -> bool:
 
 
 def blip_loss(state: MomentumTrainState, batch: Dict[str, Any], alpha, hard_neg_num: int = 0,
-              temp: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+              temp: Optional[torch.Tensor] = None, n_hosts: int = 1) -> Dict[str, torch.Tensor]:
     """The momentum twin's forward (no gradient), the online model's forward
     in the mode it is in, and the momentum-distilled loss against the
-    queues; `temp` defaults to the model's parameter."""
+    queues; `temp` defaults to the model's parameter.  With `n_hosts` > 1
+    `batch` is this rank's block: both models' rows and the dids are
+    gathered into the global batch.  The global dids come back as "p_dids"
+    and "n_dids" beside the loss."""
     device = state.queue_query.device
     inputs = model_inputs(batch, device)
+    p_dids = to_device(batch["p_did_list"], device)
     n_dids = to_device(batch["nc_dids_list"], device) if hard_neg_num > 0 else None
     with torch.no_grad():
         emb_m = state.model_m(*inputs)
     emb = state.model(*inputs)
-    return momentum_distill_contrastive_loss(
-        emb, emb_m, infer_flat_bs(batch, hard_neg_num), to_device(batch["p_did_list"], device),
+    if n_hosts > 1:
+        with torch.no_grad():
+            emb_m, p_dids = mesh.gather_rows(emb_m), mesh.gather_rows(p_dids)
+            n_dids = None if n_dids is None else mesh.gather_rows(n_dids)
+        emb = mesh.gather_rows(emb)
+    out = momentum_distill_contrastive_loss(
+        emb, emb_m, infer_flat_bs(batch, hard_neg_num) * n_hosts, p_dids,
         state.queue_query, state.queue_cand, state.queue_idx, state.model.temp if temp is None else temp, alpha,
-        hard_neg_num=hard_neg_num, n_dids=n_dids,
+        hard_neg_num=hard_neg_num, n_dids=n_dids, n_hosts=n_hosts,
     )
+    return dict(out, p_dids=p_dids, n_dids=n_dids)
 
 
 def make_blip_train_step(
@@ -164,7 +204,10 @@ def make_blip_train_step(
     the distillation weight, is passed per step (the engine warms it up in
     epoch 0).  `with_dropout` switches the online model's drop-path and
     dropout on, drawn from a generator that every step seeds from (`seed`,
-    `state.step`), `seed` being config.seed."""
+    `state.step`, and the rank over several processes), `seed` being
+    config.seed.  Every rank enqueues the same global rows, so the queues
+    stay equal across the ranks."""
+    n_hosts = mesh.process_count()
     generator = torch.Generator(device=model.temp.device) if with_dropout else None
 
     def step(state: MomentumTrainState, batch: Dict[str, Any], alpha):
@@ -175,15 +218,14 @@ def make_blip_train_step(
         state.model_m.eval()
         model.train(with_dropout)
         if generator is not None:
-            model.set_dropout_generator(generator.manual_seed(step_seed(seed, state.step)))
-        out = blip_loss(state, batch, alpha, hard_neg_num)
+            model.set_dropout_generator(generator.manual_seed(_dropout_seed(seed, state.step, n_hosts)))
+        out = blip_loss(state, batch, alpha, hard_neg_num, n_hosts=n_hosts)
         out["loss"].backward()
         coin_step = state.step
         state.apply_gradients()
-        device = state.queue_idx.device
-        cand, idx = out["enqueue_pos_cand"], to_device(batch["p_did_list"], device)
+        cand, idx = out["enqueue_pos_cand"], out["p_dids"]
         if hard_neg_num > 0 and not enqueue_coin(seed, coin_step):
-            cand, idx = out["enqueue_neg_cand"], to_device(batch["nc_dids_list"], device)[:, 0]
+            cand, idx = out["enqueue_neg_cand"], out["n_dids"][:, 0]
         state.enqueue(out["enqueue_query"], cand, idx)
         return state, {"loss": out["loss"].detach(), "inbatch_accuracy": out["accuracy"]}
 
@@ -195,12 +237,14 @@ def make_blip_eval_step(hard_neg_num: int = 0) -> Callable:
     "inbatch_accuracy"} against the current queues, both models in eval
     mode and `temp` clamped out of place.  It changes nothing of the state
     (PARITY row 3: the reference snapshots and restores it around eval)."""
+    n_hosts = mesh.process_count()
 
     def step(state: MomentumTrainState, batch: Dict[str, Any], alpha) -> Dict[str, torch.Tensor]:
         state.model.eval()
         state.model_m.eval()
         with torch.inference_mode():
-            out = blip_loss(state, batch, alpha, hard_neg_num, temp=state.model.temp.clamp(0.001, 0.5))
+            out = blip_loss(state, batch, alpha, hard_neg_num, temp=state.model.temp.clamp(0.001, 0.5),
+                            n_hosts=n_hosts)
         return {"loss": out["loss"], "inbatch_accuracy": out["accuracy"]}
 
     return step

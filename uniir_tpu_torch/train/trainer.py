@@ -1,8 +1,10 @@
-"""Trainer entry point for the four retrievers, one process on one device
-(counterpart of uniir_tpu/train/trainer.py).
+"""Trainer entry point for the four retrievers, on one card or one process
+a card (counterpart of uniir_tpu/train/trainer.py).
 
     python -m uniir_tpu_torch.train.trainer --config_path configs/clip_sf/large/train/inbatch/inbatch.yaml \
         --uniir_dir /data/UniIR --mbeir_data_dir /data/UniIR/mbeir_data
+
+    UNIIR_TPU_MULTIHOST=1 torchrun --nproc_per_node 8 -m uniir_tpu_torch.train.trainer --config_path ...
 
 build the model with fp32 master weights -> AdamW in the CLIP groups with
 the cosine schedule over all updates (CLIP-FF: the T5 fusion stack at
@@ -19,8 +21,17 @@ BLIP-SF / BLIP-FF train by momentum distillation: one AdamW group (wd
 `MomentumTrainState` with the momentum twin and the queues
 (`model.queue_size`, `model.momentum`), the BLIP train step with dropout
 on, and `model.alpha` warmed up over epoch 0; the in-batch validation reads
-the queues and changes nothing.  Training over several processes is not
-ported (ROADMAP.md, Queue 1 item 3).
+the queues and changes nothing.
+
+Over several processes (`UNIIR_TPU_MULTIHOST=1` under torchrun, one
+process a card: `cuda:LOCAL_RANK`, NCCL) `main` joins the process group
+first (`core.mesh.maybe_initialize_distributed`), rank 0's initial
+parameters are broadcast to every rank, each rank reads its strided shard
+of the epoch's permutation (`EpochShuffleSampler` by rank, train and
+validation) and seeds numpy with `seed + rank`, the steps compute the
+global-batch loss (`train.steps`), rank 0 alone writes the checkpoint
+behind a barrier, and only rank 0 logs to its file and to wandb.  A
+`train_batch_size` is a rank's, as the reference's per-GPU batch.
 """
 
 from __future__ import annotations
@@ -31,8 +42,10 @@ import os
 import numpy as np
 import torch
 
+from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.core.checkpoint import load_train_checkpoint, save_train_checkpoint
 from uniir_tpu_torch.core.config import load_config
+from uniir_tpu_torch.core.device import resolve_device
 from uniir_tpu_torch.data.data_utils import DatasetType, build_mbeir_dataset_from_config
 from uniir_tpu_torch.data.loader import EpochShuffleSampler, MBEIRLoader
 from uniir_tpu_torch.models.registry import build_model_from_config
@@ -71,6 +84,7 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
     trainer_config, data_config = config.trainer_config, config.data_config
     if bundle is None:
         bundle = build_model_from_config(config, device, train=True)
+    mesh.broadcast_module_(bundle.model)  # every rank starts from rank 0's parameters
     hard_neg_num = int(getattr(data_config, "hard_neg_num", 0))
     in_batch_neg_num = int(getattr(data_config, "in_batch_neg_num", 0))
 
@@ -78,7 +92,9 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
         dataset, collator = build_mbeir_dataset_from_config(
             config=config, tokenizer=bundle.tokenizer, img_preprocess_fn=img_preprocess_fn, dataset_type=dataset_type
         )
-        sampler = EpochShuffleSampler(len(dataset), num_replicas=1, rank=0, seed=int(config.seed))
+        sampler = EpochShuffleSampler(
+            len(dataset), num_replicas=mesh.process_count(), rank=mesh.process_index(), seed=int(config.seed)
+        )
         return dataset, sampler, MBEIRLoader(
             dataset, collator, batch_size=int(batch_size), sampler=sampler,
             num_workers=int(config.dataloader_config.num_workers), drop_last=True,
@@ -139,11 +155,11 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
 
 
 def _setup_file_logging(config) -> None:
-    """Mirror the reference's train.log file handler (train.py:353-368)."""
+    """Mirror the reference's train.log file handler (train.py:353-368), on rank 0."""
     import logging
 
     logger_cfg = getattr(config, "logger_config", None)
-    if logger_cfg is None:
+    if logger_cfg is None or not mesh.is_main_process():
         return
     out_dir = os.path.join(config.uniir_dir, logger_cfg.logger_out_dir)
     os.makedirs(out_dir, exist_ok=True)
@@ -158,7 +174,12 @@ def _setup_file_logging(config) -> None:
 
 
 def main(config, bundle=None, device=None, wandb_run=None) -> dict:
-    np.random.seed(int(config.seed))
+    """Train by `config`; over several processes every rank calls it (see
+    the module's docstring).  `device` None means the card (`cuda:LOCAL_RANK`
+    under torchrun)."""
+    device = resolve_device(device) if bundle is None else next(bundle.model.parameters()).device
+    mesh.maybe_initialize_distributed(device)
+    np.random.seed(int(config.seed) + mesh.process_index())
     torch.manual_seed(int(config.seed))
     _setup_file_logging(config)
 
@@ -200,17 +221,18 @@ def main(config, bundle=None, device=None, wandb_run=None) -> dict:
                 best_epoch = epoch
         save_train_checkpoint(ckpt_dir, short_name, state, epoch, config)
         last_stats = log_results(train_stats, val_stats, None, epoch, best_epoch)
-        if wandb_run is not None:
+        if wandb_run is not None and mesh.is_main_process():
             wandb_run.log(last_stats)
     return {"state": state, "stats": last_stats, "best_epoch": best_epoch}
 
 
 def init_wandb(config):
-    """A wandb run when `wandb_config.enabled` and the package is there;
-    None, with a printed reason, when it is missing or offline (the reference
-    gates it the same way and trains on)."""
+    """A wandb run when `wandb_config.enabled` and the package is there, on
+    rank 0 (call it after the process group is up); None, with a printed
+    reason, when it is missing or offline (the reference gates it the same
+    way and trains on)."""
     wandb_cfg = getattr(config, "wandb_config", None)
-    if wandb_cfg is None or not getattr(wandb_cfg, "enabled", False):
+    if wandb_cfg is None or not getattr(wandb_cfg, "enabled", False) or not mesh.is_main_process():
         return None
     try:
         import wandb
@@ -225,17 +247,20 @@ def init_wandb(config):
 
 
 def cli(argv=None):
-    parser = argparse.ArgumentParser(description="uniir_tpu_torch trainer (CLIP-SF / CLIP-FF / BLIP-SF / BLIP-FF, one device)")
+    parser = argparse.ArgumentParser(description="uniir_tpu_torch trainer (CLIP-SF / CLIP-FF / BLIP-SF / BLIP-FF)")
     parser.add_argument("--config_path", default="config.yaml", help="Path to the config file.")
     parser.add_argument("--uniir_dir", type=str, default="/data/UniIR")
     parser.add_argument("--mbeir_data_dir", type=str, default="/data/UniIR/mbeir_data")
-    parser.add_argument("--device", default=None, help="cuda (the default; without a card it is an error) or cpu")
+    parser.add_argument("--device", default=None,
+                        help="cuda (the default: cuda:LOCAL_RANK under torchrun; without a card it is an error) or cpu")
     args = parser.parse_args(argv)
     config = load_config(args.config_path)
     config.uniir_dir = args.uniir_dir
     config.mbeir_data_dir = args.mbeir_data_dir
+    device = resolve_device(args.device)
+    mesh.maybe_initialize_distributed(device)
     wandb_run = init_wandb(config)
-    result = main(config, device=args.device, wandb_run=wandb_run)
+    result = main(config, device=device, wandb_run=wandb_run)
     if wandb_run is not None:
         wandb_run.finish()
     return result

@@ -2,10 +2,11 @@
 
 `SmoothedValue` keeps a deque window and a global sum and count;
 `MetricLogger.log_every` wraps an iterable and prints iteration time,
-data-loading time, an ETA and, on a card, the device memory in use.  The
-global aggregates are summed across processes only when a
-`torch.distributed` group of more than one process is initialised (the
-reference all-reduces [count, total], utils.py:62-73).
+data-loading time, an ETA and, on a card, the device memory in use, on
+rank 0 only.  The global aggregates are summed across processes only when
+a `torch.distributed` group of more than one process is initialised (the
+reference all-reduces [count, total], utils.py:62-73), on the device the
+group reduces on (`core.mesh.collective_device`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from collections import defaultdict, deque
 
 import numpy as np
 import torch
+
+from uniir_tpu_torch.core import mesh
 
 
 class SmoothedValue:
@@ -32,10 +35,9 @@ class SmoothedValue:
         self.total += value * n
 
     def synchronize_between_processes(self):
-        dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            agg = torch.tensor([self.count, self.total], dtype=torch.float64)
-            dist.all_reduce(agg)
+        if mesh.process_count() > 1:
+            agg = torch.tensor([self.count, self.total], dtype=torch.float64, device=mesh.collective_device())
+            torch.distributed.all_reduce(agg)
             self.count, self.total = int(agg[0].item()), float(agg[1].item())
 
     @property
@@ -106,6 +108,8 @@ class MetricLogger:
         except TypeError:
             total = None
         space_fmt = f"{len(str(total))}d" if total else "d"
+        if not mesh.is_main_process():
+            print_freq = 0
         for obj in iterable:
             data_time.update(time.time() - end)
             yield obj
@@ -126,4 +130,5 @@ class MetricLogger:
             end = time.time()
         total_time = time.time() - start_time
         avg = total_time / max(1, i)
-        print(f"{header} Total time: {datetime.timedelta(seconds=int(total_time))} ({avg:.4f} s / it)", flush=True)
+        if mesh.is_main_process():
+            print(f"{header} Total time: {datetime.timedelta(seconds=int(total_time))} ({avg:.4f} s / it)", flush=True)
