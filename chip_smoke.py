@@ -141,7 +141,30 @@
    sharded, K2 on each half: phase 2's bf16 run-file ids), and
    `sharded_topk` over phase 1's pool, each rank drawing its 2.8M-row
    shard from the pool's seeds (ids those of phase 1's `topk` over the
-   whole pool, each rank's sweep and the merge timed).
+   whole pool, each rank's sweep and the merge timed);
+12. runs the entry points as a user does: writes a seeded M-BEIR tree in a
+   temporary directory (1024 candidates, 256 queries and 96 train queries of
+   `mscoco_task0`, about 820 JPEG files from the script's own writer in
+   Pillow's default form -- 4:2:0, quality 75, short side 256 --, a BPE
+   merges file learned from the captions, a `vocab.txt`, phase 2's CLIP-SF
+   and a seeded BLIP-SF `large` saved as `.pth`), reads the shipped
+   `configs/clip_sf/large/eval/inbatch/{embed,index,retrieval}.yaml`,
+   `configs/clip_sf/large/train/inbatch/inbatch.yaml` and
+   `configs/blip_sf/large/eval/inbatch/embed.yaml` with the port's reader,
+   changes only what the fixture forces (one printed line lists the keys)
+   and writes them with its writer; then runs each CLI as a process of its
+   own with `yaml`, `PIL` and `regex` stubbed out of its PYTHONPATH:
+   `config_updater`, the pipeline's embed, index and retrieval (int8 pool as
+   shipped, then bf16), BLIP-SF's embed, and the trainer for three steps of
+   32 pairs, whose checkpoint the pipeline then embeds; and checks the native
+   JPEG decoder bit-equal to the twin on every file, the CLIs' embeddings
+   against the in-code embed path over the decoded arrays (cosine >= 0.9999
+   every row, ids equal), the int8 run's ids against the bf16 run's, the
+   TSV's Recall@1/5/10 against the port's search called in code, each run's
+   launches (K1 / K2 / K3 / K4 where implied, no other kernel) and the
+   trainer's losses; it prints the native decode rate on one thread and on
+   the loader's threads and the share of decode plus transform in the embed
+   loop, beside the card's name and power limit and the host CPU.
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
 of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
@@ -157,13 +180,16 @@ products the CUDA cores' -- whichever is larger); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
 there is no CUDA card or a check fails.  Weights and the tokenizer are
 seeded stand-ins (the CLIP-L and BLIP checkpoints, the BPE files and BERT's
-vocabulary are not in the repo).
+vocabulary are not in the repo; phase 12 makes seeded stand-ins for the last
+two).  `chip_smoke.py --cli COUNTS MODULE ARGS...` is one of phase 12's runs:
+`python -m MODULE ARGS...`, then every kernel's launch count into COUNTS.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3257,6 +3283,732 @@ def profile_embed_steps(int8_models: dict) -> None:
         profile_forward(model, batch, f"CLIP-SF mode {mode}")
 
 
+# ------------------------------------------------ phase 12: the entry points as a user runs them
+
+P12_SEED = SEED + 120
+P12_CANDS, P12_QUERIES, P12_TRAIN_QUERIES = 1024, 256, 96
+P12_WORDS, P12_MERGES = 1000, 3000
+P12_BATCH, P12_TRAIN_BS = 256, 32  # batches the fixture fills: 4 of candidates, 1 of queries; 3 train steps
+IMAGE_SHORT_SIDE = 256  # the M-BEIR construction's short side (uniir_tpu/data/registry.py)
+P12_DATASET, P12_POOL, P12_DSID = "mscoco_task0", "mscoco_task0_test", 9  # as the shipped configs name them
+P12_BLOCKED = ("yaml", "PIL", "regex")  # what the card's machine lacks; stubbed out in the runs' PYTHONPATH
+P12_CONFIGS = {
+    "embed": "configs/clip_sf/large/eval/inbatch/embed.yaml",
+    "index": "configs/clip_sf/large/eval/inbatch/index.yaml",
+    "retrieval": "configs/clip_sf/large/eval/inbatch/retrieval.yaml",
+    "train": "configs/clip_sf/large/train/inbatch/inbatch.yaml",
+    "blip_embed": "configs/blip_sf/large/eval/inbatch/embed.yaml",
+}
+P12_EXPT = {"clip": "CLIP_SF/Large/Instruct/InBatch/", "blip": "BLIP_SF/Large/Instruct/InBatch/"}
+P12_QUERY_KINDS = ("text", "image", "image,text", "text")
+P12_COS = 0.9999  # the CLI's embeddings against the in-code path's, every row
+
+
+# --- the JPEG writer: Pillow's defaults, without Pillow
+
+# ITU T.81 Annex K: the example quantisation tables (natural order) and Huffman tables (DHT payloads:
+# class / id, 16 counts, symbols), which libjpeg -- and so Pillow -- writes by default
+JPEG_LUMA_Q = [
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99,
+]
+JPEG_CHROMA_Q = [17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99, 99, 99,
+                 47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32
+JPEG_DHT = [bytes.fromhex(h) for h in (
+    "0000010501010101010100000000000000000102030405060708090a0b",
+    "100002010303020403050504040000017d01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282"
+    "090a161718191a25262728292a3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a8384"
+    "85868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3"
+    "e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa",
+    "0100030101010101010101010000000000000102030405060708090a0b",
+    "1100020102040403040705040400010277000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a"
+    "162434e125f11718191a262728292a35363738393a434445464748494a535455565758595a636465666768696a737475767778797a82"
+    "838485868788898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2"
+    "e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa",
+)]
+JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21,
+    28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61,
+    54, 47, 55, 62, 63,
+])
+
+
+def jpeg_quant_table(base: list, quality: int) -> np.ndarray:
+    """libjpeg's jpeg_quality_scaling of an Annex K table, clamped to 1..255 (baseline)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.clip((np.asarray(base) * scale + 50) // 100, 1, 255)
+
+
+def huffman_codes(dht: bytes):
+    """(code, length) arrays indexed by symbol, from a DHT payload."""
+    counts, symbols = dht[1:17], dht[17:]
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            code_of[symbols[k]], len_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, len_of
+
+
+def pack_bits(codes: np.ndarray, lengths: np.ndarray) -> bytes:
+    """The codes' bits, most significant first, padded with 1s to a byte and 0xFF-stuffed."""
+    total = int(lengths.sum())
+    item = np.repeat(np.arange(len(codes)), lengths)
+    offset = np.arange(total) - np.repeat(np.cumsum(lengths) - lengths, lengths)
+    bits = (codes[item] >> (lengths[item] - 1 - offset)) & 1
+    data = np.packbits(np.concatenate([bits, np.ones(-total % 8, np.int64)]).astype(np.uint8))
+    return np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
+
+
+def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: int = 0) -> bytes:
+    """A baseline JPEG of uint8 [H, W, 3] (YCbCr, the luma sampled `sampling` = (h, v) times as finely as
+    the chroma) or [H, W] (greyscale), in the form Pillow writes at its defaults: JFIF, Annex K tables
+    scaled to `quality`, one interleaved scan; `restart` MCUs between RSTn markers (0: none)."""
+    grey = image.ndim == 2
+    h_img, w_img = image.shape[:2]
+    px = image.astype(np.float64)
+    if grey:
+        planes, factors = [px], [(1, 1)]
+    else:
+        r, g, b = px[..., 0], px[..., 1], px[..., 2]
+        planes = [0.299 * r + 0.587 * g + 0.114 * b, -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+        factors = [tuple(sampling), (1, 1), (1, 1)]
+    hmax, vmax = factors[0]
+    mcux, mcuy = -(-w_img // (8 * hmax)), -(-h_img // (8 * vmax))
+    tables = [jpeg_quant_table(JPEG_LUMA_Q, quality), jpeg_quant_table(JPEG_CHROMA_Q, quality)]
+    dct = np.array([[np.sqrt((1 if u == 0 else 2) / 8) * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
+                    for u in range(8)])
+    comps = []  # per component: zigzag-ordered quantised blocks [block rows, block columns, 64]
+    for c, (plane, (h, v)) in enumerate(zip(planes, factors)):
+        fx, fy = hmax // h, vmax // v
+        plane = np.pad(plane, ((0, mcuy * vmax * 8 - h_img), (0, mcux * hmax * 8 - w_img)), mode="edge")
+        plane = plane.reshape(plane.shape[0] // fy, fy, plane.shape[1] // fx, fx).mean(axis=(1, 3))
+        blocks = plane.reshape(plane.shape[0] // 8, 8, plane.shape[1] // 8, 8).transpose(0, 2, 1, 3) - 128.0
+        coef = np.einsum("ux,rqxy,vy->rquv", dct, blocks, dct).reshape(blocks.shape[0], blocks.shape[1], 64)
+        comps.append(np.rint(coef / tables[min(c, 1)]).astype(np.int64)[:, :, JPEG_ZIGZAG])
+    # the blocks in scan order: MCU by MCU, each component's h x v blocks
+    order = [(c, r * v + y, q * h + x) for r in range(mcuy) for q in range(mcux)
+             for c, (h, v) in enumerate(factors) for y in range(v) for x in range(h)]
+    comp_of = np.array([o[0] for o in order])
+    zz = np.stack([comps[c][r, q] for c, r, q in order])  # [blocks, 64]
+    interval = (restart or mcux * mcuy) * (len(order) // (mcux * mcuy))  # blocks between restarts
+    dc = zz[:, 0]
+    prev = np.zeros_like(dc)  # each block predicts from its component's previous block in its interval
+    for c in range(len(planes)):
+        idx = np.flatnonzero(comp_of == c)
+        pred = np.concatenate([[0], dc[idx][:-1]])
+        pred[np.r_[True, idx[1:] // interval != idx[:-1] // interval]] = 0
+        prev[idx] = pred
+    huff = [huffman_codes(t) for t in JPEG_DHT]  # DC luma, AC luma, DC chroma, AC chroma
+
+    def category(v):
+        return np.where(v == 0, 0, np.floor(np.log2(np.maximum(np.abs(v), 1))).astype(np.int64) + 1)
+
+    def extra(v, s):
+        return np.where(v >= 0, v, v + (1 << s) - 1) & ((1 << s) - 1)
+
+    def code(table_of, dc_or_ac: int, symbol):
+        """(code, length) of `symbol` in the luma or chroma table of each item."""
+        pick = [huff[dc_or_ac], huff[2 + dc_or_ac]]
+        return (np.choose(table_of, [pick[0][0][symbol], pick[1][0][symbol]]),
+                np.choose(table_of, [pick[0][1][symbol], pick[1][1][symbol]]))
+
+    table = np.minimum(comp_of, 1)  # 0: the luma tables, 1: the chroma ones
+    # items (block, key within the block, code, length): the DC at key 0, an AC value at 2 * position with
+    # its ZRLs (runs of 16 zeros) at 2 * position - 1, the EOB last
+    diff = dc - prev
+    s = category(diff)
+    dc_code, dc_len = code(table, 0, s)
+    items = [(np.arange(len(zz)), np.zeros(len(zz), np.int64), (dc_code << s) | extra(diff, s), dc_len + s)]
+    blk, pos = np.nonzero(zz[:, 1:])
+    pos = pos + 1
+    val = zz[blk, pos]
+    run = pos - np.where(np.r_[True, blk[1:] != blk[:-1]], 0, np.r_[0, pos[:-1]]) - 1
+    s = category(val)
+    ac_code, ac_len = code(table[blk], 1, ((run % 16) << 4) | s)
+    items.append((blk, 2 * pos, (ac_code << s) | extra(val, s), ac_len + s))
+    zblk = np.repeat(blk, run // 16)
+    items.append((zblk, np.repeat(2 * pos - 1, run // 16), *code(table[zblk], 1, np.full(len(zblk), 0xF0))))
+    eob = np.flatnonzero(zz[:, 63] == 0)
+    items.append((eob, np.full(len(eob), 200), *code(table[eob], 1, np.zeros(len(eob), np.int64))))
+    blocks_of, keys, codes, lengths = (np.concatenate(parts) for parts in zip(*items))
+    ordered = np.lexsort((keys, blocks_of))
+    blocks_of, codes, lengths = blocks_of[ordered], codes[ordered], lengths[ordered]
+    starts = np.searchsorted(blocks_of, np.arange(0, len(zz), interval))
+    scan = b""
+    for k, (a, b) in enumerate(zip(starts, np.r_[starts[1:], len(blocks_of)])):
+        if k:
+            scan += bytes([0xFF, 0xD0 + (k - 1) % 8])
+        scan += pack_bits(codes[a:b], lengths[a:b])
+
+    def segment(marker: int, payload: bytes) -> bytes:
+        return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
+
+    out = b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    for tq in range(1 if grey else 2):
+        out += segment(0xDB, bytes([tq]) + bytes(tables[tq][JPEG_ZIGZAG].astype(np.uint8)))
+    sof = bytes([8]) + h_img.to_bytes(2, "big") + w_img.to_bytes(2, "big") + bytes([len(planes)])
+    for c, (h, v) in enumerate(factors):
+        sof += bytes([c + 1, (h << 4) | v, min(c, 1)])
+    out += segment(0xC0, sof)
+    for t in JPEG_DHT[: 2 if grey else 4]:
+        out += segment(0xC4, t)
+    if restart:
+        out += segment(0xDD, restart.to_bytes(2, "big"))
+    sos = bytes([len(planes)]) + b"".join(bytes([c + 1, 0x00 if c == 0 else 0x11]) for c in range(len(planes)))
+    return out + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9"
+
+
+# --- the fixture: an M-BEIR tree of JPEG files, captions, a BPE merges file and a BERT vocabulary
+
+
+def fixture_image(seed: int) -> np.ndarray:
+    """A seeded smooth colour field with a little noise: short side IMAGE_SHORT_SIDE, long side 256..512."""
+    rng = np.random.default_rng(seed)
+    side = int(rng.integers(IMAGE_SHORT_SIDE, 2 * IMAGE_SHORT_SIDE + 1))
+    h, w = (IMAGE_SHORT_SIDE, side) if rng.random() < 0.5 else (side, IMAGE_SHORT_SIDE)
+    grid = rng.integers(0, 256, (7, 7, 3)).astype(np.float64)
+    ys, xs = np.linspace(0, 5.999, h), np.linspace(0, 5.999, w)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    img = (grid[y0][:, x0] * (1 - fy) * (1 - fx) + grid[y0 + 1][:, x0] * fy * (1 - fx)
+           + grid[y0][:, x0 + 1] * (1 - fy) * fx + grid[y0 + 1][:, x0 + 1] * fy * fx)
+    return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
+
+
+def write_fixture_image(job: tuple) -> None:
+    path, seed = job
+    with open(path, "wb") as f:
+        f.write(jpeg_bytes(fixture_image(seed)))
+
+
+def twin_digest(path: str) -> str:
+    """sha256 of the twin decoder's pixels of the JPEG file at `path` (a worker of the fixture's pool)."""
+    import hashlib
+
+    from uniir_tpu_torch.data import jpeg
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(jpeg.decode_twin(f.read(), path).tobytes()).hexdigest()
+
+
+def fixture_words(rng, n: int) -> list:
+    syllables = [c + v for c in "bcdfghjklmnprstvwz" for v in "aeiou"]
+    words: dict = {}
+    while len(words) < n:
+        words["".join(rng.choice(syllables, size=int(rng.integers(1, 5))))] = None
+    return list(words)
+
+
+def learn_merges(texts: list, n_merges: int) -> list:
+    """Byte-level BPE merges learned greedily from `texts` as CLIP's tokenizer splits them (the most
+    frequent pair first, ties to the larger pair)."""
+    from uniir_tpu_torch.data.tokenizers.clip_bpe import _clean_text, bytes_to_unicode, words
+
+    enc = bytes_to_unicode()
+    freq = Counter("".join(enc[b] for b in w.encode()) for t in texts for w in words(_clean_text(t)))
+    seqs = [list(w[:-1]) + [w[-1] + "</w>"] for w in freq]
+    counts = [freq[w] for w in freq]
+    pairs: Counter = Counter()
+    where: dict = {}
+    for i, s in enumerate(seqs):
+        for p in zip(s, s[1:]):
+            pairs[p] += counts[i]
+            where.setdefault(p, set()).add(i)
+    merges = []
+    while len(merges) < n_merges and pairs:
+        best = max(pairs.items(), key=lambda kv: (kv[1], kv[0]))[0]
+        merges.append(best)
+        for i in sorted(where.pop(best, ())):
+            s = seqs[i]
+            for p in zip(s, s[1:]):
+                pairs[p] -= counts[i]
+                if pairs[p] <= 0:
+                    del pairs[p]
+            merged, j = [], 0
+            while j < len(s):
+                if j + 1 < len(s) and (s[j], s[j + 1]) == best:
+                    merged.append(s[j] + s[j + 1])
+                    j += 2
+                else:
+                    merged.append(s[j])
+                    j += 1
+            seqs[i] = merged
+            for p in zip(merged, merged[1:]):
+                pairs[p] += counts[i]
+                where.setdefault(p, set()).add(i)
+    return merges
+
+
+def write_entry_point_tree(root: Path, pool) -> dict:
+    """The M-BEIR tree (queries, candidate pool, qrels, instructions, train split, JPEG images) under
+    root/mbeir_data, a merges file and a vocab.txt under root; images written by `pool`'s workers.
+    Returns what the checks need."""
+    from uniir_tpu_torch.data.registry import MBEIR_TASK
+
+    rng = np.random.default_rng(P12_SEED)
+    mbeir = root / "mbeir_data"
+    for sub in ("query/test", "query/union_train", "cand_pool/local", "cand_pool/global", "qrels/test",
+                "instructions", "mbeir_images/mscoco_images"):
+        (mbeir / sub).mkdir(parents=True, exist_ok=True)
+    vocab = fixture_words(rng, P12_WORDS)
+    weights = 1.0 / np.arange(1, len(vocab) + 1) ** 0.8
+    weights /= weights.sum()
+
+    def caption(i: int) -> str:  # unique by its number: no two rows embed alike
+        return " ".join(rng.choice(vocab, size=int(rng.integers(4, 12)), p=weights)) + f" {i}"
+
+    jobs, cands = [], []
+    for i in range(P12_CANDS):
+        modality = ("text", "image", "image,text")[i % 3]
+        entry = {"did": f"{P12_DSID}:{i}", "modality": modality, "txt": caption(i) if modality != "image" else ""}
+        if modality != "text":
+            entry["img_path"] = f"mbeir_images/mscoco_images/cand_{i}.jpg"
+            jobs.append((str(mbeir / entry["img_path"]), P12_SEED + 1000 + i))
+        cands.append(entry)
+
+    def query(j: int, qid: str, kind: str) -> dict:
+        valid = [c for c in cands if f"{kind} -> {c['modality']}" in MBEIR_TASK]
+        pos = valid[int(rng.integers(0, len(valid)))]
+        q = {"qid": qid, "query_modality": kind, "query_txt": caption(P12_CANDS + j) if kind != "image" else "",
+             "pos_cand_list": [pos["did"]], "neg_cand_list": [],
+             "task_id": MBEIR_TASK[f"{kind} -> {pos['modality']}"]}
+        if kind != "text":
+            if j % 4 == 1 and "img_path" in pos:  # a query that shows its positive's image
+                q["query_img_path"] = pos["img_path"]
+            else:
+                q["query_img_path"] = f"mbeir_images/mscoco_images/query_{qid.replace(':', '_')}.jpg"
+                jobs.append((str(mbeir / q["query_img_path"]), P12_SEED + 5000 + j))
+        return q
+
+    queries = [query(j, f"{P12_DSID}:{j}", P12_QUERY_KINDS[j % 4]) for j in range(P12_QUERIES)]
+    train = [query(P12_QUERIES + j, f"{P12_DSID}:{P12_QUERIES + j}", P12_QUERY_KINDS[j % 4])
+             for j in range(P12_TRAIN_QUERIES)]
+    writing = pool.map(write_fixture_image, jobs, chunksize=16)
+
+    def save_jsonl(path: Path, rows: list) -> None:
+        path.write_text("".join(json.dumps({k: v for k, v in r.items() if k != "task_id"}) + "\n" for r in rows))
+
+    save_jsonl(mbeir / f"query/test/mbeir_{P12_DATASET}_test.jsonl", queries)
+    save_jsonl(mbeir / f"cand_pool/local/mbeir_{P12_POOL}_cand_pool.jsonl", cands)
+    save_jsonl(mbeir / "query/union_train/mbeir_union_up_train.jsonl", train)
+    save_jsonl(mbeir / "cand_pool/global/mbeir_union_train_cand_pool.jsonl", cands)
+    (mbeir / f"qrels/test/mbeir_{P12_DATASET}_test_qrels.txt").write_text(
+        "".join(f"{q['qid']} 0 {q['pos_cand_list'][0]} 1 {q['task_id']}\n" for q in queries))
+    keys = sorted({(q["query_modality"], cands[int(q["pos_cand_list"][0].split(":")[1])]["modality"])
+                   for q in queries + train})
+    (mbeir / "instructions/query_instructions.tsv").write_text(
+        "query_modality\tcand_modality\tdataset\tdataset_id\tprompt_1\n"
+        + "".join(f"{qm}\t{cm}\tMSCOCO\t{P12_DSID}\tFind a {cm.replace(',', ' and ')} that matches this {qm}.\n"
+                  for qm, cm in keys))
+    texts = [c["txt"] for c in cands] + [q["query_txt"] for q in queries + train]
+    merges = learn_merges(texts, P12_MERGES)
+    (root / "merges.txt").write_text("#version: seeded from the fixture's captions\n"
+                                     + "".join(f"{a} {b}\n" for a, b in merges))
+    pieces = [f"##{c}" for c in "abcdefghijklmnopqrstuvwxyz0123456789"]
+    bert = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *".,!?", *"0123456789", *"abcdefghijklmnopqrstuvwxyz",
+            *pieces, *sorted(vocab), "find", "a", "an", "and", "that", "matches", "this", "image", "text"]
+    (root / "vocab.txt").write_text("".join(f"{w}\n" for w in dict.fromkeys(bert)))
+    list(writing)
+    return {"mbeir": mbeir, "cands": cands, "queries": queries, "images": sorted({p for p, _ in jobs}),
+            "n_merges": len(merges)}
+
+
+# --- configs: the shipped YAML files, changed only where the fixture forces it
+
+
+def flat_items(d, prefix: str = "") -> dict:
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat_items(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def fixture_configs(root: Path) -> dict:
+    """name -> path of each YAML file the runs read, written by the port's writer from the shipped file
+    the port's reader read, with the keys the fixture forces; prints the keys changed."""
+    from uniir_tpu_torch.core import yaml_subset
+
+    shipped = {name: yaml_subset.load(REPO / path) for name, path in P12_CONFIGS.items()}
+    cfg = {name: json.loads(json.dumps(d)) for name, d in shipped.items()}  # copies without the aliases
+
+    def serve(d: dict, ckpt_name: str, extra: dict) -> None:
+        e = d["embed_config"]
+        e["test_datasets_config"]["datasets_name"] = [P12_DATASET]
+        e["test_datasets_config"]["correspond_cand_pools_name"] = [P12_POOL]
+        e["cand_pools_config"]["cand_pools_name_to_embed"] = [P12_POOL]
+        d["dataloader_config"]["batch_size"] = P12_BATCH
+        d["model"]["ckpt_config"]["ckpt_name"] = ckpt_name
+        d["model"].update(extra)
+
+    serve(cfg["embed"], "clip_sf_large.pth", {"clip_bpe_path": str(root / "merges.txt")})
+    serve(cfg["blip_embed"], "blip_sf_large.pth", {"bert_vocab_path": str(root / "vocab.txt")})
+    cfg["index"]["index_config"]["cand_pools_config"]["cand_pools_name_to_idx"] = [P12_POOL, "UNION"]
+    test = cfg["retrieval"]["retrieval_config"]["test_datasets_config"]
+    keep = [i for i, (name, pool) in enumerate(zip(test["datasets_name"], test["correspond_cand_pools_name"]))
+            if name == P12_DATASET and pool in (P12_POOL, "UNION")]
+    for key in ("datasets_name", "correspond_cand_pools_name", "correspond_qrels_name", "correspond_metrics_name"):
+        test[key] = [test[key][i] for i in keep]
+    train = cfg["train"]
+    train["dataloader_config"]["train_batch_size"] = P12_TRAIN_BS
+    train["trainer_config"]["num_train_epochs"] = 1
+    train["model"]["clip_bpe_path"] = str(root / "merges.txt")
+    cfg["retrieval_bf16"] = json.loads(json.dumps(cfg["retrieval"]))
+    cfg["retrieval_bf16"]["retrieval_config"]["pool_dtype"] = "bf16"
+    cfg["embed_trained"] = json.loads(json.dumps(cfg["embed"]))  # the trainer's checkpoint, served
+    cfg["embed_trained"]["model"]["ckpt_config"]["ckpt_name"] = "clip_sf_epoch_0"
+    cfg["embed_trained"]["embed_config"]["embed_dir_name"] = "embed_trained"
+    paths, changed = {}, []
+    (root / "configs").mkdir(exist_ok=True)
+    for name, d in cfg.items():
+        source = name.replace("_bf16", "").replace("_trained", "")
+        base = flat_items(shipped[source])
+        keys = sorted(k for k, v in flat_items(d).items() if base.get(k, "<absent>") != v)
+        changed.append(f"{name}.yaml (from {P12_CONFIGS[source]}): {', '.join(keys)}")
+        paths[name] = root / "configs" / f"{name}.yaml"
+        yaml_subset.dump(d, paths[name])
+    log(f"phase 12: config keys changed for the fixture -- {'; '.join(changed)}")
+    return paths
+
+
+# --- the runs
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, and the native JPEG decoder's calls."""
+    from uniir_tpu_torch.data import jpeg
+    from uniir_tpu_torch.ops import attention as A
+    from uniir_tpu_torch.ops import image_ops as I
+    from uniir_tpu_torch.ops import mlp as M
+    from uniir_tpu_torch.ops import quant as Q
+    from uniir_tpu_torch.ops import topk as T
+
+    wrappers = {"K1": A.attention, "K3": A.attention_bwd, "K10": A.attention_splitk, "K2": T.bucket_max_scores,
+                "K4": T.bucket_max_scores_i8, "K11": T.bucket_max_scores_i8b, "K5": Q.int8_matmul, "K6": M.int8_mlp,
+                "K7": I.fused_preprocess}
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts.update({name: fn.launches for name, fn in _off_path_kernels()})
+    counts["jpeg"] = jpeg.decode_native.calls
+    return counts
+
+
+def run_cli(argv: list) -> None:
+    """`python -m MODULE ARGS...` as a user runs it, then the launch counts into COUNTS:
+    `chip_smoke.py --cli COUNTS MODULE ARGS...` (phase 12 starts it with the stubs on PYTHONPATH)."""
+    import runpy
+
+    counts_path, module, args = argv[0], argv[1], argv[2:]
+    for name in P12_BLOCKED:
+        try:
+            __import__(name)
+        except ImportError:
+            continue
+        fail(f"{name} could be imported in a run that must go without it")
+    sys.argv = [module, *args]
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+    with open(counts_path, "w") as f:
+        json.dump(launch_counts(), f)
+
+
+def run_chain(runs: list, env: dict, logs: Path) -> dict:
+    """Run (name, module, args) after (name, module, args), each a process of its own; name -> (return
+    code, seconds, counts); stops at the first that fails."""
+    out = {}
+    for name, module, args in runs:
+        t0 = time.perf_counter()
+        with open(logs / f"{name}.log", "w") as f:
+            rc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--cli", str(logs / f"{name}.json"),
+                                 module, *map(str, args)], env=env, stdout=f, stderr=subprocess.STDOUT,
+                                timeout=900).returncode
+        counts = json.loads((logs / f"{name}.json").read_text()) if rc == 0 else {}
+        out[name] = (rc, time.perf_counter() - t0, counts)
+        if rc:
+            break
+    return out
+
+
+# --- the in-code reference
+
+
+def in_code_embeds(model, tokenizer, transform, image_size: int, tree: dict, arrays: dict, timing: dict):
+    """Phase 2's path over the decoded arrays: the candidates and queries as the datasets give them
+    (the fixture's one prompt a key), collated in batches of P12_BATCH with the last one padded, through
+    `generate_embeds_and_ids_for_dataset`.  -> {split: (embeddings, ids)}."""
+    from uniir_tpu_torch.data.collator import MBEIRCandidatePoolCollator, MBEIRMainCollator
+    from uniir_tpu_torch.data.dataset import Mode
+    from uniir_tpu_torch.data.registry import format_string, hash_did, hash_qid
+    from uniir_tpu_torch.retrieval.embedder import generate_embeds_and_ids_for_dataset
+    from uniir_tpu_torch.train.steps import make_embed_step
+
+    prompts = {}
+    with open(tree["mbeir"] / "instructions/query_instructions.tsv") as f:
+        next(f)
+        for line in f:
+            qm, cm, _, _, prompt = line.rstrip("\n").split("\t")
+            prompts[(qm, cm)] = prompt
+    modality = {c["did"]: c["modality"] for c in tree["cands"]}
+    t0 = time.perf_counter()
+    images = {p: transform(a) for p, a in arrays.items()}
+    timing["transform_s"] = time.perf_counter() - t0
+
+    def img(path):
+        return images[str(tree["mbeir"] / path)] if path else None
+
+    cand_items = [{"txt": format_string(c["txt"]), "img": img(c.get("img_path")), "modality": c["modality"],
+                   "did": hash_did(c["did"])} for c in tree["cands"]]
+    query_items = []
+    for q in tree["queries"]:
+        prompt = format_string(prompts[(q["query_modality"], modality[q["pos_cand_list"][0]])])
+        query_items.append({"query": {"txt": format_string(f"{prompt} {q['query_txt']}"),
+                                      "img": img(q.get("query_img_path"))}, "qid": hash_qid(q["qid"])})
+    step = make_embed_step(model)
+    out = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for split, items, collate in (("cand_pool", cand_items, MBEIRCandidatePoolCollator(tokenizer, image_size)),
+                                  ("test", query_items, MBEIRMainCollator(tokenizer, image_size, mode=Mode.EVAL))):
+        batches = []
+        for i in range(0, len(items), P12_BATCH):
+            chunk = items[i : i + P12_BATCH]
+            batch = collate(chunk + [chunk[-1]] * (P12_BATCH - len(chunk)))  # the loader's pad_last
+            batches.append({**batch, "n_valid": np.int32(len(chunk))})
+        out[split] = generate_embeds_and_ids_for_dataset(step, batches)
+    torch.cuda.synchronize()
+    timing["embed_s"] = time.perf_counter() - t0
+    return out
+
+
+def cli_embeds(uniir_dir: Path, embed_dir: str, expt: str) -> dict:
+    base = uniir_dir / embed_dir / expt
+    return {split: (np.load(base / split / f"mbeir_{name}_{split}_embed.npy"),
+                    np.load(base / split / f"mbeir_{name}_{split}_ids.npy"))
+            for split, name in (("cand_pool", P12_POOL), ("test", P12_DATASET))}
+
+
+def hold_embeds(tag: str, cli: dict, ref: dict) -> None:
+    """The CLI's embeddings against the in-code path's: ids equal, every row's cosine >= P12_COS."""
+    for split in ("cand_pool", "test"):
+        (emb, ids), (ref_emb, ref_ids) = cli[split], ref[split]
+        check(np.array_equal(ids, ref_ids), f"phase 12 {tag} {split}: the CLI's ids differ from the in-code path's")
+        check(emb.shape == ref_emb.shape and bool(np.isfinite(emb).all()), f"phase 12 {tag} {split}: {emb.shape}")
+        cos = torch.nn.functional.cosine_similarity(torch.from_numpy(emb).double(), torch.from_numpy(ref_emb).double())
+        log(f"phase 12 {tag} {split}: {len(ids)} rows, CLI against in-code cosine min {cos.min().item()}")
+        check(cos.min().item() >= P12_COS, f"phase 12 {tag} {split}: a row's cosine {cos.min().item()} < {P12_COS}")
+
+
+def run_files(results_dir: Path) -> dict:
+    return {p.name: {q: [did for did, _ in rows] for q, rows in read_run(str(p)).items()}
+            for p in sorted(results_dir.glob("*.txt"))}
+
+
+def tsv_recall(tsv_dir: Path) -> dict:
+    """(task id, metric) -> (pool value, union value) of the retrieval TSV."""
+    import csv
+
+    (path,) = tsv_dir.glob("*.tsv")
+    with open(path) as f:
+        rows = list(csv.DictReader(f, delimiter="\t"))
+    return {(r["TaskID"], r["Metric"]): (float(r["Value"]), float(r["UnionValue"])) for r in rows}
+
+
+def in_code_recall(uniir_dir: Path, tree: dict) -> dict:
+    """(task id, metric) -> Recall of the port's search, called in code on the CLI's query embeddings and
+    index file (bf16 pool: the ranking the int8 run's guard holds its ids to)."""
+    from uniir_tpu_torch.retrieval.eval import evaluate_recall, load_qrel
+    from uniir_tpu_torch.retrieval.index import DenseIndex
+    from uniir_tpu_torch.retrieval.search import search_dense_index
+
+    queries, qids = cli_embeds(uniir_dir, "embed", P12_EXPT["clip"])["test"]
+    index = DenseIndex.load(str(uniir_dir / "index" / P12_EXPT["clip"] / "cand_pool"
+                                / f"mbeir_{P12_POOL}_cand_pool.index"))
+    _, found = search_dense_index(queries.astype(np.float32), index, 10, pool_dtype="bf16", device=DEVICE)
+    qrel, task_of = load_qrel(str(tree["mbeir"] / f"qrels/test/mbeir_{P12_DATASET}_test_qrels.txt"))
+    recall = evaluate_recall(found, qids, qrel, task_of, ["Recall@1", "Recall@5", "Recall@10"])
+    return {(task, metric): value for task, row in recall.items() for metric, value in row.items()}
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (the first of model name, vendor, CPU part), its architecture
+    and the threads this process may run on: decode is host work."""
+    import platform
+
+    fields = dict(line.split(":", 1) for line in Path("/proc/cpuinfo").read_text().splitlines() if ":" in line)
+    fields = {k.strip(): v.strip() for k, v in fields.items()}
+    name = next((fields[k] for k in ("model name", "vendor_id", "CPU part") if fields.get(k)), "not named")
+    return f"{name} ({platform.machine()}), {len(os.sched_getaffinity(0))} threads"
+
+
+def drive_entry_points(results: dict, smi: str) -> None:
+    """Phase 12 (module docstring): the CLIs from the shipped YAML files over a tree of JPEG files, with
+    yaml, PIL and regex stubbed out of their PYTHONPATH."""
+    import hashlib
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    from uniir_tpu_torch.data import jpeg
+    from uniir_tpu_torch.data.preprocess import blip_transform, clip_transform
+    from uniir_tpu_torch.data.tokenizers.bert_wordpiece import BertTokenizer
+    from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import build_model_from_config, seeded_clip_sf
+    from uniir_tpu_torch.core.config import load_config
+
+    t_phase = time.perf_counter()
+    before = launch_counts()
+    WORK.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase12-", dir=WORK) as tmp, \
+            ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=multiprocessing.get_context("spawn")) as pool:
+        root = Path(tmp)
+        tree = write_entry_point_tree(root, pool)
+        digests = pool.map(twin_digest, tree["images"], chunksize=8)
+        paths = fixture_configs(root)
+        log(f"phase 12: tree of {len(tree['cands'])} candidates, {len(tree['queries'])} queries, "
+            f"{P12_TRAIN_QUERIES} train queries, {len(tree['images'])} JPEG files (Pillow's defaults, 4:2:0, q75), "
+            f"{tree['n_merges']} BPE merges, in {time.perf_counter() - t_phase:.1f} s")
+
+        # the decoders: native bit-equal to the twin on every image; the native rate
+        blobs = {p: Path(p).read_bytes() for p in tree["images"]}
+        t0 = time.perf_counter()
+        arrays = {p: jpeg.decode_native(b, p) for p, b in blobs.items()}
+        one_thread = len(blobs) / (time.perf_counter() - t0)
+        threads = int(load_config(str(paths["embed"])).dataloader_config.num_workers)
+        with ThreadPoolExecutor(threads) as loader_threads:
+            t0 = time.perf_counter()
+            list(loader_threads.map(lambda kv: jpeg.decode_native(kv[1], kv[0]), blobs.items()))
+            many = len(blobs) / (time.perf_counter() - t0)
+        differ = [p for p, d in zip(tree["images"], digests) if hashlib.sha256(arrays[p].tobytes()).hexdigest() != d]
+        check(not differ, f"phase 12: the native decoder differs from the twin on {len(differ)} images: {differ[:3]}")
+        log(f"phase 12: native decoder bit-equal to the twin on all {len(blobs)} images; native decode "
+            f"{one_thread:.1f} images/s on one thread, {many:.1f} images/s on the loader's {threads} threads "
+            f"(host CPU {host_cpu()}; card {smi})")
+
+        # the in-code reference: phase 2's CLIP-SF and a seeded BLIP-SF large, saved where the configs look
+        clip_cfg = CLIP_CONFIGS[MODEL]
+        model = seeded_clip_sf(clip_cfg, DEVICE, seed=SEED, dtype=torch.bfloat16)
+        ckpt = root / "checkpoint" / P12_EXPT["clip"]
+        ckpt.mkdir(parents=True)
+        torch.save(model.state_dict(), ckpt / "clip_sf_large.pth")
+        bpe = CLIPTokenizer(bpe_path=str(root / "merges.txt"))
+        timing: dict = {}
+        ref_clip = in_code_embeds(model, lambda t: bpe(t, context_length=clip_cfg.context_length, truncate=True),
+                                  clip_transform(clip_cfg.image_size), clip_cfg.image_size, tree, arrays, timing)
+        decode_s = len(arrays) / one_thread
+        for label, d in (("one thread", decode_s + timing["transform_s"]),
+                         (f"{threads} threads (decode only spread)", len(arrays) / many + timing["transform_s"])):
+            log(f"phase 12: embed loop, decode + transform {d:.3f} s against embed step {timing['embed_s']:.3f} s "
+                f"on {label}: share {d / (d + timing['embed_s']):.4f} (transform {timing['transform_s']:.3f} s, "
+                f"{len(arrays)} images, host CPU {host_cpu()})")
+        del model
+        blip_config = load_config(str(paths["blip_embed"]))
+        blip_config.model.ckpt_config.ckpt_name = ""  # seeded by the config's seed, then saved for the CLI
+        blip = build_model_from_config(blip_config, DEVICE)
+        ckpt = root / "checkpoint" / P12_EXPT["blip"]
+        ckpt.mkdir(parents=True)
+        torch.save(blip.model.state_dict(), ckpt / "blip_sf_large.pth")
+        ref_blip = in_code_embeds(blip.model, blip.tokenizer, blip_transform(blip.image_size[0], is_train=False),
+                                  blip.image_size[0], tree, arrays, {})
+        del blip, arrays
+        torch.cuda.empty_cache()
+        after_reference = launch_counts()
+        moved = {k: after_reference[k] - before[k] for k in before
+                 if k not in ("K1", "jpeg") and after_reference[k] != before[k]}
+        check(not moved, f"phase 12: the in-code reference launched kernels other than K1: {moved}")
+
+        # the runs, as a user makes them: the run scripts' instruct switch, then the CLIs
+        stubs, logs = root / "stubs", root / "logs"
+        logs.mkdir()
+        for name in P12_BLOCKED:
+            (stubs / name).mkdir(parents=True)
+            (stubs / name / "__init__.py").write_text(f"raise ImportError('{name} is not installed on this machine')\n")
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = f"{stubs}:{REPO}"
+        common = ["--uniir_dir", root, "--mbeir_data_dir", tree["mbeir"], "--device", DEVICE]
+        pipeline, updater = "uniir_tpu_torch.tools.pipeline", "uniir_tpu_torch.tools.config_updater"
+        eval_yamls = ("embed", "index", "retrieval", "retrieval_bf16", "blip_embed", "embed_trained")
+        chains = [
+            [(f"instruct_{name}", updater, ["--update_mbeir_yaml_instruct_status", "--mbeir_yaml_file_path",
+                                            paths[name], "--enable_instruct", "True"])] for name in eval_yamls]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(chains)) as runner:
+            runs = {k: v for out in runner.map(lambda c: run_chain(c, env, logs), chains) for k, v in out.items()}
+        chains = [
+            [("clip_embed", pipeline, ["--config_path", paths["embed"], *common, "--enable_embed"]),
+             ("clip_index", pipeline, ["--config_path", paths["index"], *common, "--enable_create_index"]),
+             ("clip_retrieval_int8", pipeline, ["--config_path", paths["retrieval"], *common, "--enable_retrieval"])],
+            [("blip_embed", pipeline, ["--config_path", paths["blip_embed"], *common, "--enable_embed"])],
+            [("train", "uniir_tpu_torch.train.trainer", ["--config_path", paths["train"], *common]),
+             ("trained_embed", pipeline, ["--config_path", paths["embed_trained"], *common, "--enable_embed"])],
+        ]
+        with ThreadPoolExecutor(len(chains)) as runner:
+            for out in runner.map(lambda c: run_chain(c, env, logs), chains):
+                runs.update(out)
+        for name, (rc, _, _) in runs.items():
+            check(rc == 0, f"phase 12: {name} exited with {rc}:\n{(logs / f'{name}.log').read_text()[-3000:]}")
+        results_dir = root / "retrieval_results" / P12_EXPT["clip"]
+        int8_run = {"run_files": run_files(results_dir / "run_files"), "tsv": tsv_recall(results_dir / "final_tsv")}
+        runs.update(run_chain([("clip_retrieval_bf16", pipeline, ["--config_path", paths["retrieval_bf16"], *common,
+                                                                  "--enable_retrieval"])], env, logs))
+        rc = runs["clip_retrieval_bf16"][0]
+        check(rc == 0, f"phase 12: clip_retrieval_bf16 exited with {rc}:\n"
+                       f"{(logs / 'clip_retrieval_bf16.log').read_text()[-3000:]}")
+        for name, (_, seconds, _) in runs.items():
+            log(f"phase 12: {name} ran in {seconds:.1f} s (a process of its own; yaml, PIL and regex stubbed out)")
+        log(f"phase 12: the runs took {time.perf_counter() - t0:.1f} s of wall time, three chains at once")
+        moved = {k: v - after_reference[k] for k, v in launch_counts().items() if v != after_reference[k]}
+        check(not moved, f"phase 12: this process launched kernels or decoded while the runs ran: {moved}")
+
+        # what the runs launched: each kernel its run implies, no other
+        want = {"clip_embed": {"K1", "jpeg"}, "blip_embed": {"K1", "jpeg"}, "train": {"K1", "K3", "jpeg"},
+                "trained_embed": {"K1", "jpeg"}, "clip_retrieval_int8": {"K4"}, "clip_retrieval_bf16": {"K2"},
+                "clip_index": set()}
+        may = {"clip_retrieval_int8": {"K2"}}  # the guard's exact re-run of a batch
+        for name, positive in want.items():
+            counts = runs[name][2]
+            log(f"phase 12: {name} launches {({k: v for k, v in counts.items() if v})}")
+            check(all(counts[k] > 0 for k in positive), f"phase 12: {name} did not launch {positive}: {counts}")
+            stray = {k: v for k, v in counts.items() if v and k not in positive | may.get(name, set())}
+            check(not stray, f"phase 12: {name} launched kernels its run does not imply: {stray}")
+            for k in ("K1", "K2", "K3", "K4"):
+                results[k]["launches"] += counts[k]
+        guard = re.findall(r"guard_pass_rate=([0-9.]+), exact_reruns=(\d+)", (logs / "clip_retrieval_int8.log").read_text())
+        log(f"phase 12: int8 retrieval guard pass rate and exact re-runs per run: {guard}")
+
+        # the outputs: embeddings against the in-code path, the int8 run against the bf16 run, Recall against
+        # the in-code search, the trained checkpoint served
+        hold_embeds("CLIP-SF", cli_embeds(root, "embed", P12_EXPT["clip"]), ref_clip)
+        hold_embeds("BLIP-SF", cli_embeds(root, "embed", P12_EXPT["blip"]), ref_blip)
+        bf16_files = run_files(results_dir / "run_files")
+        check(set(bf16_files) == set(int8_run["run_files"]) and len(bf16_files) == 2,
+              f"phase 12: run files {sorted(bf16_files)} / {sorted(int8_run['run_files'])}")
+        for name, ids in bf16_files.items():
+            differ = [q for q in ids if ids[q] != int8_run["run_files"][name].get(q)]
+            check(not differ, f"phase 12: {name}: int8 and bf16 runs return different ids for {len(differ)} queries")
+        tsv, ref_recall = tsv_recall(results_dir / "final_tsv"), in_code_recall(root, tree)
+        check(tsv == int8_run["tsv"], "phase 12: the int8 and bf16 runs' TSV differ")
+        check({k: v[0] for k, v in tsv.items()} == ref_recall and all(v[0] == v[1] for v in tsv.values()),
+              f"phase 12: TSV Recall {tsv} differs from the in-code search's {ref_recall}")
+        log(f"phase 12: Recall@1/5/10 by task (TSV = in-code search, pool = union): "
+            f"{ {f'{t} {m}': v[0] for (t, m), v in sorted(tsv.items())} }")
+        losses = re.findall(r"loss: (\S+) \((\S+)\)", (logs / "train.log").read_text())
+        check(bool(losses) and all(np.isfinite(float(x)) for pair in losses for x in pair),
+              f"phase 12: the trainer's losses {losses}")
+        trained = cli_embeds(root, "embed_trained", P12_EXPT["clip"])
+        for split, (emb, ids) in trained.items():
+            check(bool(np.isfinite(emb).all()) and np.array_equal(ids, ref_clip[split][1]),
+                  f"phase 12: the trained checkpoint's {split} embeddings")
+        log(f"phase 12: trainer losses (median, average) {losses[-1]}; its checkpoint served: "
+            f"{len(trained['cand_pool'][1])} candidates, {len(trained['test'][1])} queries embedded")
+    log(f"phase 12 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3272,7 +4024,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess")
+    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)
@@ -3367,6 +4119,8 @@ def main() -> None:
     drive_tools_path(results)  # adds its K1 / K2 / K4 launches too
     torch.cuda.empty_cache()
     drive_processes_path(results)  # adds its ranks' K1 / K3 / K2 launches too
+    torch.cuda.empty_cache()
+    drive_entry_points(results, smi)  # adds its runs' K1 / K2 / K3 / K4 launches too
     for name in ("K10", "K11"):
         check(results[name]["launches"] > 0, f"kernel {name} was not launched on a main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")
@@ -3380,4 +4134,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cli"]:  # one of phase 12's runs (`run_cli`)
+        run_cli(sys.argv[2:])
+    else:
+        main()

@@ -739,10 +739,11 @@ def _train_config(root, name, epochs, resume_from=""):
 def _bundle(config):
     """The registry's BLIP model for training, with the tests' cheap tokenizer and image transform."""
     from tests.helpers import identity_image_transform, simple_bert_tokenizer
+    from tests.torch_helpers import on_array
     from uniir_tpu_torch.models.registry import ModelBundle, build_model_from_config
 
     bundle = build_model_from_config(config, device="cpu", train=True)
-    img_fn = identity_image_transform(VIT.image_size)
+    img_fn = on_array(identity_image_transform(VIT.image_size))
     return ModelBundle(bundle.name, bundle.model, simple_bert_tokenizer(max_len=SEQ, vocab_size=MED.vocab_size),
                        img_fn, img_fn, bundle.image_size, bundle.embed_dim, bundle.extra)
 

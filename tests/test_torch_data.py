@@ -11,6 +11,7 @@ import pytest
 from PIL import Image
 
 from tests.helpers import build_mbeir_fixture, identity_image_transform, simple_tokenizer, tiny_clip_merges
+from tests.torch_helpers import on_array
 from uniir_tpu.data import collator as jax_collator
 from uniir_tpu.data import dataset as jax_dataset
 from uniir_tpu.data import loader as jax_loader
@@ -48,10 +49,11 @@ def assert_same(a, b, where="item"):
 
 def main_datasets(root, mode, hard_neg_num=0, returns=None):
     kwargs = dict(mbeir_data_dir=root, query_data_path="queries.jsonl", cand_pool_path="cand_pool.jsonl",
-                  query_instruct_path="instructions.tsv", img_preprocess_fn=identity_image_transform(32),
-                  hard_neg_num=hard_neg_num, returns=returns)
-    ours = dataset.MBEIRMainDataset(mode=dataset.Mode[mode], **kwargs)
-    theirs = jax_dataset.MBEIRMainDataset(mode=jax_dataset.Mode[mode], **kwargs)
+                  query_instruct_path="instructions.tsv", hard_neg_num=hard_neg_num, returns=returns)
+    transform = identity_image_transform(32)
+    ours = dataset.MBEIRMainDataset(mode=dataset.Mode[mode], img_preprocess_fn=on_array(transform), device="cpu",
+                                    **kwargs)
+    theirs = jax_dataset.MBEIRMainDataset(mode=jax_dataset.Mode[mode], img_preprocess_fn=transform, **kwargs)
     ours.seed(5), theirs.seed(5)
     return ours, theirs
 
@@ -67,13 +69,15 @@ def test_main_dataset_items_equal(mbeir_root, mode, hard_neg_num):
 
 def test_cand_pool_and_inference_datasets_equal(mbeir_root):
     transform = identity_image_transform(32)
-    ours = dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", transform, returns={"src_content": True})
+    ours = dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", on_array(transform),
+                                             returns={"src_content": True}, device="cpu")
     theirs = jax_dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", transform, returns={"src_content": True})
     assert len(ours) == len(theirs) == 24
     for i in range(len(ours)):
         assert_same(ours[i], theirs[i], f"candidate {i}")
     queries = [{"qid": "9:3", "query_txt": "red dress", "query_modality": "text", "candidate_modality": "image"}]
-    a = dataset.MBEIRInferenceOnlyDataset(mbeir_root, queries, "instructions.tsv", transform, returns={"task_id": True})
+    a = dataset.MBEIRInferenceOnlyDataset(mbeir_root, queries, "instructions.tsv", on_array(transform),
+                                          returns={"task_id": True}, device="cpu")
     b = jax_dataset.MBEIRInferenceOnlyDataset(mbeir_root, queries, "instructions.tsv", transform, returns={"task_id": True})
     a.seed(1), b.seed(1)
     assert_same(a[0], b[0])
@@ -120,7 +124,7 @@ def test_eval_and_cand_pool_collator_batches_equal(mbeir_root):
     b = jax_collator.MBEIRMainCollator(tok, 32, mode=jax_dataset.Mode.EVAL)
     assert_same(a([ours[i] for i in range(5)]), b([theirs[i] for i in range(5)]), "eval batch")
     transform = identity_image_transform(32)
-    pool_a = dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", transform)
+    pool_a = dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", on_array(transform), device="cpu")
     pool_b = jax_dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", transform)
     batch_a = collator.MBEIRCandidatePoolCollator(tok, 32)([pool_a[i] for i in range(6)])
     batch_b = jax_collator.MBEIRCandidatePoolCollator(tok, 32)([pool_b[i] for i in range(6)])
@@ -144,7 +148,8 @@ def test_samplers_equal(sampler):
 def test_loader_batches_equal_with_padded_last_batch(mbeir_root):
     transform = identity_image_transform(32)
     tok = simple_tokenizer()
-    a = loader.MBEIRLoader(dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", transform),
+    a = loader.MBEIRLoader(dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", on_array(transform),
+                                                             device="cpu"),
                            collator.MBEIRCandidatePoolCollator(tok, 32), batch_size=10, num_workers=2,
                            drop_last=False, pad_last=True)
     b = jax_loader.MBEIRLoader(jax_dataset.MBEIRCandidatePoolDataset(mbeir_root, "cand_pool.jsonl", transform),
@@ -181,11 +186,12 @@ def test_loader_producer_unblocks_on_abandon():
 def test_clip_transform_and_raw_resize_equal(size):
     rng = np.random.default_rng(3)
     img = Image.fromarray(rng.integers(0, 255, size=(size[1], size[0], 3), dtype=np.uint8))
-    out = preprocess.clip_transform(32)(img)
+    arr = np.asarray(img)  # the port's transforms take the decoded array
+    out = preprocess.clip_transform(32)(arr)
     assert out.shape == (32, 32, 3) and out.dtype == np.float32
     np.testing.assert_array_equal(out, jax_preprocess.clip_transform(32)(img))
-    np.testing.assert_array_equal(preprocess.raw_resize_uint8(32)(img), jax_preprocess.raw_resize_uint8(32)(img))
-    np.testing.assert_array_equal(preprocess.blip_transform(32, is_train=False)(img),
+    np.testing.assert_array_equal(preprocess.raw_resize_uint8(32)(arr), jax_preprocess.raw_resize_uint8(32)(img))
+    np.testing.assert_array_equal(preprocess.blip_transform(32, is_train=False)(arr),
                                   jax_preprocess.blip_transform(32, is_train=False)(img))
 
 
@@ -195,10 +201,10 @@ def test_blip_train_transform_equal_under_one_seed():
     rng = np.random.default_rng(4)
     img = Image.fromarray(rng.integers(0, 255, size=(60, 80, 3), dtype=np.uint8))
     outs = []
-    for module in (preprocess, jax_preprocess):
+    for module, image in ((preprocess, np.asarray(img)), (jax_preprocess, img)):
         random.seed(11)
         fn = module.blip_transform(32, is_train=True)
-        outs.append([fn(img) for _ in range(6)])  # six draws walk several RandAugment ops
+        outs.append([fn(image) for _ in range(6)])  # six draws walk several RandAugment ops
     assert_same(outs[0], outs[1], "augmented")
 
 
@@ -230,7 +236,7 @@ def test_dataset_factory_equals_jax(mbeir_root, kind):
         "val_cand_pool_path": "cand_pool.jsonl", "cand_pool_path": "cand_pool.jsonl"}}
     tok, transform = simple_tokenizer(), identity_image_transform(32)
     ours_ds, ours_coll = data_utils.build_mbeir_dataset_from_config(
-        Config.from_dict(as_dict), tok, transform, data_utils.DatasetType[kind])
+        Config.from_dict(as_dict), tok, on_array(transform), data_utils.DatasetType[kind], device="cpu")
     theirs_ds, theirs_coll = jax_data_utils.build_mbeir_dataset_from_config(
         JaxConfig.from_dict(as_dict), tok, transform, jax_data_utils.DatasetType[kind])
     ours_ds.seed(2), theirs_ds.seed(2)

@@ -1,5 +1,7 @@
 """Import guard: the port and chip_smoke.py stay free of JAX, flax, Pillow,
-PyYAML and the JAX package (the GPU host has none of them)."""
+PyYAML, `regex` and the JAX package (the GPU host has none of them).  Pillow
+is imported in one place only, `data/preprocess.py::_pil`, for the
+train-only transforms that still run on it."""
 
 import ast
 import os
@@ -20,9 +22,11 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.core.config",
     "uniir_tpu_torch.core.device",
     "uniir_tpu_torch.core.mesh",
+    "uniir_tpu_torch.core.yaml_subset",
     "uniir_tpu_torch.data.collator",
     "uniir_tpu_torch.data.data_utils",
     "uniir_tpu_torch.data.dataset",
+    "uniir_tpu_torch.data.jpeg",
     "uniir_tpu_torch.data.loader",
     "uniir_tpu_torch.data.preprocess",
     "uniir_tpu_torch.data.registry",
@@ -67,9 +71,11 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.utils.profiling",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "yaml", "regex", "uniir_tpu")
-# never imported by the port, at any depth / only inside functions
-NEVER = ("jax", "jaxlib", "flax", "uniir_tpu")
-NOT_AT_TOP = ("PIL", "yaml", "regex")
+# never imported by the port, at any depth; Pillow only inside the functions named for its file
+NEVER = ("jax", "jaxlib", "flax", "uniir_tpu", "yaml", "regex")
+PIL_FUNCTIONS = {"uniir_tpu_torch/data/preprocess.py": ("_pil",)}
+# the train-only transforms of data/preprocess.py, the only callers of `_pil`
+TRAIN_ONLY = {"_autocontrast", "_equalize", "_brightness", "_sharpness", "train_fn"}
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -111,35 +117,55 @@ def _imported_roots(node: ast.AST):
     return []
 
 
-def forbidden_imports(source: str):
+def forbidden_imports(source: str, pil_functions=()):
     """(line, package) of every import of a NEVER package at any depth --
-    inside functions, classes, try blocks -- and of a NOT_AT_TOP package
-    outside a function."""
-    tree = ast.parse(source)
-    found = [(n.lineno, root) for n in ast.walk(tree) for root in _imported_roots(n) if root in NEVER]
+    inside functions, classes, try blocks -- and of Pillow anywhere but
+    inside a function named in `pil_functions`."""
+    found = []
 
-    def outside_functions(node):
+    def walk(node, function):
         for child in ast.iter_child_nodes(node):
-            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
-                continue
-            found.extend((child.lineno, root) for root in _imported_roots(child) if root in NOT_AT_TOP)
-            outside_functions(child)
+            inner = child.name if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)) else function
+            for root in _imported_roots(child):
+                if root in NEVER or (root == "PIL" and inner not in pil_functions):
+                    found.append((child.lineno, root))
+            walk(child, inner)
 
-    outside_functions(tree)
+    walk(ast.parse(source), None)
     return sorted(found)
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_file_imports_nothing_forbidden_at_any_depth(path):
-    assert forbidden_imports(path.read_text()) == []
+    rel = str(path.relative_to(REPO))
+    assert forbidden_imports(path.read_text(), PIL_FUNCTIONS.get(rel, ())) == []
 
 
 def test_import_walk_sees_inside_functions():
-    lazy = "def f():\n    from uniir_tpu.data.dataset import Mode\n    import PIL\n"
-    assert forbidden_imports(lazy) == [(2, "uniir_tpu")]
+    lazy = "def f():\n    from uniir_tpu.data.dataset import Mode\n    import PIL\n    import yaml\n"
+    assert forbidden_imports(lazy) == [(2, "uniir_tpu"), (3, "PIL"), (4, "yaml")]
+    assert forbidden_imports(lazy, pil_functions=("f",)) == [(2, "uniir_tpu"), (4, "yaml")]
     top = "try:\n    import yaml\nexcept ImportError:\n    yaml = None\nclass A:\n    import regex\n"
     assert forbidden_imports(top) == [(2, "yaml"), (6, "regex")]
+    nested = "def _pil():\n    def g():\n        from PIL import Image\n    from PIL import ImageOps\n"
+    assert forbidden_imports(nested, pil_functions=("_pil",)) == [(3, "PIL")]
     assert forbidden_imports("import uniir_tpu_torch.ops\nfrom . import x\n") == []
+
+
+def test_pillow_only_for_the_train_only_transforms():
+    """`_pil` is the one function that imports Pillow, and only the
+    train-only transforms call it; the eval transforms, the decoder and the
+    dataset need none."""
+    callers = set()
+
+    def walk(node, function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Call) and getattr(child.func, "id", None) == "_pil":
+                callers.add(function)
+            walk(child, child.name if isinstance(child, ast.FunctionDef) else function)
+
+    walk(ast.parse((PORT / "data" / "preprocess.py").read_text()), None)
+    assert callers == TRAIN_ONLY
 
 
 def test_chip_smoke_refuses_to_run_without_the_repo(tmp_path):
@@ -152,10 +178,13 @@ def test_chip_smoke_refuses_to_run_without_the_repo(tmp_path):
 
 
 def test_config_updater_imports_yaml_only_inside_its_functions():
-    """The updater needs PyYAML, which the card's machine lacks: it imports it
-    where a file is read or written, so the module itself imports there."""
-    tree = ast.parse((PORT / "tools" / "config_updater.py").read_text())
-    inside = {fn.name for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
-              for node in ast.walk(fn) if "yaml" in _imported_roots(node)}
-    assert inside == {"load_yaml", "save_yaml"}
-    assert forbidden_imports((PORT / "tools" / "config_updater.py").read_text()) == []
+    """The updater reads and writes through `core.yaml_subset`: PyYAML, which
+    the card's machine lacks, is imported nowhere in it, not even inside
+    `load_yaml` / `save_yaml`."""
+    source = (PORT / "tools" / "config_updater.py").read_text()
+    tree = ast.parse(source)
+    assert not [node for node in ast.walk(tree) if "yaml" in _imported_roots(node)]
+    calls = {fn.name: {ast.unparse(node.func) for node in ast.walk(fn) if isinstance(node, ast.Call)}
+             for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef) and fn.name in ("load_yaml", "save_yaml")}
+    assert calls == {"load_yaml": {"yaml_subset.load"}, "save_yaml": {"yaml_subset.dump"}}
+    assert forbidden_imports(source) == []

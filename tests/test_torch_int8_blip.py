@@ -340,6 +340,7 @@ def test_cli_probe_flow_for_blip_sf_on_fixture_tree(pipeline_root, jax_models, t
     quantisation -> static serving tracks the float model; its scales equal
     the JAX tool's on the same tree and weights."""
     from tests.helpers import identity_image_transform, make_eval_config, simple_bert_tokenizer
+    from tests.torch_helpers import on_array
     from uniir_tpu.models.registry import ModelBundle as JaxModelBundle
     from uniir_tpu.ops.calibrate import calibrate_act_scales as jax_calibrate_act_scales
     from uniir_tpu.tools.calibrate_int8 import first_probe_loader as jax_first_probe_loader
@@ -352,7 +353,8 @@ def test_cli_probe_flow_for_blip_sf_on_fixture_tree(pipeline_root, jax_models, t
     params = jax_models[name, "tiny"]["params"]
     tok, img_fn = simple_bert_tokenizer(max_len=16, vocab_size=97), identity_image_transform(TINY_VIT.image_size)
     size = (TINY_VIT.image_size, TINY_VIT.image_size)
-    port_bundle = port_registry.ModelBundle(name, _port_float(name, params, cfgs), tok, img_fn, img_fn, size, 16)
+    port_bundle = port_registry.ModelBundle(name, _port_float(name, params, cfgs), tok, on_array(img_fn),
+                                            on_array(img_fn), size, 16)
     jax_bundle = JaxModelBundle(name, _jax_model(name, jcfgs), params, tok, img_fn, img_fn, size, 16)
     config = make_eval_config(pipeline_root)
     config.data_config.enable_query_instruct = False  # the prompt is drawn at random: both runs embed the same text

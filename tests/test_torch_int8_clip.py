@@ -275,6 +275,7 @@ def test_cli_probe_flow_on_fixture_tree(pipeline_root, bundle, tmp_path):
     import jax
 
     from tests.helpers import make_eval_config
+    from tests.torch_helpers import on_array
     from uniir_tpu.ops.calibrate import calibrate_act_scales as jax_calibrate_act_scales
     from uniir_tpu.tools.calibrate_int8 import first_probe_loader as jax_first_probe_loader
     from uniir_tpu.train.steps import _model_inputs
@@ -283,8 +284,8 @@ def test_cli_probe_flow_on_fixture_tree(pipeline_root, bundle, tmp_path):
     cfg = CLIP_CONFIGS[TINY]
     params = jax.tree_util.tree_map(np.asarray, bundle.params)
     port_bundle = port_registry.ModelBundle(
-        "CLIPScoreFusion", _port_float(params, cfg), bundle.tokenizer, bundle.img_preprocess_fn,
-        bundle.img_preprocess_fn_eval, bundle.image_size, bundle.embed_dim)
+        "CLIPScoreFusion", _port_float(params, cfg), bundle.tokenizer, on_array(bundle.img_preprocess_fn),
+        on_array(bundle.img_preprocess_fn_eval), bundle.image_size, bundle.embed_dim)
     config = make_eval_config(pipeline_root)
     config.data_config.enable_query_instruct = False  # the prompt is drawn at random: both runs embed the same text
     out = str(tmp_path / "calib_tiny.npz")

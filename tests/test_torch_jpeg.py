@@ -1,0 +1,285 @@
+"""The JPEG decoders (`uniir_tpu_torch.data.jpeg`): the twin bit-equal to
+Pillow's `Image.open(...).convert("RGB")` (libjpeg-turbo at its defaults) on
+Pillow-made files of every accepted form, the rejected forms raising, the
+JPEG writer of chip_smoke.py readable by Pillow, and (`-m gpu`, on the
+card's machine, where nvcc builds csrc/jpeg.cu) the native decoder
+bit-equal to the twin and to Pillow's digests.
+
+The module imports no JAX and no Pillow at its top, so its `-m gpu` cases
+collect with `--noconftest` on a machine that has neither."""
+
+import base64
+import hashlib
+import io
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+from uniir_tpu_torch.data import jpeg
+
+# Pillow-made JPEG files (base64) and the sha256 of Pillow's RGB pixels of each, made where Pillow
+# is installed: the card's machine has none, so its decoders are held to these digests
+PILLOW_FILES = {
+    "rgb_420_q75_17x9": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAx"
+        "NDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjL/wAARCAAJABEDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUF"
+        "BAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVW"
+        "V1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi"
+        "4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAEC"
+        "AxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVm"
+        "Z2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq"
+        "8vP09fb3+Pn6/9oADAMBAAIRAxEAPwDyWOxk5gUAP1IIIwOO3PpW7Z2TGDYiHJO7lOQ2eg6nj2qOP/j2T/rgv/slb8f+sl/30/ka"
+        "9CNaV7P+tv8AM9HA1HflX9WKf2VfWP8A75P/AMVRXQ0V6Ptanc9L67UP/9k=",
+        "ca42b47b239669e98a1aa6fa01809af54aa836d4e19d4821455c18e1482f2d05", 17, 9),
+    "rgb_444_q95_8x8": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAIBAQEBAQIBAQECAgICAgQDAgICAgUEBAMEBgUGBgYFBgYGBwkIBgcJBwYGCAsICQoK"
+        "CgoKBggLDAsKDAkKCgr/2wBDAQICAgICAgUDAwUKBwYHCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoK"
+        "CgoKCgoKCgr/wAARCAAIAAgDAREAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUF"
+        "BAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVW"
+        "V1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi"
+        "4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAEC"
+        "AxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVm"
+        "Z2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq"
+        "8vP09fb3+Pn6/9oADAMBAAIRAxEAPwD8lfh/8JNX1PUrbUNQtvsFzJdCSJWRrXfEGRiYl2lwFUS/MgckZYg8Bf2WnjqUqblQqt8s"
+        "W1e1RxjK6S96+7b99tWScVKMVyw9Ph3Fxlm8KFTSDV21eS5pWtCT3g0/ccZuDnJxs5Jty//Z",
+        "c2f2eb3dde4a3c9eef4243a5ad208ed44f1140e7a5d49304f3ee6e94abfe9384", 8, 8),
+    "rgb_422_q10_33x17": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAFA3PEY8MlBGQUZaVVBfeMiCeG5uePWvuZHI////////////////////////////////"
+        "////////////////////2wBDAVVaWnhpeOuCguv/////////////////////////////////////////////////////////////"
+        "////////////wAARCAARACEDASEAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUF"
+        "BAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVW"
+        "V1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi"
+        "4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAEC"
+        "AxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVm"
+        "Z2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq"
+        "8vP09fb3+Pn6/9oADAMBAAIRAxEAPwCsBTwtXcqI4LSOOcCqiXJ+6MwP8mitDEeFp4FcyZcR2MDNRYya0iKb2Q7afWiquTzAP6U9"
+        "eorDoUhX/wBWaiXrWkdhT3JaKok//9k=",
+        "9d1aae09cdf629477a15bea0825f7a808e47d8225b5e1720dfa332048669774b", 33, 17),
+    "grey_q75_13x7": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAx"
+        "NDQ0Hyc5PTgyPC4zNDL/wAALCAAHAA0BAREA/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUF"
+        "BAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVW"
+        "V1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi"
+        "4+Tl5ufo6erx8vP09fb3+Pn6/9oACAEBAAA/APJrK2Bdsthw5Tg9OvtzyP8APNaAtfs8Y3bi5PzBAOOB3Jr/2Q==",
+        "4b4a65137438140e9ae4bfe8ef2afbb357086e00d4065bd1fd6bc1a5ed25189c", 13, 7),
+    "rgb_420_optimized_restart_40x24": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUfGhsjHBYWICwgIyYn"
+        "KSopGR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgo"
+        "KCgoKCgoKCj/wAARCAAYACgDASIAAhEBAxEB/8QAFwABAQEBAAAAAAAAAAAAAAAAAAUGB//EACkQAAIBAgUEAgIDAQAAAAAAAAEC"
+        "EQMEAAUSIUETMVFhInEGoTJSgZH/xAAXAQEAAwAAAAAAAAAAAAAAAAAFBAYH/8QAKhEAAQMDAgMIAwAAAAAAAAAAAQACAwQFESFx"
+        "MUGxBhITFCJRUmGB0fD/3QAEAAL/2gAMAwEAAhEDEQA/AOE2WWqdTVAGbSWWBpniPrtjSW2VNTFFKpem7iJ6b6oJ8Tzv3/W2KNll"
+        "zlUhAYQKKejgxAGw3nzxx4vWuXB6y9NKZ61EPEEGACYB8cRzhCOv+R0StplaR6tMKbZWOoKpQpUJJXcdu0CREdt+MSPyzTc3yWCJ"
+        "orW66nSS0sY0rBPC7yP7H3jpdS0o2lDq1mo9GkSCvVAJ0gmIHMgciSfQnAW2XNeu1zXg1ahNR+qNOoSWkRHdt4n/ALiy2Wp77zIe"
+        "SQ7R3dsFKykZxfqdh+z0K//Q5TluVoxgvtEhgCd+I99tvJPoYY3OWZc7VCiajTVpUzMcEr5MAntz2PYsbB588lPo3Ex5Az+cKtlu"
+        "TLrpU2QuZ0FWqAhztvHg/L3vztjRZTlzInzhKcHdQxltvjqP0JPH7wwxgMMz34B+uqi2t5zsV//Rpfl1Dp29pb25cLWGtxTJEkGB"
+        "tpIC/wApUSSYPffEywy0taIwoo6gEkFIDgn7+J9kb/7hhhm0yObAwD3VZu1ZLJdJS48DgbAfx3JV2wy41EGtKcj4lZ+R3G5kAmYm"
+        "fX1hhhhnxn5OqfbUviY0NX//2Q==",
+        "8b4a1aae035d74663a0bbe054c271b0ce3ebafd0ec4b666cf507ea812a95e6e9", 40, 24),
+    "rgb_420_q75_3x5": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAx"
+        "NDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjL/wAARCAAFAAMDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUF"
+        "BAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVW"
+        "V1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi"
+        "4+Tl5ufo6erx8vP09fb3+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAEC"
+        "AxEEBSExBhJBUQdhcRMiMoEIFEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVm"
+        "Z2hpanN0dXZ3eHl6goOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq"
+        "8vP09fb3+Pn6/9oADAMBAAIRAxEAPwDx6OBDGvLfgxFFFFerztGfKv6bP//Z",
+        "0cdb100c69e88ebe191aa2bf0b1c491c40c7540483d83237f027a9206cc64d6e", 3, 5),
+}
+
+
+def smooth_image(rng, w: int, h: int, noise: float = 25.0) -> np.ndarray:
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([(xx * 9 + yy * 4) % 256, (yy * 7) % 256, (xx * 5 + 60) % 256], axis=2)
+    return np.clip(base + rng.normal(0, noise, base.shape), 0, 255).astype(np.uint8)
+
+
+def pillow_jpeg(arr: np.ndarray, **save) -> tuple:
+    """(file bytes, Pillow's RGB pixels of them)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", **save)
+    data = buf.getvalue()
+    return data, np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+SIZES = [(1, 1), (2, 2), (3, 5), (8, 8), (9, 17), (16, 16), (17, 9), (33, 17), (64, 48), (100, 75), (517, 263)]
+
+
+@pytest.mark.parametrize("quality", [10, 75, 95])
+@pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:2", "4:2:0"])
+@pytest.mark.parametrize("size", SIZES, ids=[f"{w}x{h}" for w, h in SIZES])
+def test_twin_is_bit_equal_to_pillow(size, subsampling, quality):
+    rng = np.random.default_rng(size[0] * 1000 + size[1] + quality)
+    data, ref = pillow_jpeg(smooth_image(rng, *size), quality=quality, subsampling=subsampling)
+    got = jpeg.decode_twin(data)
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("form", ["greyscale", "optimize", "restart_blocks", "restart_rows", "odd_restart"])
+@pytest.mark.parametrize("size", [(1, 1), (13, 7), (64, 48), (517, 263)], ids=["1x1", "13x7", "64x48", "517x263"])
+def test_twin_is_bit_equal_to_pillow_on_other_forms(size, form):
+    """Greyscale (copied into three channels), Pillow's optimized Huffman
+    tables, and restart intervals (also ones that do not divide the MCU count)."""
+    from PIL import Image
+
+    arr = smooth_image(np.random.default_rng(size[0] + size[1]), *size)
+    save = {"greyscale": {}, "optimize": {"optimize": True}, "restart_blocks": {"restart_marker_blocks": 3},
+            "restart_rows": {"restart_marker_rows": 1}, "odd_restart": {"restart_marker_blocks": 7, "optimize": True}}
+    if form == "greyscale":
+        buf = io.BytesIO()
+        Image.fromarray(arr).convert("L").save(buf, "JPEG")
+        data = buf.getvalue()
+        ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    else:
+        data, ref = pillow_jpeg(arr, **save[form])
+    np.testing.assert_array_equal(jpeg.decode_twin(data), ref)
+
+
+@pytest.mark.parametrize("name", sorted(PILLOW_FILES))
+def test_twin_matches_pillow_digest(name):
+    data, digest, w, h = base64.b64decode(PILLOW_FILES[name][0]), *PILLOW_FILES[name][1:]
+    out = jpeg.decode_twin(data, name)
+    assert out.shape == (h, w, 3)
+    assert hashlib.sha256(out.tobytes()).hexdigest() == digest
+
+
+def _patched(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
+    at = data.index(marker) + offset
+    return data[:at] + bytes([value]) + data[at + 1 :]
+
+
+def _rejected():
+    from PIL import Image
+
+    arr = smooth_image(np.random.default_rng(5), 40, 30)
+    base, _ = pillow_jpeg(arr)
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, "JPEG", progressive=True)
+    progressive = buf.getvalue()
+    buf = io.BytesIO()
+    Image.fromarray(arr).convert("CMYK").save(buf, "JPEG")
+    cmyk = buf.getvalue()
+    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"  # APP14, transform 0: RGB
+    scan = base.index(b"\xff\xda")
+    return {
+        "progressive": (progressive, r"0xFFC2.*progressive"),
+        "sof1_extended": (_patched(base, b"\xff\xc0", 1, 0xC1), r"0xFFC1.*SOF1"),
+        "sof3_lossless": (_patched(base, b"\xff\xc0", 1, 0xC3), r"0xFFC3.*SOF3"),
+        "arithmetic": (_patched(base, b"\xff\xc0", 1, 0xC9), r"0xFFC9.*arithmetic"),
+        "twelve_bit": (_patched(base, b"\xff\xc0", 4, 12), r"0xFFC0.*12-bit"),
+        "four_components": (cmyk, r"0xFFC0.*4 components"),
+        "adobe_rgb": (base[:2] + adobe + base[2:], r"0xFFEE.*RGB"),
+        "truncated_scan": (base[: scan + (len(base) - scan) // 2], r"truncated"),
+        "truncated_header": (base[:100], r"truncated"),
+        "not_a_jpeg": (b"\x89PNG\r\n\x1a\n" + base[8:], r"no SOI"),
+    }
+
+
+@pytest.mark.parametrize("form", ["progressive", "sof1_extended", "sof3_lossless", "arithmetic", "twelve_bit",
+                                  "four_components", "adobe_rgb", "truncated_scan", "truncated_header", "not_a_jpeg"])
+def test_rejected_forms_raise_naming_file_and_marker(form):
+    data, pattern = _rejected()[form]
+    with pytest.raises(ValueError, match=rf"^f\.jpg: .*{pattern}"):
+        jpeg.decode_twin(data, "f.jpg")
+
+
+def test_corrupt_streams_raise_or_decode_never_crash():
+    """Random byte flips: the twin raises ValueError or returns pixels, nothing else."""
+    arr = smooth_image(np.random.default_rng(6), 24, 16)
+    data, _ = pillow_jpeg(arr)
+    rng = np.random.default_rng(7)
+    for _ in range(60):
+        bad = bytearray(data)
+        for at in rng.integers(0, len(bad), size=3):
+            bad[at] = int(rng.integers(0, 256))
+        try:
+            out = jpeg.decode_twin(bytes(bad))
+        except ValueError:
+            continue
+        assert out.dtype == np.uint8 and out.ndim == 3
+
+
+@pytest.mark.parametrize("sampling", [(1, 1), (2, 1), (1, 2), (2, 2)], ids=["444", "422", "440", "420"])
+@pytest.mark.parametrize("restart", [0, 5])
+@pytest.mark.parametrize("size", [(1, 1), (7, 3), (33, 18), (97, 64)], ids=["1x1", "7x3", "33x18", "97x64"])
+def test_chip_smoke_writer_decodes_in_pillow_to_the_twins_pixels(size, sampling, restart):
+    """chip_smoke.py's seeded writer (its luma 1x2 form is the one Pillow
+    cannot write) makes files Pillow reads, to the twin's pixels."""
+    import chip_smoke
+    from PIL import Image
+
+    arr = smooth_image(np.random.default_rng(size[0] + 3 * size[1]), *size, noise=10)
+    data = chip_smoke.jpeg_bytes(arr, 75, sampling, restart)
+    ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    np.testing.assert_array_equal(jpeg.decode_twin(data), ref)
+    if sampling == (2, 2) and restart == 0:
+        grey = chip_smoke.jpeg_bytes(arr[..., 1])
+        np.testing.assert_array_equal(jpeg.decode_twin(grey), np.asarray(Image.open(io.BytesIO(grey)).convert("RGB")))
+
+
+def test_chip_smoke_writer_headers_are_pillows():
+    """Quality 75, 4:2:0: the JFIF, quantisation, frame and Huffman segments
+    are the bytes Pillow writes at its defaults."""
+    import chip_smoke
+
+    arr = smooth_image(np.random.default_rng(8), 48, 32)
+    ours, (theirs, _) = chip_smoke.jpeg_bytes(arr), pillow_jpeg(arr)
+    assert ours[: ours.index(b"\xff\xda")] == theirs[: theirs.index(b"\xff\xda")]
+
+
+def test_decoder_follows_the_runs_device():
+    assert jpeg.decoder_for("cpu") is jpeg.decode_twin
+    assert jpeg.decoder_for(torch.device("cuda", 0)) is jpeg.decode_native
+
+
+# --- the native decoder (csrc/jpeg.cu, built by nvcc on the card's machine)
+
+
+@pytest.fixture
+def native():
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card's machine: csrc/jpeg.cu is built by nvcc, which is installed there")
+    return jpeg.decode_native
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(PILLOW_FILES))
+def test_native_is_bit_equal_to_twin_and_pillow(native, name):
+    data, digest, w, h = base64.b64decode(PILLOW_FILES[name][0]), *PILLOW_FILES[name][1:]
+    before = jpeg.decode_native.calls
+    out = native(data, name)
+    assert jpeg.decode_native.calls == before + 1
+    assert out.shape == (h, w, 3) and hashlib.sha256(out.tobytes()).hexdigest() == digest
+    np.testing.assert_array_equal(out, jpeg.decode_twin(data, name))
+
+
+@pytest.mark.gpu
+def test_native_in_threads_and_on_the_writers_forms(native):
+    """The loader's threads decode at once (no shared state); every sampling
+    and a restart interval of the writer's files equal the twin."""
+    import chip_smoke
+
+    rng = np.random.default_rng(9)
+    files = [chip_smoke.jpeg_bytes(smooth_image(rng, 37 + i, 21 + 2 * i, noise=10), 60 + i, s, r)
+             for i, (s, r) in enumerate([(s, r) for s in [(1, 1), (2, 1), (1, 2), (2, 2)] for r in (0, 3)])]
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(native, files * 4))
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(out, jpeg.decode_twin(files[i % len(files)]))
+
+
+@pytest.mark.gpu
+def test_native_rejects_what_the_twin_rejects(native):
+    data = base64.b64decode(PILLOW_FILES["rgb_420_q75_17x9"][0])
+    scan = data.index(b"\xff\xda")
+    for bad, pattern in [(data[: scan + 40], "truncated"), (_patched(data, b"\xff\xc0", 1, 0xC2), "0xFFC2"),
+                         (_patched(data, b"\xff\xc0", 4, 12), "12-bit"), (b"not a jpeg", "no SOI")]:
+        with pytest.raises(ValueError, match=pattern):
+            native(bad, "f.jpg")

@@ -86,8 +86,12 @@ def crc_tokenizer(max_len: int, vocab_size: int):
 
 
 def image_transform(size: int):
-    def fn(img):
-        return np.asarray(img.resize((size, size)), dtype=np.float32) / 255.0
+    """On the decoded uint8 array, as the port's datasets call it: Pillow's
+    default `resize((size, size))` (bicubic), scaled to [0, 1]."""
+    from uniir_tpu_torch.data.preprocess import BICUBIC, resize_uint8
+
+    def fn(arr):
+        return resize_uint8(arr, (size, size), BICUBIC).astype(np.float32) / 255.0
 
     return fn
 

@@ -43,6 +43,7 @@ from uniir_tpu_torch.retrieval.eval import run_retrieval
 from uniir_tpu_torch.retrieval.index import DenseIndex, create_index
 from uniir_tpu_torch.retrieval.search import search_dense_index
 from uniir_tpu_torch.train.steps import make_embed_step
+from tests.torch_helpers import on_array
 
 JAX_EXPT = "CLIP_SF/TinyJax/NoInstruct/InBatch/"
 # fp16 artifacts of fp32 towers that differ only in summation order
@@ -62,8 +63,8 @@ def _port_bundle(jax_bundle):
     model = CLIPScoreFusion(CLIP_CONFIGS["test-tiny"])
     model.load_state_dict(state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jax_bundle.params)))
     return ModelBundle(
-        "CLIPScoreFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
-        jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim,
+        "CLIPScoreFusion", model.eval(), jax_bundle.tokenizer, on_array(jax_bundle.img_preprocess_fn),
+        on_array(jax_bundle.img_preprocess_fn_eval), jax_bundle.image_size, jax_bundle.embed_dim,
     )
 
 
@@ -163,8 +164,8 @@ def test_port_blip_sf_pipeline_matches_jax(blip_trees, pool_dtype):
     root, jax_bundle = blip_trees
     model = BLIPScoreFusion(BLIP_VIT_CONFIGS["test-tiny"], MED_CONFIGS["test-tiny"], 16)
     model.load_state_dict(state_dict_from_jax(jax_bundle.params))
-    bundle = ModelBundle("BLIPScoreFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
-                         jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim)
+    bundle = ModelBundle("BLIPScoreFusion", model.eval(), jax_bundle.tokenizer, on_array(jax_bundle.img_preprocess_fn),
+                         on_array(jax_bundle.img_preprocess_fn_eval), jax_bundle.image_size, jax_bundle.embed_dim)
     expt = f"BLIP_SF/TinyTorch-{pool_dtype}/NoInstruct/InBatch/"
     config = _config(root, expt, pool_dtype)
     assert len(generate_embeds_for_config(bundle, config)) == 8
@@ -247,8 +248,8 @@ def test_port_clip_ff_pipeline_matches_jax(clip_ff_trees, pool_dtype):
     root, jax_bundle = clip_ff_trees
     model = CLIPFeatureFusion(CLIP_CONFIGS["test-tiny-ff"])
     model.load_state_dict(state_dict_from_jax(jax_bundle.params))
-    bundle = ModelBundle("CLIPFeatureFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
-                         jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim)
+    bundle = ModelBundle("CLIPFeatureFusion", model.eval(), jax_bundle.tokenizer, on_array(jax_bundle.img_preprocess_fn),
+                         on_array(jax_bundle.img_preprocess_fn_eval), jax_bundle.image_size, jax_bundle.embed_dim)
     expt = f"CLIP_FF/TinyTorch-{pool_dtype}/NoInstruct/InBatch/"
     _port_pipeline(root, bundle, expt, pool_dtype)
     _assert_same_artifacts(root, expt, CLIP_FF_JAX_EXPT)
@@ -292,8 +293,8 @@ def test_port_blip_ff_pipeline_matches_jax(blip_ff_trees, pool_dtype):
     root, jax_bundle = blip_ff_trees
     model = BLIPFeatureFusion(BLIP_VIT_CONFIGS["test-tiny"], MED_CONFIGS["test-tiny"])
     model.load_state_dict(state_dict_from_jax(jax_bundle.params))
-    bundle = ModelBundle("BLIPFeatureFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
-                         jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim)
+    bundle = ModelBundle("BLIPFeatureFusion", model.eval(), jax_bundle.tokenizer, on_array(jax_bundle.img_preprocess_fn),
+                         on_array(jax_bundle.img_preprocess_fn_eval), jax_bundle.image_size, jax_bundle.embed_dim)
     expt = f"BLIP_FF/TinyTorch-{pool_dtype}/NoInstruct/InBatch/"
     _port_pipeline(root, bundle, expt, pool_dtype)
     _assert_same_artifacts(root, expt, BLIP_FF_JAX_EXPT)

@@ -82,6 +82,7 @@ def trees(tmp_path_factory):
     import jax
 
     from tests.helpers import build_pipeline_tree, tiny_clip_bundle
+    from tests.torch_helpers import on_array
     from uniir_tpu.retrieval.embedder import generate_embeds_for_config as jax_embed
     from uniir_tpu.retrieval.eval import run_retrieval as jax_run_retrieval
     from uniir_tpu.retrieval.index import create_index as jax_create_index
@@ -99,8 +100,8 @@ def trees(tmp_path_factory):
     jax_bundle = tiny_clip_bundle()
     model = CLIPScoreFusion(CLIP_CONFIGS["test-tiny"])
     model.load_state_dict(state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jax_bundle.params)))
-    bundle = ModelBundle("CLIPScoreFusion", model.eval(), jax_bundle.tokenizer, jax_bundle.img_preprocess_fn,
-                         jax_bundle.img_preprocess_fn_eval, jax_bundle.image_size, jax_bundle.embed_dim)
+    bundle = ModelBundle("CLIPScoreFusion", model.eval(), jax_bundle.tokenizer, on_array(jax_bundle.img_preprocess_fn),
+                         on_array(jax_bundle.img_preprocess_fn_eval), jax_bundle.image_size, jax_bundle.embed_dim)
 
     jax_config, port_config = _config(root, JAX_EXPT), _config(root, PORT_EXPT)
     jax_embed(jax_bundle, jax_config)

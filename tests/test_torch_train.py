@@ -343,9 +343,10 @@ def _train_config(root, epochs, resume_from=""):
 
 def _bundle():
     from tests.helpers import identity_image_transform, simple_tokenizer
+    from tests.torch_helpers import on_array
 
     tok = simple_tokenizer(max_len=CFG.context_length, vocab_size=CFG.vocab_size)
-    img_fn = identity_image_transform(CFG.image_size)
+    img_fn = on_array(identity_image_transform(CFG.image_size))
     model = seeded_clip_sf_train(CFG, "cpu", seed=0, dtype=torch.float32)
     return ModelBundle("CLIPScoreFusion", model, tok, img_fn, img_fn, (CFG.image_size,) * 2, CFG.embed_dim)
 
@@ -717,10 +718,11 @@ def _ff_train_config(root, epochs, resume_from=""):
 
 def _ff_bundle():
     from tests.helpers import identity_image_transform, simple_tokenizer
+    from tests.torch_helpers import on_array
     from uniir_tpu_torch.models.registry import seeded_clip_ff_train
 
     tok = simple_tokenizer(max_len=FF_CFG.context_length, vocab_size=FF_CFG.vocab_size)
-    img_fn = identity_image_transform(FF_CFG.image_size)
+    img_fn = on_array(identity_image_transform(FF_CFG.image_size))
     model = seeded_clip_ff_train(FF_CFG, "cpu", seed=0, dtype=torch.float32)
     return ModelBundle("CLIPFeatureFusion", model, tok, img_fn, img_fn, (FF_CFG.image_size,) * 2, FF_CFG.embed_dim)
 

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels at first use and load them with ctypes.
+"""Build the port's CUDA kernels (and the host JPEG decoder, `csrc/jpeg.cu`)
+at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -30,8 +31,9 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C entry points of each library: name -> (argtypes); every one returns the
-# CUDA error code of its launch.
+_S = ctypes.c_size_t
+# C entry points of each library: name -> (argtypes); every kernel's returns the
+# CUDA error code of its launch, the JPEG decoder's 0 or 1 (with a message).
 SIGNATURES = {
     "attention": {
         "uniir_attention_fused_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
@@ -55,6 +57,10 @@ SIGNATURES = {
         "uniir_fused_preprocess": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F,
                                    _P),
         "uniir_fused_preprocess_dense": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P),
+    },
+    "jpeg": {
+        "uniir_jpeg_info": (_P, _S, _P, _P, _I),
+        "uniir_jpeg_decode": (_P, _S, _P, _I, _I, _P, _I),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -146,8 +152,9 @@ def load(name: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int
-    lib.uniir_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.uniir_cuda_error_string.restype = ctypes.c_char_p
+    if hasattr(lib, "uniir_cuda_error_string"):  # every library but the host-only JPEG decoder
+        lib.uniir_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.uniir_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib
     return lib
 

@@ -1,11 +1,10 @@
 """Hierarchical config with ``${a.b.c}`` interpolation (counterpart of uniir_tpu/core/config.py).
 
 Same surface and semantics as the JAX package's `Config`; the difference is
-that PyYAML is imported only inside `load_config` / `save_config` /
-`to_yaml`, so building a `Config` from a dict needs nothing beyond the
-standard library (the GPU host has no PyYAML).  The JAX module cannot be
-imported as it is: `uniir_tpu/core/__init__.py` pulls in jax and the module
-imports yaml at the top.
+that files are read and written by `core.yaml_subset`, not PyYAML, which
+the GPU host does not have.  The JAX module cannot be imported as it is:
+`uniir_tpu/core/__init__.py` pulls in jax and the module imports yaml at
+the top.
 """
 
 from __future__ import annotations
@@ -13,6 +12,8 @@ from __future__ import annotations
 import copy
 import re
 from typing import Any
+
+from uniir_tpu_torch.core import yaml_subset
 
 _INTERP_RE = re.compile(r"\$\{([^}]+)\}")
 
@@ -136,18 +137,12 @@ class Config:
         return out
 
     def to_yaml(self, resolve: bool = False) -> str:
-        import yaml
-
-        return yaml.safe_dump(self.to_dict(resolve=resolve), sort_keys=False)
+        return yaml_subset.dumps(self.to_dict(resolve=resolve))
 
 
 def load_config(path: str) -> Config:
     """Load a YAML file into a Config."""
-    import yaml
-
-    with open(path, "r") as f:
-        data = yaml.safe_load(f)
-    return Config.from_dict(data or {})
+    return Config.from_dict(yaml_subset.load(path) or {})
 
 
 def save_config(cfg: Config, path: str) -> None:

@@ -30,3 +30,9 @@ def resolve_device(device=None) -> torch.device:
             "name the device explicitly to share one"
         )
     return torch.device("cuda", index)
+
+
+def module_device(module) -> torch.device:
+    """The device a model's parameters are on: the run's device where a
+    model is built (the datasets decode images for it)."""
+    return next(module.parameters()).device

@@ -16,8 +16,9 @@ class DatasetType(Enum):
     CAND = "cand"
 
 
-def build_mbeir_dataset_from_config(config, tokenizer, img_preprocess_fn, dataset_type: DatasetType):
-    """Build (dataset, collator) for a DatasetType (reference :20-66)."""
+def build_mbeir_dataset_from_config(config, tokenizer, img_preprocess_fn, dataset_type: DatasetType, device=None):
+    """Build (dataset, collator) for a DatasetType (reference :20-66);
+    `device` is the run's (it picks the JPEG decoder)."""
     data_config = config.data_config
     image_size = parse_image_size(data_config.image_size)
     mbeir_data_dir = config.mbeir_data_dir
@@ -38,6 +39,7 @@ def build_mbeir_dataset_from_config(config, tokenizer, img_preprocess_fn, datase
             shuffle_cand=data_config.shuffle_cand,
             hard_neg_num=hard_neg_num,
             returns={"hashed_p_did": True, "hashed_n_dids": hard_neg_num > 0, **returns},
+            device=device,
         )
         collator = MBEIRMainCollator(
             tokenizer=tokenizer, image_size=image_size, mode=Mode.TRAIN, hard_neg_num=hard_neg_num
@@ -54,6 +56,7 @@ def build_mbeir_dataset_from_config(config, tokenizer, img_preprocess_fn, datase
             shuffle_cand=data_config.shuffle_cand,
             hard_neg_num=hard_neg_num,
             returns={"hashed_p_did": True, "hashed_n_dids": hard_neg_num > 0, **returns},
+            device=device,
         )
         collator = MBEIRMainCollator(
             tokenizer=tokenizer, image_size=image_size, mode=Mode.TRAIN, hard_neg_num=hard_neg_num
@@ -64,6 +67,7 @@ def build_mbeir_dataset_from_config(config, tokenizer, img_preprocess_fn, datase
             cand_pool_data_path=data_config.cand_pool_path,
             img_preprocess_fn=img_preprocess_fn,
             returns=returns,
+            device=device,
         )
         collator = MBEIRCandidatePoolCollator(tokenizer=tokenizer, image_size=image_size)
     else:

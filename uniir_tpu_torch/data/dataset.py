@@ -1,6 +1,8 @@
 """M-BEIR datasets (host-side, framework-free): the port's copy of
 uniir_tpu/data/dataset.py, held equal to it by tests/test_torch_data.py.
-Pillow is imported where an image is opened, not with the module.
+An image file is decoded by `data.jpeg` (no Pillow) into a uint8 HWC array,
+by the decoder of the run's `device` (the native one on the card's host,
+the twin on a CPU run), and that array goes to `img_preprocess_fn`.
 
 Re-implements the behavioral contract of the reference datasets
 (reference src/data/mbeir_dataset.py:32-411) without torch: items are plain
@@ -27,6 +29,8 @@ from enum import Enum
 from typing import Any, Callable, List, Optional
 
 import numpy as np
+from uniir_tpu_torch.core.device import resolve_device
+from uniir_tpu_torch.data import jpeg
 from uniir_tpu_torch.data.registry import (
     format_string,
     get_mbeir_task_id,
@@ -64,9 +68,12 @@ def save_jsonl(entries: list, path: str) -> None:
 
 
 class MBEIRDatasetBase:
-    def __init__(self, mbeir_data_dir: str, img_preprocess_fn: Optional[Callable]):
+    def __init__(self, mbeir_data_dir: str, img_preprocess_fn: Optional[Callable], device=None):
+        """`device`: the run's device, which picks the JPEG decoder (None: the
+        card, as `core.device.resolve_device` says, read at the first image)."""
         self.mbeir_data_dir = mbeir_data_dir
         self.img_preprocess_fn = img_preprocess_fn or (lambda x: x)
+        self.device = device
         self.query_instructions = {}
         self.rng = random.Random()
 
@@ -108,10 +115,7 @@ class MBEIRDatasetBase:
             return None
         full = os.path.join(self.mbeir_data_dir, img_path)
         assert os.path.exists(full), f"Image Path {full} does not exist"
-        from PIL import Image
-
-        image = Image.open(full).convert("RGB")
-        return self.img_preprocess_fn(image)
+        return self.img_preprocess_fn(jpeg.read_image(full, resolve_device(self.device)))
 
     def _get_random_query_prompt(self, dataset_id, query_modality, cand_modality) -> str:
         key = f"{dataset_id}, {query_modality}, {cand_modality}"
@@ -141,8 +145,9 @@ class MBEIRMainDataset(MBEIRDatasetBase):
         hard_neg_num: int = 0,
         returns: Optional[dict] = None,
         print_config: bool = False,
+        device=None,
     ):
-        super().__init__(mbeir_data_dir, img_preprocess_fn)
+        super().__init__(mbeir_data_dir, img_preprocess_fn, device)
         self._load_query_data(query_data_path)
         self._load_cand_pool_as_dict(cand_pool_path)
         self._load_query_instructions(query_instruct_path)
@@ -261,8 +266,9 @@ class MBEIRInferenceOnlyDataset(MBEIRDatasetBase):
         img_preprocess_fn: Optional[Callable],
         enable_query_instruct: bool = True,
         returns: Optional[dict] = None,
+        device=None,
     ):
-        super().__init__(mbeir_data_dir, img_preprocess_fn)
+        super().__init__(mbeir_data_dir, img_preprocess_fn, device)
         self.query_data = queries
         self._load_query_instructions(query_instruct_path)
         self.enable_query_instruct = enable_query_instruct
@@ -307,8 +313,9 @@ class MBEIRCandidatePoolDataset(MBEIRDatasetBase):
         cand_pool_data_path: str,
         img_preprocess_fn: Optional[Callable],
         returns: Optional[dict] = None,
+        device=None,
     ):
-        super().__init__(mbeir_data_dir, img_preprocess_fn)
+        super().__init__(mbeir_data_dir, img_preprocess_fn, device)
         self._load_cand_pool(cand_pool_data_path)
         returns = {} if returns is None else dict(returns)
         self.returns = {"src_content": False, "hashed_did": True, **returns}

@@ -1,0 +1,511 @@
+"""Baseline-JPEG decoding with Pillow's pixels, without Pillow.
+
+M-BEIR stores every image as a baseline JPEG that Pillow wrote at its
+defaults, and the JAX package reads them with `PIL.Image.open(path).
+convert("RGB")`, which runs libjpeg-turbo at its defaults.  This module
+gives the same uint8 [H, W, 3] array, bit for bit:
+
+  * `jidctint.c`'s integer IDCT (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2,
+    the 10-bit range-limit table);
+  * fancy upsampling (`jdsample.c`: the triangle filters
+    `h2v1_fancy_upsample`, `h1v2_fancy_upsample`, `h2v2_fancy_upsample` with
+    their alternating rounding bias, edges replicated; box replication where
+    a 2x-wide component is at most 2 samples wide, as libjpeg-turbo does);
+  * `jdcolor.c`'s fixed-point YCbCr -> RGB tables;
+  * a greyscale file copied into three channels; no EXIF rotation.
+
+Accepted: SOF0 at 8 bits, 1 or 3 components (YCbCr), each component's
+sampling 1 or 2 times finer in each direction than the largest (4:4:4,
+4:2:2, 4:4:0, 4:2:0), any DQT / DHT tables, DRI with RSTn markers, APPn and
+COM segments skipped, several scans.  Anything else -- SOF1/2/3 and the
+arithmetic-coded frames, 4 components, an Adobe or RGB colour transform,
+12-bit samples, a truncated or corrupt stream -- raises ValueError naming
+the file and the marker.
+
+Two decoders compute that function: `decode_twin`, plain Python for the
+markers and Huffman decoding and numpy over all blocks at once for the rest
+(the same integer arithmetic), and `decode_native`, host C++ in
+`csrc/jpeg.cu` built by `_build` like the kernels and called through ctypes
+(which releases the GIL, so the loader's threads decode in parallel).
+`decoder_for(device)` picks one by the run's device: the card's host runs
+the native decoder, a CPU run the twin; a native library that does not
+build or load raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Callable
+
+import numpy as np
+
+# natural-order index of each zigzag position
+ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21,
+    28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61,
+    54, 47, 55, 62, 63,
+], np.int64)
+
+_SOF_NAMES = {
+    0xC1: "SOF1 (extended sequential)", 0xC2: "SOF2 (progressive)", 0xC3: "SOF3 (lossless)",
+    0xC5: "SOF5 (differential sequential)", 0xC6: "SOF6 (differential progressive)", 0xC7: "SOF7 (differential lossless)",
+    0xC9: "SOF9 (arithmetic sequential)", 0xCA: "SOF10 (arithmetic progressive)", 0xCB: "SOF11 (arithmetic lossless)",
+    0xCD: "SOF13 (arithmetic differential sequential)", 0xCE: "SOF14 (arithmetic differential progressive)",
+    0xCF: "SOF15 (arithmetic differential lossless)", 0xCC: "DAC (arithmetic coding)", 0xC8: "JPG",
+    0xDC: "DNL",
+}
+
+
+class _Frame:
+    """What the markers say: size, components, tables, restart interval, and
+    each scan's entropy-coded bytes."""
+
+    def __init__(self):
+        self.width = self.height = 0
+        self.components = []  # [id, h, v, quant table id]
+        self.qt = {}
+        self.huff = {}  # (class, id) -> lookup list
+        self.restart = 0
+        self.scans = []  # (component indices, dc table ids, ac table ids, restart, segment bytes)
+        self.jfif = False
+        self.adobe_transform = None
+
+
+def _huffman_lut(counts: bytes, symbols: bytes, where: str) -> list:
+    """65536 entries: (code length << 8) | symbol for every 16-bit window
+    that starts with a code of the table; 0 where none does."""
+    lut = [0] * 65536
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(counts[length - 1]):
+            if code >= (1 << length):
+                raise ValueError(f"{where}: bad Huffman table (DHT)")
+            lo, hi = code << (16 - length), (code + 1) << (16 - length)
+            lut[lo:hi] = [(length << 8) | symbols[k]] * (hi - lo)
+            code += 1
+            k += 1
+        code <<= 1
+    return lut
+
+
+def _unstuff(data: bytes, start: int, name: str):
+    """The entropy-coded bytes from `start` up to the next marker other than
+    RSTn, split at RSTn markers, with 0xFF00 turned into 0xFF; and the
+    offset of that marker."""
+    segments, chunk, i, n = [], bytearray(), start, len(data)
+    while True:
+        j = data.find(b"\xff", i)
+        if j < 0 or j + 1 >= n:
+            raise ValueError(f"{name}: truncated JPEG stream (no marker after the scan)")
+        chunk += data[i:j]
+        nxt = data[j + 1]
+        if nxt == 0x00:
+            chunk.append(0xFF)
+            i = j + 2
+        elif nxt == 0xFF:  # fill byte before a marker
+            i = j + 1
+        elif 0xD0 <= nxt <= 0xD7:
+            segments.append(bytes(chunk))
+            chunk = bytearray()
+            i = j + 2
+        else:
+            segments.append(bytes(chunk))
+            return segments, j
+
+
+def parse(data: bytes, name: str = "<bytes>") -> _Frame:
+    """The frame of a baseline JPEG; ValueError for anything outside the
+    accepted forms (module docstring)."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
+    frame, i, n = _Frame(), 2, len(data)
+    while True:
+        while i < n and data[i] == 0xFF and i + 1 < n and data[i + 1] == 0xFF:
+            i += 1
+        if i + 1 >= n:
+            raise ValueError(f"{name}: truncated JPEG stream (no EOI marker)")
+        if data[i] != 0xFF:
+            raise ValueError(f"{name}: corrupt JPEG stream (expected a marker at byte {i})")
+        marker = data[i + 1]
+        if marker == 0xD9:
+            break
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            i += 2
+            continue
+        if i + 4 > n:
+            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
+        length = (data[i + 2] << 8) | data[i + 3]
+        seg = data[i + 4 : i + 2 + length]
+        if length < 2 or len(seg) != length - 2:
+            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
+        where = f"{name}: marker 0xFF{marker:02X}"
+        if marker in _SOF_NAMES:
+            raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (baseline SOF0 only)")
+        if marker == 0xC0:
+            if frame.components:
+                raise ValueError(f"{where}: a second frame header")
+            if len(seg) < 6:
+                raise ValueError(f"{where}: truncated frame header")
+            precision, frame.height, frame.width, nc = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
+            if precision != 8:
+                raise ValueError(f"{where}: {precision}-bit samples are not supported (8 only)")
+            if nc not in (1, 3):
+                raise ValueError(f"{where}: {nc} components are not supported (1 or 3)")
+            if frame.height == 0 or frame.width == 0:
+                raise ValueError(f"{where}: image size {frame.width} x {frame.height} (DNL is not supported)")
+            if len(seg) != 6 + 3 * nc:
+                raise ValueError(f"{where}: bad frame header length")
+            for c in range(nc):
+                cid, hv, tq = seg[6 + 3 * c], seg[7 + 3 * c], seg[8 + 3 * c]
+                h, v = hv >> 4, hv & 15
+                if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+                    raise ValueError(f"{where}: bad sampling factors or table id")
+                frame.components.append([cid, h, v, tq])
+            hmax = max(c[1] for c in frame.components)
+            vmax = max(c[2] for c in frame.components)
+            for cid, h, v, _ in frame.components:
+                if hmax // h not in (1, 2) or vmax // v not in (1, 2) or hmax % h or vmax % v:
+                    raise ValueError(f"{where}: sampling {h}x{v} against {hmax}x{vmax} is not supported")
+        elif marker == 0xDB:
+            k = 0
+            while k < len(seg):
+                pq, tq = seg[k] >> 4, seg[k] & 15
+                size = 128 if pq else 64
+                if pq > 1 or tq > 3 or k + 1 + size > len(seg):
+                    raise ValueError(f"{where}: bad quantisation table")
+                raw = np.frombuffer(seg[k + 1 : k + 1 + size], ">u2" if pq else np.uint8).astype(np.int64)
+                table = np.zeros(64, np.int64)
+                table[ZIGZAG] = raw
+                frame.qt[tq] = table
+                k += 1 + size
+        elif marker == 0xC4:
+            k = 0
+            while k < len(seg):
+                if k + 17 > len(seg):
+                    raise ValueError(f"{where}: bad Huffman table")
+                tc, th = seg[k] >> 4, seg[k] & 15
+                counts = seg[k + 1 : k + 17]
+                total = sum(counts)
+                if tc > 1 or th > 3 or total > 256 or k + 17 + total > len(seg):
+                    raise ValueError(f"{where}: bad Huffman table")
+                frame.huff[(tc, th)] = _huffman_lut(counts, seg[k + 17 : k + 17 + total], where)
+                k += 17 + total
+        elif marker == 0xDD:
+            if len(seg) != 2:
+                raise ValueError(f"{where}: bad restart interval")
+            frame.restart = (seg[0] << 8) | seg[1]
+        elif marker == 0xDA:
+            if not frame.components:
+                raise ValueError(f"{where}: a scan before the frame header")
+            ns = seg[0] if seg else 0
+            if not 1 <= ns <= len(frame.components) or len(seg) != 4 + 2 * ns:
+                raise ValueError(f"{where}: bad scan header")
+            ids = [c[0] for c in frame.components]
+            comps, dc, ac = [], [], []
+            for s in range(ns):
+                cid, t = seg[1 + 2 * s], seg[2 + 2 * s]
+                if cid not in ids:
+                    raise ValueError(f"{where}: scan names an unknown component {cid}")
+                comps.append(ids.index(cid))
+                dc.append(t >> 4)
+                ac.append(t & 15)
+            ss, se, ahl = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
+            if (ss, se, ahl) != (0, 63, 0):
+                raise ValueError(f"{where}: spectral selection {ss}..{se} / approximation {ahl} is not baseline")
+            for t in dc:
+                if (0, t) not in frame.huff:
+                    raise ValueError(f"{where}: scan uses an undefined DC Huffman table {t}")
+            for t in ac:
+                if (1, t) not in frame.huff:
+                    raise ValueError(f"{where}: scan uses an undefined AC Huffman table {t}")
+            segments, i = _unstuff(data, i + 2 + length, name)
+            frame.scans.append((comps, dc, ac, frame.restart, segments))
+            continue
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
+            frame.jfif = True
+        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+            frame.adobe_transform = seg[11]
+        elif not (0xE0 <= marker <= 0xEF or marker == 0xFE):
+            raise ValueError(f"{where}: unexpected marker")
+        i += 2 + length
+    if not frame.components or not frame.scans:
+        raise ValueError(f"{name}: no frame or no scan before EOI")
+    if len(frame.components) == 3:
+        ids = tuple(c[0] for c in frame.components)
+        if frame.adobe_transform == 0 or (not frame.jfif and frame.adobe_transform is None and ids == (82, 71, 66)):
+            raise ValueError(f"{name}: marker 0xFFEE / component ids: RGB colour (no YCbCr transform) is not supported")
+    for c in frame.components:
+        if c[3] not in frame.qt:
+            raise ValueError(f"{name}: marker 0xFFC0: component uses an undefined quantisation table {c[3]}")
+    return frame
+
+
+def _geometry(frame: _Frame):
+    """Per component: (sampled width, sampled height, block columns, block
+    rows) of its padded grid, and the MCU grid."""
+    hmax = max(c[1] for c in frame.components)
+    vmax = max(c[2] for c in frame.components)
+    mcux, mcuy = -(-frame.width // (8 * hmax)), -(-frame.height // (8 * vmax))
+    geo = []
+    for _, h, v, _ in frame.components:
+        cw, ch = -(-frame.width * h // hmax), -(-frame.height * v // vmax)
+        geo.append((cw, ch, mcux * h, mcuy * v))
+    return geo, mcux, mcuy
+
+
+def _decode_coefficients(frame: _Frame, name: str) -> list:
+    """Each component's quantised coefficients, [block rows, block columns,
+    64] int64 in natural order."""
+    geo, mcux, mcuy = _geometry(frame)
+    coefs = [np.zeros((g[3], g[2], 64), np.int64) for g in geo]
+    for comps, dc_ids, ac_ids, restart, segments in frame.scans:
+        tables = {c: (frame.huff[(0, d)], frame.huff[(1, a)]) for c, d, a in zip(comps, dc_ids, ac_ids)}
+        if len(comps) == 1:  # non-interleaved: one block an MCU, over the component's own blocks
+            c = comps[0]
+            positions = [(r, q) for r in range(-(-geo[c][1] // 8)) for q in range(-(-geo[c][0] // 8))]
+            layout = [(c, 1, 1, 0, 0)]
+        else:  # interleaved: each component's h x v blocks an MCU
+            positions = [(r, q) for r in range(mcuy) for q in range(mcux)]
+            layout = [(c, h, v, y, x) for c in comps for h, v in [frame.components[c][1:3]]
+                      for y in range(v) for x in range(h)]
+        steps = [(c, *tables[c], coefs[c].reshape(-1, 64), coefs[c].shape[1], h, v, y, x) for c, h, v, y, x in layout]
+        interval = restart or len(positions)
+        n_intervals = -(-len(positions) // interval)
+        if len(segments) < n_intervals:
+            raise ValueError(f"{name}: marker 0xFFDA: corrupt or truncated scan (expected {n_intervals} restart "
+                             f"intervals, found {len(segments)})")
+        for k in range(n_intervals):
+            buf = segments[k] + b"\x00\x00\x00\x00\x00"
+            nbits = 8 * len(segments[k])
+            pos = 0
+            pred = dict.fromkeys(comps, 0)
+            for r, q in positions[k * interval : (k + 1) * interval]:
+                for c, dc_lut, ac_lut, grid, gw, h, v, y, x in steps:
+                    row = grid[(r * v + y) * gw + q * h + x]
+                    # DC
+                    b = pos >> 3
+                    window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
+                    e = dc_lut[window >> 16]
+                    if not e:
+                        raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
+                    length, s = e >> 8, e & 0xFF
+                    if s > 11:
+                        raise ValueError(f"{name}: marker 0xFFDA: corrupt DC difference")
+                    diff = 0
+                    if s:
+                        diff = (window >> (32 - length - s)) & ((1 << s) - 1)
+                        if diff < (1 << (s - 1)):
+                            diff += 1 - (1 << s)
+                    pos += length + s
+                    pred[c] += diff
+                    row[0] = ((pred[c] + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
+                    # AC
+                    kk = 1
+                    while kk < 64:
+                        b = pos >> 3
+                        window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
+                        e = ac_lut[window >> 16]
+                        if not e:
+                            raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
+                        length, rs = e >> 8, e & 0xFF
+                        run, s = rs >> 4, rs & 15
+                        if s:
+                            kk += run
+                            if kk > 63:
+                                raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
+                            val = (window >> (32 - length - s)) & ((1 << s) - 1)
+                            if val < (1 << (s - 1)):
+                                val += 1 - (1 << s)
+                            row[ZIGZAG_LIST[kk]] = val
+                            pos += length + s
+                            kk += 1
+                        else:
+                            pos += length
+                            if run != 15:
+                                break
+                            kk += 16
+                    if pos > nbits:
+                        raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream")
+    return coefs
+
+
+ZIGZAG_LIST = ZIGZAG.tolist()
+
+# jidctint.c constants (CONST_BITS 13)
+_F = {
+    "0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270, "0_899976223": 7373,
+    "1_175875602": 9633, "1_501321110": 12299, "1_847759065": 15137, "1_961570560": 16069, "2_053119869": 16819,
+    "2_562915447": 20995, "3_072711026": 25172,
+}
+CONST_BITS, PASS1_BITS = 13, 2
+
+
+def _idct_pass(x0, x1, x2, x3, x4, x5, x6, x7, shift: int):
+    """One pass of jpeg_idct_islow over the 8 inputs of every row (arrays),
+    each output DESCALEd by `shift`."""
+    z1 = (x2 + x6) * _F["0_541196100"]
+    tmp2 = z1 + x6 * -_F["1_847759065"]
+    tmp3 = z1 + x2 * _F["0_765366865"]
+    tmp0 = (x0 + x4) << CONST_BITS
+    tmp1 = (x0 - x4) << CONST_BITS
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+
+    t0, t1, t2, t3 = x7, x5, x3, x1
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * _F["1_175875602"]
+    t0 = t0 * _F["0_298631336"]
+    t1 = t1 * _F["2_053119869"]
+    t2 = t2 * _F["3_072711026"]
+    t3 = t3 * _F["1_501321110"]
+    z1 = z1 * -_F["0_899976223"]
+    z2 = z2 * -_F["2_562915447"]
+    z3 = z3 * -_F["1_961570560"] + z5
+    z4 = z4 * -_F["0_390180644"] + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    half = 1 << (shift - 1)
+    return [(v + half) >> shift for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                                            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+
+
+def idct_islow(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """uint8 [N, 8, 8] of jpeg_idct_islow over N blocks of quantised
+    coefficients [N, 64] (natural order) and their table [64]."""
+    d = (coef * qt).reshape(-1, 8, 8)  # [block, row v, column u]
+    # pass 1: columns (inputs along v), kept as int ("wsptr")
+    cols = _idct_pass(*[d[:, k, :] for k in range(8)], CONST_BITS - PASS1_BITS)
+    ws = np.stack(cols, axis=1)  # [block, y, u]
+    rows = _idct_pass(*[ws[:, :, k] for k in range(8)], CONST_BITS + PASS1_BITS + 3)
+    x = np.stack(rows, axis=2)  # [block, y, x]
+    # range_limit[x & RANGE_MASK]: x read as a 10-bit signed value, + 128, clamped
+    return np.clip(((x + 512) & 1023) - 512 + 128, 0, 255).astype(np.uint8)
+
+
+def _plane(frame: _Frame, coefs: list, c: int, geo) -> np.ndarray:
+    """Component c's samples, cropped to its sampled size, int32."""
+    blocks = coefs[c]
+    bh, bw = blocks.shape[:2]
+    cw, ch = geo[c][0], geo[c][1]
+    # decode only the blocks that hold samples (the rest are MCU padding)
+    nbw, nbh = -(-cw // 8), -(-ch // 8)
+    px = idct_islow(blocks[:nbh, :nbw].reshape(-1, 64), frame.qt[frame.components[c][3]])
+    px = px.reshape(nbh, nbw, 8, 8).transpose(0, 2, 1, 3).reshape(nbh * 8, nbw * 8)
+    return px[:ch, :cw].astype(np.int32)
+
+
+def _fancy_h(p: np.ndarray) -> np.ndarray:
+    """h2v1_fancy_upsample along the last axis: 3/4 nearer + 1/4 further,
+    biases 1 (left output) and 2 (right output), edges replicated."""
+    left = np.concatenate([p[..., :1], p[..., :-1]], axis=-1)
+    right = np.concatenate([p[..., 1:], p[..., -1:]], axis=-1)
+    out = np.empty(p.shape[:-1] + (2 * p.shape[-1],), np.int32)
+    out[..., 0::2] = (3 * p + left + 1) >> 2
+    out[..., 1::2] = (3 * p + right + 2) >> 2
+    return out
+
+
+def _upsample(p: np.ndarray, fx: int, fy: int) -> np.ndarray:
+    """libjpeg-turbo's upsampling of one component by (fx, fy) in {1, 2}."""
+    if fx == 1 and fy == 1:
+        return p
+    above = np.concatenate([p[:1], p[:-1]], axis=0)
+    below = np.concatenate([p[1:], p[-1:]], axis=0)
+    if fy == 1:  # h2v1
+        return _fancy_h(p) if p.shape[1] > 2 else np.repeat(p, 2, axis=1)
+    if fx == 1:  # h1v2 (always fancy)
+        out = np.empty((2 * p.shape[0], p.shape[1]), np.int32)
+        out[0::2] = (3 * p + above + 1) >> 2
+        out[1::2] = (3 * p + below + 2) >> 2
+        return out
+    if p.shape[1] <= 2:  # h2v2 box
+        return np.repeat(np.repeat(p, 2, axis=0), 2, axis=1)
+    out = np.empty((2 * p.shape[0], 2 * p.shape[1]), np.int32)
+    for r0, near in ((0, above), (1, below)):
+        s = 3 * p + near  # column sums with the nearer row weighted 3
+        last = np.concatenate([s[:, :1], s[:, :-1]], axis=1)
+        nxt = np.concatenate([s[:, 1:], s[:, -1:]], axis=1)
+        out[r0::2, 0::2] = (3 * s + last + 8) >> 4
+        out[r0::2, 1::2] = (3 * s + nxt + 7) >> 4
+    return out
+
+
+def _ycc_tables():
+    """jdcolor.c build_ycc_rgb_table (SCALEBITS 16)."""
+    x = np.arange(256, dtype=np.int64) - 128
+    one_half = 1 << 15
+
+    def fix(v):
+        return int(v * (1 << 16) + 0.5)
+
+    cr_r = (fix(1.40200) * x + one_half) >> 16
+    cb_b = (fix(1.77200) * x + one_half) >> 16
+    cr_g = -fix(0.71414) * x
+    cb_g = -fix(0.34414) * x + one_half
+    return cr_r, cb_b, cr_g, cb_g
+
+
+_CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
+
+
+def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a baseline JPEG."""
+    frame = parse(bytes(data), name)
+    coefs = _decode_coefficients(frame, name)
+    geo, _, _ = _geometry(frame)
+    hmax = max(c[1] for c in frame.components)
+    vmax = max(c[2] for c in frame.components)
+    planes = []
+    for c, (_, h, v, _) in enumerate(frame.components):
+        p = _upsample(_plane(frame, coefs, c, geo), hmax // h, vmax // v)
+        planes.append(p[: frame.height, : frame.width])
+    if len(planes) == 1:
+        g = planes[0].astype(np.uint8)
+        return np.repeat(g[:, :, None], 3, axis=2)
+    y, cb, cr = (p.astype(np.int64) for p in planes)
+    r = y + _CR_R[cr]
+    g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
+    b = y + _CB_B[cb]
+    return np.clip(np.stack([r, g, b], axis=2), 0, 255).astype(np.uint8)
+
+
+# --- the native decoder --------------------------------------------------------
+
+
+def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """`decode_twin` through csrc/jpeg.cu's host decoder (built on first use)."""
+    from uniir_tpu_torch import _build
+
+    lib = _build.load("jpeg")
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    size = (ctypes.c_int * 2)()
+    if lib.uniir_jpeg_info(data, len(data), size, err, len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    out = np.empty((size[1], size[0], 3), np.uint8)
+    if lib.uniir_jpeg_decode(data, len(data), out.ctypes.data, size[0], size[1], err, len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    with _calls_lock:
+        decode_native.calls += 1
+    return out
+
+
+decode_native.calls = 0  # decodes that went through the native library (read by chip_smoke.py)
+_calls_lock = threading.Lock()  # the loader's threads decode at once
+
+
+def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
+    """The decoder a run on `device` uses: the native one on a CUDA run's
+    host, the twin on a CPU run."""
+    import torch
+
+    return decode_native if torch.device(device).type == "cuda" else decode_twin
+
+
+def read_image(path: str, device) -> np.ndarray:
+    """uint8 [H, W, 3] of the JPEG file at `path`, decoded as a run on `device` decodes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return decoder_for(device)(data, path)

@@ -10,8 +10,9 @@ tests/test_torch_data.py.
     ContiguousDistributedSampler, src/common/dist_utils.py:94-115).
   * `MBEIRLoader`          -- map-style loader with a thread pool decoding
     images ahead of the train step (replaces DataLoader(num_workers=5,
-    pin_memory=True)).  Threads (not processes) because the work is
-    PIL/numpy which releases the GIL during decode/resize.
+    pin_memory=True)).  Threads (not processes) because on the card's
+    host the decode is native code called through ctypes, which releases
+    the GIL (`data.jpeg`).
 
 Batches are dicts of numpy arrays; the step moves them to the device.
 """

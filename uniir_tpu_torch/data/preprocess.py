@@ -1,8 +1,15 @@
-"""Host-side image preprocessing (PIL/numpy): the port's copy of
-uniir_tpu/data/preprocess.py, held equal to it by tests/test_torch_data.py.
+"""Host-side image preprocessing on uint8 HWC arrays: the port's copy of
+uniir_tpu/data/preprocess.py, held equal to it by tests/test_torch_data.py
+and tests/test_torch_preprocess.py.
 
-Pillow is imported inside the functions that touch an image, never when the
-module is imported: a serving host without Pillow still imports the port.
+The eval transforms take the decoded array (`data.jpeg`) and need no
+Pillow: `resize_uint8` is Pillow's `Image.resize` on an RGB image, bit for
+bit (`ImagingResample`'s 8-bit path: the filter's support widened by the
+downscale factor, bicubic a = -0.5, coefficients normalised and made
+fixed-point with PRECISION_BITS = 22, rounded half away from zero, the
+accumulator started at 1 << 21, the horizontal pass over only the rows the
+vertical one reads, then the vertical, each clipped to 0..255), and
+`center_crop` is Pillow's `crop` box.
 
 Produces HWC float32 numpy arrays (NHWC batches) with CLIP normalization
 statistics.  Mirrors:
@@ -12,6 +19,10 @@ statistics.  Mirrors:
     HFlip + RandAugment(2 ops, magnitude 5) + normalize
     (reference src/models/uniir_blip/backbone/transform/blip_transform.py:8-49)
   * RandAugment 10-op palette (reference .../transform/randaugment.py)
+
+The train-only transforms (`random_resized_crop`, the flip and RandAugment)
+still run on Pillow: `_pil` imports it for them, and raises an ImportError
+naming the transform where Pillow is missing.
 
 These host transforms can emit either the fully normalized float image or
 a raw uint8 resize for a device-side preprocessing path.
@@ -29,37 +40,142 @@ CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 
 BICUBIC, BILINEAR = 3, 2  # PIL.Image.Resampling values
 AFFINE, FLIP_LEFT_RIGHT = 0, 0  # PIL.Image.Transform.AFFINE, PIL.Image.Transpose.FLIP_LEFT_RIGHT
+PRECISION_BITS = 22  # Pillow's Resample.c: 32 - 8 - 2
 
 
-def to_normalized_array(img) -> np.ndarray:
-    """PIL -> float32 HWC in CLIP-normalized space."""
-    arr = np.asarray(img, dtype=np.float32) / 255.0
+def _pil(transform: str):
+    """(Image, ImageEnhance, ImageOps) for a train-only transform that still
+    runs on Pillow."""
+    try:
+        from PIL import Image, ImageEnhance, ImageOps
+    except ImportError as e:
+        raise ImportError(f"the train-only transform {transform} still runs on Pillow, which is not installed "
+                          "(the eval transforms need none)") from e
+    return Image, ImageEnhance, ImageOps
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    a = -0.5
+    x = np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _bilinear(x: np.ndarray) -> np.ndarray:
+    x = np.abs(x)
+    return np.where(x < 1.0, 1.0 - x, 0.0)
+
+
+_FILTERS = {BICUBIC: (_bicubic, 2.0), BILINEAR: (_bilinear, 1.0)}
+
+
+def _coefficients(in_size: int, in0, in1, out_size: int, resample: int):
+    """Pillow's precompute_coeffs + normalize_coeffs_8bpc: (first source
+    index [out], tap count [out], fixed-point weights [out, ksize])."""
+    fn, support = _FILTERS[resample]
+    in0, in1 = np.float32(in0), np.float32(in1)
+    filterscale = scale = float(in1 - in0) / out_size  # float subtraction, then double, as in C
+    filterscale = max(filterscale, 1.0)
+    support = support * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = float(in0) + (np.arange(out_size) + 0.5) * scale
+    ss = 1.0 / filterscale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    weights = np.zeros((out_size, ksize))
+    ww = np.zeros(out_size)
+    for x in range(ksize):  # summed in C's order, tap by tap
+        w = np.where(x < xmax, fn(((x + xmin) - center + 0.5) * ss), 0.0)
+        weights[:, x] = w
+        ww = ww + w
+    weights = np.where(ww[:, None] != 0.0, weights / np.where(ww == 0.0, 1.0, ww)[:, None], weights)
+    scaled = weights * (1 << PRECISION_BITS)
+    fixed = np.where(weights < 0, np.trunc(-0.5 + scaled), np.trunc(0.5 + scaled)).astype(np.int64)
+    return xmin, xmax, fixed
+
+
+def _resample_rows(src: np.ndarray, xmin, xmax, fixed) -> np.ndarray:
+    """One 8-bit pass along axis 0 of uint8 `src` (rows gathered whole, so
+    each tap is a few contiguous copies): int32 sums, as Pillow's."""
+    n = src.shape[0]
+    src = src.astype(np.int32)
+    acc = np.full((len(xmin),) + src.shape[1:], 1 << (PRECISION_BITS - 1), np.int32)
+    tap = np.empty_like(acc)
+    shape = (-1,) + (1,) * (src.ndim - 1)
+    for x in range(fixed.shape[1]):
+        live = x < xmax  # taps past an output's window carry weight 0
+        if not live.any():
+            break
+        np.take(src, np.minimum(xmin + x, n - 1), axis=0, out=tap)
+        tap *= np.where(live, fixed[:, x], 0).astype(np.int32).reshape(shape)
+        acc += tap
+    return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_uint8(arr: np.ndarray, size, resample: int = BICUBIC, box=None) -> np.ndarray:
+    """`Image.fromarray(arr).resize(size, resample, box)` for uint8 [H, W, 3]
+    (`size` is (width, height), `box` (left, upper, right, lower))."""
+    h, w = arr.shape[:2]
+    out_w, out_h = int(size[0]), int(size[1])
+    box = (0, 0, w, h) if box is None else tuple(box)
+    if out_w < 1 or out_h < 1:
+        raise ValueError(f"resize to {out_w} x {out_h}: sizes must be positive")
+    if box[0] < 0 or box[1] < 0 or box[2] > w or box[3] > h or box[2] - box[0] < 0 or box[3] - box[1] < 0:
+        raise ValueError(f"box {box} does not fit a {w} x {h} image")
+    if (out_w, out_h) == (w, h) and box == (0, 0, w, h):
+        return arr.copy()
+    if resample not in _FILTERS:
+        raise ValueError(f"resample {resample}: only BICUBIC ({BICUBIC}) and BILINEAR ({BILINEAR}) are ported")
+    need_h = out_w != w or box[0] or box[2] != out_w
+    need_v = out_h != h or box[1] or box[3] != out_h
+    x0, xn, xk = _coefficients(w, box[0], box[2], out_w, resample)
+    y0, yn, yk = _coefficients(h, box[1], box[3], out_h, resample)
+    out = arr
+    if need_h:
+        first, last = int(y0[0]), int(y0[-1] + yn[-1])  # the rows the vertical pass reads
+        out = _resample_rows(np.ascontiguousarray(arr[first:last].swapaxes(0, 1)), x0, xn, xk).swapaxes(0, 1)
+        y0 = y0 - first
+    if need_v:
+        out = _resample_rows(out, y0, yn, yk)
+    return np.ascontiguousarray(out)
+
+
+def to_normalized_array(arr: np.ndarray) -> np.ndarray:
+    """uint8 HWC -> float32 HWC in CLIP-normalized space."""
+    arr = np.asarray(arr, dtype=np.float32) / 255.0
     return (arr - CLIP_MEAN) / CLIP_STD
 
 
-def resize_shortest_side(img, size: int) :
-    w, h = img.size
+def resize_shortest_side(arr: np.ndarray, size: int) -> np.ndarray:
+    h, w = arr.shape[:2]
     if w <= h:
         new_w, new_h = size, max(1, round(h * size / w))
     else:
         new_w, new_h = max(1, round(w * size / h)), size
-    return img.resize((new_w, new_h), BICUBIC)
+    return resize_uint8(arr, (new_w, new_h), BICUBIC)
 
 
-def center_crop(img, size: int) :
-    w, h = img.size
-    left = (w - size) // 2
-    top = (h - size) // 2
-    return img.crop((left, top, left + size, top + size))
+def center_crop(arr: np.ndarray, size: int) -> np.ndarray:
+    """Pillow's `crop((left, top, left + size, top + size))` of the centred
+    box; what lies outside the image is 0."""
+    h, w = arr.shape[:2]
+    left, top = (w - size) // 2, (h - size) // 2
+    out = np.zeros((size, size) + arr.shape[2:], arr.dtype)
+    ys, xs = max(top, 0), max(left, 0)
+    ye, xe = min(top + size, h), min(left + size, w)
+    if ye > ys and xe > xs:
+        out[ys - top : ye - top, xs - left : xe - left] = arr[ys:ye, xs:xe]
+    return out
 
 
 def clip_transform(image_size: int = 224) -> Callable:
     """The CLIP eval transform: shortest-side resize, center crop, normalize."""
 
-    def fn(img) -> np.ndarray:
-        img = resize_shortest_side(img, image_size)
-        img = center_crop(img, image_size)
-        return to_normalized_array(img)
+    def fn(arr: np.ndarray) -> np.ndarray:
+        arr = resize_shortest_side(arr, image_size)
+        arr = center_crop(arr, image_size)
+        return to_normalized_array(arr)
 
     return fn
 
@@ -74,28 +190,20 @@ def _identity(img, _):
 
 
 def _autocontrast(img, _):
-    from PIL import ImageOps
-
-    return ImageOps.autocontrast(img)
+    return _pil("AutoContrast")[2].autocontrast(img)
 
 
 def _equalize(img, _):
-    from PIL import ImageOps
-
-    return ImageOps.equalize(img)
+    return _pil("Equalize")[2].equalize(img)
 
 
 def _brightness(img, level):
     # level in [0,10] -> enhancement factor around 1.0
-    from PIL import ImageEnhance
-
-    return ImageEnhance.Brightness(img).enhance(1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
+    return _pil("Brightness")[1].Brightness(img).enhance(1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
 
 
 def _sharpness(img, level):
-    from PIL import ImageEnhance
-
-    return ImageEnhance.Sharpness(img).enhance(1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
+    return _pil("Sharpness")[1].Sharpness(img).enhance(1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
 
 
 def _shear_x(img, level):
@@ -145,15 +253,15 @@ class RandomAugment:
         self.m = m
         self.augs = augs or list(RANDAUG_OPS.keys())
 
-    def __call__(self, img) :
+    def __call__(self, img):
         ops = random.choices(self.augs, k=self.n)
         for name in ops:
             img = RANDAUG_OPS[name](img, self.m)
         return img
 
 
-def random_resized_crop(img, size: int, min_scale: float = 0.5, max_scale: float = 1.0, ratio=(3 / 4, 4 / 3)) :
-    """torchvision RandomResizedCrop semantics with bicubic resize."""
+def random_resized_crop(img, size: int, min_scale: float = 0.5, max_scale: float = 1.0, ratio=(3 / 4, 4 / 3)):
+    """torchvision RandomResizedCrop semantics with bicubic resize, on a PIL image."""
     w, h = img.size
     area = w * h
     for _ in range(10):
@@ -182,16 +290,16 @@ def blip_transform(image_size: int = 224, min_scale: float = 0.5, is_train: bool
     """BLIP train/eval transform (reference blip_transform.py:8-49)."""
     randaug = RandomAugment(2, 5)
 
-    def train_fn(img) -> np.ndarray:
+    def train_fn(arr: np.ndarray) -> np.ndarray:
+        img = _pil("RandomResizedCrop")[0].fromarray(arr)
         img = random_resized_crop(img, image_size, min_scale=min_scale)
         if random.random() < 0.5:
             img = img.transpose(FLIP_LEFT_RIGHT)
         img = randaug(img)
-        return to_normalized_array(img)
+        return to_normalized_array(np.asarray(img))
 
-    def eval_fn(img) -> np.ndarray:
-        img = img.resize((image_size, image_size), BICUBIC)
-        return to_normalized_array(img)
+    def eval_fn(arr: np.ndarray) -> np.ndarray:
+        return to_normalized_array(resize_uint8(arr, (image_size, image_size), BICUBIC))
 
     return train_fn if is_train else eval_fn
 
@@ -199,9 +307,7 @@ def blip_transform(image_size: int = 224, min_scale: float = 0.5, is_train: bool
 def raw_resize_uint8(image_size: int = 256) -> Callable:
     """Shortest-side resize to uint8 HWC, for a device-side preprocess path."""
 
-    def fn(img) -> np.ndarray:
-        img = resize_shortest_side(img, image_size)
-        img = center_crop(img, image_size)
-        return np.asarray(img, dtype=np.uint8)
+    def fn(arr: np.ndarray) -> np.ndarray:
+        return center_crop(resize_shortest_side(arr, image_size), image_size)
 
     return fn

@@ -1,7 +1,9 @@
 """CLIP byte-pair-encoding tokenizer (pure Python): the port's copy of
 uniir_tpu/data/tokenizers/clip_bpe.py, held equal to it by
-tests/test_torch_data.py.  The `regex` package is imported when a tokenizer
-is first built, not with the module.
+tests/test_torch_data.py.  CLIP's pre-tokenizer pattern (`_WORD_PAT`, which
+the reference compiles with the `regex` package for its \\p classes) is
+matched by a hand-written scanner, `words`, so nothing beyond the standard
+library is needed (the GPU host has no `regex`).
 
 Replacement for the external ``clip.tokenize`` dependency
 (reference src/models/uniir_clip/clip_scorefusion/clip_sf.py:26,36-41): the
@@ -21,6 +23,8 @@ from __future__ import annotations
 import gzip
 import html
 import os
+import re
+import unicodedata
 from functools import lru_cache
 from typing import List, Sequence, Union
 
@@ -30,15 +34,59 @@ CONTEXT_LENGTH = 77
 SOT_TOKEN = "<|startoftext|>"
 EOT_TOKEN = "<|endoftext|>"
 
+# the reference's pattern, compiled there with regex.IGNORECASE; `words` matches it
 _WORD_PAT = r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"""
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+# `regex`'s \s: the Unicode White_Space property (str.isspace also takes U+001C..U+001F)
+_SPACE_CHARS = "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000\u2001\u2002\u2003\u2004\u2005\u2006\u2007\u2008\u2009\u200a\u2028\u2029\u202f\u205f\u3000"
+_SPACES = re.compile(f"[{_SPACE_CHARS}]+")
+# not a letter, yet excluded from [^\s\p{L}\p{N}] under IGNORECASE: its case variants are letters
+_FOLDS_TO_LETTER = "\u0345"
 
 
-@lru_cache()
-def _patterns():
-    """(word pattern, whitespace pattern), compiled with `regex` (needed for \\p classes)."""
-    import regex
+def _fold(ch: str) -> str:
+    """`ch` as IGNORECASE compares it with the pattern's ASCII literals
+    (simple case folding: U+017F LONG S matches s)."""
+    return "s" if ch == "\u017f" else ch.lower() if ch.isascii() else ch
 
-    return regex.compile(_WORD_PAT, regex.IGNORECASE), regex.compile(r"\s+")
+
+def _matches_at(text: str, i: int, literal: str) -> bool:
+    return len(text) - i >= len(literal) and all(_fold(text[i + k]) == c for k, c in enumerate(literal))
+
+
+def _kind(ch: str) -> str:
+    """"L" (\\p{L}), "N" (\\p{N}), "s" (\\s, or U+0345: matched by no branch) or "o" (the rest)."""
+    if ch in _SPACE_CHARS or ch in _FOLDS_TO_LETTER:
+        return "s"
+    category = unicodedata.category(ch)[0]
+    return category if category in "LN" else "o"
+
+
+def words(text: str) -> List[str]:
+    """`regex.findall(_WORD_PAT, text, regex.IGNORECASE)`: at each position
+    the first branch that matches -- the special tokens, the contractions,
+    a run of letters, one number character, a run of other non-space
+    characters -- else the character is skipped."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        ch = text[i]
+        special = next((t for t in (SOT_TOKEN, EOT_TOKEN) if ch == "<" and _matches_at(text, i, t)), None)
+        tail = next((t for t in _CONTRACTIONS if ch == "'" and _matches_at(text, i + 1, t)), None)
+        if special is not None or tail is not None:
+            j = i + (len(special) if special is not None else 1 + len(tail))
+        else:
+            kind = _kind(ch)
+            j = i + 1
+            if kind == "s":
+                i = j
+                continue
+            if kind != "N":
+                while j < n and _kind(text[j]) == kind:
+                    j += 1
+        out.append(text[i:j])
+        i = j
+    return out
 
 
 @lru_cache()
@@ -66,7 +114,7 @@ def _get_pairs(word):
 
 def _clean_text(text: str) -> str:
     text = html.unescape(html.unescape(text))
-    text = _patterns()[1].sub(" ", text)
+    text = _SPACES.sub(" ", text)
     return text.strip().lower()
 
 
@@ -157,7 +205,7 @@ class CLIPTokenizer:
     def encode(self, text: str) -> List[int]:
         ids: List[int] = []
         text = _clean_text(text)
-        for token in _patterns()[0].findall(text):
+        for token in words(text):
             token = "".join(self.byte_encoder[b] for b in token.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self.bpe(token).split(" "))
         return ids

@@ -24,6 +24,7 @@ import torch
 
 from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.core.config import parse_image_size
+from uniir_tpu_torch.core.device import module_device
 from uniir_tpu_torch.data.collator import MBEIRCandidatePoolCollator, MBEIRMainCollator
 from uniir_tpu_torch.data.dataset import MBEIRCandidatePoolDataset, MBEIRMainDataset, Mode
 from uniir_tpu_torch.data.loader import ContiguousSampler, MBEIRLoader
@@ -57,11 +58,13 @@ def generate_embeds_and_ids_for_dataset(embed_step: Callable, data_loader: Itera
 def _loader_for(split_name, dataset_name, cand_pool_name, bundle, config, image_size):
     data_config = config.data_config
     split_dir = getattr(data_config, f"{split_name}_dir_name")
+    device = module_device(bundle.model)
     if split_name == "cand_pool":
         dataset = MBEIRCandidatePoolDataset(
             mbeir_data_dir=config.mbeir_data_dir,
             cand_pool_data_path=os.path.join(split_dir, f"mbeir_{cand_pool_name}_{split_name}.jsonl"),
             img_preprocess_fn=bundle.img_preprocess_fn_eval,
+            device=device,
         )
         collator = MBEIRCandidatePoolCollator(tokenizer=bundle.tokenizer, image_size=image_size)
     else:
@@ -74,6 +77,7 @@ def _loader_for(split_name, dataset_name, cand_pool_name, bundle, config, image_
             mode=Mode.EVAL,
             enable_query_instruct=data_config.enable_query_instruct,
             shuffle_cand=data_config.shuffle_cand,
+            device=device,
         )
         collator = MBEIRMainCollator(tokenizer=bundle.tokenizer, image_size=image_size, mode=Mode.EVAL)
     sampler = ContiguousSampler(len(dataset), num_replicas=mesh.process_count(), rank=mesh.process_index())

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from uniir_tpu_torch.core.config import parse_image_size
-from uniir_tpu_torch.core.device import resolve_device
+from uniir_tpu_torch.core.device import module_device, resolve_device
 from uniir_tpu_torch.data.collator import MBEIRInferenceOnlyCollator
 from uniir_tpu_torch.data.dataset import MBEIRInferenceOnlyDataset, load_candidates
 from uniir_tpu_torch.data.loader import MBEIRLoader
@@ -85,6 +85,7 @@ class InteractiveRetriever:
             data_config.query_instruct_path,
             self.bundle.img_preprocess_fn_eval,
             enable_query_instruct=data_config.enable_query_instruct,
+            device=module_device(self.bundle.model),
         )
         collator = MBEIRInferenceOnlyCollator(
             tokenizer=self.bundle.tokenizer, image_size=parse_image_size(data_config.image_size)

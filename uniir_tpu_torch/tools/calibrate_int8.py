@@ -29,6 +29,7 @@ import itertools
 import os
 
 from uniir_tpu_torch.core.config import load_config, parse_image_size
+from uniir_tpu_torch.core.device import module_device
 from uniir_tpu_torch.data.collator import MBEIRMainCollator
 from uniir_tpu_torch.data.dataset import MBEIRMainDataset, Mode
 from uniir_tpu_torch.data.loader import ContiguousSampler, MBEIRLoader
@@ -71,6 +72,7 @@ def first_probe_loader(bundle, config, batch_size: int):
             mode=Mode.EVAL,
             enable_query_instruct=data_config.enable_query_instruct,
             shuffle_cand=data_config.shuffle_cand,
+            device=module_device(bundle.model),
         )
         collator = MBEIRMainCollator(
             tokenizer=bundle.tokenizer, image_size=parse_image_size(data_config.image_size), mode=Mode.EVAL

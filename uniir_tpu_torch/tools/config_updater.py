@@ -2,8 +2,8 @@
 
 Rewrites the instruct status (`experiment.instruct_status` and
 `data_config.enable_query_instruct`) of the embed / index / retrieval yamls,
-as every run script does before it launches.  PyYAML is imported where a
-file is read or written.
+as every run script does before it launches.  Files are read and written by
+`core.yaml_subset` (no PyYAML).
 
     python -m uniir_tpu_torch.tools.config_updater --update_mbeir_yaml_instruct_status \
         --mbeir_yaml_file_path embed.yaml --enable_instruct True
@@ -13,19 +13,15 @@ from __future__ import annotations
 
 import argparse
 
+from uniir_tpu_torch.core import yaml_subset
+
 
 def load_yaml(file_path: str) -> dict:
-    import yaml
-
-    with open(file_path) as f:
-        return yaml.safe_load(f)
+    return yaml_subset.load(file_path)
 
 
 def save_yaml(data: dict, file_path: str) -> None:
-    import yaml
-
-    with open(file_path, "w") as f:
-        yaml.safe_dump(data, f, default_flow_style=False)
+    yaml_subset.dump(data, file_path, sort_keys=True)  # keys sorted, as the reference's yaml.safe_dump writes them
 
 
 def update_mbeir_yaml_instruct_status(yaml_file_path: str, enable_instruct: bool) -> None:

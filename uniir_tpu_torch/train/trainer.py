@@ -13,7 +13,8 @@ the cosine schedule over all updates (CLIP-FF: the T5 fusion stack at
 in-batch validation, logged to wandb when `wandb_config.enabled` and the
 package is installed.  The file-reading data path is the port's own
 (`uniir_tpu_torch/data`: `build_mbeir_dataset_from_config`, `MBEIRLoader`,
-`EpochShuffleSampler`; Pillow is needed only once an image is opened);
+`EpochShuffleSampler`; images decoded by `data.jpeg` for the model's
+device; BLIP's train-time augmentation still needs Pillow);
 `train_one_epoch` takes any iterable of collated batches.
 
 BLIP-SF / BLIP-FF train by momentum distillation: one AdamW group (wd
@@ -45,7 +46,7 @@ import torch
 from uniir_tpu_torch.core import mesh
 from uniir_tpu_torch.core.checkpoint import load_train_checkpoint, save_train_checkpoint
 from uniir_tpu_torch.core.config import load_config
-from uniir_tpu_torch.core.device import resolve_device
+from uniir_tpu_torch.core.device import module_device, resolve_device
 from uniir_tpu_torch.data.data_utils import DatasetType, build_mbeir_dataset_from_config
 from uniir_tpu_torch.data.loader import EpochShuffleSampler, MBEIRLoader
 from uniir_tpu_torch.models.registry import build_model_from_config
@@ -90,7 +91,8 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
 
     def loader(dataset_type: DatasetType, img_preprocess_fn, batch_size):
         dataset, collator = build_mbeir_dataset_from_config(
-            config=config, tokenizer=bundle.tokenizer, img_preprocess_fn=img_preprocess_fn, dataset_type=dataset_type
+            config=config, tokenizer=bundle.tokenizer, img_preprocess_fn=img_preprocess_fn, dataset_type=dataset_type,
+            device=module_device(bundle.model),
         )
         sampler = EpochShuffleSampler(
             len(dataset), num_replicas=mesh.process_count(), rank=mesh.process_index(), seed=int(config.seed)
