@@ -71,7 +71,10 @@
    against autograd through the
    plain forward): its
    one-block-a-head kernel and its general-length kernels both, timed in
-   turns, and the general ones also at L = 400, which only they take;
+   turns, and the general ones also at L = 400, which only they take; then
+   K1 and K3 50 times each on the same inputs at the partial-tile lengths
+   L = 17 ([2, 17, 128] H2) and 197 ([64, 197, 1024] H16), every output
+   bit-equal to the first;
 6. drives BLIP-ScoreFusion serving at the full width and depth of
    `configs/blip_sf/large` (ViT-L/16, 24 blocks; MED, 12 layers) in bf16
    through `build_model_from_config`:
@@ -118,7 +121,9 @@
    interactive retriever (K1, K2; its time split into embed, pool upload
    and sweep, and the upload and sweep again over a 5.6M x 768 host pool),
    held to `search_dense_index` over the same queries embedded through the
-   twins; UniRAG's raw retrieval with complement pairs over the int8 pool
+   twins, and one request of one PNG image query (the native PNG decoder,
+   K1, K2) held the same way to the twins, the PNG twin decoder among them;
+   UniRAG's raw retrieval with complement pairs over the int8 pool
    (queries that copy the text candidates: K4 for them, K1 and K2 for the
    complement queries); hard-negative mining (k = 50, 10 a query; K2)
    against an fp32 search; and the error analyst over phase 2's run file;
@@ -143,28 +148,39 @@
    shard from the pool's seeds (ids those of phase 1's `topk` over the
    whole pool, each rank's sweep and the merge timed);
 12. runs the entry points as a user does: writes a seeded M-BEIR tree in a
-   temporary directory (1024 candidates, 256 queries and 96 train queries of
-   `mscoco_task0`, about 820 JPEG files from the script's own writer in
-   Pillow's default form -- 4:2:0, quality 75, short side 256 --, a BPE
-   merges file learned from the captions, a `vocab.txt`, phase 2's CLIP-SF
-   and a seeded BLIP-SF `large` saved as `.pth`), reads the shipped
+   temporary directory (1024 candidates, 256 queries and 120 train queries
+   of `mscoco_task0`, about 830 image files: JPEG files from the script's
+   own writer in Pillow's default form -- 4:2:0, quality 75, short side 256
+   --, PNG files from its own PNG writer in five forms through every
+   scanline filter and three Pillow-made progressive JPEGs kept below as
+   base64, under the paths `P12_FORMS` names; a BPE merges file learned
+   from the captions, a `vocab.txt`, phase 2's CLIP-SF and a seeded BLIP-SF
+   `large` saved as `.pth`), reads the shipped
    `configs/clip_sf/large/eval/inbatch/{embed,index,retrieval}.yaml`,
-   `configs/clip_sf/large/train/inbatch/inbatch.yaml` and
-   `configs/blip_sf/large/eval/inbatch/embed.yaml` with the port's reader,
-   changes only what the fixture forces (one printed line lists the keys)
-   and writes them with its writer; then runs each CLI as a process of its
-   own with `yaml`, `PIL` and `regex` stubbed out of its PYTHONPATH:
+   `configs/clip_sf/large/train/inbatch/inbatch.yaml`,
+   `configs/blip_sf/large/eval/inbatch/embed.yaml` and
+   `configs/blip_sf/large/train/inbatch/inbatch.yaml` with the port's
+   reader, changes only what the fixture forces (one printed line lists the
+   keys) and writes them with its writer; then runs each CLI as a process of
+   its own with `yaml`, `PIL` and `regex` stubbed out of its PYTHONPATH:
    `config_updater`, the pipeline's embed, index and retrieval (int8 pool as
-   shipped, then bf16), BLIP-SF's embed, and the trainer for three steps of
-   32 pairs, whose checkpoint the pipeline then embeds; and checks the native
-   JPEG decoder bit-equal to the twin on every file, the CLIs' embeddings
-   against the in-code embed path over the decoded arrays (cosine >= 0.9999
-   every row, ids equal), the int8 run's ids against the bf16 run's, the
-   TSV's Recall@1/5/10 against the port's search called in code, each run's
-   launches (K1 / K2 / K3 / K4 where implied, no other kernel) and the
-   trainer's losses; it prints the native decode rate on one thread and on
-   the loader's threads and the share of decode plus transform in the embed
-   loop, beside the card's name and power limit and the host CPU.
+   shipped, then bf16), BLIP-SF's embed, CLIP-SF's trainer for three steps
+   of 32 pairs and BLIP-SF's for three of 40 at full width (the numpy train
+   transform on the files), each checkpoint then embedded by the pipeline;
+   and checks the native decoders bit-equal to the twins on every file (the
+   progressive ones also to Pillow's digests, the PNG ones to the samples
+   written), the CLIs' embeddings against the in-code embed path over the
+   decoded arrays (cosine >= 0.9999 every row, ids equal; BLIP-SF's trained
+   checkpoint too), the int8 run's ids against the bf16 run's, the TSV's
+   Recall@1/5/10 against the port's search called in code, each run's
+   launches (K1 / K2 / K3 / K4 and the native decoders where implied, no
+   other kernel; BLIP-SF's trainer 46 K1 / 23 K3 a step), the trainers'
+   losses and BLIP-SF's queue pointer; it prints the native decode rates
+   (all files on one thread and on the loader's threads; each format on
+   one thread), BLIP's train transform's time an image, the share of decode
+   plus transform in the embed loop and of the train transform in the
+   BLIP-SF trainer's step, and that step's device idle share, beside the
+   card's name and power limit and the host CPU.
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
 of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
@@ -187,6 +203,7 @@ two).  `chip_smoke.py --cli COUNTS MODULE ARGS...` is one of phase 12's runs:
 
 from __future__ import annotations
 
+import base64
 import json
 import os
 import re
@@ -1944,6 +1961,30 @@ def check_attention_bwd(results: dict) -> None:
             del leaves, oracle
     for name, err in worst.items():
         results[name]["max_abs_err"] = err
+    check_repeats()
+
+
+REPEAT_CALLS = 50  # K1 / K3 calls on the same inputs, each held bit-equal to the first
+REPEAT_SHAPES = ((2, 17, 2), (BATCH, 197, 16))  # partial last tiles: the remat test's L = 17, BLIP's 197
+
+
+def check_repeats() -> None:
+    """K1 and K3 are deterministic: REPEAT_CALLS calls of each on the same inputs give bit-equal outputs
+    at partial-tile lengths (one block a head, no atomics; a race or a missing barrier would show here)."""
+    from uniir_tpu_torch.ops import attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    for B, L, H in REPEAT_SHAPES:
+        q, k, v, do = (torch.randn(B, L, H * 64, generator=g, device="cuda").bfloat16() for _ in range(4))
+        first_out, first_grads = A.attention(q, k, v, H), A.attention_bwd(q, k, v, do, H)
+        differ = [0, 0]
+        for _ in range(REPEAT_CALLS):
+            differ[0] += not torch.equal(A.attention(q, k, v, H), first_out)
+            differ[1] += not all(torch.equal(a, b) for a, b in zip(A.attention_bwd(q, k, v, do, H), first_grads))
+        torch.cuda.synchronize()
+        log(f"K1 / K3 repeated {REPEAT_CALLS} times at [{B},{L},{H * 64}] H={H} (routes {A.forward_route(64, L)} / "
+            f"{A.backward_route(64, L)}): outputs differing from the first call K1 {differ[0]}, K3 {differ[1]}")
+        check(differ == [0, 0], f"K1 / K3 are not deterministic at [{B},{L},{H * 64}]: {differ}")
 
 
 # -------------------------------------- phases 7 and 8: the training paths
@@ -2126,7 +2167,7 @@ def make_blip_train_batch(rng, gen, bs: int, max_length: int, image_size: int) -
     }
 
 
-def drive_blip_train_path(results: dict, name: str) -> None:
+def drive_blip_train_path(results: dict, name: str) -> dict:
     """BLIP momentum-distillation training of `name` (BLIPScoreFusion, or
     BLIPFeatureFusion) at `large` through `build_model_from_config(train=
     True)`, `make_blip_optimizer`, `MomentumTrainState`,
@@ -2134,7 +2175,8 @@ def drive_blip_train_path(results: dict, name: str) -> None:
     up in epoch 0): 40 pairs, then BLIP-FF at the reference's 115 pairs a
     card.  Remat as the configs set it: off for BLIP-SF, on for BLIP-FF.
     At each batch, one step's loss and gradients through K1 / K3 are held
-    against the same step through the twins, under the same dropout draws."""
+    against the same step through the twins, under the same dropout draws.  Returns the device's busy ms a
+    step at each batch, by torch.profiler."""
     from uniir_tpu_torch.core.config import Config
     from uniir_tpu_torch.models import layers
     from uniir_tpu_torch.models.registry import build_model_from_config
@@ -2213,7 +2255,7 @@ def drive_blip_train_path(results: dict, name: str) -> None:
                 state, _ = step(state, b, extra["alpha"])
             torch.cuda.synchronize()
         log(f"profile of 2 {tag} train steps at {bs} pairs (step_ms={step_s * 1e3} from the run above):")
-        log_device_time_by_group(prof, 2, step_s * 1e3)
+        busy_ms[bs] = log_device_time_by_group(prof, 2, step_s * 1e3)
 
         n_steps = 1 + BLIP_TRAIN_BATCHES + 2
         moved = any(not torch.equal(a, b) for a, b in zip(state.model_m.parameters(), initial_m))
@@ -2283,9 +2325,11 @@ def drive_blip_train_path(results: dict, name: str) -> None:
         del state, step, model, bundle, batches, params, grads, ref_grads
         torch.cuda.empty_cache()
 
+    busy_ms: dict = {}
     train(BLIP_TRAIN_BS)
     if ff:
         train(BLIP_FF_BS)
+    return busy_ms
 
 
 # ------------------------------------------ phase 10: UniRAG and the retrieval tools
@@ -2450,8 +2494,12 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
     twins (ties within the two embeddings' score difference aside); K1 and K2
     counted, and K2 held against its twin at the request's query count; the
     request's time split into embed, pool upload and sweep, and the upload
-    and sweep again at the 5.6M pool's size."""
-    from uniir_tpu_torch.data.registry import hash_did
+    and sweep again at the 5.6M pool's size.  (b) One request of one PNG
+    image query, decoded natively, held to the twins the same way."""
+    import dataclasses
+
+    from uniir_tpu_torch.data import png
+    from uniir_tpu_torch.data.preprocess import clip_transform
     from uniir_tpu_torch.ops import topk as T
     from uniir_tpu_torch.retrieval.index import DenseIndex, normalize_l2
     from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
@@ -2503,10 +2551,49 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
     torch.cuda.empty_cache()
 
     # the same queries through the plain twins, searched in fp32 over the bf16 pool
-    plain = twin_embeds(retriever)
+    hold_request_to_twins("interactive retriever", got, emb, twin_embeds(retriever), index, cands)
+
+    # (b) one request of one PNG image query towards texts: the file through the native PNG decoder, K1, K2;
+    # held to the same request through the twins (the PNG twin decoder, K1's twin, an fp32 search)
+    png_rel = "images/query_0.png"
+    png_path = os.path.join(root, "mbeir_data", png_rel)
+    os.makedirs(os.path.dirname(png_path), exist_ok=True)
+    Path(png_path).write_bytes(png_bytes(fixture_image(SEED + 12), 2))
+    eval_fn = clip_transform(cfg.image_size)  # the phase's bundle has none: its other requests carry no image
+    image_bundle = dataclasses.replace(bundle, img_preprocess_fn=eval_fn, img_preprocess_fn_eval=eval_fn)
+    retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=image_bundle,
+                                     device=DEVICE)
+    retriever.add_queries([("image", None, png_rel, "text")])
+    zero_tools_counts()
+    decoded = png.decode_native.calls
+    got = retriever.retrieve(k=K)
+    torch.cuda.synchronize()
+    read_tools_counts(results, "interactive retriever, PNG query", {"K1": per_batch, "K2": 1, "K4": 0})
+    decoded = png.decode_native.calls - decoded  # the loader pads the one query's batch by repeating its row
+    check(decoded == BATCH, f"the PNG query went through the native PNG decoder {decoded} times, not once for each "
+          f"of its padded batch's {BATCH} rows")
+    emb = retriever._embed_queries()
+    native_png = png.decoder_for
+    png.decoder_for = lambda device: png.decode_twin  # `data.jpeg.read_image` looks it up at each call
+    try:
+        plain = twin_embeds(retriever)
+    finally:
+        png.decoder_for = native_png
+    hold_request_to_twins("interactive retriever, PNG query", got, emb, plain, index, cands)
+    log(f"interactive retriever, one PNG image query ({png_rel}, {fixture_image(SEED + 12).shape}, decoded natively "
+        f"{decoded} times): its {K} candidates {[c['did'] for c in got[0]]}")
+
+
+def hold_request_to_twins(path: str, got: list, emb: np.ndarray, plain: np.ndarray, index, cands: list) -> None:
+    """A request's candidates against an fp32 search over the bf16 pool of its queries embedded through the
+    plain twins (`plain`): equal but for ties within the two embeddings' score difference, and every
+    returned entry the pool's own."""
+    from uniir_tpu_torch.data.registry import hash_did
+    from uniir_tpu_torch.retrieval.index import normalize_l2
+
     cos = torch.nn.functional.cosine_similarity(torch.from_numpy(emb).float(), torch.from_numpy(plain).float(), dim=1)
-    log(f"interactive queries through K1 vs through its twin: min cosine {cos.min().item()}")
-    check(cos.min().item() >= 0.999, "interactive query embeddings through the kernel disagree with the plain path")
+    log(f"{path}: queries through K1 vs through its twin: min cosine {cos.min().item()}")
+    check(cos.min().item() >= 0.999, f"{path}: query embeddings through the kernel disagree with the plain path")
     ref_scores, ref_rows = brute_force_topk(torch.from_numpy(normalize_l2(plain)).to(DEVICE),
                                             torch.from_numpy(index.embeds).to(DEVICE).bfloat16(), index.ntotal, K)
     ids = torch.from_numpy(index.ids[ref_rows.cpu().numpy()])
@@ -2514,11 +2601,11 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
     got_ids = torch.tensor([[hash_did(c["did"]) for c in row] for row in got])
     by_did = {c["did"]: c for c in cands}
     hits = dict(Counter(c["modality"] for row in got for c in row))
-    log(f"interactive retriever against the twins' fp32 search: {int((got_ids != ids).sum())} of "
-        f"{got_ids.numel()} ranks differ, tie allowance {tie}; the hits' modalities {hits}")
+    log(f"{path} against the twins' fp32 search: {int((got_ids != ids).sum())} of {got_ids.numel()} ranks "
+        f"differ, tie allowance {tie}; the hits' modalities {hits}")
     check(same_ranking(got_ids, ids, ref_scores.cpu(), tie),
-          "the interactive retriever's candidates differ from the twins' search beyond ties")
-    check(all(c == by_did[c["did"]] for row in got for c in row), "the retriever returned altered candidate entries")
+          f"{path}: the candidates differ from the twins' search beyond ties")
+    check(all(c == by_did[c["did"]] for row in got for c in row), f"{path}: altered candidate entries returned")
 
 
 def rag_candidates(cands: list) -> list:
@@ -3252,8 +3339,9 @@ PROFILE_GROUPS = {
 }
 
 
-def log_device_time_by_group(prof, n_steps: int, wall_ms: float) -> None:
-    """Device time per step of a torch.profiler run, by kernel group, and the device's idle share."""
+def log_device_time_by_group(prof, n_steps: int, wall_ms: float) -> float:
+    """Device time per step of a torch.profiler run, by kernel group, and the device's idle share; returns
+    the device's busy ms a step."""
     totals: dict = {}
     # device kernels and copies; record_function ranges would count their kernels twice
     rows = [e for e in prof.key_averages()
@@ -3268,6 +3356,7 @@ def log_device_time_by_group(prof, n_steps: int, wall_ms: float) -> None:
         log(f"  {group}: {ms} ms per step ({ms / busy:.4f} of device time)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:25]:
         log(f"  {e.self_device_time_total / 1e3 / n_steps:10.3f} ms  x{e.count // n_steps:4d}  {e.key[:110]}")
+    return busy
 
 
 def profile_embed_steps(int8_models: dict) -> None:
@@ -3286,9 +3375,21 @@ def profile_embed_steps(int8_models: dict) -> None:
 # ------------------------------------------------ phase 12: the entry points as a user runs them
 
 P12_SEED = SEED + 120
-P12_CANDS, P12_QUERIES, P12_TRAIN_QUERIES = 1024, 256, 96
+P12_CANDS, P12_QUERIES, P12_TRAIN_QUERIES = 1024, 256, 120
 P12_WORDS, P12_MERGES = 1000, 3000
-P12_BATCH, P12_TRAIN_BS = 256, 32  # batches the fixture fills: 4 of candidates, 1 of queries; 3 train steps
+P12_BATCH, P12_TRAIN_BS = 256, 32  # batches the fixture fills: 4 of candidates, 1 of queries; 3 CLIP-SF train steps
+P12_BLIP_TRAIN_BS = 40  # BLIP-SF's trainer: 3 steps of 40 pairs
+P12_DECODE_REPEATS = 10  # decodes of each PNG / progressive file for their rates
+P12_TRANSFORM_SAMPLE = 100  # images BLIP's train transform is timed on
+# the image files that are not the writer's baseline JPEGs, by candidate index, test query and train query (the
+# image-bearing ones: candidates with i % 3 != 0, queries with j % 4 == 2); any other image is `jpeg`
+P12_FORMS = {
+    "cand": {1: "png_rgb", 2: "png_palette", 4: "png_grey", 5: "png_rgba", 7: "png_rgb16", 8: "progressive_420_q75",
+             10: "progressive_444_q75_restart5", 11: "progressive_grey_q75"},
+    "query": {2: "png_rgb", 6: "progressive_420_q75", 10: "png_grey"},
+    "train": {2: "png_palette", 6: "png_rgb16", 10: "progressive_444_q75_restart5", 14: "png_rgba",
+              18: "progressive_grey_q75"},
+}
 IMAGE_SHORT_SIDE = 256  # the M-BEIR construction's short side (uniir_tpu/data/registry.py)
 P12_DATASET, P12_POOL, P12_DSID = "mscoco_task0", "mscoco_task0_test", 9  # as the shipped configs name them
 P12_BLOCKED = ("yaml", "PIL", "regex")  # what the card's machine lacks; stubbed out in the runs' PYTHONPATH
@@ -3298,6 +3399,7 @@ P12_CONFIGS = {
     "retrieval": "configs/clip_sf/large/eval/inbatch/retrieval.yaml",
     "train": "configs/clip_sf/large/train/inbatch/inbatch.yaml",
     "blip_embed": "configs/blip_sf/large/eval/inbatch/embed.yaml",
+    "blip_train": "configs/blip_sf/large/train/inbatch/inbatch.yaml",
 }
 P12_EXPT = {"clip": "CLIP_SF/Large/Instruct/InBatch/", "blip": "BLIP_SF/Large/Instruct/InBatch/"}
 P12_QUERY_KINDS = ("text", "image", "image,text", "text")
@@ -3463,6 +3565,421 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
     return out + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9"
 
 
+# --- the PNG writer: every scanline filter, Adam7, bit depths 1 to 16, without Pillow
+
+PNG_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def png_chunk(kind: bytes, data: bytes) -> bytes:
+    return len(data).to_bytes(4, "big") + kind + data + zlib.crc32(kind + data).to_bytes(4, "big")
+
+
+def png_bytes(samples: np.ndarray, color_type: int, bit_depth: int = 8, filters=(0, 1, 2, 3, 4),
+              interlace: bool = False, palette: bytes = b"", trns: bytes = b"") -> bytes:
+    """A PNG file of `samples`, uint [H, W, channels] at `bit_depth` (palette indices for colour type 3),
+    each scanline filtered with filters[row % len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth),
+    Adam7-interlaced if asked, its zlib stream split over several IDAT chunks."""
+    h, w, channels = samples.shape
+    bits = channels * bit_depth
+    bpp = max(1, bits // 8)
+    raw, row_no = bytearray(), 0
+    for x0, y0, dx, dy in PNG_ADAM7 if interlace else ((0, 0, 1, 1),):
+        sub = samples[y0::dy, x0::dx]
+        if not sub.size:
+            continue
+        prev = np.zeros(-(-sub.shape[1] * bits // 8), np.int32)
+        for row in sub:
+            if bit_depth >= 8:
+                line = row.astype(">u2" if bit_depth == 16 else np.uint8).tobytes()
+            else:  # samples packed from the most significant bit, the row padded to a byte
+                per = 8 // bit_depth
+                vals = np.concatenate([row.reshape(-1), np.zeros(-row.size % per, row.dtype)]).astype(np.int64)
+                line = (vals.reshape(-1, per) << (8 - bit_depth * np.arange(1, per + 1))).sum(axis=1).astype(np.uint8).tobytes()
+            x = np.frombuffer(line, np.uint8).astype(np.int32)
+            left = np.concatenate([np.zeros(bpp, np.int32), x[:-bpp]])
+            upleft = np.concatenate([np.zeros(bpp, np.int32), prev[:-bpp]])
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+            kind = filters[row_no % len(filters)]
+            pred = (0, left, prev, (left + prev) >> 1, paeth)[kind]
+            raw.append(kind)
+            raw += ((x - pred) & 255).astype(np.uint8).tobytes()
+            prev, row_no = x, row_no + 1
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([bit_depth, color_type, 0, 0, int(interlace)])
+    out = b"\x89PNG\r\n\x1a\n" + png_chunk(b"IHDR", ihdr)
+    out += (png_chunk(b"PLTE", palette) if palette else b"") + (png_chunk(b"tRNS", trns) if trns else b"")
+    z = zlib.compress(bytes(raw), 6)
+    for i in range(0, len(z), 1 << 13):
+        out += png_chunk(b"IDAT", z[i : i + (1 << 13)])
+    return out + png_chunk(b"IEND", b"")
+
+
+# Pillow-made progressive JPEG files of `fixture_image(P12_SEED + 9000 + k)` (base64), with the sha256 of
+# Pillow's RGB pixels of each and their width and height: the card's machine has no Pillow, so its
+# decoders are held to these digests (Pillow 12.1.0, libjpeg-turbo; `save(..., progressive=True)`)
+PROGRESSIVE_FILES = {
+    "progressive_420_q75": (
+        ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5"
+         "PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjL/wgAR"
+         "CAEAAZMDASIAAhEBAxEB/8QAGQAAAwEBAQAAAAAAAAAAAAAAAQIDAAQF/8QAGgEAAwEBAQEAAAAAAAAAAAAAAgMEAQAFBv/aAAwDAQACEAMQ"
+         "AAAB5V7lYnhXuXS4V710uBe8aXnjvBlwjuV28W7Q0uLdedvHS7nydAtKB6J1kXXo56yL6qczyhYxxMtolja6WY2ulmNaeQxE2TVLN1JMkrMl"
+         "K+YUZwy0Fgy52ZWUg44VSHZqvpeIdoWfCO4AXAO8LPgX0FE+AdwMuAdymXCO1SLjPTiKL0K1q+ZYF5la7NBgC2iSG2iT62kTyukWYyheArhi"
+         "gpGLVXXFAk8vNmJeYNoFgxL2O0PQ18X0nPugTnz7o05826dOzlXrVJ8idicfIvWnHyr1Lx8g6V4ucWQgmHUwUZTWQgMKmRJNTJiTQzJIplOp"
+         "OGxeBALwYLABsCwSSENmo7HF+ZgX8dszu7coz6Dq3JkF1jkyD6xyBB9g48k+oc2w+hY7GVExjHUDiy5WAFKsAIysWoONZbNi8xcEqzuKptVw"
+         "VzjoHKgLrq46o1cs4JSkk+UkuYDi08QXMOGMojmUrercqrLrHIFF1jkCy6zxMB9h5GxnUedsZcxbGVC7DK5TWVwMACrFjYkD0SqQNRWcRQ1n"
+         "FXpRAcy9KkvnW6UJitloVFao9KZs0lzbaBtiftsVG22t8YENnUMB1VoB2Ypg2TlsLOGw2pNsZV4tzL6J4qie0XCjQYDEOIPDasaT50V56S51"
+         "V5aS52U5KTZZJK1boiVpdFStTIEsS2TMNguypsmypsoytsux3l5y7z01CvJazBkN0EM5t0qPQ1QXTzIW4op7Qw27cwZZ20mUdMjKJirLOjxb"
+         "F2fnbl9L8jcrsfhPL7ByZgdK84cHQsQ4LLMOGmniOmnsfTT2UPk2PbLubzsWJYZnWCNR1hJrOoOefbLA459UWjzztFoTm0GidAl3Q/O8z7tF"
+         "5KatN5KHZWmfsqvVTSWua+51qm6tyLXP2niYg69ynt6tznN6NE9thPcddPYyhnuZTTPMfJuPUg842pzsAdD8zCHU/IwD1xmnAYmZgkbTYHPH"
+         "qQw490Esi9XlfKjvJQju0tKmhmfFegUq5l6tdPxjsFyOIdwtn4j1A+5jZcNMy4RKKJ2MHzamZHaFHHSc2cM2zedpHy56mJLrNzku6DzY86hz"
+         "7esJkBZSRyYthGG6CPQa5XsmqVlNnZZIXYCnqs7oG7U5zHpanOTdhp7z598WlxT64GXPO0DNJmJnV+amd0PCql1edFLd1okDnwB5eXePOcge"
+         "dAgcVBMOKr89DK7xqjKOtEcz6s+KasnomuJczTECFsS1Ykhzl2GrtRrkajsbM3ZjuDm9DlefBzd3K9nHzdfLQfLz9HK8zWFcG9Y1nntWVZkV"
+         "tG06Hxyl+RjowXMTcgpifMVxulRn4hTUWrUDrS1FcE0KlaiANJso03CbicyxF0Pzswul+V2b1NzM3etuUtJoNFpz57xa3n5+uTXcMPQi1vG/"
+         "Qe6Tuy1LQFa3pLKVfSwBynGfztmK61LldSF2XVNnYWI7MUQYsUOdW2JxsUwGUKcAo2MFULG0wNV2gzQu3Ozk9DczPV0tys5NkQGbTbbRNLbX"
+         "8yde2jjHWhHzC6b0g6FwypvU0dvUabxfOOyvPWWDz2By89aM7LOZoW+fNnZ3nTNC3zkFlZJBbIu+K1RfozSiL9FAVC9ipalihfJQzL46GefJ"
+         "ZpNx0ebDS7KwUswcapyvEnRlaTWRlaTjjKsmsTDMK1IV8r5utJVUdHWqSNBVRhnYOm1CU02oSnm1GKaS9Ckvln0z6vnneeWQSs+tkjp1WILE"
+         "YjNjbLmRsUzZLNJxKryddNHmyqaPN10aVJY+cqTN0pVkbZStI3T2xGK891+TesbAi1pXFD1W4Jzuwqm1GHZtRs2bUbNkvTPi5JdUTfzS6JG/"
+         "nj0RY6E6yY7bYptgDjbLijOXFJV5OBVeTooq8qJoo8qIp0qTB85Vlz5zpPnynWfPnjub/8QAHhABAQEBAAMBAQEBAAAAAAAAABEBEhAgMEAC"
+         "IVD/2gAIAQEAAQUC5cuXLly5cuXLly5cuXLlmMxmMYxjFVVVfy8uXLly5cuXLly5cuXLlyzGYjGM8Zqqq+L4v4+XLly5cuXLly5cuXLly5RE"
+         "9aqqq+b+Ply5cuXLly5cuXLly5cuURPWqqqqqv4+XLly5cuXLly5cuXLly5RE9qqqv6Kr/H+P88/4/z/AJPTp06dOnTp06VVVV+8RERERPrX"
+         "Tp06dOnTp06VVX8MRERE8T6dOnTp06dOnTp0qqq/eIiIiJ9unTp06dOnTp0qqq/XPGMxERETxPrVVVVVVVVVX54xjGMYz80RERET2qr8s1mq"
+         "6Z/Tp06dKqr4vziIiIiJ7VVX41VV06dOnSqqqvziIiIiJ61VX5VVdOnTp0qqqr9YiI5contVVV+FVXTp06dOlVVVfnERERy3G41rWtbqqvxq"
+         "qrp06dKqqqr9Kqqqt1uta1rcbiIiIiJ4iIjly5cuUT2q/KqqqqqvrERERETzERHLly5conrV+dVVVVVfSIiIiIiIiIiOXLly5RPG+l+dVVVV"
+         "VfWIiIiIiIiIjly5ct/luNxuNa1ur86qqqqvtERERERPEREcuXLlv8txuNa1rWb4xjGMZ88Z4zxn5P6a/p/T+m4/rH9YzGYxjGMYvvPE859q"
+         "qqqqqt1rWtbjcb/LlE9r8Iifgqqqqqq3Wta1uNxv8uUT1vwiIn4Kqqqqqr6xHLlE9r8J+Kqqqqqq+sRy5RPa/GIn46qqq+0RuNxvjW+N+cRE"
+         "RERE/RrfGta1vyniIiIiIn6ta1rW+c8Z4xniIiIiIiIjfG/l3xvnfOMYxjGM8RERERG43G41vjW/i344xjGMYxETxEREbjcbjWta39f/xAAd"
+         "EQEBAQADAQEBAQAAAAAAAAAAAQIDERIQEyEg/9oACAEDAQE/AXTp06dPLy8rlcrl5SImk5F5F5F2u2ttaarTpIkSJEjp5TLyuVyuXl189P0X"
+         "kXkXkXa7XSq6RERIkSJHSxYuVy1Gmququ6uqul09fenn5K7SpUqVK7WrVq1VixcrlcrlYmUwnGnE/H727SpUqX5Vq1b86dPK5XK5WM5Zwzxs"
+         "8T8XTp18iVKmnpb86eXl19qrFyxliMRiR/Hl5dfe3b09pfkjwuVirXfyx5ZyzGWa7XK5dLPnbt6TbNZZiY/jWWo01Xfzp5TKRErteRdvS6Wq"
+         "qozWds8qc38a5WttVp06SOnXzt6e36Pb09O/89vb9X7P1e3fyR0kSLFWrp7e3p2/v+e1q6XVe6m6mqlRESJGo012127rLMTKYXCxV2/RNOnh"
+         "+T83n52mkqIsXK8a8T8WGIxljDeHJHI5Npyf1jTDGE4v4vGuVWs6ZrLLp5eH5PxYwxGGNRybjlrlcsqYvbiy4suKM9dN9Nt1qs1ms1mpURI6"
+         "icaRKnI1ytaaawnF/WMMZYS/xut1ut1ms1nTOkqVKnzXG1Gq1yP1evnhOJnDOWXf8brdbrVZrNZrOmazWaz8/8QAHxEAAwADAQEBAQEBAAAA"
+         "AAAAAAECAxESExAhBBQg/9oACAECAQE/ATZ2egsosws4v6B/0fhecvKXQ3+iYmJio6Ozs9B5B0MaORjY7HkPU9hZxf0H+geceQdGxMTExUdH"
+         "Z6Hoeh180clFFNlUztnoz0Z6s9WLIxWzbF92dDodDpjtk0yWSSjRSKkqCsZ5nmeZ5nmLGLGLGcHPxs6N/OTzFjFApEvjQ5HA8Z5nmeZ5nmLG"
+         "LGKDgqSimOiWSTJOM8zg5/70aOTk4NfNodItloqWVjZGNkQRBEmjRo0aGMY/ujk5GNjseQ62aPM8BYRYhQJfdGjQxjGIQkJDn8LLZdjyfpFE"
+         "IjGTgPE8jg190aNDyHQ2MQmKxZB5S8hdFmv0xmMx0RZ2b+aNfNnR0eh0b+7Oz0HlHkHQzklEk0TYqExCQ0MbGzommTRLJGUyqKtnbOmb+JCE"
+         "JiomiWSSUUUUbFBoR0OxsY0cHJr6hCEhCYqFY7Gxjk4HA0MdHZv5o4OTXzYiSRL5s6Ozo385OCiiihCEI2MY0ckolEi+bNnQrFYrFaO0NjGN"
+         "HP3Z0b+aORSJCQhjY2OhWLILILKeo39aOTXzZ0JiEhSKTRr5RTKZVHZ2eh6nsf/EABQQAQAAAAAAAAAAAAAAAAAAAKD/2gAIAQEABj8CTB//"
+         "xAAfEAEBAQEBAQADAQEBAAAAAAABABEQIDAhMUBxYYH/2gAIAQEAAT8hehjGtfr8GAhypewNttlllmZmSIg6R8RX6/wQg6D6A3jeNllmZmZg"
+         "siIj4g/x9PoFKQIiGPQG28bLbb1meZHgj5B/+Z5vN5PA7M7vyAG22+nmdI+wPta1jWPhM7tvoG22222+w8njS0sWLZs2aWksWOSk5OTl+JyZ"
+         "mZmeEb3LGxssbGyyyyyyz+QAL55ssszMzMRZZBEPgwZZzLP54EZtttsvliIgggiEOx4ZxlnM/oABjbbbfLEEEEEQhxa8GZJZZZ/IAk5nDbbb"
+         "bfREIIcCE/WYxiTEks+nvndq3btwoUQhCDDbbbb8QBAgQIDJCQkJJJmfhvcs9H/foHCGGOjbbbekMPQKcH6zGMa1rN422222222yz5D7LObl"
+         "vkNtt6QwxCFKQ8xa8HhttttttttlnxL2J3Zj0bbD63g+qDzbbbbbbbbbLIIhwKcGsSSZZZhCEJsMRzbf4CZhtttttttsEEQhCFL+ljwHRS4k"
+         "IQYYYYm23hj9dOG2222222wwwxCFKV7BcCHRKUpSEITJ4tfhFZ3bem+9tiEIcS/rNYszJMaUpSnAgWfQzSWc3oNtsMRHNt+I8zZs8Ep444Hy"
+         "DNjWJCZZYgwwxERZbb8j5vc6nrQ6Dw5Dh+vkQPC4EGGGIiObb8B5RhiIIh8fgEQhSkIX9fFxjy58BlLwBZ6x5+YGEIhBwEF+OfjzsMMMJCQk"
+         "JCWmSPEHYSWSEOilf47lllnGRAghBBER3ebbbbEIQhClL+vJ9R4uIUgQREPjllllnBCBBBERHdttttt4IcCFKd1dB7EWeW/97lllngECCCII"
+         "jxttttvBDgUpS/rwszJMa+CzxvhkFllnAWWQWcPLLLLbb0PgFb3PCY1iSTMvBwssssg8DLLLLOszxlltttt9AJsRBZExBBCSHCythiIiIILP"
+         "iAMYkkkzPx2GIjhEdH2AYiIggg4z4AGMSSSZn3ttsMQwxERM/AAeDg4EEeAOB0MYwScM+9tthhhiIiJ4eGeG/wDJeQEIQdDoOB4ACEkPk2GG"
+         "GIiI4ZmZmeLyAhCOgIhwPIAIQ+RtsMMRDERMzMzM8//aAAwDAQACAAMAAAAQy2yLRVCqTrjjXkJDPF+p0hkVOB4Ch1WohvMPq/6beSZ85NFV"
+         "5+SPpltguU1JpPKDQ04FTg1WbT4Rt+gpRcOvTG7BgRLEv967WqtDw74zWkPd8sw0+XOlctj+RbPIHoyd58COUKs7jC9BH50SWXRJ/mMibJk9"
+         "0O6BOLHttseb6L672q+dU4mO/wARjjAnMARSoUMcbJB1K31llFpzf6Y9XjPvOgGbxFlu5Iy9NZqV6sfLWqhRLwt3NQTWHqq7CJRzjmMdsa/E"
+         "EsPdC1rQDZIaFUlfnLFFc6vL+QnP+vtD3QGhQCkRJdWJlmcJsr1owwsEb2L/AEL/AD74oVYLeMe8uCKDKjr+o2AGybFx8BVDl3y0+x99KsTp"
+         "glkLK4Lodoga+WAm/HCv2BQeJwhzzpl8KTUjFD+AHJKTXr3C/8QAHREAAwEBAQADAQAAAAAAAAAAAAERECEgMDFRcf/aAAgBAwEBPxBIQQQR"
+         "RQQfPhX7kh4TIL4O8Dr2AFFYHz4VZ4LDgceWmhQY6wgggiECBAkawSJECCBwN8YJo0orIy2V+CeC9AA+nkA7+C9joUxqfwJiYgvIAb4N4AY6"
+         "GX69ZQoXP4E4mKF4CjNRsbMbFYg4SKvFCROCfjxWsQWaFRdKn0IkjkkMMoMQ9go8jGGWexc7LlBMkc4dCOsQ92i9gw2PsTJEj9RQqVEogsqP"
+         "AnBSck+WYbGxkFIoFAj0djslxW1gNMYn9iZiYTiY6dKVDTFmLv4spEQiEaCMYNh6KZXJkx4SPsUFQrEVIpEoKdp83L5Ww1KFCpFERoQwWFpf"
+         "NMmLCegwh2dnZ1h6JjpChAJZ0NZLcECYjrDv4/WIGRAjKBEgQKFhaWyTJCwh4d9fg+vnyJEgQOhWJUVHYiQEnk/7/B/IMU//xAAeEQADAQEB"
+         "AQEBAQEAAAAAAAAAAREQISBBMWFRcf/aAAgBAgEBPxBOCnCnOZ/cl9P9xT6UKlvIEQQRRoWHpTDQiQIiKP8AUh9Hz+lCpUdP2CTDKoVidFWa"
+         "GerPxvo2xgTihUTEVhbqDAxlMptpoMsssrrwAuRwNQgORWLoqFW1IkQrvWHmyyvAF8khISJsqdFCgoFAglMaGkNIaRBBA1IEqFEIIBDKDw28"
+         "zVggajQYYrRhhMXRBBwhYSJHxw6Ojr4T+EiRMaJ6Cww3jcgkIEMVChQt8OTg4OCE0goOyp0JCBAic/0oUOhkkGhA5Dodj6OhyNDgcZVCKsXR"
+         "qDgcDnGhQ6P0SHhLxL0UJC5T2GYMh1MGYHQTBMxdECjjBwzBkQKsuOyiAoGgpwqdFRhYSCY+VyWeKqFhKVzAgNCIqFYuisYYcD4fofCZJCgU"
+         "HArFQlRXmcKKxHRWOOiIQJjVG4IKNjDLzKF+dVc0EhCy6JTsXfm4/i+HgX/vBjWLDgY4F0UEpXURQQ3gTjz3/8QAJxAAAgICAwEAAQMFAQAA"
+         "AAAAAAERITFhEEFRcZGBobEgweHw8dH/2gAIAQEAAT8QkHoOppJcI0DPDQPWR1wMU6Pk8wPUnlLhC+OJJEaRFA0ERjFsYmKZ+B9CaWfcF/o6"
+         "yycRBMx9j0fYk9/oamJQj4EoYlS8EKCVFDrseg9R6D1oeh6UPQepbodcD0HofJ8GWBxcQQ9H+qIorhTA0Y4oIfD6PU/5EHuzQxPodcm0kyPQ"
+         "0/Rs+mWhFNCHgJpEEoQTX6CErPg+jSHUd8D1HN4GTkObpD1lj0HoPvA6YH5Q9ZHpw1jl1RE8M6hYZkyL+CBf5N2L445Ctmj74/oMeF+h7Dbj"
+         "I/vBO4EEhI0IqEhKr7EqgQQrtM+CyiD5J+DpgeljecDScUMIeh2dGShw6RoG3hpHJmkUehUE6IE6KCQsL/bPU8itkQXC6xI6DdjfvDhjiRNC"
+         "VqRBKRIS5EgS+iXopjB8De6LvED1LrB8FujVD1G2IIOjQZKLbRoGro0DjixquhoUsayfoMOKmTwLBCpmhbcFVCvvj98X5ZMjdjfDQ1djP0Qk"
+         "JCEYCVC8/gg1mslqDSXYs1D8jWPzPAMdDXj8FmES9DN0aBrKBPBDwVcGRD0Yd+ib7JFHbEn6xJ+iaRbBO7Jkw+olGaRIlVkoR04KwlUdiUih"
+         "SJe/kSvAjvjEytn0fZH0v2R9PtG7GHubWPsOUjyH+Qx4CJG/4NJ8FhryfwEEcCl0Jf6EVoKi49x6jgdB6nbJCF9CCSXdCR3oikIVCWz7HQ+x"
+         "l7D2PvhnbPs+hm2Hx+if5LUOjGJBtjY6QyxYRwJXD2snFzjjowOuB/rLbQ9B1fg4DuPwQLpAkJCyY4T84Yzpnri9iMZJrse5nkW4vDgRVhLO"
+         "S3Yhh2MPax/kNyNjsZoLY6Ez8xXxzdEcrjTRaPwGkdmU4H1g0jYdCnRHRH+oSi4OouDw/Iv2KfY9j7HbNj6S5HnY6ZH1kewrxIgrknYp8K/4"
+         "EVUdJkfSWMN3Y2N1Ix+C2L+xoXOtfHeLJBpNPBCWH4OB0II/yR4RZC46okUtDbZJD2DbwbOmPygaH3Y5cMTHhnWT4z6pjfGMMXDgsiNB0Gg2"
+         "N+Z474fwEXYi/QqWehMoWULQxZoiTKO60ewQ+0IEX6CrqBV1HFeldELs7gcE2jKGTsg8mOxlq3SHCmi3RlgXchRvIomkXWP0KFB4tG0mfXHO"
+         "x4FiSZMzcRkBRkuVkXZsFZZtNhJ3JsEYNlGwe5TY70VQw2GXPHBUKSVR6EL5Pij/AFReyvRThiaIngqueDwxUMzEQTqjuChuIXngjNh3ybSj"
+         "I5rI/Q9h7ci68DtkiXFnz2GLefjglsXhfsL8uC1yLQWFQPUY0lOIGogdJtdjtwQvIl7wLcU0Kb0SidCciYszFCaF5FBlIthWyLumeZFdWXWR"
+         "3yYjkOA7ZIMfH9cb9nkznBsO+WIKLLTQNnAr0hErZgobRg1Dl1xxMoRdlZnNpissyYBYSInIyk0yTFi+DE8H2WIGeT6FhZ9CkeBaky/ZofVc"
+         "V35kvplwmulymjgk6OmDBxuGBAIGT6FyOVEaLM5LR3BOXZLiCBu0MOEjiPg7BvkfZORweUKYoxdi3EVsJWIqnDPPPnJmWss8kPSwh7ITZKIT"
+         "YbjaJjJeTNoyWNkzdE6Jpo0mkrRoNBbji0cTqSND7QeCLdaHoPWB94HZUKsQJ0yvRVkNNUKrwUf0qLcwFPMidbExT+nCRGmJvRVKN8Gw2ihk"
+         "hocxJ2WOyax5FsnkW2yTqxrwoNJo4KU2KvBj/wDCZnZ5gek/B/mZYHqdpQ+8D1HEZhHAf8jgOwpLhQWAyhpEYhH+yKL2RFbIodoRUE7F6Yq5"
+         "Zjkc0Sd2ORJ1kaf8HLoc+vwPU03wKmBQ6F5NImSGeFmz0LMzPk+C/X7C0HTEnfBH0VuiM0GJEV3zO0mHns+TAQSxhfqjD/JXuDIyyUtQILYX"
+         "tin2Tf8AYSeilRmhI+S9QKdwSdCWMCv0KHQvKFrwLSxacK0sWDQuJpEXZRH0Xvji4KtkU3f9Fc7RUh5Lii/gSrAxTswiTLJUfA9xXcZJMPhk"
+         "guJSNZL8JehdhY1Z8GWCvQtRFQ64ZeCgS+jATukWYHY2pM9EKI5lF5BximOGTsn/AOmE8BpaG/ctHAmjP7j66HPo1shxkafpAnY09jXoYeRn"
+         "rGSLIyrIvBISFMUR4El5wq6JXaJXhKqhp+BHgrQrw8CFPBTo8RGwOWkkWFCHQmakRWhloc5sZL8GpsQKGRo6hJjh2YQhQJEuw1ZFWfHD5LLB"
+         "+AzIzzI/6Gl0VOkHRLH6JvJhng7/ANENyKRNXLMFmwsiR+pP2Sj2JknmUZMkk0iSSIWuiPohWvS5UVHhT2RxZJV/ciiFw/YZlTEsWaKLKUZz"
+         "DQsITB1KDZI2sy0O8sx4TF04IBbWQ9iMEHfA6EhkGkQlEufDQNYtRR6FHikIThChxJESjsW4orQ9QK3Z+Aog0knQhgkojoMbn4NjsPsOhnkZ"
+         "VlZJZtoUeDZ+vBD2brHOyfA04Fl0UP8A9474JaaHB4HEcevo4pDUDobgzGs5f5ErEpFpwKLgRRQbVMUUJY2dsCss0JCOUKkKUN9DY3Dkst/s"
+         "OL/uOvwUGIbBFbi3EFuI6sv3ZLfZkufJ2cD0IFSIej8HDkoQaB6I+v8APBKhJEEggu/CgggtRP4Kwm8ExDXQ02yV+Ek24Gf6jbJecDBMK4nE"
+         "4mQmE4nmxFliDCJiOvyJG8iH/kWYSLQkV/QLJQ2nBN2MXybmC8FJeFTFQUBaCGMMRWhc1lBbZGbRPBIQh2dfxxN8J9SJ2SLoSDVbGGoT2hqG"
+         "gaH4M7GO5k/eCVHBKGrtkhmYHVoXpH5uLFAsPRFaCqKUCCj/AAL2hL4XCsH4yMzMUVQTgixH5E5gmRPYofD9wvwJBt8g35GwNI7Z36HyZFkx"
+         "MsUSj6Gry1xNzKIaCtFAugrcIMoVDSLUUVxajyXBMJmuK9lEkw8kiZPvBdhWICjiwuhhhhhxq3x/MnGDyfB38GnNISQNXCQhAirjrmKFa0xa"
+         "FmBBdCgT/glWKLSw9OGiCLgT8DsZJInJNDdidGRI8DuigYfAww8DQj+ZiXoWeK2e+uJh8UORcC/kmgq9K8FSoTCaMcrhEEfoKpoKHRAUuirB"
+         "A2IrFofg/CSfME9Ek8IEjLB0MbB6HGH8d8XtsfiuBaYv6jTl/wDp/9k="),
+        "6d253eed83deefb05676a2d7a48baaa3fb73ec4b64f5be83dae0e805fb5d0488", 403, 256),
+    "progressive_444_q75_restart5": (
+        ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5"
+         "PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjL/wgAR"
+         "CAFFAQADAREAAhEBAxEB/8QAGgAAAwEBAQEAAAAAAAAAAAAAAgMEAQUABv/EABoBAAMBAQEBAAAAAAAAAAAAAAECAwQABQb/3QAEAAX/2gAM"
+         "AwEAAhADEAAAAekPBVcJtyrhNh//0Ee5887KzsbPxs7G3//R7HheP6vDpAaeHSP/0rtviLaypbUy2qlt/9OOXvgmhjxY+djw/9QqazeCSJz0"
+         "zd//1eLredu+vweOmwVVf//WDd4ybKDh+Yvyn//Xqj41GYvzHz8Fj//Q6mfyQvw3K2qlNf8A/9HGslNSV1gt2mX/0lJ67mg4xY0knv/TCtZW"
+         "aZjOT9Ni8r//1CbCqqpoiqqDL//Vm1+RRn6nOac/UQ7/1uz5vlDQjVgoRo3/16zlT2hI0oGhI0//0Ocnuu6dHSf0qBL/0elOqGMztKzTO/8A"
+         "/9LiaN/dyeap0TRFOn//0+XrwCUpkKpdTEf/1Ohl8qqPeJFnBm//1enmxizKNUNZBt//1pl3IawdSlZ0qn//16I7aVm8Ilmkd//QAbpXpJR+"
+         "rlwqef8A/9GEhTzS0xM6kX//0k959c1rQVTXVb//0+ziwB1B6giimf8A/9R2ak9KIeiHotn/AP/Vl70KprXNK0Sma//W7GPTI9ZK0keslKf/"
+         "15pegppKMlNNJl//0Pn2hWEsVLFWxU//0e1DyyRwWopUUp//0un5bKNJ6mezT1b/0+a+0HNchZFbJL//1O1g0VSCXpHSslbf/9VU/ckrUo51"
+         "dFJl/9bgz0KMh6NnJb0//9ckxWlLAmpQY1//0Ox50xlYJWUzz3H/0RyaptHT3AU62Pf/0mS0XQ62AsjyGt//0+x53pxVvHW8drAMX//U5S+o"
+         "oRX0VCQ9L//V4qStM7ClpSwp/9bsphGNclYZWGVf/9e3yNSLBFgi6z3H/9Dm2pZHrY9bHrY9/9H6zx6Ie0dbx1vHW/8A/9KQfSprgWsliS1j"
+         "/9P55TglUUqK1lf/1KGw1ldR8nUZV//V6GI5OocU0VVB/9ZUmVVRZa59XI//1+tkFc+pmUNWSt//0LM/pyUtHW6NOIEl/9Hj10gklpLyyoYf"
+         "/9KE5qStTLQwJG//07uz4lPTpiUEd//UdmYGVbIsr4r/AP/VZKFKmpOqXqFP/9b6LGZHtJS0j3kpb//X5nobxnIJzGchSf8A/9DhrBzLQ3UM"
+         "r2H/0aNGMg3kfFfyP//SpRsXh6Y8uCf/09jk8Fo40DqAf//U+hzZHhkNWR7SPb//1d7dK95PTyjKeSn/AP/W491GU/IjWD27/9ee2Vzc1+IH"
+         "yt//0HXl5W8G1RiJ/9F083kTyTJVc3f/0upm85xL2LSUNX//0+qEla0ptK9o/Xh//9Tk+tT0Z5Gfoz9JP//V5jZGOWvzHLG7/9b23P7mIHeP"
+         "gf/XbonspFKZSmUp/wD/0LvP8drljlrltD//0fpR5qGpK1pjaU2//9Ke2mH25bCfoJ6Cf//T5VcvpIbk3Y3P/9SbZnNyR7eO93//1fehLTxT"
+         "U4SZCf8A/9a3P5RwmySHUnU//9fuy8Y6kqMlqTdb/9Cq8JutN1ZfZj6C/wD/0eZ6UfRX0F2Skx//0oq5Dcscmx8e/9Md0PA73e4lNf/Ua+Rk"
+         "JnGTITOaf//V62DxSsSsSs22P//W6+rz5uqjrTdWfq//14fez5DvRGRHo9//0Of2Q242LG437//R9ry+4+BwHwP/0hvLUDIzZKbIy//Tv83y"
+         "DRdudsd0N//U61/M2xSaoFUdX//VVtdAqW/ysj2SP//Wi1ZMifT5jcZ7/9cK5GNxnvAiD//Q9SAg4reUNlP/0XZMTJzZOZqvrn//0ujHy/aD"
+         "7Q2XZRp//9NvoxSLJFUir9fg/wD/1Eep5wybItkmybf/1ZzmYQwhhDCP/9Z1MgqwKwKQV//XXCbEmyc2IjEn/9C/yvK9oYdJzQ2aW//Rq9XG"
+         "o0UtVCqhX//Sg9HZbb5oZUGT5Kn/05qZPTc+DSGFf//Ue2JpAqVo60b/1RhFaP5OYs2qn//Wf5mFiIZUdLDqb//XovhHSw6WWarWv//Qm9eq"
+         "1qta9NvkRlX/0R2eUM7BOmTo3h//0i7K3lZys5RVv//TojkUjqR1TfF7/9QPMixUaEYEJl//1aseANbL1MGtg0t//9ZPvIC1WtQWoLX/13el"
+         "84CXCdhSoTt//9BJiwKzlaFby//R6C+eCMpGTOikf//Sm8xfLzORnI0J/9OjycJMoamDUy9bf//UD1c69Th1BSoLT//V5vsbRWvcl8etaglf"
+         "/9YNWBa0BaMVTUf/19OM1DFUFZav/9AM2daUWreHMCf/0V+fmZyM5DKDob//0jOEbsGhxuw9T//Tl9UgtAFASve75j//1HbvKUHUKK51q/8A"
+         "/9WTRmNASAkU17//1gljHnAOKsHP/9ePMp9MxM+Q+n//0CzeX6req2Vb1W//0fehlAUAUWrrWn//0udo096vhpLJ5klv/9OTfkVzbManbMf/"
+         "1I+yFMZzZzZz/wD/1YUTObeBdM+n/9ZM8BdMuQnbWb//1yfz9dvMwh1h/wD/0EUVYda07+vzEMf/0d9DEglDFJ7JH//S5erL6Xel3p9vN//T"
+         "5ix0nWfzNpX/1InhvTLpGJbyf//VBvIPnIEwxc3/1mDGsOsOoOtX/9fpas87iagncTP3/9DkexjGRyJyPZE//9HhSz6SbsTknb//0uZo4mXe"
+         "kQlvR//Tj0+SYmxCxGZNv//UfLzGIwBlB1B//9VGOCg/0PqmWqTUH//Wn9bNLVJ2ARI52//X+d0ZhgRixEsqf//Q4dUOjMqSZd6P/9Hnb8W9"
+         "H3SJZukf/9IW8Z0WbFnRKw//03ebgUGTzKDfRe1o/9S7ZOSqS2SWqTsv/9XhexhCDDBgzsEW/9b5pJMqWULa8yh//9fnejP3R3pe6W9L/9CL"
+         "f4T4M6DOzs6Df//R6XleYsMrmTzpLf/Sm8rP9J7VZqpLWctU/9OP2fOndQkwxcYt/9Tg1yjFyPMbmP3/1eZogxwRXShdP//Wm2+VpQ1VsC6D"
+         "/wD/17M3ltzu2LK50s//0GeZFDOhqfU+lKWs/wD/0bNuOas5qznogSf/0uZ6PmjKmSYZPvd//9PlvlMgyDIMr//UTo84iu8pFDHf/9V7eS2D"
+         "tg7YOyL/AP/W6njwRSk70npSelP/1/omjNSc1ZT1nNWX/9Cb2PEFHydBm+JT/9Hn2y6OIIQUwv8A/9JLeYXAyDII9//TffyDHMhRkHZB/wD/"
+         "1O15OY4ul6z1pPWv/9UM22etPsKeNPWc1Jf/1rN3kT1mh5itMSn/10b/ADMSmJTVUkT/0FN5hKhIhcDJ/9F/eObFhJ8xxf8A/9LsZcRwoyFC"
+         "jRFK/wD/0+j5mmW9pr1mvb7Ofzn/1PoXwz0jPWU9IppP/9UvT8DFrgrgp5a//9bNOHZz2ctnPZz/AP/Xdn8A2ZjOxmYz/wD/0Ox3mnGhwoUK"
+         "HCv/0fpfn3nraXTaXRaTTb//0o9H0X2+T5NFIIrJFI//07t3ziqJnU8K51v/1H+j5uCmzX0ZejL/1Xx8DYyIBjUa9P/W68fHY7s6pwpsa//X"
+         "+l8lShTZVnveTVf/0Koe5JqvJqv9pi+OS8P/0e5fy0vBNIKeedX/0qvR8PBb3V91fTT/06beX6UtjL0pEvf/1L8vgmasaptU+r//1e9liUXK"
+         "TlKhSf8A/9bvePuk03l03k1aJdN//9f6GoU0FvBT51tn/9Cv0fnMFM63hXBb/9Gjdm9NdSXpy2cv/9KuXgap3rEbb1v/0+lGOipoTmTmf//U"
+         "73lOSMitpr3lvf8A/9UG+hmvf6Y/Og2YDn//1uju8wGzgY4K+Fv/16d3n4tcFdVdWX//0Ka+cSS1ZeU4NH//0a55PLfwv4VNR//S6OOxqpqD"
+         "AS9v/9OzNvnreeuiel+/q8b/1Oj6D52YezZ2Yeh//9Wvf4orbBbwti1//9ajRLRPelonon//17H8oV0gmgU0Cmj/0Cy+kfTZ02cjBP8A/9Hq"
+         "ZeU1UtdDXQ+j/9KQ/Rdf1PP8Mvhm8Mv/07PR8rwhi1xbCLf/1H6JYLbykZb0/wD/1bNOHTPFZc9K56v/1vS2LnpBLMaLTH//13Q0saDDJZqr"
+         "r//QxPRX10nR0PczkuT/0X+s5rl1cmrDFr//0qteEVti2xLay//Tp0LrTJ5k0xV//9R1wmWpMdSY6wS3/9WTJ7jaZm0ztfMx4f/WcwUuha3W"
+         "t1ro/9cff940yGmM0yGmT//Qs9DyMSopbFsKX//Ra19dSdCpIqJ//9K/08gCiIa58+ueOz//0+Zl+mXKza5W1ytrk//UCrNpmxXCegZX/9We"
+         "PpjO/wD/xAAcEAEBAQEBAQEBAQAAAAAAAAAAARECIBAhMUH/2gAIAQEAAQUCtWrVqv/QSoiP/9Hz/9JVX5//079nz//UxixYsf/VsVatWv/W"
+         "tWtRH//XiJ9//9D7Vf/Rqr8j/9KIkYsf/9OxYsVa/9S1VWtf/9WIiI//1vP/16qqr//QRER//9HPzqLHSx//0qq1atf/07UrlHL/1Inj/9X5"
+         "VV//1qqIj//XiRn51HUf/9Dp06Wq/9G1aqVy/9Lly5T5/9PxX//UqqqP/9XlyjmM/P/W6jqOo6dP/9erVq1a/9CX95cuXL//0Z5//9JVVX//"
+         "06jly5f/1OYk/Oo6jp//1eo6atWv/9a1U/vLl//X5cp9/9D7Vf/Rqqjl/9Lly5SfnUf/0+o6jp0r/9Sr9n9//9Xly5cpX//W1vj/16qqsf/Q"
+         "kcxy5cv/0Z/OnTp0/9LrxX//00cuXL//1OUrfv8A/9X5VV//1liRy5f/1+XL/OnT/9Dp06+//9H7Ef/S5cola//T3z//1PuJH//V5iOUf5//"
+         "1unTp06f/9fz/9CIiI//0ZWt+//S8//TSIiP/9SfOnTp/9XpfH//1vsR/9eIlb8//9Dz/9H5iRI//9KInyv/0+lV18//1PP/1YifNf/W3z//"
+         "1/GP/9DGIiP/0VVVf//Svn//0/P/1PP/1fP/1vP/1/tV/9Cqv3//0fP/0vP/0/P/1PP/1futf//WtWqqv//X8//Q8//R8//S8//T8//U1q1a"
+         "r//Vq+P/1vP/1/P/0PP/0fP/0vmtWv/TtVV+f//U8//V8//W8//X8//Q+61//9HVqqr/0r5//9P5Pv8A/9Tz/9XxH//W8//Xa1vz/9BfH//R"
+         "8//SiJ9//9Oqq/P/1Ps+f//V+61//9bW+P/X8//QT7K//9HVqqr/0qnyfP/Tnn//1PP/1fP/1vutf//X1rWtf//Q8//R8//S8//T8V//1Kqr"
+         "8//Va1rX/9bWt+//1/P/0PP/0fP/0lVVf//TvzWtf//U1rWtf//V8//W8//X8//Q+1X/0aq/f//S1rWtf//T1vj/1PP/1fP/1lX7/9eqqq//"
+         "0Gta1//R1rW/P//S8//T+z5//9T5VV//1b8qun//1qv3X//X1rWtf//Q3z//0fEf/9KInyv/06qq6f/U6V1HUWP/1cYxjH//1sYxnz//12MY"
+         "x//QkSJEiR//0VVVf//SrpVdR//TsWMYx//UxjGMf//Vz5jGP//WxiRIkf/XkSfKr//Qqqqv/9GrFjGP/9LGMYx//9PGMYx//9TGMYkf/9WR"
+         "IkT5/9aqqq//16qxVj//0MYxjH//0cYxjH//0vmMY//TxjGJH//U+VVf/9WqqrH/1rFjGMf/18YxjH//0MYxjH//0cYxjH//0sZ9r//Tqqqv"
+         "/9SqsWMf/9XGMYx//9bGMYx//9djGMf/0MYxjH//0XTp06f/0ulVVf/TsYxjH//UxjGMf//VxnzGP//WkYxjH//X+9On/9Dp06WrX//Rqr9/"
+         "/9Lz/9Pz/9RrWtf/1da1rX//1uq6dOnT/9e1b4//0PP/0fP/0vGv/9PWta1//9TWqqv/1arW/P/W8//X8//Q8//Ra1rX/9LWtar/06qq1//U"
+         "3z//1fP/1vP/1/utf//Q1K1rX//R1aqq/9Ktb9//0/P/1PP/1fP/1ta1K1//19a1ar//0Kqta//R8//S8//T8V//1Kq1a1//1ZUqVrX/1t8/"
+         "/9fz/9Dz/9Hz/9JVVX//078lSo//1J5//9X5/8QAHREBAQEBAQEBAQEBAAAAAAAAAQACERAgEiEDMf/aAAgBAwEBPwH8X5vzfm/N/9Dly57/"
+         "AP/R85cuX//S5YLBf52L/9PDLabTav/U1PvL/9Xly/N+b83/1vzfm5cuX//X58cv/9Dly/NgsF//0cWLDdlv/9LTNqfP/9Ply5cvzf/Uc3Ll"
+         "y5f/1eXLnv8A/9a5cuX5v//XyWbNmy3/0OyyzN//0YuXIL//0uTmczmc3//Tc3Llzz//1PS5f//VCCCyWb//1iy3ZZb/12fCL//QCCMzmc3/"
+         "0XMkly5f/9Llz0v/0yCCMwX/1AiIbt//1ey+Pn//1iCCCM3/13M5nM5kv//QS5c8b//RiIIL/9ILlz3/0+3bt3z/1PCCC//VCCczmc3/1tEk"
+         "kkl//9dnzMX/0AgguXL/0fO3bt//0vjN/9PNkslklv/UWWZm/9VmZ8//1iIizf/X7du3bt//0O3bt27f/9Htlstlst//0sssyzf/02fj/9R8"
+         "Ii//1SLt27f/1u3b9Xbt/9ft27ZbLf/Qy2Wyyy3/0Vln3//S+C//0yIiW//UZbst2//V7du3bt//1hhstls6v//XWWWZv//Q+f/RiIi//9Ls"
+         "syy3/9Nbt27dv//U7dhhhv/Vy2WWWW//1mfj/9f5/9Dwllv/0Vllu3b/0u3bsMN//9MbLDGpb//UWWWfP//V+f/W+f/XWWWWW//Q7du3bt//"
+         "0RhssMN//9IZZZZv/9N+f//U+f/V8Zm//9Zm77//1/SL/9AYYlu3/9Ffn//S+f/T+G//1GZnz//V+OX/1iCIi//X7du+/wD/0Pn/0fn/0pmZ"
+         "v//TbnnLl//U5ciCC//VIu3bt//W+f/X+f/Q9Zv/0WZ9/9LnvIL/0yCIv1f/1Bux7//V+f/W+f/XZmZv/9D3nn//0QggiL//0iGGGL//0z5/"
+         "/9T5/9Xxmb//1mfeX//X8IIv/9AIiGG//9EYj3//0vn/0yPCb//UZn3/1fOeF//WIiCC/9cIiLN//9D5/9GIjz//0iZmb//Tfn//1IiIv//V"
+         "GIIIv//WI+P/1/gv/9AiJm//0WZ87f/S87EN/9MYYYYL/9QIiPP/1fn/1vCIv//XZmZv/9D0hv/R7EMMN//SG5c9/9P5/9T4L//ViZm//9Zm"
+         "77//1/Ow3b//0BhhuXL/0efP/9L5/9P4b//UZmfP/9X5/9Yhhhhv/9fly57/AP/Q+f/R+f/SmZm//9N+f//UiG7Df//VG7cuef/Wn4//1/n/"
+         "0PWb/9Fmff/S+f/T7du3Zv/UWZZbt//V7D8f/9a7du3b/9dZZmb/0POXIL//0eXLl+b83//S/MzLLf/TW7dhhv/U97dv/9Xt2WWb/9Znzly/"
+         "/9fly5BBf//QMxmMzN//0WWW7Df/0hiPf//T7du3Zb//1O+vn//VIIIIL//WCCMxmM3/12Zllv/Q7DDEX//R87du3//S7du+/wD/0/CCC//U"
+         "CCCCM3//1TMZmZb/1lluww3/1yPVv//Q7LLdu3//0fSC/9IIIIIL/9MIzGYzN//UZZZbt//VGGGPP//WZlllv//X7D6X/9AgiCC//9EILObO"
+         "Yzf/0s5tWptN/9NbsRF//9QiZlv/1Vlhhi//1iIIIv/XCCCyQX//0M5s5s5tZtF//9HRaJLkF//SCCCCS//TSSSSC//UCMxmMxm//9UzBBEX"
+         "/9bLZbLZs3//19ZtFotFov/Q5ERF/9Hkkkkl/9JILJZzZzf/085vzfm55//Uhstlst//1ctm1m0Wi//W0Wi5Zgv/1wggkkv/0Ekkslkv/9HO"
+         "bObOb835v//S572y3//TzZbNltF//9TZaLRaLl//1SIIgv/WSSSSS//XyWSzmzmzm//Q/M5kmb//0bLZbLZb/9LLazbLRaL/09lyyWSyX//U"
+         "CCSSS//VSSyWc2c3/9bObOb8zmS//9dLXmWzf//Qy2bNvNsv/9HZbLZc/tkv/9IILJBJf//TSSSSwX//1MFjNjNjM5v/1dZtFotS/wBv/9bL"
+         "ZbLZbLf/19lstlst3//Qs2bNm//RJJkkv//SbBYLBYL/08En8tlst3//1Nz/ANs2bN//1c2b/8QAHBEBAQEBAQEBAQEAAAAAAAAAAAERAhAS"
+         "ICFB/9oACAECAQE/AY5cpXNf/9Dq/wAd127dv//R6n9cxy5c1//S56XpatV//9OsREf/1NSta1//1d8iJX//1pUq3+O66f/X6duo5jl//9Dl"
+         "zXNXpr//0av4/9LzWtf/09a3yP/UiVKlWv/V6rp06ix//9aRESp0/9f6a33/0M/Gv//R1rUrX//SiIiV/9OVa6qq/9SrGe//1dfT6a1//9bz"
+         "Pf/Xa1Klf//QlSp5H//RlSpWrX//0qqrGP/T819J0//UlRPLH//Vqqta/9aVKlSo/9f3Wv/Q1v4//9HGL5a//9K9J0lSo//Tiqq1/9S1qVKl"
+         "f//VlS/j/9bWtb5//9fzFiv/0KtWua5r/9Hly5V0/9Lp1XVWua//05UqVGP/1MZ+P//V9xj/1rFixYvL/9fnlzHKOa//0LXVdOnUf//RxIkS"
+         "JH//0oxjGP/T/P8A/9RixYsf/9WxeUiRH//WiVaqv//XqxiRI//QkRGMf//RsX8f/9L3Fj//07FixeWP/9TPda//1b7jH//WkSJER//XsWLF"
+         "iv/Q/Ef/0WLGLH//0vl8s9//09b+P//UYkSJH//V8sWLH//WsX8f/9fzGMf/0MfL5XlY/9FWt8//0vMYx//Txntj/9Sx1FXz/9WIief/1sYx"
+         "j5f/17Fiqtf/0NSoiP/RkYxnn//SdOnTp//T69iP/9Sfn//V86x06f/W6dNRH//XiRIxj//QxnnVdP/R6dOvI//SiJ5r/9PWta6r/9Tquq6d"
+         "I//V5cokSP/WxjPf/9euldK//9D8/wD/0da1rX//0tWrVqv/06jly5f/1OYkYxj/1c8qq//Wrr2P/9f3Wv/Q1rVq1//RtVUcv//S5cuYkY//"
+         "08Yxiv/Uqqvn/9X8a//Wa1rX/9e1atVX/9Dly5cxzH//0eYxjGP/0sVVV//Tv5//1GrWtf/VtWtar//W85cuX//X5cxIxj//0PMVX//Rqr7/"
+         "AP/S91a//9O1atWtf//U1vvL/9Xhw4cRzH//1sYzzH//16qqsf/Qz8//0VVVf//SsYxjH//TxzHDhw//1OK5rVrX/9XW/j//1rFjGMf/1/z/"
+         "AP/QxYxj5f/R+Xy+UjmP/9LlzXNTp9P/0/p9Pp9ef//U9xY//9WxVXz/1vcY/9f5fL5fLH//0JERKlf/0Z0+n0+n0//S+vz/AP/TxixVf//U"
+         "v4x//9XGPl8vl//W+Xy+Wef/12vp9Pp//9D6fT69/9HzFix//9KxVXz/02MY+X//1Pl8vl8sf//V919P/9b6fT6fT6f/14iIkf/QsWOnSv/R"
+         "qIkSP//SkY+WPl//0/lixVf/1NXp9Pp9P//V+n0iI//WkSLHUdR//9fp0qI//9CJEj5Y/9H5fLFix//S6VavT6f/0/p9Pp9I/9SIiK//1enT"
+         "p1Fj/9aIiVK//9fWta1//9C106dV0//Rv4x//9LEREr/0550qv/UqxPf/9VrWtf/1tarquq//9fquqvv/9DEjER//9GJU8r/0qqxYx//0/Na"
+         "1//U1rWrX//V6rp06qv/1oiJEj//14iVEr//0FVVj//Rs/P/0ta1rX//09WunTp//9TpaiI//9WRIiI//9aJ5fP/11jPf//Qata1/9HWtWuq"
+         "/9Lp06Vy/9Ply5jmI//UiInn/9X8Y//WqqtWv//X1rWpX//QtdOnTp//0f8AXLly5j//0uYiIj//05+f/9RjpVf/1bVqVrX/1tSq6V//1+nX"
+         "nDh//9DlxHESJH//0ZET3//S/Ff/06qxYx//1MZ7X//VqrFj5f/W5jmOXLmv/9eRIk9//9D8/wD/0dVVWP/SsYz3/9NVVY//1LHy5jmOX//V"
+         "5c1jGP/W/P8A/9f2+f/QrGMY/9H8/wD/0mMfKR//05ERKx//1MZ+P//V/P8A/9b3GP/XxixfP//Q9xj/0fljPI//0tYxnn//0/z/AP/U/P8A"
+         "/9XGLFiv/9ar+P/Xxj5Yx//Q81jH/9HPb5//0l83z//TnmMWP//U6iq68//ViJEj5f/WsZ7r/9exVVX/0L5VV//RRESP/9KRYrpX/9PryIj/"
+         "1JGLFV//1atf/8QAFRABAQAAAAAAAAAAAAAAAAAAIBD/2gAIAQEABj8CP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//U"
+         "P//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//X"
+         "P//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//S"
+         "P//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//V"
+         "P//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//Q"
+         "P//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//T"
+         "P//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//W"
+         "P//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//R"
+         "P//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//U"
+         "P//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//XP//QP//RP//SP//TP//UP//VP//WP//X"
+         "P//QP//RP//SP//TP//UP//Vn//EABsQAQEBAQEBAQEAAAAAAAAAAAEAEBEgITFB/9oACAEBAAE/IfAAr//QH7gtP//RPyZnP//SfAb/04Rg"
+         "L//UJ+PFX//Vo+AP/9bAPqcr/9fP8Tn/0HHT/9HQfuP/0oMPxl//09qOH//UhSwPq//Vc9/xf//WZxz/1/IP/9A/dzC//9E0IZf/0jLwB//T"
+         "j6Snj//Uv4nG/9VnxP/Wiv1k3//XORoH/9AQhgr/0cBX0lf/0lp+Zv/TZmc//9Tx36v/1YI4Ef/W0AQv/9deQD//0IKUsf/R/MzOf//SfP8A"
+         "/9N370F//9TxAhf/1YE6D//WhSjnf//Xz/Mzf//Qcd//0d/7z//SpjoP/9PAEMf/1MGYz//V2K+V/9aMWW7f/9fYMP/Q+2Rjn//R8gf/0ozO"
+         "P//TSH3wP//UV8sdu3//1e3dBf/WTD7Qhf/XwNH/0NDN/9FuSQ+5/9KKd8sf/9Odu3Zv/9RkkmfS/9WDqT//1vIP/9eZmS//0B93cr//0dDt"
+         "2//Sl3l//9PmBjn/1Kfngf/V1c//1rkGn//Xi0dv/9Dt27dz/9G54B//0hDH8z//0/Lf/9TOXIL/1dAxP//Wnbt27f/X3mP/0CEGn//R/nn/"
+         "AP/S3y5f/9PlyIi//9Qi7dz/1ewxEX//1iCAgi//1yG78nO//9Dfy5f/0eXLkEF//9IIIILl/9Pngv/UGIiL/9UYYYn4v//WynPP/9fly5cz"
+         "/9Aggggv/9ELnj//0uxERf/TM7du3//U8AK//9V45cuX/9a5BBBf/9cIILmf/9DSL//RIjO3/9Lt3wH/04UpXL//1OXLlyD7f//VCCCCD5f/"
+         "1kmZm//XGIiL/9C7d0//0XApSv/SVySS5f/Tg+wggv/UCCSSb//VZiMf/9YjFu3/11wxi3//0FlMly//0eXJIIL/0hCEHyS//9MeAN//1CI1"
+         "/9VZZZjP/9ZjFllv/9dJmZv/0D9lDCQX/9EwKUr/0sCUN//TV35LM3//1GZmb//VZkkm/9ZluxCf/9chStZ//9BZZYhv/9EYYbvy7f/SZuSS"
+         "X//TSSZMf//U0K7f/9UYhDP/1nJizf/XIiGG/9Dt3eX/0Ukkmb//0mHgf//Tnfvgf//U8+//1e4Qw3//1hhh3//XuXJJL//QSSTX/9HNy3b/"
+         "0vJ//9PDt2L/1Ow3YYb/1RiIufL/1khCSb//1z47v//QXyP/0aUhBv/SM7dhv//T7DDgv//UC58hCF//1RMdv//WzWWZ/9d0lJ//0CDDnb//"
+         "0e3bsMr/0sBB8hf/0xCEIX//1BHwB//VYxrG/wD/1ikIQL//1+eQ/9DygH//0Q+Qhp//0oIxw//TyGMb/9RzKUn/1SB4H//W8oH/18APkcf/"
+         "0NRjf//RO04f/9JjpL//0yEIYf/UMCGD/9XQBc+X/9Yw8f8A/9cxyOX/0H68j//RpSEJ/9IIIhC//9MhCGD/1AufI7//1czHL//WynR//9fy"
+         "b//QwIQn/9EhSFJ//9IhAufI3//TPjm//9Qx2n6v/9XyP//W8w//1wiEIT//0DYQn//RT5CGn//ShjGN/9OnwH//1PIP/9XAIhP/1oIaP//X"
+         "C5J8hj//0PIT/9FSw5//0vP/0/Bf/9QYhCl//9WlIT8X/9aFLT//18BZZv/QfP8A/9Hz/9Le4//TpmUn/9Qn4nPP/9XNrFv/1lnx/9fz/9Dz"
+         "/9HupS//0ilL+J3/0347P//Unbu//9Xz/9bTP//XZbsxv//QMpSE/9H8YLT/0tnbt//T8N//1PP/1YmWW//WY0+8S//XKT8YK//Q8g//0e3Y"
+         "3//S8//TIjX/1ItE+7//1dVIT//WYszN/9cYYYi//9D+ef/RjS//0jx3f//TcP3QV//UUPyWXP/VZv/aAAwDAQACAAMAAAAQhx//0GIJ/9Hk"
+         "5f/SgEH/09hb/9Rfe//Vxk//1k4t/9fAnf/QfTX/0UyV/9JFzf/Tcif/1IOb/9U3Lf/WjF3/18Rx/9BYRf/RfPH/0nXd/9Odif/Uqov/1Ydb"
+         "/9bXtf/XTg3/0Gqh/9Hjc//SbF//03Qj/9R0mf/VsRf/1ijn/9fVhf/QwMv/0a4n/9Ipj//Tkmv/1JBz/9XOOf/W4v8A/9djT//Qb0P/0XPh"
+         "/9Iihf/TP13/1Jy7/9WWg//WHCP/17U5/9BbAf/RpQX/0n0P/9OQ/f/Uo43/1eTV/9bCnf/XBnH/0I4F/9ELOf/Smdf/0/Un/9TgZf/VsxP/"
+         "1gin/9ePIf/QVB//0dFN/9Kax//TNBf/1Clr/9Xo2f/Wflf/1wpN/9Aqm//R+6P/0nwZ/9OTCf/UhhX/1TDP/9bxCf/XFpP/0O/j/9FOif/S"
+         "cJH/017N/9TJr//VQ3H/1jUJ/9e3Vf/QO5f/0fM9/9L0L//TGe//1Ipt/9UNi//WFEv/1zpx/9DnI//RtNf/0v8AZ//TKHn/1AQj/9WRc//W"
+         "yYn/1ycj/9DVRf/RbKf/0kRL/9OxL//UFZ//1Qs//9bIWf/XF8v/0Krt/9EX+//SM3X/06+r/9Tgrf/VM3H/1j1B/9etlf/QEQX/0WLz/9JN"
+         "0//TQA3/1D07/9VH3//WNtH/12MX/9AOYf/RiOH/0u7X/9M+u//Uci//1cLV/9YWH//XOen/0LvV/9HyM//SL2X/09rn/9RNHf/VgXH/1uY5"
+         "/9dlyf/QtJX/0Thf/9LaYf/TYYP/1Izd/9W/6f/We4X/10Ij/9BFQf/RrBX/0tNR/9ONS//Ucj//1SL/AP/WpJf/14qZ/9DyW//RnT//0sYv"
+         "/9OAn//UzY3/1dlV/9ZWFf/X3mv/0Hrb/9FOa//SAjn/08+3/9Q6Rf/V9Kn/1tMX/9dd/wD/0Oh7/9GVo//SNT3/09tB/9Sq5f/Vh8P/1vFz"
+         "/9c40//QJi3/0ckd/9L5v//T22P/1AN9/9VsAf/W5dn/1yun/9D1cf/RAPX/0pE1/9MNL//U3Sf/1d6N/9bzzf/Xs1f/0OXH/9GxCf/SMG3/"
+         "03mv/9QKe//VPlH/1tub/9cWEf/QgH3/0Tq//9ISgf/T4jX/1BQD/9X68//WVj3/15aB/9BJF//RKZH/0jmT/9NxJf/UPNv/1RrH/9YJwf/X"
+         "fEP/0A4//9G4w//Saxv/0zy3/9QpD//VRRH/1kLB/9cfs//QjLn/0YyT/9I/lf/TtlX/1IMv/9U+l//WKM3/12JL/9BWhf/RFLv/0mCl/9NN"
+         "O//Uwh//1VGh/9ZLVf/XVcv/0M4j/9HrQf/SVKP/0zpt/9T24f/VzDX/1lpb/9eS0f/Qt9v/0ddZ/9Jkuf/TmIn/1JqX/9XH/8QAHBEBAQEB"
+         "AQEBAQEAAAAAAAAAAQAQESAhMUFR/9oACAEDAQE/ENTGf//QKUgQX//RLl9TG//S3w/J3//Tr44dJX//1Ffu5cx//9XNrWf/1mOJSf/XnIuY"
+         "/9DVxw//0RyXMH4y/9KHLAX/0yHUUrf/1Ja1z//V0cz/1gjApP/Xs8y8v//Qfnaef//RYQIy/wD/0jzUP//Thrhy/9RLkEIn/9XyuP/WeD86"
+         "H//XV9SfYQv/0PIm/wD/0Y+uLWf/0mMTX//THkR//9ShLlwm/wD/1XIuP7f/1j4L7X//1/Pl/wD/0JaxIX//0efYRye//9KykCG//9MxcFv/"
+         "1HDtf//V8/1//9by6n//1xCf2Eb/0PNd/9G74X//0lu3Y/YX/9MaA5f/1Mpzlf/VUsCT7f/WO7lf/9djGNb/AP/Q8/8A/9E81X//0sZ5O//T"
+         "cpmb/9QSfY7f/9VzmMZ//9Zr4v8A/9fE+9T/0PKtf//RynL9lv/SZm5C/9PBTw//1FcZ2//V8efV/9bzan//19ic7//QWWfs5//R59gaK//S"
+         "MC1f/9Py/wD/1KePf//V8rF//9Zyl3//17lyIv/QGGWh/9HyL//SKU2//9PzvH//1NAV2//V7vLl/9YIi7Dy/9fyAv8A/9ClKZ//0fr5z//S"
+         "8YC7f//Tx2Iv/9Qw3//Vvspzv//WbNuoXsLf/9cWFhZs2//Qaabiz//RhZuXL//Shhuxf//T8//UMYwuX//VCC5BH1f/1jkYxv/Xrl2b/9C5"
+         "vb//0e3Yb9z/0ghCEb//0xgIw//UIQ7X/9Ux3J//1u+f/9fOwxf/0BiDAv/REIXPsF//0iB9gjF//9M5GMT/1IIouX//1Wcbt//WGIiL/9fA"
+         "Qhf/0AggiBf/0dKMb//SPhR3/9Oc+TM3/9RbsMMX/9UiEIX/1hCCCJ//1wghkL//0KMd/wD/0aeefJv/0mZZf7Df/9PAhC//1BCEkF//1Qgi"
+         "BC//1jH5Ha//12ixyuX/0P5MzJf/0XvYaF//0vIP/9NQ/YYY5f/UGRKcy//Vp7xv/9Y57dm//9dkuQQv/9AeQ//RjlDE/9IYYiy//9PwBfW/"
+         "/9SBDHb/1Vm5Ny//1gghDH//18VKd//Q7DDLD//RIvAH/9KSlCC//9MiXf/UT/LkEGP/1S/WfjH/1lK6hhv/1xhjAT//0PIF/9EgZ27f/9Lu"
+         "8gv/0wgggz//1MXK79v/1Rhhh5Df/9ZeQT//13JnJv/Q7EZy/9EIIIIv/9I3c7//03d+www3/9QZYGH/1ZK1iX//1k0MX//XMCCC/9AIIz+b"
+         "/9Fzndhv/9IYYYYb/9MhClV//9SFofq//9UwDDD2/9YYhTH/1857/wD/0OQRDB//0SlKQn//0iqWh//Tj9RoP//UGG7r/9Xwor//1oIPsQn/"
+         "1yENL//Q0Fzv/9FaBg//0oUolv/Tji5f/9Ri9mEF/9UeQH//1vKg/wD/11lbX//Q/WgpX//RGXkxjf/Sa5dm/9P9g+w0P//U8jp//9XLc8v/"
+         "1so+tD//11KH5Lh//9B8lv/RHt2CHcP/0k8gf//Tv/Lfd//Ufio+r//V2Jw3/9ZT8A//1y9IYx//0BkNj//R8+F//9LAp4f/06Pqc53/1Kvk"
+         "55f/1dt6Sv/Wg2jf/9fzU/8A/9DyAP8A/9HUj6y//9Lavhl//9PzXf8A/9Tz3v8A/9XB4XxO/9bQFK//1/I4f//QPqMYxv/RPjzVf//S82j/"
+         "AP/TkpDmC//UPIB//9WF4v8A/9bIPqGX/9fK+G1//9DzUv8A/9HB67f/0nmSY+sv/9NYLT//1PDUfV//1THI3wv/1vMX/wD/1/P1/wD/0H50"
+         "xn//0e/fJB//0vJPf//Tg+vAH//Ur4eAP//V8l1//9bLfm5Z/wD/18i/b/CV/9DhKWHG/9HVDA//0to+WH//0/II/wD/1PCD87//1cvlsf/W"
+         "8gB//9coIIIX/9APsIQhf//RHyIgQYf/0h3AoIe3/9MY4BFj/9T5nHP52Tf/1VL5f//EABwRAQEBAQEBAQEBAAAAAAAAAAEAEBEhIDFBUf/a"
+         "AAgBAgEBPxCqWz//0MQ8Ht//0cF5nn//0vmu/wD/0zHqGFf/1DCZE//VJ3Ly/9b4vDv/16L0wF//0FcdRv8A/9FYS5Bf/9KGKUv/0ykIN5v/"
+         "1H8R+N//1Yez3v/WyvY//9f18XL/0ImLj//RpTAT/9JSlLD/048cHG//1DekQIeX/9UhCHcT/9YgmJLf/9dZ+Nf/0MBQyv/R0F85f//SWTh4"
+         "v//Tu/Ef/9SVgMP/1YpYPu//1sVMFf/XGGGIX//QaxZJO3//0WOC4f/S+S7/AP/TMPPjv//Up9/HX//V2u3b/9b4L9v/17k7v//Q87auX//R"
+         "WBDyF//S0Hrj/9PenN//1MuXLl//1SCCMP/W+b+//9fAGz//0PDBXrD/0X381X//0jO5n//TTAggv//UD5R//9X4RDy//9bB4zx//9c4Pvc/"
+         "/9CBCa3/0eEJI/YL/9IIIL8Yf//TjrqF/9QgQxGf/9Vd8lkmPu//1uOgIX//1/hQF//Q57BBBC//0eThcv8A/9JweLk3/9N4wu//1OfMD//V"
+         "CD48/9bL/YIL/9cIIjGf/9B/zMdB/9FMOA3/0j2CIUv/0yECCe//1Mwxv7f/1cBCC//Wfg2f/9fOPJ5f/9A96BC//9GTiIQL/9IIEDkCBf/T"
+         "n9jT/9SFy4QF/9XhcIQGP//WUo9Tvd//1zl46f/Qw5dJX//RWn9x/9JSlDj/0/l3/9TEWP1f/9WCO1//1tHLl//Xcpyz/9D+xDDDf//RPkf/"
+         "0n4/O//Td+sCF//Ujy+B/9WcnOd//9bL+wyv/9cYYZjP/9Br8b//0ac794//0jHDymf/0/gHf//Uc/j/AP/Vuww4/9ZZjWt//9fUFK//0P1G"
+         "O1//0fCYxjP/0mOcvc//06527f/UHQxv/9XFa9yv/9ZZb9Rjf//XOXlMZ//QSSYpX//Rfzf/0u3buj//0/kF/wD/1Kzst+7/1YIYeF//1mMY"
+         "kz//11ocP//QZy5jf//R7K6gwb//0kurq6u7/9Pu5sMIv//UCHkmGTf/1UyZZZL/1umDWM//10mZkv/QcLu//9HR74f/0s3O8pv/02sYxb//"
+         "1GS5PWP/1YEMN//WkknP/9ePwP8A/9DjHnxv/9Hwmtepn//SZ3eX/9OPjAQv/9QTnMf/1T5R/9bAhC//1xjmK1v/0GMYMX//0SCOrxy//9Kj"
+         "sX//0wiFMv/U0OP/1eZ3f//Wc2MZ/9dYEMP/0PHIQz//0f1gd0P/0vlr/9OOwr//1HI4s//VYx5F/9bC8dD/1xj98wb/0B8u/wD/0XTzy//S"
+         "j5n7Z//T+Ad//9RznOXl/9WcQw9L/9YZe1//1/nX/9ClLBX/0X7vMf/SrnPL/9Ny+S3/AP/UOAghv//VGPjv/9bB+aH/18B+wwX/0DAVyv/R"
+         "eTl8z//Sp2Cf/9Muxr//1KYk8r//1aUsF7f/1sBo/wD/13LJ5f/Q75K9Qw//0YSbt2//0t5Sf//TJ5Sl2V//1Fek8m//1c9T5O//1lO75Kb/"
+         "13Bickv/0FnTL//RIQnlh//SUpS9x//TEMOs+X//1HKcrvl//9VZkkmf/9YYWz//1ylIYP/Q8pSlK//RWe4xu1//0rTOc7//03DvL//U5PiG"
+         "/wD/1cpYhP/WFg/JTv/XUpfcC//QPyK//9GBCPzP/9Lt2W7n/9OnaL//1CEDkMr/1adv9X//1t68v//X1AIv/9C7iy3/0WLAw//S1uXL/9OW"
+         "Bfwv/9Sf18I//9VYFIer/9YIMZb/11llw3//0BMa1n//0UkmWb//0kmN/Wf/08ruUX//1MOXM//VZZZZb//WXOTj/9drgEt//9Duc1//0YUg"
+         "S5f/0iuTOX//00mZZb//1Flhzl//1SG8F//WjuxBf//XIU1f/9C7zDWf/9FiSYb/0llLMG//04EQz//Ug5UN/9WDRPF//9bjPEyzxf/XCECH"
+         "Mf/Q/UsuYV//0V5LB7el/9KCjr//04Pt+Ixv/9T2gcyGP//Vd/a//8QAJxAAAgICAwEAAwABBQEAAAAAAAERIRAxQVFhcYGRobEgwdHw8eH/"
+         "2gAIAQEAAT8QgIMNmH//0B1IngebNT//0VCCCWNH/9JE2cnhybHP/9NqIS8UK9Wf/9Sbgu9EU0UasZZ//9XZwil0bCzZuP/W2WWe4raNR//X"
+         "Y22IEquBn//QSho8GrOZ/9FtwSkcbsOf/9JdYZIoW4/Mf//T7kOlndsnwf/UwaU81//V+JqH0MLy0f/WSP0INCR/6NQj/9dbPZzsfeP/0HsJ"
+         "2JKIUi8//9Hag8cVrxf/0t9YfT8ERYf/0w2ZNJqGn0//1OLF/E+BqqEP/9VKEE51jE//1nVvE12TiyqOT//XLVWHS6wf/9DabTZCGPktP//R"
+         "kTNhvxdcH//S0DF0kRHY/9NLE8EsQlJ//9SkoYaex6Y+2z//1eB4C6JIJ2o//9bZR0aEWoLX4NP/16XAju1mOA//0CdZOkKhGqg//9H3PQnR"
+         "LkdH/9II5ZoNI8fD/9PY9nqLMCqjWf/UkSolei5mw3n/1dhvIjYUH//WZGF8tkqTNB//1212Mq5Y99H1h//Q0GsIC7P/0RKzkba5EmIP/9JZ"
+         "hkYtpOxEjfR//9NUPk3G+ipjW9n/1OQlCp8C0QD/1UiDiPEF6tkSWf/WbYPUpH3P/9dtipiyb9l7o//Qt/TQaaGKCiR//9Frj/w5sfZqz//S"
+         "Lj0Kn4Jyf//TLdE1GD6/h//USoIg07Psd6P/1WX0Y21J20TSf//Wnsk4LXRejUnB/9dUoNFI7k/8Dj2f/9DmVkXY1wQP/9FGxirAW+D/0rYN"
+         "Z+wWP//TdvTUZdtjyf/UfomzXUr0/9WCGaxIRXofQ//WaZGo5HMXaP/XbwSf/Tlg/9DkITwpg9j/0arLFufxjvs//9JsQOxoZ//Tcy/RDCIB"
+         "IP/UWBrjbhjccHI//9W0iuWN+mnoz//WdsdCwUrB/9d4o9j0ks9m5//Q1sR8Zf/Riuz4wt0Oqj//0otrNTuh9n//05D7OcyJTocKD//UGpws"
+         "vhYf/9VH9KRY0Guyo//WWFT5FQUj/9dP2xCXYipH/9C/TPLCmoKKZP/RmC/o/Vm77Pmz/9Jd+EEXk//TlIrCsRqIRKUf/9Rn2M0hMxNAm/p/"
+         "/9VNNHIx2xiMn//WRfBXwSSkVBE//9ePwURChV2f/9B9j7HIo25P/9EfGFmD/9KT6SYYdFEf/9P+ML0l1I5//9S5DjzA/o3p/9UYecNA5/Z/"
+         "/9b0JmbTkHUn/9dxNYHiaP/QSx2D5Y//0WxrCIka7Gf/0mHHgex2f//T+xP0/gX9iif/1Kc0OpNzi3uT/9UHHEcdjP8A/9ZprBE2VEi1R//X"
+         "BUFLHshqFFH/0Gv+sb+DdbH0Pez/0XcqB7kfQm4w/9Kh94OaJnwf/9PF1RJcPdxR/9R3wew/B0D/1Yo9Jj9Q84R//9aCRIE6NBok/9fuHsfS"
+         "gfQ9n//Qmh+hvMElUjP/0aeMnLJQf//SZ4PwU6wuB//TarAkSZchU6P/1J6GpMr1i+z/1ecn2PI41TKP/9Z5Hc0NuCzY/wBz/9emRimGTcnv"
+         "s//Q55wvs29j/E//0WHLBZ1i/9LsWHxOEfvP/9NmzlVHihvcX//Uf9DjNdjcjdI//9XgO0n5Oxkc3/T/1t1lxSL2ng//10X6JhAY/9BlwNH9"
+         "FSfdgf/RS1wJ6F3SF8nQf//SeOxqUj/sQLP/00SMpjUZzs//1JTsRiO5Yj0Iz//VkhWyI3eH2f/WaDd/BXxdbP/X9y4pPfH/AP/Qf2TH5j7K"
+         "vD//0cnuXgdKP//SCDtogx//0/IQxI/2OoRH/9RNlBoIDfij/9X1zfoJ42f/1gdreCWxpP/Xa+h/+yN+i+P8kfJ//9CbvZZse9DLPw//0R8y"
+         "kSBdn//SWJ5PIX9i9IaP/p//03HD6wX7iP8A/9RXIwO2x8B0P//VfV0N/wCRuIwdDP/W9MPqJuRO/wAn/9dKRWNcfl+j/9ApkVC8CH//0eQx"
+         "YQt8Y//S3oqIb7Ef/9NdsFfYugx//9RUwK+V/9XASRExKP/WXDKSCSLexaP/1y3axrclR//QtGJcDiPof//RcecrZPB6H//SYTwX7H6T/9NV"
+         "psnY54Kf/9QlcJ/5IeDYf//VgFgqsVwxN0f/1n2OrJm8MDP/14BzONjo2V74P//QLhJiRdj/0VYQX6i5xf/SctQwt1h//9PwLMDEWH//1PE/"
+         "PJZ0jZRK3R//1Zh/4PAhks0f/9apUayvWjmx/wD/11jQuz5/R//QsgjaZCf2LtH/0TxTOBd2eT//0jITy8eyEz//0+b/AAWOrwp6GdH/1P8A"
+         "0NijWKo//9XFqXArUhN0f//WU+BaSi3g5Sfg/9eg8CF9lmhdn//QWyg+2LFdH//R3nMcUFzHfR//0oeMLmO2izR//9OEtuTkg4oFTiz/1JBQ"
+         "LDxLdH//1R8OBHZCzcf/1qDcIIUP/9fzNpcLssc8H//Q6g/A1Y/Ix//Rfg0Vzh8Sg//S8Tzo7Mh//9OHjH5kRoP/1PicYxSL+fBT/9XlBf8A"
+         "5NlEhJNWf//WwUTY+PB8n//XfkcV/wAGwvAv5P/QUXoUOCDFF2j/0cJ3nkfM/9KO4/0S+UH/0/KhRabH3BsP/9QZTZRBjf/V1NzWf9inA7aP"
+         "/9ZU0KsxoTC6Gmj/1zo0TtHkXn//0PgLWhH9GL//0cIZYm+cP//S0YiBPgnyDaf/07GIkh1jA//UZayLHof/1UPizrFf3F//1kfkVCiD4iSO"
+         "JEk7P//Xt0L5EyEWJs//0E3o5HL/ACcxRZ//0acVpg2rs0f/0nA7N8j3rH//0+RHwSplbP/UixfjLJPQ/9VeyREsXFEo7T//1pG4E/kY5G3J"
+         "yo//12uW3gnTKjeT/9DYZL4xNH//0RMW9iX8EoZ//9KBVYnD4F7Fwk//01Dk9P6L1BdcQctn/9SUewrfRvHmT//VempOZ7EvOH//1tw1aHQ6"
+         "o/B//9c/7ZzAhH//0EvRKqEujkmD/9E/4Hhlpbs//9IPQ9jZZOuj/9PgG4k3YknKf//UYchhtcD0f//Vw2Mmz//WQuhJEhKVEH//1/CIF4xx"
+         "sRdkFo//0LNmiyo9cf8A/9H0NxWPzseZP//SF+cqS7s//9NORwjeGP/UeoY3YnrQrFo//9VLUCFeSIWf/9b2FLk7H5JHv+n2P//X9hcLsVxs"
+         "J14f/9B5kaZZoL2Loz//0UUGOBn/0n/Rjwmf/9OT+YJLEicn/9R2Qo3WekFvo//VstkCPQ72UWf/1psb8d4zZ//XaxoweVIx/9DsM2h9SPR/"
+         "/9HcDTEi2xOJLI//0towqM7GI//TaNYdXo1ejYP/1HtJj5vA5OBttH//1WqRLR//2Q=="),
+        "d662a85784a021b7b45157bc4f4664de73e6103948745e6ee14d8a9cd2e08b8f", 256, 325),
+    "progressive_grey_q75": (
+        ("/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5"
+         "PTgyPC4zNDL/wgALCAEYAQABAREA/8QAGgAAAwEBAQEAAAAAAAAAAAAAAgMEAQAFBv/aAAgBAQAAAAHzS0iLMHM7MzmVVV0vQhE6CYbGeOWk"
+         "WjgjgiIiyimmlq0qUriItnLS3REBEAAAJ9D3tEAWOd2dRu6XAAgC1rUHOc5zOzMwRER9fd3eAFrBSlJVzGsazdLdBa1L+n3e3lgpa0pQlImb"
+         "DNhMYS0pSn6/OzsEQEFJQlI6RaTDYw1qUpP1IiIZ27vLUlSR7uzTMyMQEA90FrWBtYbBUpSwEcHCIiLuzu9JKkpBz3veILWsAWCx3S3SIiJ6"
+         "J0Trpqrqq4AWAKUpQd3drGNaxc00sy67brbdARBaUJSrOzua973STzTTLstuus1S1qWC1rDu7tY1jWyzzonXZbbbYKEIQHdncW7u6RaU6EoS"
+         "Fdtlli5ZpZQYbDYRERYOCKlJUoarLLK0xRxRhQ99DjM2EClKUKlrWNVlldU0EEEA11110tYxjEzzTzaCwDKq6q6ZPP8AO87zhuuuurc1rWTy"
+         "SSSkALDKKaKaJoYYYhssrsqa1jGJmmmn1YLAXPe5yZJZZcppopoYbGGtKUpwFrAGsY1i0JSjnOc5pkZmILEFgtaxIjIsAAHiNhkZEW73dilr"
+         "WsO7e7d3d7u3uLd3TMjOda1rXg5gmxjGaIiOd29rGsa2dalqAREcNzWtIQwRzuzjY1jVqWpSwwRFjnucQiI4OYPExhs1SlKUAiIte99BYIiI"
+         "iIiRmZuUlKlAICLaaKKGCOCIAADpGRVpSlKgABF1NVNLBzBFawWvS0t9FKkpUsFgDqqqamCI4AAsAzd3fXUtalpUlSm1U1UmAAAZmZ2dnZ7q"
+         "wAFoRPOltNVFJqWpYaRbuYOD9DgiITSzSzspppp1KkpBjGMYIAIfTdnYMkckcp000U6idCAa9724tS1/V7pdkUMUMZ0U0UdPNPOqmmmmgVKS"
+         "r//EACAQAQEBAQADAQEBAQEBAAAAAAABEQIQEiAwIUAxQVD/2gAIAQEAAQUCxjGMYxjGffLlKlc1q1VX51rGMYxjGMZ9xESpWrVqr861jGMY"
+         "xjGfhESpUrWt+9axjGMYxjGfVRESpWt/DWsYxjGMYxniqqr5la1rW/drWMYxjGMYxiqqr51rWt+aqrVvjWtez2ezfirFixYxn46qqqxrWvZ7"
+         "PZrfixYsWLGflvzjWrWvZ7Nb82LFixjPx35xatWrV6eyVKiJ4xjGMZ+O/OKtWr0vSdOa5rlynjGMYxZ5vzrU8RjFWrVq1L/ea5cuXP1VVV+4"
+         "iIiqqrEn95jmOXLnxfGvZq3zjGPV6vV6pykREVVVYk/vMcuY5RVWrV6a3zjHq9Xq9Xq9WfFVVWJHLly5R06Wuqta3zjGPVj1erGfFVVVJ/eY"
+         "5jlyn/OnTquq66SpURIx6vV6vV6rysVV+cSOY5cuU/507du66rnpzXLlzEj1er1Tl6rysVV+o5cuXL/zt27du3Lly5coiJiY/jp06dOvuJUq"
+         "V7fzquq6dOo5jly5cpWtSp09lq1VX7iJUr2dV1XTp1EiIiVK1rXs9lq1VX8Naley1aqrEiIiVrWvZ7PZrfz1rXs1vnGM+Na1rXs1v561r2a3"
+         "zjPjWta17PZrf/gTxEVV8X7iJ+8+qq/cRET/AA1VVfuIiJ/hqqq/cRET/Bqqqr9xERP8NVYsWLyxnxy5cuXPxrWt/OxjGLysWKviOURPOta1"
+         "v54xjFixYq+IiIi+LWta388YxixYsVVRERFVatWtSon44xjF5dR1HTpURERVWrVrUqInxfjGMYsdR1HTpf8AsRERVWrVqVzUREVVVX//xAAU"
+         "EAEAAAAAAAAAAAAAAAAAAACg/9oACAEBAAY/Agwf/8QAHRABAQADAQEBAQEAAAAAAAAAAQAQESAhMTBBUf/aAAgBAQABPyHGU7watcqXFr5w"
+         "qWL9iIYhnn4SGrVrDhznn/nKLB+5HlzjmMYkkkzMynwT8zGLM53+L+xjGJJMzgpS5G3byzLg9PsYxjEhDgDDgIUzN5ZlwPXzGMYxg5AYYhCF"
+         "IMMX8yLIb5ZrGLMkOQEwatYIhhhwWQZD2i3jXYANWrWCGGGG+JZmSYxwWs+opBi15J2ACc7hhw3jVrsCh7yiwHkkxjGsYkzxu3gMRBg+Tj0y"
+         "iwHkkxjGuIk8N28ijAhHxU8sabnHkkkkhIQIQhg49x7/AJe7tsDCGcx5hRjDycFmscRZnpgyEQllMeIRxGPmL6Gt/kjF1FvgjB7QjGEfMFxO"
+         "UgxG0YyHFsSbfAEOAAhD8EFjzCkIQnzkRkZkkmemAQhDKXLguAkIYPzmzi5mZJh7aYaWkJESlJk29vn1tdWlpkPi0tOAzMzH2fFZwdOZOClh"
+         "KZp8Z54mZmZj7KWVPHCBkjzyUpSfGUWAmZmYhiGCeOEDIDBYClKQwNYuEmZmb+wxCGJrGSYQhDDEKU51vGpmZnG+yt2smuU54UgxBMzMzndu"
+         "3DEQQSSWpJtc7hlDKXAcH8QQSSWpJLVq1wShhhmeA5Zt+8gLVqS1atSckQww9AZws9EbUlq1aktSTOCGGGHoDhm3b945jJaktWpJJJnJbhjo"
+         "BmZxv3nzatWrVqSSZmcjbtwhyCNYkl/egLblmNaxZktWrXCYGseIgwfvNuWWYxzt41atWuEmMa8XDi/efcpcDHOGILVq1hwmRjx+Mb647nKX"
+         "AP3gWBBJJMza5PyyghffX1Lgs94FgYPJJMGbXI+eaMer3OfFfrgeceQhwP/aAAgBAQAAABA44u5mokdh+aiAzFMjEvz4KlPTI1734b1Ur0Gf"
+         "C7cMWYZmZUdA0S8Pr0MYydkJOpGDIY/HLLccUtbpqXmjw5e0RgmkwaQz517U3t5Cdk6dgpXdAcSfZmQhDyTsZu2/+UaoVyI+whv7UkIGv/8A"
+         "spMny/8A2Usl3pL0nGqX59V+w1p8j1DMHCtSO6fpCbTz/8QAJRAAAgICAwACAgMBAQAAAAAAAAERITFBEFFhcYGRocHR8LHx/9oACAEBAAE/"
+         "EEFLRBwKmD4jL8jg/Bw0MvqRBHeBjf0hihFqIme2DBZ8qjNZOZiDF4HaasjKlZE/5F5FahnQpsU9DglQ/I4UOg/8gZcGOw0UobjixmEoyfEO"
+         "qySWiSToLb+xcv2KhMhFZXIgvNibgXmxWQ64G3XD4HiQ3B84nQnF9wxw1RfF6n5i6WSokJcGYlvsxgkfr9mR6FLQvH6FJY+j4CsOg24RDPMe"
+         "IqMC6FKv0YoI8kOyMeKcfoc9ncbRA1Y0nrg1QQ7HCVJ6iviDAwPgZUSofkXpHkZjOJTJmLZU3HUkyPJQXkUXBokWN4FLhbPoiPAv7GXD+xSp"
+         "shwW2RJOhX0JgVfh+4V9Dk7RNRDIot4Nh+ihHyHdz8+ye548x0EpFB643Ykr2PuN4Pke2OO8enQz0JeyQ+RkM8GYUyc8BqEFvAobFTkYeiLJ"
+         "/tHziSMiWmNInaGuSWRiEZfoa9jnhidl5U8ZnZYyUSVw5CXj8TEoQNGcFGd8UqPcQSHQSWS0SzXFn9ICPdl+RTyZPvj9h5xkUm5yRf2eJllD"
+         "zbQ4WJGqwOkITYhR8ENiH2Ms/wChzyXeBEGczEayZ7OxsniycmgnwN8HmTfya+DWQcKfozixPSE7yJ12KLyKopNQyQ6CDXFCqZSMgXBHs7Zg"
+         "uingtB+oTtngWm48CIYtF4vSoSxuyaFxqCyK2c8D4EbNSRPhFw5SO+R90f6MeLUSilkbAkpEhRIgRB2hrZchqBXYiDMxbwI5ouMMfhly8jpk"
+         "J6GeTgVtIwk+RfFYfZNMG41M6hiowD4VIvVcFUNGWRoiItk+yTZMLJJ4Z4PifAn0TxH5LVRA8EGiHRBDIILuWJkklmXgVKixaKUYHswF3JSy"
+         "AiIt0QbHN5MMliJssogV7QvArYF5LakW0ChqiB4E6UEExdjGsCiVBP6bhjizHRhpjaIoosxmCnRBMlz0QTeCOWT7JPeC/AT0Lzk8DxF5PCHG"
+         "SHKISg4GQgmCUlnouTxXJoxUVlwTI8TRFJeyx2jDck6VkkMSSaCrHBZg6l+jxPAg0bCGSlDQi4pNx5pXBxGMw0Y6LHwVnobJDJkI5UkkGOyS"
+         "BZEUVLB5cXmWYPAh0RTWDxFieyJMwcipdCzIpCIUVoQGRbHoTnwQnZlgzNEx0XR6j068Jq2aWyDZSkQw8CMsiXyCXEsIrN4JW/BfXwy4bjsX"
+         "owWYSOLLlk6eyaXJNtkkinNGIwleboRis9ymZh8Ge5J2yYmTHk6OKdGPFSnxIiOCJpSX5LtkmyRMsWOhjn+R5XweBB6EX/p3ldMxS69F+QkW"
+         "SQ2FuJKO5dWRH+TP7MQqiOpGrfAn2iaf+DzJNRPItRRhFjiggwWIIVkgw+CPckuydEiHalYJIyZn5mZnKeSalCduD0PwnqLSRD7JF0xpRJJK"
+         "Q6IhOKHfCzbE4k9RVzkVcl9kGi9SZLcep1IoxG494rZs+ZXZ8xS2KQpCkhOzO1RQiieiSEi/rhoL2L1fgurMNiasc9lrJLK5FpmeeP5jDehu"
+         "Nklsbdk58Ht5HZNxPEpq1yrYsoSyQp7YpzImxN9iaVbJt8FRIIlCZEzwrgZoyGx5G+2N7dkw/RsM8cFkqPhPAZZHZ4DvRTRkQzCwKnA/RRmi"
+         "Jyh3GvHIaxrY1wN/A3EjSM07LUHkc1FwzAOI5s8B5jL+JBSRAxk2OOYKO+eNBOGRkP8AgYbghUIbomxzWBBbJEhjIOLH1Q6H5R04Evg25ga4"
+         "MBRng6RIEWixQ2yNY2h7GHJQbB8fgwQnggoKR+C0cR1ISiigSHwbSYn2xkIfSQCuGJZuZjeoe/RhvZGltDbVT9mAeYGlqjUW1kqwOR+Iy50M"
+         "1zFRxL8mJnBlkTEzoEovY1z3x0GVDGUYPxEZCRcGsaIKQhqWBiC8jjJ+USroR9k2xEQTN5LEkjumIy+xZniaM54E2jzM9EBIuHSI0mUT9D4G"
+         "wPEDkUcUZRfDZkdnZZjkx4HJjz4YekJFElfBKqRJqieaK8MQkRGWpEimLC3RqPhwOPg/EWMvlMoiWR44rtubFLDJXkajsMR9xwsaKOxuES54"
+         "OdniUYKTN/RnM5mGqh8D44YJMRQT7ZksjIkKTXwyvJZC6IU6IRnQmjDFDcWJxWT4DV6OgRJwRSQzRG2UX5LR2NgekOxofhdozwzqwZBM/wAl"
+         "uybZj/4Pa7GH3i8uKY4vAvIvApaFnKFcWsaI5Mn9EaYiHsWEUbKQThDUhtnZBkK3Z7ZMtl7hklGeprbINiyS8Gy0QSP8Q0JuT//Z"),
+        "95fcc8848ae5f5940ca3049ceb9aed80721096ffb31a70caf86d309d8046ef8d", 256, 280),
+}
+
+
 # --- the fixture: an M-BEIR tree of JPEG files, captions, a BPE merges file and a BERT vocabulary
 
 
@@ -3480,20 +3997,59 @@ def fixture_image(seed: int) -> np.ndarray:
     return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
 
 
+def fixture_file(form: str, seed: int) -> bytes:
+    """The bytes of one image file of the tree: `jpeg` (the writer above, Pillow's defaults), a progressive
+    JPEG of PROGRESSIVE_FILES, or a PNG of `fixture_image(seed)` through every scanline filter: `png_rgb`,
+    `png_palette` (a 6 x 6 x 6 colour cube), `png_grey`, `png_rgba` (Adam7-interlaced) or `png_rgb16`
+    (the image in the high bytes, seeded noise in the low ones)."""
+    if form in PROGRESSIVE_FILES:
+        return base64.b64decode(PROGRESSIVE_FILES[form][0])
+    img = fixture_image(seed)
+    if form == "jpeg":
+        return jpeg_bytes(img)
+    rng = np.random.default_rng(seed)
+    if form == "png_rgb":
+        return png_bytes(img, 2)
+    if form == "png_palette":
+        level = img.astype(np.int64) * 6 // 256
+        cube = bytes(int(51 * v) for i in range(216) for v in (i // 36, i // 6 % 6, i % 6))
+        return png_bytes((level[..., 0] * 36 + level[..., 1] * 6 + level[..., 2])[..., None], 3, palette=cube)
+    if form == "png_grey":
+        return png_bytes(img.mean(axis=2).astype(np.uint8)[..., None], 0)
+    if form == "png_rgba":
+        return png_bytes(np.concatenate([img, rng.integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)], 2), 6,
+                         interlace=True)
+    if form == "png_rgb16":
+        return png_bytes((img.astype(np.uint16) << 8) | rng.integers(0, 256, img.shape, dtype=np.uint16), 2, 16)
+    raise ValueError(f"unknown fixture form {form}")
+
+
+def fixture_pixels(form: str, seed: int) -> np.ndarray:
+    """What `Image.open(...).convert("RGB")` gives for `fixture_file(form, seed)` where the writer alone
+    says it (a PNG: the samples it wrote, as Pillow converts them): an oracle beside the twin."""
+    img = fixture_image(seed)
+    if form in ("png_rgb", "png_rgba", "png_rgb16"):
+        return img
+    if form == "png_grey":
+        return np.repeat(img.mean(axis=2).astype(np.uint8)[..., None], 3, axis=2)
+    if form == "png_palette":
+        return (img.astype(np.int64) * 6 // 256 * 51).astype(np.uint8)
+    raise ValueError(f"no oracle for {form}")
+
+
 def write_fixture_image(job: tuple) -> None:
-    path, seed = job
+    path, seed, form = job
     with open(path, "wb") as f:
-        f.write(jpeg_bytes(fixture_image(seed)))
+        f.write(fixture_file(form, seed))
 
 
 def twin_digest(path: str) -> str:
-    """sha256 of the twin decoder's pixels of the JPEG file at `path` (a worker of the fixture's pool)."""
+    """sha256 of the twin decoders' pixels of the image file at `path` (a worker of the fixture's pool)."""
     import hashlib
 
     from uniir_tpu_torch.data import jpeg
 
-    with open(path, "rb") as f:
-        return hashlib.sha256(jpeg.decode_twin(f.read(), path).tobytes()).hexdigest()
+    return hashlib.sha256(jpeg.read_image(path, "cpu").tobytes()).hexdigest()
 
 
 def fixture_words(rng, n: int) -> list:
@@ -3545,9 +4101,9 @@ def learn_merges(texts: list, n_merges: int) -> list:
 
 
 def write_entry_point_tree(root: Path, pool) -> dict:
-    """The M-BEIR tree (queries, candidate pool, qrels, instructions, train split, JPEG images) under
-    root/mbeir_data, a merges file and a vocab.txt under root; images written by `pool`'s workers.
-    Returns what the checks need."""
+    """The M-BEIR tree (queries, candidate pool, qrels, instructions, train split, image files: the
+    writer's JPEGs, and P12_FORMS' PNG and progressive JPEG files) under root/mbeir_data, a merges file and
+    a vocab.txt under root; images written by `pool`'s workers.  Returns what the checks need."""
     from uniir_tpu_torch.data.registry import MBEIR_TASK
 
     rng = np.random.default_rng(P12_SEED)
@@ -3563,15 +4119,20 @@ def write_entry_point_tree(root: Path, pool) -> dict:
         return " ".join(rng.choice(vocab, size=int(rng.integers(4, 12)), p=weights)) + f" {i}"
 
     jobs, cands = [], []
+
+    def image_path(name: str, seed: int, form: str) -> str:
+        path = f"mbeir_images/mscoco_images/{name}.{'png' if form.startswith('png') else 'jpg'}"
+        jobs.append((str(mbeir / path), seed, form))
+        return path
+
     for i in range(P12_CANDS):
         modality = ("text", "image", "image,text")[i % 3]
         entry = {"did": f"{P12_DSID}:{i}", "modality": modality, "txt": caption(i) if modality != "image" else ""}
         if modality != "text":
-            entry["img_path"] = f"mbeir_images/mscoco_images/cand_{i}.jpg"
-            jobs.append((str(mbeir / entry["img_path"]), P12_SEED + 1000 + i))
+            entry["img_path"] = image_path(f"cand_{i}", P12_SEED + 1000 + i, P12_FORMS["cand"].get(i, "jpeg"))
         cands.append(entry)
 
-    def query(j: int, qid: str, kind: str) -> dict:
+    def query(j: int, qid: str, kind: str, form: str) -> dict:
         valid = [c for c in cands if f"{kind} -> {c['modality']}" in MBEIR_TASK]
         pos = valid[int(rng.integers(0, len(valid)))]
         q = {"qid": qid, "query_modality": kind, "query_txt": caption(P12_CANDS + j) if kind != "image" else "",
@@ -3581,13 +4142,13 @@ def write_entry_point_tree(root: Path, pool) -> dict:
             if j % 4 == 1 and "img_path" in pos:  # a query that shows its positive's image
                 q["query_img_path"] = pos["img_path"]
             else:
-                q["query_img_path"] = f"mbeir_images/mscoco_images/query_{qid.replace(':', '_')}.jpg"
-                jobs.append((str(mbeir / q["query_img_path"]), P12_SEED + 5000 + j))
+                q["query_img_path"] = image_path(f"query_{qid.replace(':', '_')}", P12_SEED + 5000 + j, form)
         return q
 
-    queries = [query(j, f"{P12_DSID}:{j}", P12_QUERY_KINDS[j % 4]) for j in range(P12_QUERIES)]
-    train = [query(P12_QUERIES + j, f"{P12_DSID}:{P12_QUERIES + j}", P12_QUERY_KINDS[j % 4])
-             for j in range(P12_TRAIN_QUERIES)]
+    queries = [query(j, f"{P12_DSID}:{j}", P12_QUERY_KINDS[j % 4], P12_FORMS["query"].get(j, "jpeg"))
+               for j in range(P12_QUERIES)]
+    train = [query(P12_QUERIES + j, f"{P12_DSID}:{P12_QUERIES + j}", P12_QUERY_KINDS[j % 4],
+                   P12_FORMS["train"].get(j, "jpeg")) for j in range(P12_TRAIN_QUERIES)]
     writing = pool.map(write_fixture_image, jobs, chunksize=16)
 
     def save_jsonl(path: Path, rows: list) -> None:
@@ -3614,7 +4175,8 @@ def write_entry_point_tree(root: Path, pool) -> dict:
             *pieces, *sorted(vocab), "find", "a", "an", "and", "that", "matches", "this", "image", "text"]
     (root / "vocab.txt").write_text("".join(f"{w}\n" for w in dict.fromkeys(bert)))
     list(writing)
-    return {"mbeir": mbeir, "cands": cands, "queries": queries, "images": sorted({p for p, _ in jobs}),
+    return {"mbeir": mbeir, "cands": cands, "queries": queries, "train": train,
+            "images": sorted({p for p, _, _ in jobs}), "forms": {p: (form, seed) for p, seed, form in jobs},
             "n_merges": len(merges)}
 
 
@@ -3660,11 +4222,18 @@ def fixture_configs(root: Path) -> dict:
     train["dataloader_config"]["train_batch_size"] = P12_TRAIN_BS
     train["trainer_config"]["num_train_epochs"] = 1
     train["model"]["clip_bpe_path"] = str(root / "merges.txt")
+    blip_train = cfg["blip_train"]
+    blip_train["dataloader_config"]["train_batch_size"] = P12_BLIP_TRAIN_BS
+    blip_train["trainer_config"]["num_train_epochs"] = 1
+    blip_train["model"]["bert_vocab_path"] = str(root / "vocab.txt")
     cfg["retrieval_bf16"] = json.loads(json.dumps(cfg["retrieval"]))
     cfg["retrieval_bf16"]["retrieval_config"]["pool_dtype"] = "bf16"
     cfg["embed_trained"] = json.loads(json.dumps(cfg["embed"]))  # the trainer's checkpoint, served
     cfg["embed_trained"]["model"]["ckpt_config"]["ckpt_name"] = "clip_sf_epoch_0"
     cfg["embed_trained"]["embed_config"]["embed_dir_name"] = "embed_trained"
+    cfg["blip_embed_trained"] = json.loads(json.dumps(cfg["blip_embed"]))  # BLIP-SF's trained checkpoint, served
+    cfg["blip_embed_trained"]["model"]["ckpt_config"]["ckpt_name"] = "blip_sf_epoch_0"
+    cfg["blip_embed_trained"]["embed_config"]["embed_dir_name"] = "embed_trained"
     paths, changed = {}, []
     (root / "configs").mkdir(exist_ok=True)
     for name, d in cfg.items():
@@ -3682,8 +4251,8 @@ def fixture_configs(root: Path) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, and the native JPEG decoder's calls."""
-    from uniir_tpu_torch.data import jpeg
+    """Every kernel wrapper's launch count, and the native JPEG and PNG decoders' calls."""
+    from uniir_tpu_torch.data import jpeg, png
     from uniir_tpu_torch.ops import attention as A
     from uniir_tpu_torch.ops import image_ops as I
     from uniir_tpu_torch.ops import mlp as M
@@ -3696,6 +4265,7 @@ def launch_counts() -> dict:
     counts = {name: fn.launches for name, fn in wrappers.items()}
     counts.update({name: fn.launches for name, fn in _off_path_kernels()})
     counts["jpeg"] = jpeg.decode_native.calls
+    counts["png"] = png.decode_native.calls
     return counts
 
 
@@ -3845,18 +4415,20 @@ def host_cpu() -> str:
     return f"{name} ({platform.machine()}), {len(os.sched_getaffinity(0))} threads"
 
 
-def drive_entry_points(results: dict, smi: str) -> None:
-    """Phase 12 (module docstring): the CLIs from the shipped YAML files over a tree of JPEG files, with
-    yaml, PIL and regex stubbed out of their PYTHONPATH."""
+def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
+    """Phase 12 (module docstring): the CLIs from the shipped YAML files over a tree of JPEG and PNG files,
+    with yaml, PIL and regex stubbed out of their PYTHONPATH.  `blip_sf_busy_ms`: phase 9's device time of a
+    BLIP-SF train step at P12_BLIP_TRAIN_BS pairs, against which the CLI's step reads its idle share."""
     import hashlib
     import multiprocessing
+    import random
     import tempfile
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
-    from uniir_tpu_torch.data import jpeg
-    from uniir_tpu_torch.data.preprocess import blip_transform, clip_transform
-    from uniir_tpu_torch.data.tokenizers.bert_wordpiece import BertTokenizer
+    from uniir_tpu_torch.data import jpeg, png
+    from uniir_tpu_torch.data import preprocess as P
     from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
+    from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
     from uniir_tpu_torch.models.clip import CLIP_CONFIGS
     from uniir_tpu_torch.models.registry import build_model_from_config, seeded_clip_sf
     from uniir_tpu_torch.core.config import load_config
@@ -3870,25 +4442,81 @@ def drive_entry_points(results: dict, smi: str) -> None:
         tree = write_entry_point_tree(root, pool)
         digests = pool.map(twin_digest, tree["images"], chunksize=8)
         paths = fixture_configs(root)
+        forms = Counter(form for form, _ in tree["forms"].values())
         log(f"phase 12: tree of {len(tree['cands'])} candidates, {len(tree['queries'])} queries, "
-            f"{P12_TRAIN_QUERIES} train queries, {len(tree['images'])} JPEG files (Pillow's defaults, 4:2:0, q75), "
+            f"{P12_TRAIN_QUERIES} train queries, {len(tree['images'])} image files ({forms['jpeg']} baseline JPEG "
+            f"from the writer: Pillow's defaults, 4:2:0, q75; the rest {dict((k, v) for k, v in forms.items() if k != 'jpeg')}), "
             f"{tree['n_merges']} BPE merges, in {time.perf_counter() - t_phase:.1f} s")
 
-        # the decoders: native bit-equal to the twin on every image; the native rate
+        # the decoders: native bit-equal to the twins on every image (the progressive files also to Pillow's
+        # digests, the PNG files to the samples their writer wrote); the native rates
         blobs = {p: Path(p).read_bytes() for p in tree["images"]}
+        natives = {"jpeg": jpeg.decode_native, "png": png.decode_native}
+        kind = {p: jpeg.image_format(b) for p, b in blobs.items()}
+
+        def native(path: str) -> np.ndarray:
+            return natives[kind[path]](blobs[path], path)
+
         t0 = time.perf_counter()
-        arrays = {p: jpeg.decode_native(b, p) for p, b in blobs.items()}
+        arrays = {p: native(p) for p in blobs}
         one_thread = len(blobs) / (time.perf_counter() - t0)
         threads = int(load_config(str(paths["embed"])).dataloader_config.num_workers)
         with ThreadPoolExecutor(threads) as loader_threads:
             t0 = time.perf_counter()
-            list(loader_threads.map(lambda kv: jpeg.decode_native(kv[1], kv[0]), blobs.items()))
+            list(loader_threads.map(native, blobs))
             many = len(blobs) / (time.perf_counter() - t0)
         differ = [p for p, d in zip(tree["images"], digests) if hashlib.sha256(arrays[p].tobytes()).hexdigest() != d]
-        check(not differ, f"phase 12: the native decoder differs from the twin on {len(differ)} images: {differ[:3]}")
-        log(f"phase 12: native decoder bit-equal to the twin on all {len(blobs)} images; native decode "
-            f"{one_thread:.1f} images/s on one thread, {many:.1f} images/s on the loader's {threads} threads "
-            f"(host CPU {host_cpu()}; card {smi})")
+        check(not differ, f"phase 12: the native decoders differ from the twins on {len(differ)} images: {differ[:3]}")
+        for p, (form, seed) in tree["forms"].items():
+            if form in PROGRESSIVE_FILES:
+                check(hashlib.sha256(arrays[p].tobytes()).hexdigest() == PROGRESSIVE_FILES[form][1],
+                      f"phase 12: {p} ({form}) differs from Pillow's pixels")
+            elif form != "jpeg":
+                check(np.array_equal(arrays[p], fixture_pixels(form, seed)), f"phase 12: {p} ({form}) differs from "
+                      "the samples its writer wrote")
+        log(f"phase 12: native decoders bit-equal to the twins on all {len(blobs)} images (the progressive files "
+            f"also to Pillow's digests, the PNG files to their samples); native decode {one_thread:.1f} images/s "
+            f"on one thread, {many:.1f} images/s on the loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
+        for group, member in (("baseline JPEG", lambda f: f == "jpeg"), ("progressive JPEG", PROGRESSIVE_FILES.__contains__),
+                              ("PNG", lambda f: f.startswith("png"))):
+            files = [p for p, (form, _) in tree["forms"].items() if member(form)]
+            repeats = 1 if group == "baseline JPEG" else P12_DECODE_REPEATS
+            t0 = time.perf_counter()
+            for _ in range(repeats):
+                for p in files:
+                    native(p)
+            dt = time.perf_counter() - t0
+            pixels = repeats * sum(arrays[p].shape[0] * arrays[p].shape[1] for p in files)
+            log(f"phase 12: native decode of the {len(files)} {group} files ({repeats} times each, one thread): "
+                f"{repeats * len(files) / dt:.1f} images/s, {pixels / dt / 1e6:.2f} Mpixel/s, "
+                f"{repeats * sum(len(blobs[p]) for p in files) / dt / 1e6:.2f} MB/s of file (host CPU {host_cpu()})")
+
+        # BLIP's train transform on the host: crop, flip and RandAugment per image, on the tree's arrays
+        sample = [arrays[p] for p in tree["images"][:P12_TRANSFORM_SAMPLE]]
+        size = BLIP_VIT_CONFIGS[BLIP_SIZE].image_size
+        randaug = P.RandomAugment(2, 5)
+        random.seed(P12_SEED)
+        t0 = time.perf_counter()
+        crops = [P.random_resized_crop(a, size) for a in sample]
+        t1 = time.perf_counter()
+        crops = [np.ascontiguousarray(c[:, ::-1]) if random.random() < 0.5 else c for c in crops]
+        t2 = time.perf_counter()
+        augmented = [randaug(c) for c in crops]
+        t3 = time.perf_counter()
+        for a in augmented:
+            P.to_normalized_array(a)
+        t4 = time.perf_counter()
+        train_fn = P.blip_transform(size, is_train=True)
+        t5 = time.perf_counter()
+        for a in sample:
+            train_fn(a)
+        transform_ms = (time.perf_counter() - t5) / len(sample) * 1e3
+        n = len(sample)
+        log(f"phase 12: BLIP's train transform (blip_transform({size}, is_train=True)) on {n} of the tree's "
+            f"decoded images, one thread: {transform_ms:.3f} ms an image; split: random_resized_crop "
+            f"{(t1 - t0) / n * 1e3:.3f}, flip {(t2 - t1) / n * 1e3:.3f}, RandAugment(2, 5) "
+            f"{(t3 - t2) / n * 1e3:.3f}, normalise {(t4 - t3) / n * 1e3:.3f} ms (host CPU {host_cpu()})")
+        del sample, crops, augmented
 
         # the in-code reference: phase 2's CLIP-SF and a seeded BLIP-SF large, saved where the configs look
         clip_cfg = CLIP_CONFIGS[MODEL]
@@ -3899,7 +4527,7 @@ def drive_entry_points(results: dict, smi: str) -> None:
         bpe = CLIPTokenizer(bpe_path=str(root / "merges.txt"))
         timing: dict = {}
         ref_clip = in_code_embeds(model, lambda t: bpe(t, context_length=clip_cfg.context_length, truncate=True),
-                                  clip_transform(clip_cfg.image_size), clip_cfg.image_size, tree, arrays, timing)
+                                  P.clip_transform(clip_cfg.image_size), clip_cfg.image_size, tree, arrays, timing)
         decode_s = len(arrays) / one_thread
         for label, d in (("one thread", decode_s + timing["transform_s"]),
                          (f"{threads} threads (decode only spread)", len(arrays) / many + timing["transform_s"])):
@@ -3913,13 +4541,13 @@ def drive_entry_points(results: dict, smi: str) -> None:
         ckpt = root / "checkpoint" / P12_EXPT["blip"]
         ckpt.mkdir(parents=True)
         torch.save(blip.model.state_dict(), ckpt / "blip_sf_large.pth")
-        ref_blip = in_code_embeds(blip.model, blip.tokenizer, blip_transform(blip.image_size[0], is_train=False),
+        ref_blip = in_code_embeds(blip.model, blip.tokenizer, P.blip_transform(blip.image_size[0], is_train=False),
                                   blip.image_size[0], tree, arrays, {})
-        del blip, arrays
+        del blip
         torch.cuda.empty_cache()
         after_reference = launch_counts()
         moved = {k: after_reference[k] - before[k] for k in before
-                 if k not in ("K1", "jpeg") and after_reference[k] != before[k]}
+                 if k not in ("K1", "jpeg", "png") and after_reference[k] != before[k]}
         check(not moved, f"phase 12: the in-code reference launched kernels other than K1: {moved}")
 
         # the runs, as a user makes them: the run scripts' instruct switch, then the CLIs
@@ -3932,7 +4560,8 @@ def drive_entry_points(results: dict, smi: str) -> None:
         env["PYTHONPATH"] = f"{stubs}:{REPO}"
         common = ["--uniir_dir", root, "--mbeir_data_dir", tree["mbeir"], "--device", DEVICE]
         pipeline, updater = "uniir_tpu_torch.tools.pipeline", "uniir_tpu_torch.tools.config_updater"
-        eval_yamls = ("embed", "index", "retrieval", "retrieval_bf16", "blip_embed", "embed_trained")
+        eval_yamls = ("embed", "index", "retrieval", "retrieval_bf16", "blip_embed", "embed_trained",
+                      "blip_embed_trained")
         chains = [
             [(f"instruct_{name}", updater, ["--update_mbeir_yaml_instruct_status", "--mbeir_yaml_file_path",
                                             paths[name], "--enable_instruct", "True"])] for name in eval_yamls]
@@ -3946,6 +4575,9 @@ def drive_entry_points(results: dict, smi: str) -> None:
             [("blip_embed", pipeline, ["--config_path", paths["blip_embed"], *common, "--enable_embed"])],
             [("train", "uniir_tpu_torch.train.trainer", ["--config_path", paths["train"], *common]),
              ("trained_embed", pipeline, ["--config_path", paths["embed_trained"], *common, "--enable_embed"])],
+            [("blip_train", "uniir_tpu_torch.train.trainer", ["--config_path", paths["blip_train"], *common]),
+             ("blip_trained_embed", pipeline, ["--config_path", paths["blip_embed_trained"], *common,
+                                               "--enable_embed"])],
         ]
         with ThreadPoolExecutor(len(chains)) as runner:
             for out in runner.map(lambda c: run_chain(c, env, logs), chains):
@@ -3961,15 +4593,17 @@ def drive_entry_points(results: dict, smi: str) -> None:
                        f"{(logs / 'clip_retrieval_bf16.log').read_text()[-3000:]}")
         for name, (_, seconds, _) in runs.items():
             log(f"phase 12: {name} ran in {seconds:.1f} s (a process of its own; yaml, PIL and regex stubbed out)")
-        log(f"phase 12: the runs took {time.perf_counter() - t0:.1f} s of wall time, three chains at once")
+        log(f"phase 12: the runs took {time.perf_counter() - t0:.1f} s of wall time, four chains at once")
         moved = {k: v - after_reference[k] for k, v in launch_counts().items() if v != after_reference[k]}
         check(not moved, f"phase 12: this process launched kernels or decoded while the runs ran: {moved}")
 
         # what the runs launched: each kernel its run implies, no other
-        want = {"clip_embed": {"K1", "jpeg"}, "blip_embed": {"K1", "jpeg"}, "train": {"K1", "K3", "jpeg"},
-                "trained_embed": {"K1", "jpeg"}, "clip_retrieval_int8": {"K4"}, "clip_retrieval_bf16": {"K2"},
-                "clip_index": set()}
-        may = {"clip_retrieval_int8": {"K2"}}  # the guard's exact re-run of a batch
+        want = {"clip_embed": {"K1", "jpeg", "png"}, "blip_embed": {"K1", "jpeg", "png"},
+                "train": {"K1", "K3", "jpeg"}, "trained_embed": {"K1", "jpeg", "png"},
+                "blip_train": {"K1", "K3", "jpeg", "png"}, "blip_trained_embed": {"K1", "jpeg", "png"},
+                "clip_retrieval_int8": {"K4"}, "clip_retrieval_bf16": {"K2"}, "clip_index": set()}
+        # the guard's exact re-run of a batch; CLIP-SF's 3 steps of 32 leave 24 train pairs out, PNG ones maybe
+        may = {"clip_retrieval_int8": {"K2"}, "train": {"png"}}
         for name, positive in want.items():
             counts = runs[name][2]
             log(f"phase 12: {name} launches {({k: v for k, v in counts.items() if v})}")
@@ -4006,7 +4640,63 @@ def drive_entry_points(results: dict, smi: str) -> None:
                   f"phase 12: the trained checkpoint's {split} embeddings")
         log(f"phase 12: trainer losses (median, average) {losses[-1]}; its checkpoint served: "
             f"{len(trained['cand_pool'][1])} candidates, {len(trained['test'][1])} queries embedded")
+        check_blip_train_run(root, logs, runs["blip_train"], tree, transform_ms, blip_sf_busy_ms)
+        trained_config = load_config(str(paths["blip_embed_trained"]))
+        trained_config.uniir_dir = str(root)  # as the CLI's --uniir_dir sets it: the checkpoint's root
+        blip_trained = build_model_from_config(trained_config, DEVICE)
+        ref_trained = in_code_embeds(blip_trained.model, blip_trained.tokenizer,
+                                     P.blip_transform(blip_trained.image_size[0], is_train=False),
+                                     blip_trained.image_size[0], tree, arrays, {})
+        hold_embeds("BLIP-SF trained", cli_embeds(root, "embed_trained", P12_EXPT["blip"]), ref_trained)
+        del blip_trained, arrays
+        torch.cuda.empty_cache()
     log(f"phase 12 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
+def check_blip_train_run(root: Path, logs: Path, run: tuple, tree: dict, transform_ms: float,
+                         busy_ms: float) -> None:
+    """BLIP-SF's trainer CLI run: K1 / K3 as phase 9 counts a BLIP-SF step (the online and momentum forwards
+    through the ViT's untrimmed blocks, K3 once a block), finite losses, the checkpoint's queue pointer at
+    the steps' pairs; its step time from the trainer's own log, the host transform's share of it and the
+    device's idle share against phase 9's device time of the same step."""
+    from uniir_tpu_torch.core.checkpoint import CHECKPOINT_FILE
+    from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
+
+    _, seconds, counts = run
+    steps = P12_TRAIN_QUERIES // P12_BLIP_TRAIN_BS
+    blocks = BLIP_VIT_CONFIGS[BLIP_SIZE].layers - 1  # the CLS-pooled last block stays plain
+    check(counts["K1"] == 2 * blocks * steps and counts["K3"] == blocks * steps,
+          f"phase 12: BLIP-SF's trainer launched K1 {counts['K1']} / K3 {counts['K3']} times in {steps} steps, "
+          f"not {2 * blocks} / {blocks} a step")
+    text = (logs / "blip_train.log").read_text()
+    losses = re.findall(r"loss: (\S+) \((\S+)\)", text)
+    check(bool(losses) and all(np.isfinite(float(x)) for pair in losses for x in pair),
+          f"phase 12: BLIP-SF's trainer losses {losses}")
+    ckpt = root / "checkpoint" / P12_EXPT["blip"] / "blip_sf_epoch_0" / CHECKPOINT_FILE
+    blob = torch.load(ckpt, map_location="cpu", mmap=True, weights_only=False)
+    queue_size = int(blob["config"]["model"]["queue_size"])
+    ptr, filled = int(blob["queue_ptr"]), int((blob["queue_idx"] != -100).sum())
+    del blob
+    want = steps * P12_BLIP_TRAIN_BS % queue_size
+    check(ptr == want and filled == steps * P12_BLIP_TRAIN_BS,
+          f"phase 12: BLIP-SF's checkpoint has queue_ptr {ptr} ({filled} ids filled), want {want}")
+    # log_every prints the running averages of the step and loader-wait times at the first step and the last
+    timed = re.findall(r"Train Epoch: \[0\] \[\s*\d+/\d+\].*time: ([0-9.]+)\s+data: ([0-9.]+)", text)
+    check(len(timed) == 2, f"phase 12: BLIP-SF's trainer logged {len(timed)} step-time lines, not 2")
+    (first_s, first_data_s), (avg_s, avg_data_s) = ((float(a), float(b)) for a, b in timed)
+    step_ms = (steps * avg_s - first_s) / (steps - 1) * 1e3  # the steps after the first
+    data_ms = (steps * avg_data_s - first_data_s) / (steps - 1) * 1e3
+    train = tree["train"]
+    has_img = {c["did"]: "img_path" in c for c in tree["cands"]}
+    images = sum(("query_img_path" in q) + has_img[q["pos_cand_list"][0]] for q in train) / steps
+    log(f"phase 12: BLIP-SF trainer CLI ({P12_BLIP_TRAIN_BS} pairs a step, {steps} steps; {seconds:.1f} s for the "
+        f"process, three other CLIs running beside it): the first step {first_s * 1e3:.1f} ms, the later ones "
+        f"{step_ms:.1f} ms each by the trainer's log, of it {data_ms:.1f} ms waiting for the loader; queue_ptr {ptr}; "
+        f"K1 {counts['K1']}, K3 {counts['K3']}; losses (median, average) {losses[-1]}")
+    log(f"phase 12: BLIP's train transform on {images:.1f} images a step at {transform_ms:.3f} ms each, one "
+        f"thread: {images * transform_ms:.1f} ms, {images * transform_ms / step_ms:.4f} of the CLI's later steps; "
+        f"the device's idle share of those steps {1 - busy_ms / step_ms:.4f} (phase 9's device time of a BLIP-SF step "
+        f"at {P12_BLIP_TRAIN_BS} pairs, {busy_ms:.2f} ms, against it)")
 
 
 def main() -> None:
@@ -4024,7 +4714,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg")
+    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)
@@ -4109,8 +4799,8 @@ def main() -> None:
     check_attention_bwd(results)
     for name in ("CLIPScoreFusion", "CLIPFeatureFusion"):  # add their K1 / K10 / K3 launches too
         drive_train_path(results, name)
-    for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):  # add their K1 / K3 launches too
-        drive_blip_train_path(results, name)
+    busy_ms = {name: drive_blip_train_path(results, name)  # add their K1 / K3 launches too
+               for name in ("BLIPScoreFusion", "BLIPFeatureFusion")}
     if "--profile" in sys.argv[1:]:
         profile_train_step("CLIPScoreFusion")
         profile_train_step("CLIPFeatureFusion")
@@ -4120,7 +4810,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     drive_processes_path(results)  # adds its ranks' K1 / K3 / K2 launches too
     torch.cuda.empty_cache()
-    drive_entry_points(results, smi)  # adds its runs' K1 / K2 / K3 / K4 launches too
+    # adds its runs' K1 / K2 / K3 / K4 launches too
+    drive_entry_points(results, smi, busy_ms["BLIPScoreFusion"][P12_BLIP_TRAIN_BS])
     for name in ("K10", "K11"):
         check(results[name]["launches"] > 0, f"kernel {name} was not launched on a main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")

@@ -1,7 +1,6 @@
 """Import guard: the port and chip_smoke.py stay free of JAX, flax, Pillow,
-PyYAML, `regex` and the JAX package (the GPU host has none of them).  Pillow
-is imported in one place only, `data/preprocess.py::_pil`, for the
-train-only transforms that still run on it."""
+PyYAML, `regex` and the JAX package (the GPU host has none of them), at any
+depth: not even inside a function."""
 
 import ast
 import os
@@ -28,6 +27,7 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.dataset",
     "uniir_tpu_torch.data.jpeg",
     "uniir_tpu_torch.data.loader",
+    "uniir_tpu_torch.data.png",
     "uniir_tpu_torch.data.preprocess",
     "uniir_tpu_torch.data.registry",
     "uniir_tpu_torch.data.tokenizers.bert_wordpiece",
@@ -71,11 +71,9 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.utils.profiling",
 ]
 FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "yaml", "regex", "uniir_tpu")
-# never imported by the port, at any depth; Pillow only inside the functions named for its file
+# never imported by the port, at any depth; Pillow only inside the functions named for its file (none)
 NEVER = ("jax", "jaxlib", "flax", "uniir_tpu", "yaml", "regex")
-PIL_FUNCTIONS = {"uniir_tpu_torch/data/preprocess.py": ("_pil",)}
-# the train-only transforms of data/preprocess.py, the only callers of `_pil`
-TRAIN_ONLY = {"_autocontrast", "_equalize", "_brightness", "_sharpness", "train_fn"}
+PIL_FUNCTIONS: dict = {}
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -153,19 +151,14 @@ def test_import_walk_sees_inside_functions():
 
 
 def test_pillow_only_for_the_train_only_transforms():
-    """`_pil` is the one function that imports Pillow, and only the
-    train-only transforms call it; the eval transforms, the decoder and the
-    dataset need none."""
-    callers = set()
-
-    def walk(node, function):
-        for child in ast.iter_child_nodes(node):
-            if isinstance(child, ast.Call) and getattr(child.func, "id", None) == "_pil":
-                callers.add(function)
-            walk(child, child.name if isinstance(child, ast.FunctionDef) else function)
-
-    walk(ast.parse((PORT / "data" / "preprocess.py").read_text()), None)
-    assert callers == TRAIN_ONLY
+    """No port file imports Pillow any more, the train transforms included
+    (they run on numpy): no `import PIL` at any depth in any
+    port file or in chip_smoke.py, and no `_pil` helper left to call."""
+    offenders = {str(path.relative_to(REPO)): found for path in PORT_FILES
+                 if (found := [f for f in forbidden_imports(path.read_text()) if f[1] == "PIL"])}
+    assert offenders == {}
+    preprocess = ast.parse((PORT / "data" / "preprocess.py").read_text())
+    assert not [n for n in ast.walk(preprocess) if isinstance(n, ast.FunctionDef) and n.name == "_pil"]
 
 
 def test_chip_smoke_refuses_to_run_without_the_repo(tmp_path):

@@ -1,9 +1,9 @@
 """The JPEG decoders (`uniir_tpu_torch.data.jpeg`): the twin bit-equal to
 Pillow's `Image.open(...).convert("RGB")` (libjpeg-turbo at its defaults) on
-Pillow-made files of every accepted form, the rejected forms raising, the
-JPEG writer of chip_smoke.py readable by Pillow, and (`-m gpu`, on the
-card's machine, where nvcc builds csrc/jpeg.cu) the native decoder
-bit-equal to the twin and to Pillow's digests.
+Pillow-made files of every accepted form, baseline and progressive, the
+rejected forms raising, the JPEG writer of chip_smoke.py readable by Pillow,
+and (`-m gpu`, on the card's machine, where nvcc builds csrc/jpeg.cu) the
+native decoder bit-equal to the twin and to Pillow's digests.
 
 The module imports no JAX and no Pillow at its top, so its `-m gpu` cases
 collect with `--noconftest` on a machine that has neither."""
@@ -150,9 +150,60 @@ def test_twin_matches_pillow_digest(name):
     assert hashlib.sha256(out.tobytes()).hexdigest() == digest
 
 
+@pytest.mark.parametrize("restart", [0, 3], ids=["no_restart", "restart3"])
+@pytest.mark.parametrize("quality", [10, 75, 95])
+@pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:2", "4:2:0"])
+@pytest.mark.parametrize("size", SIZES[:-1], ids=[f"{w}x{h}" for w, h in SIZES[:-1]])
+def test_progressive_twin_is_bit_equal_to_pillow(size, subsampling, quality, restart):
+    """Pillow's `progressive=True` (libjpeg's simple progression: spectral
+    selection, DC and AC successive approximation, a DHT before each scan),
+    with and without restart intervals."""
+    rng = np.random.default_rng(size[0] * 1000 + size[1] + quality + restart)
+    save = {"progressive": True, "quality": quality, "subsampling": subsampling}
+    data, ref = pillow_jpeg(smooth_image(rng, *size), **save, **({"restart_marker_blocks": restart} if restart else {}))
+    assert b"\xff\xc2" in data
+    np.testing.assert_array_equal(jpeg.decode_twin(data), ref)
+
+
+@pytest.mark.parametrize("form", ["greyscale", "optimize", "large", "restart_rows"])
+def test_progressive_twin_on_other_forms(form):
+    from PIL import Image
+
+    arr = smooth_image(np.random.default_rng(len(form)), 517, 263)
+    if form == "greyscale":
+        buf = io.BytesIO()
+        Image.fromarray(arr).convert("L").save(buf, "JPEG", progressive=True)
+        data = buf.getvalue()
+        ref = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    else:
+        save = {"optimize": {"optimize": True}, "large": {}, "restart_rows": {"restart_marker_rows": 2}}[form]
+        data, ref = pillow_jpeg(arr, progressive=True, **save)
+    np.testing.assert_array_equal(jpeg.decode_twin(data), ref)
+
+
+def test_progressive_fixture_files_match_pillows_digests():
+    """chip_smoke.py's progressive files, which the card's decoders are held to."""
+    import chip_smoke
+    from PIL import Image
+
+    for name, (b64, digest, w, h) in chip_smoke.PROGRESSIVE_FILES.items():
+        data = base64.b64decode(b64)
+        out = jpeg.decode_twin(data, name)
+        assert out.shape == (h, w, 3) and hashlib.sha256(out.tobytes()).hexdigest() == digest
+        np.testing.assert_array_equal(out, np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
 def _patched(data: bytes, marker: bytes, offset: int, value: int) -> bytes:
     at = data.index(marker) + offset
     return data[:at] + bytes([value]) + data[at + 1 :]
+
+
+def _partial_progression(data: bytes) -> bytes:
+    """A progressive file cut after its third scan, then EOI: low AC
+    coefficients left unrefined, which libjpeg decodes with block smoothing."""
+    sos = [i for i in range(len(data) - 1) if data[i : i + 2] == b"\xff\xda"]
+    cut = data.rfind(b"\xff\xc4", sos[2], sos[3])
+    return data[: cut if cut > 0 else sos[3]] + b"\xff\xd9"
 
 
 def _rejected():
@@ -160,16 +211,13 @@ def _rejected():
 
     arr = smooth_image(np.random.default_rng(5), 40, 30)
     base, _ = pillow_jpeg(arr)
-    buf = io.BytesIO()
-    Image.fromarray(arr).save(buf, "JPEG", progressive=True)
-    progressive = buf.getvalue()
+    progressive, _ = pillow_jpeg(arr, progressive=True)
     buf = io.BytesIO()
     Image.fromarray(arr).convert("CMYK").save(buf, "JPEG")
     cmyk = buf.getvalue()
     adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"  # APP14, transform 0: RGB
     scan = base.index(b"\xff\xda")
     return {
-        "progressive": (progressive, r"0xFFC2.*progressive"),
         "sof1_extended": (_patched(base, b"\xff\xc0", 1, 0xC1), r"0xFFC1.*SOF1"),
         "sof3_lossless": (_patched(base, b"\xff\xc0", 1, 0xC3), r"0xFFC3.*SOF3"),
         "arithmetic": (_patched(base, b"\xff\xc0", 1, 0xC9), r"0xFFC9.*arithmetic"),
@@ -179,11 +227,18 @@ def _rejected():
         "truncated_scan": (base[: scan + (len(base) - scan) // 2], r"truncated"),
         "truncated_header": (base[:100], r"truncated"),
         "not_a_jpeg": (b"\x89PNG\r\n\x1a\n" + base[8:], r"no SOI"),
+        # a baseline scan (0..63, no approximation) in a progressive frame: jdphuff.c's bad progression
+        "baseline_scan_in_sof2": (_patched(base, b"\xff\xc0", 1, 0xC2), r"0xFFDA.*bad progression"),
+        "progressive_twelve_bit": (_patched(progressive, b"\xff\xc2", 4, 12), r"0xFFC2.*12-bit"),
+        "block_smoothing": (_partial_progression(progressive), r"0xFFDA.*block smoothing"),
+        "truncated_progressive": (progressive[: len(progressive) // 2], r"truncated"),
     }
 
 
-@pytest.mark.parametrize("form", ["progressive", "sof1_extended", "sof3_lossless", "arithmetic", "twelve_bit",
-                                  "four_components", "adobe_rgb", "truncated_scan", "truncated_header", "not_a_jpeg"])
+@pytest.mark.parametrize("form", ["sof1_extended", "sof3_lossless", "arithmetic", "twelve_bit", "four_components",
+                                  "adobe_rgb", "truncated_scan", "truncated_header", "not_a_jpeg",
+                                  "baseline_scan_in_sof2", "progressive_twelve_bit", "block_smoothing",
+                                  "truncated_progressive"])
 def test_rejected_forms_raise_naming_file_and_marker(form):
     data, pattern = _rejected()[form]
     with pytest.raises(ValueError, match=rf"^f\.jpg: .*{pattern}"):
@@ -279,7 +334,31 @@ def test_native_in_threads_and_on_the_writers_forms(native):
 def test_native_rejects_what_the_twin_rejects(native):
     data = base64.b64decode(PILLOW_FILES["rgb_420_q75_17x9"][0])
     scan = data.index(b"\xff\xda")
-    for bad, pattern in [(data[: scan + 40], "truncated"), (_patched(data, b"\xff\xc0", 1, 0xC2), "0xFFC2"),
+    for bad, pattern in [(data[: scan + 40], "truncated"), (_patched(data, b"\xff\xc0", 1, 0xC1), "0xFFC1"),
+                         (_patched(data, b"\xff\xc0", 1, 0xC2), "bad progression"),
                          (_patched(data, b"\xff\xc0", 4, 12), "12-bit"), (b"not a jpeg", "no SOI")]:
         with pytest.raises(ValueError, match=pattern):
             native(bad, "f.jpg")
+
+
+@pytest.mark.gpu
+def test_native_progressive_is_bit_equal_to_twin_and_pillow(native):
+    """chip_smoke.py's Pillow-made progressive files against Pillow's digests,
+    and progressive forms of the writer's images (restarts, smoothing refused)
+    against the twin."""
+    import chip_smoke
+
+    for name, (b64, digest, w, h) in chip_smoke.PROGRESSIVE_FILES.items():
+        out = native(base64.b64decode(b64), name)
+        assert out.shape == (h, w, 3) and hashlib.sha256(out.tobytes()).hexdigest() == digest
+    for name in ("rgb_420_q75_17x9", "rgb_422_q10_33x17", "grey_q75_13x7"):
+        data = base64.b64decode(PILLOW_FILES[name][0])
+        np.testing.assert_array_equal(native(data, name), jpeg.decode_twin(data, name))
+    for b64, *_ in chip_smoke.PROGRESSIVE_FILES.values():
+        data = base64.b64decode(b64)
+        for bad in (data[: len(data) // 2], _partial_progression(data)):
+            with pytest.raises(ValueError) as twin_err:
+                jpeg.decode_twin(bad, "f.jpg")
+            with pytest.raises(ValueError) as native_err:
+                native(bad, "f.jpg")
+            assert ("smoothing" in str(twin_err.value)) == ("smoothing" in str(native_err.value))

@@ -78,13 +78,22 @@ def test_same_size_resize_is_a_copy():
 
 
 def test_train_only_transforms_name_what_needs_pillow(monkeypatch):
-    """Without Pillow the eval transforms run and the train-only ones raise
-    an ImportError that names the transform."""
+    """None of them needs Pillow now: with Pillow blocked, the eval
+    transforms, the train transform and every RandAugment op run and give
+    what they give with Pillow importable."""
+    import random
+
     arr = random_image(np.random.default_rng(1), 40, 30)
+    random.seed(3)
+    train = [preprocess.blip_transform(32, is_train=True)(arr) for _ in range(4)]
+    random.seed(4)
+    ops = [fn(arr, 5) for fn in preprocess.RANDAUG_OPS.values()]
     monkeypatch.setitem(sys.modules, "PIL", None)
     assert preprocess.clip_transform(32)(arr).shape == (32, 32, 3)
     assert preprocess.blip_transform(32, is_train=False)(arr).shape == (32, 32, 3)
-    with pytest.raises(ImportError, match="RandomResizedCrop"):
-        preprocess.blip_transform(32, is_train=True)(arr)
-    with pytest.raises(ImportError, match="AutoContrast"):
-        preprocess.RANDAUG_OPS["AutoContrast"](None, 5)
+    random.seed(3)
+    for want in train:
+        np.testing.assert_array_equal(preprocess.blip_transform(32, is_train=True)(arr), want)
+    random.seed(4)
+    for fn, want in zip(preprocess.RANDAUG_OPS.values(), ops):
+        np.testing.assert_array_equal(fn(arr, 5), want)

@@ -153,6 +153,34 @@ def test_interactive_retriever_matches_jax(trees, modality):
     np.testing.assert_allclose(emb, np.asarray(ref_emb), atol=EMBED_ATOL)
 
 
+@pytest.mark.parametrize("fmt", ["png", "progressive"])
+def test_interactive_retriever_reads_png_and_progressive_like_jax(trees, fmt):
+    """An image query from a PNG file (the port's decoder, every scanline
+    filter) or a progressive JPEG (Pillow's) gives the JAX retriever's
+    candidates: the two packages read the same pixels."""
+    import io
+
+    import chip_smoke
+    from PIL import Image
+
+    arr = np.asarray(Image.open(os.path.join(trees.mbeir, "images", "cand_1.jpg")).convert("RGB"))
+    rel = f"images/query_{fmt}.{'png' if fmt == 'png' else 'jpg'}"
+    if fmt == "png":
+        data = chip_smoke.png_bytes(arr.astype(np.uint16), 2, interlace=True)
+    else:
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", progressive=True, quality=90)
+        data = buf.getvalue()
+    with open(os.path.join(trees.mbeir, rel), "wb") as f:
+        f.write(data)
+    ours, ref = _retrievers(trees)
+    for retriever in (ours, ref):
+        retriever.add_queries([("image", None, rel, "text"), ("image,text", "a red dress", rel, "image")])
+    got, want = ours.retrieve(k=5), ref.retrieve(k=5)
+    assert len(got) == 2 and all(len(r) == 5 for r in got)
+    assert got == want
+
+
 BAD_QUERIES = [
     ("text", None, None, "image"),
     ("text", "a dress", "images/cand_1.jpg", "image"),

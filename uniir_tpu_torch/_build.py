@@ -1,5 +1,5 @@
-"""Build the port's CUDA kernels (and the host JPEG decoder, `csrc/jpeg.cu`)
-at first use and load them with ctypes.
+"""Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`
+and `csrc/png.cu`) at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -33,7 +33,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.c_size_t
 # C entry points of each library: name -> (argtypes); every kernel's returns the
-# CUDA error code of its launch, the JPEG decoder's 0 or 1 (with a message).
+# CUDA error code of its launch, the image decoders' 0 or 1 (with a message).
 SIGNATURES = {
     "attention": {
         "uniir_attention_fused_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
@@ -61,6 +61,9 @@ SIGNATURES = {
     "jpeg": {
         "uniir_jpeg_info": (_P, _S, _P, _P, _I),
         "uniir_jpeg_decode": (_P, _S, _P, _I, _I, _P, _I),
+    },
+    "png": {
+        "uniir_png_decode": (_P, _S, _I, _I, _I, _I, _I, _P, _P, _P, _I),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),
@@ -109,12 +112,13 @@ def library_path(name: str) -> Path:
 
 
 def _compile(name: str, target: Path) -> None:
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a temporary name, then rename: concurrent builders never
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc, *_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = target.with_suffix(".log")
     log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
@@ -152,7 +156,7 @@ def load(name: str) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = list(argtypes)
         getattr(lib, fn).restype = ctypes.c_int
-    if hasattr(lib, "uniir_cuda_error_string"):  # every library but the host-only JPEG decoder
+    if hasattr(lib, "uniir_cuda_error_string"):  # every library but the host-only image decoders
         lib.uniir_cuda_error_string.argtypes = [ctypes.c_int]
         lib.uniir_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib

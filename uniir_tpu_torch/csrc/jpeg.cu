@@ -1,9 +1,13 @@
-// Baseline-JPEG decoder: host code, no kernel.
+// Baseline and progressive JPEG decoder: host code, no kernel.
 //
 // The native twin of uniir_tpu_torch/data/jpeg.py::decode_twin, which is the
 // reference: the same function, bit for bit -- what Pillow's
 // `Image.open(path).convert("RGB")` gives through libjpeg-turbo at its
-// defaults: jidctint.c's integer IDCT (CONST_BITS 13, PASS1_BITS 2, the
+// defaults: jdhuff.c's sequential and jdphuff.c's progressive Huffman
+// decoding (DC first / refinement scans, AC first scans with EOB runs, AC
+// refinement scans) into one coefficient buffer over all scans, each
+// component's quantisation table latched at its first scan (jdinput.c),
+// jidctint.c's integer IDCT (CONST_BITS 13, PASS1_BITS 2, the
 // 10-bit range-limit table), jdsample.c's fancy upsampling (h2v1, h1v2, h2v2
 // triangle filters with their alternating rounding bias, edges replicated;
 // box replication where a 2x-wide component is at most 2 samples wide),
@@ -42,11 +46,18 @@ struct Component {
   int cw = 0, ch = 0;  // sampled width and height
   int bw = 0, bh = 0;  // padded block grid (MCU multiples)
   std::vector<int16_t> coef;  // [bh * bw * 64], natural order
+  int64_t q[64] = {0};  // the quantisation table latched at the component's first scan; zeros if none
+  bool latched = false;
+  int coef_bits[64];  // jdphuff.c: the Al each zigzag position was last sent at; -1: never
+  Component() {
+    for (int& b : coef_bits) b = -1;
+  }
 };
 
 struct Scan {
   int n;
   int comp[3], dc[3], ac[3];
+  int ss = 0, se = 63, ah = 0, al = 0;
 };
 
 struct Decoder {
@@ -61,6 +72,7 @@ struct Decoder {
   std::vector<uint16_t> huff[2][4];  // (code length << 8) | symbol for each 16-bit window; 0: no code
   int restart = 0;
   int n_scans = 0;
+  bool progressive = false;
   bool jfif = false;
   int adobe_transform = -1;
 
@@ -119,6 +131,89 @@ struct BitReader {
 
 inline int extend(uint32_t v, int s) { return v < (1u << (s - 1)) ? (int)v + 1 - (1 << s) : (int)v; }
 
+inline int16_t to16(int64_t v) { return (int16_t)(uint16_t)(v & 0xFFFF); }  // JCOEF is 16-bit
+
+inline uint32_t get_bits(BitReader& br, int n) {
+  if (!n) return 0;
+  uint32_t v = br.peek32() >> (32 - n);
+  br.skip(n);
+  return v;
+}
+
+inline int huff(Decoder& dec, BitReader& br, const std::vector<uint16_t>& lut) {
+  uint16_t e = lut[br.peek32() >> 16];
+  if (!e) dec.fail("marker 0xFFDA: corrupt Huffman code");
+  br.skip(e >> 8);
+  return e & 0xFF;
+}
+
+// jdphuff.c's decode_mcu_DC_first / _DC_refine for one block
+void dc_first(Decoder& dec, BitReader& br, const std::vector<uint16_t>& lut, int al, int64_t& pred, int16_t* out) {
+  int s = huff(dec, br, lut);
+  if (s > 15) dec.fail("marker 0xFFDA: corrupt DC difference");
+  pred += s ? extend(get_bits(br, s), s) : 0;
+  out[0] = to16(pred * ((int64_t)1 << al));
+}
+
+// A correction bit of an already-nonzero coefficient.
+inline void refine(BitReader& br, int16_t* c, int p1) {
+  if (get_bits(br, 1) && !(*c & p1)) *c = to16(*c >= 0 ? *c + p1 : *c - p1);
+}
+
+// decode_mcu_AC_first over one block; returns the EOB run left.
+int64_t ac_first(Decoder& dec, BitReader& br, const std::vector<uint16_t>& lut, const Scan& sc, int64_t eobrun,
+                 int16_t* out) {
+  if (eobrun) return eobrun - 1;
+  for (int k = sc.ss; k <= sc.se; k++) {
+    int rs = huff(dec, br, lut), r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      if (k > sc.se) dec.fail("marker 0xFFDA: corrupt run length");
+      out[kZigzag[k]] = to16((int64_t)extend(get_bits(br, s), s) * ((int64_t)1 << sc.al));
+    } else if (r == 15) {
+      k += 15;
+    } else {
+      return ((int64_t)1 << r) + get_bits(br, r) - 1;
+    }
+  }
+  return 0;
+}
+
+// decode_mcu_AC_refine over one block; returns the EOB run left.
+int64_t ac_refine(Decoder& dec, BitReader& br, const std::vector<uint16_t>& lut, const Scan& sc, int64_t eobrun,
+                  int16_t* out) {
+  int p1 = 1 << sc.al, k = sc.ss;
+  if (!eobrun) {
+    for (; k <= sc.se; k++) {
+      int rs = huff(dec, br, lut), r = rs >> 4, s = rs & 15;
+      if (s) {
+        s = get_bits(br, 1) ? p1 : -p1;  // a newly nonzero coefficient (libjpeg warns when the size is not 1)
+      } else if (r != 15) {
+        eobrun = ((int64_t)1 << r) + get_bits(br, r);
+        break;
+      }
+      for (; k <= sc.se; k++) {  // past already-nonzero coefficients (correcting them) and r zero ones
+        int16_t* c = &out[kZigzag[k]];
+        if (*c) {
+          refine(br, c, p1);
+        } else if (--r < 0) {
+          break;
+        }
+      }
+      if (s) {
+        if (k > sc.se) dec.fail("marker 0xFFDA: corrupt run length");
+        out[kZigzag[k]] = (int16_t)s;
+      }
+    }
+  }
+  if (eobrun) {
+    for (; k <= sc.se; k++)  // the band's rest after the end of block: corrections only
+      if (out[kZigzag[k]]) refine(br, &out[kZigzag[k]], p1);
+    eobrun--;
+  }
+  return eobrun;
+}
+
 void decode_block(Decoder& dec, BitReader& br, const std::vector<uint16_t>& dc, const std::vector<uint16_t>& ac,
                   int64_t& pred, int16_t* out) {
   uint32_t w = br.peek32();
@@ -158,7 +253,6 @@ int u16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
 const char* sof_name(int m) {
   switch (m) {
     case 0xC1: return "SOF1 (extended sequential)";
-    case 0xC2: return "SOF2 (progressive)";
     case 0xC3: return "SOF3 (lossless)";
     case 0xC5: return "SOF5 (differential sequential)";
     case 0xC6: return "SOF6 (differential progressive)";
@@ -261,19 +355,36 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
   if (ns < 1 || ns > (int)dec.comps.size() || len != 4 + 2 * ns) dec.fail("marker 0xFFDA: bad scan header");
   Scan scan;
   scan.n = ns;
+  scan.ss = seg[1 + 2 * ns];
+  scan.se = seg[2 + 2 * ns];
+  scan.ah = seg[3 + 2 * ns] >> 4;
+  scan.al = seg[3 + 2 * ns] & 15;
+  if (!dec.progressive && (scan.ss != 0 || scan.se != 63 || scan.ah != 0 || scan.al != 0))
+    dec.fail("marker 0xFFDA: spectral selection %d..%d is not baseline", scan.ss, scan.se);
+  if (dec.progressive && ((scan.ss == 0 ? scan.se != 0 : (scan.ss > scan.se || scan.se > 63 || ns != 1)) ||
+                          (scan.ah && scan.al != scan.ah - 1) || scan.al > 13))  // jdphuff.c's checks
+    dec.fail("marker 0xFFDA: bad progression: spectral selection %d..%d", scan.ss, scan.se);
+  bool needs_dc = scan.ss == 0 && scan.ah == 0, needs_ac = scan.se > 0;  // a DC refinement reads no table
   for (int s = 0; s < ns; s++) {
     int cid = seg[1 + 2 * s], t = seg[2 + 2 * s], found = -1;
     for (int c = 0; c < (int)dec.comps.size(); c++)
       if (dec.comps[c].id == cid && found < 0) found = c;
     if (found < 0) dec.fail("marker 0xFFDA: scan names an unknown component %d", cid);
     scan.comp[s] = found;
-    scan.dc[s] = t >> 4;
-    scan.ac[s] = t & 15;
-    if (scan.dc[s] > 3 || dec.huff[0][scan.dc[s]].empty()) dec.fail("marker 0xFFDA: scan uses an undefined DC Huffman table %d", scan.dc[s]);
-    if (scan.ac[s] > 3 || dec.huff[1][scan.ac[s]].empty()) dec.fail("marker 0xFFDA: scan uses an undefined AC Huffman table %d", scan.ac[s]);
+    scan.dc[s] = needs_dc ? t >> 4 : 0;  // a table the scan does not read is not looked up
+    scan.ac[s] = needs_ac ? t & 15 : 0;
+    if (needs_dc && (scan.dc[s] > 3 || dec.huff[0][scan.dc[s]].empty()))
+      dec.fail("marker 0xFFDA: scan uses an undefined DC Huffman table %d", scan.dc[s]);
+    if (needs_ac && (scan.ac[s] > 3 || dec.huff[1][scan.ac[s]].empty()))
+      dec.fail("marker 0xFFDA: scan uses an undefined AC Huffman table %d", scan.ac[s]);
+    Component& c = dec.comps[found];
+    if (!c.latched) {  // jdinput.c latches a component's table at its first scan
+      if (!dec.qt_defined[c.tq]) dec.fail("marker 0xFFDA: component uses an undefined quantisation table %d", c.tq);
+      for (int i = 0; i < 64; i++) c.q[i] = dec.qt[c.tq][i];
+      c.latched = true;
+    }
+    for (int k = scan.ss; k <= scan.se; k++) c.coef_bits[k] = scan.al;
   }
-  int ss = seg[1 + 2 * ns], se = seg[2 + 2 * ns], ahl = seg[3 + 2 * ns];
-  if (ss != 0 || se != 63 || ahl != 0) dec.fail("marker 0xFFDA: spectral selection %d..%d is not baseline", ss, se);
   for (auto& c : dec.comps)
     if (c.coef.empty()) c.coef.assign((size_t)c.bh * c.bw * 64, 0);
 
@@ -290,7 +401,7 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
   int64_t total = (int64_t)units_x * units_y;
   int64_t interval = dec.restart ? dec.restart : total;
   BitReader br{dec.d, dec.n, data_start};
-  int64_t pred[3] = {0, 0, 0};
+  int64_t pred[3] = {0, 0, 0}, eobrun = 0;
   for (int64_t u = 0; u < total; u++) {
     if (u > 0 && u % interval == 0) {
       // the interval's leftover bits are dropped; the next one starts after an RSTn marker
@@ -311,6 +422,7 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
       }
       br = BitReader{dec.d, dec.n, p};
       pred[0] = pred[1] = pred[2] = 0;
+      eobrun = 0;
     }
     int r = (int)(u / units_x), q = (int)(u % units_x);
     for (int s = 0; s < ns; s++) {
@@ -321,7 +433,16 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
       for (int y = 0; y < ny; y++)
         for (int x = 0; x < nx; x++) {
           int row = single ? r : r * c.v + y, col = single ? q : q * c.h + x;
-          decode_block(dec, br, dc, ac, pred[s], &c.coef[((size_t)row * c.bw + col) * 64]);
+          int16_t* out = &c.coef[((size_t)row * c.bw + col) * 64];
+          if (!dec.progressive) {
+            decode_block(dec, br, dc, ac, pred[s], out);
+          } else if (scan.ss == 0 && scan.ah == 0) {
+            dc_first(dec, br, dc, scan.al, pred[s], out);
+          } else if (scan.ss == 0) {
+            if (get_bits(br, 1)) out[0] = to16(out[0] | (1 << scan.al));
+          } else {
+            eobrun = scan.ah ? ac_refine(dec, br, ac, scan, eobrun, out) : ac_first(dec, br, ac, scan, eobrun, out);
+          }
           if (br.used_bits > br.real_bits) dec.fail("marker 0xFFDA: truncated JPEG stream");
         }
     }
@@ -340,6 +461,21 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
     dec.pos = q - 1;
     break;
   }
+}
+
+// jdcoefct.c's smoothing_ok after the last scan: libjpeg-turbo smooths a progressive image's blocks when every
+// component's table was latched with its first ten zigzag quantisers nonzero, every DC is at least partly known,
+// and some coefficient of zigzag positions 1..9 is not final.
+bool smooths(const Decoder& dec) {
+  for (const auto& c : dec.comps) {
+    if (!c.latched || c.coef_bits[0] < 0) return false;
+    for (int k = 0; k < 10; k++)
+      if (!c.q[kZigzag[k]]) return false;
+  }
+  for (const auto& c : dec.comps)
+    for (int k = 1; k < 10; k++)
+      if (c.coef_bits[k] != 0) return true;
+  return false;
 }
 
 // Reads markers up to EOI (or, with `header_only`, up to the frame header).
@@ -363,10 +499,12 @@ void parse(Decoder& dec, bool header_only) {
     int len = length - 2;
     if (const char* name = sof_name(marker)) {
       char buf[160];
-      snprintf(buf, sizeof(buf), "marker 0xFF%02X: %s is not supported (baseline SOF0 only)", marker, name);
+      snprintf(buf, sizeof(buf), "marker 0xFF%02X: %s is not supported (baseline SOF0 and progressive SOF2 only)",
+               marker, name);
       throw Error{buf};
     }
-    if (marker == 0xC0) {
+    if (marker == 0xC0 || marker == 0xC2) {
+      dec.progressive = marker == 0xC2;
       read_sof(dec, seg, len);
       if (header_only) return;
     } else if (marker == 0xDB) {
@@ -396,8 +534,9 @@ void parse(Decoder& dec, bool header_only) {
     if (dec.adobe_transform == 0 || (!dec.jfif && dec.adobe_transform < 0 && rgb_ids))
       dec.fail("marker 0xFFEE / component ids: RGB colour (no YCbCr transform) is not supported");
   }
-  for (auto& c : dec.comps)
-    if (!dec.qt_defined[c.tq]) dec.fail("marker 0xFFC0: component uses an undefined quantisation table %d", c.tq);
+  if (dec.progressive && smooths(dec))
+    dec.fail("marker 0xFFDA: the scans leave low coefficients unrefined, which libjpeg decodes with block smoothing "
+             "(not supported)");
 }
 
 // ------------------------------------------------------------- pixel stages
@@ -445,7 +584,7 @@ inline int clamp255(int64_t v) { return v < 0 ? 0 : (v > 255 ? 255 : (int)v); }
 // Component c's samples, [ch][cw].
 std::vector<int32_t> plane(Decoder& dec, const Component& c) {
   std::vector<int32_t> out((size_t)c.cw * c.ch);
-  const int64_t* q = dec.qt[c.tq];
+  const int64_t* q = c.q;
   int nbw = (c.cw + 7) / 8, nbh = (c.ch + 7) / 8;
   int64_t ws[64], in[8], res[8];
   for (int br = 0; br < nbh; br++)

@@ -1,8 +1,9 @@
 """M-BEIR datasets (host-side, framework-free): the port's copy of
 uniir_tpu/data/dataset.py, held equal to it by tests/test_torch_data.py.
-An image file is decoded by `data.jpeg` (no Pillow) into a uint8 HWC array,
-by the decoder of the run's `device` (the native one on the card's host,
-the twin on a CPU run), and that array goes to `img_preprocess_fn`.
+An image file (JPEG or PNG, told apart by its signature) is decoded by
+`data.jpeg.read_image` (no Pillow) into a uint8 HWC array, by the decoders
+of the run's `device` (the native ones on the card's host, the twins on a
+CPU run), and that array goes to `img_preprocess_fn`.
 
 Re-implements the behavioral contract of the reference datasets
 (reference src/data/mbeir_dataset.py:32-411) without torch: items are plain

@@ -1,10 +1,16 @@
-"""Baseline-JPEG decoding with Pillow's pixels, without Pillow.
+"""Image decoding with Pillow's pixels, without Pillow: baseline and
+progressive JPEG here, PNG in `data.png`, picked by the file's signature.
 
-M-BEIR stores every image as a baseline JPEG that Pillow wrote at its
-defaults, and the JAX package reads them with `PIL.Image.open(path).
-convert("RGB")`, which runs libjpeg-turbo at its defaults.  This module
-gives the same uint8 [H, W, 3] array, bit for bit:
+M-BEIR stores its images as JPEG files that Pillow wrote, and the JAX
+package reads any image with `PIL.Image.open(path).convert("RGB")`, which
+runs libjpeg-turbo at its defaults for a JPEG file.  This module gives the
+same uint8 [H, W, 3] array, bit for bit:
 
+  * jdhuff.c's sequential and jdphuff.c's progressive Huffman decoding (DC
+    first and refinement scans, AC first scans with EOB runs, AC refinement
+    scans, restart intervals in either) into one coefficient buffer over
+    all scans, each component's quantisation table latched at its first
+    scan as jdinput.c does;
   * `jidctint.c`'s integer IDCT (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2,
     the 10-bit range-limit table);
   * fancy upsampling (`jdsample.c`: the triangle filters
@@ -14,13 +20,16 @@ gives the same uint8 [H, W, 3] array, bit for bit:
   * `jdcolor.c`'s fixed-point YCbCr -> RGB tables;
   * a greyscale file copied into three channels; no EXIF rotation.
 
-Accepted: SOF0 at 8 bits, 1 or 3 components (YCbCr), each component's
-sampling 1 or 2 times finer in each direction than the largest (4:4:4,
-4:2:2, 4:4:0, 4:2:0), any DQT / DHT tables, DRI with RSTn markers, APPn and
-COM segments skipped, several scans.  Anything else -- SOF1/2/3 and the
-arithmetic-coded frames, 4 components, an Adobe or RGB colour transform,
-12-bit samples, a truncated or corrupt stream -- raises ValueError naming
-the file and the marker.
+Accepted: SOF0 (baseline) and SOF2 (progressive) at 8 bits, 1 or 3
+components (YCbCr), each component's sampling 1 or 2 times finer in each
+direction than the largest (4:4:4, 4:2:2, 4:4:0, 4:2:0), any DQT / DHT
+tables (a DHT between scans holds for the scans after it), DRI with RSTn
+markers, APPn and COM segments skipped, several scans.  Anything else --
+SOF1/3 and the arithmetic-coded frames, 4 components, an Adobe or RGB
+colour transform, 12-bit samples, a progression that leaves one of the
+first ten coefficients unrefined (libjpeg then smooths the blocks), a
+truncated or corrupt stream -- raises ValueError naming the file and the
+marker.
 
 Two decoders compute that function: `decode_twin`, plain Python for the
 markers and Huffman decoding and numpy over all blocks at once for the rest
@@ -30,15 +39,22 @@ markers and Huffman decoding and numpy over all blocks at once for the rest
 `decoder_for(device)` picks one by the run's device: the card's host runs
 the native decoder, a CPU run the twin; a native library that does not
 build or load raises.
+
+`read_image` reads a file of either format by its first bytes, never by its
+name: JPEG (FF D8) and PNG (the eight-byte PNG signature) are decoded; GIF,
+BMP, WebP, TIFF and anything else raise ValueError naming the file and the
+format found.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
+
+from uniir_tpu_torch.data import png
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -46,9 +62,10 @@ ZIGZAG = np.array([
     28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61,
     54, 47, 55, 62, 63,
 ], np.int64)
+ZIGZAG_LIST = ZIGZAG.tolist()
 
 _SOF_NAMES = {
-    0xC1: "SOF1 (extended sequential)", 0xC2: "SOF2 (progressive)", 0xC3: "SOF3 (lossless)",
+    0xC1: "SOF1 (extended sequential)", 0xC3: "SOF3 (lossless)",
     0xC5: "SOF5 (differential sequential)", 0xC6: "SOF6 (differential progressive)", 0xC7: "SOF7 (differential lossless)",
     0xC9: "SOF9 (arithmetic sequential)", 0xCA: "SOF10 (arithmetic progressive)", 0xCB: "SOF11 (arithmetic lossless)",
     0xCD: "SOF13 (arithmetic differential sequential)", 0xCE: "SOF14 (arithmetic differential progressive)",
@@ -63,13 +80,32 @@ class _Frame:
 
     def __init__(self):
         self.width = self.height = 0
+        self.progressive = False
         self.components = []  # [id, h, v, quant table id]
         self.qt = {}
+        self.latched = {}  # component index -> its quantisation table as its first scan found it
         self.huff = {}  # (class, id) -> lookup list
         self.restart = 0
-        self.scans = []  # (component indices, dc table ids, ac table ids, restart, segment bytes)
+        self.scans = []  # _Scan
         self.jfif = False
         self.adobe_transform = None
+
+
+class _Scan(NamedTuple):
+    """One scan: its components, their DC / AC lookup lists as the scan
+    found them (None where the scan reads none), the restart interval, the
+    entropy-coded segments, and the spectral band and successive
+    approximation bits (0, 63, 0, 0 in a baseline frame)."""
+
+    comps: list
+    dc: list
+    ac: list
+    restart: int
+    segments: list
+    ss: int
+    se: int
+    ah: int
+    al: int
 
 
 def _huffman_lut(counts: bytes, symbols: bytes, where: str) -> list:
@@ -115,8 +151,8 @@ def _unstuff(data: bytes, start: int, name: str):
 
 
 def parse(data: bytes, name: str = "<bytes>") -> _Frame:
-    """The frame of a baseline JPEG; ValueError for anything outside the
-    accepted forms (module docstring)."""
+    """The frame of a baseline or progressive JPEG; ValueError for anything
+    outside the accepted forms (module docstring)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     frame, i, n = _Frame(), 2, len(data)
@@ -141,8 +177,9 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
             raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
         where = f"{name}: marker 0xFF{marker:02X}"
         if marker in _SOF_NAMES:
-            raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (baseline SOF0 only)")
-        if marker == 0xC0:
+            raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (baseline SOF0 and progressive SOF2 only)")
+        if marker in (0xC0, 0xC2):
+            frame.progressive = marker == 0xC2
             if frame.components:
                 raise ValueError(f"{where}: a second frame header")
             if len(seg) < 6:
@@ -202,25 +239,36 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
             if not 1 <= ns <= len(frame.components) or len(seg) != 4 + 2 * ns:
                 raise ValueError(f"{where}: bad scan header")
             ids = [c[0] for c in frame.components]
-            comps, dc, ac = [], [], []
+            comps, dc_ids, ac_ids = [], [], []
             for s in range(ns):
                 cid, t = seg[1 + 2 * s], seg[2 + 2 * s]
                 if cid not in ids:
                     raise ValueError(f"{where}: scan names an unknown component {cid}")
                 comps.append(ids.index(cid))
-                dc.append(t >> 4)
-                ac.append(t & 15)
-            ss, se, ahl = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-            if (ss, se, ahl) != (0, 63, 0):
-                raise ValueError(f"{where}: spectral selection {ss}..{se} / approximation {ahl} is not baseline")
-            for t in dc:
-                if (0, t) not in frame.huff:
-                    raise ValueError(f"{where}: scan uses an undefined DC Huffman table {t}")
-            for t in ac:
-                if (1, t) not in frame.huff:
-                    raise ValueError(f"{where}: scan uses an undefined AC Huffman table {t}")
+                dc_ids.append(t >> 4)
+                ac_ids.append(t & 15)
+            ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+            if not frame.progressive and (ss, se, ah, al) != (0, 63, 0, 0):
+                raise ValueError(f"{where}: spectral selection {ss}..{se} / approximation {ah}, {al} is not baseline")
+            if frame.progressive and (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)
+                                      or (ah and al != ah - 1) or al > 13):  # jdphuff.c's checks
+                raise ValueError(f"{where}: bad progression: spectral selection {ss}..{se} / approximation {ah}, {al}")
+            needs_dc, needs_ac = ss == 0 and ah == 0, se > 0  # a DC refinement scan reads no table
+            for cls, table_ids, needed in ((0, dc_ids, needs_dc), (1, ac_ids, needs_ac)):
+                for t in table_ids:
+                    if needed and (cls, t) not in frame.huff:
+                        raise ValueError(f"{where}: scan uses an undefined {('DC', 'AC')[cls]} Huffman table {t}")
+            # the tables as they stand now: a later DHT may redefine them for a later scan
+            dc = [frame.huff[(0, t)] if needs_dc else None for t in dc_ids]
+            ac = [frame.huff[(1, t)] if needs_ac else None for t in ac_ids]
+            for c in comps:  # libjpeg latches a component's table at its first scan
+                if c not in frame.latched:
+                    tq = frame.components[c][3]
+                    if tq not in frame.qt:
+                        raise ValueError(f"{where}: component uses an undefined quantisation table {tq}")
+                    frame.latched[c] = frame.qt[tq].copy()
             segments, i = _unstuff(data, i + 2 + length, name)
-            frame.scans.append((comps, dc, ac, frame.restart, segments))
+            frame.scans.append(_Scan(comps, dc, ac, frame.restart, segments, ss, se, ah, al))
             continue
         elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
             frame.jfif = True
@@ -235,9 +283,6 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
         ids = tuple(c[0] for c in frame.components)
         if frame.adobe_transform == 0 or (not frame.jfif and frame.adobe_transform is None and ids == (82, 71, 66)):
             raise ValueError(f"{name}: marker 0xFFEE / component ids: RGB colour (no YCbCr transform) is not supported")
-    for c in frame.components:
-        if c[3] not in frame.qt:
-            raise ValueError(f"{name}: marker 0xFFC0: component uses an undefined quantisation table {c[3]}")
     return frame
 
 
@@ -254,83 +299,218 @@ def _geometry(frame: _Frame):
     return geo, mcux, mcuy
 
 
+class _Bits:
+    """An MSB-first reader over one restart interval's unstuffed bytes;
+    past the end it reads zeros, and `over` says it did."""
+
+    def __init__(self, segment: bytes):
+        self.buf = segment + b"\x00\x00\x00\x00\x00"
+        self.nbits = 8 * len(segment)
+        self.pos = 0
+
+    def peek(self) -> int:
+        b = self.pos >> 3
+        return (int.from_bytes(self.buf[b : b + 5], "big") >> (8 - (self.pos & 7))) & 0xFFFFFFFF
+
+    def get(self, n: int) -> int:
+        if not n:
+            return 0
+        v = self.peek() >> (32 - n)
+        self.pos += n
+        return v
+
+    def huff(self, lut: list, name: str) -> int:
+        e = lut[self.peek() >> 16]
+        if not e:
+            raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
+        self.pos += e >> 8
+        return e & 0xFF
+
+    def over(self) -> bool:
+        return self.pos > self.nbits
+
+
+def _extend(v: int, s: int) -> int:
+    return v + 1 - (1 << s) if v < (1 << (s - 1)) else v
+
+
+def _int16(v: int) -> int:
+    return ((v + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
+
+
+def _baseline_block(bits: _Bits, dc_lut: list, ac_lut: list, pred: int, row: list, name: str) -> int:
+    """One sequential block (jdhuff.c) into `row`; returns the new DC
+    predictor.  The bit reads are inlined: this is the twin's hot loop."""
+    buf, pos = bits.buf, bits.pos
+    b = pos >> 3
+    window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
+    e = dc_lut[window >> 16]
+    if not e:
+        raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
+    length, s = e >> 8, e & 0xFF
+    if s > 11:
+        raise ValueError(f"{name}: marker 0xFFDA: corrupt DC difference")
+    if s:
+        diff = (window >> (32 - length - s)) & ((1 << s) - 1)
+        pred += diff + 1 - (1 << s) if diff < (1 << (s - 1)) else diff
+    pos += length + s
+    row[0] = ((pred + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
+    k = 1
+    while k < 64:
+        b = pos >> 3
+        window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
+        e = ac_lut[window >> 16]
+        if not e:
+            raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
+        length, rs = e >> 8, e & 0xFF
+        run, s = rs >> 4, rs & 15
+        if s:
+            k += run
+            if k > 63:
+                raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
+            val = (window >> (32 - length - s)) & ((1 << s) - 1)
+            row[ZIGZAG_LIST[k]] = val + 1 - (1 << s) if val < (1 << (s - 1)) else val
+            pos += length + s
+            k += 1
+        else:
+            pos += length
+            if run != 15:
+                break
+            k += 16
+    bits.pos = pos
+    return pred
+
+
+def _refine(bits: _Bits, row: list, pos: int, p1: int) -> None:
+    """A correction bit of an already-nonzero coefficient (jdphuff.c)."""
+    if bits.get(1) and not row[pos] & p1:
+        row[pos] = _int16(row[pos] + (p1 if row[pos] >= 0 else -p1))
+
+
+def _ac_first(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int, name: str) -> int:
+    """decode_mcu_AC_first of jdphuff.c over one block; returns the EOB run left."""
+    if eobrun:
+        return eobrun - 1
+    k = scan.ss
+    while k <= scan.se:
+        rs = bits.huff(lut, name)
+        r, s = rs >> 4, rs & 15
+        if s:
+            k += r
+            if k > scan.se:
+                raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
+            row[ZIGZAG_LIST[k]] = _int16(_extend(bits.get(s), s) << scan.al)
+        elif r == 15:
+            k += 15
+        else:
+            return (1 << r) + bits.get(r) - 1
+        k += 1
+    return 0
+
+
+def _ac_refine(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int, name: str) -> int:
+    """decode_mcu_AC_refine of jdphuff.c over one block; returns the EOB run left."""
+    p1 = 1 << scan.al
+    k = scan.ss
+    if not eobrun:
+        while k <= scan.se:
+            rs = bits.huff(lut, name)
+            r, s = rs >> 4, rs & 15
+            if s:  # a newly nonzero coefficient of magnitude 1 (libjpeg warns when s != 1)
+                s = p1 if bits.get(1) else -p1
+            elif r != 15:
+                eobrun = (1 << r) + bits.get(r)
+                break
+            while k <= scan.se:  # past already-nonzero coefficients (correcting them) and r zero ones
+                pos = ZIGZAG_LIST[k]
+                if row[pos]:
+                    _refine(bits, row, pos, p1)
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                if k > scan.se:
+                    raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
+                row[ZIGZAG_LIST[k]] = s
+            k += 1
+    if eobrun:
+        while k <= scan.se:  # the band's rest after the end of block: corrections only
+            if row[ZIGZAG_LIST[k]]:
+                _refine(bits, row, ZIGZAG_LIST[k], p1)
+            k += 1
+        eobrun -= 1
+    return eobrun
+
+
 def _decode_coefficients(frame: _Frame, name: str) -> list:
     """Each component's quantised coefficients, [block rows, block columns,
-    64] int64 in natural order."""
+    64] int64 in natural order, over all scans."""
     geo, mcux, mcuy = _geometry(frame)
-    coefs = [np.zeros((g[3], g[2], 64), np.int64) for g in geo]
-    for comps, dc_ids, ac_ids, restart, segments in frame.scans:
-        tables = {c: (frame.huff[(0, d)], frame.huff[(1, a)]) for c, d, a in zip(comps, dc_ids, ac_ids)}
+    blocks = [[[0] * 64 for _ in range(g[2] * g[3])] for g in geo]
+    coef_bits = [[-1] * 64 for _ in frame.components]  # jdphuff.c: the last Al each coefficient was sent at
+    for scan in frame.scans:
+        comps = scan.comps
         if len(comps) == 1:  # non-interleaved: one block an MCU, over the component's own blocks
             c = comps[0]
             positions = [(r, q) for r in range(-(-geo[c][1] // 8)) for q in range(-(-geo[c][0] // 8))]
-            layout = [(c, 1, 1, 0, 0)]
+            layout = [(0, c, 1, 1, 0, 0)]
         else:  # interleaved: each component's h x v blocks an MCU
             positions = [(r, q) for r in range(mcuy) for q in range(mcux)]
-            layout = [(c, h, v, y, x) for c in comps for h, v in [frame.components[c][1:3]]
+            layout = [(i, c, h, v, y, x) for i, c in enumerate(comps) for h, v in [frame.components[c][1:3]]
                       for y in range(v) for x in range(h)]
-        steps = [(c, *tables[c], coefs[c].reshape(-1, 64), coefs[c].shape[1], h, v, y, x) for c, h, v, y, x in layout]
-        interval = restart or len(positions)
+        steps = [(i, scan.dc[i], scan.ac[i], blocks[c], geo[c][2], h, v, y, x) for i, c, h, v, y, x in layout]
+        for c in comps:
+            for k in range(scan.ss, scan.se + 1):
+                coef_bits[c][k] = scan.al
+        interval = scan.restart or len(positions)
         n_intervals = -(-len(positions) // interval)
-        if len(segments) < n_intervals:
+        if len(scan.segments) < n_intervals:
             raise ValueError(f"{name}: marker 0xFFDA: corrupt or truncated scan (expected {n_intervals} restart "
-                             f"intervals, found {len(segments)})")
+                             f"intervals, found {len(scan.segments)})")
+        dc_first = frame.progressive and scan.ss == 0 and scan.ah == 0
+        dc_refine = frame.progressive and scan.ss == 0 and scan.ah
+        ac = (_ac_refine if scan.ah else _ac_first) if scan.ss else None
         for k in range(n_intervals):
-            buf = segments[k] + b"\x00\x00\x00\x00\x00"
-            nbits = 8 * len(segments[k])
-            pos = 0
-            pred = dict.fromkeys(comps, 0)
+            bits = _Bits(scan.segments[k])
+            pred = [0] * len(comps)  # DC predictions and the EOB run restart with each interval
+            eobrun = 0
             for r, q in positions[k * interval : (k + 1) * interval]:
-                for c, dc_lut, ac_lut, grid, gw, h, v, y, x in steps:
+                for i, dc_lut, ac_lut, grid, gw, h, v, y, x in steps:
                     row = grid[(r * v + y) * gw + q * h + x]
-                    # DC
-                    b = pos >> 3
-                    window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
-                    e = dc_lut[window >> 16]
-                    if not e:
-                        raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
-                    length, s = e >> 8, e & 0xFF
-                    if s > 11:
-                        raise ValueError(f"{name}: marker 0xFFDA: corrupt DC difference")
-                    diff = 0
-                    if s:
-                        diff = (window >> (32 - length - s)) & ((1 << s) - 1)
-                        if diff < (1 << (s - 1)):
-                            diff += 1 - (1 << s)
-                    pos += length + s
-                    pred[c] += diff
-                    row[0] = ((pred[c] + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
-                    # AC
-                    kk = 1
-                    while kk < 64:
-                        b = pos >> 3
-                        window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
-                        e = ac_lut[window >> 16]
-                        if not e:
-                            raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
-                        length, rs = e >> 8, e & 0xFF
-                        run, s = rs >> 4, rs & 15
-                        if s:
-                            kk += run
-                            if kk > 63:
-                                raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
-                            val = (window >> (32 - length - s)) & ((1 << s) - 1)
-                            if val < (1 << (s - 1)):
-                                val += 1 - (1 << s)
-                            row[ZIGZAG_LIST[kk]] = val
-                            pos += length + s
-                            kk += 1
-                        else:
-                            pos += length
-                            if run != 15:
-                                break
-                            kk += 16
-                    if pos > nbits:
+                    if not frame.progressive:
+                        pred[i] = _baseline_block(bits, dc_lut, ac_lut, pred[i], row, name)
+                    elif dc_first:
+                        s = bits.huff(dc_lut, name)
+                        if s > 15:
+                            raise ValueError(f"{name}: marker 0xFFDA: corrupt DC difference")
+                        pred[i] += _extend(bits.get(s), s) if s else 0
+                        row[0] = _int16(pred[i] << scan.al)
+                    elif dc_refine:
+                        if bits.get(1):
+                            row[0] = _int16(row[0] | (1 << scan.al))
+                    else:
+                        eobrun = ac(bits, ac_lut, scan, row, eobrun, name)
+                    if bits.over():
                         raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream")
-    return coefs
+    if frame.progressive and _smooths(frame, coef_bits):
+        raise ValueError(f"{name}: marker 0xFFDA: the scans leave low coefficients unrefined, which libjpeg "
+                         "decodes with block smoothing (not supported)")
+    return [np.array(b, np.int64).reshape(g[3], g[2], 64) for b, g in zip(blocks, geo)]
 
 
-ZIGZAG_LIST = ZIGZAG.tolist()
+def _smooths(frame: _Frame, coef_bits: list) -> bool:
+    """jdcoefct.c's smoothing_ok after the last scan: libjpeg-turbo smooths a
+    progressive image's blocks when every component's table was latched with
+    its first ten zigzag quantisers nonzero, every DC is at least partly
+    known, and some coefficient of zigzag positions 1..9 is not final."""
+    for c in range(len(frame.components)):
+        q = frame.latched.get(c)
+        if q is None or not all(q[ZIGZAG_LIST[k]] for k in range(10)) or coef_bits[c][0] < 0:
+            return False
+    return any(bits[k] != 0 for bits in coef_bits for k in range(1, 10))
+
 
 # jidctint.c constants (CONST_BITS 13)
 _F = {
@@ -391,7 +571,8 @@ def _plane(frame: _Frame, coefs: list, c: int, geo) -> np.ndarray:
     cw, ch = geo[c][0], geo[c][1]
     # decode only the blocks that hold samples (the rest are MCU padding)
     nbw, nbh = -(-cw // 8), -(-ch // 8)
-    px = idct_islow(blocks[:nbh, :nbw].reshape(-1, 64), frame.qt[frame.components[c][3]])
+    # a component no scan named has no table: libjpeg multiplies by zeros
+    px = idct_islow(blocks[:nbh, :nbw].reshape(-1, 64), frame.latched.get(c, np.zeros(64, np.int64)))
     px = px.reshape(nbh, nbw, 8, 8).transpose(0, 2, 1, 3).reshape(nbh * 8, nbw * 8)
     return px[:ch, :cw].astype(np.int32)
 
@@ -451,7 +632,7 @@ _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 
 
 def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a baseline JPEG."""
+    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a baseline or progressive JPEG."""
     frame = parse(bytes(data), name)
     coefs = _decode_coefficients(frame, name)
     geo, _, _ = _geometry(frame)
@@ -504,8 +685,30 @@ def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     return decode_native if torch.device(device).type == "cuda" else decode_twin
 
 
+# formats Pillow opens that the port does not decode, by their first bytes
+_REFUSED = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+
+
+def image_format(data: bytes) -> str:
+    """The format a file's first bytes name: "jpeg", "png", or the name of
+    a format that is not decoded ("GIF", "BMP", "WebP", "TIFF", "unknown")."""
+    if data[:2] == b"\xff\xd8":
+        return "jpeg"
+    if data[:8] == png.SIGNATURE:
+        return "png"
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return next((label for magic, label in _REFUSED if data.startswith(magic)), "unknown")
+
+
 def read_image(path: str, device) -> np.ndarray:
-    """uint8 [H, W, 3] of the JPEG file at `path`, decoded as a run on `device` decodes."""
+    """uint8 [H, W, 3] of the JPEG or PNG file at `path`, told apart by its
+    signature and decoded as a run on `device` decodes."""
     with open(path, "rb") as f:
         data = f.read()
-    return decoder_for(device)(data, path)
+    kind = image_format(data)
+    if kind == "jpeg":
+        return decoder_for(device)(data, path)
+    if kind == "png":
+        return png.decoder_for(device)(data, path)
+    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG and PNG files are decoded")

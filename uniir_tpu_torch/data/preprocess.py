@@ -20,9 +20,19 @@ statistics.  Mirrors:
     (reference src/models/uniir_blip/backbone/transform/blip_transform.py:8-49)
   * RandAugment 10-op palette (reference .../transform/randaugment.py)
 
-The train-only transforms (`random_resized_crop`, the flip and RandAugment)
-still run on Pillow: `_pil` imports it for them, and raises an ImportError
-naming the transform where Pillow is missing.
+The train transforms work on the array too, each bit-equal to Pillow's op
+on the same image and drawing `random` in the JAX package's order, so a
+seeded `random` gives both packages the same augmentation:
+`random_resized_crop` passes its box to `resize_uint8`, the flip is
+`arr[:, ::-1]`, and RandAugment's ops are Pillow's C code in numpy --
+`ImageOps.autocontrast` / `equalize` as per-channel LUTs from histograms
+(Python floats / integers, as `ImageOps` computes them), `ImageEnhance`'s
+`Image.blend` in float32 (truncated, clipped first where the factor lies
+outside [0, 1]), `ImageFilter.SMOOTH` in float32 with the border copied,
+and the affine ops (shears, translations, `rotate` with its rounded matrix)
+as `ImagingGenericTransform` with bilinear sampling: output centres through
+the matrix in double precision, black outside the image, neighbours
+clamped at its edge, the value truncated.
 
 These host transforms can emit either the fully normalized float image or
 a raw uint8 resize for a device-side preprocessing path.
@@ -30,6 +40,7 @@ a raw uint8 resize for a device-side preprocessing path.
 
 from __future__ import annotations
 
+import math
 import random
 from typing import Callable, Optional
 
@@ -39,19 +50,7 @@ CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], dtype=np.float32)
 CLIP_STD = np.array([0.26862954, 0.26130258, 0.27577711], dtype=np.float32)
 
 BICUBIC, BILINEAR = 3, 2  # PIL.Image.Resampling values
-AFFINE, FLIP_LEFT_RIGHT = 0, 0  # PIL.Image.Transform.AFFINE, PIL.Image.Transpose.FLIP_LEFT_RIGHT
 PRECISION_BITS = 22  # Pillow's Resample.c: 32 - 8 - 2
-
-
-def _pil(transform: str):
-    """(Image, ImageEnhance, ImageOps) for a train-only transform that still
-    runs on Pillow."""
-    try:
-        from PIL import Image, ImageEnhance, ImageOps
-    except ImportError as e:
-        raise ImportError(f"the train-only transform {transform} still runs on Pillow, which is not installed "
-                          "(the eval transforms need none)") from e
-    return Image, ImageEnhance, ImageOps
 
 
 def _bicubic(x: np.ndarray) -> np.ndarray:
@@ -181,7 +180,134 @@ def clip_transform(image_size: int = 224) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# RandAugment (PIL ops, magnitude scale 0..10 like the reference palette)
+# Pillow's point, blend, filter and transform ops on uint8 [H, W, 3] arrays
+# ---------------------------------------------------------------------------
+
+
+def _apply_luts(arr: np.ndarray, luts) -> np.ndarray:
+    """`Image.point` with one 256-entry LUT a channel (values clipped to 0..255)."""
+    out = np.empty_like(arr)
+    for c, lut in enumerate(luts):
+        out[..., c] = np.clip(np.asarray(lut, np.int64), 0, 255).astype(np.uint8)[arr[..., c]]
+    return out
+
+
+def autocontrast(arr: np.ndarray) -> np.ndarray:
+    """`ImageOps.autocontrast(img)`: each channel stretched from its lowest
+    to its highest value, `int(ix * scale + offset)` in doubles."""
+    luts = []
+    for c in range(arr.shape[2]):
+        present = np.flatnonzero(np.bincount(arr[..., c].ravel(), minlength=256))
+        lo, hi = int(present[0]), int(present[-1])
+        if hi <= lo:
+            luts.append(np.arange(256))
+            continue
+        scale = 255.0 / (hi - lo)
+        luts.append(np.trunc(np.arange(256, dtype=np.float64) * scale + (-lo * scale)))
+    return _apply_luts(arr, luts)
+
+
+def equalize(arr: np.ndarray) -> np.ndarray:
+    """`ImageOps.equalize(img)`: each channel through its histogram's
+    cumulative LUT, in integers."""
+    luts = []
+    for c in range(arr.shape[2]):
+        h = np.bincount(arr[..., c].ravel(), minlength=256).astype(np.int64)
+        histo = h[h != 0]
+        step = (int(histo.sum()) - int(histo[-1])) // 255 if len(histo) > 1 else 0
+        if not step:
+            luts.append(np.arange(256))
+            continue
+        luts.append((step // 2 + np.concatenate([[0], np.cumsum(h)[:-1]])) // step)
+    return _apply_luts(arr, luts)
+
+
+def blend(im1: np.ndarray, im2: np.ndarray, alpha: float) -> np.ndarray:
+    """`Image.blend(im1, im2, alpha)` (Blend.c): im1 + alpha * (im2 - im1)
+    in float32, truncated; clipped to 0..255 first where alpha lies outside
+    [0, 1]."""
+    a = np.float32(alpha)
+    v = im1.astype(np.float32) + a * (im2.astype(np.int32) - im1.astype(np.int32)).astype(np.float32)
+    if not 0.0 <= a <= 1.0:
+        v = np.clip(v, 0.0, 255.0)
+    return np.trunc(v).astype(np.uint8)
+
+
+def smooth(arr: np.ndarray) -> np.ndarray:
+    """`img.filter(ImageFilter.SMOOTH)` (Filter.c's 3x3 path): kernel 1 1 1 /
+    1 5 1 / 1 1 1 over 13 as float32 weights, each output 0.5 + the row
+    below, then the row, then the row above (each a left-to-right float32
+    sum), clipped and truncated; the border rows and columns copied, and an
+    image under 3 x 3 returned as it is."""
+    h, w = arr.shape[:2]
+    if h < 3 or w < 3:
+        return arr.copy()
+    k1, k5 = np.float32(1.0) / np.float32(13.0), np.float32(5.0) / np.float32(13.0)
+    f = arr.astype(np.float32)
+    ss = np.full((h - 2, w - 2, arr.shape[2]), 0.5, np.float32)
+    for rows, mid in ((f[2:], k1), (f[1:-1], k5), (f[:-2], k1)):
+        ss += (rows[:, :-2] * k1 + rows[:, 1:-1] * mid) + rows[:, 2:] * k1
+    out = arr.copy()
+    out[1:-1, 1:-1] = np.trunc(np.clip(ss, 0.0, 255.0)).astype(np.uint8)
+    return out
+
+
+def affine_bilinear(arr: np.ndarray, matrix) -> np.ndarray:
+    """`img.transform(img.size, AFFINE, matrix, resample=BILINEAR)`
+    (Geometry.c: `affine_transform` + `bilinear_filter32RGB`), vectorised
+    over the image with one gather of the four neighbours."""
+    a0, a1, a2, a3, a4, a5 = (float(m) for m in matrix[:6])
+    h, w = arr.shape[:2]
+    yc = np.arange(h, dtype=np.float64)[:, None] + 0.5
+    xc = np.arange(w, dtype=np.float64)[None, :] + 0.5
+    xin = a0 * xc + a1 * yc + a2
+    yin = a3 * xc + a4 * yc + a5
+    inside = (xin >= 0.0) & (xin < w) & (yin >= 0.0) & (yin < h)
+    xin, yin = xin - 0.5, yin - 0.5
+    x, y = np.floor(xin), np.floor(yin)
+    dx, dy = (xin - x)[..., None], (yin - y)[..., None]
+    x, y = x.astype(np.int64), y.astype(np.int64)
+    x0, x1 = np.clip(x, 0, w - 1), np.clip(x + 1, 0, w - 1)
+    # y + 1 past the last row: C takes v2 = v1; the clamped row gives the same value
+    row0, row1 = np.clip(y, 0, h - 1) * w, np.clip(y + 1, 0, h - 1) * w
+    flat = arr.reshape(h * w, -1)
+    # the four neighbours in one gather: [4, H, W, C]
+    tl, tr, bl, br = np.take(flat, np.stack([row0 + x0, row0 + x1, row1 + x0, row1 + x1]), axis=0).astype(np.float64)
+    tr -= tl
+    tr *= dx
+    tl += tr  # v1 = a + (b - a) * dx, as BILINEAR() groups it
+    br -= bl
+    br *= dx
+    bl += br  # v2
+    bl -= tl
+    bl *= dy
+    tl += bl  # v1 + (v2 - v1) * dy
+    np.trunc(tl, out=tl)
+    tl *= inside[..., None]  # black outside the source image
+    return tl.astype(np.uint8)
+
+
+def rotate(arr: np.ndarray, angle: float) -> np.ndarray:
+    """`img.rotate(angle, resample=BILINEAR)` (no expand, about the centre):
+    Pillow's fast paths at 0 / 180 (and 90 / 270 of a square), else its
+    matrix, rounded to 15 places, through `affine_bilinear`."""
+    angle = angle % 360.0
+    h, w = arr.shape[:2]
+    if angle == 0:
+        return arr.copy()
+    if angle == 180:
+        return np.ascontiguousarray(arr[::-1, ::-1])
+    if angle in (90, 270) and w == h:
+        return np.ascontiguousarray(np.rot90(arr, 1 if angle == 90 else -1))
+    cx, cy = w / 2, h / 2
+    rad = -math.radians(angle)
+    a, b, d, e = round(math.cos(rad), 15), round(math.sin(rad), 15), round(-math.sin(rad), 15), round(math.cos(rad), 15)
+    c, f = a * -cx + b * -cy + 0.0, d * -cx + e * -cy + 0.0
+    return affine_bilinear(arr, (a, b, c + cx, d, e, f + cy))
+
+
+# ---------------------------------------------------------------------------
+# RandAugment (magnitude scale 0..10 like the reference palette)
 # ---------------------------------------------------------------------------
 
 
@@ -190,45 +316,45 @@ def _identity(img, _):
 
 
 def _autocontrast(img, _):
-    return _pil("AutoContrast")[2].autocontrast(img)
+    return autocontrast(img)
 
 
 def _equalize(img, _):
-    return _pil("Equalize")[2].equalize(img)
+    return equalize(img)
 
 
 def _brightness(img, level):
-    # level in [0,10] -> enhancement factor around 1.0
-    return _pil("Brightness")[1].Brightness(img).enhance(1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
+    # level in [0,10] -> enhancement factor around 1.0; ImageEnhance.Brightness blends with black
+    return blend(np.zeros_like(img), img, 1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
 
 
 def _sharpness(img, level):
-    return _pil("Sharpness")[1].Sharpness(img).enhance(1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
+    return blend(smooth(img), img, 1.0 + (level / 10.0) * 0.9 * random.choice([-1, 1]))
 
 
 def _shear_x(img, level):
     v = (level / 10.0) * 0.3 * random.choice([-1, 1])
-    return img.transform(img.size, AFFINE, (1, v, 0, 0, 1, 0), resample=BILINEAR)
+    return affine_bilinear(img, (1, v, 0, 0, 1, 0))
 
 
 def _shear_y(img, level):
     v = (level / 10.0) * 0.3 * random.choice([-1, 1])
-    return img.transform(img.size, AFFINE, (1, 0, 0, v, 1, 0), resample=BILINEAR)
+    return affine_bilinear(img, (1, 0, 0, v, 1, 0))
 
 
 def _translate_x(img, level):
-    v = (level / 10.0) * 0.45 * img.size[0] * random.choice([-1, 1])
-    return img.transform(img.size, AFFINE, (1, 0, v, 0, 1, 0), resample=BILINEAR)
+    v = (level / 10.0) * 0.45 * img.shape[1] * random.choice([-1, 1])
+    return affine_bilinear(img, (1, 0, v, 0, 1, 0))
 
 
 def _translate_y(img, level):
-    v = (level / 10.0) * 0.45 * img.size[1] * random.choice([-1, 1])
-    return img.transform(img.size, AFFINE, (1, 0, 0, 0, 1, v), resample=BILINEAR)
+    v = (level / 10.0) * 0.45 * img.shape[0] * random.choice([-1, 1])
+    return affine_bilinear(img, (1, 0, 0, 0, 1, v))
 
 
 def _rotate(img, level):
     v = (level / 10.0) * 30 * random.choice([-1, 1])
-    return img.rotate(v, resample=BILINEAR)
+    return rotate(img, v)
 
 
 RANDAUG_OPS = {
@@ -260,9 +386,10 @@ class RandomAugment:
         return img
 
 
-def random_resized_crop(img, size: int, min_scale: float = 0.5, max_scale: float = 1.0, ratio=(3 / 4, 4 / 3)):
-    """torchvision RandomResizedCrop semantics with bicubic resize, on a PIL image."""
-    w, h = img.size
+def random_resized_crop(arr: np.ndarray, size: int, min_scale: float = 0.5, max_scale: float = 1.0,
+                        ratio=(3 / 4, 4 / 3)) -> np.ndarray:
+    """torchvision RandomResizedCrop semantics with bicubic resize, on uint8 [H, W, 3]."""
+    h, w = arr.shape[:2]
     area = w * h
     for _ in range(10):
         target_area = area * random.uniform(min_scale, max_scale)
@@ -273,7 +400,7 @@ def random_resized_crop(img, size: int, min_scale: float = 0.5, max_scale: float
         if 0 < cw <= w and 0 < ch <= h:
             left = random.randint(0, w - cw)
             top = random.randint(0, h - ch)
-            return img.resize((size, size), BICUBIC, box=(left, top, left + cw, top + ch))
+            return resize_uint8(arr, (size, size), BICUBIC, box=(left, top, left + cw, top + ch))
     # Fallback: center crop
     in_ratio = w / h
     if in_ratio < ratio[0]:
@@ -283,7 +410,7 @@ def random_resized_crop(img, size: int, min_scale: float = 0.5, max_scale: float
     else:
         cw, ch = w, h
     left, top = (w - cw) // 2, (h - ch) // 2
-    return img.resize((size, size), BICUBIC, box=(left, top, left + cw, top + ch))
+    return resize_uint8(arr, (size, size), BICUBIC, box=(left, top, left + cw, top + ch))
 
 
 def blip_transform(image_size: int = 224, min_scale: float = 0.5, is_train: bool = True) -> Callable:
@@ -291,12 +418,11 @@ def blip_transform(image_size: int = 224, min_scale: float = 0.5, is_train: bool
     randaug = RandomAugment(2, 5)
 
     def train_fn(arr: np.ndarray) -> np.ndarray:
-        img = _pil("RandomResizedCrop")[0].fromarray(arr)
-        img = random_resized_crop(img, image_size, min_scale=min_scale)
+        img = random_resized_crop(arr, image_size, min_scale=min_scale)
         if random.random() < 0.5:
-            img = img.transpose(FLIP_LEFT_RIGHT)
+            img = np.ascontiguousarray(img[:, ::-1])  # Image.FLIP_LEFT_RIGHT
         img = randaug(img)
-        return to_normalized_array(np.asarray(img))
+        return to_normalized_array(img)
 
     def eval_fn(arr: np.ndarray) -> np.ndarray:
         return to_normalized_array(resize_uint8(arr, (image_size, image_size), BICUBIC))

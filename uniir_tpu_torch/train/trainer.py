@@ -13,8 +13,8 @@ the cosine schedule over all updates (CLIP-FF: the T5 fusion stack at
 in-batch validation, logged to wandb when `wandb_config.enabled` and the
 package is installed.  The file-reading data path is the port's own
 (`uniir_tpu_torch/data`: `build_mbeir_dataset_from_config`, `MBEIRLoader`,
-`EpochShuffleSampler`; images decoded by `data.jpeg` for the model's
-device; BLIP's train-time augmentation still needs Pillow);
+`EpochShuffleSampler`; JPEG and PNG images decoded by `data.jpeg` for the
+model's device; BLIP's train-time augmentation on numpy arrays);
 `train_one_epoch` takes any iterable of collated batches.
 
 BLIP-SF / BLIP-FF train by momentum distillation: one AdamW group (wd
