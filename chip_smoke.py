@@ -3,8 +3,13 @@
 
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
 
-1. builds the port's kernels (uniir_tpu_torch/csrc, nvcc for sm_90a) from the
-   checkout and checks each against its plain PyTorch twin at the shapes the
+0. builds the port's kernels and host image decoders (uniir_tpu_torch/csrc,
+   nvcc for sm_90a) from the checkout, one nvcc a source at once, and (the
+   decoder phase) holds the native GIF decoder and the native JPEG decoder's
+   CMYK, YCCK and RGB forms bit-equal to their twins over 200 seeded files
+   each, sizes 1-600 px, printing their images/s on one thread and on the
+   loader's threads;
+1. checks each kernel against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
    BLIP's L = 197, the `base` configs' shapes (ViT-B/32 vision L = 50 and
    text L = 77 at width 512) and the main path's batch -- its
@@ -121,8 +126,11 @@
    interactive retriever (K1, K2; its time split into embed, pool upload
    and sweep, and the upload and sweep again over a 5.6M x 768 host pool),
    held to `search_dense_index` over the same queries embedded through the
-   twins, and one request of one PNG image query (the native PNG decoder,
-   K1, K2) held the same way to the twins, the PNG twin decoder among them;
+   twins, and one request each of one PNG, one GIF, one BMP and one CMYK
+   JPEG image query (the native PNG / GIF / JPEG decoders -- BMP has one,
+   numpy --, K1, K2) held the same way to the twins, the twin decoders among
+   them, the GIF / BMP / CMYK queries' embeddings also to the same pixels
+   sent as a baseline JPEG (cosine >= 0.999);
    UniRAG's raw retrieval with complement pairs over the int8 pool
    (queries that copy the text candidates: K4 for them, K1 and K2 for the
    complement queries); hard-negative mining (k = 50, 10 a query; K2)
@@ -152,8 +160,9 @@
    of `mscoco_task0`, about 830 image files: JPEG files from the script's
    own writer in Pillow's default form -- 4:2:0, quality 75, short side 256
    --, PNG files from its own PNG writer in five forms through every
-   scanline filter and three Pillow-made progressive JPEGs kept below as
-   base64, under the paths `P12_FORMS` names; a BPE merges file learned
+   scanline filter, three Pillow-made progressive JPEGs kept below as
+   base64, and a GIF, a BMP (RLE8) and CMYK, YCCK and RGB JPEGs from its
+   writers, under the paths `P12_FORMS` names; a BPE merges file learned
    from the captions, a `vocab.txt`, phase 2's CLIP-SF and a seeded BLIP-SF
    `large` saved as `.pth`), reads the shipped
    `configs/clip_sf/large/eval/inbatch/{embed,index,retrieval}.yaml`,
@@ -168,8 +177,8 @@
    of 32 pairs and BLIP-SF's for three of 40 at full width (the numpy train
    transform on the files), each checkpoint then embedded by the pipeline;
    and checks the native decoders bit-equal to the twins on every file (the
-   progressive ones also to Pillow's digests, the PNG ones to the samples
-   written), the CLIs' embeddings against the in-code embed path over the
+   progressive ones also to Pillow's digests, the PNG, GIF and BMP ones to
+   the samples written), the CLIs' embeddings against the in-code embed path over the
    decoded arrays (cosine >= 0.9999 every row, ids equal; BLIP-SF's trained
    checkpoint too), the int8 run's ids against the bf16 run's, the TSV's
    Recall@1/5/10 against the port's search called in code, each run's
@@ -309,6 +318,110 @@ def bound(moved: float, ops: float, ops_per_s: float) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# -------------------------------------------- the decoder phase: GIF and JPEG's colour forms
+
+DECODER_CASES = 200  # seeded files of each native decoder's new forms, sizes 1-600 px
+GIF_CASE_FORMS = ("plain", "interlaced", "local_palette", "short_palette", "transparency", "deferred_clear",
+                  "frame_offset", "grey_palette", "min_code_size")
+# (writer form, per-component sampling or None for the writer's default)
+JPEG_CASE_FORMS = (("cmyk", None), ("cmyk", [(2, 2), (1, 1), (1, 1), (2, 2)]), ("ycck", None), ("ycck", [(1, 1)] * 4),
+                   ("rgb", None), ("rgb", [(2, 2), (1, 1), (1, 1)]), ("rgb_ids", None),
+                   ("rgb_ids", [(1, 1), (2, 1), (1, 1)]))
+
+
+def decoder_case(job: tuple) -> tuple:
+    """(file bytes, sha256 of the twin decoder's pixels) of seeded case k of `kind`: a GIF of one of
+    GIF_CASE_FORMS (indices in runs and noise, so the LZW table fills) or a JPEG of one of JPEG_CASE_FORMS
+    (a smooth field with noise, quality 30-95, restarts now and then); a worker of the decoder phase's pool."""
+    import hashlib
+
+    from uniir_tpu_torch.data import gif, jpeg
+
+    kind, k = job
+    rng = np.random.default_rng(SEED + 7000 + k + (0 if kind == "gif" else 100_000))
+    w, h = int(rng.integers(1, 601)), int(rng.integers(1, 601))
+    if kind == "gif":
+        form = GIF_CASE_FORMS[k % len(GIF_CASE_FORMS)]
+        n_colors = int(rng.integers(1, 257))
+        palette, top, kw = rng.integers(0, 256, 3 * n_colors, dtype=np.uint8).tobytes(), n_colors, {}
+        if form == "interlaced":
+            kw["interlace"] = True
+        elif form == "local_palette":
+            kw["local"] = True
+        elif form == "short_palette":
+            palette, top = palette[: 3 * int(rng.integers(1, 9))], 256
+        elif form == "transparency":
+            kw.update(transparency=int(rng.integers(0, top)), screen=(w + 5, h + 3))
+        elif form == "deferred_clear":
+            kw["deferred_clear"] = True
+        elif form == "frame_offset":
+            kw.update(offset=(int(rng.integers(0, 20)), int(rng.integers(0, 20))),
+                      screen=(int(rng.integers(1, w + 30)), int(rng.integers(1, h + 30))))
+        elif form == "grey_palette":
+            palette, top = bytes(v for i in range(n_colors) for v in (i, i, i)), 256
+        idx = rng.integers(0, top, (h, w))
+        idx = np.where(rng.random((h, 1)) < 0.5, idx[:, :1], idx).astype(np.uint8)
+        bits = int(idx.max()).bit_length()
+        kw["min_code_size"] = max(2, bits, max(1, (max(1, len(palette) // 3) - 1).bit_length()))
+        if form == "min_code_size":
+            kw["min_code_size"] = int(rng.integers(1 if bits <= 1 else bits, 9))
+        data = gif_bytes(idx, palette, **kw)
+        twin = gif.decode_twin
+    else:
+        form, factors = JPEG_CASE_FORMS[k % len(JPEG_CASE_FORMS)]
+        channels = 4 if form in ("cmyk", "ycck") else 3
+        yy, xx = np.mgrid[0:h, 0:w]
+        field = np.stack([(xx * (3 + c) + yy * (2 + 2 * c) + 40 * c) % 256 for c in range(channels)], axis=2)
+        arr = np.clip(field + rng.normal(0, 8, field.shape), 0, 255).astype(np.uint8)
+        data = jpeg_bytes(arr, int(rng.integers(30, 96)), restart=int(rng.choice([0, 0, 3, 7])), form=form,
+                          factors=factors)
+        twin = jpeg.decode_twin
+    return data, hashlib.sha256(twin(data).tobytes()).hexdigest()
+
+
+def check_decoders(smi: str) -> None:
+    """The decoder phase: the native GIF decoder (csrc/gif.cu) and the native JPEG decoder's CMYK, YCCK and
+    RGB forms (csrc/jpeg.cu) held bit-equal to their twins over DECODER_CASES seeded files each, sizes 1-600
+    px (the twins run in a spawn pool); the native decoders' images/s on one thread and on the loader's
+    threads (the shipped embed.yaml's num_workers), beside the card's name and power limit and the host CPU."""
+    import hashlib
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    from uniir_tpu_torch.core.config import load_config
+    from uniir_tpu_torch.data import gif, jpeg
+
+    t_phase = time.perf_counter()
+    threads = int(load_config(str(REPO / P12_CONFIGS["embed"])).dataloader_config.num_workers)
+    with ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=multiprocessing.get_context("spawn")) as pool:
+        cases = {kind: list(pool.map(decoder_case, [(kind, k) for k in range(DECODER_CASES)], chunksize=4))
+                 for kind in ("gif", "jpeg")}
+    log(f"decoder phase: {DECODER_CASES} GIF and {DECODER_CASES} JPEG files written and decoded by the twins in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    for kind, native in (("gif", gif.decode_native), ("jpeg", jpeg.decode_native)):
+        files = [data for data, _ in cases[kind]]
+        calls = native.calls
+        t0 = time.perf_counter()
+        outs = [native(data, f"{kind} case {k}") for k, data in enumerate(files)]
+        one_thread = len(files) / (time.perf_counter() - t0)
+        with ThreadPoolExecutor(threads) as loader_threads:
+            t0 = time.perf_counter()
+            list(loader_threads.map(native, files))
+            many = len(files) / (time.perf_counter() - t0)
+        check(native.calls - calls == 2 * len(files), f"decoder phase: the native {kind} decoder counted "
+              f"{native.calls - calls} calls for {2 * len(files)} decodes")
+        differ = [k for k, ((_, digest), out) in enumerate(zip(cases[kind], outs))
+                  if hashlib.sha256(out.tobytes()).hexdigest() != digest]
+        check(not differ, f"decoder phase: the native {kind} decoder differs from its twin on cases {differ[:5]}")
+        pixels = sum(out.shape[0] * out.shape[1] for out in outs)
+        forms = GIF_CASE_FORMS if kind == "gif" else sorted({f for f, _ in JPEG_CASE_FORMS})
+        log(f"decoder phase: native {kind} bit-equal to its twin on {len(files)} files ({', '.join(forms)}; "
+            f"{pixels / len(files):.0f} pixels a file on average); {one_thread:.1f} images/s "
+            f"({pixels * one_thread / len(files) / 1e6:.2f} Mpixel/s) on one thread, {many:.1f} images/s on the "
+            f"loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
+    log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
 # ---------------------------------------------------------------- phase 1: K1
@@ -2582,6 +2695,75 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
     hold_request_to_twins("interactive retriever, PNG query", got, emb, plain, index, cands)
     log(f"interactive retriever, one PNG image query ({png_rel}, {fixture_image(SEED + 12).shape}, decoded natively "
         f"{decoded} times): its {K} candidates {[c['did'] for c in got[0]]}")
+    for k, form in enumerate(TOOLS_FORMS):
+        drive_image_query(results, image_bundle, index_path, cands_path, index, cands, form, SEED + 13 + k, per_batch)
+
+
+TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk")  # phase 10's image queries beyond PNG, as `fixture_file` writes them
+QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
+
+
+def swapped_decoders():
+    """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call);
+    call the result to swap them back."""
+    from uniir_tpu_torch.data import gif, jpeg, png
+
+    saved = [(m, m.decoder_for) for m in (gif, jpeg, png)]
+    for module, _ in saved:
+        module.decoder_for = lambda device, module=module: module.decode_twin
+
+    def restore() -> None:
+        for module, fn in saved:
+            module.decoder_for = fn
+
+    return restore
+
+
+def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, index, cands: list, form: str, seed: int,
+                      per_batch: int) -> None:
+    """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG)
+    through the interactive retriever: the native decoder (GIF / JPEG; BMP has one decoder), K1, K2; held to
+    the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
+    its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
+    from uniir_tpu_torch.data import gif, jpeg
+    from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
+
+    root = str(WORK)
+    rel = f"images/query_{form}.{FORM_SUFFIX.get(form, 'jpg')}"
+    path = os.path.join(root, "mbeir_data", rel)
+    Path(path).write_bytes(fixture_file(form, seed))
+    native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native}.get(form)
+
+    def request(query_rel: str):
+        retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
+                                         device=DEVICE)
+        retriever.add_queries([("image", None, query_rel, "text")])
+        return retriever
+
+    retriever = request(rel)
+    zero_tools_counts()
+    calls = native.calls if native else 0
+    got = retriever.retrieve(k=K)
+    torch.cuda.synchronize()
+    read_tools_counts(results, f"interactive retriever, {form} query", {"K1": per_batch, "K2": 1, "K4": 0})
+    if native:
+        decoded = native.calls - calls  # the loader pads the one query's batch by repeating its row
+        check(decoded == BATCH, f"the {form} query went through the native decoder {decoded} times, not {BATCH}")
+    emb = retriever._embed_queries()
+    restore = swapped_decoders()
+    try:
+        plain = twin_embeds(retriever)
+        pixels = jpeg.read_image(path, "cpu")
+    finally:
+        restore()
+    hold_request_to_twins(f"interactive retriever, {form} query", got, emb, plain, index, cands)
+    baseline_rel = f"images/query_{form}_as_baseline.jpg"
+    Path(os.path.join(root, "mbeir_data", baseline_rel)).write_bytes(jpeg_bytes(pixels, 95, sampling=(1, 1)))
+    as_jpeg = request(baseline_rel)._embed_queries()
+    cos = cosine(torch.from_numpy(emb).float(), torch.from_numpy(as_jpeg).float())
+    log(f"interactive retriever, one {form} image query ({rel}, {pixels.shape}): its {K} candidates "
+        f"{[c['did'] for c in got[0]]}; cosine to the same pixels as a baseline JPEG (q95, 4:4:4) {cos}")
+    check(cos >= QUERY_COS, f"the {form} query embeds away from the same pixels as a baseline JPEG: cosine {cos}")
 
 
 def hold_request_to_twins(path: str, got: list, emb: np.ndarray, plain: np.ndarray, index, cands: list) -> None:
@@ -3385,8 +3567,9 @@ P12_TRANSFORM_SAMPLE = 100  # images BLIP's train transform is timed on
 # image-bearing ones: candidates with i % 3 != 0, queries with j % 4 == 2); any other image is `jpeg`
 P12_FORMS = {
     "cand": {1: "png_rgb", 2: "png_palette", 4: "png_grey", 5: "png_rgba", 7: "png_rgb16", 8: "progressive_420_q75",
-             10: "progressive_444_q75_restart5", 11: "progressive_grey_q75"},
-    "query": {2: "png_rgb", 6: "progressive_420_q75", 10: "png_grey"},
+             10: "progressive_444_q75_restart5", 11: "progressive_grey_q75", 13: "gif", 14: "bmp", 16: "jpeg_cmyk",
+             17: "jpeg_ycck", 19: "jpeg_rgb"},
+    "query": {2: "png_rgb", 6: "progressive_420_q75", 10: "png_grey", 14: "gif", 18: "bmp", 22: "jpeg_cmyk"},
     "train": {2: "png_palette", 6: "png_rgb16", 10: "progressive_444_q75_restart5", 14: "png_rgba",
               18: "progressive_grey_q75"},
 }
@@ -3465,21 +3648,53 @@ def pack_bits(codes: np.ndarray, lengths: np.ndarray) -> bytes:
     return np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
 
 
-def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: int = 0) -> bytes:
+# the colour forms the writer takes beyond YCbCr / grey: (component ids, quantisation and Huffman table of each,
+# Adobe APP14 transform or None, JFIF); libjpeg's jpeg_set_colorspace writes RGB and CMYK with ids 'R' 'G' 'B' /
+# 'C' 'M' 'Y' 'K', table 0 for every component and an Adobe marker, YCCK with ids 1-4, tables 0, 1, 1, 0
+JPEG_FORMS = {
+    "ycbcr": ((1, 2, 3), (0, 1, 1), None, True),
+    "rgb": ((82, 71, 66), (0, 0, 0), 0, False),  # Adobe transform 0: RGB as stored
+    "rgb_ids": ((82, 71, 66), (0, 0, 0), None, False),  # no marker: RGB by the component ids alone
+    "cmyk": ((67, 77, 89, 75), (0, 0, 0, 0), 0, False),
+    "ycck": ((1, 2, 3, 4), (0, 1, 1, 0), 2, False),
+}
+
+
+def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: int = 0, form: str = "ycbcr",
+               factors=None) -> bytes:
     """A baseline JPEG of uint8 [H, W, 3] (YCbCr, the luma sampled `sampling` = (h, v) times as finely as
     the chroma) or [H, W] (greyscale), in the form Pillow writes at its defaults: JFIF, Annex K tables
-    scaled to `quality`, one interleaved scan; `restart` MCUs between RSTn markers (0: none)."""
+    scaled to `quality`, one interleaved scan; `restart` MCUs between RSTn markers (0: none).
+
+    `form` (JPEG_FORMS) writes other colour spaces as libjpeg does: "rgb" (Adobe transform 0) and "rgb_ids"
+    (no marker, ids 'R' 'G' 'B') store [H, W, 3] as it is; "cmyk" (Adobe transform 0) stores [H, W, 4] as it
+    is, and "ycck" (Adobe transform 2) stores the YCbCr of (255 - C, 255 - M, 255 - Y) and K, libjpeg's
+    cmyk_ycck_convert: the 4 channels are the CMYK values the file holds (Pillow writes 255 minus its
+    CMYK).  `factors` gives each component's (h, v) sampling; by default every component of "rgb" /
+    "cmyk" is 1x1 (libjpeg's default) and "ycck" samples Y and K by `sampling`."""
     grey = image.ndim == 2
     h_img, w_img = image.shape[:2]
     px = image.astype(np.float64)
+    ids, tq, adobe, jfif = ((1,), (0,), None, True) if grey else JPEG_FORMS[form]
+
+    def ycc(r, g, b):
+        return [0.299 * r + 0.587 * g + 0.114 * b, -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
+                0.5 * r - 0.418688 * g - 0.081312 * b + 128]
+
     if grey:
-        planes, factors = [px], [(1, 1)]
+        planes, default = [px], [(1, 1)]
+    elif form == "ycbcr":
+        planes, default = ycc(px[..., 0], px[..., 1], px[..., 2]), [tuple(sampling), (1, 1), (1, 1)]
+    elif form == "ycck":
+        planes = ycc(255 - px[..., 0], 255 - px[..., 1], 255 - px[..., 2]) + [px[..., 3]]
+        default = [tuple(sampling), (1, 1), (1, 1), tuple(sampling)]
     else:
-        r, g, b = px[..., 0], px[..., 1], px[..., 2]
-        planes = [0.299 * r + 0.587 * g + 0.114 * b, -0.168736 * r - 0.331264 * g + 0.5 * b + 128,
-                  0.5 * r - 0.418688 * g - 0.081312 * b + 128]
-        factors = [tuple(sampling), (1, 1), (1, 1)]
-    hmax, vmax = factors[0]
+        planes = [px[..., c] for c in range(image.shape[2])]
+        default = [(1, 1)] * len(planes)
+    if len(planes) != len(ids):
+        raise ValueError(f"form {form} takes {len(ids)} channels, not {len(planes)}")
+    factors = [tuple(f) for f in (factors or default)]
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
     mcux, mcuy = -(-w_img // (8 * hmax)), -(-h_img // (8 * vmax))
     tables = [jpeg_quant_table(JPEG_LUMA_Q, quality), jpeg_quant_table(JPEG_CHROMA_Q, quality)]
     dct = np.array([[np.sqrt((1 if u == 0 else 2) / 8) * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
@@ -3491,7 +3706,7 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
         plane = plane.reshape(plane.shape[0] // fy, fy, plane.shape[1] // fx, fx).mean(axis=(1, 3))
         blocks = plane.reshape(plane.shape[0] // 8, 8, plane.shape[1] // 8, 8).transpose(0, 2, 1, 3) - 128.0
         coef = np.einsum("ux,rqxy,vy->rquv", dct, blocks, dct).reshape(blocks.shape[0], blocks.shape[1], 64)
-        comps.append(np.rint(coef / tables[min(c, 1)]).astype(np.int64)[:, :, JPEG_ZIGZAG])
+        comps.append(np.rint(coef / tables[tq[c]]).astype(np.int64)[:, :, JPEG_ZIGZAG])
     # the blocks in scan order: MCU by MCU, each component's h x v blocks
     order = [(c, r * v + y, q * h + x) for r in range(mcuy) for q in range(mcux)
              for c, (h, v) in enumerate(factors) for y in range(v) for x in range(h)]
@@ -3519,7 +3734,7 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
         return (np.choose(table_of, [pick[0][0][symbol], pick[1][0][symbol]]),
                 np.choose(table_of, [pick[0][1][symbol], pick[1][1][symbol]]))
 
-    table = np.minimum(comp_of, 1)  # 0: the luma tables, 1: the chroma ones
+    table = np.asarray(tq)[comp_of]  # 0: the luma tables, 1: the chroma ones
     # items (block, key within the block, code, length): the DC at key 0, an AC value at 2 * position with
     # its ZRLs (runs of 16 zeros) at 2 * position - 1, the EOB last
     diff = dc - prev
@@ -3550,18 +3765,20 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
     def segment(marker: int, payload: bytes) -> bytes:
         return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
 
-    out = b"\xff\xd8" + segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
-    for tq in range(1 if grey else 2):
-        out += segment(0xDB, bytes([tq]) + bytes(tables[tq][JPEG_ZIGZAG].astype(np.uint8)))
+    out = b"\xff\xd8" + (segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") if jfif else b"")
+    if adobe is not None:  # libjpeg's write_marker for APP14: version 100, flags 0, 0, the transform
+        out += segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    for t in sorted(set(tq)):
+        out += segment(0xDB, bytes([t]) + bytes(tables[t][JPEG_ZIGZAG].astype(np.uint8)))
     sof = bytes([8]) + h_img.to_bytes(2, "big") + w_img.to_bytes(2, "big") + bytes([len(planes)])
     for c, (h, v) in enumerate(factors):
-        sof += bytes([c + 1, (h << 4) | v, min(c, 1)])
+        sof += bytes([ids[c], (h << 4) | v, tq[c]])
     out += segment(0xC0, sof)
-    for t in JPEG_DHT[: 2 if grey else 4]:
-        out += segment(0xC4, t)
+    for t in sorted(set(tq)):
+        out += segment(0xC4, JPEG_DHT[2 * t]) + segment(0xC4, JPEG_DHT[2 * t + 1])
     if restart:
         out += segment(0xDD, restart.to_bytes(2, "big"))
-    sos = bytes([len(planes)]) + b"".join(bytes([c + 1, 0x00 if c == 0 else 0x11]) for c in range(len(planes)))
+    sos = bytes([len(planes)]) + b"".join(bytes([ids[c], 0x11 * tq[c]]) for c in range(len(planes)))
     return out + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9"
 
 
@@ -3613,6 +3830,196 @@ def png_bytes(samples: np.ndarray, color_type: int, bit_depth: int = 8, filters=
     for i in range(0, len(z), 1 << 13):
         out += png_chunk(b"IDAT", z[i : i + (1 << 13)])
     return out + png_chunk(b"IEND", b"")
+
+
+# --- the GIF writer: LZW, interlacing, colour tables, transparency, without Pillow
+
+GIF_PASSES = ((0, 8), (4, 8), (2, 4), (1, 2))  # (first row, step) of the four interlace passes
+
+
+def lzw_codes(indices: bytes, min_size: int, deferred_clear: bool = False) -> list:
+    """GIF's LZW over `indices`: (code, width) pairs, a clear code first and the EOI last, each code at the
+    width a decoder reads it at (the decoder adds an entry for every code but the first after a clear and
+    widens after adding entry 2^width - 1, up to 12 bits).  At 4096 entries a clear code follows, or with
+    `deferred_clear` none: the codes go on from the full table.  Below a minimum code size of 2 every index
+    is written as a literal (a decoder's first free entry, clear + 2, is then past its first code mask, so
+    its width never grows)."""
+    clear = 1 << min_size
+    out = [(clear, min_size + 1)]
+    literal = min_size < 2
+    table: dict = {}
+    next_code = dec_next = clear + 2
+    width, first = min_size + 1, True
+
+    def emit(code: int) -> None:
+        nonlocal dec_next, width, first
+        out.append((code, width))
+        if first:
+            first = False
+        elif dec_next < 4096:
+            if dec_next == (1 << width) - 1 and width < 12:
+                width += 1
+            dec_next += 1
+
+    w = indices[0] if indices else None
+    for k in indices[1:]:
+        key = (w << 8) | k
+        if not literal and key in table:
+            w = table[key]
+            continue
+        emit(w)
+        if not literal and next_code < 4096:
+            table[key] = next_code
+            next_code += 1
+            if next_code == 4096 and not deferred_clear:
+                out.append((clear, width))
+                table, next_code, dec_next, width, first = {}, clear + 2, clear + 2, min_size + 1, True
+        w = k
+    if w is not None:
+        emit(w)
+    out.append((clear + 1, width))
+    return out
+
+
+def pack_codes(codes: list) -> bytes:
+    """The codes' bits, least significant first, as GIF packs them."""
+    acc, nbits, out = 0, 0, bytearray()
+    for code, width in codes:
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_sub_blocks(data: bytes, size: int = 255) -> bytes:
+    return b"".join(bytes([len(data[i : i + size])]) + data[i : i + size] for i in range(0, len(data), size)) + b"\0"
+
+
+def gif_bytes(indices: np.ndarray, palette: bytes = b"", *, local: bool = False, interlace: bool = False,
+              transparency=None, screen=None, offset=(0, 0), min_code_size=None, deferred_clear: bool = False,
+              background: int = 0, lzw: bytes = None) -> bytes:
+    """A one-frame GIF89a of palette indices uint8 [h, w].  `palette` (RGB bytes; none: no colour table) is
+    written padded to a power of two entries, as the global table or with `local` as the frame's own;
+    `transparency` writes a graphic control extension naming that index; `screen` (w, h) is the logical
+    screen (the frame's extent by default) and `offset` the frame's place on it; `min_code_size` defaults to
+    the table's bits, at least 2.  `lzw` replaces the frame's LZW bytes (for broken streams)."""
+    h, w = indices.shape
+    bits = max(1, (max(1, len(palette) // 3) - 1).bit_length())
+    table = (bytes([0x80 | (bits - 1)]), palette.ljust(3 << bits, b"\0")) if palette else (b"\0", b"")
+    sw, sh = screen or (w + offset[0], h + offset[1])
+    out = b"GIF89a" + sw.to_bytes(2, "little") + sh.to_bytes(2, "little")
+    out += (bytes([table[0][0] | 0x70]) + bytes([background, 0]) + table[1]) if palette and not local else b"\0\0\0"
+    if transparency is not None:
+        out += b"\x21\xf9\x04\x01\x00\x00" + bytes([transparency]) + b"\0"
+    out += b"\x2c" + b"".join(int(v).to_bytes(2, "little") for v in (*offset, w, h))
+    out += bytes([(table[0][0] if local else 0) | (0x40 if interlace else 0)]) + (table[1] if local else b"")
+    rows = [r for first, step in GIF_PASSES for r in range(first, h, step)] if interlace else range(h)
+    min_size = min_code_size or max(2, bits)
+    if lzw is None:
+        lzw = pack_codes(lzw_codes(np.ascontiguousarray(indices[list(rows)]).tobytes(), min_size, deferred_clear))
+    return out + bytes([min_size]) + gif_sub_blocks(lzw) + b"\x3b"
+
+
+# --- the BMP writer: the header forms, palettes, bit fields and RLE, without Pillow
+
+BMP_RGB, BMP_RLE8, BMP_RLE4, BMP_BITFIELDS = 0, 1, 2, 3
+
+
+def bmp_rle(rows: np.ndarray, four: bool, absolute_from: int = 3) -> bytes:
+    """RLE8 / RLE4 of index rows (first row first): runs of one value (RLE4: of an alternating pair) as
+    encoded pairs, stretches without runs of `absolute_from` or more samples in absolute mode (padded to a
+    16-bit word), an end of line after each row and an end of bitmap."""
+    out = bytearray()
+    for row in rows.tolist():
+        i, n = 0, len(row)
+        while i < n:
+            pattern = row[i : i + 2] if four else row[i : i + 1]
+            j = i
+            while j < n and j - i < 255 and row[j] == pattern[(j - i) % len(pattern)]:
+                j += 1
+            if j - i >= absolute_from or j == n:
+                out += bytes([j - i, (pattern[0] << 4 | (pattern[1] if len(pattern) > 1 else 0)) if four else pattern[0]])
+                i = j
+                continue
+            j = i + 1  # an absolute stretch: up to the next run
+            while j < n and j - i < 255 and not (j + absolute_from <= n and len(set(row[j : j + absolute_from])) == 1):
+                j += 1
+            count = j - i
+            if count < 3:  # absolute mode needs 3 or more: an encoded pair each
+                for v in row[i:j]:
+                    out += bytes([1, v << 4 if four else v])
+            else:
+                vals = row[i:j]
+                body = bytes((vals[k] << 4) | (vals[k + 1] if k + 1 < count else 0) for k in range(0, count, 2)) \
+                    if four else bytes(vals)
+                out += bytes([0, count]) + body + (b"\0" if len(body) % 2 else b"")
+            i = j
+        out += b"\0\0"
+    return bytes(out[:-2]) + b"\0\1"
+
+
+def bmp_bytes(image: np.ndarray, bits: int, *, palette: bytes = b"", compression: int = BMP_RGB, masks=None,
+              header: int = 40, top_down: bool = False, colors_used: int = 0, rle: bytes = None) -> bytes:
+    """A BMP of `image`: palette indices uint8 [h, w] at 1 / 4 / 8 bits (`palette` RGB bytes, written BGRX,
+    or BGR under the 12-byte core header; `colors_used` entries, 0: the bit depth's count), or RGB(A) uint8
+    [h, w, 3 | 4] at 16 / 24 / 32 bits: 16-bit BI_RGB is 5-5-5, 24-bit BGR, 32-bit BGRX, and BI_BITFIELDS
+    packs each channel's high bits into its mask (`masks` (r, g, b[, a]); after a 40-byte header they
+    follow it, in a longer one they are its fields).  `header` is 12, 40, 52, 56, 64, 108 or 124 bytes;
+    rows are bottom-up unless `top_down` (a negative height); RLE8 / RLE4 encode indices by `bmp_rle`, or
+    write `rle` as the pixel data."""
+    h, w = image.shape[:2]
+    if bits <= 8:
+        if compression in (BMP_RLE8, BMP_RLE4):
+            data = rle if rle is not None else bmp_rle((image if top_down else image[::-1]).astype(np.int64),
+                                                       compression == BMP_RLE4)
+        else:
+            per = 8 // bits
+            vals = np.concatenate([image, np.zeros((h, -w % per), image.dtype)], 1).astype(np.int64)
+            packed = (vals.reshape(h, -1, per) << (8 - bits * np.arange(1, per + 1))).sum(2).astype(np.uint8)
+            data = None
+    else:
+        px = image.astype(np.int64)
+        if compression == BMP_BITFIELDS:
+            value = np.zeros((h, w), np.int64)
+            for c, m in enumerate(masks[: px.shape[2]]):
+                if m:
+                    shift, width = (m & -m).bit_length() - 1, bin(m).count("1")
+                    value |= (px[..., c] >> (8 - width)) << shift if width <= 8 else px[..., c] << shift
+        elif bits == 16:
+            value = (px[..., 0] >> 3) << 10 | (px[..., 1] >> 3) << 5 | px[..., 2] >> 3
+        else:
+            value = px[..., 2] | px[..., 1] << 8 | px[..., 0] << 16
+        packed = np.stack([(value >> (8 * k)) & 255 for k in range(bits // 8)], -1).reshape(h, -1).astype(np.uint8)
+        data = None
+    if data is None:
+        stride = -(-w * bits // 32) * 4
+        rows = np.zeros((h, stride), np.uint8)
+        rows[:, : packed.shape[1]] = packed
+        data = (rows if top_down else rows[::-1]).tobytes()
+    n_colors = colors_used or (1 << bits if bits <= 8 else 0)
+    entry = 3 if header == 12 else 4
+    pal = palette.ljust(3 * n_colors, b"\0")[: 3 * n_colors]
+    pal = b"".join(pal[3 * i : 3 * i + 3][::-1] + b"\0" * (entry - 3) for i in range(n_colors))
+    if header == 12:
+        info = (12).to_bytes(4, "little") + w.to_bytes(2, "little") + h.to_bytes(2, "little") \
+            + (1).to_bytes(2, "little") + bits.to_bytes(2, "little")
+    else:
+        info = (header.to_bytes(4, "little") + w.to_bytes(4, "little") + (-h if top_down else h).to_bytes(4, "little", signed=True)
+                + (1).to_bytes(2, "little") + bits.to_bytes(2, "little") + compression.to_bytes(4, "little")
+                + len(data).to_bytes(4, "little") + (2835).to_bytes(4, "little") * 2
+                + colors_used.to_bytes(4, "little") + b"\0" * 4)
+        fields = b"".join(int(m).to_bytes(4, "little") for m in (masks or ())).ljust(16, b"\0")
+        if header == 40:
+            info += fields[:12] if compression == BMP_BITFIELDS else b""
+        else:
+            info += (fields if compression == BMP_BITFIELDS else b"\0" * 16)[: header - 40].ljust(header - 40, b"\0")
+    offset = 14 + len(info) + len(pal)
+    return b"BM" + (offset + len(data)).to_bytes(4, "little") + b"\0" * 4 + offset.to_bytes(4, "little") + info + pal + data
 
 
 # Pillow-made progressive JPEG files of `fixture_image(P12_SEED + 9000 + k)` (base64), with the sha256 of
@@ -3997,16 +4404,44 @@ def fixture_image(seed: int) -> np.ndarray:
     return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
 
 
+FORM_SUFFIX = {"gif": "gif", "bmp": "bmp"}  # a fixture file's name suffix by form: png_* .png, the rest .jpg
+
+
+def colour_cube(img: np.ndarray) -> tuple:
+    """uint8 indices of `img` in a 6 x 6 x 6 colour cube, and the cube's 216-entry palette."""
+    level = img.astype(np.int64) * 6 // 256
+    cube = bytes(int(51 * v) for i in range(216) for v in (i // 36, i // 6 % 6, i % 6))
+    return (level[..., 0] * 36 + level[..., 1] * 6 + level[..., 2]).astype(np.uint8), cube
+
+
+def cmyk_planes(img: np.ndarray) -> np.ndarray:
+    """The CMYK a file holds for an RGB image (Adobe's inverted samples): the inks with the grey in K."""
+    ink = 255 - img.astype(np.int64)
+    k = ink.min(axis=2, keepdims=True)
+    return (255 - np.concatenate([ink - k, k], axis=2)).astype(np.uint8)
+
+
 def fixture_file(form: str, seed: int) -> bytes:
     """The bytes of one image file of the tree: `jpeg` (the writer above, Pillow's defaults), a progressive
-    JPEG of PROGRESSIVE_FILES, or a PNG of `fixture_image(seed)` through every scanline filter: `png_rgb`,
+    JPEG of PROGRESSIVE_FILES, a PNG of `fixture_image(seed)` through every scanline filter: `png_rgb`,
     `png_palette` (a 6 x 6 x 6 colour cube), `png_grey`, `png_rgba` (Adam7-interlaced) or `png_rgb16`
-    (the image in the high bytes, seeded noise in the low ones)."""
+    (the image in the high bytes, seeded noise in the low ones); `gif` (the colour cube, interlaced, a
+    transparency index), `bmp` (the colour cube in RLE8); `jpeg_cmyk` / `jpeg_ycck` (the image's CMYK, Adobe
+    transform 0 / 2, Y and K at 2x2 in YCCK) and `jpeg_rgb` (Adobe transform 0: RGB as stored)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     img = fixture_image(seed)
     if form == "jpeg":
         return jpeg_bytes(img)
+    if form in ("gif", "bmp"):
+        idx, cube = colour_cube(img)
+        if form == "gif":
+            return gif_bytes(idx, cube, interlace=True, transparency=215)
+        return bmp_bytes(idx, 8, palette=cube, colors_used=216, compression=BMP_RLE8)
+    if form in ("jpeg_cmyk", "jpeg_ycck"):
+        return jpeg_bytes(cmyk_planes(img), 90, form=form[5:])
+    if form == "jpeg_rgb":
+        return jpeg_bytes(img, 90, form="rgb")
     rng = np.random.default_rng(seed)
     if form == "png_rgb":
         return png_bytes(img, 2)
@@ -4032,7 +4467,7 @@ def fixture_pixels(form: str, seed: int) -> np.ndarray:
         return img
     if form == "png_grey":
         return np.repeat(img.mean(axis=2).astype(np.uint8)[..., None], 3, axis=2)
-    if form == "png_palette":
+    if form in ("png_palette", "gif", "bmp"):
         return (img.astype(np.int64) * 6 // 256 * 51).astype(np.uint8)
     raise ValueError(f"no oracle for {form}")
 
@@ -4121,7 +4556,7 @@ def write_entry_point_tree(root: Path, pool) -> dict:
     jobs, cands = [], []
 
     def image_path(name: str, seed: int, form: str) -> str:
-        path = f"mbeir_images/mscoco_images/{name}.{'png' if form.startswith('png') else 'jpg'}"
+        path = f"mbeir_images/mscoco_images/{name}.{'png' if form.startswith('png') else FORM_SUFFIX.get(form, 'jpg')}"
         jobs.append((str(mbeir / path), seed, form))
         return path
 
@@ -4251,8 +4686,8 @@ def fixture_configs(root: Path) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, and the native JPEG and PNG decoders' calls."""
-    from uniir_tpu_torch.data import jpeg, png
+    """Every kernel wrapper's launch count, and the native JPEG, PNG and GIF decoders' calls."""
+    from uniir_tpu_torch.data import gif, jpeg, png
     from uniir_tpu_torch.ops import attention as A
     from uniir_tpu_torch.ops import image_ops as I
     from uniir_tpu_torch.ops import mlp as M
@@ -4266,6 +4701,7 @@ def launch_counts() -> dict:
     counts.update({name: fn.launches for name, fn in _off_path_kernels()})
     counts["jpeg"] = jpeg.decode_native.calls
     counts["png"] = png.decode_native.calls
+    counts["gif"] = gif.decode_native.calls
     return counts
 
 
@@ -4425,7 +4861,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
     import tempfile
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
-    from uniir_tpu_torch.data import jpeg, png
+    from uniir_tpu_torch.data import bmp, gif, jpeg, png
     from uniir_tpu_torch.data import preprocess as P
     from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
     from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
@@ -4451,7 +4887,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         # the decoders: native bit-equal to the twins on every image (the progressive files also to Pillow's
         # digests, the PNG files to the samples their writer wrote); the native rates
         blobs = {p: Path(p).read_bytes() for p in tree["images"]}
-        natives = {"jpeg": jpeg.decode_native, "png": png.decode_native}
+        natives = {"jpeg": jpeg.decode_native, "png": png.decode_native, "gif": gif.decode_native, "bmp": bmp.decode}
         kind = {p: jpeg.image_format(b) for p, b in blobs.items()}
 
         def native(path: str) -> np.ndarray:
@@ -4471,14 +4907,16 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
             if form in PROGRESSIVE_FILES:
                 check(hashlib.sha256(arrays[p].tobytes()).hexdigest() == PROGRESSIVE_FILES[form][1],
                       f"phase 12: {p} ({form}) differs from Pillow's pixels")
-            elif form != "jpeg":
+            elif form != "jpeg" and not form.startswith("jpeg_"):
                 check(np.array_equal(arrays[p], fixture_pixels(form, seed)), f"phase 12: {p} ({form}) differs from "
                       "the samples its writer wrote")
         log(f"phase 12: native decoders bit-equal to the twins on all {len(blobs)} images (the progressive files "
-            f"also to Pillow's digests, the PNG files to their samples); native decode {one_thread:.1f} images/s "
+            f"also to Pillow's digests, the PNG, GIF and BMP files to their samples); native decode {one_thread:.1f} images/s "
             f"on one thread, {many:.1f} images/s on the loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
         for group, member in (("baseline JPEG", lambda f: f == "jpeg"), ("progressive JPEG", PROGRESSIVE_FILES.__contains__),
-                              ("PNG", lambda f: f.startswith("png"))):
+                              ("PNG", lambda f: f.startswith("png")), ("GIF", lambda f: f == "gif"),
+                              ("BMP (numpy, one decoder)", lambda f: f == "bmp"),
+                              ("CMYK / YCCK / RGB JPEG", lambda f: f.startswith("jpeg_"))):
             files = [p for p, (form, _) in tree["forms"].items() if member(form)]
             repeats = 1 if group == "baseline JPEG" else P12_DECODE_REPEATS
             t0 = time.perf_counter()
@@ -4547,7 +4985,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         torch.cuda.empty_cache()
         after_reference = launch_counts()
         moved = {k: after_reference[k] - before[k] for k in before
-                 if k not in ("K1", "jpeg", "png") and after_reference[k] != before[k]}
+                 if k not in ("K1", "jpeg", "png", "gif") and after_reference[k] != before[k]}
         check(not moved, f"phase 12: the in-code reference launched kernels other than K1: {moved}")
 
         # the runs, as a user makes them: the run scripts' instruct switch, then the CLIs
@@ -4598,12 +5036,13 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         check(not moved, f"phase 12: this process launched kernels or decoded while the runs ran: {moved}")
 
         # what the runs launched: each kernel its run implies, no other
-        want = {"clip_embed": {"K1", "jpeg", "png"}, "blip_embed": {"K1", "jpeg", "png"},
-                "train": {"K1", "K3", "jpeg"}, "trained_embed": {"K1", "jpeg", "png"},
-                "blip_train": {"K1", "K3", "jpeg", "png"}, "blip_trained_embed": {"K1", "jpeg", "png"},
+        want = {"clip_embed": {"K1", "jpeg", "png", "gif"}, "blip_embed": {"K1", "jpeg", "png", "gif"},
+                "train": {"K1", "K3", "jpeg"}, "trained_embed": {"K1", "jpeg", "png", "gif"},
+                "blip_train": {"K1", "K3", "jpeg", "png"}, "blip_trained_embed": {"K1", "jpeg", "png", "gif"},
                 "clip_retrieval_int8": {"K4"}, "clip_retrieval_bf16": {"K2"}, "clip_index": set()}
-        # the guard's exact re-run of a batch; CLIP-SF's 3 steps of 32 leave 24 train pairs out, PNG ones maybe
-        may = {"clip_retrieval_int8": {"K2"}, "train": {"png"}}
+        # the guard's exact re-run of a batch; CLIP-SF's 3 steps of 32 leave 24 train pairs out, PNG ones maybe;
+        # a train pair's positive may be the GIF candidate
+        may = {"clip_retrieval_int8": {"K2"}, "train": {"png", "gif"}, "blip_train": {"gif"}}
         for name, positive in want.items():
             counts = runs[name][2]
             log(f"phase 12: {name} launches {({k: v for k, v in counts.items() if v})}")
@@ -4714,11 +5153,12 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png")
+    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)
         log(f"built {name}: {_build.build_seconds[name]:.1f} s\n{_build.ptxas_report(name)}")
+    check_decoders(smi)
 
     results = {
         "K1": {"name": "attention_fwd", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",

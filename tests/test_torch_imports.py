@@ -1,6 +1,7 @@
-"""Import guard: the port and chip_smoke.py stay free of JAX, flax, Pillow,
-PyYAML, `regex` and the JAX package (the GPU host has none of them), at any
-depth: not even inside a function."""
+"""Import guard: the port and chip_smoke.py stay free of JAX, flax, orbax,
+Pillow, PyYAML, `regex` and the JAX package (the GPU host has none of them),
+at any depth: not even inside a function.  `scripts/` is not walked: its
+JAX -> port bridge imports both packages by design."""
 
 import ast
 import os
@@ -22,9 +23,11 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.core.device",
     "uniir_tpu_torch.core.mesh",
     "uniir_tpu_torch.core.yaml_subset",
+    "uniir_tpu_torch.data.bmp",
     "uniir_tpu_torch.data.collator",
     "uniir_tpu_torch.data.data_utils",
     "uniir_tpu_torch.data.dataset",
+    "uniir_tpu_torch.data.gif",
     "uniir_tpu_torch.data.jpeg",
     "uniir_tpu_torch.data.loader",
     "uniir_tpu_torch.data.png",
@@ -70,9 +73,9 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.utils.logging",
     "uniir_tpu_torch.utils.profiling",
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "PIL", "yaml", "regex", "uniir_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "regex", "uniir_tpu")
 # never imported by the port, at any depth; Pillow only inside the functions named for its file (none)
-NEVER = ("jax", "jaxlib", "flax", "uniir_tpu", "yaml", "regex")
+NEVER = ("jax", "jaxlib", "flax", "orbax", "uniir_tpu", "yaml", "regex")
 PIL_FUNCTIONS: dict = {}
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -145,6 +148,7 @@ def test_import_walk_sees_inside_functions():
     assert forbidden_imports(lazy, pil_functions=("f",)) == [(2, "uniir_tpu"), (4, "yaml")]
     top = "try:\n    import yaml\nexcept ImportError:\n    yaml = None\nclass A:\n    import regex\n"
     assert forbidden_imports(top) == [(2, "yaml"), (6, "regex")]
+    assert forbidden_imports("def g():\n    import orbax.checkpoint as ocp\n") == [(2, "orbax")]
     nested = "def _pil():\n    def g():\n        from PIL import Image\n    from PIL import ImageOps\n"
     assert forbidden_imports(nested, pil_functions=("_pil",)) == [(3, "PIL")]
     assert forbidden_imports("import uniir_tpu_torch.ops\nfrom . import x\n") == []

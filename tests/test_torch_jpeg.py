@@ -1,9 +1,12 @@
 """The JPEG decoders (`uniir_tpu_torch.data.jpeg`): the twin bit-equal to
 Pillow's `Image.open(...).convert("RGB")` (libjpeg-turbo at its defaults) on
-Pillow-made files of every accepted form, baseline and progressive, the
-rejected forms raising, the JPEG writer of chip_smoke.py readable by Pillow,
-and (`-m gpu`, on the card's machine, where nvcc builds csrc/jpeg.cu) the
-native decoder bit-equal to the twin and to Pillow's digests.
+Pillow-made files of every accepted form, baseline and progressive, and on
+the colour spaces beyond YCbCr (CMYK and YCCK under Adobe markers, RGB by
+Adobe transform 0 or by component ids; chip_smoke.py's writer and Pillow's
+own CMYK and `keep_rgb` files), the rejected forms raising, the JPEG writer
+of chip_smoke.py readable by Pillow, and (`-m gpu`, on the card's machine,
+where nvcc builds csrc/jpeg.cu) the native decoder bit-equal to the twin and
+to Pillow's digests.
 
 The module imports no JAX and no Pillow at its top, so its `-m gpu` cases
 collect with `--noconftest` on a machine that has neither."""
@@ -206,24 +209,27 @@ def _partial_progression(data: bytes) -> bytes:
     return data[: cut if cut > 0 else sos[3]] + b"\xff\xd9"
 
 
+def _two_components(base: bytes) -> bytes:
+    """A baseline frame header cut to its first two components."""
+    at = base.index(b"\xff\xc0")
+    return base[:at] + b"\xff\xc0\x00\x0e" + base[at + 4 : at + 9] + b"\x02" + base[at + 10 : at + 16] + base[at + 19 :]
+
+
 def _rejected():
-    from PIL import Image
+    import chip_smoke
 
     arr = smooth_image(np.random.default_rng(5), 40, 30)
     base, _ = pillow_jpeg(arr)
     progressive, _ = pillow_jpeg(arr, progressive=True)
-    buf = io.BytesIO()
-    Image.fromarray(arr).convert("CMYK").save(buf, "JPEG")
-    cmyk = buf.getvalue()
-    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"  # APP14, transform 0: RGB
     scan = base.index(b"\xff\xda")
     return {
+        "two_components": (_two_components(base), r"0xFFC0.*2 components"),
+        "mcu_too_large": (chip_smoke.jpeg_bytes(arr, form="rgb", factors=[(2, 2)] * 3), r"0xFFDA.*more than 10 blocks"),
         "sof1_extended": (_patched(base, b"\xff\xc0", 1, 0xC1), r"0xFFC1.*SOF1"),
         "sof3_lossless": (_patched(base, b"\xff\xc0", 1, 0xC3), r"0xFFC3.*SOF3"),
         "arithmetic": (_patched(base, b"\xff\xc0", 1, 0xC9), r"0xFFC9.*arithmetic"),
         "twelve_bit": (_patched(base, b"\xff\xc0", 4, 12), r"0xFFC0.*12-bit"),
-        "four_components": (cmyk, r"0xFFC0.*4 components"),
-        "adobe_rgb": (base[:2] + adobe + base[2:], r"0xFFEE.*RGB"),
+        "short_adobe": (base[:2] + b"\xff\xee\x00\x07Adobe" + base[2:], r"0xFFEE: truncated Adobe"),
         "truncated_scan": (base[: scan + (len(base) - scan) // 2], r"truncated"),
         "truncated_header": (base[:100], r"truncated"),
         "not_a_jpeg": (b"\x89PNG\r\n\x1a\n" + base[8:], r"no SOI"),
@@ -235,14 +241,123 @@ def _rejected():
     }
 
 
-@pytest.mark.parametrize("form", ["sof1_extended", "sof3_lossless", "arithmetic", "twelve_bit", "four_components",
-                                  "adobe_rgb", "truncated_scan", "truncated_header", "not_a_jpeg",
+@pytest.mark.parametrize("form", ["sof1_extended", "sof3_lossless", "arithmetic", "twelve_bit", "two_components",
+                                  "mcu_too_large", "short_adobe", "truncated_scan", "truncated_header", "not_a_jpeg",
                                   "baseline_scan_in_sof2", "progressive_twelve_bit", "block_smoothing",
                                   "truncated_progressive"])
 def test_rejected_forms_raise_naming_file_and_marker(form):
     data, pattern = _rejected()[form]
     with pytest.raises(ValueError, match=rf"^f\.jpg: .*{pattern}"):
         jpeg.decode_twin(data, "f.jpg")
+
+
+def pillow_rgb(data: bytes) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+
+
+def _once_refused():
+    """The two forms the decoders refused before they read CMYK and RGB JPEGs: a
+    Pillow CMYK file, and an Adobe transform-0 (RGB) marker before a JFIF
+    file's own, whose JFIF marker still makes libjpeg read YCbCr."""
+    from PIL import Image
+
+    arr = smooth_image(np.random.default_rng(5), 40, 30)
+    base, _ = pillow_jpeg(arr)
+    buf = io.BytesIO()
+    Image.fromarray(arr).convert("CMYK").save(buf, "JPEG")
+    adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"  # APP14, transform 0: RGB
+    return {"four_components": buf.getvalue(), "adobe_rgb": base[:2] + adobe + base[2:]}
+
+
+@pytest.mark.parametrize("form", ["four_components", "adobe_rgb"])
+def test_forms_once_refused_decode_as_pillow_does(form):
+    data = _once_refused()[form]
+    np.testing.assert_array_equal(jpeg.decode_twin(data, "f.jpg"), pillow_rgb(data))
+
+
+COLOUR_SIZES = [(1, 1), (3, 2), (8, 8), (17, 9), (33, 18), (64, 48), (97, 64)]
+# chip_smoke.py's writer: (form, per-component sampling or None for its default)
+COLOUR_FORMS = {
+    "cmyk_444": ("cmyk", None), "cmyk_420_k": ("cmyk", [(2, 2), (1, 1), (1, 1), (2, 2)]),
+    "cmyk_422": ("cmyk", [(2, 1), (1, 1), (1, 1), (1, 1)]), "ycck_420": ("ycck", None),
+    "ycck_444": ("ycck", [(1, 1)] * 4), "ycck_440": ("ycck", [(1, 2), (1, 2), (1, 1), (1, 2)]),
+    "rgb_adobe": ("rgb", None), "rgb_adobe_420": ("rgb", [(2, 2), (1, 1), (1, 1)]),
+    "rgb_ids": ("rgb_ids", None), "rgb_ids_422": ("rgb_ids", [(1, 1), (2, 1), (1, 1)]),
+}
+
+
+@pytest.mark.parametrize("restart", [0, 3], ids=["no_restart", "restart3"])
+@pytest.mark.parametrize("form", sorted(COLOUR_FORMS))
+@pytest.mark.parametrize("size", COLOUR_SIZES, ids=[f"{w}x{h}" for w, h in COLOUR_SIZES])
+def test_colour_forms_are_bit_equal_to_pillow(size, form, restart):
+    """CMYK (Adobe transform 0), YCCK (transform 2) and RGB (transform 0, or
+    ids 'R' 'G' 'B' without a marker) from chip_smoke.py's writer, at each
+    sampling it takes: Pillow's inverted CMYK and cmyk2rgb, bit for bit."""
+    import chip_smoke
+
+    kind, factors = COLOUR_FORMS[form]
+    arr = smooth_image(np.random.default_rng(size[0] * 7 + size[1]), *size, noise=10)
+    if kind in ("cmyk", "ycck"):
+        arr = np.concatenate([arr, smooth_image(np.random.default_rng(size[1]), *size)[..., :1]], axis=2)
+    data = chip_smoke.jpeg_bytes(arr, 80, restart=restart, form=kind, factors=factors)
+    np.testing.assert_array_equal(jpeg.decode_twin(data), pillow_rgb(data))
+
+
+@pytest.mark.parametrize("kind", ["cmyk", "keep_rgb"])
+@pytest.mark.parametrize("save", ["baseline", "progressive", "optimize"])
+@pytest.mark.parametrize("size", [(1, 1), (13, 7), (100, 75), (517, 263)], ids=["1x1", "13x7", "100x75", "517x263"])
+def test_pillows_cmyk_and_rgb_files(size, save, kind):
+    """Pillow's own CMYK files (inverted samples, an Adobe marker) and RGB
+    files written with `keep_rgb=True`, baseline, progressive and optimised."""
+    from PIL import Image
+
+    arr = smooth_image(np.random.default_rng(size[0] + 3 * size[1]), *size)
+    img = Image.fromarray(arr).convert("CMYK") if kind == "cmyk" else Image.fromarray(arr)
+    buf = io.BytesIO()
+    img.save(buf, "JPEG", **({"progressive": True} if save == "progressive" else {"optimize": True} if save == "optimize"
+                             else {}), **({"keep_rgb": True} if kind == "keep_rgb" else {}))
+    data = buf.getvalue()
+    np.testing.assert_array_equal(jpeg.decode_twin(data), pillow_rgb(data))
+
+
+def _marker_cases() -> dict:
+    import chip_smoke
+
+    rgb, cmyk = smooth_image(np.random.default_rng(2), 40, 30), smooth_image(np.random.default_rng(3), 40, 30)
+    cmyk = np.concatenate([cmyk, rgb[..., :1]], axis=2)
+    base = chip_smoke.jpeg_bytes(rgb)
+    four = chip_smoke.jpeg_bytes(cmyk, form="cmyk")
+    at = four.index(b"\xff\xee")
+
+    def adobe(t):
+        return b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00" + bytes([t])
+
+    return {  # libjpeg's default_decompress_parms case by case
+        "jfif_then_adobe0_is_ycbcr": base[:20] + adobe(0) + base[20:],
+        "adobe1_is_ycbcr": base[:2] + adobe(1) + base[20:],
+        "adobe2_three_components_is_ycbcr": base[:2] + adobe(2) + base[20:],
+        "ids_123_without_markers_is_ycbcr": base[:2] + base[20:],
+        "cmyk_without_adobe": four[:at] + four[at + 16 :],
+        "four_components_adobe1_is_ycck": four[:at] + adobe(1) + four[at + 16 :],
+        "four_components_adobe5_is_ycck": four[:at] + adobe(5) + four[at + 16 :],
+        "adobe_too_short_to_read": four[:at] + b"\xff\xee\x00\x0bAdobe\x00\x64\x00\x00" + four[at + 16 :],
+        "progressive_cmyk_restart": None,
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_marker_cases()))
+def test_colour_space_markers_are_read_as_libjpeg_reads_them(case):
+    from PIL import Image
+
+    data = _marker_cases()[case]
+    if data is None:
+        buf = io.BytesIO()
+        Image.fromarray(smooth_image(np.random.default_rng(4), 61, 45)).convert("CMYK").save(
+            buf, "JPEG", progressive=True, restart_marker_blocks=2)
+        data = buf.getvalue()
+    np.testing.assert_array_equal(jpeg.decode_twin(data), pillow_rgb(data))
 
 
 def test_corrupt_streams_raise_or_decode_never_crash():
@@ -328,6 +443,30 @@ def test_native_in_threads_and_on_the_writers_forms(native):
         outs = list(pool.map(native, files * 4))
     for i, out in enumerate(outs):
         np.testing.assert_array_equal(out, jpeg.decode_twin(files[i % len(files)]))
+
+
+@pytest.mark.gpu
+def test_native_reads_the_colour_forms_as_the_twin(native):
+    """chip_smoke.py's CMYK / YCCK / RGB files at every sampling and the
+    marker cases: the native decoder bit-equal to the twin, in threads."""
+    import chip_smoke
+
+    files = []
+    for i, (kind, factors) in enumerate(COLOUR_FORMS.values()):
+        for w, h in COLOUR_SIZES:
+            arr = smooth_image(np.random.default_rng(w + h + i), w, h, noise=10)
+            if kind in ("cmyk", "ycck"):
+                arr = np.concatenate([arr, arr[..., 1:2]], axis=2)
+            files.append(chip_smoke.jpeg_bytes(arr, 70, restart=i % 2 * 2, form=kind, factors=factors))
+    files += [d for d in _marker_cases().values() if d is not None] + list(_once_refused().values())
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(native, files))
+    for data, out in zip(files, outs):
+        np.testing.assert_array_equal(out, jpeg.decode_twin(data))
+    for form in ("two_components", "mcu_too_large", "short_adobe"):
+        data, pattern = _rejected()[form]
+        with pytest.raises(ValueError, match=pattern):
+            native(data, "f.jpg")
 
 
 @pytest.mark.gpu

@@ -181,6 +181,44 @@ def test_interactive_retriever_reads_png_and_progressive_like_jax(trees, fmt):
     assert got == want
 
 
+@pytest.mark.parametrize("fmt", ["gif", "bmp", "cmyk_jpeg", "ycck_jpeg"])
+def test_interactive_retriever_reads_gif_bmp_and_cmyk_like_jax(trees, fmt):
+    """An image query from a GIF (interlaced, a local palette), a BMP (RLE8)
+    or a CMYK / YCCK JPEG, each from chip_smoke.py's writers: the port's
+    decoders give the JAX retriever's candidates and its query embeddings
+    within EMBED_ATOL in fp32."""
+    import chip_smoke
+    import jax.numpy as jnp
+    from PIL import Image
+
+    from uniir_tpu.train.steps import make_embed_step as jax_make_embed_step
+
+    arr = np.asarray(Image.open(os.path.join(trees.mbeir, "images", "cand_1.jpg")).convert("RGB"))
+    levels = (arr.astype(np.int64) * 6 // 256).reshape(-1, 3)
+    idx = (levels[:, 0] * 36 + levels[:, 1] * 6 + levels[:, 2]).astype(np.uint8).reshape(arr.shape[:2])
+    cube = bytes(int(51 * v) for i in range(216) for v in (i // 36, i // 6 % 6, i % 6))
+    if fmt == "gif":
+        data = chip_smoke.gif_bytes(idx, cube, local=True, interlace=True)
+    elif fmt == "bmp":
+        data = chip_smoke.bmp_bytes(idx, 8, palette=cube, colors_used=216, compression=chip_smoke.BMP_RLE8)
+    else:
+        data = chip_smoke.jpeg_bytes(np.concatenate([255 - arr, arr[..., :1]], axis=2), 90, form=fmt[:4])
+    rel = f"images/query_{fmt}.{fmt.split('_')[-1]}"
+    with open(os.path.join(trees.mbeir, rel), "wb") as f:
+        f.write(data)
+    ours, ref = _retrievers(trees)
+    for retriever in (ours, ref):
+        retriever.add_queries([("image", None, rel, "text"), ("image,text", "a red dress", rel, "image")])
+    got, want = ours.retrieve(k=5), ref.retrieve(k=5)
+    assert len(got) == 2 and all(len(r) == 5 for r in got)
+    assert got == want
+    ours.embed_step = make_embed_step(trees.bundle.model, torch.float32)
+    ref.embed_step = jax_make_embed_step(trees.jax_bundle.model, out_dtype=jnp.float32)
+    emb, ref_emb = ours._embed_queries(), ref._embed_queries()
+    assert emb.dtype == np.float32 and emb.shape == (2, 16)
+    np.testing.assert_allclose(emb, np.asarray(ref_emb), atol=EMBED_ATOL)
+
+
 BAD_QUERIES = [
     ("text", None, None, "image"),
     ("text", "a dress", "images/cand_1.jpg", "image"),

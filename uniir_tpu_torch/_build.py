@@ -1,5 +1,5 @@
-"""Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`
-and `csrc/png.cu`) at first use and load them with ctypes.
+"""Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`,
+`csrc/png.cu` and `csrc/gif.cu`) at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -64,6 +64,9 @@ SIGNATURES = {
     },
     "png": {
         "uniir_png_decode": (_P, _S, _I, _I, _I, _I, _I, _P, _P, _P, _I),
+    },
+    "gif": {
+        "uniir_gif_decode": (_P, _S, _S, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -19,11 +19,16 @@ loaders read only `model`.
 
 Over several processes rank 0 alone writes the directory, and every rank
 then meets at a barrier, so no rank reads a checkpoint before it is whole;
-on resume every rank loads the same file.
+on resume every rank loads the same file.  A resumed scheduler takes the
+learning rate of the resuming run's own schedule at the stored update
+count (`train.optimizer.set_schedule_position`), as the JAX package's
+schedule is a function of the count alone.
 
-Reading the JAX package's orbax checkpoints is not ported: that bridge
-reads a JAX train checkpoint and writes `checkpoint.pth`, and needs both
-packages (ROADMAP.md, Queue 1).
+The JAX package's checkpoints (orbax items, the legacy `state.msgpack`, a
+`save_params` file) are not read here: `scripts/orbax_to_torch.py`, which
+needs both packages, restores one with the JAX package's loaders and writes
+it as this layout through `write_jax_train_state`, or as a torch state
+dict for `model.pretrained_torch_ckpt`.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import os
 import torch
 
 from uniir_tpu_torch.core import mesh
+from uniir_tpu_torch.train.optimizer import set_schedule_position
 
 CHECKPOINT_FILE = "checkpoint.pth"
 ITEMS = ("model", "optimizer", "scheduler")
@@ -92,6 +98,7 @@ def load_train_checkpoint(path: str, state):
     state.model.load_state_dict(blob["model"])
     state.optimizer.load_state_dict(blob["optimizer"])
     state.scheduler.load_state_dict(blob["scheduler"])
+    set_schedule_position(state.scheduler, state.scheduler.last_epoch)
     if hasattr(state, "model_m"):
         state.model_m.load_state_dict(blob["model_m"])
         for name in ("queue_query", "queue_cand", "queue_idx"):
@@ -99,3 +106,29 @@ def load_train_checkpoint(path: str, state):
         state.queue_ptr = int(blob["queue_ptr"])
     state.step = int(meta["step"])
     return state, int(meta["epoch"])
+
+
+def write_jax_train_state(config, tree: dict, ckpt_dir: str, name: str, epoch: int) -> str:
+    """Write a JAX train state -- the JAX package's checkpoint items as
+    numpy trees (`models.convert.load_train_state_from_jax`) -- as this
+    module's `<ckpt_dir>/<name>_epoch_<epoch>/`, through a port train state
+    built on the CPU from `config` by the port's own builders (the model
+    with fp32 masters, `train.trainer.make_train_state`; no checkpoint the
+    config names is loaded).  The written schedule ends at the updates
+    already taken; a resumed run takes its own (module docstring).
+    Returns the directory."""
+    from uniir_tpu_torch.core.config import Config
+    from uniir_tpu_torch.models.convert import load_train_state_from_jax
+    from uniir_tpu_torch.models.registry import build_model_from_config
+    from uniir_tpu_torch.train.trainer import make_train_state
+
+    build = Config.from_dict(config.to_dict(resolve=False) if hasattr(config, "to_dict") else dict(config))
+    build.model.pretrained_torch_ckpt = None
+    bundle = build_model_from_config(build, "cpu", train=True)
+    warmup = int(getattr(build.trainer_config, "warmup_steps", 0))
+    updates = int(tree["step"]) // int(getattr(build.trainer_config, "gradient_accumulation_steps", 1))
+    state = make_train_state(build, bundle, max(updates, warmup + 1, 1))
+    load_train_state_from_jax(state, tree)
+    path = os.path.abspath(os.path.join(ckpt_dir, f"{name}_epoch_{epoch}"))
+    _write_checkpoint(path, state, epoch, config)
+    return path

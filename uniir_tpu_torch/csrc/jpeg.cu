@@ -11,10 +11,16 @@
 // 10-bit range-limit table), jdsample.c's fancy upsampling (h2v1, h1v2, h2v2
 // triangle filters with their alternating rounding bias, edges replicated;
 // box replication where a 2x-wide component is at most 2 samples wide),
-// jdcolor.c's fixed-point YCbCr -> RGB tables, a greyscale image copied into
-// three channels.  Accepted and rejected forms are the twin's (see its
-// module docstring); a rejected, truncated or corrupt stream returns an
-// error with a message, never reads or writes out of bounds.
+// the colour space jdapimin.c's default_decompress_parms picks (3
+// components: YCbCr under JFIF, RGB under Adobe transform 0 or, without
+// either marker, ids 'R' 'G' 'B'; 4: CMYK under Adobe transform 0 or none,
+// else YCCK), jdcolor.c's fixed-point YCbCr -> RGB tables (YCCK's YCC
+// through the same tables), RGB copied, CMYK read as Pillow reads it
+// (inverted, `CMYK;I`) and converted by Convert.c's cmyk2rgb, a greyscale
+// image copied into three channels.  Accepted and rejected forms are the
+// twin's (see its module docstring); a rejected, truncated or corrupt
+// stream returns an error with a message, never reads or writes out of
+// bounds.
 //
 // Why host code and not a kernel: Huffman decoding is serial within a scan,
 // and the images are resized on the host after decoding; a device IDCT would
@@ -56,7 +62,7 @@ struct Component {
 
 struct Scan {
   int n;
-  int comp[3], dc[3], ac[3];
+  int comp[4], dc[4], ac[4];
   int ss = 0, se = 63, ah = 0, al = 0;
 };
 
@@ -75,6 +81,7 @@ struct Decoder {
   bool progressive = false;
   bool jfif = false;
   int adobe_transform = -1;
+  enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK } colour = kGrey;
 
   [[noreturn]] void fail(const char* fmt, int a = 0, int b = 0) {
     char buf[200];
@@ -277,7 +284,7 @@ void read_sof(Decoder& dec, const uint8_t* seg, int len) {
   dec.height = u16(seg + 1);
   dec.width = u16(seg + 3);
   if (precision != 8) dec.fail("marker 0xFFC0: %d-bit samples are not supported (8 only)", precision);
-  if (nc != 1 && nc != 3) dec.fail("marker 0xFFC0: %d components are not supported (1 or 3)", nc);
+  if (nc != 1 && nc != 3 && nc != 4) dec.fail("marker 0xFFC0: %d components are not supported (1, 3 or 4)", nc);
   if (dec.height == 0 || dec.width == 0) dec.fail("marker 0xFFC0: image size %d x %d (DNL is not supported)", dec.width, dec.height);
   if (len != 6 + 3 * nc) dec.fail("marker 0xFFC0: bad frame header length");
   for (int c = 0; c < nc; c++) {
@@ -385,6 +392,11 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
     }
     for (int k = scan.ss; k <= scan.se; k++) c.coef_bits[k] = scan.al;
   }
+  if (ns > 1) {  // jdinput.c's per_scan_setup: D_MAX_BLOCKS_IN_MCU
+    int blocks = 0;
+    for (int s = 0; s < ns; s++) blocks += dec.comps[scan.comp[s]].h * dec.comps[scan.comp[s]].v;
+    if (blocks > 10) dec.fail("marker 0xFFDA: more than 10 blocks in an MCU (sampling factors too large for an interleaved scan)");
+  }
   for (auto& c : dec.comps)
     if (c.coef.empty()) c.coef.assign((size_t)c.bh * c.bw * 64, 0);
 
@@ -401,7 +413,7 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
   int64_t total = (int64_t)units_x * units_y;
   int64_t interval = dec.restart ? dec.restart : total;
   BitReader br{dec.d, dec.n, data_start};
-  int64_t pred[3] = {0, 0, 0}, eobrun = 0;
+  int64_t pred[4] = {0, 0, 0, 0}, eobrun = 0;
   for (int64_t u = 0; u < total; u++) {
     if (u > 0 && u % interval == 0) {
       // the interval's leftover bits are dropped; the next one starts after an RSTn marker
@@ -421,7 +433,7 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
         break;
       }
       br = BitReader{dec.d, dec.n, p};
-      pred[0] = pred[1] = pred[2] = 0;
+      pred[0] = pred[1] = pred[2] = pred[3] = 0;
       eobrun = 0;
     }
     int r = (int)(u / units_x), q = (int)(u % units_x);
@@ -519,7 +531,11 @@ void parse(Decoder& dec, bool header_only) {
       read_scan(dec, seg, len, i + 2 + length);
       dec.n_scans++;
       continue;
-    } else if (marker == 0xE0 && len >= 5 && memcmp(seg, "JFIF\0", 5) == 0) {
+    } else if (((marker == 0xE0 && len >= 4 && memcmp(seg, "JFIF", 4) == 0) ||
+                (marker == 0xEE && len >= 5 && memcmp(seg, "Adobe", 5) == 0)) && len < 7) {
+      // Pillow reads the segment's version
+      dec.fail(marker == 0xE0 ? "marker 0xFFE0: truncated JFIF segment" : "marker 0xFFEE: truncated Adobe segment");
+    } else if (marker == 0xE0 && len >= 14 && memcmp(seg, "JFIF\0", 5) == 0) {
       dec.jfif = true;
     } else if (marker == 0xEE && len >= 12 && memcmp(seg, "Adobe", 5) == 0) {
       dec.adobe_transform = seg[11];
@@ -529,10 +545,13 @@ void parse(Decoder& dec, bool header_only) {
     dec.pos = i + 2 + length;
   }
   if (dec.comps.empty() || dec.n_scans == 0) dec.fail("no frame or no scan before EOI");
-  if (dec.comps.size() == 3) {
+  if (dec.comps.size() == 4) {
+    dec.colour = dec.adobe_transform <= 0 ? Decoder::kCMYK : Decoder::kYCCK;
+  } else if (dec.comps.size() == 3) {
     bool rgb_ids = dec.comps[0].id == 82 && dec.comps[1].id == 71 && dec.comps[2].id == 66;
-    if (dec.adobe_transform == 0 || (!dec.jfif && dec.adobe_transform < 0 && rgb_ids))
-      dec.fail("marker 0xFFEE / component ids: RGB colour (no YCbCr transform) is not supported");
+    if (dec.jfif) dec.colour = Decoder::kYCbCr;
+    else if (dec.adobe_transform >= 0) dec.colour = dec.adobe_transform == 0 ? Decoder::kRGB : Decoder::kYCbCr;
+    else dec.colour = rgb_ids ? Decoder::kRGB : Decoder::kYCbCr;
   }
   if (dec.progressive && smooths(dec))
     dec.fail("marker 0xFFDA: the scans leave low coefficients unrefined, which libjpeg decodes with block smoothing "
@@ -653,8 +672,13 @@ void to_rgb(Decoder& dec, uint8_t* out) {
   for (auto& c : dec.comps)
     planes.push_back(upsample(plane(dec, c), c.cw, c.ch, dec.hmax / c.h, dec.vmax / c.v, w, h));
   size_t npx = (size_t)w * h;
-  if (planes.size() == 1) {
+  if (dec.colour == Decoder::kGrey) {
     for (size_t i = 0; i < npx; i++) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = (uint8_t)planes[0][i];
+    return;
+  }
+  if (dec.colour == Decoder::kRGB) {
+    for (size_t i = 0; i < npx; i++)
+      for (int k = 0; k < 3; k++) out[3 * i + k] = (uint8_t)planes[k][i];
     return;
   }
   // jdcolor.c build_ycc_rgb_table (SCALEBITS 16)
@@ -670,11 +694,25 @@ void to_rgb(Decoder& dec, uint8_t* out) {
     cb_g[i] = -f0_344 * x + one_half;
   }
   for (size_t i = 0; i < npx; i++) {
-    int64_t y = planes[0][i];
-    int cb = planes[1][i], cr = planes[2][i];
-    out[3 * i] = (uint8_t)clamp255(y + cr_r[cr]);
-    out[3 * i + 1] = (uint8_t)clamp255(y + ((cb_g[cb] + cr_g[cr]) >> 16));
-    out[3 * i + 2] = (uint8_t)clamp255(y + cb_b[cb]);
+    int v[3];  // RGB; for CMYK / YCCK, 255 - C as Pillow's CMYK;I gives it
+    if (dec.colour == Decoder::kCMYK) {
+      for (int k = 0; k < 3; k++) v[k] = 255 - planes[k][i];
+    } else {  // YCbCr, or YCCK's YCC: C = 255 - R, range-limited (ycck_cmyk_convert)
+      int64_t y = planes[0][i];
+      int cb = planes[1][i], cr = planes[2][i];
+      v[0] = clamp255(y + cr_r[cr]);
+      v[1] = clamp255(y + ((cb_g[cb] + cr_g[cr]) >> 16));
+      v[2] = clamp255(y + cb_b[cb]);
+    }
+    if (dec.colour == Decoder::kYCbCr) {
+      for (int k = 0; k < 3; k++) out[3 * i + k] = (uint8_t)v[k];
+    } else {  // Convert.c's cmyk2rgb: K - MULDIV255(255 - C, K)
+      int kk = planes[3][i];
+      for (int k = 0; k < 3; k++) {
+        int t = v[k] * kk + 128;
+        out[3 * i + k] = (uint8_t)(kk - (((t >> 8) + t) >> 8));
+      }
+    }
   }
 }
 

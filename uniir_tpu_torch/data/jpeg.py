@@ -1,5 +1,6 @@
 """Image decoding with Pillow's pixels, without Pillow: baseline and
-progressive JPEG here, PNG in `data.png`, picked by the file's signature.
+progressive JPEG here; PNG (`data.png`), GIF (`data.gif`) and BMP
+(`data.bmp`) picked by the file's signature in `read_image`.
 
 M-BEIR stores its images as JPEG files that Pillow wrote, and the JAX
 package reads any image with `PIL.Image.open(path).convert("RGB")`, which
@@ -16,20 +17,32 @@ same uint8 [H, W, 3] array, bit for bit:
   * fancy upsampling (`jdsample.c`: the triangle filters
     `h2v1_fancy_upsample`, `h1v2_fancy_upsample`, `h2v2_fancy_upsample` with
     their alternating rounding bias, edges replicated; box replication where
-    a 2x-wide component is at most 2 samples wide, as libjpeg-turbo does);
-  * `jdcolor.c`'s fixed-point YCbCr -> RGB tables;
+    a 2x-wide component is at most 2 samples wide, as libjpeg-turbo does),
+    for every component whatever its colour space;
+  * the colour space libjpeg's default_decompress_parms picks: 3
+    components are YCbCr under a JFIF marker, RGB under an Adobe marker of
+    transform 0, YCbCr under any other Adobe transform, and without either
+    marker RGB when the component ids are 'R' 'G' 'B', else YCbCr; 4
+    components are CMYK under an Adobe marker of transform 0 or without one,
+    YCCK under any other transform;
+  * `jdcolor.c`'s fixed-point YCbCr -> RGB tables; RGB copied; YCCK turned
+    into CMYK by the same tables (C = 255 - R, range-limited, K as stored);
+  * Pillow's reading of CMYK: it always takes the samples as Adobe's
+    inverted CMYK (raw mode `CMYK;I`, marker or not), and `convert("RGB")`
+    is Convert.c's cmyk2rgb, R = K - K * (255 - C) / 255 rounded as MULDIV255
+    does (K, C as stored);
   * a greyscale file copied into three channels; no EXIF rotation.
 
-Accepted: SOF0 (baseline) and SOF2 (progressive) at 8 bits, 1 or 3
-components (YCbCr), each component's sampling 1 or 2 times finer in each
-direction than the largest (4:4:4, 4:2:2, 4:4:0, 4:2:0), any DQT / DHT
-tables (a DHT between scans holds for the scans after it), DRI with RSTn
-markers, APPn and COM segments skipped, several scans.  Anything else --
-SOF1/3 and the arithmetic-coded frames, 4 components, an Adobe or RGB
-colour transform, 12-bit samples, a progression that leaves one of the
-first ten coefficients unrefined (libjpeg then smooths the blocks), a
-truncated or corrupt stream -- raises ValueError naming the file and the
-marker.
+Accepted: SOF0 (baseline) and SOF2 (progressive) at 8 bits, 1, 3 or 4
+components, each component's sampling 1 or 2 times finer in each direction
+than the largest (4:4:4, 4:2:2, 4:4:0, 4:2:0), at most 10 blocks in an
+interleaved scan's MCU (libjpeg's limit), any DQT / DHT tables (a DHT
+between scans holds for the scans after it), DRI with RSTn markers, APPn
+and COM segments skipped, several scans.  Anything else -- SOF1/3 and the
+arithmetic-coded frames, 2 components, 12-bit samples, a progression that
+leaves one of the first ten coefficients unrefined (libjpeg then smooths
+the blocks), a truncated or corrupt stream -- raises ValueError naming the
+file and the marker.
 
 Two decoders compute that function: `decode_twin`, plain Python for the
 markers and Huffman decoding and numpy over all blocks at once for the rest
@@ -40,10 +53,10 @@ markers and Huffman decoding and numpy over all blocks at once for the rest
 the native decoder, a CPU run the twin; a native library that does not
 build or load raises.
 
-`read_image` reads a file of either format by its first bytes, never by its
-name: JPEG (FF D8) and PNG (the eight-byte PNG signature) are decoded; GIF,
-BMP, WebP, TIFF and anything else raise ValueError naming the file and the
-format found.
+`read_image` reads a file by its first bytes, never by its name: JPEG
+(FF D8), PNG (the eight-byte PNG signature), GIF (GIF87a / GIF89a) and BMP
+(BM) are decoded; WebP, TIFF and anything else raise ValueError naming the
+file and the format found.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-from uniir_tpu_torch.data import png
+from uniir_tpu_torch.data import bmp, gif, png
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -89,6 +102,7 @@ class _Frame:
         self.scans = []  # _Scan
         self.jfif = False
         self.adobe_transform = None
+        self.colour = "grey"  # grey, ycbcr, rgb, cmyk or ycck: libjpeg's jpeg_color_space
 
 
 class _Scan(NamedTuple):
@@ -187,8 +201,8 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
             precision, frame.height, frame.width, nc = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
             if precision != 8:
                 raise ValueError(f"{where}: {precision}-bit samples are not supported (8 only)")
-            if nc not in (1, 3):
-                raise ValueError(f"{where}: {nc} components are not supported (1 or 3)")
+            if nc not in (1, 3, 4):
+                raise ValueError(f"{where}: {nc} components are not supported (1, 3 or 4)")
             if frame.height == 0 or frame.width == 0:
                 raise ValueError(f"{where}: image size {frame.width} x {frame.height} (DNL is not supported)")
             if len(seg) != 6 + 3 * nc:
@@ -247,6 +261,9 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
                 comps.append(ids.index(cid))
                 dc_ids.append(t >> 4)
                 ac_ids.append(t & 15)
+            if ns > 1 and sum(frame.components[c][1] * frame.components[c][2] for c in comps) > 10:
+                raise ValueError(f"{where}: more than 10 blocks in an MCU (sampling factors too large for an "
+                                 "interleaved scan)")
             ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
             if not frame.progressive and (ss, se, ah, al) != (0, 63, 0, 0):
                 raise ValueError(f"{where}: spectral selection {ss}..{se} / approximation {ah}, {al} is not baseline")
@@ -270,7 +287,9 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
             segments, i = _unstuff(data, i + 2 + length, name)
             frame.scans.append(_Scan(comps, dc, ac, frame.restart, segments, ss, se, ah, al))
             continue
-        elif marker == 0xE0 and seg[:5] == b"JFIF\x00":
+        elif marker in (0xE0, 0xEE) and seg[:5 if marker == 0xEE else 4] in (b"JFIF", b"Adobe") and len(seg) < 7:
+            raise ValueError(f"{where}: truncated {seg[:5].decode('latin-1')} segment")  # Pillow reads its version
+        elif marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:
             frame.jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             frame.adobe_transform = seg[11]
@@ -279,11 +298,22 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
         i += 2 + length
     if not frame.components or not frame.scans:
         raise ValueError(f"{name}: no frame or no scan before EOI")
-    if len(frame.components) == 3:
-        ids = tuple(c[0] for c in frame.components)
-        if frame.adobe_transform == 0 or (not frame.jfif and frame.adobe_transform is None and ids == (82, 71, 66)):
-            raise ValueError(f"{name}: marker 0xFFEE / component ids: RGB colour (no YCbCr transform) is not supported")
+    frame.colour = colour_space(len(frame.components), frame.jfif, frame.adobe_transform,
+                                tuple(c[0] for c in frame.components))
     return frame
+
+
+def colour_space(nc: int, jfif: bool, adobe_transform, ids: tuple) -> str:
+    """jdapimin.c's default_decompress_parms: the colour space of the samples."""
+    if nc == 1:
+        return "grey"
+    if nc == 4:
+        return "cmyk" if adobe_transform in (None, 0) else "ycck"
+    if jfif:
+        return "ycbcr"
+    if adobe_transform is not None:
+        return "rgb" if adobe_transform == 0 else "ycbcr"
+    return "rgb" if ids == (82, 71, 66) else "ycbcr"
 
 
 def _geometry(frame: _Frame):
@@ -632,7 +662,7 @@ _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 
 
 def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a baseline or progressive JPEG."""
+    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a baseline or progressive JPEG (module docstring)."""
     frame = parse(bytes(data), name)
     coefs = _decode_coefficients(frame, name)
     geo, _, _ = _geometry(frame)
@@ -642,14 +672,22 @@ def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
     for c, (_, h, v, _) in enumerate(frame.components):
         p = _upsample(_plane(frame, coefs, c, geo), hmax // h, vmax // v)
         planes.append(p[: frame.height, : frame.width])
-    if len(planes) == 1:
+    if frame.colour == "grey":
         g = planes[0].astype(np.uint8)
         return np.repeat(g[:, :, None], 3, axis=2)
-    y, cb, cr = (p.astype(np.int64) for p in planes)
-    r = y + _CR_R[cr]
-    g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
-    b = y + _CB_B[cb]
-    return np.clip(np.stack([r, g, b], axis=2), 0, 255).astype(np.uint8)
+    if frame.colour in ("rgb", "cmyk"):
+        rgb = np.stack(planes[:3], axis=2).astype(np.int64)
+        if frame.colour == "rgb":
+            return rgb.astype(np.uint8)
+        rgb = 255 - rgb  # Pillow's CMYK;I: 255 - C is what cmyk2rgb scales
+    else:  # YCbCr, or the YCC of YCCK: R = 255 - C there, range-limited
+        y, cb, cr = (p.astype(np.int64) for p in planes[:3])
+        rgb = np.clip(np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16), y + _CB_B[cb]], axis=2), 0, 255)
+        if frame.colour == "ycbcr":
+            return rgb.astype(np.uint8)
+    k = planes[3].astype(np.int64)[:, :, None]
+    t = rgb * k + 128  # Convert.c's cmyk2rgb: K - MULDIV255(255 - C, K)
+    return (k - (((t >> 8) + t) >> 8)).astype(np.uint8)
 
 
 # --- the native decoder --------------------------------------------------------
@@ -686,24 +724,29 @@ def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
 
 
 # formats Pillow opens that the port does not decode, by their first bytes
-_REFUSED = ((b"GIF87a", "GIF"), (b"GIF89a", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+_REFUSED = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 
 
 def image_format(data: bytes) -> str:
-    """The format a file's first bytes name: "jpeg", "png", or the name of
-    a format that is not decoded ("GIF", "BMP", "WebP", "TIFF", "unknown")."""
+    """The format a file's first bytes name: "jpeg", "png", "gif", "bmp",
+    or the name of a format that is not decoded ("WebP", "TIFF", "unknown")."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
         return "png"
+    if data[:6] in gif.SIGNATURES:
+        return "gif"
+    if data[:2] == bmp.SIGNATURE:
+        return "bmp"
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
     return next((label for magic, label in _REFUSED if data.startswith(magic)), "unknown")
 
 
 def read_image(path: str, device) -> np.ndarray:
-    """uint8 [H, W, 3] of the JPEG or PNG file at `path`, told apart by its
-    signature and decoded as a run on `device` decodes."""
+    """uint8 [H, W, 3] of the JPEG, PNG, GIF or BMP file at `path`, told
+    apart by its signature and decoded as a run on `device` decodes (BMP has
+    one decoder, numpy)."""
     with open(path, "rb") as f:
         data = f.read()
     kind = image_format(data)
@@ -711,4 +754,8 @@ def read_image(path: str, device) -> np.ndarray:
         return decoder_for(device)(data, path)
     if kind == "png":
         return png.decoder_for(device)(data, path)
-    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG and PNG files are decoded")
+    if kind == "gif":
+        return gif.decoder_for(device)(data, path)
+    if kind == "bmp":
+        return bmp.decode(data, path)
+    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG, PNG, GIF and BMP files are decoded")

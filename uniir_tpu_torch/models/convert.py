@@ -32,6 +32,15 @@ ViT block maps it on load).  Load such a state dict with
 `load_momentum_state_from_jax` carries a whole JAX BLIP train state
 (`params`, `params_m`, the queues and `queue_ptr`) into the port's, so both
 packages can start training from the same state.
+
+`load_optimizer_state_from_jax` carries a restored optax state into the
+port's AdamW and its LambdaLR: `optax.adamw` (its decay mask a
+`MaskedState`), `optax.multi_transform` over {backbone, fusion} (CLIP-FF)
+or {train, frozen} (BLIP, the frozen label an `optax.set_to_zero`), either
+inside `optax.MultiSteps`.  The moments move through the same key map as
+the parameters, matched by name, and only through maps that move elements
+(`element_map` checks it); `load_train_state_from_jax` does a whole train
+state -- parameters, BLIP's momentum items, optimizer, schedule and step.
 """
 
 from __future__ import annotations
@@ -214,33 +223,191 @@ def _tensors(sd: dict) -> Dict[str, torch.Tensor]:
     }
 
 
+def _renamed(params_np) -> dict:
+    """The port's names -> numpy arrays of a JAX tree (`state_dict_from_jax` before the dtype)."""
+    if "visual_encoder" in params_np:
+        return _blip(params_np)
+    if "word_embeddings" in params_np:
+        return _med_bert(params_np)
+    if "patch_embed" in params_np:
+        return _blip_vit(params_np)
+    if "final_ln" in params_np:
+        return _t5_stack(params_np)
+    if "t5_layers" in params_np:
+        return {**_clip(params_np, "clip_model."), **_t5_stack(params_np["t5_layers"], "t5_layers.")}
+    return _clip(params_np)
+
+
 def state_dict_from_jax(params_np) -> Dict[str, torch.Tensor]:
     """JAX params (numpy leaves) -> the state dict of the port's module of
     the same name, float or quantised: CLIPScoreFusion, CLIPFeatureFusion,
     BLIPScoreFusion, BLIPFeatureFusion, a bare MedBertModel, a bare
     BLIPVisionTransformer or a bare T5FusionStack tree (fp32; int8 for
     `weight_q`)."""
-    if "visual_encoder" in params_np:
-        return _tensors(_blip(params_np))
-    if "word_embeddings" in params_np:
-        return _tensors(_med_bert(params_np))
-    if "patch_embed" in params_np:
-        return _tensors(_blip_vit(params_np))
-    if "final_ln" in params_np:
-        return _tensors(_t5_stack(params_np))
-    if "t5_layers" in params_np:
-        return _tensors({**_clip(params_np, "clip_model."), **_t5_stack(params_np["t5_layers"], "t5_layers.")})
-    return _tensors(_clip(params_np))
+    return _tensors(_renamed(params_np))
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) of a nested dict in key order; a leaf is anything else."""
+    if isinstance(tree, dict):
+        for k in tree:
+            yield from _leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _rebuild(tree, fn, path=()):
+    """`tree` with each leaf replaced by fn(path, leaf)."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def element_map(params_np) -> Dict[str, tuple]:
+    """Port name -> the JAX leaf (path) it comes from, after checking that
+    the key map only moves elements: every element of the tree, numbered,
+    goes through `_renamed` and comes out exactly once and unchanged (a
+    rename, transpose, reshape or concatenation), or ValueError names the
+    port keys whose elements were combined or dropped."""
+    offsets, paths, total = {}, [], 0
+    for path, leaf in _leaves(params_np):
+        offsets[path] = total
+        paths.append(path)
+        total += int(np.size(leaf))
+    dtype = np.int32 if total < 2**31 else np.int64
+    numbered = _rebuild(params_np, lambda path, leaf: np.arange(offsets[path], offsets[path] + np.size(leaf),
+                                                                dtype=dtype).reshape(np.shape(leaf)))
+    out = {k: np.asarray(v) for k, v in _renamed(numbered).items()}
+    ids = np.concatenate([v.reshape(-1) for v in out.values()]) if out else np.zeros(0, dtype)
+    ids.sort()
+    if ids.shape != (total,) or not np.array_equal(ids, np.arange(total, dtype=dtype)):
+        seen = np.bincount(np.clip(ids, 0, total), minlength=total + 1)
+        bad = [k for k, v in out.items() if v.size and (v.min() < 0 or v.max() >= total or (seen[v.reshape(-1)] != 1).any())]
+        raise ValueError(f"the JAX -> port key map does not only move elements (sums, drops or copies) for {bad[:5]} "
+                         f"({len(ids)} elements out of {total})")
+    starts = np.array([offsets[p] for p in paths])
+    return {k: paths[int(np.searchsorted(starts, v.reshape(-1)[0], side="right")) - 1] for k, v in out.items() if v.size}
+
+
+def _fields(node) -> tuple:
+    return getattr(type(node), "_fields", ())
+
+
+def _adam_groups(opt_state, groups: list, counts: list) -> None:
+    """Walk an optax state (NamedTuples and tuples of numpy leaves, by their
+    field names: no optax import): ScaleByAdamState (count, mu, nu) into
+    `groups`, ScaleByScheduleState counts into `counts`; MultiStepsState
+    unwrapped only at mini_step 0."""
+    fields = _fields(opt_state)
+    if "mini_step" in fields:
+        mini_step = int(np.asarray(opt_state.mini_step))
+        if mini_step:
+            raise ValueError(f"the JAX optimizer state is inside a gradient accumulation (MultiStepsState mini_step "
+                             f"{mini_step}): its accumulated gradients have no place in the port's checkpoint; save "
+                             "it after a whole update")
+        _adam_groups(opt_state.inner_opt_state, groups, counts)
+    elif "inner_states" in fields:  # multi_transform: one state a label
+        for label in sorted(opt_state.inner_states):
+            _adam_groups(opt_state.inner_states[label], groups, counts)
+    elif "inner_state" in fields:  # MaskedState
+        _adam_groups(opt_state.inner_state, groups, counts)
+    elif set(fields) == {"count", "mu", "nu"}:
+        groups.append((int(np.asarray(opt_state.count)), opt_state.mu, opt_state.nu))
+    elif fields == ("count",):
+        counts.append(int(np.asarray(opt_state.count)))
+    elif fields:
+        raise ValueError(f"unknown optax state {type(opt_state).__name__} with fields {fields}")
+    else:  # a chain's states; EmptyState (set_to_zero, the decay's) holds none
+        for inner in opt_state:
+            _adam_groups(inner, groups, counts)
+
+
+def _is_masked(leaf) -> bool:
+    """optax's MaskedNode: a leaf of another label's (or a masked) subtree."""
+    return isinstance(leaf, tuple) and not leaf
+
+
+def load_optimizer_state_from_jax(state, params, opt_state, step: int) -> None:
+    """Carry a restored optax state (numpy leaves; `params` the JAX
+    parameter tree it belongs to, `step` the JAX TrainState's micro-batch
+    count) into the port's `train.state` in place: each parameter's AdamW
+    `exp_avg` / `exp_avg_sq` from the `mu` / `nu` of the label that trains
+    it, matched by name through `element_map`, its `step` that label's
+    count; the scheduler at that many updates (`train.optimizer.
+    set_schedule_position`); `state.step` = `step`.  A leaf no label trains
+    (`set_to_zero`) carries nothing and must not be a port parameter; every
+    parameter the port's optimizer holds must get state.  A state inside an
+    accumulation (mini_step != 0) raises ValueError naming `mini_step`."""
+    from uniir_tpu_torch.train.optimizer import set_schedule_position
+
+    groups, schedule_counts = [], []
+    _adam_groups(opt_state, groups, schedule_counts)
+    if not groups:
+        raise ValueError("no optax.adamw state (ScaleByAdamState) in the JAX optimizer state")
+    updates = {count for count, _, _ in groups} | set(schedule_counts)
+    if len(updates) != 1:
+        raise ValueError(f"the JAX optimizer state's labels disagree on the update count: {sorted(updates)}")
+    (updates,) = updates
+    if step != updates * state.accumulation_steps:
+        raise ValueError(f"JAX step {step} is not {updates} updates of {state.accumulation_steps} micro-batches: "
+                         "the config's gradient_accumulation_steps differs from the checkpoint's")
+    owner, mu, nu = {}, {}, {}  # JAX leaf path -> its label's moments
+    for g, (_, mu_tree, nu_tree) in enumerate(groups):
+        for (path, m), (_, v) in zip(_leaves(mu_tree), _leaves(nu_tree)):
+            if _is_masked(m):
+                continue
+            if path in owner:
+                raise ValueError(f"JAX parameter {'/'.join(path)} has state in two optimizer labels")
+            owner[path], mu[path], nu[path] = g, m, v
+    key_of = element_map(params)
+    zeros = _rebuild(params, lambda path, leaf: np.zeros(np.shape(leaf), np.float32))
+    moments = [_tensors(_renamed(_rebuild(zeros, lambda path, z: tree.get(path, z)))) for tree in (mu, nu)]
+    # parameters by their state-dict names, the names `state_dict_from_jax` writes (the BLIP ViT's are timm's)
+    by_name = {k: v for k, v in state.model.state_dict(keep_vars=True).items() if isinstance(v, torch.nn.Parameter)}
+    for key, path in key_of.items():
+        if path in owner and key not in by_name:
+            raise ValueError(f"JAX parameter {'/'.join(path)} ({key}) trains but the port's model has no {key}")
+    names = {id(p): n for n, p in by_name.items()}
+    for group in state.optimizer.param_groups:
+        for p in group["params"]:
+            key = names[id(p)]
+            if key not in key_of or key_of[key] not in owner:
+                raise ValueError(f"port parameter {key} has no optimizer state in the JAX checkpoint")
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(updates), dtype=torch.float32),
+                "exp_avg": moments[0][key].to(p.device, p.dtype).reshape(p.shape).clone(),
+                "exp_avg_sq": moments[1][key].to(p.device, p.dtype).reshape(p.shape).clone(),
+            }
+    set_schedule_position(state.scheduler, updates)
+    state.step = int(step)
+
+
+def load_train_state_from_jax(state, tree: dict) -> None:
+    """A whole JAX train state as numpy trees -- the JAX package's
+    checkpoint items: `step`, `params`, `opt_state`, and for BLIP
+    `params_m`, the queues and `queue_ptr` -- into the port's
+    `TrainState` / `MomentumTrainState` in place."""
+    if hasattr(state, "model_m"):
+        load_momentum_state_from_jax(state, **{k: tree[k] for k in ("params", "params_m", "queue_query", "queue_cand",
+                                                                     "queue_idx", "queue_ptr")})
+    else:
+        state.model.load_state_dict(state_dict_from_jax(tree["params"]))
+    load_optimizer_state_from_jax(state, tree["params"], tree["opt_state"], int(np.asarray(tree["step"])))
 
 
 def load_momentum_state_from_jax(state, params, params_m, queue_query, queue_cand, queue_idx, queue_ptr) -> None:
     """Carry a JAX `MomentumTrainState`, given as numpy arrays, into the
     port's `train.state.MomentumTrainState` in place: the online and the
-    momentum parameters through `state_dict_from_jax` (every key required),
-    the row-major queues and the ring pointer.  The optimizer state and the
-    step stay the port's."""
-    state.model.load_state_dict(state_dict_from_jax(params))
-    state.model_m.load_state_dict(state_dict_from_jax(params_m))
+    momentum parameters through `state_dict_from_jax` (every port key
+    required; a JAX leaf the port's model lacks -- BLIP-SF's frozen
+    cross-attention, if the tree has it -- left out), the row-major queues
+    and the ring pointer.  The optimizer state, the schedule and the step
+    come from `load_optimizer_state_from_jax` (`load_train_state_from_jax`
+    does both); without it they stay the port's."""
+    for module, tree in ((state.model, params), (state.model_m, params_m)):
+        wanted = module.state_dict()
+        module.load_state_dict({k: v for k, v in state_dict_from_jax(tree).items()
+                                if k in wanted or ".crossattention." not in k})
     for name, value in (("queue_query", queue_query), ("queue_cand", queue_cand), ("queue_idx", queue_idx)):
         target = getattr(state, name)
         target.copy_(torch.from_numpy(np.array(value)).to(target.dtype))

@@ -279,8 +279,9 @@ def _checkpoint_paths(config, train: bool) -> list:
         if not path.endswith((".pt", ".pth")):
             raise NotImplementedError(
                 f"{path}: only torch state dicts (.pt / .pth) and the port's train checkpoints load into "
-                "uniir_tpu_torch; JAX (orbax) train-state checkpoints are not read: the bridge that would write "
-                "them as checkpoint.pth is not ported (ROADMAP.md, Queue 1)"
+                "uniir_tpu_torch; a JAX checkpoint (orbax train directory, state.msgpack or a save_params file) is "
+                "not read: convert it with scripts/orbax_to_torch.py (a train checkpoint into checkpoint.pth, a "
+                "params file with --params-only into a .pth state dict)"
             )
         out.append(path)
     return out

@@ -112,3 +112,17 @@ def make_blip_optimizer(
         optimizer, lambda count: schedule(count) / learning_rate if learning_rate else 0.0
     )
     return optimizer, scheduler
+
+
+def set_schedule_position(scheduler: torch.optim.lr_scheduler.LambdaLR, updates: int) -> None:
+    """Put a LambdaLR at `updates` optimizer updates, as `updates` calls of
+    its `step()` would: each group's learning rate is its base rate times
+    its own schedule's factor at that count (optax's schedule is a function
+    of the count alone, so a resumed or converted state takes the rate of
+    the run that builds the scheduler)."""
+    rates = [base * factor(updates) for base, factor in zip(scheduler.base_lrs, scheduler.lr_lambdas)]
+    for group, lr in zip(scheduler.optimizer.param_groups, rates):
+        group["lr"] = lr
+    scheduler.last_epoch = updates
+    scheduler._step_count = updates + 1
+    scheduler._last_lr = rates

@@ -118,23 +118,11 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
     warmup = int(getattr(trainer_config, "warmup_steps", 0))
 
     model = bundle.model
+    state = make_train_state(config, bundle, t_total)
     if is_blip:
-        optimizer, scheduler = make_blip_optimizer(
-            model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.05)), warmup_steps=warmup
-        )
-        state = MomentumTrainState.create(
-            model, optimizer, scheduler, queue_size=bundle.extra["queue_size"],
-            embed_dim=bundle.embed_dim, momentum=bundle.extra["momentum"], accumulation_steps=accum,
-        )
         train_step = make_blip_train_step(model, hard_neg_num=hard_neg_num, seed=int(config.seed))
         eval_step = make_blip_eval_step(hard_neg_num=hard_neg_num)
     else:
-        fusion_lr = getattr(trainer_config, "t5_learning_rate", None)
-        optimizer, scheduler = make_clip_optimizer(
-            model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.2)), warmup_steps=warmup,
-            fusion_learning_rate=float(fusion_lr) if fusion_lr else None,
-        )
-        state = TrainState(model, optimizer, scheduler, accumulation_steps=accum)
         train_step = make_clip_train_step(
             model, hard_neg_num=hard_neg_num, in_batch_neg_num=in_batch_neg_num,
             with_dropout=(model_name == "CLIPFeatureFusion"),  # T5 fusion dropout
@@ -154,6 +142,33 @@ def build_train_setup(config, bundle=None, device=None) -> dict:
         "lr_schedule": cosine_schedule(lr, t_total, warmup),
         "num_epochs": num_epochs,
     }
+
+
+def make_train_state(config, bundle, t_total: int):
+    """The train state of `bundle`'s model by `config.trainer_config`: AdamW
+    in the CLIP groups (CLIP-FF's T5 group at `t5_learning_rate`) or BLIP's
+    one group, its cosine schedule over `t_total` updates, and for BLIP the
+    momentum twin and queues; `gradient_accumulation_steps` micro-batches an
+    update."""
+    trainer_config = config.trainer_config
+    accum = int(getattr(trainer_config, "gradient_accumulation_steps", 1))
+    lr = float(trainer_config.learning_rate)
+    warmup = int(getattr(trainer_config, "warmup_steps", 0))
+    model = bundle.model
+    if config.model.name in BLIP_MODELS:
+        optimizer, scheduler = make_blip_optimizer(
+            model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.05)), warmup_steps=warmup
+        )
+        return MomentumTrainState.create(
+            model, optimizer, scheduler, queue_size=bundle.extra["queue_size"],
+            embed_dim=bundle.embed_dim, momentum=bundle.extra["momentum"], accumulation_steps=accum,
+        )
+    fusion_lr = getattr(trainer_config, "t5_learning_rate", None)
+    optimizer, scheduler = make_clip_optimizer(
+        model, lr, t_total, weight_decay=float(getattr(trainer_config, "weight_decay", 0.2)), warmup_steps=warmup,
+        fusion_learning_rate=float(fusion_lr) if fusion_lr else None,
+    )
+    return TrainState(model, optimizer, scheduler, accumulation_steps=accum)
 
 
 def _setup_file_logging(config) -> None:
