@@ -5,10 +5,11 @@
 
 0. builds the port's kernels and host image decoders (uniir_tpu_torch/csrc,
    nvcc for sm_90a) from the checkout, one nvcc a source at once, and (the
-   decoder phase) holds the native GIF decoder and the native JPEG decoder's
-   CMYK, YCCK and RGB forms bit-equal to their twins over 200 seeded files
-   each, sizes 1-600 px, printing their images/s on one thread and on the
-   loader's threads;
+   decoder phase) holds the native GIF decoder, the native JPEG decoder's
+   CMYK, YCCK and RGB forms and the native WebP decoder bit-equal to their
+   twins over 200 seeded files each, sizes 1-600 px (both WebP decoders
+   also to Pillow's digests of seven Pillow-made files), printing their
+   images/s on one thread and on the loader's threads;
 1. checks each kernel against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
    BLIP's L = 197, the `base` configs' shapes (ViT-B/32 vision L = 50 and
@@ -126,11 +127,12 @@
    interactive retriever (K1, K2; its time split into embed, pool upload
    and sweep, and the upload and sweep again over a 5.6M x 768 host pool),
    held to `search_dense_index` over the same queries embedded through the
-   twins, and one request each of one PNG, one GIF, one BMP and one CMYK
-   JPEG image query (the native PNG / GIF / JPEG decoders -- BMP has one,
-   numpy --, K1, K2) held the same way to the twins, the twin decoders among
-   them, the GIF / BMP / CMYK queries' embeddings also to the same pixels
-   sent as a baseline JPEG (cosine >= 0.999);
+   twins, and one request each of one PNG, one GIF, one BMP, one CMYK JPEG,
+   one lossy WebP and one lossless WebP (with alpha) image query (the native
+   PNG / GIF / JPEG / WebP decoders -- BMP has one, numpy --, K1, K2) held
+   the same way to the twins, the twin decoders among them, the GIF / BMP /
+   CMYK / WebP queries' embeddings also to the same pixels sent as a
+   baseline JPEG (cosine >= 0.999);
    UniRAG's raw retrieval with complement pairs over the int8 pool
    (queries that copy the text candidates: K4 for them, K1 and K2 for the
    complement queries); hard-negative mining (k = 50, 10 a query; K2)
@@ -161,8 +163,9 @@
    own writer in Pillow's default form -- 4:2:0, quality 75, short side 256
    --, PNG files from its own PNG writer in five forms through every
    scanline filter, three Pillow-made progressive JPEGs kept below as
-   base64, and a GIF, a BMP (RLE8) and CMYK, YCCK and RGB JPEGs from its
-   writers, under the paths `P12_FORMS` names; a BPE merges file learned
+   base64, and a GIF, a BMP (RLE8), CMYK, YCCK and RGB JPEGs and WebP files
+   (lossy, lossless with alpha, VP8X with an ALPH chunk) from its writers,
+   under the paths `P12_FORMS` names; a BPE merges file learned
    from the captions, a `vocab.txt`, phase 2's CLIP-SF and a seeded BLIP-SF
    `large` saved as `.pth`), reads the shipped
    `configs/clip_sf/large/eval/inbatch/{embed,index,retrieval}.yaml`,
@@ -177,8 +180,8 @@
    of 32 pairs and BLIP-SF's for three of 40 at full width (the numpy train
    transform on the files), each checkpoint then embedded by the pipeline;
    and checks the native decoders bit-equal to the twins on every file (the
-   progressive ones also to Pillow's digests, the PNG, GIF and BMP ones to
-   the samples written), the CLIs' embeddings against the in-code embed path over the
+   progressive ones also to Pillow's digests, the PNG, GIF, BMP and lossless
+   WebP ones to the samples written), the CLIs' embeddings against the in-code embed path over the
    decoded arrays (cosine >= 0.9999 every row, ids equal; BLIP-SF's trained
    checkpoint too), the int8 run's ids against the bf16 run's, the TSV's
    Recall@1/5/10 against the port's search called in code, each run's
@@ -213,6 +216,7 @@ two).  `chip_smoke.py --cli COUNTS MODULE ARGS...` is one of phase 12's runs:
 from __future__ import annotations
 
 import base64
+import heapq
 import json
 import os
 import re
@@ -320,7 +324,7 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# -------------------------------------------- the decoder phase: GIF and JPEG's colour forms
+# ------------------------------------ the decoder phase: GIF, JPEG's colour forms and WebP
 
 DECODER_CASES = 200  # seeded files of each native decoder's new forms, sizes 1-600 px
 GIF_CASE_FORMS = ("plain", "interlaced", "local_palette", "short_palette", "transparency", "deferred_clear",
@@ -333,15 +337,21 @@ JPEG_CASE_FORMS = (("cmyk", None), ("cmyk", [(2, 2), (1, 1), (1, 1), (2, 2)]), (
 
 def decoder_case(job: tuple) -> tuple:
     """(file bytes, sha256 of the twin decoder's pixels) of seeded case k of `kind`: a GIF of one of
-    GIF_CASE_FORMS (indices in runs and noise, so the LZW table fills) or a JPEG of one of JPEG_CASE_FORMS
-    (a smooth field with noise, quality 30-95, restarts now and then); a worker of the decoder phase's pool."""
+    GIF_CASE_FORMS (indices in runs and noise, so the LZW table fills), a JPEG of one of JPEG_CASE_FORMS
+    (a smooth field with noise, quality 30-95, restarts now and then) or a WebP file of one of
+    WEBP_CASE_FORMS (`webp_bytes`); a worker of the decoder phase's pool."""
     import hashlib
 
-    from uniir_tpu_torch.data import gif, jpeg
+    from uniir_tpu_torch.data import gif, jpeg, webp
 
     kind, k = job
-    rng = np.random.default_rng(SEED + 7000 + k + (0 if kind == "gif" else 100_000))
+    rng = np.random.default_rng(SEED + 7000 + k + {"gif": 0, "jpeg": 100_000, "webp": 200_000}[kind])
     w, h = int(rng.integers(1, 601)), int(rng.integers(1, 601))
+    if kind == "webp" and k % 4:  # three cases in four log-uniform over 1-600 px: the Python writer and twin
+        w, h = int(round(600 ** rng.random())), int(round(600 ** rng.random()))  # are slow on the largest
+    if kind == "webp":
+        data = webp_bytes(WEBP_CASE_FORMS[k % len(WEBP_CASE_FORMS)], SEED + 9000 + k, w, h)
+        return data, hashlib.sha256(webp.decode_twin(data).tobytes()).hexdigest()
     if kind == "gif":
         form = GIF_CASE_FORMS[k % len(GIF_CASE_FORMS)]
         n_colors = int(rng.integers(1, 257))
@@ -382,25 +392,36 @@ def decoder_case(job: tuple) -> tuple:
 
 
 def check_decoders(smi: str) -> None:
-    """The decoder phase: the native GIF decoder (csrc/gif.cu) and the native JPEG decoder's CMYK, YCCK and
-    RGB forms (csrc/jpeg.cu) held bit-equal to their twins over DECODER_CASES seeded files each, sizes 1-600
-    px (the twins run in a spawn pool); the native decoders' images/s on one thread and on the loader's
-    threads (the shipped embed.yaml's num_workers), beside the card's name and power limit and the host CPU."""
+    """The decoder phase: the native GIF decoder (csrc/gif.cu), the native JPEG decoder's CMYK, YCCK and RGB
+    forms (csrc/jpeg.cu) and the native WebP decoder (csrc/webp.cu) held bit-equal to their twins over
+    DECODER_CASES seeded files each, sizes 1-600 px (the twins run in a spawn pool), the WebP decoders also
+    to Pillow's digests of WEBP_PILLOW_FILES; the native decoders' images/s on one thread and on the
+    loader's threads (the shipped embed.yaml's num_workers), beside the card's name and power limit and the
+    host CPU."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     from uniir_tpu_torch.core.config import load_config
-    from uniir_tpu_torch.data import gif, jpeg
+    from uniir_tpu_torch.data import gif, jpeg, webp
 
     t_phase = time.perf_counter()
     threads = int(load_config(str(REPO / P12_CONFIGS["embed"])).dataloader_config.num_workers)
+    kinds = ("gif", "jpeg", "webp")
     with ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=multiprocessing.get_context("spawn")) as pool:
-        cases = {kind: list(pool.map(decoder_case, [(kind, k) for k in range(DECODER_CASES)], chunksize=4))
-                 for kind in ("gif", "jpeg")}
-    log(f"decoder phase: {DECODER_CASES} GIF and {DECODER_CASES} JPEG files written and decoded by the twins in "
+        cases = {kind: list(pool.map(decoder_case, [(kind, k) for k in range(DECODER_CASES)], chunksize=2))
+                 for kind in kinds}
+    log(f"decoder phase: {DECODER_CASES} GIF, JPEG and WebP files each written and decoded by the twins in "
         f"{time.perf_counter() - t_phase:.1f} s")
-    for kind, native in (("gif", gif.decode_native), ("jpeg", jpeg.decode_native)):
+    for name, (b64, digest, w, h) in WEBP_PILLOW_FILES.items():
+        data = base64.b64decode(b64)
+        for fn in (webp.decode_twin, webp.decode_native):
+            got = fn(data, name)
+            check(got.shape == (h, w, 3) and hashlib.sha256(got.tobytes()).hexdigest() == digest,
+                  f"decoder phase: {fn.__name__} differs from Pillow's pixels of {name}")
+    log(f"decoder phase: both WebP decoders equal to Pillow's digests on the {len(WEBP_PILLOW_FILES)} Pillow-made "
+        f"files ({', '.join(WEBP_PILLOW_FILES)})")
+    for kind, native in (("gif", gif.decode_native), ("jpeg", jpeg.decode_native), ("webp", webp.decode_native)):
         files = [data for data, _ in cases[kind]]
         calls = native.calls
         t0 = time.perf_counter()
@@ -416,11 +437,21 @@ def check_decoders(smi: str) -> None:
                   if hashlib.sha256(out.tobytes()).hexdigest() != digest]
         check(not differ, f"decoder phase: the native {kind} decoder differs from its twin on cases {differ[:5]}")
         pixels = sum(out.shape[0] * out.shape[1] for out in outs)
-        forms = GIF_CASE_FORMS if kind == "gif" else sorted({f for f, _ in JPEG_CASE_FORMS})
+        forms = {"gif": GIF_CASE_FORMS, "jpeg": sorted({f for f, _ in JPEG_CASE_FORMS}), "webp": WEBP_CASE_FORMS}[kind]
         log(f"decoder phase: native {kind} bit-equal to its twin on {len(files)} files ({', '.join(forms)}; "
             f"{pixels / len(files):.0f} pixels a file on average); {one_thread:.1f} images/s "
             f"({pixels * one_thread / len(files) / 1e6:.2f} Mpixel/s) on one thread, {many:.1f} images/s on the "
             f"loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
+        if kind == "webp":
+            for form in WEBP_CASE_FORMS:
+                sel = [k for k in range(len(files)) if WEBP_CASE_FORMS[k % len(WEBP_CASE_FORMS)] == form]
+                t0 = time.perf_counter()
+                for k in sel:
+                    native(files[k])
+                dt = time.perf_counter() - t0
+                px = sum(outs[k].shape[0] * outs[k].shape[1] for k in sel)
+                log(f"decoder phase: native WebP {form}: {len(sel) / dt:.1f} images/s, {px / dt / 1e6:.2f} Mpixel/s "
+                    f"on one thread ({px / len(sel):.0f} pixels a file)")
     log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2699,16 +2730,17 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
         drive_image_query(results, image_bundle, index_path, cands_path, index, cands, form, SEED + 13 + k, per_batch)
 
 
-TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk")  # phase 10's image queries beyond PNG, as `fixture_file` writes them
+# phase 10's image queries beyond PNG, as `fixture_file` writes them
+TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha")
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
 
 
 def swapped_decoders():
     """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call);
     call the result to swap them back."""
-    from uniir_tpu_torch.data import gif, jpeg, png
+    from uniir_tpu_torch.data import gif, jpeg, png, webp
 
-    saved = [(m, m.decoder_for) for m in (gif, jpeg, png)]
+    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, webp)]
     for module, _ in saved:
         module.decoder_for = lambda device, module=module: module.decode_twin
 
@@ -2721,18 +2753,20 @@ def swapped_decoders():
 
 def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, index, cands: list, form: str, seed: int,
                       per_batch: int) -> None:
-    """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG)
-    through the interactive retriever: the native decoder (GIF / JPEG; BMP has one decoder), K1, K2; held to
+    """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
+    lossy WebP, a lossless WebP with alpha) through the interactive retriever: the native decoder (GIF / JPEG /
+    WebP; BMP has one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
-    from uniir_tpu_torch.data import gif, jpeg
+    from uniir_tpu_torch.data import gif, jpeg, webp
     from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
 
     root = str(WORK)
     rel = f"images/query_{form}.{FORM_SUFFIX.get(form, 'jpg')}"
     path = os.path.join(root, "mbeir_data", rel)
     Path(path).write_bytes(fixture_file(form, seed))
-    native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native}.get(form)
+    native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native, "webp_lossy": webp.decode_native,
+              "webp_lossless_alpha": webp.decode_native}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -3568,10 +3602,11 @@ P12_TRANSFORM_SAMPLE = 100  # images BLIP's train transform is timed on
 P12_FORMS = {
     "cand": {1: "png_rgb", 2: "png_palette", 4: "png_grey", 5: "png_rgba", 7: "png_rgb16", 8: "progressive_420_q75",
              10: "progressive_444_q75_restart5", 11: "progressive_grey_q75", 13: "gif", 14: "bmp", 16: "jpeg_cmyk",
-             17: "jpeg_ycck", 19: "jpeg_rgb"},
-    "query": {2: "png_rgb", 6: "progressive_420_q75", 10: "png_grey", 14: "gif", 18: "bmp", 22: "jpeg_cmyk"},
+             17: "jpeg_ycck", 19: "jpeg_rgb", 20: "webp_lossy", 22: "webp_lossless_alpha", 23: "webp_alpha"},
+    "query": {2: "png_rgb", 6: "progressive_420_q75", 10: "png_grey", 14: "gif", 18: "bmp", 22: "jpeg_cmyk",
+              26: "webp_lossy", 30: "webp_lossless_alpha", 34: "webp_alpha"},
     "train": {2: "png_palette", 6: "png_rgb16", 10: "progressive_444_q75_restart5", 14: "png_rgba",
-              18: "progressive_grey_q75"},
+              18: "progressive_grey_q75", 22: "webp_lossy", 26: "webp_lossless_alpha", 30: "webp_alpha"},
 }
 IMAGE_SHORT_SIDE = 256  # the M-BEIR construction's short side (uniir_tpu/data/registry.py)
 P12_DATASET, P12_POOL, P12_DSID = "mscoco_task0", "mscoco_task0_test", 9  # as the shipped configs name them
@@ -4022,6 +4057,955 @@ def bmp_bytes(image: np.ndarray, bits: int, *, palette: bytes = b"", compression
     return b"BM" + (offset + len(data)).to_bytes(4, "little") + b"\0" * 4 + offset.to_bytes(4, "little") + info + pal + data
 
 
+# --- the WebP writer: VP8L, VP8 key frames and the RIFF forms, without Pillow or libwebp
+
+
+class LsbWriter:
+    """VP8L's bit order: values least significant bit first."""
+
+    def __init__(self):
+        self.acc, self.n, self.out = 0, 0, bytearray()
+
+    def put(self, value: int, bits: int) -> None:
+        self.acc |= (value & ((1 << bits) - 1)) << self.n
+        self.n += bits
+        while self.n >= 8:
+            self.out.append(self.acc & 255)
+            self.acc >>= 8
+            self.n -= 8
+
+    def code(self, code: int, length: int) -> None:  # a prefix code's bits, its first (most significant) bit first
+        for k in range(length - 1, -1, -1):
+            self.put((code >> k) & 1, 1)
+
+    def bytes(self) -> bytes:
+        return bytes(self.out) + (bytes([self.acc]) if self.n else b"")
+
+
+def huffman_lengths(counts, limit: int) -> list:
+    """Code lengths of a complete prefix code over the symbols with counts > 0 (Huffman's, or a balanced
+    code where Huffman's is longer than `limit`); one used symbol: length 1."""
+    used = [s for s, c in enumerate(counts) if c > 0]
+    lengths = [0] * len(counts)
+    if len(used) <= 1:
+        for s in used:
+            lengths[s] = 1
+        return lengths
+    heap = [(counts[s], i, [s]) for i, s in enumerate(used)]
+    heapq.heapify(heap)
+    tie = len(heap)
+    while len(heap) > 1:
+        c1, _, s1 = heapq.heappop(heap)
+        c2, _, s2 = heapq.heappop(heap)
+        for s in s1 + s2:
+            lengths[s] += 1
+        heapq.heappush(heap, (c1 + c2, tie, s1 + s2))
+        tie += 1
+    if max(lengths) > limit:
+        k = (len(used) - 1).bit_length()
+        short = (1 << k) - len(used)  # this many at k - 1 bits, the rest at k: a complete code
+        for i, s in enumerate(sorted(used, key=lambda s: -counts[s])):
+            lengths[s] = k - 1 if i < short else k
+    return lengths
+
+
+def canonical_codes(lengths) -> list:
+    """Each symbol's code under canonical assignment in (length, symbol) order."""
+    codes, code, prev = [0] * len(lengths), 0, 0
+    for ln, s in sorted((ln, s) for s, ln in enumerate(lengths) if ln):
+        code <<= ln - prev
+        prev = ln
+        codes[s] = code
+        code += 1
+    return codes
+
+
+VP8L_CODE_LENGTH_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _code_length_tokens(lengths, stop: int, rng) -> list:
+    """The code lengths [0, stop) as code-length symbols (symbol, extra bits, extra value): zero runs as
+    17 / 18, repeats of the last non-zero length (8 before any) as 16, at random."""
+    tokens, i, prev = [], 0, 8
+    while i < stop:
+        ln, j = lengths[i], i
+        while j < stop and lengths[j] == ln:
+            j += 1
+        run = j - i
+        if ln == 0 and run >= 3:
+            take = min(run, 138)
+            tokens.append((18, 7, take - 11) if take >= 11 else (17, 3, take - 3))
+            i += take
+        elif ln and ln == prev and run >= 3 and rng.random() < 0.8:
+            take = min(run, 6)
+            tokens.append((16, 2, take - 3))
+            i += take
+        else:
+            tokens.append((ln, 0, 0))
+            if ln:
+                prev = ln
+            i += 1
+    return tokens
+
+
+def vp8l_write_code(bw: LsbWriter, counts, rng) -> tuple:
+    """One prefix code for the symbol counts: a simple code where one or two symbols below 256 are used
+    (randomly the 1-bit form for symbol 0 / 1), else a normal code through the code-length code with
+    repeat codes 16 / 17 / 18 and, at random, a count of lengths to read.  Returns (lengths, codes)."""
+    used = [s for s, c in enumerate(counts) if c > 0] or [0]
+    if len(used) <= 2 and max(used) < 256 and rng.random() < 0.7:
+        bw.put(1, 1)
+        bw.put(len(used) - 1, 1)
+        small = used[0] < 2 and rng.random() < 0.5
+        bw.put(0 if small else 1, 1)
+        bw.put(used[0], 1 if small else 8)
+        if len(used) == 2:
+            bw.put(used[1], 8)
+        lengths = [0] * len(counts)
+        if len(used) == 2:  # one used symbol reads no bits
+            lengths[used[0]] = lengths[used[1]] = 1
+        return lengths, canonical_codes(lengths)
+    lengths = huffman_lengths([c if s in used else 0 for s, c in enumerate(counts)] if any(counts)
+                              else [1 if s == used[0] else 0 for s in range(len(counts))], 15)
+    # the lengths as code-length symbols: (symbol, extra bits, extra value)
+    n, last = len(lengths), max(s for s, ln in enumerate(lengths) if ln)
+    stop = last + 1 if rng.random() < 0.5 else n  # with a count, the trailing zeros are not written
+    tokens = _code_length_tokens(lengths, stop, rng)
+    if stop < n and len(tokens) < 2:  # a count is at least 2
+        stop = n
+        tokens = _code_length_tokens(lengths, stop, rng)
+    cl_counts = [0] * 19
+    for sym, _, _ in tokens:
+        cl_counts[sym] += 1
+    cl_lengths = huffman_lengths(cl_counts, 7)
+    cl_codes = canonical_codes(cl_lengths)
+    num = max(4, max(k for k, s in enumerate(VP8L_CODE_LENGTH_ORDER) if cl_lengths[s]) + 1)
+    bw.put(0, 1)
+    bw.put(num - 4, 4)
+    for k in range(num):
+        bw.put(cl_lengths[VP8L_CODE_LENGTH_ORDER[k]], 3)
+    if stop < n:
+        count = len(tokens)
+        nbits = max(2, (count - 2).bit_length() + ((count - 2).bit_length() & 1))
+        bw.put(1, 1)
+        bw.put((nbits - 2) // 2, 3)
+        bw.put(count - 2, nbits)
+    else:
+        bw.put(0, 1)
+    one = sum(1 for ln in cl_lengths if ln) == 1
+    for sym, extra, value in tokens:
+        if not one:
+            bw.code(cl_codes[sym], cl_lengths[sym])
+        bw.put(value, extra)
+    if sum(1 for ln in lengths if ln) == 1:
+        lengths = [0] * n  # one used symbol: read with no bits
+    return lengths, canonical_codes(lengths)
+
+
+def prefix_encode(value: int) -> tuple:
+    """VP8L's prefix coding of a length or distance code >= 1: (symbol, extra bits, extra value)."""
+    if value <= 4:
+        return value - 1, 0, 0
+    v = value - 1
+    high = v.bit_length() - 1
+    second = (v >> (high - 1)) & 1
+    return 2 * high + second, high - 1, v & ((1 << (high - 1)) - 1)
+
+
+VP8L_PLANE = [((d >> 4), 8 - (d & 15)) for d in bytes([
+    0x18, 0x07, 0x17, 0x19, 0x28, 0x06, 0x27, 0x29, 0x16, 0x1A, 0x26, 0x2A, 0x38, 0x05, 0x37, 0x39, 0x15, 0x1B,
+    0x36, 0x3A, 0x25, 0x2B, 0x48, 0x04, 0x47, 0x49, 0x14, 0x1C, 0x35, 0x3B, 0x46, 0x4A, 0x24, 0x2C, 0x58, 0x45,
+    0x4B, 0x34, 0x3C, 0x03, 0x57, 0x59, 0x13, 0x1D, 0x56, 0x5A, 0x23, 0x2D, 0x44, 0x4C, 0x55, 0x5B, 0x33, 0x3D,
+    0x68, 0x02, 0x67, 0x69, 0x12, 0x1E, 0x66, 0x6A, 0x22, 0x2E, 0x54, 0x5C, 0x43, 0x4D, 0x65, 0x6B, 0x32, 0x3E,
+    0x78, 0x01, 0x77, 0x79, 0x53, 0x5D, 0x11, 0x1F, 0x64, 0x6C, 0x42, 0x4E, 0x76, 0x7A, 0x21, 0x2F, 0x75, 0x7B,
+    0x31, 0x3F, 0x63, 0x6D, 0x52, 0x5E, 0x00, 0x74, 0x7C, 0x41, 0x4F, 0x10, 0x20, 0x62, 0x6E, 0x30, 0x73, 0x7D,
+    0x51, 0x5F, 0x40, 0x72, 0x7E, 0x61, 0x6F, 0x50, 0x71, 0x7F, 0x60, 0x70,
+])]  # the distance map of RFC 9649 section 4.2.2: code - 1 -> (dy, dx)
+
+
+def vp8l_entropy_image(bw: LsbWriter, pix: list, width: int, rng, *, cache_bits: int = 0, meta_bits: int = 0,
+                       groups: int = 1, copies: float = 0.3, level0: bool = True) -> None:
+    """The coded pixels (ARGB ints, `width` a row) as VP8L writes them after the transforms: a colour
+    cache of `cache_bits`, a meta-Huffman image of `groups` groups over tiles of 2^meta_bits (level 0
+    only), and ops drawn at random: a copy wherever one matches (its distance from the 120-entry map or
+    direct), a cache hit where the cache holds the pixel, else a literal."""
+    n = len(pix)
+    height = n // width
+    if cache_bits:
+        bw.put(1, 1)
+        bw.put(cache_bits, 4)
+    else:
+        bw.put(0, 1)
+    tiles = None
+    if level0:
+        if meta_bits:
+            bw.put(1, 1)
+            bw.put(meta_bits - 2, 3)
+            tw, th = -(-width // (1 << meta_bits)), -(-height // (1 << meta_bits))
+            tiles = rng.integers(0, groups, tw * th).tolist()
+            tiles[int(rng.integers(0, len(tiles)))] = groups - 1  # the largest index is used
+            vp8l_entropy_image(bw, [t << 8 for t in tiles], tw, rng, level0=False, copies=0.1)
+        else:
+            bw.put(0, 1)
+    ngroups = groups if tiles is not None else 1
+    cache = [None] * (1 << cache_bits) if cache_bits else None
+    shift = 32 - cache_bits
+    ops, pos = [], 0
+    while pos < n:
+        x, y = pos % width, pos // width
+        g = tiles[(y >> meta_bits) * (-(-width // (1 << meta_bits))) + (x >> meta_bits)] if tiles is not None else 0
+        op = None
+        if pos and rng.random() < copies:
+            if rng.random() < 0.7:
+                code = int(rng.integers(1, 121))
+                dy, dx = VP8L_PLANE[code - 1]
+                dist = max(1, dy * width + dx)
+            else:
+                dist = int(rng.integers(1, pos + 1))
+                code = dist + 120
+            if dist <= pos:
+                length = 1
+                while pos + length < n and length < 4096 and pix[pos + length] == pix[pos + length - dist]:
+                    length += 1
+                if pix[pos] == pix[pos - dist] and (length > 1 or rng.random() < 0.3):
+                    op = ("copy", g, length, code)
+        if op is None and cache is not None:
+            p = pix[pos]
+            key = ((p * 0x1E35A7BD) & 0xFFFFFFFF) >> shift
+            if cache[key] == p and rng.random() < 0.8:
+                op = ("cache", g, key)
+        if op is None:
+            op = ("literal", g, pix[pos])
+        step = op[2] if op[0] == "copy" else 1
+        if cache is not None:
+            for p in pix[pos : pos + step]:
+                cache[((p * 0x1E35A7BD) & 0xFFFFFFFF) >> shift] = p
+        ops.append(op)
+        pos += step
+    alphabet = (280 + (1 << cache_bits if cache_bits else 0), 256, 256, 256, 40)
+    counts = [[[0] * a for a in alphabet] for _ in range(ngroups)]
+    for op in ops:
+        c = counts[op[1]]
+        if op[0] == "literal":
+            p = op[2]
+            c[0][(p >> 8) & 255] += 1
+            c[1][(p >> 16) & 255] += 1
+            c[2][p & 255] += 1
+            c[3][p >> 24] += 1
+        elif op[0] == "cache":
+            c[0][280 + op[2]] += 1
+        else:
+            c[0][256 + prefix_encode(op[2])[0]] += 1
+            c[4][prefix_encode(op[3])[0]] += 1
+    tables = [[vp8l_write_code(bw, c, rng) for c in group] for group in counts]
+    for op in ops:
+        (gl, gc), (rl, rc), (bl, bc), (al, ac), (dl, dc) = tables[op[1]]
+
+        def sym(table, s):
+            ln, cd = table
+            if ln[s]:
+                bw.code(cd[s], ln[s])
+
+        if op[0] == "literal":
+            p = op[2]
+            sym((gl, gc), (p >> 8) & 255)
+            sym((rl, rc), (p >> 16) & 255)
+            sym((bl, bc), p & 255)
+            sym((al, ac), p >> 24)
+        elif op[0] == "cache":
+            sym((gl, gc), 280 + op[2])
+        else:
+            s, extra, value = prefix_encode(op[2])
+            sym((gl, gc), 256 + s)
+            bw.put(value, extra)
+            s, extra, value = prefix_encode(op[3])
+            sym((dl, dc), s)
+            bw.put(value, extra)
+
+
+def _vp8l_avg(a: int, b: int) -> int:
+    return (((a ^ b) & 0xFEFEFEFE) >> 1) + (a & b)
+
+
+def _vp8l_channels(f, *pixels) -> int:
+    out = 0
+    for s in (24, 16, 8, 0):
+        out |= min(255, max(0, f(*((p >> s) & 255 for p in pixels)))) << s
+    return out
+
+
+def vp8l_predict(mode: int, left: int, top: int, tr: int, tl: int) -> int:
+    """RFC 9649's predictors 0-13 (14, 15: black as 0)."""
+    if mode == 1:
+        return left
+    if mode in (2, 3, 4):
+        return (top, tr, tl)[mode - 2]
+    if mode in (5, 6, 7, 8, 9, 10):
+        return (_vp8l_avg(_vp8l_avg(left, tr), top), _vp8l_avg(left, tl), _vp8l_avg(left, top),
+                _vp8l_avg(tl, top), _vp8l_avg(top, tr),
+                _vp8l_avg(_vp8l_avg(left, tl), _vp8l_avg(top, tr)))[mode - 5]
+    if mode == 11:
+        pl = sum(abs(((top >> s) & 255) - ((tl >> s) & 255)) for s in (0, 8, 16, 24))
+        pt = sum(abs(((left >> s) & 255) - ((tl >> s) & 255)) for s in (0, 8, 16, 24))
+        return left if pl < pt else top
+    if mode == 12:
+        return _vp8l_channels(lambda a, b, c: a + b - c, left, top, tl)
+    if mode == 13:
+        return _vp8l_channels(lambda a, c: a + int((a - c) / 2), _vp8l_avg(left, top), tl)
+    return 0xFF000000
+
+
+def _vp8l_sub(a: int, b: int) -> int:  # per byte, mod 256
+    return (((a | 0x00FF00FF) - (b & 0xFF00FF00)) & 0xFF00FF00) | (((a | 0xFF00FF00) - (b & 0x00FF00FF)) & 0x00FF00FF)
+
+
+def vp8l_bitstream(argb: np.ndarray, rng, *, header: bool = True, transforms=(), predictor_bits: int = 3,
+                   cross_bits: int = 4, palette: np.ndarray = None, cache_bits: int = 0, meta_bits: int = 0,
+                   groups: int = 1, copies: float = 0.3, alpha_hint: bool = True) -> bytes:
+    """A VP8L stream that decodes to `argb` (uint32 [h, w]) exactly: the named transforms applied forward in
+    order ("predictor": seeded modes 0-15 a tile; "cross": seeded multipliers a tile; "subtract_green";
+    "palette": colour indexing through `palette`, which must hold every colour of the image, packing
+    2 / 4 / 8 indices a byte at <= 16 colours), then `vp8l_entropy_image`.  `header` False: the headerless
+    stream of an ALPH chunk."""
+    h, w = argb.shape
+    bw = LsbWriter()
+    if header:
+        bw.put(0x2F, 8)
+        bw.put(w - 1, 14)
+        bw.put(h - 1, 14)
+        bw.put(int(alpha_hint), 1)
+        bw.put(0, 3)
+    pix = [int(v) for v in argb.reshape(-1)]
+    width = w
+    for t in transforms:
+        bw.put(1, 1)
+        if t == "predictor":
+            bits = predictor_bits
+            tw = -(-width // (1 << bits))
+            modes = rng.integers(0, 16, tw * -(-h // (1 << bits))).tolist()
+            bw.put(0, 2)
+            bw.put(bits - 2, 3)
+            vp8l_entropy_image(bw, [0xFF000000 | (m << 8) | int(rng.integers(0, 256)) << 16 for m in modes], tw, rng,
+                               level0=False, copies=0.2)
+            res = pix[:]
+            for y in range(h):
+                for x in range(width):
+                    i = y * width + x
+                    if y == 0:
+                        pred = 0xFF000000 if x == 0 else pix[i - 1]
+                    elif x == 0:
+                        pred = pix[i - width]
+                    else:
+                        tr = pix[i - width + 1] if x + 1 < width else pix[y * width]
+                        pred = vp8l_predict(modes[(y >> bits) * tw + (x >> bits)], pix[i - 1], pix[i - width], tr,
+                                            pix[i - width - 1])
+                    res[i] = _vp8l_sub(pix[i], pred)
+            pix = res
+        elif t == "cross":
+            bits = cross_bits
+            tw = -(-width // (1 << bits))
+            codes = rng.integers(0, 1 << 24, tw * -(-h // (1 << bits))).tolist()
+            bw.put(1, 2)
+            bw.put(bits - 2, 3)
+            vp8l_entropy_image(bw, [0xFF000000 | c for c in codes], tw, rng, level0=False, copies=0.2)
+            s8 = lambda v: v - 256 if v > 127 else v  # noqa: E731
+            for i, p in enumerate(pix):
+                c = codes[((i // width) >> bits) * tw + ((i % width) >> bits)]
+                g2r, g2b, r2b = s8(c & 255), s8((c >> 8) & 255), s8((c >> 16) & 255)
+                g, r = s8((p >> 8) & 255), (p >> 16) & 255
+                new_r = (r - ((g2r * g) >> 5)) & 255
+                new_b = ((p & 255) - ((g2b * g) >> 5) - ((r2b * s8(r)) >> 5)) & 255
+                pix[i] = (p & 0xFF00FF00) | (new_r << 16) | new_b
+        elif t == "subtract_green":
+            bw.put(2, 2)
+            pix = [(p & 0xFF00FF00) | ((((p >> 16) - (p >> 8)) & 255) << 16) | ((p - (p >> 8)) & 255) for p in pix]
+        else:
+            colours = [int(v) for v in palette]
+            bw.put(3, 2)
+            bw.put(len(colours) - 1, 8)
+            deltas = [colours[0]] + [_vp8l_sub(colours[k], colours[k - 1]) for k in range(1, len(colours))]
+            vp8l_entropy_image(bw, deltas, len(colours), rng, level0=False, copies=0.1)
+            index = {c: k for k, c in enumerate(colours)}
+            bits = 0 if len(colours) > 16 else 1 if len(colours) > 4 else 2 if len(colours) > 2 else 3
+            per, depth = 1 << bits, 8 >> bits
+            packed_w = -(-width // per)
+            packed = []
+            for y in range(h):
+                row = [index[p] for p in pix[y * width : (y + 1) * width]]
+                for x in range(0, width, per):
+                    v = sum(k << (depth * j) for j, k in enumerate(row[x : x + per]))
+                    packed.append(0xFF000000 | (v << 8))
+            pix, width = packed, packed_w
+    bw.put(0, 1)
+    vp8l_entropy_image(bw, pix, width, rng, cache_bits=cache_bits, meta_bits=meta_bits, groups=groups, copies=copies)
+    return bw.bytes()
+
+
+class BoolWriter:
+    """RFC 6386 section 7.3's boolean encoder, flushed as libvpx does (32 zeros at probability 128)."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.bit_count = bytearray(), 255, 0, 24
+
+    def put(self, bit: int, prob: int) -> None:
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom = (self.bottom + split) & 0xFFFFFFFF
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & (1 << 31):
+                i = len(self.out) - 1
+                while self.out[i] == 255:
+                    self.out[i] = 0
+                    i -= 1
+                self.out[i] += 1
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.bit_count -= 1
+            if not self.bit_count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= (1 << 24) - 1
+                self.bit_count = 8
+
+    def value(self, v: int, nbits: int) -> None:
+        for k in range(nbits - 1, -1, -1):
+            self.put((v >> k) & 1, 128)
+
+    def signed(self, v: int, nbits: int) -> None:
+        self.value(abs(v), nbits)
+        self.put(int(v < 0), 128)
+
+    def flag_value(self, v: int, nbits: int) -> None:  # a flag, then the signed value if it is not 0
+        self.put(int(v != 0), 128)
+        if v:
+            self.signed(v, nbits)
+
+    def bytes(self) -> bytes:
+        for _ in range(32):
+            self.put(0, 128)
+        return bytes(self.out)
+
+
+VP8_ZIGZAG = (0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15)
+VP8_CATS = ((173, 148, 140), (176, 155, 140, 135), (180, 157, 141, 134, 130),
+            (254, 254, 243, 230, 196, 177, 153, 140, 133, 130, 129))
+VP8_BMODE_BITS = {  # (probability index, bit) down libwebp's sub-block mode tree, modes in its order
+    0: ((0, 0),), 1: ((0, 1), (1, 0)), 2: ((0, 1), (1, 1), (2, 0)),
+    3: ((0, 1), (1, 1), (2, 1), (3, 0), (4, 0)), 4: ((0, 1), (1, 1), (2, 1), (3, 0), (4, 1), (5, 0)),
+    5: ((0, 1), (1, 1), (2, 1), (3, 0), (4, 1), (5, 1)), 6: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 0)),
+    7: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 0)), 8: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 1), (8, 0)),
+    9: ((0, 1), (1, 1), (2, 1), (3, 1), (6, 1), (7, 1), (8, 1)),
+}
+
+
+def vp8_put_large(bw: BoolWriter, p, v: int) -> None:
+    """GetLargeValue's tree, written: a magnitude of 2 or more."""
+    if v <= 4:
+        bw.put(0, p[3])
+        bw.put(int(v > 2), p[4])
+        if v > 2:
+            bw.put(v - 3, p[5])
+    elif v <= 10:
+        bw.put(1, p[3])
+        bw.put(0, p[6])
+        bw.put(int(v > 6), p[7])
+        if v <= 6:
+            bw.put(v - 5, 159)
+        else:
+            bw.put((v - 7) >> 1, 165)
+            bw.put((v - 7) & 1, 145)
+    else:
+        bw.put(1, p[3])
+        bw.put(1, p[6])
+        cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+        bw.put(cat >> 1, p[8])
+        bw.put(cat & 1, p[9 + (cat >> 1)])
+        extra, tab = v - 3 - (8 << cat), VP8_CATS[cat]
+        for k, prob in enumerate(tab):
+            bw.put((extra >> (len(tab) - 1 - k)) & 1, prob)
+
+
+def vp8_put_block(bw: BoolWriter, probs, ctx: int, levels, first: int, zero_tail: bool = False) -> int:
+    """One block's tokens (levels in zigzag order) from position `first`; returns what the decoder's
+    GetCoeffs returns.  `zero_tail`: zeros to the end in place of the end-of-block token."""
+    last = max((n for n in range(first, 16) if levels[n]), default=-1)
+    p, n = probs[first][ctx], first
+    while n < 16:
+        if n > last:
+            if not zero_tail:
+                bw.put(0, p[0])
+                return n
+            bw.put(1, p[0])
+            while n < 16:
+                bw.put(0, p[1])
+                n += 1
+                p = probs[n][0]
+            return 16
+        bw.put(1, p[0])
+        while levels[n] == 0:
+            bw.put(0, p[1])
+            n += 1
+            p = probs[n][0]
+        bw.put(1, p[1])
+        v = abs(levels[n])
+        if v == 1:
+            bw.put(0, p[2])
+            p = probs[n + 1][1]
+        else:
+            bw.put(1, p[2])
+            vp8_put_large(bw, p, v)
+            p = probs[n + 1][2]
+        bw.put(int(levels[n] < 0), 128)
+        n += 1
+    return 16
+
+
+VP8_AC = (4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, 32,
+          33, 34, 35, 36, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 47, 48, 49, 50, 51, 52, 53, 54, 55, 56, 57, 58, 60,
+          62, 64, 66, 68, 70, 72, 74, 76, 78, 80, 82, 84, 86, 88, 90, 92, 94, 96, 98, 100, 102, 104, 106, 108, 110,
+          112, 114, 116, 119, 122, 125, 128, 131, 134, 137, 140, 143, 146, 149, 152, 155, 158, 161, 164, 167, 170,
+          173, 177, 181, 185, 189, 193, 197, 201, 205, 209, 213, 217, 221, 225, 229, 234, 239, 245, 249, 254, 259,
+          264, 269, 274, 279, 284)
+VP8_DC = (4, 5, 6, 7, 8, 9, 10, 10, 11, 12, 13, 14, 15, 16, 17, 17, 18, 19, 20, 20, 21, 21, 22, 22, 23, 23, 24, 25, 25,
+          26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 37, 38, 39, 40, 41, 42, 43, 44, 45, 46, 46, 47, 48, 49, 50,
+          51, 52, 53, 54, 55, 56, 57, 58, 59, 60, 61, 62, 63, 64, 65, 66, 67, 68, 69, 70, 71, 72, 73, 74, 75, 76, 76,
+          77, 78, 79, 80, 81, 82, 83, 84, 85, 86, 87, 88, 89, 91, 93, 95, 96, 98, 100, 101, 102, 104, 106, 108, 110,
+          112, 114, 116, 118, 122, 124, 126, 128, 130, 132, 134, 136, 138, 140, 143, 145, 148, 151, 154, 157)
+
+
+def _vp8_fdct(block: np.ndarray) -> np.ndarray:
+    """A forward 4x4 DCT at VP8's scale (libwebp's FTransform) of residuals int [..., 4, 4]."""
+    d = block.astype(np.int64)
+    a0, a1 = d[..., 0] + d[..., 3], d[..., 1] + d[..., 2]
+    a2, a3 = d[..., 1] - d[..., 2], d[..., 0] - d[..., 3]
+    t = np.stack([(a0 + a1) * 8, (a2 * 2217 + a3 * 5352 + 1812) >> 9, (a0 - a1) * 8,
+                  (a3 * 2217 - a2 * 5352 + 937) >> 9], axis=-1)  # [..., row, k]
+    a0, a1 = t[..., 0, :] + t[..., 3, :], t[..., 1, :] + t[..., 2, :]
+    a2, a3 = t[..., 1, :] - t[..., 2, :], t[..., 0, :] - t[..., 3, :]
+    out = np.stack([(a0 + a1 + 7) >> 4, ((a2 * 2217 + a3 * 5352 + 12000) >> 16) + (a3 != 0), (a0 - a1 + 7) >> 4,
+                    (a3 * 2217 - a2 * 5352 + 51000) >> 16], axis=-2)  # [..., k (row), column]
+    return out.reshape(*out.shape[:-2], 16)
+
+
+def _vp8_idct(c: np.ndarray) -> np.ndarray:  # RFC 6386 section 14.3, natural order int [..., 16] -> [..., 4, 4]
+    c = c.astype(np.int64).reshape(*c.shape[:-1], 4, 4)
+
+    def m1(a):
+        return ((a * 20091) >> 16) + a
+
+    def m2(a):
+        return (a * 35468) >> 16
+
+    i0, i1, i2, i3 = c[..., 0, :], c[..., 1, :], c[..., 2, :], c[..., 3, :]
+    a, b, cc, d = i0 + i2, i0 - i2, m2(i1) - m1(i3), m1(i1) + m2(i3)
+    t = np.stack([a + d, b + cc, b - cc, a - d], axis=-1)
+    t0, t1, t2, t3 = t[..., 0, :], t[..., 1, :], t[..., 2, :], t[..., 3, :]
+    a, b, cc, d = t0 + 4 + t2, t0 + 4 - t2, m2(t1) - m1(t3), m1(t1) + m2(t3)
+    return np.stack([a + d, b + cc, b - cc, a - d], axis=-1) >> 3
+
+
+def _vp8_wht(dc: np.ndarray) -> np.ndarray:  # forward WHT of 16 DC values (raster block order) -> Y2's 16
+    x = dc.astype(np.int64).reshape(4, 4)
+    a0, a1, a2, a3 = x[:, 0] + x[:, 2], x[:, 1] + x[:, 3], x[:, 1] - x[:, 3], x[:, 0] - x[:, 2]
+    t = np.stack([a0 + a1, a3 + a2, a3 - a2, a0 - a1], axis=1)
+    a0, a1, a2, a3 = t[0] + t[2], t[1] + t[3], t[1] - t[3], t[0] - t[2]
+    return (np.stack([a0 + a1, a3 + a2, a3 - a2, a0 - a1], axis=0) >> 1).reshape(16)
+
+
+def _vp8_iwht(y2: np.ndarray) -> np.ndarray:
+    x = y2.astype(np.int64).reshape(4, 4)
+    a0, a1, a2, a3 = x[0] + x[3], x[1] + x[2], x[1] - x[2], x[0] - x[3]
+    t = np.stack([a0 + a1, a3 + a2, a0 - a1, a3 - a2], axis=0)
+    dc = t[:, 0] + 3
+    a0, a1, a2, a3 = dc + t[:, 3], t[:, 1] + t[:, 2], t[:, 1] - t[:, 2], dc - t[:, 3]
+    return (np.stack([a0 + a1, a3 + a2, a0 - a1, a3 - a2], axis=1) >> 3).reshape(16)
+
+
+def vp8_bitstream(rng, width: int, height: int, image: np.ndarray = None, *, partitions: int = 0, segments: int = 0,
+                  simple: int = 0, level: int = 20, sharpness: int = 0, lf_delta: bool = False, b_pred: float = 0.5,
+                  skip: bool = True, updates: float = 0.0, q: int = 40, density: float = 0.3,
+                  zero_tails: bool = False) -> bytes:
+    """A VP8 key frame of width x height.  Without `image`: seeded syntax (each macroblock B_PRED with
+    probability `b_pred`, random 16x16 / sub-block / chroma modes, blocks holding tokens with probability
+    `density`, magnitudes of every category kept within VP8's coefficient range).  With `image` (uint8
+    RGB [h, w, 3], turned to BT.601 studio-range YUV 4:2:0): every macroblock 16x16 DC with chroma DC,
+    coded closed-loop.  Options: 2^partitions token partitions, `segments` (0 off, 1 map
+    only, 2 map and absolute values, 3 delta values without a map), the filter (`simple`, `level`,
+    `sharpness`, `lf_delta`), the skip flag, token probability updates at rate `updates`, base index `q`."""
+    from uniir_tpu_torch.data.vp8 import BMODE_PROBS, COEFF_PROBS, COEFF_UPDATE_PROBS
+
+    mb_w, mb_h = (width + 15) >> 4, (height + 15) >> 4
+    hdr = BoolWriter()
+    hdr.put(int(rng.integers(0, 2)), 128)  # colour space: read, unused
+    hdr.put(int(rng.integers(0, 2)), 128)  # clamping type: read, unused
+    seg_q, seg_f, seg_probs, absolute = [0] * 4, [0] * 4, [255] * 3, True
+    hdr.put(int(segments > 0), 128)
+    if segments:
+        update_map = segments in (1, 2)
+        hdr.put(int(update_map), 128)
+        hdr.put(int(segments >= 2), 128)
+        if segments >= 2:
+            absolute = segments == 2
+            hdr.put(int(absolute), 128)
+            seg_q = [int(rng.integers(0, 128)) if absolute else int(rng.integers(-20, 21)) for _ in range(4)]
+            seg_f = [int(rng.integers(0, 64)) if absolute else int(rng.integers(-20, 21)) for _ in range(4)]
+            for v in seg_q:
+                hdr.flag_value(v, 7)
+            for v in seg_f:
+                hdr.flag_value(v, 6)
+        if update_map:
+            seg_probs = [int(rng.integers(1, 256)) if rng.random() < 0.8 else 255 for _ in range(3)]
+            for v in seg_probs:
+                hdr.put(int(v != 255), 128)
+                if v != 255:
+                    hdr.value(v, 8)
+    else:
+        update_map = False
+    hdr.put(simple, 128)
+    hdr.value(level, 6)
+    hdr.value(sharpness, 3)
+    hdr.put(int(lf_delta), 128)
+    if lf_delta:
+        hdr.put(1, 128)
+        for _ in range(8):
+            hdr.flag_value(int(rng.integers(-20, 21)) if rng.random() < 0.7 else 0, 6)
+    hdr.value(partitions, 2)
+    deltas = [int(rng.integers(-15, 16)) if rng.random() < 0.5 else 0 for _ in range(5)]
+    if image is not None:
+        deltas = [0] * 5
+    hdr.value(q, 7)
+    for v in deltas:
+        hdr.flag_value(v, 4)
+
+    def quant(s):
+        qq = (seg_q[s] + (0 if absolute else q)) if segments >= 2 else q
+        clip = lambda v, m: min(max(v, 0), m)  # noqa: E731
+        return ((VP8_DC[clip(qq + deltas[0], 127)], VP8_AC[clip(qq, 127)]),
+                (VP8_DC[clip(qq + deltas[1], 127)] * 2, max(VP8_AC[clip(qq + deltas[2], 127)] * 101581 >> 16, 8)),
+                (VP8_DC[clip(qq + deltas[3], 117)], VP8_AC[clip(qq + deltas[4], 127)]))
+
+    hdr.put(int(rng.integers(0, 2)), 128)  # refresh entropy probabilities
+    probs = COEFF_PROBS.astype(np.int64).copy()
+    for t in range(4):
+        for b in range(8):
+            for c in range(3):
+                for p in range(11):
+                    up = rng.random() < updates
+                    hdr.put(int(up), int(COEFF_UPDATE_PROBS[t, b, c, p]))
+                    if up:
+                        probs[t, b, c, p] = int(rng.integers(0, 256))
+                        hdr.value(int(probs[t, b, c, p]), 8)
+    bands = (0, 1, 2, 3, 6, 4, 5, 6, 6, 6, 6, 6, 6, 6, 6, 7, 0)
+    P = [[[probs[t, bands[n], c].tolist() for c in range(3)] for n in range(17)] for t in range(4)]
+    skip_prob = int(rng.integers(1, 256)) if skip else None
+    hdr.put(int(skip), 128)
+    if skip:
+        hdr.value(skip_prob, 8)
+    bmodes = BMODE_PROBS.tolist()
+    parts = [BoolWriter() for _ in range(1 << partitions)]
+    intra_t = [0] * (4 * mb_w)
+    nz_y, nz_u, nz_v, nz_dc = [0] * (4 * mb_w), [0] * (2 * mb_w), [0] * (2 * mb_w), [0] * mb_w
+    if image is not None:
+        img = image.astype(np.float64)
+        yuv = [16 + (65.738 * img[..., 0] + 129.057 * img[..., 1] + 25.064 * img[..., 2]) / 256,
+               128 + (-37.945 * img[..., 0] - 74.494 * img[..., 1] + 112.439 * img[..., 2]) / 256,
+               128 + (112.439 * img[..., 0] - 94.154 * img[..., 1] - 18.285 * img[..., 2]) / 256]
+        pad = lambda a, hh, ww: np.pad(a, ((0, hh - a.shape[0]), (0, ww - a.shape[1])), mode="edge")  # noqa: E731
+        src_y = pad(np.round(yuv[0]), 16 * mb_h, 16 * mb_w)
+        sub = [np.pad(np.round(c), ((0, c.shape[0] & 1), (0, c.shape[1] & 1)), mode="edge") for c in yuv[1:]]
+        sub = [(c[0::2, 0::2] + c[1::2, 0::2] + c[0::2, 1::2] + c[1::2, 1::2] + 2) // 4 for c in sub]
+        src_uv = [pad(c, 8 * mb_h, 8 * mb_w) for c in sub]
+        rec_y = np.zeros((16 * mb_h, 16 * mb_w), np.int64)
+        rec_uv = [np.zeros((8 * mb_h, 8 * mb_w), np.int64) for _ in range(2)]
+    for mb_y in range(mb_h):
+        tok = parts[mb_y & ((1 << partitions) - 1)]
+        left_y, left_u, left_v, left_dc = [0] * 4, [0] * 2, [0] * 2, 0
+        intra_l = [0] * 4
+        for mb_x in range(mb_w):
+            seg = int(rng.integers(0, 4)) if update_map else 0
+            qy, qy2, quv = quant(seg)
+            levels = [[0] * 16 for _ in range(25)]  # 16 Y, 4 U, 4 V, Y2 (zigzag order)
+            if image is None:
+                i4 = rng.random() < b_pred
+                ymode = None if i4 else int(rng.integers(0, 4))
+                sub_modes = [int(rng.integers(0, 10)) for _ in range(16)] if i4 else None
+                uvmode = int(rng.integers(0, 4))
+                for k in range(25):
+                    if rng.random() >= density:
+                        continue
+                    dq = (qy if k < 16 else quv if k < 24 else qy2)
+                    first = 1 if (k < 16 and not i4) else 0
+                    for n in rng.choice(np.arange(first, 16), size=int(rng.integers(1, 17 - first)), replace=False):
+                        top = max(1, 2047 // dq[int(n > 0)])
+                        mag = int(min(top, rng.choice([1, 1, 1, 2, 3, 5, 8, 15, 30, 60, 200, 2000])))
+                        levels[k][n] = mag if rng.random() < 0.5 else -mag
+            else:
+                i4, ymode, sub_modes, uvmode = False, 0, None, 0
+                y0, x0 = 16 * mb_y, 16 * mb_x
+
+                def dc_pred(rec, r0, c0, size):
+                    sh = 4 if size == 8 else 5
+                    top = rec[r0 - 1, c0 : c0 + size].sum() if r0 else None
+                    lft = rec[r0 : r0 + size, c0 - 1].sum() if c0 else None
+                    if top is not None and lft is not None:
+                        return (top + lft + (1 << (sh - 1))) >> sh
+                    if lft is not None:
+                        return (lft + (1 << (sh - 2))) >> (sh - 1)
+                    if top is not None:
+                        return (top + (1 << (sh - 2))) >> (sh - 1)
+                    return 128
+
+                pred = dc_pred(rec_y, y0, x0, 16)
+                res = (src_y[y0 : y0 + 16, x0 : x0 + 16] - pred).astype(np.int64)
+                coef = _vp8_fdct(res.reshape(4, 4, 4, 4).transpose(0, 2, 1, 3).reshape(16, 4, 4))  # [block, 16]
+                y2 = _vp8_wht(coef[:, 0])
+                y2_lv = np.round(y2 / np.array([qy2[0]] + [qy2[1]] * 15)).astype(np.int64)
+                ac_lv = np.round(coef / qy[1]).astype(np.int64)
+                ac_lv[:, 0] = 0
+                dcs = _vp8_iwht(y2_lv * np.array([qy2[0]] + [qy2[1]] * 15))
+                deq = ac_lv * qy[1]
+                deq[:, 0] = dcs
+                blocks = _vp8_idct(deq) + pred
+                rec_y[y0 : y0 + 16, x0 : x0 + 16] = np.clip(blocks, 0, 255).reshape(4, 4, 4, 4).transpose(
+                    0, 2, 1, 3).reshape(16, 16)
+                for k in range(16):
+                    levels[k] = [int(ac_lv[k, VP8_ZIGZAG[n]]) for n in range(16)]
+                levels[24] = [int(y2_lv[VP8_ZIGZAG[n]]) for n in range(16)]
+                for ch in range(2):
+                    cy, cx = 8 * mb_y, 8 * mb_x
+                    pred = dc_pred(rec_uv[ch], cy, cx, 8)
+                    res = (src_uv[ch][cy : cy + 8, cx : cx + 8] - pred).astype(np.int64)
+                    coef = _vp8_fdct(res.reshape(2, 4, 2, 4).transpose(0, 2, 1, 3).reshape(4, 4, 4))
+                    lv = np.round(coef / np.array([quv[0]] + [quv[1]] * 15)).astype(np.int64)
+                    blocks = _vp8_idct(lv * np.array([quv[0]] + [quv[1]] * 15)) + pred
+                    rec_uv[ch][cy : cy + 8, cx : cx + 8] = np.clip(blocks, 0, 255).reshape(2, 2, 4, 4).transpose(
+                        0, 2, 1, 3).reshape(8, 8)
+                    for k in range(4):
+                        levels[16 + 4 * ch + k] = [int(lv[k, VP8_ZIGZAG[n]]) for n in range(16)]
+            empty = not any(any(b) for b in levels)
+            skipped = skip and (empty or rng.random() < 0.1) if image is None else skip and empty
+            # modes, in partition 0
+            if update_map:
+                hdr.put(int(seg >= 2), seg_probs[0])
+                hdr.put(seg & 1, seg_probs[2] if seg >= 2 else seg_probs[1])
+            if skip:
+                hdr.put(int(skipped), skip_prob)
+            hdr.put(int(not i4), 145)
+            if not i4:
+                hdr.put(int(ymode in (1, 3)), 156)
+                hdr.put(int(ymode in (1, 2)), 128 if ymode in (1, 3) else 163)
+                intra_t[4 * mb_x : 4 * mb_x + 4] = [ymode] * 4
+                intra_l = [ymode] * 4
+            else:
+                for y in range(4):
+                    for x in range(4):
+                        m = sub_modes[4 * y + x]
+                        p = bmodes[intra_t[4 * mb_x + x]][intra_l[y]]
+                        for idx, bit in VP8_BMODE_BITS[m]:
+                            hdr.put(bit, p[idx])
+                        intra_t[4 * mb_x + x] = intra_l[y] = m
+            hdr.put(int(uvmode != 0), 142)
+            if uvmode:
+                hdr.put(int(uvmode != 2), 114)
+                if uvmode != 2:
+                    hdr.put(int(uvmode == 1), 183)
+            # tokens, in the row's partition
+            if skipped:
+                for k in range(4):
+                    nz_y[4 * mb_x + k] = left_y[k] = 0
+                for k in range(2):
+                    nz_u[2 * mb_x + k] = nz_v[2 * mb_x + k] = left_u[k] = left_v[k] = 0
+                if not i4:
+                    nz_dc[mb_x] = left_dc = 0
+                continue
+            tail = zero_tails and rng.random() < 0.3
+            if not i4:
+                nz = vp8_put_block(tok, P[1], nz_dc[mb_x] + left_dc, levels[24], 0, tail)
+                nz_dc[mb_x] = left_dc = int(nz > 0)
+            first, yp = (0, P[3]) if i4 else (1, P[0])
+            for y in range(4):
+                for x in range(4):
+                    nz = vp8_put_block(tok, yp, left_y[y] + nz_y[4 * mb_x + x], levels[4 * y + x], first, tail)
+                    nz_y[4 * mb_x + x] = left_y[y] = int(nz > first)
+            for ch, (top, lft) in enumerate(((nz_u, left_u), (nz_v, left_v))):
+                for y in range(2):
+                    for x in range(2):
+                        nz = vp8_put_block(tok, P[2], lft[y] + top[2 * mb_x + x], levels[16 + 4 * ch + 2 * y + x], 0,
+                                           tail)
+                        top[2 * mb_x + x] = lft[y] = int(nz > 0)
+    first_part = hdr.bytes()
+    tokens = [w.bytes() for w in parts]
+    tag = (int(rng.integers(0, 4)) << 1) | (1 << 4) | (len(first_part) << 5)
+    scale = int(rng.integers(0, 4))
+    out = tag.to_bytes(3, "little") + b"\x9d\x01\x2a" + (width | scale << 14).to_bytes(2, "little")
+    out += (height | (3 - scale) << 14).to_bytes(2, "little") + first_part
+    out += b"".join(len(t).to_bytes(3, "little") for t in tokens[:-1])
+    return out + b"".join(tokens)
+
+
+def riff_chunk(fourcc: bytes, payload: bytes) -> bytes:
+    return fourcc + len(payload).to_bytes(4, "little") + payload + (b"\0" if len(payload) & 1 else b"")
+
+
+def riff_webp(chunks: bytes) -> bytes:
+    return b"RIFF" + (4 + len(chunks)).to_bytes(4, "little") + b"WEBP" + chunks
+
+
+def vp8x_chunk(flags: int, width: int, height: int) -> bytes:
+    return riff_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + (width - 1).to_bytes(3, "little")
+                      + (height - 1).to_bytes(3, "little"))
+
+
+def alph_chunk(alpha: np.ndarray, rng, method: int, filt: int, pre: int = 0, **vp8l) -> bytes:
+    """An ALPH chunk of the plane uint8 [h, w]: filtered forward (0 none, 1 horizontal, 2 vertical,
+    3 gradient), then raw (method 0) or as a headerless VP8L stream whose green is the filtered plane."""
+    a = alpha.astype(np.int64)
+    d = a.copy()
+    if filt:
+        d[0, 1:] = a[0, 1:] - a[0, :-1]
+        if filt == 1:
+            d[1:, 0] = a[1:, 0] - a[:-1, 0]
+            d[1:, 1:] = a[1:, 1:] - a[1:, :-1]
+        elif filt == 2:
+            d[1:] = a[1:] - a[:-1]
+        else:
+            d[1:, 0] = a[1:, 0] - a[:-1, 0]
+            grad = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+            d[1:, 1:] = a[1:, 1:] - grad
+    d = (d & 255).astype(np.uint8)
+    head = bytes([method | filt << 2 | pre << 4])
+    if method == 0:
+        return riff_chunk(b"ALPH", head + d.tobytes())
+    argb = (np.uint32(0xFF000000) | (d.astype(np.uint32) << 8))
+    if vp8l.get("transforms") == ("palette",):
+        vp8l["palette"] = np.unique(argb)
+    return riff_chunk(b"ALPH", head + vp8l_bitstream(argb, rng, header=False, **vp8l))
+
+
+WEBP_CASE_FORMS = ("lossless", "lossless_palette", "lossless_cache_meta", "lossy", "lossy_bpred", "lossy_segments",
+                   "lossy_simple_filter", "alpha_raw", "alpha_lossless", "animation", "extended")
+
+
+def webp_argb(rng, w: int, h: int, colours: int = 0) -> np.ndarray:
+    """Seeded ARGB content with repeats for LZ77 and the cache: rows drawn from a small set of colours (or
+    from `colours` colours exactly), some rows copies of earlier ones."""
+    pal = rng.integers(0, 1 << 32, max(colours, int(rng.integers(2, 40))), dtype=np.uint64).astype(np.uint32)
+    if colours:
+        pal = np.unique(pal)
+        while len(pal) < colours:
+            pal = np.unique(np.concatenate([pal, rng.integers(0, 1 << 32, colours, dtype=np.uint64).astype(np.uint32)]))
+        pal = pal[:colours]
+    idx = rng.integers(0, len(pal), (h, w))
+    runs = rng.random((h, w)) < 0.6
+    for x in range(1, w):
+        idx[:, x] = np.where(runs[:, x], idx[:, x - 1], idx[:, x])
+    for y in range(1, h):
+        if rng.random() < 0.3:
+            idx[y] = idx[int(rng.integers(0, y))]
+    return pal[idx]
+
+
+def webp_bytes(form: str, seed: int, w: int, h: int, image: np.ndarray = None) -> bytes:
+    """A WebP file of one of WEBP_CASE_FORMS, seeded: `lossless` (VP8L, a random subset and order of the
+    predictor, cross-colour and subtract-green transforms, copies), `lossless_palette` (colour indexing at
+    2 / 4 / 16 / 256 colours or any count, plus other transforms), `lossless_cache_meta` (a 1-11 bit cache,
+    meta-Huffman groups); `lossy` (VP8: 1-8 partitions, skips, probability updates, any filter),
+    `lossy_bpred` (B_PRED-heavy, zero tails), `lossy_segments` (segment maps and values),
+    `lossy_simple_filter`; `alpha_raw` / `alpha_lossless` (VP8X, an ALPH chunk raw or VP8L-coded, each
+    filter, beside a VP8 frame); `animation` (VP8X, ANIM and two ANMF frames, the first offset, lossy or
+    lossless, a background colour and blend / dispose bits); `extended` (VP8X with ICCP / EXIF / XMP and an
+    unknown chunk around a still VP8L or VP8 image).  With `image` (uint8 [h, w, 3] or [h, w, 4]) the
+    lossless forms code its pixels exactly and the lossy ones code it closed-loop."""
+    rng = np.random.default_rng(seed)
+    if image is not None:
+        h, w = image.shape[:2]
+
+    def argb_of(colours=0):
+        if image is None:
+            return webp_argb(rng, w, h, colours)
+        a = image[..., 3] if image.shape[2] == 4 else np.full((h, w), 255, np.uint8)
+        px = image[..., :3].astype(np.uint32)
+        return (a.astype(np.uint32) << 24) | (px[..., 0] << 16) | (px[..., 1] << 8) | px[..., 2]
+
+    def lossless(kind: str) -> bytes:
+        kw = {"copies": float(rng.uniform(0, 0.6))}
+        transforms = [t for t in ("predictor", "cross", "subtract_green") if rng.random() < 0.6]
+        rng.shuffle(transforms)
+        if kind == "lossless_palette":
+            colours = int(rng.choice([2, 4, 16, 256, int(rng.integers(1, 257))]))
+            argb = argb_of(colours) if image is None else argb_of()
+            kw["palette"] = np.unique(argb)
+            if len(kw["palette"]) > 256:
+                kw.pop("palette")
+            else:
+                transforms = ["palette"] + transforms[: int(rng.integers(0, 2))]
+        else:
+            argb = argb_of()
+        if kind == "lossless_cache_meta" or rng.random() < 0.3:
+            kw.update(cache_bits=int(rng.integers(1, 12)), meta_bits=int(rng.integers(2, 10)),
+                      groups=int(rng.integers(1, 6)))
+        return vp8l_bitstream(argb, rng, transforms=tuple(transforms), predictor_bits=int(rng.integers(2, 10)),
+                              cross_bits=int(rng.integers(2, 10)), alpha_hint=bool(rng.integers(0, 2)), **kw)
+
+    def lossy(kind: str, fw: int = None, fh: int = None, img=None) -> bytes:
+        kw = dict(partitions=int(rng.integers(0, 4)), skip=bool(rng.integers(0, 2)), q=int(rng.integers(0, 128)),
+                  level=int(rng.integers(0, 64)), sharpness=int(rng.integers(0, 8)), simple=int(rng.integers(0, 2)),
+                  lf_delta=bool(rng.integers(0, 2)), updates=float(rng.choice([0, 0.02, 0.2])),
+                  density=float(rng.uniform(0.05, 0.6)), b_pred=float(rng.uniform(0, 1)))
+        if kind == "lossy_bpred":
+            kw.update(b_pred=0.9, zero_tails=True)
+        elif kind == "lossy_segments":
+            kw["segments"] = int(rng.integers(1, 4))
+        elif kind == "lossy_simple_filter":
+            kw.update(simple=1, level=int(rng.integers(1, 64)))
+        if img is not None:
+            kw.update(q=int(rng.integers(10, 40)), b_pred=0.0)
+        return vp8_bitstream(rng, fw or w, fh or h, img, **kw)
+
+    if form.startswith("lossless"):
+        return riff_webp(riff_chunk(b"VP8L", lossless(form)))
+    if form.startswith("lossy"):
+        return riff_webp(riff_chunk(b"VP8 ", lossy(form, img=None if image is None else image[..., :3])))
+    if form in ("alpha_raw", "alpha_lossless"):
+        alpha = (argb_of() >> 24).astype(np.uint8) if image is None or image.shape[2] == 4 else \
+            rng.integers(0, 256, (h, w), dtype=np.uint8)
+        filt = int(rng.integers(0, 4))
+        if form == "alpha_raw":
+            alph = alph_chunk(alpha, rng, 0, filt, int(rng.integers(0, 2)))
+        else:
+            transforms = ("palette",) if rng.random() < 0.5 else tuple(
+                t for t in ("predictor", "subtract_green") if rng.random() < 0.5)
+            alph = alph_chunk(alpha, rng, 1, filt, int(rng.integers(0, 2)), transforms=transforms,
+                              cache_bits=0 if "palette" in transforms else int(rng.choice([0, 3])),
+                              copies=float(rng.uniform(0, 0.5)))
+        frame = riff_chunk(b"VP8 ", lossy("lossy", img=None if image is None else image[..., :3]))
+        return riff_webp(vp8x_chunk(0x10, w, h) + alph + frame)
+    if form == "animation":
+        fw, fh = max(1, w - int(rng.integers(0, 9))), max(1, h - int(rng.integers(0, 9)))
+        x, y = 2 * int(rng.integers(0, (w - fw) // 2 + 1)), 2 * int(rng.integers(0, (h - fh) // 2 + 1))
+        frames = []
+        for k, (ox, oy, ww, hh) in enumerate(((x, y, fw, fh), (0, 0, w, h))):
+            if rng.random() < 0.5:
+                frames.append(riff_chunk(b"VP8L", vp8l_bitstream(webp_argb(rng, ww, hh), rng, copies=0.3)))
+            else:
+                frames.append(riff_chunk(b"VP8 ", lossy("lossy", ww, hh)))
+            head = (ox // 2).to_bytes(3, "little") + (oy // 2).to_bytes(3, "little")
+            head += (ww - 1).to_bytes(3, "little") + (hh - 1).to_bytes(3, "little")
+            head += int(rng.integers(0, 1000)).to_bytes(3, "little") + bytes([int(rng.integers(0, 4))])
+            frames[-1] = riff_chunk(b"ANMF", head + frames[-1])
+        anim = riff_chunk(b"ANIM", int(rng.integers(0, 1 << 32)).to_bytes(4, "little") + b"\0\0")
+        return riff_webp(vp8x_chunk(0x02 | (0x10 if rng.random() < 0.5 else 0), w, h) + anim + b"".join(frames))
+    if form == "extended":
+        still = riff_chunk(b"VP8L", lossless("lossless")) if rng.random() < 0.5 else riff_chunk(b"VP8 ", lossy("lossy"))
+        extra = [riff_chunk(b"ICCP", rng.integers(0, 256, 37, dtype=np.uint8).tobytes()),
+                 riff_chunk(b"EXIF", b"Exif\0\0" + rng.integers(0, 256, 20, dtype=np.uint8).tobytes())]
+        tail = [riff_chunk(b"XMP ", b"<x:xmpmeta/>"), riff_chunk(b"ABCD", b"odd")]
+        return riff_webp(vp8x_chunk(0x20 | 0x08 | 0x04, w, h) + b"".join(extra) + still + b"".join(tail))
+    raise ValueError(f"unknown WebP form {form}")
+
+
 # Pillow-made progressive JPEG files of `fixture_image(P12_SEED + 9000 + k)` (base64), with the sha256 of
 # Pillow's RGB pixels of each and their width and height: the card's machine has no Pillow, so its
 # decoders are held to these digests (Pillow 12.1.0, libjpeg-turbo; `save(..., progressive=True)`)
@@ -4386,6 +5370,200 @@ PROGRESSIVE_FILES = {
         "95fcc8848ae5f5940ca3049ceb9aed80721096ffb31a70caf86d309d8046ef8d", 256, 280),
 }
 
+# Pillow-made WebP files of `fixture_image(P12_SEED + 9100 + k)[::6, ::6]` (base64: lossy at quality 5 / 75 / 100,
+# lossless at method 0 and 6, lossy with a gradient alpha (`exact`), a two-frame animation), with the sha256 of
+# Pillow's RGB pixels of each and their width and height (Pillow 12.1.0, libwebp 1.6.0): the decoder phase holds
+# both decoders to these digests on the card's machine, which has no Pillow
+WEBP_PILLOW_FILES = {
+    "webp_pillow_q5": (
+        ("UklGRuYAAABXRUJQVlA4INoAAADQBgCdASoxACsAP32wy122OSmkt/VdUyAviWwAqSdViyVP0wQ9o2xYr7BpFKaGcsBt05YByXDOPulAkOkSySAA"
+         "4CiMFrRfC+vkfCsWJBpivgG5KPuMTS+2Y2/3/jE2GjdBxo9E8r0fT034v0NuS/GN0AYEwU5LAKOmhTSAwPJ09E3nqDz7GCIRuEDM7iZXHzV26eQf"
+         "WGIJUFWMeXOnxVbVWbDiqkZoJTbJ9Af9Vu8GE4UNapMM0FWyRANoFTR9wzq4cxGX/+7SCdlyE07MPorqO+9oyicaoAAAAA=="),
+        "da759032aabb0cf6ab4663aea879c8ac8ca4e3046077220c23373bbcb12985cc", 49, 43),
+    "webp_pillow_q75": (
+        ("UklGRkYCAABXRUJQVlA4IDoCAADwDgCdASpEACsAPn00lUekoyIhN3i9+JAPiWwAnTKEePeu+YJUn75s7RLLGfqk/Pe9hZqXN/LsH7/kQXRmmjEq"
+         "5xL07jU7fJHbUs7CDeSvqbFOZ20IyOjgEb4ji1XUa//Sz0wvKBRER9Fwaw2iq9TYjvK53hMht11Faj0aymUVQAD+8/aGNShywqefcB1WFz0NtENS"
+         "9pjMPlXIFn0e+iknJohYBlLRso+I5AJ/Lbu85EYTgQDcwMIUaAeK7SGTnS0+UPkDoYczR95SgqnkoGrc7Vo0aJIOWSBIS2Xb652+89MOnL8oJqsR"
+         "So4P0nzxdykos7YOF+UQdUWtLqEOkWq50NVrrCsVP6mify6FNv34N8TSEcUDqGnFm8CPDEXdW9wzqopFWO+LNo4URZHKg/kjja3cDlL8XiIy8/L/"
+         "KcAg6NpjdfyVVrwkBvryHXXm97m65Li1mQh9Ila10O8Jt4afqsp+DDz2kmis/SbTb0A+MsELeoOorm7Ut+UpZTwGDUIQd1MLTVr2Lfze1Uc87FmU"
+         "8174eXQdziGOmKWtv9YklYhy6yoNrGFAfPhg7Q5sZupsI95hRy1HSv0plS9LzlKMnsfiPAqFZkmzmxhL8x7XI5UDRiHLZl5M9qUtfRXZZupfvSSd"
+         "FOT9Of/NwwmQznzv5hSpSq+GZVVIsN76t/4M574IfUfQJLchl/PZGjmvuQq7z6w45e1MkjhOr9c42RD90ivFO1/dn1Xf3l35leMkwc0BW+auGDQA"
+         "AAA="),
+        "b0e11b0c870333564a1f4b2483d37944547ef65703b773318775ed512cb8d800", 68, 43),
+    "webp_pillow_q100": (
+        ("UklGRnQGAABXRUJQVlA4IGgGAAAQHQCdASorADsAAAAAJbACdMoR1P4b+DX6q/6r5BKE/D/th+uP+Z3REgXTp9o/KL/Ae7P+gewD8Af5X3AP0k/v"
+         "X5of2zuAeYT9m/1P9kv9gPcT+vX+q9yL+kf1zrO/QZ/bj0rP+l/gPhp/bL9gPaZwL3b78Z/ETzT8PPkbxM41nKP+d9Av4x9ifxHkT3x+7DJfvPYA"
+         "N0D6ndAH+t8G+gB4tObl9v9QzpVHa3b3RfUliKTy8MEp/rbwl2CIqFxtvPaCk3AYX/CnXHYoZSsr8lvjnx/cQn/pFOPcAtUv4v13xvXDbPwv8XPI"
+         "4Pn0qdAsTz0AAP7//nt0Yhs6ykatL51P6G53KKKIZWZYfVzDxc7SWbZuWwrJ6IAkYZ5CrA6M1dXfK4IMetCIW7PRZmjNfpESPhy8yStcao2ws1/1"
+         "8mE/tL+hHnkU/kWKM1SyVfZdf/4TCJxHEgyAgl5muhe4pbdl1iEif/ctLwoDJZTTkqtO9MIjpWK6eKIqkQreyQ4NBpGTECbSFE1CrhlXmkPkb/ku"
+         "rCE+HxiXreG4dbpWFh3eVPzilHAqJYKZCdgoA1+KT9XPTw6WQji58ttAvrexw6Ssgg6aD5mnbSAR5/+BtZHZjfMvGZ5CJvVVKCQixFAwNtL7AC6q"
+         "gEJ+Dq6JxvvHXF1M3Th+uowzBHulTTSJ+9W3p/q/WxLElHGgdXatZk1yX4edLIYpC9QS1nl1C+lNW06uR4GssM8N/cPejATra70+Fk7t0SSNVU1X"
+         "RjxijrMNvwk4QiZJKviMf10nebmBcjaGedhMwOkb7VPTG9RNOHyP69iadDzSWcClhKdTabt51Td/L+YFCCjaagW6rWSHCMmb+RvkNLfzJ0cyBuDk"
+         "v7syt0KvwvSxp4uxpHR2s/b32FYWc6VTAqiduKzi6P1lXt1szbMB8DIN3bOdYHXVZ/iQs4oIbva1raf7b/PySPBfG+Iznh0khCTa+Db7zyZI/MO3"
+         "fVd2KT1mQXoQYJyHz9UmZ2+JA/+Dam8/pTnno98DQTt1NDz7OvrlhZesm0uTWWnC5+fKZPCmVAbbdZjpVZ19cyAvP2BCrFme+DQF/UA3Na9rZrf6"
+         "MP4GW/0FgO3Gx9AqNNBg5hYp4zPga29gxH8PRtQ+u0ST23yTFbjfghjB3tecWkuGMyt8KFbBHqrkLbURK0NkUdGpIjIaQVIa4IbiiQiOTZsFNmWT"
+         "2B73Mgxgd5j4kD58bQWmQtXg1dHMLyN8hte/SnKOuR/+XGlszZ15Tc3u9pvx2eL/LRpzbpT3WtFdIuR9Xkc6tliPPBLWMY8jqR8UWNCOc7nRgeIM"
+         "uPBqIJ0YoDIf3H+XIt+aK1ZpPQSJwt0uhunx1OUmguZzdsc6WPGTfMTMqSdRABLCXfZevs2z4LmspO+GRAtlZVdJBH//WYGcV0bpX2djpXKWoAKl"
+         "PWt57v1aaqkxZ9LgD/nw5BqdltND+JnI1EV0l/9qZS/jjd2cck4t3nW6j1Y+5oYXqwKMo+myT+2xZKvs0FnrWYOlu46eVXJ3PjGwm3wm937x8Mkt"
+         "EQBbBuWwOMT/X4TgdUuaGJQTN1XpgaBpcpeQH/RQROj49VoeXUHtTIj8TMpU6dhMNDiv36a03g2pcZX+08j5mBilMmZKRzYhp6g8hGFxS30g1QbL"
+         "3LGdXiMD46bWydVTFp42lkSFQZxcm5hHr5sPmdS0QZ0q/h6PBGn2MNSAoKCSXJlel3UzOqCvh/qpFI/rZ4EOgrz8XIO2YrBxrcMsmgZrcF8KObc3"
+         "8FZOgwUxMOkxaH2BJyG0MDFeD2kCxrFlK9D+J7ehoJM2X5uQNs4Fn4canWCqKkSb58QYnMwOAzGyvYl1um3PAb+KYRNpeUqEHvE//+o2paanjD0l"
+         "5dYSTPPBDeWKb0Yax4HTnUM/LRQ1nneankNOAa9tdC/ittCJgqTOypxLEF1MNOgxBoGq+aqNVkbHPxMr66lX9DB337vueDwhCHSke21JnU/bToOk"
+         "OI9SvuFjPUJPD61SxVYUbkP+33LxpiOb2LQdQUnPQah+FMZUadWSlKSjhrpW5c9zDT777lWnUHDsjFkpHS8i+xmuLu9IMpwS2dh+SOzBoIn+31NU"
+         "o+152/EXkb+ngVtJaBuLlqxkQ5CCbMBhB05rMYzX4fJLD2ofwbNDMuKHuFK4ozZm7lyj7dR/KaPt6J5G8kAAAA=="),
+        "2f0c4df110ce86b416fe6c1ab7febfb8e918d4194c1f5a29fd596351f69bc2e6", 43, 59),
+    "webp_pillow_lossless_m0": (
+        ("UklGRoYUAABXRUJQVlA4THoUAAAvOYAKAA11IaL/AQ8CwLZtaNsWQLBLspyy+97zH8qexupl77jEKuzANCgKAJC2lXAN0bbbzt31I+8fXZ9M06Yx"
+         "JAE8CgCYts22bWIyhJviNbyZ4UTvQ2PGdlvaJGaQLIz47y+/azRr2u0HyUDlG1Y4zJqlgywkb4oCovpCMElckEpITUptUYDAiamkw/zFT63be7RX"
+         "t1XT8AZiCJcGt/7Rfejg+P/upwPv7+WnJJ++i3db9z6Jw3exV3tz8OUwpma/VX5nobNxx77I+WNoLmM1zW66zh/Xytvp7dL+7fE6T8PX3c9SCRjI"
+         "WsPOYarzalQvAVNQBG6cYUZhMWgJFAQgwm4SmznXM8Bm19hq07Qy9ySMz306yOV8YoYAUevBqTLap8ENi7ko3ETI3B8C2tieOrQSDsErj6ThislE"
+         "+VbgKntV36rq5v3ZWXO49mdvPcinU39c5+rXj3/IFDQtm8kBaRZoSNJN7JowRJAdEXY2d7RaG2KDwezBzcPAGBye52bcTtwEPsDWuvM28y/nwVPD"
+         "iHlQ0QmFqaQbLSsTSS6pNY2687AkshXigC2jkZUsqs1lN+ODJ4ZDzfp6dZEfqbr5/O8Nzee5vy6XjtRexLtfP/o5y6QIQYyYR6CIFVbZgEbAAkNJ"
+         "e4UIQqVMsujnwYCeZxNHlWd7Ga31XA5q1VI5jaYuUNX55eHMvixSMkw6J0Qu1fKsSIW4qKkhW4xlAgSlUSUylBHNRyookLY9Bz8Yurn1l2V8+N6/"
+         "tEodUT+aaQn98sPXvzU2GTk1yeM+IoXCmSFGciKVBBqKLsyXfsrtbJDUI9r8QYr2TbvJXBcMQ6sX7Yx9sqVEFhmC09kI/zJWnVWqMqVFixbdIDGZ"
+         "uCv0OIjMI/IkSohIijsg0hcYECVkapfN9yMGd30zKLl39E7pO+Z3bnIa39+rHzw+/F5nwDKtAwuotih1rXzsmMHFXYt0l6Umfy0dFAHkBO16xWJw"
+         "/irvN/reKj2qBYPuU4PTQdj7Xns7EK9IiAyNwVPxppZCbapxk74hfxyg2VAqsccORa5lVCpHnYgJ0iQ0BzVb6h7D20q6B5zs8v8kFl5fn3/59Dck"
+         "nCPWAhv96DZH1GhEp+2NkMrNO2svpV3r/cSkbu8pwDW8N6G70t7S0mMz09lOb9veJvewDJgQps4LPS3MEgd6mC1j1ygoIn4dPjTh9mZpeIZaEsKm"
+         "Vi4GORwNIaGAQxVWBffo/VNQUxynT/N/xqcjmVv9EIR/+uXDnwSy+NxryNdcmRiDneY8Ou7WqavqCfF58v9tVUnk1Axx+YWLIPWk5cneW25m1KMe"
+         "I/a4KwIc9FaGtwEAddaC8DpUg7vKUedeiN0kqgjshdCGWr4KTaCUKSl0lS0IWJE7DfQjdJOWV9heJmc2ht/h6NQDgIv3Wx13vcLRzVYZ4nczReD2"
+         "aNc5Bm+2axVOIMOdj73QV95oD2RS7iuiNze2undrH8u+VgPJxVYK3DTtZSzvy3bMaqdavQIVRXsDiSo9aWKRm2Otis3H/ApdOQPouIwMUZm7YrMk"
+         "oGbLA5TBWmQMG8fR23tfTgEssqG9bHbaZsJxsl3crw7iy+QnrB3XROk8mgE7tSg4l2d6qO4obtD7W8XaudldejW5hN9jGK6vmmR2NId6ys114TZB"
+         "gUw1SseDsKqKNpq41VY1jd1NWAdErnN9SVRV2SUTj0gg1Aumresb3oNyyCBHLML5HoU+yWzn5XL1ncE4bHqCUZGwgCVGoyGZpkljV8GEibLLwEkZ"
+         "WV8hx+E5fBY6mmn2tnJ2+n96t9p6Y4+LfXPT2A/ELkM/MayDGELEciVMMXkyySmFHc9wul4rh8VCkWHl51gvOU4w8xKuazxUKaPvHr2g4JAOn/UA"
+         "yxG9PlZz3xjmZqhnvyhGr2F0xEeUYnARWIDp4NgsySyR3aoFkzd/MMsLKn5+zO+iHdZQu1QzLGpRZlkcx83b5V/ldgcqYmms9nAElnvAUBX5ZUER"
+         "uGWbL8m5SJaar4Esk1k4M5S9AxJJag4+ZXYmttrmIXNbDhtU+57VHUzu2SG2bGOAyRPoQZjSsgYtNXMcxKfhSPyhhIRy2ymfx12wFOGR8J7w+nAK"
+         "4vLA7yZfX9K/fTbVbFy8pvf3dq/34njQfXmHOoSAY9MwD0ZLBkuMieyCw5zI23M1YbpCvl77FflLBAtxGz5smG109S2URT4RKJrm9+FJaZjbgEPw"
+         "9IIHInCiyQMExE3BRqe74MgFTbjsgPcyoafml3vctNHc+D6E10DeJnD+jP9N7CmmUy43MX/pKpMbyZqI8R0VX+JBNYmkg5IEpi02bueLNQuK6xpX"
+         "4NdI3rJdV/9ug5f5SdgfcpNE+r/ZfhXrmzlAPUtjH3o7rZe32VCNLouTli8pOgRjBjMAxMFsp3MUX2R7rFRfcQnbNLNbzspF3kM+sa8OtYt+bm57"
+         "4uOAu2TWS/7fwp8Dqza6pUKemGvjg1hc1nOav4tDTMFnbVBYbP++2nVHS45/u/p3b6wS/3n1rz+74+/t9lWyEE3kjRfjr6fd6OD+LicSQFjhqXSE"
+         "CCkmTiFphh13NiKT/FYmhBOGGfM8X6uX333eV/d8/3Geff46y7PTXxjQuHhF0xSNElQzRMo5CnsZFUMisiw5odAYNrvVIToQOyaFkaYg55AkTNpM"
+         "DHycx1cdnrVJQh84nU3cKc3CD+IL55Uzjy1XVEmvAXPIFAmKdoZEkSoCz8g1MRyXddJRr3YZ++cqjrB5f770ARGtPH8Lp/Z9aPy+zH7ijF1KbASA"
+         "ghlTiA61EYoQkgElAC6Jd0o1RO+L5RR2Sr6rNOHwdeDXbH77SK3e/L/y/3uXvFDxNH5ryNaiQ4tOURVAGmyIVigjag0z3qW98RoBzYPBQC1pM4nJ"
+         "pV9zjAOGPm7D5/Atv0i55pa/Gj7O7bMu35Z5mpYQHTLd2SauFQICVQ6MPWDsl/munzCjRsRAgjLYKvG+zJ775y2f/OS4vfo4b9MCfcPdL3ffPQ7H"
+         "TcbMlpP5isZH6QViqbgGc+UrD0bCTmGvUSAWFEkGevZk4Aq9sWs7X8995nIR45HrN5AGNFiYmm9y+/Y2zPJhb8xVs3nxBqGRiDWJXRVAsCSW29WA"
+         "HDIamWaY22QGIGchHTOOTKkABsd7He9HN+/Lvbn5FjdP5U9RfJ3kLvh3uyNAR/KUAYFoik5tXnSUlKS21iGDOmYJfDD3fG9N+McqMho4LnPFb6V/"
+         "m/RrSpXmQ/XxMqqb/tJrvutcViApUcI1GaAUxYWoGLWKvFUrGcDgioDviAmICcSXodfr5aWixsEa93XChP3T6G99fHV+J7uj9JsmA7pGcTaoHwVC"
+         "N7jTeSgqKgoA6mRGZoGSocVlGgc2VYCRpnh+08/qfaz0M17+8sg1vtdwN+Ndp5qm32p72yocFObCV1BxxAwRaWJVlLKLe9Et7BFp7FFtWnlcO6Rf"
+         "HQXhlPaW6v81MILqFIf/3aaHiXfDXpI3FbJwDbmWpJE2l5GjRTBrsGQdC0CoNEANm6dtGbQT0jWRDJjt6vzSz+tl/gsvf0dojGq79v6c34/R2iXM"
+         "OsdoowGWGUUIDAoiYJdUW9g5YYAlskPscfOD+cSVpS1Rb1jnyDCMJal1NSR+3Iz5Vg9JvMvEbgK+Ssx5LdSWCfUJAvIM0Shnu4xVOzWBISzTiQFL"
+         "THSABgq5kNs77PIfGDVvN6rcrJRu9ru1HBrRsUo+sOSNNqfoQu2rlITERw42o4maBX2ZW+1yISu6Fk2CTG+JDkQHTbutzB+1ImMNaTZKEwQnxeSs"
+         "uLrEEVwFY9voTfP6nI9GNxUCoL30dHhZrFjimUVsErrJYQK1KFkVQ7Lhi/k1nP5FZsjiP6Gd0GV7fXW3VHRK9SWVchXqEelyGGb5pptvelD/85c6"
+         "5qRkXnewyWkHcVUbZFaGXjJmA5ecSQVZAbwgIsQ1YCoIORn2Fm2btrV6rivcHfhmX+jTHey+AG1BOuFLnOBIJTJnHOlQCMeQQzfsPCoUYnmMz6/u"
+         "Qg/0i9TJArtEfCI8JCY86VIoLK3gVXC/Lo/i8WDbe3OvntnOHnHJx3V7snXSO8TgZEfNqsJ3Q88hntpxdPCcZTwwPKQYyYx9gWls+wbsqObLGW5q"
+         "LPPlzvBWi64vwpCJRWpBEJ4NmVENCgIAhHVZRVFN8Xp3/+dX7+AqwCv9rKKtHO207UM+2fW17lQuyLxJ+Cydu9JDUq+R+ZfrR/n/7oMaBCae8RrT"
+         "TddIwS9Z7b08IYC1ZBBAYbyRlAvfwDjCcOabFl0NXVs3zRLqXzNYp1HNoqqXjIsYUOtRLRPzpLFTpMV754q5aZK3WuqZNLeDpMy8Knjz50/vQuiW"
+         "8//DUNnwZRneXny39uc6qji9yP9c/0W/zZ1+oPe7d6rnR735Vu9gKwfbFZIGOSS6KdtmJFEzHxwPCDOiO8YcUN0TjTXPoszlSbfqjKSXPWVwz4w2"
+         "cBg1aXHBdVtpNUlQlSvOBWKlLe4iRwiO9lDpGryETQnYZ7qK5zH0l9vH6+urt1Pv4su3MhZx+Kr+EXbq6E88esYXyb0YVvB0BLd5vnsr6+Y4Ug//"
+         "q3C5F7sAnkda7VKBajDZglPHQx1zjuFkqJ2Z7ds0ZzJ2MJE0Z6fjWg5eTtu+m8FJX7y5QtPPRtgAo2RhbGq6qK1guOpgexR3hW4L2S6vpuvbvx+H"
+         "/d5ur///r9kCdqTvo3kTzW/GvnHmH96vmX7B4YngJNu+2vHtod4PY0597PVpCLGZraH/G0gUhm/NGov/VuIrSZm4ZucxUOmZ6aP0lFdJuHdbZ93s"
+         "6AKNIRTJxZo5utJUw453I+W5WJe0H1gVrgRvgHmNg5aw3yQlk3DGmuRmVY/yfjpsN5vH3WN4aja+P7odU7h1m9dpuxe4yaCJNbGuGjOgeo1qxOGs"
+         "xQpaYfwvYH1Z/xRtAs1merVLb/vM3s8trJIHR3O6iv/Y3CmJDBtAIGN1E4SmmLaj5+dmFJMSJqYWrK6EVmJnFxZvAIhwepsaxWBvZRNyu8uvr79t"
+         "n6wfXzzZx/P00j3a+1KsX4ebx/vF65Cdd3SUaEBHqK0ltGG0i7bWogPT0+L/RTo3BF/tv2uwCRYAm6cJ4+QpzbASGiyu4B393gQ/oRckYFSREmya"
+         "9sQyoDneNcUsIp1tgDKERKdo9zg5d7F9lXmI81DCkdBOBJ3Px5VaFv1w+fXnj+h0VtvCyq0uUnkYVJYDSY2vhzG1E7E0v/l/64zxWs2YrhzPyrjG"
+         "4sbc35hh8BbnFGfXjYjdNoRzjyAw8Jf0HyRw2r81KUQppkkngHuilaYyt5B0Kg1RFgOwfH7xpd2qbKdlQs4Ih0uoWSHV+jrS1ycbGe3X9/cwzpLd"
+         "wddqQ+lQHB9IyPJsCVLEfJnCtbNwVpScVz0g1Jo+kjU21+ha5w2SJYRWQWe20abOIHfJUefZxekv8Q8jl7neZLICwFmokx4q3uaUqZUmcfTUZ8w1"
+         "oXrBmsH5OqLiDnopBIPo6JIIbnpTCJZhrjxmh8g2J2Vmi4UC68JW7Lw3rYsN46FmBSyn3KWLdiZM4/AhXmoVFhWtstaP09B+BpXL5wn2OmqoXYSV"
+         "A7US81/yH7+bDx69dHSfya5xNiBTPoKXBa+7VY5iYmBGluvcQ60ydc4GhObdNECJJ5QQGv6NZU+ggHGDOWNdCCFvtJ0TL/U6N87s4DpLzo0dCYUr"
+         "Jt4E3ddknMWB+0H3zN1/PDwHp2pVmanPF3ad0unD24Cvc/7mdX/BLx/xb6/82ZLX03+Ypn4nD2c8tKjytqNEoC4m0ItjfgxWWhtDcClwY3k6BT6Y"
+         "GpIXDLPE+w7vt1mz4H5Yd7jgtLjdcDRudeKWeRza5pFpyQ4nZJbkn8eRGc0pzNhdGAxCT8ANzqh6Feeov1yeSJCXz7W9iDbQy19AM8HOpmRx9zZO"
+         "T/XOBRfBFJGb/bJMtshVGMfAnQ3eTGOUgNjiiVvTgDVrENxO+bRcnkXByUPp/Tq8iswgV2seh75hKIIz5oYvo4DWTseJT5erkT2OGZTO9tFMCQAS"
+         "Juc0+Sejx3zdFhfD4mHI0Ie0DEo3LRG52BzjITi8se+Q89UNd/VxWc2czLJVb+gVreSSBuaQG8sTgDgTPQw89sExkhU158umxPxy+jpscZufXfk2"
+         "nw9GKxM6arosiSnlp7hbPWvObnYjcAk8t2w0Bl1ITzNbTIMLfjdfXO/1iEj3UUyWz8ShUSSrrMF1X++Nai0IOtHowjJrdttD3da8bfn+VWw7KBK8"
+         "fdteXFpYQQNp55GE9ZsRFTUwqWUVYdb04GJ5/tpI+uvbl1SwJGghSiU3cipM2b3qSWjI3dpYRjOjsZ8jxkE63aXpoQXP/hH/Pb3T6zN0Q7D0SjlZ"
+         "qS2NQDIFCj0WUM7j+WiGPWMRfQqBTsFOcbm6mTL/m30t8AYjHToMFIEC4dbYqRkJwuMOBg/YX6taCXVJctH4FNvBHQLYiywZSpspMBe4NMAUtH0P"
+         "VBDZY8h+HCiqZKRWBZI7ur40dDvNk59CF5807hCoUxQSCIShdarwW0jAxtkm5C2/XtO6hIbyt9EOpBpSf71eT3Zkwq720iMYlWMHGQNcGsAWgxOu"
+         "syigiIyFKNQUByJagZAQKaJgURBjECshEkTjqXFSgVDAjMQhmQht5EuU7To1se2m8zK113np49hph2WnvLOkcr0xIGlkZb2tqdR+DVh0lnkPHPUh"
+         "xzk6QWyA4u/2S91orVCD9vryrUBwKjqo5Qg2Ttk7MBEY08IPUVgAhyHEQCtlQOlQCijpICSVdyQ4IBBxU/lBiw6FSxoPCBV0wrvCraz1y/Q2t5f6"
+         "utYnDBlvPOdi5B1q0JaSfdbRCiw3W4E5uQUQFNHSdTfrNiqCKigIctzGJ8sYTDujFeJ5/Vadz4TtlBwgamqxJpryMLwowZWkE9CtUAZxzVElqmiU"
+         "BTnxOuEsl4Jium5mk5JY0BLPdLa11a225eJD77rzNC6fxbeaClv2OR6K3TiAEGeCtjUdqisB"),
+        "c82bf0642f19b5594f267e8a5c3e152fb4068ed65dc34511abc2b4f20283d71c", 58, 43),
+    "webp_pillow_lossless_m6": (
+        ("UklGRlQRAABXRUJQVlA4TEcRAAAvKkANAAEGjSQpuoejSbd/wQcaIvo/AUke1apJ2NSKAdUKJm5RD2tyYeCKK+ouAU611o0GuOJq4DiSJEfJE0C/"
+         "iNMGEPhv2wRPLY1wJcm2mnTQeHD4ZP8rc7d4uZFkW1X6u+FO9ve/GmIidw2d6n/CCJQf6AkJQy3AjBkEvmLITkYzQuldzQM5hE9hJXQORScWhCAn"
+         "J+cgrPW2gecgjIwaZhxAScmHwddsDjbFXilktmhrU90oYbkNFkCx7L+wc0INl5thtrgO1EzLM4afGS48BgYKALRhhT/TwYI9foPhIKaBiNgDwQww"
+         "4AV/C0cAPQDKb8+TRSplBHouAKWeEB06+MGCALBtG0loLJLseLa3u//fp3rvucSWWEAA3/Bg23bb2LZtDQsjUhHLp3dnd/m1IyQQBIbxIABs29a2"
+         "taGyiIq9ezuDOvOfQj8niWwKJICI3/zv7+/66FHfx4/P7Nc4P1Gn//g26+Pf/eN7fL3212N/GftXo8hxVfjHtP/h8/OIz8D/IvxzPgd+1n72OJp1"
+         "jZ94Hc9/F/gr6nvrf0T534i/NvnzFOH6nfN3CD/n48eUY8uvNUtySipBGLJrvycLjAn9plwU+ZjCeef47rUf7nte7wJJIfZu8B4KCyi5zqLIofpD"
+         "KUCld5R4RC/19KinzKM5Qf+hp1w1FoeWfIPBd7zX0hybd4GsR9AGUUCoc6HzQfxALGxV4g6+x/p6BPFnJMwy547FGXs/A1QBcIAqAY1H91A+KqaE"
+         "ems5rAWDHqItDL0kJVnZfQPcrn27ZvbcmSFKUkrwsd09Uxx2iuy9bD8cSrzhW4IqvNivSJr8fWF45ADl+Ro8QEV5SGdyRa6l0XmQbpinokocAtU+"
+         "Kgjy8fDbO0TgPgPBbumpsNi5U+yuFbVaKySC7U7+JraXoOP1kT8V+bqk++LI75aKI58J0z+XnZHee79zbQRUO5TKpLzPj+7vwCbqBKh8RbRjdYql"
+         "JmtazFzmsVo1ysYSnbxvQFV4zyJPviWhrHQANJP+dTo7kQXPzDlinBlm+lVfwsEsKS9udx2OWp6Kec7DITSK5w8wVejQ0EMp2qJiqdlW5gZWne+b"
+         "IaqwZqqbla3y105l9VsJLiUa8UdcEdFoUcYNk+7pycs+hqzwz8FUBGFU1lZkLz1w3I5c6NeZSqkIpmUpf37pdTjw7W0hEsJnlu8HaIpaUXPiwcKi"
+         "jFT5LHjuGuWwKV+rGXXoYIWgBTnw2HneaQHdzm2Ysng5E5eih9eeW08kfOz3THQB5RWsxENTf7Z6JIZxMYUovst7Czi5iHKYb8C82KvkUqsQleDm"
+         "+tMVKQp81rk7zFXdmLJYWHM5U2NrEfFav1KNWm8wUtUuZaG+nj+OYnrs+eSPss/s1mdg7p8XRi5MCM/plIoRlsE4+OhvC8HqhpGL2efGT3/llwna"
+         "4vWDzq9dUuYWGkdPeyYxPPYs+JTg58EtiuwVjDuW+GgwevZSev22X6RJIjOf11rxVdzDuUC2fGDxBZASUHoYGw5iVS2jiC+erDkLbTP1uhVZ+mEb"
+         "AhTAa+z2ER1KA4hhP0R1pEr8EVf++PSG6opq+NKQsY1eKZfiu2JSi9EO3qD/r6ttOVKDwYIFjxAGrFhKJKnIWuDCi3Vb0WFtrTPbYiDWLVtcmkmp"
+         "NPiBb5vO34QaOoYVt9Sx6oXIudU83PgFadl6HXnr2bJUbg3/W367wWvF3iEX9QS9F5J1mPMUUBdiGVYoihXm+VzTA3uKnpMpAbFn6MiZird+bkVb"
+         "BVDpAIujG3DQdUVZGYYwTS597K153C0n6TzyQp0YDM1BBQXMkx0bwEwFqO7qzPMusKOlh9FeRpqckIjE8EPGMyNHY6lKna4a0nQcYUXWKr54xMxT"
+         "bFr8P0Tz7aUyuYDOJxOwEv33KAm0APY5k9XSdIF4DuAjkAfBEnJpvFmx0k2xJBWh0MAf8xfWdGfmPqYoPsCBW8uhbRpr3GVH+1JYloJo8NvX0i0J"
+         "ad98HUdowiGn9GWN8ap8gMhYeoNSEylpIgZUMNFotsvMjK0UNctwV3K8j6dxjxJRAwr3ztrZEfzgruxR5ntv02iK/5dwGV/9Jpw2EmoIroPA+D86"
+         "GBLyAduCRsWKq4qMLgsvmLFWplrFEbqZ/eAAWVDxgVEKptyjPKs1XK1eSrOi/dD/J1Pc4//hHjCZN8JdSqitPJydWsYmeabqWp7v8JFMoUmiR3I+"
+         "ogMBoNOEEOACc5gn66qwktaB8pB5MMvhZUL7ltuHFtbaCmL3q/FVXs6gng7vNCrNiFf1P/bOJ/1HVtsWlK6Knx8OP+biTxr2qOR6c7YEil6yb9gD"
+         "Ybr1JYpUB+NbDJfMWg289n0C9keFB7jX/rhKRrHR6zzwTGw91O99tzEXzpY3H0Xor7ZTJq9IB5YzZULlaL9++fz/PnlLAygZTNgoYwts9DJOipnQ"
+         "CRayOUcYRgB7XCnAEfm2rUovFwthINtXBi7ntc24JojfmOF4TWOPWIWlU8aYjcqBkZjk9R2UBJC8Qr4yZArI/p5+JRcwX86zXBbOOhnNbAO6ycFi"
+         "LYEwliyTQLkjIdbbeIrKjcP3wlyYbhmxa+xQ2KugiGNpGNNUKtxy9DexJBX4vYccy9T3RpUhDf4HjAAJNzMA6PRXAGmyGewXzJfZIrgoCMkiJr9u"
+         "qoRzX1GAIwD2JOY1CbcpohckSO0cZI9aQt8OQnp/KyWlH4sEXQgQMta/ywrFztudzSSZLzRlw2Bz0tg+Yxm/zwjHMs4NC24Mc88bQqzMFQpcnNT3"
+         "jKVwoKZd7yFKVOFWoYMBSnkSb3uQbxQowE5z5q5GFGTG6gtnODtSIjD2henVGG+1OWG2cOvxTOJlRS6InTcQyMOg7O2p5kBlTaQW6FgHWSgtCFDP"
+         "lQt5gDPGFwECTrGdVsWvfQamGn5b3oolc/g0YOJg2HWtUBDNqhzNYrnEwTympLIhh5HFgvYVOqV4mcNEYc8Vr3fxJ2kLRKsNAoIJGO7MdBQ7TMHm"
+         "5uElKOcAY0+agahxWycBQGRGF/E69kHwNVieXs0no6PwGl6zCPNmvruXyyv6K3a0MoI0oaU9F3uHXApE7BgqVgyOwj+TKq8tMMDL2op53+uJAsBA"
+         "XwMbCTmwh7uwstimAaCxnkAzeUr4pEOpmG2xefcCK79d0QlAe4yMptCYTcIwOB0bTaOHGjKvOe8ljzuDgCJtRarWth3buoZk5x1LKq+APCLORtdL"
+         "9JlwkfaExRC2Q2mbjpbhPfkLgO9R9oDX6UbcQ2bgqfG5RIPlESmoPt42hR0g5194P+9cYAZMAK+v8FXVEFEn+sSBgEGj62ZCJAls1lJYo3N10tiH"
+         "9auBCyTamkWMBOwljN8aSqPCGeFWeuUgllkrORvxoi2l2v0PNVPsK23NeVdfZEQw4sSSVw/MJ2gwMI+wbry9idX0LKaUmmORZctWFQCHQuV2ezpN"
+         "ZiM6h13mqlifWAcKVkZsNLHuUizWa+9D/tzI5w0BHwvgBgeGL7Vku3Q2cSqJc8kHknrfY+KsZA3xlNzxZeXYuR58QJ7LC1YnmfS/0L6+f1T5Xw46"
+         "sWgvo8NaHEh57Q1HmPGrZxO8+9/rHAnTGt9GHvMNl4G8O5wwTVYi6cAiEepNmRUfySjA6IUemD1Kym2Y9Hz2+3LD8uB1ddGLjZfQ0HGFj1uGuLWW"
+         "jOG94z3ua9uU/EV/1bBvXkbL2Qb5ShmwNs2F9FBEZZIAjRoMhx7oUlDVKODHY713kmTU1rDeE5ip1f5/pTIBwBkcMOy7YtE1Z3+YCNIQPAiGvQpf"
+         "kAP+rqdmhevdF80NeAdeRCMdVaBoU2chUtfqvQlHaMopDCqPAoekFROQA5aKtawXr5oOy72hCA1Q3ueS26H8nqMUpIdHS4tpMr0G7/vvJWPLMEg3"
+         "tbFwb/+q67LQthjZhxWdrZYCWIhDxpHm6B8FelQhAHbT3KS/btzlWf0tDqmpuHysC9rBsDCXuQPDoTFLYGtWDhGaE77Hb+XJ9o7x7Jv5FfGtsEys"
+         "8qLxqNEqcUglKmeSNksLrXgmcCX1/WqjEbR3X1rbCHHe3Plz2ZlSGJg2DI2cMDOBfRyKUTg+MA/7z/Yo8Yr39712jfe3/81lJ1mdTvFfUqsMSNRQ"
+         "m9TKJy4VElkJ9oSjCTTgcrRCh8jtOQ7btbYblR2rmYcWkMW5fOjUSKGLZsoaGc0sAcSo+wt86M/e4v/w5ZD9ALS7Aj+YMizSVmpPj12pgFTXXiuw"
+         "QE5nlURgGmtfS98kyYTVtlMBvPAqUmmaiyvSEmIaGOpp9glJdZFiS8qQPeAO9DPC42BOLiUPBHIS9SpyI1ydcun+6BUEb8VHLILYxPWWthyMypS2"
+         "I14JQnBz7J0SV3Wnav4y3rLquveWNCAwoKOqBIDVgJWpOt3wKzwqxs6ZahQoW/NHBJ26umV51oTUyctRa4oPtsUEm0yEgNhDp8UbyFIKR7DtWMFe"
+         "xwwgrphuWQB7ljxSW6ZJRkQ/XMFaIB2g9/zmix8nSsOKO6ukiqXDUd7S+j1BOwucmRdvRT7OpuJgHKHf7hElOr2AnTPzIg6jIHFJXugSHBS74rvA"
+         "3xaviFdx42QysgNFCGA01NevEzJCbVBO2XFLh1SCm+SKUFsGwBD3jr1zQIrkbuy3ym38Dn9N+vcmthLCg4LJhZIwmCBjK4ycK/kN8QJ/I46ORogM"
+         "LAbB7TaXn3flWm7HkoK50d6iqpdfICMFFm4qMKgqeFmpi1OqKd5cDfgCnu24KO+CgSYSJLfK1PJCcW0jcWsegkPtYr64LSyXrMDuWaWOADrp19Zy"
+         "T4gsv3qRnRvHz5Rpw8dRHA1bVJe7u5LIEXF7UJAxGdMNeV/15UBsUReGZA5fGbhFUX1UHWUZl/c3vzm/wP6J8C5OUSRoYzdv9Ou/dwC+PaKWcpwo"
+         "p2/Ptf2mtFC4mQrvGkwpm9+lExDcCZeqTXBHCspqN6YkB9h1mtDmxD1GeFtgGWnqPx7+/jT4csq0DU2XvLHhfCif78fv5S3DfjzuBf1405l4oHxu"
+         "k7qE0q2oPW7RaAxYNQd9K/G4up+muQOmOyZowbgcU7RxEcDMIjATetm+OcSW7wLcYHD5mofevL7ON9eko3T/MZ6Dt6msWQrgM5lb4oDKWIL0/4NR"
+         "6UpwkhNDGZ4jVL2NDt/7GpdDE7RrI1w+RRv6KkF3pFLpuqMZKS/MAnGYK7S8c9Z9CxZwpznvn60mPA7ZglymL0G4CpHVtvEKBeZe2SFfpD2+4VYL"
+         "u6bovifNmYNG+urD7dw4xabzaguBCe7NXtZGslUoV0Izv1fBGe4tC7wVL0TGfyuUjhgFWxCQGp1p0Qt8giwTKNANR4t/YwDJy7c6w7TmOQN9gCJ6"
+         "Nrtp3jJCBgs5QbkAwD6O/O83R0olFgdDWp6k7h6I2hIke9MfAKolA2MAJIIwmKbsPsoY7M8sk2EQ6mltXT5xOU1c9gXrC18LcMGogBgRdFY7y3ai"
+         "DFJJIl6iy4ho3yxU050O88ym3qiuJr4If1VEoNKwMPhLTljg42uezzGyKfUCI2McszElsw+q8Z1tAtC6voNu8GySrW1XRFMJJFXEfpvuMmAiU59i"
+         "ZIvplPyOw0bvefvCLO5cNX50OFbaAdkIcbsG0KHtX5qlOlFUf/XdknrfJwQMG9t0UZtEG/XvCKJJeIZ47lbpJN8+0C+RbYP81gEWMQHjF9hAtiDM"
+         "b+GewQ1muvwRvlWkhbILLogM/We3T1bKpvHcEA8d5+5i5+0y14tjLohpHybmd9zBSlpIk1Tcn/c5BDVArKDEfWNm6lsmeM9kp2zjzvjuy/leSrs+"
+         "iKrscPXxAmGem5WAFr83doJ5+CdD63B1ThM+afub/TXXnD5nv9mroOGTcKWNCp2Cnltoix9CX1Eh614ToMr+77LHijzLZgbnJIMGAA=="),
+        "4fd86bfc84b2979307ed0ed9d7303ec0fc64b265ffbda9c54f180ba04fb8783f", 43, 54),
+    "webp_pillow_alpha": (
+        ("UklGRsgCAABXRUJQVlA4WAoAAAAQAAAATAAAKgAAQUxQSCQAAAABuQpE9D+goG0bpo8/7D0Ci5gAoWmCybY70Czq6xW3rID/JABWUDggfgIAAPAQ"
+         "AJ0BKk0AKwA+WSSPRaOiIZ3c7gA4BYS2AE6ZQjpLzb8h/YEqr9b10KdPIsGd/PvsDfq900fNF+w9jk/szWqIhbETYS5h9v3NOBU0+5DA38nxm6YC"
+         "Wv9c5zipBfcCEbJdbcDWzMHNU7SGj0rbt7It2/cKHUyXT9kT0RDErfRCwMgWQFxEG1/vtcToqL6C2AD+9e8Swe8xfv3yuy0gR0MYw//lxZn9pHVC"
+         "W8kx2uH/zKB6sPHdNMoGnSNu+wfsCSwTNrktUmHy5iqIUoaoWCmImRAbrLJywxzYQ/3NK8w7XFGN1lC2Ul58kJsKox4XlLecP1AgSq7X4iRJQQ4p"
+         "b1u/dy7SLekYFrDaNq1LC0iRug+LD23kHkgqE79RCu4xLZ+IWfg80E6FfpPsmpDuN1/Yd1MDW/zOFxbcxN8/OiVKcJrMnmn62C2TagZ+d4pllvXy"
+         "OcxU/SZVyId5SepMZEX8EI1CuHd+VUGw0o4c1f1610vvi+MpcH+QajPVMVN2hpSfqqN7y4ot0eBN1Ic2XEhFYfFB+dB2wcQtJr6b1vr2V4E2USRQ"
+         "bS/+7ZczaNVLoATa64BV3VwnMVWj+psOgfLUwm4UXgpC6lo/uwzJLgZvfL4rJiaBspTZ/0b/rMqy8N4WfxaOY+nvZk2K2mhun06oUvABYIDJlN+y"
+         "Ecw4R2rrb9GfqBQlzJbsIbcw7m3/IF1C4EDnfvQxZCfSJPp51aSP4U9niJbGOf1x84aD7soQPy4dEN7rO9pryMDMlvenv3Vxvug0gNgYz9NiDLtm"
+         "qb6320fjnvyJYOnl9qxOHGkl4/z5MkcfCOuugWr1rVecvSSMYTq5GWL7FDrfIgAA"),
+        "32490bb75cb0d0790e4a545a2d34420cd67b4c9d5dbf7a688c8538ea7fa82233", 77, 43),
+    "webp_pillow_animated": (
+        ("UklGRmoFAABXRUJQVlA4WAoAAAACAAAAOQAAKgAAQU5JTQYAAAAAAAAAAABBTk1GngIAAAAAAAAAADkAACoAAGQAAAJWUDgghgIAAJANAJ0BKjoA"
+         "KwA+jTqZSCUjoqEytJ5goBGJbF2cLbYTdHdQ8mWB/EP7l5i/9bxYJAlv4x+JumAfxj8gNcA/rv43Wyr5gP6B5AtAn6Rf5r+wTpjCOWvUvMYpT9j2"
+         "NAk1b31Mfnbek+bOvyAtFBYfv4EqeeK6cAD+0DZEjsUv/u8F+udcwSwx+J8myj1URMJxRg6RobmH++8Ttp6ttnMmxzuBOaWDgdTEhtra38bnP5/4"
+         "YnSd9N/uV5dWtNgx6mosCeJOnGx5vQ65/9HBnoMjWsFeVzPpXR3X5MPxl/FF3bg5wbpac5iwROgDFdNObMAXg7XcLItQJ4+45f5ITHwXvEzPfXGa"
+         "228q04Ze/pH9b2/o37KWuSGnoCQ262N2M/MiIkrHmgveE4Q/Rd7tv9NFzPGE63eXsWn0tqfxVJ3XBkfoPN9ST6c9T/TH5BiQrTJU2CK1Bi/pVbHb"
+         "ez8Ho5SbTJ3/5nvdS6cBldHpkUQdODF1P6O7eEo6DVPNdY84LzZ9IFKM9bzv/rC/Zk6ZmwSngC9DCvmkIED7jz/OryOTMpGh6YfRlHTQm5CoQ27U"
+         "+74J3j/pXWfpGciv/+tuNa0OItPBAQJwdoqJIFIWhLIH6UB/CfxJPYBlwkzAgmJOBW7H1bNtfQxh87/8t8FVNtu0F05IOZ4efnxA7t4X5u0ao2Xk"
+         "0JEoLgtq+6U4ENOHtYGAtpXEHCnR+m3NaFqQ0KCqBh1LCZJ4TKT+Hhiz1hUaMl6N1buI0ynNjS4OjcA1hk5UBeucL08j5nfeHjX15GCqmyHTo2Aq"
+         "+LbssJ24mfdzsodoSJrualO0XvALG2MqE290lgOepfiK26RDS04m0BlPf550udZAAABBTk1GmAIAAAAAAAAAADkAACoAAGQAAABWUDgggAIAAHQN"
+         "AJ0BKjoAKwA+hTKVSAPVi4AAAQiWw9E6UG8q5Z5PsT+If3jzGP6xitDMAzy38v/DnTAP4x+QGuAf0b8gLZV8un9J+2b2BaBP0k/z39TnTGEcDete"
+         "YJUX6bs7RMq2Pqm/Nm8w82VfjhRuyYkHDwE6Ad0AAP7hJ5Q5Q0Z/vjA9qbcL5Pp1f4rzDcrOWd7Dq3PkPBL9uODTK07mJcH4m6lEdOAZKpZwQ+Rx"
+         "fwdKk9McU4QvFzxG1nnffy8Kxe+tc8n68/kaqFXkDcGIZzefYBVfeb897rAvGLmYg/7/uT7v+IKBbfBONwvXUirRroB47k3hSupwOo5mH6Bq/1vY"
+         "S0/JsLrPOcMbspDDrPSj9g5qPOOKzA1DDIbMMych9oQvQQiw8DcV9jX9JRaMkkWoGRmxzOwe+Lp2aafi3y3SPEC0lpJepU+cr8VRLgaq32/HThdx"
+         "9ja5FgGv6E/jqtKk0/vzCMxT8bLAJ0/zvVug/MkNhVMQiZrtNbmqLwF23UL//hihLRtk8YfBiuKRxO97ApM8Ol5s0BFPKJr4xuIfzkqY1ztpeeLl"
+         "k9TSS9ffnlXEfRH/9yXT8d7nkT7WqnwLqOthtGC/i0GYe9R/SKmICsGWN+G8UXd+jDD91+t8SO/59CFvRVj85j668MBlh13yl9MNk7TvBFqUa0lF"
+         "kfI4FtJSxR6ivx9QJFBt9nOWNLfd743g4rjFkpldEpjibnxjG2DGW5JhaGAQOIvyiKeD2mlDQzVG4COUSYpcZCyueC0biMKCEVFb2XoJexwdIwdE"
+         "4goUpx1bG4JvuPr+TCi+JUElV+jTaZRv984GiUivRMDmAlStbsfguzQS5zMkLsZQAAA="),
+        "7b88bc139ba7ec8d63a5f9ae094ff1fb57a566d710d01905e9e6ae8db0b88c89", 58, 43),
+}
+
 
 # --- the fixture: an M-BEIR tree of JPEG files, captions, a BPE merges file and a BERT vocabulary
 
@@ -4404,7 +5582,8 @@ def fixture_image(seed: int) -> np.ndarray:
     return np.clip(img + rng.normal(0, 3, img.shape), 0, 255).astype(np.uint8)
 
 
-FORM_SUFFIX = {"gif": "gif", "bmp": "bmp"}  # a fixture file's name suffix by form: png_* .png, the rest .jpg
+# a fixture file's name suffix by form: png_* .png, the rest .jpg
+FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -4427,12 +5606,19 @@ def fixture_file(form: str, seed: int) -> bytes:
     `png_palette` (a 6 x 6 x 6 colour cube), `png_grey`, `png_rgba` (Adam7-interlaced) or `png_rgb16`
     (the image in the high bytes, seeded noise in the low ones); `gif` (the colour cube, interlaced, a
     transparency index), `bmp` (the colour cube in RLE8); `jpeg_cmyk` / `jpeg_ycck` (the image's CMYK, Adobe
-    transform 0 / 2, Y and K at 2x2 in YCCK) and `jpeg_rgb` (Adobe transform 0: RGB as stored)."""
+    transform 0 / 2, Y and K at 2x2 in YCCK) and `jpeg_rgb` (Adobe transform 0: RGB as stored); WebP from
+    `webp_bytes`: `webp_lossy` (VP8, coded closed-loop), `webp_lossless_alpha` (VP8L of the image with a seeded
+    alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     img = fixture_image(seed)
     if form == "jpeg":
         return jpeg_bytes(img)
+    if form.startswith("webp"):
+        alpha = np.random.default_rng(seed).integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)
+        kind, image = {"webp_lossy": ("lossy", img), "webp_lossless_alpha": ("lossless", np.concatenate([img, alpha], 2)),
+                       "webp_alpha": ("alpha_lossless", np.concatenate([img, alpha], 2))}[form]
+        return webp_bytes(kind, seed, 0, 0, image=image)
     if form in ("gif", "bmp"):
         idx, cube = colour_cube(img)
         if form == "gif":
@@ -4463,7 +5649,7 @@ def fixture_pixels(form: str, seed: int) -> np.ndarray:
     """What `Image.open(...).convert("RGB")` gives for `fixture_file(form, seed)` where the writer alone
     says it (a PNG: the samples it wrote, as Pillow converts them): an oracle beside the twin."""
     img = fixture_image(seed)
-    if form in ("png_rgb", "png_rgba", "png_rgb16"):
+    if form in ("png_rgb", "png_rgba", "png_rgb16", "webp_lossless_alpha"):
         return img
     if form == "png_grey":
         return np.repeat(img.mean(axis=2).astype(np.uint8)[..., None], 3, axis=2)
@@ -4686,8 +5872,8 @@ def fixture_configs(root: Path) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, and the native JPEG, PNG and GIF decoders' calls."""
-    from uniir_tpu_torch.data import gif, jpeg, png
+    """Every kernel wrapper's launch count, and the native JPEG, PNG, GIF and WebP decoders' calls."""
+    from uniir_tpu_torch.data import gif, jpeg, png, webp
     from uniir_tpu_torch.ops import attention as A
     from uniir_tpu_torch.ops import image_ops as I
     from uniir_tpu_torch.ops import mlp as M
@@ -4702,6 +5888,7 @@ def launch_counts() -> dict:
     counts["jpeg"] = jpeg.decode_native.calls
     counts["png"] = png.decode_native.calls
     counts["gif"] = gif.decode_native.calls
+    counts["webp"] = webp.decode_native.calls
     return counts
 
 
@@ -4861,7 +6048,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
     import tempfile
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
-    from uniir_tpu_torch.data import bmp, gif, jpeg, png
+    from uniir_tpu_torch.data import bmp, gif, jpeg, png, webp
     from uniir_tpu_torch.data import preprocess as P
     from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
     from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
@@ -4887,7 +6074,8 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         # the decoders: native bit-equal to the twins on every image (the progressive files also to Pillow's
         # digests, the PNG files to the samples their writer wrote); the native rates
         blobs = {p: Path(p).read_bytes() for p in tree["images"]}
-        natives = {"jpeg": jpeg.decode_native, "png": png.decode_native, "gif": gif.decode_native, "bmp": bmp.decode}
+        natives = {"jpeg": jpeg.decode_native, "png": png.decode_native, "gif": gif.decode_native, "bmp": bmp.decode,
+                   "webp": webp.decode_native}
         kind = {p: jpeg.image_format(b) for p, b in blobs.items()}
 
         def native(path: str) -> np.ndarray:
@@ -4907,15 +6095,17 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
             if form in PROGRESSIVE_FILES:
                 check(hashlib.sha256(arrays[p].tobytes()).hexdigest() == PROGRESSIVE_FILES[form][1],
                       f"phase 12: {p} ({form}) differs from Pillow's pixels")
-            elif form != "jpeg" and not form.startswith("jpeg_"):
+            elif form != "jpeg" and not form.startswith("jpeg_") and form not in ("webp_lossy", "webp_alpha"):
                 check(np.array_equal(arrays[p], fixture_pixels(form, seed)), f"phase 12: {p} ({form}) differs from "
                       "the samples its writer wrote")
         log(f"phase 12: native decoders bit-equal to the twins on all {len(blobs)} images (the progressive files "
-            f"also to Pillow's digests, the PNG, GIF and BMP files to their samples); native decode {one_thread:.1f} images/s "
+            f"also to Pillow's digests, the PNG, GIF, BMP and lossless WebP files to their samples); native decode "
+            f"{one_thread:.1f} images/s "
             f"on one thread, {many:.1f} images/s on the loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
         for group, member in (("baseline JPEG", lambda f: f == "jpeg"), ("progressive JPEG", PROGRESSIVE_FILES.__contains__),
                               ("PNG", lambda f: f.startswith("png")), ("GIF", lambda f: f == "gif"),
                               ("BMP (numpy, one decoder)", lambda f: f == "bmp"),
+                              ("WebP", lambda f: f.startswith("webp")),
                               ("CMYK / YCCK / RGB JPEG", lambda f: f.startswith("jpeg_"))):
             files = [p for p, (form, _) in tree["forms"].items() if member(form)]
             repeats = 1 if group == "baseline JPEG" else P12_DECODE_REPEATS
@@ -4985,7 +6175,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         torch.cuda.empty_cache()
         after_reference = launch_counts()
         moved = {k: after_reference[k] - before[k] for k in before
-                 if k not in ("K1", "jpeg", "png", "gif") and after_reference[k] != before[k]}
+                 if k not in ("K1", "jpeg", "png", "gif", "webp") and after_reference[k] != before[k]}
         check(not moved, f"phase 12: the in-code reference launched kernels other than K1: {moved}")
 
         # the runs, as a user makes them: the run scripts' instruct switch, then the CLIs
@@ -5036,13 +6226,14 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         check(not moved, f"phase 12: this process launched kernels or decoded while the runs ran: {moved}")
 
         # what the runs launched: each kernel its run implies, no other
-        want = {"clip_embed": {"K1", "jpeg", "png", "gif"}, "blip_embed": {"K1", "jpeg", "png", "gif"},
-                "train": {"K1", "K3", "jpeg"}, "trained_embed": {"K1", "jpeg", "png", "gif"},
-                "blip_train": {"K1", "K3", "jpeg", "png"}, "blip_trained_embed": {"K1", "jpeg", "png", "gif"},
+        want = {"clip_embed": {"K1", "jpeg", "png", "gif", "webp"}, "blip_embed": {"K1", "jpeg", "png", "gif", "webp"},
+                "train": {"K1", "K3", "jpeg"}, "trained_embed": {"K1", "jpeg", "png", "gif", "webp"},
+                "blip_train": {"K1", "K3", "jpeg", "png", "webp"},
+                "blip_trained_embed": {"K1", "jpeg", "png", "gif", "webp"},
                 "clip_retrieval_int8": {"K4"}, "clip_retrieval_bf16": {"K2"}, "clip_index": set()}
         # the guard's exact re-run of a batch; CLIP-SF's 3 steps of 32 leave 24 train pairs out, PNG ones maybe;
         # a train pair's positive may be the GIF candidate
-        may = {"clip_retrieval_int8": {"K2"}, "train": {"png", "gif"}, "blip_train": {"gif"}}
+        may = {"clip_retrieval_int8": {"K2"}, "train": {"png", "gif", "webp"}, "blip_train": {"gif"}}
         for name, positive in want.items():
             counts = runs[name][2]
             log(f"phase 12: {name} launches {({k: v for k, v in counts.items() if v})}")
@@ -5153,7 +6344,7 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif")
+    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif", "webp")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)

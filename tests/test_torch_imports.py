@@ -35,6 +35,9 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.registry",
     "uniir_tpu_torch.data.tokenizers.bert_wordpiece",
     "uniir_tpu_torch.data.tokenizers.clip_bpe",
+    "uniir_tpu_torch.data.vp8",
+    "uniir_tpu_torch.data.vp8l",
+    "uniir_tpu_torch.data.webp",
     "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",

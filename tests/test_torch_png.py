@@ -183,9 +183,10 @@ def test_corrupt_files_raise_or_decode_never_crash():
 
 
 def test_read_image_decodes_by_signature_not_name(tmp_path):
-    """A PNG named .jpg and a JPEG named .png decode; Pillow's GIF and BMP
-    files decode to its pixels; WebP, TIFF and unknown bytes raise naming the
-    file and the format found."""
+    """A PNG named .jpg and a JPEG named .png decode; Pillow's GIF, BMP and
+    WebP files decode to its pixels, WebP under a wrong suffix too; TIFF,
+    unknown bytes and a RIFF / WEBP file whose first chunk Pillow does not
+    take raise naming the file and the format found."""
     from PIL import Image
 
     arr = np.random.default_rng(9).integers(0, 256, (12, 10, 3), dtype=np.uint8)
@@ -194,20 +195,26 @@ def test_read_image_decodes_by_signature_not_name(tmp_path):
     (tmp_path / "b.png").write_bytes(chip_smoke.jpeg_bytes(arr))
     np.testing.assert_array_equal(jpeg.read_image(str(tmp_path / "b.png"), "cpu"),
                                   np.asarray(Image.open(tmp_path / "b.png").convert("RGB")))
-    for fmt in ("GIF", "BMP"):
+    for fmt in ("GIF", "BMP", "WEBP"):
         path = tmp_path / f"c.{fmt.lower()}"
         Image.fromarray(arr).save(path, fmt)
         np.testing.assert_array_equal(jpeg.read_image(str(path), "cpu"), np.asarray(Image.open(path).convert("RGB")))
-    for fmt, label in (("WEBP", "WebP"), ("TIFF", "TIFF")):
-        path = tmp_path / f"c.{fmt.lower()}"
-        Image.fromarray(arr).save(path, fmt)
-        with pytest.raises(ValueError, match=rf"^{path}: {label} image"):
-            jpeg.read_image(str(path), "cpu")
+    (tmp_path / "c.jpg").write_bytes((tmp_path / "c.webp").read_bytes())
+    np.testing.assert_array_equal(jpeg.read_image(str(tmp_path / "c.jpg"), "cpu"),
+                                  np.asarray(Image.open(tmp_path / "c.webp").convert("RGB")))
+    path = tmp_path / "c.tiff"
+    Image.fromarray(arr).save(path, "TIFF")
+    with pytest.raises(ValueError, match=rf"^{path}: TIFF image"):
+        jpeg.read_image(str(path), "cpu")
     (tmp_path / "d.jpg").write_bytes(b"hello")
     with pytest.raises(ValueError, match=r"d\.jpg: unknown image"):
         jpeg.read_image(str(tmp_path / "d.jpg"), "cpu")
-    assert [jpeg.image_format(b) for b in (b"\xff\xd8\xff", png.SIGNATURE, b"MM\x00*", b"GIF89a", b"BM")] == [
-        "jpeg", "png", "TIFF", "gif", "bmp"]
+    webp_data = (tmp_path / "c.webp").read_bytes()
+    (tmp_path / "e.webp").write_bytes(webp_data[:12] + b"VP9 " + webp_data[16:])
+    with pytest.raises(ValueError, match=r"e\.webp: unknown image"):
+        jpeg.read_image(str(tmp_path / "e.webp"), "cpu")
+    assert [jpeg.image_format(b) for b in (b"\xff\xd8\xff", png.SIGNATURE, b"MM\x00*", b"GIF89a", b"BM", webp_data)] == [
+        "jpeg", "png", "TIFF", "gif", "bmp", "webp"]
 
 
 def test_decoder_follows_the_runs_device():

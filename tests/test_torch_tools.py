@@ -181,12 +181,12 @@ def test_interactive_retriever_reads_png_and_progressive_like_jax(trees, fmt):
     assert got == want
 
 
-@pytest.mark.parametrize("fmt", ["gif", "bmp", "cmyk_jpeg", "ycck_jpeg"])
+@pytest.mark.parametrize("fmt", ["gif", "bmp", "cmyk_jpeg", "ycck_jpeg", "webp_lossy", "webp_lossless_alpha"])
 def test_interactive_retriever_reads_gif_bmp_and_cmyk_like_jax(trees, fmt):
-    """An image query from a GIF (interlaced, a local palette), a BMP (RLE8)
-    or a CMYK / YCCK JPEG, each from chip_smoke.py's writers: the port's
-    decoders give the JAX retriever's candidates and its query embeddings
-    within EMBED_ATOL in fp32."""
+    """An image query from a GIF (interlaced, a local palette), a BMP (RLE8),
+    a CMYK / YCCK JPEG, a lossy WebP or a lossless WebP with alpha, each from
+    chip_smoke.py's writers: the port's decoders give the JAX retriever's
+    candidates and its query embeddings within EMBED_ATOL in fp32."""
     import chip_smoke
     import jax.numpy as jnp
     from PIL import Image
@@ -201,9 +201,13 @@ def test_interactive_retriever_reads_gif_bmp_and_cmyk_like_jax(trees, fmt):
         data = chip_smoke.gif_bytes(idx, cube, local=True, interlace=True)
     elif fmt == "bmp":
         data = chip_smoke.bmp_bytes(idx, 8, palette=cube, colors_used=216, compression=chip_smoke.BMP_RLE8)
+    elif fmt == "webp_lossy":
+        data = chip_smoke.webp_bytes("lossy", 5, 0, 0, image=arr)
+    elif fmt == "webp_lossless_alpha":
+        data = chip_smoke.webp_bytes("lossless", 6, 0, 0, image=np.concatenate([arr, 255 - arr[..., :1]], axis=2))
     else:
         data = chip_smoke.jpeg_bytes(np.concatenate([255 - arr, arr[..., :1]], axis=2), 90, form=fmt[:4])
-    rel = f"images/query_{fmt}.{fmt.split('_')[-1]}"
+    rel = f"images/query_{fmt}.{'webp' if fmt.startswith('webp') else fmt.split('_')[-1]}"
     with open(os.path.join(trees.mbeir, rel), "wb") as f:
         f.write(data)
     ours, ref = _retrievers(trees)

@@ -1,5 +1,6 @@
 """Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`,
-`csrc/png.cu` and `csrc/gif.cu`) at first use and load them with ctypes.
+`csrc/png.cu`, `csrc/gif.cu` and `csrc/webp.cu`) at first use and load them
+with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -67,6 +68,10 @@ SIGNATURES = {
     },
     "gif": {
         "uniir_gif_decode": (_P, _S, _S, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I),
+    },
+    "webp": {
+        "uniir_webp_info": (_P, _S, _P, _P, _I),
+        "uniir_webp_decode": (_P, _S, _P, _I, _I, _P, _I),
     },
     "topk": {
         "uniir_bucket_max_bf16": (_P, _P, _P, _I, _I, _I, _I, _P),

@@ -1,6 +1,6 @@
 """Image decoding with Pillow's pixels, without Pillow: baseline and
-progressive JPEG here; PNG (`data.png`), GIF (`data.gif`) and BMP
-(`data.bmp`) picked by the file's signature in `read_image`.
+progressive JPEG here; PNG (`data.png`), GIF (`data.gif`), BMP (`data.bmp`)
+and WebP (`data.webp`) picked by the file's signature in `read_image`.
 
 M-BEIR stores its images as JPEG files that Pillow wrote, and the JAX
 package reads any image with `PIL.Image.open(path).convert("RGB")`, which
@@ -54,9 +54,11 @@ the native decoder, a CPU run the twin; a native library that does not
 build or load raises.
 
 `read_image` reads a file by its first bytes, never by its name: JPEG
-(FF D8), PNG (the eight-byte PNG signature), GIF (GIF87a / GIF89a) and BMP
-(BM) are decoded; WebP, TIFF and anything else raise ValueError naming the
-file and the format found.
+(FF D8), PNG (the eight-byte PNG signature), GIF (GIF87a / GIF89a), BMP
+(BM) and WebP (RIFF / WEBP with a first chunk `VP8 `, `VP8L` or `VP8X`, as
+Pillow's `_accept` takes it) are decoded; TIFF and anything else (a RIFF /
+WEBP file with another first chunk too) raise ValueError naming the file
+and the format found.
 """
 
 from __future__ import annotations
@@ -67,7 +69,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-from uniir_tpu_torch.data import bmp, gif, png
+from uniir_tpu_torch.data import bmp, gif, png, webp
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -729,7 +731,7 @@ _REFUSED = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 
 def image_format(data: bytes) -> str:
     """The format a file's first bytes name: "jpeg", "png", "gif", "bmp",
-    or the name of a format that is not decoded ("WebP", "TIFF", "unknown")."""
+    "webp", or the name of a format that is not decoded ("TIFF", "unknown")."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
@@ -738,15 +740,15 @@ def image_format(data: bytes) -> str:
         return "gif"
     if data[:2] == bmp.SIGNATURE:
         return "bmp"
-    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        return "WebP"
+    if webp.accepts(data):
+        return "webp"
     return next((label for magic, label in _REFUSED if data.startswith(magic)), "unknown")
 
 
 def read_image(path: str, device) -> np.ndarray:
-    """uint8 [H, W, 3] of the JPEG, PNG, GIF or BMP file at `path`, told
-    apart by its signature and decoded as a run on `device` decodes (BMP has
-    one decoder, numpy)."""
+    """uint8 [H, W, 3] of the JPEG, PNG, GIF, BMP or WebP file at `path`,
+    told apart by its signature and decoded as a run on `device` decodes
+    (BMP has one decoder, numpy)."""
     with open(path, "rb") as f:
         data = f.read()
     kind = image_format(data)
@@ -758,4 +760,6 @@ def read_image(path: str, device) -> np.ndarray:
         return gif.decoder_for(device)(data, path)
     if kind == "bmp":
         return bmp.decode(data, path)
-    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG, PNG, GIF and BMP files are decoded")
+    if kind == "webp":
+        return webp.decoder_for(device)(data, path)
+    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG, PNG, GIF, BMP and WebP files are decoded")
