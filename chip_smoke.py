@@ -221,6 +221,7 @@ import json
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -335,6 +336,76 @@ JPEG_CASE_FORMS = (("cmyk", None), ("cmyk", [(2, 2), (1, 1), (1, 1), (2, 2)]), (
                    ("rgb_ids", [(1, 1), (2, 1), (1, 1)]))
 
 
+# the TIFF writer's forms of the decoder phase: (samples kind, tiff_bytes keywords); sizes from the case
+TIFF_CASE_FORMS = {
+    "lzw_rgb_strips": ("rgb", dict(photometric=2, compression=5, rows_per_strip=16)),
+    "lzw_predictor2": ("rgb", dict(photometric=2, compression=5, predictor=2, rows_per_strip=8)),
+    "lzw_compat_grey": ("grey", dict(photometric=1, compression=5, lzw_compat=True)),
+    "deflate_tiles_mm": ("rgb", dict(photometric=2, compression=8, tile=(32, 16), order="MM")),
+    "packbits_palette4": ("index4", dict(photometric=3, compression=32773, bits=4, colormap=True, rows_per_strip=5)),
+    "raw_planar_bigtiff": ("rgb", dict(photometric=2, compression=1, planar=2, bigtiff=True, rows_per_strip=9)),
+    "lzw_planar_rgba_assoc": ("rgba", dict(photometric=2, compression=5, planar=2, extra=(1,))),
+    "jpeg_ycbcr": ("rgb", dict(photometric=6, compression=7, rows_per_strip=16)),
+    "jpeg_grey_tiles": ("grey", dict(photometric=1, compression=7, tile=(16, 32))),
+    "ccitt_rle": ("bilevel", dict(photometric=0, compression=2, bits=1, rows_per_strip=24)),
+    "ccitt_g3_fillorder2": ("bilevel", dict(photometric=1, compression=3, bits=1, fillorder=2, t4options=4)),
+    "lzw_bilevel": ("bilevel", dict(photometric=0, compression=5, bits=1, rows_per_strip=33)),
+    "deflate_float_predictor3": ("float", dict(photometric=1, compression=8, predictor=3, rows_per_strip=12)),
+    "lzw_rgb16_mm_orientation6": ("rgb16", dict(photometric=2, compression=5, order="MM", orientation=6)),
+    "packbits_cmyk_orientation3": ("rgba", dict(photometric=5, compression=32773, orientation=3)),
+}
+# the JPEG forms of the decoder phase: SOF1, arithmetic sequential / progressive, lossless, and progressive
+# arithmetic files cut after a scan (smoothed)
+JPEG_FORM_CASE_FORMS = ("sof1", "arith_420", "arith_444_restart_dac", "arith_progressive", "arith_cmyk_progressive",
+                        "lossless_grey", "lossless_rgb_restart", "smoothed_arith")
+
+
+def tiff_case(form: str, rng, w: int, h: int) -> bytes:
+    """A seeded TIFF of one of TIFF_CASE_FORMS: a smooth field with noise (LZW and PackBits find runs in it)."""
+    kind, kw = TIFF_CASE_FORMS[form]
+    yy, xx = np.mgrid[0:h, 0:w]
+    field = np.stack([(xx * (3 + c) + yy * (2 + 2 * c) + 40 * c) % 256 for c in range(4)], axis=2)
+    img = np.clip(field + rng.normal(0, 6, field.shape), 0, 255).astype(np.uint8)
+    samples = {"rgb": img[..., :3], "rgba": img, "grey": img[..., :1],
+               "index4": img[..., :1] >> 4, "bilevel": (img[..., :1] > 127).astype(np.uint8),
+               "float": (img[..., :1].astype(np.float32) * 1.5 - 40),
+               "rgb16": img[..., :3].astype(np.uint16) * 257 + rng.integers(0, 256, img[..., :3].shape).astype(np.uint16)}[kind]
+    kw = dict(kw)
+    if kw.pop("colormap", False):
+        kw["colormap"] = [int(v) for v in rng.integers(0, 65536, 3 << kw["bits"])]
+    return tiff_bytes(samples, **kw)
+
+
+def jpeg_form_case(form: str, rng, w: int, h: int) -> bytes:
+    """A seeded JPEG of one of JPEG_FORM_CASE_FORMS."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    field = np.stack([(xx * (3 + c) + yy * (2 + 2 * c) + 40 * c) % 256 for c in range(4)], axis=2)
+    img = np.clip(field + rng.normal(0, 8, field.shape), 0, 255).astype(np.uint8)
+    q = int(rng.integers(30, 96))
+    if form == "sof1":
+        data = jpeg_bytes(img[..., :3], q, restart=int(rng.choice([0, 3])))
+        at = data.index(b"\xff\xc0")
+        return data[:at + 1] + b"\xc1" + data[at + 2:]
+    if form == "arith_420":
+        return jpeg_bytes(img[..., :3], q, coding="arithmetic")
+    if form == "arith_444_restart_dac":
+        return jpeg_bytes(img[..., :3], q, sampling=(1, 1), restart=int(rng.integers(1, 6)), coding="arithmetic",
+                          dac={0: (1, 4, 3), 1: (0, 2, 9)})
+    if form == "arith_progressive":
+        return jpeg_bytes(img[..., :3], q, coding="arithmetic", progressive=True, restart=int(rng.choice([0, 4])))
+    if form == "arith_cmyk_progressive":
+        return jpeg_bytes(img, q, form="cmyk", coding="arithmetic", progressive=True)
+    if form == "lossless_grey":
+        return jpeg_bytes(img[..., 0], coding="lossless", predictor=int(rng.integers(1, 8)),
+                          point_transform=int(rng.integers(0, 3)))
+    if form == "lossless_rgb_restart":
+        return jpeg_bytes(img[..., :3], form="rgb", coding="lossless", predictor=int(rng.integers(1, 8)),
+                          restart=int(rng.integers(1, 4)))
+    data = jpeg_bytes(img[..., :3], q, coding="arithmetic", progressive=True)  # smoothed_arith
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return data[: sos[int(rng.integers(1, len(sos)))]] + b"\xff\xd9"
+
+
 def decoder_case(job: tuple) -> tuple:
     """(file bytes, sha256 of the twin decoder's pixels) of seeded case k of `kind`: a GIF of one of
     GIF_CASE_FORMS (indices in runs and noise, so the LZW table fills), a JPEG of one of JPEG_CASE_FORMS
@@ -342,16 +413,23 @@ def decoder_case(job: tuple) -> tuple:
     WEBP_CASE_FORMS (`webp_bytes`); a worker of the decoder phase's pool."""
     import hashlib
 
-    from uniir_tpu_torch.data import gif, jpeg, webp
+    from uniir_tpu_torch.data import gif, jpeg, tiff, webp
 
     kind, k = job
-    rng = np.random.default_rng(SEED + 7000 + k + {"gif": 0, "jpeg": 100_000, "webp": 200_000}[kind])
+    rng = np.random.default_rng(SEED + 7000 + k + {"gif": 0, "jpeg": 100_000, "webp": 200_000, "tiff": 300_000,
+                                                   "jpeg_forms": 400_000}[kind])
     w, h = int(rng.integers(1, 601)), int(rng.integers(1, 601))
-    if kind == "webp" and k % 4:  # three cases in four log-uniform over 1-600 px: the Python writer and twin
-        w, h = int(round(600 ** rng.random())), int(round(600 ** rng.random()))  # are slow on the largest
+    if kind in ("webp", "tiff", "jpeg_forms") and k % 4:  # three cases in four log-uniform over 1-600 px: the
+        w, h = int(round(600 ** rng.random())), int(round(600 ** rng.random()))  # Python twins are slow at 600
     if kind == "webp":
         data = webp_bytes(WEBP_CASE_FORMS[k % len(WEBP_CASE_FORMS)], SEED + 9000 + k, w, h)
         return data, hashlib.sha256(webp.decode_twin(data).tobytes()).hexdigest()
+    if kind == "tiff":
+        data = tiff_case(list(TIFF_CASE_FORMS)[k % len(TIFF_CASE_FORMS)], rng, w, h)
+        return data, hashlib.sha256(tiff.decode_twin(data).tobytes()).hexdigest()
+    if kind == "jpeg_forms":
+        data = jpeg_form_case(JPEG_FORM_CASE_FORMS[k % len(JPEG_FORM_CASE_FORMS)], rng, w, h)
+        return data, hashlib.sha256(jpeg.decode_twin(data).tobytes()).hexdigest()
     if kind == "gif":
         form = GIF_CASE_FORMS[k % len(GIF_CASE_FORMS)]
         n_colors = int(rng.integers(1, 257))
@@ -393,35 +471,40 @@ def decoder_case(job: tuple) -> tuple:
 
 def check_decoders(smi: str) -> None:
     """The decoder phase: the native GIF decoder (csrc/gif.cu), the native JPEG decoder's CMYK, YCCK and RGB
-    forms (csrc/jpeg.cu) and the native WebP decoder (csrc/webp.cu) held bit-equal to their twins over
-    DECODER_CASES seeded files each, sizes 1-600 px (the twins run in a spawn pool), the WebP decoders also
-    to Pillow's digests of WEBP_PILLOW_FILES; the native decoders' images/s on one thread and on the
-    loader's threads (the shipped embed.yaml's num_workers), beside the card's name and power limit and the
-    host CPU."""
+    forms and its SOF1, arithmetic, lossless and smoothed forms (csrc/jpeg.cu), the native WebP decoder
+    (csrc/webp.cu) and the native TIFF decoder (csrc/tiff.cu with the JPEG strips through csrc/jpeg.cu) held
+    bit-equal to their twins over DECODER_CASES seeded files each, sizes 1-600 px (the twins run in a spawn
+    pool), the WebP, TIFF and JPEG-form decoders also to Pillow's digests of WEBP_PILLOW_FILES,
+    TIFF_PILLOW_FILES and JPEG_FORM_PILLOW_FILES; the native decoders' images/s and Mpixel/s on one thread and
+    on the loader's threads (the shipped embed.yaml's num_workers), beside the card's name and power limit and
+    the host CPU."""
     import hashlib
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
     from uniir_tpu_torch.core.config import load_config
-    from uniir_tpu_torch.data import gif, jpeg, webp
+    from uniir_tpu_torch.data import gif, jpeg, tiff, webp
 
     t_phase = time.perf_counter()
     threads = int(load_config(str(REPO / P12_CONFIGS["embed"])).dataloader_config.num_workers)
-    kinds = ("gif", "jpeg", "webp")
+    kinds = ("gif", "jpeg", "webp", "tiff", "jpeg_forms")
     with ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=multiprocessing.get_context("spawn")) as pool:
         cases = {kind: list(pool.map(decoder_case, [(kind, k) for k in range(DECODER_CASES)], chunksize=2))
                  for kind in kinds}
-    log(f"decoder phase: {DECODER_CASES} GIF, JPEG and WebP files each written and decoded by the twins in "
-        f"{time.perf_counter() - t_phase:.1f} s")
-    for name, (b64, digest, w, h) in WEBP_PILLOW_FILES.items():
-        data = base64.b64decode(b64)
-        for fn in (webp.decode_twin, webp.decode_native):
-            got = fn(data, name)
-            check(got.shape == (h, w, 3) and hashlib.sha256(got.tobytes()).hexdigest() == digest,
-                  f"decoder phase: {fn.__name__} differs from Pillow's pixels of {name}")
-    log(f"decoder phase: both WebP decoders equal to Pillow's digests on the {len(WEBP_PILLOW_FILES)} Pillow-made "
-        f"files ({', '.join(WEBP_PILLOW_FILES)})")
-    for kind, native in (("gif", gif.decode_native), ("jpeg", jpeg.decode_native), ("webp", webp.decode_native)):
+    log(f"decoder phase: {DECODER_CASES} GIF, JPEG, WebP, TIFF and SOF1 / arithmetic / lossless / smoothed JPEG "
+        f"files each written and decoded by the twins in {time.perf_counter() - t_phase:.1f} s")
+    for files, module, label in ((WEBP_PILLOW_FILES, webp, "WebP"), (TIFF_PILLOW_FILES, tiff, "TIFF"),
+                                 (JPEG_FORM_PILLOW_FILES, jpeg, "JPEG-form")):
+        for name, (b64, digest, w, h) in files.items():
+            data = base64.b64decode(b64)
+            for fn in (module.decode_twin, module.decode_native):
+                got = fn(data, name)
+                check(got.shape == (h, w, 3) and hashlib.sha256(got.tobytes()).hexdigest() == digest,
+                      f"decoder phase: {module.__name__}.{fn.__name__} differs from Pillow's pixels of {name}")
+        log(f"decoder phase: both {label} decoders equal to Pillow's digests on the {len(files)} Pillow-made "
+            f"files ({', '.join(files)})")
+    for kind, native in (("gif", gif.decode_native), ("jpeg", jpeg.decode_native), ("webp", webp.decode_native),
+                         ("tiff", tiff.decode_native), ("jpeg_forms", jpeg.decode_native)):
         files = [data for data, _ in cases[kind]]
         calls = native.calls
         t0 = time.perf_counter()
@@ -437,21 +520,22 @@ def check_decoders(smi: str) -> None:
                   if hashlib.sha256(out.tobytes()).hexdigest() != digest]
         check(not differ, f"decoder phase: the native {kind} decoder differs from its twin on cases {differ[:5]}")
         pixels = sum(out.shape[0] * out.shape[1] for out in outs)
-        forms = {"gif": GIF_CASE_FORMS, "jpeg": sorted({f for f, _ in JPEG_CASE_FORMS}), "webp": WEBP_CASE_FORMS}[kind]
+        forms = {"gif": GIF_CASE_FORMS, "jpeg": sorted({f for f, _ in JPEG_CASE_FORMS}), "webp": WEBP_CASE_FORMS,
+                 "tiff": tuple(TIFF_CASE_FORMS), "jpeg_forms": JPEG_FORM_CASE_FORMS}[kind]
         log(f"decoder phase: native {kind} bit-equal to its twin on {len(files)} files ({', '.join(forms)}; "
             f"{pixels / len(files):.0f} pixels a file on average); {one_thread:.1f} images/s "
             f"({pixels * one_thread / len(files) / 1e6:.2f} Mpixel/s) on one thread, {many:.1f} images/s on the "
             f"loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
-        if kind == "webp":
-            for form in WEBP_CASE_FORMS:
-                sel = [k for k in range(len(files)) if WEBP_CASE_FORMS[k % len(WEBP_CASE_FORMS)] == form]
+        if kind in ("webp", "tiff", "jpeg_forms"):
+            for form in forms:
+                sel = [k for k in range(len(files)) if forms[k % len(forms)] == form]
                 t0 = time.perf_counter()
                 for k in sel:
                     native(files[k])
                 dt = time.perf_counter() - t0
                 px = sum(outs[k].shape[0] * outs[k].shape[1] for k in sel)
-                log(f"decoder phase: native WebP {form}: {len(sel) / dt:.1f} images/s, {px / dt / 1e6:.2f} Mpixel/s "
-                    f"on one thread ({px / len(sel):.0f} pixels a file)")
+                log(f"decoder phase: native {kind} {form}: {len(sel) / dt:.1f} images/s, {px / dt / 1e6:.2f} "
+                    f"Mpixel/s on one thread ({px / len(sel):.0f} pixels a file)")
     log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2731,16 +2815,16 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
-TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha")
+TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith")
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
 
 
 def swapped_decoders():
     """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call);
     call the result to swap them back."""
-    from uniir_tpu_torch.data import gif, jpeg, png, webp
+    from uniir_tpu_torch.data import gif, jpeg, png, tiff, webp
 
-    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, webp)]
+    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp)]
     for module, _ in saved:
         module.decoder_for = lambda device, module=module: module.decode_twin
 
@@ -2754,11 +2838,11 @@ def swapped_decoders():
 def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, index, cands: list, form: str, seed: int,
                       per_batch: int) -> None:
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
-    lossy WebP, a lossless WebP with alpha) through the interactive retriever: the native decoder (GIF / JPEG /
-    WebP; BMP has one decoder), K1, K2; held to
+    lossy WebP, a lossless WebP with alpha, an LZW TIFF, an arithmetic-coded progressive JPEG) through the
+    interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF; BMP has one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
-    from uniir_tpu_torch.data import gif, jpeg, webp
+    from uniir_tpu_torch.data import gif, jpeg, tiff, webp
     from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
 
     root = str(WORK)
@@ -2766,7 +2850,8 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     path = os.path.join(root, "mbeir_data", rel)
     Path(path).write_bytes(fixture_file(form, seed))
     native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native, "webp_lossy": webp.decode_native,
-              "webp_lossless_alpha": webp.decode_native}.get(form)
+              "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native,
+              "jpeg_arith": jpeg.decode_native}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -3602,11 +3687,13 @@ P12_TRANSFORM_SAMPLE = 100  # images BLIP's train transform is timed on
 P12_FORMS = {
     "cand": {1: "png_rgb", 2: "png_palette", 4: "png_grey", 5: "png_rgba", 7: "png_rgb16", 8: "progressive_420_q75",
              10: "progressive_444_q75_restart5", 11: "progressive_grey_q75", 13: "gif", 14: "bmp", 16: "jpeg_cmyk",
-             17: "jpeg_ycck", 19: "jpeg_rgb", 20: "webp_lossy", 22: "webp_lossless_alpha", 23: "webp_alpha"},
+             17: "jpeg_ycck", 19: "jpeg_rgb", 20: "webp_lossy", 22: "webp_lossless_alpha", 23: "webp_alpha",
+             25: "tiff", 26: "jpeg_arith"},
     "query": {2: "png_rgb", 6: "progressive_420_q75", 10: "png_grey", 14: "gif", 18: "bmp", 22: "jpeg_cmyk",
-              26: "webp_lossy", 30: "webp_lossless_alpha", 34: "webp_alpha"},
+              26: "webp_lossy", 30: "webp_lossless_alpha", 34: "webp_alpha", 38: "tiff", 42: "jpeg_arith"},
     "train": {2: "png_palette", 6: "png_rgb16", 10: "progressive_444_q75_restart5", 14: "png_rgba",
-              18: "progressive_grey_q75", 22: "webp_lossy", 26: "webp_lossless_alpha", 30: "webp_alpha"},
+              18: "progressive_grey_q75", 22: "webp_lossy", 26: "webp_lossless_alpha", 30: "webp_alpha", 34: "tiff",
+              38: "jpeg_arith"},
 }
 IMAGE_SHORT_SIDE = 256  # the M-BEIR construction's short side (uniir_tpu/data/registry.py)
 P12_DATASET, P12_POOL, P12_DSID = "mscoco_task0", "mscoco_task0_test", 9  # as the shipped configs name them
@@ -3683,6 +3770,349 @@ def pack_bits(codes: np.ndarray, lengths: np.ndarray) -> bytes:
     return np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0).tobytes()
 
 
+class ArithEncoder:
+    """jcarith.c's QM encoder (T.81 Annex D): `encode(stats, index, bit)`, `finish()` -> the stuffed bytes."""
+
+    def __init__(self):
+        self.out, self.c, self.a, self.sc, self.zc, self.ct, self.buffer = bytearray(), 0, 0x10000, 0, 0, 11, -1
+
+    def _emit(self, byte: int) -> None:
+        self.out.append(byte)
+        if byte == 0xFF:
+            self.out.append(0)
+
+    def _flush_zeros(self) -> None:
+        self.out += b"\x00" * self.zc
+        self.zc = 0
+
+    def _byte_out(self, temp: int) -> None:
+        if temp > 0xFF:  # a carry over all stacked 0xFF bytes
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+            self.buffer = temp & 0xFF
+        elif temp == 0xFF:
+            self.sc += 1
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._flush_zeros()
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+            self.buffer = temp & 0xFF
+
+    def encode(self, st: bytearray, i: int, val: int) -> None:
+        from uniir_tpu_torch.data.jpeg import ARITAB
+
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        self.a -= qe
+        if val != sv >> 7:  # the less probable symbol
+            if self.a >= qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nl
+        else:
+            if self.a >= 0x8000:
+                return
+            if self.a < qe:
+                self.c += self.a
+                self.a = qe
+            st[i] = (sv & 0x80) ^ nm
+        while True:  # renormalisation and output (D.1.6)
+            self.a <<= 1
+            self.c <<= 1
+            self.ct -= 1
+            if self.ct == 0:
+                self._byte_out(self.c >> 19)
+                self.c &= 0x7FFFF
+                self.ct += 8
+            if self.a >= 0x8000:
+                break
+
+    def finish(self) -> bytes:
+        temp = (self.a - 1 + self.c) & 0xFFFF0000
+        self.c = temp + 0x8000 if temp < self.c else temp
+        self.c <<= self.ct
+        if self.c & 0xF8000000:
+            if self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer + 1)
+            self.zc += self.sc
+            self.sc = 0
+        else:
+            if self.buffer == 0:
+                self.zc += 1
+            elif self.buffer >= 0:
+                self._flush_zeros()
+                self._emit(self.buffer)
+            if self.sc:
+                self._flush_zeros()
+                self.out += b"\xff\x00" * self.sc
+                self.sc = 0
+        if self.c & 0x7FFF800:
+            self._flush_zeros()
+            self._emit((self.c >> 19) & 0xFF)
+            if self.c & 0x7F800:
+                self._emit((self.c >> 11) & 0xFF)
+        return bytes(self.out)
+
+
+def _arith_value(enc: ArithEncoder, st: bytearray, v: int, first: int, wide_from: int) -> None:
+    """F.8 / F.9 for |v| - 1 = `v` (> 0 done by the caller's nonzero decision): the magnitude category from
+    bin `first` (then `wide_from`), then its bits from 14 bins further."""
+    m = 0
+    p = first
+    if v:
+        enc.encode(st, p, 1)
+        m, v2 = 1, v
+        v2 >>= 1
+        if wide_from is None:  # DC: the category ladder starts at bin 20
+            p = 20
+            while v2:
+                enc.encode(st, p, 1)
+                m <<= 1
+                p += 1
+                v2 >>= 1
+        elif v2:
+            enc.encode(st, p, 1)
+            m <<= 1
+            p = wide_from
+            v2 >>= 1
+            while v2:
+                enc.encode(st, p, 1)
+                m <<= 1
+                p += 1
+                v2 >>= 1
+    enc.encode(st, p, 0)
+    p += 14
+    m >>= 1
+    while m:
+        enc.encode(st, p, 1 if m & v else 0)
+        m >>= 1
+
+
+def _arith_dc(enc: ArithEncoder, st: bytearray, ctx: int, diff: int, lo: int, hi: int) -> int:
+    """Encode_DC_DIFF (F.4): returns the next conditioning context."""
+    if diff == 0:
+        enc.encode(st, ctx, 0)
+        return 0
+    enc.encode(st, ctx, 1)
+    sign = diff < 0
+    enc.encode(st, ctx + 1, int(sign))
+    v = abs(diff) - 1
+    m = 1 << v.bit_length() >> 1 if v else 0  # the category's top bit, as the ladder leaves m
+    _arith_value(enc, st, v, ctx + 2 + sign, None)
+    return 0 if m < (1 << lo) >> 1 else (12 if m > (1 << hi) >> 1 else 4) + 4 * sign
+
+
+def _arith_ac(enc: ArithEncoder, st: bytearray, fixed: bytearray, vals: list, ss: int, se: int, kx: int) -> None:
+    """Encode_AC_Coefficients (F.5) of one block's zigzag values (point-transformed) over ss..se."""
+    ke = se
+    while ke >= ss and not vals[ke]:
+        ke -= 1
+    k = ss
+    while k <= ke:
+        p = 3 * (k - 1)
+        enc.encode(st, p, 0)
+        while not vals[k]:
+            enc.encode(st, p + 1, 0)
+            p += 3
+            k += 1
+        enc.encode(st, p + 1, 1)
+        enc.encode(fixed, 0, int(vals[k] < 0))
+        _arith_value(enc, st, abs(vals[k]) - 1, p + 2, 189 if k <= kx else 217)
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def _arith_ac_refine(enc: ArithEncoder, st: bytearray, fixed: bytearray, full: list, ss: int, se: int, ah: int,
+                     al: int) -> None:
+    """Encode_AC_Coefficients_SA (G.10): one block's zigzag values `full` refined from Ah to Al."""
+    def shifted(v, a):
+        return v >> a if v >= 0 else -((-v) >> a)
+
+    ke = se
+    while ke > 0 and not shifted(full[ke], al):
+        ke -= 1
+    kex = ke
+    while kex > 0 and not shifted(full[kex], ah):
+        kex -= 1
+    k = ss
+    while k <= ke:
+        p = 3 * (k - 1)
+        if k > kex:
+            enc.encode(st, p, 0)
+        while True:
+            v = abs(full[k]) >> al
+            if v:
+                if v >> 1:  # already nonzero: its next bit
+                    enc.encode(st, p + 2, v & 1)
+                else:
+                    enc.encode(st, p + 1, 1)
+                    enc.encode(fixed, 0, int(full[k] < 0))
+                break
+            enc.encode(st, p + 1, 0)
+            p += 3
+            k += 1
+        k += 1
+    if k <= se:
+        enc.encode(st, 3 * (k - 1), 1)
+
+
+def jpeg_arith_bytes(comps: list, order: list, factors: list, ids, tq, tables, jfif: bool, adobe, restart: int,
+                     progressive: bool, dac: dict, w_img: int, h_img: int, n_mcus: int) -> bytes:
+    """The arithmetic-coded file of `jpeg_bytes`'s quantised zigzag blocks (SOF9, or SOF10 in libjpeg's
+    jpeg_simple_progression for 3 components and one DC / AC-band / refinement script otherwise)."""
+    nc = len(comps)
+    cond = [(dac.get(t, (0, 1, 5))) for t in range(16)]
+    per_mcu = len(order) // n_mcus
+    if not progressive:
+        script = [(list(range(nc)), 0, 63, 0, 0)]
+    elif nc == 3:
+        script = [([0, 1, 2], 0, 0, 0, 1), ([0], 1, 5, 0, 2), ([2], 1, 63, 0, 1), ([1], 1, 63, 0, 1),
+                  ([0], 6, 63, 0, 2), ([0], 1, 63, 2, 1), ([0, 1, 2], 0, 0, 1, 0), ([2], 1, 63, 1, 0),
+                  ([1], 1, 63, 1, 0), ([0], 1, 63, 1, 0)]
+    else:
+        script = ([(list(range(nc)), 0, 0, 0, 1)] + [([c], 1, 5, 0, 2) for c in range(nc)]
+                  + [([c], 6, 63, 0, 1) for c in range(nc)] + [([c], 1, 5, 2, 1) for c in range(nc)]
+                  + [(list(range(nc)), 0, 0, 1, 0)] + [([c], 1, 63, 1, 0) for c in range(nc)])
+
+    def shifted(v, a):
+        return v >> a if v >= 0 else -((-v) >> a)
+
+    scans = b""
+    for comp_list, ss, se, ah, al in script:
+        if len(comp_list) > 1 or not progressive:
+            units = [[(c, r, q) for c, r, q in order[m * per_mcu: (m + 1) * per_mcu] if c in comp_list]
+                     for m in range(n_mcus)]
+        else:
+            c = comp_list[0]
+            h, v = factors[c]
+            hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+            cw, ch = -(-w_img * h // hmax), -(-h_img * v // vmax)
+            units = [[(c, r, q)] for r in range(-(-ch // 8)) for q in range(-(-cw // 8))]
+        segs, enc = [], None
+        for m, unit in enumerate(units):
+            if m % (restart or len(units)) == 0:
+                if enc is not None:
+                    segs.append(enc.finish())
+                enc, fixed = ArithEncoder(), bytearray([113])
+                dc_st = {t: bytearray(64) for t in range(16)}
+                ac_st = {t: bytearray(256) for t in range(16)}
+                last, ctx = [0] * nc, [0] * nc
+            for c, r, q in unit:
+                zz = comps[c][r, q].tolist()
+                t = tq[c]
+                if ss == 0 and ah == 0:
+                    val = zz[0] >> al
+                    ctx[c] = _arith_dc(enc, dc_st[t], ctx[c], val - last[c], cond[t][0], cond[t][1])
+                    last[c] = val
+                elif ss == 0:
+                    enc.encode(fixed, 0, (zz[0] >> al) & 1)
+                if se and ah == 0:
+                    _arith_ac(enc, ac_st[t], fixed, [shifted(x, al) for x in zz], max(ss, 1), se, cond[t][2])
+                elif se:
+                    _arith_ac_refine(enc, ac_st[t], fixed, zz, ss, se, ah, al)
+        segs.append(enc.finish())
+        data = b"".join(seg + (bytes([0xFF, 0xD0 + k % 8]) if k + 1 < len(segs) else b"")
+                        for k, seg in enumerate(segs))
+        sos = bytes([len(comp_list)]) + b"".join(bytes([ids[c], 0x11 * tq[c]]) for c in comp_list)
+        scans += _jpeg_segment(0xDA, sos + bytes([ss, se, (ah << 4) | al])) + data
+
+    out = b"\xff\xd8" + (_jpeg_segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") if jfif else b"")
+    if adobe is not None:
+        out += _jpeg_segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    for t in sorted(set(tq)):
+        out += _jpeg_segment(0xDB, bytes([t]) + bytes(tables[t][JPEG_ZIGZAG].astype(np.uint8)))
+    sof = bytes([8]) + h_img.to_bytes(2, "big") + w_img.to_bytes(2, "big") + bytes([nc])
+    for c, (h, v) in enumerate(factors):
+        sof += bytes([ids[c], (h << 4) | v, tq[c]])
+    out += _jpeg_segment(0xCA if progressive else 0xC9, sof)
+    if dac:
+        out += _jpeg_segment(0xCC, b"".join(bytes([t, (u << 4) | lo, 16 + t, kx]) for t, (lo, u, kx) in dac.items()))
+    if restart:
+        out += _jpeg_segment(0xDD, restart.to_bytes(2, "big"))
+    return out + scans + b"\xff\xd9"
+
+
+def _jpeg_segment(marker: int, payload: bytes) -> bytes:
+    return bytes([0xFF, marker]) + (len(payload) + 2).to_bytes(2, "big") + payload
+
+
+# one Huffman table of the 17 difference categories of lossless JPEG, every code 5 bits long
+JPEG_LOSSLESS_DHT = bytes([0, 0, 0, 0, 0, 17] + [0] * 11 + list(range(17)))
+
+
+def jpeg_lossless_bytes(planes: list, factors: list, ids, jfif: bool, adobe, restart_rows: int, predictor: int,
+                        pt: int) -> bytes:
+    """A lossless JPEG (SOF3) of `planes` (float, rounded to 8-bit samples, one interleaved scan): each sample
+    >> pt predicted as jdlossls.c undoes it (the first row and each restart interval's first row from the
+    left, starting at 2^(7 - pt); the first column from above), the differences modulo 2^16 Huffman-coded
+    with JPEG_LOSSLESS_DHT; a restart every `restart_rows` MCU rows."""
+    h_img, w_img = planes[0].shape
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcux, mcuy = -(-w_img // hmax), -(-h_img // vmax)
+    code_of, len_of = huffman_codes(JPEG_LOSSLESS_DHT)
+    diffs = []
+    for plane, (h, v) in zip(planes, factors):
+        fx, fy = hmax // h, vmax // v
+        px = np.clip(np.rint(plane), 0, 255).astype(np.int64)
+        px = np.pad(px, ((0, mcuy * vmax - h_img), (0, mcux * hmax - w_img)), mode="edge")
+        px = px.reshape(px.shape[0] // fy, fy, px.shape[1] // fx, fx)[:, 0, :, 0] >> pt
+        cw, ch = -(-w_img * h // hmax), -(-h_img * v // vmax)
+        d = np.zeros_like(px)
+        for y in range(ch):
+            first = y == 0 or (restart_rows and y % (restart_rows * v) == 0)
+            for x in range(cw):
+                ra = px[y, x - 1] if x else None
+                if first:
+                    pred = (1 << (7 - pt)) if x == 0 else ra
+                elif x == 0:
+                    pred = px[y - 1, 0]
+                else:
+                    rb, rc = px[y - 1, x], px[y - 1, x - 1]
+                    pred = [None, ra, rb, rc, ra + rb - rc, ra + ((rb - rc) >> 1), rb + ((ra - rc) >> 1),
+                            (ra + rb) >> 1][predictor]
+                d[y, x] = (px[y, x] - pred) & 0xFFFF
+        diffs.append(d)
+    units = [[(c, r * v + y, q * h + x) for c, (h, v) in enumerate(factors) for y in range(v) for x in range(h)]
+             for r in range(mcuy) for q in range(mcux)]
+    interval = restart_rows * mcux if restart_rows else len(units)
+    segs = []
+    for k in range(0, len(units), interval):
+        codes, lengths = [], []
+        for unit in units[k: k + interval]:
+            for c, r, q in unit:
+                dv = int(diffs[c][r, q])
+                dv = dv - 65536 if dv > 32768 else dv
+                s = 16 if dv == 32768 else (abs(dv).bit_length())
+                extra = 0 if s in (0, 16) else (dv if dv >= 0 else dv + (1 << s) - 1)
+                codes.append((int(code_of[s]) << (0 if s == 16 else s)) | extra)
+                lengths.append(int(len_of[s]) + (0 if s == 16 else s))
+        segs.append(pack_bits(np.array(codes, np.int64), np.array(lengths, np.int64)))
+    data = b"".join(seg + (bytes([0xFF, 0xD0 + k % 8]) if k + 1 < len(segs) else b"") for k, seg in enumerate(segs))
+    out = b"\xff\xd8" + (_jpeg_segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00") if jfif else b"")
+    if adobe is not None:
+        out += _jpeg_segment(0xEE, b"Adobe\x00\x64\x00\x00\x00\x00" + bytes([adobe]))
+    sof = bytes([8]) + h_img.to_bytes(2, "big") + w_img.to_bytes(2, "big") + bytes([len(planes)])
+    for c, (h, v) in enumerate(factors):
+        sof += bytes([ids[c], (h << 4) | v, 0])
+    out += _jpeg_segment(0xC3, sof) + _jpeg_segment(0xC4, JPEG_LOSSLESS_DHT)
+    if restart_rows:
+        out += _jpeg_segment(0xDD, interval.to_bytes(2, "big"))
+    sos = bytes([len(planes)]) + b"".join(bytes([ids[c], 0x00]) for c in range(len(planes)))
+    return out + _jpeg_segment(0xDA, sos + bytes([predictor, 0, pt])) + data + b"\xff\xd9"
+
+
 # the colour forms the writer takes beyond YCbCr / grey: (component ids, quantisation and Huffman table of each,
 # Adobe APP14 transform or None, JFIF); libjpeg's jpeg_set_colorspace writes RGB and CMYK with ids 'R' 'G' 'B' /
 # 'C' 'M' 'Y' 'K', table 0 for every component and an Adobe marker, YCCK with ids 1-4, tables 0, 1, 1, 0
@@ -3696,7 +4126,8 @@ JPEG_FORMS = {
 
 
 def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: int = 0, form: str = "ycbcr",
-               factors=None) -> bytes:
+               factors=None, coding: str = "huffman", progressive: bool = False, dac: dict = None,
+               predictor: int = 1, point_transform: int = 0) -> bytes:
     """A baseline JPEG of uint8 [H, W, 3] (YCbCr, the luma sampled `sampling` = (h, v) times as finely as
     the chroma) or [H, W] (greyscale), in the form Pillow writes at its defaults: JFIF, Annex K tables
     scaled to `quality`, one interleaved scan; `restart` MCUs between RSTn markers (0: none).
@@ -3706,7 +4137,12 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
     is, and "ycck" (Adobe transform 2) stores the YCbCr of (255 - C, 255 - M, 255 - Y) and K, libjpeg's
     cmyk_ycck_convert: the 4 channels are the CMYK values the file holds (Pillow writes 255 minus its
     CMYK).  `factors` gives each component's (h, v) sampling; by default every component of "rgb" /
-    "cmyk" is 1x1 (libjpeg's default) and "ycck" samples Y and K by `sampling`."""
+    "cmyk" is 1x1 (libjpeg's default) and "ycck" samples Y and K by `sampling`.
+
+    `coding` "arithmetic" writes the same coefficients arithmetic-coded (SOF9, or SOF10 with `progressive`
+    in libjpeg's simple progression) with `jcarith.c`'s encoder; `dac` {table: (L, U, Kx)} writes a DAC
+    marker.  "lossless" writes SOF3: the samples (no DCT) differenced by `predictor` (1-7) after the
+    `point_transform`, Huffman-coded with one table; `restart` then counts MCU rows."""
     grey = image.ndim == 2
     h_img, w_img = image.shape[:2]
     px = image.astype(np.float64)
@@ -3730,6 +4166,8 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
         raise ValueError(f"form {form} takes {len(ids)} channels, not {len(planes)}")
     factors = [tuple(f) for f in (factors or default)]
     hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    if coding == "lossless":
+        return jpeg_lossless_bytes(planes, factors, ids, jfif, adobe, restart, predictor, point_transform)
     mcux, mcuy = -(-w_img // (8 * hmax)), -(-h_img // (8 * vmax))
     tables = [jpeg_quant_table(JPEG_LUMA_Q, quality), jpeg_quant_table(JPEG_CHROMA_Q, quality)]
     dct = np.array([[np.sqrt((1 if u == 0 else 2) / 8) * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
@@ -3745,6 +4183,9 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
     # the blocks in scan order: MCU by MCU, each component's h x v blocks
     order = [(c, r * v + y, q * h + x) for r in range(mcuy) for q in range(mcux)
              for c, (h, v) in enumerate(factors) for y in range(v) for x in range(h)]
+    if coding == "arithmetic":
+        return jpeg_arith_bytes(comps, order, factors, ids, tq, tables, jfif, adobe, restart, progressive,
+                                dac or {}, w_img, h_img, mcux * mcuy)
     comp_of = np.array([o[0] for o in order])
     zz = np.stack([comps[c][r, q] for c, r, q in order])  # [blocks, 64]
     interval = (restart or mcux * mcuy) * (len(order) // (mcux * mcuy))  # blocks between restarts
@@ -3815,6 +4256,292 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
         out += segment(0xDD, restart.to_bytes(2, "big"))
     sos = bytes([len(planes)]) + b"".join(bytes([ids[c], 0x11 * tq[c]]) for c in range(len(planes)))
     return out + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9"
+
+
+# --- the TIFF writer: strips or tiles, both byte orders, BigTIFF, every codec the decoders read but CCITT 2-D
+# and LZMA, predictors, without Pillow
+
+TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "L", 5: "LL", 7: "B", 11: "f", 16: "Q"}
+
+
+def tiff_lzw(data: bytes, compat: bool = False) -> bytes:
+    """TIFF LZW: 9-12 bit codes, Clear first and whenever the table would pass 4094 entries, EOI last; MSB
+    first with the early change, or (`compat`) libtiff's old LSB-first code that widens one entry later."""
+    codes, table, w = [256], {bytes([i]): i for i in range(256)}, b""
+    widths, nbits, free = [9], 9, 258
+    for byte in data:
+        wc = w + bytes([byte])
+        if wc in table:
+            w = wc
+            continue
+        codes.append(table[w])
+        widths.append(nbits)
+        table[wc] = free
+        free += 1
+        if free >= (1 << nbits) + compat and nbits < 12:  # the decoder, an entry behind, widens a code earlier
+            nbits += 1
+        if free >= 4094:
+            codes.append(256)
+            widths.append(nbits)
+            table, nbits, free = {bytes([i]): i for i in range(256)}, 9, 258
+        w = bytes([byte])
+    if w:
+        codes.append(table[w])
+        widths.append(nbits)
+        free += 1  # libtiff's LZWPostEncode: the entry this code would add may widen the EOI code
+        if free >= (1 << nbits) + compat and nbits < 12:
+            nbits += 1
+    codes.append(257)
+    widths.append(nbits)
+    out, acc, nacc = bytearray(), 0, 0
+    for code, width in zip(codes, widths):
+        if compat:
+            acc |= code << nacc
+            nacc += width
+            while nacc >= 8:
+                out.append(acc & 0xFF)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = (acc << width) | code
+            nacc += width
+            while nacc >= 8:
+                out.append((acc >> (nacc - 8)) & 0xFF)
+                nacc -= 8
+            acc &= (1 << nacc) - 1
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF if not compat else acc & 0xFF)
+    return bytes(out)
+
+
+def tiff_packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeats, the rest as literals of at most 128."""
+    out, i, n = bytearray(), 0, len(data)
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+            continue
+        j = i
+        while j < n and j - i < 128 and not (j + 2 < n and data[j] == data[j + 1] == data[j + 2]):
+            j += 1
+        out += bytes([j - i - 1]) + data[i:j]
+        i = j
+    return bytes(out)
+
+
+def _fax_codes(colour: int) -> dict:
+    from uniir_tpu_torch.data.tiff import RUN_CODES
+
+    return {run: (code, length) for (length, code), run in RUN_CODES[colour].items()}
+
+
+def tiff_fax_1d(bits: np.ndarray, compression: int, fill: bool = False) -> bytes:
+    """Bilevel rows [rows, width] (1 = black) as CCITT modified Huffman: compression 2 (rows byte-aligned, no
+    EOL) or 3 (T.4 1-D: an EOL before each row, byte-aligned by fill bits with `fill`)."""
+    tables = (_fax_codes(0), _fax_codes(1))
+    out = []  # bit strings
+
+    def put(code, length):
+        out.append(format(code, f"0{length}b"))
+
+    width = bits.shape[1]
+    for row in bits:
+        if compression == 3:
+            if fill:
+                pad = (-(sum(map(len, out)) + 12)) % 8
+                out.append("0" * pad)
+            put(1, 12)
+        edges = np.flatnonzero(np.diff(np.concatenate([[0], row, [1 - row[-1]]])))
+        runs = np.diff(np.concatenate([[0], edges[edges < width], [width]])).tolist()
+        colour = 0
+        for run in runs:
+            while run >= 2560:
+                put(*tables[colour][2560])
+                run -= 2560
+            if run >= 64:
+                put(*tables[colour][run // 64 * 64])
+                run %= 64
+            put(*tables[colour][run])
+            colour ^= 1
+        if compression == 2:
+            out.append("0" * (-sum(map(len, out)) % 8))
+    s = "".join(out)
+    s += "0" * (-len(s) % 8)
+    return bytes(int(s[k: k + 8], 2) for k in range(0, len(s), 8))
+
+
+def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, order: str = "II",
+               bigtiff: bool = False, rows_per_strip: int = None, tile=None, planar: int = 1, predictor: int = 1,
+               fillorder: int = 1, orientation: int = None, extra=(), bits: int = None, colormap=None,
+               t4options: int = 0, lzw_compat: bool = False, ycbcr_sampling=(2, 2)) -> bytes:
+    """A TIFF file of `samples` [H, W, samples per pixel] (uint8 / uint16 / int16 / int32 / float32, or 1, 2
+    and 4-bit values in uint8 with `bits`): strips of `rows_per_strip` rows or tiles of `tile` = (width,
+    length), contiguous or separate planes, byte order "II" / "MM", BigTIFF, and compression 1 (raw), 2 / 3
+    (CCITT 1-D of a bilevel image, T4Options `t4options`), 5 (LZW), 7 (JPEG: each strip or tile a
+    `jpeg_bytes` stream, its tables also in JPEGTables; YCbCr sampled by `ycbcr_sampling`), 8 / 32946
+    (Deflate), 34925 (LZMA) or 32773 (PackBits); `predictor` 2 (horizontal) or 3 (floating point),
+    `fillorder` 2 (each compressed byte's bits reversed), `orientation`, ExtraSamples `extra` and a ColorMap of
+    3 * 2^bits 16-bit values."""
+    e = "<" if order == "II" else ">"
+    samples = samples if samples.ndim == 3 else samples[:, :, None]
+    h, w, spp = samples.shape
+    dt = samples.dtype
+    bits = bits or dt.itemsize * 8
+    sample_format = 3 if dt.kind == "f" else (2 if dt.kind == "i" else 1)
+    tw, th = tile if tile else (w, rows_per_strip or h)
+    across, down = (-(-w // tw), -(-h // th))
+    planes = spp if planar == 2 else 1
+
+    def chunk_raw(p: int, i: int, j: int) -> bytes:
+        if tile:
+            block = np.zeros((th, tw, spp), dt)
+            part = samples[j * th:(j + 1) * th, i * tw:(i + 1) * tw]
+            block[: part.shape[0], : part.shape[1]] = part
+        else:
+            block = samples[j * th:(j + 1) * th]
+        if planar == 2:
+            block = block[:, :, p:p + 1]
+        rows, cols, n = block.shape
+        if compression == 7:
+            return b""
+        if bits < 8:
+            packed = np.packbits(np.unpackbits(block.astype(np.uint8).reshape(rows, cols * n, 1), axis=2)[:, :, 8 - bits:]
+                                 .reshape(rows, -1), axis=1)
+            return packed.tobytes()
+        v = block.reshape(rows, cols * n)
+        if predictor == 2:
+            u = v.view(f"u{dt.itemsize}").astype(np.int64) if dt.kind != "u" else v.astype(np.int64)
+            u = u.reshape(rows, cols, n)
+            d = np.concatenate([u[:, :1], np.diff(u, axis=1)], axis=1) & ((1 << bits) - 1)
+            v = d.astype(f"u{dt.itemsize}").reshape(rows, cols * n)
+        if predictor == 3:
+            be = v.astype(dt.newbyteorder(">")).view(np.uint8).reshape(rows, cols * n, dt.itemsize)
+            planes_b = be.transpose(0, 2, 1).reshape(rows, -1).astype(np.int64)
+            d = np.concatenate([planes_b[:, :n], planes_b[:, n:] - planes_b[:, :-n]], axis=1) & 0xFF
+            return d.astype(np.uint8).tobytes()
+        return v.astype(v.dtype.newbyteorder(e)).tobytes()
+
+    def compress(raw: bytes, p: int, i: int, j: int) -> bytes:
+        if compression == 1:
+            out = raw
+        elif compression == 5:
+            out = tiff_lzw(raw, lzw_compat)
+        elif compression == 32773:
+            out = tiff_packbits(raw)
+        elif compression in (8, 32946):
+            out = zlib.compress(raw)
+        elif compression == 34925:
+            import lzma
+
+            out = lzma.compress(raw)
+        elif compression in (2, 3):
+            rows = len(raw) // (-(-tw // 8))
+            b = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(rows, -1), axis=1)[:, :tw]
+            out = tiff_fax_1d(b, compression, fill=bool(t4options & 4))
+        elif compression == 7:
+            if tile:
+                block = np.zeros((th, tw, spp), np.uint8)
+                part = samples[j * th:(j + 1) * th, i * tw:(i + 1) * tw]
+                block[: part.shape[0], : part.shape[1]] = part
+                block[part.shape[0]:] = block[part.shape[0] - 1: part.shape[0]] if part.shape[0] else 0
+            else:
+                block = samples[j * th:(j + 1) * th]
+            if spp == 1:
+                out = jpeg_bytes(block[:, :, 0])
+            elif photometric == 6:
+                out = jpeg_bytes(block, sampling=ycbcr_sampling)
+            else:
+                out = jpeg_bytes(block, form="rgb" if spp == 3 else "cmyk")
+        else:
+            raise ValueError(f"compression {compression}")
+        if fillorder == 2 and compression != 7:
+            out = _TIFF_REVERSE[np.frombuffer(out, np.uint8)].tobytes()
+        return out
+
+    chunks = [compress(chunk_raw(p, i, j), p, i, j) for p in range(planes) for j in range(down)
+              for i in range(across)]
+    entries = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+               262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if sample_format != 1:
+        entries[339] = (3, [sample_format] * spp)
+    if predictor != 1:
+        entries[317] = (3, [predictor])
+    if fillorder != 1:
+        entries[266] = (3, [fillorder])
+    if orientation is not None:
+        entries[274] = (3, [orientation])
+    if extra:
+        entries[338] = (3, list(extra))
+    if colormap is not None:
+        entries[320] = (3, list(colormap))
+    if t4options:
+        entries[292] = (4, [t4options])
+    if photometric == 6 and compression == 7:
+        entries[530] = (3, list(ycbcr_sampling))
+    if photometric == 6 and compression != 7:
+        entries[530] = (3, [1, 1])
+    if compression == 7:
+        first = chunks[0]
+        sos = first.index(b"\xff\xc0")
+        tables = b"\xff\xd8" + bytes(seg for seg in _jpeg_table_segments(first[:sos])) + b"\xff\xd9"
+        entries[347] = (7, list(tables))
+    head = 16 if bigtiff else 8
+    data = bytearray()
+    offsets = []
+    pos = head
+    for c in chunks:
+        offsets.append(pos + len(data))
+        data += c
+        if len(data) % 2:
+            data += b"\x00"
+    off_type = 16 if bigtiff else 4
+    if tile:
+        entries.update({322: (3, [tw]), 323: (3, [th]), 324: (off_type, offsets),
+                        325: (off_type, [len(c) for c in chunks])})
+    else:
+        entries.update({278: (4, [th]), 273: (off_type, offsets), 279: (off_type, [len(c) for c in chunks])})
+    ifd_at = head + len(data)
+    n = len(entries)
+    entry_size, count_fmt, inline = (20, "Q", 8) if bigtiff else (12, "H", 4)
+    ext_at = ifd_at + struct.calcsize(e + count_fmt) + n * entry_size + inline
+    ifd, ext = bytearray(struct.pack(e + count_fmt, n)), bytearray()
+    for tag in sorted(entries):
+        typ, values = entries[tag]
+        fmt = TIFF_TYPES[typ]
+        if typ == 5:
+            payload = b"".join(struct.pack(e + "LL", *v) for v in values)
+        else:
+            payload = struct.pack(f"{e}{len(values)}{fmt}", *values)
+        ifd += struct.pack(e + ("HHQ" if bigtiff else "HHL"), tag, typ, len(values))
+        if len(payload) <= inline:
+            ifd += payload + b"\x00" * (inline - len(payload))
+        else:
+            ifd += struct.pack(e + ("Q" if bigtiff else "L"), ext_at + len(ext))
+            ext += payload + b"\x00" * (len(payload) % 2)
+    ifd += b"\x00" * inline
+    if bigtiff:
+        header = (b"II" if order == "II" else b"MM") + struct.pack(e + "HHHQ", 43, 8, 0, ifd_at)
+    else:
+        header = (b"II" if order == "II" else b"MM") + struct.pack(e + "HL", 42, ifd_at)
+    return bytes(header + data + ifd + ext)
+
+
+def _jpeg_table_segments(head: bytes):
+    """The DQT and DHT segments of a JPEG header (everything between SOI and SOF0)."""
+    i, out = 2, bytearray()
+    while i + 4 <= len(head):
+        marker, length = head[i + 1], int.from_bytes(head[i + 2:i + 4], "big")
+        if marker in (0xDB, 0xC4):
+            out += head[i:i + 2 + length]
+        i += 2 + length
+    return out
+
+
+_TIFF_REVERSE = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)], np.uint8)
 
 
 # --- the PNG writer: every scanline filter, Adam7, bit depths 1 to 16, without Pillow
@@ -5374,6 +6101,166 @@ PROGRESSIVE_FILES = {
 # lossless at method 0 and 6, lossy with a gradient alpha (`exact`), a two-frame animation), with the sha256 of
 # Pillow's RGB pixels of each and their width and height (Pillow 12.1.0, libwebp 1.6.0): the decoder phase holds
 # both decoders to these digests on the card's machine, which has no Pillow
+# Pillow-made TIFF files (base64; libtiff's own JPEG, Group 3 1-D / 2-D, Group 4 and LZMA output) and JPEG
+# forms (SOF1, the baseline file patched to SOF9 -- arithmetic decoding of Huffman data, a bad code within the
+# first interval --, and progressive files cut after their first or fourth scan, which libjpeg smooths), each
+# with the sha256 of Pillow 12.1's RGB pixels, width and height: the card's machine has no Pillow
+TIFF_PILLOW_FILES = {
+    "jpeg_ycbcr_37x23": (
+        "SUkqAHQBAAD/2P/AABEIABcAJQMBEQACEQEDEQH/2gAMAwEAAhEDEQA/AOOs9Pyoyua+jo1ux89GobtnYZI4Ir1qNbobxkLaWG7BIBPs"
+        "K/I6NY9iMzdtbAcHbXq0ax0KZtQ6f8nTA+uK9OFbTU1UzkbSwJxlea66NU+JjNm9aWPIyOBzwK9SjV0N4z6iWen4HT2r8jo1j2Yzs7G/"
+        "Z6fwMrx3PrXr0azNYTNqGwxH9zI7cV6cK2m50c5yNpYjI4HJFdVCqfERm7m5aWI4JA/xr1aVbojaMync3VhotslxfziCJnCKdjNlsE44"
+        "B9DX5TgoVcRLlpK73Po8Hhq2LnyUY3e+6Xl19TLk+I+nQSBLDT5bsAkM8jiIexXgkg8nkCvr8HktWSvUny+mv+X4XPpMNw1XnG9aaj6K"
+        "/wB+34XM+Txz4iumDRTQWyqoGyGFSD7/AD5Ofx7V9Rh8pwkI2acvVv8ASx9DRyDAQjaUXJ923+lj/9kADQAAAQMAAQAAACUAAAABAQMA"
+        "AQAAABcAAAACAQMAAwAAABYCAAADAQMAAQAAAAcAAAAGAQMAAQAAAAYAAAARAQQAAQAAAAgAAAAVAQMAAQAAAAMAAAAWAQMAAQAAABcA"
+        "AAAXAQQAAQAAAGsBAAAcAQMAAQAAAAEAAABbAQcAPgIAAEwCAAASAgMAAgAAAAEAAQAUAgUABgAAABwCAAAAAAAACAAIAAgAAAAAAAEA"
+        "AAD/AAAAAQAAAIAAAAABAAAA/wAAAAEAAACAAAAAAQAAAP8AAAABAAAA/9j/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkSEw8UHRof"
+        "Hh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2wBDAQkJCQwLDBgNDRgyIRwhMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjL/xAAfAAABBQEBAQEBAQAAAAAAAAAAAQIDBAUGBwgJCgv/xAC1EAACAQMDAgQDBQUEBAAA"
+        "AX0BAgMABBEFEiExQQYTUWEHInEUMoGRoQgjQrHBFVLR8CQzYnKCCQoWFxgZGiUmJygpKjQ1Njc4OTpDREVGR0hJSlNUVVZXWFlaY2Rl"
+        "ZmdoaWpzdHV2d3h5eoOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4eLj5OXm5+jp6vHy"
+        "8/T19vf4+fr/xAAfAQADAQEBAQEBAQEBAAAAAAAAAQIDBAUGBwgJCgv/xAC1EQACAQIEBAMEBwUEBAABAncAAQIDEQQFITEGEkFRB2Fx"
+        "EyIygQgUQpGhscEJIzNS8BVictEKFiQ04SXxFxgZGiYnKCkqNTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqCg4SF"
+        "hoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2dri4+Tl5ufo6ery8/T19vf4+fr/2Q==",
+        "6120184221db539c8e170c000e921077a3597c1e1ec903108b3ac5576c37f575", 37, 23),
+    "jpeg_rgb_37x23": (
+        "SUkqAB4CAAD/2P/AABEIABcAJQNSEQBHEQBCEQD/2gAMA1IARwBCAAA/APG9OtztUkD16c1zcOkZXDLn9K19D+6AoB6etdRYWhYg9M89"
+        "e9X4NL5HBHfPc/5/rXpGitnaCQMdO1dPp9uX2nZlia0YtJDEZwT1wBnOa+SNEbdycE8Z4FdTZ2xIHynd3q9FpIOCF/z/AJxXpGikDAz0"
+        "Of1ro7a2BTk7B6E4x7VoJpBxwnH+9iu/sOLcbl+lfPdjbtxwRz2NQQaVuAynJHpWPog3Y6nuCfWup0+2JKsQMHkAd60ItLG7DAkLzwK9"
+        "H0PoMjnPSun0+22kDABHY1oQaScZ2nHA6Yr5F0T5QudvPXPWum062BySAR0JHfitCHSemUOAeSRXpmibiqgj6100FuFjHGB+NXY9K+TI"
+        "jDDt8oNeg2AC2wBJPb72K+e9PtzuGACDjioYtLXj5VAJHTvWLoQAKAkZPPTtXTafbLkkgHnHPr/nFX4dLHBIUf1r0fRSDsA4JOeK6rTr"
+        "YErgYPXioNd1XRfCVhHe61eC0tZJREjeU8mXKkgYUE9FP5V8j6I2SD+NdNYW42g/LwOuOled6r8fNDs7hYdG0O61JQzK0s8ot1IBwrJw"
+        "xIPJ5CkcccnHpWiMMg8gY5x610tvAhi5Qk+xrhr74zeOtQnV7a9s9OjRAvlW1ojKTkncfNDnPI6HHHTrXoGmqTbYULgd8kZr/9kLAAAB"
+        "AwABAAAAJQAAAAEBAwABAAAAFwAAAAIBAwADAAAAqAIAAAMBAwABAAAABwAAAAYBAwABAAAAAgAAABEBBAABAAAACAAAABUBAwABAAAA"
+        "AwAAABYBAwABAAAAFwAAABcBBAABAAAAFgIAABwBAwABAAAAAQAAAFsBBwAhAQAArgIAAAAAAAAIAAgACAD/2P/bAEMACAYGBwYFCAcH"
+        "BwkJCAoMFA0MCwsMGRITDxQdGh8eHRocHCAkLicgIiwjHBwoNyksMDE0NDQfJzk9ODI8LjM0Mv/EAB8AAAEFAQEBAQEBAAAAAAAAAAAB"
+        "AgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYn"
+        "KCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrC"
+        "w8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/Z",
+        "fc78f193d2b43f28b4bd68308a9167f2212f404ee5162298543e0ef801799e81", 37, 23),
+    "jpeg_cmyk_37x23": (
+        "SUkqADACAAD/2P/AABQIABcAJQRDEQBNEQBZEQBLEQD/2gAOBEMATQBZAEsAAD8A9j1G4G5gCfTrxXRzavhsq2P1rH1z7xLEjr6V8/1y"
+        "9/dhQR1xx07VQn1Tg8g9sdh/n+leb60uNxAJz170VzGoXATcN+FArOl1YqDjIHTJOMYr631tdvAyBzjk0Vy15cgE/MNvaqMurEZBb/P+"
+        "c15vrQJycdRj9KK5y5uSH4G8+oGc+9Z76uM8vz/u5rgL/m4O1vrRX0JfXC88g8dxU8+q7ScPwD61sa2dueg7ED0orltQuQAygnI4JPas"
+        "+XVDtypALccmvONc6nB4x1ormNQudwJySD3FZ8+rDONwzyeua+utb+Ytjdx0x0ormdRuSMAEg9QD25rPm1bk4cZI4ANeZ63tDMQfpRXM"
+        "z3BaQ85P4VSk1X58GQqe/wAxFefX5LXJIAHf7uaK+hNQuBtOSQRnmppdUbn5mJAPXtW1rpJDkA4HHXvRXM6hctgAEjjPHp/nNUJtUPIB"
+        "Y/0rzjWgRvJ5AGOaK5XUbkgNk5HTmp9C0rWvFt/JZaLZm7uo4jK6+akeEDAE5YgdWH519ca2uAR+FFczf3B3EfNyemeteiaV8A9cvLdp"
+        "tZ1y101iqssUERuGBIyyvyoBHA4LA888DPmutqcEcE54z6UVzVxO4lOHAHuK7mx+DPgXT4GS5srzUZHct5tzdurAYA2jyigxweozz16V"
+        "5/qTAXOWLZPbAOKK/9kLAAABAwABAAAAJQAAAAEBAwABAAAAFwAAAAIBAwAEAAAAugIAAAMBAwABAAAABwAAAAYBAwABAAAABQAAABEB"
+        "BAABAAAACAAAABUBAwABAAAABAAAABYBAwABAAAAFwAAABcBBAABAAAAKAIAABwBAwABAAAAAQAAAFsBBwAhAQAAwgIAAAAAAAAIAAgA"
+        "CAAIAP/Y/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8QA"
+        "HwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQIDAAQRBRIhMUEGE1FhByJxFDKBkaEII0Kx"
+        "wRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZ"
+        "mqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3+Pn6/9k=",
+        "9dce4f20e9ca4022951aa460c909f326a3f52ceb99fd825d8b655a8dc3ffbfb5", 37, 23),
+    "group3_1d_64x40": (
+        "SUkqADYBAAAAEDIi4YAIGRFwwAQMiLhgA9EFF1AfwAeiCi6gP4APRBRdQH8AE1uqUUXFShAAmt1Sii4qUIAE1uqUUXFShAAmohAY61hw"
+        "ATUQgMdaw4AJqIQGOtYcAEigSlFxeACRQJSi4vABIoEpRcXgA9REUFSihgA9REUFSihgA9REUFSihgAmsXE6IKEACaxcTogoQAJrFxOi"
+        "ChAAwJwfrUrABgTg/WpWADAnB+tSsAE1KC1DxEQ4AJqUFqHiIhwATUoLUPERDgA9QUURAkXIAHqCiiIEi5AA9QUURAkXIAE1oooE1uor"
+        "ABNaKKBNbqKwATWiigTW6isAGCiT1KlCABgok9SpQgAYKJPUqUIAE1oIgoouoohwATWgiCii6iiHABNaCIKKLqKIcAHriigouKCHAAkA"
+        "AAEDAAEAAABAAAAAAQEDAAEAAAAoAAAAAgEDAAEAAAABAAAAAwEDAAEAAAADAAAABgEDAAEAAAABAAAAEQEEAAEAAAAIAAAAFgEDAAEA"
+        "AAAoAAAAFwEEAAEAAAAtAQAAHAEDAAEAAAABAAAAAAAAAA==",
+        "942f4b81cf970d7f5ea689ccb22d289d5500786b726191425304589cd543f5e8", 64, 40),
+    "group3_2d_64x40": (
+        "SUkqABgBAAAAAYGRFwwAAX4AAYGRFwwAAR6JBQR6BEP4AAH0QUXUB/ABf/ABmt1Sii4qUIABf/+AAZrdUoouKlCAAUiECOCBqAABmohA"
+        "Y61hwAF/wAGRQJSi4vABf/ABkUCUouLwAR6yRAogjRMMAAH1ERQVKKGAAX/+AAGaxcTogoQAAX/gAZrFxOiChAABAyJwIEC2AAHAnB+t"
+        "SsABf8ABmpQWoeIiHAABf/ABmpQWoeIiHAABHowRiBGIBmIHAAH1BRRECRcgAX/+AAGa0UUCa3UVgAF//wABmtFFAmt1FYABA+J6BmpU"
+        "AAHBRJ6lShAAAX/4AAGa0EQUUXUUQ4ABf//AAZrQRBRRdRRDgAEMEeKCBeDBYAoAAAEDAAEAAABAAAAAAQEDAAEAAAAoAAAAAgEDAAEA"
+        "AAABAAAAAwEDAAEAAAADAAAABgEDAAEAAAABAAAAEQEEAAEAAAAIAAAAFgEDAAEAAAAoAAAAFwEEAAEAAAAQAQAAHAEDAAEAAAABAAAA"
+        "JAEEAAEAAAAFAAAAAAAAAA==",
+        "942f4b81cf970d7f5ea689ccb22d289d5500786b726191425304589cd543f5e8", 64, 40),
+    "group4_64x40": (
+        "SUkqAJwAAAAgZEiPD//PRIKCPQIh////8msDNQECBGIGSoaP/////IhAjgga///iYgREoaJ4h///+eskQKII0TD////8msIggZ6GDX//"
+        "/BkTgQIFv//8ESgGdQ5iJF///89GCMQIxAMxA/////k1uCBA5uBGJ/////g+J6BmpX///8EaAZILMQM0AgS/////+MEeKCBeDBYAIAIA"
+        "CQAAAQMAAQAAAEAAAAABAQMAAQAAACgAAAACAQMAAQAAAAEAAAADAQMAAQAAAAQAAAAGAQMAAQAAAAEAAAARAQQAAQAAAAgAAAAWAQMA"
+        "AQAAACgAAAAXAQQAAQAAAJMAAAAcAQMAAQAAAAEAAAAAAAAA",
+        "942f4b81cf970d7f5ea689ccb22d289d5500786b726191425304589cd543f5e8", 64, 40),
+    "lzma_rgb_37x23": (
+        "SUkqAHAJAAD9N3pYWgAAAP8S2UECAQMBACEBFnkgxO7gCfgJLl0AABBEAMlGp2cfvPUwGq3upkNRRfUOiJa55oSlh0Q9EFsZ/PnlT2mc"
+        "8drtPCKLRG/8Sbye0HSPShWJP0uWGm03WkYyWnyDTJn7qe45ZnVJBAJ7gcCWhhYTdWD5N8ZAIpkZ40MzjBQTtgcqb2rZixeDOPcgd4Fb"
+        "B7WA8Z7VBZNTBpOwL+i0NonrHle7Cv0XmIOqtiYCdO+IAyu9sEXcH0XX2EWDaLYqjPV1GhOVx9bI2j1ssGvHp6Pv/zTWS61Nn04Lknoo"
+        "NMnwCPKdxlKssvFPoDBBFQdIYpdMOnBBeeNWo+eGxbkMxq8De9Jjb5cOQGdiMDko20yynIL6WCEhQK37u9/V186l9o2fm83Kn+3XHK8v"
+        "K0vj7az9VZEiK+5po148CluIit5bpdMb7jgEwry9szpRiRc3IFYa9Sf5nWjJj7yL5agyRawg6+ZojGstc9vdU6Op4vCKC3gbDTy6LZih"
+        "Q+msXbMAtzpgPOdvgy40JCVhlp0TiIEnaFAV6nv7TGt76hLmg7b9VD3UJOX9KFoYmJ6Bp6VlKX9jcXowSXJpLc5IFaZSxk5IBDESM4vX"
+        "TNGUxixmxt8qODfRsjcW3+/gW45weuhc77u3LTpCg/ecPG0Ari0pj6HWC1tFCY4dT8G9N9gZIlt5akQEyBqNLIRuo5PXULL8q1Afv3gf"
+        "WJuTTPFxICq0C6YCfAtV2zqlbudV8BOypaXwaK9C6pYa1APciubz3nhhnOcECCl4fwEBLCxPH3NqJmbkfThLA1+N4wp8XposoRZbLs6Q"
+        "pJSysVyx7LaPPG+bnWa1er4FrFyR+PX1WjLy/CLBE8dzj8gba7p8GvH+KQW8NdlXESfXBaBLBoABrJh53IavYd52jgIJe6c9lRF3ROBB"
+        "C4e4YuCltfZyzf3J2azCNBWM/o5D5ppAFs3y2a5k0zEzsyX3VPlv7gMVcS+06aRfoDfHHXYjcRsXsMPSS5DbMA5FQu8so0063rAPFw6T"
+        "/yWADmYFSn2tcc9OtfmLmzUg2UtQXEaCOO3ONLb1Dv+ZS+lpQ9gmomcHtFQIVLjZOLg2FABDbpykmIxSPAIQCSGrGZCeajulzH68+yMj"
+        "mz3FM2D0B5rwmBQWpOc5HTmjqzCsOXnfpbfkegt8Fc6IG2p+CNYrA8KUrnpKZY4whrtuimpJrR7rImrLj/ao678gbbLnw35riCpNn1oQ"
+        "kNHdH/kRrY4MmP8WDA4NvPB6kst3trG77BjXtwpi7VEH+LsbHPOogMqXIE9EOquUjTv0839QI5uB13B0V/QqGIt/VRMDqClUsu7xizzc"
+        "wRWtyZH/cIDvCoYdySDhfQDkVIPmoNznRZkmhhVm7UGZc4CQjKqhuGSDI5h0ciuOGGyBumOWUCV1T0oAsIwT53I32qIrqVEjAi9WwicU"
+        "LiIOJJizFjxfK+s/by9ZqlZQ1IsVXFDPsIw7CN5wmQ46SuAjfejd0WKIWepnCMQWTJEevELotZzP65R8K8Fka4mE8xQcnqDVPLbP8wRN"
+        "oyHg+5RYQIe/B/gDb5ebs4BJAK16tU3USkZj9UNmfnTtZ3SiQztgoi9f6+06NBjwiRo0h4SvsdG+UBANC22vs1/lrR2/Lklw8wWFktzZ"
+        "48kP7UW/NM+7Tzh4W270fqhJEwOPTmi/rd0hhildIPgb/Omt04Kbwe9O+xc369v3teVoElSnj/5MztDOBKw9ryFHTGm4A0gPBGy+ci0S"
+        "vtnXHIC7I5cS5+OjAwGXqrs0yph1PaOPSFT6EoJlYzgiKh12ZTqo15wSeqCLCW/cp13T0lkhle/BYw/SbCjaenvh9dJ6wEvtoyHlxK+J"
+        "MWKtvIc9Q6ANn+16e5ulS112hYHswtJISwevcystHRoTm5K5HX83MvGCXf8iZYlc7oC0AEzhE/QjKVAHljUSNhzHAbtMFdKnlgSybS/D"
+        "wA88XC6+LhgGyQ7XUCQD+fRyNlKdUbfM9/XBh36+SKo4+DbIdIIrzeUockRUkTdJKdYtLv7gYgBoYSvGwLc/BsqSrh2jAVYwkcokJP/r"
+        "FNPyhvdhb2Rj8ncELPRDuCeQlh6Rc1MR5ypeUjLTrLLA4+fEd0myU7KnKcItrcMHNFyl2B2hl+aYYXdHE/jroI9UldruKWkzLmRdhFEO"
+        "bSesVZiKNjqis4z39rcqkwmjyHEDkHCkpIFBchdo3fHCb2o8pSHv9DI8Bl0HtRYIsUMTMwfWfuJlwjpd7U4bEVTPvY55DjkhFEabmFqd"
+        "PjBEFvgQbnAOiw6qR2gV1yqaRnTXwrIg9WTVou9ULJBUG79ZyW158ReqW/TS8zzFEJoU3LWDxMY5sXfKhLZS/qLG6MEPYlVAKuoJZQ47"
+        "H+9G/NS7XGylpGwrzVa/JBb5Zk5nfianecfE4+KzoJITGil+E/ERjLcwJMgEQa5+t/iY8R1ngezxwBDUyL/NTdgX5hLkCS/Au9zYLn4n"
+        "bQSOKGU/lcDDU4bz0ExNMhaNDkRNWG1pIWSk7v3tOJnTKibTTG7Xj/Hh/uQy+2M99aUHF1WEEv/fHEWyV/Y35qXu59qHCQgeiV9VvznJ"
+        "eOYsq1QFj+nxIO684P4ht7Kiz+cB9bnvawF53uJ08x3stQPTwAhJu7twTQK3IOCyzlshchSJp/lpme4kMBQ1+DqC1jJlXg76/VFYi808"
+        "DWGQvmj72XYIBSLbqaO6S7XjR2r5TAG3I5xPjO2u8DfcmuXvLMgGuT0hD7G5V/6eEi0cAGGWc1lWAD1xF6HO3UGxWOo2z78He8vM6pFZ"
+        "GJJb1xTEwqDHMzw3QYfx7TLiYduwWq20hVL9+mH+ykLafO1DR5w5QfxPLEVxJl5geiVPkjkADOg6VrBr8AMLM5vVX9oI2W2qGi0747Is"
+        "9GUgXmbQtEce772dDNJUnj6UDmLrmvo/HKGBWdrlQFP3K64bvwGtaSn0/YsmwCB3kVwf7iJpGS8pu+rZ0GiVwm3L+ZiZDdpMm6zbZwe3"
+        "IIa411CtODrY1tNEy2OV7MetB9XrqMA/J7eFf3/dDy/b4sAlVInwm2yxOmWeY8oBkPFii7ODJUrk5hFYO+W5LdZCxiFDiVNNTdePhN/D"
+        "NNEaY+dK/eZDfUryZ6wFCvAYCvlvdkcVr/bQaO+r/lmNVY+l3S83es/GgY3Y5Cu6AAAAAAABwhL5EwAAhOtbYKgACvwCAAAAAABZWgoA"
+        "AAEDAAEAAAAlAAAAAQEDAAEAAAAXAAAAAgEDAAMAAADuCQAAAwEDAAEAAABtiAAABgEDAAEAAAACAAAAEQEEAAEAAAAIAAAAFQEDAAEA"
+        "AAADAAAAFgEDAAEAAAAXAAAAFwEEAAEAAABoCQAAHAEDAAEAAAABAAAAAAAAAAgACAAIAA==",
+        "f0d27abfd4fe2f7f40982421bd48808c944a0260b7d41ff859af646b08b9ac1e", 37, 23),
+}
+JPEG_FORM_PILLOW_FILES = {
+    "sof1_37x23": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUfGhsjHBYWICwgIyYnKSop"
+        "GR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgo"
+        "KCj/wQARCAAXACUDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQID"
+        "AAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlq"
+        "c3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3"
+        "+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEI"
+        "FEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImK"
+        "kpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwDz"
+        "/TdMyo3KD+ldNp2m5K8Ed/SrunaaWxlea6jT9O+YbhwOeBX1+X4/bU+TpVzi9P03eVJAJ68DNdPY6Z0O3kVd03TMAce1dRp2mZAyuRnk"
+        "+tfkmX4/bU+opYjzM220z5Pu4H+9iiu1ttNAiHyAjtxmivqI47RanasQcDp2nDI4XBI4rptO04cFgv8AjRRXRgK0tD80pTehn3t5pvh+"
+        "0judVuBbQO4jVtjPliCcYUHsprEn+Kul28yppWmT3yglWklcQrjsV4YkHk8gEcfgUV8jwpllDFUFXrXb7X0/DX8T9i4ZyPC4zDLEV027"
+        "vS9lp6Wf4mXL8RfE94ytb3FtZoqgeXBArKepz8+45/HHFFFFfqNLA4ZQSVKP3I+7jlmCirKjD/wFP80f/9k=",
+        "be1859851f8a642f915e6fb5ae45f2c6a731b0f7c9cacc0b39f948d7a2c412e8", 37, 23),
+    "arithmetic_corrupt_37x23": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUfGhsjHBYWICwgIyYnKSop"
+        "GR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgo"
+        "KCj/yQARCAAXACUDASIAAhEBAxEB/8QAHwAAAQUBAQEBAQEAAAAAAAAAAAECAwQFBgcICQoL/8QAtRAAAgEDAwIEAwUFBAQAAAF9AQID"
+        "AAQRBRIhMUEGE1FhByJxFDKBkaEII0KxwRVS0fAkM2JyggkKFhcYGRolJicoKSo0NTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlq"
+        "c3R1dnd4eXqDhIWGh4iJipKTlJWWl5iZmqKjpKWmp6ipqrKztLW2t7i5usLDxMXGx8jJytLT1NXW19jZ2uHi4+Tl5ufo6erx8vP09fb3"
+        "+Pn6/8QAHwEAAwEBAQEBAQEBAQAAAAAAAAECAwQFBgcICQoL/8QAtREAAgECBAQDBAcFBAQAAQJ3AAECAxEEBSExBhJBUQdhcRMiMoEI"
+        "FEKRobHBCSMzUvAVYnLRChYkNOEl8RcYGRomJygpKjU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6goOEhYaHiImK"
+        "kpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4uPk5ebn6Onq8vP09fb3+Pn6/9oADAMBAAIRAxEAPwDz"
+        "/TdMyo3KD+ldNp2m5K8Ed/SrunaaWxlea6jT9O+YbhwOeBX1+X4/bU+TpVzi9P03eVJAJ68DNdPY6Z0O3kVd03TMAce1dRp2mZAyuRnk"
+        "+tfkmX4/bU+opYjzM220z5Pu4H+9iiu1ttNAiHyAjtxmivqI47RanasQcDp2nDI4XBI4rptO04cFgv8AjRRXRgK0tD80pTehn3t5pvh+"
+        "0judVuBbQO4jVtjPliCcYUHsprEn+Kul28yppWmT3yglWklcQrjsV4YkHk8gEcfgUV8jwpllDFUFXrXb7X0/DX8T9i4ZyPC4zDLEV027"
+        "vS9lp6Wf4mXL8RfE94ytb3FtZoqgeXBArKepz8+45/HHFFFFfqNLA4ZQSVKP3I+7jlmCirKjD/wFP80f/9k=",
+        "ad7ccec70a2b66fafc97d8715cea7f40a02a5764dfa84ab5e231792d3902c374", 37, 23),
+    "smoothed_420_k1_37x23": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUfGhsjHBYWICwgIyYnKSop"
+        "GR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgo"
+        "KCj/wgARCAAXACUDASIAAhEBAxEB/8QAGAABAQEBAQAAAAAAAAAAAAAAAAUEAwb/xAAWAQEBAQAAAAAAAAAAAAAAAAAFBgP/2gAMAwEA"
+        "AhADEAAAAfP0+1RcmLU7VJJTMtlNoFM0ms+EIscoqHf/2Q==",
+        "36d90331e446164167bafe4094577794fb53f772277657bd3ab8d3b5c3e55505", 37, 23),
+    "smoothed_420_k4_37x23": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUfGhsjHBYWICwgIyYnKSop"
+        "GR8tMC0oMCUoKSj/2wBDAQcHBwoIChMKChMoGhYaKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgoKCgo"
+        "KCj/wgARCAAXACUDASIAAhEBAxEB/8QAGAABAQEBAQAAAAAAAAAAAAAAAAUEAwb/xAAWAQEBAQAAAAAAAAAAAAAAAAAFBgP/2gAMAwEA"
+        "AhADEAAAAfP0+1RcmLU7VJJTMtlNoFM0ms+EIscoqHf/xAAaEAEBAQADAQAAAAAAAAAAAAADAAIBBAUh/9oACAEBAAEFAjOM4zsHZOM4"
+        "zjOM7J/DOM7ez6+efVLPPPo9nd//xAAcEQACAgIDAAAAAAAAAAAAAAAAAgEDBBMFQpH/2gAIAQMBAT8BVxbDYLJxmDVdXscjGpjpHh//"
+        "xAAcEQACAwADAQAAAAAAAAAAAAAAAwECBAUREjL/2gAIAQIBAT8BzvM7yHiLycVmo2nu5VC+vmD/2Q==",
+        "2d0e3167cfc9323af5bf9c0d16cdfa4280995d174b717cadef71dd6fdc9b4ef6", 37, 23),
+    "smoothed_grey_k1_37x23": (
+        "/9j/4AAQSkZJRgABAQAAAQABAAD/2wBDAAYEBQYFBAYGBQYHBwYIChAKCgkJChQODwwQFxQYGBcUFhYaHSUfGhsjHBYWICwgIyYnKSop"
+        "GR8tMC0oMCUoKSj/wgALCAAXACUBAREA/8QAFQABAQAAAAAAAAAAAAAAAAAABQf/2gAIAQEAAAABnjbLjEmcZaak7LjLP//Z",
+        "b402b08523d89b2214566b8acd9d05be2517063bcd6bfb854740e2dbbf2a3df6", 37, 23),
+}
+
+
 WEBP_PILLOW_FILES = {
     "webp_pillow_q5": (
         ("UklGRuYAAABXRUJQVlA4INoAAADQBgCdASoxACsAP32wy122OSmkt/VdUyAviWwAqSdViyVP0wQ9o2xYr7BpFKaGcsBt05YByXDOPulAkOkSySAA"
@@ -5583,7 +6470,8 @@ def fixture_image(seed: int) -> np.ndarray:
 
 
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
-FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp"}
+FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
+               "tiff": "tif"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -5608,12 +6496,18 @@ def fixture_file(form: str, seed: int) -> bytes:
     transparency index), `bmp` (the colour cube in RLE8); `jpeg_cmyk` / `jpeg_ycck` (the image's CMYK, Adobe
     transform 0 / 2, Y and K at 2x2 in YCCK) and `jpeg_rgb` (Adobe transform 0: RGB as stored); WebP from
     `webp_bytes`: `webp_lossy` (VP8, coded closed-loop), `webp_lossless_alpha` (VP8L of the image with a seeded
-    alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk)."""
+    alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk); `tiff` (LZW, the
+    horizontal predictor, 32 x 32 tiles, big-endian) and `jpeg_arith` (arithmetic-coded, libjpeg's simple
+    progression, quality 90)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     img = fixture_image(seed)
     if form == "jpeg":
         return jpeg_bytes(img)
+    if form == "tiff":
+        return tiff_bytes(img, 2, compression=5, predictor=2, tile=(32, 32), order="MM")
+    if form == "jpeg_arith":
+        return jpeg_bytes(img, 90, coding="arithmetic", progressive=True)
     if form.startswith("webp"):
         alpha = np.random.default_rng(seed).integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)
         kind, image = {"webp_lossy": ("lossy", img), "webp_lossless_alpha": ("lossless", np.concatenate([img, alpha], 2)),
@@ -5649,7 +6543,7 @@ def fixture_pixels(form: str, seed: int) -> np.ndarray:
     """What `Image.open(...).convert("RGB")` gives for `fixture_file(form, seed)` where the writer alone
     says it (a PNG: the samples it wrote, as Pillow converts them): an oracle beside the twin."""
     img = fixture_image(seed)
-    if form in ("png_rgb", "png_rgba", "png_rgb16", "webp_lossless_alpha"):
+    if form in ("png_rgb", "png_rgba", "png_rgb16", "webp_lossless_alpha", "tiff"):
         return img
     if form == "png_grey":
         return np.repeat(img.mean(axis=2).astype(np.uint8)[..., None], 3, axis=2)
@@ -5872,8 +6766,8 @@ def fixture_configs(root: Path) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, and the native JPEG, PNG, GIF and WebP decoders' calls."""
-    from uniir_tpu_torch.data import gif, jpeg, png, webp
+    """Every kernel wrapper's launch count, and the native JPEG, PNG, GIF, WebP and TIFF decoders' calls."""
+    from uniir_tpu_torch.data import gif, jpeg, png, tiff, webp
     from uniir_tpu_torch.ops import attention as A
     from uniir_tpu_torch.ops import image_ops as I
     from uniir_tpu_torch.ops import mlp as M
@@ -5889,6 +6783,7 @@ def launch_counts() -> dict:
     counts["png"] = png.decode_native.calls
     counts["gif"] = gif.decode_native.calls
     counts["webp"] = webp.decode_native.calls
+    counts["tiff"] = tiff.decode_native.calls
     return counts
 
 
@@ -6048,7 +6943,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
     import tempfile
     from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
-    from uniir_tpu_torch.data import bmp, gif, jpeg, png, webp
+    from uniir_tpu_torch.data import bmp, gif, jpeg, png, tiff, webp
     from uniir_tpu_torch.data import preprocess as P
     from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
     from uniir_tpu_torch.models.blip_vit import BLIP_VIT_CONFIGS
@@ -6075,7 +6970,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         # digests, the PNG files to the samples their writer wrote); the native rates
         blobs = {p: Path(p).read_bytes() for p in tree["images"]}
         natives = {"jpeg": jpeg.decode_native, "png": png.decode_native, "gif": gif.decode_native, "bmp": bmp.decode,
-                   "webp": webp.decode_native}
+                   "webp": webp.decode_native, "tiff": tiff.decode_native}
         kind = {p: jpeg.image_format(b) for p, b in blobs.items()}
 
         def native(path: str) -> np.ndarray:
@@ -6099,14 +6994,14 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
                 check(np.array_equal(arrays[p], fixture_pixels(form, seed)), f"phase 12: {p} ({form}) differs from "
                       "the samples its writer wrote")
         log(f"phase 12: native decoders bit-equal to the twins on all {len(blobs)} images (the progressive files "
-            f"also to Pillow's digests, the PNG, GIF, BMP and lossless WebP files to their samples); native decode "
+            f"also to Pillow's digests, the PNG, GIF, BMP, lossless WebP and TIFF files to their samples); native decode "
             f"{one_thread:.1f} images/s "
             f"on one thread, {many:.1f} images/s on the loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
         for group, member in (("baseline JPEG", lambda f: f == "jpeg"), ("progressive JPEG", PROGRESSIVE_FILES.__contains__),
                               ("PNG", lambda f: f.startswith("png")), ("GIF", lambda f: f == "gif"),
                               ("BMP (numpy, one decoder)", lambda f: f == "bmp"),
-                              ("WebP", lambda f: f.startswith("webp")),
-                              ("CMYK / YCCK / RGB JPEG", lambda f: f.startswith("jpeg_"))):
+                              ("WebP", lambda f: f.startswith("webp")), ("TIFF", lambda f: f == "tiff"),
+                              ("CMYK / YCCK / RGB / arithmetic JPEG", lambda f: f.startswith("jpeg_"))):
             files = [p for p, (form, _) in tree["forms"].items() if member(form)]
             repeats = 1 if group == "baseline JPEG" else P12_DECODE_REPEATS
             t0 = time.perf_counter()
@@ -6175,7 +7070,7 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         torch.cuda.empty_cache()
         after_reference = launch_counts()
         moved = {k: after_reference[k] - before[k] for k in before
-                 if k not in ("K1", "jpeg", "png", "gif", "webp") and after_reference[k] != before[k]}
+                 if k not in ("K1", "jpeg", "png", "gif", "webp", "tiff") and after_reference[k] != before[k]}
         check(not moved, f"phase 12: the in-code reference launched kernels other than K1: {moved}")
 
         # the runs, as a user makes them: the run scripts' instruct switch, then the CLIs
@@ -6226,14 +7121,15 @@ def drive_entry_points(results: dict, smi: str, blip_sf_busy_ms: float) -> None:
         check(not moved, f"phase 12: this process launched kernels or decoded while the runs ran: {moved}")
 
         # what the runs launched: each kernel its run implies, no other
-        want = {"clip_embed": {"K1", "jpeg", "png", "gif", "webp"}, "blip_embed": {"K1", "jpeg", "png", "gif", "webp"},
-                "train": {"K1", "K3", "jpeg"}, "trained_embed": {"K1", "jpeg", "png", "gif", "webp"},
-                "blip_train": {"K1", "K3", "jpeg", "png", "webp"},
-                "blip_trained_embed": {"K1", "jpeg", "png", "gif", "webp"},
+        want = {"clip_embed": {"K1", "jpeg", "png", "gif", "webp", "tiff"},
+                "blip_embed": {"K1", "jpeg", "png", "gif", "webp", "tiff"},
+                "train": {"K1", "K3", "jpeg"}, "trained_embed": {"K1", "jpeg", "png", "gif", "webp", "tiff"},
+                "blip_train": {"K1", "K3", "jpeg", "png", "webp", "tiff"},
+                "blip_trained_embed": {"K1", "jpeg", "png", "gif", "webp", "tiff"},
                 "clip_retrieval_int8": {"K4"}, "clip_retrieval_bf16": {"K2"}, "clip_index": set()}
         # the guard's exact re-run of a batch; CLIP-SF's 3 steps of 32 leave 24 train pairs out, PNG ones maybe;
-        # a train pair's positive may be the GIF candidate
-        may = {"clip_retrieval_int8": {"K2"}, "train": {"png", "gif", "webp"}, "blip_train": {"gif"}}
+        # a train pair's positive may be the GIF or the TIFF candidate
+        may = {"clip_retrieval_int8": {"K2"}, "train": {"png", "gif", "webp", "tiff"}, "blip_train": {"gif"}}
         for name, positive in want.items():
             counts = runs[name][2]
             log(f"phase 12: {name} launches {({k: v for k, v in counts.items() if v})}")
@@ -6344,7 +7240,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
-    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif", "webp")
+    names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif", "webp",
+             "tiff")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)

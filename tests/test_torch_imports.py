@@ -38,6 +38,7 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.vp8",
     "uniir_tpu_torch.data.vp8l",
     "uniir_tpu_torch.data.webp",
+    "uniir_tpu_torch.data.tiff",
     "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from uniir_tpu_torch.data import jpeg
 
 # Pillow-made JPEG files (base64) and the sha256 of Pillow's RGB pixels of each, made where Pillow
@@ -216,8 +217,6 @@ def _two_components(base: bytes) -> bytes:
 
 
 def _rejected():
-    import chip_smoke
-
     arr = smooth_image(np.random.default_rng(5), 40, 30)
     base, _ = pillow_jpeg(arr)
     progressive, _ = pillow_jpeg(arr, progressive=True)
@@ -225,9 +224,8 @@ def _rejected():
     return {
         "two_components": (_two_components(base), r"0xFFC0.*2 components"),
         "mcu_too_large": (chip_smoke.jpeg_bytes(arr, form="rgb", factors=[(2, 2)] * 3), r"0xFFDA.*more than 10 blocks"),
-        "sof1_extended": (_patched(base, b"\xff\xc0", 1, 0xC1), r"0xFFC1.*SOF1"),
-        "sof3_lossless": (_patched(base, b"\xff\xc0", 1, 0xC3), r"0xFFC3.*SOF3"),
-        "arithmetic": (_patched(base, b"\xff\xc0", 1, 0xC9), r"0xFFC9.*arithmetic"),
+        # a baseline scan (0..63) under a lossless frame header: jdlossls.c's bad scan parameters
+        "sof3_lossless": (_patched(base, b"\xff\xc0", 1, 0xC3), r"0xFFDA.*bad lossless scan"),
         "twelve_bit": (_patched(base, b"\xff\xc0", 4, 12), r"0xFFC0.*12-bit"),
         "short_adobe": (base[:2] + b"\xff\xee\x00\x07Adobe" + base[2:], r"0xFFEE: truncated Adobe"),
         "truncated_scan": (base[: scan + (len(base) - scan) // 2], r"truncated"),
@@ -236,19 +234,33 @@ def _rejected():
         # a baseline scan (0..63, no approximation) in a progressive frame: jdphuff.c's bad progression
         "baseline_scan_in_sof2": (_patched(base, b"\xff\xc0", 1, 0xC2), r"0xFFDA.*bad progression"),
         "progressive_twelve_bit": (_patched(progressive, b"\xff\xc2", 4, 12), r"0xFFC2.*12-bit"),
-        "block_smoothing": (_partial_progression(progressive), r"0xFFDA.*block smoothing"),
         "truncated_progressive": (progressive[: len(progressive) // 2], r"truncated"),
+        # SOF11 (arithmetic lossless), which libjpeg-turbo does not implement either
+        "sof11_lossless_arithmetic": (_patched(chip_smoke.jpeg_bytes(arr, coding="lossless", form="rgb"),
+                                               b"\xff\xc3", 1, 0xCB), r"0xFFCB.*SOF11"),
+        # libjpeg refuses to convert lossless YCbCr samples (a lossy conversion)
+        "lossless_ycbcr": (chip_smoke.jpeg_bytes(arr, coding="lossless"), r"0xFFC3.*lossless YCBCR"),
     }
 
 
-@pytest.mark.parametrize("form", ["sof1_extended", "sof3_lossless", "arithmetic", "twelve_bit", "two_components",
-                                  "mcu_too_large", "short_adobe", "truncated_scan", "truncated_header", "not_a_jpeg",
-                                  "baseline_scan_in_sof2", "progressive_twelve_bit", "block_smoothing",
-                                  "truncated_progressive"])
+@pytest.mark.parametrize("form", ["sof3_lossless", "twelve_bit", "two_components", "mcu_too_large", "short_adobe",
+                                  "truncated_scan", "truncated_header", "not_a_jpeg", "baseline_scan_in_sof2",
+                                  "progressive_twelve_bit", "truncated_progressive", "sof11_lossless_arithmetic",
+                                  "lossless_ycbcr"])
 def test_rejected_forms_raise_naming_file_and_marker(form):
     data, pattern = _rejected()[form]
     with pytest.raises(ValueError, match=rf"^f\.jpg: .*{pattern}"):
         jpeg.decode_twin(data, "f.jpg")
+
+
+@pytest.mark.parametrize("form", ["sof3_lossless", "twelve_bit", "progressive_twelve_bit", "two_components",
+                                  "sof11_lossless_arithmetic", "lossless_ycbcr", "truncated_scan"])
+def test_pillow_refuses_what_the_port_refuses(form):
+    """Parity, not a fault: 12-bit samples (Pillow: "cannot handle 12-bit layers"), SOF11, lossless YCbCr,
+    a lossless frame over baseline scans and the truncated / malformed files raise in Pillow too."""
+    data, _ = _rejected()[form]
+    with pytest.raises(Exception):
+        pillow_rgb(data)
 
 
 def pillow_rgb(data: bytes) -> np.ndarray:
@@ -258,9 +270,9 @@ def pillow_rgb(data: bytes) -> np.ndarray:
 
 
 def _once_refused():
-    """The two forms the decoders refused before they read CMYK and RGB JPEGs: a
-    Pillow CMYK file, and an Adobe transform-0 (RGB) marker before a JFIF
-    file's own, whose JFIF marker still makes libjpeg read YCbCr."""
+    """Forms the decoders refused before: a Pillow CMYK file, and an Adobe
+    transform-0 (RGB) marker before a JFIF file's own, whose JFIF marker still
+    makes libjpeg read YCbCr; SOF1, arithmetic coding and block smoothing."""
     from PIL import Image
 
     arr = smooth_image(np.random.default_rng(5), 40, 30)
@@ -268,10 +280,17 @@ def _once_refused():
     buf = io.BytesIO()
     Image.fromarray(arr).convert("CMYK").save(buf, "JPEG")
     adobe = b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00"  # APP14, transform 0: RGB
-    return {"four_components": buf.getvalue(), "adobe_rgb": base[:2] + adobe + base[2:]}
+    progressive, _ = pillow_jpeg(arr, progressive=True)
+    return {"four_components": buf.getvalue(), "adobe_rgb": base[:2] + adobe + base[2:],
+            # SOF1 decodes as baseline; the baseline file patched to SOF9 is arithmetic decoding of Huffman data
+            # (a bad code early: libjpeg warns and leaves the rest of the scan zero); a progression cut after its
+            # third scan is smoothed (jdcoefct.c's decompress_smooth_data)
+            "sof1_extended": _patched(base, b"\xff\xc0", 1, 0xC1),
+            "arithmetic": _patched(base, b"\xff\xc0", 1, 0xC9),
+            "block_smoothing": _partial_progression(progressive)}
 
 
-@pytest.mark.parametrize("form", ["four_components", "adobe_rgb"])
+@pytest.mark.parametrize("form", ["four_components", "adobe_rgb", "sof1_extended", "arithmetic", "block_smoothing"])
 def test_forms_once_refused_decode_as_pillow_does(form):
     data = _once_refused()[form]
     np.testing.assert_array_equal(jpeg.decode_twin(data, "f.jpg"), pillow_rgb(data))
@@ -404,6 +423,149 @@ def test_chip_smoke_writer_headers_are_pillows():
     assert ours[: ours.index(b"\xff\xda")] == theirs[: theirs.index(b"\xff\xda")]
 
 
+# --- arithmetic coding, lossless frames and block smoothing
+
+ARITH_FORMS = {
+    "sequential": {}, "restart2": {"restart": 2}, "progressive": {"progressive": True},
+    "progressive_restart3": {"progressive": True, "restart": 3}, "dac": {"dac": {0: (1, 3, 4), 1: (0, 0, 10)}},
+    "cmyk": {"form": "cmyk"}, "ycck_progressive": {"form": "ycck", "progressive": True},
+    "rgb_restart1": {"form": "rgb", "restart": 1}, "grey": {"grey": True},
+    "grey_progressive": {"grey": True, "progressive": True},
+}
+FORM_SIZES = [(1, 1), (9, 7), (33, 17), (64, 48)]
+
+
+def _writer_image(w: int, h: int, channels: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    field = np.stack([(xx * (3 + c) + yy * (2 + 2 * c) + 40 * c) % 256 for c in range(channels)], axis=2)
+    return np.clip(field + rng.normal(0, 10, field.shape), 0, 255).astype(np.uint8)
+
+
+def arith_file(form: str, w: int, h: int, seed: int = 0, coding: str = "arithmetic") -> bytes:
+    kw = dict(ARITH_FORMS[form])
+    grey = kw.pop("grey", False)
+    arr = _writer_image(w, h, 4 if kw.get("form") in ("cmyk", "ycck") else 3, seed + w * 100 + h)
+    if coding != "arithmetic":
+        kw.pop("progressive", None)
+        kw.pop("dac", None)
+    return chip_smoke.jpeg_bytes(arr[..., 0] if grey else arr, 80, coding=coding, **kw)
+
+
+@pytest.mark.parametrize("form", sorted(ARITH_FORMS))
+@pytest.mark.parametrize("size", FORM_SIZES, ids=[f"{w}x{h}" for w, h in FORM_SIZES])
+def test_arithmetic_forms_decode_as_pillow_does(size, form):
+    """SOF9 / SOF10 from chip_smoke.py's jcarith.c encoder: Pillow's pixels, which for a sequential file are
+    those of the Huffman-coded file of the same coefficients."""
+    data = arith_file(form, *size)
+    assert data[data.index(b"\xff\xc9" if "progressive" not in form else b"\xff\xca")]
+    out = jpeg.decode_twin(data, "f.jpg")
+    np.testing.assert_array_equal(out, pillow_rgb(data))
+    if "progressive" not in form:
+        np.testing.assert_array_equal(out, jpeg.decode_twin(arith_file(form, *size, coding="huffman")))
+
+
+@pytest.mark.parametrize("form", ["sequential", "progressive_restart3", "cmyk", "restart2"])
+def test_corrupt_arithmetic_data_decodes_as_pillow(form):
+    """A byte of the arithmetic-coded data changed: libjpeg decodes on (a bad code leaves the rest of its
+    restart interval zero) and so does the port, to Pillow's pixels -- where the damaged data's coefficients
+    stay within what 8-bit samples give (|coefficient x quantiser| < 1024): past that, Pillow's libjpeg-turbo
+    runs its SIMD IDCT in 16-bit lanes, which wrap where jidctint.c's arithmetic (the port's) does not."""
+    data = arith_file(form, 64, 48, seed=3)
+    coded = []  # the entropy-coded bytes of every scan, markers and stuffing left as they are
+    for sos in [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]:
+        at = sos + 2 + int.from_bytes(data[sos + 2:sos + 4], "big")
+        while not (data[at] == 0xFF and data[at + 1] not in (0x00,) and not 0xD0 <= data[at + 1] <= 0xD7):
+            if data[at] != 0xFF and data[at - 1] != 0xFF and data[at + 1] != 0xFF:
+                coded.append(at)
+            at += 1
+    rng = np.random.default_rng(len(form))
+    held = 0
+    for at in rng.choice(coded, size=min(64, len(coded)), replace=False):
+        bad = data[:at] + bytes([data[at] ^ 0x6B if data[at] ^ 0x6B != 0xFF else 0x11]) + data[at + 1:]
+        frame = jpeg.parse(bad, "f.jpg")
+        coefs = jpeg._decode_coefficients(frame, "f.jpg")
+        if max(int(np.abs(c * frame.latched[i]).max()) for i, c in enumerate(coefs)) >= 1024:
+            continue
+        np.testing.assert_array_equal(jpeg.decode_twin(bad, "f.jpg"), pillow_rgb(bad))
+        held += 1
+    assert held >= 3
+
+
+LOSSLESS_FORMS = {f"predictor{p}": {"predictor": p} for p in range(1, 8)}
+LOSSLESS_FORMS.update({
+    "point_transform2": {"predictor": 4, "point_transform": 2, "form": "rgb"},
+    "restart_rows2": {"predictor": 7, "restart": 2, "form": "rgb"},
+    "subsampled_rgb_ids": {"predictor": 5, "form": "rgb_ids", "factors": [(2, 2), (1, 1), (1, 1)]},
+    "rgb_422": {"predictor": 1, "form": "rgb", "factors": [(1, 1), (2, 1), (1, 2)]},
+    "cmyk": {"predictor": 3, "form": "cmyk"},
+})
+
+
+@pytest.mark.parametrize("form", sorted(LOSSLESS_FORMS))
+@pytest.mark.parametrize("size", FORM_SIZES, ids=[f"{w}x{h}" for w, h in FORM_SIZES])
+def test_lossless_forms_decode_as_pillow_does(size, form):
+    """SOF3 from chip_smoke.py's writer (greyscale unless a form names one): the seven predictors, the point
+    transform, restarts, box upsampling of subsampled components, CMYK."""
+    kw = dict(LOSSLESS_FORMS[form])
+    arr = _writer_image(*size, 4 if kw.get("form") == "cmyk" else 3, size[0] + size[1])
+    data = chip_smoke.jpeg_bytes(arr if "form" in kw else arr[..., 0], coding="lossless", **kw)
+    np.testing.assert_array_equal(jpeg.decode_twin(data, "f.jpg"), pillow_rgb(data))
+
+
+@pytest.mark.parametrize("image", ["noise", "smooth"])
+@pytest.mark.parametrize("subsampling", ["4:4:4", "4:2:2", "4:2:0", "grey"])
+@pytest.mark.parametrize("size", [(9, 17), (20, 50), (33, 70), (40, 30), (17, 24)],
+                         ids=["9x17", "20x50", "33x70", "40x30", "17x24"])
+def test_block_smoothing_as_pillow(size, subsampling, image):
+    """Pillow's progressive files cut after each scan (`_partial_progression`'s form): where the scans leave
+    zigzag 1-9 unrefined libjpeg smooths the blocks (DC interpolation while no AC is known), and the port
+    gives its pixels; the rows near the bottom of a 4:2:0 image are the ones jdcoefct.c's iMCU rows decide."""
+    from PIL import Image
+
+    rng = np.random.default_rng(size[0] * 31 + size[1])
+    arr = (rng.integers(0, 256, (size[1], size[0], 3), np.uint8) if image == "noise"
+           else smooth_image(rng, *size))
+    buf = io.BytesIO()
+    if subsampling == "grey":
+        Image.fromarray(arr).convert("L").save(buf, "JPEG", progressive=True, quality=90)
+    else:
+        Image.fromarray(arr).save(buf, "JPEG", progressive=True, quality=90, subsampling=subsampling)
+    data = buf.getvalue()
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    for k in range(1, len(sos)):
+        cut = data.rfind(b"\xff\xc4", sos[k - 1], sos[k])
+        part = data[: cut if cut > 0 else sos[k]] + b"\xff\xd9"
+        np.testing.assert_array_equal(jpeg.decode_twin(part, "f.jpg"), pillow_rgb(part), err_msg=f"after scan {k}")
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.JPEG_FORM_PILLOW_FILES))
+def test_form_files_match_pillows_digests(name):
+    """chip_smoke.py's Pillow-made SOF1, arithmetic and smoothed files, which the card's decoders are held to."""
+    b64, digest, w, h = chip_smoke.JPEG_FORM_PILLOW_FILES[name]
+    data = base64.b64decode(b64)
+    out = jpeg.decode_twin(data, name)
+    assert out.shape == (h, w, 3) and hashlib.sha256(out.tobytes()).hexdigest() == digest
+    np.testing.assert_array_equal(out, pillow_rgb(data))
+
+
+@pytest.mark.parametrize("colour", [None, "ycbcr", "unknown"])
+def test_decode_samples_is_libjpegs_output(colour):
+    """decode_samples: RGB for YCbCr, every component as stored under "unknown" (libtiff's JCS_UNKNOWN), the
+    stored CMYK of an Adobe file; decode_twin is Pillow's reading of it."""
+    arr = _writer_image(19, 11, 3, 4)
+    data = chip_smoke.jpeg_bytes(arr, 90, sampling=(1, 1))
+    out = jpeg.decode_samples(data, "f.jpg", colour)
+    if colour == "unknown":
+        ycc = jpeg.decode_samples(data, "f.jpg", "ycbcr")
+        assert out.shape == ycc.shape and not np.array_equal(out, ycc)
+    else:
+        np.testing.assert_array_equal(out, pillow_rgb(data))
+    if colour is None:
+        cmyk = chip_smoke.jpeg_bytes(_writer_image(19, 11, 4, 5), 90, form="cmyk")
+        np.testing.assert_array_equal(jpeg.cmyk_to_rgb(255 - jpeg.decode_samples(cmyk, "f.jpg")), pillow_rgb(cmyk))
+
+
 def test_decoder_follows_the_runs_device():
     assert jpeg.decoder_for("cpu") is jpeg.decode_twin
     assert jpeg.decoder_for(torch.device("cuda", 0)) is jpeg.decode_native
@@ -473,7 +635,7 @@ def test_native_reads_the_colour_forms_as_the_twin(native):
 def test_native_rejects_what_the_twin_rejects(native):
     data = base64.b64decode(PILLOW_FILES["rgb_420_q75_17x9"][0])
     scan = data.index(b"\xff\xda")
-    for bad, pattern in [(data[: scan + 40], "truncated"), (_patched(data, b"\xff\xc0", 1, 0xC1), "0xFFC1"),
+    for bad, pattern in [(data[: scan + 40], "truncated"), (_patched(data, b"\xff\xc0", 1, 0xCB), "0xFFCB"),
                          (_patched(data, b"\xff\xc0", 1, 0xC2), "bad progression"),
                          (_patched(data, b"\xff\xc0", 4, 12), "12-bit"), (b"not a jpeg", "no SOI")]:
         with pytest.raises(ValueError, match=pattern):
@@ -483,8 +645,8 @@ def test_native_rejects_what_the_twin_rejects(native):
 @pytest.mark.gpu
 def test_native_progressive_is_bit_equal_to_twin_and_pillow(native):
     """chip_smoke.py's Pillow-made progressive files against Pillow's digests,
-    and progressive forms of the writer's images (restarts, smoothing refused)
-    against the twin."""
+    and progressive forms of the writer's images (restarts, a truncated file
+    refused, a cut progression smoothed) against the twin."""
     import chip_smoke
 
     for name, (b64, digest, w, h) in chip_smoke.PROGRESSIVE_FILES.items():
@@ -495,9 +657,42 @@ def test_native_progressive_is_bit_equal_to_twin_and_pillow(native):
         np.testing.assert_array_equal(native(data, name), jpeg.decode_twin(data, name))
     for b64, *_ in chip_smoke.PROGRESSIVE_FILES.values():
         data = base64.b64decode(b64)
-        for bad in (data[: len(data) // 2], _partial_progression(data)):
-            with pytest.raises(ValueError) as twin_err:
-                jpeg.decode_twin(bad, "f.jpg")
-            with pytest.raises(ValueError) as native_err:
-                native(bad, "f.jpg")
-            assert ("smoothing" in str(twin_err.value)) == ("smoothing" in str(native_err.value))
+        with pytest.raises(ValueError, match="truncated"):
+            native(data[: len(data) // 2], "f.jpg")
+        np.testing.assert_array_equal(native(_partial_progression(data)), jpeg.decode_twin(_partial_progression(data)))
+
+
+@pytest.mark.gpu
+def test_native_new_forms_are_bit_equal_to_twin(native):
+    """SOF1, arithmetic (SOF9 / SOF10, corrupt data too), lossless and smoothed files: the native decoder
+    bit-equal to the twin and to Pillow's digests; decode_samples_native equal to decode_samples."""
+    for name, (b64, digest, w, h) in chip_smoke.JPEG_FORM_PILLOW_FILES.items():
+        assert hashlib.sha256(native(base64.b64decode(b64), name).tobytes()).hexdigest() == digest, name
+    files = [arith_file(form, *size) for form in ARITH_FORMS for size in FORM_SIZES[1:]]
+    for form, kw in LOSSLESS_FORMS.items():
+        arr = _writer_image(33, 17, 4 if kw.get("form") == "cmyk" else 3, 8)
+        files.append(chip_smoke.jpeg_bytes(arr if "form" in kw else arr[..., 0], coding="lossless", **kw))
+    progressive = arith_file("progressive", 33, 70)  # cut after each scan: smoothed
+    sos = [i for i in range(len(progressive) - 1) if progressive[i:i + 2] == b"\xff\xda"]
+    files += [progressive[: sos[k]] + b"\xff\xd9" for k in range(1, len(sos))]
+    data = arith_file("progressive_restart3", 64, 48, seed=3)
+    files += [data[:at] + bytes([data[at] ^ 0x6B]) + data[at + 1:] for at in range(200, len(data) - 4, 97)]
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(lambda d: _either(native, d), files))
+    for data, out in zip(files, outs):
+        want = _either(jpeg.decode_twin, data)
+        if isinstance(want, str):
+            assert isinstance(out, str), want
+        else:
+            np.testing.assert_array_equal(out, want)
+    base = chip_smoke.jpeg_bytes(_writer_image(19, 11, 3, 4), 90)
+    for colour in (None, "ycbcr", "unknown"):
+        np.testing.assert_array_equal(jpeg.decode_samples_native(base, "f.jpg", colour),
+                                      jpeg.decode_samples(base, "f.jpg", colour))
+
+
+def _either(fn, data):
+    try:
+        return fn(data, "f.jpg")
+    except ValueError as err:
+        return str(err)

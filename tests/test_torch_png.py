@@ -183,8 +183,8 @@ def test_corrupt_files_raise_or_decode_never_crash():
 
 
 def test_read_image_decodes_by_signature_not_name(tmp_path):
-    """A PNG named .jpg and a JPEG named .png decode; Pillow's GIF, BMP and
-    WebP files decode to its pixels, WebP under a wrong suffix too; TIFF,
+    """A PNG named .jpg and a JPEG named .png decode; Pillow's GIF, BMP,
+    WebP and TIFF files decode to its pixels, WebP under a wrong suffix too;
     unknown bytes and a RIFF / WEBP file whose first chunk Pillow does not
     take raise naming the file and the format found."""
     from PIL import Image
@@ -204,8 +204,7 @@ def test_read_image_decodes_by_signature_not_name(tmp_path):
                                   np.asarray(Image.open(tmp_path / "c.webp").convert("RGB")))
     path = tmp_path / "c.tiff"
     Image.fromarray(arr).save(path, "TIFF")
-    with pytest.raises(ValueError, match=rf"^{path}: TIFF image"):
-        jpeg.read_image(str(path), "cpu")
+    np.testing.assert_array_equal(jpeg.read_image(str(path), "cpu"), np.asarray(Image.open(path).convert("RGB")))
     (tmp_path / "d.jpg").write_bytes(b"hello")
     with pytest.raises(ValueError, match=r"d\.jpg: unknown image"):
         jpeg.read_image(str(tmp_path / "d.jpg"), "cpu")
@@ -214,7 +213,7 @@ def test_read_image_decodes_by_signature_not_name(tmp_path):
     with pytest.raises(ValueError, match=r"e\.webp: unknown image"):
         jpeg.read_image(str(tmp_path / "e.webp"), "cpu")
     assert [jpeg.image_format(b) for b in (b"\xff\xd8\xff", png.SIGNATURE, b"MM\x00*", b"GIF89a", b"BM", webp_data)] == [
-        "jpeg", "png", "TIFF", "gif", "bmp", "webp"]
+        "jpeg", "png", "tiff", "gif", "bmp", "webp"]
 
 
 def test_decoder_follows_the_runs_device():
@@ -260,3 +259,24 @@ def test_native_in_threads_and_refusals(native):
     for form, (data, pattern) in _refused().items():
         with pytest.raises(ValueError, match=rf"^f\.png: .*{pattern}"):
             native(data, "f.png")
+
+
+REFUSED_FORMATS = {
+    "AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00", "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00",
+    "ICO": b"\x00\x00\x01\x00\x01\x00", "CUR": b"\x00\x00\x02\x00\x01\x00", "PPM": b"P6\n4 4\n255\n",
+    "PSD": b"8BPS\x00\x01", "QOI": b"qoif\x00\x00\x00\x04", "SGI": b"\x01\xda\x00\x01", "PCX": b"\x0a\x05\x01\x08",
+    "DDS": b"DDS \x7c\x00\x00\x00", "ICNS": b"icns\x00\x00", "BLP": b"BLP2\x01", "Sun raster": b"\x59\xa6\x6a\x95",
+    "EPS": b"%!PS-Adobe-3.0", "XBM": b"#define im_width 8", "XPM": b"/* XPM */\n", "HDF5": b"\x89HDF\r\n",
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_FORMATS))
+def test_formats_pillow_reads_and_the_port_does_not_are_named(tmp_path, name):
+    """A file of a format Pillow's Image.open reads and the port does not decode raises naming the format
+    (ROADMAP Queue 3), not "unknown"."""
+    data = REFUSED_FORMATS[name] + bytes(64)
+    assert jpeg.image_format(data) == name
+    path = tmp_path / "x.jpg"
+    path.write_bytes(data)
+    with pytest.raises(ValueError, match=rf"^{path}: {name} image \(by its signature\)"):
+        jpeg.read_image(str(path), "cpu")

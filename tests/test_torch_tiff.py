@@ -1,0 +1,466 @@
+"""The TIFF decoders (`uniir_tpu_torch.data.tiff`): the twin bit-equal to
+Pillow's `Image.open(...).convert("RGB")` (TiffImagePlugin, libtiff 4.7) on
+Pillow-made files of every mode and compression Pillow writes, on every form
+of chip_smoke.py's TIFF writer (strips and tiles, planar configuration 2,
+both byte orders, BigTIFF, predictors 2 and 3, FillOrder 2, orientations
+1-8, 16-bit ColorMaps, associated alpha, CCITT 1-D), on Group 3 / Group 4
+files, on truncated and corrupted files, and the named refusals; and
+(`-m gpu`, on the card's machine, where nvcc builds csrc/tiff.cu) the native
+decoder bit-equal to the twin and to Pillow's digests.
+
+The module imports no JAX and no Pillow at its top, so its `-m gpu` cases
+collect with `--noconftest` on a machine that has neither."""
+
+import base64
+import hashlib
+import io
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from uniir_tpu_torch.data import jpeg, tiff
+
+
+def pillow_rgb(data: bytes):
+    """Pillow's pixels, or the exception it raises."""
+    from PIL import Image
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        except Exception as err:  # noqa: BLE001 -- any refusal of Pillow's
+            return err
+
+
+def assert_as_pillow(data: bytes) -> None:
+    """The twin gives Pillow's pixels, or raises (naming the file) where Pillow raises."""
+    ref = pillow_rgb(data)
+    if isinstance(ref, Exception):
+        with pytest.raises(ValueError, match=r"^f\.tif: "):
+            tiff.decode_twin(data, "f.tif")
+        return
+    np.testing.assert_array_equal(tiff.decode_twin(data, "f.tif"), ref)
+
+
+def pillow_tiff(im, **kw) -> bytes:
+    buf = io.BytesIO()
+    im.save(buf, "TIFF", **kw)
+    return buf.getvalue()
+
+
+# --- 1. Pillow-made files: every mode and compression Pillow writes
+
+MODES = ("RGB", "L", "1", "P", "RGBA", "CMYK", "I;16", "F", "LA", "I", "YCbCr", "LAB")
+COMPRESSIONS = ("raw", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "packbits", "lzma", "zstd", "jpeg", "group3",
+                "group4", "tiff_ccitt")
+# what the port refuses of what Pillow reads (ROADMAP Queue 3): ZSTD has no stdlib decoder, and Pillow converts
+# LAB to RGB through LittleCMS
+PORT_REFUSES = {"zstd": "ZSTD", "LAB": "CIELAB"}
+
+
+def _matrix():
+    for mode in MODES:
+        for comp in COMPRESSIONS:
+            if comp in ("group3", "group4", "tiff_ccitt") and mode != "1":
+                continue
+            if comp == "jpeg" and mode not in ("RGB", "L", "CMYK", "YCbCr"):
+                continue
+            yield mode, comp
+
+
+def pillow_image(mode: str, seed: int = 0):
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 256, (13, 21, 3), np.uint8)
+    if mode in ("I;16", "F", "I"):
+        vals = {"I;16": rng.integers(0, 700, (13, 21)).astype(np.uint16),
+                "F": rng.normal(100, 150, (13, 21)).astype(np.float32),
+                "I": rng.integers(-300, 700, (13, 21)).astype(np.int32)}[mode]
+        return Image.fromarray(vals)
+    if mode == "RGBA":
+        return Image.fromarray(np.concatenate([a, rng.integers(0, 256, (13, 21, 1), np.uint8)], 2))
+    if mode == "P":
+        return Image.fromarray(a).convert("P", palette=Image.Palette.ADAPTIVE, colors=37)
+    return Image.fromarray(a).convert(mode)
+
+
+@pytest.mark.parametrize("mode,compression", list(_matrix()))
+def test_pillow_files_decode_as_pillow_does(mode, compression):
+    data = pillow_tiff(pillow_image(mode), compression=compression)
+    refused = PORT_REFUSES.get(compression) or PORT_REFUSES.get(mode)
+    if refused:  # Pillow reads it; the port names what it does not decode
+        assert not isinstance(pillow_rgb(data), Exception)
+        with pytest.raises(ValueError, match=rf"^f\.tif: .*{refused}"):
+            tiff.decode_twin(data, "f.tif")
+        return
+    assert_as_pillow(data)  # raw YCbCr raises in both (Pillow: raw mode RGBX over three samples)
+
+
+@pytest.mark.parametrize("orientation", range(1, 9))
+@pytest.mark.parametrize("compression", ["raw", "tiff_lzw"])
+def test_pillow_files_are_transposed_by_their_orientation(orientation, compression):
+    """exif_transpose in TiffImageFile.load_end: 5-8 swap width and height."""
+    from PIL import Image
+
+    a = np.random.default_rng(orientation).integers(0, 256, (23, 37, 3), np.uint8)
+    data = pillow_tiff(Image.fromarray(a), compression=compression, tiffinfo={274: orientation})
+    out = tiff.decode_twin(data, "f.tif")
+    assert out.shape == ((37, 23, 3) if orientation >= 5 else (23, 37, 3))
+    np.testing.assert_array_equal(out, pillow_rgb(data))
+
+
+@pytest.mark.parametrize("compression,t4", [("group3", 0), ("group3", 1), ("group3", 5), ("group3", 4), ("group4", 0),
+                                            ("tiff_ccitt", 0)])
+@pytest.mark.parametrize("w,h", [(1, 1), (8, 3), (37, 23), (300, 41), (1728, 5)])
+def test_pillow_ccitt_files_decode_as_pillow_does(compression, t4, w, h):
+    """Group 3 1-D and 2-D (T4Options 1 / 5), Group 4 and modified Huffman rows, noise and blocks: libtiff's
+    padding of the bit accumulator with zeros at the end of the data included (an 8 x 3 RLE strip whose last
+    row libtiff reads shifted)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(w * 7 + h)
+    opts = {292: t4} if t4 else {}
+    for a in (rng.random((h, w)) > 0.6,
+              np.kron(rng.random((h // 3 + 1, w // 5 + 1)) > 0.5, np.ones((3, 5), bool))[:h, :w]):
+        assert_as_pillow(pillow_tiff(Image.fromarray(a), compression=compression, tiffinfo=opts))
+
+
+def test_invalid_headers_and_bigtiff_as_pillow():
+    """Pillow's two "invalid" headers read uncompressed files and fail compressed ones (libtiff's bad magic);
+    Pillow's BigTIFF."""
+    from PIL import Image
+
+    a = np.random.default_rng(3).integers(0, 256, (20, 30, 3), np.uint8)
+    for comp in ("raw", "tiff_lzw"):
+        data = pillow_tiff(Image.fromarray(a), compression=comp)
+        assert_as_pillow(data)
+        assert_as_pillow(b"II\x00\x2a" + data[4:])
+        mm = chip_smoke.tiff_bytes(a, 2, order="MM", compression=1 if comp == "raw" else 5)
+        assert_as_pillow(b"MM\x2a\x00" + mm[4:])
+        assert_as_pillow(pillow_tiff(Image.fromarray(a), compression=comp, big_tiff=True))
+    bad = b"II\x00\x2a" + pillow_tiff(Image.fromarray(a), compression="tiff_lzw")[4:]
+    with pytest.raises(ValueError, match=r"^f\.tif: .*bad magic"):
+        tiff.decode_twin(bad, "f.tif")
+
+
+# --- 2. every form of chip_smoke.py's writer
+
+
+def _samples(rng, h, w):
+    return {
+        "rgb": rng.integers(0, 256, (h, w, 3), np.uint8),
+        "rgba": rng.integers(0, 256, (h, w, 4), np.uint8),
+        "rgba16": rng.integers(0, 65536, (h, w, 4)).astype(np.uint16),
+        "bilevel": (rng.random((h, w, 1)) > 0.5).astype(np.uint8),
+    }
+
+
+def _writer_forms():
+    """tag -> (samples key or callable, tiff_bytes keywords)."""
+    forms = {}
+    for comp in (1, 5, 8, 32946, 32773, 34925, 7):
+        for order in ("II", "MM"):
+            for big in (False, True):
+                for lay, lay_kw in (("strips", dict(rows_per_strip=5)), ("tiles", dict(tile=(16, 16))),
+                                    ("one_strip", {})):
+                    for planar in ((1, 2) if comp != 7 else (1,)):
+                        forms[f"rgb-c{comp}-{order}-big{int(big)}-{lay}-planar{planar}"] = (
+                            "rgb", dict(photometric=2, compression=comp, order=order, bigtiff=big, planar=planar,
+                                        **lay_kw))
+    for comp in (1, 5, 8, 32773):
+        for kind in ("rgb", "grey", "rgb16", "grey16"):
+            for order in ("II", "MM"):
+                forms[f"predictor2-c{comp}-{kind}-{order}"] = (kind, dict(
+                    photometric=2 if kind.startswith("rgb") else 1, compression=comp, predictor=2, order=order,
+                    rows_per_strip=7))
+    for comp in (5, 8):
+        for order in ("II", "MM"):
+            forms[f"predictor3-c{comp}-{order}"] = ("float", dict(photometric=1, compression=comp, predictor=3,
+                                                                  order=order, rows_per_strip=6))
+            forms[f"float-c{comp}-{order}"] = ("float", dict(photometric=1, compression=comp, order=order))
+    for o in range(1, 9):
+        for comp in (1, 5):
+            forms[f"orientation{o}-c{comp}"] = ("rgb", dict(photometric=2, compression=comp, orientation=o,
+                                                            rows_per_strip=4))
+    for comp in (1, 2, 3, 5, 32773):
+        for fill in (1, 2):
+            for ph in (0, 1):
+                forms[f"bilevel-c{comp}-fillorder{fill}-photometric{ph}"] = ("bilevel", dict(
+                    photometric=ph, compression=comp, bits=1, fillorder=fill, rows_per_strip=9,
+                    t4options=4 if comp == 3 else 0))
+    for b in (2, 4):
+        for ph in (0, 1, 3):
+            for fill in (1, 2):
+                for comp in (1, 5):
+                    forms[f"{b}bit-photometric{ph}-fillorder{fill}-c{comp}"] = (f"bits{b}", dict(
+                        photometric=ph, bits=b, fillorder=fill, compression=comp, colormap=ph == 3))
+    for fill in (1, 2):
+        for comp in (1, 5):
+            forms[f"grey-fillorder{fill}-c{comp}"] = ("grey", dict(photometric=1, fillorder=fill, compression=comp))
+            forms[f"rgb-fillorder{fill}-c{comp}"] = ("rgb", dict(photometric=2, fillorder=fill, compression=comp))
+            forms[f"palette-fillorder{fill}-c{comp}"] = ("grey", dict(photometric=3, fillorder=fill,
+                                                                       compression=comp, colormap=True))
+    for extra in ((1,), (2,), (0,), ()):
+        for comp in (1, 5):
+            for planar in (1, 2):
+                forms[f"rgba-extra{''.join(map(str, extra))}-c{comp}-planar{planar}"] = (
+                    "rgba", dict(photometric=2, extra=extra, compression=comp, planar=planar))
+    for extra in ((1,), (2,), (0,)):
+        for order in ("II", "MM"):
+            for comp in (1, 5):
+                forms[f"rgba16-extra{extra[0]}-{order}-c{comp}"] = ("rgba16", dict(photometric=2, extra=extra,
+                                                                                   order=order, compression=comp))
+    for order in ("II", "MM"):
+        for comp in (1, 5):
+            forms[f"cmyk-{order}-c{comp}"] = ("rgba", dict(photometric=5, order=order, compression=comp))
+            forms[f"la-{order}-c{comp}"] = ("la", dict(photometric=1, extra=(2,), order=order, compression=comp))
+            for kind in ("int16", "int32", "uint16"):
+                forms[f"{kind}-{order}-c{comp}"] = (kind, dict(photometric=1, order=order, compression=comp))
+    for samp in ((2, 2), (1, 1), (2, 1)):
+        for lay, lay_kw in (("strips", dict(rows_per_strip=16)), ("tiles", dict(tile=(16, 16))), ("one_strip", {})):
+            forms[f"jpeg-ycbcr{samp[0]}{samp[1]}-{lay}"] = ("rgb", dict(photometric=6, compression=7,
+                                                                        ycbcr_sampling=samp, **lay_kw))
+    forms["jpeg-grey"] = ("grey", dict(photometric=1, compression=7, rows_per_strip=8))
+    forms["jpeg-cmyk"] = ("rgba", dict(photometric=5, compression=7, rows_per_strip=8))
+    for comp in (5, 8, 32773):
+        forms[f"ycbcr-c{comp}"] = ("rgb", dict(photometric=6, compression=comp, rows_per_strip=8))
+    forms["lzw-compat"] = ("rgb", dict(photometric=2, compression=5, lzw_compat=True))
+    forms["lzw-full-table"] = ("levels", dict(photometric=2, compression=5))
+    forms["lzw-compat-full-table"] = ("levels", dict(photometric=2, compression=5, lzw_compat=True))
+    for comp in (1, 5):
+        forms[f"la-planar-c{comp}"] = ("la", dict(photometric=1, extra=(2,), planar=2, compression=comp))
+        forms[f"pa-planar-c{comp}"] = ("la", dict(photometric=3, extra=(2,), planar=2, compression=comp,
+                                                  colormap=True))
+        forms[f"cmyk-planar-c{comp}"] = ("rgba", dict(photometric=5, planar=2, compression=comp))
+        forms[f"grey16-planar-c{comp}"] = ("grey16", dict(photometric=1, planar=2, compression=comp))
+        forms[f"rgb16-planar-c{comp}"] = ("rgb16", dict(photometric=2, planar=2, compression=comp))
+    return forms
+
+
+WRITER_FORMS = _writer_forms()
+
+
+def writer_file(tag: str, seed: int = 1, h: int = 23, w: int = 37) -> bytes:
+    kind, kw = WRITER_FORMS[tag]
+    rng = np.random.default_rng(seed)
+    s = _samples(rng, h, w)
+    s.update(grey=s["rgb"][..., :1], rgb16=s["rgba16"][..., :3], grey16=s["rgba16"][..., :1], la=s["rgba"][..., :2],
+             float=rng.normal(100, 200, (h, w, 1)).astype(np.float32),
+             int16=rng.integers(-40000, 70000, (h, w, 1)).astype(np.int16),
+             int32=rng.integers(-40000, 70000, (h, w, 1)).astype(np.int32),
+             uint16=rng.integers(0, 70000, (h, w, 1)).astype(np.uint16),
+             bits2=rng.integers(0, 4, (h, w, 1)).astype(np.uint8), bits4=rng.integers(0, 16, (h, w, 1)).astype(np.uint8),
+             levels=rng.integers(0, 4, (200, 300, 3)).astype(np.uint8) * 60)
+    samples = s[kind]
+    kw = dict(kw)
+    if kw.pop("colormap", False):
+        kw["colormap"] = list(rng.integers(0, 65536, 3 << kw.get("bits", 8)))
+    return chip_smoke.tiff_bytes(samples, **kw)
+
+
+@pytest.mark.parametrize("tag", sorted(WRITER_FORMS))
+def test_writer_forms_decode_as_pillow_does(tag):
+    """Each of the writer's forms: the twin gives Pillow's pixels, or raises where Pillow raises (a planar
+    RGBX or a 2 / 4-bit palette with FillOrder 2, for which Pillow has no unpacker)."""
+    assert_as_pillow(writer_file(tag))
+
+
+# --- 3. refusals, truncations and corruptions
+
+
+def _patched_compression(data: bytes, value: int) -> bytes:
+    """A little-endian classic TIFF with its Compression tag's value replaced."""
+    import struct
+
+    t = tiff.parse(data)
+    at = data.index(struct.pack("<HHL", 259, 3, 1) + struct.pack("<H", t.compression))
+    return data[:at + 8] + struct.pack("<H", value) + data[at + 10:]
+
+
+@pytest.mark.parametrize("value,pattern", [(6, "old-style JPEG"), (50001, "WebP"), (32766, "NeXT"),
+                                           (32809, "ThunderScan"), (34676, "SGILog"), (34661, "JBIG"),
+                                           (34887, "LERC"), (12345, "unknown TIFF compression")])
+def test_codecs_pillow_refuses_too_raise_by_name(value, pattern):
+    """Compressions neither Pillow nor the port reads: both raise, the port naming the file and the codec."""
+    data = _patched_compression(writer_file("rgb-c5-II-big0-strips-planar1"), value)
+    assert isinstance(pillow_rgb(data), Exception)
+    with pytest.raises(ValueError, match=rf"^f\.tif: .*{pattern}"):
+        tiff.decode_twin(data, "f.tif")
+
+
+def _truncation_files(pillow_made: bool = True):
+    """Files of each codec cut and corrupted below; `pillow_made`: Pillow's Group 3 2-D and Group 4 files too
+    (the card's machine has no Pillow)."""
+    rng = np.random.default_rng(7)
+    h, w = 40, 53
+    rgb = rng.integers(0, 256, (h, w, 3), np.uint8) // 32 * 32
+    bil = np.kron(rng.random((h // 4 + 1, w // 3 + 1)) > 0.5, np.ones((4, 3), np.uint8))[:h, :w, None].astype(np.uint8)
+    files = {f"c{c}": chip_smoke.tiff_bytes(rgb, 6 if c == 7 else 2, compression=c, rows_per_strip=16)
+             for c in (1, 5, 8, 32773, 34925, 7)}
+    files["lzw-compat"] = chip_smoke.tiff_bytes(rgb, 2, compression=5, lzw_compat=True, rows_per_strip=16)
+    files["predictor2"] = chip_smoke.tiff_bytes(rgb, 2, compression=5, predictor=2, rows_per_strip=16)
+    files["tiles"] = chip_smoke.tiff_bytes(rgb, 2, compression=5, tile=(16, 16))
+    files["rle"] = chip_smoke.tiff_bytes(bil, 0, compression=2, bits=1, rows_per_strip=16)
+    files["g3"] = chip_smoke.tiff_bytes(bil, 0, compression=3, bits=1, rows_per_strip=16)
+    if pillow_made:
+        from PIL import Image
+
+        files["g3-2d"] = pillow_tiff(Image.fromarray(bil[..., 0].astype(bool)), compression="group3",
+                                     tiffinfo={292: 1})
+        files["g4"] = pillow_tiff(Image.fromarray(bil[..., 0].astype(bool)), compression="group4")
+    return files
+
+
+# Where the port does not give Pillow's answer (ROADMAP Queue 3), it raises: a Group 3 strip that ends early
+# (libtiff goes on decoding rows past the data's end), a Group 4 strip that ends before its last row (libtiff
+# leaves the later rows unwritten: Pillow's buffer as it was).  A corrupt JPEG strip is the port's JPEG decoder
+# against libjpeg on corrupt data (a run past coefficient 63, a damaged table), which it may also decode
+# differently.
+DIVERGES = {("g3", "cut"), ("g3-2d", "cut"), ("g4", "cut"), ("g3", "flip"), ("g3-2d", "flip"), ("g4", "flip"),
+            ("c7", "flip")}
+
+
+@pytest.mark.parametrize("codec", ["c1", "c5", "c8", "c32773", "c34925", "c7", "lzw-compat", "predictor2", "tiles",
+                                   "rle", "g3", "g3-2d", "g4"])
+def test_truncations_and_corruptions_as_pillow(codec):
+    """Each codec cut at four points of its data and with single bytes flipped: the twin raises where Pillow
+    raises and gives Pillow's pixels where Pillow gives an image, except the DIVERGES cases, where the port
+    raises."""
+    data = _truncation_files()[codec]
+    t = tiff.parse(data)
+    offs = t.tags.get(273) or t.tags.get(324)
+    counts = t.tags.get(279) or t.tags.get(325)
+    start, end = offs[0], offs[-1] + counts[-1]
+    cases = [("cut", data[: int(start + (end - start) * f)]) for f in (0.2, 0.5, 0.8, 0.97)]
+    for j in range(6):
+        pos = int(start + (end - start) * (j + 0.5) / 6)
+        cases.append(("flip", data[:pos] + bytes([data[pos] ^ (0x5A + j)]) + data[pos + 1:]))
+    for kind, bad in cases:
+        ref = pillow_rgb(bad)
+        try:
+            got = tiff.decode_twin(bad, "f.tif")
+        except ValueError as err:
+            assert str(err).startswith("f.tif: ")
+            assert isinstance(ref, Exception) or (codec, kind) in DIVERGES, (kind, err)
+            continue
+        assert not isinstance(ref, Exception), (kind, ref)
+        if codec != "c7":
+            np.testing.assert_array_equal(got, ref)
+
+
+def test_embedded_pillow_files_decode_to_pillows_digests():
+    """The Pillow-made files chip_smoke.py carries for the card's machine (libtiff's own JPEG, Group 3 / 4 and
+    LZMA output): the twin gives Pillow's digests and pixels."""
+    for name, (b64, digest, w, h) in chip_smoke.TIFF_PILLOW_FILES.items():
+        data = base64.b64decode(b64)
+        out = tiff.decode_twin(data, name)
+        assert out.shape == (h, w, 3) and hashlib.sha256(out.tobytes()).hexdigest() == digest, name
+        np.testing.assert_array_equal(out, pillow_rgb(data))
+
+
+def test_read_image_decodes_tiff_by_signature(tmp_path):
+    data = writer_file("rgb-c5-II-big1-tiles-planar2")
+    (tmp_path / "a.jpg").write_bytes(data)
+    assert jpeg.image_format(data) == "tiff"
+    np.testing.assert_array_equal(jpeg.read_image(str(tmp_path / "a.jpg"), "cpu"), pillow_rgb(data))
+
+
+def test_dataset_items_from_tiff_files_equal_jax(tmp_path):
+    """The port's MBEIRCandidatePoolDataset item for a `.tif` img_path equals the JAX package's (fp32): an LZW
+    RGB TIFF with the horizontal predictor, a tiled big-endian Deflate one, a palette TIFF, a Group 4 one and an
+    orientation-6 one (Pillow's own transposition)."""
+    import json
+    import os
+
+    from tests.helpers import identity_image_transform
+    from tests.torch_helpers import on_array
+    from uniir_tpu.data import dataset as jax_dataset
+    from uniir_tpu_torch.data import dataset
+
+    os.makedirs(tmp_path / "images")
+    files = {"lzw_predictor": writer_file("predictor2-c5-rgb-II", seed=2),
+             "tiles_deflate_mm": writer_file("rgb-c8-MM-big0-tiles-planar1", seed=3),
+             "palette": writer_file("palette-fillorder1-c5", seed=4),
+             "group4": _truncation_files()["g4"],
+             "orientation6": writer_file("orientation6-c5", seed=5)}
+    with open(tmp_path / "cand_pool.jsonl", "w") as f:
+        for i, (name, data) in enumerate(files.items()):
+            (tmp_path / "images" / f"{name}.tif").write_bytes(data)
+            f.write(json.dumps({"did": f"9:{i}", "modality": "image", "img_path": f"images/{name}.tif"}) + "\n")
+    transform = identity_image_transform(32)
+    ours = dataset.MBEIRCandidatePoolDataset(str(tmp_path), "cand_pool.jsonl", on_array(transform), device="cpu")
+    theirs = jax_dataset.MBEIRCandidatePoolDataset(str(tmp_path), "cand_pool.jsonl", transform)
+    assert len(ours) == len(theirs) == len(files)
+    for i in range(len(ours)):
+        a, b = ours[i], theirs[i]
+        assert a.keys() == b.keys()
+        assert a["img"].dtype == b["img"].dtype == np.float32
+        np.testing.assert_array_equal(a["img"], b["img"])
+        assert {k: v for k, v in a.items() if k != "img"} == {k: v for k, v in b.items() if k != "img"}
+
+
+def test_decoder_follows_the_runs_device():
+    assert tiff.decoder_for("cpu") is tiff.decode_twin
+    assert tiff.decoder_for(torch.device("cuda", 0)) is tiff.decode_native
+
+
+# --- 4. the native decoder (csrc/tiff.cu, built by nvcc on the card's machine)
+
+
+@pytest.fixture
+def native():
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card's machine: csrc/tiff.cu is built by nvcc, which is installed there")
+    return tiff.decode_native
+
+
+NATIVE_FORMS = [tag for tag in sorted(WRITER_FORMS) if any(k in tag for k in ("-c5", "-c2", "-c3", "-c32773", "lzw",
+                                                                               "jpeg"))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", NATIVE_FORMS)
+def test_native_is_bit_equal_to_twin(native, tag):
+    data = writer_file(tag, seed=5)
+    try:
+        want = tiff.decode_twin(data, "f.tif")
+    except ValueError:
+        with pytest.raises(ValueError, match=r"^f\.tif: "):
+            native(data, "f.tif")
+        return
+    before = tiff.decode_native.calls
+    np.testing.assert_array_equal(native(data, "f.tif"), want)
+    assert tiff.decode_native.calls == before + 1
+
+
+@pytest.mark.gpu
+def test_native_on_pillow_files_truncations_and_threads(native):
+    """Pillow's digests, the truncations and corruptions (equal to the twin or raising with it), and the
+    loader's threads at once."""
+    for name, (b64, digest, w, h) in chip_smoke.TIFF_PILLOW_FILES.items():
+        assert hashlib.sha256(native(base64.b64decode(b64), name).tobytes()).hexdigest() == digest, name
+    for codec, data in _truncation_files(pillow_made=False).items():
+        t = tiff.parse(data)
+        offs = t.tags.get(273) or t.tags.get(324)
+        counts = t.tags.get(279) or t.tags.get(325)
+        start, end = offs[0], offs[-1] + counts[-1]
+        for f in (0.2, 0.5, 0.97):
+            bad = data[: int(start + (end - start) * f)]
+            try:
+                want = tiff.decode_twin(bad, "f.tif")
+            except ValueError:
+                with pytest.raises(ValueError, match=r"^f\.tif: "):
+                    native(bad, "f.tif")
+                continue
+            np.testing.assert_array_equal(native(bad, "f.tif"), want)
+    files = [writer_file(tag, seed=9) for tag in NATIVE_FORMS[:12]]
+    with ThreadPoolExecutor(8) as pool:
+        outs = list(pool.map(native, files * 2))
+    for i, out in enumerate(outs):
+        np.testing.assert_array_equal(out, tiff.decode_twin(files[i % len(files)]))

@@ -181,12 +181,14 @@ def test_interactive_retriever_reads_png_and_progressive_like_jax(trees, fmt):
     assert got == want
 
 
-@pytest.mark.parametrize("fmt", ["gif", "bmp", "cmyk_jpeg", "ycck_jpeg", "webp_lossy", "webp_lossless_alpha"])
+@pytest.mark.parametrize("fmt", ["gif", "bmp", "cmyk_jpeg", "ycck_jpeg", "webp_lossy", "webp_lossless_alpha", "tiff",
+                                 "arith_jpeg"])
 def test_interactive_retriever_reads_gif_bmp_and_cmyk_like_jax(trees, fmt):
     """An image query from a GIF (interlaced, a local palette), a BMP (RLE8),
-    a CMYK / YCCK JPEG, a lossy WebP or a lossless WebP with alpha, each from
-    chip_smoke.py's writers: the port's decoders give the JAX retriever's
-    candidates and its query embeddings within EMBED_ATOL in fp32."""
+    a CMYK / YCCK JPEG, a lossy WebP, a lossless WebP with alpha, an LZW TIFF
+    (tiles, horizontal predictor) or an arithmetic-coded progressive JPEG,
+    each from chip_smoke.py's writers: the port's decoders give the JAX
+    retriever's candidates and its query embeddings within EMBED_ATOL in fp32."""
     import chip_smoke
     import jax.numpy as jnp
     from PIL import Image
@@ -205,9 +207,15 @@ def test_interactive_retriever_reads_gif_bmp_and_cmyk_like_jax(trees, fmt):
         data = chip_smoke.webp_bytes("lossy", 5, 0, 0, image=arr)
     elif fmt == "webp_lossless_alpha":
         data = chip_smoke.webp_bytes("lossless", 6, 0, 0, image=np.concatenate([arr, 255 - arr[..., :1]], axis=2))
+    elif fmt == "tiff":
+        data = chip_smoke.tiff_bytes(arr, 2, compression=5, predictor=2, tile=(16, 16))
+    elif fmt == "arith_jpeg":
+        data = chip_smoke.jpeg_bytes(arr, 90, coding="arithmetic", progressive=True)
     else:
         data = chip_smoke.jpeg_bytes(np.concatenate([255 - arr, arr[..., :1]], axis=2), 90, form=fmt[:4])
     rel = f"images/query_{fmt}.{'webp' if fmt.startswith('webp') else fmt.split('_')[-1]}"
+    if fmt == "tiff":
+        rel = "images/query_tiff.tif"
     with open(os.path.join(trees.mbeir, rel), "wb") as f:
         f.write(data)
     ours, ref = _retrievers(trees)

@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`,
-`csrc/png.cu`, `csrc/gif.cu` and `csrc/webp.cu`) at first use and load them
-with ctypes.
+`csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu` and `csrc/tiff.cu`) at first use
+and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -62,12 +62,17 @@ SIGNATURES = {
     "jpeg": {
         "uniir_jpeg_info": (_P, _S, _P, _P, _I),
         "uniir_jpeg_decode": (_P, _S, _P, _I, _I, _P, _I),
+        "uniir_jpeg_samples_info": (_P, _S, _I, _P, _P, _I),
+        "uniir_jpeg_decode_samples": (_P, _S, _I, _P, _I, _I, _I, _P, _I),
     },
     "png": {
         "uniir_png_decode": (_P, _S, _I, _I, _I, _I, _I, _P, _P, _P, _I),
     },
     "gif": {
         "uniir_gif_decode": (_P, _S, _S, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I),
+    },
+    "tiff": {
+        "uniir_tiff_decode": (_P, _S, _P, _I, _P, _I, _P, _P, _S, _P, _P, _P, _P, _I),
     },
     "webp": {
         "uniir_webp_info": (_P, _S, _P, _P, _I),

@@ -1,28 +1,38 @@
-// Baseline and progressive JPEG decoder: host code, no kernel.
+// JPEG decoder: host code, no kernel.
 //
 // The native twin of uniir_tpu_torch/data/jpeg.py::decode_twin, which is the
 // reference: the same function, bit for bit -- what Pillow's
-// `Image.open(path).convert("RGB")` gives through libjpeg-turbo at its
-// defaults: jdhuff.c's sequential and jdphuff.c's progressive Huffman
-// decoding (DC first / refinement scans, AC first scans with EOB runs, AC
-// refinement scans) into one coefficient buffer over all scans, each
-// component's quantisation table latched at its first scan (jdinput.c),
-// jidctint.c's integer IDCT (CONST_BITS 13, PASS1_BITS 2, the
-// 10-bit range-limit table), jdsample.c's fancy upsampling (h2v1, h1v2, h2v2
+// `Image.open(path).convert("RGB")` gives through libjpeg-turbo 3.1 at its
+// defaults: jdhuff.c's sequential (SOF0 / SOF1) and jdphuff.c's progressive
+// (SOF2) Huffman decoding (DC first / refinement scans, AC first scans with
+// EOB runs, AC refinement scans), jdarith.c's arithmetic decoding (SOF9 /
+// SOF10: the QM coder of T.81 Annex D with jaricom.c's table, DAC
+// conditioning, statistics reset at every restart, a bad code leaving the
+// rest of its restart interval undecoded) into one coefficient buffer over
+// all scans, each component's quantisation table latched at its first scan
+// (jdinput.c), jdcoefct.c's block smoothing of a progressive image whose
+// scans leave zigzag 1-9 unrefined (decompress_smooth_data: the 5 x 5 DC
+// neighbourhood, DC interpolation when no AC is known; rows read as Pillow's
+// libjpeg-turbo 3.1 reads them, see data/jpeg.py::smooth_blocks),
+// jidctint.c's integer IDCT (CONST_BITS 13, PASS1_BITS 2, the 10-bit
+// range-limit table), jdsample.c's fancy upsampling (h2v1, h1v2, h2v2
 // triangle filters with their alternating rounding bias, edges replicated;
 // box replication where a 2x-wide component is at most 2 samples wide),
-// the colour space jdapimin.c's default_decompress_parms picks (3
-// components: YCbCr under JFIF, RGB under Adobe transform 0 or, without
+// lossless SOF3 (jdlhuff.c's differences, jdlossls.c's seven predictors and
+// the point transform, box upsampling; YCbCr refused, as libjpeg refuses to
+// convert it), the colour space jdapimin.c's default_decompress_parms picks
+// (3 components: YCbCr under JFIF, RGB under Adobe transform 0 or, without
 // either marker, ids 'R' 'G' 'B'; 4: CMYK under Adobe transform 0 or none,
 // else YCCK), jdcolor.c's fixed-point YCbCr -> RGB tables (YCCK's YCC
 // through the same tables), RGB copied, CMYK read as Pillow reads it
 // (inverted, `CMYK;I`) and converted by Convert.c's cmyk2rgb, a greyscale
-// image copied into three channels.  Accepted and rejected forms are the
-// twin's (see its module docstring); a rejected, truncated or corrupt
-// stream returns an error with a message, never reads or writes out of
-// bounds.
+// image copied into three channels.  `uniir_jpeg_decode_samples` gives
+// libjpeg's samples instead (data/jpeg.py::decode_samples, the TIFF
+// decoder's JPEG strips).  Accepted and rejected forms are the twin's (see
+// its module docstring); a rejected, truncated or corrupt stream returns an
+// error with a message, never reads or writes out of bounds.
 //
-// Why host code and not a kernel: Huffman decoding is serial within a scan,
+// Why host code and not a kernel: entropy decoding is serial within a scan,
 // and the images are resized on the host after decoding; a device IDCT would
 // add a copy each way.  The decoder keeps no global state, so the loader's
 // threads (ctypes releases the GIL) decode in parallel.
@@ -66,6 +76,22 @@ struct Scan {
   int ss = 0, se = 63, ah = 0, al = 0;
 };
 
+// jaricom.c's jpeg_aritab: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS
+const uint32_t kAritab[114] = {
+    0x5A1D0181, 0x2586020E, 0x11140310, 0x080B0412, 0x03D80514, 0x01DA0617, 0x00E50719, 0x006F081C, 0x0036091E,
+    0x001A0A21, 0x000D0B23, 0x00060C09, 0x00030D0A, 0x00010D0C, 0x5A7F0F8F, 0x3F251024, 0x2CF21126, 0x207C1227,
+    0x17B91328, 0x1182142A, 0x0CEF152B, 0x09A1162D, 0x072F172E, 0x055C1830, 0x04061931, 0x03031A33, 0x02401B34,
+    0x01B11C36, 0x01441D38, 0x00F51E39, 0x00B71F3B, 0x008A203C, 0x0068213E, 0x004E223F, 0x003B2320, 0x002C0921,
+    0x5AE125A5, 0x484C2640, 0x3A0D2741, 0x2EF12843, 0x261F2944, 0x1F332A45, 0x19A82B46, 0x15182C48, 0x11772D49,
+    0x0E742E4A, 0x0BFB2F4B, 0x09F8304D, 0x0861314E, 0x0706324F, 0x05CD3330, 0x04DE3432, 0x040F3532, 0x03633633,
+    0x02D43734, 0x025C3835, 0x01F83936, 0x01A43A37, 0x01603B38, 0x01253C39, 0x00F63D3A, 0x00CB3E3B, 0x00AB3F3D,
+    0x008F203D, 0x5B1241C1, 0x4D044250, 0x412C4351, 0x37D84452, 0x2FE84553, 0x293C4654, 0x23794756, 0x1EDF4857,
+    0x1AA94957, 0x174E4A48, 0x14244B48, 0x119C4C4A, 0x0F6B4D4A, 0x0D514E4B, 0x0BB64F4D, 0x0A40304D, 0x583251D0,
+    0x4D1C5258, 0x438E5359, 0x3BDD545A, 0x34EE555B, 0x2EAE565C, 0x299A575D, 0x25164756, 0x557059D8, 0x4CA95A5F,
+    0x44D95B60, 0x3E225C61, 0x38245D63, 0x32B45E63, 0x2E17565D, 0x56A860DF, 0x4F466165, 0x47E56266, 0x41CF6367,
+    0x3C3D6468, 0x375E5D63, 0x52316669, 0x4C0F676A, 0x4639686B, 0x415E6367, 0x56276AE9, 0x50E76B6C, 0x4B85676D,
+    0x55976D6E, 0x504F6B6F, 0x5A106FEE, 0x55226D70, 0x59EB6FF0, 0x5A1D7171};
+
 struct Decoder {
   const uint8_t* d;
   size_t n;
@@ -79,6 +105,17 @@ struct Decoder {
   int restart = 0;
   int n_scans = 0;
   bool progressive = false;
+  bool arith = false;     // SOF9 / SOF10
+  bool lossless = false;  // SOF3
+  int dac_l[16], dac_u[16], dac_k[16];  // arithmetic conditioning (jdmarker.c get_soi's defaults)
+  // lossless: each component's differences [mcuy * v][mcux * h] and its last scan's predictor, point
+  // transform and rows between restarts (0: none)
+  std::vector<std::vector<int32_t>> diffs;
+  int psv[4] = {0, 0, 0, 0}, pt[4] = {0, 0, 0, 0}, restart_rows[4] = {0, 0, 0, 0};
+  bool have_plane[4] = {false, false, false, false};
+  Decoder() {
+    for (int t = 0; t < 16; t++) dac_l[t] = 0, dac_u[t] = 1, dac_k[t] = 5;
+  }
   bool jfif = false;
   int adobe_transform = -1;
   enum Colour { kGrey, kYCbCr, kRGB, kCMYK, kYCCK } colour = kGrey;
@@ -253,24 +290,164 @@ void decode_block(Decoder& dec, BitReader& br, const std::vector<uint16_t>& dc, 
   }
 }
 
+// ------------------------------------------------------- arithmetic decoding
+
+// jdarith.c's decoder over the entropy-coded bytes from `pos`: 0xFF00 read as 0xFF, fill bytes skipped, zeros
+// fed once a marker is met (pos then stays on it); `dead` is libjpeg's ct = -1 after a bad code.
+struct Arith {
+  const uint8_t* d;
+  size_t n, pos;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // two bytes to read into C first
+  bool marker = false, dead = false;
+  uint8_t fixed = 113;  // the fixed 0.5 estimate
+
+  int byte() {
+    if (marker) return 0;
+    if (pos >= n) {
+      marker = true;
+      return 0;
+    }
+    if (d[pos] != 0xFF) return d[pos++];
+    size_t q = pos + 1;
+    while (q < n && d[q] == 0xFF) q++;
+    if (q < n && d[q] == 0x00) {
+      pos = q + 1;
+      return 0xFF;
+    }
+    marker = true;
+    return 0;
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {  // renormalisation and data input (D.2.6)
+      if (--ct < 0) {
+        c = (c << 8) | byte();
+        if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    uint32_t e = kAritab[sv & 0x7F];
+    int nl = e & 0xFF, nm = (e >> 8) & 0xFF;
+    int64_t qe = e >> 16;
+    a -= qe;
+    int64_t temp = a << ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+      a = qe;
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// Decode_DC_DIFF (F.19, F.21-F.24) into diff; false on a magnitude overflow.
+bool arith_dc(Arith& ar, uint8_t* st, int& ctx, int lo, int hi, int& diff) {
+  if (!ar.decode(st + ctx)) {
+    ctx = 0;
+    diff = 0;
+    return true;
+  }
+  int sign = ar.decode(st + ctx + 1);
+  int p = ctx + 2 + sign;
+  int m = ar.decode(st + p);
+  if (m) {
+    p = 20;
+    while (ar.decode(st + p)) {
+      if ((m <<= 1) == 0x8000) return false;
+      p++;
+    }
+  }
+  ctx = m < ((1 << lo) >> 1) ? 0 : (m > ((1 << hi) >> 1) ? 12 : 4) + 4 * sign;
+  int v = m;
+  p += 14;
+  while (m >>= 1)
+    if (ar.decode(st + p)) v |= m;
+  v += 1;
+  diff = sign ? -v : v;
+  return true;
+}
+
+// decode_mcu's AC part / decode_mcu_AC_first over one block; false on an overflow.
+bool arith_ac_first(Arith& ar, uint8_t* st, int ss, int se, int al, int kx, int16_t* out) {
+  for (int k = ss; k <= se; k++) {
+    int p = 3 * (k - 1);
+    if (ar.decode(st + p)) break;  // end of block
+    while (!ar.decode(st + p + 1)) {
+      p += 3;
+      if (++k > se) return false;
+    }
+    int sign = ar.decode(&ar.fixed);
+    p += 2;
+    int m = ar.decode(st + p);
+    if (m && ar.decode(st + p)) {
+      m <<= 1;
+      p = k <= kx ? 189 : 217;
+      while (ar.decode(st + p)) {
+        if ((m <<= 1) == 0x8000) return false;
+        p++;
+      }
+    }
+    int v = m;
+    p += 14;
+    while (m >>= 1)
+      if (ar.decode(st + p)) v |= m;
+    v += 1;
+    out[kZigzag[k]] = to16((int64_t)(sign ? -v : v) * ((int64_t)1 << al));
+  }
+  return true;
+}
+
+// decode_mcu_AC_refine over one block; false on a spectral overflow.
+bool arith_ac_refine(Arith& ar, uint8_t* st, int ss, int se, int al, int16_t* out) {
+  int p1 = 1 << al, m1 = -(1 << al);
+  int kex = se;
+  while (kex > 0 && !out[kZigzag[kex]]) kex--;
+  for (int k = ss; k <= se; k++) {
+    int p = 3 * (k - 1);
+    if (k > kex && ar.decode(st + p)) break;
+    for (;;) {
+      int16_t* c = &out[kZigzag[k]];
+      if (*c) {
+        if (ar.decode(st + p + 2)) *c = to16(*c + (*c < 0 ? m1 : p1));
+        break;
+      }
+      if (ar.decode(st + p + 1)) {
+        *c = (int16_t)(ar.decode(&ar.fixed) ? m1 : p1);
+        break;
+      }
+      p += 3;
+      if (++k > se) return false;
+    }
+  }
+  return true;
+}
+
 // ------------------------------------------------------------------ markers
 
 int u16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
 
 const char* sof_name(int m) {
   switch (m) {
-    case 0xC1: return "SOF1 (extended sequential)";
-    case 0xC3: return "SOF3 (lossless)";
     case 0xC5: return "SOF5 (differential sequential)";
     case 0xC6: return "SOF6 (differential progressive)";
     case 0xC7: return "SOF7 (differential lossless)";
-    case 0xC9: return "SOF9 (arithmetic sequential)";
-    case 0xCA: return "SOF10 (arithmetic progressive)";
     case 0xCB: return "SOF11 (arithmetic lossless)";
     case 0xCD: return "SOF13 (arithmetic differential sequential)";
     case 0xCE: return "SOF14 (arithmetic differential progressive)";
     case 0xCF: return "SOF15 (arithmetic differential lossless)";
-    case 0xCC: return "DAC (arithmetic coding)";
     case 0xC8: return "JPG";
     case 0xDC: return "DNL";
     default: return nullptr;
@@ -307,8 +484,9 @@ void read_sof(Decoder& dec, const uint8_t* seg, int len) {
     if ((fx != 1 && fx != 2) || (fy != 1 && fy != 2) || dec.hmax % c.h || dec.vmax % c.v)
       dec.fail("marker 0xFFC0: sampling %dx%d is not supported", c.h, c.v);
   }
-  dec.mcux = (dec.width + 8 * dec.hmax - 1) / (8 * dec.hmax);
-  dec.mcuy = (dec.height + 8 * dec.vmax - 1) / (8 * dec.vmax);
+  int unit = dec.lossless ? 1 : 8;  // a lossless MCU holds samples, not blocks
+  dec.mcux = (dec.width + unit * dec.hmax - 1) / (unit * dec.hmax);
+  dec.mcuy = (dec.height + unit * dec.vmax - 1) / (unit * dec.vmax);
   for (auto& c : dec.comps) {
     c.cw = (int)(((int64_t)dec.width * c.h + dec.hmax - 1) / dec.hmax);
     c.ch = (int)(((int64_t)dec.height * c.v + dec.vmax - 1) / dec.vmax);
@@ -355,6 +533,23 @@ void read_dht(Decoder& dec, const uint8_t* seg, int len) {
   }
 }
 
+// The position just past the next RSTn marker from p (the interval's leftover bytes are dropped).
+size_t next_restart(Decoder& dec, size_t p, int64_t intervals) {
+  for (;;) {
+    while (p < dec.n && dec.d[p] != 0xFF) p++;
+    size_t q = p + 1;
+    while (q < dec.n && dec.d[q] == 0xFF) q++;
+    if (q >= dec.n) dec.fail("marker 0xFFDA: truncated JPEG stream (no marker after the scan)");
+    if (dec.d[q] == 0x00) {
+      p = q + 1;
+      continue;
+    }
+    if (dec.d[q] < 0xD0 || dec.d[q] > 0xD7)
+      dec.fail("marker 0xFFDA: corrupt or truncated scan (expected %d restart intervals)", (int)intervals);
+    return q + 1;
+  }
+}
+
 // Decodes the scan whose header is `seg`; on return dec.pos is at the marker after it.
 void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
   if (dec.comps.empty()) dec.fail("marker 0xFFDA: a scan before the frame header");
@@ -366,12 +561,17 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
   scan.se = seg[2 + 2 * ns];
   scan.ah = seg[3 + 2 * ns] >> 4;
   scan.al = seg[3 + 2 * ns] & 15;
-  if (!dec.progressive && (scan.ss != 0 || scan.se != 63 || scan.ah != 0 || scan.al != 0))
+  if (dec.lossless) {  // jdlossls.c start_pass_lossless
+    if (scan.ss < 1 || scan.ss > 7 || scan.se || scan.ah || scan.al >= 8)
+      dec.fail("marker 0xFFDA: bad lossless scan: predictor %d, point transform %d", scan.ss, scan.al);
+  } else if (!dec.progressive && (scan.ss != 0 || scan.se != 63 || scan.ah != 0 || scan.al != 0)) {
     dec.fail("marker 0xFFDA: spectral selection %d..%d is not baseline", scan.ss, scan.se);
+  }
   if (dec.progressive && ((scan.ss == 0 ? scan.se != 0 : (scan.ss > scan.se || scan.se > 63 || ns != 1)) ||
                           (scan.ah && scan.al != scan.ah - 1) || scan.al > 13))  // jdphuff.c's checks
     dec.fail("marker 0xFFDA: bad progression: spectral selection %d..%d", scan.ss, scan.se);
-  bool needs_dc = scan.ss == 0 && scan.ah == 0, needs_ac = scan.se > 0;  // a DC refinement reads no table
+  // a DC refinement reads no table
+  bool needs_dc = dec.lossless || (scan.ss == 0 && scan.ah == 0), needs_ac = scan.se > 0 && !dec.lossless;
   for (int s = 0; s < ns; s++) {
     int cid = seg[1 + 2 * s], t = seg[2 + 2 * s], found = -1;
     for (int c = 0; c < (int)dec.comps.size(); c++)
@@ -380,72 +580,117 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
     scan.comp[s] = found;
     scan.dc[s] = needs_dc ? t >> 4 : 0;  // a table the scan does not read is not looked up
     scan.ac[s] = needs_ac ? t & 15 : 0;
-    if (needs_dc && (scan.dc[s] > 3 || dec.huff[0][scan.dc[s]].empty()))
-      dec.fail("marker 0xFFDA: scan uses an undefined DC Huffman table %d", scan.dc[s]);
-    if (needs_ac && (scan.ac[s] > 3 || dec.huff[1][scan.ac[s]].empty()))
-      dec.fail("marker 0xFFDA: scan uses an undefined AC Huffman table %d", scan.ac[s]);
+    if (!dec.arith) {
+      if (needs_dc && (scan.dc[s] > 3 || dec.huff[0][scan.dc[s]].empty()))
+        dec.fail("marker 0xFFDA: scan uses an undefined DC Huffman table %d", scan.dc[s]);
+      if (needs_ac && (scan.ac[s] > 3 || dec.huff[1][scan.ac[s]].empty()))
+        dec.fail("marker 0xFFDA: scan uses an undefined AC Huffman table %d", scan.ac[s]);
+    }
     Component& c = dec.comps[found];
-    if (!c.latched) {  // jdinput.c latches a component's table at its first scan
+    if (!c.latched && !dec.lossless) {  // jdinput.c latches a component's table at its first scan
       if (!dec.qt_defined[c.tq]) dec.fail("marker 0xFFDA: component uses an undefined quantisation table %d", c.tq);
       for (int i = 0; i < 64; i++) c.q[i] = dec.qt[c.tq][i];
       c.latched = true;
     }
-    for (int k = scan.ss; k <= scan.se; k++) c.coef_bits[k] = scan.al;
+    if (dec.progressive)
+      for (int k = scan.ss; k <= scan.se; k++) c.coef_bits[k] = scan.al;
   }
   if (ns > 1) {  // jdinput.c's per_scan_setup: D_MAX_BLOCKS_IN_MCU
     int blocks = 0;
     for (int s = 0; s < ns; s++) blocks += dec.comps[scan.comp[s]].h * dec.comps[scan.comp[s]].v;
     if (blocks > 10) dec.fail("marker 0xFFDA: more than 10 blocks in an MCU (sampling factors too large for an interleaved scan)");
   }
-  for (auto& c : dec.comps)
-    if (c.coef.empty()) c.coef.assign((size_t)c.bh * c.bw * 64, 0);
+  if (dec.lossless) {
+    if (dec.diffs.empty())
+      for (auto& c : dec.comps) dec.diffs.emplace_back((size_t)c.bh * c.bw, 0);
+  } else {
+    for (auto& c : dec.comps)
+      if (c.coef.empty()) c.coef.assign((size_t)c.bh * c.bw * 64, 0);
+  }
 
   bool single = ns == 1;
+  int unit = dec.lossless ? 1 : 8;
   int units_x, units_y;
   if (single) {
     const Component& c = dec.comps[scan.comp[0]];
-    units_x = (c.cw + 7) / 8;
-    units_y = (c.ch + 7) / 8;
+    units_x = (c.cw + unit - 1) / unit;
+    units_y = (c.ch + unit - 1) / unit;
   } else {
     units_x = dec.mcux;
     units_y = dec.mcuy;
   }
   int64_t total = (int64_t)units_x * units_y;
   int64_t interval = dec.restart ? dec.restart : total;
+  int64_t n_intervals = (total + interval - 1) / interval;
+  if (dec.lossless && interval % units_x)
+    dec.fail("marker 0xFFDD: restart interval %d is not a multiple of the %d MCUs of a row (lossless)",
+             (int)interval, units_x);
   BitReader br{dec.d, dec.n, data_start};
+  Arith ar{dec.d, dec.n, data_start};
+  uint8_t dc_st[16][64], ac_st[16][256];
+  int ctx[4] = {0, 0, 0, 0};
+  bool dc_scan = !dec.progressive || (scan.ss == 0 && scan.ah == 0);
   int64_t pred[4] = {0, 0, 0, 0}, eobrun = 0;
   for (int64_t u = 0; u < total; u++) {
-    if (u > 0 && u % interval == 0) {
-      // the interval's leftover bits are dropped; the next one starts after an RSTn marker
-      size_t p = br.pos;
-      for (;;) {
-        while (p < dec.n && dec.d[p] != 0xFF) p++;
-        size_t q = p + 1;
-        while (q < dec.n && dec.d[q] == 0xFF) q++;
-        if (q >= dec.n) dec.fail("marker 0xFFDA: truncated JPEG stream (no marker after the scan)");
-        if (dec.d[q] == 0x00) {
-          p = q + 1;
-          continue;
-        }
-        if (dec.d[q] < 0xD0 || dec.d[q] > 0xD7)
-          dec.fail("marker 0xFFDA: corrupt or truncated scan (expected %d restart intervals)", (int)((total + interval - 1) / interval));
-        p = q + 1;
-        break;
+    if (u % interval == 0) {
+      if (u > 0) {
+        size_t p = next_restart(dec, dec.arith ? ar.pos : br.pos, n_intervals);
+        br = BitReader{dec.d, dec.n, p};
+        ar = Arith{dec.d, dec.n, p};
       }
-      br = BitReader{dec.d, dec.n, p};
-      pred[0] = pred[1] = pred[2] = pred[3] = 0;
+      pred[0] = pred[1] = pred[2] = pred[3] = 0;  // predictions, EOB run and statistics restart each interval
+      ctx[0] = ctx[1] = ctx[2] = ctx[3] = 0;
       eobrun = 0;
+      if (dec.arith)
+        for (int s = 0; s < ns; s++) {
+          if (dc_scan) memset(dc_st[scan.dc[s]], 0, 64);
+          if (!dec.progressive || scan.ss) memset(ac_st[scan.ac[s]], 0, 256);
+        }
     }
+    if (dec.arith && ar.dead) continue;
     int r = (int)(u / units_x), q = (int)(u % units_x);
-    for (int s = 0; s < ns; s++) {
+    for (int s = 0; s < ns && !(dec.arith && ar.dead); s++) {
       Component& c = dec.comps[scan.comp[s]];
-      const auto& dc = dec.huff[0][scan.dc[s]];
-      const auto& ac = dec.huff[1][scan.ac[s]];
       int ny = single ? 1 : c.v, nx = single ? 1 : c.h;
-      for (int y = 0; y < ny; y++)
+      for (int y = 0; y < ny && !(dec.arith && ar.dead); y++)
         for (int x = 0; x < nx; x++) {
           int row = single ? r : r * c.v + y, col = single ? q : q * c.h + x;
+          if (dec.lossless) {
+            int sz = huff(dec, br, dec.huff[0][scan.dc[s]]);
+            if (sz > 16) dec.fail("marker 0xFFDA: corrupt difference category %d", sz);
+            dec.diffs[scan.comp[s]][(size_t)row * c.bw + col] = sz == 16 ? 32768 : (sz ? extend(get_bits(br, sz), sz) : 0);
+            if (br.used_bits > br.real_bits) dec.fail("marker 0xFFDA: truncated JPEG stream");
+            continue;
+          }
           int16_t* out = &c.coef[((size_t)row * c.bw + col) * 64];
+          if (dec.arith) {
+            bool ok = true;
+            if (dc_scan) {
+              int t = scan.dc[s], diff;
+              ok = arith_dc(ar, dc_st[t], ctx[s], dec.dac_l[t], dec.dac_u[t], diff);
+              if (ok) {
+                pred[s] = (pred[s] + diff) & 0xFFFF;
+                out[0] = to16(pred[s] * ((int64_t)1 << (dec.progressive ? scan.al : 0)));
+              }
+            } else if (scan.ss == 0) {  // DC refinement: the next bit, at the fixed estimate
+              if (ar.decode(&ar.fixed)) out[0] = to16(out[0] | (1 << scan.al));
+            }
+            if (ok && (!dec.progressive || scan.ss)) {
+              int t = scan.ac[s];
+              if (dec.progressive && scan.ah)
+                ok = arith_ac_refine(ar, ac_st[t], scan.ss, scan.se, scan.al, out);
+              else
+                ok = arith_ac_first(ar, ac_st[t], dec.progressive ? scan.ss : 1, dec.progressive ? scan.se : 63,
+                                    scan.al, dec.dac_k[t], out);
+            }
+            if (!ok) {
+              ar.dead = true;
+              break;
+            }
+            continue;
+          }
+          const auto& dc = dec.huff[0][scan.dc[s]];
+          const auto& ac = dec.huff[1][scan.ac[s]];
           if (!dec.progressive) {
             decode_block(dec, br, dc, ac, pred[s], out);
           } else if (scan.ss == 0 && scan.ah == 0) {
@@ -459,8 +704,16 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start) {
         }
     }
   }
+  if (dec.lossless)
+    for (int s = 0; s < ns; s++) {
+      int c = scan.comp[s];
+      dec.psv[c] = scan.ss;
+      dec.pt[c] = scan.al;
+      dec.restart_rows[c] = dec.restart ? (int)(interval / units_x) * (single ? 1 : dec.comps[c].v) : 0;
+      dec.have_plane[c] = true;
+    }
   // on to the next marker that is not RSTn
-  size_t p = br.pos;
+  size_t p = dec.arith ? ar.pos : br.pos;
   for (;;) {
     while (p < dec.n && dec.d[p] != 0xFF) p++;
     size_t q = p + 1;
@@ -490,8 +743,80 @@ bool smooths(const Decoder& dec) {
   return false;
 }
 
+// decompress_smooth_data's estimates: for zigzag positions 1-9, the weights of the 5 x 5 DC neighbourhood with
+// DC interpolation (every AC unknown) and without (positions 1-5 only); then the DC's own (data/jpeg.py's tables)
+const int kSmoothAc[10][2][25] = {
+    {},
+    {{-1, -1, 0, 1, 1, -3, 13, 0, -13, 3, -3, 38, 0, -38, 3, -3, 13, 0, -13, 3, -1, -1, 0, 1, 1},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -7, 50, 0, -50, 7, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}},
+    {{-1, -3, -3, -3, -1, -1, 13, 38, 13, -1, 0, 0, 0, 0, 0, 1, -13, -38, -13, 1, 1, 3, 3, 3, 1},
+     {0, 0, -7, 0, 0, 0, 0, 50, 0, 0, 0, 0, 0, 0, 0, 0, 0, -50, 0, 0, 0, 0, 7, 0, 0}},
+    {{0, 0, 1, 0, 0, 0, 2, 7, 2, 0, 0, -5, -14, -5, 0, 0, 2, 7, 2, 0, 0, 0, 1, 0, 0},
+     {0, 0, -1, 0, 0, 0, 0, 13, 0, 0, 0, 0, -24, 0, 0, 0, 0, 13, 0, 0, 0, 0, -1, 0, 0}},
+    {{-1, 0, 0, 0, 1, 0, 9, 0, -9, 0, 0, 0, 0, 0, 0, 0, -9, 0, 9, 0, 1, 0, 0, 0, -1},
+     {0, -1, 0, 1, 0, -1, 10, 0, -10, 1, 0, 0, 0, 0, 0, 1, -10, 0, 10, -1, 0, 1, 0, -1, 0}},
+    {{0, 0, 0, 0, 0, 0, 2, -5, 2, 0, 1, 7, -14, 7, 1, 0, 2, -5, 2, 0, 0, 0, 0, 0, 0},
+     {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, -1, 13, -24, 13, -1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0}},
+    {{0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, 2, 0, -2, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}, {}},
+    {{0, 0, 0, 0, 0, 0, 1, -3, 1, 0, 0, 0, 0, 0, 0, 0, -1, 3, -1, 0, 0, 0, 0, 0, 0}, {}},
+    {{0, 0, 0, 0, 0, 0, 1, 0, -1, 0, 0, -3, 0, 3, 0, 0, 1, 0, -1, 0, 0, 0, 0, 0, 0}, {}},
+    {{0, 0, 0, 0, 0, 0, 1, 2, 1, 0, 0, 0, 0, 0, 0, 0, -1, -2, -1, 0, 0, 0, 0, 0, 0}, {}},
+};
+const int kSmoothDc[25] = {-2, -6, -8, -6, -2, -6, 6, 42, 6, -6, -8, 42, 152, 42, -8,
+                           -6, 6, 42, 6, -6, -2, -6, -8, -6, -2};
+
+// jdcoefct.c's decompress_smooth_data over one component's blocks that hold samples, with its progression's
+// Al at zigzag 1-9 as it stands after the last scan; rows as data/jpeg.py::smooth_blocks reads them.
+void smooth(Component& c, int imcu_rows) {
+  int wb = (c.cw + 7) / 8, hb = (c.ch + 7) / 8, v = c.v;
+  int pad_rows = (hb + v - 1) / v * v;  // within the MCU padding rows the coefficient buffer holds
+  bool change_dc = true;
+  for (int k = 1; k < 10; k++) change_dc = change_dc && c.coef_bits[k] == -1;
+  std::vector<int16_t> out(c.coef);
+  auto dc = [&](int row, int col) {
+    col = col < 0 ? 0 : (col >= wb ? wb - 1 : col);
+    return (int64_t)c.coef[((size_t)row * c.bw + col) * 64];
+  };
+  int64_t q00 = c.q[0];
+  for (int r = 0; r < hb; r++) {
+    int up1 = r > 0 ? r - 1 : r;
+    int up2 = r > 1 ? r - 2 : up1;
+    if (hb % v && imcu_rows == 2 && r == v) up2 = up1;
+    int dn1 = r + 1 < hb ? r + 1 : hb - 1;
+    int dn2 = r + 2 < pad_rows ? r + 2 : dn1;
+    int rows[5] = {up2, up1, r, dn1, dn2};
+    for (int b = 0; b < wb; b++) {
+      int64_t win[25];
+      for (int y = 0; y < 5; y++)
+        for (int x = 0; x < 5; x++) win[5 * y + x] = dc(rows[y], b + x - 2);
+      int16_t* blk = &out[((size_t)r * c.bw + b) * 64];
+      for (int k = 1; k < 10; k++) {
+        if (!change_dc && k > 5) break;
+        int al = c.coef_bits[k], pos = kZigzag[k];
+        if (al == 0 || blk[pos] != 0) continue;
+        const int* w = kSmoothAc[k][change_dc ? 0 : 1];
+        int64_t num = 0;
+        for (int i = 0; i < 25; i++) num += w[i] * win[i];
+        num *= q00;
+        int64_t qk = c.q[pos];
+        int64_t pred = (((qk << 7) + (num >= 0 ? num : -num)) / (qk << 8));
+        if (al > 0 && pred >= ((int64_t)1 << al)) pred = ((int64_t)1 << al) - 1;
+        blk[pos] = (int16_t)(num >= 0 ? pred : -pred);
+      }
+      if (change_dc) {
+        int64_t num = 0;
+        for (int i = 0; i < 25; i++) num += kSmoothDc[i] * win[i];
+        num *= q00;
+        int64_t pred = (((q00 << 7) + (num >= 0 ? num : -num)) / (q00 << 8));
+        blk[0] = (int16_t)(num >= 0 ? pred : -pred);
+      }
+    }
+  }
+  c.coef.swap(out);
+}
+
 // Reads markers up to EOI (or, with `header_only`, up to the frame header).
-void parse(Decoder& dec, bool header_only) {
+void parse(Decoder& dec, bool header_only, int colour_override = -1) {
   if (dec.n < 2 || dec.d[0] != 0xFF || dec.d[1] != 0xD8) dec.fail("not a JPEG file (no SOI marker)");
   for (;;) {
     size_t i = dec.pos;
@@ -511,14 +836,28 @@ void parse(Decoder& dec, bool header_only) {
     int len = length - 2;
     if (const char* name = sof_name(marker)) {
       char buf[160];
-      snprintf(buf, sizeof(buf), "marker 0xFF%02X: %s is not supported (baseline SOF0 and progressive SOF2 only)",
-               marker, name);
+      snprintf(buf, sizeof(buf), "marker 0xFF%02X: %s is not supported (SOF0-3, SOF9 and SOF10 only)", marker, name);
       throw Error{buf};
     }
-    if (marker == 0xC0 || marker == 0xC2) {
-      dec.progressive = marker == 0xC2;
+    if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2 || marker == 0xC3 || marker == 0xC9 || marker == 0xCA) {
+      dec.progressive = marker == 0xC2 || marker == 0xCA;
+      dec.arith = marker == 0xC9 || marker == 0xCA;
+      dec.lossless = marker == 0xC3;
       read_sof(dec, seg, len);
       if (header_only) return;
+    } else if (marker == 0xCC) {  // DAC (jdmarker.c get_dac)
+      if (len % 2) dec.fail("marker 0xFFCC: bad arithmetic conditioning (DAC)");
+      for (int k = 0; k < len; k += 2) {
+        int index = seg[k], val = seg[k + 1];
+        if (index >= 32) dec.fail("marker 0xFFCC: bad arithmetic table index %d (DAC)", index);
+        if (index >= 16) {
+          dec.dac_k[index - 16] = val;
+        } else {
+          if ((val & 15) > (val >> 4)) dec.fail("marker 0xFFCC: bad DC conditioning %d (DAC)", val);
+          dec.dac_l[index] = val & 15;
+          dec.dac_u[index] = val >> 4;
+        }
+      }
     } else if (marker == 0xDB) {
       read_dqt(dec, seg, len);
     } else if (marker == 0xC4) {
@@ -553,9 +892,13 @@ void parse(Decoder& dec, bool header_only) {
     else if (dec.adobe_transform >= 0) dec.colour = dec.adobe_transform == 0 ? Decoder::kRGB : Decoder::kYCbCr;
     else dec.colour = rgb_ids ? Decoder::kRGB : Decoder::kYCbCr;
   }
+  if (colour_override >= 0) dec.colour = (Decoder::Colour)colour_override;
+  if (dec.lossless && (dec.colour == Decoder::kYCbCr || dec.colour == Decoder::kYCCK))
+    dec.fail(dec.colour == Decoder::kYCbCr
+                 ? "marker 0xFFC3: a lossless YCBCR frame, which libjpeg does not convert (lossless RGB, CMYK or grey only)"
+                 : "marker 0xFFC3: a lossless YCCK frame, which libjpeg does not convert (lossless RGB, CMYK or grey only)");
   if (dec.progressive && smooths(dec))
-    dec.fail("marker 0xFFDA: the scans leave low coefficients unrefined, which libjpeg decodes with block smoothing "
-             "(not supported)");
+    for (auto& c : dec.comps) smooth(c, dec.mcuy);
 }
 
 // ------------------------------------------------------------- pixel stages
@@ -666,11 +1009,87 @@ std::vector<int32_t> upsample(const std::vector<int32_t>& p, int cw, int ch, int
   return out;
 }
 
+// jdlossls.c's undifferencing of lossless component ci and the point transform, [ch][cw].
+std::vector<int32_t> lossless_plane(Decoder& dec, int ci) {
+  const Component& c = dec.comps[ci];
+  if (!dec.have_plane[ci]) dec.fail("marker 0xFFDA: a component no scan names (lossless)");
+  const std::vector<int32_t>& d = dec.diffs[ci];
+  int w = c.cw, h = c.ch, psv = dec.psv[ci], pt = dec.pt[ci], rr = dec.restart_rows[ci];
+  std::vector<int32_t> out((size_t)w * h);
+  for (int y = 0; y < h; y++) {
+    const int32_t* dy = &d[(size_t)y * c.bw];
+    int32_t* row = &out[(size_t)y * w];
+    if (y == 0 || (rr && y % rr == 0)) {  // jpeg_undifference_first_row
+      int32_t ra = (dy[0] + (1 << (7 - pt))) & 0xFFFF;
+      row[0] = ra;
+      for (int x = 1; x < w; x++) row[x] = ra = (dy[x] + ra) & 0xFFFF;
+    } else {
+      const int32_t* prev = &out[(size_t)(y - 1) * w];
+      int32_t rb = prev[0], ra = (dy[0] + rb) & 0xFFFF;  // the first column predicts from above
+      row[0] = ra;
+      for (int x = 1; x < w; x++) {
+        int32_t rc = rb, p;
+        rb = prev[x];
+        switch (psv) {
+          case 1: p = ra; break;
+          case 2: p = rb; break;
+          case 3: p = rc; break;
+          case 4: p = ra + rb - rc; break;
+          case 5: p = ra + ((rb - rc) >> 1); break;
+          case 6: p = rb + ((ra - rc) >> 1); break;
+          default: p = (ra + rb) >> 1; break;
+        }
+        row[x] = ra = (dy[x] + p) & 0xFFFF;
+      }
+    }
+  }
+  for (auto& v : out) v = (v << pt) & 0xFF;
+  return out;
+}
+
+// libjpeg's output: each component upsampled to the image size (fancy after the IDCT, box for lossless).
+std::vector<std::vector<int32_t>> upsampled(Decoder& dec) {
+  std::vector<std::vector<int32_t>> planes;
+  for (int ci = 0; ci < (int)dec.comps.size(); ci++) {
+    const Component& c = dec.comps[ci];
+    int fx = dec.hmax / c.h, fy = dec.vmax / c.v;
+    if (dec.lossless) {
+      std::vector<int32_t> p = lossless_plane(dec, ci), o((size_t)dec.width * dec.height);
+      for (int y = 0; y < dec.height; y++)
+        for (int x = 0; x < dec.width; x++) o[(size_t)y * dec.width + x] = p[(size_t)(y / fy) * c.cw + x / fx];
+      planes.push_back(std::move(o));
+    } else {
+      planes.push_back(upsample(plane(dec, c), c.cw, c.ch, fx, fy, dec.width, dec.height));
+    }
+  }
+  return planes;
+}
+
+// jdcolor.c build_ycc_rgb_table (SCALEBITS 16): R, G, B of (y, cb, cr), range-limited.
+struct YccTables {
+  int64_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+  YccTables() {
+    const int64_t one_half = 1 << 15;
+    const int64_t f1_402 = (int64_t)(1.40200 * 65536 + 0.5), f1_772 = (int64_t)(1.77200 * 65536 + 0.5);
+    const int64_t f0_714 = (int64_t)(0.71414 * 65536 + 0.5), f0_344 = (int64_t)(0.34414 * 65536 + 0.5);
+    for (int i = 0; i < 256; i++) {
+      int64_t x = i - 128;
+      cr_r[i] = (f1_402 * x + one_half) >> 16;
+      cb_b[i] = (f1_772 * x + one_half) >> 16;
+      cr_g[i] = -f0_714 * x;
+      cb_g[i] = -f0_344 * x + one_half;
+    }
+  }
+  void rgb(int64_t y, int cb, int cr, int* v) const {
+    v[0] = clamp255(y + cr_r[cr]);
+    v[1] = clamp255(y + ((cb_g[cb] + cr_g[cr]) >> 16));
+    v[2] = clamp255(y + cb_b[cb]);
+  }
+};
+
 void to_rgb(Decoder& dec, uint8_t* out) {
   int w = dec.width, h = dec.height;
-  std::vector<std::vector<int32_t>> planes;
-  for (auto& c : dec.comps)
-    planes.push_back(upsample(plane(dec, c), c.cw, c.ch, dec.hmax / c.h, dec.vmax / c.v, w, h));
+  std::vector<std::vector<int32_t>> planes = upsampled(dec);
   size_t npx = (size_t)w * h;
   if (dec.colour == Decoder::kGrey) {
     for (size_t i = 0; i < npx; i++) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = (uint8_t)planes[0][i];
@@ -681,39 +1100,43 @@ void to_rgb(Decoder& dec, uint8_t* out) {
       for (int k = 0; k < 3; k++) out[3 * i + k] = (uint8_t)planes[k][i];
     return;
   }
-  // jdcolor.c build_ycc_rgb_table (SCALEBITS 16)
-  int64_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
-  const int64_t one_half = 1 << 15;
-  const int64_t f1_402 = (int64_t)(1.40200 * 65536 + 0.5), f1_772 = (int64_t)(1.77200 * 65536 + 0.5);
-  const int64_t f0_714 = (int64_t)(0.71414 * 65536 + 0.5), f0_344 = (int64_t)(0.34414 * 65536 + 0.5);
-  for (int i = 0; i < 256; i++) {
-    int64_t x = i - 128;
-    cr_r[i] = (f1_402 * x + one_half) >> 16;
-    cb_b[i] = (f1_772 * x + one_half) >> 16;
-    cr_g[i] = -f0_714 * x;
-    cb_g[i] = -f0_344 * x + one_half;
-  }
+  YccTables t;
   for (size_t i = 0; i < npx; i++) {
     int v[3];  // RGB; for CMYK / YCCK, 255 - C as Pillow's CMYK;I gives it
     if (dec.colour == Decoder::kCMYK) {
       for (int k = 0; k < 3; k++) v[k] = 255 - planes[k][i];
     } else {  // YCbCr, or YCCK's YCC: C = 255 - R, range-limited (ycck_cmyk_convert)
-      int64_t y = planes[0][i];
-      int cb = planes[1][i], cr = planes[2][i];
-      v[0] = clamp255(y + cr_r[cr]);
-      v[1] = clamp255(y + ((cb_g[cb] + cr_g[cr]) >> 16));
-      v[2] = clamp255(y + cb_b[cb]);
+      t.rgb(planes[0][i], planes[1][i], planes[2][i], v);
     }
     if (dec.colour == Decoder::kYCbCr) {
       for (int k = 0; k < 3; k++) out[3 * i + k] = (uint8_t)v[k];
     } else {  // Convert.c's cmyk2rgb: K - MULDIV255(255 - C, K)
       int kk = planes[3][i];
       for (int k = 0; k < 3; k++) {
-        int t = v[k] * kk + 128;
-        out[3 * i + k] = (uint8_t)(kk - (((t >> 8) + t) >> 8));
+        int tt = v[k] * kk + 128;
+        out[3 * i + k] = (uint8_t)(kk - (((tt >> 8) + tt) >> 8));
       }
     }
   }
+}
+
+// decode_samples: libjpeg's output samples, [h][w][channels]: RGB for YCbCr, CMYK for YCCK (C = 255 - R), every
+// component as it is otherwise.
+void to_samples(Decoder& dec, uint8_t* out, int channels) {
+  std::vector<std::vector<int32_t>> planes = upsampled(dec);
+  size_t npx = (size_t)dec.width * dec.height;
+  if (dec.colour == Decoder::kYCbCr || dec.colour == Decoder::kYCCK) {
+    YccTables t;
+    for (size_t i = 0; i < npx; i++) {
+      int v[3];
+      t.rgb(planes[0][i], planes[1][i], planes[2][i], v);
+      for (int k = 0; k < 3; k++) out[channels * i + k] = (uint8_t)(dec.colour == Decoder::kYCCK ? 255 - v[k] : v[k]);
+      if (channels == 4) out[4 * i + 3] = (uint8_t)planes[3][i];
+    }
+    return;
+  }
+  for (size_t i = 0; i < npx; i++)
+    for (int k = 0; k < channels; k++) out[channels * i + k] = (uint8_t)planes[k][i];
 }
 
 void set_error(char* err, int errlen, const std::string& msg) {
@@ -752,6 +1175,46 @@ int uniir_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, int w, int h,
     parse(dec, false);
     if (dec.width != w || dec.height != h) dec.fail("size %d x %d differs from the one asked for", dec.width, dec.height);
     to_rgb(dec, out);
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, e.msg);
+  } catch (...) {
+    set_error(err, errlen, "out of memory or internal error decoding the JPEG");
+  }
+  return 1;
+}
+
+// decode_samples with `colour` -1 (the markers' colour space) or a Colour to use instead (kYCbCr, or kRGB:
+// every component as it is, libtiff's JCS_UNKNOWN); size[0..2] = width, height, channels (the components).
+int uniir_jpeg_samples_info(const uint8_t* data, size_t n, int colour, int* size, char* err, int errlen) {
+  try {
+    Decoder dec;
+    dec.d = data;
+    dec.n = n;
+    parse(dec, true);
+    if (dec.comps.empty()) dec.fail("no frame header");
+    size[0] = dec.width;
+    size[1] = dec.height;
+    size[2] = (int)dec.comps.size();
+    return 0;
+  } catch (const Error& e) {
+    set_error(err, errlen, e.msg);
+  } catch (...) {
+    set_error(err, errlen, "out of memory or internal error decoding the JPEG");
+  }
+  return 1;
+}
+
+int uniir_jpeg_decode_samples(const uint8_t* data, size_t n, int colour, uint8_t* out, int w, int h, int channels,
+                              char* err, int errlen) {
+  try {
+    Decoder dec;
+    dec.d = data;
+    dec.n = n;
+    parse(dec, false, colour);
+    if (dec.width != w || dec.height != h) dec.fail("size %d x %d differs from the one asked for", dec.width, dec.height);
+    if (channels != (int)dec.comps.size()) dec.fail("%d channels asked for, %d decoded", channels, (int)dec.comps.size());
+    to_samples(dec, out, channels);
     return 0;
   } catch (const Error& e) {
     set_error(err, errlen, e.msg);

@@ -1,17 +1,34 @@
-"""Image decoding with Pillow's pixels, without Pillow: baseline and
-progressive JPEG here; PNG (`data.png`), GIF (`data.gif`), BMP (`data.bmp`)
-and WebP (`data.webp`) picked by the file's signature in `read_image`.
+"""Image decoding with Pillow's pixels, without Pillow: JPEG here; PNG
+(`data.png`), GIF (`data.gif`), BMP (`data.bmp`), WebP (`data.webp`) and TIFF
+(`data.tiff`) picked by the file's signature in `read_image`.
 
 M-BEIR stores its images as JPEG files that Pillow wrote, and the JAX
 package reads any image with `PIL.Image.open(path).convert("RGB")`, which
-runs libjpeg-turbo at its defaults for a JPEG file.  This module gives the
-same uint8 [H, W, 3] array, bit for bit:
+runs libjpeg-turbo 3.1 at its defaults for a JPEG file.  This module gives
+the same uint8 [H, W, 3] array, bit for bit:
 
-  * jdhuff.c's sequential and jdphuff.c's progressive Huffman decoding (DC
-    first and refinement scans, AC first scans with EOB runs, AC refinement
-    scans, restart intervals in either) into one coefficient buffer over
-    all scans, each component's quantisation table latched at its first
-    scan as jdinput.c does;
+  * jdhuff.c's sequential (SOF0, SOF1) and jdphuff.c's progressive (SOF2)
+    Huffman decoding (DC first and refinement scans, AC first scans with EOB
+    runs, AC refinement scans, restart intervals in either) into one
+    coefficient buffer over all scans, each component's quantisation table
+    latched at its first scan as jdinput.c does;
+  * jdarith.c's arithmetic decoding (SOF9 sequential, SOF10 progressive):
+    the QM coder of T.81 Annex D with jaricom.c's probability table (checked
+    against Pillow's libjpeg), DAC conditioning (defaults L = 0, U = 1,
+    Kx = 5), the statistics reset at every restart; a bad code (a magnitude
+    or spectral overflow) leaves the rest of its restart interval undecoded,
+    as libjpeg's ct = -1 does;
+  * jdcoefct.c's block smoothing (decompress_smooth_data), which libjpeg
+    applies to a progressive image whose scans leave one of zigzag 1-9 not
+    final: estimates of those coefficients where zero from the DC values of
+    the 5 x 5 block neighbourhood (with DC interpolation, and positions 6-9,
+    where no AC coefficient is known), capped by the progression's Al;
+    the rows of that neighbourhood as Pillow's libjpeg-turbo reads them
+    (`smooth_blocks`, found by probing it);
+  * lossless SOF3 (jdlhuff.c, jdlossls.c): Huffman-coded differences, the
+    seven predictors and the first row's and first column's, the point
+    transform, restarts (a multiple of the MCU row), box upsampling; a
+    lossless YCbCr or YCCK frame raises, as libjpeg refuses to convert it;
   * `jidctint.c`'s integer IDCT (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2,
     the 10-bit range-limit table);
   * fancy upsampling (`jdsample.c`: the triangle filters
@@ -33,19 +50,20 @@ same uint8 [H, W, 3] array, bit for bit:
     does (K, C as stored);
   * a greyscale file copied into three channels; no EXIF rotation.
 
-Accepted: SOF0 (baseline) and SOF2 (progressive) at 8 bits, 1, 3 or 4
-components, each component's sampling 1 or 2 times finer in each direction
-than the largest (4:4:4, 4:2:2, 4:4:0, 4:2:0), at most 10 blocks in an
-interleaved scan's MCU (libjpeg's limit), any DQT / DHT tables (a DHT
-between scans holds for the scans after it), DRI with RSTn markers, APPn
-and COM segments skipped, several scans.  Anything else -- SOF1/3 and the
-arithmetic-coded frames, 2 components, 12-bit samples, a progression that
-leaves one of the first ten coefficients unrefined (libjpeg then smooths
-the blocks), a truncated or corrupt stream -- raises ValueError naming the
-file and the marker.
+Accepted: SOF0-3, SOF9 and SOF10 at 8 bits, 1, 3 or 4 components, each
+component's sampling 1 or 2 times finer in each direction than the largest
+(4:4:4, 4:2:2, 4:4:0, 4:2:0), at most 10 blocks in an interleaved scan's MCU
+(libjpeg's limit), any DQT / DHT / DAC tables (one between scans holds for
+the scans after it), DRI with RSTn markers, APPn and COM segments skipped,
+several scans.  Anything else -- SOF5-7, SOF11 and SOF13-15, 2 components,
+12- and 16-bit samples (which Pillow refuses too: "cannot handle 12-bit
+layers"), a truncated or corrupt Huffman-coded stream -- raises ValueError
+naming the file and the marker.  `decode_samples` gives libjpeg's output
+before Pillow reads it (the TIFF decoder's JPEG strips, with libtiff's
+colour space).
 
 Two decoders compute that function: `decode_twin`, plain Python for the
-markers and Huffman decoding and numpy over all blocks at once for the rest
+markers and entropy decoding and numpy over all blocks at once for the rest
 (the same integer arithmetic), and `decode_native`, host C++ in
 `csrc/jpeg.cu` built by `_build` like the kernels and called through ctypes
 (which releases the GIL, so the loader's threads decode in parallel).
@@ -55,10 +73,11 @@ build or load raises.
 
 `read_image` reads a file by its first bytes, never by its name: JPEG
 (FF D8), PNG (the eight-byte PNG signature), GIF (GIF87a / GIF89a), BMP
-(BM) and WebP (RIFF / WEBP with a first chunk `VP8 `, `VP8L` or `VP8X`, as
-Pillow's `_accept` takes it) are decoded; TIFF and anything else (a RIFF /
-WEBP file with another first chunk too) raise ValueError naming the file
-and the format found.
+(BM), WebP (RIFF / WEBP with a first chunk `VP8 `, `VP8L` or `VP8X`, as
+Pillow's `_accept` takes it) and TIFF (Pillow's six prefixes) are decoded;
+the other formats Pillow's Image.open reads by a signature (AVIF, JPEG 2000,
+ICO / CUR, PPM, PSD, QOI, SGI, PCX, DDS, ...) raise ValueError naming the
+file and the format, and anything else "unknown".
 """
 
 from __future__ import annotations
@@ -69,7 +88,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-from uniir_tpu_torch.data import bmp, gif, png, webp
+from uniir_tpu_torch.data import bmp, gif, png, tiff, webp
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -79,14 +98,33 @@ ZIGZAG = np.array([
 ], np.int64)
 ZIGZAG_LIST = ZIGZAG.tolist()
 
+# frame headers decoded: marker -> (progressive, arithmetic, lossless)
+_SOF_KINDS = {0xC0: (False, False, False), 0xC1: (False, False, False), 0xC2: (True, False, False),
+              0xC3: (False, False, True), 0xC9: (False, True, False), 0xCA: (True, True, False)}
+# markers refused, by name
 _SOF_NAMES = {
-    0xC1: "SOF1 (extended sequential)", 0xC3: "SOF3 (lossless)",
     0xC5: "SOF5 (differential sequential)", 0xC6: "SOF6 (differential progressive)", 0xC7: "SOF7 (differential lossless)",
-    0xC9: "SOF9 (arithmetic sequential)", 0xCA: "SOF10 (arithmetic progressive)", 0xCB: "SOF11 (arithmetic lossless)",
-    0xCD: "SOF13 (arithmetic differential sequential)", 0xCE: "SOF14 (arithmetic differential progressive)",
-    0xCF: "SOF15 (arithmetic differential lossless)", 0xCC: "DAC (arithmetic coding)", 0xC8: "JPG",
-    0xDC: "DNL",
+    0xCB: "SOF11 (arithmetic lossless)", 0xCD: "SOF13 (arithmetic differential sequential)",
+    0xCE: "SOF14 (arithmetic differential progressive)", 0xCF: "SOF15 (arithmetic differential lossless)",
+    0xC8: "JPG", 0xDC: "DNL",
 }
+# jaricom.c's jpeg_aritab (T.81 Table D.2), as libjpeg packs it: Qe << 16 | Next_Index_MPS << 8 |
+# Switch_MPS << 7 | Next_Index_LPS
+ARITAB = [
+    0x5A1D0181, 0x2586020E, 0x11140310, 0x080B0412, 0x03D80514, 0x01DA0617, 0x00E50719, 0x006F081C, 0x0036091E,
+    0x001A0A21, 0x000D0B23, 0x00060C09, 0x00030D0A, 0x00010D0C, 0x5A7F0F8F, 0x3F251024, 0x2CF21126, 0x207C1227,
+    0x17B91328, 0x1182142A, 0x0CEF152B, 0x09A1162D, 0x072F172E, 0x055C1830, 0x04061931, 0x03031A33, 0x02401B34,
+    0x01B11C36, 0x01441D38, 0x00F51E39, 0x00B71F3B, 0x008A203C, 0x0068213E, 0x004E223F, 0x003B2320, 0x002C0921,
+    0x5AE125A5, 0x484C2640, 0x3A0D2741, 0x2EF12843, 0x261F2944, 0x1F332A45, 0x19A82B46, 0x15182C48, 0x11772D49,
+    0x0E742E4A, 0x0BFB2F4B, 0x09F8304D, 0x0861314E, 0x0706324F, 0x05CD3330, 0x04DE3432, 0x040F3532, 0x03633633,
+    0x02D43734, 0x025C3835, 0x01F83936, 0x01A43A37, 0x01603B38, 0x01253C39, 0x00F63D3A, 0x00CB3E3B, 0x00AB3F3D,
+    0x008F203D, 0x5B1241C1, 0x4D044250, 0x412C4351, 0x37D84452, 0x2FE84553, 0x293C4654, 0x23794756, 0x1EDF4857,
+    0x1AA94957, 0x174E4A48, 0x14244B48, 0x119C4C4A, 0x0F6B4D4A, 0x0D514E4B, 0x0BB64F4D, 0x0A40304D, 0x583251D0,
+    0x4D1C5258, 0x438E5359, 0x3BDD545A, 0x34EE555B, 0x2EAE565C, 0x299A575D, 0x25164756, 0x557059D8, 0x4CA95A5F,
+    0x44D95B60, 0x3E225C61, 0x38245D63, 0x32B45E63, 0x2E17565D, 0x56A860DF, 0x4F466165, 0x47E56266, 0x41CF6367,
+    0x3C3D6468, 0x375E5D63, 0x52316669, 0x4C0F676A, 0x4639686B, 0x415E6367, 0x56276AE9, 0x50E76B6C, 0x4B85676D,
+    0x55976D6E, 0x504F6B6F, 0x5A106FEE, 0x55226D70, 0x59EB6FF0, 0x5A1D7171,
+]
 
 
 class _Frame:
@@ -105,13 +143,19 @@ class _Frame:
         self.jfif = False
         self.adobe_transform = None
         self.colour = "grey"  # grey, ycbcr, rgb, cmyk or ycck: libjpeg's jpeg_color_space
+        self.arith = False  # arithmetic coding (SOF9 / SOF10)
+        self.lossless = False  # SOF3
+        # DAC conditioning of the 16 arithmetic tables: DC L and U, AC Kx (jdmarker.c get_soi's defaults)
+        self.dac = ([0] * 16, [1] * 16, [5] * 16)
 
 
 class _Scan(NamedTuple):
     """One scan: its components, their DC / AC lookup lists as the scan
-    found them (None where the scan reads none), the restart interval, the
-    entropy-coded segments, and the spectral band and successive
-    approximation bits (0, 63, 0, 0 in a baseline frame)."""
+    found them (None where the scan reads none; for arithmetic coding the
+    table numbers, with the DAC conditioning (L, U, Kx) of each), the
+    restart interval, the entropy-coded segments, and the spectral band and
+    successive approximation bits (0, 63, 0, 0 in a sequential frame; the
+    predictor, 0, 0 and the point transform in a lossless one)."""
 
     comps: list
     dc: list
@@ -193,9 +237,9 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
             raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
         where = f"{name}: marker 0xFF{marker:02X}"
         if marker in _SOF_NAMES:
-            raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (baseline SOF0 and progressive SOF2 only)")
-        if marker in (0xC0, 0xC2):
-            frame.progressive = marker == 0xC2
+            raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (SOF0-3, SOF9 and SOF10 only)")
+        if marker in _SOF_KINDS:
+            frame.progressive, frame.arith, frame.lossless = _SOF_KINDS[marker]
             if frame.components:
                 raise ValueError(f"{where}: a second frame header")
             if len(seg) < 6:
@@ -244,6 +288,19 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
                     raise ValueError(f"{where}: bad Huffman table")
                 frame.huff[(tc, th)] = _huffman_lut(counts, seg[k + 17 : k + 17 + total], where)
                 k += 17 + total
+        elif marker == 0xCC:  # DAC (jdmarker.c get_dac)
+            if len(seg) % 2:
+                raise ValueError(f"{where}: bad arithmetic conditioning (DAC)")
+            for k in range(0, len(seg), 2):
+                index, val = seg[k], seg[k + 1]
+                if index >= 32:
+                    raise ValueError(f"{where}: bad arithmetic table index {index} (DAC)")
+                if index >= 16:
+                    frame.dac[2][index - 16] = val
+                else:
+                    if (val & 15) > (val >> 4):
+                        raise ValueError(f"{where}: bad DC conditioning {val} (DAC)")
+                    frame.dac[0][index], frame.dac[1][index] = val & 15, val >> 4
         elif marker == 0xDD:
             if len(seg) != 2:
                 raise ValueError(f"{where}: bad restart interval")
@@ -267,20 +324,28 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
                 raise ValueError(f"{where}: more than 10 blocks in an MCU (sampling factors too large for an "
                                  "interleaved scan)")
             ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
-            if not frame.progressive and (ss, se, ah, al) != (0, 63, 0, 0):
+            if frame.lossless:  # jdlossls.c start_pass_lossless
+                if not 1 <= ss <= 7 or se or ah or al >= 8:
+                    raise ValueError(f"{where}: bad lossless scan: predictor {ss}, {se} / point transform {ah}, {al}")
+            elif not frame.progressive and (ss, se, ah, al) != (0, 63, 0, 0):
                 raise ValueError(f"{where}: spectral selection {ss}..{se} / approximation {ah}, {al} is not baseline")
             if frame.progressive and (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)
                                       or (ah and al != ah - 1) or al > 13):  # jdphuff.c's checks
                 raise ValueError(f"{where}: bad progression: spectral selection {ss}..{se} / approximation {ah}, {al}")
-            needs_dc, needs_ac = ss == 0 and ah == 0, se > 0  # a DC refinement scan reads no table
-            for cls, table_ids, needed in ((0, dc_ids, needs_dc), (1, ac_ids, needs_ac)):
-                for t in table_ids:
-                    if needed and (cls, t) not in frame.huff:
-                        raise ValueError(f"{where}: scan uses an undefined {('DC', 'AC')[cls]} Huffman table {t}")
-            # the tables as they stand now: a later DHT may redefine them for a later scan
-            dc = [frame.huff[(0, t)] if needs_dc else None for t in dc_ids]
-            ac = [frame.huff[(1, t)] if needs_ac else None for t in ac_ids]
-            for c in comps:  # libjpeg latches a component's table at its first scan
+            needs_dc = frame.lossless or (ss == 0 and ah == 0)  # a DC refinement scan reads no table
+            needs_ac = se > 0 and not frame.lossless
+            if frame.arith:  # the table numbers and the conditioning as they stand now
+                dc = [(t, frame.dac[0][t], frame.dac[1][t]) if needs_dc else None for t in dc_ids]
+                ac = [(16 + t, frame.dac[2][t]) if needs_ac else None for t in ac_ids]
+            else:
+                for cls, table_ids, needed in ((0, dc_ids, needs_dc), (1, ac_ids, needs_ac)):
+                    for t in table_ids:
+                        if needed and (cls, t) not in frame.huff:
+                            raise ValueError(f"{where}: scan uses an undefined {('DC', 'AC')[cls]} Huffman table {t}")
+                # the tables as they stand now: a later DHT may redefine them for a later scan
+                dc = [frame.huff[(0, t)] if needs_dc else None for t in dc_ids]
+                ac = [frame.huff[(1, t)] if needs_ac else None for t in ac_ids]
+            for c in comps if not frame.lossless else ():  # libjpeg latches a component's table at its first scan
                 if c not in frame.latched:
                     tq = frame.components[c][3]
                     if tq not in frame.qt:
@@ -476,45 +541,231 @@ def _ac_refine(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int, name
     return eobrun
 
 
+class _Arith:
+    """jdarith.c's decoder (the QM coder of T.81 Annex D) over one restart
+    interval's unstuffed bytes, reading zeros past their end as libjpeg does
+    once it meets a marker; `dead` is libjpeg's ct = -1 after a bad code,
+    which leaves the rest of the interval undecoded."""
+
+    def __init__(self, segment: bytes):
+        self.buf, self.pos = segment, 0
+        self.c, self.a, self.ct = 0, 0, -16  # ct -16: two bytes to read into C first
+        self.dead = False
+
+    def decode(self, st: bytearray, i: int) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:  # renormalisation and data input (D.2.6)
+            ct -= 1
+            if ct < 0:
+                c = (c << 8) | (self.buf[self.pos] if self.pos < len(self.buf) else 0)
+                self.pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        qe = ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _arith_dc(d: _Arith, st: bytearray, ctx: int, lo: int, hi: int):
+    """Decode_DC_DIFF (F.19, F.21-F.24): (difference, next context), or None
+    on a magnitude overflow."""
+    if not d.decode(st, ctx):
+        return 0, 0
+    sign = d.decode(st, ctx + 1)
+    p = ctx + 2 + sign
+    m = d.decode(st, p)
+    if m:
+        p = 20
+        while d.decode(st, p):
+            m <<= 1
+            if m == 0x8000:
+                return None
+            p += 1
+    ctx = 0 if m < (1 << lo) >> 1 else (12 if m > (1 << hi) >> 1 else 4) + 4 * sign
+    v, p = m, p + 14
+    m >>= 1
+    while m:
+        if d.decode(st, p):
+            v |= m
+        m >>= 1
+    return (-(v + 1) if sign else v + 1), ctx
+
+
+def _arith_ac_first(d: _Arith, st: bytearray, fixed: bytearray, ss: int, se: int, al: int, kx: int,
+                    row: list) -> bool:
+    """decode_mcu's AC part and decode_mcu_AC_first over one block; False on
+    a spectral or magnitude overflow."""
+    k = ss
+    while k <= se:
+        p = 3 * (k - 1)
+        if d.decode(st, p):  # end of block
+            break
+        while not d.decode(st, p + 1):
+            p += 3
+            k += 1
+            if k > se:
+                return False
+        sign = d.decode(fixed, 0)
+        p += 2
+        m = d.decode(st, p)
+        if m and d.decode(st, p):
+            m <<= 1
+            p = 189 if k <= kx else 217
+            while d.decode(st, p):
+                m <<= 1
+                if m == 0x8000:
+                    return False
+                p += 1
+        v, p = m, p + 14
+        m >>= 1
+        while m:
+            if d.decode(st, p):
+                v |= m
+            m >>= 1
+        v += 1
+        row[ZIGZAG_LIST[k]] = _int16((-v if sign else v) << al)
+        k += 1
+    return True
+
+
+def _arith_ac_refine(d: _Arith, st: bytearray, fixed: bytearray, ss: int, se: int, al: int, row: list) -> bool:
+    """decode_mcu_AC_refine over one block; False on a spectral overflow."""
+    p1, m1 = 1 << al, -1 << al
+    kex = se  # the previous stage's end of block
+    while kex > 0 and not row[ZIGZAG_LIST[kex]]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        p = 3 * (k - 1)
+        if k > kex and d.decode(st, p):
+            break
+        while True:
+            pos = ZIGZAG_LIST[k]
+            if row[pos]:  # a correction bit of an already-nonzero coefficient
+                if d.decode(st, p + 2):
+                    row[pos] = _int16(row[pos] + (m1 if row[pos] < 0 else p1))
+                break
+            if d.decode(st, p + 1):  # newly nonzero
+                row[pos] = m1 if d.decode(fixed, 0) else p1
+                break
+            p += 3
+            k += 1
+            if k > se:
+                return False
+        k += 1
+    return True
+
+
+def _arith_interval(frame: _Frame, scan: _Scan, segment: bytes, mcus: list) -> None:
+    """One restart interval of an arithmetic-coded scan (jdarith.c): the
+    statistics and DC predictions start afresh, a bad code leaves the rest of
+    the interval as it was."""
+    d = _Arith(segment)
+    fixed = bytearray([113])  # the fixed 0.5 estimate
+    dc_first = not frame.progressive or (scan.ss == 0 and scan.ah == 0)
+    stats = {}
+    for i in range(len(scan.comps)):
+        if dc_first:
+            stats[scan.dc[i][0]] = bytearray(64)
+        if not frame.progressive or scan.ss:
+            stats[scan.ac[i][0]] = bytearray(256)
+    pred, ctx = [0] * len(scan.comps), [0] * len(scan.comps)
+    for mcu in mcus:
+        for i, row in mcu:
+            if not frame.progressive or dc_first:
+                t, lo, hi = scan.dc[i]
+                got = _arith_dc(d, stats[t], ctx[i], lo, hi)
+                if got is None:
+                    return
+                pred[i] = (pred[i] + got[0]) & 0xFFFF
+                ctx[i] = got[1]
+                row[0] = _int16(pred[i] << (scan.al if frame.progressive else 0))
+                if frame.progressive:
+                    continue
+            elif scan.ss == 0:  # DC refinement: the next bit, at the fixed estimate
+                if d.decode(fixed, 0):
+                    row[0] = _int16(row[0] | (1 << scan.al))
+                continue
+            t, kx = scan.ac[i]
+            if scan.ah and frame.progressive:
+                ok = _arith_ac_refine(d, stats[t], fixed, scan.ss, scan.se, scan.al, row)
+            else:
+                ss, se = (scan.ss, scan.se) if frame.progressive else (1, 63)
+                ok = _arith_ac_first(d, stats[t], fixed, ss, se, scan.al, kx, row)
+            if not ok:
+                return
+
+
+def _scan_layout(frame: _Frame, scan: _Scan, geo, mcux: int, mcuy: int, blocks: list) -> list:
+    """The blocks of each MCU of a scan in decoding order: [[(index of the
+    component in the scan, block row list), ...], ...]."""
+    comps = scan.comps
+    if len(comps) == 1:  # non-interleaved: one block an MCU, over the component's own blocks
+        c = comps[0]
+        gw = geo[c][2]
+        return [[(0, blocks[c][r * gw + q])] for r in range(-(-geo[c][1] // 8)) for q in range(-(-geo[c][0] // 8))]
+    layout = [(i, c, h, v, y, x) for i, c in enumerate(comps) for h, v in [frame.components[c][1:3]]
+              for y in range(v) for x in range(h)]
+    return [[(i, blocks[c][(r * v + y) * geo[c][2] + q * h + x]) for i, c, h, v, y, x in layout]
+            for r in range(mcuy) for q in range(mcux)]
+
+
 def _decode_coefficients(frame: _Frame, name: str) -> list:
     """Each component's quantised coefficients, [block rows, block columns,
-    64] int64 in natural order, over all scans."""
+    64] int64 in natural order, over all scans, smoothed where libjpeg
+    smooths a progressive image's blocks."""
     geo, mcux, mcuy = _geometry(frame)
     blocks = [[[0] * 64 for _ in range(g[2] * g[3])] for g in geo]
     coef_bits = [[-1] * 64 for _ in frame.components]  # jdphuff.c: the last Al each coefficient was sent at
     for scan in frame.scans:
-        comps = scan.comps
-        if len(comps) == 1:  # non-interleaved: one block an MCU, over the component's own blocks
-            c = comps[0]
-            positions = [(r, q) for r in range(-(-geo[c][1] // 8)) for q in range(-(-geo[c][0] // 8))]
-            layout = [(0, c, 1, 1, 0, 0)]
-        else:  # interleaved: each component's h x v blocks an MCU
-            positions = [(r, q) for r in range(mcuy) for q in range(mcux)]
-            layout = [(i, c, h, v, y, x) for i, c in enumerate(comps) for h, v in [frame.components[c][1:3]]
-                      for y in range(v) for x in range(h)]
-        steps = [(i, scan.dc[i], scan.ac[i], blocks[c], geo[c][2], h, v, y, x) for i, c, h, v, y, x in layout]
-        for c in comps:
+        mcus = _scan_layout(frame, scan, geo, mcux, mcuy, blocks)
+        for c in scan.comps if frame.progressive else ():
             for k in range(scan.ss, scan.se + 1):
                 coef_bits[c][k] = scan.al
-        interval = scan.restart or len(positions)
-        n_intervals = -(-len(positions) // interval)
+        interval = scan.restart or len(mcus)
+        n_intervals = -(-len(mcus) // interval)
         if len(scan.segments) < n_intervals:
             raise ValueError(f"{name}: marker 0xFFDA: corrupt or truncated scan (expected {n_intervals} restart "
                              f"intervals, found {len(scan.segments)})")
+        if frame.arith:
+            for k in range(n_intervals):
+                _arith_interval(frame, scan, scan.segments[k], mcus[k * interval: (k + 1) * interval])
+            continue
         dc_first = frame.progressive and scan.ss == 0 and scan.ah == 0
         dc_refine = frame.progressive and scan.ss == 0 and scan.ah
         ac = (_ac_refine if scan.ah else _ac_first) if scan.ss else None
         for k in range(n_intervals):
             bits = _Bits(scan.segments[k])
-            pred = [0] * len(comps)  # DC predictions and the EOB run restart with each interval
+            pred = [0] * len(scan.comps)  # DC predictions and the EOB run restart with each interval
             eobrun = 0
-            for r, q in positions[k * interval : (k + 1) * interval]:
-                for i, dc_lut, ac_lut, grid, gw, h, v, y, x in steps:
-                    row = grid[(r * v + y) * gw + q * h + x]
+            for mcu in mcus[k * interval: (k + 1) * interval]:
+                for i, row in mcu:
                     if not frame.progressive:
-                        pred[i] = _baseline_block(bits, dc_lut, ac_lut, pred[i], row, name)
+                        pred[i] = _baseline_block(bits, scan.dc[i], scan.ac[i], pred[i], row, name)
                     elif dc_first:
-                        s = bits.huff(dc_lut, name)
+                        s = bits.huff(scan.dc[i], name)
                         if s > 15:
                             raise ValueError(f"{name}: marker 0xFFDA: corrupt DC difference")
                         pred[i] += _extend(bits.get(s), s) if s else 0
@@ -523,13 +774,15 @@ def _decode_coefficients(frame: _Frame, name: str) -> list:
                         if bits.get(1):
                             row[0] = _int16(row[0] | (1 << scan.al))
                     else:
-                        eobrun = ac(bits, ac_lut, scan, row, eobrun, name)
+                        eobrun = ac(bits, scan.ac[i], scan, row, eobrun, name)
                     if bits.over():
                         raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream")
+    coefs = [np.array(b, np.int64).reshape(g[3], g[2], 64) for b, g in zip(blocks, geo)]
     if frame.progressive and _smooths(frame, coef_bits):
-        raise ValueError(f"{name}: marker 0xFFDA: the scans leave low coefficients unrefined, which libjpeg "
-                         "decodes with block smoothing (not supported)")
-    return [np.array(b, np.int64).reshape(g[3], g[2], 64) for b, g in zip(blocks, geo)]
+        for c, g in enumerate(geo):
+            coefs[c] = smooth_blocks(coefs[c], -(-g[0] // 8), -(-g[1] // 8), frame.components[c][2], mcuy,
+                                     frame.latched[c], coef_bits[c][:10])
+    return coefs
 
 
 def _smooths(frame: _Frame, coef_bits: list) -> bool:
@@ -542,6 +795,78 @@ def _smooths(frame: _Frame, coef_bits: list) -> bool:
         if q is None or not all(q[ZIGZAG_LIST[k]] for k in range(10)) or coef_bits[c][0] < 0:
             return False
     return any(bits[k] != 0 for bits in coef_bits for k in range(1, 10))
+
+
+# decompress_smooth_data's estimates (libjpeg-turbo 2.1+): for zigzag positions 1-9, the weights of the 5 x 5
+# DC neighbourhood (rows top to bottom) with DC interpolation (every AC unknown) and without (positions 1-5)
+_SMOOTH_DC = np.array([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                       [-2, -6, -8, -6, -2]], np.int64)
+_SMOOTH_AC = {  # zigzag position: (weights with DC interpolation, weights without)
+    1: ([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]],
+        [[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5]),
+    2: ([[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0] * 5, [1, -13, -38, -13, 1], [1, 3, 3, 3, 1]],
+        [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0] * 5, [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]]),
+    3: ([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]],
+        [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]]),
+    4: ([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0] * 5, [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]],
+        [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5, [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]]),
+    5: ([[0] * 5, [0, 2, -5, 2, 0], [1, 7, -14, 7, 1], [0, 2, -5, 2, 0], [0] * 5],
+        [[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5]),
+    6: ([[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0], [0] * 5], None),
+    7: ([[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0], [0] * 5], None),
+    8: ([[0] * 5, [0, 1, 0, -1, 0], [0, -3, 0, 3, 0], [0, 1, 0, -1, 0], [0] * 5], None),
+    9: ([[0] * 5, [0, 1, 2, 1, 0], [0] * 5, [0, -1, -2, -1, 0], [0] * 5], None),
+}
+
+
+def smooth_blocks(coef: np.ndarray, wb: int, hb: int, v: int, imcu_rows: int, q: np.ndarray, bits: list) -> np.ndarray:
+    """jdcoefct.c's decompress_smooth_data over one component's blocks
+    [rows, columns, 64]: each block of the hb x wb that hold samples gets,
+    for zigzag positions 1-9 that are zero and not known exactly (`bits`,
+    the progression's Al, nonzero), an estimate from the DC values of its
+    5 x 5 neighbourhood, at most 2^Al - 1 in magnitude; where no AC
+    coefficient has been sent at all, the DC too is re-estimated (and
+    positions 6-9).  Columns are replicated at the edges.  Rows are as
+    Pillow's libjpeg-turbo 3.1 reads them (found by probing it with files
+    cut after each scan, 4:2:0 at heights 9-96): the row above and the row
+    below replicated at the edges; the row two below read from the MCU
+    padding rows where the component's v block rows an iMCU row hold one,
+    else the row below; the row two above the row above where the image's
+    two iMCU rows end in a partial one (a component of v > 1)."""
+    r = np.arange(hb)
+    up1 = np.maximum(r - 1, 0)
+    up2 = np.where(r > 1, r - 2, up1)
+    if hb % v and imcu_rows == 2:
+        up2 = np.where(r == v, up1, up2)
+    dn1 = np.minimum(r + 1, hb - 1)
+    dn2 = np.where(r + 2 < -(-hb // v) * v, r + 2, dn1)
+    dc = np.pad(coef[:, :wb, 0], ((0, 0), (2, 2)), mode="edge")
+    win = [[dc[rows, x: x + wb] for x in range(5)] for rows in (up2, up1, r, dn1, dn2)]
+    out = coef.copy()
+    change_dc = all(bits[k] == -1 for k in range(1, 10))
+    q00 = int(q[0])
+    for k in range(1, 10):
+        weights = _SMOOTH_AC[k][0 if change_dc else 1]
+        al = bits[k]
+        if weights is None or al == 0:
+            continue
+        pos = ZIGZAG_LIST[k]
+        qk = int(q[pos])
+        num = q00 * sum(w * win[y][x] for y, row in enumerate(weights) for x, w in enumerate(row) if w)
+        pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        region = out[:hb, :wb, pos]
+        region[...] = np.where(region == 0, _int16_array(np.where(num >= 0, pred, -pred)), region)
+    if change_dc:
+        num = q00 * sum(w * win[y][x] for y in range(5) for x in range(5) for w in [int(_SMOOTH_DC[y, x])])
+        pred = ((q00 << 7) + np.abs(num)) // (q00 << 8)
+        out[:hb, :wb, 0] = _int16_array(np.where(num >= 0, pred, -pred))
+    return out
+
+
+def _int16_array(v: np.ndarray) -> np.ndarray:
+    return ((v + 32768) & 0xFFFF) - 32768  # stored as JCOEF
 
 
 # jidctint.c constants (CONST_BITS 13)
@@ -663,33 +988,144 @@ def _ycc_tables():
 _CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
 
 
-def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a baseline or progressive JPEG (module docstring)."""
-    frame = parse(bytes(data), name)
-    coefs = _decode_coefficients(frame, name)
-    geo, _, _ = _geometry(frame)
+def _lossless_planes(frame: _Frame, name: str) -> list:
+    """Each component's samples, int32 [height, width] of its sampled size,
+    of a lossless (SOF3) frame: jdlhuff.c's Huffman-coded differences (16:
+    32768), undone by jdlossls.c's predictors (the first row of the image
+    and of each restart interval from its left neighbour, starting at
+    2^(7 - Pt); the first column from above), then shifted left by the
+    point transform and kept to 8 bits."""
     hmax = max(c[1] for c in frame.components)
     vmax = max(c[2] for c in frame.components)
-    planes = []
-    for c, (_, h, v, _) in enumerate(frame.components):
-        p = _upsample(_plane(frame, coefs, c, geo), hmax // h, vmax // v)
-        planes.append(p[: frame.height, : frame.width])
-    if frame.colour == "grey":
-        g = planes[0].astype(np.uint8)
-        return np.repeat(g[:, :, None], 3, axis=2)
-    if frame.colour in ("rgb", "cmyk"):
-        rgb = np.stack(planes[:3], axis=2).astype(np.int64)
-        if frame.colour == "rgb":
-            return rgb.astype(np.uint8)
-        rgb = 255 - rgb  # Pillow's CMYK;I: 255 - C is what cmyk2rgb scales
-    else:  # YCbCr, or the YCC of YCCK: R = 255 - C there, range-limited
+    mcux, mcuy = -(-frame.width // hmax), -(-frame.height // vmax)
+    dims = [(-(-frame.width * h // hmax), -(-frame.height * v // vmax)) for _, h, v, _ in frame.components]
+    diffs = [np.zeros((mcuy * v, mcux * h), np.int64) for _, h, v, _ in frame.components]
+    planes = [None] * len(frame.components)
+    for scan in frame.scans:
+        if len(scan.comps) == 1:
+            c = scan.comps[0]
+            cols = dims[c][0]
+            units = [[(0, c, r, q)] for r in range(dims[c][1]) for q in range(cols)]
+        else:
+            cols = mcux
+            units = [[(i, c, r * v + y, q * h + x) for i, c in enumerate(scan.comps)
+                      for h, v in [frame.components[c][1:3]] for y in range(v) for x in range(h)]
+                     for r in range(mcuy) for q in range(mcux)]
+        interval = scan.restart or len(units)
+        if interval % cols:
+            raise ValueError(f"{name}: marker 0xFFDD: restart interval {interval} is not a multiple of the "
+                             f"{cols} MCUs of a row (lossless)")
+        n_intervals = -(-len(units) // interval)
+        if len(scan.segments) < n_intervals:
+            raise ValueError(f"{name}: marker 0xFFDA: corrupt or truncated scan (expected {n_intervals} restart "
+                             f"intervals, found {len(scan.segments)})")
+        for k in range(n_intervals):
+            bits = _Bits(scan.segments[k])
+            for unit in units[k * interval: (k + 1) * interval]:
+                for i, c, r, q in unit:
+                    s = bits.huff(scan.dc[i], name)
+                    if s > 16:
+                        raise ValueError(f"{name}: marker 0xFFDA: corrupt difference category {s}")
+                    diffs[c][r, q] = 32768 if s == 16 else (_extend(bits.get(s), s) if s else 0)
+                if bits.over():
+                    raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream")
+        for c in scan.comps:
+            cw, ch = dims[c]
+            rows_per_restart = interval // cols * (frame.components[c][2] if len(scan.comps) > 1 else 1)
+            planes[c] = _undifference(diffs[c][:ch, :cw], scan.ss, scan.al, rows_per_restart if scan.restart else 0)
+    if any(p is None for p in planes):
+        raise ValueError(f"{name}: marker 0xFFDA: a component no scan names (lossless)")
+    return planes
+
+
+def _undifference(diff: np.ndarray, psv: int, pt: int, restart_rows: int) -> np.ndarray:
+    """jdlossls.c's undifferencing of one component and the point transform."""
+    h, w = diff.shape
+    d = diff.tolist()
+    out = [[0] * w for _ in range(h)]
+    prev = None
+    for y in range(h):
+        row, dy = out[y], d[y]
+        if prev is None or (restart_rows and y % restart_rows == 0):  # jpeg_undifference_first_row
+            ra = (dy[0] + (1 << (7 - pt))) & 0xFFFF
+            row[0] = ra
+            for x in range(1, w):
+                ra = (dy[x] + ra) & 0xFFFF
+                row[x] = ra
+        else:
+            rb = prev[0]
+            ra = (dy[0] + rb) & 0xFFFF  # the first column predicts from above
+            row[0] = ra
+            for x in range(1, w):
+                rc, rb = rb, prev[x]
+                if psv == 1:
+                    p = ra
+                elif psv == 2:
+                    p = rb
+                elif psv == 3:
+                    p = rc
+                elif psv == 4:
+                    p = ra + rb - rc
+                elif psv == 5:
+                    p = ra + ((rb - rc) >> 1)
+                elif psv == 6:
+                    p = rb + ((ra - rc) >> 1)
+                else:
+                    p = (ra + rb) >> 1
+                ra = (dy[x] + p) & 0xFFFF
+                row[x] = ra
+        prev = row
+    return (np.array(out, np.int64).reshape(h, w) << pt & 0xFF).astype(np.int32)
+
+
+def decode_samples(data: bytes, name: str = "<bytes>", colour: str = None) -> np.ndarray:
+    """uint8 [H, W, 3 or 1 or 4]: what libjpeg hands its caller, upsampled and
+    colour-converted: RGB for a YCbCr / RGB frame, one channel for grey, the
+    CMYK samples as stored for CMYK and YCCK.  `colour` overrides the colour
+    space the markers name ("unknown": every component as it is, as libtiff
+    asks for a JPEG-compressed TIFF strip that is not YCbCr)."""
+    frame = parse(bytes(data), name)
+    if colour is not None:
+        frame.colour = colour
+    hmax = max(c[1] for c in frame.components)
+    vmax = max(c[2] for c in frame.components)
+    if frame.lossless:
+        if frame.colour in ("ycbcr", "ycck"):  # jdcolor.c refuses a lossy conversion of lossless samples
+            raise ValueError(f"{name}: marker 0xFFC3: a lossless {frame.colour.upper()} frame, which libjpeg "
+                             "does not convert (lossless RGB, CMYK or grey only)")
+        # jdsample.c's int_upsample: lossless output is never fancy-upsampled
+        planes = [np.repeat(np.repeat(p, vmax // v, axis=0), hmax // h, axis=1)[: frame.height, : frame.width]
+                  for p, (_, h, v, _) in zip(_lossless_planes(frame, name), frame.components)]
+    else:
+        coefs = _decode_coefficients(frame, name)
+        geo, _, _ = _geometry(frame)
+        planes = [_upsample(_plane(frame, coefs, c, geo), hmax // h, vmax // v)[: frame.height, : frame.width]
+                  for c, (_, h, v, _) in enumerate(frame.components)]
+    if frame.colour in ("ycbcr", "ycck"):  # YCbCr, or the YCC of YCCK: R = 255 - C there, range-limited
         y, cb, cr = (p.astype(np.int64) for p in planes[:3])
         rgb = np.clip(np.stack([y + _CR_R[cr], y + ((_CB_G[cb] + _CR_G[cr]) >> 16), y + _CB_B[cb]], axis=2), 0, 255)
         if frame.colour == "ycbcr":
             return rgb.astype(np.uint8)
-    k = planes[3].astype(np.int64)[:, :, None]
-    t = rgb * k + 128  # Convert.c's cmyk2rgb: K - MULDIV255(255 - C, K)
-    return (k - (((t >> 8) + t) >> 8)).astype(np.uint8)
+        return np.concatenate([255 - rgb, planes[3][:, :, None]], axis=2).astype(np.uint8)
+    return np.stack(planes, axis=2).astype(np.uint8)
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's Convert.c cmyk2rgb of uint8 [..., 4] CMYK: each of R, G, B
+    is (255 - K) - MULDIV255(C, 255 - K)."""
+    nk = 255 - cmyk[..., 3:4].astype(np.int64)
+    t = cmyk[..., :3].astype(np.int64) * nk + 128
+    return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+
+
+def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a JPEG file (module docstring)."""
+    px = decode_samples(data, name)
+    if px.shape[2] == 1:
+        return np.repeat(px, 3, axis=2)
+    if px.shape[2] == 4:  # Pillow reads every CMYK JPEG as Adobe's inverted CMYK (raw mode CMYK;I)
+        return cmyk_to_rgb(255 - px)
+    return px
 
 
 # --- the native decoder --------------------------------------------------------
@@ -714,6 +1150,26 @@ def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 decode_native.calls = 0  # decodes that went through the native library (read by chip_smoke.py)
+
+_COLOUR_CODES = {None: -1, "ycbcr": 1, "unknown": 2}  # csrc/jpeg.cu's Decoder::Colour (kRGB: components as stored)
+
+
+def decode_samples_native(data: bytes, name: str = "<bytes>", colour: str = None) -> np.ndarray:
+    """`decode_samples` through csrc/jpeg.cu (the TIFF decoder's JPEG strips on a CUDA run's host)."""
+    from uniir_tpu_torch import _build
+
+    lib = _build.load("jpeg")
+    data = bytes(data)
+    err = ctypes.create_string_buffer(256)
+    size = (ctypes.c_int * 3)()
+    code = _COLOUR_CODES[colour]
+    if lib.uniir_jpeg_samples_info(data, len(data), code, size, err, len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    out = np.empty((size[1], size[0], size[2]), np.uint8)
+    if lib.uniir_jpeg_decode_samples(data, len(data), code, out.ctypes.data, size[0], size[1], size[2], err,
+                                     len(err)) != 0:
+        raise ValueError(f"{name}: {err.value.decode()}")
+    return out
 _calls_lock = threading.Lock()  # the loader's threads decode at once
 
 
@@ -725,13 +1181,32 @@ def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     return decode_native if torch.device(device).type == "cuda" else decode_twin
 
 
-# formats Pillow opens that the port does not decode, by their first bytes
-_REFUSED = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+# formats Pillow 12.1's Image.open reads that the port does not decode, by the test each plugin's _accept makes
+# of the file's first bytes (TGA, which has no signature, reads as unknown)
+_REFUSED = (
+    (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
+    (lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
+    (lambda d: d[:4] == b"\x00\x00\x01\x00", "ICO"),
+    (lambda d: d[:4] == b"\x00\x00\x02\x00", "CUR"),
+    (lambda d: d[:1] == b"P" and len(d) > 1 and d[1:2] in b"0123456fy", "PPM"),
+    (lambda d: d[:4] == b"8BPS", "PSD"),
+    (lambda d: d[:4] == b"qoif", "QOI"),
+    (lambda d: d[:2] == b"\x01\xda", "SGI"),
+    (lambda d: len(d) > 1 and d[0] == 10 and d[1] in (0, 2, 3, 5), "PCX"),
+    (lambda d: d[:4] == b"DDS ", "DDS"),
+    (lambda d: d[:4] == b"icns", "ICNS"),
+    (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
+    (lambda d: d[:4] == b"\x59\xa6\x6a\x95", "Sun raster"),
+    (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
+    (lambda d: d[:7] == b"#define", "XBM"),
+    (lambda d: d[:9] == b"/* XPM */", "XPM"),
+    (lambda d: d[:4] == b"\x89HDF", "HDF5"),
+)
 
 
 def image_format(data: bytes) -> str:
-    """The format a file's first bytes name: "jpeg", "png", "gif", "bmp",
-    "webp", or the name of a format that is not decoded ("TIFF", "unknown")."""
+    """The format a file's first bytes name: "jpeg", "png", "gif", "bmp", "webp", "tiff", or the name of a
+    format Pillow reads and the port does not decode ("AVIF", "ICO", ...), or "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
@@ -742,13 +1217,14 @@ def image_format(data: bytes) -> str:
         return "bmp"
     if webp.accepts(data):
         return "webp"
-    return next((label for magic, label in _REFUSED if data.startswith(magic)), "unknown")
+    if tiff.accepts(data):
+        return "tiff"
+    return next((label for accepts, label in _REFUSED if accepts(data)), "unknown")
 
 
 def read_image(path: str, device) -> np.ndarray:
-    """uint8 [H, W, 3] of the JPEG, PNG, GIF, BMP or WebP file at `path`,
-    told apart by its signature and decoded as a run on `device` decodes
-    (BMP has one decoder, numpy)."""
+    """uint8 [H, W, 3] of the JPEG, PNG, GIF, BMP, WebP or TIFF file at `path`, told apart by its signature
+    and decoded as a run on `device` decodes (BMP has one decoder, numpy)."""
     with open(path, "rb") as f:
         data = f.read()
     kind = image_format(data)
@@ -762,4 +1238,7 @@ def read_image(path: str, device) -> np.ndarray:
         return bmp.decode(data, path)
     if kind == "webp":
         return webp.decoder_for(device)(data, path)
-    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG, PNG, GIF, BMP and WebP files are decoded")
+    if kind == "tiff":
+        return tiff.decoder_for(device)(data, path)
+    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG, PNG, GIF, BMP, WebP and TIFF files are "
+                     "decoded")
