@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py            # from the repo root; needs one CUDA card
 
-0. builds the port's kernels and host image decoders (uniir_tpu_torch/csrc,
+0. builds the port's kernels, host image decoders and JPEG encoder (uniir_tpu_torch/csrc,
    nvcc for sm_90a) from the checkout, one nvcc a source at once, and (the
    decoder phase) holds the native GIF decoder, the native JPEG decoder's
    CMYK, YCCK and RGB forms and the native WebP decoder bit-equal to their
-   twins over 200 seeded files each, sizes 1-600 px (both WebP decoders
+   twins over 120 seeded files each, sizes 1-600 px (both WebP decoders
    also to Pillow's digests of seven Pillow-made files), printing their
    images/s on one thread and on the loader's threads;
 1. checks each kernel against its plain PyTorch twin at the shapes the
@@ -193,6 +193,30 @@
    plus transform in the embed loop and of the train transform in the
    BLIP-SF trainer's step, and that step's device idle share, beside the
    card's name and power limit and the host CPU.
+13. runs the offline M-BEIR construction as a user does: writes seeded raw
+   trees for the ten source datasets in each converter's layout (about 600
+   images at the sources' sizes, COCO's 640 x 480 kinds up to 1600 px for
+   OVEN: the writer's baseline JPEGs, JPEGs with COM segments, Pillow's
+   progressive files, palette PNGs with tRNS, PNGs with a comment, GIFs with
+   a comment, lossless WebP, CMYK JPEG, ICO, PPM / PGM; a truncated JPEG, an
+   HTML error page under a .jpg name and a QOI file under a .png name), then each converter's CLI with every step
+   (`--enable_image_processing`, the candidate pool, the conversion, the
+   training pool) and the union generator's (union pools, the union train
+   split, task ids, qrels), each a process of its own on the card's default
+   device with yaml, PIL and regex stubbed out; holds the native JPEG
+   encoder to Pillow 12.1's digests of a fixed set and every file the CLIs
+   wrote (the JPEG files of the image pass, every JSON-lines file) to the
+   same mains run in this process through the twins (`--device cpu`), the
+   truncated file and the HTML page deleted, the QOI file left in place and
+   all three counted, each
+   pass's native decodes and encodes counted in its workers; times the image
+   pass on one process by stage (decode, comment, resize, encode, write: the
+   encoder's share) and on the pass's pool; then embeds, indexes and
+   retrieves the constructed MSCOCO test split through the pipeline CLI
+   (CLIP-SF ViT-L/14, bf16: K1, K4 and K2, no other kernel; ids equal to the
+   in-code path; each retrieval run's top 10 ids for every query equal to
+   the search called in code, the int8 run's to the bf16 run's; Recall equal
+   to the search called in code).
 
 With `--profile` it also prints torch.profiler breakdowns, by kernel group,
 of the 32-pair train steps (CLIP-SF, CLIP-FF, and CLIP-FF with remat and
@@ -274,8 +298,12 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+T_IMPORT = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the log, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T_IMPORT:.1f} s] {msg}", flush=True)
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -469,30 +497,37 @@ def decoder_case(job: tuple) -> tuple:
     return data, hashlib.sha256(twin(data).tobytes()).hexdigest()
 
 
-def check_decoders(smi: str) -> None:
+DECODER_KINDS = ("gif", "jpeg", "webp", "tiff", "jpeg_forms")
+
+
+def start_decoder_cases(pool) -> dict:
+    """The decoder phase's seeded files and their twins' digests, DECODER_CASES of each kind, submitted to
+    `pool` (a spawn pool: the twins are numpy) so that they are written and decoded while the card checks
+    its kernels; kind -> futures."""
+    return {kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)] for kind in DECODER_KINDS}
+
+
+def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     """The decoder phase: the native GIF decoder (csrc/gif.cu), the native JPEG decoder's CMYK, YCCK and RGB
     forms and its SOF1, arithmetic, lossless and smoothed forms (csrc/jpeg.cu), the native WebP decoder
     (csrc/webp.cu) and the native TIFF decoder (csrc/tiff.cu with the JPEG strips through csrc/jpeg.cu) held
-    bit-equal to their twins over DECODER_CASES seeded files each, sizes 1-600 px (the twins run in a spawn
-    pool), the WebP, TIFF and JPEG-form decoders also to Pillow's digests of WEBP_PILLOW_FILES,
+    bit-equal to their twins over DECODER_CASES seeded files each, sizes 1-600 px (`start_decoder_cases`'
+    futures, `pending`, submitted at `t_started`), the WebP, TIFF and JPEG-form decoders also to Pillow's digests of WEBP_PILLOW_FILES,
     TIFF_PILLOW_FILES and JPEG_FORM_PILLOW_FILES; the native decoders' images/s and Mpixel/s on one thread and
     on the loader's threads (the shipped embed.yaml's num_workers), beside the card's name and power limit and
     the host CPU."""
     import hashlib
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+    from concurrent.futures import ThreadPoolExecutor
 
     from uniir_tpu_torch.core.config import load_config
     from uniir_tpu_torch.data import gif, jpeg, tiff, webp
 
     t_phase = time.perf_counter()
     threads = int(load_config(str(REPO / P12_CONFIGS["embed"])).dataloader_config.num_workers)
-    kinds = ("gif", "jpeg", "webp", "tiff", "jpeg_forms")
-    with ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=multiprocessing.get_context("spawn")) as pool:
-        cases = {kind: list(pool.map(decoder_case, [(kind, k) for k in range(DECODER_CASES)], chunksize=2))
-                 for kind in kinds}
+    cases = {kind: [f.result() for f in futures] for kind, futures in pending.items()}
     log(f"decoder phase: {DECODER_CASES} GIF, JPEG, WebP, TIFF and SOF1 / arithmetic / lossless / smoothed JPEG "
-        f"files each written and decoded by the twins in {time.perf_counter() - t_phase:.1f} s")
+        f"files each written and decoded by the twins, {t_phase - t_started:.1f} s after they were started beside "
+        f"the kernel checks, done {time.perf_counter() - t_phase:.1f} s later")
     for files, module, label in ((WEBP_PILLOW_FILES, webp, "WebP"), (TIFF_PILLOW_FILES, tiff, "TIFF"),
                                  (JPEG_FORM_PILLOW_FILES, jpeg, "JPEG-form")):
         for name, (b64, digest, w, h) in files.items():
@@ -2820,13 +2855,24 @@ QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline J
 
 
 def swapped_decoders():
-    """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call);
-    call the result to swap them back."""
+    """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call),
+    each file's bytes decoded once: the loader pads a one-query batch by repeating its row, and the numpy
+    twins would decode the same bytes to the same pixels BATCH times.  Call the result to swap them back."""
     from uniir_tpu_torch.data import gif, jpeg, png, tiff, webp
+
+    def decoded_once(twin):
+        pixels = {}
+
+        def decode(data: bytes, *args):
+            if data not in pixels:
+                pixels[data] = twin(data, *args)
+            return pixels[data].copy()
+
+        return decode
 
     saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp)]
     for module, _ in saved:
-        module.decoder_for = lambda device, module=module: module.decode_twin
+        module.decoder_for = lambda device, twin=decoded_once(module.decode_twin): twin
 
     def restore() -> None:
         for module, fn in saved:
@@ -6708,7 +6754,7 @@ def flat_items(d, prefix: str = "") -> dict:
     return out
 
 
-def fixture_configs(root: Path) -> dict:
+def fixture_configs(root: Path, phase: int = 12) -> dict:
     """name -> path of each YAML file the runs read, written by the port's writer from the shipped file
     the port's reader read, with the keys the fixture forces; prints the keys changed."""
     from uniir_tpu_torch.core import yaml_subset
@@ -6758,7 +6804,7 @@ def fixture_configs(root: Path) -> dict:
         changed.append(f"{name}.yaml (from {P12_CONFIGS[source]}): {', '.join(keys)}")
         paths[name] = root / "configs" / f"{name}.yaml"
         yaml_subset.dump(d, paths[name])
-    log(f"phase 12: config keys changed for the fixture -- {'; '.join(changed)}")
+    log(f"phase {phase}: config keys changed for the fixture -- {'; '.join(changed)}")
     return paths
 
 
@@ -6766,8 +6812,10 @@ def fixture_configs(root: Path) -> dict:
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count, and the native JPEG, PNG, GIF, WebP and TIFF decoders' calls."""
-    from uniir_tpu_torch.data import gif, jpeg, png, tiff, webp
+    """Every kernel wrapper's launch count, the native JPEG, PNG, GIF, WebP and TIFF decoders' and the native
+    JPEG encoder's calls, and those the last image pass's workers made (phase 13)."""
+    from uniir_tpu_torch.data import gif, jpeg, jpeg_encode, png, tiff, webp
+    from uniir_tpu_torch.data.preprocessing import io_utils
     from uniir_tpu_torch.ops import attention as A
     from uniir_tpu_torch.ops import image_ops as I
     from uniir_tpu_torch.ops import mlp as M
@@ -6784,6 +6832,8 @@ def launch_counts() -> dict:
     counts["gif"] = gif.decode_native.calls
     counts["webp"] = webp.decode_native.calls
     counts["tiff"] = tiff.decode_native.calls
+    counts["jpeg_encode"] = jpeg_encode.encode_native.calls
+    counts["pass_decode"], counts["pass_encode"] = io_utils.NATIVE_CALLS["decode"], io_utils.NATIVE_CALLS["encode"]
     return counts
 
 
@@ -6880,15 +6930,15 @@ def cli_embeds(uniir_dir: Path, embed_dir: str, expt: str) -> dict:
             for split, name in (("cand_pool", P12_POOL), ("test", P12_DATASET))}
 
 
-def hold_embeds(tag: str, cli: dict, ref: dict) -> None:
+def hold_embeds(tag: str, cli: dict, ref: dict, phase: int = 12) -> None:
     """The CLI's embeddings against the in-code path's: ids equal, every row's cosine >= P12_COS."""
     for split in ("cand_pool", "test"):
         (emb, ids), (ref_emb, ref_ids) = cli[split], ref[split]
-        check(np.array_equal(ids, ref_ids), f"phase 12 {tag} {split}: the CLI's ids differ from the in-code path's")
-        check(emb.shape == ref_emb.shape and bool(np.isfinite(emb).all()), f"phase 12 {tag} {split}: {emb.shape}")
+        check(np.array_equal(ids, ref_ids), f"phase {phase} {tag} {split}: the CLI's ids differ from the in-code path's")
+        check(emb.shape == ref_emb.shape and bool(np.isfinite(emb).all()), f"phase {phase} {tag} {split}: {emb.shape}")
         cos = torch.nn.functional.cosine_similarity(torch.from_numpy(emb).double(), torch.from_numpy(ref_emb).double())
-        log(f"phase 12 {tag} {split}: {len(ids)} rows, CLI against in-code cosine min {cos.min().item()}")
-        check(cos.min().item() >= P12_COS, f"phase 12 {tag} {split}: a row's cosine {cos.min().item()} < {P12_COS}")
+        log(f"phase {phase} {tag} {split}: {len(ids)} rows, CLI against in-code cosine min {cos.min().item()}")
+        check(cos.min().item() >= P12_COS, f"phase {phase} {tag} {split}: a row's cosine {cos.min().item()} < {P12_COS}")
 
 
 def run_files(results_dir: Path) -> dict:
@@ -6906,17 +6956,24 @@ def tsv_recall(tsv_dir: Path) -> dict:
     return {(r["TaskID"], r["Metric"]): (float(r["Value"]), float(r["UnionValue"])) for r in rows}
 
 
-def in_code_recall(uniir_dir: Path, tree: dict) -> dict:
-    """(task id, metric) -> Recall of the port's search, called in code on the CLI's query embeddings and
-    index file (bf16 pool: the ranking the int8 run's guard holds its ids to)."""
-    from uniir_tpu_torch.retrieval.eval import evaluate_recall, load_qrel
+def in_code_search(uniir_dir: Path, k: int = 10) -> tuple:
+    """(found [queries, k] hashed dids, hashed qids): the port's search called in code on the CLI's query
+    embeddings and index file (bf16 pool: the ranking the int8 run's guard holds its ids to)."""
     from uniir_tpu_torch.retrieval.index import DenseIndex
     from uniir_tpu_torch.retrieval.search import search_dense_index
 
     queries, qids = cli_embeds(uniir_dir, "embed", P12_EXPT["clip"])["test"]
     index = DenseIndex.load(str(uniir_dir / "index" / P12_EXPT["clip"] / "cand_pool"
                                 / f"mbeir_{P12_POOL}_cand_pool.index"))
-    _, found = search_dense_index(queries.astype(np.float32), index, 10, pool_dtype="bf16", device=DEVICE)
+    _, found = search_dense_index(queries.astype(np.float32), index, k, pool_dtype="bf16", device=DEVICE)
+    return found, qids
+
+
+def in_code_recall(uniir_dir: Path, tree: dict, searched: tuple = None) -> dict:
+    """(task id, metric) -> Recall of `in_code_search`'s ids (searched again where not given)."""
+    from uniir_tpu_torch.retrieval.eval import evaluate_recall, load_qrel
+
+    found, qids = searched or in_code_search(uniir_dir)
     qrel, task_of = load_qrel(str(tree["mbeir"] / f"qrels/test/mbeir_{P12_DATASET}_test_qrels.txt"))
     recall = evaluate_recall(found, qids, qrel, task_of, ["Recall@1", "Recall@5", "Recall@10"])
     return {(task, metric): value for task, row in recall.items() for metric, value in row.items()}
@@ -7225,7 +7282,669 @@ def check_blip_train_run(root: Path, logs: Path, run: tuple, tree: dict, transfo
         f"at {P12_BLIP_TRAIN_BS} pairs, {busy_ms:.2f} ms, against it)")
 
 
+# ------------------------------------------------ phase 13: the offline M-BEIR construction
+
+P13_SEED = SEED + 130
+# source records of each converter's raw tree: images (MSCOCO, CIRR, FashionIQ, Fashion200K, VisualNews,
+# WebQA), queries over 4 candidates (EDIS), triplets (NIGHTS), wiki entities and query images (OVEN; InfoSeek
+# asks about the same ones); about 600 image files in all
+P13_COUNTS = {"mscoco": 170, "cirr": 60, "fashioniq": 60, "fashion200k": 60, "edis": 20, "nights": 20,
+              "visualnews": 72, "webqa": 40, "oven": 30}
+# the forms the raw images take in turn, whatever name their source gives them (the image pass reads a file
+# by its first bytes): the writer's baseline JPEG (Pillow's defaults) most often, then every form the pass
+# carries a comment from or converts through another mode
+P13_FORMS = ("jpeg", "jpeg_comment", "progressive", "jpeg", "png_palette_trns", "png_comment", "jpeg",
+             "gif_comment", "jpeg_cmyk", "jpeg", "ico", "ppm", "jpeg_444", "pgm", "png_rgb", "jpeg", "webp")
+P13_SMALL = ("webp", "ico")  # forms written at most 160 px a side (the script's WebP writer is slow)
+P13_CONVERTERS = ("mscoco", "cirr", "fashioniq", "fashion200k", "edis", "nights", "visualnews", "webqa", "oven",
+                  "infoseek")
+P13_VN_SAMPLES = (12, 3, 3)  # VisualNews' --train_samples / --val_samples / --test_samples a source
+
+
+def raw_image(seed: int, w: int, h: int) -> np.ndarray:
+    """A seeded smooth colour field of w x h with some noise (a photograph's statistics, roughly)."""
+    rng = np.random.default_rng(seed)
+    grid = rng.integers(0, 256, (7, 7, 3)).astype(np.float64)
+    ys, xs = np.linspace(0, 5.999, h), np.linspace(0, 5.999, w)
+    y0, x0 = ys.astype(int), xs.astype(int)
+    fy, fx = (ys - y0)[:, None, None], (xs - x0)[None, :, None]
+    img = (grid[y0][:, x0] * (1 - fy) * (1 - fx) + grid[y0 + 1][:, x0] * fy * (1 - fx)
+           + grid[y0][:, x0 + 1] * (1 - fy) * fx + grid[y0 + 1][:, x0 + 1] * fy * fx)
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+
+
+def ico_bytes(image: np.ndarray, seed: int) -> bytes:
+    """An icon of two entries: `image` as a PNG (the largest, which Pillow reads) and a 16 x 16 24-bit DIB
+    with its AND mask."""
+    small = raw_image(seed + 1, 16, 16)
+    dib = bytearray(bmp_bytes(small, 24)[14:])
+    dib[8:12] = (32).to_bytes(4, "little")  # the colour rows and the mask: twice the height
+    dib += bytes(4 * 16)
+    entries = [(png_bytes(image, 2), image.shape[1], image.shape[0], 32), (bytes(dib), 16, 16, 24)]
+    out, offset = b"\0\0\1\0" + len(entries).to_bytes(2, "little"), 6 + 16 * len(entries)
+    for data, w, h, bpp in entries:
+        out += bytes([w % 256 if w < 256 else 0, h % 256 if h < 256 else 0, 0, 0]) + (1).to_bytes(2, "little")
+        out += bpp.to_bytes(2, "little") + len(data).to_bytes(4, "little") + offset.to_bytes(4, "little")
+        offset += len(data)
+    return out + b"".join(data for data, *_ in entries)
+
+
+def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
+    """The bytes of one raw image file of `form` (P13_FORMS, or `truncated`: a baseline JPEG cut in its scan,
+    `garbage`: an HTML error page, which no image reader identifies, `qoi`: a format Pillow reads and the port
+    does not decode yet)."""
+    if form == "progressive":  # Pillow-made files of their own size
+        return base64.b64decode(PROGRESSIVE_FILES[sorted(PROGRESSIVE_FILES)[seed % 3]][0])
+    if form == "garbage":  # what a scraper saves as the image when the server answers with an error page
+        return b"<!DOCTYPE html>\n<html><head><title>404 Not Found</title></head><body>image %d</body></html>\n" % seed
+    if form == "qoi":
+        body = np.random.default_rng(seed).integers(0, 256, 64, dtype=np.uint8).tobytes()
+        return b"qoif" + w.to_bytes(4, "big") + h.to_bytes(4, "big") + b"\x03\x00" + body + bytes(7) + b"\x01"
+    if form in P13_SMALL:
+        w, h = min(w, 160), min(h, 160)
+    img = raw_image(seed, w, h)
+    if form == "jpeg":
+        return jpeg_bytes(img)
+    if form == "jpeg_444":
+        return jpeg_bytes(img, 90, sampling=(1, 1))
+    if form == "jpeg_comment":  # two COM segments: Pillow keeps the last
+        data = jpeg_bytes(img)
+        return data[:2] + _jpeg_segment(0xFE, b"first") + _jpeg_segment(0xFE, f"photo {seed}".encode()) + data[2:]
+    if form == "truncated":
+        data = jpeg_bytes(img)
+        return data[: len(data) // 2]
+    if form == "jpeg_cmyk":
+        return jpeg_bytes(cmyk_planes(img), 90, form="cmyk")
+    if form == "png_rgb":
+        return png_bytes(img, 2)
+    if form == "png_comment":  # a tEXt chunk keyed "comment", latin-1: the JPEG's COM gets its UTF-8
+        data = png_bytes(img, 2)
+        return data[:33] + png_chunk(b"tEXt", b"comment\0" + f"caf\xe9 {seed}".encode("latin-1")) + data[33:]
+    if form == "webp":
+        return webp_bytes("lossless", seed, 0, 0, image=img)
+    if form == "ico":
+        return ico_bytes(img, seed)
+    if form == "ppm":
+        return b"P6\n# a comment\n%d %d\n255\n" % (w, h) + img.tobytes()
+    if form == "pgm":
+        return b"P5 %d %d 255\n" % (w, h) + img.mean(axis=2).astype(np.uint8).tobytes()
+    idx, cube = colour_cube(img)
+    if form == "png_palette_trns":  # mode P with transparency: Pillow's pass goes through RGBA
+        return png_bytes(idx[..., None], 3, palette=cube, trns=bytes(range(0, 256, 8)))
+    if form == "gif_comment":
+        data = gif_bytes(idx, cube)
+        at = 13 + (3 << ((data[10] & 7) + 1))
+        return data[:at] + b"\x21\xfe" + gif_sub_blocks(f"gif {seed}".encode()) + data[at:]
+    raise ValueError(f"unknown raw form {form}")
+
+
+def write_raw_file(job: tuple) -> None:
+    path, form, seed, w, h = job
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_bytes(raw_file(form, seed, w, h))
+
+
+def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused: bool = True, pool=None) -> dict:
+    """The ten converters' raw trees under `root` (their --mbeir_data_dir), each in its source's layout
+    (the JAX package's converters and tests/test_preprocessors.py read them so), seeded: records in
+    src_data/<dataset>/, images under mbeir_images/<dataset>_images/ named as the source names them and
+    written in P13_FORMS' forms at the sources' sizes times `side` (COCO's 640 x 480 and 500 x 375 kinds, up
+    to 1600 px for OVEN / InfoSeek), by `pool`'s workers if given.  MSCOCO also holds a missing image, a
+    truncated JPEG, an HTML page under a .jpg name and (with `refused`) a QOI file under a .png name.  Returns
+    {"images": {path: form}, "truncated": path, "garbage": path, "refused": path or None, "captions": [every
+    caption and question]}."""
+    counts = {**P13_COUNTS, **(counts or {})}
+    rng = np.random.default_rng(P13_SEED)
+    vocab = fixture_words(rng, 400)
+    jobs, texts = [], []
+
+    def text(lo: int = 4, hi: int = 11) -> str:
+        out = " ".join(rng.choice(vocab, size=int(rng.integers(lo, hi))))
+        texts.append(out)
+        return out
+
+    def image(rel: str, size, form: str = None) -> None:
+        n = len(jobs)
+        form = form or P13_FORMS[n % len(P13_FORMS)]
+        w, h = (max(1, round(s * side)) for s in size)
+        jobs.append((str(root / rel), form, P13_SEED + n, w, h))
+
+    def photo():
+        return [(640, 480), (480, 640), (500, 375), (375, 500), (640, 427)][int(rng.integers(0, 5))]
+
+    def dump(rel: str, obj) -> None:
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(json.dumps(obj))
+
+    def dump_jsonl(rel: str, rows: list) -> None:
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text("".join(json.dumps(r) + "\n" for r in rows))
+
+    special = {}
+    coco = {"train": [], "val": [], "test": []}
+    for i in range(counts["mscoco"]):
+        split = ("train", "train", "train", "val", "test")[i % 5]
+        sub = "train2014" if split == "train" else "val2014"
+        name = f"{sub}/COCO_{sub}_{i:012d}.{'png' if i % 7 == 3 else 'jpg'}"
+        caps = [text() for _ in range(6 if i % 4 == 0 else 5)]
+        if i % 9 == 1:
+            caps[2] = caps[1]  # a repeated caption: the pool holds it once
+        coco[split].append({"image": name, "caption": caps if i % 11 else caps[0], "image_id": i})
+        form = {8: "truncated", 10: "qoi" if refused else None, 13: "garbage"}.get(i)
+        if i != 5:  # image 5 is missing
+            image(f"mbeir_images/mscoco_images/{name}", photo(), form)
+        if form:
+            special[form] = str(root / f"mbeir_images/mscoco_images/{name}")
+    for split, rows in coco.items():
+        dump(f"src_data/mscoco/coco_karpathy_{split}.json", rows)
+
+    cirr_names = {"train": [], "val": [], "test1": []}
+    for i in range(counts["cirr"]):
+        split = ("train", "train", "val", "test1")[i % 4]
+        name = f"{split}-{i}-0-img0"
+        rel = f"./{split if split == 'train' else 'dev'}/{i % 5}/{name}.png" if split != "test1" else f"./test1/{name}.png"
+        cirr_names[split].append((name, rel))
+        image(f"mbeir_images/cirr_images/{rel[2:]}", photo())
+    for split, names in cirr_names.items():
+        dump(f"src_data/cirr/image_splits/split.rc2.{split}.json", dict(names))
+    for split in ("train", "val"):
+        names = [n for n, _ in cirr_names[split]]
+        rows = []
+        for j, ref in enumerate(names):
+            tgts = [names[(j + d) % len(names)] for d in (1, 2, 3)]
+            row = {"pairid": j, "reference": ref, "caption": text(),
+                   "target_soft": {tgts[0]: 1.0, tgts[1]: 0.5, tgts[2]: -1.0}}
+            rows.append(row)
+            if j % 5 == 0:  # the same reference and caption again: its targets join the first's
+                rows.append({**row, "target_soft": {names[(j + 4) % len(names)]: 0.2}})
+        rows.append({"pairid": -1, "reference": "missing-ref", "caption": text(), "target_soft": {names[0]: 1.0}})
+        dump(f"src_data/cirr/captions/cap.rc2.{split}.json", rows)
+
+    fiq_ids = []
+    for i in range(counts["fashioniq"]):
+        fiq_ids.append(f"B00{i:07d}")
+        image(f"mbeir_images/fashioniq_images/{fiq_ids[-1]}.{'png' if i % 3 else 'jpg'}", (int(rng.integers(300, 600)), 600))
+    for c, cat in enumerate(("dress", "shirt", "toptee")):
+        ids = fiq_ids[c::3]
+        for s, split in enumerate(("train", "val", "test")):
+            dump(f"src_data/fashioniq/image_splits/split.{cat}.{split}.json", ids[s::3])
+        for split in ("train", "val"):
+            rows = [{"candidate": ids[j], "target": ids[(j + 1) % len(ids)],
+                     "captions": [text().capitalize() + ".", text() if j % 4 else ""]}
+                    for j in range(0 if split == "train" else 1, len(ids), 2)]
+            dump(f"src_data/fashioniq/captions/cap.{cat}.{split}.json", rows)
+
+    for split in ("train", "test"):
+        for cat in ("dress", "jacket"):
+            lines = []
+            for i in range(counts["fashion200k"] // 4):
+                pid = f"{cat}{split}{i}"
+                rel = f"women/{cat}es/casual/{pid}/{pid}_0.jpeg"
+                lines.append(f"{rel}\t0.{i + 10}\t{text()}\n")
+                if i % 6 == 0:
+                    lines.append(lines[-1])  # a repeated product line: kept once
+                image(f"mbeir_images/fashion200k_images/{rel[len('women/'):]}", (int(rng.integers(200, 300)), 300))
+            (root / f"src_data/fashion200k/labels/{cat}_{split}_detect_all.txt").parent.mkdir(parents=True, exist_ok=True)
+            (root / f"src_data/fashion200k/labels/{cat}_{split}_detect_all.txt").write_text("".join(lines))
+
+    edis_images = [f"{j:05d}.jpg" for j in range(2 * counts["edis"])]
+    for name in edis_images:
+        image(f"mbeir_images/edis_images/{name}", photo())
+    headlines = {name: text() for name in edis_images}
+    for s, split in enumerate(("train", "val", "test")):
+        rows = []
+        for i in range(s, counts["edis"], 3):
+            cands = [edis_images[(2 * i + d) % len(edis_images)] for d in range(4)]
+            rows.append({"id": i, "query": text(), "candidates": [
+                {"image": c, "headline": headlines[c], "candidate_id": 100 * i + d, "score": (3, 2, 1, 3)[d]}
+                for d, c in enumerate(cands)]})
+        dump(f"src_data/edis/{split}.json", rows)
+
+    csv_rows = ["id,ref_path,left_path,right_path,right_vote,split,is_imagenet\n"]
+    for i in range(counts["nights"]):
+        paths = [f"ref/{i // 10:03d}/{i:03d}.png", f"distort/{i // 10:03d}/{i:03d}_0.png",
+                 f"distort/{i // 10:03d}/{i:03d}_1.png"]
+        for p in paths:
+            image(f"mbeir_images/nights_images/{p}", (512, 512))
+        split = ("train", "train", "val", "test")[i % 4]
+        csv_rows.append(f"{i},{paths[0]},{paths[1]},{paths[2]},{i % 2},{split},{i % 3 == 0}\n")
+    (root / "src_data/nights").mkdir(parents=True, exist_ok=True)
+    (root / "src_data/nights/data.csv").write_text("".join(csv_rows))
+
+    sources = ("washington_post", "guardian", "bbc", "usa_today")
+    news = []
+    for i in range(counts["visualnews"]):
+        src = sources[i % 4]
+        rel = f"{src}/images/{i // 20:04d}/{i:05d}.jpg"
+        news.append({"id": i, "source": src, "image_path": f"./{rel}", "caption": text() if i % 13 != 7 else "",
+                     "article_path": f"./{src}/articles/{i}.txt"})
+        image(f"mbeir_images/visualnews_images/{rel}", photo())
+    dump("src_data/visualnews/origin/data.json", news)
+
+    tsv, lineidx, webqa = b"", [], {}
+    for i in range(counts["webqa"]):  # decoded before the pass, so no corrupt or refused file among them
+        lineidx.append(len(tsv))
+        form = P13_FORMS[i % len(P13_FORMS)]
+        w, h = photo()
+        data = raw_file(form, P13_SEED + 50_000 + i, max(1, round(w * side)), max(1, round(h * side)))
+        tsv += f"{30_000_000 + i}\t".encode() + base64.b64encode(data) + b"\n"
+    for i in range(counts["webqa"]):
+        webqa[f"guid{i}"] = {
+            "Guid": f"guid{i}", "Qcate": ("text", "YesNo", "color")[i % 3], "Q": text() if i % 17 != 5 else "",
+            "split": ("train", "train", "val")[i % 3],
+            "img_posFacts": [{"image_id": 30_000_000 + i, "caption": text()}] if i % 2 else [],
+            "img_negFacts": [{"image_id": 30_000_000 + (i + 1) % counts["webqa"], "caption": text()}],
+            "txt_posFacts": [{"fact": text()}] if i % 2 == 0 else [], "txt_negFacts": [{"fact": text()}]}
+    dump("src_data/webqa/WebQA_train_val.json", webqa)
+    (root / "src_data/webqa/imgs.tsv").write_bytes(tsv)
+    (root / "src_data/webqa/imgs.lineidx").write_text("".join(f"{o}\n" for o in lineidx))
+
+    wiki, oven_rows = [], {"train": [], "val": []}
+    for i in range(counts["oven"]):
+        qid = f"Q{1000 + i}"
+        words = [text(8, 30) for _ in range(1 + i % 6)]  # some summaries run past 100 tokens
+        wiki.append({"wikidata_id": qid, "wikipedia_title": text(1, 4), "wikipedia_content": " ".join(words),
+                     "wikipedia_image_url": f"http://example.invalid/{qid}.jpg" if i % 3 else None})
+        if i % 3 and i % 7 != 4:  # an entity whose image was never fetched stays text
+            image(f"mbeir_images/oven_images/wikipedia_images_full/{qid[:4]}/{qid}.jpg",
+                  (int(rng.integers(800, 1601)), int(rng.integers(600, 1201))))
+        image_id = f"oven_{5_000_000 + 10_000 * (i % 3) + i:08d}"
+        image(f"mbeir_images/oven_images/{image_id[-8:-6]}/{image_id}.jpg",
+              (int(rng.integers(640, 1601)), int(rng.integers(480, 1201))))
+        split = ("train", "train", "val")[i % 3]
+        oven_rows[split].append({"data_id": f"oven_{split}_{i}", "image_id": image_id, "question": text(),
+                                 "entity_id": qid, "data_split": f"{split}_seen"})
+    wiki.append(dict(wiki[0]))  # a repeated entity: the pool holds it once
+    dump_jsonl("src_data/oven/Wiki6M_ver_1_0.jsonl", wiki)
+    for split, rows in oven_rows.items():
+        dump_jsonl(f"src_data/oven/oven_entity_{split}.jsonl", rows)
+    # InfoSeek asks about OVEN's query images, each split about the same entities in the same order (the
+    # reference rewrites the pool file per split, and its training pool reads the train split's dids in the
+    # last one written: ROADMAP Queue 1 item 9)
+    for split in ("train", "val"):
+        seek, kb, qtype = [], [], []
+        for j, row in enumerate(oven_rows["train"] + oven_rows["val"]):
+            entity = wiki[int(row["entity_id"][1:]) - 1000]
+            content = entity["wikipedia_content"].split()
+            answer = ["not in the article"] if j % 4 == 0 else [content[j % len(content)]]
+            seek.append({"data_id": f"infoseek_{split}_{j}", "image_id": row["image_id"], "question": text(),
+                         "answer": answer, "answer_eval": [answer[0], 1990 + j],
+                         "data_split": f"{split}_unseen_entity"})
+            kb.append({"data_id": seek[-1]["data_id"], "entity_id": row["entity_id"]})
+            qtype.append({"data_id": seek[-1]["data_id"], "question_type": ("STRING", "TIME", "NUMERICAL")[j % 3]})
+        dump_jsonl(f"src_data/infoseek/infoseek_{split}.jsonl", seek)
+        dump_jsonl(f"src_data/infoseek/infoseek_{split}_withkb.jsonl", kb)
+        if split == "val":  # a question-type file for one split only
+            dump_jsonl(f"src_data/infoseek/infoseek_{split}_qtype.jsonl", qtype)
+
+    if pool is None:
+        for job in jobs:
+            write_raw_file(job)
+    else:
+        list(pool.map(write_raw_file, jobs, chunksize=4))
+    return {"images": {p: form for p, form, *_ in jobs}, "truncated": special["truncated"],
+            "garbage": special["garbage"], "refused": special.get("qoi"), "captions": texts}
+
+
+P13_GENERATOR_FLAGS = ("--generate_union_train_cand_pool", "--generate_union_all_cand_pool", "--unify_train_data",
+                       "--assign_task_ids", "--generate_qrels")
+
+
+def arrange_for_generator(root: Path) -> None:
+    """The union generator's layout over the converters' outputs, as the reference release arranged them by
+    hand: each split's queries in <split>/, each pool in cand_pool/ (MSCOCO's also under its split-specific
+    names), cand_pool/unsplit_cand_pool/ and, for training, cand_pool/train_cand_pool/."""
+    for name in P13_CONVERTERS:
+        src = root / "src_data" / name
+        copies = {src / f"mbeir_{name}_{split}.jsonl": [root / split] for split in ("train", "val", "test")}
+        copies[src / f"mbeir_{name}_cand_pool.jsonl"] = [root / "cand_pool", root / "cand_pool/unsplit_cand_pool"]
+        copies[src / f"mbeir_{name}_train_cand_pool.jsonl"] = [root / "cand_pool/train_cand_pool"]
+        for path, dirs in copies.items():
+            for d in dirs if path.exists() else ():
+                d.mkdir(parents=True, exist_ok=True)
+                shutil.copyfile(path, d / path.name)
+    for split in ("val", "test"):
+        shutil.copyfile(root / "cand_pool/mbeir_mscoco_cand_pool.jsonl",
+                        root / f"cand_pool/mbeir_mscoco_{split}_cand_pool.jsonl")
+
+
+def converter_args(name: str) -> list:
+    """The flags a user passes each converter (relative to --mbeir_data_dir): every step it has."""
+    steps = ["--enable_mbeir_conversion", "--enable_candidate_pool", "--enable_training_candidate_pool"]
+    if name == "infoseek":
+        return steps
+    extra = ["--train_samples", P13_VN_SAMPLES[0], "--val_samples", P13_VN_SAMPLES[1], "--test_samples",
+             P13_VN_SAMPLES[2]] if name == "visualnews" else []
+    return ["--enable_image_processing", *steps, *extra]
+
+
+# the encoder held to Pillow 12.1's own bytes: sha256 of `Image.fromarray(digest_image(seed, w, h)).save(buf,
+# "JPEG", comment=comment)` at its defaults, computed with Pillow 12.1.0 over libjpeg-turbo 3.1.3
+P13_PILLOW_DIGESTS = {
+    (1, 1, 1, None): "8895772a1116c495589e6a5e84ac69d66cb04fef56c53061b4cb0c035557b2fe",
+    (2, 17, 9, b"photo"): "f85fbc52635c78c2cb707a57b91e6368055a33ad7a20bea4c015292f77f8dfd4",
+    (3, 341, 256, None): "1e8d2fd88b20bc71ee1bb2dfc3311cd45a4b262128018dcba931f0e5cf957bf7",
+    (4, 256, 341, "caf\xe9 ☃"): "4c47dae58809f4b8add8076ca323e1af9a4e173ab7d27d572690cdd3e4f6e395",
+    (5, 640, 480, None): "04e8b1fdc37a82ea9f144d4ceadad3accd31dcd1bf21e07322795289c8f5d8cb",
+    (6, 257, 255, b"x" * 300): "756c608f84b6be63f299db89d9fb5126091e7af729ed2108de2dd553a14acf1a",
+    (7, 16, 16, None): "9207cc090f0c873b39a7cf09463807a60903ea3756ad56286b28717c7ac90c30",
+    (8, 31, 600, None): "bcac9abb35daf1ccb6ee18027f90571407dc0f9b403196c5da369032c2cd86ad",
+    (9, 500, 375, b"\xff\xd9"): "d7dea6651bb1227ad106633dd825104e9190f796abaddef0a958b8401514f2c0",
+}
+P13_TIMED = 160  # raw images the pass is timed on, on one process stage by stage and on its pool
+
+
+def digest_image(seed: int, w: int, h: int) -> np.ndarray:
+    """A seeded w x h image of integer arithmetic alone (a ramp and a hashed noise): the same array on
+    every numpy, so Pillow's digests above hold on another machine."""
+    y, x = np.mgrid[:h, :w].astype(np.int64)
+    c = np.arange(3, dtype=np.int64)[None, None, :]
+    noise = ((x[..., None] * 2654435761 + y[..., None] * 40503 + c * 97 + seed * 7919) >> 9) & 31
+    smooth = x[..., None] * (3 + seed % 5) + y[..., None] * (5 + c) + 60 * c + 11 * seed
+    return ((smooth + noise) % 256).astype(np.uint8)
+
+
+def stub_env(root: Path) -> dict:
+    """The environment of a run as on the card's machine: yaml, PIL and regex stubbed out of PYTHONPATH."""
+    stubs = root / "stubs"
+    for name in P12_BLOCKED:
+        (stubs / name).mkdir(parents=True, exist_ok=True)
+        (stubs / name / "__init__.py").write_text(f"raise ImportError('{name} is not installed on this machine')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = f"{stubs}:{REPO}"
+    return env
+
+
+def tree_bytes(root: Path) -> dict:
+    """relative path -> bytes of every file under root; the union train split's lines sorted (its shuffle
+    draws from the unseeded `random` of each run)."""
+    out = {}
+    for p in sorted(root.rglob("*")):
+        if p.is_file():
+            rel = str(p.relative_to(root))
+            data = p.read_bytes()
+            out[rel] = b"".join(sorted(data.splitlines(True))) if rel.startswith("train/union_train/") else data
+    return out
+
+
+def run_in_process(module: str, args: list) -> None:
+    """`python -m module args` in this process (the twin run: the same mains, --device cpu)."""
+    import runpy
+
+    argv = sys.argv
+    sys.argv = [module, *map(str, args)]
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        sys.argv = argv
+
+
+def time_one_process(images: list, device: str) -> dict:
+    """`io_utils.resize_and_convert_image_to_jpg` on one process over the files `images`, its stages (read,
+    decode, comment, resize, encode, write) timed by the pass itself and summed; seconds, and the images
+    written."""
+    import contextlib
+    import io
+
+    from uniir_tpu_torch.data.preprocessing import io_utils
+
+    stages = {}
+    with contextlib.redirect_stdout(io.StringIO()):  # the pass names each file it drops
+        written = sum(io_utils.resize_and_convert_image_to_jpg(p, device=device, timings=stages) is True
+                      for p in images)
+    return {**stages, "images": written}
+
+
+def write_pipeline_tree(cli: Path, root: Path) -> dict:
+    """The pipeline's layout over the constructed MSCOCO test split (task ids and qrels from the generator)
+    under the names phase 12's configs read, an instruction per task, BPE merges learned from the captions."""
+    from uniir_tpu_torch.data.preprocessing.io_utils import load_jsonl_as_list
+
+    queries = load_jsonl_as_list(str(cli / "test/mbeir_mscoco_test.jsonl"))
+    cands = load_jsonl_as_list(str(cli / "cand_pool/mbeir_mscoco_test_cand_pool.jsonl"))
+    for sub in ("query/test", "cand_pool/local", "qrels/test", "instructions"):
+        (cli / sub).mkdir(parents=True, exist_ok=True)
+    shutil.copyfile(cli / "test/mbeir_mscoco_test.jsonl", cli / f"query/test/mbeir_{P12_DATASET}_test.jsonl")
+    shutil.copyfile(cli / "cand_pool/mbeir_mscoco_test_cand_pool.jsonl",
+                    cli / f"cand_pool/local/mbeir_{P12_POOL}_cand_pool.jsonl")
+    shutil.copyfile(cli / "qrels/mbeir_mscoco_test_qrels.txt", cli / f"qrels/test/mbeir_{P12_DATASET}_test_qrels.txt")
+    modality = {c["did"]: c["modality"] for c in cands}
+    keys = sorted({(q["query_modality"], modality[q["pos_cand_list"][0]]) for q in queries})
+    (cli / "instructions/query_instructions.tsv").write_text(
+        "query_modality\tcand_modality\tdataset\tdataset_id\tprompt_1\n"
+        + "".join(f"{qm}\t{cm}\tMSCOCO\t{P12_DSID}\tFind a {cm.replace(',', ' and ')} that matches this {qm}.\n"
+                  for qm, cm in keys))
+    texts = [c["txt"] for c in cands if c["txt"]] + [q["query_txt"] for q in queries if q["query_txt"]]
+    (root / "merges.txt").write_text("#version: learned from the constructed captions\n"
+                                     + "".join(f"{a} {b}\n" for a, b in learn_merges(texts, P12_MERGES)))
+    (root / "vocab.txt").write_text("[PAD]\n[UNK]\n[CLS]\n[SEP]\n[MASK]\n")  # BLIP's, which no run here reads
+    return {"mbeir": cli, "cands": cands, "queries": [{**q, "query_txt": q["query_txt"] or ""} for q in queries]}
+
+
+def converter_counts(name: str, run: tuple, text: str) -> tuple:
+    """(images found, corrupt, left in place) of a converter CLI's image pass, held to its native calls: the
+    pass's workers encoded each file it wrote and decoded at least those; no kernel launched."""
+    counts = run[2]
+    stray = {k: v for k, v in counts.items()
+             if v and k not in ("pass_decode", "pass_encode", "jpeg_encode", "jpeg", "png", "gif", "webp", "tiff")}
+    check(not stray, f"phase 13: {name} launched kernels: {stray}")
+    if name == "infoseek":
+        return 0, 0, 0
+    images = int(re.search(r"Number of images found: (\d+)", text).group(1))
+    corrupt = int(re.search(r"Number of corrupted files: (\d+)", text).group(1))
+    kept = re.search(r"left in place \(format not decoded yet\): (\d+)", text)
+    found = (images, corrupt, int(kept.group(1)) if kept else 0)
+    written = images - corrupt - found[2]
+    check(counts["pass_encode"] == written and counts["pass_decode"] > 0,  # ICO's DIBs, BMP, Netpbm: numpy alone
+          f"phase 13: {name}'s pass wrote {written} files with {counts['pass_encode']} native encodes and "
+          f"{counts['pass_decode']} native decodes")
+    log(f"phase 13: {name} CLI in {run[1]:.1f} s: {images} images, {corrupt} corrupt, {found[2]} left in place; "
+        f"native decodes {counts['pass_decode']}, encodes {counts['pass_encode']} in its pool (and "
+        f"{counts['jpeg_encode']} in the process itself)")
+    return found
+
+
+def drive_construction(results: dict, smi: str) -> None:
+    """Phase 13 (module docstring): the ten converters' CLIs, then the union generator's, over seeded raw
+    trees, against the same mains run in this process through the twins; the pipeline CLI's embed, index
+    and retrieval over the constructed MSCOCO test split, run while the twins run."""
+    import hashlib
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+
+    from uniir_tpu_torch.data import jpeg, jpeg_encode
+    from uniir_tpu_torch.data import preprocess as P
+    from uniir_tpu_torch.data.tokenizers.clip_bpe import CLIPTokenizer
+    from uniir_tpu_torch.models.clip import CLIP_CONFIGS
+    from uniir_tpu_torch.models.registry import seeded_clip_sf
+    from uniir_tpu_torch.tools.config_updater import update_mbeir_yaml_instruct_status
+
+    t_phase = time.perf_counter()
+    for (seed, w, h, comment), digest in P13_PILLOW_DIGESTS.items():  # the encoders against Pillow's own bytes
+        img = digest_image(seed, w, h)
+        for encode in (jpeg_encode.encode_native, jpeg_encode.encode_twin):
+            got = hashlib.sha256(encode(img, comment)).hexdigest()
+            check(got == digest, f"phase 13: {encode.__name__} of the {w} x {h} image {seed} differs from Pillow's")
+    log(f"phase 13: the native encoder and its twin write Pillow 12.1's bytes for all {len(P13_PILLOW_DIGESTS)} "
+        "images of the digest set (1 x 1 to 640 x 480, comments of bytes and of text)")
+    WORK.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="phase13-", dir=WORK) as tmp, ThreadPoolExecutor(5) as runner:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(max_workers=os.cpu_count(), mp_context=multiprocessing.get_context("spawn")) as pool:
+            raw = write_raw_trees(root / "raw", pool=pool)
+        log(f"phase 13: raw trees of the ten converters, {len(raw['images'])} image files "
+            f"({dict(Counter(raw['images'].values()))}), in {time.perf_counter() - t0:.1f} s")
+        for side in ("cli", "twin", "timed"):
+            shutil.copytree(root / "raw", root / side)
+
+        # the converters as a user runs them: a process each, on the card (the default --device), all at once
+        # but InfoSeek, which reads OVEN's images after OVEN's pass
+        env, logs = stub_env(root), root / "logs"
+        logs.mkdir()
+        module = "uniir_tpu_torch.data.preprocessing."
+        groups = [(name,) for name in P13_CONVERTERS if name not in ("oven", "infoseek")] + [("oven", "infoseek")]
+        chains = [[(name, module + name, ["--mbeir_data_dir", root / "cli", *converter_args(name)])
+                   for name in group] for group in groups]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(chains)) as starter:
+            runs = {k: v for out in starter.map(lambda c: run_chain(c, env, logs), chains) for k, v in out.items()}
+        cli_s = time.perf_counter() - t0
+        for name in P13_CONVERTERS:
+            check(name in runs and runs[name][0] == 0, f"phase 13: {name} failed:\n"
+                  f"{(logs / f'{name}.log').read_text()[-3000:] if (logs / f'{name}.log').exists() else 'not run'}")
+        found = {name: converter_counts(name, runs[name], (logs / f"{name}.log").read_text()) for name in P13_CONVERTERS}
+        check(found["mscoco"][1:] == (2, 1), f"phase 13: MSCOCO's pass counted {found['mscoco'][1:]}, not two corrupt "
+              "files and one left in place")
+        in_cli = {k: Path(raw[k].replace(str(root / "raw"), str(root / "cli"))) for k in ("truncated", "garbage", "refused")}
+        check(not in_cli["truncated"].exists() and not in_cli["garbage"].exists() and in_cli["refused"].exists(),
+              "phase 13: the truncated JPEG and the HTML page must be deleted and the QOI file left in place")
+
+        # the rates, alone on the host: one process stage by stage over a seeded sample of the raw images, then
+        # the pass's pool over all of them in a process of its own (as a CLI runs it: the pool's workers import
+        # only the pass, not this script), its start included
+        files = sorted(p for p in raw["images"] if Path(p).suffix.lower() in (".png", ".jpg", ".jpeg"))
+        sample = [files[k] for k in np.random.default_rng(P13_SEED).permutation(len(files))[:P13_TIMED]]
+        stages = time_one_process([p.replace(str(root / "raw"), str(root / "timed")) for p in sample], DEVICE)
+        per = {k: v / stages["images"] * 1e3 for k, v in stages.items() if k != "images"}
+        shutil.copytree(root / "raw" / "mbeir_images", root / "pooled")
+        code = ("import sys, time\nfrom uniir_tpu_torch.data.preprocessing import io_utils\nt = time.perf_counter()\n"
+                "io_utils.parallel_process_image_directory(sys.argv[1], device=sys.argv[2])\n"
+                "print('pool seconds', time.perf_counter() - t)\n")
+        out = subprocess.run([sys.executable, "-c", code, str(root / "pooled"), DEVICE], env=env, capture_output=True,
+                             text=True, timeout=600)
+        check(out.returncode == 0, f"phase 13: the timed pool failed:\n{out.stderr[-3000:]}")
+        pooled_s = float(re.search(r"pool seconds (\S+)", out.stdout).group(1))
+        log(f"phase 13: the image pass over {len(sample)} of the raw images ({stages['images']} it wrote) on "
+            f"one process: {1e3 / sum(per.values()):.1f} images/s "
+            f"({sum(per.values()):.2f} ms an image); by stage, ms an image: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in per.items())
+            + f"; the encoder's share {per['encode'] / sum(per.values()):.4f}; on the pass's pool of "
+            f"{os.cpu_count()} processes, its start included: {len(files) / pooled_s:.1f} images/s ({len(files)} "
+            f"files in {pooled_s:.2f} s); card {smi}; host CPU {host_cpu()}")
+
+        # the union generator's CLI, then the pipeline's CLIs over its MSCOCO test split in the background
+        arrange_for_generator(root / "cli")
+        generator = module + "generator"
+        gen_run = run_chain([("generator", generator, ["--mbeir_data_dir", root / "cli", *P13_GENERATOR_FLAGS])],
+                            env, logs)
+        check(gen_run["generator"][0] == 0, f"phase 13: the generator failed:\n{(logs / 'generator.log').read_text()[-3000:]}")
+        cli_files = tree_bytes(root / "cli")
+        tree = write_pipeline_tree(root / "cli", root)
+        paths = fixture_configs(root, phase=13)
+        common = ["--uniir_dir", root, "--mbeir_data_dir", tree["mbeir"], "--device", DEVICE]
+        pipeline = "uniir_tpu_torch.tools.pipeline"
+        for name in ("embed", "index", "retrieval", "retrieval_bf16"):  # the run scripts' switch (phase 12 runs its CLI)
+            update_mbeir_yaml_instruct_status(str(paths[name]), True)
+        chain = [("clip_embed", pipeline, ["--config_path", paths["embed"], *common, "--enable_embed"]),
+                 ("clip_index", pipeline, ["--config_path", paths["index"], *common, "--enable_create_index"]),
+                 ("clip_retrieval_int8", pipeline, ["--config_path", paths["retrieval"], *common, "--enable_retrieval"]),
+                 ("clip_retrieval_bf16", pipeline, ["--config_path", paths["retrieval_bf16"], *common,
+                                                    "--enable_retrieval"])]
+        clip_cfg = CLIP_CONFIGS[MODEL]
+        model = seeded_clip_sf(clip_cfg, DEVICE, seed=SEED, dtype=torch.bfloat16)
+        ckpt = root / "checkpoint" / P12_EXPT["clip"]
+        ckpt.mkdir(parents=True)
+        torch.save(model.state_dict(), ckpt / "clip_sf_large.pth")
+
+        results_dir = root / "retrieval_results" / P12_EXPT["clip"]
+
+        def pipeline_chain() -> dict:  # the bf16 run writes over the int8 run's files: these are read between
+            out = run_chain(chain[:3], env, logs)
+            if all(rc == 0 for rc, *_ in out.values()):
+                shutil.copytree(results_dir / "run_files", root / "int8_run_files")
+                out.update(run_chain(chain[3:], env, logs))
+            return out
+
+        t_pipeline = time.perf_counter()
+        pipeline_runs = runner.submit(pipeline_chain)
+
+        # meanwhile in this process: the in-code reference, then the same mains through the twins
+        arrays = {str(tree["mbeir"] / p): jpeg.read_image(str(tree["mbeir"] / p), DEVICE)
+                  for p in sorted({c["img_path"] for c in tree["cands"] if c["img_path"]}
+                                  | {q["query_img_path"] for q in tree["queries"] if q["query_img_path"]})}
+        bpe = CLIPTokenizer(bpe_path=str(root / "merges.txt"))
+        ref = in_code_embeds(model, lambda t: bpe(t, context_length=clip_cfg.context_length, truncate=True),
+                             P.clip_transform(clip_cfg.image_size), clip_cfg.image_size, tree, arrays, {})
+        del model
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        for name in P13_CONVERTERS:
+            run_in_process(module + name, ["--mbeir_data_dir", root / "twin", *converter_args(name),
+                                           *(["--device", "cpu"] if name != "infoseek" else [])])
+        arrange_for_generator(root / "twin")
+        run_in_process(generator, ["--mbeir_data_dir", root / "twin", *P13_GENERATOR_FLAGS])
+        twin_s = time.perf_counter() - t0
+        twin_files = tree_bytes(root / "twin")
+        check(sorted(cli_files) == sorted(twin_files),
+              f"phase 13: the CLI and twin trees hold different files: {sorted(set(cli_files) ^ set(twin_files))[:5]}")
+        differ = [k for k in cli_files if cli_files[k] != twin_files[k]]
+        check(not differ, f"phase 13: {len(differ)} files differ between the CLI and twin runs: {differ[:5]}")
+        jpgs = [k for k in cli_files if k.startswith("mbeir_images/") and cli_files[k][:3] == b"\xff\xd8\xff"]
+        union = (root / "cli/train/union_train/mbeir_union_train.jsonl").read_text().splitlines()
+        log(f"phase 13: all {len(cli_files)} files of the CLI runs equal to the twin run's: {len(jpgs)} JPEG files "
+            f"the native encoder wrote, each bit-equal to the twin's; {sum(k.endswith('.jsonl') for k in cli_files)} "
+            f"JSON-lines files (the union train split, {len(union)} queries with task ids, by its sorted lines: its "
+            f"shuffle draws from each run's unseeded random); {len(list((root / 'cli/qrels').glob('*.txt')))} qrels "
+            f"files; CLIs {cli_s:.1f} s of wall time in {len(chains)} chains, twin run {twin_s:.1f} s in this process")
+
+        # the pipeline's runs: the kernels each implies, ids and Recall against the in-code path
+        pruns = pipeline_runs.result()
+        log(f"phase 13: the pipeline's runs took {time.perf_counter() - t_pipeline:.1f} s of wall time beside the "
+            "twin run")
+        for name, *_ in chain:
+            check(name in pruns and pruns[name][0] == 0, f"phase 13: {name} failed:\n"
+                  f"{(logs / f'{name}.log').read_text()[-3000:] if (logs / f'{name}.log').exists() else 'not run'}")
+        want = {"clip_embed": {"K1", "jpeg"}, "clip_index": set(), "clip_retrieval_int8": {"K4"},
+                "clip_retrieval_bf16": {"K2"}}
+        may = {"clip_retrieval_int8": {"K2"}}  # the int8 guard's exact re-run of a batch
+        for name, positive in want.items():
+            counts = pruns[name][2]
+            log(f"phase 13: {name} launches {({k: v for k, v in counts.items() if v})}")
+            check(all(counts[k] > 0 for k in positive), f"phase 13: {name} did not launch {positive}: {counts}")
+            stray = {k: v for k, v in counts.items() if v and k not in positive | may.get(name, set())}
+            check(not stray, f"phase 13: {name} launched kernels its run does not imply: {stray}")
+            for k in ("K1", "K2", "K4"):
+                results[k]["launches"] += counts[k]
+        hold_embeds("CLIP-SF over the constructed tree", cli_embeds(root, "embed", P12_EXPT["clip"]), ref, phase=13)
+        # each run's ids: the int8 run's equal to the bf16 run's, the local pool's to the in-code search's at
+        # the run's k
+        from uniir_tpu_torch.data.registry import unhash_did, unhash_qid
+
+        int8_files, bf16_files = run_files(root / "int8_run_files"), run_files(results_dir / "run_files")
+        local = [name for name in bf16_files if "union" not in name]
+        check(sorted(int8_files) == sorted(bf16_files) and len(local) == 1,
+              f"phase 13: run files {sorted(bf16_files)} / {sorted(int8_files)}")
+        for name, ids in bf16_files.items():
+            differ = [q for q in ids if ids[q] != int8_files[name].get(q)]
+            check(not differ and len(ids) == len(int8_files[name]),
+                  f"phase 13: {name}: int8 and bf16 runs return different ids for {len(differ)} queries")
+        got = bf16_files[local[0]]
+        k = max(map(len, got.values()))
+        searched = in_code_search(root, k)
+        want_ids = {unhash_qid(q): [unhash_did(d) for d in row] for q, row in zip(searched[1], searched[0])}
+        check(sorted(got) == sorted(want_ids), f"phase 13: {local[0]} holds {len(got)} queries, the search "
+              f"{len(want_ids)}")
+        differ = [q for q in want_ids if got[q] != want_ids[q]]
+        check(not differ, f"phase 13: {local[0]}: the top {k} of {len(differ)} queries differ from the in-code "
+              f"search's, e.g. {differ[:1]}: {[(got[q][:5], want_ids[q][:5]) for q in differ[:1]]}")
+        tsv = tsv_recall(results_dir / "final_tsv")
+        ref_recall = in_code_recall(root, tree, searched)
+        check({k: v[0] for k, v in tsv.items()} == ref_recall,
+              f"phase 13: TSV Recall {tsv} differs from the in-code search's {ref_recall}")
+        log(f"phase 13: {len(tree['cands'])} constructed candidates and {len(tree['queries'])} queries embedded, "
+            f"indexed and retrieved by the pipeline CLI: embed ids equal to the in-code path; {len(bf16_files)} "
+            f"run files, the int8 run's ids equal to the bf16 run's for every query, {local[0]}'s top {k} equal "
+            f"to the in-code search's for all {len(want_ids)} queries; Recall by task "
+            f"{ {f'{t} {m}': v[0] for (t, m), v in sorted(tsv.items())} }")
+    log(f"phase 13 passed in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke runs the port's kernels on an NVIDIA GPU")
@@ -7241,12 +7960,13 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
     names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif", "webp",
-             "tiff")
+             "tiff", "jpeg_encode")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)
         log(f"built {name}: {_build.build_seconds[name]:.1f} s\n{_build.ptxas_report(name)}")
-    check_decoders(smi)
+    mark = lambda what: log(f"{what} done")  # noqa: E731
+    mark("kernel builds")
 
     results = {
         "K1": {"name": "attention_fwd", "route": "cuda", "source": "uniir_tpu_torch/csrc/attention.cu",
@@ -7299,14 +8019,23 @@ def main() -> None:
         "K7g": {"name": "fused_preprocess_dense", "route": "cuda", "source": "uniir_tpu_torch/csrc/preprocess.cu",
                 "replaces": "uniir_tpu/ops/image_ops.py:106"},
     }
-    check_attention(results)
-    check_attention_splitk(results)
-    check_attention_norm_first(results)
-    check_preprocess(results)
-    check_sweep_machine_code()
-    check_sweeps(results)
-    check_int8_matmul(results)
-    check_int8_mlp(results)
+    # the decoder phase's twins (numpy, on the host's cores but one) run while the card checks its kernels
+    twins = ProcessPoolExecutor(max_workers=max(1, os.cpu_count() - 1), mp_context=multiprocessing.get_context("spawn"))
+    try:
+        decoder_cases, t_twins = start_decoder_cases(twins), time.perf_counter()
+        check_attention(results)
+        check_attention_splitk(results)
+        check_attention_norm_first(results)
+        check_preprocess(results)
+        check_sweep_machine_code()
+        check_sweeps(results)
+        check_int8_matmul(results)
+        check_int8_mlp(results)
+        mark("kernel checks")
+        check_decoders(smi, decoder_cases, t_twins)
+    finally:
+        twins.shutdown(cancel_futures=True)
+    mark("decoder phase")
     data = smoke_dataset()
     drive_main_path(results, data)
     int8_models = drive_int8_path(results, data)  # adds its K1 launches to the bf16 serving path's
@@ -7318,12 +8047,14 @@ def main() -> None:
     drive_int8_model_path(results, "CLIPFeatureFusion", data, profile="--profile" in sys.argv[1:])  # K5 / K6 in T5
     del data  # the training phases read peak memory
     torch.cuda.empty_cache()
+    mark("CLIP serving paths")
     for name in ("BLIPScoreFusion", "BLIPFeatureFusion"):  # add their K7 / K1 / K2 / K4 / K11 (/ K5 / K6) launches too
         blip_data = drive_blip_path(results, name, profile="--profile" in sys.argv[1:])
         torch.cuda.empty_cache()
         drive_int8_model_path(results, name, blip_data, profile="--profile" in sys.argv[1:])  # K5 in MED, K6 with GELU
         del blip_data
         torch.cuda.empty_cache()
+    mark("BLIP serving paths")
     check_attention_bwd(results)
     for name in ("CLIPScoreFusion", "CLIPFeatureFusion"):  # add their K1 / K10 / K3 launches too
         drive_train_path(results, name)
@@ -7334,12 +8065,18 @@ def main() -> None:
         profile_train_step("CLIPFeatureFusion")
         profile_train_step("CLIPFeatureFusion", remat=True, splitk=True)
     torch.cuda.empty_cache()
+    mark("training paths")
     drive_tools_path(results)  # adds its K1 / K2 / K4 launches too
     torch.cuda.empty_cache()
+    mark("tools path")
     drive_processes_path(results)  # adds its ranks' K1 / K3 / K2 launches too
     torch.cuda.empty_cache()
+    mark("processes path")
     # adds its runs' K1 / K2 / K3 / K4 launches too
     drive_entry_points(results, smi, busy_ms["BLIPScoreFusion"][P12_BLIP_TRAIN_BS])
+    torch.cuda.empty_cache()
+    mark("phase 12")
+    drive_construction(results, smi)  # adds its pipeline runs' K1 / K2 / K4 launches too
     for name in ("K10", "K11"):
         check(results[name]["launches"] > 0, f"kernel {name} was not launched on a main path")
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s, kernel builds included")

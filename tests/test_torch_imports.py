@@ -28,10 +28,26 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.data_utils",
     "uniir_tpu_torch.data.dataset",
     "uniir_tpu_torch.data.gif",
+    "uniir_tpu_torch.data.ico",
     "uniir_tpu_torch.data.jpeg",
+    "uniir_tpu_torch.data.jpeg_encode",
     "uniir_tpu_torch.data.loader",
+    "uniir_tpu_torch.data.netpbm",
     "uniir_tpu_torch.data.png",
     "uniir_tpu_torch.data.preprocess",
+    "uniir_tpu_torch.data.preprocessing.base",
+    "uniir_tpu_torch.data.preprocessing.cirr",
+    "uniir_tpu_torch.data.preprocessing.edis",
+    "uniir_tpu_torch.data.preprocessing.fashion200k",
+    "uniir_tpu_torch.data.preprocessing.fashioniq",
+    "uniir_tpu_torch.data.preprocessing.generator",
+    "uniir_tpu_torch.data.preprocessing.infoseek",
+    "uniir_tpu_torch.data.preprocessing.io_utils",
+    "uniir_tpu_torch.data.preprocessing.mscoco",
+    "uniir_tpu_torch.data.preprocessing.nights",
+    "uniir_tpu_torch.data.preprocessing.oven",
+    "uniir_tpu_torch.data.preprocessing.visualnews",
+    "uniir_tpu_torch.data.preprocessing.webqa",
     "uniir_tpu_torch.data.registry",
     "uniir_tpu_torch.data.tokenizers.bert_wordpiece",
     "uniir_tpu_torch.data.tokenizers.clip_bpe",

@@ -263,7 +263,6 @@ def test_native_in_threads_and_refusals(native):
 
 REFUSED_FORMATS = {
     "AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00", "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00",
-    "ICO": b"\x00\x00\x01\x00\x01\x00", "CUR": b"\x00\x00\x02\x00\x01\x00", "PPM": b"P6\n4 4\n255\n",
     "PSD": b"8BPS\x00\x01", "QOI": b"qoif\x00\x00\x00\x04", "SGI": b"\x01\xda\x00\x01", "PCX": b"\x0a\x05\x01\x08",
     "DDS": b"DDS \x7c\x00\x00\x00", "ICNS": b"icns\x00\x00", "BLP": b"BLP2\x01", "Sun raster": b"\x59\xa6\x6a\x95",
     "EPS": b"%!PS-Adobe-3.0", "XBM": b"#define im_width 8", "XPM": b"/* XPM */\n", "HDF5": b"\x89HDF\r\n",
@@ -272,11 +271,12 @@ REFUSED_FORMATS = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED_FORMATS))
 def test_formats_pillow_reads_and_the_port_does_not_are_named(tmp_path, name):
-    """A file of a format Pillow's Image.open reads and the port does not decode raises naming the format
-    (ROADMAP Queue 3), not "unknown"."""
+    """A file of a format Pillow's Image.open reads and the port does not decode raises
+    UnsupportedImageFormat naming the format (ROADMAP Queue 3), not "unknown"; ICO, CUR and PPM are
+    decoded now (tests/test_torch_ico_netpbm.py)."""
     data = REFUSED_FORMATS[name] + bytes(64)
     assert jpeg.image_format(data) == name
     path = tmp_path / "x.jpg"
     path.write_bytes(data)
-    with pytest.raises(ValueError, match=rf"^{path}: {name} image \(by its signature\)"):
+    with pytest.raises(jpeg.UnsupportedImageFormat, match=rf"^{path}: {name} image \(by its signature\)"):
         jpeg.read_image(str(path), "cpu")

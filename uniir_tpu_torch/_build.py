@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`,
-`csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu` and `csrc/tiff.cu`) at first use
-and load them with ctypes.
+`csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu` and `csrc/tiff.cu`, and the host
+JPEG encoder `csrc/jpeg_encode.cu`) at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -34,7 +34,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.c_size_t
 # C entry points of each library: name -> (argtypes); every kernel's returns the
-# CUDA error code of its launch, the image decoders' 0 or 1 (with a message).
+# CUDA error code of its launch, the image decoders' and the encoder's 0 or 1 (with a message).
 SIGNATURES = {
     "attention": {
         "uniir_attention_fused_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
@@ -64,6 +64,9 @@ SIGNATURES = {
         "uniir_jpeg_decode": (_P, _S, _P, _I, _I, _P, _I),
         "uniir_jpeg_samples_info": (_P, _S, _I, _P, _P, _I),
         "uniir_jpeg_decode_samples": (_P, _S, _I, _P, _I, _I, _I, _P, _I),
+    },
+    "jpeg_encode": {
+        "uniir_jpeg_encode": (_P, _I, _I, _P, _I, _P, _S, _P, _P, _I),
     },
     "png": {
         "uniir_png_decode": (_P, _S, _I, _I, _I, _I, _I, _P, _P, _P, _I),
@@ -174,6 +177,12 @@ def load(name: str) -> ctypes.CDLL:
         lib.uniir_cuda_error_string.restype = ctypes.c_char_p
     _loaded[name] = lib
     return lib
+
+
+def is_cuda(device) -> bool:
+    """Whether `device` (a torch.device or its name) is a CUDA card: the host libraries' switch, decided
+    without importing torch (the image pass's worker processes never need it)."""
+    return str(getattr(device, "type", device)).split(":")[0] == "cuda"
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -74,6 +74,7 @@ class Gif(NamedTuple):
     offset: int
     palette: bytes
     fill: int
+    comment: bytes = b""  # the comment extensions before the image, joined by newlines (Pillow's info)
 
 
 def _palette_needed(p: bytes, name: str) -> bool:
@@ -110,7 +111,7 @@ def parse(data: bytes, name: str = "<bytes>") -> Gif:
     s = read(1)
     if not s or s == b";":
         raise ValueError(f"{name}: GIF file without an image")
-    transparency = None
+    transparency, comment = None, None
     while True:
         if not s:
             s = read(1)
@@ -127,8 +128,11 @@ def parse(data: bytes, name: str = "<bytes>") -> Gif:
                 if block[0] & 1:
                     transparency = block[3]
             elif label[0] == 254:
+                text = b""
                 while block:
+                    text += block
                     block = sub_block()
+                comment = text if comment is None else comment + b"\n" + text
                 s = b""
                 continue
             elif label[0] == 255 and block is not None and block.startswith(b"NETSCAPE2.0"):
@@ -156,7 +160,7 @@ def parse(data: bytes, name: str = "<bytes>") -> Gif:
         raise ValueError(f"{name}: GIF image of size {width} x {height}, frame {fw} x {fh}")
     lookup = palette[:768].ljust(768, b"\x00") if palette is not None else None
     return Gif(width, height, x0, y0, fw, fh, bool(frame_flags & 64), code_size[0], pos, lookup,
-               transparency if transparency is not None else 0)
+               transparency if transparency is not None else 0, comment or b"")
 
 
 def row_order(height: int, interlace: bool) -> list:
@@ -275,6 +279,6 @@ _calls_lock = threading.Lock()  # the loader's threads decode at once
 def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     """The decoder a run on `device` uses: the native one on a CUDA run's
     host, the twin on a CPU run."""
-    import torch
+    from uniir_tpu_torch import _build
 
-    return decode_native if torch.device(device).type == "cuda" else decode_twin
+    return decode_native if _build.is_cuda(device) else decode_twin

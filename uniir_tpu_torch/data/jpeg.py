@@ -1,6 +1,7 @@
 """Image decoding with Pillow's pixels, without Pillow: JPEG here; PNG
-(`data.png`), GIF (`data.gif`), BMP (`data.bmp`), WebP (`data.webp`) and TIFF
-(`data.tiff`) picked by the file's signature in `read_image`.
+(`data.png`), GIF (`data.gif`), BMP (`data.bmp`), WebP (`data.webp`), TIFF
+(`data.tiff`), ICO / CUR (`data.ico`) and Netpbm (`data.netpbm`) picked by
+the file's signature in `decode_image` / `read_image`.
 
 M-BEIR stores its images as JPEG files that Pillow wrote, and the JAX
 package reads any image with `PIL.Image.open(path).convert("RGB")`, which
@@ -74,21 +75,32 @@ build or load raises.
 `read_image` reads a file by its first bytes, never by its name: JPEG
 (FF D8), PNG (the eight-byte PNG signature), GIF (GIF87a / GIF89a), BMP
 (BM), WebP (RIFF / WEBP with a first chunk `VP8 `, `VP8L` or `VP8X`, as
-Pillow's `_accept` takes it) and TIFF (Pillow's six prefixes) are decoded;
-the other formats Pillow's Image.open reads by a signature (AVIF, JPEG 2000,
-ICO / CUR, PPM, PSD, QOI, SGI, PCX, DDS, ...) raise ValueError naming the
-file and the format, and anything else "unknown".
+Pillow's `_accept` takes it), TIFF (Pillow's six prefixes), ICO / CUR and
+Netpbm (P and one of 0-6, f, y) are decoded; the other formats Pillow's
+Image.open identifies (AVIF, JPEG 2000, PSD, QOI, SGI, PCX, DDS, TGA, ...)
+raise `UnsupportedImageFormat`, a ValueError naming the file and the format,
+told apart from corrupt data, which raises the decoders' own ValueError, as
+does a file no format names ("unknown"), which Image.open cannot identify.
+
+The image pass of the M-BEIR construction needs two more readings of a
+file as Pillow opens it: `open_header` walks a JPEG file's markers up to
+its first scan as `JpegImageFile._open` does (`is_jpeg`: what
+`Image.open(...).format == "JPEG"` says, MPO files excluded), and
+`image_comment` finds the `info["comment"]` Pillow's JPEG writer carries
+over from a JPEG, GIF or PNG source.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
+import struct
 import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
 
-from uniir_tpu_torch.data import bmp, gif, png, tiff, webp
+from uniir_tpu_torch.data import bmp, gif, ico, netpbm, png, tiff, webp
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -1176,37 +1188,258 @@ _calls_lock = threading.Lock()  # the loader's threads decode at once
 def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     """The decoder a run on `device` uses: the native one on a CUDA run's
     host, the twin on a CPU run."""
-    import torch
+    from uniir_tpu_torch import _build
 
-    return decode_native if torch.device(device).type == "cuda" else decode_twin
+    return decode_native if _build.is_cuda(device) else decode_twin
 
 
-# formats Pillow 12.1's Image.open reads that the port does not decode, by the test each plugin's _accept makes
-# of the file's first bytes (TGA, which has no signature, reads as unknown)
+def _imt(d: bytes) -> bool:
+    """ImtImagePlugin's header: "key value" lines up to a form feed, a width and a height above 0, 8-bit
+    pixels."""
+    if b"\n" not in d[:100]:
+        return False
+    size = {b"pixel": 0}
+    for line in d.split(b"\x0c", 1)[0].split(b"\n"):
+        if len(line) < 1 or len(line) > 99:
+            break
+        if line[:1] == b"*":
+            continue
+        m = re.match(rb"([a-z]*) ([^ \r\n]*)", line)
+        if not m:
+            break
+        if m[1] in (b"width", b"height"):
+            size[m[1]] = int(m[2]) if m[2].isdigit() else 0
+        elif m[1] == b"pixel":
+            size[m[1]] = m[2] == b"n8"
+    return size.get(b"width", 0) > 0 and size.get(b"height", 0) > 0 and size[b"pixel"]
+
+
+def _spider(d: bytes) -> bool:
+    """SpiderImagePlugin's header: 27 floats, big- or little-endian, whose counts are whole and agree, of a
+    2D image (iform 1)."""
+    if len(d) < 108:
+        return False
+    for order in ">", "<":
+        h = (99.0,) + struct.unpack(order + "27f", d[:108])
+        whole = all(np.isfinite(h[i]) and h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23))
+        if whole and int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]) != 0:
+            return int(h[5]) == 1
+    return False
+
+
+def _tga(d: bytes) -> bool:
+    """TgaImagePlugin's header fields: a colour map type of 0 or 1, a width and a height above 0, a depth
+    of 1, 8, 16, 24 or 32 and an image type it reads."""
+    return (len(d) >= 18 and d[1] in (0, 1) and d[12] | d[13] << 8 > 0 and d[14] | d[15] << 8 > 0
+            and d[16] in (1, 8, 16, 24, 32) and d[2] in (1, 2, 3, 9, 10, 11))
+
+
+# every other format Pillow 12.1's Image.open identifies: each plugin's _accept test of the file's first bytes
+# or, for the six with none (IM, IMT, IPTC, PCD, SPIDER, TGA), the header test its _open makes (a wider one
+# where Pillow reads further); BUFR, GRIB, HDF5, MPEG and WMF are stubs that Image.open names and cannot load.
+# A file none of these name is one Image.open cannot identify: the decoders call it corrupt, as Pillow does.
 _REFUSED = (
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
+    (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
+    (lambda d: d[:4] in (b"\x0c\0\0\0", b"\x28\0\0\0", b"\x34\0\0\0", b"\x38\0\0\0", b"\x40\0\0\0",
+                          b"\x6c\0\0\0", b"\x7c\0\0\0"), "DIB"),
+    (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
+    (lambda d: len(d) > 1 and d[0] == 10 and d[1] in (0, 2, 3, 5), "PCX"),
+    (lambda d: d[:4] == b"\xb1\x68\xde\x3a", "DCX"),
+    (lambda d: d[:4] == b"DDS ", "DDS"),
+    (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
+    (lambda d: d[:6] == b"SIMPLE", "FITS"),
+    (lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf") and d[14:16] in (b"\0\0", b"\3\0"), "FLI"),
+    (lambda d: d[:4] == b"FTEX", "FTEX"),
+    (lambda d: len(d) >= 8 and int.from_bytes(d[:4], "big") >= 20 and d[4:8] in (b"\0\0\0\1", b"\0\0\0\2"), "GBR"),
+    (lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "GRIB"),
+    (lambda d: d[:4] == b"\x89HDF", "HDF5"),
     (lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (lambda d: d[:4] == b"\x00\x00\x01\x00", "ICO"),
-    (lambda d: d[:4] == b"\x00\x00\x02\x00", "CUR"),
-    (lambda d: d[:1] == b"P" and len(d) > 1 and d[1:2] in b"0123456fy", "PPM"),
+    (lambda d: d[:4] == b"icns", "ICNS"),
+    (lambda d: b"\n" in d[:100] and b"\x1a" in d and re.match(rb"[A-Za-z][^:\n]*:", d) is not None, "IM"),
+    (_imt, "IMT"),
+    (lambda d: len(d) > 1 and d[0] == 0x1C and d[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240), "IPTC"),
+    (lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", "McIdas"),
+    (lambda d: d[:4] == b"\x00\x00\x01\xb3", "MPEG"),
+    (lambda d: d[:4] in (b"DanM", b"LinS"), "MSP"),
+    (lambda d: d[2048:2052] == b"PCD_", "PCD"),
+    (lambda d: d[:4] == b"\x80\xe8\x00\x00", "PIXAR"),
     (lambda d: d[:4] == b"8BPS", "PSD"),
     (lambda d: d[:4] == b"qoif", "QOI"),
     (lambda d: d[:2] == b"\x01\xda", "SGI"),
-    (lambda d: len(d) > 1 and d[0] == 10 and d[1] in (0, 2, 3, 5), "PCX"),
-    (lambda d: d[:4] == b"DDS ", "DDS"),
-    (lambda d: d[:4] == b"icns", "ICNS"),
-    (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
+    (_spider, "SPIDER"),
     (lambda d: d[:4] == b"\x59\xa6\x6a\x95", "Sun raster"),
-    (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
-    (lambda d: d[:7] == b"#define", "XBM"),
+    (_tga, "TGA"),
+    (lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or d[:4] == b"\x01\x00\x00\x00", "WMF"),
+    (lambda d: d.lstrip()[:7] == b"#define", "XBM"),
     (lambda d: d[:9] == b"/* XPM */", "XPM"),
-    (lambda d: d[:4] == b"\x89HDF", "HDF5"),
+    (lambda d: d[:6] == b"P7 332", "XVThumb"),
 )
 
 
+_SKIPPED = {0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF}  # DHT, DAC, SOS, DNL, DRI, EXP: a length and bytes
+
+
+def open_header(data: bytes, name: str = "<bytes>") -> tuple:
+    """(width, height, comment, mpo) as Pillow 12.1's `Image.open` reads a JPEG file's markers up to its
+    first SOS (JpegImageFile._open and jpeg_factory): the last COM segment's bytes (None without one), and
+    whether an MPF segment names more than one image, which makes the file "MPO".  Raises ValueError where
+    Image.open raises: no FF D8 FF, a byte pair that is no marker, a segment cut short, a frame of other
+    than 8 bits or 1 / 3 / 4 components, a DQT of too few bytes, no frame before the scan, more pixels than
+    the decompression bomb limit."""
+    if data[:3] != b"\xff\xd8\xff":
+        raise ValueError(f"{name}: not a JPEG file")
+    pos, s = 3, b"\xff"
+    size, comment, mpf, hdr_gain = None, None, None, False
+
+    def segment() -> bytes:
+        nonlocal pos
+        if pos + 2 > len(data):
+            raise ValueError(f"{name}: truncated JPEG marker segment")
+        n = (data[pos] << 8 | data[pos + 1]) - 2
+        body = data[pos + 2 : pos + 2 + max(n, 0)]
+        if len(body) < n:
+            raise ValueError(f"{name}: truncated JPEG marker segment (truncated file read)")
+        pos += 2 + max(n, 0)
+        return body
+
+    while True:
+        if s[0] != 0xFF:
+            s = data[pos : pos + 1]
+            pos += len(s)
+            if not s:
+                raise ValueError(f"{name}: no JPEG start of scan")
+            continue
+        if pos >= len(data):
+            raise ValueError(f"{name}: no JPEG start of scan")
+        marker = data[pos]
+        pos += 1
+        if 0xC0 <= marker <= 0xFE:
+            if marker in (0xC0, 0xC1, 0xC2, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF, 0xDE):
+                body = segment()
+                if len(body) < 6:
+                    raise ValueError(f"{name}: truncated JPEG frame header")
+                if body[0] != 8:
+                    raise ValueError(f"{name}: cannot handle {body[0]}-bit layers")
+                if body[5] not in (1, 3, 4):
+                    raise ValueError(f"{name}: cannot handle {body[5]}-layer images")
+                size = (body[3] << 8 | body[4], body[1] << 8 | body[2])
+            elif marker == 0xDB:
+                body = segment()
+                while body:
+                    length = 1 + (1 if body[0] // 16 == 0 else 2) * 64
+                    if len(body) < length:
+                        raise ValueError(f"{name}: bad quantization table marker")
+                    body = body[length:]
+            elif marker == 0xFE:
+                comment = segment()
+            elif 0xE0 <= marker <= 0xEF:
+                body = segment()
+                if (marker, body[:4]) == (0xE0, b"JFIF") and len(body) < 7 or \
+                        (marker, body[:5]) == (0xEE, b"Adobe") and len(body) < 7:
+                    raise ValueError(f"{name}: truncated APP{marker & 15} segment")
+                if marker == 0xE2 and body.startswith(b"MPF\0"):
+                    mpf = body[4:]
+                elif marker == 0xE1 and b' hdrgm:Version="' in body:
+                    hdr_gain = True
+            elif marker in _SKIPPED:
+                segment()
+            if marker == 0xDA:
+                break
+            s = data[pos : pos + 1]
+            pos += len(s)
+            if not s:
+                raise ValueError(f"{name}: no JPEG start of scan")
+        elif marker == 0xFF:
+            s = b"\xff"
+        elif marker == 0x00:
+            s = data[pos : pos + 1]
+            pos += len(s)
+            if not s:
+                raise ValueError(f"{name}: no JPEG start of scan")
+        else:
+            raise ValueError(f"{name}: no marker found")
+    if size is None or size[0] <= 0 or size[1] <= 0:
+        raise ValueError(f"{name}: no JPEG frame before the scan (not identified)")
+    if size[0] * size[1] > bmp.MAX_PIXELS:
+        raise ValueError(f"{name}: {size[0] * size[1]} pixels (decompression bomb)")
+    return size[0], size[1], comment, _mp_images(mpf, name) > 1 and not hdr_gain
+
+
+_TIFF_UNITS = {1: 1, 2: 1, 3: 2, 4: 4, 5: 8, 6: 1, 7: 1, 8: 2, 9: 4, 10: 8, 11: 4, 12: 8, 13: 4, 16: 8, 17: 8, 18: 8}
+
+
+def _mp_images(mp: bytes, name: str) -> int:
+    """jpeg_factory's reading of the last MPF segment: its index's NumberOfImages (tag 0xB001) where the
+    directory, that count and each image's MP entry (tag 0xB002) read as Pillow reads them, else 0 (Pillow
+    then keeps the file a JPEG); ValueError where an MP entry is cut short, which fails Image.open itself."""
+    if mp is None or mp[:4] not in (b"MM\x00\x2a", b"II\x2a\x00"):
+        return 0
+    order = "big" if mp[:2] == b"MM" else "little"
+
+    def u(at: int, n: int) -> int:
+        return int.from_bytes(mp[at : at + n], order)
+
+    at = u(4, 4)
+    if len(mp) < at + 2:
+        return 0
+    tags = {}
+    for k in range(u(at, 2)):
+        e = at + 2 + 12 * k
+        if len(mp) < e + 12:
+            return 0
+        tag, typ, count = u(e, 2), u(e + 2, 2), u(e + 4, 4)
+        if typ not in _TIFF_UNITS:
+            continue
+        size = _TIFF_UNITS[typ] * count
+        data = mp[e + 8 : e + 8 + size] if size <= 4 else mp[u(e + 8, 4) : u(e + 8, 4) + size]
+        if len(data) == size:
+            tags[tag] = (typ, count, data)
+    quant, entries = tags.get(0xB001), tags.get(0xB002)
+    if quant is None or quant[0] not in (3, 4) or quant[1] != 1 or entries is None or entries[0] != 7:
+        return 0
+    count = int.from_bytes(quant[2], order)
+    for k in range(count):
+        entry = entries[2][16 * k : 16 * k + 16]
+        if len(entry) < 16:
+            raise ValueError(f"{name}: MP index entry {k} cut short")
+        if (int.from_bytes(entry[:4], order) >> 24) & 7:
+            return 0  # "unsupported picture format in MPO": Pillow keeps the JPEG
+    return count
+
+
+def is_jpeg(data: bytes) -> bool:
+    """True where `PIL.Image.open(...).format == "JPEG"`: the markers read as Pillow reads them, and not an
+    MPO file."""
+    try:
+        return not open_header(data)[3]
+    except ValueError:
+        return False
+
+
+def image_comment(data: bytes, name: str = "<bytes>"):
+    """The comment Pillow keeps in `info["comment"]` and its JPEG writer carries over: a JPEG file's last
+    COM segment before the scan, a GIF's comment extensions before the first image joined by newlines, a
+    PNG's last text chunk keyed "comment" (a str, written as UTF-8); None for every other file."""
+    kind = image_format(data)
+    if kind == "jpeg":
+        return open_header(data, name)[2]
+    if kind == "gif":
+        return gif.parse(data, name).comment or None
+    if kind == "png":
+        return png.comment(data, name)
+    return None
+
+
+class UnsupportedImageFormat(ValueError):
+    """A file in a format the port does not decode yet (Pillow may read it): not corrupt data, which raises
+    the decoders' own ValueError."""
+
+
 def image_format(data: bytes) -> str:
-    """The format a file's first bytes name: "jpeg", "png", "gif", "bmp", "webp", "tiff", or the name of a
-    format Pillow reads and the port does not decode ("AVIF", "ICO", ...), or "unknown"."""
+    """The format a file's first bytes name: "jpeg", "png", "gif", "bmp", "webp", "tiff", "ico", "cur",
+    "netpbm", or the name of another format Pillow's Image.open identifies ("AVIF", "PSD", "TGA", ...), or
+    "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
@@ -1219,26 +1452,40 @@ def image_format(data: bytes) -> str:
         return "webp"
     if tiff.accepts(data):
         return "tiff"
+    if data[:4] in (ico.ICO_SIGNATURE, ico.CUR_SIGNATURE) and data[4:6] != b"\0\0":  # Pillow tries the next
+        return "ico" if data[:4] == ico.ICO_SIGNATURE else "cur"  # reader on an icon of no entries (a TGA file)
+    if netpbm.accepts(data):
+        return "netpbm"
     return next((label for accepts, label in _REFUSED if accepts(data)), "unknown")
 
 
-def read_image(path: str, device) -> np.ndarray:
-    """uint8 [H, W, 3] of the JPEG, PNG, GIF, BMP, WebP or TIFF file at `path`, told apart by its signature
-    and decoded as a run on `device` decodes (BMP has one decoder, numpy)."""
-    with open(path, "rb") as f:
-        data = f.read()
+def decode_image(data: bytes, name: str, device) -> np.ndarray:
+    """uint8 [H, W, 3] of an image file's bytes, told apart by its signature and decoded as a run on `device`
+    decodes (BMP, ICO / CUR's DIBs and Netpbm have one decoder, numpy).  A format the port does not decode
+    raises UnsupportedImageFormat; an empty file or one of no format Image.open identifies, and corrupt data,
+    raise ValueError."""
+    if not data:
+        raise ValueError(f"{name}: empty file (cannot identify image file)")
     kind = image_format(data)
     if kind == "jpeg":
-        return decoder_for(device)(data, path)
-    if kind == "png":
-        return png.decoder_for(device)(data, path)
-    if kind == "gif":
-        return gif.decoder_for(device)(data, path)
+        return decoder_for(device)(data, name)
+    if kind in ("png", "gif", "webp", "tiff"):
+        return {"png": png, "gif": gif, "webp": webp, "tiff": tiff}[kind].decoder_for(device)(data, name)
     if kind == "bmp":
-        return bmp.decode(data, path)
-    if kind == "webp":
-        return webp.decoder_for(device)(data, path)
-    if kind == "tiff":
-        return tiff.decoder_for(device)(data, path)
-    raise ValueError(f"{path}: {kind} image (by its signature): only JPEG, PNG, GIF, BMP, WebP and TIFF files are "
-                     "decoded")
+        return bmp.decode(data, name)
+    if kind == "ico":
+        return ico.decode_ico(data, name, device)
+    if kind == "cur":
+        return ico.decode_cur(data, name)
+    if kind == "netpbm":
+        return netpbm.decode(data, name)
+    if kind == "unknown":
+        raise ValueError(f"{name}: unknown image (no format's signature or header): cannot identify image file")
+    raise UnsupportedImageFormat(f"{name}: {kind} image (by its signature): only JPEG, PNG, GIF, BMP, WebP, "
+                                 "TIFF, ICO / CUR and Netpbm files are decoded")
+
+
+def read_image(path: str, device) -> np.ndarray:
+    """uint8 [H, W, 3] of the image file at `path` (`decode_image`)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path, device)

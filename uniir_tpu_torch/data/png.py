@@ -211,6 +211,68 @@ def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return to_rgb(img, png.bit_depth, png.color_type, png.palette)
 
 
+MAX_TEXT_CHUNK, MAX_TEXT_MEMORY = 65536, 64 * 65536  # PngImagePlugin's limits on text
+
+
+def _inflate_text(body: bytes, name: str):
+    """_safe_zlib_decompress: None where zlib fails (Pillow then reads the text as empty or skips it)."""
+    d = zlib.decompressobj()
+    try:
+        out = d.decompress(body, MAX_TEXT_CHUNK)
+    except zlib.error:
+        return None
+    if d.unconsumed_tail:
+        raise ValueError(f"{name}: decompressed text chunk too large")
+    return out
+
+
+def comment(data: bytes, name: str = "<bytes>"):
+    """The str Pillow keeps as `info["comment"]`: the last tEXt / zTXt / iTXt chunk keyed "comment"
+    before IEND (text chunks after the image data included, which `load` reads), or None.  Raises where
+    Pillow's text handlers raise: a zTXt of a compression method other than 0, text past its limits."""
+    pos, out, memory = 8, None, 0
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I", data[pos : pos + 4])[0], data[pos + 4 : pos + 8]
+        body = data[pos + 8 : pos + 8 + length]
+        if kind == b"IEND" or len(body) < length:
+            break
+        pos += 12 + length
+        value = None
+        if kind in (b"tEXt", b"zTXt"):
+            key, _, v = body.partition(b"\0")
+            if kind == b"zTXt":
+                if v and v[0] != 0:
+                    raise ValueError(f"{name}: unknown compression method {v[0]} in zTXt chunk")
+                v = _inflate_text(v[1:], name) or b""
+            if key:
+                value = (key, v.decode("latin-1"))
+        elif kind == b"iTXt":
+            key, sep, r = body.partition(b"\0")
+            if not sep or len(r) < 2:
+                continue
+            flag, method, r = r[0], r[1], r[2:]
+            parts = r.split(b"\0", 2)
+            if len(parts) < 3:
+                continue
+            v = parts[2]
+            if flag:
+                v = _inflate_text(v, name) if method == 0 else None
+                if v is None:
+                    continue
+            try:
+                value = (key, v.decode("utf-8"), parts[0].decode("utf-8"), parts[1].decode("utf-8"))[:2]
+            except UnicodeDecodeError:
+                continue
+        if value is None:
+            continue
+        memory += len(value[1])
+        if memory > MAX_TEXT_MEMORY:
+            raise ValueError(f"{name}: too much memory used in text chunks")
+        if value[0] == b"comment":
+            out = value[1]
+    return out
+
+
 # --- the native decoder --------------------------------------------------------
 
 
@@ -237,6 +299,6 @@ _calls_lock = threading.Lock()  # the loader's threads decode at once
 def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     """The decoder a run on `device` uses: the native one on a CUDA run's
     host, the twin on a CPU run."""
-    import torch
+    from uniir_tpu_torch import _build
 
-    return decode_native if torch.device(device).type == "cuda" else decode_twin
+    return decode_native if _build.is_cuda(device) else decode_twin

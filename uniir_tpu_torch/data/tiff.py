@@ -1403,9 +1403,9 @@ _calls_lock = threading.Lock()  # the loader's threads decode at once
 
 def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     """The decoder a run on `device` uses: the native one on a CUDA run's host, the twin on a CPU run."""
-    import torch
+    from uniir_tpu_torch import _build
 
-    return decode_native if torch.device(device).type == "cuda" else decode_twin
+    return decode_native if _build.is_cuda(device) else decode_twin
 
 
 def accepts(data: bytes) -> bool:
