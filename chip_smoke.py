@@ -199,7 +199,7 @@
    OVEN: the writer's baseline JPEGs, JPEGs with COM segments, Pillow's
    progressive files, palette PNGs with tRNS, PNGs with a comment, GIFs with
    a comment, lossless WebP, CMYK JPEG, ICO, PPM / PGM; a truncated JPEG, an
-   HTML error page under a .jpg name and a QOI file under a .png name), then each converter's CLI with every step
+   HTML error page under a .jpg name and a PSD file under a .png name), then each converter's CLI with every step
    (`--enable_image_processing`, the candidate pool, the conversion, the
    training pool) and the union generator's (union pools, the union train
    split, task ids, qrels), each a process of its own on the card's default
@@ -207,7 +207,7 @@
    encoder to Pillow 12.1's digests of a fixed set and every file the CLIs
    wrote (the JPEG files of the image pass, every JSON-lines file) to the
    same mains run in this process through the twins (`--device cpu`), the
-   truncated file and the HTML page deleted, the QOI file left in place and
+   truncated file and the HTML page deleted, the PSD file left in place and
    all three counted, each
    pass's native decodes and encodes counted in its workers; times the image
    pass on one process by stage (decode, comment, resize, encode, write: the
@@ -437,15 +437,16 @@ def jpeg_form_case(form: str, rng, w: int, h: int) -> bytes:
 def decoder_case(job: tuple) -> tuple:
     """(file bytes, sha256 of the twin decoder's pixels) of seeded case k of `kind`: a GIF of one of
     GIF_CASE_FORMS (indices in runs and noise, so the LZW table fills), a JPEG of one of JPEG_CASE_FORMS
-    (a smooth field with noise, quality 30-95, restarts now and then) or a WebP file of one of
-    WEBP_CASE_FORMS (`webp_bytes`); a worker of the decoder phase's pool."""
+    (a smooth field with noise, quality 30-95, restarts now and then), a WebP file of one of
+    WEBP_CASE_FORMS (`webp_bytes`), a TIFF or JPEG form, or a file of one of RASTER_CASE_FORMS
+    (`raster_case`); a worker of the decoder phase's pool."""
     import hashlib
 
     from uniir_tpu_torch.data import gif, jpeg, tiff, webp
 
     kind, k = job
     rng = np.random.default_rng(SEED + 7000 + k + {"gif": 0, "jpeg": 100_000, "webp": 200_000, "tiff": 300_000,
-                                                   "jpeg_forms": 400_000}[kind])
+                                                   "jpeg_forms": 400_000, "raster": 500_000}[kind])
     w, h = int(rng.integers(1, 601)), int(rng.integers(1, 601))
     if kind in ("webp", "tiff", "jpeg_forms") and k % 4:  # three cases in four log-uniform over 1-600 px: the
         w, h = int(round(600 ** rng.random())), int(round(600 ** rng.random()))  # Python twins are slow at 600
@@ -458,6 +459,10 @@ def decoder_case(job: tuple) -> tuple:
     if kind == "jpeg_forms":
         data = jpeg_form_case(JPEG_FORM_CASE_FORMS[k % len(JPEG_FORM_CASE_FORMS)], rng, w, h)
         return data, hashlib.sha256(jpeg.decode_twin(data).tobytes()).hexdigest()
+    if kind == "raster":  # log-uniform over 1-160 px: the twins are Python loops over the bytes
+        w, h = int(round(160 ** rng.random())), int(round(160 ** rng.random()))
+        data = raster_case(RASTER_CASE_FORMS[k % len(RASTER_CASE_FORMS)], rng, w, h)
+        return data, hashlib.sha256(jpeg.decode_image(data, f"raster case {k}", "cpu").tobytes()).hexdigest()
     if kind == "gif":
         form = GIF_CASE_FORMS[k % len(GIF_CASE_FORMS)]
         n_colors = int(rng.integers(1, 257))
@@ -497,23 +502,130 @@ def decoder_case(job: tuple) -> tuple:
     return data, hashlib.sha256(twin(data).tobytes()).hexdigest()
 
 
-DECODER_KINDS = ("gif", "jpeg", "webp", "tiff", "jpeg_forms")
+DECODER_KINDS = ("gif", "jpeg", "webp", "tiff", "jpeg_forms", "raster")
+# the forms whose bytes csrc/raster.cu decodes: each file goes through one of its entries once
+RASTER_CASE_FORMS = ("qoi_rgb", "qoi_rgba", "tga_rle_rgb", "tga_rle_rgba", "tga_rle_grey", "tga_rle_cmap16",
+                     "sgi_rle", "sgi_rle_16", "pcx_rgb", "pcx_palette", "pcx_planar", "dcx", "sun_rle",
+                     "sun_rle_palette", "msp_v2")
+
+
+def raster_case(form: str, rng, w: int, h: int) -> bytes:
+    """A seeded file of `form` (RASTER_CASE_FORMS) at w x h: samples in runs along rows, repeated rows and
+    noise, so each format's runs and literals both occur."""
+    img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    img = np.where(rng.random((h, w, 1)) < 0.6, img[:, :1], img)
+    img = np.where(rng.random((h, 1, 1)) < 0.3, img[:1], img).astype(np.uint8)
+    idx = (img[..., 0] >> 4).astype(np.uint8)
+    palette = rng.integers(0, 256, 768, dtype=np.uint8).tobytes()
+    if form.startswith("qoi"):
+        return qoi_bytes(img if form == "qoi_rgba" else img[..., :3])
+    if form.startswith("tga"):
+        if form == "tga_rle_cmap16":
+            return tga_bytes(idx, palette=palette[:48], cmap_first=int(rng.integers(0, 3)), cmap_depth=16)
+        return tga_bytes({"tga_rle_rgb": img[..., :3], "tga_rle_rgba": img, "tga_rle_grey": img[..., 0]}[form],
+                         top_down=bool(rng.random() < 0.5))
+    if form.startswith("sgi"):
+        return sgi_bytes(img[..., :3].astype(np.uint16) * 257 + 1 if form == "sgi_rle_16" else img[..., :3])
+    if form == "pcx_rgb":
+        return pcx_bytes(img[..., :3])
+    if form == "pcx_palette":
+        return pcx_bytes(img[..., 0], palette=palette)
+    if form == "pcx_planar":
+        return pcx_bytes(idx, palette=palette[:48], planes_of_bits=4)
+    if form == "dcx":
+        return dcx_bytes([pcx_bytes(img[..., :3]), pcx_bytes(idx, palette=palette[:48], planes_of_bits=4)])
+    if form == "sun_rle":
+        return sun_bytes(img[..., :3])
+    if form == "sun_rle_palette":
+        return sun_bytes(idx, palette=palette[:48])
+    return msp_bytes(img[..., 0] > 127)
+
+
+class RasterNative:
+    """The native path of RASTER_CASE_FORMS' files (`data.jpeg.decode_image` on a CUDA run's host, where
+    each decode runs one entry of csrc/raster.cu); `calls` counts those entries' calls."""
+
+    def __call__(self, data: bytes, name: str = "raster") -> np.ndarray:
+        from uniir_tpu_torch.data import jpeg
+
+        return jpeg.decode_image(data, name, "cuda")
+
+    @property
+    def calls(self) -> int:
+        from uniir_tpu_torch.data import raster
+
+        return sum(raster.native_calls.values())
+
+
+RASTER_SIZE = (640, 480)  # COCO's size, at which a Python loop over a file's bytes costs seconds
+
+
+def raster_size_case(form: str) -> tuple:
+    """(file bytes, sha256 of the twin's pixels, the twin's seconds) of `form` (RASTER_CASE_FORMS) at
+    RASTER_SIZE; a worker of the decoder phase's pool."""
+    import hashlib
+
+    from uniir_tpu_torch.data import jpeg
+
+    data = raster_case(form, np.random.default_rng(SEED + 8000 + RASTER_CASE_FORMS.index(form)), *RASTER_SIZE)
+    t0 = time.perf_counter()
+    pixels = jpeg.decode_image(data, form, "cpu")
+    return data, hashlib.sha256(pixels.tobytes()).hexdigest(), time.perf_counter() - t0
 
 
 def start_decoder_cases(pool) -> dict:
-    """The decoder phase's seeded files and their twins' digests, DECODER_CASES of each kind, submitted to
-    `pool` (a spawn pool: the twins are numpy) so that they are written and decoded while the card checks
-    its kernels; kind -> futures."""
-    return {kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)] for kind in DECODER_KINDS}
+    """The decoder phase's seeded files and their twins' digests, DECODER_CASES of each kind and one of each
+    raster form at RASTER_SIZE ("raster_size"), submitted to `pool` (a spawn pool: the twins are numpy) so
+    that they are written and decoded while the card checks its kernels; kind -> futures."""
+    pending = {kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)] for kind in DECODER_KINDS}
+    pending["raster_size"] = [pool.submit(raster_size_case, form) for form in RASTER_CASE_FORMS]
+    return pending
+
+
+def check_raster_size(cases: list, threads: int, smi: str) -> None:
+    """The native raster stages at RASTER_SIZE, one file of each form: bit-equal to the twin's digest; each
+    form's native time (median of 5) beside its twin's (one decode in the pool, beside other work); all
+    forms' images/s and Mpixel/s on one thread and on the loader's threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    native = RasterNative()
+    w, h = RASTER_SIZE
+    for form, (data, digest, twin_s) in zip(RASTER_CASE_FORMS, cases):
+        out = native(data, form)
+        check(hashlib.sha256(out.tobytes()).hexdigest() == digest,
+              f"decoder phase: the native {form} decode at {w} x {h} differs from its twin")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            native(data, form)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        log(f"decoder phase: raster {form} at {w} x {h} ({len(data)} bytes): native {ms:.3f} ms, twin "
+            f"{twin_s * 1e3:.1f} ms in the pool ({twin_s * 1e3 / ms:.0f} x)")
+    files = [data for data, _, _ in cases] * 4
+    t0 = time.perf_counter()
+    for data in files:
+        native(data)
+    one = len(files) / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(threads) as loader_threads:
+        t0 = time.perf_counter()
+        list(loader_threads.map(native, files))
+        many = len(files) / (time.perf_counter() - t0)
+    log(f"decoder phase: native raster at {w} x {h}, all {len(cases)} forms: {one:.1f} images/s "
+        f"({one * w * h / 1e6:.2f} Mpixel/s) on one thread, {many:.1f} images/s ({many * w * h / 1e6:.2f} "
+        f"Mpixel/s) on the loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
 
 
 def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     """The decoder phase: the native GIF decoder (csrc/gif.cu), the native JPEG decoder's CMYK, YCCK and RGB
     forms and its SOF1, arithmetic, lossless and smoothed forms (csrc/jpeg.cu), the native WebP decoder
-    (csrc/webp.cu) and the native TIFF decoder (csrc/tiff.cu with the JPEG strips through csrc/jpeg.cu) held
-    bit-equal to their twins over DECODER_CASES seeded files each, sizes 1-600 px (`start_decoder_cases`'
-    futures, `pending`, submitted at `t_started`), the WebP, TIFF and JPEG-form decoders also to Pillow's digests of WEBP_PILLOW_FILES,
-    TIFF_PILLOW_FILES and JPEG_FORM_PILLOW_FILES; the native decoders' images/s and Mpixel/s on one thread and
+    (csrc/webp.cu), the native TIFF decoder (csrc/tiff.cu with the JPEG strips through csrc/jpeg.cu) and the
+    native stages of QOI, TGA, SGI, PCX / DCX, Sun raster and MSP (csrc/raster.cu) held bit-equal to their
+    twins over DECODER_CASES seeded files each, sizes 1-600 px (1-160 for the raster forms;
+    `start_decoder_cases`' futures, `pending`, submitted at `t_started`), the WebP, TIFF and JPEG-form
+    decoders also to Pillow's digests of WEBP_PILLOW_FILES, TIFF_PILLOW_FILES and JPEG_FORM_PILLOW_FILES;
+    the native decoders' images/s and Mpixel/s on one thread and
     on the loader's threads (the shipped embed.yaml's num_workers), beside the card's name and power limit and
     the host CPU."""
     import hashlib
@@ -525,8 +637,8 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     t_phase = time.perf_counter()
     threads = int(load_config(str(REPO / P12_CONFIGS["embed"])).dataloader_config.num_workers)
     cases = {kind: [f.result() for f in futures] for kind, futures in pending.items()}
-    log(f"decoder phase: {DECODER_CASES} GIF, JPEG, WebP, TIFF and SOF1 / arithmetic / lossless / smoothed JPEG "
-        f"files each written and decoded by the twins, {t_phase - t_started:.1f} s after they were started beside "
+    log(f"decoder phase: {DECODER_CASES} GIF, JPEG, WebP, TIFF, SOF1 / arithmetic / lossless / smoothed JPEG and "
+        f"QOI / TGA / SGI / PCX / DCX / Sun / MSP files each written and decoded by the twins, {t_phase - t_started:.1f} s after they were started beside "
         f"the kernel checks, done {time.perf_counter() - t_phase:.1f} s later")
     for files, module, label in ((WEBP_PILLOW_FILES, webp, "WebP"), (TIFF_PILLOW_FILES, tiff, "TIFF"),
                                  (JPEG_FORM_PILLOW_FILES, jpeg, "JPEG-form")):
@@ -539,7 +651,7 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
         log(f"decoder phase: both {label} decoders equal to Pillow's digests on the {len(files)} Pillow-made "
             f"files ({', '.join(files)})")
     for kind, native in (("gif", gif.decode_native), ("jpeg", jpeg.decode_native), ("webp", webp.decode_native),
-                         ("tiff", tiff.decode_native), ("jpeg_forms", jpeg.decode_native)):
+                         ("tiff", tiff.decode_native), ("jpeg_forms", jpeg.decode_native), ("raster", RasterNative())):
         files = [data for data, _ in cases[kind]]
         calls = native.calls
         t0 = time.perf_counter()
@@ -556,12 +668,12 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
         check(not differ, f"decoder phase: the native {kind} decoder differs from its twin on cases {differ[:5]}")
         pixels = sum(out.shape[0] * out.shape[1] for out in outs)
         forms = {"gif": GIF_CASE_FORMS, "jpeg": sorted({f for f, _ in JPEG_CASE_FORMS}), "webp": WEBP_CASE_FORMS,
-                 "tiff": tuple(TIFF_CASE_FORMS), "jpeg_forms": JPEG_FORM_CASE_FORMS}[kind]
+                 "tiff": tuple(TIFF_CASE_FORMS), "jpeg_forms": JPEG_FORM_CASE_FORMS, "raster": RASTER_CASE_FORMS}[kind]
         log(f"decoder phase: native {kind} bit-equal to its twin on {len(files)} files ({', '.join(forms)}; "
             f"{pixels / len(files):.0f} pixels a file on average); {one_thread:.1f} images/s "
             f"({pixels * one_thread / len(files) / 1e6:.2f} Mpixel/s) on one thread, {many:.1f} images/s on the "
             f"loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
-        if kind in ("webp", "tiff", "jpeg_forms"):
+        if kind in ("webp", "tiff", "jpeg_forms", "raster"):
             for form in forms:
                 sel = [k for k in range(len(files)) if forms[k % len(forms)] == form]
                 t0 = time.perf_counter()
@@ -571,6 +683,7 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
                 px = sum(outs[k].shape[0] * outs[k].shape[1] for k in sel)
                 log(f"decoder phase: native {kind} {form}: {len(sel) / dt:.1f} images/s, {px / dt / 1e6:.2f} "
                     f"Mpixel/s on one thread ({px / len(sel):.0f} pixels a file)")
+    check_raster_size(cases["raster_size"], threads, smi)
     log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2850,7 +2963,7 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
-TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith")
+TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi")
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
 
 
@@ -2858,7 +2971,7 @@ def swapped_decoders():
     """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call),
     each file's bytes decoded once: the loader pads a one-query batch by repeating its row, and the numpy
     twins would decode the same bytes to the same pixels BATCH times.  Call the result to swap them back."""
-    from uniir_tpu_torch.data import gif, jpeg, png, tiff, webp
+    from uniir_tpu_torch.data import gif, jpeg, msp, pcx, png, qoi, sgi, sun, tga, tiff, webp
 
     def decoded_once(twin):
         pixels = {}
@@ -2870,7 +2983,7 @@ def swapped_decoders():
 
         return decode
 
-    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp)]
+    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp, qoi, tga, sgi, pcx, sun, msp)]
     for module, _ in saved:
         module.decoder_for = lambda device, twin=decoded_once(module.decode_twin): twin
 
@@ -2884,8 +2997,9 @@ def swapped_decoders():
 def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, index, cands: list, form: str, seed: int,
                       per_batch: int) -> None:
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
-    lossy WebP, a lossless WebP with alpha, an LZW TIFF, an arithmetic-coded progressive JPEG) through the
-    interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF; BMP has one decoder), K1, K2; held to
+    lossy WebP, a lossless WebP with alpha, an LZW TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
+    QOI file) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF, csrc/raster.cu
+    for TGA and QOI; BMP has one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
     from uniir_tpu_torch.data import gif, jpeg, tiff, webp
@@ -2897,7 +3011,7 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     Path(path).write_bytes(fixture_file(form, seed))
     native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native, "webp_lossy": webp.decode_native,
               "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native,
-              "jpeg_arith": jpeg.decode_native}.get(form)
+              "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative()}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -4830,6 +4944,243 @@ def bmp_bytes(image: np.ndarray, bits: int, *, palette: bytes = b"", compression
     return b"BM" + (offset + len(data)).to_bytes(4, "little") + b"\0" * 4 + offset.to_bytes(4, "little") + info + pal + data
 
 
+# ------------------------------------ writers of the small raster formats (no Pillow on the card's machine)
+
+
+def qoi_bytes(image: np.ndarray) -> bytes:
+    """A QOI file of uint8 [h, w, 3 | 4], every op of the format used where it applies (RUN, INDEX, DIFF,
+    LUMA, RGB, RGBA)."""
+    h, w, c = image.shape
+    px = image.reshape(-1, c).tolist()
+    out, seen, prev, run = bytearray(), [None] * 64, (0, 0, 0, 255), 0
+    for i, p in enumerate(px):
+        v = tuple(p) if c == 4 else (*p, prev[3])
+        if v == prev:
+            run += 1
+            if run == 62 or i == len(px) - 1:
+                out.append(0xC0 | (run - 1))
+                run = 0
+            continue
+        if run:
+            out.append(0xC0 | (run - 1))
+            run = 0
+        slot = (v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64
+        if seen[slot] == v:
+            out.append(slot)
+        elif v[3] != prev[3]:
+            out += bytes((0xFF, *v))
+        else:
+            dr, dg, db = ((v[k] - prev[k] + 128) % 256 - 128 for k in range(3))
+            if -2 <= dr <= 1 and -2 <= dg <= 1 and -2 <= db <= 1:
+                out.append(0x40 | (dr + 2) << 4 | (dg + 2) << 2 | (db + 2))
+            elif -32 <= dg <= 31 and -8 <= dr - dg <= 7 and -8 <= db - dg <= 7:
+                out += bytes((0x80 | (dg + 32), (dr - dg + 8) << 4 | (db - dg + 8)))
+            else:
+                out += bytes((0xFE, *v[:3]))
+        seen[slot], prev = v, v
+    return b"qoif" + w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes((c, 0)) + bytes(out) + b"\0" * 7 + b"\1"
+
+
+def tga_rle(rows: np.ndarray, depth: int) -> bytes:
+    """TGA RLE of uint8 [h, row bytes] rows: runs of 2-128 equal pixels, literals of up to 128 within a row."""
+    out = bytearray()
+    for row in rows:
+        px = [bytes(row[i : i + depth]) for i in range(0, len(row), depth)]
+        i = 0
+        while i < len(px):
+            j = i
+            while j + 1 < len(px) and px[j + 1] == px[i] and j + 1 - i < 128:
+                j += 1
+            if j > i:
+                out += bytes((0x80 | (j - i),)) + px[i]
+                i = j + 1
+                continue
+            j = i
+            while j + 1 < len(px) and j + 1 - i < 128 and not (j + 2 < len(px) and px[j + 1] == px[j + 2]):
+                j += 1
+            out += bytes((j - i,)) + b"".join(px[i : j + 1])
+            i = j + 1
+    return bytes(out)
+
+
+def tga_bytes(image: np.ndarray, *, rle: bool = True, top_down: bool = False, palette: bytes = b"",
+              cmap_first: int = 0, cmap_depth: int = 24, ident: bytes = b"") -> bytes:
+    """A TGA file: uint8 [h, w] grey (type 3 / 11), or indices into `palette` (RGB bytes, written at
+    `cmap_depth` 16 / 24 bits after `cmap_first` unlisted entries; type 1 / 9), or [h, w, 3 | 4] RGB(A)
+    (type 2 / 10, BGR(A)); bottom-up unless `top_down`."""
+    h, w = image.shape[:2]
+    if image.ndim == 3:
+        kind, depth = 2, 8 * image.shape[2]
+        px = image[..., [2, 1, 0, 3][: image.shape[2]]]
+    else:
+        kind, depth, px = (1 if palette else 3), 8, image
+    rows = np.ascontiguousarray((px if top_down else px[::-1]).reshape(h, -1))
+    cmap = b""
+    if palette:
+        entries = np.frombuffer(palette, np.uint8).reshape(-1, 3).astype(np.int64)
+        if cmap_depth == 16:
+            v = (entries[:, 0] >> 3) << 10 | (entries[:, 1] >> 3) << 5 | entries[:, 2] >> 3
+            cmap = v.astype("<u2").tobytes()
+        else:
+            cmap = entries[:, ::-1].astype(np.uint8).tobytes()
+    n = len(palette) // 3
+    head = bytes((len(ident), 1 if palette else 0, kind | (8 if rle else 0))) + cmap_first.to_bytes(2, "little") \
+        + n.to_bytes(2, "little") + bytes((cmap_depth if palette else 0,)) + bytes(4) + w.to_bytes(2, "little") \
+        + h.to_bytes(2, "little") + bytes((depth, 0x20 if top_down else 0))
+    return head + ident + cmap + (tga_rle(rows, depth // 8) if rle else rows.tobytes())
+
+
+def sgi_bytes(image: np.ndarray, rle: bool = True) -> bytes:
+    """An SGI file of uint8 [h, w, 1 | 3 | 4] (1 byte a sample) or uint16 (2, big-endian), rows bottom-up,
+    verbatim or RLE (runs and copies of up to 127 samples, a zero chunk ending each row)."""
+    h, w, z = image.shape
+    bpc = 2 if image.dtype == np.uint16 else 1
+    head = (474).to_bytes(2, "big") + bytes((1 if rle else 0, bpc)) + (3 if z > 1 else 2).to_bytes(2, "big") \
+        + w.to_bytes(2, "big") + h.to_bytes(2, "big") + z.to_bytes(2, "big") + bytes(500)
+    planes = [image[::-1, :, c] for c in range(z)]
+    if not rle:
+        return head + b"".join(p.astype(">u2" if bpc == 2 else np.uint8).tobytes() for p in planes)
+
+    def atom(v) -> bytes:
+        return int(v).to_bytes(bpc, "big")
+
+    rows = []
+    for plane in planes:
+        for line in plane.tolist():
+            out, x = bytearray(), 0
+            while x < w:
+                run = 1
+                while x + run < w and line[x + run] == line[x] and run < 127:
+                    run += 1
+                if run > 1:
+                    out += atom(run) + atom(line[x])
+                    x += run
+                    continue
+                k = 1
+                while x + k < w and k < 127 and not (x + k + 1 < w and line[x + k] == line[x + k + 1]):
+                    k += 1
+                out += atom(0x80 | k) + b"".join(atom(v) for v in line[x : x + k])
+                x += k
+            rows.append(bytes(out + atom(0)))
+    start = 512 + 8 * len(rows)
+    offsets = np.cumsum([0] + [len(r) for r in rows[:-1]]) + start
+    return head + b"".join(int(o).to_bytes(4, "big") for o in offsets) \
+        + b"".join(len(r).to_bytes(4, "big") for r in rows) + b"".join(rows)
+
+
+def pcx_rle(line: bytes) -> bytes:
+    out, i = bytearray(), 0
+    while i < len(line):
+        run = 1
+        while i + run < len(line) and line[i + run] == line[i] and run < 63:
+            run += 1
+        if run > 1 or line[i] >= 0xC0:
+            out += bytes((0xC0 | run, line[i]))
+        else:
+            out.append(line[i])
+        i += run
+    return bytes(out)
+
+
+def pcx_bytes(image: np.ndarray, *, palette: bytes = b"", planes_of_bits: int = 0) -> bytes:
+    """A PCX file (RLE, version 5): uint8 [h, w, 3] as three 8-bit planes; [h, w] 8-bit indices with `palette`
+    (768 RGB bytes) after the data, or grey without; with `planes_of_bits` 4 (or 2), [h, w] indices below 16
+    as that many 1-bit planes and `palette` (48 bytes) in the header.  Lines are padded to even lengths."""
+    h, w = image.shape[:2]
+    bits, planes = (1, planes_of_bits) if planes_of_bits else (8, 3 if image.ndim == 3 else 1)
+    stride = ((w * bits + 7) // 8 + 1) // 2 * 2
+    lines = []
+    for y in range(h):
+        if planes_of_bits:
+            bitplanes = [np.packbits((image[y] >> k) & 1) for k in range(planes)]
+        else:
+            bitplanes = [image[y, :, c] for c in range(3)] if image.ndim == 3 else [image[y]]
+        lines.append(b"".join(bytes(p).ljust(stride, b"\0") for p in bitplanes))
+    head = bytearray(128)
+    head[:4] = bytes((10, 5, 1, bits))
+    head[8:12] = (w - 1).to_bytes(2, "little") + (h - 1).to_bytes(2, "little")
+    if planes_of_bits:
+        head[16 : 16 + len(palette)] = palette
+    head[65] = planes
+    head[66:68] = stride.to_bytes(2, "little")
+    tail = b"\x0c" + palette if palette and not planes_of_bits else b""
+    return bytes(head) + b"".join(pcx_rle(line) for line in lines) + tail
+
+
+def dcx_bytes(pages: list) -> bytes:
+    """A DCX file: the directory of `pages` (PCX files), then the pages."""
+    at = 4 + 4 * (len(pages) + 1)
+    offsets = []
+    for page in pages:
+        offsets.append(at)
+        at += len(page)
+    return (987654321).to_bytes(4, "little") + b"".join(o.to_bytes(4, "little") for o in offsets) + bytes(4) \
+        + b"".join(pages)
+
+
+def sun_bytes(image: np.ndarray, kind: int = 2, palette: bytes = b"") -> bytes:
+    """A Sun raster file: uint8 [h, w] (8-bit grey, or indices into `palette`, RGB bytes written as planes) or
+    [h, w, 3] (24-bit: BGR, RGB for type 3); type 2 is RLE (0x80 n v for runs of 3 or more, 0x80 0x00 for
+    0x80), the others rows padded to 16 bits."""
+    h, w = image.shape[:2]
+    depth = 8 * (image.shape[2] if image.ndim == 3 else 1)
+    px = image if image.ndim == 2 or kind == 3 else image[..., ::-1]
+    rows = np.ascontiguousarray(px.reshape(h, -1))
+    if kind == 2:
+        flat, out, i = rows.tobytes(), bytearray(), 0
+        while i < len(flat):
+            run = 1
+            while i + run < len(flat) and flat[i + run] == flat[i] and run < 256:
+                run += 1
+            if run >= 3:
+                out += bytes((0x80, run - 1, flat[i]))
+                i += run
+            else:
+                out += b"\x80\x00" if flat[i] == 0x80 else flat[i : i + 1]
+                i += 1
+        data = bytes(out)
+    else:
+        stride = (w * depth + 15) // 16 * 2
+        data = b"".join(bytes(r).ljust(stride, b"\0") for r in rows)
+    n = len(palette) // 3
+    cmap = np.frombuffer(palette, np.uint8).reshape(n, 3).T.tobytes() if palette else b""
+    head = b"".join(v.to_bytes(4, "big") for v in (0x59A66A95, w, h, depth, len(data), kind, 1 if palette else 0,
+                                                    len(cmap)))
+    return head + cmap + data
+
+
+def msp_bytes(bits: np.ndarray, v2: bool = True) -> bytes:
+    """An MSP file of bool [h, w] (True white): version 1 raw rows, or version 2's row-length map and each
+    row's runs (0 n v for runs of 3 or more equal bytes, else literals)."""
+    h, w = bits.shape
+    rows = [bytes(np.packbits(r)) for r in bits]
+    head = bytearray((b"LinS" if v2 else b"DanM") + w.to_bytes(2, "little") + h.to_bytes(2, "little") + bytes(24))
+    check_word = 0
+    for i in range(0, 30, 2):
+        check_word ^= head[i] | head[i + 1] << 8
+    head[30:32] = check_word.to_bytes(2, "little")
+    if not v2:
+        return bytes(head) + b"".join(rows)
+    encoded = []
+    for r in rows:
+        out, i = bytearray(), 0
+        while i < len(r):
+            run = 1
+            while i + run < len(r) and r[i + run] == r[i] and run < 255:
+                run += 1
+            if run >= 3:
+                out += bytes((0, run, r[i]))
+                i += run
+                continue
+            k = 1
+            while i + k < len(r) and k < 255 and not (i + k + 2 < len(r) and r[i + k] == r[i + k + 1] == r[i + k + 2]):
+                k += 1
+            out += bytes((k,)) + r[i : i + k]
+            i += k
+        encoded.append(bytes(out))
+    return bytes(head) + b"".join(len(e).to_bytes(2, "little") for e in encoded) + b"".join(encoded)
+
+
 # --- the WebP writer: VP8L, VP8 key frames and the RIFF forms, without Pillow or libwebp
 
 
@@ -6517,7 +6868,7 @@ def fixture_image(seed: int) -> np.ndarray:
 
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
 FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
-               "tiff": "tif"}
+               "tiff": "tif", "tga_rle": "tga", "qoi": "qoi"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -6543,8 +6894,8 @@ def fixture_file(form: str, seed: int) -> bytes:
     transform 0 / 2, Y and K at 2x2 in YCCK) and `jpeg_rgb` (Adobe transform 0: RGB as stored); WebP from
     `webp_bytes`: `webp_lossy` (VP8, coded closed-loop), `webp_lossless_alpha` (VP8L of the image with a seeded
     alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk); `tiff` (LZW, the
-    horizontal predictor, 32 x 32 tiles, big-endian) and `jpeg_arith` (arithmetic-coded, libjpeg's simple
-    progression, quality 90)."""
+    horizontal predictor, 32 x 32 tiles, big-endian), `jpeg_arith` (arithmetic-coded, libjpeg's simple
+    progression, quality 90), `tga_rle` (24-bit RLE, bottom-up) and `qoi` (RGB)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     img = fixture_image(seed)
@@ -6554,6 +6905,10 @@ def fixture_file(form: str, seed: int) -> bytes:
         return tiff_bytes(img, 2, compression=5, predictor=2, tile=(32, 32), order="MM")
     if form == "jpeg_arith":
         return jpeg_bytes(img, 90, coding="arithmetic", progressive=True)
+    if form == "tga_rle":
+        return tga_bytes(img)
+    if form == "qoi":
+        return qoi_bytes(img)
     if form.startswith("webp"):
         alpha = np.random.default_rng(seed).integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)
         kind, image = {"webp_lossy": ("lossy", img), "webp_lossless_alpha": ("lossless", np.concatenate([img, alpha], 2)),
@@ -7331,15 +7686,16 @@ def ico_bytes(image: np.ndarray, seed: int) -> bytes:
 
 def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
     """The bytes of one raw image file of `form` (P13_FORMS, or `truncated`: a baseline JPEG cut in its scan,
-    `garbage`: an HTML error page, which no image reader identifies, `qoi`: a format Pillow reads and the port
-    does not decode yet)."""
+    `garbage`: an HTML error page, which no image reader identifies, `psd`: a format the port does not decode
+    yet, a PSD header of no mode Pillow reads and noise after it)."""
     if form == "progressive":  # Pillow-made files of their own size
         return base64.b64decode(PROGRESSIVE_FILES[sorted(PROGRESSIVE_FILES)[seed % 3]][0])
     if form == "garbage":  # what a scraper saves as the image when the server answers with an error page
         return b"<!DOCTYPE html>\n<html><head><title>404 Not Found</title></head><body>image %d</body></html>\n" % seed
-    if form == "qoi":
+    if form == "psd":
         body = np.random.default_rng(seed).integers(0, 256, 64, dtype=np.uint8).tobytes()
-        return b"qoif" + w.to_bytes(4, "big") + h.to_bytes(4, "big") + b"\x03\x00" + body + bytes(7) + b"\x01"
+        return b"8BPS\x00\x01" + bytes(6) + (3).to_bytes(2, "big") + h.to_bytes(4, "big") + w.to_bytes(4, "big") \
+            + (7).to_bytes(2, "big") + (3).to_bytes(2, "big") + body
     if form in P13_SMALL:
         w, h = min(w, 160), min(h, 160)
     img = raw_image(seed, w, h)
@@ -7390,7 +7746,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     src_data/<dataset>/, images under mbeir_images/<dataset>_images/ named as the source names them and
     written in P13_FORMS' forms at the sources' sizes times `side` (COCO's 640 x 480 and 500 x 375 kinds, up
     to 1600 px for OVEN / InfoSeek), by `pool`'s workers if given.  MSCOCO also holds a missing image, a
-    truncated JPEG, an HTML page under a .jpg name and (with `refused`) a QOI file under a .png name.  Returns
+    truncated JPEG, an HTML page under a .jpg name and (with `refused`) a PSD file under a .png name.  Returns
     {"images": {path: form}, "truncated": path, "garbage": path, "refused": path or None, "captions": [every
     caption and question]}."""
     counts = {**P13_COUNTS, **(counts or {})}
@@ -7430,7 +7786,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
         if i % 9 == 1:
             caps[2] = caps[1]  # a repeated caption: the pool holds it once
         coco[split].append({"image": name, "caption": caps if i % 11 else caps[0], "image_id": i})
-        form = {8: "truncated", 10: "qoi" if refused else None, 13: "garbage"}.get(i)
+        form = {8: "truncated", 10: "psd" if refused else None, 13: "garbage"}.get(i)
         if i != 5:  # image 5 is missing
             image(f"mbeir_images/mscoco_images/{name}", photo(), form)
         if form:
@@ -7583,7 +7939,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     else:
         list(pool.map(write_raw_file, jobs, chunksize=4))
     return {"images": {p: form for p, form, *_ in jobs}, "truncated": special["truncated"],
-            "garbage": special["garbage"], "refused": special.get("qoi"), "captions": texts}
+            "garbage": special["garbage"], "refused": special.get("psd"), "captions": texts}
 
 
 P13_GENERATOR_FLAGS = ("--generate_union_train_cand_pool", "--generate_union_all_cand_pool", "--unify_train_data",
@@ -7799,7 +8155,7 @@ def drive_construction(results: dict, smi: str) -> None:
               "files and one left in place")
         in_cli = {k: Path(raw[k].replace(str(root / "raw"), str(root / "cli"))) for k in ("truncated", "garbage", "refused")}
         check(not in_cli["truncated"].exists() and not in_cli["garbage"].exists() and in_cli["refused"].exists(),
-              "phase 13: the truncated JPEG and the HTML page must be deleted and the QOI file left in place")
+              "phase 13: the truncated JPEG and the HTML page must be deleted and the PSD file left in place")
 
         # the rates, alone on the host: one process stage by stage over a seeded sample of the raw images, then
         # the pass's pool over all of them in a process of its own (as a CLI runs it: the pool's workers import
@@ -7960,7 +8316,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
     names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif", "webp",
-             "tiff", "jpeg_encode")
+             "tiff", "jpeg_encode", "raster")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)

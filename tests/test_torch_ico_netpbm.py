@@ -199,8 +199,8 @@ def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
         (tmp_path / name).write_bytes(data)
         np.testing.assert_array_equal(jpeg.read_image(str(tmp_path / name), "cpu"), pillow(data))
     assert [jpeg.image_format(d) for d in files.values()] == ["ico", "cur", "netpbm"]
-    (tmp_path / "q.png").write_bytes(b"qoif" + bytes(20))
-    with pytest.raises(jpeg.UnsupportedImageFormat, match="QOI image"):
+    (tmp_path / "q.png").write_bytes(b"8BPS" + bytes(20))
+    with pytest.raises(jpeg.UnsupportedImageFormat, match="PSD image"):
         jpeg.read_image(str(tmp_path / "q.png"), "cpu")
     for corrupt in (files["a.ico"][:30], b"P6 2 1 255\n\x00", b"", b"\xff\xd8\xff\xdb"):
         (tmp_path / "x.jpg").write_bytes(corrupt)
@@ -210,14 +210,10 @@ def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
     assert ico.ICO_SIGNATURE == b"\0\0\1\0" and netpbm.accepts(b"Pf")
 
 
-# (Pillow's save format, mode, the port's name for it): formats Image.open reads that the port does not decode;
-# TGA has no signature, and an uncompressed RGB one starts as a cursor does
-PILLOW_WRITTEN_REFUSED = [("TGA", "RGB", "TGA"), ("TGA", "L", "TGA"), ("TGA", "P", "TGA"), ("TGA", "1", "TGA"),
-                          ("TGA", "RGBA", "TGA"), ("IM", "RGB", "IM"), ("IM", "L", "IM"), ("SPIDER", "F", "SPIDER"),
-                          ("PCX", "RGB", "PCX"), ("SGI", "RGB", "SGI"), ("DIB", "RGB", "DIB"), ("MSP", "1", "MSP"),
-                          ("XBM", "1", "XBM"), ("EPS", "RGB", "EPS"), ("ICNS", "RGB", "ICNS"), ("DDS", "RGB", "DDS"),
-                          ("QOI", "RGB", "QOI"), ("JPEG2000", "RGB", "JPEG 2000")]
-PILLOW_WRITTEN_REFUSED += [("TGA", mode, "TGA", {"compression": "tga_rle"}) for mode in ("RGB", "L", "P")]
+# (Pillow's save format, mode, the port's name for it): formats Image.open reads that the port does not decode
+# (TGA, IM, PCX, SGI, DIB, MSP, XBM and QOI are decoded now: their cases are in tests/test_torch_raster_formats.py)
+PILLOW_WRITTEN_REFUSED = [("SPIDER", "F", "SPIDER"), ("EPS", "RGB", "EPS"), ("ICNS", "RGB", "ICNS"),
+                          ("DDS", "RGB", "DDS"), ("JPEG2000", "RGB", "JPEG 2000")]
 
 
 @pytest.mark.parametrize("case", PILLOW_WRITTEN_REFUSED,
@@ -264,13 +260,13 @@ def test_data_no_reader_identifies_is_corrupt(name):
 
 
 # Pillow 12.1's openers -> the port's name for each: decoded, or named in `jpeg._REFUSED`
-PILLOW_OPENERS = {"AVIF": "AVIF", "BLP": "BLP", "BMP": "bmp", "DIB": "DIB", "BUFR": "BUFR", "CUR": "cur",
-                  "PCX": "PCX", "DCX": "DCX", "DDS": "DDS", "EPS": "EPS", "FITS": "FITS", "FLI": "FLI",
+PILLOW_OPENERS = {"AVIF": "AVIF", "BLP": "BLP", "BMP": "bmp", "DIB": "dib", "BUFR": "BUFR", "CUR": "cur",
+                  "PCX": "pcx", "DCX": "dcx", "DDS": "DDS", "EPS": "EPS", "FITS": "FITS", "FLI": "FLI",
                   "FTEX": "FTEX", "GBR": "GBR", "GIF": "gif", "GRIB": "GRIB", "HDF5": "HDF5", "PNG": "png",
-                  "JPEG2000": "JPEG 2000", "ICNS": "ICNS", "ICO": "ico", "IM": "IM", "IMT": "IMT", "IPTC": "IPTC",
-                  "JPEG": "jpeg", "MCIDAS": "McIdas", "MPEG": "MPEG", "TIFF": "tiff", "MSP": "MSP", "PCD": "PCD",
-                  "PIXAR": "PIXAR", "PPM": "netpbm", "PSD": "PSD", "QOI": "QOI", "SGI": "SGI", "SPIDER": "SPIDER",
-                  "SUN": "Sun raster", "TGA": "TGA", "WEBP": "webp", "WMF": "WMF", "XBM": "XBM", "XPM": "XPM",
+                  "JPEG2000": "JPEG 2000", "ICNS": "ICNS", "ICO": "ico", "IM": "im", "IMT": "IMT", "IPTC": "IPTC",
+                  "JPEG": "jpeg", "MCIDAS": "McIdas", "MPEG": "MPEG", "TIFF": "tiff", "MSP": "msp", "PCD": "PCD",
+                  "PIXAR": "PIXAR", "PPM": "netpbm", "PSD": "PSD", "QOI": "qoi", "SGI": "sgi", "SPIDER": "SPIDER",
+                  "SUN": "sun", "TGA": "tga", "WEBP": "webp", "WMF": "WMF", "XBM": "xbm", "XPM": "xpm",
                   "XVTHUMB": "XVThumb"}
 
 
@@ -281,5 +277,6 @@ def test_every_format_pillow_identifies_is_decoded_or_named():
 
     Image.init()
     assert set(Image.ID) <= set(PILLOW_OPENERS), sorted(set(Image.ID) - set(PILLOW_OPENERS))
-    decoded = {"jpeg", "png", "gif", "bmp", "webp", "tiff", "ico", "cur", "netpbm"}
+    decoded = {"jpeg", "png", "gif", "bmp", "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "im", "msp",
+               "qoi", "sgi", "sun", "tga", "xbm", "xpm"}
     assert set(PILLOW_OPENERS.values()) == {label for _, label in jpeg._REFUSED} | decoded

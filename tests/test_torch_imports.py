@@ -55,6 +55,16 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.vp8l",
     "uniir_tpu_torch.data.webp",
     "uniir_tpu_torch.data.tiff",
+    "uniir_tpu_torch.data.raster",
+    "uniir_tpu_torch.data.qoi",
+    "uniir_tpu_torch.data.tga",
+    "uniir_tpu_torch.data.sgi",
+    "uniir_tpu_torch.data.pcx",
+    "uniir_tpu_torch.data.sun",
+    "uniir_tpu_torch.data.msp",
+    "uniir_tpu_torch.data.xbm",
+    "uniir_tpu_torch.data.xpm",
+    "uniir_tpu_torch.data.im",
     "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",

@@ -261,11 +261,11 @@ def test_native_in_threads_and_refusals(native):
             native(data, "f.png")
 
 
+# QOI, SGI, PCX, Sun raster, XBM and XPM are decoded now: their cases are in tests/test_torch_raster_formats.py
 REFUSED_FORMATS = {
     "AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00", "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00",
-    "PSD": b"8BPS\x00\x01", "QOI": b"qoif\x00\x00\x00\x04", "SGI": b"\x01\xda\x00\x01", "PCX": b"\x0a\x05\x01\x08",
-    "DDS": b"DDS \x7c\x00\x00\x00", "ICNS": b"icns\x00\x00", "BLP": b"BLP2\x01", "Sun raster": b"\x59\xa6\x6a\x95",
-    "EPS": b"%!PS-Adobe-3.0", "XBM": b"#define im_width 8", "XPM": b"/* XPM */\n", "HDF5": b"\x89HDF\r\n",
+    "PSD": b"8BPS\x00\x01", "DDS": b"DDS \x7c\x00\x00\x00", "ICNS": b"icns\x00\x00", "BLP": b"BLP2\x01",
+    "EPS": b"%!PS-Adobe-3.0", "HDF5": b"\x89HDF\r\n",
 }
 
 
@@ -273,7 +273,8 @@ REFUSED_FORMATS = {
 def test_formats_pillow_reads_and_the_port_does_not_are_named(tmp_path, name):
     """A file of a format Pillow's Image.open reads and the port does not decode raises
     UnsupportedImageFormat naming the format (ROADMAP Queue 3), not "unknown"; ICO, CUR and PPM are
-    decoded now (tests/test_torch_ico_netpbm.py)."""
+    decoded now (tests/test_torch_ico_netpbm.py), and DIB, QOI, TGA, SGI, PCX / DCX, Sun raster, MSP, XBM,
+    XPM and IM (tests/test_torch_raster_formats.py)."""
     data = REFUSED_FORMATS[name] + bytes(64)
     assert jpeg.image_format(data) == name
     path = tmp_path / "x.jpg"

@@ -149,9 +149,9 @@ def test_generator_matches_jax(built, tmp_path):
 
 
 def small_tree(root: Path) -> dict:
-    """An image directory of three files: a baseline JPEG, a truncated one and a QOI file named .png."""
+    """An image directory of three files: a baseline JPEG, a truncated one and a PSD file named .png."""
     files = {"ok.jpg": chip_smoke.raw_file("jpeg", 1, 40, 30), "cut.jpg": chip_smoke.raw_file("truncated", 2, 40, 30),
-             "odd.png": chip_smoke.raw_file("qoi", 3, 40, 30)}
+             "odd.png": chip_smoke.raw_file("psd", 3, 40, 30)}
     for name, data in files.items():
         (root / "images").mkdir(parents=True, exist_ok=True)
         (root / "images" / name).write_bytes(data)
@@ -159,7 +159,8 @@ def small_tree(root: Path) -> dict:
 
 
 def test_a_format_not_decoded_yet_is_left_in_place_and_counted(tmp_path, capfd):
-    """The JAX pass deletes a QOI file Pillow reads and the port does not; the port leaves it and names it."""
+    """The JAX pass deletes a PSD file Pillow cannot read; the port, which does not decode PSD yet, leaves it
+    and names it."""
     from uniir_tpu.data.preprocessing import io_utils as jax_io
     from uniir_tpu_torch.data.preprocessing import io_utils as port_io
 
@@ -174,6 +175,47 @@ def test_a_format_not_decoded_yet_is_left_in_place_and_counted(tmp_path, capfd):
     out = capfd.readouterr().out
     assert f"Unsupported image format, left in place: {tmp_path / 'port/images/odd.png'}" in out
     assert "Number of files left in place (format not decoded yet): 1" in out
+
+
+def raster_tree(root: Path) -> dict:
+    """An image directory of one file of each raster format the raw trees do not hold (DIB, QOI, TGA, SGI, PCX,
+    DCX, Sun raster, MSP, XBM, XPM, IM), each under a name the pass picks up, and a TGA cut short."""
+    img = chip_smoke.raw_image(5, 40, 30)
+    grey = img.mean(axis=2).astype(np.uint8)
+    bits = np.packbits(grey > 127, axis=1, bitorder="little")
+    xbm = (b"#define im_width 40\n#define im_height 30\nstatic char im_bits[] = {\n"
+           + b",".join(b"0x%02x" % v for v in bits.ravel()) + b"\n};\n")
+    keys = [bytes([c]) for c in b"abcdefgh"]
+    level = (grey >> 5).astype(np.int64)
+    xpm = b"\n".join([b"/* XPM */", b"static char *x[] = {", b'"40 30 8 1",']
+                     + [b'"%s c #%02x%02x%02x",' % (k, 32 * i, 255 - 32 * i, 17 * i) for i, k in enumerate(keys)]
+                     + [b'"' + b"".join(keys[v] for v in row) + b'",' for row in level] + [b"};"]) + b"\n"
+    im = b"Image type: RGB image\r\nImage size (x*y): 40*30\r\n\x1a" \
+        + np.ascontiguousarray(img[::-1].transpose(0, 2, 1)).tobytes()
+    files = {"dib.png": chip_smoke.bmp_bytes(img, 24)[14:], "qoi.png": chip_smoke.qoi_bytes(img),
+             "tga.jpg": chip_smoke.tga_bytes(img), "sgi.png": chip_smoke.sgi_bytes(img),
+             "pcx.png": chip_smoke.pcx_bytes(img), "dcx.png": chip_smoke.dcx_bytes([chip_smoke.pcx_bytes(img)]),
+             "sun.png": chip_smoke.sun_bytes(img), "msp.png": chip_smoke.msp_bytes(grey > 127),
+             "xbm.png": xbm, "xpm.png": xpm, "im.png": im, "cut.png": chip_smoke.tga_bytes(img)[:900]}
+    for name, data in files.items():
+        (root / "images").mkdir(parents=True, exist_ok=True)
+        (root / "images" / name).write_bytes(data)
+    return files
+
+
+def test_image_pass_on_the_raster_formats_writes_what_jax_writes(tmp_path):
+    """One file of each of the raster formats through both image passes: every JPEG the JAX pass writes, byte
+    for byte, the sources deleted on both sides, and the TGA cut short deleted and counted on both."""
+    from uniir_tpu.data.preprocessing import io_utils as jax_io
+    from uniir_tpu_torch.data.preprocessing import io_utils as port_io
+
+    for side, io_utils in (("jax", jax_io), ("port", port_io)):
+        raster_tree(tmp_path / side)
+        kw = {"device": "cpu"} if side == "port" else {}
+        assert io_utils.parallel_process_image_directory(str(tmp_path / side / "images"), 2, **kw) == 1
+    names = sorted(os.listdir(tmp_path / "jax" / "images"))
+    assert names == sorted(f"{name.split('.')[0]}.jpg" for name in raster_tree(tmp_path / "names") if name != "cut.png")
+    assert tree_files(tmp_path / "port") == tree_files(tmp_path / "jax")
 
 
 def test_a_failed_native_build_raises_and_deletes_nothing(tmp_path, monkeypatch):
@@ -250,11 +292,11 @@ def test_webqa_images_written_as_pillow_writes_them(tmp_path):
     assert port_decode(str(tmp_path / "imgs.tsv"), str(tmp_path / "imgs.lineidx"), str(tmp_path / "port"),
                        "cpu") == len(blobs)
     assert tree_files(tmp_path / "port") == tree_files(tmp_path / "jax")
-    qoi = chip_smoke.raw_file("qoi", 1, 8, 8)
-    (tmp_path / "imgs.tsv").write_bytes(b"7\t" + base64.b64encode(qoi) + b"\n")
+    psd = chip_smoke.raw_file("psd", 1, 8, 8)
+    (tmp_path / "imgs.tsv").write_bytes(b"7\t" + base64.b64encode(psd) + b"\n")
     (tmp_path / "imgs.lineidx").write_text("0\n")
     port_decode(str(tmp_path / "imgs.tsv"), str(tmp_path / "imgs.lineidx"), str(tmp_path / "refused"), "cpu")
-    assert (tmp_path / "refused/7.jpg").read_bytes() == qoi
+    assert (tmp_path / "refused/7.jpg").read_bytes() == psd
 
 
 def test_resize_sizes_and_comment_carried(tmp_path):

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`,
-`csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu` and `csrc/tiff.cu`, and the host
-JPEG encoder `csrc/jpeg_encode.cu`) at first use and load them with ctypes.
+`csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu`, `csrc/tiff.cu` and
+`csrc/raster.cu`, and the host JPEG encoder `csrc/jpeg_encode.cu`) at first
+use and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -76,6 +77,14 @@ SIGNATURES = {
     },
     "tiff": {
         "uniir_tiff_decode": (_P, _S, _P, _I, _P, _I, _P, _P, _S, _P, _P, _P, _P, _I),
+    },
+    "raster": {
+        "uniir_raster_qoi": (_P, _S, _S, _I, _I, _I, _P, _S, _P, _I),
+        "uniir_raster_tga_rle": (_P, _S, _S, _I, _I, _I, _P, _S, _P, _I),
+        "uniir_raster_sgi_rle": (_P, _S, _I, _I, _I, _I, _P, _S, _P, _I),
+        "uniir_raster_pcx_rle": (_P, _S, _S, _I, _I, _I, _I, _P, _S, _P, _I),
+        "uniir_raster_sun_rle": (_P, _S, _S, _I, _I, _P, _S, _P, _I),
+        "uniir_raster_msp_rle": (_P, _S, _I, _I, _P, _S, _P, _I),
     },
     "webp": {
         "uniir_webp_info": (_P, _S, _P, _P, _I),

@@ -231,3 +231,66 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     if palette is not None:
         return palette[px[:, :, 0]]
     return np.ascontiguousarray(np.repeat(px, 3, axis=2) if px.shape[2] == 1 else px)
+
+
+def dib_geometry(data: bytes, at: int, name: str) -> tuple:
+    """(header size, width, height, bits, top_down, pixel data offset) of the DIB at `at` (a BMP without its
+    file header, alone or in an icon): its data follows the header, a 40-byte header's BI_BITFIELDS masks
+    and the palette, as Pillow's `_bitmap` reads them."""
+    if len(data) < at + 16:
+        raise ValueError(f"{name}: truncated DIB header")
+    header_size = _u32(data, at)
+    if header_size == 12:
+        width, height, bits = _u16(data, at + 4), _u16(data, at + 6), _u16(data, at + 10)
+        compression, colors, padding, top_down = RGB, 0, 3, False
+    elif header_size in (40, 52, 56, 64, 108, 124):
+        if len(data) < at + 36:
+            raise ValueError(f"{name}: truncated DIB header")
+        top_down = data[at + 11] == 0xFF
+        raw_height = _u32(data, at + 8)
+        width, height = _u32(data, at + 4), (2**32 - raw_height) if top_down else raw_height
+        bits, compression, colors, padding = _u16(data, at + 14), _u32(data, at + 16), _u32(data, at + 32), 4
+    else:
+        raise ValueError(f"{name}: unsupported BMP header type ({header_size})")
+    pixels = at + header_size
+    if compression == BITFIELDS and header_size == 40:
+        pixels += 12
+    if bits <= 8:
+        pixels += padding * (colors or (1 << bits))
+    return header_size, width, height, bits, top_down, pixels
+
+
+DIB_HEADER_SIZES = (12, 40, 52, 56, 64, 108, 124)
+
+
+def dib_accepts(data: bytes) -> bool:
+    """DibImageFile's _accept: the first 4 bytes are a header size Pillow reads."""
+    return len(data) >= 4 and _u32(data, 0) in DIB_HEADER_SIZES
+
+
+def dib_opens(data: bytes, at: int = 0, halved: bool = False) -> bool:
+    """Whether Image.open keeps the reader of the DIB at `at` (an image, or an error it raises): not where
+    its header size is cut short, a 40-byte header's BI_BITFIELDS masks are, or the size (with the height
+    halved, as a cursor's is) is 0, where Image.open tries its next reader."""
+    if len(data) < at + 4:
+        return False
+    header_size = _u32(data, at)
+    if header_size not in DIB_HEADER_SIZES or len(data) < at + header_size:
+        return True  # Pillow raises on the header
+    if header_size == 12:
+        width, height = _u16(data, at + 4), _u16(data, at + 6)
+    else:
+        if _u32(data, at + 16) == BITFIELDS and header_size == 40 and len(data) < at + 52:
+            return False
+        raw_height = _u32(data, at + 8)
+        width, height = _u32(data, at + 4), (2**32 - raw_height) if data[at + 11] == 0xFF else raw_height
+    return width > 0 and (height // 2 if halved else height) > 0
+
+
+def decode_dib(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a DIB file (a BMP without its 14-byte file
+    header; Pillow's `DibImageFile`), decoded by `decode` behind a file header that points at its pixels."""
+    data = bytes(data)
+    pixels = min(14 + dib_geometry(data, 0, name)[5], 2**32 - 1)  # past 4 bytes only with a palette decode refuses
+    head = SIGNATURE + (14 + len(data)).to_bytes(4, "little") + bytes(4) + pixels.to_bytes(4, "little")
+    return decode(head + data, name)

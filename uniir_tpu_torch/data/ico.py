@@ -53,35 +53,9 @@ def _entries(data: bytes, name: str) -> list:
     return out
 
 
-def _dib_geometry(data: bytes, at: int, name: str) -> tuple:
-    """(header size, width, height, bits, top_down, pixel data offset) of the DIB at `at`: its data follows
-    the header, a 40-byte header's BI_BITFIELDS masks and the palette, as Pillow's `_bitmap` reads them."""
-    if len(data) < at + 16:
-        raise ValueError(f"{name}: truncated DIB header")
-    header_size = _u32(data, at)
-    if header_size == 12:
-        width, height, bits = _u16(data, at + 4), _u16(data, at + 6), _u16(data, at + 10)
-        compression, colors, padding, top_down = bmp.RGB, 0, 3, False
-    elif header_size in (40, 52, 56, 64, 108, 124):
-        if len(data) < at + 36:
-            raise ValueError(f"{name}: truncated DIB header")
-        top_down = data[at + 11] == 0xFF
-        raw_height = _u32(data, at + 8)
-        width, height = _u32(data, at + 4), (2**32 - raw_height) if top_down else raw_height
-        bits, compression, colors, padding = _u16(data, at + 14), _u32(data, at + 16), _u32(data, at + 32), 4
-    else:
-        raise ValueError(f"{name}: unsupported BMP header type ({header_size})")
-    pixels = at + header_size
-    if compression == bmp.BITFIELDS and header_size == 40:
-        pixels += 12
-    if bits <= 8:
-        pixels += padding * (colors or (1 << bits))
-    return header_size, width, height, bits, top_down, pixels
-
-
 def _dib(data: bytes, at: int, name: str) -> tuple:
     """RGB [h / 2, w, 3] of the DIB at `at` (a BMP file built around it for `bmp.decode`) and its geometry."""
-    header_size, width, height, bits, top_down, pixels = _dib_geometry(data, at, name)
+    header_size, width, height, bits, top_down, pixels = bmp.dib_geometry(data, at, name)
     if width * height > bmp.MAX_PIXELS:
         raise ValueError(f"{name}: DIB of size {width} x {height} (decompression bomb)")
     half = height // 2
@@ -92,6 +66,29 @@ def _dib(data: bytes, at: int, name: str) -> tuple:
     offset = 14 + pixels - at
     head = bmp.SIGNATURE + (14 + len(dib)).to_bytes(4, "little") + bytes(4) + offset.to_bytes(4, "little")
     return bmp.decode(head + bytes(dib), name), (width, half, pixels)
+
+
+def ico_opens(data: bytes) -> bool:
+    """Whether Image.open keeps its ICO reader for an icon of one or more entries: not where an entry of the
+    directory is cut short (Pillow's IcoFile indexes past it, and Image.open tries its next reader)."""
+    return len(data) >= 6 + 16 * _u16(data, 4)
+
+
+def cur_opens(data: bytes) -> bool:
+    """Whether Image.open keeps its CUR reader for a cursor of one or more entries: CurImageFile._open picks
+    an entry by indexing each one as read, cut short or not, then reads a DIB header at its offset; where that
+    indexing, the offset or the DIB's header falls short (or its halved height is 0) Image.open tries its
+    next reader."""
+    best = b""
+    for k in range(_u16(data, 4)):
+        e = data[6 + 16 * k : 22 + 16 * k]
+        if not best:
+            best = e
+        elif len(e) < 1 or e[0] > best[0] and (len(e) < 2 or len(best) < 2):
+            return False
+        elif e[0] > best[0] and e[1] > best[1]:
+            best = e
+    return len(best) >= 16 and bmp.dib_opens(data, _u32(best, 12), halved=True)
 
 
 def _largest(entries: list) -> tuple:

@@ -93,6 +93,7 @@ over from a JPEG, GIF or PNG source.
 from __future__ import annotations
 
 import ctypes
+import io
 import re
 import struct
 import threading
@@ -100,7 +101,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-from uniir_tpu_torch.data import bmp, gif, ico, netpbm, png, tiff, webp
+from uniir_tpu_torch.data import bmp, gif, ico, im, msp, netpbm, pcx, png, qoi, raster, sgi, sun, tga, tiff
+from uniir_tpu_torch.data import webp, xbm, xpm
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -1214,6 +1216,59 @@ def _imt(d: bytes) -> bool:
     return size.get(b"width", 0) > 0 and size.get(b"height", 0) > 0 and size[b"pixel"]
 
 
+def _gbr(d: bytes) -> bool:
+    """GbrImagePlugin's _accept and the header tests of its _open: a header of 20 bytes or more, version 1 or
+    2 (2 with the GIMP magic), a size of no zero and 1 or 4 bytes a pixel."""
+    if len(d) < 20:
+        return False
+    header, version, width, height, depth = (int.from_bytes(d[k : k + 4], "big") for k in range(0, 20, 4))
+    return (header >= 20 and version in (1, 2) and width != 0 and height != 0 and depth in (1, 4)
+            and (version == 1 or d[20:24] == b"GIMP" and len(d) >= 28))
+
+
+def _iptc(d: bytes) -> bool:
+    """IptcImageFile._open (it has no _accept), run on the bytes: its fields up to (8, 10), then the mode,
+    size and compression fields it needs; True where it opens the file or raises what Image.open raises."""
+    fp, info = io.BytesIO(d), {}
+
+    def number(c: bytes) -> int:
+        return int.from_bytes((bytes(4) + c)[-4:], "big")
+
+    def field() -> tuple:
+        s = fp.read(5)
+        if not s.strip(b"\x00"):
+            return None, 0
+        if s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
+            raise SyntaxError("invalid IPTC/NAA file")
+        tag, size = (s[1], s[2]), s[3]
+        if size > 132:
+            raise OSError("illegal field length in IPTC/NAA file")
+        size = 0 if size == 128 else number(fp.read(size - 128)) if size > 128 else struct.unpack_from(">H", s, 3)[0]
+        return tag, size
+
+    try:
+        while True:
+            tag, size = field()
+            if not tag or tag == (8, 10):
+                break
+            data = fp.read(size) if size else None
+            old = info.get(tag, ...)
+            info[tag] = data if old is ... else old + [data] if isinstance(old, list) else [old, data]
+        layers, component = info[(3, 60)][0], info[(3, 60)][1]
+        mode = "L" if layers == 1 and not component else "RGB" if layers == 3 and component else \
+            "CMYK" if layers == 4 and component else ""
+        if mode != "L" and (3, 65) in info:
+            _ = info[(3, 65)][0] - 1  # the band Pillow reads: a field it cannot read passes the file on
+        size = number(info[(3, 20)]), number(info[(3, 30)])
+        if (3, 120) not in info or number(info[(3, 120)]) not in (1, 5):
+            return True  # "Unknown IPTC image compression": Image.open raises
+    except (SyntaxError, IndexError, TypeError, KeyError, EOFError, struct.error):
+        return False
+    except OSError:
+        return True
+    return bool(mode) and size[0] > 0 and size[1] > 0
+
+
 def _spider(d: bytes) -> bool:
     """SpiderImagePlugin's header: 27 floats, big- or little-endian, whose counts are whole and agree, of a
     2D image (iform 1)."""
@@ -1227,54 +1282,69 @@ def _spider(d: bytes) -> bool:
     return False
 
 
-def _tga(d: bytes) -> bool:
-    """TgaImagePlugin's header fields: a colour map type of 0 or 1, a width and a height above 0, a depth
-    of 1, 8, 16, 24 or 32 and an image type it reads."""
-    return (len(d) >= 18 and d[1] in (0, 1) and d[12] | d[13] << 8 > 0 and d[14] | d[15] << 8 > 0
-            and d[16] in (1, 8, 16, 24, 32) and d[2] in (1, 2, 3, 9, 10, 11))
-
-
-# every other format Pillow 12.1's Image.open identifies: each plugin's _accept test of the file's first bytes
-# or, for the six with none (IM, IMT, IPTC, PCD, SPIDER, TGA), the header test its _open makes (a wider one
-# where Pillow reads further); BUFR, GRIB, HDF5, MPEG and WMF are stubs that Image.open names and cannot load.
-# A file none of these name is one Image.open cannot identify: the decoders call it corrupt, as Pillow does.
+# the formats Pillow 12.1's Image.open identifies that the port does not decode yet (ROADMAP Queue 3): each
+# plugin's _accept test of the file's first bytes or, for the four with none (IMT, IPTC, PCD, SPIDER), the
+# header test its _open makes (a wider one where Pillow reads further); BUFR, GRIB, HDF5, MPEG and WMF are stubs
+# that Image.open names and cannot load.  A file none of Image.open's readers takes is one it cannot identify:
+# the decoders call it corrupt, as Pillow does.
 _REFUSED = (
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
     (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
-    (lambda d: d[:4] in (b"\x0c\0\0\0", b"\x28\0\0\0", b"\x34\0\0\0", b"\x38\0\0\0", b"\x40\0\0\0",
-                          b"\x6c\0\0\0", b"\x7c\0\0\0"), "DIB"),
     (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
-    (lambda d: len(d) > 1 and d[0] == 10 and d[1] in (0, 2, 3, 5), "PCX"),
-    (lambda d: d[:4] == b"\xb1\x68\xde\x3a", "DCX"),
     (lambda d: d[:4] == b"DDS ", "DDS"),
     (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
     (lambda d: d[:6] == b"SIMPLE", "FITS"),
     (lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf") and d[14:16] in (b"\0\0", b"\3\0"), "FLI"),
     (lambda d: d[:4] == b"FTEX", "FTEX"),
-    (lambda d: len(d) >= 8 and int.from_bytes(d[:4], "big") >= 20 and d[4:8] in (b"\0\0\0\1", b"\0\0\0\2"), "GBR"),
+    (_gbr, "GBR"),
     (lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "GRIB"),
     (lambda d: d[:4] == b"\x89HDF", "HDF5"),
     (lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
     (lambda d: d[:4] == b"icns", "ICNS"),
-    (lambda d: b"\n" in d[:100] and b"\x1a" in d and re.match(rb"[A-Za-z][^:\n]*:", d) is not None, "IM"),
     (_imt, "IMT"),
-    (lambda d: len(d) > 1 and d[0] == 0x1C and d[1] in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240), "IPTC"),
+    (_iptc, "IPTC"),
     (lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", "McIdas"),
     (lambda d: d[:4] == b"\x00\x00\x01\xb3", "MPEG"),
-    (lambda d: d[:4] in (b"DanM", b"LinS"), "MSP"),
     (lambda d: d[2048:2052] == b"PCD_", "PCD"),
     (lambda d: d[:4] == b"\x80\xe8\x00\x00", "PIXAR"),
     (lambda d: d[:4] == b"8BPS", "PSD"),
-    (lambda d: d[:4] == b"qoif", "QOI"),
-    (lambda d: d[:2] == b"\x01\xda", "SGI"),
     (_spider, "SPIDER"),
-    (lambda d: d[:4] == b"\x59\xa6\x6a\x95", "Sun raster"),
-    (_tga, "TGA"),
     (lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or d[:4] == b"\x01\x00\x00\x00", "WMF"),
-    (lambda d: d.lstrip()[:7] == b"#define", "XBM"),
-    (lambda d: d[:9] == b"/* XPM */", "XPM"),
     (lambda d: d[:6] == b"P7 332", "XVThumb"),
 )
+
+
+# the readers after Pillow's first six (BMP, DIB, GIF, JPEG, PPM, PNG), in Image.ID's order: the refused formats
+# and the ones decoded here (WebP, TIFF and ICO / CUR are tested before them: no reader before theirs takes
+# their signatures)
+_ORDER = ("AVIF", "BLP", "BUFR", "pcx", "dcx", "DDS", "EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5",
+          "JPEG 2000", "ICNS", "im", "IMT", "IPTC", "McIdas", "MPEG", "msp", "PCD", "PIXAR", "PSD", "qoi", "sgi",
+          "SPIDER", "sun", "tga", "WMF", "xbm", "xpm", "XVThumb")
+_DECODED = {
+    "pcx": (pcx.accepts, pcx.parse),
+    "dcx": (pcx.dcx_accepts, lambda d: pcx.parse(d, at=pcx.dcx_first_page(d))),
+    "im": (im.accepts, im.parse), "msp": (msp.accepts, msp.parse), "qoi": (qoi.accepts, qoi.parse),
+    "sgi": (sgi.accepts, sgi.parse), "sun": (sun.accepts, sun.parse), "tga": (tga.accepts, tga.parse),
+    "xbm": (xbm.accepts, xbm.parse), "xpm": (xpm.accepts, xpm.parse),
+}
+
+
+def _takes(kind: str, d: bytes) -> bool:
+    """Whether Image.open keeps the reader of `kind` for `d`: its _accept takes the bytes, and its `_open`
+    keeps the file (an image, or an error Image.open raises) rather than raising what makes Image.open try
+    its next reader."""
+    if kind not in _DECODED:
+        return next(test for test, label in _REFUSED if label == kind)(d)
+    accepts, parse = _DECODED[kind]
+    if not accepts(d):
+        return False
+    try:
+        parse(d)
+    except raster.NotThisFormat:
+        return False
+    except ValueError:
+        pass
+    return True
 
 
 _SKIPPED = {0xC4, 0xCC, 0xDA, 0xDC, 0xDD, 0xDF}  # DHT, DAC, SOS, DNL, DRI, EXP: a length and bytes
@@ -1437,8 +1507,9 @@ class UnsupportedImageFormat(ValueError):
 
 
 def image_format(data: bytes) -> str:
-    """The format a file's first bytes name: "jpeg", "png", "gif", "bmp", "webp", "tiff", "ico", "cur",
-    "netpbm", or the name of another format Pillow's Image.open identifies ("AVIF", "PSD", "TGA", ...), or
+    """The format a file's first bytes name, as Image.open tries its readers: "jpeg", "png", "gif", "bmp",
+    "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "im", "msp", "qoi", "sgi", "sun", "tga",
+    "xbm", "xpm", or the name of another format Pillow's Image.open identifies ("AVIF", "PSD", ...), or
     "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
@@ -1448,41 +1519,52 @@ def image_format(data: bytes) -> str:
         return "gif"
     if data[:2] == bmp.SIGNATURE:
         return "bmp"
+    if bmp.dib_accepts(data) and bmp.dib_opens(data):
+        return "dib"
     if webp.accepts(data):
         return "webp"
     if tiff.accepts(data):
         return "tiff"
-    if data[:4] in (ico.ICO_SIGNATURE, ico.CUR_SIGNATURE) and data[4:6] != b"\0\0":  # Pillow tries the next
-        return "ico" if data[:4] == ico.ICO_SIGNATURE else "cur"  # reader on an icon of no entries (a TGA file)
+    # Pillow tries the next reader on an icon of no entries (a TGA file), or one cut short before its count
+    if data[:4] == ico.ICO_SIGNATURE and len(data) >= 6 and data[4:6] != b"\0\0" and ico.ico_opens(data):
+        return "ico"
+    if data[:4] == ico.CUR_SIGNATURE and len(data) >= 6 and data[4:6] != b"\0\0" and ico.cur_opens(data):
+        return "cur"
     if netpbm.accepts(data):
         return "netpbm"
-    return next((label for accepts, label in _REFUSED if accepts(data)), "unknown")
+    return next((kind for kind in _ORDER if _takes(kind, data)), "unknown")
+
+
+DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, IM, MSP, QOI, SGI, Sun raster, "
+           "TGA, XBM and XPM")
 
 
 def decode_image(data: bytes, name: str, device) -> np.ndarray:
-    """uint8 [H, W, 3] of an image file's bytes, told apart by its signature and decoded as a run on `device`
-    decodes (BMP, ICO / CUR's DIBs and Netpbm have one decoder, numpy).  A format the port does not decode
-    raises UnsupportedImageFormat; an empty file or one of no format Image.open identifies, and corrupt data,
-    raise ValueError."""
+    """uint8 [H, W, 3] of an image file's bytes, told apart by its signature (or, for TGA and IM, its
+    header) and decoded as a run on `device` decodes (BMP, DIB, ICO / CUR's DIBs, Netpbm, IM, XBM and XPM
+    have one decoder, numpy).  A format the port does not decode raises UnsupportedImageFormat; an empty
+    file or one of no format Image.open identifies, and corrupt data, raise ValueError."""
     if not data:
         raise ValueError(f"{name}: empty file (cannot identify image file)")
     kind = image_format(data)
     if kind == "jpeg":
         return decoder_for(device)(data, name)
-    if kind in ("png", "gif", "webp", "tiff"):
-        return {"png": png, "gif": gif, "webp": webp, "tiff": tiff}[kind].decoder_for(device)(data, name)
-    if kind == "bmp":
-        return bmp.decode(data, name)
+    if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga"):
+        modules = {"png": png, "gif": gif, "webp": webp, "tiff": tiff, "pcx": pcx, "msp": msp, "qoi": qoi,
+                   "sgi": sgi, "sun": sun, "tga": tga}
+        return modules[kind].decoder_for(device)(data, name)
+    if kind == "dcx":
+        return pcx.dcx_decoder_for(device)(data, name)
+    if kind in ("bmp", "dib", "netpbm", "im", "xbm", "xpm"):
+        return {"bmp": bmp.decode, "dib": bmp.decode_dib, "netpbm": netpbm.decode, "im": im.decode,
+                "xbm": xbm.decode, "xpm": xpm.decode}[kind](data, name)
     if kind == "ico":
         return ico.decode_ico(data, name, device)
     if kind == "cur":
         return ico.decode_cur(data, name)
-    if kind == "netpbm":
-        return netpbm.decode(data, name)
     if kind == "unknown":
         raise ValueError(f"{name}: unknown image (no format's signature or header): cannot identify image file")
-    raise UnsupportedImageFormat(f"{name}: {kind} image (by its signature): only JPEG, PNG, GIF, BMP, WebP, "
-                                 "TIFF, ICO / CUR and Netpbm files are decoded")
+    raise UnsupportedImageFormat(f"{name}: {kind} image (by its signature): only {DECODED} files are decoded")
 
 
 def read_image(path: str, device) -> np.ndarray:
