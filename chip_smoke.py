@@ -8,8 +8,11 @@
    decoder phase) holds the native GIF decoder, the native JPEG decoder's
    CMYK, YCCK and RGB forms and the native WebP decoder bit-equal to their
    twins over 120 seeded files each, sizes 1-600 px (both WebP decoders
-   also to Pillow's digests of seven Pillow-made files), printing their
-   images/s on one thread and on the loader's threads;
+   also to Pillow's digests of seven Pillow-made files), the native PSD
+   (PackBits), DDS (BC1-BC7, the mask form) and ICNS (RLE) stages of
+   csrc/raster.cu and csrc/bcn.cu over 200 seeded files and at 640 x 480
+   (BC7 also at 2048 x 2048), printing their images/s on one thread and on
+   the loader's threads;
 1. checks each kernel against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
    BLIP's L = 197, the `base` configs' shapes (ViT-B/32 vision L = 50 and
@@ -128,8 +131,11 @@
    and sweep, and the upload and sweep again over a 5.6M x 768 host pool),
    held to `search_dense_index` over the same queries embedded through the
    twins, and one request each of one PNG, one GIF, one BMP, one CMYK JPEG,
-   one lossy WebP and one lossless WebP (with alpha) image query (the native
-   PNG / GIF / JPEG / WebP decoders -- BMP has one, numpy --, K1, K2) held
+   one lossy WebP and one lossless WebP (with alpha) image query and one
+   each of a TIFF, an arithmetic JPEG, an RLE TGA, a QOI, a BC7 DDS and a
+   PackBits PSD file (the native PNG / GIF / JPEG / WebP / TIFF decoders and
+   the native stages of csrc/raster.cu and csrc/bcn.cu -- BMP has one
+   decoder, numpy --, K1, K2) held
    the same way to the twins, the twin decoders among them, the GIF / BMP /
    CMYK / WebP queries' embeddings also to the same pixels sent as a
    baseline JPEG (cosine >= 0.999);
@@ -199,7 +205,8 @@
    OVEN: the writer's baseline JPEGs, JPEGs with COM segments, Pillow's
    progressive files, palette PNGs with tRNS, PNGs with a comment, GIFs with
    a comment, lossless WebP, CMYK JPEG, ICO, PPM / PGM; a truncated JPEG, an
-   HTML error page under a .jpg name and a PSD file under a .png name), then each converter's CLI with every step
+   HTML error page under a .jpg name, a PSD file no reader identifies under a
+   .png name and a BLP file under a .jpg name), then each converter's CLI with every step
    (`--enable_image_processing`, the candidate pool, the conversion, the
    training pool) and the union generator's (union pools, the union train
    split, task ids, qrels), each a process of its own on the card's default
@@ -207,8 +214,8 @@
    encoder to Pillow 12.1's digests of a fixed set and every file the CLIs
    wrote (the JPEG files of the image pass, every JSON-lines file) to the
    same mains run in this process through the twins (`--device cpu`), the
-   truncated file and the HTML page deleted, the PSD file left in place and
-   all three counted, each
+   truncated file, the HTML page and the PSD file deleted, the BLP file left in
+   place and all four counted, each
    pass's native decodes and encodes counted in its workers; times the image
    pass on one process by stage (decode, comment, resize, encode, write: the
    encoder's share) and on the pass's pool; then embeds, indexes and
@@ -446,7 +453,8 @@ def decoder_case(job: tuple) -> tuple:
 
     kind, k = job
     rng = np.random.default_rng(SEED + 7000 + k + {"gif": 0, "jpeg": 100_000, "webp": 200_000, "tiff": 300_000,
-                                                   "jpeg_forms": 400_000, "raster": 500_000}[kind])
+                                                   "jpeg_forms": 400_000, "raster": 500_000,
+                                                   "containers": 600_000}[kind])
     w, h = int(rng.integers(1, 601)), int(rng.integers(1, 601))
     if kind in ("webp", "tiff", "jpeg_forms") and k % 4:  # three cases in four log-uniform over 1-600 px: the
         w, h = int(round(600 ** rng.random())), int(round(600 ** rng.random()))  # Python twins are slow at 600
@@ -459,10 +467,12 @@ def decoder_case(job: tuple) -> tuple:
     if kind == "jpeg_forms":
         data = jpeg_form_case(JPEG_FORM_CASE_FORMS[k % len(JPEG_FORM_CASE_FORMS)], rng, w, h)
         return data, hashlib.sha256(jpeg.decode_twin(data).tobytes()).hexdigest()
-    if kind == "raster":  # log-uniform over 1-160 px: the twins are Python loops over the bytes
-        w, h = int(round(160 ** rng.random())), int(round(160 ** rng.random()))
-        data = raster_case(RASTER_CASE_FORMS[k % len(RASTER_CASE_FORMS)], rng, w, h)
-        return data, hashlib.sha256(jpeg.decode_image(data, f"raster case {k}", "cpu").tobytes()).hexdigest()
+    if kind in ("raster", "containers"):  # log-uniform over 1-160 / 200 px: some twins are Python loops over bytes
+        top = 160 if kind == "raster" else 200
+        w, h = int(round(top ** rng.random())), int(round(top ** rng.random()))
+        forms, case = (RASTER_CASE_FORMS, raster_case) if kind == "raster" else (CONTAINER_CASE_FORMS, container_case)
+        data = case(forms[k % len(forms)], rng, w, h)
+        return data, hashlib.sha256(jpeg.decode_image(data, f"{kind} case {k}", "cpu").tobytes()).hexdigest()
     if kind == "gif":
         form = GIF_CASE_FORMS[k % len(GIF_CASE_FORMS)]
         n_colors = int(rng.integers(1, 257))
@@ -502,7 +512,7 @@ def decoder_case(job: tuple) -> tuple:
     return data, hashlib.sha256(twin(data).tobytes()).hexdigest()
 
 
-DECODER_KINDS = ("gif", "jpeg", "webp", "tiff", "jpeg_forms", "raster")
+DECODER_KINDS = ("gif", "jpeg", "webp", "tiff", "jpeg_forms", "raster", "containers")
 # the forms whose bytes csrc/raster.cu decodes: each file goes through one of its entries once
 RASTER_CASE_FORMS = ("qoi_rgb", "qoi_rgba", "tga_rle_rgb", "tga_rle_rgba", "tga_rle_grey", "tga_rle_cmap16",
                      "sgi_rle", "sgi_rle_16", "pcx_rgb", "pcx_palette", "pcx_planar", "dcx", "sun_rle",
@@ -559,6 +569,84 @@ class RasterNative:
 
 RASTER_SIZE = (640, 480)  # COCO's size, at which a Python loop over a file's bytes costs seconds
 
+# the PSD, DDS and ICNS forms: PSD's raw forms are numpy on both paths (no native stage), the others run one
+# entry of csrc/raster.cu (PSD's PackBits, ICNS's RLE) or csrc/bcn.cu (DDS) a file
+CONTAINER_CASE_FORMS = ("psd_rgb_raw", "psd_rgb_rle", "psd_cmyk_raw", "psd_cmyk_rle", "psd_p_raw", "psd_p_rle",
+                        "dds_bc1", "dds_bc3", "dds_bc5", "dds_bc6h", "dds_bc7", "dds_rgb_masks", "icns_rle")
+
+
+def container_case(form: str, rng, w: int, h: int) -> bytes:
+    """A seeded file of `form` (CONTAINER_CASE_FORMS) at w x h (an ICNS file at the RLE size nearest w): PSD
+    planes of samples in runs and noise, with an image resource and a layer section half the time; DDS
+    blocks of seeded bits (`bc_blocks`), or 16 / 24 / 32-bit pixels under seeded masks; ICNS RLE channels
+    and a mask."""
+    img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    img = np.where(rng.random((h, w, 1)) < 0.6, img[:, :1], img)
+    img = np.where(rng.random((h, 1, 1)) < 0.3, img[:1], img).astype(np.uint8)
+    if form.startswith("psd"):
+        _, mode, coding = form.split("_")
+        planes = {"rgb": img[..., :3], "cmyk": img, "p": img[..., :1]}[mode].transpose(2, 0, 1)
+        extra = {}
+        if rng.random() < 0.5:
+            extra = {"resources": psd_resource(1005, b"res", rng.bytes(int(rng.integers(0, 9)))),
+                     "layers": struct.pack(">I", 4) + rng.bytes(4)}
+        palette = rng.bytes(768) if mode == "p" else b""
+        return psd_bytes(np.ascontiguousarray(planes), mode.upper(), compression=int(coding == "rle"),
+                         palette=palette, **extra)
+    if form == "icns_rle":
+        s = min(ICNS_RLE_TYPES, key=lambda t: abs(t - w))
+        plane = np.ascontiguousarray(np.resize(img[..., :3], (s, s, 3)))
+        return icns_bytes(icns_rle_entries(plane, np.ascontiguousarray(np.resize(img[..., 3], (s, s)))))
+    if form == "dds_rgb_masks":
+        bitcount, masks = [(16, (0xF800, 0x7E0, 0x1F, 0)), (24, (0xFF0000, 0xFF00, 0xFF, 0)),
+                           (32, (0xFF, 0xFF00, 0xFF0000, 0xFF000000)),
+                           (32, (0x3FF00000, 0xFFC00, 0x3FF, 0xC0000000))][int(rng.integers(0, 4))]
+        flags = DDS_PF["rgb"] | (DDS_PF["alpha_pixels"] if masks[3] else 0)
+        return dds_bytes(rng.bytes(w * h * bitcount // 8), w, h, flags=flags, bitcount=bitcount, masks=masks)
+    fourcc, dxgi = BC_DDS[form[4:]]
+    return dds_bytes(bc_blocks(form[4:], rng, w, h), w, h, fourcc=fourcc, dxgi=dxgi)
+
+
+def container_native_calls(form: str) -> int:
+    """Native stage calls a decode of a file of `form` makes on a CUDA run."""
+    return 0 if form.endswith("_raw") else 1
+
+
+class ContainerNative:
+    """The native path of CONTAINER_CASE_FORMS' files (`data.jpeg.decode_image` on a CUDA run's host);
+    `calls` counts the calls of PSD's and ICNS's stages of csrc/raster.cu and of csrc/bcn.cu's entries."""
+
+    def __call__(self, data: bytes, name: str = "container") -> np.ndarray:
+        from uniir_tpu_torch.data import jpeg
+
+        return jpeg.decode_image(data, name, "cuda")
+
+    @property
+    def calls(self) -> int:
+        from uniir_tpu_torch.data import dds, raster
+
+        return raster.native_calls["packbits"] + raster.native_calls["icns_rle"] + sum(dds.native_calls.values())
+
+
+# (form, size) of the size check: each form at RASTER_SIZE (ICNS at its largest RLE size, 128 x 128), and BC7
+# at 2048 x 2048, a texture's size
+CONTAINER_SIZES = tuple((form, (128, 128) if form == "icns_rle" else RASTER_SIZE) for form in CONTAINER_CASE_FORMS) \
+    + (("dds_bc7", (2048, 2048)),)
+
+
+def container_size_case(job: tuple) -> tuple:
+    """(file bytes, sha256 of the twin's pixels, the twin's seconds) of CONTAINER_SIZES' (form, size); a
+    worker of the decoder phase's pool."""
+    import hashlib
+
+    from uniir_tpu_torch.data import jpeg
+
+    form, (w, h) = job
+    data = container_case(form, np.random.default_rng(SEED + 8500 + CONTAINER_SIZES.index(job)), w, h)
+    t0 = time.perf_counter()
+    pixels = jpeg.decode_image(data, form, "cpu")
+    return data, hashlib.sha256(pixels.tobytes()).hexdigest(), time.perf_counter() - t0
+
 
 def raster_size_case(form: str) -> tuple:
     """(file bytes, sha256 of the twin's pixels, the twin's seconds) of `form` (RASTER_CASE_FORMS) at
@@ -579,6 +667,7 @@ def start_decoder_cases(pool) -> dict:
     that they are written and decoded while the card checks its kernels; kind -> futures."""
     pending = {kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)] for kind in DECODER_KINDS}
     pending["raster_size"] = [pool.submit(raster_size_case, form) for form in RASTER_CASE_FORMS]
+    pending["container_size"] = [pool.submit(container_size_case, job) for job in CONTAINER_SIZES]
     return pending
 
 
@@ -617,12 +706,50 @@ def check_raster_size(cases: list, threads: int, smi: str) -> None:
         f"Mpixel/s) on the loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
 
 
+def check_container_size(cases: list, smi: str) -> None:
+    """The native PSD / DDS / ICNS stages at CONTAINER_SIZES, one file each: bit-equal to the twin's digest;
+    each one's native time (median of 5) beside its twin's (one decode in the pool, beside other work); all
+    forms' images/s and Mpixel/s at RASTER_SIZE on one thread and on 16."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    native = ContainerNative()
+    for (form, (w, h)), (data, digest, twin_s) in zip(CONTAINER_SIZES, cases):
+        calls = native.calls
+        out = native(data, form)
+        check(native.calls - calls == container_native_calls(form) and out.shape == (h, w, 3) and
+              hashlib.sha256(out.tobytes()).hexdigest() == digest,
+              f"decoder phase: the native {form} decode at {w} x {h} differs from its twin")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            native(data, form)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        log(f"decoder phase: container {form} at {w} x {h} ({len(data)} bytes): native {ms:.3f} ms, twin "
+            f"{twin_s * 1e3:.1f} ms in the pool ({twin_s * 1e3 / ms:.0f} x)")
+    files = [data for (form, size), (data, _, _) in zip(CONTAINER_SIZES, cases) if size == RASTER_SIZE] * 4
+    t0 = time.perf_counter()
+    for data in files:
+        native(data)
+    one = len(files) / (time.perf_counter() - t0)
+    with ThreadPoolExecutor(16) as threads:
+        t0 = time.perf_counter()
+        list(threads.map(native, files))
+        many = len(files) / (time.perf_counter() - t0)
+    w, h = RASTER_SIZE
+    log(f"decoder phase: native containers at {w} x {h}, {len(files) // 4} forms: {one:.1f} images/s "
+        f"({one * w * h / 1e6:.2f} Mpixel/s) on one thread, {many:.1f} images/s ({many * w * h / 1e6:.2f} "
+        f"Mpixel/s) on 16 threads (host CPU {host_cpu()}; card {smi})")
+
+
 def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     """The decoder phase: the native GIF decoder (csrc/gif.cu), the native JPEG decoder's CMYK, YCCK and RGB
     forms and its SOF1, arithmetic, lossless and smoothed forms (csrc/jpeg.cu), the native WebP decoder
     (csrc/webp.cu), the native TIFF decoder (csrc/tiff.cu with the JPEG strips through csrc/jpeg.cu) and the
-    native stages of QOI, TGA, SGI, PCX / DCX, Sun raster and MSP (csrc/raster.cu) held bit-equal to their
-    twins over DECODER_CASES seeded files each, sizes 1-600 px (1-160 for the raster forms;
+    native stages of QOI, TGA, SGI, PCX / DCX, Sun raster, MSP, PSD and ICNS (csrc/raster.cu) and of DDS
+    (csrc/bcn.cu) held bit-equal to their twins over DECODER_CASES seeded files each, sizes 1-600 px (1-160
+    for the raster forms, 1-200 for PSD / DDS / ICNS;
     `start_decoder_cases`' futures, `pending`, submitted at `t_started`), the WebP, TIFF and JPEG-form
     decoders also to Pillow's digests of WEBP_PILLOW_FILES, TIFF_PILLOW_FILES and JPEG_FORM_PILLOW_FILES;
     the native decoders' images/s and Mpixel/s on one thread and
@@ -638,7 +765,8 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     threads = int(load_config(str(REPO / P12_CONFIGS["embed"])).dataloader_config.num_workers)
     cases = {kind: [f.result() for f in futures] for kind, futures in pending.items()}
     log(f"decoder phase: {DECODER_CASES} GIF, JPEG, WebP, TIFF, SOF1 / arithmetic / lossless / smoothed JPEG and "
-        f"QOI / TGA / SGI / PCX / DCX / Sun / MSP files each written and decoded by the twins, {t_phase - t_started:.1f} s after they were started beside "
+        f"QOI / TGA / SGI / PCX / DCX / Sun / MSP and PSD / DDS / ICNS files each written and decoded by the twins, "
+        f"{t_phase - t_started:.1f} s after they were started beside "
         f"the kernel checks, done {time.perf_counter() - t_phase:.1f} s later")
     for files, module, label in ((WEBP_PILLOW_FILES, webp, "WebP"), (TIFF_PILLOW_FILES, tiff, "TIFF"),
                                  (JPEG_FORM_PILLOW_FILES, jpeg, "JPEG-form")):
@@ -651,7 +779,8 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
         log(f"decoder phase: both {label} decoders equal to Pillow's digests on the {len(files)} Pillow-made "
             f"files ({', '.join(files)})")
     for kind, native in (("gif", gif.decode_native), ("jpeg", jpeg.decode_native), ("webp", webp.decode_native),
-                         ("tiff", tiff.decode_native), ("jpeg_forms", jpeg.decode_native), ("raster", RasterNative())):
+                         ("tiff", tiff.decode_native), ("jpeg_forms", jpeg.decode_native), ("raster", RasterNative()),
+                         ("containers", ContainerNative())):
         files = [data for data, _ in cases[kind]]
         calls = native.calls
         t0 = time.perf_counter()
@@ -661,19 +790,22 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
             t0 = time.perf_counter()
             list(loader_threads.map(native, files))
             many = len(files) / (time.perf_counter() - t0)
-        check(native.calls - calls == 2 * len(files), f"decoder phase: the native {kind} decoder counted "
-              f"{native.calls - calls} calls for {2 * len(files)} decodes")
+        forms = {"gif": GIF_CASE_FORMS, "jpeg": sorted({f for f, _ in JPEG_CASE_FORMS}), "webp": WEBP_CASE_FORMS,
+                 "tiff": tuple(TIFF_CASE_FORMS), "jpeg_forms": JPEG_FORM_CASE_FORMS, "raster": RASTER_CASE_FORMS,
+                 "containers": CONTAINER_CASE_FORMS}[kind]
+        want = 2 * (sum(container_native_calls(forms[k % len(forms)]) for k in range(len(files)))
+                     if kind == "containers" else len(files))
+        check(native.calls - calls == want, f"decoder phase: the native {kind} decoder counted "
+              f"{native.calls - calls} calls for {want} native decodes")
         differ = [k for k, ((_, digest), out) in enumerate(zip(cases[kind], outs))
                   if hashlib.sha256(out.tobytes()).hexdigest() != digest]
         check(not differ, f"decoder phase: the native {kind} decoder differs from its twin on cases {differ[:5]}")
         pixels = sum(out.shape[0] * out.shape[1] for out in outs)
-        forms = {"gif": GIF_CASE_FORMS, "jpeg": sorted({f for f, _ in JPEG_CASE_FORMS}), "webp": WEBP_CASE_FORMS,
-                 "tiff": tuple(TIFF_CASE_FORMS), "jpeg_forms": JPEG_FORM_CASE_FORMS, "raster": RASTER_CASE_FORMS}[kind]
         log(f"decoder phase: native {kind} bit-equal to its twin on {len(files)} files ({', '.join(forms)}; "
             f"{pixels / len(files):.0f} pixels a file on average); {one_thread:.1f} images/s "
             f"({pixels * one_thread / len(files) / 1e6:.2f} Mpixel/s) on one thread, {many:.1f} images/s on the "
             f"loader's {threads} threads (host CPU {host_cpu()}; card {smi})")
-        if kind in ("webp", "tiff", "jpeg_forms", "raster"):
+        if kind in ("webp", "tiff", "jpeg_forms", "raster", "containers"):
             for form in forms:
                 sel = [k for k in range(len(files)) if forms[k % len(forms)] == form]
                 t0 = time.perf_counter()
@@ -684,6 +816,7 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
                 log(f"decoder phase: native {kind} {form}: {len(sel) / dt:.1f} images/s, {px / dt / 1e6:.2f} "
                     f"Mpixel/s on one thread ({px / len(sel):.0f} pixels a file)")
     check_raster_size(cases["raster_size"], threads, smi)
+    check_container_size(cases["container_size"], smi)
     log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2963,7 +3096,8 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
-TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi")
+TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi",
+               "dds_bc7", "psd_rle")
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
 
 
@@ -2971,7 +3105,7 @@ def swapped_decoders():
     """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call),
     each file's bytes decoded once: the loader pads a one-query batch by repeating its row, and the numpy
     twins would decode the same bytes to the same pixels BATCH times.  Call the result to swap them back."""
-    from uniir_tpu_torch.data import gif, jpeg, msp, pcx, png, qoi, sgi, sun, tga, tiff, webp
+    from uniir_tpu_torch.data import dds, gif, icns, jpeg, msp, pcx, png, psd, qoi, sgi, sun, tga, tiff, webp
 
     def decoded_once(twin):
         pixels = {}
@@ -2983,7 +3117,7 @@ def swapped_decoders():
 
         return decode
 
-    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp, qoi, tga, sgi, pcx, sun, msp)]
+    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp, qoi, tga, sgi, pcx, sun, msp, dds, icns, psd)]
     for module, _ in saved:
         module.decoder_for = lambda device, twin=decoded_once(module.decode_twin): twin
 
@@ -2998,8 +3132,9 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
                       per_batch: int) -> None:
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
     lossy WebP, a lossless WebP with alpha, an LZW TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
-    QOI file) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF, csrc/raster.cu
-    for TGA and QOI; BMP has one decoder), K1, K2; held to
+    QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD) through the interactive retriever: the native decoder
+    (GIF / JPEG / WebP / TIFF, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS; BMP has one
+    decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
     from uniir_tpu_torch.data import gif, jpeg, tiff, webp
@@ -3011,7 +3146,8 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     Path(path).write_bytes(fixture_file(form, seed))
     native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native, "webp_lossy": webp.decode_native,
               "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native,
-              "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative()}.get(form)
+              "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative(),
+              "dds_bc7": ContainerNative(), "psd_rle": ContainerNative()}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -5181,6 +5317,158 @@ def msp_bytes(bits: np.ndarray, v2: bool = True) -> bytes:
     return bytes(head) + b"".join(len(e).to_bytes(2, "little") for e in encoded) + b"".join(encoded)
 
 
+def packbits_row(row: bytes) -> bytes:
+    """PackBits of one row: runs of 2-128 equal bytes as (257 - n, v), literals of 1-128 bytes as (n - 1, ...)."""
+    out, i, n = bytearray(), 0, len(row)
+    while i < n:
+        run = 1
+        while i + run < n and row[i + run] == row[i] and run < 128:
+            run += 1
+        if run >= 2:
+            out += bytes((257 - run, row[i]))
+            i += run
+            continue
+        k = 1
+        while i + k < n and k < 128 and not (i + k + 1 < n and row[i + k] == row[i + k + 1]):
+            k += 1
+        out += bytes((k - 1,)) + row[i : i + k]
+        i += k
+    return bytes(out)
+
+
+PSD_MODES = {"1": 0, "L": 1, "P": 2, "RGB": 3, "CMYK": 4, "multichannel": 7, "duotone": 8, "LAB": 9}
+
+
+def psd_bytes(planes: np.ndarray, mode: str, *, compression: int = 1, palette: bytes = b"", resources: bytes = b"",
+              layers: bytes = b"", channels: int = 0) -> bytes:
+    """A PSD file of uint8 [channels, h, w] planes (0 / 1 for mode "1", packed 8 to a byte, most significant
+    first) in colour mode `mode` (PSD_MODES), raw (compression 0) or PackBits rows (1) after their byte
+    counts; the colour mode data (an indexed image's 768-byte planar palette), image resources and layer
+    section as given; `channels` the header's count where it differs from the planes'."""
+    c, h, w = planes.shape
+    bits = 1 if mode == "1" else 8
+    rows = [(np.packbits(p, axis=1) if bits == 1 else p)[y].tobytes() for p in planes for y in range(h)]
+    head = b"8BPS" + struct.pack(">H6xHIIHH", 1, channels or c, h, w, bits, PSD_MODES[mode])
+    head += struct.pack(">I", len(palette)) + palette + struct.pack(">I", len(resources)) + resources
+    head += struct.pack(">I", len(layers)) + layers
+    if compression != 1:
+        return head + struct.pack(">H", compression) + b"".join(rows)
+    packed = [packbits_row(r) for r in rows]
+    return head + struct.pack(">H", 1) + b"".join(struct.pack(">H", len(r)) for r in packed) + b"".join(packed)
+
+
+def psd_resource(ident: int, name: bytes, data: bytes) -> bytes:
+    """One image resource block: '8BIM', its id, a padded Pascal name, its padded data."""
+    pname = bytes((len(name),)) + name
+    return (b"8BIM" + struct.pack(">H", ident) + pname + b"\0" * (len(pname) & 1) + struct.pack(">I", len(data)) + data
+            + b"\0" * (len(data) & 1))
+
+
+DDS_PF = {"fourcc": 0x4, "rgb": 0x40, "alpha_pixels": 0x1, "luminance": 0x20000, "pal8": 0x20}
+
+
+def dds_bytes(data: bytes, w: int, h: int, *, fourcc: bytes = b"", dxgi: int = -1, flags: int = 0, bitcount: int = 0,
+              masks=(0, 0, 0, 0), palette: bytes = b"") -> bytes:
+    """A DDS file of `data` (the first mip level) at w x h: a FourCC (with `dxgi` after a DX10 header), or
+    pixel format `flags` with `bitcount` and the RGBA `masks` (a palette after the header for PAL8)."""
+    if dxgi >= 0:
+        fourcc = b"DX10"
+    pf_flags = flags | (DDS_PF["fourcc"] if fourcc else 0)
+    pf = struct.pack("<2I4sI4I", 32, pf_flags, fourcc.ljust(4, b"\0"), bitcount, *masks)
+    out = b"DDS " + struct.pack("<7I", 124, 0x1007, h, w, 0, 0, 0) + bytes(44) + pf + struct.pack("<5I", 0x1000, 0, 0, 0, 0)
+    if dxgi >= 0:
+        out += struct.pack("<5I", dxgi, 3, 0, 1, 0)
+    return out + palette + data
+
+
+BC_BLOCK_BYTES = {"bc1": 8, "bc2": 16, "bc3": 16, "bc4": 8, "bc5": 16, "bc6h": 16, "bc7": 16}
+# the DDS form of each block format the smoke writes: (FourCC, DXGI format)
+BC_DDS = {"bc1": (b"DXT1", -1), "bc2": (b"DXT3", -1), "bc3": (b"DXT5", -1), "bc4": (b"BC4U", -1),
+          "bc5": (b"BC5U", -1), "bc5s": (b"BC5S", -1), "bc6h": (b"", 95), "bc6hs": (b"", 96), "bc7": (b"", 98)}
+
+
+def bc_blocks(form: str, rng, w: int, h: int) -> bytes:
+    """Seeded blocks of a BC `form` (BC_DDS) for w x h: random bits, with BC6H's and BC7's mode bits spread
+    over every mode (BC6H's two reserved ones and BC7's zero mode byte among them)."""
+    kind = form.rstrip("s") if form != "bc6hs" else "bc6h"
+    n = ((w + 3) // 4) * ((h + 3) // 4)
+    b = rng.integers(0, 256, (n, BC_BLOCK_BYTES[kind]), dtype=np.uint8)
+    if kind == "bc7":
+        mode = rng.integers(0, 9, n)
+        b[:, 0] = np.where(mode == 8, 0, (b[:, 0] & ~((2 << mode) - 1) | (1 << mode)) & 0xFF)
+    elif kind == "bc6h":
+        modes = np.array([0, 1, 2, 6, 10, 14, 18, 22, 26, 30, 3, 7, 11, 15, 19, 31])
+        b[:, 0] = (b[:, 0] & 0xE0) | modes[rng.integers(0, len(modes), n)]
+    return b.tobytes()
+
+
+def bc7_mode6(image: np.ndarray) -> bytes:
+    """BC7 blocks of uint8 [h, w, 3] in mode 6 (one subset, 7-bit endpoints and a p-bit each, 4-bit
+    indices): the block's channel minimum and maximum as endpoints, each pixel's nearest of the 16 weights
+    along them, alpha 255.  Edges are repeated to whole blocks."""
+    h, w = image.shape[:2]
+    padded = np.pad(image, ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge").astype(np.int64)
+    bh, bw = padded.shape[0] // 4, padded.shape[1] // 4
+    px = padded.reshape(bh, 4, bw, 4, 3).transpose(0, 2, 1, 3, 4).reshape(-1, 16, 3)
+    lo, hi = px.min(axis=1) >> 1, px.max(axis=1) >> 1  # 7 bits; p-bit 0 below, 1 above
+    e0, e1 = (lo << 1)[:, None], (hi << 1 | 1)[:, None]
+    weights = np.array([0, 4, 9, 13, 17, 21, 26, 30, 34, 38, 43, 47, 51, 55, 60, 64])
+    levels = ((64 - weights[None, :, None]) * e0 + weights[None, :, None] * e1 + 32) >> 6  # [n, 16, 3]
+    idx = ((px[:, :, None, :] - levels[:, None]) ** 2).sum(-1).argmin(-1)  # [n, 16]
+    swap = idx[:, 0] >= 8  # the anchor's index has 3 bits: its top bit must be 0
+    idx = np.where(swap[:, None], 15 - idx, idx)
+    e0, e1 = np.where(swap[:, None], e1, e0)[:, 0] >> 1, np.where(swap[:, None], e0, e1)[:, 0] >> 1
+    p0, p1 = np.where(swap, 1, 0), np.where(swap, 0, 1)
+    fields = [(np.full(len(px), 64), 7)]
+    for c in range(3):
+        fields += [(e0[:, c], 7), (e1[:, c], 7)]
+    fields += [(np.full(len(px), 127), 7), (np.full(len(px), 127), 7), (p0, 1), (p1, 1)]
+    fields += [(idx[:, k], 3 if k == 0 else 4) for k in range(16)]
+    bits, at = np.zeros((len(px), 128), np.uint8), 0
+    for v, width in fields:
+        for j in range(width):
+            bits[:, at + j] = (v >> j) & 1
+        at += width
+    return np.packbits(bits, axis=1, bitorder="little").tobytes()
+
+
+def icns_rle(plane: bytes) -> bytes:
+    """An ICNS RLE channel: runs of 3-130 equal bytes as (n + 125, v), literals of 1-128 bytes as (n - 1, ...)."""
+    out, i, n = bytearray(), 0, len(plane)
+    while i < n:
+        run = 1
+        while i + run < n and plane[i + run] == plane[i] and run < 130:
+            run += 1
+        if run >= 3:
+            out += bytes((run + 125, plane[i]))
+            i += run
+            continue
+        k = 1
+        while i + k < n and k < 128 and not (i + k + 2 < n and plane[i + k] == plane[i + k + 1] == plane[i + k + 2]):
+            k += 1
+        out += bytes((k - 1,)) + plane[i : i + k]
+        i += k
+    return bytes(out)
+
+
+ICNS_RLE_TYPES = {16: (b"is32", b"s8mk"), 32: (b"il32", b"l8mk"), 48: (b"ih32", b"h8mk"), 128: (b"it32", b"t8mk")}
+
+
+def icns_bytes(entries: list) -> bytes:
+    """An ICNS file of (type, data) entries in order."""
+    body = b"".join(kind + struct.pack(">I", 8 + len(data)) + data for kind, data in entries)
+    return b"icns" + struct.pack(">I", 8 + len(body)) + body
+
+
+def icns_rle_entries(image: np.ndarray, mask: np.ndarray = None) -> list:
+    """The RLE entry (it32's with its 4 zero bytes) of uint8 [s, s, 3], s one of ICNS_RLE_TYPES, and its mask;
+    an RLE stream of exactly 3 s^2 bytes, which Pillow would read raw, gets a byte after it."""
+    kind, mask_kind = ICNS_RLE_TYPES[image.shape[0]]
+    data = b"".join(icns_rle(image[..., c].tobytes()) for c in range(3))
+    data = (b"\0\0\0\0" if kind == b"it32" else b"") + data + (b"\0" if len(data) == image.size else b"")
+    return [(kind, data)] + ([(mask_kind, mask.tobytes())] if mask is not None else [])
+
+
 # --- the WebP writer: VP8L, VP8 key frames and the RIFF forms, without Pillow or libwebp
 
 
@@ -6868,7 +7156,7 @@ def fixture_image(seed: int) -> np.ndarray:
 
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
 FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
-               "tiff": "tif", "tga_rle": "tga", "qoi": "qoi"}
+               "tiff": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -6895,7 +7183,8 @@ def fixture_file(form: str, seed: int) -> bytes:
     `webp_bytes`: `webp_lossy` (VP8, coded closed-loop), `webp_lossless_alpha` (VP8L of the image with a seeded
     alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk); `tiff` (LZW, the
     horizontal predictor, 32 x 32 tiles, big-endian), `jpeg_arith` (arithmetic-coded, libjpeg's simple
-    progression, quality 90), `tga_rle` (24-bit RLE, bottom-up) and `qoi` (RGB)."""
+    progression, quality 90), `tga_rle` (24-bit RLE, bottom-up), `qoi` (RGB), `dds_bc7` (BC7 mode 6 blocks,
+    `bc7_mode6`) and `psd_rle` (RGB, PackBits rows)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     img = fixture_image(seed)
@@ -6909,6 +7198,10 @@ def fixture_file(form: str, seed: int) -> bytes:
         return tga_bytes(img)
     if form == "qoi":
         return qoi_bytes(img)
+    if form == "dds_bc7":
+        return dds_bytes(bc7_mode6(img), img.shape[1], img.shape[0], dxgi=98)
+    if form == "psd_rle":
+        return psd_bytes(np.ascontiguousarray(img.transpose(2, 0, 1)), "RGB", compression=1)
     if form.startswith("webp"):
         alpha = np.random.default_rng(seed).integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)
         kind, image = {"webp_lossy": ("lossy", img), "webp_lossless_alpha": ("lossless", np.concatenate([img, alpha], 2)),
@@ -7686,8 +7979,9 @@ def ico_bytes(image: np.ndarray, seed: int) -> bytes:
 
 def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
     """The bytes of one raw image file of `form` (P13_FORMS, or `truncated`: a baseline JPEG cut in its scan,
-    `garbage`: an HTML error page, which no image reader identifies, `psd`: a format the port does not decode
-    yet, a PSD header of no mode Pillow reads and noise after it)."""
+    `garbage`: an HTML error page, which no image reader identifies, `psd`: a PSD header of no mode Pillow
+    reads and noise after it, which no reader identifies either, `blp`: a format the port does not decode
+    yet, a BLP2 header of an encoding Pillow's decoder refuses and noise after it)."""
     if form == "progressive":  # Pillow-made files of their own size
         return base64.b64decode(PROGRESSIVE_FILES[sorted(PROGRESSIVE_FILES)[seed % 3]][0])
     if form == "garbage":  # what a scraper saves as the image when the server answers with an error page
@@ -7696,6 +7990,9 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
         body = np.random.default_rng(seed).integers(0, 256, 64, dtype=np.uint8).tobytes()
         return b"8BPS\x00\x01" + bytes(6) + (3).to_bytes(2, "big") + h.to_bytes(4, "big") + w.to_bytes(4, "big") \
             + (7).to_bytes(2, "big") + (3).to_bytes(2, "big") + body
+    if form == "blp":
+        body = np.random.default_rng(seed).integers(0, 256, 256, dtype=np.uint8).tobytes()
+        return b"BLP2" + struct.pack("<i4BII", 1, 9, 0, 0, 0, w, h) + body
     if form in P13_SMALL:
         w, h = min(w, 160), min(h, 160)
     img = raw_image(seed, w, h)
@@ -7746,9 +8043,10 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     src_data/<dataset>/, images under mbeir_images/<dataset>_images/ named as the source names them and
     written in P13_FORMS' forms at the sources' sizes times `side` (COCO's 640 x 480 and 500 x 375 kinds, up
     to 1600 px for OVEN / InfoSeek), by `pool`'s workers if given.  MSCOCO also holds a missing image, a
-    truncated JPEG, an HTML page under a .jpg name and (with `refused`) a PSD file under a .png name.  Returns
-    {"images": {path: form}, "truncated": path, "garbage": path, "refused": path or None, "captions": [every
-    caption and question]}."""
+    truncated JPEG, an HTML page under a .jpg name and (with `refused`) a PSD file no reader identifies under a
+    .png name and a BLP file, a format the port does not decode yet, under a .jpg name.  Returns {"images": {path: form},
+    "truncated": path, "garbage": path, "unidentified": path or None, "refused": path or None, "captions":
+    [every caption and question]}."""
     counts = {**P13_COUNTS, **(counts or {})}
     rng = np.random.default_rng(P13_SEED)
     vocab = fixture_words(rng, 400)
@@ -7786,7 +8084,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
         if i % 9 == 1:
             caps[2] = caps[1]  # a repeated caption: the pool holds it once
         coco[split].append({"image": name, "caption": caps if i % 11 else caps[0], "image_id": i})
-        form = {8: "truncated", 10: "psd" if refused else None, 13: "garbage"}.get(i)
+        form = {8: "truncated", 10: "psd" if refused else None, 12: "blp" if refused else None, 13: "garbage"}.get(i)
         if i != 5:  # image 5 is missing
             image(f"mbeir_images/mscoco_images/{name}", photo(), form)
         if form:
@@ -7939,7 +8237,8 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     else:
         list(pool.map(write_raw_file, jobs, chunksize=4))
     return {"images": {p: form for p, form, *_ in jobs}, "truncated": special["truncated"],
-            "garbage": special["garbage"], "refused": special.get("psd"), "captions": texts}
+            "garbage": special["garbage"], "unidentified": special.get("psd"), "refused": special.get("blp"),
+            "captions": texts}
 
 
 P13_GENERATOR_FLAGS = ("--generate_union_train_cand_pool", "--generate_union_all_cand_pool", "--unify_train_data",
@@ -8151,11 +8450,13 @@ def drive_construction(results: dict, smi: str) -> None:
             check(name in runs and runs[name][0] == 0, f"phase 13: {name} failed:\n"
                   f"{(logs / f'{name}.log').read_text()[-3000:] if (logs / f'{name}.log').exists() else 'not run'}")
         found = {name: converter_counts(name, runs[name], (logs / f"{name}.log").read_text()) for name in P13_CONVERTERS}
-        check(found["mscoco"][1:] == (2, 1), f"phase 13: MSCOCO's pass counted {found['mscoco'][1:]}, not two corrupt "
-              "files and one left in place")
-        in_cli = {k: Path(raw[k].replace(str(root / "raw"), str(root / "cli"))) for k in ("truncated", "garbage", "refused")}
-        check(not in_cli["truncated"].exists() and not in_cli["garbage"].exists() and in_cli["refused"].exists(),
-              "phase 13: the truncated JPEG and the HTML page must be deleted and the PSD file left in place")
+        check(found["mscoco"][1:] == (3, 1), f"phase 13: MSCOCO's pass counted {found['mscoco'][1:]}, not three "
+              "corrupt files and one left in place")
+        special = ("truncated", "garbage", "unidentified", "refused")
+        in_cli = {k: Path(raw[k].replace(str(root / "raw"), str(root / "cli"))) for k in special}
+        check(not any(in_cli[k].exists() for k in special[:3]) and in_cli["refused"].exists(),
+              "phase 13: the truncated JPEG, the HTML page and the unidentified PSD file must be deleted and the BLP "
+              "file left in place")
 
         # the rates, alone on the host: one process stage by stage over a seeded sample of the raw images, then
         # the pass's pool over all of them in a process of its own (as a CLI runs it: the pool's workers import
@@ -8316,7 +8617,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
     names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif", "webp",
-             "tiff", "jpeg_encode", "raster")
+             "tiff", "jpeg_encode", "raster", "bcn")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)

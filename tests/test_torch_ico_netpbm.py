@@ -190,7 +190,7 @@ def test_pillows_own_netpbm_files():
 
 
 def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
-    """ICO, CUR and Netpbm files decode through `read_image`; a format not decoded yet raises
+    """ICO, CUR and Netpbm files decode through `read_image`; a format not decoded yet (BLP) raises
     UnsupportedImageFormat (a ValueError); corrupt data raises the decoders' own ValueError."""
     img = rgba(5, 9, 6)
     files = {"a.ico": icon([(dib_entry(img, 24), 9, 6, 0, 24)]), "b.cur": icon([(dib_entry(img, 8), 9, 6, 0, 8)], 2),
@@ -199,8 +199,8 @@ def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
         (tmp_path / name).write_bytes(data)
         np.testing.assert_array_equal(jpeg.read_image(str(tmp_path / name), "cpu"), pillow(data))
     assert [jpeg.image_format(d) for d in files.values()] == ["ico", "cur", "netpbm"]
-    (tmp_path / "q.png").write_bytes(b"8BPS" + bytes(20))
-    with pytest.raises(jpeg.UnsupportedImageFormat, match="PSD image"):
+    (tmp_path / "q.png").write_bytes(b"BLP2" + bytes(20))
+    with pytest.raises(jpeg.UnsupportedImageFormat, match="BLP image"):
         jpeg.read_image(str(tmp_path / "q.png"), "cpu")
     for corrupt in (files["a.ico"][:30], b"P6 2 1 255\n\x00", b"", b"\xff\xd8\xff\xdb"):
         (tmp_path / "x.jpg").write_bytes(corrupt)
@@ -211,16 +211,18 @@ def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
 
 
 # (Pillow's save format, mode, the port's name for it): formats Image.open reads that the port does not decode
-# (TGA, IM, PCX, SGI, DIB, MSP, XBM and QOI are decoded now: their cases are in tests/test_torch_raster_formats.py)
-PILLOW_WRITTEN_REFUSED = [("SPIDER", "F", "SPIDER"), ("EPS", "RGB", "EPS"), ("ICNS", "RGB", "ICNS"),
-                          ("DDS", "RGB", "DDS"), ("JPEG2000", "RGB", "JPEG 2000")]
+# (TGA, IM, PCX, SGI, DIB, MSP, XBM and QOI are decoded now: their cases are in tests/test_torch_raster_formats.py;
+# ICNS and DDS too, whose cases here decode as Pillow does, more in tests/test_torch_container_formats.py)
+PILLOW_WRITTEN_REFUSED = [("SPIDER", "F", "SPIDER"), ("EPS", "RGB", "EPS"), ("ICNS", "RGB", "icns"),
+                          ("DDS", "RGB", "dds"), ("JPEG2000", "RGB", "JPEG 2000")]
 
 
 @pytest.mark.parametrize("case", PILLOW_WRITTEN_REFUSED,
                          ids=[f"{c[0]}-{c[1]}{'-rle' if len(c) > 3 else ''}" for c in PILLOW_WRITTEN_REFUSED])
 def test_files_pillow_writes_in_formats_not_decoded_are_named(case):
     """A file Pillow writes and reads back, in a format the port does not decode, raises
-    UnsupportedImageFormat naming the format: the image pass leaves it in place."""
+    UnsupportedImageFormat naming the format: the image pass leaves it in place.  ICNS and DDS, decoded
+    now, give Pillow's pixels."""
     from PIL import Image
 
     fmt, mode, label, *options = case
@@ -231,6 +233,9 @@ def test_files_pillow_writes_in_formats_not_decoded_are_named(case):
     data = buf.getvalue()
     assert Image.open(io.BytesIO(data)).format == fmt
     assert jpeg.image_format(data) == label
+    if label in ("icns", "dds"):
+        np.testing.assert_array_equal(jpeg.decode_image(data, "f", "cpu"), pillow(data))
+        return
     with pytest.raises(jpeg.UnsupportedImageFormat, match=rf"^f: {label} image"):
         jpeg.decode_image(data, "f", "cpu")
 
@@ -261,11 +266,11 @@ def test_data_no_reader_identifies_is_corrupt(name):
 
 # Pillow 12.1's openers -> the port's name for each: decoded, or named in `jpeg._REFUSED`
 PILLOW_OPENERS = {"AVIF": "AVIF", "BLP": "BLP", "BMP": "bmp", "DIB": "dib", "BUFR": "BUFR", "CUR": "cur",
-                  "PCX": "pcx", "DCX": "dcx", "DDS": "DDS", "EPS": "EPS", "FITS": "FITS", "FLI": "FLI",
+                  "PCX": "pcx", "DCX": "dcx", "DDS": "dds", "EPS": "EPS", "FITS": "FITS", "FLI": "FLI",
                   "FTEX": "FTEX", "GBR": "GBR", "GIF": "gif", "GRIB": "GRIB", "HDF5": "HDF5", "PNG": "png",
-                  "JPEG2000": "JPEG 2000", "ICNS": "ICNS", "ICO": "ico", "IM": "im", "IMT": "IMT", "IPTC": "IPTC",
+                  "JPEG2000": "JPEG 2000", "ICNS": "icns", "ICO": "ico", "IM": "im", "IMT": "IMT", "IPTC": "IPTC",
                   "JPEG": "jpeg", "MCIDAS": "McIdas", "MPEG": "MPEG", "TIFF": "tiff", "MSP": "msp", "PCD": "PCD",
-                  "PIXAR": "PIXAR", "PPM": "netpbm", "PSD": "PSD", "QOI": "qoi", "SGI": "sgi", "SPIDER": "SPIDER",
+                  "PIXAR": "PIXAR", "PPM": "netpbm", "PSD": "psd", "QOI": "qoi", "SGI": "sgi", "SPIDER": "SPIDER",
                   "SUN": "sun", "TGA": "tga", "WEBP": "webp", "WMF": "WMF", "XBM": "xbm", "XPM": "xpm",
                   "XVTHUMB": "XVThumb"}
 
@@ -278,5 +283,5 @@ def test_every_format_pillow_identifies_is_decoded_or_named():
     Image.init()
     assert set(Image.ID) <= set(PILLOW_OPENERS), sorted(set(Image.ID) - set(PILLOW_OPENERS))
     decoded = {"jpeg", "png", "gif", "bmp", "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "im", "msp",
-               "qoi", "sgi", "sun", "tga", "xbm", "xpm"}
+               "qoi", "sgi", "sun", "tga", "xbm", "xpm", "dds", "icns", "psd"}
     assert set(PILLOW_OPENERS.values()) == {label for _, label in jpeg._REFUSED} | decoded

@@ -65,6 +65,9 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.xbm",
     "uniir_tpu_torch.data.xpm",
     "uniir_tpu_torch.data.im",
+    "uniir_tpu_torch.data.psd",
+    "uniir_tpu_torch.data.dds",
+    "uniir_tpu_torch.data.icns",
     "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",

@@ -2,8 +2,9 @@
 process and against the JAX package, at `test-tiny`.
 
 One launch of two ranks (`uniir_tpu_torch.parallel.multihost.launch`, a
-`file://` rendezvous under the test's directory, a 120 s limit) runs every
-scenario of `rank_worker` and saves what each rank saw; the tests compare
+`file://` rendezvous under the test's directory, RANKS_TIMEOUT_S) runs every
+scenario of `rank_worker` on RANK_THREADS threads a rank and saves what each
+rank saw; the tests compare
 it with the same functions run in this process (one rank) and with the JAX
 steps on the global batch:
 
@@ -66,6 +67,11 @@ LOSS_RTOL, GRAD_RTOL, PARAM_RTOL, PARAM_LR_SHARE = 1e-6, 5e-5, 1e-6, 0.02
 JAX_RTOL, JAX_ATOL = 1e-4, 1e-5
 N_CANDS, N_QUERIES, EMBED_BATCH = 13, 12, 4
 POOL_N, POOL_D, POOL_Q, POOL_K = 199, 32, 8, 6
+# each rank's intra-op threads, and the one-process references' (`rank_threads`): PyTorch's default is every
+# core, and two ranks that each took all of them beside the other workers of a six-worker test run spent
+# 2.3-3.3 s on a test-tiny train step and outlasted a 120 s limit.  At 2 threads the ranks' whole workload
+# took 13.7 s under that load; the limit is over 3x the slowest such run measured
+RANK_THREADS, RANKS_TIMEOUT_S = 2, 360
 
 
 # ------------------------------------------------------------ shared inputs
@@ -348,6 +354,7 @@ def rank_worker(args) -> dict:
     """Every scenario on this rank; the results go to rank{r}.pt beside the inputs."""
     from uniir_tpu_torch.parallel.multihost import smoke_worker
 
+    torch.set_num_threads(RANK_THREADS)
     d = args.task_args["dir"]
     inputs = torch.load(os.path.join(d, "inputs.pt"), weights_only=False)
     rank = mesh.process_index()
@@ -482,9 +489,20 @@ def setup(tmp_path_factory):
         "pool": pool, "pool_queries": queries,
     }
     torch.save(inputs, d / "inputs.pt")
-    launch(W, str(d / "ranks"), device="cpu", task=TASK, task_args={"dir": str(d)}, timeout=120)
+    launch(W, str(d / "ranks"), device="cpu", task=TASK, task_args={"dir": str(d)}, timeout=RANKS_TIMEOUT_S)
     ranks = [torch.load(d / f"rank{r}.pt", weights_only=False) for r in range(W)]
     return {"dir": d, "inputs": inputs, "ranks": ranks, "jax_clip": jax_clip, "jax_blip": jax_blip}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def rank_threads():
+    """The module's one-process references (the tests' and `one_process_pipeline`'s) on the ranks' thread
+    count, so that the two sides split each intra-op sum alike and differ only where the all-reduce splits
+    the batch; set before the module's other fixtures, restored after its last test."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(RANK_THREADS)
+    yield
+    torch.set_num_threads(saved)
 
 
 # ---------------------------------------------------------------- checks

@@ -149,9 +149,9 @@ def test_generator_matches_jax(built, tmp_path):
 
 
 def small_tree(root: Path) -> dict:
-    """An image directory of three files: a baseline JPEG, a truncated one and a PSD file named .png."""
+    """An image directory of three files: a baseline JPEG, a truncated one and a BLP file named .png."""
     files = {"ok.jpg": chip_smoke.raw_file("jpeg", 1, 40, 30), "cut.jpg": chip_smoke.raw_file("truncated", 2, 40, 30),
-             "odd.png": chip_smoke.raw_file("psd", 3, 40, 30)}
+             "odd.png": chip_smoke.raw_file("blp", 3, 40, 30)}
     for name, data in files.items():
         (root / "images").mkdir(parents=True, exist_ok=True)
         (root / "images" / name).write_bytes(data)
@@ -159,7 +159,7 @@ def small_tree(root: Path) -> dict:
 
 
 def test_a_format_not_decoded_yet_is_left_in_place_and_counted(tmp_path, capfd):
-    """The JAX pass deletes a PSD file Pillow cannot read; the port, which does not decode PSD yet, leaves it
+    """The JAX pass deletes a BLP file Pillow cannot read; the port, which does not decode BLP yet, leaves it
     and names it."""
     from uniir_tpu.data.preprocessing import io_utils as jax_io
     from uniir_tpu_torch.data.preprocessing import io_utils as port_io
@@ -215,6 +215,45 @@ def test_image_pass_on_the_raster_formats_writes_what_jax_writes(tmp_path):
         assert io_utils.parallel_process_image_directory(str(tmp_path / side / "images"), 2, **kw) == 1
     names = sorted(os.listdir(tmp_path / "jax" / "images"))
     assert names == sorted(f"{name.split('.')[0]}.jpg" for name in raster_tree(tmp_path / "names") if name != "cut.png")
+    assert tree_files(tmp_path / "port") == tree_files(tmp_path / "jax")
+
+
+def container_tree(root: Path) -> dict:
+    """An image directory of PSD (PackBits RGB, raw CMYK), DDS (BC7, BC1, 16-bit masks) and ICNS (RLE) files
+    under names the pass picks up, a DDS cut short and a PSD no reader identifies."""
+    img = chip_smoke.raw_image(6, 40, 30)
+    planes = np.ascontiguousarray(img.transpose(2, 0, 1))
+    cmyk = np.concatenate([planes, planes[:1] // 2])
+    rng = np.random.default_rng(6)
+    icon = np.ascontiguousarray(np.resize(img, (32, 32, 3)))
+    files = {"psd.png": chip_smoke.psd_bytes(planes, "RGB"), "cmyk.jpg": chip_smoke.psd_bytes(cmyk, "CMYK", compression=0),
+             "bc7.png": chip_smoke.dds_bytes(chip_smoke.bc7_mode6(img), 40, 30, dxgi=98),
+             "bc1.jpg": chip_smoke.dds_bytes(chip_smoke.bc_blocks("bc1", rng, 40, 30), 40, 30, fourcc=b"DXT1"),
+             "masks.png": chip_smoke.dds_bytes(rng.bytes(2 * 40 * 30), 40, 30, flags=chip_smoke.DDS_PF["rgb"],
+                                               bitcount=16, masks=(0xF800, 0x7E0, 0x1F, 0)),
+             "icns.png": chip_smoke.icns_bytes(chip_smoke.icns_rle_entries(icon, icon[..., 0])),
+             "cut.png": chip_smoke.dds_bytes(chip_smoke.bc7_mode6(img), 40, 30, dxgi=98)[:400],
+             "odd.png": chip_smoke.raw_file("psd", 7, 40, 30)}
+    for name, data in files.items():
+        (root / "images").mkdir(parents=True, exist_ok=True)
+        (root / "images" / name).write_bytes(data)
+    return files
+
+
+def test_image_pass_on_the_container_formats_writes_what_jax_writes(tmp_path):
+    """One file of each PSD / DDS / ICNS form through both image passes: every JPEG the JAX pass writes, byte
+    for byte, the sources deleted on both sides, the DDS cut short and the PSD no reader identifies deleted
+    and counted on both."""
+    from uniir_tpu.data.preprocessing import io_utils as jax_io
+    from uniir_tpu_torch.data.preprocessing import io_utils as port_io
+
+    for side, io_utils in (("jax", jax_io), ("port", port_io)):
+        container_tree(tmp_path / side)
+        kw = {"device": "cpu"} if side == "port" else {}
+        assert io_utils.parallel_process_image_directory(str(tmp_path / side / "images"), 2, **kw) == 2
+    names = sorted(os.listdir(tmp_path / "jax" / "images"))
+    assert names == sorted(f"{name.split('.')[0]}.jpg" for name in container_tree(tmp_path / "names")
+                           if name not in ("cut.png", "odd.png"))
     assert tree_files(tmp_path / "port") == tree_files(tmp_path / "jax")
 
 
@@ -292,11 +331,11 @@ def test_webqa_images_written_as_pillow_writes_them(tmp_path):
     assert port_decode(str(tmp_path / "imgs.tsv"), str(tmp_path / "imgs.lineidx"), str(tmp_path / "port"),
                        "cpu") == len(blobs)
     assert tree_files(tmp_path / "port") == tree_files(tmp_path / "jax")
-    psd = chip_smoke.raw_file("psd", 1, 8, 8)
-    (tmp_path / "imgs.tsv").write_bytes(b"7\t" + base64.b64encode(psd) + b"\n")
+    blp = chip_smoke.raw_file("blp", 1, 8, 8)
+    (tmp_path / "imgs.tsv").write_bytes(b"7\t" + base64.b64encode(blp) + b"\n")
     (tmp_path / "imgs.lineidx").write_text("0\n")
     port_decode(str(tmp_path / "imgs.tsv"), str(tmp_path / "imgs.lineidx"), str(tmp_path / "refused"), "cpu")
-    assert (tmp_path / "refused/7.jpg").read_bytes() == psd
+    assert (tmp_path / "refused/7.jpg").read_bytes() == blp
 
 
 def test_resize_sizes_and_comment_carried(tmp_path):

@@ -351,15 +351,20 @@ def test_readers_are_tried_in_pillows_order():
     assert jpeg.image_format(cases["tga of type 0"]) == "unknown"
 
 
-def test_im_ycbcr_is_named_not_decoded():
-    """A known divergence (ROADMAP Queue 3): Pillow converts an IM file's YCbCr pixels with its own fixed-point
-    tables, which the port does not reproduce; it raises UnsupportedImageFormat, so the image pass keeps the
-    file where the JAX pass converts it."""
-    data = _im([b"Image type: YCC image", b"Image size (x*y): 5*3"], bytes(range(45)))
-    assert pillow(data)[0] == "IM"
-    assert jpeg.image_format(data) == "im"
-    with pytest.raises(jpeg.UnsupportedImageFormat, match="YCbCr"):
-        jpeg.decode_image(data, "f", "cpu")
+def test_im_ycbcr_decodes_as_pillow():
+    """An IM file in YCbCr converts as Pillow's ConvertYCbCr.c converts it (`im.ycbcr_to_rgb`, its fixed-point
+    tables): a file of the (Y, Cb, Cr) triples at a stride of 5 along each axis, 52^3 of the 2^24
+    (scripts/pillow_colour_tables.py checks every one), a small file cut short, and a file Pillow writes."""
+    v = np.arange(0, 256, 5, dtype=np.uint8)
+    y, cb, cr = (a.reshape(52, 52 * 52) for a in np.meshgrid(v, v, v, indexing="ij"))
+    body = np.stack([y, cb, cr], axis=1).tobytes()  # each row's Y, Cb and Cr planes
+    data = _im([b"Image type: YCC image", b"Image size (x*y): 2704*52"], body)
+    assert pillow(data)[0] == "IM" and jpeg.image_format(data) == "im"
+    assert_same(data, "YCbCr triples")
+    small = _im([b"Image type: YCC image", b"Image size (x*y): 5*3"], bytes(range(45)))
+    for n in range(len(small) - 50, len(small) + 1):
+        assert_same(small[:n], f"YCbCr cut at {n}")
+    assert_same(pillow_file("IM", "YCbCr"), "YCbCr as Pillow writes it")
 
 
 # --- the twins of csrc/raster.cu on the smoke's seeded files

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`,
-`csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu`, `csrc/tiff.cu` and
-`csrc/raster.cu`, and the host JPEG encoder `csrc/jpeg_encode.cu`) at first
-use and load them with ctypes.
+`csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu`, `csrc/tiff.cu`,
+`csrc/raster.cu` and `csrc/bcn.cu`, and the host JPEG encoder
+`csrc/jpeg_encode.cu`) at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `build/uniir_tpu_torch/` at the repo
@@ -85,6 +85,13 @@ SIGNATURES = {
         "uniir_raster_pcx_rle": (_P, _S, _S, _I, _I, _I, _I, _P, _S, _P, _I),
         "uniir_raster_sun_rle": (_P, _S, _S, _I, _I, _P, _S, _P, _I),
         "uniir_raster_msp_rle": (_P, _S, _I, _I, _P, _S, _P, _I),
+        "uniir_raster_packbits": (_P, _S, _P, _I, _I, _I, _P, _S, _P, _I),
+        "uniir_raster_icns_rle": (_P, _S, _S, _I, _P, _S, _P, _I),
+    },
+    "bcn": {
+        **{f"uniir_bcn_{kind}": (_P, _S, _S, _I, _I, _I, _P, _P, _I)
+           for kind in ("bc1", "bc2", "bc3", "bc4", "bc5", "bc6h", "bc7")},
+        "uniir_bcn_rgb_masks": (_P, _S, _S, _I, _I, _S, _P, _I, _P, _P, _I),
     },
     "webp": {
         "uniir_webp_info": (_P, _S, _P, _P, _I),

@@ -19,6 +19,11 @@
 //                         next rows.
 //   uniir_raster_msp_rle  Pillow's MspDecoder: the row-length map, rows of
 //                         any decoded length joined.
+//   uniir_raster_packbits PackBitsDecode.c over a PSD file's channels in the
+//                         order of their offsets: a packet past its row's
+//                         end cut there, data cut short refused.
+//   uniir_raster_icns_rle IcnsImagePlugin's read_32: three channels in turn,
+//                         runs of b - 125 copies, literals of b + 1 bytes.
 //
 // Why host code and not a kernel: each step depends on the bytes before it,
 // and the images are resized on the host after decoding.  No global state,
@@ -283,5 +288,75 @@ extern "C" int uniir_raster_msp_rle(const uint8_t* s, size_t n, int width, int h
     }
   }
   if (o.n < need) return fail(err, errlen, "not enough image data (%ld of %ld bytes)", (long)o.n, (long)need);
+  return 0;
+}
+
+extern "C" int uniir_raster_packbits(const uint8_t* s, size_t n, const uint64_t* offsets, int channels, int row_bytes,
+                                     int rows, uint8_t* out, size_t need, char* err, int errlen) {
+  (void)need;
+  std::vector<int> order((size_t)channels);
+  for (int c = 0; c < channels; ++c) order[c] = c;
+  for (int i = 1; i < channels; ++i)  // ImageFile.load's stable sort of the tiles by offset
+    for (int j = i; j > 0 && offsets[order[j - 1]] > offsets[order[j]]; --j) std::swap(order[j - 1], order[j]);
+  for (int c : order) {
+    size_t pos = offsets[c];
+    uint8_t* row = out + (size_t)c * rows * row_bytes;
+    int y = 0, x = 0;
+    while (y < rows) {
+      if (pos >= n) return fail(err, errlen, "PackBits data cut short (image file is truncated)");
+      uint8_t b = s[pos];
+      if (b == 0x80) {
+        ++pos;
+        continue;
+      }
+      bool run = b & 0x80;
+      int k = run ? 257 - b : b + 1;
+      if (n - pos < (size_t)(run ? 2 : 1 + k)) return fail(err, errlen, "PackBits data cut short (image file is truncated)");
+      int take = k < row_bytes - x ? k : row_bytes - x;  // a packet past the row's end is cut there
+      if (run)
+        memset(row + x, s[pos + 1], take);
+      else
+        memcpy(row + x, s + pos + 1, take);
+      x += take;
+      pos += run ? 2 : 1 + k;
+      if (x == row_bytes) {
+        x = 0;
+        ++y;
+        row += row_bytes;
+      }
+    }
+  }
+  return 0;
+}
+
+extern "C" int uniir_raster_icns_rle(const uint8_t* s, size_t n, size_t pos, int pixels, uint8_t* out, size_t need,
+                                     char* err, int errlen) {
+  (void)need;
+  Sink o{out, 3 * (size_t)pixels};
+  for (int band = 0; band < 3; ++band) {
+    long left = pixels, got = 0;
+    while (left > 0 && pos < n) {
+      uint8_t b = s[pos++];
+      long k;
+      if (b & 0x80) {
+        k = b - 125;
+        if (pos < n) {
+          for (long i = 0; i < k; ++i) o.put(s[pos]);
+          got += k;
+          ++pos;
+        }
+      } else {
+        k = b + 1;
+        size_t avail = n - pos < (size_t)k ? n - pos : (size_t)k;
+        o.put(s + pos, avail);
+        got += (long)avail;
+        pos += avail;
+      }
+      left -= k;
+    }
+    if (left != 0) return fail(err, errlen, "ICNS RLE channel %ld: %ld bytes left (error reading channel)", band, left);
+    if (got < pixels)
+      return fail(err, errlen, "ICNS RLE channel %ld: %ld bytes short (not enough image data)", band, pixels - got);
+  }
   return 0;
 }

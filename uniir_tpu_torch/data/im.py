@@ -18,12 +18,12 @@ uint8 [H, W, 3] array as Pillow 12.1 (`ImImagePlugin`, its raw unpackers,
     samples read as float, and the other widths of `L*n` through Pillow's
     bit decoder, least significant bits first);
   * `convert("RGB")` from each mode as `tiff.to_rgb` computes it (Convert.c;
-    an index past the table, or any index of a P image without one, black).
+    an index past the table, or any index of a P image without one, black),
+    and from YCbCr as `ycbcr_to_rgb` does (ConvertYCbCr.c's fixed-point
+    tables).
 
 A raw mode Pillow has no unpacker for (RLB, PA without a table, a mode
-name the table does not hold) raises, as in Pillow.  YCbCr images, which
-Pillow converts with its own fixed-point tables, raise
-UnsupportedImageFormat (ROADMAP Queue 3): the image pass keeps them.
+name the table does not hold) raises, as in Pillow.
 
 A header Pillow does not read as IM is not an IM file to Image.open (it
 tries its next reader); anything else Pillow refuses raises ValueError
@@ -73,6 +73,24 @@ _VALID = ({("1", "1"), ("L", "L"), ("P", "P"), ("P", "P;2"), ("P", "P;4"), ("RGB
            ("YCbCr", "YCbCr;L"), ("RGB", "RGB;T"), ("RGB", "RYB;T"), ("I", "I;32"), ("I", "I;32S"),
            ("I;16", "I;16"), ("I;16L", "I;16L"), ("I;16B", "I;16B")}
           | {("F", f"F;{k}") for k in ["8", "8S", "16", "16S", "32", "32F"] + [str(j) for j in range(2, 32)]})
+
+
+def _ycbcr_table(k: float) -> np.ndarray:
+    """One of ImagingConvertYCbCr2RGB's tables (SCALE 6): k * 64 * (i - 128) + 0.5 over the 256 codes, cut
+    toward zero as C's integer conversion cuts; these four equal Pillow's over all 2^24 (Y, Cb, Cr) triples
+    (scripts/check_ycbcr_tables.py)."""
+    return np.trunc(k * 64 * (np.arange(256) - 128) + 0.5).astype(np.int64)
+
+
+R_CR, G_CB, G_CR, B_CB = (_ycbcr_table(k) for k in (1.40200, -0.34414, -0.71414, 1.77200))
+
+
+def ycbcr_to_rgb(px: np.ndarray) -> np.ndarray:
+    """uint8 [..., 3] RGB of uint8 [..., 3] (Y, Cb, Cr) samples, as Pillow's convert("RGB") computes it:
+    Y plus each table's value shifted right by 6 (an arithmetic shift), clipped to 0..255."""
+    y, cb, cr = (px[..., i].astype(np.int64) for i in range(3))
+    rgb = np.stack([y + (R_CR[cr] >> 6), y + ((G_CB[cb] + G_CR[cr]) >> 6), y + (B_CB[cb] >> 6)], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
 def _number(s: str):
@@ -181,15 +199,11 @@ def _bits(data: bytes, offset: int, width: int, height: int, bits: int, name: st
 
 def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of an IM file."""
-    from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
-
     data = bytes(data)
     p = parse(data, name)
     (width, height), mode, rawmode, offset = p["size"], p["mode"], p["rawmode"], p["offset"]
     if (mode, rawmode) not in _VALID:
         raise ValueError(f"{name}: IM {mode} image of raw mode {rawmode} (unknown raw mode for given image mode)")
-    if mode == "YCbCr":
-        raise UnsupportedImageFormat(f"{name}: IM image in YCbCr: only IM images in other modes are decoded")
     if rawmode.startswith("F;") and rawmode[2:].isdigit() and int(rawmode[2:]) not in (8, 16, 32):
         px = _bits(data, offset, width, height, int(rawmode[2:]), name)[:, :, None]
         return tiff.to_rgb(px, "F")
@@ -211,6 +225,8 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
     rows = np.frombuffer(data, np.uint8, count=row_bytes * height, offset=offset).reshape(height, row_bytes)[::-1]
     if rawmode in _PLANAR:
         px = rows.reshape(height, k, width).transpose(0, 2, 1)
+        if mode == "YCbCr":
+            return ycbcr_to_rgb(px)
         base = "RGB" if mode == "RGB" else mode
         return tiff.to_rgb(np.ascontiguousarray(px), base, _table(p["palette"]))
     if rawmode in _SCALAR:

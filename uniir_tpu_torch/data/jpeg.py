@@ -77,7 +77,7 @@ build or load raises.
 (BM), WebP (RIFF / WEBP with a first chunk `VP8 `, `VP8L` or `VP8X`, as
 Pillow's `_accept` takes it), TIFF (Pillow's six prefixes), ICO / CUR and
 Netpbm (P and one of 0-6, f, y) are decoded; the other formats Pillow's
-Image.open identifies (AVIF, JPEG 2000, PSD, QOI, SGI, PCX, DDS, TGA, ...)
+Image.open identifies (AVIF, JPEG 2000, BLP, FITS, EPS, ...)
 raise `UnsupportedImageFormat`, a ValueError naming the file and the format,
 told apart from corrupt data, which raises the decoders' own ValueError, as
 does a file no format names ("unknown"), which Image.open cannot identify.
@@ -101,8 +101,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-from uniir_tpu_torch.data import bmp, gif, ico, im, msp, netpbm, pcx, png, qoi, raster, sgi, sun, tga, tiff
-from uniir_tpu_torch.data import webp, xbm, xpm
+from uniir_tpu_torch.data import bmp, dds, gif, icns, ico, im, msp, netpbm, pcx, png, psd, qoi, raster, sgi, sun
+from uniir_tpu_torch.data import tga, tiff, webp, xbm, xpm
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -1282,16 +1282,15 @@ def _spider(d: bytes) -> bool:
     return False
 
 
-# the formats Pillow 12.1's Image.open identifies that the port does not decode yet (ROADMAP Queue 3): each
-# plugin's _accept test of the file's first bytes or, for the four with none (IMT, IPTC, PCD, SPIDER), the
-# header test its _open makes (a wider one where Pillow reads further); BUFR, GRIB, HDF5, MPEG and WMF are stubs
-# that Image.open names and cannot load.  A file none of Image.open's readers takes is one it cannot identify:
+# the formats Pillow 12.1's Image.open identifies that the port does not decode yet (ROADMAP Queue 3; the
+# others are `_DECODED`'s, below): each plugin's _accept test of the file's first bytes or, for the four with
+# none (IMT, IPTC, PCD, SPIDER), the header test its _open makes (a wider one where Pillow reads further); BUFR,
+# GRIB, HDF5, MPEG and WMF are stubs that Image.open names and cannot load.  A file none of Image.open's readers takes is one it cannot identify:
 # the decoders call it corrupt, as Pillow does.
 _REFUSED = (
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
     (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
     (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
-    (lambda d: d[:4] == b"DDS ", "DDS"),
     (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
     (lambda d: d[:6] == b"SIMPLE", "FITS"),
     (lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf") and d[14:16] in (b"\0\0", b"\3\0"), "FLI"),
@@ -1300,14 +1299,12 @@ _REFUSED = (
     (lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "GRIB"),
     (lambda d: d[:4] == b"\x89HDF", "HDF5"),
     (lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
-    (lambda d: d[:4] == b"icns", "ICNS"),
     (_imt, "IMT"),
     (_iptc, "IPTC"),
     (lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", "McIdas"),
     (lambda d: d[:4] == b"\x00\x00\x01\xb3", "MPEG"),
     (lambda d: d[2048:2052] == b"PCD_", "PCD"),
     (lambda d: d[:4] == b"\x80\xe8\x00\x00", "PIXAR"),
-    (lambda d: d[:4] == b"8BPS", "PSD"),
     (_spider, "SPIDER"),
     (lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or d[:4] == b"\x01\x00\x00\x00", "WMF"),
     (lambda d: d[:6] == b"P7 332", "XVThumb"),
@@ -1317,15 +1314,16 @@ _REFUSED = (
 # the readers after Pillow's first six (BMP, DIB, GIF, JPEG, PPM, PNG), in Image.ID's order: the refused formats
 # and the ones decoded here (WebP, TIFF and ICO / CUR are tested before them: no reader before theirs takes
 # their signatures)
-_ORDER = ("AVIF", "BLP", "BUFR", "pcx", "dcx", "DDS", "EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5",
-          "JPEG 2000", "ICNS", "im", "IMT", "IPTC", "McIdas", "MPEG", "msp", "PCD", "PIXAR", "PSD", "qoi", "sgi",
+_ORDER = ("AVIF", "BLP", "BUFR", "pcx", "dcx", "dds", "EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5",
+          "JPEG 2000", "icns", "im", "IMT", "IPTC", "McIdas", "MPEG", "msp", "PCD", "PIXAR", "psd", "qoi", "sgi",
           "SPIDER", "sun", "tga", "WMF", "xbm", "xpm", "XVThumb")
 _DECODED = {
     "pcx": (pcx.accepts, pcx.parse),
     "dcx": (pcx.dcx_accepts, lambda d: pcx.parse(d, at=pcx.dcx_first_page(d))),
-    "im": (im.accepts, im.parse), "msp": (msp.accepts, msp.parse), "qoi": (qoi.accepts, qoi.parse),
-    "sgi": (sgi.accepts, sgi.parse), "sun": (sun.accepts, sun.parse), "tga": (tga.accepts, tga.parse),
-    "xbm": (xbm.accepts, xbm.parse), "xpm": (xpm.accepts, xpm.parse),
+    "dds": (dds.accepts, dds.parse), "icns": (icns.accepts, icns.parse),
+    "im": (im.accepts, im.parse), "msp": (msp.accepts, msp.parse), "psd": (psd.accepts, psd.parse),
+    "qoi": (qoi.accepts, qoi.parse), "sgi": (sgi.accepts, sgi.parse), "sun": (sun.accepts, sun.parse),
+    "tga": (tga.accepts, tga.parse), "xbm": (xbm.accepts, xbm.parse), "xpm": (xpm.accepts, xpm.parse),
 }
 
 
@@ -1508,9 +1506,9 @@ class UnsupportedImageFormat(ValueError):
 
 def image_format(data: bytes) -> str:
     """The format a file's first bytes name, as Image.open tries its readers: "jpeg", "png", "gif", "bmp",
-    "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "im", "msp", "qoi", "sgi", "sun", "tga",
-    "xbm", "xpm", or the name of another format Pillow's Image.open identifies ("AVIF", "PSD", ...), or
-    "unknown"."""
+    "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "dds", "icns", "im", "msp", "psd", "qoi",
+    "sgi", "sun", "tga", "xbm", "xpm", or the name of another format Pillow's Image.open identifies ("AVIF",
+    "BLP", ...), or "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
@@ -1535,23 +1533,24 @@ def image_format(data: bytes) -> str:
     return next((kind for kind in _ORDER if _takes(kind, data)), "unknown")
 
 
-DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, IM, MSP, QOI, SGI, Sun raster, "
-           "TGA, XBM and XPM")
+DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, DDS, ICNS, IM, MSP, PSD, QOI, "
+           "SGI, Sun raster, TGA, XBM and XPM")
 
 
 def decode_image(data: bytes, name: str, device) -> np.ndarray:
     """uint8 [H, W, 3] of an image file's bytes, told apart by its signature (or, for TGA and IM, its
     header) and decoded as a run on `device` decodes (BMP, DIB, ICO / CUR's DIBs, Netpbm, IM, XBM and XPM
-    have one decoder, numpy).  A format the port does not decode raises UnsupportedImageFormat; an empty
-    file or one of no format Image.open identifies, and corrupt data, raise ValueError."""
+    have one decoder, numpy; a PSD, DDS or ICNS file's raw pixels too).  A format the port does not decode
+    raises UnsupportedImageFormat; an empty file or one of no format Image.open identifies, and corrupt
+    data, raise ValueError."""
     if not data:
         raise ValueError(f"{name}: empty file (cannot identify image file)")
     kind = image_format(data)
     if kind == "jpeg":
         return decoder_for(device)(data, name)
-    if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga"):
+    if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga", "dds", "icns", "psd"):
         modules = {"png": png, "gif": gif, "webp": webp, "tiff": tiff, "pcx": pcx, "msp": msp, "qoi": qoi,
-                   "sgi": sgi, "sun": sun, "tga": tga}
+                   "sgi": sgi, "sun": sun, "tga": tga, "dds": dds, "icns": icns, "psd": psd}
         return modules[kind].decoder_for(device)(data, name)
     if kind == "dcx":
         return pcx.dcx_decoder_for(device)(data, name)

@@ -124,8 +124,8 @@ def parse(data: bytes, name: str = "<bytes>") -> Png:
     w, h, depth, ctype, interlace = header
     bpp = depth * CHANNELS[(depth, ctype)]
     need = sum(ph * (1 + row_bytes(pw, bpp)) for *_, pw, ph in passes(w, h, interlace))
-    try:
-        raw = zlib.decompressobj().decompress(b"".join(idat))
+    try:  # Pillow's ZipDecode stops once the rows are full: data past them, the checksum's too, is not read
+        raw = zlib.decompressobj().decompress(b"".join(idat), need)
     except zlib.error as e:
         raise ValueError(f"{name}: chunk IDAT: corrupt zlib stream ({e})") from None
     if len(raw) < need:

@@ -258,7 +258,7 @@ def save_and_print_mbeir_format_dataset_stats(data: list, data_file_path: str, c
 
 
 # the host libraries a CUDA run's image pass calls: the decoders of `decode_image` and the encoder
-NATIVE_LIBRARIES = ("jpeg", "png", "gif", "webp", "tiff", "jpeg_encode")
+NATIVE_LIBRARIES = ("jpeg", "png", "gif", "webp", "tiff", "raster", "bcn", "jpeg_encode")
 
 
 def image_pass_device(device=None) -> str:

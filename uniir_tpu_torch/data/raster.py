@@ -1,7 +1,7 @@
 """The byte-serial stages of the small raster formats, as Pillow 12.1 runs them.
 
-`data/qoi.py`, `tga.py`, `sgi.py`, `pcx.py`, `sun.py` and `msp.py` read a
-file's header, palette and orientation in numpy; what is left is a loop
+`data/qoi.py`, `tga.py`, `sgi.py`, `pcx.py`, `sun.py`, `msp.py`, `psd.py`
+and `icns.py` read a file's header, palette and orientation in numpy; what is left is a loop
 over the file's bytes in which each step depends on the one before.  This
 module holds that loop for each of them twice: a plain Python twin, the
 reference, and a native entry in host C++ (`csrc/raster.cu`, built by
@@ -26,7 +26,15 @@ ValueError with the same message:
   * `sun_rle`: `SunRleDecode.c` (the 0x80 escape; runs go on into the next
     rows; rows of the unpadded width);
   * `msp_rle`: Pillow's Python `MspDecoder` (the row-length map, rows of
-    any decoded length joined, too few bytes refused).
+    any decoded length joined, too few bytes refused);
+  * `packbits`: `PackBitsDecode.c` over a PSD file's channels as
+    ImageFile.load runs their tiles (in the order of their offsets, each
+    from its offset on whatever the row byte counts say; 0x80 skipped; a
+    packet past its row's end cut there; data cut short refused);
+  * `icns_rle`: IcnsImagePlugin's `read_32` (three channels one after the
+    other, runs of b - 125 copies and literals of b + 1 bytes whatever the
+    entry's length, a channel whose counts miss its size or whose bytes
+    run out refused).
 
 The output is the image's rows in the order the file gives them (the
 caller flips and unpacks them).  `expander(native)` gives the twin or the
@@ -40,7 +48,7 @@ import threading
 
 from uniir_tpu_torch.data.bmp import MAX_PIXELS
 
-KINDS = ("qoi", "tga_rle", "sgi_rle", "pcx_rle", "sun_rle", "msp_rle")
+KINDS = ("qoi", "tga_rle", "sgi_rle", "pcx_rle", "sun_rle", "msp_rle", "packbits", "icns_rle")
 
 
 class NotThisFormat(Exception):
@@ -287,8 +295,66 @@ def msp_rle_twin(data: bytes, width: int, height: int, name: str) -> bytes:
     return bytes(out[:need])
 
 
+def packbits_twin(data: bytes, offsets: tuple, row_bytes: int, rows: int, name: str) -> bytes:
+    """len(offsets) * rows * row_bytes bytes: channel c's rows of PackBits from offsets[c]."""
+    out = bytearray(len(offsets) * rows * row_bytes)
+    n = len(data)
+    for c in sorted(range(len(offsets)), key=lambda c: offsets[c]):  # ImageFile.load's order of the tiles
+        pos, y, line = offsets[c], 0, bytearray()
+        while y < rows:
+            if pos >= n:
+                raise ValueError(f"{name}: PackBits data cut short (image file is truncated)")
+            b = data[pos]
+            if b == 0x80:
+                pos += 1
+                continue
+            run = b & 0x80
+            k = 257 - b if run else b + 1
+            if pos + (2 if run else 1 + k) > n:
+                raise ValueError(f"{name}: PackBits data cut short (image file is truncated)")
+            take = min(k, row_bytes - len(line))  # a packet past the row's end is cut there
+            line += bytes((data[pos + 1],)) * take if run else data[pos + 1 : pos + 1 + take]
+            pos += 2 if run else 1 + k
+            if len(line) == row_bytes:
+                at = (c * rows + y) * row_bytes
+                out[at : at + row_bytes] = line
+                line, y = bytearray(), y + 1
+    return bytes(out)
+
+
+def icns_rle_twin(data: bytes, pos: int, pixels: int, name: str) -> bytes:
+    """3 * pixels bytes, the red, green and blue planes of an ICNS RLE entry from `pos`."""
+    out = bytearray()
+    n = len(data)
+    for band in range(3):
+        left, got = pixels, 0
+        while left > 0:
+            if pos >= n:
+                break
+            b = data[pos]
+            pos += 1
+            if b & 0x80:
+                k = b - 125
+                value = data[pos : pos + 1]
+                pos += len(value)
+                out += value * k
+                got += len(value) * k
+            else:
+                k = b + 1
+                chunk = data[pos : pos + k]
+                pos += len(chunk)
+                out += chunk
+                got += len(chunk)
+            left -= k
+        if left != 0:
+            raise ValueError(f"{name}: ICNS RLE channel {band}: {left} bytes left (error reading channel)")
+        if got < pixels:
+            raise ValueError(f"{name}: ICNS RLE channel {band}: {pixels - got} bytes short (not enough image data)")
+    return bytes(out)
+
+
 TWINS = {"qoi": qoi_twin, "tga_rle": tga_rle_twin, "sgi_rle": sgi_rle_twin, "pcx_rle": pcx_rle_twin,
-         "sun_rle": sun_rle_twin, "msp_rle": msp_rle_twin}
+         "sun_rle": sun_rle_twin, "msp_rle": msp_rle_twin, "packbits": packbits_twin, "icns_rle": icns_rle_twin}
 
 
 # --- the native entries ----------------------------------------------------------
@@ -335,8 +401,19 @@ def msp_rle_native(data: bytes, width: int, height: int, name: str) -> bytes:
     return _run("msp_rle", height * ((width + 7) // 8), name, (data, len(data), width, height))
 
 
+def packbits_native(data: bytes, offsets: tuple, row_bytes: int, rows: int, name: str) -> bytes:
+    at = (ctypes.c_uint64 * max(len(offsets), 1))(*offsets)
+    return _run("packbits", len(offsets) * rows * row_bytes, name,
+                (data, len(data), at, len(offsets), row_bytes, rows))
+
+
+def icns_rle_native(data: bytes, pos: int, pixels: int, name: str) -> bytes:
+    return _run("icns_rle", 3 * pixels, name, (data, len(data), pos, pixels))
+
+
 NATIVES = {"qoi": qoi_native, "tga_rle": tga_rle_native, "sgi_rle": sgi_rle_native, "pcx_rle": pcx_rle_native,
-           "sun_rle": sun_rle_native, "msp_rle": msp_rle_native}
+           "sun_rle": sun_rle_native, "msp_rle": msp_rle_native, "packbits": packbits_native,
+           "icns_rle": icns_rle_native}
 
 
 def expander(kind: str, native: bool):
