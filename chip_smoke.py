@@ -11,8 +11,12 @@
    also to Pillow's digests of seven Pillow-made files), the native PSD
    (PackBits), DDS (BC1-BC7, the mask form) and ICNS (RLE) stages of
    csrc/raster.cu and csrc/bcn.cu over 200 seeded files and at 640 x 480
-   (BC7 also at 2048 x 2048), printing their images/s on one thread and on
-   the loader's threads;
+   (BC7 also at 2048 x 2048), and the native JPEG 2000 decoder
+   (csrc/jpeg2000.cu) to Pillow's digests of the stored corpus
+   (tests/data/jpeg2000, scripts/make_jpeg2000_files.py) and to its twin
+   over 200 seeded derivatives (flipped code-block bytes, cuts, damaged
+   headers), printing their images/s on one thread and on the loader's
+   threads (JPEG 2000's at 640 x 480 and 1920 x 1080, on 1 and 16);
 1. checks each kernel against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
    BLIP's L = 197, the `base` configs' shapes (ViT-B/32 vision L = 50 and
@@ -132,8 +136,9 @@
    held to `search_dense_index` over the same queries embedded through the
    twins, and one request each of one PNG, one GIF, one BMP, one CMYK JPEG,
    one lossy WebP and one lossless WebP (with alpha) image query and one
-   each of a TIFF, an arithmetic JPEG, an RLE TGA, a QOI, a BC7 DDS and a
-   PackBits PSD file (the native PNG / GIF / JPEG / WebP / TIFF decoders and
+   each of a TIFF, an arithmetic JPEG, an RLE TGA, a QOI, a BC7 DDS, a
+   PackBits PSD, a lossless JP2 and an irreversible J2K file (the native
+   PNG / GIF / JPEG / WebP / TIFF / JPEG 2000 decoders and
    the native stages of csrc/raster.cu and csrc/bcn.cu -- BMP has one
    decoder, numpy --, K1, K2) held
    the same way to the twins, the twin decoders among them, the GIF / BMP /
@@ -205,7 +210,8 @@
    OVEN: the writer's baseline JPEGs, JPEGs with COM segments, Pillow's
    progressive files, palette PNGs with tRNS, PNGs with a comment, GIFs with
    a comment, lossless WebP, CMYK JPEG, ICO, PPM / PGM; a truncated JPEG, an
-   HTML error page under a .jpg name, a PSD file no reader identifies under a
+   HTML error page under a .jpg name, a JP2 file under a .jpg name (which the
+   pass converts), a PSD file no reader identifies under a
    .png name and a BLP file under a .jpg name), then each converter's CLI with every step
    (`--enable_image_processing`, the candidate pool, the conversion, the
    training pool) and the union generator's (union pools, the union train
@@ -665,7 +671,11 @@ def start_decoder_cases(pool) -> dict:
     """The decoder phase's seeded files and their twins' digests, DECODER_CASES of each kind and one of each
     raster form at RASTER_SIZE ("raster_size"), submitted to `pool` (a spawn pool: the twins are numpy) so
     that they are written and decoded while the card checks its kernels; kind -> futures."""
-    pending = {kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)] for kind in DECODER_KINDS}
+    # JPEG 2000's twin work first, the longest items (a Python tier 1), so they do not make the pool's tail
+    pending = {"jpeg2000_twin": [pool.submit(jpeg2000_twin_digest, name) for name in jpeg2000_small()],
+               "jpeg2000": [pool.submit(jpeg2000_case, k) for k in range(DECODER_CASES)]}
+    pending.update({kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)]
+                    for kind in DECODER_KINDS})
     pending["raster_size"] = [pool.submit(raster_size_case, form) for form in RASTER_CASE_FORMS]
     pending["container_size"] = [pool.submit(container_size_case, job) for job in CONTAINER_SIZES]
     return pending
@@ -743,6 +753,113 @@ def check_container_size(cases: list, smi: str) -> None:
         f"Mpixel/s) on 16 threads (host CPU {host_cpu()}; card {smi})")
 
 
+# the JPEG 2000 corpus scripts/make_jpeg2000_files.py writes with Pillow and OpenJPEG, neither of which this
+# machine has: each file beside the shape and SHA-256 of Pillow's pixels (digests.json)
+JPEG2000_CORPUS = REPO / "tests" / "data" / "jpeg2000"
+JPEG2000_TWIN_TOP = 160  # the twin (Python tier 1) decodes the corpus files up to this size a side
+JPEG2000_CASE_TOP = 64  # the seeded derivatives' sources: up to this size a side (the pool decodes each twice)
+JPEG2000_RATE_FILES = ("57_vga_lossless.jp2", "58_vga_irreversible.jp2", "60_hd_irreversible.jp2")
+
+
+def jpeg2000_corpus() -> dict:
+    return json.loads((JPEG2000_CORPUS / "digests.json").read_text())
+
+
+def jpeg2000_small(top: int = JPEG2000_TWIN_TOP) -> list:
+    """The corpus files of at most `top` pixels a side."""
+    return [name for name, e in jpeg2000_corpus().items() if max(e["shape"][:2]) <= top]
+
+
+def jpeg2000_outcome(data: bytes, name: str, device: str) -> str:
+    """`data.jpeg.decode_image`'s pixels' SHA-256 on `device`, or its error's type and message."""
+    import hashlib
+
+    from uniir_tpu_torch.data import jpeg
+
+    try:
+        out = jpeg.decode_image(data, name, device)
+    except ValueError as e:
+        return f"{type(e).__name__}: {e}"
+    return hashlib.sha256(out.tobytes()).hexdigest()
+
+
+def jpeg2000_case(k: int) -> tuple:
+    """(bytes, the twin's outcome) of seeded derivative k of a corpus file of at most JPEG2000_CASE_TOP pixels
+    a side: one or two bytes replaced inside the code-block data (k % 3 == 0), a cut (1), or one or two bytes
+    replaced in the codestream's headers (2); a worker of the decoder phase's pool."""
+    rng = np.random.default_rng(SEED + 7700 + k)
+    small = jpeg2000_small(JPEG2000_CASE_TOP)
+    data = bytearray((JPEG2000_CORPUS / small[k % len(small)]).read_bytes())
+    start, sod = data.find(b"\xff\x4f\xff\x51"), data.find(b"\xff\x93") + 2
+    if k % 3 == 1:
+        data = data[: int(rng.integers(1, len(data)))]
+    else:
+        lo, hi = (sod, len(data) - 2) if k % 3 == 0 else (start, sod)
+        for at in rng.integers(lo, hi, size=1 + k % 2):
+            data[at] = int(rng.integers(0, 256))
+    return bytes(data), jpeg2000_outcome(bytes(data), f"jpeg2000 case {k}", "cpu")
+
+
+def jpeg2000_twin_digest(name: str) -> str:
+    """The twin's pixels' SHA-256 of a corpus file; a worker of the decoder phase's pool."""
+    import hashlib
+
+    from uniir_tpu_torch.data import jpeg2000
+
+    return hashlib.sha256(jpeg2000.decode_twin((JPEG2000_CORPUS / name).read_bytes(), name).tobytes()).hexdigest()
+
+
+def check_jpeg2000(cases: list, twin_digests: list, threads: int, smi: str) -> None:
+    """The native JPEG 2000 decoder (csrc/jpeg2000.cu): every corpus file to Pillow's digest (and the twin to
+    the same digest on the files up to JPEG2000_TWIN_TOP a side), DECODER_CASES seeded derivatives (flipped
+    code-block bytes, cuts, damaged headers) to the twin's outcome, pixels or error alike; then its ms (median
+    of 5) and images/s on one thread and on 16 at 640 x 480 and 1920 x 1080."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from uniir_tpu_torch.data import jpeg2000
+
+    corpus = jpeg2000_corpus()
+    calls = jpeg2000.decode_native.calls
+    for name, entry in corpus.items():
+        out = jpeg2000.decode_native((JPEG2000_CORPUS / name).read_bytes(), name)
+        check(list(out.shape) == entry["shape"] and hashlib.sha256(out.tobytes()).hexdigest() == entry["sha256"],
+              f"decoder phase: the native JPEG 2000 decoder differs from Pillow's pixels of {name}")
+    check(jpeg2000.decode_native.calls - calls == len(corpus),
+          f"decoder phase: the native JPEG 2000 decoder counted {jpeg2000.decode_native.calls - calls} calls for "
+          f"{len(corpus)} files")
+    small = jpeg2000_small()
+    for name, digest in zip(small, twin_digests):
+        check(digest == corpus[name]["sha256"], f"decoder phase: the JPEG 2000 twin differs from Pillow on {name}")
+    log(f"decoder phase: native JPEG 2000 equal to Pillow's digests on all {len(corpus)} corpus files, the twin "
+        f"on the {len(small)} of them up to {JPEG2000_TWIN_TOP} px a side")
+    differ = []
+    for k, (data, want) in enumerate(cases):
+        got = jpeg2000_outcome(data, f"jpeg2000 case {k}", "cuda")
+        if got != want:
+            differ.append((k, want[:80], got[:80]))
+    check(not differ, f"decoder phase: native JPEG 2000 differs from its twin on derivatives {differ[:3]}")
+    refused = sum(":" in want for _, want in cases)
+    log(f"decoder phase: native JPEG 2000 equal to its twin on {len(cases)} seeded derivatives of the corpus files "
+        f"up to {JPEG2000_CASE_TOP} px ({refused} refused alike, {len(cases) - refused} decoded to the same pixels)")
+    for name in JPEG2000_RATE_FILES:
+        data = (JPEG2000_CORPUS / name).read_bytes()
+        h, w = corpus[name]["shape"][:2]
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            jpeg2000.decode_native(data, name)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        with ThreadPoolExecutor(16) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(jpeg2000.decode_native, [data] * 32))
+            many = 32 / (time.perf_counter() - t0)
+        log(f"decoder phase: native JPEG 2000 {name} ({w} x {h}, {len(data)} bytes): {ms:.2f} ms a decode, "
+            f"{1e3 / ms:.1f} images/s ({w * h / ms / 1e3:.2f} Mpixel/s) on one thread, {many:.1f} images/s "
+            f"({many * w * h / 1e6:.2f} Mpixel/s) on 16 threads (host CPU {host_cpu()}; card {smi})")
+
+
 def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     """The decoder phase: the native GIF decoder (csrc/gif.cu), the native JPEG decoder's CMYK, YCCK and RGB
     forms and its SOF1, arithmetic, lossless and smoothed forms (csrc/jpeg.cu), the native WebP decoder
@@ -817,6 +934,7 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
                     f"Mpixel/s on one thread ({px / len(sel):.0f} pixels a file)")
     check_raster_size(cases["raster_size"], threads, smi)
     check_container_size(cases["container_size"], smi)
+    check_jpeg2000(cases["jpeg2000"], cases["jpeg2000_twin"], threads, smi)
     log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3097,7 +3215,9 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
 TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi",
-               "dds_bc7", "psd_rle")
+               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible")
+# phase 10's JPEG 2000 queries: files of the stored corpus (no JPEG 2000 writer here)
+JPEG2000_QUERIES = {"jp2_lossless": "11_rlcp.jp2", "j2k_irreversible": "59_vga_irreversible.j2k"}
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
 
 
@@ -3105,7 +3225,7 @@ def swapped_decoders():
     """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call),
     each file's bytes decoded once: the loader pads a one-query batch by repeating its row, and the numpy
     twins would decode the same bytes to the same pixels BATCH times.  Call the result to swap them back."""
-    from uniir_tpu_torch.data import dds, gif, icns, jpeg, msp, pcx, png, psd, qoi, sgi, sun, tga, tiff, webp
+    from uniir_tpu_torch.data import dds, gif, icns, jpeg, jpeg2000, msp, pcx, png, psd, qoi, sgi, sun, tga, tiff, webp
 
     def decoded_once(twin):
         pixels = {}
@@ -3117,7 +3237,8 @@ def swapped_decoders():
 
         return decode
 
-    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp, qoi, tga, sgi, pcx, sun, msp, dds, icns, psd)]
+    saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp, qoi, tga, sgi, pcx, sun, msp, dds, icns, psd,
+                                          jpeg2000)]
     for module, _ in saved:
         module.decoder_for = lambda device, twin=decoded_once(module.decode_twin): twin
 
@@ -3132,12 +3253,12 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
                       per_batch: int) -> None:
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
     lossy WebP, a lossless WebP with alpha, an LZW TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
-    QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD) through the interactive retriever: the native decoder
-    (GIF / JPEG / WebP / TIFF, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS; BMP has one
-    decoder), K1, K2; held to
+    QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD, a lossless JP2 or an irreversible J2K file of the
+    stored corpus) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF / JPEG
+    2000, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS; BMP has one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
-    from uniir_tpu_torch.data import gif, jpeg, tiff, webp
+    from uniir_tpu_torch.data import gif, jpeg, jpeg2000, tiff, webp
     from uniir_tpu_torch.retrieval.interactive import InteractiveRetriever
 
     root = str(WORK)
@@ -3147,7 +3268,8 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native, "webp_lossy": webp.decode_native,
               "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native,
               "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative(),
-              "dds_bc7": ContainerNative(), "psd_rle": ContainerNative()}.get(form)
+              "dds_bc7": ContainerNative(), "psd_rle": ContainerNative(), "jp2_lossless": jpeg2000.decode_native,
+              "j2k_irreversible": jpeg2000.decode_native}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -7156,7 +7278,8 @@ def fixture_image(seed: int) -> np.ndarray:
 
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
 FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
-               "tiff": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd"}
+               "tiff": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd", "jp2_lossless": "jp2",
+               "j2k_irreversible": "j2k"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -7184,9 +7307,12 @@ def fixture_file(form: str, seed: int) -> bytes:
     alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk); `tiff` (LZW, the
     horizontal predictor, 32 x 32 tiles, big-endian), `jpeg_arith` (arithmetic-coded, libjpeg's simple
     progression, quality 90), `tga_rle` (24-bit RLE, bottom-up), `qoi` (RGB), `dds_bc7` (BC7 mode 6 blocks,
-    `bc7_mode6`) and `psd_rle` (RGB, PackBits rows)."""
+    `bc7_mode6`), `psd_rle` (RGB, PackBits rows) and the JPEG 2000 files of JPEG2000_QUERIES (the stored
+    corpus's)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
+    if form in JPEG2000_QUERIES:
+        return (JPEG2000_CORPUS / JPEG2000_QUERIES[form]).read_bytes()
     img = fixture_image(seed)
     if form == "jpeg":
         return jpeg_bytes(img)
@@ -7944,6 +8070,7 @@ P13_COUNTS = {"mscoco": 170, "cirr": 60, "fashioniq": 60, "fashion200k": 60, "ed
 P13_FORMS = ("jpeg", "jpeg_comment", "progressive", "jpeg", "png_palette_trns", "png_comment", "jpeg",
              "gif_comment", "jpeg_cmyk", "jpeg", "ico", "ppm", "jpeg_444", "pgm", "png_rgb", "jpeg", "webp")
 P13_SMALL = ("webp", "ico")  # forms written at most 160 px a side (the script's WebP writer is slow)
+P13_JP2 = "58_vga_irreversible.jp2"  # MSCOCO's JPEG 2000 file, from the corpus (tests/data/jpeg2000)
 P13_CONVERTERS = ("mscoco", "cirr", "fashioniq", "fashion200k", "edis", "nights", "visualnews", "webqa", "oven",
                   "infoseek")
 P13_VN_SAMPLES = (12, 3, 3)  # VisualNews' --train_samples / --val_samples / --test_samples a source
@@ -7981,7 +8108,8 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
     """The bytes of one raw image file of `form` (P13_FORMS, or `truncated`: a baseline JPEG cut in its scan,
     `garbage`: an HTML error page, which no image reader identifies, `psd`: a PSD header of no mode Pillow
     reads and noise after it, which no reader identifies either, `blp`: a format the port does not decode
-    yet, a BLP2 header of an encoding Pillow's decoder refuses and noise after it)."""
+    yet, a BLP2 header of an encoding Pillow's decoder refuses and noise after it, `jp2`: a JPEG 2000 file of
+    the stored corpus, P13_JP2)."""
     if form == "progressive":  # Pillow-made files of their own size
         return base64.b64decode(PROGRESSIVE_FILES[sorted(PROGRESSIVE_FILES)[seed % 3]][0])
     if form == "garbage":  # what a scraper saves as the image when the server answers with an error page
@@ -7993,6 +8121,8 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
     if form == "blp":
         body = np.random.default_rng(seed).integers(0, 256, 256, dtype=np.uint8).tobytes()
         return b"BLP2" + struct.pack("<i4BII", 1, 9, 0, 0, 0, w, h) + body
+    if form == "jp2":  # no JPEG 2000 writer here: a 640 x 480 file of the stored corpus
+        return (JPEG2000_CORPUS / P13_JP2).read_bytes()
     if form in P13_SMALL:
         w, h = min(w, 160), min(h, 160)
     img = raw_image(seed, w, h)
@@ -8043,10 +8173,10 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     src_data/<dataset>/, images under mbeir_images/<dataset>_images/ named as the source names them and
     written in P13_FORMS' forms at the sources' sizes times `side` (COCO's 640 x 480 and 500 x 375 kinds, up
     to 1600 px for OVEN / InfoSeek), by `pool`'s workers if given.  MSCOCO also holds a missing image, a
-    truncated JPEG, an HTML page under a .jpg name and (with `refused`) a PSD file no reader identifies under a
-    .png name and a BLP file, a format the port does not decode yet, under a .jpg name.  Returns {"images": {path: form},
-    "truncated": path, "garbage": path, "unidentified": path or None, "refused": path or None, "captions":
-    [every caption and question]}."""
+    truncated JPEG, an HTML page under a .jpg name, a JP2 file under a .jpg name and (with `refused`) a PSD
+    file no reader identifies under a .png name and a BLP file, a format the port does not decode yet, under a
+    .jpg name.  Returns {"images": {path: form}, "truncated": path, "garbage": path, "unidentified": path or
+    None, "refused": path or None, "jp2": path, "captions": [every caption and question]}."""
     counts = {**P13_COUNTS, **(counts or {})}
     rng = np.random.default_rng(P13_SEED)
     vocab = fixture_words(rng, 400)
@@ -8084,7 +8214,8 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
         if i % 9 == 1:
             caps[2] = caps[1]  # a repeated caption: the pool holds it once
         coco[split].append({"image": name, "caption": caps if i % 11 else caps[0], "image_id": i})
-        form = {8: "truncated", 10: "psd" if refused else None, 12: "blp" if refused else None, 13: "garbage"}.get(i)
+        form = {8: "truncated", 10: "psd" if refused else None, 12: "blp" if refused else None, 13: "garbage",
+                14: "jp2"}.get(i)
         if i != 5:  # image 5 is missing
             image(f"mbeir_images/mscoco_images/{name}", photo(), form)
         if form:
@@ -8238,7 +8369,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
         list(pool.map(write_raw_file, jobs, chunksize=4))
     return {"images": {p: form for p, form, *_ in jobs}, "truncated": special["truncated"],
             "garbage": special["garbage"], "unidentified": special.get("psd"), "refused": special.get("blp"),
-            "captions": texts}
+            "jp2": special.get("jp2"), "captions": texts}
 
 
 P13_GENERATOR_FLAGS = ("--generate_union_train_cand_pool", "--generate_union_all_cand_pool", "--unify_train_data",
@@ -8457,6 +8588,10 @@ def drive_construction(results: dict, smi: str) -> None:
         check(not any(in_cli[k].exists() for k in special[:3]) and in_cli["refused"].exists(),
               "phase 13: the truncated JPEG, the HTML page and the unidentified PSD file must be deleted and the BLP "
               "file left in place")
+        jp2_out = Path(raw["jp2"].replace(str(root / "raw"), str(root / "cli")))
+        check(jp2_out.read_bytes()[:2] == b"\xff\xd8", "phase 13: the JP2 file under a .jpg name was not converted")
+        log(f"phase 13: the JP2 file ({P13_JP2}) converted to a JPEG of {jp2_out.stat().st_size} bytes, held to the "
+            "twins' pass with every other file")
 
         # the rates, alone on the host: one process stage by stage over a seeded sample of the raw images, then
         # the pass's pool over all of them in a process of its own (as a CLI runs it: the pool's workers import
@@ -8617,7 +8752,7 @@ def main() -> None:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; device {torch.cuda.get_device_name(0)}")
     names = ("attention", "attention_bwd", "topk", "int8_matmul", "int8_mlp", "preprocess", "jpeg", "png", "gif", "webp",
-             "tiff", "jpeg_encode", "raster", "bcn")
+             "tiff", "jpeg_encode", "raster", "bcn", "jpeg2000")
     _build.build_all(names)  # one nvcc per source, all at once
     for name in names:
         _build.load(name)

@@ -9,7 +9,7 @@ mode of Pillow's MODES, raw and PackBits, with and without resources and a layer
 section; DDS blocks of every BC format from seeded bits, uncompressed masks,
 palettes; ICNS RLE entries with their masks), on every truncation and on seeded
 corruptions of them.  Pillow is read from a file, as the JAX package reads it.
-An ICNS JPEG 2000 entry is refused by name, as a JPEG 2000 file is.
+An ICNS JPEG 2000 entry decodes as Pillow decodes it (data/jpeg2000.py).
 
 The native stages (PSD's PackBits and ICNS's RLE in csrc/raster.cu, DDS's block
 and mask decoders in csrc/bcn.cu, built by nvcc on the card's machine) are held
@@ -318,17 +318,33 @@ def test_icns_entries_pillow_refuses():
 
 
 def test_icns_jpeg2000_entry_is_named():
-    """Pillow decodes an ICNS entry in JPEG 2000 (OpenJPEG); the port, which does not decode JPEG 2000,
-    raises UnsupportedImageFormat naming it, so the image pass leaves the file in place."""
+    """Pillow decodes an ICNS entry in JPEG 2000 (OpenJPEG) and converts it to RGBA; the port decodes it
+    through data/jpeg2000.py to the same pixels: a JP2 and a J2K entry, a JP2 whose `colr` says CMYK, a
+    grey one, an entry of a size Pillow does not allow, a cut one and one behind the bare JP2 signature
+    Pillow's plugin does not open."""
     from PIL import Image
 
-    buf = io.BytesIO()
-    Image.fromarray(rng_image(8, 32, 32, 3)).save(buf, "JPEG2000")
-    data = chip_smoke.icns_bytes([(b"icp5", buf.getvalue())])
-    assert pillow(data)[0] == "ICNS"
-    assert jpeg.image_format(data) == "icns"
-    with pytest.raises(jpeg.UnsupportedImageFormat, match="JPEG 2000"):
-        jpeg.decode_image(data, "f", "cpu")
+    img = rng_image(8, 32, 32, 4)
+    entries = {}
+    for key, mode, options in (("jp2", "RGB", {}), ("j2k", "RGB", {"no_jp2": True}), ("grey", "L", {}),
+                               ("cmyk", "RGBA", {}), ("small", "RGB", {})):
+        buf = io.BytesIO()
+        Image.fromarray(img[:20, :20] if key == "small" else img).convert(mode).save(buf, "JPEG2000", **options)
+        entries[key] = buf.getvalue()
+    cmyk = entries["cmyk"]
+    at = cmyk.index(b"colr") + 7
+    entries["cmyk"] = cmyk[:at] + (12).to_bytes(4, "big") + cmyk[at + 4 :]
+    entries["cut"] = entries["jp2"][: len(entries["jp2"]) // 2]
+    entries["bare signature"] = entries["jp2"][8:]
+    for key, entry in entries.items():
+        data = chip_smoke.icns_bytes([(b"icp5", entry)])
+        assert jpeg.image_format(data) == "icns", key
+        assert_same(data, key)
+        if key in ("jp2", "j2k", "grey", "cmyk"):
+            assert pillow(data)[0] == "ICNS", key
+            np.testing.assert_array_equal(jpeg.decode_image(data, "f", "cpu"), pillow(data)[1])
+        else:
+            assert pillow(data) is None, key
 
 
 # --- cuts and corruptions

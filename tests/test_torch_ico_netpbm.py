@@ -212,17 +212,18 @@ def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
 
 # (Pillow's save format, mode, the port's name for it): formats Image.open reads that the port does not decode
 # (TGA, IM, PCX, SGI, DIB, MSP, XBM and QOI are decoded now: their cases are in tests/test_torch_raster_formats.py;
-# ICNS and DDS too, whose cases here decode as Pillow does, more in tests/test_torch_container_formats.py)
+# ICNS, DDS and JPEG 2000 too, whose cases here decode as Pillow does, more in tests/test_torch_container_formats.py
+# and tests/test_torch_jpeg2000*.py)
 PILLOW_WRITTEN_REFUSED = [("SPIDER", "F", "SPIDER"), ("EPS", "RGB", "EPS"), ("ICNS", "RGB", "icns"),
-                          ("DDS", "RGB", "dds"), ("JPEG2000", "RGB", "JPEG 2000")]
+                          ("DDS", "RGB", "dds"), ("JPEG2000", "RGB", "jpeg2000")]
 
 
 @pytest.mark.parametrize("case", PILLOW_WRITTEN_REFUSED,
                          ids=[f"{c[0]}-{c[1]}{'-rle' if len(c) > 3 else ''}" for c in PILLOW_WRITTEN_REFUSED])
 def test_files_pillow_writes_in_formats_not_decoded_are_named(case):
     """A file Pillow writes and reads back, in a format the port does not decode, raises
-    UnsupportedImageFormat naming the format: the image pass leaves it in place.  ICNS and DDS, decoded
-    now, give Pillow's pixels."""
+    UnsupportedImageFormat naming the format: the image pass leaves it in place.  ICNS, DDS and JPEG 2000,
+    decoded now, give Pillow's pixels."""
     from PIL import Image
 
     fmt, mode, label, *options = case
@@ -233,7 +234,7 @@ def test_files_pillow_writes_in_formats_not_decoded_are_named(case):
     data = buf.getvalue()
     assert Image.open(io.BytesIO(data)).format == fmt
     assert jpeg.image_format(data) == label
-    if label in ("icns", "dds"):
+    if label in ("icns", "dds", "jpeg2000"):
         np.testing.assert_array_equal(jpeg.decode_image(data, "f", "cpu"), pillow(data))
         return
     with pytest.raises(jpeg.UnsupportedImageFormat, match=rf"^f: {label} image"):
@@ -268,7 +269,7 @@ def test_data_no_reader_identifies_is_corrupt(name):
 PILLOW_OPENERS = {"AVIF": "AVIF", "BLP": "BLP", "BMP": "bmp", "DIB": "dib", "BUFR": "BUFR", "CUR": "cur",
                   "PCX": "pcx", "DCX": "dcx", "DDS": "dds", "EPS": "EPS", "FITS": "FITS", "FLI": "FLI",
                   "FTEX": "FTEX", "GBR": "GBR", "GIF": "gif", "GRIB": "GRIB", "HDF5": "HDF5", "PNG": "png",
-                  "JPEG2000": "JPEG 2000", "ICNS": "icns", "ICO": "ico", "IM": "im", "IMT": "IMT", "IPTC": "IPTC",
+                  "JPEG2000": "jpeg2000", "ICNS": "icns", "ICO": "ico", "IM": "im", "IMT": "IMT", "IPTC": "IPTC",
                   "JPEG": "jpeg", "MCIDAS": "McIdas", "MPEG": "MPEG", "TIFF": "tiff", "MSP": "msp", "PCD": "PCD",
                   "PIXAR": "PIXAR", "PPM": "netpbm", "PSD": "psd", "QOI": "qoi", "SGI": "sgi", "SPIDER": "SPIDER",
                   "SUN": "sun", "TGA": "tga", "WEBP": "webp", "WMF": "WMF", "XBM": "xbm", "XPM": "xpm",
@@ -283,5 +284,5 @@ def test_every_format_pillow_identifies_is_decoded_or_named():
     Image.init()
     assert set(Image.ID) <= set(PILLOW_OPENERS), sorted(set(Image.ID) - set(PILLOW_OPENERS))
     decoded = {"jpeg", "png", "gif", "bmp", "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "im", "msp",
-               "qoi", "sgi", "sun", "tga", "xbm", "xpm", "dds", "icns", "psd"}
+               "qoi", "sgi", "sun", "tga", "xbm", "xpm", "dds", "icns", "psd", "jpeg2000"}
     assert set(PILLOW_OPENERS.values()) == {label for _, label in jpeg._REFUSED} | decoded

@@ -29,7 +29,11 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.dataset",
     "uniir_tpu_torch.data.gif",
     "uniir_tpu_torch.data.ico",
+    "uniir_tpu_torch.data.j2k_dwt",
+    "uniir_tpu_torch.data.j2k_t1",
+    "uniir_tpu_torch.data.j2k_t2",
     "uniir_tpu_torch.data.jpeg",
+    "uniir_tpu_torch.data.jpeg2000",
     "uniir_tpu_torch.data.jpeg_encode",
     "uniir_tpu_torch.data.loader",
     "uniir_tpu_torch.data.netpbm",

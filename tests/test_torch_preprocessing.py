@@ -102,8 +102,8 @@ def test_converter_outputs_and_statistics_match_jax(built, name):
 
 def test_image_pass_deletes_what_jax_deletes_and_writes_every_form(built):
     """The same files are gone on both sides -- the truncated JPEG, the HTML page no reader identifies, each
-    source a .jpg replaced -- and every form of P13_FORMS went through the pass (its .jpg written, equal
-    above)."""
+    source a .jpg replaced -- and every form of P13_FORMS and MSCOCO's JP2 file went through the pass (its
+    .jpg written, equal above)."""
     raw = built["raw"]["images"]
     gone = {side: sorted(p for p in raw if not (built["trees"][side] / Path(p).relative_to(built["root"] / "raw")).exists())
             for side in ("jax", "port")}
@@ -111,7 +111,7 @@ def test_image_pass_deletes_what_jax_deletes_and_writes_every_form(built):
     assert built["raw"]["truncated"] in gone["jax"] and built["raw"]["garbage"] in gone["jax"]
     written = {Path(p).relative_to(built["root"] / "raw").with_suffix(".jpg").as_posix(): form for p, form in raw.items()}
     forms = {form for rel, form in written.items() if rel in built["files"]["port"] and form not in ("truncated", "garbage")}
-    assert forms == set(chip_smoke.P13_FORMS)
+    assert forms == set(chip_smoke.P13_FORMS) | {"jp2"}
     counts = [line for line in built["runs"]["port", "mscoco"].stdout.splitlines() if line.startswith("Number of c")]
     assert counts == ["Number of corrupted files: 2"]
 

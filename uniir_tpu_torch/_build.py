@@ -1,6 +1,6 @@
 """Build the port's CUDA kernels (and the host image decoders, `csrc/jpeg.cu`,
 `csrc/png.cu`, `csrc/gif.cu`, `csrc/webp.cu`, `csrc/tiff.cu`,
-`csrc/raster.cu` and `csrc/bcn.cu`, and the host JPEG encoder
+`csrc/raster.cu`, `csrc/bcn.cu` and `csrc/jpeg2000.cu`, and the host JPEG encoder
 `csrc/jpeg_encode.cu`) at first use and load them with ctypes.
 
 Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
@@ -93,6 +93,9 @@ SIGNATURES = {
            for kind in ("bc1", "bc2", "bc3", "bc4", "bc5", "bc6h", "bc7")},
         "uniir_bcn_rgb_masks": (_P, _S, _S, _I, _I, _S, _P, _I, _P, _P, _I),
     },
+    "jpeg2000": {
+        "uniir_jpeg2000_decode": (_P, ctypes.c_int64, _P, _S, _P, _P, _P, _I),
+    },
     "webp": {
         "uniir_webp_info": (_P, _S, _P, _P, _I),
         "uniir_webp_decode": (_P, _S, _P, _I, _I, _P, _I),
@@ -113,6 +116,11 @@ SIGNATURES = {
 DEFINES = {
     "topk": {"UNIIR_SWEEP_MAX_D_BF16": 768, "UNIIR_SWEEP_MAX_D_I8": 1152},
 }
+# host-compiler flags a library adds: the JPEG 2000 decoder's 9/7 transform and ICT round every float32
+# product and sum on its own, as OpenJPEG's SSE2 build does, so the host compiler may not fuse them
+HOST_FLAGS = {
+    "jpeg2000": ("-Xcompiler", "-ffp-contract=off"),
+}
 
 _loaded: dict = {}
 # seconds spent compiling each library in this process (0.0 when it was
@@ -128,7 +136,7 @@ def _nvcc() -> str:
 
 
 def _flags(name: str) -> list:
-    return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in DEFINES.get(name, {}).items())]
+    return [*NVCC_FLAGS, *HOST_FLAGS.get(name, ()), *(f"-D{k}={v}" for k, v in DEFINES.get(name, {}).items())]
 
 
 def _source_hash(name: str) -> str:

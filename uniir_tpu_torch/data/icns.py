@@ -10,19 +10,21 @@ For an ICNS file this module gives the same uint8 [H, W, 3] array as Pillow
   * the size Pillow shows, `bestsize`: the largest (width, height, scale)
     of SIZES that names an entry present, a mask alone included;
   * every entry of that size read in SIZES' order: a PNG entry decoded by
-    `data/png.py` from its offset on (its size must be one Pillow allows
-    for the file's sizes); `it32` (after its 4 zero bytes), `ih32`, `il32`
-    and `is32` read raw where their length is 3 x the pixels, else as three
+    `data/png.py` from its offset on, a JPEG 2000 entry (a codestream or a
+    JP2 file) by `data/jpeg2000.py` over the entry's bytes (either one's
+    size must be one Pillow allows for the file's sizes); `it32` (after its
+    4 zero bytes), `ih32`, `il32` and `is32` read raw where their length is 3 x the pixels, else as three
     RLE channels by `raster.icns_rle`; the `*8mk` masks read (only for their
     errors: convert("RGB") drops the alpha they give);
-  * a PNG entry wins over the RLE one of its size.
+  * a PNG or JPEG 2000 entry wins over the RLE one of its size.
 
-A JPEG 2000 entry raises UnsupportedImageFormat naming JPEG 2000, as a plain
-JPEG 2000 file does.  A header or resource list cut short, an entry of
+A JPEG 2000 form the port does not decode raises UnsupportedImageFormat, as
+a plain JPEG 2000 file does.  A header or resource list cut short, an entry of
 length 0 or no entry of a size Pillow knows is not an ICNS file to
 Image.open (it tries its next reader); anything Pillow's load refuses (an
 unknown entry signature, an RLE channel that misses its size, data cut
-short, a PNG of a size it does not allow, a mask alone) raises ValueError
+short, a PNG or JPEG 2000 image of a size it does not allow, a mask alone, a
+JPEG 2000 entry Pillow's plugin refuses) raises ValueError
 naming the file.
 """
 
@@ -33,7 +35,7 @@ from typing import Callable
 
 import numpy as np
 
-from uniir_tpu_torch.data import png, raster
+from uniir_tpu_torch.data import jpeg2000, png, raster
 
 SIGNATURE = b"icns"
 # (width, height, scale) -> [(entry type, reader)], in IcnsFile.SIZES' order
@@ -83,8 +85,6 @@ def _allowed(sizes: list, width: int, height: int) -> bool:
 
 def decode(data: bytes, name: str = "<bytes>", native: bool = False) -> np.ndarray:
     """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of an ICNS file."""
-    from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
-
     data = bytes(data)
     p = parse(data, name)
     best = p["best"]
@@ -99,9 +99,13 @@ def decode(data: bytes, name: str = "<bytes>", native: bool = False) -> np.ndarr
             sig = data[start : start + 12]
             if sig.startswith(png.SIGNATURE):
                 rgba = start
-            elif sig.startswith(JPEG2000) or sig == b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a":
-                raise UnsupportedImageFormat(f"{name}: ICNS entry {kind.decode('latin-1')} in JPEG 2000: only its "
-                                             f"PNG and RLE entries are decoded")
+            elif sig.startswith(JPEG2000) or sig == jpeg2000.JP2_SIGNATURE:
+                # Pillow opens the entry's bytes as a JPEG 2000 file and converts it to RGBA at once
+                entry = data[start : start + length]
+                try:
+                    rgba = (jpeg2000.decode_native if native else jpeg2000.decode_twin)(entry, name)
+                except raster.NotThisFormat as e:
+                    raise ValueError(f"{name}: ICNS entry {kind.decode('latin-1')}: {e}") from None
             else:
                 raise ValueError(f"{name}: ICNS entry {kind.decode('latin-1')}: unsupported icon subimage format")
         elif reader == "mask":
@@ -120,10 +124,13 @@ def decode(data: bytes, name: str = "<bytes>", native: bool = False) -> np.ndarr
                 planes = raster.expander("icns_rle", native)(data, start, pixels, name)
                 rgb = np.frombuffer(planes, np.uint8).reshape(3, h, w).transpose(1, 2, 0)
     if rgba is not None:
-        decoder = png.decode_native if native else png.decode_twin
-        out = decoder(data[rgba:], name)
+        if isinstance(rgba, int):
+            decoder = png.decode_native if native else png.decode_twin
+            out = decoder(data[rgba:], name)
+        else:
+            out = rgba
         if not _allowed(p["sizes"], out.shape[1], out.shape[0]):
-            raise ValueError(f"{name}: ICNS PNG of {out.shape[1]} x {out.shape[0]} (not one of the allowed sizes)")
+            raise ValueError(f"{name}: ICNS image of {out.shape[1]} x {out.shape[0]} (not one of the allowed sizes)")
         return out
     if rgb is None:
         raise ValueError(f"{name}: ICNS size {best} holds a mask and no image")

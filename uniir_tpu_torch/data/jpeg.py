@@ -76,8 +76,9 @@ build or load raises.
 (FF D8), PNG (the eight-byte PNG signature), GIF (GIF87a / GIF89a), BMP
 (BM), WebP (RIFF / WEBP with a first chunk `VP8 `, `VP8L` or `VP8X`, as
 Pillow's `_accept` takes it), TIFF (Pillow's six prefixes), ICO / CUR and
-Netpbm (P and one of 0-6, f, y) are decoded; the other formats Pillow's
-Image.open identifies (AVIF, JPEG 2000, BLP, FITS, EPS, ...)
+Netpbm (P and one of 0-6, f, y) are decoded, and so are the formats of
+`_DECODED` (JPEG 2000 among them) found in Image.open's order; the other
+formats Pillow's Image.open identifies (AVIF, BLP, FITS, EPS, ...)
 raise `UnsupportedImageFormat`, a ValueError naming the file and the format,
 told apart from corrupt data, which raises the decoders' own ValueError, as
 does a file no format names ("unknown"), which Image.open cannot identify.
@@ -102,7 +103,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from uniir_tpu_torch.data import bmp, dds, gif, icns, ico, im, msp, netpbm, pcx, png, psd, qoi, raster, sgi, sun
-from uniir_tpu_torch.data import tga, tiff, webp, xbm, xpm
+from uniir_tpu_torch.data import jpeg2000, tga, tiff, webp, xbm, xpm
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -1298,7 +1299,6 @@ _REFUSED = (
     (_gbr, "GBR"),
     (lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "GRIB"),
     (lambda d: d[:4] == b"\x89HDF", "HDF5"),
-    (lambda d: d[:4] == b"\xff\x4f\xff\x51" or d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n", "JPEG 2000"),
     (_imt, "IMT"),
     (_iptc, "IPTC"),
     (lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", "McIdas"),
@@ -1315,12 +1315,13 @@ _REFUSED = (
 # and the ones decoded here (WebP, TIFF and ICO / CUR are tested before them: no reader before theirs takes
 # their signatures)
 _ORDER = ("AVIF", "BLP", "BUFR", "pcx", "dcx", "dds", "EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5",
-          "JPEG 2000", "icns", "im", "IMT", "IPTC", "McIdas", "MPEG", "msp", "PCD", "PIXAR", "psd", "qoi", "sgi",
+          "jpeg2000", "icns", "im", "IMT", "IPTC", "McIdas", "MPEG", "msp", "PCD", "PIXAR", "psd", "qoi", "sgi",
           "SPIDER", "sun", "tga", "WMF", "xbm", "xpm", "XVThumb")
 _DECODED = {
     "pcx": (pcx.accepts, pcx.parse),
     "dcx": (pcx.dcx_accepts, lambda d: pcx.parse(d, at=pcx.dcx_first_page(d))),
     "dds": (dds.accepts, dds.parse), "icns": (icns.accepts, icns.parse),
+    "jpeg2000": (jpeg2000.accepts, jpeg2000.open_header),
     "im": (im.accepts, im.parse), "msp": (msp.accepts, msp.parse), "psd": (psd.accepts, psd.parse),
     "qoi": (qoi.accepts, qoi.parse), "sgi": (sgi.accepts, sgi.parse), "sun": (sun.accepts, sun.parse),
     "tga": (tga.accepts, tga.parse), "xbm": (xbm.accepts, xbm.parse), "xpm": (xpm.accepts, xpm.parse),
@@ -1488,10 +1489,13 @@ def is_jpeg(data: bytes) -> bool:
 def image_comment(data: bytes, name: str = "<bytes>"):
     """The comment Pillow keeps in `info["comment"]` and its JPEG writer carries over: a JPEG file's last
     COM segment before the scan, a GIF's comment extensions before the first image joined by newlines, a
-    PNG's last text chunk keyed "comment" (a str, written as UTF-8); None for every other file."""
+    PNG's last text chunk keyed "comment" (a str, written as UTF-8), a JPEG 2000 file's first COM segment of
+    its main header after its Rcom; None for every other file."""
     kind = image_format(data)
     if kind == "jpeg":
         return open_header(data, name)[2]
+    if kind == "jpeg2000":
+        return jpeg2000.open_header(data, name).comment
     if kind == "gif":
         return gif.parse(data, name).comment or None
     if kind == "png":
@@ -1506,8 +1510,8 @@ class UnsupportedImageFormat(ValueError):
 
 def image_format(data: bytes) -> str:
     """The format a file's first bytes name, as Image.open tries its readers: "jpeg", "png", "gif", "bmp",
-    "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "dds", "icns", "im", "msp", "psd", "qoi",
-    "sgi", "sun", "tga", "xbm", "xpm", or the name of another format Pillow's Image.open identifies ("AVIF",
+    "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "dds", "icns", "im", "jpeg2000", "msp", "psd",
+    "qoi", "sgi", "sun", "tga", "xbm", "xpm", or the name of another format Pillow's Image.open identifies ("AVIF",
     "BLP", ...), or "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
@@ -1533,8 +1537,8 @@ def image_format(data: bytes) -> str:
     return next((kind for kind in _ORDER if _takes(kind, data)), "unknown")
 
 
-DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, DDS, ICNS, IM, MSP, PSD, QOI, "
-           "SGI, Sun raster, TGA, XBM and XPM")
+DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, DDS, ICNS, IM, JPEG 2000, MSP, "
+           "PSD, QOI, SGI, Sun raster, TGA, XBM and XPM")
 
 
 def decode_image(data: bytes, name: str, device) -> np.ndarray:
@@ -1548,9 +1552,10 @@ def decode_image(data: bytes, name: str, device) -> np.ndarray:
     kind = image_format(data)
     if kind == "jpeg":
         return decoder_for(device)(data, name)
-    if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga", "dds", "icns", "psd"):
+    if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga", "dds", "icns", "psd",
+                "jpeg2000"):
         modules = {"png": png, "gif": gif, "webp": webp, "tiff": tiff, "pcx": pcx, "msp": msp, "qoi": qoi,
-                   "sgi": sgi, "sun": sun, "tga": tga, "dds": dds, "icns": icns, "psd": psd}
+                   "sgi": sgi, "sun": sun, "tga": tga, "dds": dds, "icns": icns, "psd": psd, "jpeg2000": jpeg2000}
         return modules[kind].decoder_for(device)(data, name)
     if kind == "dcx":
         return pcx.dcx_decoder_for(device)(data, name)

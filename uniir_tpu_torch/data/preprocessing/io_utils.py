@@ -258,7 +258,7 @@ def save_and_print_mbeir_format_dataset_stats(data: list, data_file_path: str, c
 
 
 # the host libraries a CUDA run's image pass calls: the decoders of `decode_image` and the encoder
-NATIVE_LIBRARIES = ("jpeg", "png", "gif", "webp", "tiff", "raster", "bcn", "jpeg_encode")
+NATIVE_LIBRARIES = ("jpeg", "png", "gif", "webp", "tiff", "raster", "bcn", "jpeg2000", "jpeg_encode")
 
 
 def image_pass_device(device=None) -> str:
@@ -367,9 +367,9 @@ NATIVE_CALLS = {"decode": 0, "encode": 0}
 
 
 def _native_calls() -> tuple:
-    from uniir_tpu_torch.data import gif, jpeg, jpeg_encode, png, tiff, webp
+    from uniir_tpu_torch.data import gif, jpeg, jpeg2000, jpeg_encode, png, tiff, webp
 
-    decodes = sum(m.decode_native.calls for m in (jpeg, png, gif, webp, tiff))
+    decodes = sum(m.decode_native.calls for m in (jpeg, png, gif, webp, tiff, jpeg2000))
     return decodes, jpeg_encode.encode_native.calls
 
 
