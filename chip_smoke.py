@@ -673,7 +673,8 @@ def start_decoder_cases(pool) -> dict:
     that they are written and decoded while the card checks its kernels; kind -> futures."""
     # JPEG 2000's twin work first, the longest items (a Python tier 1), so they do not make the pool's tail
     pending = {"jpeg2000_twin": [pool.submit(jpeg2000_twin_digest, name) for name in jpeg2000_small()],
-               "jpeg2000": [pool.submit(jpeg2000_case, k) for k in range(DECODER_CASES)]}
+               "jpeg2000": [pool.submit(jpeg2000_case, k) for k in range(DECODER_CASES)],
+               "jpeg_damage": [pool.submit(jpeg_damage_case, k) for k in range(JPEG_DAMAGE_CASES)]}
     pending.update({kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)]
                     for kind in DECODER_KINDS})
     pending["raster_size"] = [pool.submit(raster_size_case, form) for form in RASTER_CASE_FORMS]
@@ -770,7 +771,7 @@ def jpeg2000_small(top: int = JPEG2000_TWIN_TOP) -> list:
     return [name for name, e in jpeg2000_corpus().items() if max(e["shape"][:2]) <= top]
 
 
-def jpeg2000_outcome(data: bytes, name: str, device: str) -> str:
+def image_outcome(data: bytes, name: str, device: str) -> str:
     """`data.jpeg.decode_image`'s pixels' SHA-256 on `device`, or its error's type and message."""
     import hashlib
 
@@ -797,7 +798,7 @@ def jpeg2000_case(k: int) -> tuple:
         lo, hi = (sod, len(data) - 2) if k % 3 == 0 else (start, sod)
         for at in rng.integers(lo, hi, size=1 + k % 2):
             data[at] = int(rng.integers(0, 256))
-    return bytes(data), jpeg2000_outcome(bytes(data), f"jpeg2000 case {k}", "cpu")
+    return bytes(data), image_outcome(bytes(data), f"jpeg2000 case {k}", "cpu")
 
 
 def jpeg2000_twin_digest(name: str) -> str:
@@ -835,7 +836,7 @@ def check_jpeg2000(cases: list, twin_digests: list, threads: int, smi: str) -> N
         f"on the {len(small)} of them up to {JPEG2000_TWIN_TOP} px a side")
     differ = []
     for k, (data, want) in enumerate(cases):
-        got = jpeg2000_outcome(data, f"jpeg2000 case {k}", "cuda")
+        got = image_outcome(data, f"jpeg2000 case {k}", "cuda")
         if got != want:
             differ.append((k, want[:80], got[:80]))
     check(not differ, f"decoder phase: native JPEG 2000 differs from its twin on derivatives {differ[:3]}")
@@ -858,6 +859,144 @@ def check_jpeg2000(cases: list, twin_digests: list, threads: int, smi: str) -> N
         log(f"decoder phase: native JPEG 2000 {name} ({w} x {h}, {len(data)} bytes): {ms:.2f} ms a decode, "
             f"{1e3 / ms:.1f} images/s ({w * h / ms / 1e3:.2f} Mpixel/s) on one thread, {many:.1f} images/s "
             f"({many * w * h / 1e6:.2f} Mpixel/s) on 16 threads (host CPU {host_cpu()}; card {smi})")
+
+
+# the damaged-JPEG corpus scripts/make_damaged_jpegs.py writes with Pillow (and the writers here), which this
+# machine does not have: each file beside the shape and SHA-256 of Pillow's pixels or the class of Pillow's error
+# (digests.json); its clean_* files are the sources of the seeded derivatives
+JPEG_DAMAGE_CORPUS = REPO / "tests" / "data" / "jpeg_damage"
+JPEG_DAMAGE_KINDS = ("flip", "zeros", "cut", "tail_zero", "junk_segment", "junk_eoi", "rst_missing", "rst_repeated",
+                     "rst_wrong", "rst_marker")
+JPEG_DAMAGE_CASES = 240  # seeded derivatives of the corpus's clean files, held native against twin
+JPEG_CLEAN_RATE_FILE = "clean_vga_420.jpg"  # 640 x 480 baseline 4:2:0, Pillow's quality 85
+JPEG_DAMAGE_RATE_FILES = ("vga_420_flips.jpg", "vga_420_zeros.jpg", "vga_restart_rst_missing.jpg",
+                          "hd_420_flips_zeros.jpg")
+JPEG_DAMAGE_QUERY = "vga_420_flips.jpg"  # phase 10's damaged query
+
+
+def jpeg_damage_corpus() -> dict:
+    return json.loads((JPEG_DAMAGE_CORPUS / "digests.json").read_text())
+
+
+def jpeg_scan_span(data: bytes) -> tuple:
+    """(offset of the first scan's entropy-coded data, offset of the last EOI) of a JPEG file."""
+    sos = data.index(b"\xff\xda")
+    return sos + 2 + int.from_bytes(data[sos + 2 : sos + 4], "big"), data.rindex(b"\xff\xd9")
+
+
+def jpeg_damage(data: bytes, kind: str, rng) -> bytes:
+    """A clean JPEG file damaged as a web crawl's files are: one byte of the entropy-coded data XORed with a
+    seeded nonzero byte ("flip"), 4-63 of them zeroed ("zeros"), the data cut inside a scan and EOI appended
+    ("cut"), the data zeroed from a point up to EOI ("tail_zero"), 1-5 bytes other than FF put before a marker
+    after SOI, between segments or scans ("junk_segment") or before EOI ("junk_eoi"); or a restart marker
+    dropped ("rst_missing"), written twice ("rst_repeated"), given another number ("rst_wrong") or turned into
+    another marker ("rst_marker": EOI, DHT, TEM, COM or APP1).  A restart kind on a file of none flips a byte."""
+    lo, hi = jpeg_scan_span(data)
+    b = bytearray(data)
+    rst = [i for i in range(lo, hi - 1) if b[i] == 0xFF and 0xD0 <= b[i + 1] <= 0xD7]
+    kind = "flip" if kind.startswith("rst") and not rst else kind
+    if kind == "flip":
+        b[int(rng.integers(lo, hi))] ^= int(rng.integers(1, 256))
+    elif kind == "zeros":
+        at = int(rng.integers(lo, hi))
+        end = min(hi, at + int(rng.integers(4, 64)))
+        b[at:end] = bytes(end - at)
+    elif kind == "cut":
+        b = b[: int(rng.integers(lo, hi))] + b"\xff\xd9"
+    elif kind == "tail_zero":
+        at = int(rng.integers(lo, hi))
+        b[at:hi] = bytes(hi - at)
+    elif kind.startswith("junk"):
+        junk = bytes(int(v) for v in rng.integers(0, 255, int(rng.integers(1, 6))))
+        if kind == "junk_eoi":
+            at = hi
+        else:  # the markers of the header segments, and those between scans (outside the entropy-coded data)
+            at, marks = 2, []
+            while b[at + 1] != 0xDA:
+                marks.append(at)
+                at += 2 + int.from_bytes(b[at + 2 : at + 4], "big")
+            marks += [at] + [i for i in range(lo, hi - 1) if b[i] == 0xFF and b[i + 1] not in (0, 0xFF)
+                             and not 0xD0 <= b[i + 1] <= 0xD7]
+            at = marks[int(rng.integers(0, len(marks)))]
+        b[at:at] = junk
+    else:
+        at = rst[int(rng.integers(0, len(rst)))]
+        if kind == "rst_missing":
+            del b[at : at + 2]
+        elif kind == "rst_repeated":
+            b[at:at] = b[at : at + 2]
+        elif kind == "rst_wrong":
+            b[at + 1] = 0xD0 + (b[at + 1] - 0xD0 + int(rng.integers(1, 8))) % 8
+        else:
+            b[at + 1] = int(rng.choice([0xD9, 0xC4, 0x01, 0xFE, 0xE1]))
+    return bytes(b)
+
+
+def jpeg_damage_sources() -> list:
+    """The corpus's clean files of at most 96 pixels a side: the seeded derivatives' sources."""
+    return [name for name, e in sorted(jpeg_damage_corpus().items())
+            if name.startswith("clean_") and "shape" in e and max(e["shape"][:2]) <= 96]
+
+
+def jpeg_damage_case(k: int) -> tuple:
+    """(bytes, the twin's outcome) of seeded derivative k: `jpeg_damage` of kind JPEG_DAMAGE_KINDS[k % 10] on
+    clean corpus file k // 10 % n; a worker of the decoder phase's pool."""
+    sources = jpeg_damage_sources()
+    data = (JPEG_DAMAGE_CORPUS / sources[k // len(JPEG_DAMAGE_KINDS) % len(sources)]).read_bytes()
+    data = jpeg_damage(data, JPEG_DAMAGE_KINDS[k % len(JPEG_DAMAGE_KINDS)], np.random.default_rng(SEED + 7900 + k))
+    return data, image_outcome(data, f"jpeg damage case {k}", "cpu")
+
+
+def check_jpeg_damage(cases: list, threads: int, smi: str) -> None:
+    """The native JPEG decoder on damaged data: every corpus file to Pillow's digest or refused where Pillow
+    refuses, JPEG_DAMAGE_CASES seeded derivatives to the twin's outcome (pixels or error alike); then the native
+    decode rate (median of 5 on one thread, and over 32 decodes on the loader's threads) at 640 x 480 baseline
+    4:2:0 clean and on the damaged 640 x 480 and 1920 x 1080 files."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from uniir_tpu_torch.data import jpeg
+
+    corpus = jpeg_damage_corpus()
+    refused = 0
+    for name, entry in corpus.items():
+        got = image_outcome((JPEG_DAMAGE_CORPUS / name).read_bytes(), name, "cuda")
+        if "error" in entry:
+            refused += 1
+            check(":" in got, f"decoder phase: the native JPEG decoder decodes {name}, which Pillow refuses "
+                              f"({entry['error']})")
+        else:
+            check(got == entry["sha256"], f"decoder phase: the native JPEG decoder differs from Pillow on {name}: "
+                                          f"{got[:100]}")
+    log(f"decoder phase: native JPEG on the damaged corpus: {len(corpus) - refused} files to Pillow's digests, "
+        f"{refused} refused as Pillow refuses them")
+    differ = []
+    for k, (data, want) in enumerate(cases):
+        got = image_outcome(data, f"jpeg damage case {k}", "cuda")
+        if got != want:
+            differ.append((k, want[:80], got[:80]))
+    check(not differ, f"decoder phase: native JPEG differs from its twin on damaged derivatives {differ[:3]}")
+    refused = sum(":" in want for _, want in cases)
+    log(f"decoder phase: native JPEG equal to its twin on {len(cases)} seeded damaged derivatives of "
+        f"{len(jpeg_damage_sources())} clean files up to 96 px ({refused} refused alike, {len(cases) - refused} "
+        "decoded to the same pixels)")
+    for name in (JPEG_CLEAN_RATE_FILE,) + JPEG_DAMAGE_RATE_FILES:
+        data = (JPEG_DAMAGE_CORPUS / name).read_bytes()
+        h, w = corpus[name]["shape"][:2]
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            jpeg.decode_native(data, name)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        with ThreadPoolExecutor(threads) as pool:
+            t0 = time.perf_counter()
+            list(pool.map(jpeg.decode_native, [data] * 32))
+            many = 32 / (time.perf_counter() - t0)
+        log(f"decoder phase: native JPEG {name} ({w} x {h}, {len(data)} bytes): {ms:.3f} ms a decode, "
+            f"{1e3 / ms:.1f} images/s ({w * h / ms / 1e3:.2f} Mpixel/s) on one thread, {many:.1f} images/s "
+            f"({many * w * h / 1e6:.2f} Mpixel/s) on the loader's {threads} threads (host CPU {host_cpu()}; "
+            f"card {smi})")
 
 
 def check_decoders(smi: str, pending: dict, t_started: float) -> None:
@@ -935,6 +1074,7 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     check_raster_size(cases["raster_size"], threads, smi)
     check_container_size(cases["container_size"], smi)
     check_jpeg2000(cases["jpeg2000"], cases["jpeg2000_twin"], threads, smi)
+    check_jpeg_damage(cases["jpeg_damage"], threads, smi)
     log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3215,7 +3355,7 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
 TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi",
-               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible")
+               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged")
 # phase 10's JPEG 2000 queries: files of the stored corpus (no JPEG 2000 writer here)
 JPEG2000_QUERIES = {"jp2_lossless": "11_rlcp.jp2", "j2k_irreversible": "59_vga_irreversible.j2k"}
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
@@ -3254,7 +3394,7 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
     lossy WebP, a lossless WebP with alpha, an LZW TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
     QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD, a lossless JP2 or an irreversible J2K file of the
-    stored corpus) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF / JPEG
+    stored corpus, or a damaged 640 x 480 JPEG of the damaged-JPEG corpus) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF / JPEG
     2000, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS; BMP has one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
@@ -3269,7 +3409,7 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
               "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native,
               "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative(),
               "dds_bc7": ContainerNative(), "psd_rle": ContainerNative(), "jp2_lossless": jpeg2000.decode_native,
-              "j2k_irreversible": jpeg2000.decode_native}.get(form)
+              "j2k_irreversible": jpeg2000.decode_native, "jpeg_damaged": jpeg.decode_native}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -7307,12 +7447,14 @@ def fixture_file(form: str, seed: int) -> bytes:
     alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk); `tiff` (LZW, the
     horizontal predictor, 32 x 32 tiles, big-endian), `jpeg_arith` (arithmetic-coded, libjpeg's simple
     progression, quality 90), `tga_rle` (24-bit RLE, bottom-up), `qoi` (RGB), `dds_bc7` (BC7 mode 6 blocks,
-    `bc7_mode6`), `psd_rle` (RGB, PackBits rows) and the JPEG 2000 files of JPEG2000_QUERIES (the stored
-    corpus's)."""
+    `bc7_mode6`), `psd_rle` (RGB, PackBits rows), the JPEG 2000 files of JPEG2000_QUERIES (the stored
+    corpus's) and `jpeg_damaged` (JPEG_DAMAGE_QUERY of the damaged-JPEG corpus)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     if form in JPEG2000_QUERIES:
         return (JPEG2000_CORPUS / JPEG2000_QUERIES[form]).read_bytes()
+    if form == "jpeg_damaged":
+        return (JPEG_DAMAGE_CORPUS / JPEG_DAMAGE_QUERY).read_bytes()
     img = fixture_image(seed)
     if form == "jpeg":
         return jpeg_bytes(img)

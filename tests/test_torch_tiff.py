@@ -319,9 +319,9 @@ def _truncation_files(pillow_made: bool = True):
 
 # Where the port does not give Pillow's answer (ROADMAP Queue 3), it raises: a Group 3 strip that ends early
 # (libtiff goes on decoding rows past the data's end), a Group 4 strip that ends before its last row (libtiff
-# leaves the later rows unwritten: Pillow's buffer as it was).  A corrupt JPEG strip is the port's JPEG decoder
-# against libjpeg on corrupt data (a run past coefficient 63, a damaged table), which it may also decode
-# differently.
+# leaves the later rows unwritten: Pillow's buffer as it was).  A corrupt JPEG strip decodes as libjpeg decodes
+# damaged data (data/jpeg.py), but libtiff's JPEG codec carries on past some errors libjpeg raises (an unknown
+# marker in a strip, found by flipping bytes), where the port raises.
 DIVERGES = {("g3", "cut"), ("g3-2d", "cut"), ("g4", "cut"), ("g3", "flip"), ("g3-2d", "flip"), ("g4", "flip"),
             ("c7", "flip")}
 
@@ -350,8 +350,7 @@ def test_truncations_and_corruptions_as_pillow(codec):
             assert isinstance(ref, Exception) or (codec, kind) in DIVERGES, (kind, err)
             continue
         assert not isinstance(ref, Exception), (kind, ref)
-        if codec != "c7":
-            np.testing.assert_array_equal(got, ref)
+        np.testing.assert_array_equal(got, ref)
 
 
 def test_embedded_pillow_files_decode_to_pillows_digests():

@@ -30,8 +30,13 @@ the same uint8 [H, W, 3] array, bit for bit:
     seven predictors and the first row's and first column's, the point
     transform, restarts (a multiple of the MCU row), box upsampling; a
     lossless YCbCr or YCCK frame raises, as libjpeg refuses to convert it;
-  * `jidctint.c`'s integer IDCT (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2,
-    the 10-bit range-limit table);
+  * the integer IDCT (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2) as
+    libjpeg-turbo's x86-64 SIMD code computes it (jidctint-sse2 / -avx2,
+    which Pillow's wheels run): 16-bit products and sums that wrap, each
+    pass packed to 16 bits with saturation, a first-row-only block's
+    shortcut, the result saturated around 128 (`idct_islow`); on
+    coefficients whose products stay in 8-bit samples' range this is
+    jidctint.c's result;
   * fancy upsampling (`jdsample.c`: the triangle filters
     `h2v1_fancy_upsample`, `h1v2_fancy_upsample`, `h2v2_fancy_upsample` with
     their alternating rounding bias, edges replicated; box replication where
@@ -55,13 +60,29 @@ Accepted: SOF0-3, SOF9 and SOF10 at 8 bits, 1, 3 or 4 components, each
 component's sampling 1 or 2 times finer in each direction than the largest
 (4:4:4, 4:2:2, 4:4:0, 4:2:0), at most 10 blocks in an interleaved scan's MCU
 (libjpeg's limit), any DQT / DHT / DAC tables (one between scans holds for
-the scans after it), DRI with RSTn markers, APPn and COM segments skipped,
-several scans.  Anything else -- SOF5-7, SOF11 and SOF13-15, 2 components,
-12- and 16-bit samples (which Pillow refuses too: "cannot handle 12-bit
-layers"), a truncated or corrupt Huffman-coded stream -- raises ValueError
-naming the file and the marker.  `decode_samples` gives libjpeg's output
-before Pillow reads it (the TIFF decoder's JPEG strips, with libtiff's
-colour space).
+the scans after it; a missing Huffman table 0 or 1 is Annex K's), DRI with
+RSTn markers, APPn, COM and DNL segments skipped, several scans.
+
+Damaged data decodes where Pillow 12.1's libjpeg-turbo decodes it with a
+warning, to its pixels: bytes between markers skipped (`_next_marker`); a
+bad Huffman code read as symbol 0 after 17 bits; DC categories up to 15; a
+run past coefficient 63 or a progressive band's end written where it
+reaches (`NATURAL`); data that ends at a marker inside a scan read as zeros
+to the end of that MCU, the interval's later MCUs left as they are (zero
+blocks, or an earlier scan's coefficients); restart markers missing,
+repeated or out of order resynchronised as jpeg_resync_to_restart does
+(`_scan_segments`); a sequential scan's band and approximation ignored;
+block smoothing after a scan cut short as libjpeg-turbo's
+last_good_iMCU_row has it; a single-scan file whose markers after its scan
+end with the data.  What libjpeg or Pillow's marker walk (`open_header`)
+refuses raises ValueError naming the file and the marker: SOF5-7, SOF11
+and SOF13-15, 2 components, 12- and 16-bit samples (Pillow: "cannot
+handle 12-bit layers"), data that ends before EOI (Pillow: "image file is
+truncated"), an unknown marker or a second SOI, frame or (in a single-scan
+file) scan, a bad table (the all-ones Huffman code, a DC symbol above 15),
+a bad progression.  A damaged lossless (SOF3) scan still raises (libjpeg
+decodes it on).  `decode_samples` gives libjpeg's output before Pillow
+reads it (the TIFF decoder's JPEG strips, with libtiff's colour space).
 
 Two decoders compute that function: `decode_twin`, plain Python for the
 markers and entropy decoding and numpy over all blocks at once for the rest
@@ -94,6 +115,7 @@ over from a JPEG, GIF or PNG source.
 from __future__ import annotations
 
 import ctypes
+import functools
 import io
 import re
 import struct
@@ -112,6 +134,26 @@ ZIGZAG = np.array([
     54, 47, 55, 62, 63,
 ], np.int64)
 ZIGZAG_LIST = ZIGZAG.tolist()
+# jutils.c's jpeg_natural_order with its 16 extra entries: a corrupt run that carries past position 63 (or past
+# a progressive band's end) writes its coefficient at the index it reached, 63 for every index past the block
+NATURAL = ZIGZAG_LIST + [63] * 16
+
+# The Annex K Huffman tables, (class, id) -> (counts of codes of length 1 ... 16, symbols): what libjpeg-turbo's
+# jpeg_std_huff_table puts in place of a table 0 or 1 a scan uses and no DHT defined (Motion-JPEG frames)
+ANNEX_K = {
+    (0, 0): (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (0, 1): (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12))),
+    (1, 0): (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]), bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a3435"
+        "363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a92939495969798"
+        "999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4"
+        "f5f6f7f8f9fa")),
+    (1, 1): (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]), bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a262728292a"
+        "35363738393a434445464748494a535455565758595a636465666768696a737475767778797a82838485868788898a9293949596"
+        "9798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4"
+        "f5f6f7f8f9fa")),
+}
 
 # frame headers decoded: marker -> (progressive, arithmetic, lossless)
 _SOF_KINDS = {0xC0: (False, False, False), 0xC1: (False, False, False), 0xC2: (True, False, False),
@@ -152,7 +194,7 @@ class _Frame:
         self.components = []  # [id, h, v, quant table id]
         self.qt = {}
         self.latched = {}  # component index -> its quantisation table as its first scan found it
-        self.huff = {}  # (class, id) -> lookup list
+        self.huff = {}  # (class, id) -> (counts, symbols) as the last DHT defined it
         self.restart = 0
         self.scans = []  # _Scan
         self.jfif = False
@@ -168,7 +210,8 @@ class _Scan(NamedTuple):
     """One scan: its components, their DC / AC lookup lists as the scan
     found them (None where the scan reads none; for arithmetic coding the
     table numbers, with the DAC conditioning (L, U, Kx) of each), the
-    restart interval, the entropy-coded segments, and the spectral band and
+    restart interval, the entropy-coded bytes of each restart interval
+    (`_scan_segments`; None: zeros only), and the spectral band and
     successive approximation bits (0, 63, 0, 0 in a sequential frame; the
     predictor, 0, 0 and the point transform in a lossless one)."""
 
@@ -183,80 +226,151 @@ class _Scan(NamedTuple):
     al: int
 
 
-def _huffman_lut(counts: bytes, symbols: bytes, where: str) -> list:
+@functools.lru_cache(maxsize=64)
+def _huffman_lut(counts: bytes, symbols: bytes, dc_limit) -> list:
     """65536 entries: (code length << 8) | symbol for every 16-bit window
-    that starts with a code of the table; 0 where none does."""
+    that starts with a code of the table; 0 where none does (a bad code).
+    None where jdhuff.c's jpeg_make_d_derived_tbl, which libjpeg runs when a
+    scan starts using the table, refuses it: a code that does not fit its
+    length or the all-ones code used, or a DC table's symbol above `dc_limit`
+    (None for an AC table)."""
+    if dc_limit is not None and any(sym > dc_limit for sym in symbols):
+        return None
     lut = [0] * 65536
     code, k = 0, 0
     for length in range(1, 17):
         for _ in range(counts[length - 1]):
-            if code >= (1 << length):
-                raise ValueError(f"{where}: bad Huffman table (DHT)")
-            lo, hi = code << (16 - length), (code + 1) << (16 - length)
-            lut[lo:hi] = [(length << 8) | symbols[k]] * (hi - lo)
             code += 1
+            if code > (1 << length):
+                return None
+            lo, hi = (code - 1) << (16 - length), code << (16 - length)
+            lut[lo:hi] = [(length << 8) | symbols[k]] * (hi - lo)
             k += 1
+        if code >= (1 << length):
+            return None
         code <<= 1
     return lut
 
 
-def _unstuff(data: bytes, start: int, name: str):
-    """The entropy-coded bytes from `start` up to the next marker other than
-    RSTn, split at RSTn markers, with 0xFF00 turned into 0xFF; and the
-    offset of that marker."""
-    segments, chunk, i, n = [], bytearray(), start, len(data)
+_STUFFING = re.compile(b"\xff+\x00")
+
+
+def _next_marker(data: bytes, i: int, name: str) -> tuple:
+    """jdmarker.c's next_marker from offset i: (code, offset of its first FF, offset past it) of the first
+    marker -- an FF, any fill FFs, a byte other than 00 -- skipping any other bytes and FF 00 pairs, as
+    libjpeg-turbo skips extraneous data (JWRN_EXTRANEOUS_DATA); ValueError where the data ends first (Pillow's
+    decoder asks for more and finds the file truncated)."""
+    n = len(data)
     while True:
         j = data.find(b"\xff", i)
-        if j < 0 or j + 1 >= n:
-            raise ValueError(f"{name}: truncated JPEG stream (no marker after the scan)")
-        chunk += data[i:j]
-        nxt = data[j + 1]
-        if nxt == 0x00:
-            chunk.append(0xFF)
-            i = j + 2
-        elif nxt == 0xFF:  # fill byte before a marker
-            i = j + 1
-        elif 0xD0 <= nxt <= 0xD7:
-            segments.append(bytes(chunk))
-            chunk = bytearray()
-            i = j + 2
+        k = j + 1
+        while 0 < k < n and data[k] == 0xFF:
+            k += 1
+        if j < 0 or k >= n:
+            raise ValueError(f"{name}: truncated JPEG stream (no EOI marker)")
+        if data[k]:
+            return data[k], j, k + 1
+        i = k + 1
+
+
+def _scan_segments(data: bytes, start: int, n_intervals: int, name: str) -> tuple:
+    """A scan's entropy-coded data as libjpeg-turbo reads it: for each restart interval the unstuffed bytes from
+    where it starts to the next marker (past them the decoder reads zeros), or None where the marker found at
+    the interval's restart is left unread (the interval then reads zeros only); and (code, offset past it) of
+    the marker the scan ends at.  At each restart (jdhuff.c process_restart, jdmarker.c read_restart_marker and
+    jpeg_resync_to_restart) the next marker is taken if it is the expected RSTn; otherwise a marker below SOF0 or
+    one of the two RSTn before the expected one is discarded and the next marker is looked at, any other marker
+    and the next two RSTn are left unread, and the rest (the expected RSTn among them) discarded."""
+    segments, marker, pos, expected = [], None, start, 0
+    for k in range(n_intervals):
+        if k:
+            code, after = marker
+            if code == 0xD0 + expected:
+                marker, pos = None, after
+            else:
+                while True:
+                    rst = 0xD0 <= code <= 0xD7
+                    if code < 0xC0 or rst and (code - 0xD0 - expected) % 8 in (6, 7):
+                        code, _, after = _next_marker(data, after, name)
+                        continue
+                    if not rst or (code - 0xD0 - expected) % 8 in (1, 2):
+                        marker = (code, after)
+                    else:
+                        marker, pos = None, after
+                    break
+            expected = (expected + 1) & 7
+        if marker is None:
+            code, at, after = _next_marker(data, pos, name)
+            segments.append(_STUFFING.sub(b"\xff", data[pos:at]))
+            marker = (code, after)
         else:
-            segments.append(bytes(chunk))
-            return segments, j
+            segments.append(None)
+    return segments, marker
 
 
 def parse(data: bytes, name: str = "<bytes>") -> _Frame:
-    """The frame of a baseline or progressive JPEG; ValueError for anything
-    outside the accepted forms (module docstring)."""
+    """The frame of a JPEG file as libjpeg-turbo's marker reader (jdmarker.c read_markers) walks it to EOI:
+    bytes between markers skipped, RSTn and TEM outside a scan ignored, a DNL, APPn or COM segment skipped, each
+    scan's restart intervals as `_scan_segments` finds them.  ValueError for anything outside the accepted forms
+    (module docstring) and where libjpeg stops with an error: a second SOI or frame header, a marker it does not
+    know, a second scan in a single-scan file, a bad table or segment, data that ends before EOI."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
-    frame, i, n = _Frame(), 2, len(data)
+    frame, i, n, pending = _Frame(), 2, len(data), None
+    multiscan = False  # jdinput.c's has_multiple_scans, set at the first scan
     while True:
-        while i < n and data[i] == 0xFF and i + 1 < n and data[i + 1] == 0xFF:
-            i += 1
-        if i + 1 >= n:
-            raise ValueError(f"{name}: truncated JPEG stream (no EOI marker)")
-        if data[i] != 0xFF:
-            raise ValueError(f"{name}: corrupt JPEG stream (expected a marker at byte {i})")
-        marker = data[i + 1]
+        # past a single-scan file's scan, libjpeg reads the markers up to EOI once Pillow has all the rows: data
+        # that ends first only suspends it, which Pillow takes as the end (an error still fails the file)
+        finished = frame.scans and not multiscan
+        if pending is None:
+            try:
+                marker, _, i = _next_marker(data, i, name)
+            except ValueError:
+                if finished:
+                    break
+                raise
+        else:
+            (marker, i), pending = pending, None
         if marker == 0xD9:
             break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:
-            i += 2
+        if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # parameterless
             continue
-        if i + 4 > n:
-            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
-        length = (data[i + 2] << 8) | data[i + 3]
-        seg = data[i + 4 : i + 2 + length]
-        if length < 2 or len(seg) != length - 2:
-            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
         where = f"{name}: marker 0xFF{marker:02X}"
-        if marker in _SOF_NAMES:
+        skipped = 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC)  # APPn, COM, DNL: read as far as they say
+        # the errors libjpeg raises before it reads a segment's length
+        if marker == 0xD8:
+            raise ValueError(f"{where}: a second SOI")
+        if marker in _SOF_NAMES and marker != 0xDC:
             raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (SOF0-3, SOF9 and SOF10 only)")
+        if marker in _SOF_KINDS and frame.components:
+            raise ValueError(f"{where}: a second frame header")
+        if not (skipped or marker in _SOF_KINDS or marker in (0xC4, 0xCC, 0xDA, 0xDB, 0xDD)):
+            raise ValueError(f"{where}: unexpected marker")
+        if i + 2 > n:
+            if finished:
+                break
+            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
+        length = (data[i] << 8) | data[i + 1]
+        if length < 2 and not skipped:
+            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
+        length = max(length, 2)
+        seg = data[i + 2 : i + length]
+        try:
+            if marker in (0xC4, 0xCC, 0xDB, 0xDD):
+                _TABLE_READERS[marker](frame, seg, length - 2, where)
+            elif len(seg) != length - 2:
+                if marker == 0xDA and finished and seg:  # get_sos's checks of the part that is there
+                    ids = [c[0] for c in frame.components]
+                    if length != 6 + 2 * seg[0] or not 1 <= seg[0] <= 4 or any(
+                            seg[k] not in ids for k in range(1, min(len(seg), 1 + 2 * seg[0]), 2)):
+                        raise ValueError(f"{where}: bad scan header")
+                raise _Suspended
+        except _Suspended:
+            if finished:
+                break
+            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})") from None
         if marker in _SOF_KINDS:
             frame.progressive, frame.arith, frame.lossless = _SOF_KINDS[marker]
-            if frame.components:
-                raise ValueError(f"{where}: a second frame header")
             if len(seg) < 6:
                 raise ValueError(f"{where}: truncated frame header")
             precision, frame.height, frame.width, nc = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
@@ -279,110 +393,184 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
             for cid, h, v, _ in frame.components:
                 if hmax // h not in (1, 2) or vmax // v not in (1, 2) or hmax % h or vmax % v:
                     raise ValueError(f"{where}: sampling {h}x{v} against {hmax}x{vmax} is not supported")
-        elif marker == 0xDB:
-            k = 0
-            while k < len(seg):
-                pq, tq = seg[k] >> 4, seg[k] & 15
-                size = 128 if pq else 64
-                if pq > 1 or tq > 3 or k + 1 + size > len(seg):
-                    raise ValueError(f"{where}: bad quantisation table")
-                raw = np.frombuffer(seg[k + 1 : k + 1 + size], ">u2" if pq else np.uint8).astype(np.int64)
-                table = np.zeros(64, np.int64)
-                table[ZIGZAG] = raw
-                frame.qt[tq] = table
-                k += 1 + size
-        elif marker == 0xC4:
-            k = 0
-            while k < len(seg):
-                if k + 17 > len(seg):
-                    raise ValueError(f"{where}: bad Huffman table")
-                tc, th = seg[k] >> 4, seg[k] & 15
-                counts = seg[k + 1 : k + 17]
-                total = sum(counts)
-                if tc > 1 or th > 3 or total > 256 or k + 17 + total > len(seg):
-                    raise ValueError(f"{where}: bad Huffman table")
-                frame.huff[(tc, th)] = _huffman_lut(counts, seg[k + 17 : k + 17 + total], where)
-                k += 17 + total
-        elif marker == 0xCC:  # DAC (jdmarker.c get_dac)
-            if len(seg) % 2:
-                raise ValueError(f"{where}: bad arithmetic conditioning (DAC)")
-            for k in range(0, len(seg), 2):
-                index, val = seg[k], seg[k + 1]
-                if index >= 32:
-                    raise ValueError(f"{where}: bad arithmetic table index {index} (DAC)")
-                if index >= 16:
-                    frame.dac[2][index - 16] = val
-                else:
-                    if (val & 15) > (val >> 4):
-                        raise ValueError(f"{where}: bad DC conditioning {val} (DAC)")
-                    frame.dac[0][index], frame.dac[1][index] = val & 15, val >> 4
-        elif marker == 0xDD:
-            if len(seg) != 2:
-                raise ValueError(f"{where}: bad restart interval")
-            frame.restart = (seg[0] << 8) | seg[1]
         elif marker == 0xDA:
-            if not frame.components:
-                raise ValueError(f"{where}: a scan before the frame header")
-            ns = seg[0] if seg else 0
-            if not 1 <= ns <= len(frame.components) or len(seg) != 4 + 2 * ns:
-                raise ValueError(f"{where}: bad scan header")
-            ids = [c[0] for c in frame.components]
-            comps, dc_ids, ac_ids = [], [], []
-            for s in range(ns):
-                cid, t = seg[1 + 2 * s], seg[2 + 2 * s]
-                if cid not in ids:
-                    raise ValueError(f"{where}: scan names an unknown component {cid}")
-                comps.append(ids.index(cid))
-                dc_ids.append(t >> 4)
-                ac_ids.append(t & 15)
-            if ns > 1 and sum(frame.components[c][1] * frame.components[c][2] for c in comps) > 10:
-                raise ValueError(f"{where}: more than 10 blocks in an MCU (sampling factors too large for an "
-                                 "interleaved scan)")
-            ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
-            if frame.lossless:  # jdlossls.c start_pass_lossless
-                if not 1 <= ss <= 7 or se or ah or al >= 8:
-                    raise ValueError(f"{where}: bad lossless scan: predictor {ss}, {se} / point transform {ah}, {al}")
-            elif not frame.progressive and (ss, se, ah, al) != (0, 63, 0, 0):
-                raise ValueError(f"{where}: spectral selection {ss}..{se} / approximation {ah}, {al} is not baseline")
-            if frame.progressive and (se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1)
-                                      or (ah and al != ah - 1) or al > 13):  # jdphuff.c's checks
-                raise ValueError(f"{where}: bad progression: spectral selection {ss}..{se} / approximation {ah}, {al}")
-            needs_dc = frame.lossless or (ss == 0 and ah == 0)  # a DC refinement scan reads no table
-            needs_ac = se > 0 and not frame.lossless
-            if frame.arith:  # the table numbers and the conditioning as they stand now
-                dc = [(t, frame.dac[0][t], frame.dac[1][t]) if needs_dc else None for t in dc_ids]
-                ac = [(16 + t, frame.dac[2][t]) if needs_ac else None for t in ac_ids]
-            else:
-                for cls, table_ids, needed in ((0, dc_ids, needs_dc), (1, ac_ids, needs_ac)):
-                    for t in table_ids:
-                        if needed and (cls, t) not in frame.huff:
-                            raise ValueError(f"{where}: scan uses an undefined {('DC', 'AC')[cls]} Huffman table {t}")
-                # the tables as they stand now: a later DHT may redefine them for a later scan
-                dc = [frame.huff[(0, t)] if needs_dc else None for t in dc_ids]
-                ac = [frame.huff[(1, t)] if needs_ac else None for t in ac_ids]
-            for c in comps if not frame.lossless else ():  # libjpeg latches a component's table at its first scan
-                if c not in frame.latched:
-                    tq = frame.components[c][3]
-                    if tq not in frame.qt:
-                        raise ValueError(f"{where}: component uses an undefined quantisation table {tq}")
-                    frame.latched[c] = frame.qt[tq].copy()
-            segments, i = _unstuff(data, i + 2 + length, name)
-            frame.scans.append(_Scan(comps, dc, ac, frame.restart, segments, ss, se, ah, al))
+            frame.scans.append(_read_scan(frame, seg, multiscan, where))
+            if len(frame.scans) == 1:  # jdapimin.c: the colour space and the scan mode, as the first scan finds them
+                multiscan = frame.progressive or len(frame.scans[0].comps) < len(frame.components)
+                frame.colour = colour_space(len(frame.components), frame.jfif, frame.adobe_transform,
+                                            tuple(c[0] for c in frame.components))
+            segments, pending = _scan_segments(data, i + length, _intervals(frame, frame.scans[-1]), name)
+            frame.scans[-1] = frame.scans[-1]._replace(segments=segments)
             continue
         elif marker in (0xE0, 0xEE) and seg[:5 if marker == 0xEE else 4] in (b"JFIF", b"Adobe") and len(seg) < 7:
-            raise ValueError(f"{where}: truncated {seg[:5].decode('latin-1')} segment")  # Pillow reads its version
+            if not frame.scans:
+                raise ValueError(f"{where}: truncated {seg[:5].decode('latin-1')} segment")  # Pillow reads its version
         elif marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:
             frame.jfif = True
         elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
             frame.adobe_transform = seg[11]
-        elif not (0xE0 <= marker <= 0xEF or marker == 0xFE):
-            raise ValueError(f"{where}: unexpected marker")
-        i += 2 + length
+        i += length
     if not frame.components or not frame.scans:
         raise ValueError(f"{name}: no frame or no scan before EOI")
-    frame.colour = colour_space(len(frame.components), frame.jfif, frame.adobe_transform,
-                                tuple(c[0] for c in frame.components))
     return frame
+
+
+class _Suspended(Exception):
+    """A marker segment the data ends inside: libjpeg suspends there, waiting for bytes that do not come."""
+
+
+def _take(seg: bytes, k: int, n: int) -> bytes:
+    if k + n > len(seg):
+        raise _Suspended
+    return seg[k : k + n]
+
+
+def _read_dqt(frame: _Frame, seg: bytes, size: int, where: str) -> None:
+    """jdmarker.c get_dqt over the segment's `size` bytes (`seg` may hold fewer): a table id below 4, a
+    precision nibble other than 0 for 16-bit values, a table cut short by the length read as far as it goes
+    (the rest 1)."""
+    k = 0
+    while size > 0:
+        size -= 1
+        b = _take(seg, k, 1)[0]
+        prec, tq, k = b >> 4, b & 15, k + 1
+        if tq >= 4:
+            raise ValueError(f"{where}: bad quantisation table id {tq}")
+        count = 64 if size >= (128 if prec else 64) else (size >> 1 if prec else size)
+        raw = np.frombuffer(_take(seg, k, count * (2 if prec else 1)), ">u2" if prec else np.uint8).astype(np.int64)
+        table = np.ones(64, np.int64) if count < 64 else np.zeros(64, np.int64)
+        table[ZIGZAG[:count]] = raw
+        frame.qt[tq] = table
+        k += count * (2 if prec else 1)
+        size -= count * (2 if prec else 1)
+    if size:
+        raise ValueError(f"{where}: bad quantisation table length")
+
+
+def _read_dht(frame: _Frame, seg: bytes, size: int, where: str) -> None:
+    """jdmarker.c get_dht: tables of at most 256 codes that fit the length, class 0 or 1 and id 0-3 (checked
+    further when a scan uses them, `_huffman_lut`)."""
+    k = 0
+    while size > 16:
+        head = _take(seg, k, 17)
+        index, counts, total = head[0], head[1:], sum(head[1:])
+        size -= 17
+        if total > 256 or total > size:
+            raise ValueError(f"{where}: bad Huffman table")
+        symbols = _take(seg, k + 17, total)
+        size -= total
+        k += 17 + total
+        if index & 0x10:
+            index -= 0x10
+        if index > 3:
+            raise ValueError(f"{where}: bad Huffman table id")
+        frame.huff[(head[0] >> 4 & 1, index)] = (bytes(counts), bytes(symbols))
+    if size:
+        raise ValueError(f"{where}: bad Huffman table length")
+
+
+def _read_dac(frame: _Frame, seg: bytes, size: int, where: str) -> None:
+    """jdmarker.c get_dac: pairs of a table index (DC 0-15, AC 16-31) and its conditioning."""
+    k = 0
+    while size > 0:
+        index, val = _take(seg, k, 2)
+        k, size = k + 2, size - 2
+        if index >= 32:
+            raise ValueError(f"{where}: bad arithmetic table index {index} (DAC)")
+        if index >= 16:
+            frame.dac[2][index - 16] = val
+        else:
+            if (val & 15) > (val >> 4):
+                raise ValueError(f"{where}: bad DC conditioning {val} (DAC)")
+            frame.dac[0][index], frame.dac[1][index] = val & 15, val >> 4
+    if size:
+        raise ValueError(f"{where}: bad arithmetic conditioning length (DAC)")
+
+
+def _read_dri(frame: _Frame, seg: bytes, size: int, where: str) -> None:
+    """jdmarker.c get_dri: a length of 4, then the interval."""
+    if size != 2:
+        raise ValueError(f"{where}: bad restart interval")
+    hi, lo = _take(seg, 0, 2)
+    frame.restart = hi << 8 | lo
+
+
+_TABLE_READERS = {0xDB: _read_dqt, 0xC4: _read_dht, 0xCC: _read_dac, 0xDD: _read_dri}
+
+
+def _read_scan(frame: _Frame, seg: bytes, multiscan: bool, where: str) -> _Scan:
+    """A scan header (SOS) checked as jdmarker.c's get_sos and the entropy decoders' start_pass check it, with
+    the tables it uses as they stand now (a later DHT may redefine them for a later scan); its segments are
+    filled in by the caller."""
+    if not frame.components:
+        raise ValueError(f"{where}: a scan before the frame header")
+    if frame.scans and not multiscan:
+        raise ValueError(f"{where}: a second scan in a single-scan file (EOI expected)")
+    ns = seg[0] if seg else 0
+    if not 1 <= ns <= len(frame.components) or len(seg) != 4 + 2 * ns:
+        raise ValueError(f"{where}: bad scan header")
+    ids = [c[0] for c in frame.components]
+    comps, dc_ids, ac_ids = [], [], []
+    for s in range(ns):
+        cid, t = seg[1 + 2 * s], seg[2 + 2 * s]
+        if cid not in ids:
+            raise ValueError(f"{where}: scan names an unknown component {cid}")
+        comps.append(ids.index(cid))
+        dc_ids.append(t >> 4)
+        ac_ids.append(t & 15)
+    if ns > 1 and sum(frame.components[c][1] * frame.components[c][2] for c in comps) > 10:
+        raise ValueError(f"{where}: more than 10 blocks in an MCU (sampling factors too large for an "
+                         "interleaved scan)")
+    ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    if frame.lossless:  # jdlossls.c start_pass_lossless
+        if not 1 <= ss <= 7 or se or ah or al >= 8:
+            raise ValueError(f"{where}: bad lossless scan: predictor {ss}, {se} / point transform {ah}, {al}")
+    elif not frame.progressive:  # other values only warn (JWRN_NOT_SEQUENTIAL): a sequential scan reads 0..63
+        ss, se, ah, al = 0, 63, 0, 0
+    if frame.progressive and ((se != 0 if ss == 0 else (ss > se or se > 63 or ns != 1))
+                              or (ah and al != ah - 1) or al > 13):  # jdphuff.c's checks
+        raise ValueError(f"{where}: bad progression: spectral selection {ss}..{se} / approximation {ah}, {al}")
+    needs_dc = frame.lossless or (ss == 0 and ah == 0)  # a DC refinement scan reads no table
+    needs_ac = se > 0 and not frame.lossless
+    if frame.arith:  # the table numbers and the conditioning as they stand now
+        dc = [(t, frame.dac[0][t], frame.dac[1][t]) if needs_dc else None for t in dc_ids]
+        ac = [(16 + t, frame.dac[2][t]) if needs_ac else None for t in ac_ids]
+    else:
+        luts = {}
+        for cls, table_ids, needed in ((0, dc_ids, needs_dc), (1, ac_ids, needs_ac)):
+            for t in table_ids if needed else ():
+                if (cls, t) not in frame.huff:  # jpeg_std_huff_table: tables 0 and 1 default to Annex K's
+                    if (cls, t) not in ANNEX_K:
+                        raise ValueError(f"{where}: scan uses an undefined {('DC', 'AC')[cls]} Huffman table {t}")
+                    frame.huff[(cls, t)] = ANNEX_K[(cls, t)]
+                lut = _huffman_lut(*frame.huff[(cls, t)], None if cls else (16 if frame.lossless else 15))
+                if lut is None:
+                    raise ValueError(f"{where}: bad Huffman table ({('DC', 'AC')[cls]} {t})")
+                luts[(cls, t)] = lut
+        dc = [luts[(0, t)] if needs_dc else None for t in dc_ids]
+        ac = [luts[(1, t)] if needs_ac else None for t in ac_ids]
+    for c in comps if not frame.lossless else ():  # libjpeg latches a component's table at its first scan
+        if c not in frame.latched:
+            tq = frame.components[c][3]
+            if tq not in frame.qt:
+                raise ValueError(f"{where}: component uses an undefined quantisation table {tq}")
+            frame.latched[c] = frame.qt[tq].copy()
+    return _Scan(comps, dc, ac, frame.restart, None, ss, se, ah, al)
+
+
+def _intervals(frame: _Frame, scan: _Scan) -> int:
+    """The number of restart intervals of a scan: its MCUs (a non-interleaved scan's over the component's own
+    blocks, or samples in a lossless frame) over the restart interval."""
+    unit = 1 if frame.lossless else 8
+    hmax = max(c[1] for c in frame.components)
+    vmax = max(c[2] for c in frame.components)
+    if len(scan.comps) == 1:
+        _, h, v, _ = frame.components[scan.comps[0]]
+        cw, ch = -(-frame.width * h // hmax), -(-frame.height * v // vmax)
+        mcus = -(-cw // unit) * -(-ch // unit)
+    else:
+        mcus = -(-frame.width // (unit * hmax)) * -(-frame.height // (unit * vmax))
+    return -(-mcus // scan.restart) if scan.restart else 1
 
 
 def colour_space(nc: int, jfif: bool, adobe_transform, ids: tuple) -> str:
@@ -413,12 +601,18 @@ def _geometry(frame: _Frame):
 
 class _Bits:
     """An MSB-first reader over one restart interval's unstuffed bytes;
-    past the end it reads zeros, and `over` says it did."""
+    past the end it reads zeros, as libjpeg does once it meets a marker
+    (jdhuff.c jpeg_fill_bit_buffer), and `over` says it did."""
 
     def __init__(self, segment: bytes):
-        self.buf = segment + b"\x00\x00\x00\x00\x00"
+        self.buf = segment + bytes(8)
         self.nbits = 8 * len(segment)
         self.pos = 0
+
+    def pad(self) -> None:
+        """Zeros enough for one more MCU read past the end (10 blocks of at most 64 codes of 17 + 15 bits)."""
+        if self.pos + 20480 + 64 > 8 * len(self.buf):
+            self.buf += bytes(2600)
 
     def peek(self) -> int:
         b = self.pos >> 3
@@ -431,10 +625,13 @@ class _Bits:
         self.pos += n
         return v
 
-    def huff(self, lut: list, name: str) -> int:
+    def huff(self, lut: list) -> int:
+        """The next symbol; a bad code (none of 16 bits or fewer) reads 17 bits and gives symbol 0, as
+        jdhuff.c's jpeg_huff_decode and HUFF_DECODE_FAST do (JWRN_HUFF_BAD_CODE)."""
         e = lut[self.peek() >> 16]
         if not e:
-            raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
+            self.pos += 17
+            return 0
         self.pos += e >> 8
         return e & 0xFF
 
@@ -450,22 +647,23 @@ def _int16(v: int) -> int:
     return ((v + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
 
 
-def _baseline_block(bits: _Bits, dc_lut: list, ac_lut: list, pred: int, row: list, name: str) -> int:
-    """One sequential block (jdhuff.c) into `row`; returns the new DC
-    predictor.  The bit reads are inlined: this is the twin's hot loop."""
+def _baseline_block(bits: _Bits, dc_lut: list, ac_lut: list, pred: int, row: list) -> int:
+    """One sequential block (jdhuff.c decode_mcu) into `row`; returns the new
+    DC predictor.  A bad code is symbol 0 after 17 bits (a DC difference of
+    0, an end of block); a run past position 63 writes at 63.  The bit reads
+    are inlined: this is the twin's hot loop."""
     buf, pos = bits.buf, bits.pos
     b = pos >> 3
     window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
     e = dc_lut[window >> 16]
-    if not e:
-        raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
-    length, s = e >> 8, e & 0xFF
-    if s > 11:
-        raise ValueError(f"{name}: marker 0xFFDA: corrupt DC difference")
-    if s:
-        diff = (window >> (32 - length - s)) & ((1 << s) - 1)
-        pred += diff + 1 - (1 << s) if diff < (1 << (s - 1)) else diff
-    pos += length + s
+    if e:
+        length, s = e >> 8, e & 0xFF
+        if s:
+            diff = (window >> (32 - length - s)) & ((1 << s) - 1)
+            pred += diff + 1 - (1 << s) if diff < (1 << (s - 1)) else diff
+        pos += length + s
+    else:
+        pos += 17
     row[0] = ((pred + 32768) & 0xFFFF) - 32768  # JCOEF is 16-bit
     k = 1
     while k < 64:
@@ -473,15 +671,14 @@ def _baseline_block(bits: _Bits, dc_lut: list, ac_lut: list, pred: int, row: lis
         window = (int.from_bytes(buf[b : b + 5], "big") >> (8 - (pos & 7))) & 0xFFFFFFFF
         e = ac_lut[window >> 16]
         if not e:
-            raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code")
+            pos += 17
+            break
         length, rs = e >> 8, e & 0xFF
         run, s = rs >> 4, rs & 15
         if s:
             k += run
-            if k > 63:
-                raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
             val = (window >> (32 - length - s)) & ((1 << s) - 1)
-            row[ZIGZAG_LIST[k]] = val + 1 - (1 << s) if val < (1 << (s - 1)) else val
+            row[NATURAL[k]] = val + 1 - (1 << s) if val < (1 << (s - 1)) else val
             pos += length + s
             k += 1
         else:
@@ -499,19 +696,18 @@ def _refine(bits: _Bits, row: list, pos: int, p1: int) -> None:
         row[pos] = _int16(row[pos] + (p1 if row[pos] >= 0 else -p1))
 
 
-def _ac_first(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int, name: str) -> int:
-    """decode_mcu_AC_first of jdphuff.c over one block; returns the EOB run left."""
+def _ac_first(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int) -> int:
+    """decode_mcu_AC_first of jdphuff.c over one block; returns the EOB run left.  A run past the band's end
+    writes where it reached (`NATURAL`)."""
     if eobrun:
         return eobrun - 1
     k = scan.ss
     while k <= scan.se:
-        rs = bits.huff(lut, name)
+        rs = bits.huff(lut)
         r, s = rs >> 4, rs & 15
         if s:
             k += r
-            if k > scan.se:
-                raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
-            row[ZIGZAG_LIST[k]] = _int16(_extend(bits.get(s), s) << scan.al)
+            row[NATURAL[k]] = _int16(_extend(bits.get(s), s) << scan.al)
         elif r == 15:
             k += 15
         else:
@@ -520,13 +716,14 @@ def _ac_first(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int, name:
     return 0
 
 
-def _ac_refine(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int, name: str) -> int:
-    """decode_mcu_AC_refine of jdphuff.c over one block; returns the EOB run left."""
+def _ac_refine(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int) -> int:
+    """decode_mcu_AC_refine of jdphuff.c over one block; returns the EOB run left.  A newly nonzero coefficient
+    whose run passes the band's end is written just past it (`NATURAL`)."""
     p1 = 1 << scan.al
     k = scan.ss
     if not eobrun:
         while k <= scan.se:
-            rs = bits.huff(lut, name)
+            rs = bits.huff(lut)
             r, s = rs >> 4, rs & 15
             if s:  # a newly nonzero coefficient of magnitude 1 (libjpeg warns when s != 1)
                 s = p1 if bits.get(1) else -p1
@@ -543,9 +740,7 @@ def _ac_refine(bits: _Bits, lut: list, scan: _Scan, row: list, eobrun: int, name
                         break
                 k += 1
             if s:
-                if k > scan.se:
-                    raise ValueError(f"{name}: marker 0xFFDA: corrupt run length")
-                row[ZIGZAG_LIST[k]] = s
+                row[NATURAL[k]] = s
             k += 1
     if eobrun:
         while k <= scan.se:  # the band's rest after the end of block: corrections only
@@ -754,49 +949,65 @@ def _decode_coefficients(frame: _Frame, name: str) -> list:
     geo, mcux, mcuy = _geometry(frame)
     blocks = [[[0] * 64 for _ in range(g[2] * g[3])] for g in geo]
     coef_bits = [[-1] * 64 for _ in frame.components]  # jdphuff.c: the last Al each coefficient was sent at
-    for scan in frame.scans:
+    prev_bits = [[-1] * 10 for _ in frame.components]  # and zigzag 0-9 as they were before the latest scan
+    last_good = mcuy - 1  # jdcoefct.c's last_good_iMCU_row: the iMCU row of the last MCU decoded with data left
+    for n, scan in enumerate(frame.scans):
         mcus = _scan_layout(frame, scan, geo, mcux, mcuy, blocks)
         for c in scan.comps if frame.progressive else ():
+            for k in range(min(scan.ss, 1), 10):
+                prev_bits[c][k] = coef_bits[c][k] if n else 0
             for k in range(scan.ss, scan.se + 1):
                 coef_bits[c][k] = scan.al
         interval = scan.restart or len(mcus)
-        n_intervals = -(-len(mcus) // interval)
-        if len(scan.segments) < n_intervals:
-            raise ValueError(f"{name}: marker 0xFFDA: corrupt or truncated scan (expected {n_intervals} restart "
-                             f"intervals, found {len(scan.segments)})")
         if frame.arith:
-            for k in range(n_intervals):
-                _arith_interval(frame, scan, scan.segments[k], mcus[k * interval: (k + 1) * interval])
+            for k, segment in enumerate(scan.segments):
+                _arith_interval(frame, scan, segment or b"", mcus[k * interval: (k + 1) * interval])
             continue
+        # an MCU's iMCU row: a row of MCUs, or of v block rows of a non-interleaved scan's component
+        per_row = mcux if len(scan.comps) > 1 else -(-geo[scan.comps[0]][0] // 8) * frame.components[scan.comps[0]][2]
         dc_first = frame.progressive and scan.ss == 0 and scan.ah == 0
         dc_refine = frame.progressive and scan.ss == 0 and scan.ah
         ac = (_ac_refine if scan.ah else _ac_first) if scan.ss else None
-        for k in range(n_intervals):
-            bits = _Bits(scan.segments[k])
+        # libjpeg's insufficient_data: once an MCU has read past its interval's data (zeros), the interval's
+        # later MCUs are left as they are; the next restart clears it unless its marker was left unread
+        short = False
+        for k, segment in enumerate(scan.segments):
+            bits = _Bits(segment or b"")
             pred = [0] * len(scan.comps)  # DC predictions and the EOB run restart with each interval
             eobrun = 0
-            for mcu in mcus[k * interval: (k + 1) * interval]:
-                for i, row in mcu:
+            for j in range(k * interval, min((k + 1) * interval, len(mcus))):
+                if not short:  # tested before decode_mcu, whose restart may clear the flag
+                    last_good = j // per_row
+                if j == k * interval:
+                    short = short and segment is None
+                if short:
+                    break
+                bits.pad()
+                for i, row in mcus[j]:
                     if not frame.progressive:
-                        pred[i] = _baseline_block(bits, scan.dc[i], scan.ac[i], pred[i], row, name)
+                        pred[i] = _baseline_block(bits, scan.dc[i], scan.ac[i], pred[i], row)
                     elif dc_first:
-                        s = bits.huff(scan.dc[i], name)
-                        if s > 15:
-                            raise ValueError(f"{name}: marker 0xFFDA: corrupt DC difference")
+                        s = bits.huff(scan.dc[i])
                         pred[i] += _extend(bits.get(s), s) if s else 0
                         row[0] = _int16(pred[i] << scan.al)
                     elif dc_refine:
                         if bits.get(1):
                             row[0] = _int16(row[0] | (1 << scan.al))
                     else:
-                        eobrun = ac(bits, scan.ac[i], scan, row, eobrun, name)
-                    if bits.over():
-                        raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream")
+                        eobrun = ac(bits, scan.ac[i], scan, row, eobrun)
+                short = bits.over()
     coefs = [np.array(b, np.int64).reshape(g[3], g[2], 64) for b, g in zip(blocks, geo)]
     if frame.progressive and _smooths(frame, coef_bits):
+        # decompress_smooth_data takes the Al of zigzag 1-9 as they were before each component's latest scan
+        # for the iMCU rows past last_good (where that scan's data ran out), as after the last scan elsewhere
         for c, g in enumerate(geo):
-            coefs[c] = smooth_blocks(coefs[c], -(-g[0] // 8), -(-g[1] // 8), frame.components[c][2], mcuy,
-                                     frame.latched[c], coef_bits[c][:10])
+            v = frame.components[c][2]
+            args = (coefs[c], -(-g[0] // 8), -(-g[1] // 8), v, mcuy, frame.latched[c])
+            out = smooth_blocks(*args, coef_bits[c][:10])
+            if last_good < mcuy - 1:
+                rows = np.arange(out.shape[0]) // v > last_good
+                out[rows] = smooth_blocks(*args, prev_bits[c] if len(frame.scans) > 1 else [-1] * 10)[rows]
+            coefs[c] = out
     return coefs
 
 
@@ -884,56 +1095,52 @@ def _int16_array(v: np.ndarray) -> np.ndarray:
     return ((v + 32768) & 0xFFFF) - 32768  # stored as JCOEF
 
 
-# jidctint.c constants (CONST_BITS 13)
-_F = {
-    "0_298631336": 2446, "0_390180644": 3196, "0_541196100": 4433, "0_765366865": 6270, "0_899976223": 7373,
-    "1_175875602": 9633, "1_501321110": 12299, "1_847759065": 15137, "1_961570560": 16069, "2_053119869": 16819,
-    "2_562915447": 20995, "3_072711026": 25172,
-}
+# libjpeg-turbo's x86-64 SIMD islow IDCT (jidctint-sse2.asm / -avx2.asm, which give the same pixels): jidctint.c's
+# CONST_BITS 13 / PASS1_BITS 2 products regrouped into pairs of 16-bit inputs times 16-bit constants (pmaddwd),
+# e.g. tmp3 = z2 * (F_0_541 + F_0_765) + z3 * F_0_541
+_SIMD = {"f130": 10703, "f054": 4433, "mf130": -10704, "mf078": -6436, "f117": 9633, "f078": 6437, "mf060": -4927,
+         "mf089": -7373, "f060": 4926, "mf050": -4176, "mf256": -20995, "f050": 4177}
 CONST_BITS, PASS1_BITS = 13, 2
 
 
-def _idct_pass(x0, x1, x2, x3, x4, x5, x6, x7, shift: int):
-    """One pass of jpeg_idct_islow over the 8 inputs of every row (arrays),
-    each output DESCALEd by `shift`."""
-    z1 = (x2 + x6) * _F["0_541196100"]
-    tmp2 = z1 + x6 * -_F["1_847759065"]
-    tmp3 = z1 + x2 * _F["0_765366865"]
-    tmp0 = (x0 + x4) << CONST_BITS
-    tmp1 = (x0 - x4) << CONST_BITS
-    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+def _wrap16(v: np.ndarray) -> np.ndarray:
+    return ((v + 32768) & 0xFFFF) - 32768  # a 16-bit lane's wrapping add / multiply / shift
 
-    t0, t1, t2, t3 = x7, x5, x3, x1
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * _F["1_175875602"]
-    t0 = t0 * _F["0_298631336"]
-    t1 = t1 * _F["2_053119869"]
-    t2 = t2 * _F["3_072711026"]
-    t3 = t3 * _F["1_501321110"]
-    z1 = z1 * -_F["0_899976223"]
-    z2 = z2 * -_F["2_562915447"]
-    z3 = z3 * -_F["1_961570560"] + z5
-    z4 = z4 * -_F["0_390180644"] + z5
-    t0 += z1 + z3
-    t1 += z2 + z4
-    t2 += z2 + z3
-    t3 += z1 + z4
+
+def _idct_pass(x: list, shift: int) -> list:
+    """One pass of the SIMD islow IDCT over 8 int16-valued inputs (arrays): in0 +- in4, in3 + in7 and in1 + in5
+    summed in 16-bit lanes, the products and the rest in 32 bits (they cannot overflow there), each output
+    DESCALEd by `shift` and packed to 16 bits with saturation (packssdw)."""
+    c = _SIMD
+    tmp3 = x[2] * c["f130"] + x[6] * c["f054"]
+    tmp2 = x[2] * c["f054"] + x[6] * c["mf130"]
+    tmp0 = _wrap16(x[0] + x[4]) << CONST_BITS
+    tmp1 = _wrap16(x[0] - x[4]) << CONST_BITS
+    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
+    z3, z4 = _wrap16(x[3] + x[7]), _wrap16(x[1] + x[5])
+    z3, z4 = z3 * c["mf078"] + z4 * c["f117"], z3 * c["f117"] + z4 * c["f078"]
+    t0 = x[7] * c["mf060"] + x[1] * c["mf089"] + z3
+    t3 = x[7] * c["mf089"] + x[1] * c["f060"] + z4
+    t1 = x[5] * c["mf050"] + x[3] * c["mf256"] + z4
+    t2 = x[5] * c["mf256"] + x[3] * c["f050"] + z3
     half = 1 << (shift - 1)
-    return [(v + half) >> shift for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
-                                            tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
+    return [np.clip((v + half) >> shift, -32768, 32767) for v in (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                                                                  tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)]
 
 
 def idct_islow(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
-    """uint8 [N, 8, 8] of jpeg_idct_islow over N blocks of quantised
-    coefficients [N, 64] (natural order) and their table [64]."""
-    d = (coef * qt).reshape(-1, 8, 8)  # [block, row v, column u]
-    # pass 1: columns (inputs along v), kept as int ("wsptr")
-    cols = _idct_pass(*[d[:, k, :] for k in range(8)], CONST_BITS - PASS1_BITS)
-    ws = np.stack(cols, axis=1)  # [block, y, u]
-    rows = _idct_pass(*[ws[:, :, k] for k in range(8)], CONST_BITS + PASS1_BITS + 3)
-    x = np.stack(rows, axis=2)  # [block, y, x]
-    # range_limit[x & RANGE_MASK]: x read as a 10-bit signed value, + 128, clamped
-    return np.clip(((x + 512) & 1023) - 512 + 128, 0, 255).astype(np.uint8)
+    """uint8 [N, 8, 8] of libjpeg-turbo's x86-64 SIMD jsimd_idct_islow over N blocks of quantised coefficients
+    [N, 64] (natural order) and their table [64]: the dequantising product kept to 16 bits (pmullw, which
+    wraps); pass 1 over the columns, or where every coefficient outside the first row is zero the shortcut
+    in0 << PASS1_BITS in 16 bits (psllw, which wraps where the full pass saturates); pass 2 over the rows; the
+    result packed to 8 bits with saturation and offset by 128 (packsswb, paddb).  On coefficients whose
+    products stay in 8-bit samples' range this is jidctint.c's result."""
+    d = _wrap16(coef.astype(np.int64) * qt).reshape(-1, 8, 8)  # [block, row v, column u]
+    ws = np.stack(_idct_pass([d[:, k, :] for k in range(8)], CONST_BITS - PASS1_BITS), axis=1)  # [block, y, u]
+    first_row = ~d[:, 1:, :].any(axis=(1, 2))
+    ws = np.where(first_row[:, None, None], _wrap16(d[:, :1, :] << PASS1_BITS), ws)
+    x = np.stack(_idct_pass([ws[:, :, k] for k in range(8)], CONST_BITS + PASS1_BITS + 3), axis=2)  # [block, y, x]
+    return (np.clip(x, -128, 127) + 128).astype(np.uint8)
 
 
 def _plane(frame: _Frame, coefs: list, c: int, geo) -> np.ndarray:
@@ -1030,20 +1237,19 @@ def _lossless_planes(frame: _Frame, name: str) -> list:
         if interval % cols:
             raise ValueError(f"{name}: marker 0xFFDD: restart interval {interval} is not a multiple of the "
                              f"{cols} MCUs of a row (lossless)")
-        n_intervals = -(-len(units) // interval)
-        if len(scan.segments) < n_intervals:
-            raise ValueError(f"{name}: marker 0xFFDA: corrupt or truncated scan (expected {n_intervals} restart "
-                             f"intervals, found {len(scan.segments)})")
-        for k in range(n_intervals):
-            bits = _Bits(scan.segments[k])
+        # damaged lossless data is refused (libjpeg's jdlhuff.c decodes on with warnings: not followed here)
+        if None in scan.segments:
+            raise ValueError(f"{name}: marker 0xFFDA: corrupt lossless scan (a restart marker out of place)")
+        for k, segment in enumerate(scan.segments):
+            bits = _Bits(segment)
             for unit in units[k * interval: (k + 1) * interval]:
                 for i, c, r, q in unit:
-                    s = bits.huff(scan.dc[i], name)
-                    if s > 16:
-                        raise ValueError(f"{name}: marker 0xFFDA: corrupt difference category {s}")
+                    if not scan.dc[i][bits.peek() >> 16]:
+                        raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code (lossless)")
+                    s = bits.huff(scan.dc[i])
                     diffs[c][r, q] = 32768 if s == 16 else (_extend(bits.get(s), s) if s else 0)
                 if bits.over():
-                    raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream")
+                    raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream (lossless)")
         for c in scan.comps:
             cw, ch = dims[c]
             rows_per_restart = interval // cols * (frame.components[c][2] if len(scan.comps) > 1 else 1)
@@ -1102,6 +1308,8 @@ def decode_samples(data: bytes, name: str = "<bytes>", colour: str = None) -> np
     frame = parse(bytes(data), name)
     if colour is not None:
         frame.colour = colour
+    if frame.colour == "ycbcr" and len(frame.components) != 3:  # jdcolor.c: JERR_BAD_J_COLORSPACE
+        raise ValueError(f"{name}: a frame of {len(frame.components)} components read as YCbCr (3 only)")
     hmax = max(c[1] for c in frame.components)
     vmax = max(c[2] for c in frame.components)
     if frame.lossless:
@@ -1134,7 +1342,9 @@ def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
 
 
 def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a JPEG file (module docstring)."""
+    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a JPEG file (module docstring): the markers up
+    to the first scan as Pillow's `Image.open` reads them (`open_header`), then libjpeg's samples."""
+    open_header(data, name)
     px = decode_samples(data, name)
     if px.shape[2] == 1:
         return np.repeat(px, 3, axis=2)
@@ -1152,6 +1362,7 @@ def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
     lib = _build.load("jpeg")
     data = bytes(data)
+    open_header(data, name)
     err = ctypes.create_string_buffer(256)
     size = (ctypes.c_int * 2)()
     if lib.uniir_jpeg_info(data, len(data), size, err, len(err)) != 0:
@@ -1357,7 +1568,7 @@ def open_header(data: bytes, name: str = "<bytes>") -> tuple:
     than 8 bits or 1 / 3 / 4 components, a DQT of too few bytes, no frame before the scan, more pixels than
     the decompression bomb limit."""
     if data[:3] != b"\xff\xd8\xff":
-        raise ValueError(f"{name}: not a JPEG file")
+        raise ValueError(f"{name}: not a JPEG file (no SOI marker and marker after it)")
     pos, s = 3, b"\xff"
     size, comment, mpf, hdr_gain = None, None, None, False
 
@@ -1389,9 +1600,11 @@ def open_header(data: bytes, name: str = "<bytes>") -> tuple:
                 if len(body) < 6:
                     raise ValueError(f"{name}: truncated JPEG frame header")
                 if body[0] != 8:
-                    raise ValueError(f"{name}: cannot handle {body[0]}-bit layers")
+                    raise ValueError(f"{name}: marker 0xFF{marker:02X}: {body[0]}-bit samples are not supported "
+                                     f"(8 only; Pillow: cannot handle {body[0]}-bit layers)")
                 if body[5] not in (1, 3, 4):
-                    raise ValueError(f"{name}: cannot handle {body[5]}-layer images")
+                    raise ValueError(f"{name}: marker 0xFF{marker:02X}: {body[5]} components are not supported "
+                                     f"(1, 3 or 4; Pillow: cannot handle {body[5]}-layer images)")
                 size = (body[3] << 8 | body[4], body[1] << 8 | body[2])
             elif marker == 0xDB:
                 body = segment()
@@ -1406,7 +1619,8 @@ def open_header(data: bytes, name: str = "<bytes>") -> tuple:
                 body = segment()
                 if (marker, body[:4]) == (0xE0, b"JFIF") and len(body) < 7 or \
                         (marker, body[:5]) == (0xEE, b"Adobe") and len(body) < 7:
-                    raise ValueError(f"{name}: truncated APP{marker & 15} segment")
+                    raise ValueError(f"{name}: marker 0xFF{marker:02X}: truncated {body[:5].decode('latin-1')} "
+                                     "segment")
                 if marker == 0xE2 and body.startswith(b"MPF\0"):
                     mpf = body[4:]
                 elif marker == 0xE1 and b' hdrgm:Version="' in body:

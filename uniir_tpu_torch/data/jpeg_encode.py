@@ -47,7 +47,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from uniir_tpu_torch.data.jpeg import ZIGZAG
+from uniir_tpu_torch.data.jpeg import ANNEX_K, ZIGZAG
 
 _LUMA_Q = np.array([
     16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
@@ -58,18 +58,7 @@ _CHROMA_Q = np.full(64, 99, np.int64)
 _CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
 
 # Annex K Huffman tables: (counts of codes of length 1 ... 16, symbols)
-_DC_LUMA = (bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0]), bytes(range(12)))
-_DC_CHROMA = (bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0]), bytes(range(12)))
-_AC_LUMA = (bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D]), bytes.fromhex(
-    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a3435"
-    "363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a92939495969798"
-    "999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4"
-    "f5f6f7f8f9fa"))
-_AC_CHROMA = (bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77]), bytes.fromhex(
-    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a262728292a"
-    "35363738393a434445464748494a535455565758595a636465666768696a737475767778797a82838485868788898a9293949596"
-    "9798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4"
-    "f5f6f7f8f9fa"))
+_DC_LUMA, _AC_LUMA, _DC_CHROMA, _AC_CHROMA = (ANNEX_K[(0, 0)], ANNEX_K[(1, 0)], ANNEX_K[(0, 1)], ANNEX_K[(1, 1)])
 
 SCALEBITS, CENTER = 16, 128
 ONE_HALF, CBCR_OFFSET = 1 << (SCALEBITS - 1), CENTER << SCALEBITS
