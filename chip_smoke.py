@@ -15,8 +15,15 @@
    (csrc/jpeg2000.cu) to Pillow's digests of the stored corpus
    (tests/data/jpeg2000, scripts/make_jpeg2000_files.py) and to its twin
    over 200 seeded derivatives (flipped code-block bytes, cuts, damaged
-   headers), printing their images/s on one thread and on the loader's
-   threads (JPEG 2000's at 640 x 480 and 1920 x 1080, on 1 and 16);
+   headers), the native TIFF decoder over 200 seeded files each of ZSTD,
+   CIELAB, subsampled YCbCr and CCITT strips cut short (their outcome,
+   pixels or the exception raised, the twin's; Pillow's digests of the
+   stored ZSTD / CIELAB / YCbCr / cut-CCITT / JPEG-strip files) and the
+   native ZSTD decoder over 200 seeded frames (`zstd_bytes`: whole, cut,
+   flipped) in both its readings, printing their images/s on one thread
+   and on the loader's threads (JPEG 2000's at 640 x 480 and 1920 x 1080,
+   on 1 and 16; TIFF's ZSTD levels 3 / 19, CIELAB and 2 x 2 YCbCr at
+   640 x 480 on one);
 1. checks each kernel against its plain PyTorch twin at the shapes the
    serving paths give it: K1 attention at CLIP-L vision and text shapes, at
    BLIP's L = 197, the `base` configs' shapes (ViT-B/32 vision L = 50 and
@@ -136,8 +143,8 @@
    held to `search_dense_index` over the same queries embedded through the
    twins, and one request each of one PNG, one GIF, one BMP, one CMYK JPEG,
    one lossy WebP and one lossless WebP (with alpha) image query and one
-   each of a TIFF, an arithmetic JPEG, an RLE TGA, a QOI, a BC7 DDS, a
-   PackBits PSD, a lossless JP2 and an irreversible J2K file (the native
+   each of an LZW TIFF, a ZSTD TIFF, an arithmetic JPEG, an RLE TGA, a QOI,
+   a BC7 DDS, a PackBits PSD, a lossless JP2 and an irreversible J2K file (the native
    PNG / GIF / JPEG / WebP / TIFF / JPEG 2000 decoders and
    the native stages of csrc/raster.cu and csrc/bcn.cu -- BMP has one
    decoder, numpy --, K1, K2) held
@@ -395,15 +402,53 @@ TIFF_CASE_FORMS = {
     "lzw_rgb16_mm_orientation6": ("rgb16", dict(photometric=2, compression=5, order="MM", orientation=6)),
     "packbits_cmyk_orientation3": ("rgba", dict(photometric=5, compression=32773, orientation=3)),
 }
+# forms of `zstd_bytes`: raw or RLE blocks; compressed blocks of greedy LZ77 matches with raw, RLE or Huffman literals
+# (direct weights; one or four streams; a later block reusing the table), sequences under the predefined, RLE or
+# repeated tables, repeat offsets; several frames with skippable frames between them
+ZSTD_FORMS = ("raw_blocks", "rle_blocks", "lz_raw", "lz_huffman1", "lz_huffman4", "lz_rle_tables", "lz_repeat",
+              "frames_skippable")
+
+# the TIFF forms of ZSTD, CIELAB, subsampled YCbCr and CCITT strips that end early, DECODER_CASES files of each
+# kind: (samples kind, tiff_bytes keywords; "flip": a byte of a strip flipped)
+TIFF_KINDS = {
+    "tiff_zstd": {**{f"zstd_{f}": ("rgb", dict(photometric=2, compression=50000, zstd_form=f, rows_per_strip=16))
+                     for f in ZSTD_FORMS[:-1]},
+                  "zstd_predictor2_rgb16_mm": ("rgb16", dict(photometric=2, compression=50000, predictor=2, order="MM",
+                                                             rows_per_strip=8)),
+                  "zstd_predictor3_float": ("float", dict(photometric=1, compression=50000, predictor=3)),
+                  "zstd_tiles_planar_rgba": ("rgba", dict(photometric=2, extra=(2,), compression=50000, planar=2,
+                                                          tile=(32, 16)))},
+    "tiff_lab": {"lab_raw": ("rgb", dict(photometric=8, compression=1, rows_per_strip=7)),
+                 "lab_lzw_planar": ("rgb", dict(photometric=8, compression=5, planar=2)),
+                 "lab_zstd_tiles": ("rgb", dict(photometric=8, compression=50000, tile=(16, 32))),
+                 "lab_packbits_orientation6": ("rgb", dict(photometric=8, compression=32773, orientation=6))},
+    "tiff_ycbcr": {**{f"ycbcr{h}{v}_c{c}": ("rgb", dict(photometric=6, compression=c, subsampling=(h, v), **lay))
+                      for (h, v), c, lay in (((2, 2), 5, dict(rows_per_strip=8)), ((2, 1), 8, dict(tile=(16, 16))),
+                                             ((1, 2), 32773, dict(rows_per_strip=6)), ((4, 4), 50000, dict(tile=(32, 32))),
+                                             ((4, 2), 5, dict(rows_per_strip=5)), ((4, 1), 50000, {}))},
+                   "ycbcr22_orientation7_c8": ("rgb", dict(photometric=6, compression=8, subsampling=(2, 2),
+                                                           orientation=7, rows_per_strip=4)),
+                   "ycbcr44_strips_c50000": ("rgb", dict(photometric=6, compression=50000, subsampling=(4, 4),
+                                                         rows_per_strip=6)),
+                   "ycbcr11_planar_c5": ("rgb", dict(photometric=6, compression=5, planar=2))},
+    "tiff_ccitt": {"g3_cut": ("bilevel", dict(photometric=0, compression=3, bits=1, rows_per_strip=9, cut=0.6)),
+                   "g3_fill_cut": ("bilevel", dict(photometric=1, compression=3, bits=1, t4options=4, cut=0.8,
+                                                   rows_per_strip=17)),
+                   "g3_flip": ("bilevel", dict(photometric=0, compression=3, bits=1, rows_per_strip=12, flip=True)),
+                   "rle_cut": ("bilevel", dict(photometric=0, compression=2, bits=1, rows_per_strip=10, cut=0.7))},
+}
+
+
 # the JPEG forms of the decoder phase: SOF1, arithmetic sequential / progressive, lossless, and progressive
 # arithmetic files cut after a scan (smoothed)
 JPEG_FORM_CASE_FORMS = ("sof1", "arith_420", "arith_444_restart_dac", "arith_progressive", "arith_cmyk_progressive",
                         "lossless_grey", "lossless_rgb_restart", "smoothed_arith")
 
 
-def tiff_case(form: str, rng, w: int, h: int) -> bytes:
-    """A seeded TIFF of one of TIFF_CASE_FORMS: a smooth field with noise (LZW and PackBits find runs in it)."""
-    kind, kw = TIFF_CASE_FORMS[form]
+def tiff_case(form: str, rng, w: int, h: int, forms: dict = TIFF_CASE_FORMS) -> bytes:
+    """A seeded TIFF of one of `forms` (TIFF_CASE_FORMS, or a kind of TIFF_KINDS): a smooth field with noise
+    (LZW and PackBits find runs in it)."""
+    kind, kw = forms[form]
     yy, xx = np.mgrid[0:h, 0:w]
     field = np.stack([(xx * (3 + c) + yy * (2 + 2 * c) + 40 * c) % 256 for c in range(4)], axis=2)
     img = np.clip(field + rng.normal(0, 6, field.shape), 0, 255).astype(np.uint8)
@@ -414,7 +459,15 @@ def tiff_case(form: str, rng, w: int, h: int) -> bytes:
     kw = dict(kw)
     if kw.pop("colormap", False):
         kw["colormap"] = [int(v) for v in rng.integers(0, 65536, 3 << kw["bits"])]
-    return tiff_bytes(samples, **kw)
+    flip = kw.pop("flip", False)
+    data = tiff_bytes(samples, **kw)
+    if flip:  # a byte of the first strip's data flipped
+        from uniir_tpu_torch.data import tiff
+
+        t = tiff.parse(data)
+        at = t.tags[273][0] + int(rng.integers(0, t.tags[279][0]))
+        data = data[:at] + bytes([data[at] ^ int(rng.integers(1, 256))]) + data[at + 1:]
+    return data
 
 
 def jpeg_form_case(form: str, rng, w: int, h: int) -> bytes:
@@ -460,7 +513,9 @@ def decoder_case(job: tuple) -> tuple:
     kind, k = job
     rng = np.random.default_rng(SEED + 7000 + k + {"gif": 0, "jpeg": 100_000, "webp": 200_000, "tiff": 300_000,
                                                    "jpeg_forms": 400_000, "raster": 500_000,
-                                                   "containers": 600_000}[kind])
+                                                   "containers": 600_000, "tiff_zstd": 700_000, "tiff_lab": 800_000,
+                                                   "tiff_ycbcr": 900_000, "tiff_ccitt": 1_000_000,
+                                                   "zstd": 1_100_000}[kind])
     w, h = int(rng.integers(1, 601)), int(rng.integers(1, 601))
     if kind in ("webp", "tiff", "jpeg_forms") and k % 4:  # three cases in four log-uniform over 1-600 px: the
         w, h = int(round(600 ** rng.random())), int(round(600 ** rng.random()))  # Python twins are slow at 600
@@ -470,6 +525,13 @@ def decoder_case(job: tuple) -> tuple:
     if kind == "tiff":
         data = tiff_case(list(TIFF_CASE_FORMS)[k % len(TIFF_CASE_FORMS)], rng, w, h)
         return data, hashlib.sha256(tiff.decode_twin(data).tobytes()).hexdigest()
+    if kind in TIFF_KINDS:  # log-uniform over 1-600 px
+        w, h = int(round(600 ** rng.random())), int(round(600 ** rng.random()))
+        forms = TIFF_KINDS[kind]
+        data = tiff_case(list(forms)[k % len(forms)], rng, w, h, forms)
+        return data, outcome_digest(tiff.decode_twin, data, f"{kind} case {k}")
+    if kind == "zstd":
+        return zstd_case(k, rng)
     if kind == "jpeg_forms":
         data = jpeg_form_case(JPEG_FORM_CASE_FORMS[k % len(JPEG_FORM_CASE_FORMS)], rng, w, h)
         return data, hashlib.sha256(jpeg.decode_twin(data).tobytes()).hexdigest()
@@ -518,7 +580,42 @@ def decoder_case(job: tuple) -> tuple:
     return data, hashlib.sha256(twin(data).tobytes()).hexdigest()
 
 
+def outcome_digest(fn, *args) -> str:
+    """sha256 of the bytes (or pixels) `fn(*args)` gives, or "raises <exception class>"."""
+    import hashlib
+
+    try:
+        out = fn(*args)
+    except ValueError as err:
+        return f"raises {type(err).__name__}"
+    return hashlib.sha256(out if isinstance(out, bytes) else out.tobytes()).hexdigest()
+
+
+def zstd_case(k: int, rng) -> tuple:
+    """(frame bytes, (content size, the twin's outcome of decompress, and of decode_stream into the content
+    size)) of seeded case k of the "zstd" kind: frames of ZSTD_FORMS over a raw image's bytes, up to 300 KiB,
+    every third one cut and every third one with a byte flipped."""
+    from uniir_tpu_torch.data import zstd
+
+    n = int(round(300_000 ** rng.random()))
+    data = raw_image(int(rng.integers(0, 1 << 30)), max(1, n // 96), 32).tobytes()[:n]
+    if k % 2:  # a small alphabet, where Huffman literals with direct weights pay
+        data = (np.frombuffer(data, np.uint8) >> 4).tobytes()
+    frame = zstd_bytes(data, ZSTD_FORMS[k % len(ZSTD_FORMS)], seed=k)
+    if k % 3 == 1:
+        frame = frame[: int(rng.integers(0, len(frame) + 1))]
+    elif k % 3 == 2 and frame:
+        at = int(rng.integers(0, len(frame)))
+        frame = frame[:at] + bytes([frame[at] ^ int(rng.integers(1, 256))]) + frame[at + 1:]
+    name = f"zstd case {k}"
+    return frame, (len(data), outcome_digest(zstd.decompress, frame, len(data), name),
+                   outcome_digest(zstd.decode_stream, frame, len(data), name))
+
+
 DECODER_KINDS = ("gif", "jpeg", "webp", "tiff", "jpeg_forms", "raster", "containers")
+# kinds whose cases may raise (their digest names the exception): the TIFF_KINDS, and "zstd" frames (of ZSTD_FORMS,
+# whole, cut or with a byte flipped) through both of the ZSTD decoder's readings
+RAISING_KINDS = (*TIFF_KINDS, "zstd")
 # the forms whose bytes csrc/raster.cu decodes: each file goes through one of its entries once
 RASTER_CASE_FORMS = ("qoi_rgb", "qoi_rgba", "tga_rle_rgb", "tga_rle_rgba", "tga_rle_grey", "tga_rle_cmap16",
                      "sgi_rle", "sgi_rle_16", "pcx_rgb", "pcx_palette", "pcx_planar", "dcx", "sun_rle",
@@ -676,10 +773,90 @@ def start_decoder_cases(pool) -> dict:
                "jpeg2000": [pool.submit(jpeg2000_case, k) for k in range(DECODER_CASES)],
                "jpeg_damage": [pool.submit(jpeg_damage_case, k) for k in range(JPEG_DAMAGE_CASES)]}
     pending.update({kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)]
-                    for kind in DECODER_KINDS})
+                    for kind in DECODER_KINDS + RAISING_KINDS})
     pending["raster_size"] = [pool.submit(raster_size_case, form) for form in RASTER_CASE_FORMS]
     pending["container_size"] = [pool.submit(container_size_case, job) for job in CONTAINER_SIZES]
     return pending
+
+
+def check_raising_kinds(cases: dict, smi: str) -> None:
+    """The native TIFF decoder (csrc/tiff.cu) on the TIFF_KINDS' files and the native ZSTD decoder
+    (csrc/zstd.cuh, in the TIFF library) on the "zstd" frames in both readings: each case's outcome (its pixels'
+    or bytes' digest, or the exception it raises) the twin's; the TIFF kinds' rates on one thread."""
+    from uniir_tpu_torch.data import tiff, zstd
+
+    for kind, forms in TIFF_KINDS.items():
+        calls = tiff.decode_native.calls
+        t0 = time.perf_counter()
+        got = [outcome_digest(tiff.decode_native, data, f"{kind} case {k}") for k, (data, _) in enumerate(cases[kind])]
+        dt = time.perf_counter() - t0
+        differ = [k for k, (g, (_, want)) in enumerate(zip(got, cases[kind])) if g != want]
+        check(not differ, f"decoder phase: the native {kind} decoder differs from its twin on cases {differ[:5]}")
+        decoded = sum(not g.startswith("raises") for g in got)
+        check(tiff.decode_native.calls - calls == decoded, f"decoder phase: the native {kind} decoder counted "
+              f"{tiff.decode_native.calls - calls} calls for {decoded} decodes")
+        raised = sorted({g for g in got if g.startswith("raises")})
+        log(f"decoder phase: native {kind} equal to its twin on {len(got)} files ({', '.join(forms)}; "
+            f"{len(got) - decoded} raise as the twin raises: {raised}); {len(got) / dt:.1f} images/s on one "
+            f"thread (host CPU {host_cpu()}; card {smi})")
+    t0 = time.perf_counter()
+    differ, raised = [], 0
+    for k, (frame, (size, one, streamed)) in enumerate(cases["zstd"]):
+        name = f"zstd case {k}"
+        got = (outcome_digest(zstd.decompress_native, frame, size, name),
+               outcome_digest(zstd.decode_stream_native, frame, size, name))
+        raised += sum(g.startswith("raises") for g in got)
+        if got != (one, streamed):
+            differ.append(k)
+    check(not differ, f"decoder phase: the native ZSTD decoder differs from its twin on frames {differ[:5]}")
+    size = sum(c[1][0] for c in cases["zstd"])
+    log(f"decoder phase: native ZSTD equal to its twin on {len(cases['zstd'])} frames ({', '.join(ZSTD_FORMS)}; "
+        f"whole, cut and flipped; {raised} of {2 * len(cases['zstd'])} readings raise as the twin's), "
+        f"{size / 1e6:.1f} MB in {time.perf_counter() - t0:.2f} s (host CPU {host_cpu()}; card {smi})")
+
+
+# the 640 x 480 TIFFs whose single-thread decode rates PERF.md keeps: ZSTD strips at libzstd levels 3 and 19
+# (made by libzstd as libtiff streams them; the card's machine has none, so they are stored with Pillow's
+# digests), and CIELAB / 2x2 YCbCr files of the writer
+TIFF_RATE_DIR = REPO / "tests" / "data" / "tiff"
+TIFF_RATE_FILES = {"zstd_level3_640x480.tif": "d5ed311ba69959beac208b61cf9128220560930306ce413792334bc28458e204",
+                   "zstd_level19_640x480.tif": "d5ed311ba69959beac208b61cf9128220560930306ce413792334bc28458e204"}
+
+
+def tiff_rate_image() -> np.ndarray:
+    """The 640 x 480 image of the rate files: a noiseless colour gradient (ZSTD keeps it to 41-87 KB, which a
+    photo's noise would not)."""
+    yy, xx = np.mgrid[0:480, 0:640]
+    return np.stack([(xx * (0.3 + c * 0.1) + yy * (0.2 + c * 0.05) + 40 * c) % 256 for c in range(3)], 2).astype(np.uint8)
+
+
+def check_tiff_rates(smi: str) -> None:
+    """Single-thread decode rates of the native TIFF decoder and its twin at 640 x 480: the stored ZSTD files
+    (held to Pillow's digests), CIELAB (ZSTD) and 2x2 YCbCr (Deflate) files of the writer (held to the twin)."""
+    import hashlib
+
+    from uniir_tpu_torch.data import tiff
+
+    img = tiff_rate_image()
+    files = {name: ((TIFF_RATE_DIR / name).read_bytes(), digest) for name, digest in TIFF_RATE_FILES.items()}
+    files["lab_zstd_640x480"] = (tiff_bytes(img, 8, compression=50000, rows_per_strip=32), None)
+    files["ycbcr22_deflate_640x480"] = (tiff_bytes(img, 6, compression=8, subsampling=(2, 2), rows_per_strip=32), None)
+    for name, (data, digest) in files.items():
+        t0 = time.perf_counter()
+        want = tiff.decode_twin(data, name)
+        twin_s = time.perf_counter() - t0
+        got = tiff.decode_native(data, name)
+        check(np.array_equal(got, want) and (digest is None or hashlib.sha256(got.tobytes()).hexdigest() == digest),
+              f"decoder phase: {name} differs from {'Pillow' if digest else 'the twin'}")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            tiff.decode_native(data, name)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        log(f"decoder phase: TIFF rate {name} ({len(data)} bytes): native {ms:.3f} ms ({1e3 / ms:.1f} images/s, "
+            f"{640 * 480 / ms / 1e3:.2f} Mpixel/s) on one thread, median of 5; twin {twin_s * 1e3:.1f} ms "
+            f"(host CPU {host_cpu()}; card {smi})")
 
 
 def check_raster_size(cases: list, threads: int, smi: str) -> None:
@@ -1071,6 +1248,8 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
                 px = sum(outs[k].shape[0] * outs[k].shape[1] for k in sel)
                 log(f"decoder phase: native {kind} {form}: {len(sel) / dt:.1f} images/s, {px / dt / 1e6:.2f} "
                     f"Mpixel/s on one thread ({px / len(sel):.0f} pixels a file)")
+    check_raising_kinds(cases, smi)
+    check_tiff_rates(smi)
     check_raster_size(cases["raster_size"], threads, smi)
     check_container_size(cases["container_size"], smi)
     check_jpeg2000(cases["jpeg2000"], cases["jpeg2000_twin"], threads, smi)
@@ -3355,9 +3534,9 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
 TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi",
-               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged")
+               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged", "tiff_zstd")
 # phase 10's JPEG 2000 queries: files of the stored corpus (no JPEG 2000 writer here)
-JPEG2000_QUERIES = {"jp2_lossless": "11_rlcp.jp2", "j2k_irreversible": "59_vga_irreversible.j2k"}
+JPEG2000_QUERIES = {"jp2_lossless": "11_rlcp.jp2", "j2k_irreversible": "53_style_bypass_irreversible.j2k"}
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
 
 
@@ -3392,7 +3571,7 @@ def swapped_decoders():
 def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, index, cands: list, form: str, seed: int,
                       per_batch: int) -> None:
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
-    lossy WebP, a lossless WebP with alpha, an LZW TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
+    lossy WebP, a lossless WebP with alpha, an LZW TIFF, a ZSTD TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
     QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD, a lossless JP2 or an irreversible J2K file of the
     stored corpus, or a damaged 640 x 480 JPEG of the damaged-JPEG corpus) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF / JPEG
     2000, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS; BMP has one decoder), K1, K2; held to
@@ -3406,7 +3585,7 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     path = os.path.join(root, "mbeir_data", rel)
     Path(path).write_bytes(fixture_file(form, seed))
     native = {"gif": gif.decode_native, "jpeg_cmyk": jpeg.decode_native, "webp_lossy": webp.decode_native,
-              "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native,
+              "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native, "tiff_zstd": tiff.decode_native,
               "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative(),
               "dds_bc7": ContainerNative(), "psd_rle": ContainerNative(), "jp2_lossless": jpeg2000.decode_native,
               "j2k_irreversible": jpeg2000.decode_native, "jpeg_damaged": jpeg.decode_native}.get(form)
@@ -4816,6 +4995,226 @@ def jpeg_bytes(image: np.ndarray, quality: int = 75, sampling=(2, 2), restart: i
     return out + segment(0xDA, sos + bytes([0, 63, 0])) + scan + b"\xff\xd9"
 
 
+# --- the ZSTD writer: Zstandard frames (RFC 8878) without libzstd, for the decoders' seeded cases
+
+
+
+def _zstd_code(value: int, base: list, bits: list) -> int:
+    """The sequence code whose baseline and extra bits cover `value`."""
+    c = max(k for k in range(len(base)) if base[k] <= value)
+    assert value < base[c] + (1 << bits[c])
+    return c
+
+
+def _zstd_backward(fields: list) -> bytes:
+    """A bitstream the decoder reads from its end: `fields` (value, bits) in the order it reads them, then the
+    end mark."""
+    acc, n = 0, 0
+    for value, bits in reversed(fields):
+        acc |= value << n
+        n += bits
+    acc |= 1 << n
+    return acc.to_bytes(n // 8 + 1, "little")
+
+
+def _zstd_huffman(lits: bytes):
+    """(weights with the last symbol's left out, {symbol: (code, length)}) of a Huffman code of at most 11 bits, or
+    None where direct weights cannot describe it (one symbol, or one above 128)."""
+    import heapq
+
+    counts = np.bincount(np.frombuffer(lits, np.uint8), minlength=256)
+    present = [int(v) for v in np.nonzero(counts)[0]]
+    if len(present) < 2 or present[-1] > 128:
+        return None
+    weights_of = counts.astype(np.int64)
+    while True:
+        heap = [(int(weights_of[v]), i, (v,)) for i, v in enumerate(present)]
+        heapq.heapify(heap)
+        depth = dict.fromkeys(present, 0)
+        tie = len(heap)
+        while len(heap) > 1:
+            a, _, sa = heapq.heappop(heap)
+            b, _, sb = heapq.heappop(heap)
+            for v in sa + sb:
+                depth[v] += 1
+            heapq.heappush(heap, (a + b, tie, sa + sb))
+            tie += 1
+        if max(depth.values()) <= 11:
+            break
+        weights_of = weights_of // 2 + (weights_of > 0)
+    log = max(depth.values())
+    weight = {v: log + 1 - depth[v] for v in present}
+    start, codes = {}, {}
+    at = 0
+    for w in range(1, log + 1):
+        start[w] = at
+        at += sum(1 for v in present if weight[v] == w) << (w - 1)
+    for v in present:
+        w = weight[v]
+        codes[v] = (start[w] >> (w - 1), depth[v])
+        start[w] += 1 << (w - 1)
+    return [weight.get(v, 0) for v in range(present[-1])], codes
+
+
+def _zstd_literals(lits: bytes, form: str, last_table, whole=None):
+    """(the literals section, the Huffman code used or None) of a compressed block; `whole`: the code "lz_repeat"
+    sends in its first Huffman block and reuses after."""
+    def plain(kind: int, size: int) -> bytes:
+        if size < 32:
+            return bytes([size << 3 | kind])
+        if size < 4096:
+            return (size << 4 | 1 << 2 | kind).to_bytes(2, "little")
+        return (size << 4 | 3 << 2 | kind).to_bytes(3, "little")
+
+    if lits and lits == lits[:1] * len(lits):
+        return plain(1, len(lits)) + lits[:1], last_table
+    huff = _zstd_huffman(lits) if form in ("lz_huffman1", "lz_huffman4", "lz_repeat") and len(lits) >= 6 else None
+    if form == "lz_repeat" and whole is not None and len(lits) >= 6:
+        huff = whole
+    if huff is None:
+        return plain(0, len(lits)) + lits, last_table
+    reuse = form == "lz_repeat" and last_table is not None and all(v in last_table[1] for v in set(lits))
+    weights, codes = last_table if reuse else huff
+    four = form != "lz_huffman1" or len(lits) > 1023
+    parts = [lits] if not four else [lits[k * ((len(lits) + 3) // 4): (k + 1) * ((len(lits) + 3) // 4)]
+                                     for k in range(4)]
+    streams = [_zstd_backward([codes[v] for v in part]) for part in parts]
+    body = b"".join(streams)
+    if four:
+        body = b"".join(len(st).to_bytes(2, "little") for st in streams[:3]) + body
+    if not reuse:
+        n = len(weights)
+        packed = bytes((weights[k] << 4) | (weights[k + 1] if k + 1 < n else 0) for k in range(0, n, 2))
+        body = bytes([127 + n]) + packed + body
+    size, csize = len(lits), len(body)
+    fmt = 0 if not four else 1 if max(size, csize) < 1024 else 2 if max(size, csize) < 16384 else 3
+    bits = (10, 10, 14, 18)[fmt]
+    header = ((3 if reuse else 2) | fmt << 2 | size << 4 | csize << (4 + bits)).to_bytes((3, 3, 4, 5)[fmt], "little")
+    return header + body, (weights, codes)
+
+
+def _zstd_sequences(seqs: list, form: str, last_modes) -> tuple:
+    """(the sequences section of (literal length, offset value, match length) triples, the table modes used): the
+    predefined tables, RLE tables where every code of a kind is one, or the last block's tables again."""
+    from uniir_tpu_torch.data import zstd
+
+    nb = len(seqs)
+    head = (bytes([nb]) if nb < 128 else bytes([(nb >> 8) + 0x80, nb & 0xFF]) if nb < 0x7F00
+            else b"\xff" + (nb - 0x7F00).to_bytes(2, "little"))
+    if not nb:
+        return head, last_modes
+    codes = [(_zstd_code(ll, zstd.LL_BASE, zstd.LL_BITS), ov.bit_length() - 1, _zstd_code(ml, zstd.ML_BASE, zstd.ML_BITS))
+             for ll, ov, ml in seqs]
+    modes, tables, rle = [], [], b""
+    for k in range(3):  # LL, OF, ML
+        if form == "lz_rle_tables" and len({c[k] for c in codes}) == 1:
+            modes.append(1)
+            tables.append(([(codes[0][k], 0, 0)], 0))
+            rle += bytes([codes[0][k]])
+        else:
+            modes.append(3 if form == "lz_repeat" and last_modes == (0, 0, 0) else 0)
+            tables.append(zstd._predefined(k))
+    # the states, chosen backward: each one decodes its sequence's code and its update lands on the next one's
+    states = [[0] * 3 for _ in range(nb)]
+    for i in reversed(range(nb)):
+        for k in range(3):
+            table, log = tables[k]
+            cands = [u for u, (sym, _, _) in enumerate(table) if sym == codes[i][k]]
+            if i == nb - 1:
+                states[i][k] = cands[0]
+            else:
+                nxt = states[i + 1][k]
+                states[i][k] = next(u for u in cands if table[u][2] <= nxt < table[u][2] + (1 << table[u][1]))
+    fields = [(states[0][0], tables[0][1]), (states[0][1], tables[1][1]), (states[0][2], tables[2][1])]
+    for i, (ll, ov, ml) in enumerate(seqs):
+        lc, oc, mc = codes[i]
+        fields += [(ov - (1 << oc), oc), (ml - zstd.ML_BASE[mc], zstd.ML_BITS[mc]), (ll - zstd.LL_BASE[lc], zstd.LL_BITS[lc])]
+        if i < nb - 1:
+            for k in (0, 2, 1):  # the updates: LL, ML, OF
+                table = tables[k][0]
+                u = states[i][k]
+                fields.append((states[i + 1][k] - table[u][2], table[u][1]))
+    section = head + bytes([modes[0] << 6 | modes[1] << 4 | modes[2] << 2]) + rle + _zstd_backward(fields)
+    return section, tuple(0 if m == 3 else m for m in modes)
+
+
+def zstd_bytes(data: bytes, form: str, seed: int = 0) -> bytes:
+    """Zstandard frames of `data` in one of ZSTD_FORMS; `seed` draws the header's fields (single segment or a
+    window descriptor, content size, checksum) and the block size."""
+    from uniir_tpu_torch.data import zstd
+
+    rng = np.random.default_rng(seed)
+    if form == "frames_skippable":
+        cut = sorted(int(v) for v in rng.integers(0, len(data) + 1, 2))
+        parts = [data[:cut[0]], data[cut[0]:cut[1]], data[cut[1]:]]
+        skip = (0x184D2A50 + int(rng.integers(0, 16))).to_bytes(4, "little") + (3).to_bytes(4, "little") + b"uni"
+        return skip.join(zstd_bytes(p, ("lz_huffman4", "lz_raw", "rle_blocks")[k], seed + k + 1)
+                         for k, p in enumerate(parts))
+    n = len(data)
+    single = bool(rng.integers(0, 2))
+    checksum = bool(rng.integers(0, 2))
+    if single:
+        fcs = 0 if n < 256 else 1 if n < 65792 else 2
+        window = n
+    else:
+        fcs = 0 if rng.integers(0, 2) else (1 if 256 <= n < 65792 else 2 if n >= 256 else 0)
+        window_log = max(10, (max(n, 1) - 1).bit_length(), 12 if form == "lz_raw" else 10)
+        window = 1 << window_log
+    head = zstd.MAGIC.to_bytes(4, "little") + bytes([fcs << 6 | single << 5 | checksum << 2])
+    if not single:
+        head += bytes([(window_log - 10) << 3])
+    if single and fcs == 0:
+        head += bytes([n])
+    elif fcs:
+        head += ((n - 256) if fcs == 1 else n).to_bytes((0, 2, 4, 8)[fcs], "little")
+    block_max = min(window, zstd.BLOCK_MAX)
+    size = max(1, min(block_max, int(rng.choice([1024, 8192, 32768, 131072]))))
+    blocks, rep, table, modes, hashes = [], [1, 4, 8], None, None, {}
+    whole = _zstd_huffman(data) if form == "lz_repeat" else None
+    for start in range(0, max(n, 1), size):
+        end = min(n, start + size)
+        last = end >= n
+        chunk = data[start:end]
+        if form == "raw_blocks" or (form == "rle_blocks" and chunk != chunk[:1] * len(chunk)) or not chunk:
+            blocks.append((len(chunk) << 3 | last).to_bytes(3, "little") + chunk)
+            continue
+        if form == "rle_blocks":
+            blocks.append((len(chunk) << 3 | 1 << 1 | last).to_bytes(3, "little") + chunk[:1])
+            continue
+        seqs, lits, i, lit_start = [], bytearray(), start, start
+        while i + 4 <= end:
+            key = data[i:i + 4]
+            cand = hashes.get(key)
+            hashes[key] = i
+            if cand is None or i - cand > window:
+                i += 1
+                continue
+            m = 4
+            while i + m < end and data[cand + m] == data[i + m]:
+                m += 1
+            ll, off = i - lit_start, i - cand
+            lits += data[lit_start:i]
+            if ll and off == rep[0]:
+                ov = 1
+            elif not ll and off == rep[1]:
+                ov, rep = 1, [rep[1], rep[0], rep[2]]
+            else:
+                ov, rep = off + 3, [off, rep[0], rep[1]]
+            seqs.append((ll, ov, m))
+            i += m
+            lit_start = i
+        lits += data[lit_start:end]
+        section, table = _zstd_literals(bytes(lits), form, table, whole)
+        seq_section, modes = _zstd_sequences(seqs, form, modes)
+        payload = section + seq_section
+        if len(payload) > block_max:  # (each sequence's code is drawn, so a compressed block may not pay)
+            blocks.append((len(chunk) << 3 | last).to_bytes(3, "little") + chunk)
+            continue
+        blocks.append((len(payload) << 3 | 2 << 1 | last).to_bytes(3, "little") + payload)
+    tail = (zstd.xxh64(data) & 0xFFFFFFFF).to_bytes(4, "little") if checksum else b""
+    return head + b"".join(blocks) + tail
+
+
 # --- the TIFF writer: strips or tiles, both byte orders, BigTIFF, every codec the decoders read but CCITT 2-D
 # and LZMA, predictors, without Pillow
 
@@ -4935,15 +5334,20 @@ def tiff_fax_1d(bits: np.ndarray, compression: int, fill: bool = False) -> bytes
 def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, order: str = "II",
                bigtiff: bool = False, rows_per_strip: int = None, tile=None, planar: int = 1, predictor: int = 1,
                fillorder: int = 1, orientation: int = None, extra=(), bits: int = None, colormap=None,
-               t4options: int = 0, lzw_compat: bool = False, ycbcr_sampling=(2, 2)) -> bytes:
+               t4options: int = 0, lzw_compat: bool = False, ycbcr_sampling=(2, 2), subsampling=(1, 1),
+               tags: dict = None, zstd_form: str = "lz_huffman4", zstd=None, cut: float = 1.0) -> bytes:
     """A TIFF file of `samples` [H, W, samples per pixel] (uint8 / uint16 / int16 / int32 / float32, or 1, 2
     and 4-bit values in uint8 with `bits`): strips of `rows_per_strip` rows or tiles of `tile` = (width,
     length), contiguous or separate planes, byte order "II" / "MM", BigTIFF, and compression 1 (raw), 2 / 3
     (CCITT 1-D of a bilevel image, T4Options `t4options`), 5 (LZW), 7 (JPEG: each strip or tile a
     `jpeg_bytes` stream, its tables also in JPEGTables; YCbCr sampled by `ycbcr_sampling`), 8 / 32946
-    (Deflate), 34925 (LZMA) or 32773 (PackBits); `predictor` 2 (horizontal) or 3 (floating point),
+    (Deflate), 34925 (LZMA), 32773 (PackBits) or 50000 (ZSTD: `zstd_bytes` in `zstd_form`, or the bytes
+    the callable `zstd` makes of a chunk); `predictor` 2 (horizontal) or 3 (floating point),
     `fillorder` 2 (each compressed byte's bits reversed), `orientation`, ExtraSamples `extra` and a ColorMap of
-    3 * 2^bits 16-bit values."""
+    3 * 2^bits 16-bit values.  YCbCr samples (photometric 6) under another codec than JPEG are packed in
+    `subsampling` = (horizontal, vertical) data units (each block's Y samples, then its top-left pixel's Cb and
+    Cr); `tags`: more IFD entries, tag -> (type, values); `cut`: each strip's or tile's byte count cut to that
+    share of it (its bytes all still in the file: a strip that ends early)."""
     e = "<" if order == "II" else ">"
     samples = samples if samples.ndim == 3 else samples[:, :, None]
     h, w, spp = samples.shape
@@ -4966,6 +5370,14 @@ def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, o
         rows, cols, n = block.shape
         if compression == 7:
             return b""
+        if photometric == 6 and subsampling != (1, 1):  # YCbCr data units: h x v Y samples, then Cb, Cr
+            sh, sv = subsampling
+            br, bc = -(-rows // sv), -(-cols // sh)
+            pad = np.zeros((br * sv, bc * sh, 3), dt)
+            pad[:rows, :cols] = block
+            ys = pad[..., 0].reshape(br, sv, bc, sh).transpose(0, 2, 1, 3).reshape(br, bc, sv * sh)
+            units = np.concatenate([ys, pad[::sv, ::sh, 1:3]], axis=2)
+            return units.astype(np.uint8).tobytes()
         if bits < 8:
             packed = np.packbits(np.unpackbits(block.astype(np.uint8).reshape(rows, cols * n, 1), axis=2)[:, :, 8 - bits:]
                                  .reshape(rows, -1), axis=1)
@@ -4996,6 +5408,8 @@ def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, o
             import lzma
 
             out = lzma.compress(raw)
+        elif compression == 50000:
+            out = zstd(raw) if zstd else zstd_bytes(raw, zstd_form, seed=(p * down + j) * across + i)
         elif compression in (2, 3):
             rows = len(raw) // (-(-tw // 8))
             b = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(rows, -1), axis=1)[:, :tw]
@@ -5008,7 +5422,9 @@ def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, o
                 block[part.shape[0]:] = block[part.shape[0] - 1: part.shape[0]] if part.shape[0] else 0
             else:
                 block = samples[j * th:(j + 1) * th]
-            if spp == 1:
+            if planar == 2:
+                out = jpeg_bytes(block[:, :, p])
+            elif spp == 1:
                 out = jpeg_bytes(block[:, :, 0])
             elif photometric == 6:
                 out = jpeg_bytes(block, sampling=ycbcr_sampling)
@@ -5041,7 +5457,8 @@ def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, o
     if photometric == 6 and compression == 7:
         entries[530] = (3, list(ycbcr_sampling))
     if photometric == 6 and compression != 7:
-        entries[530] = (3, [1, 1])
+        entries[530] = (3, list(subsampling))
+    entries.update(tags or {})
     if compression == 7:
         first = chunks[0]
         sos = first.index(b"\xff\xc0")
@@ -5057,11 +5474,11 @@ def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, o
         if len(data) % 2:
             data += b"\x00"
     off_type = 16 if bigtiff else 4
+    counts = [max(1, int(len(c) * cut)) if cut < 1 else len(c) for c in chunks]
     if tile:
-        entries.update({322: (3, [tw]), 323: (3, [th]), 324: (off_type, offsets),
-                        325: (off_type, [len(c) for c in chunks])})
+        entries.update({322: (3, [tw]), 323: (3, [th]), 324: (off_type, offsets), 325: (off_type, counts)})
     else:
-        entries.update({278: (4, [th]), 273: (off_type, offsets), 279: (off_type, [len(c) for c in chunks])})
+        entries.update({278: (4, [th]), 273: (off_type, offsets), 279: (off_type, counts)})
     ifd_at = head + len(data)
     n = len(entries)
     entry_size, count_fmt, inline = (20, "Q", 8) if bigtiff else (12, "H", 4)
@@ -7048,7 +7465,9 @@ PROGRESSIVE_FILES = {
 # lossless at method 0 and 6, lossy with a gradient alpha (`exact`), a two-frame animation), with the sha256 of
 # Pillow's RGB pixels of each and their width and height (Pillow 12.1.0, libwebp 1.6.0): the decoder phase holds
 # both decoders to these digests on the card's machine, which has no Pillow
-# Pillow-made TIFF files (base64; libtiff's own JPEG, Group 3 1-D / 2-D, Group 4 and LZMA output) and JPEG
+# Pillow-made TIFF files (base64; libtiff's own JPEG, Group 3 1-D / 2-D, Group 4, LZMA, ZSTD and CIELAB output, and
+# files Pillow reads that it cannot write: ZSTD strips of libzstd at levels -5, 9 and 22, subsampled YCbCr, Group 3
+# strips cut short, a JPEG strip that ends in an unknown marker, JPEG planes) and JPEG
 # forms (SOF1, the baseline file patched to SOF9 -- arithmetic decoding of Huffman data, a bad code within the
 # first interval --, and progressive files cut after their first or fourth scan, which libjpeg smooths), each
 # with the sha256 of Pillow 12.1's RGB pixels, width and height: the card's machine has no Pillow
@@ -7157,6 +7576,439 @@ TIFF_PILLOW_FILES = {
         "AAEDAAEAAAAlAAAAAQEDAAEAAAAXAAAAAgEDAAMAAADuCQAAAwEDAAEAAABtiAAABgEDAAEAAAACAAAAEQEEAAEAAAAIAAAAFQEDAAEA"
         "AAADAAAAFgEDAAEAAAAXAAAAFwEEAAEAAABoCQAAHAEDAAEAAAABAAAAAAAAAAgACAAIAA==",
         "f0d27abfd4fe2f7f40982421bd48808c944a0260b7d41ff859af646b08b9ac1e", 37, 23),
+    "zstd_pillow_rgb_40x30": (
+        "SUkqACIOAAAotS/9AGCBcAAAJVACLlQINl8QQWINQmkaR3QgTXwfVIMmVo0qaIwwZpc4bJk4cKQ/bqpBgLNMfbhOi8NZjMNYj9Bbnddmnd5n"
+        "peV1p+xpru9yu/l4v/9+ygiKyQyOzw+KzyGS2hya1yqk5TGh6j2s70Cq+ES1AEm1AEu+CFXFEmUFK1UNL14PN2EPO2gVQXMZSX0aTnsnWYok"
+        "YY4uaJgzapk4aqU/cqpCfLNGfL1RgL1XhcdYlctils9in91opdhyrOtyqfB5ufNyvf17xAWCww+IyBCU0heU3iOV5CWj5TWh7zOn8Des+0ez"
+        "+ki8CEzBCFzCC2LIEGIIOVgJNGQOO20VPnEVTXYkVoIpUIouVpErYZQ1aZswcqZEcq88fLRLhLFOhsFLjMpTlM9gmNFfnOBfo+Jnruposu9w"
+        "t/R9v/93xASEwwuKzwyN1B2S2yiZ4iac6TCb6zuj8Tmm/0es/U2uA0+8B1rCC17AGWbPHXEKOWEINmkSPHEZRXobUYMbWIYmZIwoZ5Q1Yp86"
+        "baM9dKhAdLVIgLRHgcVRisJWkMpWl9Vcl9Vjo+ZorehstfRur+92vP6BvAR/zRiCyRGEzBiT2SaV2Smd2jOc7DSj8D6u+Uqy/kmzAVOxCVnE"
+        "C1/CFGbJFGzVJ3cNPHINSWkKTHYbToAiUogiX40rXpUuZqA6aqM1aao9drVAerJNg7pJjMNVj8tYk9VdnOFgoeBioulvr/RrsPRwt/95vAyH"
+        "wBB/zhKI1RyE1h+U3SqY7S6X6jOb7D6s+0au+E2vAVW1AF64EWO5FmjFHW3AInPVJHwOQXcXR30cS34bVocmX40mU5MyYpgwa6Exbas5crA9"
+        "erxHh8FIkcROlMZTlNpbntljoOpcpfBsqudysvpnufR0twZ9wAyEzxaK1h2L1SGU1CSV4zGX6jqj7juk8Tuj/E6wAFC1C1e0B2C/Emu/HG/F"
+        "HHLIHnzTJIYTPncWUX4YVYUZWJIhXJkmZJgwaaU2bKs9b7E/dLZEfsJMjMhIk8tRlNRaltpcm+Nnn+ZjqPVtr/pysv55vgKCwwh/yhZ9zyKN"
+        "ziKP3SSY6i+a5zmf7Tqi90Wm+kqyAFGtCmGwB2G7DmG+GWzFG23MIIDLLIfaMooVTYAaUoUfVZImWZsha5wraKE4b6k2fbAzfrtBg81NksVP"
+        "idBVj9hSltpXq+BkpepupPRnsvJvuP5ywQZ6yhN4xROJ0h6N0yeK2SaO5jGb6DOh5T2f7T2q+kqx/1WwCle5CWa7E2nAF3bEHHnMJnXJIIXI"
+        "MoLaK40ZUIscWI0hXJQkYZ40Z6Y5cqw1cak8erNEeb5Lhr9HidVOjNRUltdVmelcm+pppOljrPdmtv9xuQJ1uwt6zRV90RmD0x2I1SiN3SyT"
+        "4jSX6D6e8Eun9Eyl+EmpAV+2Clu4DGXBFG7DIHPLHYHHKIrYL4nYMY3XNpsbUY0iYpYoYp0uaKAwa6Q2bLMyc647hLs8gsZIi8xOktlSkNdc"
+        "ouNZqutip+5erfpwsvtxuAVxxQt6yxZ7zx+G1h6F3CeJ2zSV5Tej7Tya8Uae+1Kq+VSlA1y0C1a7Fmm3D2+4GXfFJ33JI3vSK47UNpXeP5/a"
+        "OpscV5YnYJwibKUrbqsycLUye7c8fr06gsA/itFJjthPlNxZmeVapudepvFgr/Zrs/92vAZ0wAh5xBp+zBt7zSeC1iWO3yuR5jeX7D2f7kSc"
+        "80qr/VOpAGSsC2K0D2mzGHPHHHvBHIDEIYLGLYnYMZbYN57aOaHlQKYeYZ4sXqEtYqgpZ7Qxc7E7fr5AgMJAi8xNjNpYktxVmuJWoeRgoe9e"
+        "qvForfdzuAVyvwp2xBV8yRqBzxyD1iGG3yqV2jqU5zSW6kWa90+e+1CsAFm0D1uzAma6D3G+HHrFH33CIoTMLJDUKY3VNpjbPKThQq3mS60g"
+        "Y6YjbaoqcLkyeL83fMA6gso8hM9EjNNHltxPmehcm+daouthsf1ktf1ouQVqvwx2vxd4yxt70B2A0ymH3TWN5DaY6zyS6ESb9U2g+lmlAFO1"
+        "BGKwEmuyDWq3HXPBIHzII4LJJYvSLpDXOZfgO6LaQqbkSbLnSrYiZKUparMwdbE0drw9gMQ/gctFj9hEl9xTnuBSnOxZn+1VsPpbs/9gtgZs"
+        "wQpsvxN2yhF5zyOE3yuJ4TKM3jOO5TqR6UeU8kye9Uyf/0+uCmGnDWqyC2+xGHTAGn29HIHIJIvKK5PPMZbVPZ/WOa7mRazhSrLpUrolcbA3"
+        "crg2froygMhFiM9Ii9VDidtLnOVWl+VXoe9kr/1lrP9ouAlsvg5vyhhvzxl60CF/yi6C2CmM3jeO5j2T5ESW8UOa+Feg+2CiDF+zCmCqE3Ky"
+        "E3e7G3rIHIjDK4bKLZXRNaLROaTWR6neSLLgSrHhTMDvVsIucbM1d8U7e8FDh8dEjdtLmNtAleRUnuZZnvJaqvlirv9gtABmvAd5vxRxxRN5"
+        "zh981CWC1SyF4TiF5jyV7EST9U+b81Od91ulAF+lCWGvEnS3FnGyIX3BKYW7KYnHJpLKMJfYN5/XP6PbRrHgTbbmT73lWMrsXsMye7s4esU0"
+        "hdI/hMxMlN9LlN9MnO9PpPFfqPlcr/9luAFytA9nxRZ1xB50zR960SJ90yiH4jyK4zyP7UiS8UqT+E6c+VekAGSpBmSxDWmpE3mzGYC+IoK9"
+        "K43IMpTKLpHXNaDUPK/URbPaUK/kUr7rVcPtXsvwZc8vfcY3hcJBhNY+kuBJk+RPn+lSnehXo/tZrf9irwhougxruxJyxBt1wyV60yJ91jOC"
+        "2DaK4jqQ6UKU6k6T8FKh/1OiAF6kCWynEGuwGXW2F3y0IYa/J47CLJDBMZfONqHWQqXVRaXaS7zgTL7jVcfuXsbvXdP9Z9szf9Q7hNU8jNxK"
+        "kN5FmedVpOpJpfdcq/9lswVjuxZsuhpuyBd3yiVyzyZ9zjKG3DeG4zuC6UeR8UWN9Vab+VmZAmCgBGaoCnGuEHW2Gn+8Ioa4IIbIJY7HM5jS"
+        "O5vWO6bWO7HgTrbfRLbmU7/xYcrrU831a9n5bOI+gcpDkN9GkeBEkedGp+9Qp/5Ur/5cpgdguRJotA5tvhlxzSZszSR91jKA1jmE4TuL5kiQ"
+        "8k2T7lia9Feg/1+iA2eoDHOnDnu4FIO2GH26I4/CI5i/KZ/ONJ/ROqDSQrHQSLPeQ7rhVb/mV8zqXtTvauD3a9/3beU6idZAkuFFlOhLp+5N"
+        "qPFZpf9XqQRfqw5muxFoxRpxyCh4ySdv2jOA2jKE3T2G30OQ6k6Q9FWb+FqZ/1qeAGieBWapEG+rDnmrIX62JIXGJpO9KZnGMZ/QPaXSOanQ"
+        "RrjXR8LdUrziWcvmWdbxZdnwbtr9b+T/cO5FiuE/nOpHlPFRovZRrfVUqwRftRBmuw9kxhxxyCNx0SdzzCd71jR83kmI4UKI7kiM8FmP9Vue"
+        "/GGeCWigCW6tEHenHXyzGIK5HoLBKZC6MJTJNZ7KN6jIQq7ZRbLcTL3gUsHkWcTmXdfuXd7xa9z4beL7de8Cefc/l+VIpvVIpfJJqv5ZtApW"
+        "tg1htg5nwB1qvyNrzihwzC142DR+3D196USI5lGN7FmT816d+F+XAGaeB2+kDXSuF32tGny2II27I5G5MaDCLZ/QOp/ROq7SQ7PPSrvXS8Lg"
+        "VcnrW8zrY93radjsbuX8cukAg+0Afv9Anu9Knv5Ppf9PrAZVsQpethpfuhpfxB5rwTF1zip00jqA4z2B3UqI6FGH7luT9leS/1yWB2efAnSp"
+        "EG+oEYCyHIavIpG3IYvAK5nAK6fJOqvKQa3KQrPaRbrgU8PgTsfgXM7nY9PzZNX1ZOjzc+z/evYDcP4LfwFKo/lIrvZasAtUtQNWvRJgwBFu"
+        "yCVtzSxw0C542TF/1Tt740h/4kqM7VKT81aR+lmUA2WYAmuoDHynEnepEH62JYW2KZu0KZnCMJ7GO6fLPazPPbLPP73TTsbgWsfhVtDqWtjz"
+        "YNv4Zufycef7bvUAe/8DfQIJiQVGpP9VrAlPpw5SuxFYvhhlvCJlyCln1C5t0jl02jp530SA5VKI61CE9lyR+l6a/2KjDG6dDXagEHqrFYqo"
+        "IJC4I5m3KJu7LJy7NqDOPK7KP7rRRLXOScrbR9HlV9LkZtnsY97wZuf0cPT0d+3/gPYCfwANiwcOkQ5JqwVUtQxXrhRdtR1dwBxdyilw0TFy"
+        "1jd30z9530KD6U2A6lKQ9FiP+WKX/2GbBXKZB3WeDnqrFYGxGoa3HJG0JprALKC/Nai/NrTNQLnRQ7/RSsbYWMXdT8/mXdXpYt3wcODpbuz5"
+        "dvP7hPMAfwIJig0JkQsRkBNOrA9auhphtiBgzB5mxS9kyTFs1TV91jh12EWG5U996U+B9VOL9F6P/2OTAnSYBG+pC3ieE4apHouuHo6yI5m9"
+        "LJm8MqnFOKvFRbPLTLrNR7/UTsrdWtDfY9LkXtvrZN/0bev5dfb/gPwAewcIiA4NjQcLkhUKkhpXtxJRth1gwSRivi1ozDFq0jJz3EFv4ER9"
+        "5UyC6FGH8mGR+WKP9GeVA26XD26dEX+lFYemG4mzHpC4KJu5LZ63LKbFN6rDPrLRPr3QU8bQVc3aU9DdYdfkZd3qbeLscun2cvT6e//2gAAF"
+        "hgwNiwcNkxQOnBkgmyNTtRlXwyNkxydqzSpizzht2UeB30F15kl861B+9V2L/V6I+2WPBW+QCHmeEIGkE3+kGYeqG4irK5S8KKa6MaW9MLDJ"
+        "PLLGSbnXS8TXUNDaV9TgUd3mYNvmaubuY+/sbff6dvn+fAAHhwoSiRUJjxYRmBwQmSYfny4ACgAAAQMAAQAAACgAAAABAQMAAQAAAB4AAAAC"
+        "AQMAAwAAAKAOAAADAQMAAQAAAFDDAAAGAQMAAQAAAAIAAAARAQQAAQAAAAgAAAAVAQMAAQAAAAMAAAAWAQMAAQAAAB4AAAAXAQQAAQAAABkO"
+        "AAAcAQMAAQAAAAEAAAAAAAAACAAIAAgA",
+        "4c64e41b30da16bdf0b6773bb5992ea3e6d25b95538a385b5627c8022343dc69", 40, 30),
+    "zstd_pillow_predictor2_grey_40x30": (
+        "SUkqAPoCAAAotS/9AGBNFwC6SngLM0BTkg5VYzt1jWU2R1H8yGisSrLlpn6ezxXpv5nCIJEB3nhTdPvt5We2kb2llDLJJOUmAaUAqACqAHib"
+        "DrvkqFEtvbsEmWiKCT+cp5y17zKcv8+G0uf82QgBun5SVtD61xRE6ULR16WNB19fbigaEWilT32kDk/OKnmEgWkp5/3WTjpaHgsPALBLT/B+"
+        "bSI2QS2QBBGZP0vttOxYFScGUp0eta8fr16xt7URbTVe/unoPRWwWQazdrfuGYw6SQ+9fyWapZEh2k9g04AcGqo0Zxl3zO81b6EyNMj3NJof"
+        "EOW1PHza+YIz65mKrScjLal0TOwUIoQslPanBrOMhh/eJS9X5YR4reidWkt8UGmnaT6aoHr8TPJ6zrsQW3zHrDsPHSBezZb32DggXqPh724a"
+        "P/vwaUfNrEHWaTrpjxOO+aho8CUDX4l/2qHvyiCHpqYFcZykYKrsltGoIWpzESXVRMr2WhacUaxMUwvm9I42L/YCT81pW1OJ6t0V1EryDl3h"
+        "yHVrFZEojL/lHaNmzdC4tHw4gVa73/OWtjfXAlFbnTr58bsCT1oP9TuF6UwnFTxSjk3wcc2n9URmYRNxbijbG5XhHbOarfTQUxTToHQ0LSp+"
+        "EaUWDCagxoJsdBhL1Qnq0RTQ1Hdcp/UYm87hD+QYxUqzaeeNXkpYzFe7rSx1gZjWavQ4+nm3k7xm5X2crSZivtNiOA+VjkKTcPfxNCvtbw9i"
+        "c7XaqdFk8bSTQ7/OCGsBWmmO4oVewVXOiaf8Y7YaJGne6FGO++F4o2CRNt5aLWeUnOgfYpDkrYISCGM7IxT36QcnqD+9WjvlkVZlMd9Ki7J0"
+        "MC8J3ckxkuz51PF3elPhPsqm8UFEyXK4U0JNbRbZrnNbPk3BcPzxWJl2S44ZIrQFCrvj0zlVppougGLIgPjHpEkzZDQxLoKGCdU6VMnBMqo1"
+        "3jrm42lNi9e3vJBfiJQibYhrxjpGnWaPHg8BAGaQBUMFCgAAAQMAAQAAACgAAAABAQMAAQAAAB4AAAACAQMAAQAAAAgAAAADAQMAAQAAAFDD"
+        "AAAGAQMAAQAAAAEAAAARAQQAAQAAAAgAAAAWAQMAAQAAAB4AAAAXAQQAAQAAAPICAAAcAQMAAQAAAAEAAAA9AQMAAQAAAAIAAAAAAAAA",
+        "2caf25be97e54efc0b7d9265a97fed57a502a09e7823ef32a238ee53a9d1660d", 40, 30),
+    "zstd_level_minus5_rgb_40x30": (
+        "SUkqAEAOAAAotS/9AEgBHgAAJVACLlQINl8QQWINQmkaR3QgTXwfVIMmVo0qaIwwZpc4bJk4cKQ/bqpBgLNMfbhOi8NZjMNYj9Bbnddmnd5n"
+        "peV1p+xpru9yu/l4v/9+ygiKyQyOzw+KzyGS2hya1yqk5TGh6j2s70Cq+ES1AEm1AEu+CFXFEmUFK1UNL14PN2EPO2gVQXMZSX0aTnsnWYok"
+        "YY4uaJgzapk4aqU/cqpCfLNGfL1RgL1XhcdYlctils9in91opdhyrOtyqfB5ufNyvf17xAWCww+IyBCU0heU3iOV5CWj5TWh7zOn8Des+0ez"
+        "+ki8CEzBCFzCC2LIEGIIOVgJNGQOO20VPnEVTXYkVoIpUIouVpErYZQ1aZswcqZEcq88fLRLhLFOhsFLjMpTlM9gmNFfnOBfo+Jnruposu9w"
+        "t/R9v/93xASEwwuKzwyN1B2S2yiZ4iac6TCb6zuj8Tmm/0es/U2uA0+8B1rCC17AGWbPHXEKOWEINmkSPHEZRXobUYMbWIYmZIwoZ5Q1Yp86"
+        "baM9dKhAdLVIgLRHgcVRisJWkMpWl9Vcl9Vjo+ZorehstfRur+92vP6BvAR/zRiCyRGEzBiT2SaV2Smd2jOc7DSj8D6u+Uqy/kmzAVOxCVnE"
+        "C1/CFGbJFGzVJ3cNPHINSWkKTHYbToAiUogiX40rXpUuZqA6aqM1aao9drVAerJNg7pJjMNVj8tYk9VdnOFgoeBioulvr/RrsPRwt/95vAyH"
+        "wBB/zhKI1RyE1h+U3SqY7S6X6jOb7D6s+0au+E2vAVW1AF64EWO5FmjFHW3AInPVJHwOQXcXR30cS34bVocmX40mU5MyYpgwa6Exbas5crA9"
+        "erxHh8FIkcROlMZTlNpbntljoOpcpfBsqudysvpnufR0twZ9wAyEzxaK1h2L1SGU1CSV4zGX6jqj7juk8Tuj/E6wAFC1C1e0B2C/Emu/HG/F"
+        "HHLIHnzTJIYTPncWUX4YVYUZWJIhXJkmZJgwaaU2bKs9b7E/dLZEfsJMjMhIk8tRlNRaltpcm+Nnn+ZjqPVtr/pysv55vgKCwwh/yhZ9zyKN"
+        "ziKP3SSY6i+a5zmf7Tqi90Wm+kqyAFGtCmGwB2G7DmG+GWzFG23MIIDLLIfaMooVTYAaUoUfVZImWZsha5wraKE4b6k2fbAzfrtBg81NksVP"
+        "idBVj9hSltpXq+BkpepupPRnsvJvuP5ywQZ6yhN4xROJ0h6N0yeK2SaO5jGb6DOh5T2f7T2q+kqx/1WwCle5CWa7E2nAF3bEHHnMJnXJIIXI"
+        "MoLaK40AKLUv/QBIAR4AGVCLHFiNIVyUJGGeNGemOXKsNXGpPHqzRHm+S4a/R4nVTozUVJbXVZnpXJvqaaTpY6z3Zrb/cbkCdbsLes0VfdEZ"
+        "g9MdiNUojd0sk+I0l+g+nvBLp/RMpfhJqQFftgpbuAxlwRRuwyBzyx2BxyiK2C+J2DGN1zabG1GNImKWKGKdLmigMGukNmyzMnOuO4S7PILG"
+        "SIvMTpLZUpDXXKLjWarrYqfuXq36cLL7cbgFccULessWe88fhtYehdwnids0leU3o+08mvFGnvtSqvlUpQNctAtWuxZptw9vuBl3xSd9ySN7"
+        "0iuO1DaV3j+f2jqbHFeWJ2CcImylK26rMnC1Mnu3PH69OoLAP4rRSY7YT5TcWZnlWqbnXqbxYK/2a7P/drwGdMAIecQafswbe80ngtYljt8r"
+        "keY3l+w9n+5EnPNKq/1TqQBkrAtitA9psxhzxxx7wRyAxCGCxi2J2DGW2Dee2jmh5UCmHmGeLF6hLWKoKWe0MXOxO36+QIDCQIvMTYzaWJLc"
+        "VZriVqHkYKHvXqrxaK33c7gFcr8KdsQVfMkagc8cg9Yhht8qldo6lOc0lupFmvdPnvtQrABZtA9bswJmug9xvhx6xR99wiKEzCyQ1CmN1TaY"
+        "2zyk4UKt5kutIGOmI22qKnC5Mni/N3zAOoLKPITPRIzTR5bcT5noXJvnWqLrYbH9ZLX9aLkFar8Mdr8XeMsbe9AdgNMph901jeQ2mOs8kuhE"
+        "m/VNoPpZpQBTtQRisBJrsg1qtx1zwSB8yCOCySWL0i6Q1zmX4Dui2kKm5Emy50q2ImSlKWqzMHWxNHa8PYDEP4HLRY/YRJfcU57gUpzsWZ/t"
+        "VbD6W7P/YLYGbMEKbL8TdsoRec8jhN8rieEyjN4zjuU6kelHlPJMnvVMn/9Prgphpw1qsgtvsRh0wBp9vRyByCSLyiuTzzGW1T2f1jmu5kWs"
+        "4Uqy6VK6JXGwN3K4Nn66MoDIRYjPSIvVQ4nbS5zlVpflV6HvZK/9Zaz/aLgJbL4Ob8oYb88ZetAhf8ougtgpjN43juY9k+RElvFDmvhXoPtg"
+        "ogxfswpgqhNyshN3uxt6yByIwyuGyi2V0TWi0Tmk1kep3kiy4Eqx4UzA71bCLnGzNXfFO3vBQ4fHRI3bS5jbQJXkVJ7mWZ7yWqr5Yq7/YLQA"
+        "ZrwHeb8UccUTec4ffNQlgtUsheE4heY8lexEk/VPm/NTnfdbpQBfpQlhrxJ0txZxsiF9wSmFuymJxyaSyjCX2Def1z+j20ax4E225k+95VjK"
+        "7F7DACi1L/0ASAEeADJ7uzh6xTSF0j+EzEyU30uU30yc70+k8V+o+Vyv/2W4AXK0D2fFFnXEHnTNH3rRIn3TKIfiPIrjPI/tSJLxSpP4Tpz5"
+        "V6QAZKkGZLENaakTebMZgL4igr0rjcgylMoukdc1oNQ8r9RFs9pQr+RSvutVw+1ey/Blzy99xjeFwkGE1j6S4EmT5E+f6VKd6Fej+1mt/2Kv"
+        "CGi6DGu7EnLEG3XDJXrTIn3WM4LYNoriOpDpQpTqTpPwUqH/U6IAXqQJbKcQa7AZdbYXfLQhhr8njsIskMExl842odZCpdVFpdpLvOBMvuNV"
+        "x+5exu9d0/1n2zN/1DuE1TyM3EqQ3kWZ51Wk6kml91yr/2WzBWO7Fmy6Gm7IF3fKJXLPJn3OMobcN4bjO4LpR5HxRY31Vpv5WZkCYKAEZqgK"
+        "ca4QdbYaf7wihrgghsgljsczmNI7m9Y7ptY7seBOtt9EtuZTv/FhyutTzfVr2fls4j6BykOQ30aR4ESR50an71Cn/lSv/lymB2C5Emi0Dm2+"
+        "GXHNJmzNJH3WMoDWOYThO4vmSJDyTZPuWJr0V6D/X6IDZ6gMc6cOe7gUg7YYfbojj8IjmL8pn840n9E6oNJCsdBIs95DuuFVv+ZXzOpe1O9q"
+        "4Pdr3/dt5TqJ1kCS4UWU6Eun7k2o8Vml/1epBF+rDma7EWjFGnHIKHjJJ2/aM4DaMoTdPYbfQ5DqTpD0VZv4Wpn/Wp4AaJ4FZqkQb6sOeash"
+        "frYkhcYmk70pmcYxn9A9pdI5qdBGuNdHwt1SvOJZy+ZZ1vFl2fBu2v1v5P9w7kWK4T+c6keU8VGi9lGt9VSrBF+1EGa7D2TGHHHII3HRJ3PM"
+        "J3vWNHzeSYjhQojuSIzwWY/1W578YZ4JaKAJbq0Qd6cdfLMYgrkegsEpkLowlMk1nso3qMhCrtlFstxMveBSweRZxOZd1+5d3vFr3Pht4vt1"
+        "7wJ59z+X5Uim9Uil8kmq/lm0Cla2DWG2DmfAHWq/I2vOKHDMLXjYNH7cPX3pRIjmUY3sWZPzXp34X5cAZp4Hb6QNdK4Xfa0afLYgjbsjkbkx"
+        "oMItn9A6n9E6rtJDs89Ku9dLwuBVyetbzOtj3etp2Oxu5fxy6QCD7QB+/0Ce70qe/k+l/0+sBlWxCl62Gl+6Gl/EHmvBMXXOKnTSOoDjPYHd"
+        "SojoUYfuW5P2V5L/XJYHZ58CdKkQb6gRgLIchq8ikbchi8ArmcArp8k6q8pBrcpCs9pFuuBTw+BOx+Bczudj0/Nk1fVk6PNz7P969gNw/gt/"
+        "AQAotS/9AEiBFgBKo/lIrvZasAtUtQNWvRJgwBFuyCVtzSxw0C542TF/1Tt740h/4kqM7VKT81aR+lmUA2WYAmuoDHynEnepEH62JYW2KZu0"
+        "KZnCMJ7GO6fLPazPPbLPP73TTsbgWsfhVtDqWtjzYNv4Zufycef7bvUAe/8DfQIJiQVGpP9VrAlPpw5SuxFYvhhlvCJlyCln1C5t0jl02jp5"
+        "30SA5VKI61CE9lyR+l6a/2KjDG6dDXagEHqrFYqoIJC4I5m3KJu7LJy7NqDOPK7KP7rRRLXOScrbR9HlV9LkZtnsY97wZuf0cPT0d+3/gPYC"
+        "fwANiwcOkQ5JqwVUtQxXrhRdtR1dwBxdyilw0TFy1jd30z9530KD6U2A6lKQ9FiP+WKX/2GbBXKZB3WeDnqrFYGxGoa3HJG0JprALKC/Nai/"
+        "NrTNQLnRQ7/RSsbYWMXdT8/mXdXpYt3wcODpbuz5dvP7hPMAfwIJig0JkQsRkBNOrA9auhphtiBgzB5mxS9kyTFs1TV91jh12EWG5U996U+B"
+        "9VOL9F6P/2OTAnSYBG+pC3ieE4apHouuHo6yI5m9LJm8MqnFOKvFRbPLTLrNR7/UTsrdWtDfY9LkXtvrZN/0bev5dfb/gPwAewcIiA4NjQcL"
+        "khUKkhpXtxJRth1gwSRivi1ozDFq0jJz3EFv4ER95UyC6FGH8mGR+WKP9GeVA26XD26dEX+lFYemG4mzHpC4KJu5LZ63LKbFN6rDPrLRPr3Q"
+        "U8bQVc3aU9DdYdfkZd3qbeLscun2cvT6e//2gAAFhgwNiwcNkxQOnBkgmyNTtRlXwyNkxydqzSpizzht2UeB30F15kl861B+9V2L/V6I+2WP"
+        "BW+QCHmeEIGkE3+kGYeqG4irK5S8KKa6MaW9MLDJPLLGSbnXS8TXUNDaV9TgUd3mYNvmaubuY+/sbff6dvn+fAAHhwoSiRUJjxYRmBwQmSYf"
+        "ny4ACgAAAQQAAQAAACgAAAABAQQAAQAAAB4AAAACAQMAAwAAAL4OAAADAQMAAQAAAFDDAAAGAQMAAQAAAAIAAAARAQQABAAAAMQOAAAVAQMA"
+        "AQAAAAMAAAAWAQQAAQAAAAgAAAAXAQQABAAAANQOAAAcAQMAAQAAAAEAAAAAAAAACAAIAAgACAAAANIDAACcBwAAZgsAAMkDAADJAwAAyQMA"
+        "ANkCAAA=",
+        "4c64e41b30da16bdf0b6773bb5992ea3e6d25b95538a385b5627c8022343dc69", 40, 30),
+    "zstd_level22_predictor2_rgb_40x30": (
+        "SUkqAFoJAAAotS/9AIhFEwCmO5cnoCfpUhLSWqdVVVVV1bd8FfrlL2J8Dy+Cc1ojhOwtpUwppZRSSknKiACMAI4AqXrlIImoy9rjE4sqV0dB"
+        "psUYsm5Kqq/lbUeGOzYTSawrVFETLI5H8VSC7wTbL3kNyWLp68jJ+KOyOOOrLpJja2QEAfLwdW4jJPmx1eWbTIscJVY8I8jiFHGZflVUP33r"
+        "YA0tlyW/6M4tUv6RZfpGmKp9JKb8ShcC3XZ3sern2ZLu+Vmx7QAAEkbJbiu1hLLyKyvR9DtuQSwvfMTQMfaMYXEIB6XkjcOKBjOM5nkwS4j+"
+        "EtZM7YeyluFDLvfw8xWHz9T8LWlj3cvqnJQCAf5oMFKI+ohMTZUidEr5bfme2v3NQ14xuutkNjyfTE4s/GxLDFyGJ5lb02GX2EhfaILwrVj2"
+        "+7Sa3JCmjTQI3vamUZQEApgEru92RxSd/H8v1n4ansQvcqWg6bVjlFuNq+yqG6vdCHUa9kGCVSEPTYaD8XJGIGmn5yWPG8ZMdivdKg2jDoj2"
+        "96+CqdoMCqC2BE1Frsksebheyl02GRuHN8y08MDf48rCtw0tIKKT/ZukLP6cLrYyHY/PdC+4T8L7w7sUh+b5eHUewrhuh3NJ4ZAFA84nAs+A"
+        "SIh1NKSF8yUezHMzVtuvzz3nCStPanb+4NLUBf8ciEKdZu4zygox+HJvOJqQtolVX8EWDINI9CUtUrwnkxeEonHPZQMDCafGmpXILbb/R/ZJ"
+        "usMVqyYP369oerI/bYaRdZhUaJNmo1m8zHWjF4ffaWrdpW8Xith4Zpre6ulJX5yLfK4s2iaOAYFEAgA4LjBFCNw0ACi1L/0AiH0TAHb7mCyA"
+        "S9IBcu/NhgUzMIPQMEGKEsQ4UyI4L2NEuUB6kNY1sgnZW8qUUkoppZSkDI8AigCJAAsGKIni7fum4FYKqpHYjz4oit8FH+yJKYQcHTUkG+co"
+        "LWxda7/xvLYm43pOIkiVW5p5QYgrhWlVG706KdHJKsdRPDvVNdqJjaBAgJELzaxN9CvGwomsud1M6QSgcUF1sBOvK3K+JZoiniPZhnfPfgYv"
+        "Vqdji9w513UL4JST9hd777IU/WRFeN5iGh+EBAECfhUaFDCdrYpUP51lYeS+t9xtJ/y0j2HZwZ3GQfSEibNFWojk6L5cM81M/cTcZfzrubU6"
+        "yovpGyf5G7RM7wtilMriucWYwIBA7p8Zq0mILDLLS7NgdPBei6z+EqfaD81ljVUV7Wkj1YvOcjgRTEO1/Y2fbW7Q0ul0VF30BOeh0nN747Zq"
+        "3SjRfgkBFh4cYGbNRCHEoZxGepq85vxoS9uRaaX6vgfkj/NjzrMv4e3aWW4tGfFInnpvZfDRXuZpSijnFqmFeyCvZOgeY+8/qH4NXQoODOA5"
+        "tI67eOv9zO62o7d93ohcibWRHIhYaKLMTs3LQvfPKvJFl5aHyN6gVWNEg4cci6uWJXTcfsicZq53MJX5uMUPuqnXmuamsYi8eI306wWhWTAf"
+        "6JMFWdFubbCZ0VDxt2JFYBqEbo+qHmpeuiGdYlmPKkVedJBJa4deMphfBz2KWEFFdC88QGBuHHaWWR9OIw1N4j1s1ZEYJx13GkZaw1GJlbA+"
+        "dVhc6ValshnqiXFpkXz+pHF0qejobDmGkdyPSd4VrCrRu2WFYYqhxQcJAgA6ESPDCO4ZKLUv/QCIzRMABnydLYBL0gF7bxaJGQE0zwiaABkD"
+        "AnqAMYEZmFvCIIVgPECiJW3vLaVMKaWUUkpSpo4AkwCQAOwqLbP6u+8YHaBptxCxZ9pcJ4/13Zdd1LvXnurzxhhDoS5kkFfR+U4id8qRvq57"
+        "1Ry+9mn0o9BcyyVSNO9KAbA8YbbgoADucZ+8NY4nr9hmrGJsUpKz+9/r9K/6oSJy2TTTcpvGNQcPeZo5AIbruUM1vXipRT6oJJ1uXYXxOHwH"
+        "G7OlONLE+vSJL63QwEB6bBlGKHkxnUyJ24U6uiBsjJ69saq0scTjBC6sCJ+FWhkPvy7dTy5RptzzuHaqkcUWycD3TBb8CuwQbIyGOQs4a4sx"
+        "F8DICxAStEFEwK/DxKtvYw3ESoW/2Rsev6vFediSLKs7o+or69nt5VAhmCxsIE1wLVWj9SYX6rSiDq5GeFFuVkUyHu6P7sVBtWxMMoYHBwKM"
+        "m/j07KJujRV4bhEVfw8P0V/8GE8Dd4R6NlVdoEwTvUntbDJd4+QhBzXZiEMB2CRnWxxs25PSL0sX+RvLrbdUviK4JSY0SGDg5rhJptehf0Nj"
+        "c+LVzRppweQocuXWC6HOsfepMF9O/y9pyqTtkvjr9u96zh8uQxASYplV1+3njvXDiYtS0JmjCt2T35ohAoJnMINAX4TGorBzDMrdVYYLa6V7"
+        "hxo7a9BoZaa8Jxa/KvqOmLVQnhb9jNkrYeS69jdNmEPQgWtEcoWC0M3QHNmYumtm0zDnQGGBxMIQQcQjpVmoIWynv95rmFfJNoYZS2olbagF"
+        "LxHtdavdU7V3lydMeq6yZlJ+02rURZxLpmF0neFq7O8oyA+URll2GL1hgoIAKLUv/QCI5Q4ABi12JaApHXKTTTJZVRX/w50DAACc4Bfy/+/+"
+        "1vb33lLKlFJKKaUkpQxtAGkAawBIPt7xYSTVmI1QpW8w5aXrmYf3mWZCm4wztacncKkwnI/WYHBJD52rXEubZyTN02bsbpyTVB/4yKjBRNmP"
+        "uYsZRoBmB9QypGhLHNGGqe+WoS6/Qg3VanhjrxndbTYBXu38YFSRjAEEsDxbMCAE3Jit+e9DSbPQMpLY4tZynq52imxrd40epq90DHdTTe3L"
+        "I83UXZWbh1ii2JQ9mzqSZ3n3S4iX1ES8AcpNe9OrvLj1T4eD1bPpvV33L9Yoxz7MhfdoB/FlaiAXJTddY2kAujmIKFsfor8E77mnkB5GTpCa"
+        "hPbQVNhZRzzzknMdNg7vowiX9oL2j28MgIiFNG0lW2Su4leOvj5n6kbdVhI10tS/mwraVVYGaSPaTP8nnsn8XzzRmygok8N8/OaY0CCFq0Sh"
+        "ijsJJkbIkoUygqaN/ZWOh4Ssh5+mzUcpHr1/ryLqxc56we+GHdoMxb2U5lGyakEpfbvWDGBJEnIOUlbDTpmX33HfZcthpRxtLq8EQwUO/4Uq"
+        "ThVR+cICCAVvANlHsVGSkx4nG9/4xjdRsirurjvmi0wPtDeLl+EvbuzyBAAACwAAAQQAAQAAACgAAAABAQQAAQAAAB4AAAACAQMAAwAAAOQJ"
+        "AAADAQMAAQAAAFDDAAAGAQMAAQAAAAIAAAARAQQABAAAAOoJAAAVAQMAAQAAAAMAAAAWAQQAAQAAAAgAAAAXAQQABAAAAPoJAAAcAQMAAQAA"
+        "AAEAAAA9AQMAAQAAAAIAAAAAAAAACAAIAAgACAAAAHoCAADyBAAAdAcAAHECAAB4AgAAggIAAOUBAAA=",
+        "4c64e41b30da16bdf0b6773bb5992ea3e6d25b95538a385b5627c8022343dc69", 40, 30),
+    "zstd_level9_checksum_rgb_40x30": (
+        "SUkqAFAOAAAotS/9ZMACAR4AACVQAi5UCDZfEEFiDUJpGkd0IE18H1SDJlaNKmiMMGaXOGyZOHCkP26qQYCzTH24TovDWYzDWI/QW53XZp3e"
+        "Z6Xldafsaa7vcrv5eL//fsoIiskMjs8Pis8hktocmtcqpOUxoeo9rO9AqvhEtQBJtQBLvghVxRJlBStVDS9eDzdhDztoFUFzGUl9Gk57J1mK"
+        "JGGOLmiYM2qZOGqlP3KqQnyzRny9UYC9V4XHWJXLYpbPYp/daKXYcqzrcqnwebnzcr39e8QFgsMPiMgQlNIXlN4jleQlo+U1oe8zp/A3rPtH"
+        "s/pIvAhMwQhcwgtiyBBiCDlYCTRkDjttFT5xFU12JFaCKVCKLlaRK2GUNWmbMHKmRHKvPHy0S4SxTobBS4zKU5TPYJjRX5zgX6PiZ67qaLLv"
+        "cLf0fb//d8QEhMMLis8MjdQdktsomeImnOkwm+s7o/E5pv9HrP1NrgNPvAdawgtewBlmzx1xCjlhCDZpEjxxGUV6G1GDG1iGJmSMKGeUNWKf"
+        "Om2jPXSoQHS1SIC0R4HFUYrCVpDKVpfVXJfVY6PmaK3obLX0bq/vdrz+gbwEf80YgskRhMwYk9kmldkpndoznOw0o/A+rvlKsv5JswFTsQlZ"
+        "xAtfwhRmyRRs1Sd3DTxyDUlpCkx2G06AIlKIIl+NK16VLmagOmqjNWmqPXa1QHqyTYO6SYzDVY/LWJPVXZzhYKHgYqLpb6/0a7D0cLf/ebwM"
+        "h8AQf84SiNUchNYflN0qmO0ul+ozm+w+rPtGrvhNrwFVtQBeuBFjuRZoxR1twCJz1SR8DkF3F0d9HEt+G1aHJl+NJlOTMmKYMGuhMW2rOXKw"
+        "PXq8R4fBSJHETpTGU5TaW57ZY6DqXKXwbKrncrL6Z7n0dLcGfcAMhM8WitYdi9UhlNQkleMxl+o6o+47pPE7o/xOsABQtQtXtAdgvxJrvxxv"
+        "xRxyyB580ySGEz53FlF+GFWFGViSIVyZJmSYMGmlNmyrPW+xP3S2RH7CTIzISJPLUZTUWpbaXJvjZ5/mY6j1ba/6crL+eb4CgsMIf8oWfc8i"
+        "jc4ij90kmOovmuc5n+06ovdFpvpKsgBRrQphsAdhuw5hvhlsxRttzCCAyyyH2jKKFU2AGlKFH1WSJlmbIWucK2ihOG+pNn2wM367QYPNTZLF"
+        "T4nQVY/YUpbaV6vgZKXqbqT0Z7Lyb7j+csEGesoTeMUTidIejdMnitkmjuYxm+gzoeU9n+09qvpKsf9VsApXuQlmuxNpwBd2xBx5zCZ1ySCF"
+        "yDKC2iuN2SUp5Si1L/1kwAIBHgAZUIscWI0hXJQkYZ40Z6Y5cqw1cak8erNEeb5Lhr9HidVOjNRUltdVmelcm+pppOljrPdmtv9xuQJ1uwt6"
+        "zRV90RmD0x2I1SiN3SyT4jSX6D6e8Eun9Eyl+EmpAV+2Clu4DGXBFG7DIHPLHYHHKIrYL4nYMY3XNpsbUY0iYpYoYp0uaKAwa6Q2bLMyc647"
+        "hLs8gsZIi8xOktlSkNdcouNZqutip+5erfpwsvtxuAVxxQt6yxZ7zx+G1h6F3CeJ2zSV5Tej7Tya8Uae+1Kq+VSlA1y0C1a7Fmm3D2+4GXfF"
+        "J33JI3vSK47UNpXeP5/aOpscV5YnYJwibKUrbqsycLUye7c8fr06gsA/itFJjthPlNxZmeVapudepvFgr/Zrs/92vAZ0wAh5xBp+zBt7zSeC"
+        "1iWO3yuR5jeX7D2f7kSc80qr/VOpAGSsC2K0D2mzGHPHHHvBHIDEIYLGLYnYMZbYN57aOaHlQKYeYZ4sXqEtYqgpZ7Qxc7E7fr5AgMJAi8xN"
+        "jNpYktxVmuJWoeRgoe9eqvForfdzuAVyvwp2xBV8yRqBzxyD1iGG3yqV2jqU5zSW6kWa90+e+1CsAFm0D1uzAma6D3G+HHrFH33CIoTMLJDU"
+        "KY3VNpjbPKThQq3mS60gY6YjbaoqcLkyeL83fMA6gso8hM9EjNNHltxPmehcm+daouthsf1ktf1ouQVqvwx2vxd4yxt70B2A0ymH3TWN5DaY"
+        "6zyS6ESb9U2g+lmlAFO1BGKwEmuyDWq3HXPBIHzII4LJJYvSLpDXOZfgO6LaQqbkSbLnSrYiZKUparMwdbE0drw9gMQ/gctFj9hEl9xTnuBS"
+        "nOxZn+1VsPpbs/9gtgZswQpsvxN2yhF5zyOE3yuJ4TKM3jOO5TqR6UeU8kye9Uyf/0+uCmGnDWqyC2+xGHTAGn29HIHIJIvKK5PPMZbVPZ/W"
+        "Oa7mRazhSrLpUrolcbA3crg2froygMhFiM9Ii9VDidtLnOVWl+VXoe9kr/1lrP9ouAlsvg5vyhhvzxl60CF/yi6C2CmM3jeO5j2T5ESW8UOa"
+        "+Feg+2CiDF+zCmCqE3KyE3e7G3rIHIjDK4bKLZXRNaLROaTWR6neSLLgSrHhTMDvVsIucbM1d8U7e8FDh8dEjdtLmNtAleRUnuZZnvJaqvli"
+        "rv9gtABmvAd5vxRxxRN5zh981CWC1SyF4TiF5jyV7EST9U+b81Od91ulAF+lCWGvEnS3FnGyIX3BKYW7KYnHJpLKMJfYN5/XP6PbRrHgTbbm"
+        "T73lWMrsXsMbJHz9KLUv/WTAAgEeADJ7uzh6xTSF0j+EzEyU30uU30yc70+k8V+o+Vyv/2W4AXK0D2fFFnXEHnTNH3rRIn3TKIfiPIrjPI/t"
+        "SJLxSpP4Tpz5V6QAZKkGZLENaakTebMZgL4igr0rjcgylMoukdc1oNQ8r9RFs9pQr+RSvutVw+1ey/Blzy99xjeFwkGE1j6S4EmT5E+f6VKd"
+        "6Fej+1mt/2KvCGi6DGu7EnLEG3XDJXrTIn3WM4LYNoriOpDpQpTqTpPwUqH/U6IAXqQJbKcQa7AZdbYXfLQhhr8njsIskMExl842odZCpdVF"
+        "pdpLvOBMvuNVx+5exu9d0/1n2zN/1DuE1TyM3EqQ3kWZ51Wk6kml91yr/2WzBWO7Fmy6Gm7IF3fKJXLPJn3OMobcN4bjO4LpR5HxRY31Vpv5"
+        "WZkCYKAEZqgKca4QdbYaf7wihrgghsgljsczmNI7m9Y7ptY7seBOtt9EtuZTv/FhyutTzfVr2fls4j6BykOQ30aR4ESR50an71Cn/lSv/lym"
+        "B2C5Emi0Dm2+GXHNJmzNJH3WMoDWOYThO4vmSJDyTZPuWJr0V6D/X6IDZ6gMc6cOe7gUg7YYfbojj8IjmL8pn840n9E6oNJCsdBIs95DuuFV"
+        "v+ZXzOpe1O9q4Pdr3/dt5TqJ1kCS4UWU6Eun7k2o8Vml/1epBF+rDma7EWjFGnHIKHjJJ2/aM4DaMoTdPYbfQ5DqTpD0VZv4Wpn/Wp4AaJ4F"
+        "ZqkQb6sOeashfrYkhcYmk70pmcYxn9A9pdI5qdBGuNdHwt1SvOJZy+ZZ1vFl2fBu2v1v5P9w7kWK4T+c6keU8VGi9lGt9VSrBF+1EGa7D2TG"
+        "HHHII3HRJ3PMJ3vWNHzeSYjhQojuSIzwWY/1W578YZ4JaKAJbq0Qd6cdfLMYgrkegsEpkLowlMk1nso3qMhCrtlFstxMveBSweRZxOZd1+5d"
+        "3vFr3Pht4vt17wJ59z+X5Uim9Uil8kmq/lm0Cla2DWG2DmfAHWq/I2vOKHDMLXjYNH7cPX3pRIjmUY3sWZPzXp34X5cAZp4Hb6QNdK4Xfa0a"
+        "fLYgjbsjkbkxoMItn9A6n9E6rtJDs89Ku9dLwuBVyetbzOtj3etp2Oxu5fxy6QCD7QB+/0Ce70qe/k+l/0+sBlWxCl62Gl+6Gl/EHmvBMXXO"
+        "KnTSOoDjPYHdSojoUYfuW5P2V5L/XJYHZ58CdKkQb6gRgLIchq8ikbchi8ArmcArp8k6q8pBrcpCs9pFuuBTw+BOx+Bczudj0/Nk1fVk6PNz"
+        "7P969gNw/gt/Aa91SfwotS/9ZNABgRYASqP5SK72WrALVLUDVr0SYMARbsglbc0scNAueNkxf9U7e+NIf+JKjO1Sk/NWkfpZlANlmAJrqAx8"
+        "pxJ3qRB+tiWFtimbtCmZwjCexjunyz2szz2yzz+9007G4FrH4VbQ6lrY82Db+Gbn8nHn+271AHv/A30CCYkFRqT/VawJT6cOUrsRWL4YZbwi"
+        "ZcgpZ9QubdI5dNo6ed9EgOVSiOtQhPZckfpemv9iowxunQ12oBB6qxWKqCCQuCOZtyibuyycuzagzjyuyj+60US1zknK20fR5VfS5GbZ7GPe"
+        "8Gbn9HD09Hft/4D2An8ADYsHDpEOSasFVLUMV64UXbUdXcAcXcopcNExctY3d9M/ed9Cg+lNgOpSkPRYj/lil/9hmwVymQd1ng56qxWBsRqG"
+        "txyRtCaawCygvzWovza0zUC50UO/0UrG2FjF3U/P5l3V6WLd8HDg6W7s+Xbz+4TzAH8CCYoNCZELEZATTqwPWroaYbYgYMweZsUvZMkxbNU1"
+        "fdY4ddhFhuVPfelPgfVTi/Rej/9jkwJ0mARvqQt4nhOGqR6Lrh6OsiOZvSyZvDKpxTirxUWzy0y6zUe/1E7K3VrQ32PS5F7b62Tf9G3r+XX2"
+        "/4D8AHsHCIgODY0HC5IVCpIaV7cSUbYdYMEkYr4taMwxatIyc9xBb+BEfeVMguhRh/Jhkflij/RnlQNulw9unRF/pRWHphuJsx6QuCibuS2e"
+        "tyymxTeqwz6y0T690FPG0FXN2lPQ3WHX5GXd6m3i7HLp9nL0+nv/9oAABYYMDYsHDZMUDpwZIJsjU7UZV8MjZMcnas0qYs84bdlHgd9BdeZJ"
+        "fOtQfvVdi/1eiPtljwVvkAh5nhCBpBN/pBmHqhuIqyuUvCimujGlvTCwyTyyxkm510vE11DQ2lfU4FHd5mDb5mrm7mPv7G33+nb5/nwAB4cK"
+        "EokVCY8WEZgcEJkmH58uOtf8kgoAAAEEAAEAAAAoAAAAAQEEAAEAAAAeAAAAAgEDAAMAAADODgAAAwEDAAEAAABQwwAABgEDAAEAAAACAAAA"
+        "EQEEAAQAAADUDgAAFQEDAAEAAAADAAAAFgEEAAEAAAAIAAAAFwEEAAQAAADkDgAAHAEDAAEAAAABAAAAAAAAAAgACAAIAAgAAADWAwAApAcA"
+        "AHILAADOAwAAzgMAAM4DAADeAgAA",
+        "4c64e41b30da16bdf0b6773bb5992ea3e6d25b95538a385b5627c8022343dc69", 40, 30),
+    "lab_pillow_lzw_40x30": (
+        "SUkqAMAPAACACUBuEXP9yDd/OMhPlzkN9uQlP1wlB+uArvtwFp/tw0vVzGl9N83vlxHN9N45v5tIJ7t5BP1to58txIPtvJN+NhPvdtqF9tlT"
+        "vlsqt+thXvhsLp7NpfPZsr1qkdfNojsNsklhtgisxrEpltsjNertprEdwNgkOZqEkyEAHW0GmohAo4EMCCwAuIYgNwDl/uMev9wkQAN4mv9u"
+        "lB+OEuvxvmN8OE1vlwG3KG9/Ns7PxuH99N1A0VC5lFv9sJd8N5NPtuqF8tpTPZvq59NpWPxrLl7txePVsrhrEZcNkir1skZjNoks9qklqNMl"
+        "Ne0N5qEtv110Wt0tYkmggg82EMDm27HEiAYcvp0jYAt8fAFvEH4E99OMsvtxFYBNsuAFtjKmw2n2b46Hwbo8H+bQ/pmQx7nERR9m2R6hEsfB"
+        "tk2fJuk+fZrlIfBslcpZZHqbRbqWX8PlwaojFybQjGGa4kmOa4kGasppq6bJqCUbRprNHZ1GgJJ1R8MAfAQNIhPGIYDDcIIBDuIoAh0fpxhw"
+        "ARuh/LAkgAboqH6bwtMoMx7HINJ7nCNAAG0OJ+QOk48n8bBBnybxDH6axGs+SZ9G4TKhE02pSn0a5WnsbZaqcWEPl4e5sFmbgimAagjF6a4j"
+        "GBS5mGuI5mGwI5nG2IptmmJJvmoJBzqidbmjGIAEDGH4CDc843CEAQ5SkPgigBLRuCSe50CakgozAKyNjCygxH6bg1JgzBuDcf5rj2oo/T6Q"
+        "7Pkc3ZJH0bZLn2nR9msUahFKfZqljQhYnwa5cHyapZGyIZb0jSYjmOaokGPHxnrKbZoiWbJpCTUgjOyJJzuCMIfgKMr5DQIAADUIB/DkIQAD"
+        "iIB9j4Ix+iIAJuCWABuCef5vPub4xHycIsgEa4zn6bo3M/NpsDsfpsj8fhrkUfJtkkehvEqepv3AapQJ4Uh+GoU59GmVkLFofRqlueZtFabI"
+        "hFqbIiGEqJkX0Y6ymQbIjmmagj4GI5u30cC1nQaIjYYBAyiAA27AANohH8N4gn6OQhn6OgiHxjp7iEAZtCmfRwiukIuH6bQwTkM7PjbyQ4zk"
+        "Otpzia5BzxCZtEoepuEufJsNWa5PH4apRzwVR9mkWJ9moWh9mmWatOHSprCKYJp684hnVRgboxWblUHIaVUmkI4xVeMQfH9WJ/DVJ42iCfw4"
+        "4xKJ7j0IR6kGIp8Iobwqn5MIAGyL4AmsNqWjZCI5n4bY/nsbxAQ+Q5+mmSY9RvCOH6NUSg/hqCZH0NYVI8hutOgUP8aQsh7DYFwPgawtRqBE"
+        "F6pQXI1QiDFLKMYa4RRlNpGqNEJA2FUHSCK8kI450fDsUoGMHwBQ0N8DW9oN4Qx8OBHwHdvgdgiD0DyD8e4gQjj2CoP8bIW03BgfqGVnIbDT"
+        "B2QiHRPofVvB/H+NYRKfRGj9GkJAfsB3UCdH6NAT4/RoinQ4K0fI0xbD3GoK4a4QxYDYCGL8aYRhhDSCMMVtK+QivECMNJSg1xphFG8NMIY4"
+        "xqhFHK84LwPh+hmCAAQ7w/w3OCDkEEfgdgij2iAPEQL5BBSjEGEQd4VX1hlM+GZyT8huBvQiHIAA1A7G1EMPYbghV0COUIJVdAlHWijKQKoe"
+        "o1xUrwFcPkaTUxqx2CELiRYvZFjBGkEVfinRoqdkcNVSg3RrBIG+NEIo5xnhEHPBkLgPR+hlB+AeHI/jvD5DWEAeodQgj4DsEMfQfQijzEEE"
+        "MeIighjwEMEQeAW1phkH8NkkabCfh1H8NUPyHxAj6GwIV1CehqCSH4NNcA1BO0jFOPYa4qGnivHuNUWkcRYjYCILSDxwI9yRj4EIY8gBno+G"
+        "rIAbUgBujUCKOAaIREiBFC+D8fQYZLSYH2GgH49g5uFDiEMeYcwhD0DwEEeUqR4iECIO2hY7RHBGHcGUnIZH3BoACNQNoARoh3XDRsa4hEOC"
+        "NXaJEfw0RLwGE6Poagoh7jWaWNIVY+BqivsIK6PQs6bweF5B4YKlJujOGgEcZo2AhDWecNmRw451zqCKGAH4AQzKyDJKAuQ+W/VWCGPerg8g"
+        "90JD8EYelBR4CICIOwRoRR1CSCGO0M9Fw4UcosNIPjTBALoEM7gRA/BpCPsIJgfA1BOD7jU/0UlhF2DSUSNQVo1AhCykcLQa4QpsNem2MV4I"
+        "zRpBEGm3JHpYRpBDHENAIg5hohBC2D0AbDx/zyHy3YfQawfj4DiEEe0/x6h3CIPEPwRB5CEoMIoIo7hEhCHYJEIY6RJhEHQGhPAb4IB4H0Nk"
+        "PUZa9DWTuNNbo0xMUvJ2NdDY0BRD7GiK8esER7DSFUNMIItL53oCELyQE2giWaCONBuQzpFjUnQNgaIQhvjPv1UkdQzgjBiB+P4L4PR7N2Hu"
+        "GcH49Q4PhDeEIeQd6Eh6CGO4P2cxChCrNJISARR2CQCEOkS4Qh0RYGuHcf41RAofEG7gRjTBH0jEcP4Z4nh8DTE3GwUY+hoiw00K4fgzxWDU"
+        "CCLK8wu7+C/Ge7++YvhrBAGTNvKQRIThEGpeYbw0AjDkGgEEc40QfhcB2PtvIYgejzDOEAeb2Z9hFHiHXZFtx2iBxCILP4iQfjqEdoIR+f7i"
+        "DiE2EMc4dTcB8H+NAP8AxFUcEiPwaImoLCXH0NAUA+bCj9GeKsfOm94ioyIK8aQQhaR6msEQYF8xizoGM8EaF/BqDOCINqpI4RnBDHANIII5"
+        "NfTvH2F0Hmwgfj0YoPgNQPh4h0CAPIOIPx3ZwHYHzDwhayiHw8IwIQ5xI68EqEMcomQgjgE6D8c61xrh/H8NIRF3LpjUXANLpaGxnClHwNF2"
+        "I0FFjQFYNMIQqxshAFuNAIaKghC+qSMKdAxL5jR68NIaIQxtZaG9locYzQiDlGgEKd4+Avg+H1PIfUNB3hpCAO/Bo8g5g/HaHsII7XwDvEJn"
+        "wQwQxyCJ4uI8Hw6hKhB53zoTwQRxijB+OQQLshDj3GyIkf4zxKbxEvp8UOlRPj6GkKYfozJnjPFKNYH4rrzCv1ELe8wtxqhAGJOgY+V9XhCG"
+        "jUka/a2BhAG6NAIA6tUhaB6PsLwPR6BgzIGcH3IKwBs8MHMII7A7BAHaHja4gM/iHCCOsRAPx1iOCCOISIQhxiXCCOETwQBzCfCEHAFSCGHC"
+        "EIH+GaES0k0e9Q3YQwGgFKpeFMHwGcFaH2GcFQ+CFcGkCAFeGqB+F0qSF46wGA68UmCAGYvyGk68GsGaCCG6GcqOGaCA7oCCCsB0HuC0B4Hs"
+        "SMHkDIB+HknyHgDgCCHeDcCA5WCGHeD2CAHWEGCCHcEKxCoWHG5uHOEc7mEsCEHKFC/4E0CIG+FQB+HCFUCCG8EKf6Emu4mMGgEqH6GaFMHo"
+        "GmFSH0GYpcGgE6GuB6FZAyFS1a1ICCF87qF8Gep4yup6CA4WCGhOCAG8GcCEG4GiB6HCGi+iGewAzIqgHiqgHaDWCEHcYoHjCCHUDq3ADq/s"
+        "D+CGHU2oHW/YHIEQB8HGuCHEEq8+54G+82G8FMB+G4FSCAG+FUCAG4EYx4Eq9UH4GcFOHqGoFQHsGmFQH6GWE8GoB6FCGsB6FeyI66CEF1Ay"
+        "F41EGQGWCEGU7WGav+GfEkysCAHAGcCA10CAHSGaCECyB4HpHiHqqgHoViHeDOB4HcDaB9CMHYDoCCHM8QHPCYHQEGCGHMERHQ5oG6Ek8+Ew"
+        "B+G+E2CEG2FJF4FOB4HAFaCCG+FeCEG0EeAAGYE6HwGgEyH+GSFJAoFYHqGmFAGmB8FSGmB/GsCCFvEZG0CCGCy07ECEGMv+GaGeB6ygCCG1"
+        "HeG4GdEgGaB8HQGgB+C0B2HoC4B4HjB5KtH28AHaDaCAHgn5IAB8HSD6CCHSD+4uEEB8HEEWCEHMEg/mEo/nIiHGE4CAG2FA7YFOB8G+FXEU"
+        "FgB+JWAUFwT+GgFMHvAaHu6kHwGaFQ18FTKeyGCAFnAyvQB+F8GcCCF7EkGREEGW+gGrG+GoGgB6G0GhI1NKHKGiB8CqB2HlBuHgzGHgtWHe"
+        "DMB8HfK4HSwaHSDrLSDxCwEE/awwHG/YHGETL0/kG8EtF4E4/nC0G2FGB6G+FPNGFe+cEQACGCEOAUFuE/AiFEH8GQjcGWFBEeFLNSFUGkB8"
+        "Fa18FrHUFoGmB2F+v+GGGgB8GjEZHGB4GtKGG0GcB2HFHUHQGWCCCqB0HkwCHbHszAHUDU/gDWB8HLCIHWDs14iAHAEA84EGB+HGEIB+HAEY"
+        "v0EoCAHEEmCGG8EyB8G8E/L0FI/yFMCIGwFYB6GyFoB+GyD6AkFiDqGkBgUGGYFYHmGmFJJiFQGfA1BgFlEFA9D9SKGBEoGQ4m4SB+GjKYGg"
+        "GeB87bIlSKHIGYCACoByHkCsB2HgYYHYDCB6HeViHYDdH85SHGDhQ0q+HMD88+EECBQ2CEHCENEaEbFyEuB8HC/wG4E6CHOcCGG6FQ4eFUB6"
+        "G2FcCGGsEKAYFqDmGkBeD8GeBkFMH0GUFCGmB6E5PeFbBgFhHVGsB8FyGcB+GHQEGEGcB8GTBgGbKYGmGcB4GxVQHAGUB6HKGZLDVQ+uHmC2"
+        "B4HYC8B4HWtWHMDOB7Tc4uY0HG5MHIDuB6HIEG/tCYG4EPREEUCAGuEeCKGuEzEaE+B4G4FFLqFKCDRgCAmmB4RKB4G2DqGiBgEAGeBmEKGa"
+        "BmE/NFSIB+FGGmB4FSGkB7SQCAF0GYB/J4CAGLHU+GB5ViB/BUB+GuGYB7HS8+GYB5HcB/HiHaCwB2HXKoHUnkHW8AHWb2HODeB+HEDu4uD1"
+        "DBCSG0ELDGEREaEWCAG0EnI0EnJBLoG4FBZsFSB5FuB6GtL8GwFuByG5XgBgD+GeBjXtXqGcBlPGB4FbPoyGB4F2GWXpNEF1KUGJS4+KCAGO"
+        "GeB4GnNEGrV4G+GTF4GaB4HQGUB8CoB2HSCuB2HcYYHfWIHIDMB6I+B+HNK4HE2cHMDvF4D6CAHCEHI0EQB4G+/eG4EdZtT8G4E4B2G9LoGz"
+        "XKG1F8GzL8GsFwB6GwDkGkBcD6GeBgEEGcBmEMGaBldYBgFVKeFTbIFnSsFiGiB2F5VaGDBgGVKYGbbgGlKYGrKUG8GaB0HIGbYoGeBzQJY4"
+        "ByHe44HOekHMDJb6DY/5WaDpQ0DnEVcOHED/RQ8fchXGEgB4GyEmCAGyE3XYE/NGFLXcFSB2RACAGsFoB8GoFUBUCSD4GhXlXoEPdaEeGWBo"
+        "EeGaBjSIB6FpYMFxVQF7MuF9YmGOGYB2s0CAGkGVYiGXL0GSB4HNgyHIGUB2CkByHWCoB0HM44HNTMHU2IHNNoHQDWB2HIDoywDtQ6q+G2ED"
+        "I6ELaC/kG65uGxFkGwEs1o/2G1OeQ6CHGZSkFjXUFWBeCUD5aaD+GgBeEIGcBiEYGYBkEaGYBeEkGaBcICAACwAAAQMAAQAAACgAAAABAQMA"
+        "AQAAAB4AAAACAQMAAwAAAEoQAAADAQMAAQAAAAUAAAAGAQMAAQAAAAgAAAARAQQAAQAAAAgAAAAVAQMAAQAAAAMAAAAWAQMAAQAAAB4AAAAX"
+        "AQQAAQAAALcPAAAcAQMAAQAAAAEAAABzhwcAPAIAAFAQAAAAAAAACAAIAAgAAAACPGxjbXMCEAAAYWJzdExhYiBMYWIgB+oACgASABQAKAAk"
+        "YWNzcEFQUEwAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAPbWAAEAAAAA0y1sY21zAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAA"
+        "AAAAAAAAAAAAAAAAAAAFZGVzYwAAAMAAAACcY3BydAAAAVwAAAAhd3RwdAAAAYAAAAAUY2hhZAAAAZQAAAAsQTJCMAAAAcAAAAB8ZGVzYwAA"
+        "AAAAAAAWTGFiIGlkZW50aXR5IGJ1aWx0LWluAAAAAAAAAAAWAEwAYQBiACAAaQBkAGUAbgB0AGkAdAB5ACAAYgB1AGkAbAB0AC0AaQBuAAAA"
+        "AAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAdGV4dAAAAABObyBj"
+        "b3B5cmlnaHQsIHVzZSBmcmVlbHkAAAAAWFlaIAAAAAAAAPbWAAEAAAAA0y1zZjMyAAAAAAABAAAAAAAAAAAAAAAAAAAAAQAAAAAAAAAAAAAA"
+        "AAAAAAEAAG1mdDIAAAAAAwMCAAABAAAAAAAAAAAAAAAAAAAAAQAAAAAAAAAAAAAAAAAAAAEAAAACAAIAAP//AAD//wAA//8AAAAAAAAAAAAA"
+        "//8AAP//AAAAAP///////wAAAAD//wAA////////AAD///////8AAP//AAD//wAA//8=",
+        "ced66b5702c85dd655a461e74cfcef1fc01cc79039755fe3448593f81b8c79ae", 40, 30),
+    "lab_pillow_zstd_40x30": (
+        "SUkqAAgNAAAotS/9AGC9ZwAK4cgzVVBQOnrlC2sPzbcPEqgH/fa/XGFlSRHSni3Y7u4WQhlg9lVVETHyzInc1lEKnFsB5UhTLW5mqar+A08R"
+        "qy0hKSW7YLzU377AsQsAAAAAAIBBZWdhq1k9AxkDEgPniwU3nJKDUO2RCVdL2Y0x4Wojr5EIfB/xyoa49455iIMXDMoVe3K2C55QB0djwjwT"
+        "glcEgXdvMESHyj4KQhRo5vMYvc4Gz8LITRjLEgX0ErVWy6YF2rw6Ghx/aGebN0VnMKf7BcVtoc1TqNyCa0e99pXWbsLdTuCikthmQSYm6cqI"
+        "0EQk3D0UG0+Ijz6ykYe+dXZ1CtlIgr5H9GoRrGoPaAC+kFZjeMq4zRi33zF+nZmeM0DPKYDj0Nitm9dnA+9q7Vx73docpoajsoHD1GAw54zl"
+        "z1XoMlJwHZUbUnFrKW/xSU64BLaTemVFeGRCcsQecfHGfP/IRZ5d/WJ3p4g3gLAilujZIHhHDXQzGOhozptWw+48Mz+GsbOY6SpofI4AHIeG"
+        "07p5t2hu7qadMWBzNZxac6lsYKra6wXVSZkzFEyciodX4voKbEOZiU5wtpJsJ+VqITrh0a7eoatvyDeN+PhCZ9zJ3Sx0dwkfEUd3DIF3c3BF"
+        "zGBLeKPbwGfQGjRojA3/xQDniwC4iQK6iRvYqwZr2by9GzeH5tKabKvFNlrshRZvob1eUF0LslDLPLQyB7HkglXiGgpdszATjejqIbv6B+4u"
+        "4hGHZOMJvHrGrshDz6iwEq4ABlH4iCF49we7mZvdBr7bcMHv9kCDAm3wLwYwdQj4KwooSdTcrpu168Prq7n0h3f+gHNruJtNTHUTx0CjX6DB"
+        "U/OwCx2Uosug6KDTPHwS20o74pHcUIWZiJSze1wJi3TEIPo4YzeU0bN1eHZOjmZEbkMIVzaIX60Bj8bzaMoeTQVcdYcBTp4ATB0CTBcKeBU3"
+        "OK6bd+sDrofBy7OR4w/uewOrNzQNtHkLOk/RcFNzmRad8AVckQpdO/WCUWgik53NAm+YJB9TyBmJ5DvHrg7SFX9yxh0fUcdHbGE1NNErkmBV"
+        "3GB3zIA3c1odyd+xgw+ACK5oHAjAhGHAZ4FAP5FAP3HzZtnIvhqOvpljWq7qA86GyjHczDHUaC41eMsc5EIHs8jDJ/meMhOlzDaTnFBJLg7h"
+        "2UB0xKPcLcQTCtHGHl7dc0Xc6dUrsspW6I4hfLYIvnsDq/sD0Da1iP9ntAB4fMAKAAYCWuaRK1MI10fa+kddnAfXF+Iyc4CZNMp0HzKoT5nX"
+        "KdNTlCFLzPQcu2YEZ7X8CqStvP++Jwufboq2NXQcl7P9gqpdzhWG/0L5l4padGJrK2zthL2PuEMlqvHILSK9RR+uPTQPc8BHoLiWsfWTuD6Q"
+        "LxQIFloE9onCzBthJgpjTKCxv1P2YZTxFMKeEyRNMPIStLTrZK9MtfdZGWVf1E1p7Fpb07P9Qmu1fBfqbKO829QGodqyJ9ZustpKsVAJFq7g"
+        "1kLcuwhn63hvFOZ6Rnvcwd0qts4hXGaQr88jDO1BxtQxdt4gcwKVmT9BzzPkLeqeQ+Q5R58DACnCs1nnemW2Mc2laax7trfTnQFtwZzulh9H"
+        "mS7Uf6u8QSzt8MpbP3FvpdVG8g5XeGuktmjk2kWwjeMt1miNPnINAzamADOFdKE/vk6jMaYQGe3GGJPG2O8Rmj1Bv0P8LIr+RAAcBQ0ngapa"
+        "p/oz3bnW4r58q61pzaWivV9OWMsJT51wC6bs9NZP8HBKW3yCEzZ56ySvMYk1BomHP2JbR1znkG0glkbnpVGBozkhF3PCaEdgZxHYqYMMKjTm"
+        "Z5D9njImz/DsCXIVdkdxlzg1NwF1u07Wh747WkvTWrjmqrSW6rtdULiLiZs64ahTvuISo2Dhk1svxUEpbjHJaye5RSFv/UMmEsl1jnl4Azb6"
+        "zDYPTdyZjSfio4gxZ9EYswcZU6gMaqM2f4bep6y3IHoVRt+CAJ5zkyPOV+tUtVC2Z4Pb0V7YdG011lZzqdD2C+puQd2pHzvBdVRLdIKJTHFZ"
+        "kzx0AheJwHaRuD6CbSJdsIiuf96ZGDl7R2e7oG8UuzpnngFB7BwKokJDNAeZDxREf4o+xm2+OHoVAXQUd1lCrcVC4Z/p8lA3pr0t7U1RmKr2"
+        "zkBrwdDcLqZsxYydXqELLrFKbEthb6X1TiITjbw3kPb+oat54I5BudqGrpaRs3/ko4v5zskVSeyKIubjB8FaDiE/gez8MX6goRljaO4YfQvj"
+        "VyFAaYL2ftVcrdqrQ+XY5pVtWLj2ikFjGmq4GU74Bdq7JWNmIcZqQChZrNnqm600ub6/Cu5r1VfDdHaLT7lwF6q3LXS3ia9MnF26DZtYIZRV"
+        "GGUlGpkyQIjmVnh9Sq+UQptLch3Jj69w5YlceSBZP4WrUgjog7i8Da5Sxpf3GdN1wPqKsNkJMvwEmdkIspoQfN0qb1Zkqvs32rMrqd48S8Nn"
+        "uZjqF99m+amUd5+4y1S6S9wyKqn9pIajkXWYxDaDRP+nnq/im0np9Se5f6THVwByIbvvw9eNssyhLT+k5WlkeRlfJlBYqRM2SyHGTZCVOGUz"
+        "EGQzEP/G1VdgT32dlTurevZmsmJ+VRj/aultlr9KefeJxDEhXyVV95IbXHrLpKTFpLUuwto+dL2p15l0PArPK+l5I0Be5Ar98SuNgH6H1xfq"
+        "MoN+30fL9OnyMMh0FmG/BViJQ6bECZIivNrVWSuS1f2U11nYXNfeUn2W6qtc/srFv1Adx9RbKmScZBU+2WomlyzK7S6yFoms9hD3JuL5Jiu+"
+        "1DtZyOpMsL4KWOeRlg/yO4u4TKIwP+TVaYiZQGH9hZiHMaa3GOMnxkoSwVkIoYcQ/IrVbz403fkbzlxbs7X114u5evmulpPNwuGn3jp1eCm1"
+        "q6TDKLAQyko8whaJqEUk1cjjdtRhZTL5vlJWV2Llk34/yJU/8uJGXn4H18fRxWeA9Z8v3wPGXYx5FmRliiBJgowswSZDoGpXX3e9nU02Pln2"
+        "tzV8lgplZeiw1H+l/Pv0XyeOg6ISnWx3lLZWcodM1GLSWhNRjzxm4Y7WzgHkTn5eCZZpBMsX6SqRgJ4H0Cz6QnWIfRTAPA0w3jPmecT6CrHS"
+        "RM1z6tKEITnir1jn7WeqPFOlTbY1V/ZsZUBZMCfL5cNT5irV5ynfpbIOrax2EzuEktpKrZ3U2klv0Wi1jVpjUFzf0OJJfN4IlllEywfR+j6+"
+        "/g6wk+jr1/gygcI4z1iXQaZkMewsyHiOPSPBJkdwFuhbn5lanSx9pu+5rqdLA8rOcLZeTnfKlKN+++TdpbW2whKnqHeTl7hkrZNwQxbYYhC5"
+        "7gHfQeuxBq7oEw/chEBg+yGBzUcEqQ4I1qAI1BofIJgC9yssX3LNJzHphO5K3lMFmReRfZCdP+LNiHo+R87P8PGf3pcBrGmxVaLIIkt0kThZ"
+        "MxKyPHzg1aGDGjFALiZrVkOvrIq5mLavaY2NirRx8ekWnk5xWxSpLkVwQ6KgCkmC244JVBwc1ho3DTS9ZRSuO801TLkZFJpUomdH5j5kngHR"
+        "zY50ZhGvDLrqNni958dl/DpPVneRRZ7IKktozUgQ6zACmAcQOqg+8gb0cOORKVze2lLMrbyJ6bcvZaqlhr1Sqi3MVCa+NnG4FUlwK5ogFeKg"
+        "2nigjSGTUzhuZe5NdG8ydyS8GiS6MonuRzpu1JsZ+WZDVt1GrwNldZ+rrpPFV2SRKICzEsQ4TliNCFw1H5Ritma3Xq+hV9pgcnVnKlVnqbpN"
+        "BjLNQq5SZhUMM7epXKvM2CUSpEQT3IgiUIM4sD66DlIyt4Ijo/BmTHRfoutI6D/ENxtC9xR034jniehOw4qjAPRAV3xH6+t49RVePKdrNsKr"
+        "ZgSwGQh+45rZgDz1kbaY33D8dpuxMvR0hq5+4bYsXYUiW6aZ64SrS+SqNMGNaAIVBwfWJzeTomdOcKcieyi53kQ3U9J9IzGKFPceV32Hzg/9"
+        "/hCQBAJ2Gb/OA/QwfmSKLI7Ca1bC10xEGbIEnnKVNixSjI+n8ix1y9ut32ooUzC+KgaevlC6Tz210m9ValwkpMtETB1FAvUGBG0PlgOIcKZT"
+        "jmyiz6Wd6SRnJtH5JKsyScd/6H6R1dfx60JAfiPLz/hxGD/OE1a++OImxEicL44zpiaEsQ4fdBuwqz2u0qW6ljeWuzSYaRiveukqF89m+SpU"
+        "vz11dal0n7hlqNhqKBxanysL2Jh51ExSkc8oVv5Jr1TilUZ45pCrTuTK9OHjOn586Odx+D6Qlv/x6i+wyhZenEUXL0FW4oCRIsY8gOCrtnp6"
+        "VZPSpIqbsbefsuUag2e71LhRPcXC2Spl21SyUEh2SZUtJYyxSTpUkjJgxxcao11/okkpPdJJrjO58kh6XQWeP+qVPH5+x8/U4eWFsP6Mq9KH"
+        "y/NwdR2xEoUYRzGGNCEACwAAAQMAAQAAACgAAAABAQMAAQAAAB4AAAACAQMAAwAAAJINAAADAQMAAQAAAFDDAAAGAQMAAQAAAAgAAAARAQQA"
+        "AQAAAAgAAAAVAQMAAQAAAAMAAAAWAQMAAQAAAB4AAAAXAQQAAQAAAAANAAAcAQMAAQAAAAEAAABzhwcAPAIAAJgNAAAAAAAACAAIAAgAAAAC"
+        "PGxjbXMCEAAAYWJzdExhYiBMYWIgB+oACgASABQAKAAkYWNzcEFQUEwAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAPbWAAEAAAAA0y1sY21z"
+        "AAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAFZGVzYwAAAMAAAACcY3BydAAAAVwAAAAhd3RwdAAAAYAA"
+        "AAAUY2hhZAAAAZQAAAAsQTJCMAAAAcAAAAB8ZGVzYwAAAAAAAAAWTGFiIGlkZW50aXR5IGJ1aWx0LWluAAAAAAAAAAAWAEwAYQBiACAAaQBk"
+        "AGUAbgB0AGkAdAB5ACAAYgB1AGkAbAB0AC0AaQBuAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAAA"
+        "AAAAAAAAAAAAAAAAAAAAAAAAAAAAdGV4dAAAAABObyBjb3B5cmlnaHQsIHVzZSBmcmVlbHkAAAAAWFlaIAAAAAAAAPbWAAEAAAAA0y1zZjMy"
+        "AAAAAAABAAAAAAAAAAAAAAAAAAAAAQAAAAAAAAAAAAAAAAAAAAEAAG1mdDIAAAAAAwMCAAABAAAAAAAAAAAAAAAAAAAAAQAAAAAAAAAAAAAA"
+        "AAAAAAEAAAACAAIAAP//AAD//wAA//8AAAAAAAAAAAAA//8AAP//AAAAAP///////wAAAAD//wAA////////AAD///////8AAP//AAD//wAA"
+        "//8=",
+        "ced66b5702c85dd655a461e74cfcef1fc01cc79039755fe3448593f81b8c79ae", 40, 30),
+    "ycbcr22_deflate_orientation6_40x30": (
+        "SUkqAEAHAAB4nAHgAR/+AAIFDSVQCBAPDzZfDRoVGUJpIB8aJ018JiokLlaNMDgzOGaXOD8/QnCkQUxGUYCzTllXWIvDWFtiYo/QZmdocp3e"
+        "dWlyeafscnhye7v5foqCiMoIjoqUlM8PkpqVo9ocpKGhp+UxrKqss+9AtbW8wQBJvsXCyAhVCAkKCDlYDhUSGTttFSQbG012KS4mKFCKKzU1"
+        "OmGUMEQ9QHKmPEtIR3y0TktRVobBU2BWXJTPX19jaJzgZ2hsbq7qcH12gbf0d4R/gsQEio2Ek88MkpmVndsonJuco+kwo6ausvE5rK6zsf1N"
+        "vMLEwgdawM/J1RlmDQ0OFzxyChscG0x2IiImJlKIKy4yMF6VOjUxOWqjPUA9R3a1TUlIToO6VVhTW4/LXWBjXJzhYm9scqLpa3BndLD0eYd9"
+        "hLwMf4iKi84ShJSUldYfmJeXo+0um6yko+w+rq+wtfhNtbi0vwBeucW/xRZowNXI0yJzExYVGj53GBkfJlWFISYhK1yZMDY4NmmlPT8zQW+x"
+        "RExNT37CSFFVUpPLWlxXZJbaZ2NuZ5/mbXJvcq/6eYJ6eL4Cf32JjcoWjY+Kjs4imJqboeovn6Kfqu06prKxsPpKrbC5uwphu77AxA5hxczM"
+        "yRtty9rI2iyHnabWyAB4nAHgAR/+GRwbIlCLISQoLlyUNDkwNmemNTwyO3GpREs8SHm+R05OUonVVFVcWZbXXGliXpvqY2Zwcaz3cXVxerkC"
+        "en17hs0Vg4iFidMdjZOVo90sl56anug+p6WqpfRMqba0uwFfuMG3uAxlw8vFySBzx9jS1CiK2Nfe2jGNHCceLFeWIistKWylMjIxO3C1PDpA"
+        "QH69P0lNWIrRT1lVVpTcWl5gXqbnYGtoc6/2dnRydrwGeX58gcQae4KDhs0njpGVlN8rl5+Wmuw9nKuerPNKqay0swBktLO6vg9px8HFwhx7"
+        "xMbM1CGC2NjV2zGW2uXh5jmhICMiKWOmKjIwNHC5Nzo9P3zAPERFRITPR09TUpbcXFpZVZvnYWRbYLH9aGpsbLkFdnh2eb8Xe4CEidAdh42M"
+        "jt01mJKRlOs8m6Cen/VNpbWupwBTsLKysRJrt8HAvR1zyMnIyiOC0tfP1S6Q4NrW5jui5Ofh6UmyJTcuNXGwNjI7Q366RUhES4jPQ0tAVInb"
+        "VldZWpflZGViYK/9aGxmebgJb29xecoYen98gtAhgoyFhdgpjpOVk+Y9lpqbnfFDoKKlpftgs6qvtwpgsruywRN3yMO7xxyIytHK2C2V0dbX"
+        "2zmk3uDg5kiy4e/l7EzAwq/1MgB4nAHgAR/+MjgvN3u7ND9BPoXSTEtJT5TfTE9SV5zvX1xZYqj5ZXJoa7gBZ3VydcUWdHp6fc0ffYeCitMo"
+        "io+QlOM8kpOTofFKnKSipPlXqbGnsAZkqbO2tBN5vr2/wiKCyMrBzjKU19TW1TWg1Nra4EWz5Ovj7lK+7fDv/V7LMzs+Q3/UPEpGRIzcRVVG"
+        "UJnnSVxUXKX3ZWNgaLMFbG5tcboad3JsfcolfYaAhM4yhoKLkOM7kY2TmvFFm5mgovlZoKiopwRmrra4thB1vLi6wiKGyMe/ziWO0tbR0jub"
+        "1uDQ3jux3+bh5kS28evq72HK9fn392vZOkBFP4nWRUtHUZToTVlRVKjxV19fZqkEZmhkcbsRcXhxc8gob4B7fNozhIaIiN09kJCMj+pOm5me"
+        "nvhanp6grQBoqaunsxBvq7a5wSF+xr26ySaTxtDKyDGf0tDZ3Dmp193g5EfC4ubm7lnL8fDx+GXZ/f/7Am/kP0hASpflSElPT6XyWVZVXrQK"
+        "YWdfX7YOamtrdb8jcHh0gMwtfn2BiNw9iI2Hk+ZRk52SlvNel56fqQBmpK6osg10rbavtxp8u7nAwCORwtDJyi2f0dLK2jquz9fg4Eq74Ovg"
+        "51XJ6+vz9WPd7Pzz/27lAAADC4PtTvgO5AB4nAFoAZf+SkhGVaP5WlRPUrALVmBYZb0Sbm1lZ8glcHhtdNAuf3t5gNU7f4yIhOJKk5GRmvNW"
+        "lJijnQNlqKegqwx8qbaouBB+trS3uymbwsa7zjCey8/K0T2sz9PO2z+94OHl5FrH6vPs8FrY+PL09Gbn+wD/Am71AwkNDn0CSVROWqsFV11h"
+        "YK4UXV1mZMAccHJsfdExd3l1htM/g4B9gelNkI+Lj/RYl5uTmP9hmZ6pngd1q7GprhWBt7SyvRyRwL+8xSygv83Fyza00dHN1EO/2N3d31jF"
+        "5unk613V8On0+XDg+fv/AHbzAAkIDX8CCRELCpELV1FTV7cSYGJkasEkaGpibcwxc2+BddxBfYJ8fuVMh5GLiPJhj5WPkPRnl52epA9upaak"
+        "qhWHs7irvB6Qube6vS2excPJxjeq0dDX1z690Nra4FXN3eTm5mHX6uzu7G3i9vr6/nL09gUHEoAADQ0JEYsHDiAQH5wZEHDEIwAMAAABBAAB"
+        "AAAAKAAAAAEBBAABAAAAHgAAAAIBAwADAAAA1gcAAAMBAwABAAAACAAAAAYBAwABAAAABgAAABEBBAAEAAAA3AcAABIBAwABAAAABgAAABUB"
+        "AwABAAAAAwAAABYBBAABAAAACAAAABcBBAAEAAAA7AcAABwBAwABAAAAAQAAABICAwACAAAAAgACAAAAAAAIAAgACAAIAAAA9AEAAOADAADM"
+        "BQAA6wEAAOsBAADrAQAAcwEAAA==",
+        "be2a3e520853e14291d2b0db3215bd8f6ba5ae66044a32b1efbe03726253542c", 30, 40),
+    "ycbcr44_zstd_tiles_40x30": (
+        "SUkqAPIFAAAotS/9ZCAAAQkAAAIIEAUNDw8ICQ4VCggSGSVQDRogHxUZGicVJCkuGxsmKEJpJiowOCQuMzgrNTBENTo9QFaNOD9BTD9CRlE8"
+        "S05LSEdRVnCkDQ0KGw4XHBsTFhgZFRofJjxyIiIrLiYmMjAhJjA2ISs4NlKIOjU9QDE5PUc9P0RMM0FNT2qjTUlVWEhOU1tIUVpcVVJXZIO6"
+        "GRwhJBsiKC4cJyIrHiwtKVCLNDk1PDA2MjsyMjw6MTtAQGemREtHTjxITlI/SU9ZTVhVVnm+VFVcaVxZYl5aXmBrYF5oc5bXICMqMiIpMDQl"
+        "NzYyLjU7Q2OmNzo8RD0/RURFSENLREtAVHzAR09cWlNSWVVWV2RlWVpiYJbcYWRoaltgbGxobG9vZnlxebH9nC6V6Si1L/0EAB0JAAQSTllY"
+        "W1dYYmJTYF9fVlxjaIvDZmd1aWhycnlnaHB9bG52gZ3ecnh+inJ7goh3hIqNf4KEk7v5joqSmpSUlaOSmZyblZ2co88PXWBib2NcbHJnY21y"
+        "bmdvcpzha3B5h2d0fYR5gn99eniJjbD0f4iElIqLlJWNj5iaio6boc4SmJebrJejpKOfoqayn6qxsO0uY2ZxdXBxcXp2dHl+cnZ8gaz3en2D"
+        "iHuGhYl7go6Rg4aVlM0VjZOXnpWjmp6Xn5yrlpqerN0sp6WptqqltLuprLSztLO6vvRMdnh7gHZ5hIl6f4KMfIKFhb8Xh42YkoyOkZSOk5aa"
+        "lZObnd01m6CltZ6frqegorOqpaWvt/VNsLK3wbKxwL2yu8jDssG7xxJrABDK4ZootS/9YCAAFQUAJAmkoayqoaess6OmrK6usrOx5TG1tb7F"
+        "vMHCyLzCwM/EwsnVAEkArq+1uLC1tL+tsLu+ubvAxPhNucXA1b/FyNPFzMvazMnI2hZoALjBw8u3uMXJx8HExsXCzNQMZcfY2NfS1N7a2Nja"
+        "5dXb4eYoisjJ0tfIys/VytHR1srY19sjguDa5OfW5uHp3uDh7+Dm5ew7ogQADOTrJchHSiBfkeAJKLUv/WAgAIUIACQQMjg0Py83QT4zOzxK"
+        "PkNGRHu7TEtMT0lPUldFVUlcRlBUXJTfX1xlclliaGtlY2xuYGhtcaj5Z3V0enJ1en13cn2GbH2AhMUWOkBFS0U/R1E/SEhJQEpPT4nWTVlX"
+        "X1FUX2ZZVmFnVV5fX6jxZmhxeGRxcXNqa3B4a3V0gLsRb4CEhnt8iIh+fYiNgYiHk9ozSkhaVEZVT1JJVFddTlphYKP5VmBubVhlZWddXXBy"
+        "ZmRsfb0ScHh/e210eYB3eYOAdYZ9gdAuf4yTkYiEkZqQj5ebi4+TmOJKV1FgYlNXZGoAtxJoanNvYm2BdQDMMX2Ch5F8fouI5UyPlZedj5Ce"
+        "pPRnBACAoJrE08wonAEpKLUv/WQgAIUIACQQfYeKj4KKkJSGgpGNi5CTmtMokpOcpJOhoqSbmaCooKKop/FKqbGps6ewtrSutry4uLa6wgZk"
+        "vr3Iyr/Cwc7Ix9LWv87R0iKCkJCbmYyPnp6TnZeekpafqepOnp6pq6Ctp7Okrq22qLKvtwBoq7bGvbnBusm7ucLQwMDJyiF+xtDS0MrI2dzR"
+        "0s/Xytrg4DGflJiop6OdoKuZnquxqZ6prgNlqba2tKi4t7u3tMC/sr28xRB+wsbLz7vOytG/zdHRxcvN1DCez9Pg4c7b5eTY3ebp3d/k6z+9"
+        "paazuKSqq7wAFYe5t8XDur3JxgAtntHQ0NrX19rgPr3d5Ors5ubu7GHXBACAoJrE08wonAEpXlHE4Ci1L/1kIADNBAAkCNfU1NrW1drg1uDf"
+        "5tDe4eY1oOTr7fDj7u/98ev1+erv9/dSvgDX3eLm4OTm7uDr6+vg5/P1R8Lx8P3/8fj7Auz8AADz/wMLZdkA6vP48uzw9PTw6fn79Pn/AFrY"
+        "+wADCf8CDQ4ACQkRCA0LCm719vr2Bfr+BxJy9A0NDiAJERAfiwcHACsMtBBck6CnBO8lyEdKIF+R4AnBbzELAAwAAAEEAAEAAAAoAAAAAQEE"
+        "AAEAAAAeAAAAAgEDAAMAAACIBgAAAwEDAAEAAABQwwAABgEDAAEAAAAGAAAAFQEDAAEAAAADAAAAHAEDAAEAAAABAAAAQgEDAAEAAAAQAAAA"
+        "QwEDAAEAAAAQAAAARAEEAAYAAACOBgAARQEEAAYAAACmBgAAEgIDAAIAAAAEAAQAAAAAAAgACAAIAAgAAAA2AQAAZgIAABIDAAAsBAAASgUA"
+        "AC4BAAAwAQAArAAAABoBAAAeAQAApwAAAA==",
+        "512d5cd4c335639c72cc9a60f52404ca065bdd4e45f11066dae08c962516040e", 40, 30),
+    "g3_cut_pillow_41x30": (
+        "SUkqALoAAAAAE1dikOzABNXYpDswATV2KQ7MAGbIFoADNkC0ABmyBaAAE1Ft2LNjgAmotuxZscAE1Ft2LNjgAzduYtoAGbtzFtAAzduYtoAA"
+        "G3UC44ANuoFxwAbdQLjgAmrt2HsQAE1duw9iAAmrt2HsQAATV1OxbQAJq6nYtoAE1dTsW0ADYth5scAGxbDzY4ANi2HmxwAbduxbeAA27di2"
+        "8ABt27Ft4ADMW3YIADMW3YIADMW3YIAACQAAAQMAAQAAACkAAAABAQMAAQAAAB4AAAACAQMAAQAAAAEAAAADAQMAAQAAAAMAAAAGAQMAAQAA"
+        "AAEAAAARAQQABQAAAEABAAAWAQMAAQAAAAYAAAAXAQQABQAAACwBAAAcAQMAAQAAAAEAAAAAAAAAEgAAABUAAAATAAAAEwAAABIAAAAIAAAA"
+        "KQAAAFAAAABzAAAAlwAAAA==",
+        "f776d287a0285bd456edebbe99b49b8ec1806a7a8b2a661d90406453008381fe", 41, 30),
+    "g3_2d_cut_pillow_41x30": (
+        "SUkqAKIAAAAAGauxSHZgAv8AGauxSHZgAhlkTQNwAc2QLQAF8AAZqLbsWbHABf8AGai27FmxwARmzbMxVABzduYtoAF/gAAduoFxwAXwAduo"
+        "FxwARNWbZsObEABmrt2HsQAF/gAZq6nYtoAF/gAzV1OxbQAI2KbDmbgA7FsPNjgAv4AAHbt2LbwAF/wAdu3YtvAARmLLsghqADmLbsEABfgA"
+        "CgAAAQMAAQAAACkAAAABAQMAAQAAAB4AAAACAQMAAQAAAAEAAAADAQMAAQAAAAMAAAAGAQMAAQAAAAEAAAARAQQABQAAADQBAAAWAQMAAQAA"
+        "AAYAAAAXAQQABQAAACABAAAcAQMAAQAAAAEAAAAkAQQAAQAAAAEAAAAAAAAADwAAABIAAAAQAAAAEQAAABAAAAAIAAAAJQAAAEYAAABkAAAA"
+        "gwAAAA==",
+        "95c230a01f4267244f399a10816ded62b6759d996da4717138619b7a87151041", 41, 30),
+    "jpeg_strip_marker_32x24": (
+        "SUkqADoDAAD/2P/gABBKRklGAAEBAAABAAEAAP/bAEMACAYGBwYFCAcHBwkJCAoMFA0MCwsMGRITDxQdGh8eHRocHCAkLicgIiwjHBwoNyks"
+        "MDE0NDQfJzk9ODI8LjM0Mv/bAEMBCQkJDAsMGA0NGDIhHCEyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy"
+        "MjIyMv/AABEIABgAIAMBIgACEQEDEQH/xAAfAAABBQEBAQEBAQAAAAAAAAAAAQIDBAUGBwgJCgv/xAC1EAACAQMDAgQDBQUEBAAAAX0BAgMA"
+        "BBEFEiExQQYTUWEHInEUMoGRoQgjQrHBFVLR8CQzYnKCCQoWFxgZGiUmJygpKjQ1Njc4OTpDREVGR0hJSlNUVVZXWFlaY2RlZmdoaWpzdHV2"
+        "d3h5eoOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4eLj5OXm5+jp6vHy8/T19vf4+fr/xAAf"
+        "AQADAQEBAQEBAQEBAAAAAAAAAQIDBAUGBwgJCgv/xAC1EQACAQIEBAMEBwUEBAABAncAAQIDEQQFITEGEkFRB2FxEyIygQgUQpGhscEJIzNS"
+        "8BVictEKFiQ04SXxFxgZGiYnKCkqNTY3ODk6Q0RFRkdISUpTVFVWV1hZWmNkZWZnaGlqc3R1dnd4eXqCg4SFhoeIiYqSk5SVlpeYmZqio6Sl"
+        "pqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2dri4+Tl5ufo6ery8/T19vf4+fr/2gAMAwEAAhEDEQA/AOEsLbpxXUWFt04rPsLbpxXU"
+        "WFt04r3jxTQsLbpxW+i+VEFU4dvTqB61XsrcKu48ADJq/bRmaXeRjPQelfOcSZn9Tw3s6b9+enour/y/4BtRhzO7PObC26cV1FhbdOKwbDtX"
+        "UWHavozEv7M7YV7ctVHxXrA0LQjHEzLe3amOAqD8o43NkEYIB49yOOtaKf8AH234fyFcr8TP+YN/22/9p1+YYibxmdSjW1Sk18o3t+WvzPos"
+        "jw8K2LpU57b/AHJv9D//uAwAAAEEAAEAAAAgAAAAAQEEAAEAAAAYAAAAAgEDAAMAAADQAwAAAwEDAAEAAAAHAAAABgEDAAEAAAAGAAAAEQEE"
+        "AAEAAAAIAAAAFQEDAAEAAAADAAAAFgEEAAEAAAAYAAAAFwEEAAEAAAAyAwAAHAEDAAEAAAABAAAAWwEHAI4AAADWAwAAEgIDAAIAAAACAAIA"
+        "AAAAAAgACAAIAP/Y/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy"
+        "/9sAQwEJCQkMCwwYDQ0YMiEcITIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIyMjIy/9k=",
+        "8dc3fda88169eb101a94b9d051abdc72dc678eee2f4e7f754e67891edce6ca41", 32, 24),
+    "jpeg_planes_40x30": (
+        "SUkqACgLAAD/2P/gABBKRklGAAEBAAABAAEAAP/bAEMACAYGBwYFCAcHBwkJCAoMFA0MCwsMGRITDxQdGh8eHRocHCAkLicgIiwjHBwoNyks"
+        "MDE0NDQfJzk9ODI8LjM0Mv/AAAsIABAAKAEBEQD/xAAfAAABBQEBAQEBAQAAAAAAAAAAAQIDBAUGBwgJCgv/xAC1EAACAQMDAgQDBQUEBAAA"
+        "AX0BAgMABBEFEiExQQYTUWEHInEUMoGRoQgjQrHBFVLR8CQzYnKCCQoWFxgZGiUmJygpKjQ1Njc4OTpDREVGR0hJSlNUVVZXWFlaY2RlZmdo"
+        "aWpzdHV2d3h5eoOEhYaHiImKkpOUlZaXmJmaoqOkpaanqKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4eLj5OXm5+jp6vHy8/T19vf4"
+        "+fr/2gAIAQEAAD8A8asLb5hwK6jT7UfLwcdq6mwtjlePY8V0+n2hCqMZrqNPt8EccZHWvnextm2jjA4rqbG2xt+UnHvXT2NsODj8BXUWFuPl"
+        "45611NhbgY4Nf//ZAP/Y/+AAEEpGSUYAAQEAAAEAAQAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAiLCMc"
+        "HCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AACwgADgAoAQERAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMF"
+        "BQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpj"
+        "ZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz"
+        "9PX29/j5+v/aAAgBAQAAPwDirC36Dt711Nhb528cV09jbdMCupsLbodtaep6vY+FtAu9b1MuLW1QO/loWZiSFVQPUsQOcDnkgZNeFafACUI9"
+        "D39K6fT4VyuO/rXU2EC4H411FjbBSMkHHFeI/HbxRcX/AIjj8KRfJZaeY5pQyDLzsmQQc/dCSAAccls5wpH/2f/Y/+AAEEpGSUYAAQEAAAEA"
+        "AQAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AACwgAEAAo"
+        "AQERAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGh"
+        "CCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeY"
+        "mZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAAgBAQAAPwDjdM0/pwT6Adq7DTbA"
+        "sASv4V1+m2GQvyd+prqUW203T7i/vH8u1tommlcqW2xqCWOBzwAegzXzd488a3HxB12KYW/2bS7PcllAQN+Gxudz/ebaOAcDAAzyT2Om2BO3"
+        "iuw0zTs44H5V2Gm2GAOP0rwv4q/ECbxJqknh/R7mNtBtnXfLAxIvJBgkk8ZRW4AGQSN2T8u3ktNsOF+XjpX/2f/Y/+AAEEpGSUYAAQEAAAEA"
+        "AQAA/9sAQwAIBgYHBgUIBwcHCQkICgwUDQwLCwwZEhMPFB0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AACwgADgAo"
+        "AQERAP/EAB8AAAEFAQEBAQEBAAAAAAAAAAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGh"
+        "CCNCscEVUtHwJDNicoIJChYXGBkaJSYnKCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeY"
+        "mZqio6Slpqeoqaqys7S1tre4ubrCw8TFxsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAAgBAQAAPwDe02wIUcc8V1+m2GcY"
+        "FeafGH4gRfZpfB+hXL+fu26lPE2FVQCDBnHJJxuwRjG05ywHlem2JGOBjHpXYabY4xmvZ9Msxlefesf4n+N5/AWhWkWnwhtU1ISLBO4BSAJt"
+        "3OQfvN8wwOnc5xhvnbTbNcryOeK7DT7RAQc8gCuv02zTA4H5V//ZAP/Y/+AAEEpGSUYAAQEAAAEAAQAA/9sAQwAIBgYHBgUIBwcHCQkICgwU"
+        "DQwLCwwZEhMPFB0aHx4dGhwcICQuJyAiLCMcHCg3KSwwMTQ0NB8nOT04MjwuMzQy/8AACwgAEAAoAQERAP/EAB8AAAEFAQEBAQEBAAAAAAAA"
+        "AAABAgMEBQYHCAkKC//EALUQAAIBAwMCBAMFBQQEAAABfQECAwAEEQUSITFBBhNRYQcicRQygZGhCCNCscEVUtHwJDNicoIJChYXGBkaJSYn"
+        "KCkqNDU2Nzg5OkNERUZHSElKU1RVVldYWVpjZGVmZ2hpanN0dXZ3eHl6g4SFhoeIiYqSk5SVlpeYmZqio6Slpqeoqaqys7S1tre4ubrCw8TF"
+        "xsfIycrS09TV1tfY2drh4uPk5ebn6Onq8fLz9PX29/j5+v/aAAgBAQAAPwA0nSsbTt/Gu50vSiNvyVH438bWPgDTEjRUutauVJtbUngDp5km"
+        "OQgPbgsQQMclfn7N9reqz6nqc8l1e3D75ZZOp6dugAGAAMAAADgYrrNL0nBXK/nXrGlaSGA+Wo/HHjew8AaWqIsdzrNwmbWzJ4A6eZJjkID2"
+        "6sRgdCV+f/8AT9c1SbU9SuHuby4ffLLJ1Y9vYADAAHAAAGAK6zSdK4X5OM13WlaVwPl49q//2QD/2P/gABBKRklGAAEBAAABAAEAAP/bAEMA"
+        "CAYGBwYFCAcHBwkJCAoMFA0MCwsMGRITDxQdGh8eHRocHCAkLicgIiwjHBwoNyksMDE0NDQfJzk9ODI8LjM0Mv/AAAsIAA4AKAEBEQD/xAAf"
+        "AAABBQEBAQEBAQAAAAAAAAAAAQIDBAUGBwgJCgv/xAC1EAACAQMDAgQDBQUEBAAAAX0BAgMABBEFEiExQQYTUWEHInEUMoGRoQgjQrHBFVLR"
+        "8CQzYnKCCQoWFxgZGiUmJygpKjQ1Njc4OTpDREVGR0hJSlNUVVZXWFlaY2RlZmdoaWpzdHV2d3h5eoOEhYaHiImKkpOUlZaXmJmaoqOkpaan"
+        "qKmqsrO0tba3uLm6wsPExcbHyMnK0tPU1dbX2Nna4eLj5OXm5+jp6vHy8/T19vf4+fr/2gAIAQEAAD8A7Txt43sfh/paIiJc61cJm1tM8KOn"
+        "mSdwgOeOrEYGPmK+AYv9d1S41LUp5Lm8uG3yyydWPT6AAAAAYAAAGAMV1elaTgrhcgV3GlaVwoKY/wAK7WwsobW3e4uJEigiUvJJIwVY1AyS"
+        "xPQAZPPSvmTzLrXNUn1TUrl7m9nbfLLJ1J6duABwABgADA4rq9K05CB0x16V3Gk6em0EY9Old1pemqNoG3n2rxL4qeO7zxBrF14Yst9rpNjc"
+        "NBOpOGupY2wS2P4Aw+VfYMecBf/ZCwAAAQQAAQAAACgAAAABAQQAAQAAAB4AAAACAQMAAwAAALILAAADAQMAAQAAAAcAAAAGAQMAAQAAAAIA"
+        "AAARAQQABgAAALgLAAAVAQMAAQAAAAMAAAAWAQQAAQAAABAAAAAXAQQABgAAANALAAAcAQMAAQAAAAIAAABbAQcASQAAAOgLAAAAAAAACAAI"
+        "AAgACAAAAKIBAABqAwAAUAUAAB4HAAAUCQAAmQEAAMgBAADmAQAAzQEAAPUBAAAUAgAA/9j/2wBDAAgGBgcGBQgHBwcJCQgKDBQNDAsLDBkS"
+        "Ew8UHRofHh0aHBwgJC4nICIsIxwcKDcpLDAxNDQ0Hyc5PTgyPC4zNDL/2QA=",
+        "1dbb3f3de25e61b698ae5d4f991cfa5764e8fd9e94f85f679a451dfb9188c16b", 40, 30),
 }
 JPEG_FORM_PILLOW_FILES = {
     "sof1_37x23": (
@@ -7418,7 +8270,7 @@ def fixture_image(seed: int) -> np.ndarray:
 
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
 FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
-               "tiff": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd", "jp2_lossless": "jp2",
+               "tiff": "tif", "tiff_zstd": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd", "jp2_lossless": "jp2",
                "j2k_irreversible": "j2k"}
 
 
@@ -7445,7 +8297,8 @@ def fixture_file(form: str, seed: int) -> bytes:
     transform 0 / 2, Y and K at 2x2 in YCCK) and `jpeg_rgb` (Adobe transform 0: RGB as stored); WebP from
     `webp_bytes`: `webp_lossy` (VP8, coded closed-loop), `webp_lossless_alpha` (VP8L of the image with a seeded
     alpha plane, exact) and `webp_alpha` (VP8X: a VP8 frame and a VP8L-coded ALPH chunk); `tiff` (LZW, the
-    horizontal predictor, 32 x 32 tiles, big-endian), `jpeg_arith` (arithmetic-coded, libjpeg's simple
+    horizontal predictor, 32 x 32 tiles, big-endian), `tiff_zstd` (ZSTD strips, the horizontal predictor),
+    `jpeg_arith` (arithmetic-coded, libjpeg's simple
     progression, quality 90), `tga_rle` (24-bit RLE, bottom-up), `qoi` (RGB), `dds_bc7` (BC7 mode 6 blocks,
     `bc7_mode6`), `psd_rle` (RGB, PackBits rows), the JPEG 2000 files of JPEG2000_QUERIES (the stored
     corpus's) and `jpeg_damaged` (JPEG_DAMAGE_QUERY of the damaged-JPEG corpus)."""
@@ -7460,6 +8313,8 @@ def fixture_file(form: str, seed: int) -> bytes:
         return jpeg_bytes(img)
     if form == "tiff":
         return tiff_bytes(img, 2, compression=5, predictor=2, tile=(32, 32), order="MM")
+    if form == "tiff_zstd":
+        return tiff_bytes(img, 2, compression=50000, predictor=2, rows_per_strip=16)
     if form == "jpeg_arith":
         return jpeg_bytes(img, 90, coding="arithmetic", progressive=True)
     if form == "tga_rle":
@@ -8204,7 +9059,7 @@ P13_SEED = SEED + 130
 # source records of each converter's raw tree: images (MSCOCO, CIRR, FashionIQ, Fashion200K, VisualNews,
 # WebQA), queries over 4 candidates (EDIS), triplets (NIGHTS), wiki entities and query images (OVEN; InfoSeek
 # asks about the same ones); about 600 image files in all
-P13_COUNTS = {"mscoco": 170, "cirr": 60, "fashioniq": 60, "fashion200k": 60, "edis": 20, "nights": 20,
+P13_COUNTS = {"mscoco": 110, "cirr": 40, "fashioniq": 40, "fashion200k": 40, "edis": 20, "nights": 20,
               "visualnews": 72, "webqa": 40, "oven": 30}
 # the forms the raw images take in turn, whatever name their source gives them (the image pass reads a file
 # by its first bytes): the writer's baseline JPEG (Pillow's defaults) most often, then every form the pass
@@ -8251,7 +9106,7 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
     `garbage`: an HTML error page, which no image reader identifies, `psd`: a PSD header of no mode Pillow
     reads and noise after it, which no reader identifies either, `blp`: a format the port does not decode
     yet, a BLP2 header of an encoding Pillow's decoder refuses and noise after it, `jp2`: a JPEG 2000 file of
-    the stored corpus, P13_JP2)."""
+    the stored corpus, P13_JP2, `tiff_zstd`: ZSTD strips with the horizontal predictor)."""
     if form == "progressive":  # Pillow-made files of their own size
         return base64.b64decode(PROGRESSIVE_FILES[sorted(PROGRESSIVE_FILES)[seed % 3]][0])
     if form == "garbage":  # what a scraper saves as the image when the server answers with an error page
@@ -8265,6 +9120,8 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
         return b"BLP2" + struct.pack("<i4BII", 1, 9, 0, 0, 0, w, h) + body
     if form == "jp2":  # no JPEG 2000 writer here: a 640 x 480 file of the stored corpus
         return (JPEG2000_CORPUS / P13_JP2).read_bytes()
+    if form == "tiff_zstd":
+        return tiff_bytes(raw_image(seed, w, h), 2, compression=50000, predictor=2, rows_per_strip=32)
     if form in P13_SMALL:
         w, h = min(w, 160), min(h, 160)
     img = raw_image(seed, w, h)
@@ -8317,8 +9174,9 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     to 1600 px for OVEN / InfoSeek), by `pool`'s workers if given.  MSCOCO also holds a missing image, a
     truncated JPEG, an HTML page under a .jpg name, a JP2 file under a .jpg name and (with `refused`) a PSD
     file no reader identifies under a .png name and a BLP file, a format the port does not decode yet, under a
-    .jpg name.  Returns {"images": {path: form}, "truncated": path, "garbage": path, "unidentified": path or
-    None, "refused": path or None, "jp2": path, "captions": [every caption and question]}."""
+    .jpg name, and a ZSTD TIFF (which the pass converted once it was no longer deleted) under a .jpg name.
+    Returns {"images": {path: form}, "truncated": path, "garbage": path, "unidentified": path or
+    None, "refused": path or None, "jp2": path, "zstd": path, "captions": [every caption and question]}."""
     counts = {**P13_COUNTS, **(counts or {})}
     rng = np.random.default_rng(P13_SEED)
     vocab = fixture_words(rng, 400)
@@ -8357,7 +9215,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
             caps[2] = caps[1]  # a repeated caption: the pool holds it once
         coco[split].append({"image": name, "caption": caps if i % 11 else caps[0], "image_id": i})
         form = {8: "truncated", 10: "psd" if refused else None, 12: "blp" if refused else None, 13: "garbage",
-                14: "jp2"}.get(i)
+                14: "jp2", 16: "tiff_zstd"}.get(i)
         if i != 5:  # image 5 is missing
             image(f"mbeir_images/mscoco_images/{name}", photo(), form)
         if form:
@@ -8511,7 +9369,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
         list(pool.map(write_raw_file, jobs, chunksize=4))
     return {"images": {p: form for p, form, *_ in jobs}, "truncated": special["truncated"],
             "garbage": special["garbage"], "unidentified": special.get("psd"), "refused": special.get("blp"),
-            "jp2": special.get("jp2"), "captions": texts}
+            "jp2": special.get("jp2"), "zstd": special.get("tiff_zstd"), "captions": texts}
 
 
 P13_GENERATOR_FLAGS = ("--generate_union_train_cand_pool", "--generate_union_all_cand_pool", "--unify_train_data",
@@ -8559,7 +9417,7 @@ P13_PILLOW_DIGESTS = {
     (8, 31, 600, None): "bcac9abb35daf1ccb6ee18027f90571407dc0f9b403196c5da369032c2cd86ad",
     (9, 500, 375, b"\xff\xd9"): "d7dea6651bb1227ad106633dd825104e9190f796abaddef0a958b8401514f2c0",
 }
-P13_TIMED = 160  # raw images the pass is timed on, on one process stage by stage and on its pool
+P13_TIMED = 120  # raw images the pass is timed on, on one process stage by stage and on its pool
 
 
 def digest_image(seed: int, w: int, h: int) -> np.ndarray:
@@ -8734,6 +9592,11 @@ def drive_construction(results: dict, smi: str) -> None:
         check(jp2_out.read_bytes()[:2] == b"\xff\xd8", "phase 13: the JP2 file under a .jpg name was not converted")
         log(f"phase 13: the JP2 file ({P13_JP2}) converted to a JPEG of {jp2_out.stat().st_size} bytes, held to the "
             "twins' pass with every other file")
+        zstd_out = Path(raw["zstd"].replace(str(root / "raw"), str(root / "cli")))
+        check(zstd_out.exists() and zstd_out.read_bytes()[:2] == b"\xff\xd8",
+              "phase 13: the ZSTD TIFF under a .jpg name was deleted or not converted")
+        log(f"phase 13: the ZSTD TIFF converted to a JPEG of {zstd_out.stat().st_size} bytes, held to the twins' "
+            "pass with every other file")
 
         # the rates, alone on the host: one process stage by stage over a seeded sample of the raw images, then
         # the pass's pool over all of them in a process of its own (as a CLI runs it: the pool's workers import

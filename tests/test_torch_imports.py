@@ -59,6 +59,8 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.vp8l",
     "uniir_tpu_torch.data.webp",
     "uniir_tpu_torch.data.tiff",
+    "uniir_tpu_torch.data.zstd",
+    "uniir_tpu_torch.data.lab",
     "uniir_tpu_torch.data.raster",
     "uniir_tpu_torch.data.qoi",
     "uniir_tpu_torch.data.tga",
@@ -110,9 +112,9 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.utils.logging",
     "uniir_tpu_torch.utils.profiling",
 ]
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "regex", "uniir_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "PIL", "yaml", "regex", "uniir_tpu", "zstandard")
 # never imported by the port, at any depth; Pillow only inside the functions named for its file (none)
-NEVER = ("jax", "jaxlib", "flax", "orbax", "uniir_tpu", "yaml", "regex")
+NEVER = ("jax", "jaxlib", "flax", "orbax", "uniir_tpu", "yaml", "regex", "zstandard")
 PIL_FUNCTIONS: dict = {}
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
@@ -189,6 +191,37 @@ def test_import_walk_sees_inside_functions():
     nested = "def _pil():\n    def g():\n        from PIL import Image\n    from PIL import ImageOps\n"
     assert forbidden_imports(nested, pil_functions=("_pil",)) == [(3, "PIL")]
     assert forbidden_imports("import uniir_tpu_torch.ops\nfrom . import x\n") == []
+
+
+_LOADERS = {"CDLL", "PyDLL", "LoadLibrary", "find_library", "dlopen"}
+
+
+def loaded_zstd_libraries(source: str) -> list:
+    """(line, text) of every library-loading call (ctypes.CDLL, find_library, ...) that names a zstd library in a
+    string anywhere among its arguments."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Call):
+            name = node.func.attr if isinstance(node.func, ast.Attribute) else getattr(node.func, "id", "")
+            if name in _LOADERS:
+                for inner in ast.walk(node):
+                    if isinstance(inner, ast.Constant) and isinstance(inner.value, str) and "zstd" in inner.value:
+                        found.append((node.lineno, inner.value))
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_loads_no_libzstd(path):
+    """The port decodes ZSTD with its own decoder (data/zstd.py, csrc/zstd.cuh): no port file, and not
+    chip_smoke.py, loads a libzstd (Pillow's bundled one included) through ctypes."""
+    assert loaded_zstd_libraries(path.read_text()) == []
+
+
+def test_zstd_library_check_sees_loads():
+    src = ("import ctypes, ctypes.util\nlib = ctypes.CDLL(ctypes.util.find_library('zstd'))\n"
+           "def f():\n    return ctypes.cdll.LoadLibrary(glob.glob(d + '/libzstd-*.so*')[0])\n")
+    assert [line for line, _ in loaded_zstd_libraries(src)] == [2, 2, 4]
+    assert forbidden_imports("def f():\n    import zstandard\n") == [(2, "zstandard")]
 
 
 def test_pillow_only_for_the_train_only_transforms():

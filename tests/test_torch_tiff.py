@@ -58,9 +58,6 @@ def pillow_tiff(im, **kw) -> bytes:
 MODES = ("RGB", "L", "1", "P", "RGBA", "CMYK", "I;16", "F", "LA", "I", "YCbCr", "LAB")
 COMPRESSIONS = ("raw", "tiff_lzw", "tiff_adobe_deflate", "tiff_deflate", "packbits", "lzma", "zstd", "jpeg", "group3",
                 "group4", "tiff_ccitt")
-# what the port refuses of what Pillow reads (ROADMAP Queue 3): ZSTD has no stdlib decoder, and Pillow converts
-# LAB to RGB through LittleCMS
-PORT_REFUSES = {"zstd": "ZSTD", "LAB": "CIELAB"}
 
 
 def _matrix():
@@ -93,12 +90,8 @@ def pillow_image(mode: str, seed: int = 0):
 @pytest.mark.parametrize("mode,compression", list(_matrix()))
 def test_pillow_files_decode_as_pillow_does(mode, compression):
     data = pillow_tiff(pillow_image(mode), compression=compression)
-    refused = PORT_REFUSES.get(compression) or PORT_REFUSES.get(mode)
-    if refused:  # Pillow reads it; the port names what it does not decode
+    if compression == "zstd" or mode == "LAB":  # once refused by the port: Pillow reads them
         assert not isinstance(pillow_rgb(data), Exception)
-        with pytest.raises(ValueError, match=rf"^f\.tif: .*{refused}"):
-            tiff.decode_twin(data, "f.tif")
-        return
     assert_as_pillow(data)  # raw YCbCr raises in both (Pillow: raw mode RGBX over three samples)
 
 
@@ -233,6 +226,46 @@ def _writer_forms():
     forms["lzw-compat"] = ("rgb", dict(photometric=2, compression=5, lzw_compat=True))
     forms["lzw-full-table"] = ("levels", dict(photometric=2, compression=5))
     forms["lzw-compat-full-table"] = ("levels", dict(photometric=2, compression=5, lzw_compat=True))
+    for form in chip_smoke.ZSTD_FORMS[:-1]:  # (frames_skippable is not one frame a strip)
+        forms[f"zstd-{form}"] = ("rgb", dict(photometric=2, compression=50000, zstd_form=form, rows_per_strip=9))
+    for kind in ("rgb", "grey16", "rgb16"):
+        for order in ("II", "MM"):
+            forms[f"zstd-predictor2-{kind}-{order}"] = (kind, dict(photometric=1 if kind == "grey16" else 2, order=order,
+                                                                   compression=50000, predictor=2, rows_per_strip=7))
+    forms["zstd-predictor3-float"] = ("float", dict(photometric=1, compression=50000, predictor=3, rows_per_strip=6))
+    forms["zstd-tiles-planar"] = ("rgba", dict(photometric=2, extra=(2,), compression=50000, planar=2, tile=(16, 32)))
+    forms["predictor3-uint16-c5"] = ("uint16", dict(photometric=1, compression=5, predictor=3))  # Pillow refuses
+    for comp in (1, 5, 32773, 50000):
+        for planar in (1, 2):
+            forms[f"lab-c{comp}-planar{planar}"] = ("rgb", dict(photometric=8, compression=comp, planar=planar,
+                                                                rows_per_strip=10))
+    forms["lab-c50000-tiles-orientation6"] = ("rgb", dict(photometric=8, compression=50000, tile=(16, 16),
+                                                          orientation=6))
+    for sub in ((2, 2), (2, 1), (1, 2), (4, 4), (4, 2), (4, 1)):
+        for n, (lay, lay_kw) in enumerate((("strips8", dict(rows_per_strip=8)), ("strips5", dict(rows_per_strip=5)),
+                                           ("tiles", dict(tile=(16, 16))), ("one_strip", {}))):
+            comp = (5, 8, 32773, 50000)[n]
+            forms[f"ycbcr{sub[0]}{sub[1]}-{lay}-c{comp}"] = ("rgb", dict(photometric=6, compression=comp,
+                                                                         subsampling=sub, **lay_kw))
+    for o in range(1, 9):
+        forms[f"ycbcr22-orientation{o}-c8"] = ("rgb", dict(photometric=6, compression=8, subsampling=(2, 2),
+                                                           orientation=o, rows_per_strip=6))
+        forms[f"ycbcr44-tiles-orientation{o}-c50000"] = ("rgb", dict(photometric=6, compression=50000,
+                                                                     subsampling=(4, 4), orientation=o, tile=(16, 16)))
+    for comp in (5, 50000):
+        forms[f"ycbcr11-planar-c{comp}"] = ("rgb", dict(photometric=6, compression=comp, planar=2, rows_per_strip=7))
+    forms["ycbcr22-refblackwhite-c5"] = ("rgb", dict(photometric=6, compression=5, subsampling=(2, 2), tags={
+        532: (5, [(15, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)]),
+        529: (5, [(2990, 10000), (5870, 10000), (1140, 10000)])}))
+    forms["ycbcr-raw-strips"] = ("rgb", dict(photometric=6, compression=1, rows_per_strip=4))  # Pillow's raw RGBX
+    forms["ycbcr33-c5"] = ("rgb", dict(photometric=6, compression=5, tags={530: (3, [3, 3])}))  # refused by both
+    forms["ycbcr22-planar-c5"] = ("rgb", dict(photometric=6, compression=5, planar=2, tags={530: (3, [2, 2])}))
+    forms["ycbcr-grey-c5"] = ("grey", dict(photometric=6, compression=5))  # refused by both
+    for ph in (1, 2, 5):
+        forms[f"jpeg-planar-photometric{ph}"] = ({1: "grey", 2: "rgb", 5: "rgba"}[ph], dict(
+            photometric=ph, compression=7, planar=2, rows_per_strip=8))
+    forms["jpeg-ycbcr11-planar-orientation3"] = ("rgb", dict(photometric=6, compression=7, planar=2, orientation=3,
+                                                             tags={530: (3, [1, 1])}, tile=(16, 16)))
     for comp in (1, 5):
         forms[f"la-planar-c{comp}"] = ("la", dict(photometric=1, extra=(2,), planar=2, compression=comp))
         forms[f"pa-planar-c{comp}"] = ("la", dict(photometric=3, extra=(2,), planar=2, compression=comp,
@@ -306,6 +339,9 @@ def _truncation_files(pillow_made: bool = True):
     files["lzw-compat"] = chip_smoke.tiff_bytes(rgb, 2, compression=5, lzw_compat=True, rows_per_strip=16)
     files["predictor2"] = chip_smoke.tiff_bytes(rgb, 2, compression=5, predictor=2, rows_per_strip=16)
     files["tiles"] = chip_smoke.tiff_bytes(rgb, 2, compression=5, tile=(16, 16))
+    files["zstd"] = chip_smoke.tiff_bytes(rgb, 2, compression=50000, rows_per_strip=16)
+    files["lab"] = chip_smoke.tiff_bytes(rgb, 8, compression=50000, rows_per_strip=16)
+    files["ycbcr22"] = chip_smoke.tiff_bytes(rgb, 6, compression=5, subsampling=(2, 2), rows_per_strip=16)
     files["rle"] = chip_smoke.tiff_bytes(bil, 0, compression=2, bits=1, rows_per_strip=16)
     files["g3"] = chip_smoke.tiff_bytes(bil, 0, compression=3, bits=1, rows_per_strip=16)
     if pillow_made:
@@ -317,21 +353,20 @@ def _truncation_files(pillow_made: bool = True):
     return files
 
 
-# Where the port does not give Pillow's answer (ROADMAP Queue 3), it raises: a Group 3 strip that ends early
-# (libtiff goes on decoding rows past the data's end), a Group 4 strip that ends before its last row (libtiff
-# leaves the later rows unwritten: Pillow's buffer as it was).  A corrupt JPEG strip decodes as libjpeg decodes
-# damaged data (data/jpeg.py), but libtiff's JPEG codec carries on past some errors libjpeg raises (an unknown
-# marker in a strip, found by flipping bytes), where the port raises.
-DIVERGES = {("g3", "cut"), ("g3-2d", "cut"), ("g4", "cut"), ("g3", "flip"), ("g3-2d", "flip"), ("g4", "flip"),
-            ("c7", "flip")}
+# Where the port does not give Pillow's answer it raises UnsupportedImageFormat, which leaves the file in place:
+# a Group 4 strip that ends before its last row, whose later rows libtiff leaves as Pillow's strip buffer held
+# them -- uninitialised memory for the first strip, so that Pillow's pixels differ from one run to the next and no
+# decoder can give them; and a damaged YCbCr strip under TIFFRGBAImage, which reads on past a strip that fails to
+# decode with its buffer as the failure left it (each codec leaves it otherwise), which the port does not model.
+DIVERGES = {("g4", "cut"), ("g4", "flip"), ("ycbcr22", "cut"), ("ycbcr22", "flip")}
 
 
 @pytest.mark.parametrize("codec", ["c1", "c5", "c8", "c32773", "c34925", "c7", "lzw-compat", "predictor2", "tiles",
-                                   "rle", "g3", "g3-2d", "g4"])
+                                   "rle", "g3", "g3-2d", "g4", "zstd", "lab", "ycbcr22"])
 def test_truncations_and_corruptions_as_pillow(codec):
     """Each codec cut at four points of its data and with single bytes flipped: the twin raises where Pillow
     raises and gives Pillow's pixels where Pillow gives an image, except the DIVERGES cases, where the port
-    raises."""
+    raises UnsupportedImageFormat."""
     data = _truncation_files()[codec]
     t = tiff.parse(data)
     offs = t.tags.get(273) or t.tags.get(324)
@@ -347,10 +382,87 @@ def test_truncations_and_corruptions_as_pillow(codec):
             got = tiff.decode_twin(bad, "f.tif")
         except ValueError as err:
             assert str(err).startswith("f.tif: ")
-            assert isinstance(ref, Exception) or (codec, kind) in DIVERGES, (kind, err)
+            assert isinstance(ref, Exception) or (codec, kind) in DIVERGES and isinstance(
+                err, jpeg.UnsupportedImageFormat), (kind, err)
             continue
         assert not isinstance(ref, Exception), (kind, ref)
         np.testing.assert_array_equal(got, ref)
+
+
+def _cut_counts(data: bytes, frac: float) -> bytes:
+    """A little-endian classic TIFF whose strips end early: each StripByteCounts value cut to `frac` of itself."""
+    import struct
+
+    t = tiff.parse(data)
+    counts = [max(1, int(c * frac)) for c in t.tags[279]]
+    at = struct.unpack("<L", data[4:8])[0]
+    out = bytearray(data)
+    for k in range(struct.unpack("<H", data[at:at + 2])[0]):
+        tag, typ, n = struct.unpack("<HHL", data[at + 2 + 12 * k: at + 10 + 12 * k])
+        if tag == 279:
+            fmt = "<H" if typ == 3 else "<L"
+            where = at + 10 + 12 * k if n * struct.calcsize(fmt) <= 4 else struct.unpack("<L", data[at + 10 + 12 * k:
+                                                                                                    at + 14 + 12 * k])[0]
+            for j, v in enumerate(counts):
+                struct.pack_into(fmt, out, where + j * struct.calcsize(fmt), v)
+    return bytes(out)
+
+
+@pytest.mark.parametrize("kind", ["g3", "g3-2d", "g4", "g3-writer", "jpeg"])
+def test_strips_that_end_early_as_pillow(kind):
+    """Strips whose byte counts end early, or with a byte flipped: Group 3 rows whose EOL is cut off are read
+    again from the strip's start without EOLs for the rest of the image (libtiff 4.7), a JPEG strip ends at
+    libtiff's fake EOI; the twin gives Pillow's pixels or raises with it.  A Group 4 strip that stops before its
+    last row raises UnsupportedImageFormat (Pillow leaves those rows as its buffer held them)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(["g3", "g3-2d", "g4", "g3-writer", "jpeg"].index(kind))
+    for case in range(12):
+        h, w = int(rng.integers(2, 50)), int(rng.integers(1, 80))
+        bil = (np.kron(rng.random((h // 3 + 1, w // 4 + 1)) > 0.5, np.ones((3, 4)))[:h, :w]).astype(bool)
+        rps = int(rng.integers(1, h + 1))
+        if kind == "jpeg":
+            yy, xx = np.mgrid[0:h + 8, 0:w + 8]
+            a = np.clip(np.stack([(xx * 3 + yy * 2 + 40 * c) % 256 for c in range(3)], 2) + rng.normal(0, 8, (h + 8, w + 8, 3)),
+                        0, 255).astype(np.uint8)
+            data = chip_smoke.tiff_bytes(a, 6, compression=7, rows_per_strip=rps + 7)
+        elif kind == "g3-writer":
+            data = chip_smoke.tiff_bytes(bil[..., None].astype(np.uint8), 0, compression=3, bits=1, rows_per_strip=rps)
+        else:
+            opts = {"g3": ("group3", {}), "g3-2d": ("group3", {292: 1}), "g4": ("group4", {})}[kind]
+            data = pillow_tiff(Image.fromarray(bil), compression=opts[0], tiffinfo={**opts[1], 278: rps})
+        if case % 2:
+            bad = _cut_counts(data, float(rng.uniform(0.1, 0.95)))
+        else:
+            t = tiff.parse(data)
+            s = int(rng.integers(0, len(t.tags[273])))
+            pos = t.tags[273][s] + int(rng.integers(0, t.tags[279][s]))
+            bad = data[:pos] + bytes([data[pos] ^ int(rng.integers(1, 256))]) + data[pos + 1:]
+        ref = pillow_rgb(bad)
+        try:
+            got = tiff.decode_twin(bad, "f.tif")
+        except jpeg.UnsupportedImageFormat as err:
+            assert kind == "g4" and "Group 4 strip that ends" in str(err), err
+            continue
+        except ValueError as err:
+            assert isinstance(ref, Exception), (case, err)
+            continue
+        assert not isinstance(ref, Exception), (case, ref)
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("level", [-5, 1, 3, 9, 19, 22])
+def test_libzstd_strips_at_every_level_decode_as_pillow(level):
+    """ZSTD strips as libtiff writes them (streamed, no content size) at each level, with and without the
+    horizontal predictor, and one-call frames with a checksum and a content size: Pillow's pixels."""
+    from tests.test_torch_zstd import compress
+
+    rng = np.random.default_rng(level + 50)
+    rgb = (rng.integers(0, 24, (37, 53, 3)) * 10).astype(np.uint8)
+    for predictor, streamed in ((1, True), (2, True), (1, False)):
+        data = chip_smoke.tiff_bytes(rgb, 2, compression=50000, predictor=predictor, rows_per_strip=11,
+                                     zstd=lambda raw: compress(raw, level, streamed, checksum=int(not streamed)))
+        assert_as_pillow(data)
 
 
 def test_embedded_pillow_files_decode_to_pillows_digests():
@@ -372,8 +484,9 @@ def test_read_image_decodes_tiff_by_signature(tmp_path):
 
 def test_dataset_items_from_tiff_files_equal_jax(tmp_path):
     """The port's MBEIRCandidatePoolDataset item for a `.tif` img_path equals the JAX package's (fp32): an LZW
-    RGB TIFF with the horizontal predictor, a tiled big-endian Deflate one, a palette TIFF, a Group 4 one and an
-    orientation-6 one (Pillow's own transposition)."""
+    RGB TIFF with the horizontal predictor, a tiled big-endian Deflate one, a palette TIFF, a Group 4 one, an
+    orientation-6 one (Pillow's own transposition), a ZSTD one with the predictor, a CIELAB one and a 4x4
+    subsampled YCbCr one in tiles with orientation 8."""
     import json
     import os
 
@@ -387,7 +500,10 @@ def test_dataset_items_from_tiff_files_equal_jax(tmp_path):
              "tiles_deflate_mm": writer_file("rgb-c8-MM-big0-tiles-planar1", seed=3),
              "palette": writer_file("palette-fillorder1-c5", seed=4),
              "group4": _truncation_files()["g4"],
-             "orientation6": writer_file("orientation6-c5", seed=5)}
+             "orientation6": writer_file("orientation6-c5", seed=5),
+             "zstd_predictor": writer_file("zstd-predictor2-rgb-II", seed=6),
+             "lab": writer_file("lab-c50000-planar1", seed=7),
+             "ycbcr44_orientation8": writer_file("ycbcr44-tiles-orientation8-c50000", seed=8)}
     with open(tmp_path / "cand_pool.jsonl", "w") as f:
         for i, (name, data) in enumerate(files.items()):
             (tmp_path / "images" / f"{name}.tif").write_bytes(data)
@@ -420,7 +536,8 @@ def native():
 
 
 NATIVE_FORMS = [tag for tag in sorted(WRITER_FORMS) if any(k in tag for k in ("-c5", "-c2", "-c3", "-c32773", "lzw",
-                                                                               "jpeg"))]
+                                                                               "jpeg", "zstd", "c50000", "lab",
+                                                                               "ycbcr"))]
 
 
 @pytest.mark.gpu

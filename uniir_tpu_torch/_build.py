@@ -64,7 +64,7 @@ SIGNATURES = {
         "uniir_jpeg_info": (_P, _S, _P, _P, _I),
         "uniir_jpeg_decode": (_P, _S, _P, _I, _I, _P, _I),
         "uniir_jpeg_samples_info": (_P, _S, _I, _P, _P, _I),
-        "uniir_jpeg_decode_samples": (_P, _S, _I, _P, _I, _I, _I, _P, _I),
+        "uniir_jpeg_decode_samples": (_P, _S, _I, _I, _P, _I, _I, _I, _P, _I),
     },
     "jpeg_encode": {
         "uniir_jpeg_encode": (_P, _I, _I, _P, _I, _P, _S, _P, _P, _I),
@@ -77,6 +77,7 @@ SIGNATURES = {
     },
     "tiff": {
         "uniir_tiff_decode": (_P, _S, _P, _I, _P, _I, _P, _P, _S, _P, _P, _P, _P, _I),
+        "uniir_zstd_decompress": (_P, _S, _P, _S, _I, _P, _P, _I),
     },
     "raster": {
         "uniir_raster_qoi": (_P, _S, _S, _I, _I, _I, _P, _S, _P, _I),

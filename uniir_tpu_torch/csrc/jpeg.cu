@@ -128,6 +128,7 @@ const uint32_t kAritab[114] = {
 struct Decoder {
   const uint8_t* d;
   size_t n;
+  bool libtiff = false;  // a TIFF strip as libtiff reads it: no error past a single-scan frame's scan
   int width = 0, height = 0;
   int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   std::vector<Component> comps;
@@ -839,7 +840,7 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
     if (!dec.arith && !short_data) dec.last_good = (int)(u / units_x / rows_per_imcu);  // before the restart
     if (u % interval == 0) {
       int64_t from = starts[(size_t)(u / interval)];
-      if (dec.lossless && from < 0) dec.fail("marker 0xFFDA: corrupt lossless scan (a restart marker out of place)");
+      if (dec.lossless && from < 0) dec.fail("unsupported: marker 0xFFDA: corrupt lossless scan (a restart marker out of place)");
       br = BitReader{dec.d, dec.n, from < 0 ? 0 : (size_t)from};
       br.at_marker = from < 0;
       ar = Arith{dec.d, dec.n, from < 0 ? 0 : (size_t)from};
@@ -864,10 +865,10 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
           int row = single ? r : r * c.v + y, col = single ? q : q * c.h + x;
           if (dec.lossless) {
             const auto& lut = dec.huff[0][scan.dc[s]];
-            if (!lut[br.peek32() >> 16]) dec.fail("marker 0xFFDA: corrupt Huffman code (lossless)");
+            if (!lut[br.peek32() >> 16]) dec.fail("unsupported: marker 0xFFDA: corrupt Huffman code (lossless)");
             int sz = huff(br, lut);
             dec.diffs[scan.comp[s]][(size_t)row * c.bw + col] = sz == 16 ? 32768 : (sz ? extend(get_bits(br, sz), sz) : 0);
-            if (br.over()) dec.fail("marker 0xFFDA: truncated JPEG stream (lossless)");
+            if (br.over()) dec.fail("unsupported: marker 0xFFDA: truncated JPEG stream (lossless)");
             continue;
           }
           int16_t* out = &c.coef[((size_t)row * c.bw + col) * 64];
@@ -1024,101 +1025,106 @@ void parse(Decoder& dec, bool header_only, int colour_override = -1) {
   Marker m;
   for (;;) {
     bool finished = dec.n_scans && !dec.multiscan;
-    if (!pending) {
-      if (!next_marker(dec, i, m)) {
-        if (finished) break;
-        dec.fail("truncated JPEG stream (no EOI marker)");
-      }
-    }
-    pending = false;
-    i = m.after;
-    int marker = m.code;
-    if (marker == 0xD9) break;
-    if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;  // parameterless
-    bool skipped = (marker >= 0xE0 && marker <= 0xEF) || marker == 0xFE || marker == 0xDC;  // APPn, COM, DNL
-    bool sof = marker == 0xC0 || marker == 0xC1 || marker == 0xC2 || marker == 0xC3 || marker == 0xC9 ||
-               marker == 0xCA;
-    if (marker == 0xD8) dec.fail("marker 0xFFD8: a second SOI");
-    if (marker != 0xDC)
-      if (const char* name = sof_name(marker)) {
-        char buf[160];
-        snprintf(buf, sizeof(buf), "marker 0xFF%02X: %s is not supported (SOF0-3, SOF9 and SOF10 only)", marker, name);
-        throw Error{buf};
-      }
-    if (sof && !dec.comps.empty()) dec.fail("marker 0xFF%02X: a second frame header", marker);
-    if (!(skipped || sof || marker == 0xC4 || marker == 0xCC || marker == 0xDA || marker == 0xDB || marker == 0xDD))
-      dec.fail("marker 0xFF%02X: unexpected marker", marker);
-    if (i + 2 > dec.n) {
-      if (finished) break;
-      dec.fail("truncated JPEG stream (marker 0xFF%02X)", marker);
-    }
-    int length = u16(dec.d + i);
-    if (length < 2 && !skipped) dec.fail("truncated JPEG stream (marker 0xFF%02X)", marker);
-    length = length < 2 ? 2 : length;
-    const uint8_t* seg = dec.d + i + 2;
-    int len = length - 2;
-    int avail = i + 2 + (size_t)len <= dec.n ? len : (int)(dec.n - (i + 2));
     try {
-      if (marker == 0xDB) {
-        read_dqt(dec, seg, len, avail);
-      } else if (marker == 0xC4) {
-        read_dht(dec, seg, len, avail);
-      } else if (marker == 0xCC) {
-        read_dac(dec, seg, len, avail);
-      } else if (marker == 0xDD) {  // jdmarker.c get_dri: a length of 4, then the interval
-        if (len != 2) dec.fail("marker 0xFFDD: bad restart interval");
-        dec.restart = (seg_byte(seg, avail, 0) << 8) | seg_byte(seg, avail, 1);
-      } else if (avail < len) {
-        if (marker == 0xDA && finished && avail > 0) {  // get_sos's checks of the part that is there
-          int ns = seg[0];
-          bool bad = length != 6 + 2 * ns || ns < 1 || ns > 4;
-          for (int k = 1; k < avail && k < 1 + 2 * ns && !bad; k += 2) {
-            bool known = false;
-            for (auto& c : dec.comps) known = known || c.id == seg[k];
-            bad = !known;
+      if (!pending) {
+        if (!next_marker(dec, i, m)) {
+          if (finished) break;
+          dec.fail("truncated JPEG stream (no EOI marker)");
+        }
+      }
+      pending = false;
+      i = m.after;
+      int marker = m.code;
+      if (marker == 0xD9) break;
+      if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;  // parameterless
+      bool skipped = (marker >= 0xE0 && marker <= 0xEF) || marker == 0xFE || marker == 0xDC;  // APPn, COM, DNL
+      bool sof = marker == 0xC0 || marker == 0xC1 || marker == 0xC2 || marker == 0xC3 || marker == 0xC9 ||
+                 marker == 0xCA;
+      if (marker == 0xD8) dec.fail("marker 0xFFD8: a second SOI");
+      if (marker != 0xDC)
+        if (const char* name = sof_name(marker)) {
+          char buf[160];
+          snprintf(buf, sizeof(buf), "marker 0xFF%02X: %s is not supported (SOF0-3, SOF9 and SOF10 only)", marker, name);
+          throw Error{buf};
+        }
+      if (sof && !dec.comps.empty()) dec.fail("marker 0xFF%02X: a second frame header", marker);
+      if (!(skipped || sof || marker == 0xC4 || marker == 0xCC || marker == 0xDA || marker == 0xDB || marker == 0xDD))
+        dec.fail("marker 0xFF%02X: unexpected marker", marker);
+      if (i + 2 > dec.n) {
+        if (finished) break;
+        dec.fail("truncated JPEG stream (marker 0xFF%02X)", marker);
+      }
+      int length = u16(dec.d + i);
+      if (length < 2 && !skipped) dec.fail("truncated JPEG stream (marker 0xFF%02X)", marker);
+      length = length < 2 ? 2 : length;
+      const uint8_t* seg = dec.d + i + 2;
+      int len = length - 2;
+      int avail = i + 2 + (size_t)len <= dec.n ? len : (int)(dec.n - (i + 2));
+      try {
+        if (marker == 0xDB) {
+          read_dqt(dec, seg, len, avail);
+        } else if (marker == 0xC4) {
+          read_dht(dec, seg, len, avail);
+        } else if (marker == 0xCC) {
+          read_dac(dec, seg, len, avail);
+        } else if (marker == 0xDD) {  // jdmarker.c get_dri: a length of 4, then the interval
+          if (len != 2) dec.fail("marker 0xFFDD: bad restart interval");
+          dec.restart = (seg_byte(seg, avail, 0) << 8) | seg_byte(seg, avail, 1);
+        } else if (avail < len) {
+          if (marker == 0xDA && finished && avail > 0) {  // get_sos's checks of the part that is there
+            int ns = seg[0];
+            bool bad = length != 6 + 2 * ns || ns < 1 || ns > 4;
+            for (int k = 1; k < avail && k < 1 + 2 * ns && !bad; k += 2) {
+              bool known = false;
+              for (auto& c : dec.comps) known = known || c.id == seg[k];
+              bad = !known;
+            }
+            if (bad) dec.fail("marker 0xFFDA: bad scan header");
           }
-          if (bad) dec.fail("marker 0xFFDA: bad scan header");
+          throw Suspended{};
         }
-        throw Suspended{};
+      } catch (const Suspended&) {
+        if (finished) break;
+        dec.fail("truncated JPEG stream (marker 0xFF%02X)", marker);
       }
-    } catch (const Suspended&) {
-      if (finished) break;
-      dec.fail("truncated JPEG stream (marker 0xFF%02X)", marker);
-    }
-    if (sof) {
-      dec.progressive = marker == 0xC2 || marker == 0xCA;
-      dec.arith = marker == 0xC9 || marker == 0xCA;
-      dec.lossless = marker == 0xC3;
-      read_sof(dec, marker, seg, len);
-      if (header_only) return;
-    } else if (marker == 0xDA) {
-      if (header_only) dec.fail("marker 0xFFDA: a scan before the frame header");
-      bool first = dec.n_scans == 0;
-      read_scan(dec, seg, len, i + length, m);
-      dec.n_scans++;
-      if (first) {  // jdapimin.c: the colour space as the first scan finds it
-        if (dec.comps.size() == 4) {
-          dec.colour = dec.adobe_transform <= 0 ? Decoder::kCMYK : Decoder::kYCCK;
-        } else if (dec.comps.size() == 3) {
-          bool rgb_ids = dec.comps[0].id == 82 && dec.comps[1].id == 71 && dec.comps[2].id == 66;
-          if (dec.jfif) dec.colour = Decoder::kYCbCr;
-          else if (dec.adobe_transform >= 0) dec.colour = dec.adobe_transform == 0 ? Decoder::kRGB : Decoder::kYCbCr;
-          else dec.colour = rgb_ids ? Decoder::kRGB : Decoder::kYCbCr;
+      if (sof) {
+        dec.progressive = marker == 0xC2 || marker == 0xCA;
+        dec.arith = marker == 0xC9 || marker == 0xCA;
+        dec.lossless = marker == 0xC3;
+        read_sof(dec, marker, seg, len);
+        if (header_only) return;
+      } else if (marker == 0xDA) {
+        if (header_only) dec.fail("marker 0xFFDA: a scan before the frame header");
+        bool first = dec.n_scans == 0;
+        read_scan(dec, seg, len, i + length, m);
+        dec.n_scans++;
+        if (first) {  // jdapimin.c: the colour space as the first scan finds it
+          if (dec.comps.size() == 4) {
+            dec.colour = dec.adobe_transform <= 0 ? Decoder::kCMYK : Decoder::kYCCK;
+          } else if (dec.comps.size() == 3) {
+            bool rgb_ids = dec.comps[0].id == 82 && dec.comps[1].id == 71 && dec.comps[2].id == 66;
+            if (dec.jfif) dec.colour = Decoder::kYCbCr;
+            else if (dec.adobe_transform >= 0) dec.colour = dec.adobe_transform == 0 ? Decoder::kRGB : Decoder::kYCbCr;
+            else dec.colour = rgb_ids ? Decoder::kRGB : Decoder::kYCbCr;
+          }
         }
+        pending = true;
+        continue;
+      } else if (((marker == 0xE0 && len >= 4 && memcmp(seg, "JFIF", 4) == 0) ||
+                  (marker == 0xEE && len >= 5 && memcmp(seg, "Adobe", 5) == 0)) && len < 7) {
+        // Pillow reads the segment's version
+        if (!dec.n_scans)
+          dec.fail(marker == 0xE0 ? "marker 0xFFE0: truncated JFIF segment" : "marker 0xFFEE: truncated Adobe segment");
+      } else if (marker == 0xE0 && len >= 14 && memcmp(seg, "JFIF\0", 5) == 0) {
+        dec.jfif = true;
+      } else if (marker == 0xEE && len >= 12 && memcmp(seg, "Adobe", 5) == 0) {
+        dec.adobe_transform = seg[11];
       }
-      pending = true;
-      continue;
-    } else if (((marker == 0xE0 && len >= 4 && memcmp(seg, "JFIF", 4) == 0) ||
-                (marker == 0xEE && len >= 5 && memcmp(seg, "Adobe", 5) == 0)) && len < 7) {
-      // Pillow reads the segment's version
-      if (!dec.n_scans)
-        dec.fail(marker == 0xE0 ? "marker 0xFFE0: truncated JFIF segment" : "marker 0xFFEE: truncated Adobe segment");
-    } else if (marker == 0xE0 && len >= 14 && memcmp(seg, "JFIF\0", 5) == 0) {
-      dec.jfif = true;
-    } else if (marker == 0xEE && len >= 12 && memcmp(seg, "Adobe", 5) == 0) {
-      dec.adobe_transform = seg[11];
+      i += length;
+    } catch (const Error&) {
+      if (finished && dec.libtiff) break;  // libtiff ignores what jpeg_finish_decompress raises
+      throw;
     }
-    i += length;
   }
   if (dec.comps.empty() || dec.n_scans == 0) dec.fail("no frame or no scan before EOI");
   if (colour_override >= 0) dec.colour = (Decoder::Colour)colour_override;
@@ -1468,7 +1474,8 @@ int uniir_jpeg_decode(const uint8_t* data, size_t n, uint8_t* out, int w, int h,
 }
 
 // decode_samples with `colour` -1 (the markers' colour space) or a Colour to use instead (kYCbCr, or kRGB:
-// every component as it is, libtiff's JCS_UNKNOWN); size[0..2] = width, height, channels (the components).
+// every component as it is, libtiff's JCS_UNKNOWN); size[0..2] = width, height, channels (the components);
+// `libtiff`: the markers past a single-scan frame's scan read as libtiff's JPEG codec reads a strip.
 int uniir_jpeg_samples_info(const uint8_t* data, size_t n, int colour, int* size, char* err, int errlen) {
   try {
     Decoder dec;
@@ -1488,12 +1495,13 @@ int uniir_jpeg_samples_info(const uint8_t* data, size_t n, int colour, int* size
   return 1;
 }
 
-int uniir_jpeg_decode_samples(const uint8_t* data, size_t n, int colour, uint8_t* out, int w, int h, int channels,
-                              char* err, int errlen) {
+int uniir_jpeg_decode_samples(const uint8_t* data, size_t n, int colour, int libtiff, uint8_t* out, int w, int h,
+                              int channels, char* err, int errlen) {
   try {
     Decoder dec;
     dec.d = data;
     dec.n = n;
+    dec.libtiff = libtiff != 0;
     parse(dec, false, colour);
     if (dec.width != w || dec.height != h) dec.fail("size %d x %d differs from the one asked for", dec.width, dec.height);
     if (channels != (int)dec.comps.size()) dec.fail("%d channels asked for, %d decoded", channels, (int)dec.comps.size());

@@ -19,14 +19,20 @@
 //     runs past the data's end, which is an error only with no bit left),
 //     its patching of bad code words and rows of the wrong length, and its
 //     two run arrays, which keep what earlier rows and strips left in them.
-//     A premature end is an error, except where Fax4Decode succeeds: the
-//     chunk's last row;
+//     A Group 3 strip that ends inside an EOL is read again from its first
+//     bit without EOLs, FAXMODE_NOEOL kept for the image (libtiff 4.7's
+//     retry); another premature end is an error, except where Fax4Decode
+//     succeeds: the chunk's last row;
+//   * ZSTD (50000): libtiff's ZSTDDecode over csrc/zstd.cuh's decoder of
+//     libzstd's ZSTD_decompressStream (`uniir_zstd_decompress` also gives
+//     the decoder alone, as ZSTD_decompress or as one strip);
 //
 // -- FillOrder 2 undone on the compressed bytes, 16 / 32-bit samples of a
 // big-endian file swapped to native order, the predictors (2: horizontal;
 // 3: libtiff's fpAcc), Pillow's unpackers of the raw modes (bits and bands,
 // inverted grey, bit-reversed bytes, the high byte of 16-bit samples, RGBa
-// unpremultiplied, 12 / 16 / 32-bit and float samples, separate planes),
+// unpremultiplied, 12 / 16 / 32-bit and float samples, separate planes, a
+// LAB plane's sign bit, YCbCr data units as TIFFRGBAImage places them),
 // Convert.c's conversions to RGB (I;16 clamped, I clipped, F truncated,
 // palettes, cmyk2rgb; YCbCr by libtiff's tables, which Python computes) and
 // exif_transpose's orientations.  A truncated or corrupt stream returns an
@@ -39,12 +45,15 @@
 //
 // Built by uniir_tpu_torch/_build.py with nvcc like the kernels' sources.
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
 #include <string>
 #include <vector>
+
+#include "zstd.cuh"
 
 namespace {
 
@@ -231,6 +240,7 @@ uint8_t reverse8(uint8_t b) {
 }
 
 struct FaxEOF {};
+struct NoEOL {};  // SYNC_EOL's zeros with no 1 after them before the data ended (libtiff's noEOLFound)
 
 struct Fax {
   const uint8_t* src;
@@ -435,7 +445,11 @@ struct Fax {
         clr(1);
       }
     for (;;) {
-      need(8, false);
+      try {
+        need(8, false);
+      } catch (const FaxEOF&) {
+        throw NoEOL{};
+      }
       if (get(8)) break;
       clr(8);
     }
@@ -445,8 +459,12 @@ struct Fax {
   }
 };
 
+// `noeol`: libtiff's FAXMODE_NOEOL, set for the rest of the image once a Group 3 row's EOL is not found; the strip
+// is then read again from its first bit, the rows written on from the one it stopped at (data/tiff.py
+// ccitt_decode).  A Group 4 strip that stops before its last row leaves later rows as Pillow's buffer held
+// them: "unsupported: " errors, which the caller raises as UnsupportedImageFormat.
 void ccitt_decode(const uint8_t* src, size_t n, int compression, int options, int width, int rows, uint8_t* out,
-                  size_t size, uint32_t* runs) {
+                  size_t size, uint32_t* runs, bool& noeol) {
   bool needs_ref = compression == 4 || (compression == 3 && (options & 1));
   int nruns = (width + 1 + 31) / 32 * 32 * (needs_ref ? 2 : 1);
   size_t row_bytes = ((size_t)width + 7) / 8;
@@ -460,14 +478,22 @@ void ccitt_decode(const uint8_t* src, size_t n, int compression, int options, in
   fx.arrays[fx.ref][0] = (uint32_t)width;  // Fax3PreDecode: an all-white reference row
   fx.arrays[fx.ref][1] = 0;
   int done = 0;
-  for (; done < rows; done++) {
+  while (done < rows) {
     fx.pa = fx.a0 = fx.run_length = 0;
     try {
       if (compression == 2) {
         fx.expand_1d();
         fx.clr(fx.avail & 7);
       } else if (compression == 3) {
-        fx.sync_eol();
+        if (!noeol) {
+          try {
+            fx.sync_eol();
+          } catch (const NoEOL&) {
+            noeol = true;
+            fx.cp = 0, fx.acc = 0, fx.avail = 0, fx.eol = 0;
+            continue;
+          }
+        }
         if (options & 1) {
           fx.need(1, false);
           int is_1d = (int)fx.get(1);
@@ -489,6 +515,9 @@ void ccitt_decode(const uint8_t* src, size_t n, int compression, int options, in
         fx.fill(out + row_bytes * done);
         return;
       }
+      if (compression == 4 && done > 0)
+        fail("unsupported: a Group 4 strip that ends at row %ld of %ld: libtiff leaves the later rows as Pillow's "
+             "buffer held them, which the port does not know", done, rows);
       fail("CCITT data ends before the strip is full (premature EOF at row %ld)", done);
     }
     fx.fill(out + row_bytes * done);
@@ -497,6 +526,7 @@ void ccitt_decode(const uint8_t* src, size_t n, int compression, int options, in
       fx.cur ^= 1;
       fx.ref ^= 1;
     }
+    done++;
   }
 }
 
@@ -507,7 +537,7 @@ void set_error(char* err, int errlen, const std::string& msg) {
 // ------------------------------------------------------------ the image
 
 // How one chunk's rows become mode pixels (data/tiff.py::native_spec builds these from Pillow's raw modes).
-enum Op { kPacked = 0, kBytes = 1, kHigh16 = 2, kU16 = 3, kS16 = 4, kS32 = 5, kF32 = 6, kU12 = 7 };
+enum Op { kPacked = 0, kBytes = 1, kHigh16 = 2, kU16 = 3, kS16 = 4, kS32 = 5, kF32 = 6, kU12 = 7, kUnits = 8 };
 struct Spec {
   int op, bits, nin, keep, invert, reverse, big_endian, premult, scale;  // keep: the kept input bands, 4 bits each
 };
@@ -553,7 +583,8 @@ void unpack_row(const Spec& sp, const uint8_t* src, int w, Image& im, int y, int
       const size_t base = (size_t)x * sp.nin * step;
       int v[4];
       for (int k = 0; k < nkeep; k++) v[k] = byte(base + (size_t)keep[k] * step + hi);
-      if (sp.invert) v[0] = 255 - v[0];
+      if (sp.invert == 1) v[0] = 255 - v[0];
+      if (sp.invert == 2) v[0] ^= 0x80;  // a LAB plane's a or b
       if (sp.premult) {  // Unpack.c's unpackRGBa: unpremultiplied, all zero where alpha is 0
         int a = v[3];
         for (int k = 0; k < 3; k++) {
@@ -638,7 +669,8 @@ extern "C" {
 // specs into mode pixels, converted to RGB (`params`' mode; `palette` 768 bytes, `ycc` 5 x 256 int64 tables) and
 // transposed by the orientation into out (uint8 [out_h][out_w][3]).
 // params: width, height, bands, storage (0 u8, 1 i32, 2 f32), mode, compression, t4options, predictor,
-// fillorder, swap bytes (0, 2, 4), predictor samples per pixel, sample bytes, orientation, planar RGBa
+// fillorder, swap bytes (0, 2, 4), predictor samples per pixel, sample bytes, orientation, planar RGBa, the
+// strip buffer of YCbCr data units
 int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int n_chunks, const int32_t* specs,
                       int n_specs, const int32_t* params, const uint8_t* pre, size_t pre_n, const uint8_t* palette,
                       const int64_t* ycc, uint8_t* out, char* err, int errlen) {
@@ -652,7 +684,11 @@ int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int 
     else if (storage == 1) im.i32.assign((size_t)W * H, 0);
     else im.f32.assign((size_t)W * H, 0.0f);
     std::vector<uint32_t> runs;  // libtiff's CCITT run arrays, from strip to strip
+    bool noeol = false;          // and its FAXMODE_NOEOL
     std::vector<uint8_t> buf, raw;
+    // TIFFRGBAImage's strip buffer of YCbCr data units (TIFFStripSize), zeroed for each strip, read into as far as
+    // gtStripContig asks
+    std::vector<uint8_t> held((size_t)params[14], 0);
     const uint8_t* rev = reversed_table();
     for (int k = 0; k < n_chunks; k++) {
       const int64_t* c = chunks + (size_t)k * kChunkFields;
@@ -686,7 +722,15 @@ int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int 
           } else if (compression == 2 || compression == 3 || compression == 4) {
             if (runs.empty()) runs.assign((size_t)4 * (((int)cw + 1 + 31) / 32 * 32), 0);
             ccitt_decode(raw.data(), raw.size(), compression, options, (int)cw, (int)rows, buf.data(), buf.size(),
-                         runs.data());
+                         runs.data(), noeol);
+          } else if (compression == 50000) {
+            size_t got;
+            try {
+              got = zstd::stream(raw.data(), raw.size(), buf.data(), buf.size());
+            } catch (const zstd::Corrupt& e) {
+              throw Error{"corrupt ZSTD data (" + e.msg + ")"};
+            }
+            if (got < buf.size()) fail("ZSTD stream ends before the strip is full (not enough data)");
           } else {
             fail("compression %ld has no native chunk decoder", compression);
           }
@@ -698,6 +742,22 @@ int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int 
         if (predictor == 2) predictor2(buf.data(), (int)rows, (int)cw, pred_spp, sample_bytes);
         else if (predictor == 3) predictor3(buf.data(), (int)rows, (int)cw, pred_spp, sample_bytes);
         rowsrc = buf.data();
+      }
+      if (sp.op == kUnits) {  // YCbCr data units: h x v Y samples, then Cb and Cr (see data/tiff.py _units)
+        if (buf.size() > held.size()) fail("YCbCr strip larger than its buffer");
+        std::fill(held.begin(), held.end(), 0);
+        memcpy(held.data(), buf.data(), buf.size());
+        const int sh = sp.bits, sv = sp.nin, unit = sp.scale;
+        for (int64_t r = 0; r < rows && y0 + r < H; r++)
+          for (int64_t x = 0; x < w; x++) {
+            size_t at = (size_t)((r / sv) * stride + (x / sh) * unit);
+            if (at + unit > held.size()) fail("YCbCr data unit past its strip or tile");
+            uint8_t* px = &im.u8[((size_t)(y0 + r) * W + x0 + x) * 3];
+            px[0] = held[at + (r % sv) * sh + x % sh];
+            px[1] = held[at + sh * sv];
+            px[2] = held[at + sh * sv + 1];
+          }
+        continue;
       }
       for (int64_t r = 0; r < rows; r++) {
         if (y0 + r >= H) break;
@@ -764,6 +824,29 @@ int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int 
     set_error(err, errlen, e.msg);
   } catch (...) {
     set_error(err, errlen, "out of memory or internal error decoding the TIFF");
+  }
+  return 1;
+}
+
+// The ZSTD decoder alone: `stream` 0 as ZSTD_decompress (every frame; at most `capacity` bytes), 1 as libtiff's
+// ZSTDDecode of one strip of `capacity` bytes (what it writes; the caller fails a strip that comes up short).
+// *size: the bytes written.
+int uniir_zstd_decompress(const uint8_t* data, size_t n, uint8_t* out, size_t capacity, int stream, size_t* size,
+                          char* err, int errlen) {
+  try {
+    if (stream) {
+      *size = zstd::stream(data, n, out, capacity);
+    } else {
+      std::vector<uint8_t> buf;
+      zstd::decompress(data, n, buf, capacity);
+      memcpy(out, buf.data(), buf.size());
+      *size = buf.size();
+    }
+    return 0;
+  } catch (const zstd::Corrupt& e) {
+    set_error(err, errlen, "corrupt ZSTD data (" + e.msg + ")");
+  } catch (...) {
+    set_error(err, errlen, "out of memory or internal error decoding ZSTD data");
   }
   return 1;
 }

@@ -80,9 +80,11 @@ and SOF13-15, 2 components, 12- and 16-bit samples (Pillow: "cannot
 handle 12-bit layers"), data that ends before EOI (Pillow: "image file is
 truncated"), an unknown marker or a second SOI, frame or (in a single-scan
 file) scan, a bad table (the all-ones Huffman code, a DC symbol above 15),
-a bad progression.  A damaged lossless (SOF3) scan still raises (libjpeg
-decodes it on).  `decode_samples` gives libjpeg's output before Pillow
-reads it (the TIFF decoder's JPEG strips, with libtiff's colour space).
+a bad progression.  A damaged lossless (SOF3) scan, which libjpeg decodes
+on past, raises UnsupportedImageFormat, which keeps the file in the image
+pass.  `decode_samples` gives libjpeg's output before Pillow reads it (the
+TIFF decoder's JPEG strips, with libtiff's colour space and, with
+`libtiff`, libtiff's leniency past the scan).
 
 Two decoders compute that function: `decode_twin`, plain Python for the
 markers and entropy decoding and numpy over all blocks at once for the rest
@@ -308,12 +310,14 @@ def _scan_segments(data: bytes, start: int, n_intervals: int, name: str) -> tupl
     return segments, marker
 
 
-def parse(data: bytes, name: str = "<bytes>") -> _Frame:
+def parse(data: bytes, name: str = "<bytes>", libtiff: bool = False) -> _Frame:
     """The frame of a JPEG file as libjpeg-turbo's marker reader (jdmarker.c read_markers) walks it to EOI:
     bytes between markers skipped, RSTn and TEM outside a scan ignored, a DNL, APPn or COM segment skipped, each
     scan's restart intervals as `_scan_segments` finds them.  ValueError for anything outside the accepted forms
     (module docstring) and where libjpeg stops with an error: a second SOI or frame header, a marker it does not
-    know, a second scan in a single-scan file, a bad table or segment, data that ends before EOI."""
+    know, a second scan in a single-scan file, a bad table or segment, data that ends before EOI.  `libtiff`: as
+    libtiff's JPEG codec reads a strip, which ignores any error past a single-scan frame's scan (its
+    jpeg_finish_decompress)."""
     if data[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     frame, i, n, pending = _Frame(), 2, len(data), None
@@ -322,94 +326,99 @@ def parse(data: bytes, name: str = "<bytes>") -> _Frame:
         # past a single-scan file's scan, libjpeg reads the markers up to EOI once Pillow has all the rows: data
         # that ends first only suspends it, which Pillow takes as the end (an error still fails the file)
         finished = frame.scans and not multiscan
-        if pending is None:
-            try:
-                marker, _, i = _next_marker(data, i, name)
-            except ValueError:
+        try:
+            if pending is None:
+                try:
+                    marker, _, i = _next_marker(data, i, name)
+                except ValueError:
+                    if finished:
+                        break
+                    raise
+            else:
+                (marker, i), pending = pending, None
+            if marker == 0xD9:
+                break
+            if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # parameterless
+                continue
+            where = f"{name}: marker 0xFF{marker:02X}"
+            skipped = 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC)  # APPn, COM, DNL: read as far as they say
+            # the errors libjpeg raises before it reads a segment's length
+            if marker == 0xD8:
+                raise ValueError(f"{where}: a second SOI")
+            if marker in _SOF_NAMES and marker != 0xDC:
+                raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (SOF0-3, SOF9 and SOF10 only)")
+            if marker in _SOF_KINDS and frame.components:
+                raise ValueError(f"{where}: a second frame header")
+            if not (skipped or marker in _SOF_KINDS or marker in (0xC4, 0xCC, 0xDA, 0xDB, 0xDD)):
+                raise ValueError(f"{where}: unexpected marker")
+            if i + 2 > n:
                 if finished:
                     break
-                raise
-        else:
-            (marker, i), pending = pending, None
-        if marker == 0xD9:
-            break
-        if 0xD0 <= marker <= 0xD7 or marker == 0x01:  # parameterless
-            continue
-        where = f"{name}: marker 0xFF{marker:02X}"
-        skipped = 0xE0 <= marker <= 0xEF or marker in (0xFE, 0xDC)  # APPn, COM, DNL: read as far as they say
-        # the errors libjpeg raises before it reads a segment's length
-        if marker == 0xD8:
-            raise ValueError(f"{where}: a second SOI")
-        if marker in _SOF_NAMES and marker != 0xDC:
-            raise ValueError(f"{where}: {_SOF_NAMES[marker]} is not supported (SOF0-3, SOF9 and SOF10 only)")
-        if marker in _SOF_KINDS and frame.components:
-            raise ValueError(f"{where}: a second frame header")
-        if not (skipped or marker in _SOF_KINDS or marker in (0xC4, 0xCC, 0xDA, 0xDB, 0xDD)):
-            raise ValueError(f"{where}: unexpected marker")
-        if i + 2 > n:
-            if finished:
+                raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
+            length = (data[i] << 8) | data[i + 1]
+            if length < 2 and not skipped:
+                raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
+            length = max(length, 2)
+            seg = data[i + 2 : i + length]
+            try:
+                if marker in (0xC4, 0xCC, 0xDB, 0xDD):
+                    _TABLE_READERS[marker](frame, seg, length - 2, where)
+                elif len(seg) != length - 2:
+                    if marker == 0xDA and finished and seg:  # get_sos's checks of the part that is there
+                        ids = [c[0] for c in frame.components]
+                        if length != 6 + 2 * seg[0] or not 1 <= seg[0] <= 4 or any(
+                                seg[k] not in ids for k in range(1, min(len(seg), 1 + 2 * seg[0]), 2)):
+                            raise ValueError(f"{where}: bad scan header")
+                    raise _Suspended
+            except _Suspended:
+                if finished:
+                    break
+                raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})") from None
+            if marker in _SOF_KINDS:
+                frame.progressive, frame.arith, frame.lossless = _SOF_KINDS[marker]
+                if len(seg) < 6:
+                    raise ValueError(f"{where}: truncated frame header")
+                precision, frame.height, frame.width, nc = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
+                if precision != 8:
+                    raise ValueError(f"{where}: {precision}-bit samples are not supported (8 only)")
+                if nc not in (1, 3, 4):
+                    raise ValueError(f"{where}: {nc} components are not supported (1, 3 or 4)")
+                if frame.height == 0 or frame.width == 0:
+                    raise ValueError(f"{where}: image size {frame.width} x {frame.height} (DNL is not supported)")
+                if len(seg) != 6 + 3 * nc:
+                    raise ValueError(f"{where}: bad frame header length")
+                for c in range(nc):
+                    cid, hv, tq = seg[6 + 3 * c], seg[7 + 3 * c], seg[8 + 3 * c]
+                    h, v = hv >> 4, hv & 15
+                    if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
+                        raise ValueError(f"{where}: bad sampling factors or table id")
+                    frame.components.append([cid, h, v, tq])
+                hmax = max(c[1] for c in frame.components)
+                vmax = max(c[2] for c in frame.components)
+                for cid, h, v, _ in frame.components:
+                    if hmax // h not in (1, 2) or vmax // v not in (1, 2) or hmax % h or vmax % v:
+                        raise ValueError(f"{where}: sampling {h}x{v} against {hmax}x{vmax} is not supported")
+            elif marker == 0xDA:
+                frame.scans.append(_read_scan(frame, seg, multiscan, where))
+                if len(frame.scans) == 1:  # jdapimin.c: the colour space and the scan mode, as the first scan finds them
+                    multiscan = frame.progressive or len(frame.scans[0].comps) < len(frame.components)
+                    frame.colour = colour_space(len(frame.components), frame.jfif, frame.adobe_transform,
+                                                tuple(c[0] for c in frame.components))
+                segments, pending = _scan_segments(data, i + length, _intervals(frame, frame.scans[-1]), name)
+                frame.scans[-1] = frame.scans[-1]._replace(segments=segments)
+                continue
+            elif marker in (0xE0, 0xEE) and seg[:5 if marker == 0xEE else 4] in (b"JFIF", b"Adobe") and len(seg) < 7:
+                if not frame.scans:
+                    raise ValueError(f"{where}: truncated {seg[:5].decode('latin-1')} segment")  # Pillow reads its version
+            elif marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:
+                frame.jfif = True
+            elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
+                frame.adobe_transform = seg[11]
+            i += length
+        except ValueError:
+            if finished and libtiff:  # libtiff ignores what jpeg_finish_decompress raises (CALLJPEG's -1)
                 break
-            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
-        length = (data[i] << 8) | data[i + 1]
-        if length < 2 and not skipped:
-            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})")
-        length = max(length, 2)
-        seg = data[i + 2 : i + length]
-        try:
-            if marker in (0xC4, 0xCC, 0xDB, 0xDD):
-                _TABLE_READERS[marker](frame, seg, length - 2, where)
-            elif len(seg) != length - 2:
-                if marker == 0xDA and finished and seg:  # get_sos's checks of the part that is there
-                    ids = [c[0] for c in frame.components]
-                    if length != 6 + 2 * seg[0] or not 1 <= seg[0] <= 4 or any(
-                            seg[k] not in ids for k in range(1, min(len(seg), 1 + 2 * seg[0]), 2)):
-                        raise ValueError(f"{where}: bad scan header")
-                raise _Suspended
-        except _Suspended:
-            if finished:
-                break
-            raise ValueError(f"{name}: truncated JPEG stream (marker 0xFF{marker:02X})") from None
-        if marker in _SOF_KINDS:
-            frame.progressive, frame.arith, frame.lossless = _SOF_KINDS[marker]
-            if len(seg) < 6:
-                raise ValueError(f"{where}: truncated frame header")
-            precision, frame.height, frame.width, nc = seg[0], (seg[1] << 8) | seg[2], (seg[3] << 8) | seg[4], seg[5]
-            if precision != 8:
-                raise ValueError(f"{where}: {precision}-bit samples are not supported (8 only)")
-            if nc not in (1, 3, 4):
-                raise ValueError(f"{where}: {nc} components are not supported (1, 3 or 4)")
-            if frame.height == 0 or frame.width == 0:
-                raise ValueError(f"{where}: image size {frame.width} x {frame.height} (DNL is not supported)")
-            if len(seg) != 6 + 3 * nc:
-                raise ValueError(f"{where}: bad frame header length")
-            for c in range(nc):
-                cid, hv, tq = seg[6 + 3 * c], seg[7 + 3 * c], seg[8 + 3 * c]
-                h, v = hv >> 4, hv & 15
-                if not (1 <= h <= 4 and 1 <= v <= 4) or tq > 3:
-                    raise ValueError(f"{where}: bad sampling factors or table id")
-                frame.components.append([cid, h, v, tq])
-            hmax = max(c[1] for c in frame.components)
-            vmax = max(c[2] for c in frame.components)
-            for cid, h, v, _ in frame.components:
-                if hmax // h not in (1, 2) or vmax // v not in (1, 2) or hmax % h or vmax % v:
-                    raise ValueError(f"{where}: sampling {h}x{v} against {hmax}x{vmax} is not supported")
-        elif marker == 0xDA:
-            frame.scans.append(_read_scan(frame, seg, multiscan, where))
-            if len(frame.scans) == 1:  # jdapimin.c: the colour space and the scan mode, as the first scan finds them
-                multiscan = frame.progressive or len(frame.scans[0].comps) < len(frame.components)
-                frame.colour = colour_space(len(frame.components), frame.jfif, frame.adobe_transform,
-                                            tuple(c[0] for c in frame.components))
-            segments, pending = _scan_segments(data, i + length, _intervals(frame, frame.scans[-1]), name)
-            frame.scans[-1] = frame.scans[-1]._replace(segments=segments)
-            continue
-        elif marker in (0xE0, 0xEE) and seg[:5 if marker == 0xEE else 4] in (b"JFIF", b"Adobe") and len(seg) < 7:
-            if not frame.scans:
-                raise ValueError(f"{where}: truncated {seg[:5].decode('latin-1')} segment")  # Pillow reads its version
-        elif marker == 0xE0 and seg[:5] == b"JFIF\x00" and len(seg) >= 14:
-            frame.jfif = True
-        elif marker == 0xEE and seg[:5] == b"Adobe" and len(seg) >= 12:
-            frame.adobe_transform = seg[11]
-        i += length
+            raise
     if not frame.components or not frame.scans:
         raise ValueError(f"{name}: no frame or no scan before EOI")
     return frame
@@ -1237,19 +1246,23 @@ def _lossless_planes(frame: _Frame, name: str) -> list:
         if interval % cols:
             raise ValueError(f"{name}: marker 0xFFDD: restart interval {interval} is not a multiple of the "
                              f"{cols} MCUs of a row (lossless)")
-        # damaged lossless data is refused (libjpeg's jdlhuff.c decodes on with warnings: not followed here)
+        # damaged lossless data, which libjpeg's jdlhuff.c decodes on past with warnings, is not modelled: it raises
+        # UnsupportedImageFormat, which keeps the file
         if None in scan.segments:
-            raise ValueError(f"{name}: marker 0xFFDA: corrupt lossless scan (a restart marker out of place)")
+            raise UnsupportedImageFormat(f"{name}: marker 0xFFDA: corrupt lossless scan (a restart marker out of "
+                                         "place, which libjpeg decodes on past)")
         for k, segment in enumerate(scan.segments):
             bits = _Bits(segment)
             for unit in units[k * interval: (k + 1) * interval]:
                 for i, c, r, q in unit:
                     if not scan.dc[i][bits.peek() >> 16]:
-                        raise ValueError(f"{name}: marker 0xFFDA: corrupt Huffman code (lossless)")
+                        raise UnsupportedImageFormat(f"{name}: marker 0xFFDA: corrupt Huffman code (lossless, which "
+                                                     "libjpeg decodes on past)")
                     s = bits.huff(scan.dc[i])
                     diffs[c][r, q] = 32768 if s == 16 else (_extend(bits.get(s), s) if s else 0)
                 if bits.over():
-                    raise ValueError(f"{name}: marker 0xFFDA: truncated JPEG stream (lossless)")
+                    raise UnsupportedImageFormat(f"{name}: marker 0xFFDA: truncated JPEG stream (lossless, which "
+                                                 "libjpeg decodes on past with zeros)")
         for c in scan.comps:
             cw, ch = dims[c]
             rows_per_restart = interval // cols * (frame.components[c][2] if len(scan.comps) > 1 else 1)
@@ -1299,13 +1312,14 @@ def _undifference(diff: np.ndarray, psv: int, pt: int, restart_rows: int) -> np.
     return (np.array(out, np.int64).reshape(h, w) << pt & 0xFF).astype(np.int32)
 
 
-def decode_samples(data: bytes, name: str = "<bytes>", colour: str = None) -> np.ndarray:
+def decode_samples(data: bytes, name: str = "<bytes>", colour: str = None, libtiff: bool = False) -> np.ndarray:
     """uint8 [H, W, 3 or 1 or 4]: what libjpeg hands its caller, upsampled and
     colour-converted: RGB for a YCbCr / RGB frame, one channel for grey, the
     CMYK samples as stored for CMYK and YCCK.  `colour` overrides the colour
     space the markers name ("unknown": every component as it is, as libtiff
-    asks for a JPEG-compressed TIFF strip that is not YCbCr)."""
-    frame = parse(bytes(data), name)
+    asks for a JPEG-compressed TIFF strip that is not YCbCr); `libtiff`: the markers past a single-scan
+    frame's scan read as libtiff reads them (`parse`)."""
+    frame = parse(bytes(data), name, libtiff)
     if colour is not None:
         frame.colour = colour
     if frame.colour == "ycbcr" and len(frame.components) != 3:  # jdcolor.c: JERR_BAD_J_COLORSPACE
@@ -1356,6 +1370,14 @@ def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
 # --- the native decoder --------------------------------------------------------
 
 
+def _native_error(name: str, err) -> ValueError:
+    """The exception of a csrc/jpeg.cu error message: "unsupported: " ones UnsupportedImageFormat."""
+    msg = err.value.decode()
+    if msg.startswith("unsupported: "):
+        return UnsupportedImageFormat(f"{name}: {msg.removeprefix('unsupported: ')}")
+    return ValueError(f"{name}: {msg}")
+
+
 def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """`decode_twin` through csrc/jpeg.cu's host decoder (built on first use)."""
     from uniir_tpu_torch import _build
@@ -1366,10 +1388,10 @@ def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
     err = ctypes.create_string_buffer(256)
     size = (ctypes.c_int * 2)()
     if lib.uniir_jpeg_info(data, len(data), size, err, len(err)) != 0:
-        raise ValueError(f"{name}: {err.value.decode()}")
+        raise _native_error(name, err)
     out = np.empty((size[1], size[0], 3), np.uint8)
     if lib.uniir_jpeg_decode(data, len(data), out.ctypes.data, size[0], size[1], err, len(err)) != 0:
-        raise ValueError(f"{name}: {err.value.decode()}")
+        raise _native_error(name, err)
     with _calls_lock:
         decode_native.calls += 1
     return out
@@ -1380,7 +1402,7 @@ decode_native.calls = 0  # decodes that went through the native library (read by
 _COLOUR_CODES = {None: -1, "ycbcr": 1, "unknown": 2}  # csrc/jpeg.cu's Decoder::Colour (kRGB: components as stored)
 
 
-def decode_samples_native(data: bytes, name: str = "<bytes>", colour: str = None) -> np.ndarray:
+def decode_samples_native(data: bytes, name: str = "<bytes>", colour: str = None, libtiff: bool = False) -> np.ndarray:
     """`decode_samples` through csrc/jpeg.cu (the TIFF decoder's JPEG strips on a CUDA run's host)."""
     from uniir_tpu_torch import _build
 
@@ -1390,11 +1412,11 @@ def decode_samples_native(data: bytes, name: str = "<bytes>", colour: str = None
     size = (ctypes.c_int * 3)()
     code = _COLOUR_CODES[colour]
     if lib.uniir_jpeg_samples_info(data, len(data), code, size, err, len(err)) != 0:
-        raise ValueError(f"{name}: {err.value.decode()}")
+        raise _native_error(name, err)
     out = np.empty((size[1], size[0], size[2]), np.uint8)
-    if lib.uniir_jpeg_decode_samples(data, len(data), code, out.ctypes.data, size[0], size[1], size[2], err,
-                                     len(err)) != 0:
-        raise ValueError(f"{name}: {err.value.decode()}")
+    if lib.uniir_jpeg_decode_samples(data, len(data), code, int(libtiff), out.ctypes.data, size[0], size[1], size[2],
+                                     err, len(err)) != 0:
+        raise _native_error(name, err)
     return out
 _calls_lock = threading.Lock()  # the loader's threads decode at once
 

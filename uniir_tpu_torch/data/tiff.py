@@ -26,38 +26,51 @@ For a TIFF file that is the first image (IFD) of the file, read as Pillow
     as such and the others read as they stand -- Pillow's own reading of a
     big-endian signed or float file), FillOrder 2 undone on the compressed
     bytes (not for JPEG), the predictor undone (2: horizontal, 8/16/32-bit;
-    3: floating point), contiguous YCbCr + JPEG decoded to RGB
-    (JPEGCOLORMODE_RGB), and YCbCr under any other compression through
-    TIFFRGBAImage (1x1 subsampling; libtiff's YCbCr -> RGB tables from the
-    file's coefficients and ReferenceBlackWhite);
+    3: floating point, float samples only), contiguous YCbCr + JPEG decoded
+    to RGB (JPEGCOLORMODE_RGB), and YCbCr under any other compression (JPEG
+    planes too) through TIFFRGBAImage: data units of 1x1 ... 4x4
+    subsampling as its putcontig8bitYCbCr routines place them (partial
+    blocks at the edges, a clipped 4x4 tile skipped by the 4x2 unit's size,
+    an odd 4x4 unit row read short into a zeroed buffer), planes at 1x1,
+    libtiff's YCbCr -> RGB tables from the file's coefficients and
+    ReferenceBlackWhite; uncompressed YCbCr as Pillow's raw decoder reads it
+    (raw mode RGBX, no conversion);
   * the codecs: PackBits (32773), LZW (5; the MSB-first code with early
     change, and the old LSB-first "compat" code libtiff detects by its
     first two bytes), Deflate (8 and 32946, stdlib zlib), LZMA (34925,
-    stdlib lzma), CCITT for bilevel images (2: modified Huffman rows, byte
-    aligned; 3: T.4 1-D or 2-D rows after EOL codes per T4Options; 4: T.6),
-    and JPEG (7: each strip or tile its own abbreviated stream, completed
-    by the JPEGTables tag and decoded by `data.jpeg` at libjpeg's defaults,
-    no colour conversion unless YCbCr);
+    stdlib lzma), ZSTD (50000, `data.zstd`: libtiff's ZSTDDecode over
+    libzstd's ZSTD_decompressStream), CCITT for bilevel images (2: modified
+    Huffman rows, byte aligned; 3: T.4 1-D or 2-D rows after EOL codes per
+    T4Options, and libtiff 4.7's retry without EOLs where a strip ends
+    inside an EOL; 4: T.6), and JPEG (7: each strip or tile its own
+    abbreviated stream, completed by the JPEGTables tag and decoded by
+    `data.jpeg` at libjpeg's defaults as libtiff reads it -- a fake EOI
+    where its data ends, errors past a single scan ignored --, no colour
+    conversion unless YCbCr; separate planes one component each);
   * `convert("RGB")` as Pillow's Convert.c does it: "1" 0 / 255, L copied,
     I;16 clamped to 255, I clipped to 0..255, F truncated toward zero then
     clipped (NaN becomes 0), LA / RGBA / RGBX
     without their extra band (associated alpha unpremultiplied first, as
     the raw mode RGBa unpacks it), P by the ColorMap (each 16-bit entry //
-    256), CMYK by cmyk2rgb;
+    256), CMYK by cmyk2rgb, CIELAB by LittleCMS's transform (`data.lab`;
+    contiguous LAB bytes as they stand, a plane's a and b with their sign
+    bit flipped, as Pillow stores them);
   * the Orientation tag applied after decoding, as `exif_transpose` does in
     `load_end` (2-8; 5-8 swap width and height).
 
-Refused by name (ValueError naming the file): what Pillow reads and this
-module does not -- ZSTD (50000; no stdlib decoder), LAB images (Pillow
-converts them through LittleCMS), YCbCr under a compression other than JPEG
-with subsampling or an Orientation tag, a CCITT Group 3 strip that ends
-early (libtiff decodes on past the data's end) or a Group 4 strip that ends
-before its last row (libtiff leaves the later rows unwritten) --; what
-Pillow refuses as well (old-style JPEG 6, WebP 50001, NeXT, ThunderScan,
-SGILog, JBIG, LERC, layouts outside OPEN_INFO, a raw mode Pillow has no
-unpacker for, a big-endian BigTIFF, which Pillow reads as classic, a
-compressed file under an "invalid" header, which libtiff refuses); and any
-stream that is truncated or corrupt where libtiff reports an error.  Bad
+Refused with UnsupportedImageFormat (kept by the image pass): what Pillow
+reads from what this module does not model -- a Group 4 strip that ends
+before its last row (libtiff leaves the later rows as Pillow's buffer held
+them, uninitialised memory for the first strip), damaged YCbCr strips under
+TIFFRGBAImage (it reads on with the buffer as the codec's failure left it),
+subsampled YCbCr with a predictor.  Refused with ValueError naming the
+file: what Pillow refuses as well (old-style JPEG 6, WebP 50001, NeXT,
+ThunderScan, SGILog, JBIG, LERC, layouts outside OPEN_INFO, a raw mode
+Pillow has no unpacker for, a predictor libtiff's PredictorSetup refuses,
+YCbCr TIFFRGBAImage has no put routine for, a big-endian BigTIFF, which
+Pillow reads as classic, a compressed file under an "invalid" header, which
+libtiff refuses); and any stream that is truncated or corrupt where libtiff
+reports an error.  Bad
 CCITT code words and rows of the wrong length are patched up as libtiff
 does; libtiff's padding of its bit accumulator with zeros at the end of the
 data is kept (a short last row can read shifted bits).
@@ -67,9 +80,10 @@ where each chunk's bytes are and its rows go, and Pillow's raw mode for
 them).  `decode_twin` executes it in Python and numpy; `decode_native` in
 one call of host C++ (`csrc/tiff.cu`, built by `_build` like the kernels
 and called through ctypes, which releases the GIL): LZW, PackBits, CCITT,
-the predictors, the unpacking (the raw modes as `native_spec` encodes
-them), the conversion to RGB and the orientation, with zlib and lzma chunks
-inflated by the stdlib first.  JPEG strips go through the JPEG decoders.
+ZSTD (`csrc/zstd.cuh`), the predictors, the unpacking (the raw modes as
+`native_spec` encodes them, YCbCr data units), the conversion to RGB and
+the orientation, with zlib and lzma chunks inflated by the stdlib first and
+CIELAB converted by `data.lab` after.  JPEG strips go through the JPEG decoders.
 `decoder_for(device)` picks one by the run's device.
 """
 
@@ -83,6 +97,9 @@ import zlib
 from typing import Callable, NamedTuple
 
 import numpy as np
+
+from uniir_tpu_torch.data import zstd
+from uniir_tpu_torch.data.lab import lab_to_rgb
 
 PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00")
 MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)  # Image.open's decompression bomb limit
@@ -99,7 +116,8 @@ COMPRESSIONS = {1: "raw", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4"
                 7: "JPEG", 8: "Deflate", 32771: "raw (word-aligned)", 32773: "PackBits", 32809: "ThunderScan",
                 32946: "Deflate", 34676: "SGILog", 34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
                 32766: "NeXT", 34661: "JBIG", 34887: "LERC"}
-DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925)
+DECODED = (1, 2, 3, 4, 5, 7, 8, 32773, 32946, 34925, 50000)
+PREDICTED = (5, 8, 32946, 34925, 50000)  # the codecs that call libtiff's TIFFPredictorInit
 
 # TiffImagePlugin.OPEN_INFO: (photometric, sample format, fill order, bits per sample, extra samples) ->
 # (mode, raw mode), the same in both byte orders except where a key is given for one ("II" / "MM") only
@@ -156,7 +174,7 @@ MAX_SAMPLES = 6  # the longest bits-per-sample tuple of OPEN_INFO
 
 # bits of one pixel of the raw modes (Unpack.c) that are not 8 per band: 1, 2, 4 and 12-bit packed
 _BITS = {"1": 1, "1;I": 1, "1;R": 1, "1;IR": 1, "L;2": 2, "L;2I": 2, "L;2R": 2, "L;2IR": 2, "L;4": 4, "L;4I": 4,
-         "L;4R": 4, "L;4IR": 4, "P;1": 1, "P;1R": 1, "P;2": 2, "P;2R": 2, "P;4": 4, "P;4R": 4, "I;12": 12}
+         "L;4R": 4, "L;4IR": 4, "P;1": 1, "P;1R": 1, "P;2": 2, "P;2R": 2, "P;4": 4, "P;4R": 4, "I;12": 12, "L^": 8}
 
 
 def _raw_bits(rawmode: str) -> int:
@@ -313,8 +331,6 @@ def parse(data: bytes, name: str = "<bytes>") -> Tiff:
     if compression != 1 and data[2:4] in (b"\x00\x2a", b"\x2a\x00") and data[:4] not in PREFIXES[:2]:
         raise ValueError(f"{name}: a compressed TIFF under the header {data[:4]!r}, which libtiff refuses (bad "
                          "magic number)")
-    if mode == "LAB":
-        raise ValueError(f"{name}: a CIELAB TIFF is not supported (Pillow converts LAB through LittleCMS)")
     if width * height > MAX_PIXELS:
         raise ValueError(f"{name}: image of {width * height} pixels exceeds the decompression bomb limit")
     if compression != 1:  # libtiff: the fill order is undone before decoding
@@ -385,11 +401,11 @@ def unpack(rawmode: str, rows: np.ndarray, width: int) -> np.ndarray:
         hi = 1 if end == "L" or end == "N" else 0
         v = rows[:, : 2 * bands * width].reshape(n, width, bands, 2)[..., hi]
         return _premultiplied(v, base)
-    if rawmode in ("L", "L;I", "P"):
+    if rawmode in ("L", "L;I", "P", "L^"):  # L^: a LAB plane's a or b, stored offset by 128
         v = rows[:, :width]
-        return (255 - v if rawmode == "L;I" else v)[:, :, None]
+        return (255 - v if rawmode == "L;I" else v ^ 0x80 if rawmode == "L^" else v)[:, :, None]
     if rawmode in ("LA", "PA", "PX", "RGB", "RGBX", "RGBXX", "RGBXXX", "RGBA", "RGBa", "RGBaX", "RGBaXX", "RGBAX",
-                   "RGBAXX", "CMYK", "CMYKX", "CMYKXX"):
+                   "RGBAXX", "CMYK", "CMYKX", "CMYKXX", "LAB"):  # Pillow 12.1 keeps a TIFF's LAB bytes as they are
         bands = len(rawmode)
         v = rows[:, : bands * width].reshape(n, width, bands)
         return _premultiplied(v, rawmode)
@@ -433,6 +449,8 @@ def to_rgb(px: np.ndarray, mode: str, palette: np.ndarray = None) -> np.ndarray:
         nk = 255 - px[..., 3:4].astype(np.int64)
         t = px[..., :3].astype(np.int64) * nk + 128
         return (nk - (((t >> 8) + t) >> 8)).astype(np.uint8)
+    if mode == "LAB":
+        return lab_to_rgb(px[..., :3].astype(np.uint8))
     raise ValueError(f"mode {mode} is not supported")
 
 
@@ -638,6 +656,10 @@ class _FaxEOF(Exception):
 
 class _FaxError(Exception):
     """An error return of libtiff's decoders (a run array overflow)."""
+
+
+class _NoEOL(Exception):
+    """SYNC_EOL found 11 zeros but no 1 after them before the data ended (libtiff's noEOLFound)."""
 
 
 class _Fax:
@@ -852,7 +874,8 @@ class _Fax:
         self.cleanup()
 
     def sync_eol(self) -> None:
-        """SYNC_EOL: to and past the next EOL (searching for 11 zeros unless an EOL code was just read)."""
+        """SYNC_EOL: to and past the next EOL (searching for 11 zeros unless an EOL code was just read); _NoEOL
+        where the data ends before the EOL's 1."""
         if self.eol == 0:
             while True:
                 self.need(11, True)
@@ -860,7 +883,10 @@ class _Fax:
                     break
                 self.clr(1)
         while True:
-            self.need(8, False)
+            try:
+                self.need(8, False)
+            except _FaxEOF:
+                raise _NoEOL from None
             if self.get(8):
                 break
             self.clr(8)
@@ -877,34 +903,44 @@ class _Fax:
 
 
 def fax_runs(width: int, needs_ref: bool) -> tuple:
-    """libtiff's two run arrays (zeroed, as Fax3SetupState allocates them) and nruns (doubled where rows are
-    2-D coded)."""
+    """libtiff's two run arrays (zeroed, as Fax3SetupState allocates them), nruns (doubled where rows are 2-D
+    coded), and its mode bits, which FAXMODE_NOEOL joins for the rest of the image ([noeol])."""
     nruns = -(-(width + 1) // 32) * 32 * (2 if needs_ref else 1)
-    return [[0] * nruns, [0] * nruns], nruns
+    return [[0] * nruns, [0] * nruns], nruns, [False]
 
 
 def ccitt_decode(src: bytes, width: int, rows: int, compression: int, options: int, name: str,
                  runs: list = None) -> bytes:
-    """One strip as libtiff's Fax3DecodeRLE (2), Fax3Decode1D / Fax3Decode2D (3, by T4Options bit 0) and
+    """One strip as libtiff 4.7's Fax3DecodeRLE (2), Fax3Decode1D / Fax3Decode2D (3, by T4Options bit 0) and
     Fax4Decode (4) decode it: `rows` rows of 1-bit pixels (1 = black, MSB first, each row padded to a byte).
-    Bad code words and rows of the wrong length are patched up as libtiff does; a premature end of the data
-    raises (libtiff fails the strip), except that Fax4Decode keeps the rows it has decoded when it has
-    decoded any -- whole only when the row it stopped in is the strip's last; earlier it leaves later rows
-    unwritten, which raises here.  `runs` carries libtiff's run arrays from strip to strip."""
-    arrays, nruns = runs if runs is not None else fax_runs(width, compression == 4 or bool(compression == 3 and
-                                                                                        options & 1))
+    Bad code words and rows of the wrong length are patched up as libtiff does.  Where a Group 3 row's EOL
+    search runs out of data after its zeros (noEOLFound), libtiff retries without EOLs: FAXMODE_NOEOL is set for
+    the rest of the image and the strip is read again from its first bit (its retry label comes before
+    CACHE_STATE), the rows written on from the one it stopped at.  Any other premature end of the data raises
+    (libtiff fails the strip), except that Fax4Decode keeps the rows it has decoded when it has decoded any --
+    whole only when the row it stopped in is the strip's last; earlier it leaves later rows as Pillow's strip
+    buffer held them, uninitialised memory for the first strip, which raises UnsupportedImageFormat here.
+    `runs` carries libtiff's run arrays and mode from strip to strip."""
+    arrays, nruns, mode = runs if runs is not None else fax_runs(width, compression == 4 or bool(
+        compression == 3 and options & 1))
     fx = _Fax(src, arrays, nruns, width)
     arrays[fx.ref][0], arrays[fx.ref][1] = width, 0  # Fax3PreDecode: an all-white reference row
     out = []
     try:
-        for _ in range(rows):
+        while len(out) < rows:
             fx.start_row()
             try:
                 if compression == 2:
                     fx.expand_1d()
                     fx.clr(fx.avail & 7)
                 elif compression == 3:
-                    fx.sync_eol()
+                    if not mode[0]:
+                        try:
+                            fx.sync_eol()
+                        except _NoEOL:
+                            mode[0] = True
+                            fx.cp, fx.acc, fx.avail, fx.eol = 0, 0, 0, 0
+                            continue
                     if options & 1:
                         fx.need(1, False)
                         is_1d = fx.get(1)
@@ -921,6 +957,12 @@ def ccitt_decode(src: bytes, width: int, rows: int, compression: int, options: i
                     fx.cleanup()
                     out.append(fx.fill())
                     break
+                if compression == 4 and out:
+                    from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
+
+                    raise UnsupportedImageFormat(f"{name}: a Group 4 strip that ends at row {len(out)} of {rows}: "
+                                                 "libtiff leaves the later rows as Pillow's buffer held them, which "
+                                                 "the port does not know") from None
                 raise ValueError(f"{name}: CCITT data ends before the strip is full (premature EOF at row "
                                  f"{len(out)})") from None
             out.append(fx.fill())
@@ -992,7 +1034,7 @@ def _palette(t: Tiff, name: str) -> np.ndarray:
 
 def _bands(mode: str) -> int:
     return {"1": 1, "L": 1, "P": 1, "I;16": 1, "I;16B": 1, "I": 1, "F": 1, "LA": 2, "PA": 2, "RGB": 3,
-            "RGBA": 4, "CMYK": 4}[mode]
+            "RGBA": 4, "CMYK": 4, "LAB": 3}[mode]
 
 
 def _chunk_bytes(data: bytes, lay: _Layout, k: int, name: str) -> bytes:
@@ -1063,10 +1105,11 @@ def plan(data: bytes, t: Tiff, name: str, inflate: bool) -> Plan:
                                      "no unpacker)")
                 band = ("RGBA".index(rawmode.upper()) if t.mode in ("RGB", "RGBA") and rawmode in "RGBAa" else
                         "CMYK".index(rawmode) if t.mode == "CMYK" and rawmode in "CMYK" else
+                        "LAB".index(rawmode) if t.mode == "LAB" else
                         0 if rawmode in ("L", "P") else 1 if rawmode == "A" else 99)
                 if band >= _bands(t.mode):
                     band = -2  # a band the mode has not: read, not stored
-                rawmode = "L"
+                rawmode = "L^" if t.mode == "LAB" and band in (1, 2) else "L"
             x1, y1 = min(x + w, t.width), min(y + h, t.height)
             cw = x1 - x
             row_bytes = (cw * _raw_bits(rawmode) + 7) // 8
@@ -1093,14 +1136,18 @@ def plan(data: bytes, t: Tiff, name: str, inflate: bool) -> Plan:
     planar = t.planar == 2 and t.spp > 1
     planes = t.spp if planar else 1
     cw = lay.cw
+    units = ycbcr_units(t, name) if t.photometric == 6 and t.compression != 7 else None
+    if units:
+        return _unit_plan(data, t, lay, name, units, inflate, spec_of, rawmodes)
     if planar:
         for p in range(planes):
             _plane_rawmode(t, p, name)
         row_bytes = (cw * max(t.bps) + 7) // 8
-        plane_specs = [spec_of("L" if t.bps[p] == 8 else "L;16N") for p in range(planes)]
+        plane_specs = [spec_of("L^" if t.mode == "LAB" and p in (1, 2) else "L" if t.bps[p] == 8 else "L;16N")
+                       for p in range(planes)]
     else:
         row_bytes = (cw * sum(t.bps) + 7) // 8
-        whole = spec_of("RGB" if t.photometric == 6 else t.rawmode)
+        whole = spec_of("RGB" if t.photometric == 6 else t.rawmode)  # 1x1 YCbCr: Y, Cb, Cr as they stand
     across = -(-t.width // cw) if lay.tiled else 1
     down = -(-t.height // lay.ch)
     for p in range(planes):
@@ -1128,6 +1175,76 @@ def plan(data: bytes, t: Tiff, name: str, inflate: bool) -> Plan:
     return Plan(chunks, rawmodes, bytes(pre), premult)
 
 
+def subsampling(t: Tiff) -> tuple:
+    """YCbCrSubSampling as libtiff defaults it (2, 2)."""
+    sub = tuple(t.tags.get(YCBCRSUBSAMPLING, (2, 2)))
+    return sub if len(sub) == 2 else (sub + (2, 2))[:2]
+
+
+# TIFFRGBAImage's put routines for contiguous YCbCr by subsampling, and the bytes each skips for a data unit left
+# of a clipped tile's edge: 4x4 skips by the 4x2 unit's size (putcontig8bitYCbCr44tile's "(4 * 2 + 2)")
+_PUT_SKIP = {(4, 4): 10, (4, 2): 10, (4, 1): 6, (2, 2): 6, (2, 1): 4, (1, 2): 4}
+
+
+def ycbcr_units(t: Tiff, name: str):
+    """(horizontal, vertical) subsampling where libtiff's TIFFRGBAImage reads contiguous YCbCr in data units
+    (each h x v block's Y samples, then Cb and Cr), None for 1x1 (samples as they stand) and planes; ValueError
+    where TIFFRGBAImage has no put routine (Pillow: decoder error)."""
+    sub = subsampling(t)
+    if t.bps != (8, 8, 8):
+        raise ValueError(f"{name}: YCbCr with bits {t.bps} (TIFFRGBAImage reads 8-bit YCbCr only)")
+    if t.planar == 2:
+        if sub != (1, 1):
+            raise ValueError(f"{name}: YCbCr in separate planes with subsampling {sub} (TIFFRGBAImage "
+                             "reads planes at 1x1 only)")
+        return None
+    if sub == (1, 1):
+        return None
+    if sub not in _PUT_SKIP:
+        raise ValueError(f"{name}: YCbCr subsampling {sub} (TIFFRGBAImage has no put routine for it)")
+    return sub
+
+
+def _unit_plan(data: bytes, t: Tiff, lay: _Layout, name: str, sub: tuple, inflate: bool, spec_of, rawmodes) -> Plan:
+    """The chunks of subsampled contiguous YCbCr as TIFFRGBAImage reads them: a strip decoded to ceil(rows / v)
+    rows of data units (a tile to its whole height), only the bytes gtStripContig asks for (its rows rounded up to
+    v, times TIFFScanlineSize, which cuts an odd 4x4 unit row short; the rest of its buffer zeros); row r of units
+    `stride` bytes after row r - 1 (a clipped tile skips the units right of its edge as `_PUT_SKIP` says)."""
+    sh, sv = sub
+    unit = sh * sv + 2
+    if _predictor(t, name) != 1:
+        from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
+
+        raise UnsupportedImageFormat(f"{name}: YCbCr subsampled {sh}x{sv} with a predictor (libtiff undoes it over "
+                                     "TIFFScanlineSize rows of data units, which the port does not model)")
+    spec = spec_of(f"YCC;{sh}{sv}")
+    across = -(-t.width // lay.cw) if lay.tiled else 1
+    down = -(-t.height // lay.ch)
+    row_units = -(-lay.cw // sh) * unit  # the bytes of one row of data units (a tile's, or the image's)
+    chunks, pre = [], bytearray()
+    for j in range(down):
+        for i in range(across):
+            k = j * across + i
+            if k >= len(lay.offsets):
+                raise ValueError(f"{name}: TIFF has fewer strips or tiles than its size needs")
+            rows = lay.ch if lay.tiled else min(lay.ch, t.height - j * lay.ch)
+            full = row_units * -(-rows // sv)
+            size = full if lay.tiled else min(full, -(-rows // sv) * sv * (row_units // sv))
+            x0, y0 = i * lay.cw, j * lay.ch
+            vis = min(x0 + lay.cw, t.width) - x0
+            stride = -(-vis // sh) * unit + (lay.cw - vis) // sh * _PUT_SKIP[sub]
+            raw = _chunk_bytes(data, lay, k, name)
+            kind, off, count = 2, lay.offsets[k], len(raw)
+            if inflate and t.compression in (8, 32946, 34925):
+                if t.fillorder == 2:
+                    raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+                out = (deflate_decode if t.compression != 34925 else lzma_decode)(raw, size, name)
+                kind, off, count = 1, len(pre), size
+                pre += out[:size]
+            chunks.append([kind, off, count, x0, y0, vis, rows, stride, -1, spec, size, lay.cw])
+    return Plan(chunks, rawmodes, bytes(pre), False)
+
+
 def decode_twin(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a TIFF file (module docstring)."""
     return _decode(bytes(data), name, native=False)
@@ -1139,8 +1256,19 @@ def _pixels_twin(data: bytes, t: Tiff, name: str, p: Plan) -> np.ndarray:
     img = np.zeros((t.height, t.width, 3 if t.photometric == 6 else _bands(t.mode)), dtype)
     codec = _codec_for(t, name) if t.compression != 1 else None
     whole = np.frombuffer(data, np.uint8)
+
+    def pre_or_codec(kind: int, off: int, count: int, size: int, rows: int, cw: int) -> bytes:
+        return p.pre[off: off + size] if kind == 1 else codec(data[off: off + count], size, rows, cw)
+
     for kind, off, count, x0, y0, w, rows, stride, band, r, size, cw in p.chunks:
         rows = min(rows, t.height - y0)
+        if p.rawmodes[r].startswith("YCC;"):
+            sh, sv = int(p.rawmodes[r][4]), int(p.rawmodes[r][5])
+            dec = pre_or_codec(kind, off, count, size, rows, cw)
+            held = bytearray(_strip_buffer(t, name))  # gtStripContig's buffer, zeroed for each of Pillow's calls
+            held[: len(dec)] = dec
+            img[y0:y0 + rows, x0:x0 + w] = _units(held, sh, sv, stride, rows, w)
+            continue
         if kind == 0:
             rows_arr = np.lib.stride_tricks.as_strided(whole[off:], (rows, size), (stride, 1))
         else:
@@ -1154,17 +1282,38 @@ def _pixels_twin(data: bytes, t: Tiff, name: str, p: Plan) -> np.ndarray:
     return _premultiplied(img, "RGBa") if p.premult else img
 
 
+def _strip_buffer(t: Tiff, name: str) -> int:
+    """TIFFStripSize (TIFFTileSize) of subsampled YCbCr: the buffer TIFFRGBAImage decodes every strip into."""
+    sub = ycbcr_units(t, name) if is_rgba_image(t) else None
+    if not sub:
+        return 0
+    lay = _layout(t, name)
+    return -(-lay.cw // sub[0]) * (sub[0] * sub[1] + 2) * -(-lay.ch // sub[1])
+
+
+def _units(buf, sh: int, sv: int, stride: int, rows: int, width: int) -> np.ndarray:
+    """[rows, width, 3] Y, Cb, Cr of data units as TIFFRGBAImage's putcontig8bitYCbCr routines place them: each
+    pixel the Y of its place in its h x v block and the block's Cb and Cr."""
+    unit = sh * sv + 2
+    y, x = np.mgrid[0:rows, 0:width]
+    at = (y // sv) * stride + (x // sh) * unit
+    b = np.frombuffer(bytes(buf), np.uint8)
+    return np.stack([b[at + (y % sv) * sh + x % sh], b[at + sh * sv], b[at + sh * sv + 1]], axis=2)
+
+
 def _predictor(t: Tiff, name: str) -> int:
-    """The predictor libtiff undoes: only its LZW, Deflate and LZMA codecs call TIFFPredictorInit; the others
+    """The predictor libtiff undoes: only its LZW, Deflate, LZMA and ZSTD codecs call TIFFPredictorInit; the others
     ignore the tag."""
-    predictor = _one(t.tags, PREDICTOR, 1) if t.compression in (5, 8, 32946, 34925) else 1
+    predictor = _one(t.tags, PREDICTOR, 1) if t.compression in PREDICTED else 1
     sample_bits = t.bps[0]
     if predictor not in (1, 2, 3):
-        raise ValueError(f"{name}: TIFF predictor {predictor} is not supported")
+        raise ValueError(f"{name}: TIFF predictor {predictor} (libtiff's PredictorSetup refuses it)")
     if predictor == 2 and sample_bits not in (8, 16, 32):
-        raise ValueError(f"{name}: horizontal differencing with {sample_bits}-bit samples is not supported")
-    if predictor == 3 and sample_bits not in (16, 24, 32, 64):
-        raise ValueError(f"{name}: floating point predictor with {sample_bits}-bit samples is not supported")
+        raise ValueError(f"{name}: horizontal differencing with {sample_bits}-bit samples (libtiff's PredictorSetup "
+                         "refuses it)")
+    if predictor == 3 and (sample_bits not in (16, 24, 32, 64) or tuple(t.tags.get(SAMPLEFORMAT, (1,)))[0] != 3):
+        raise ValueError(f"{name}: floating point predictor with {sample_bits}-bit samples of sample format "
+                         f"{tuple(t.tags.get(SAMPLEFORMAT, (1,)))[0]} (libtiff's PredictorSetup refuses it)")
     return predictor
 
 
@@ -1188,6 +1337,8 @@ def _codec_for(t: Tiff, name: str):
             out = lzw_decode(raw, size, name)
         elif t.compression == 32773:
             out = packbits_decode(raw, size, name)
+        elif t.compression == 50000:
+            out = zstd.decode_stream(raw, size, name)
         elif t.compression in (2, 3, 4):
             options = _one(t.tags, T4OPTIONS, 0) or 0
             if fax is None:
@@ -1209,41 +1360,48 @@ def _codec_for(t: Tiff, name: str):
 
 def _jpeg_chunks(data: bytes, t: Tiff, name: str, native: bool) -> np.ndarray:
     """JPEG (7) strips or tiles: each an abbreviated stream completed by JPEGTables, decoded at libjpeg's
-    defaults, YCbCr converted to RGB only for contiguous photometric 6 (JPEGCOLORMODE_RGB)."""
+    defaults, YCbCr converted to RGB only for contiguous photometric 6 (JPEGCOLORMODE_RGB), each plane of
+    separate planes a one-component stream.  libtiff's source manager gives a fake EOI where a strip's data
+    ends, and its codec ignores errors past a single-scan frame's scan (`jpeg.parse`'s libtiff reading)."""
     from uniir_tpu_torch.data import jpeg
 
     tables = bytes(t.tags.get(JPEGTABLES, b""))
     if tables and (tables[:2] != b"\xff\xd8" or tables[-2:] != b"\xff\xd9"):
         raise ValueError(f"{name}: bad JPEGTables tag")
-    if t.planar == 2:
-        raise ValueError(f"{name}: JPEG-compressed TIFF with separate planes is not supported")
-    colour = "ycbcr" if t.photometric == 6 else "unknown"
+    planes = t.spp if t.planar == 2 and t.spp > 1 else 1
+    colour = "ycbcr" if t.photometric == 6 and planes == 1 else "unknown"
     decode = jpeg.decode_samples_native if native else jpeg.decode_samples
     lay = _layout(t, name)
     across = -(-t.width // lay.cw) if lay.tiled else 1
     down = -(-t.height // lay.ch)
     img = None
-    for j in range(down):
-        for i in range(across):
-            k = j * across + i
-            if k >= len(lay.offsets):
-                raise ValueError(f"{name}: TIFF has fewer strips or tiles than its size needs")
-            raw = _chunk_bytes(data, lay, k, name)
-            if raw[:2] != b"\xff\xd8":
-                raise ValueError(f"{name}: JPEG strip or tile {k} does not start with SOI")
-            stream = (tables[:-2] + raw[2:]) if tables else raw
-            rows = lay.ch if lay.tiled else min(lay.ch, t.height - j * lay.ch)
-            px = decode(stream, f"{name}: JPEG strip or tile {k}", colour)
-            if px.shape[0] < rows or px.shape[1] < lay.cw:
-                raise ValueError(f"{name}: JPEG strip or tile {k} is {px.shape[1]} x {px.shape[0]}, smaller than "
-                                 f"{lay.cw} x {rows}")
-            x0, y0 = i * lay.cw, j * lay.ch
-            x1, y1 = min(x0 + lay.cw, t.width), min(y0 + rows, t.height)
-            if img is None:
-                img = np.zeros((t.height, t.width, px.shape[2]), np.uint8)
-            if px.shape[2] != img.shape[2]:
-                raise ValueError(f"{name}: JPEG strips with different component counts")
-            img[y0:y1, x0:x1] = px[: y1 - y0, : x1 - x0]
+    for p in range(planes):
+        for j in range(down):
+            for i in range(across):
+                k = (p * down + j) * across + i
+                if k >= len(lay.offsets):
+                    raise ValueError(f"{name}: TIFF has fewer strips or tiles than its size needs")
+                raw = _chunk_bytes(data, lay, k, name)
+                if raw[:2] != b"\xff\xd8":
+                    raise ValueError(f"{name}: JPEG strip or tile {k} does not start with SOI")
+                stream = ((tables[:-2] + raw[2:]) if tables else raw) + b"\xff\xd9"
+                rows = lay.ch if lay.tiled else min(lay.ch, t.height - j * lay.ch)
+                px = decode(stream, f"{name}: JPEG strip or tile {k}", colour, libtiff=True)
+                if px.shape[0] < rows or px.shape[1] < lay.cw:
+                    raise ValueError(f"{name}: JPEG strip or tile {k} is {px.shape[1]} x {px.shape[0]}, smaller "
+                                     f"than {lay.cw} x {rows}")
+                x0, y0 = i * lay.cw, j * lay.ch
+                x1, y1 = min(x0 + lay.cw, t.width), min(y0 + rows, t.height)
+                if planes > 1 and px.shape[2] != 1:
+                    raise ValueError(f"{name}: JPEG plane {p} of {px.shape[2]} components")
+                if img is None:
+                    img = np.zeros((t.height, t.width, px.shape[2] * planes), np.uint8)
+                if planes > 1:
+                    img[y0:y1, x0:x1, p] = px[: y1 - y0, : x1 - x0, 0]
+                    continue
+                if px.shape[2] != img.shape[2]:
+                    raise ValueError(f"{name}: JPEG strips with different component counts")
+                img[y0:y1, x0:x1] = px[: y1 - y0, : x1 - x0]
     if t.rawmode == "RGB" or t.mode == "L":
         need = 3 if t.rawmode == "RGB" else 1
     else:
@@ -1294,26 +1452,50 @@ def ycbcr_tables(luma, ref):
 def _decode(data: bytes, name: str, native: bool) -> np.ndarray:
     t = parse(data, name)
     palette = _palette(t, name) if t.mode in ("P", "PA") else None
-    if t.compression == 7:
+    if t.compression == 7 and not is_rgba_image(t):
         return orient(to_rgb(_jpeg_chunks(data, t, name, native), t.mode, palette), t.orientation)
-    if t.photometric == 6:  # TIFFRGBAImage's YCbCr (1x1 subsampling, 8-bit samples)
-        if t.compression == 1:
-            raise ValueError(f"{name}: an uncompressed YCbCr TIFF, which Pillow cannot read (raw mode RGBX over "
-                             "three samples: image file is truncated)")
-        sub = tuple(t.tags.get(YCBCRSUBSAMPLING, (2, 2)))
-        if sub != (1, 1) or t.bps != (8, 8, 8) or t.planar != 1 or t.orientation not in (1, None):
-            raise ValueError(f"{name}: YCbCr TIFF with subsampling {sub}, bits {t.bps}, planar {t.planar}, "
-                             f"orientation {t.orientation} is not supported")
+    if is_rgba_image(t):
+        return _rgba_image(data, t, name, native)
     p = plan(data, t, name, inflate=native)
     if native:
         return _decode_native(data, t, name, p, palette)
-    px = _pixels_twin(data, t, name, p)
-    if t.photometric == 6:
-        y_tab, cr_r, cb_b, cr_g, cb_g = _ycc_of(t)
-        y, cb, cr = (px[..., k].astype(np.int64) for k in range(3))
-        rgb = np.stack([y_tab[y] + cr_r[cr], y_tab[y] + ((cb_g[cb] + cr_g[cr]) >> 16), y_tab[y] + cb_b[cb]], axis=2)
-        return np.clip(rgb, 0, 255).astype(np.uint8)
-    return orient(to_rgb(px, t.mode, palette), t.orientation)
+    return orient(to_rgb(_pixels_twin(data, t, name, p), t.mode, palette), t.orientation)
+
+
+def is_rgba_image(t: Tiff) -> bool:
+    """Whether Pillow reads the image through libtiff's TIFFRGBAImage: YCbCr under a codec other than JPEG, or
+    JPEG in separate planes (an uncompressed one goes through Pillow's own raw decoder, raw mode RGBX, no
+    conversion; contiguous JPEG through libjpeg's own conversion)."""
+    return t.photometric == 6 and t.compression != 1 and (t.compression != 7 or t.planar == 2)
+
+
+def _rgba_image(data: bytes, t: Tiff, name: str, native: bool) -> np.ndarray:
+    """RGB of YCbCr as TIFFRGBAImage gives it (data units or planes, libtiff's YCbCr -> RGB tables), then
+    Pillow's exif_transpose (TIFFRGBAImage itself flips nothing for Pillow).  Its reader carries on past a chunk that fails to decode (its buffer
+    as the failure left it), which the port does not model: such damage raises UnsupportedImageFormat, and only a
+    first chunk that cannot be read at all fails the file, as in Pillow."""
+    from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
+
+    ycbcr_units(t, name)
+    _predictor(t, name)
+    _chunk_bytes(data, _layout(t, name), 0, name)
+    try:
+        if t.compression == 7:  # JPEG planes, YCbCr 1x1 (ycbcr_units)
+            px = _jpeg_chunks(data, t, name, native)
+        else:
+            p = plan(data, t, name, inflate=native)
+            if native:
+                return _decode_native(data, t, name, p, None)  # converted and transposed there
+            px = _pixels_twin(data, t, name, p)
+    except UnsupportedImageFormat:
+        raise
+    except ValueError as err:
+        raise UnsupportedImageFormat(f"{name}: damaged YCbCr TIFF data, which libtiff's TIFFRGBAImage decodes on "
+                                     f"past ({str(err).removeprefix(name + ': ')})") from None
+    y_tab, cr_r, cb_b, cr_g, cb_g = _ycc_of(t)
+    y, cb, cr = (px[..., k].astype(np.int64) for k in range(3))
+    rgb = np.stack([y_tab[y] + cr_r[cr], y_tab[y] + ((cb_g[cb] + cr_g[cr]) >> 16), y_tab[y] + cb_b[cb]], axis=2)
+    return orient(np.clip(rgb, 0, 255).astype(np.uint8), t.orientation)
 
 
 def _ycc_of(t: Tiff) -> tuple:
@@ -1326,9 +1508,10 @@ def _ycc_of(t: Tiff) -> tuple:
 # --- the native decoder
 
 # csrc/tiff.cu's unpacking ops (`Op`) and conversions (`Mode`)
-_OP = {"packed": 0, "bytes": 1, "high16": 2, "u16": 3, "s16": 4, "s32": 5, "f32": 6, "u12": 7}
+_OP = {"packed": 0, "bytes": 1, "high16": 2, "u16": 3, "s16": 4, "s32": 5, "f32": 6, "u12": 7, "units": 8}
+# (LAB is unpacked natively, its samples kept as RGB, and converted by `lab_to_rgb` after the call)
 _NATIVE_MODE = {"1": 0, "L": 0, "LA": 0, "I;16": 1, "I;16B": 1, "I": 2, "F": 3, "P": 4, "PA": 4, "RGB": 5, "RGBA": 5,
-                "CMYK": 6}
+                "CMYK": 6, "LAB": 5}
 _SINGLE = {"I;16": ("u16", 0), "I;16N": ("u16", 0), "I;16B": ("u16", 1), "I;16S": ("s16", 0), "I;16BS": ("s16", 1),
            "I;32N": ("s32", 0), "I;32S": ("s32", 0), "I;32BS": ("s32", 1), "F;32F": ("f32", 0),
            "F;32BF": ("f32", 1), "I;12": ("u12", 0)}
@@ -1337,6 +1520,9 @@ _SINGLE = {"I;16": ("u16", 0), "I;16N": ("u16", 0), "I;16B": ("u16", 1), "I;16S"
 def native_spec(rawmode: str) -> list:
     """csrc/tiff.cu's Spec of one of Pillow's raw modes, as `unpack` reads it: op, bits of a pixel, input bands,
     the kept bands (4 bits each, 15 ends), invert, bit-reversed bytes, big-endian, RGBa, scale."""
+    if rawmode.startswith("YCC;"):  # data units: h, v, the unit's bytes
+        sh, sv = int(rawmode[4]), int(rawmode[5])
+        return [_OP["units"], sh, sv, 0xFFFF, 0, 0, 0, 0, sh * sv + 2]
     reverse = rawmode in _BIT_REVERSED
     raw = _BIT_REVERSED.get(rawmode, rawmode)
     bits = _raw_bits(raw)
@@ -1347,6 +1533,8 @@ def native_spec(rawmode: str) -> list:
         op, big = _SINGLE[raw]
         return [_OP[op], bits, 1, 0xFFF0, 0, int(reverse), big, 0, 1]
     base, _, size = raw.partition(";")
+    if raw == "L^":  # invert 2: the sign bit flipped
+        return [_OP["bytes"], 8, 1, 0xFFF0, 2, 0, 0, 0, 1]
     if base in ("L", "P") and size in ("", "I"):
         return [_OP["bytes"], 8, 1, 0xFFF0, int(size == "I"), int(reverse), 0, 0, 1]
     keep = [i for i, c in enumerate(base) if c != "X"][:4]
@@ -1359,7 +1547,7 @@ def _decode_native(data: bytes, t: Tiff, name: str, p: Plan, palette) -> np.ndar
     from uniir_tpu_torch import _build
 
     lib = _build.load("tiff")
-    if t.photometric == 6:
+    if is_rgba_image(t):
         ycc = np.concatenate(_ycc_of(t)).astype(np.int64)
         mode, storage, bands = 7, 0, 3
     else:
@@ -1374,7 +1562,7 @@ def _decode_native(data: bytes, t: Tiff, name: str, p: Plan, palette) -> np.ndar
     orientation = t.orientation if t.orientation in range(2, 9) else 1
     params = np.array([t.width, t.height, bands, storage, mode, t.compression, _one(t.tags, T4OPTIONS, 0) or 0,
                        predictor, t.fillorder, swap, 1 if t.planar == 2 else t.spp, max(sample_bits // 8, 1),
-                       orientation, int(p.premult)], np.int32)
+                       orientation, int(p.premult), _strip_buffer(t, name)], np.int32)
     chunk_arr = np.array(p.chunks, np.int64).reshape(-1, len(CHUNK_FIELDS))
     spec_arr = np.array([native_spec(r) for r in p.rawmodes], np.int32).reshape(-1, 9)
     palette = palette.tobytes() if palette is not None else bytes(768)
@@ -1384,8 +1572,13 @@ def _decode_native(data: bytes, t: Tiff, name: str, p: Plan, palette) -> np.ndar
     if lib.uniir_tiff_decode(data, len(data), chunk_arr.ctypes.data, len(chunk_arr), spec_arr.ctypes.data,
                              len(spec_arr), params.ctypes.data, p.pre, len(p.pre), palette, ycc.ctypes.data,
                              out.ctypes.data, err, len(err)) != 0:
-        raise ValueError(f"{name}: {err.value.decode()}")
-    return out
+        msg = err.value.decode()
+        if msg.startswith("unsupported: "):
+            from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
+
+            raise UnsupportedImageFormat(f"{name}: {msg.removeprefix('unsupported: ')}")
+        raise ValueError(f"{name}: {msg}")
+    return lab_to_rgb(out) if t.mode == "LAB" else out
 
 
 def decode_native(data: bytes, name: str = "<bytes>") -> np.ndarray:
