@@ -20,7 +20,10 @@
    pixels or the exception raised, the twin's; Pillow's digests of the
    stored ZSTD / CIELAB / YCbCr / cut-CCITT / JPEG-strip files) and the
    native ZSTD decoder over 200 seeded frames (`zstd_bytes`: whole, cut,
-   flipped) in both its readings, printing their images/s on one thread
+   flipped) in both its readings, the native JPEG decoder on the
+   damaged-JPEG corpus and its seeded derivatives (damaged lossless SOF3
+   scans among them), subsampled YCbCr TIFFs predicted or with a strip
+   damaged, and FTEX's BC1 blocks through csrc/bcn.cu, printing their images/s on one thread
    and on the loader's threads (JPEG 2000's at 640 x 480 and 1920 x 1080,
    on 1 and 16; TIFF's ZSTD levels 3 / 19, CIELAB and 2 x 2 YCbCr at
    640 x 480 on one);
@@ -144,7 +147,8 @@
    twins, and one request each of one PNG, one GIF, one BMP, one CMYK JPEG,
    one lossy WebP and one lossless WebP (with alpha) image query and one
    each of an LZW TIFF, a ZSTD TIFF, an arithmetic JPEG, an RLE TGA, a QOI,
-   a BC7 DDS, a PackBits PSD, a lossless JP2 and an irreversible J2K file (the native
+   a BC7 DDS, a PackBits PSD, a lossless JP2, an irreversible J2K file and
+   an FTEX file of BC1 blocks (the native
    PNG / GIF / JPEG / WebP / TIFF / JPEG 2000 decoders and
    the native stages of csrc/raster.cu and csrc/bcn.cu -- BMP has one
    decoder, numpy --, K1, K2) held
@@ -219,7 +223,7 @@
    a comment, lossless WebP, CMYK JPEG, ICO, PPM / PGM; a truncated JPEG, an
    HTML error page under a .jpg name, a JP2 file under a .jpg name (which the
    pass converts), a PSD file no reader identifies under a
-   .png name and a BLP file under a .jpg name), then each converter's CLI with every step
+   .png name and an EPS file under a .jpg name), then each converter's CLI with every step
    (`--enable_image_processing`, the candidate pool, the conversion, the
    training pool) and the union generator's (union pools, the union train
    split, task ids, qrels), each a process of its own on the card's default
@@ -227,7 +231,7 @@
    encoder to Pillow 12.1's digests of a fixed set and every file the CLIs
    wrote (the JPEG files of the image pass, every JSON-lines file) to the
    same mains run in this process through the twins (`--device cpu`), the
-   truncated file, the HTML page and the PSD file deleted, the BLP file left in
+   truncated file, the HTML page and the PSD file deleted, the EPS file left in
    place and all four counted, each
    pass's native decodes and encodes counted in its workers; times the image
    pass on one process by stage (decode, comment, resize, encode, write: the
@@ -408,8 +412,9 @@ TIFF_CASE_FORMS = {
 ZSTD_FORMS = ("raw_blocks", "rle_blocks", "lz_raw", "lz_huffman1", "lz_huffman4", "lz_rle_tables", "lz_repeat",
               "frames_skippable")
 
-# the TIFF forms of ZSTD, CIELAB, subsampled YCbCr and CCITT strips that end early, DECODER_CASES files of each
-# kind: (samples kind, tiff_bytes keywords; "flip": a byte of a strip flipped)
+# the TIFF forms of ZSTD, CIELAB, subsampled YCbCr (predicted, and damaged strips TIFFRGBAImage reads on past) and
+# CCITT strips that end early, DECODER_CASES files of each kind: (samples kind, tiff_bytes keywords; "flip": a
+# byte of a strip flipped)
 TIFF_KINDS = {
     "tiff_zstd": {**{f"zstd_{f}": ("rgb", dict(photometric=2, compression=50000, zstd_form=f, rows_per_strip=16))
                      for f in ZSTD_FORMS[:-1]},
@@ -430,7 +435,21 @@ TIFF_KINDS = {
                                                            orientation=7, rows_per_strip=4)),
                    "ycbcr44_strips_c50000": ("rgb", dict(photometric=6, compression=50000, subsampling=(4, 4),
                                                          rows_per_strip=6)),
-                   "ycbcr11_planar_c5": ("rgb", dict(photometric=6, compression=5, planar=2))},
+                   "ycbcr11_planar_c5": ("rgb", dict(photometric=6, compression=5, planar=2)),
+                   "ycbcr22_predictor2_c5": ("rgb", dict(photometric=6, compression=5, subsampling=(2, 2), predictor=2,
+                                                         rows_per_strip=8)),
+                   "ycbcr21_predictor2_tiles_c8": ("rgb", dict(photometric=6, compression=8, subsampling=(2, 1),
+                                                               predictor=2, tile=(16, 16))),
+                   "ycbcr42_predictor2_c50000": ("rgb", dict(photometric=6, compression=50000, subsampling=(4, 2),
+                                                             predictor=2, rows_per_strip=6)),
+                   "ycbcr22_flip_c5": ("rgb", dict(photometric=6, compression=5, subsampling=(2, 2), rows_per_strip=8,
+                                                   flip=True)),
+                   "ycbcr42_cut_c8": ("rgb", dict(photometric=6, compression=8, subsampling=(4, 2), predictor=2,
+                                                  rows_per_strip=10, cut=0.7)),
+                   "ycbcr12_cut_c32773": ("rgb", dict(photometric=6, compression=32773, subsampling=(1, 2),
+                                                      rows_per_strip=6, cut=0.8)),
+                   "ycbcr44_flip_c50000": ("rgb", dict(photometric=6, compression=50000, subsampling=(4, 4),
+                                                       rows_per_strip=8, flip=True))},
     "tiff_ccitt": {"g3_cut": ("bilevel", dict(photometric=0, compression=3, bits=1, rows_per_strip=9, cut=0.6)),
                    "g3_fill_cut": ("bilevel", dict(photometric=1, compression=3, bits=1, t4options=4, cut=0.8,
                                                    rows_per_strip=17)),
@@ -672,17 +691,18 @@ class RasterNative:
 
 RASTER_SIZE = (640, 480)  # COCO's size, at which a Python loop over a file's bytes costs seconds
 
-# the PSD, DDS and ICNS forms: PSD's raw forms are numpy on both paths (no native stage), the others run one
-# entry of csrc/raster.cu (PSD's PackBits, ICNS's RLE) or csrc/bcn.cu (DDS) a file
+# the PSD, DDS, ICNS and FTEX forms: PSD's and FTEX's raw forms are numpy on both paths (no native stage), the
+# others run one entry of csrc/raster.cu (PSD's PackBits, ICNS's RLE) or csrc/bcn.cu (DDS, FTEX's BC1) a file
 CONTAINER_CASE_FORMS = ("psd_rgb_raw", "psd_rgb_rle", "psd_cmyk_raw", "psd_cmyk_rle", "psd_p_raw", "psd_p_rle",
-                        "dds_bc1", "dds_bc3", "dds_bc5", "dds_bc6h", "dds_bc7", "dds_rgb_masks", "icns_rle")
+                        "dds_bc1", "dds_bc3", "dds_bc5", "dds_bc6h", "dds_bc7", "dds_rgb_masks", "icns_rle",
+                        "ftex_bc1", "ftex_rgb_raw")
 
 
 def container_case(form: str, rng, w: int, h: int) -> bytes:
     """A seeded file of `form` (CONTAINER_CASE_FORMS) at w x h (an ICNS file at the RLE size nearest w): PSD
     planes of samples in runs and noise, with an image resource and a layer section half the time; DDS
     blocks of seeded bits (`bc_blocks`), or 16 / 24 / 32-bit pixels under seeded masks; ICNS RLE channels
-    and a mask."""
+    and a mask; FTEX BC1 blocks of seeded bits or packed RGB."""
     img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
     img = np.where(rng.random((h, w, 1)) < 0.6, img[:, :1], img)
     img = np.where(rng.random((h, 1, 1)) < 0.3, img[:1], img).astype(np.uint8)
@@ -696,6 +716,9 @@ def container_case(form: str, rng, w: int, h: int) -> bytes:
         palette = rng.bytes(768) if mode == "p" else b""
         return psd_bytes(np.ascontiguousarray(planes), mode.upper(), compression=int(coding == "rle"),
                          palette=palette, **extra)
+    if form.startswith("ftex"):
+        return ftex_bytes(w, h, 0, bc_blocks("bc1", rng, w, h)) if form == "ftex_bc1" else \
+            ftex_bytes(w, h, 1, img[..., :3].tobytes())
     if form == "icns_rle":
         s = min(ICNS_RLE_TYPES, key=lambda t: abs(t - w))
         plane = np.ascontiguousarray(np.resize(img[..., :3], (s, s, 3)))
@@ -1048,7 +1071,8 @@ JPEG_DAMAGE_CASES = 240  # seeded derivatives of the corpus's clean files, held 
 JPEG_CLEAN_RATE_FILE = "clean_vga_420.jpg"  # 640 x 480 baseline 4:2:0, Pillow's quality 85
 JPEG_DAMAGE_RATE_FILES = ("vga_420_flips.jpg", "vga_420_zeros.jpg", "vga_restart_rst_missing.jpg",
                           "hd_420_flips_zeros.jpg")
-JPEG_DAMAGE_QUERY = "vga_420_flips.jpg"  # phase 10's damaged query
+# phase 10's damaged query: a small one (the 640 x 480 file's Python twin took ~4 s of phase 10; it is timed above)
+JPEG_DAMAGE_QUERY = "b420_flip.jpg"
 
 
 def jpeg_damage_corpus() -> dict:
@@ -1147,16 +1171,23 @@ def check_jpeg_damage(cases: list, threads: int, smi: str) -> None:
                                           f"{got[:100]}")
     log(f"decoder phase: native JPEG on the damaged corpus: {len(corpus) - refused} files to Pillow's digests, "
         f"{refused} refused as Pillow refuses them")
-    differ = []
+    differ, sources = [], jpeg_damage_sources()
+    lossless = [k for k in range(len(cases)) if "lossless" in sources[k // len(JPEG_DAMAGE_KINDS) % len(sources)]]
     for k, (data, want) in enumerate(cases):
+        calls = jpeg.decode_native.calls
         got = image_outcome(data, f"jpeg damage case {k}", "cuda")
         if got != want:
             differ.append((k, want[:80], got[:80]))
+        if k in lossless and ":" not in got:
+            check(jpeg.decode_native.calls > calls, f"decoder phase: damaged lossless case {k} decoded without a "
+                                                    "native call")
     check(not differ, f"decoder phase: native JPEG differs from its twin on damaged derivatives {differ[:3]}")
     refused = sum(":" in want for _, want in cases)
+    lossless_decoded = sum(":" not in cases[k][1] for k in lossless)
+    check(lossless_decoded > 0, "decoder phase: no damaged lossless (SOF3) derivative decoded natively")
     log(f"decoder phase: native JPEG equal to its twin on {len(cases)} seeded damaged derivatives of "
-        f"{len(jpeg_damage_sources())} clean files up to 96 px ({refused} refused alike, {len(cases) - refused} "
-        "decoded to the same pixels)")
+        f"{len(sources)} clean files up to 96 px ({refused} refused alike, {len(cases) - refused} "
+        f"decoded to the same pixels; {len(lossless)} of lossless SOF3 files, {lossless_decoded} decoded)")
     for name in (JPEG_CLEAN_RATE_FILE,) + JPEG_DAMAGE_RATE_FILES:
         data = (JPEG_DAMAGE_CORPUS / name).read_bytes()
         h, w = corpus[name]["shape"][:2]
@@ -3534,7 +3565,7 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
 TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi",
-               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged", "tiff_zstd")
+               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged", "tiff_zstd", "ftex_bc1")
 # phase 10's JPEG 2000 queries: files of the stored corpus (no JPEG 2000 writer here)
 JPEG2000_QUERIES = {"jp2_lossless": "11_rlcp.jp2", "j2k_irreversible": "53_style_bypass_irreversible.j2k"}
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
@@ -3544,7 +3575,8 @@ def swapped_decoders():
     """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call),
     each file's bytes decoded once: the loader pads a one-query batch by repeating its row, and the numpy
     twins would decode the same bytes to the same pixels BATCH times.  Call the result to swap them back."""
-    from uniir_tpu_torch.data import dds, gif, icns, jpeg, jpeg2000, msp, pcx, png, psd, qoi, sgi, sun, tga, tiff, webp
+    from uniir_tpu_torch.data import dds, ftex, gif, icns, jpeg, jpeg2000, msp, pcx, png, psd, qoi, sgi, sun, tga, tiff
+    from uniir_tpu_torch.data import webp
 
     def decoded_once(twin):
         pixels = {}
@@ -3557,7 +3589,7 @@ def swapped_decoders():
         return decode
 
     saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp, qoi, tga, sgi, pcx, sun, msp, dds, icns, psd,
-                                          jpeg2000)]
+                                          jpeg2000, ftex)]
     for module, _ in saved:
         module.decoder_for = lambda device, twin=decoded_once(module.decode_twin): twin
 
@@ -3573,8 +3605,9 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
     lossy WebP, a lossless WebP with alpha, an LZW TIFF, a ZSTD TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
     QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD, a lossless JP2 or an irreversible J2K file of the
-    stored corpus, or a damaged 640 x 480 JPEG of the damaged-JPEG corpus) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF / JPEG
-    2000, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS; BMP has one decoder), K1, K2; held to
+    stored corpus, a damaged 4:2:0 JPEG of the damaged-JPEG corpus, or an FTEX file of BC1 blocks
+    (`dxt1_encode`)) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF / JPEG
+    2000, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS and FTEX; BMP has one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
     from uniir_tpu_torch.data import gif, jpeg, jpeg2000, tiff, webp
@@ -3588,7 +3621,8 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
               "webp_lossless_alpha": webp.decode_native, "tiff": tiff.decode_native, "tiff_zstd": tiff.decode_native,
               "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative(),
               "dds_bc7": ContainerNative(), "psd_rle": ContainerNative(), "jp2_lossless": jpeg2000.decode_native,
-              "j2k_irreversible": jpeg2000.decode_native, "jpeg_damaged": jpeg.decode_native}.get(form)
+              "j2k_irreversible": jpeg2000.decode_native, "jpeg_damaged": jpeg.decode_native,
+              "ftex_bc1": ContainerNative()}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -5346,8 +5380,10 @@ def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, o
     `fillorder` 2 (each compressed byte's bits reversed), `orientation`, ExtraSamples `extra` and a ColorMap of
     3 * 2^bits 16-bit values.  YCbCr samples (photometric 6) under another codec than JPEG are packed in
     `subsampling` = (horizontal, vertical) data units (each block's Y samples, then its top-left pixel's Cb and
-    Cr); `tags`: more IFD entries, tag -> (type, values); `cut`: each strip's or tile's byte count cut to that
-    share of it (its bytes all still in the file: a strip that ends early)."""
+    Cr), differenced by `predictor` 2 as libtiff's PredictorEncodeTile does it (every third byte, over rows of
+    TIFFScanlineSize / TIFFTileRowSize bytes where those are whole 3-byte strides); `tags`: more IFD entries,
+    tag -> (type, values); `cut`: each strip's or tile's byte count cut to that share of it (its bytes all
+    still in the file: a strip that ends early)."""
     e = "<" if order == "II" else ">"
     samples = samples if samples.ndim == 3 else samples[:, :, None]
     h, w, spp = samples.shape
@@ -5376,8 +5412,14 @@ def tiff_bytes(samples: np.ndarray, photometric: int, *, compression: int = 1, o
             pad = np.zeros((br * sv, bc * sh, 3), dt)
             pad[:rows, :cols] = block
             ys = pad[..., 0].reshape(br, sv, bc, sh).transpose(0, 2, 1, 3).reshape(br, bc, sv * sh)
-            units = np.concatenate([ys, pad[::sv, ::sh, 1:3]], axis=2)
-            return units.astype(np.uint8).tobytes()
+            units = np.concatenate([ys, pad[::sv, ::sh, 1:3]], axis=2).astype(np.uint8).tobytes()
+            rowsize = tw * 3 if tile else -(-w // sh) * (sh * sv + 2) // sv  # libtiff's PredictorSetup rows
+            if predictor == 2 and rowsize % 3 == 0:  # horDiff8 over whole rows of 3-byte strides
+                n = len(units) // rowsize * rowsize
+                a = np.frombuffer(units[:n], np.uint8).reshape(-1, rowsize // 3, 3).astype(np.int64)
+                d = np.concatenate([a[:, :1], np.diff(a, axis=1)], axis=1) & 0xFF
+                units = d.astype(np.uint8).tobytes() + units[n:]
+            return units
         if bits < 8:
             packed = np.packbits(np.unpackbits(block.astype(np.uint8).reshape(rows, cols * n, 1), axis=2)[:, :, 8 - bits:]
                                  .reshape(rows, -1), axis=1)
@@ -6109,6 +6151,82 @@ def bc7_mode6(image: np.ndarray) -> bytes:
             bits[:, at + j] = (v >> j) & 1
         at += width
     return np.packbits(bits, axis=1, bitorder="little").tobytes()
+
+
+def dxt1_encode(image: np.ndarray) -> bytes:
+    """DXT1 (BC1) blocks of uint8 [H, W, 3], rows of 4 x 4 blocks (edges padded by replication): each block's
+    brightest and darkest pixels as its two 5-6-5 colours (colour 0 the larger, the four-colour form), every
+    pixel the nearest of the four colours."""
+    h, w = image.shape[:2]
+    img = np.pad(image.astype(np.int64), ((0, -h % 4), (0, -w % 4), (0, 0)), mode="edge")
+    bh, bw = img.shape[0] // 4, img.shape[1] // 4
+    px = img.reshape(bh, 4, bw, 4, 3).transpose(0, 2, 1, 3, 4).reshape(bh, bw, 16, 3)
+    luma = px @ np.array([2, 4, 1])
+    hi = np.take_along_axis(px, luma.argmax(-1)[..., None, None], -2)[..., 0, :]
+    lo = np.take_along_axis(px, luma.argmin(-1)[..., None, None], -2)[..., 0, :]
+    c0 = (hi[..., 0] >> 3) << 11 | (hi[..., 1] >> 2) << 5 | hi[..., 2] >> 3
+    c1 = (lo[..., 0] >> 3) << 11 | (lo[..., 1] >> 2) << 5 | lo[..., 2] >> 3
+    c0, c1 = np.maximum(c0, c1), np.minimum(c0, c1)
+    c0 = np.where(c0 == c1, np.minimum(c0 + 1, 0xFFFF), c0)
+    c1 = np.where(c0 == c1, c1 - 1, c1)
+
+    def rgb(c):
+        return np.stack([(c >> 11 & 31) << 3, (c >> 5 & 63) << 2, (c & 31) << 3], -1)
+
+    p0, p1 = rgb(c0), rgb(c1)
+    table = np.stack([p0, p1, (2 * p0 + p1) // 3, (p0 + 2 * p1) // 3], -2)  # [bh, bw, 4, 3]
+    idx = ((px[..., None, :] - table[..., None, :, :]) ** 2).sum(-1).argmin(-1)  # [bh, bw, 16]
+    bits = (idx << (2 * np.arange(16))).sum(-1)
+    out = np.stack([c0 & 255, c0 >> 8, c1 & 255, c1 >> 8] + [bits >> (8 * k) & 255 for k in range(4)], -1)
+    return out.astype(np.uint8).tobytes()
+
+
+def ftex_bytes(w: int, h: int, fmt: int, mip: bytes, *, formats: int = 1, where: int = 32,
+               length: int = None) -> bytes:
+    """An FTEX file (Pillow's FtexImagePlugin): "FTEX", version 1, the size, one mipmap of `formats` formats,
+    format `fmt` (0: BC1 blocks, 1: packed RGB) at `where`, there its length (`length`, or the mip's) and
+    bytes."""
+    head = b"FTEX" + struct.pack("<i2i2i2i", 1, w, h, 1, formats, fmt, where)
+    return head + bytes(max(0, where - len(head))) + struct.pack("<i", len(mip) if length is None else length) + mip
+
+
+BLP_FORMS = ("blp1_jpeg", "blp1_palette", "blp2_palette", "blp2_dxt1", "blp2_dxt1_alpha", "blp2_dxt3", "blp2_dxt5")
+
+
+def blp_bytes(form: str, image: np.ndarray, rng) -> bytes:
+    """A BLP file of `form` (BLP_FORMS) for uint8 [H, W, 3] `image`, as Pillow's BlpImagePlugin reads it: BLP1
+    a JPEG (this script's writer, its header up to the scan kept apart from the mipmap, the mipmap's offset
+    past a seeded gap) or 256 BGRA palette entries and indices (encoding 4); BLP2 (compression 1) palette
+    indices (encoding 1) or DXT blocks (encoding 2, alpha encoding 0 / 1 / 7; DXT1 of the image, DXT3 / DXT5
+    seeded bits).  Palette forms quantise the image to a seeded palette; alpha forms set the alpha flag."""
+    h, w = image.shape[:2]
+    blp1 = form.startswith("blp1")
+    alpha = form in ("blp2_dxt1_alpha", "blp2_dxt3", "blp2_dxt5", "blp1_palette")
+    palette = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+    extra = b""
+    if form == "blp1_jpeg":
+        jpg = jpeg_bytes(image, 85)
+        sos = jpg.index(b"\xff\xda")
+        extra, mip = struct.pack("<I", sos) + jpg[:sos] + bytes(int(rng.integers(0, 5))), jpg[sos:]
+    elif form.endswith("palette"):
+        rgb = palette[:, [2, 1, 0]].astype(np.int64)
+        dist = ((image.reshape(-1, 1, 3).astype(np.int64) - rgb[None]) ** 2).sum(-1)
+        extra, mip = palette.tobytes(), dist.argmin(-1).astype(np.uint8).tobytes()
+    else:
+        n = ((w + 3) // 4) * ((h + 3) // 4)
+        extra = palette.tobytes()
+        mip = dxt1_encode(image) if "dxt1" in form else rng.integers(0, 256, n * 16, dtype=np.uint8).tobytes()
+    base = 28 if blp1 else 20
+    offset = 0 if form == "blp1_palette" else base + 128 + len(extra)  # BLP1's indices follow the palette
+    if blp1:
+        jpg = form == "blp1_jpeg"
+        head = b"BLP1" + struct.pack("<iIIIii", 0 if jpg else 1, int(alpha), w, h, 0 if jpg else 4, 0)
+    else:
+        enc, aenc = (1, 0) if form == "blp2_palette" else (2, {"dxt3": 1, "dxt5": 7}.get(form[-4:], 0))
+        head = b"BLP2" + struct.pack("<ibbbbII", 1, enc, 8 if alpha else 0, aenc, 0, w, h)
+    offsets = struct.pack("<16I", offset, *([0] * 15))
+    lengths = struct.pack("<16I", len(mip), *([0] * 15))
+    return head + offsets + lengths + extra + mip
 
 
 def icns_rle(plane: bytes) -> bytes:
@@ -8271,7 +8389,7 @@ def fixture_image(seed: int) -> np.ndarray:
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
 FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
                "tiff": "tif", "tiff_zstd": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd", "jp2_lossless": "jp2",
-               "j2k_irreversible": "j2k"}
+               "j2k_irreversible": "j2k", "ftex_bc1": "ftc"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -8300,8 +8418,9 @@ def fixture_file(form: str, seed: int) -> bytes:
     horizontal predictor, 32 x 32 tiles, big-endian), `tiff_zstd` (ZSTD strips, the horizontal predictor),
     `jpeg_arith` (arithmetic-coded, libjpeg's simple
     progression, quality 90), `tga_rle` (24-bit RLE, bottom-up), `qoi` (RGB), `dds_bc7` (BC7 mode 6 blocks,
-    `bc7_mode6`), `psd_rle` (RGB, PackBits rows), the JPEG 2000 files of JPEG2000_QUERIES (the stored
-    corpus's) and `jpeg_damaged` (JPEG_DAMAGE_QUERY of the damaged-JPEG corpus)."""
+    `bc7_mode6`), `psd_rle` (RGB, PackBits rows), `ftex_bc1` (FTEX of BC1 blocks, `dxt1_encode`), the JPEG
+    2000 files of JPEG2000_QUERIES (the stored corpus's) and `jpeg_damaged` (JPEG_DAMAGE_QUERY of the
+    damaged-JPEG corpus)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     if form in JPEG2000_QUERIES:
@@ -8325,6 +8444,8 @@ def fixture_file(form: str, seed: int) -> bytes:
         return dds_bytes(bc7_mode6(img), img.shape[1], img.shape[0], dxgi=98)
     if form == "psd_rle":
         return psd_bytes(np.ascontiguousarray(img.transpose(2, 0, 1)), "RGB", compression=1)
+    if form == "ftex_bc1":
+        return ftex_bytes(img.shape[1], img.shape[0], 0, dxt1_encode(img))
     if form.startswith("webp"):
         alpha = np.random.default_rng(seed).integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)
         kind, image = {"webp_lossy": ("lossy", img), "webp_lossless_alpha": ("lossless", np.concatenate([img, alpha], 2)),
@@ -9104,8 +9225,8 @@ def ico_bytes(image: np.ndarray, seed: int) -> bytes:
 def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
     """The bytes of one raw image file of `form` (P13_FORMS, or `truncated`: a baseline JPEG cut in its scan,
     `garbage`: an HTML error page, which no image reader identifies, `psd`: a PSD header of no mode Pillow
-    reads and noise after it, which no reader identifies either, `blp`: a format the port does not decode
-    yet, a BLP2 header of an encoding Pillow's decoder refuses and noise after it, `jp2`: a JPEG 2000 file of
+    reads and noise after it, which no reader identifies either, `eps`: a format the port does not decode,
+    an EPS header and noise after it (Pillow identifies it and, without Ghostscript, cannot load it), `jp2`: a JPEG 2000 file of
     the stored corpus, P13_JP2, `tiff_zstd`: ZSTD strips with the horizontal predictor)."""
     if form == "progressive":  # Pillow-made files of their own size
         return base64.b64decode(PROGRESSIVE_FILES[sorted(PROGRESSIVE_FILES)[seed % 3]][0])
@@ -9115,9 +9236,9 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
         body = np.random.default_rng(seed).integers(0, 256, 64, dtype=np.uint8).tobytes()
         return b"8BPS\x00\x01" + bytes(6) + (3).to_bytes(2, "big") + h.to_bytes(4, "big") + w.to_bytes(4, "big") \
             + (7).to_bytes(2, "big") + (3).to_bytes(2, "big") + body
-    if form == "blp":
+    if form == "eps":
         body = np.random.default_rng(seed).integers(0, 256, 256, dtype=np.uint8).tobytes()
-        return b"BLP2" + struct.pack("<i4BII", 1, 9, 0, 0, 0, w, h) + body
+        return b"%%!PS-Adobe-3.0 EPSF-3.0\n%%%%BoundingBox: 0 0 %d %d\n%%%%EndComments\n" % (w, h) + body
     if form == "jp2":  # no JPEG 2000 writer here: a 640 x 480 file of the stored corpus
         return (JPEG2000_CORPUS / P13_JP2).read_bytes()
     if form == "tiff_zstd":
@@ -9173,7 +9294,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     written in P13_FORMS' forms at the sources' sizes times `side` (COCO's 640 x 480 and 500 x 375 kinds, up
     to 1600 px for OVEN / InfoSeek), by `pool`'s workers if given.  MSCOCO also holds a missing image, a
     truncated JPEG, an HTML page under a .jpg name, a JP2 file under a .jpg name and (with `refused`) a PSD
-    file no reader identifies under a .png name and a BLP file, a format the port does not decode yet, under a
+    file no reader identifies under a .png name and an EPS file, a format the port does not decode, under a
     .jpg name, and a ZSTD TIFF (which the pass converted once it was no longer deleted) under a .jpg name.
     Returns {"images": {path: form}, "truncated": path, "garbage": path, "unidentified": path or
     None, "refused": path or None, "jp2": path, "zstd": path, "captions": [every caption and question]}."""
@@ -9214,7 +9335,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
         if i % 9 == 1:
             caps[2] = caps[1]  # a repeated caption: the pool holds it once
         coco[split].append({"image": name, "caption": caps if i % 11 else caps[0], "image_id": i})
-        form = {8: "truncated", 10: "psd" if refused else None, 12: "blp" if refused else None, 13: "garbage",
+        form = {8: "truncated", 10: "psd" if refused else None, 12: "eps" if refused else None, 13: "garbage",
                 14: "jp2", 16: "tiff_zstd"}.get(i)
         if i != 5:  # image 5 is missing
             image(f"mbeir_images/mscoco_images/{name}", photo(), form)
@@ -9368,7 +9489,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     else:
         list(pool.map(write_raw_file, jobs, chunksize=4))
     return {"images": {p: form for p, form, *_ in jobs}, "truncated": special["truncated"],
-            "garbage": special["garbage"], "unidentified": special.get("psd"), "refused": special.get("blp"),
+            "garbage": special["garbage"], "unidentified": special.get("psd"), "refused": special.get("eps"),
             "jp2": special.get("jp2"), "zstd": special.get("tiff_zstd"), "captions": texts}
 
 

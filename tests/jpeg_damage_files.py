@@ -1,6 +1,7 @@
 """The damaged-JPEG corpus (tests/data/jpeg_damage/, written by scripts/make_damaged_jpegs.py) and the
 writers it is made with: seeded pictures saved by Pillow in the forms M-BEIR's sources hold (baseline 4:4:4
-and 4:2:0, grey, CMYK, progressive, restart intervals) and by chip_smoke.py's arithmetic writer, each
+and 4:2:0, grey, CMYK, progressive, restart intervals) and by chip_smoke.py's arithmetic and lossless (SOF3,
+grey and RGB with restart intervals) writers, each
 damaged by `chip_smoke.jpeg_damage`; a grey baseline file of chosen quantised coefficients
 (`coefficient_jpeg`: DC differences of every category up to 15, AC values up to 15 bits, 8- or 16-bit
 quantisers), whose products leave 16 bits; and files Pillow refuses.  Pillow is imported only where a
@@ -136,6 +137,10 @@ def clean_sources() -> dict:
         "clean_prog_rst": pillow_jpeg(photo(6, 64, 96), quality=85, progressive=True, restart_marker_blocks=2),
         "clean_arith": chip_smoke.jpeg_bytes(photo(7, 64, 80), 85, restart=3, coding="arithmetic"),
         "clean_arith_prog": chip_smoke.jpeg_bytes(photo(8, 64, 80), 85, coding="arithmetic", progressive=True),
+        "clean_lossless_grey": chip_smoke.jpeg_bytes(photo(13, 60, 72)[..., 1], coding="lossless", predictor=4,
+                                                     point_transform=1, restart=3),
+        "clean_lossless_rgb": chip_smoke.jpeg_bytes(photo(14, 48, 64), form="rgb", coding="lossless", predictor=7,
+                                                    restart=2),
     }
 
 
@@ -150,6 +155,8 @@ DAMAGED = [(f"{form}_{kind}", f"clean_{form}", (kind,)) for form, kinds in (
     ("prog_rst", ("flip", "rst_missing", "rst_wrong", "cut")),
     ("arith", ("flip", "zeros", "rst_missing", "cut")),
     ("arith_prog", ("flip", "cut")),
+    ("lossless_grey", ("flip", "zeros", "cut", "rst_missing")),
+    ("lossless_rgb", ("flip", "zeros", "cut", "rst_missing")),
 ) for kind in kinds]
 
 

@@ -190,7 +190,7 @@ def test_pillows_own_netpbm_files():
 
 
 def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
-    """ICO, CUR and Netpbm files decode through `read_image`; a format not decoded yet (BLP) raises
+    """ICO, CUR and Netpbm files decode through `read_image`; a format not decoded yet (EPS) raises
     UnsupportedImageFormat (a ValueError); corrupt data raises the decoders' own ValueError."""
     img = rgba(5, 9, 6)
     files = {"a.ico": icon([(dib_entry(img, 24), 9, 6, 0, 24)]), "b.cur": icon([(dib_entry(img, 8), 9, 6, 0, 8)], 2),
@@ -199,8 +199,8 @@ def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
         (tmp_path / name).write_bytes(data)
         np.testing.assert_array_equal(jpeg.read_image(str(tmp_path / name), "cpu"), pillow(data))
     assert [jpeg.image_format(d) for d in files.values()] == ["ico", "cur", "netpbm"]
-    (tmp_path / "q.png").write_bytes(b"BLP2" + bytes(20))
-    with pytest.raises(jpeg.UnsupportedImageFormat, match="BLP image"):
+    (tmp_path / "q.png").write_bytes(b"%!PS-Adobe-3.0 EPSF-3.0\n" + bytes(20))
+    with pytest.raises(jpeg.UnsupportedImageFormat, match="EPS image"):
         jpeg.read_image(str(tmp_path / "q.png"), "cpu")
     for corrupt in (files["a.ico"][:30], b"P6 2 1 255\n\x00", b"", b"\xff\xd8\xff\xdb"):
         (tmp_path / "x.jpg").write_bytes(corrupt)
@@ -212,9 +212,9 @@ def test_read_image_dispatch_and_the_two_kinds_of_failure(tmp_path):
 
 # (Pillow's save format, mode, the port's name for it): formats Image.open reads that the port does not decode
 # (TGA, IM, PCX, SGI, DIB, MSP, XBM and QOI are decoded now: their cases are in tests/test_torch_raster_formats.py;
-# ICNS, DDS and JPEG 2000 too, whose cases here decode as Pillow does, more in tests/test_torch_container_formats.py
-# and tests/test_torch_jpeg2000*.py)
-PILLOW_WRITTEN_REFUSED = [("SPIDER", "F", "SPIDER"), ("EPS", "RGB", "EPS"), ("ICNS", "RGB", "icns"),
+# ICNS, DDS, JPEG 2000 and SPIDER too, whose cases here decode as Pillow does, more in
+# tests/test_torch_container_formats.py, tests/test_torch_jpeg2000*.py and tests/test_torch_rare_formats.py)
+PILLOW_WRITTEN_REFUSED = [("SPIDER", "F", "spider"), ("EPS", "RGB", "EPS"), ("ICNS", "RGB", "icns"),
                           ("DDS", "RGB", "dds"), ("JPEG2000", "RGB", "jpeg2000")]
 
 
@@ -222,8 +222,8 @@ PILLOW_WRITTEN_REFUSED = [("SPIDER", "F", "SPIDER"), ("EPS", "RGB", "EPS"), ("IC
                          ids=[f"{c[0]}-{c[1]}{'-rle' if len(c) > 3 else ''}" for c in PILLOW_WRITTEN_REFUSED])
 def test_files_pillow_writes_in_formats_not_decoded_are_named(case):
     """A file Pillow writes and reads back, in a format the port does not decode, raises
-    UnsupportedImageFormat naming the format: the image pass leaves it in place.  ICNS, DDS and JPEG 2000,
-    decoded now, give Pillow's pixels."""
+    UnsupportedImageFormat naming the format: the image pass leaves it in place.  ICNS, DDS, JPEG 2000 and
+    SPIDER, decoded now, give Pillow's pixels."""
     from PIL import Image
 
     fmt, mode, label, *options = case
@@ -234,7 +234,7 @@ def test_files_pillow_writes_in_formats_not_decoded_are_named(case):
     data = buf.getvalue()
     assert Image.open(io.BytesIO(data)).format == fmt
     assert jpeg.image_format(data) == label
-    if label in ("icns", "dds", "jpeg2000"):
+    if label in ("icns", "dds", "jpeg2000", "spider"):
         np.testing.assert_array_equal(jpeg.decode_image(data, "f", "cpu"), pillow(data))
         return
     with pytest.raises(jpeg.UnsupportedImageFormat, match=rf"^f: {label} image"):
@@ -266,14 +266,14 @@ def test_data_no_reader_identifies_is_corrupt(name):
 
 
 # Pillow 12.1's openers -> the port's name for each: decoded, or named in `jpeg._REFUSED`
-PILLOW_OPENERS = {"AVIF": "AVIF", "BLP": "BLP", "BMP": "bmp", "DIB": "dib", "BUFR": "BUFR", "CUR": "cur",
+PILLOW_OPENERS = {"AVIF": "AVIF", "BLP": "blp", "BMP": "bmp", "DIB": "dib", "BUFR": "BUFR", "CUR": "cur",
                   "PCX": "pcx", "DCX": "dcx", "DDS": "dds", "EPS": "EPS", "FITS": "FITS", "FLI": "FLI",
-                  "FTEX": "FTEX", "GBR": "GBR", "GIF": "gif", "GRIB": "GRIB", "HDF5": "HDF5", "PNG": "png",
-                  "JPEG2000": "jpeg2000", "ICNS": "icns", "ICO": "ico", "IM": "im", "IMT": "IMT", "IPTC": "IPTC",
-                  "JPEG": "jpeg", "MCIDAS": "McIdas", "MPEG": "MPEG", "TIFF": "tiff", "MSP": "msp", "PCD": "PCD",
-                  "PIXAR": "PIXAR", "PPM": "netpbm", "PSD": "psd", "QOI": "qoi", "SGI": "sgi", "SPIDER": "SPIDER",
+                  "FTEX": "ftex", "GBR": "gbr", "GIF": "gif", "GRIB": "GRIB", "HDF5": "HDF5", "PNG": "png",
+                  "JPEG2000": "jpeg2000", "ICNS": "icns", "ICO": "ico", "IM": "im", "IMT": "imt", "IPTC": "IPTC",
+                  "JPEG": "jpeg", "MCIDAS": "mcidas", "MPEG": "MPEG", "TIFF": "tiff", "MSP": "msp", "PCD": "PCD",
+                  "PIXAR": "pixar", "PPM": "netpbm", "PSD": "psd", "QOI": "qoi", "SGI": "sgi", "SPIDER": "spider",
                   "SUN": "sun", "TGA": "tga", "WEBP": "webp", "WMF": "WMF", "XBM": "xbm", "XPM": "xpm",
-                  "XVTHUMB": "XVThumb"}
+                  "XVTHUMB": "xvthumb"}
 
 
 def test_every_format_pillow_identifies_is_decoded_or_named():
@@ -284,5 +284,6 @@ def test_every_format_pillow_identifies_is_decoded_or_named():
     Image.init()
     assert set(Image.ID) <= set(PILLOW_OPENERS), sorted(set(Image.ID) - set(PILLOW_OPENERS))
     decoded = {"jpeg", "png", "gif", "bmp", "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "im", "msp",
-               "qoi", "sgi", "sun", "tga", "xbm", "xpm", "dds", "icns", "psd", "jpeg2000"}
+               "qoi", "sgi", "sun", "tga", "xbm", "xpm", "dds", "icns", "psd", "jpeg2000", "blp", "ftex", "gbr", "imt",
+               "mcidas", "pixar", "spider", "xvthumb"}
     assert set(PILLOW_OPENERS.values()) == {label for _, label in jpeg._REFUSED} | decoded

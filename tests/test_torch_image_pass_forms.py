@@ -1,4 +1,5 @@
-"""The M-BEIR image pass on every form that the port once refused or still refuses by name
+"""The M-BEIR image pass on every form that the port once refused or still refuses by name (the rarer plugins'
+files too: McIdas, PIXAR, SPIDER, XVThumb, GBR, IMT, FTEX, BLP)
 (`uniir_tpu_torch.data.preprocessing.io_utils.resize_and_convert_image_to_jpg` beside the JAX package's): where
 the JAX pass writes a JPEG, the port writes the same bytes or leaves the file in place (UnsupportedImageFormat);
 where the JAX pass deletes a file as corrupt, the port deletes it too.  The port's pass used to delete any file
@@ -76,11 +77,20 @@ def _forms() -> dict:
         "ycbcr33.tif": chip_smoke.tiff_bytes(rgb, 6, compression=5, tags={530: (3, [3, 3])}),
         "jpeg_cut_in_scan.jpg": chip_smoke.jpeg_bytes(rgb)[:-300],
     }
+    # the rarer plugins, one file of each form (a GIMP brush's comment is carried into the JPEG)
+    import rare_format_files
+
+    rare = rare_format_files.corpus(25)
+    for name in ("mcidas_i16.area", "pixar.pxr", "spider.spi", "xvthumb.p7", "gbr_v2_rgba.gbr", "imt.imt",
+                 "ftex_bc1.ftc", "ftex_rgb.ftu", "blp1_pillow.blp", "blp1_jpeg.blp", "blp2_palette.blp",
+                 "blp2_dxt1.blp", "blp2_dxt3.blp", "blp2_dxt5.blp"):
+        forms[name] = rare[name]
+    forms["blp2_dxt1_cut.blp"] = rare["blp2_dxt1.blp"][:-40]  # deleted by both passes
     return forms
 
 
 # the forms the port leaves in place where the JAX pass writes a JPEG (their pixels are not modelled)
-KEPT = {"g4_cut.tif", "lossless_cut.jpg", "ycbcr_damaged.tif"}
+KEPT = {"g4_cut.tif"}
 
 
 @pytest.mark.parametrize("name", sorted(_forms()))

@@ -74,6 +74,14 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.psd",
     "uniir_tpu_torch.data.dds",
     "uniir_tpu_torch.data.icns",
+    "uniir_tpu_torch.data.mcidas",
+    "uniir_tpu_torch.data.pixar",
+    "uniir_tpu_torch.data.spider",
+    "uniir_tpu_torch.data.xvthumb",
+    "uniir_tpu_torch.data.gbr",
+    "uniir_tpu_torch.data.imt",
+    "uniir_tpu_torch.data.ftex",
+    "uniir_tpu_torch.data.blp",
     "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",

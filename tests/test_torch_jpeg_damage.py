@@ -27,7 +27,7 @@ from uniir_tpu_torch.data import jpeg
 CORPUS = Path(chip_smoke.JPEG_DAMAGE_CORPUS)
 DIGESTS = json.loads((CORPUS / "digests.json").read_text())
 SOURCES = chip_smoke.jpeg_damage_sources()
-SEEDS_PER_KIND = 4  # derivatives of each clean file by each damage kind: 9 x 10 x 4 = 360
+SEEDS_PER_KIND = 4  # derivatives of each clean file by each damage kind: 11 x 10 x 4 = 440
 
 
 def outcome(decode, data: bytes, name: str = "f.jpg"):
@@ -84,7 +84,7 @@ def test_corpus_is_what_the_script_writes_and_pillow_still_reads_so():
         assert ({"error": got} if isinstance(got, str) else
                 {"shape": list(got.shape), "sha256": hashlib.sha256(got.tobytes()).hexdigest()}) == want, name
     assert sum((CORPUS / n).stat().st_size for n in DIGESTS) < 1.5e6
-    assert sum("error" in e for e in DIGESTS.values()) >= 5 and len(SOURCES) == 9
+    assert sum("error" in e for e in DIGESTS.values()) >= 5 and len(SOURCES) == 11
     assert {tuple(e["shape"][:2]) for e in DIGESTS.values() if "shape" in e} >= {(480, 640), (1080, 1920)}
 
 

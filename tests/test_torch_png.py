@@ -263,13 +263,13 @@ def test_native_in_threads_and_refusals(native):
 
 # QOI, SGI, PCX, Sun raster, XBM and XPM are decoded now: their cases are in tests/test_torch_raster_formats.py
 REFUSED_FORMATS = {
-    "AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00", "BLP": b"BLP2\x01", "EPS": b"%!PS-Adobe-3.0",
-    "HDF5": b"\x89HDF\r\n",
+    "AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00", "EPS": b"%!PS-Adobe-3.0", "HDF5": b"\x89HDF\r\n",
 }
-# PSD, DDS, ICNS and JPEG 2000 are decoded now (tests/test_torch_container_formats.py,
-# tests/test_torch_jpeg2000*.py): these stubs of theirs, which Pillow cannot read either, fail as corrupt data
+# PSD, DDS, ICNS, JPEG 2000 and BLP are decoded now (tests/test_torch_container_formats.py,
+# tests/test_torch_jpeg2000*.py, tests/test_torch_rare_formats.py): these stubs of theirs, which Pillow cannot
+# read either, fail as corrupt data
 DECODED_STUBS = {"PSD": b"8BPS\x00\x01", "DDS": b"DDS \x7c\x00\x00\x00", "ICNS": b"icns\x00\x00",
-                 "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00"}
+                 "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00", "BLP": b"BLP2\x01"}
 
 
 @pytest.mark.parametrize("name", sorted({**REFUSED_FORMATS, **DECODED_STUBS}))

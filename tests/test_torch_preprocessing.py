@@ -149,9 +149,9 @@ def test_generator_matches_jax(built, tmp_path):
 
 
 def small_tree(root: Path) -> dict:
-    """An image directory of three files: a baseline JPEG, a truncated one and a BLP file named .png."""
+    """An image directory of three files: a baseline JPEG, a truncated one and an EPS file named .png."""
     files = {"ok.jpg": chip_smoke.raw_file("jpeg", 1, 40, 30), "cut.jpg": chip_smoke.raw_file("truncated", 2, 40, 30),
-             "odd.png": chip_smoke.raw_file("blp", 3, 40, 30)}
+             "odd.png": chip_smoke.raw_file("eps", 3, 40, 30)}
     for name, data in files.items():
         (root / "images").mkdir(parents=True, exist_ok=True)
         (root / "images" / name).write_bytes(data)
@@ -159,8 +159,8 @@ def small_tree(root: Path) -> dict:
 
 
 def test_a_format_not_decoded_yet_is_left_in_place_and_counted(tmp_path, capfd):
-    """The JAX pass deletes a BLP file Pillow cannot read; the port, which does not decode BLP yet, leaves it
-    and names it."""
+    """The JAX pass deletes an EPS file Pillow cannot load (no Ghostscript); the port, which does not decode
+    EPS, leaves it and names it."""
     from uniir_tpu.data.preprocessing import io_utils as jax_io
     from uniir_tpu_torch.data.preprocessing import io_utils as port_io
 
@@ -331,11 +331,11 @@ def test_webqa_images_written_as_pillow_writes_them(tmp_path):
     assert port_decode(str(tmp_path / "imgs.tsv"), str(tmp_path / "imgs.lineidx"), str(tmp_path / "port"),
                        "cpu") == len(blobs)
     assert tree_files(tmp_path / "port") == tree_files(tmp_path / "jax")
-    blp = chip_smoke.raw_file("blp", 1, 8, 8)
-    (tmp_path / "imgs.tsv").write_bytes(b"7\t" + base64.b64encode(blp) + b"\n")
+    eps = chip_smoke.raw_file("eps", 1, 8, 8)
+    (tmp_path / "imgs.tsv").write_bytes(b"7\t" + base64.b64encode(eps) + b"\n")
     (tmp_path / "imgs.lineidx").write_text("0\n")
     port_decode(str(tmp_path / "imgs.tsv"), str(tmp_path / "imgs.lineidx"), str(tmp_path / "refused"), "cpu")
-    assert (tmp_path / "refused/7.jpg").read_bytes() == blp
+    assert (tmp_path / "refused/7.jpg").read_bytes() == eps
 
 
 def test_resize_sizes_and_comment_carried(tmp_path):

@@ -247,6 +247,12 @@ def _writer_forms():
             comp = (5, 8, 32773, 50000)[n]
             forms[f"ycbcr{sub[0]}{sub[1]}-{lay}-c{comp}"] = ("rgb", dict(photometric=6, compression=comp,
                                                                          subsampling=sub, **lay_kw))
+            # horizontal differencing over libtiff's PredictorSetup rows of data units, under LZW and Deflate (where
+            # those rows do not divide a chunk or are not whole 3-byte strides, libtiff's predictor fails and
+            # TIFFRGBAImage reads the differences as they stand)
+            comp = (5, 8, 5, 8)[n]
+            forms[f"ycbcr{sub[0]}{sub[1]}-predictor2-{lay}-c{comp}"] = ("rgb", dict(
+                photometric=6, compression=comp, subsampling=sub, predictor=2, **lay_kw))
     for o in range(1, 9):
         forms[f"ycbcr22-orientation{o}-c8"] = ("rgb", dict(photometric=6, compression=8, subsampling=(2, 2),
                                                            orientation=o, rows_per_strip=6))
@@ -342,6 +348,9 @@ def _truncation_files(pillow_made: bool = True):
     files["zstd"] = chip_smoke.tiff_bytes(rgb, 2, compression=50000, rows_per_strip=16)
     files["lab"] = chip_smoke.tiff_bytes(rgb, 8, compression=50000, rows_per_strip=16)
     files["ycbcr22"] = chip_smoke.tiff_bytes(rgb, 6, compression=5, subsampling=(2, 2), rows_per_strip=16)
+    files["ycbcr22-predictor2"] = chip_smoke.tiff_bytes(rgb, 6, compression=8, subsampling=(2, 2), predictor=2,
+                                                        rows_per_strip=16)
+    files["ycbcr44-tiles-zstd"] = chip_smoke.tiff_bytes(rgb, 6, compression=50000, subsampling=(4, 4), tile=(32, 16))
     files["rle"] = chip_smoke.tiff_bytes(bil, 0, compression=2, bits=1, rows_per_strip=16)
     files["g3"] = chip_smoke.tiff_bytes(bil, 0, compression=3, bits=1, rows_per_strip=16)
     if pillow_made:
@@ -356,13 +365,13 @@ def _truncation_files(pillow_made: bool = True):
 # Where the port does not give Pillow's answer it raises UnsupportedImageFormat, which leaves the file in place:
 # a Group 4 strip that ends before its last row, whose later rows libtiff leaves as Pillow's strip buffer held
 # them -- uninitialised memory for the first strip, so that Pillow's pixels differ from one run to the next and no
-# decoder can give them; and a damaged YCbCr strip under TIFFRGBAImage, which reads on past a strip that fails to
-# decode with its buffer as the failure left it (each codec leaves it otherwise), which the port does not model.
-DIVERGES = {("g4", "cut"), ("g4", "flip"), ("ycbcr22", "cut"), ("ycbcr22", "flip")}
+# decoder can give them.
+DIVERGES = {("g4", "cut"), ("g4", "flip")}
 
 
 @pytest.mark.parametrize("codec", ["c1", "c5", "c8", "c32773", "c34925", "c7", "lzw-compat", "predictor2", "tiles",
-                                   "rle", "g3", "g3-2d", "g4", "zstd", "lab", "ycbcr22"])
+                                   "rle", "g3", "g3-2d", "g4", "zstd", "lab", "ycbcr22", "ycbcr22-predictor2",
+                                   "ycbcr44-tiles-zstd"])
 def test_truncations_and_corruptions_as_pillow(codec):
     """Each codec cut at four points of its data and with single bytes flipped: the twin raises where Pillow
     raises and gives Pillow's pixels where Pillow gives an image, except the DIVERGES cases, where the port
@@ -391,21 +400,140 @@ def test_truncations_and_corruptions_as_pillow(codec):
 
 def _cut_counts(data: bytes, frac: float) -> bytes:
     """A little-endian classic TIFF whose strips end early: each StripByteCounts value cut to `frac` of itself."""
+    return _set_counts(data, [max(1, int(c * frac)) for c in tiff.parse(data).tags[279]])
+
+
+def _set_counts(data: bytes, counts: list, tag: int = 279) -> bytes:
+    """A little-endian classic TIFF with its StripByteCounts (or, `tag` 325, TileByteCounts) values replaced."""
     import struct
 
-    t = tiff.parse(data)
-    counts = [max(1, int(c * frac)) for c in t.tags[279]]
     at = struct.unpack("<L", data[4:8])[0]
     out = bytearray(data)
     for k in range(struct.unpack("<H", data[at:at + 2])[0]):
-        tag, typ, n = struct.unpack("<HHL", data[at + 2 + 12 * k: at + 10 + 12 * k])
-        if tag == 279:
+        t, typ, n = struct.unpack("<HHL", data[at + 2 + 12 * k: at + 10 + 12 * k])
+        if t == tag:
             fmt = "<H" if typ == 3 else "<L"
             where = at + 10 + 12 * k if n * struct.calcsize(fmt) <= 4 else struct.unpack("<L", data[at + 10 + 12 * k:
                                                                                                     at + 14 + 12 * k])[0]
             for j, v in enumerate(counts):
                 struct.pack_into(fmt, out, where + j * struct.calcsize(fmt), v)
     return bytes(out)
+
+
+YCBCR_DAMAGE = [(c, lay) for c in (5, 8, 32773, 50000) for lay in ("strips", "tiles")]
+
+
+def damaged_ycbcr_files(codec: int, layout: str, n: int = 12) -> list:
+    """Seeded YCbCr files of every subsampling (predicted where the codec runs libtiff's predictor), each with one
+    chunk damaged: bytes flipped or zeroed, its byte count cut, or (in a file of several chunks) a byte count of
+    0 or past the file's end, which libtiff cannot read."""
+    rng = np.random.default_rng(1000 * codec + (layout == "tiles"))
+    subs = [(1, 1), (2, 1), (2, 2), (4, 2), (4, 4), (1, 2), (4, 1)]
+    files = []
+    for case in range(n):
+        w, h = int(rng.integers(5, 50)), int(rng.integers(5, 40))
+        img = np.clip(chip_smoke.raw_image(int(rng.integers(0, 999)), w, h).astype(int)
+                      + rng.integers(-30, 30, (h, w, 3)), 0, 255).astype(np.uint8)
+        lay = dict(tile=(16 * int(rng.integers(1, 3)), 16)) if layout == "tiles" else dict(
+            rows_per_strip=int(rng.integers(1, 12)))
+        data = chip_smoke.tiff_bytes(img, 6, compression=codec, subsampling=subs[case % len(subs)],
+                                     predictor=2 if codec != 32773 and case % 3 else 1, **lay)
+        t = tiff.parse(data)
+        tag = 325 if layout == "tiles" else 279
+        offs, counts = list(t.tags[tag - 1]), list(t.tags[tag])
+        k = int(rng.integers(0, len(offs)))
+        kind = ("flip", "zeros", "cut", "unread")[case % 4 if len(offs) > 1 else case % 3]
+        b = bytearray(data)
+        if kind == "flip":
+            for _ in range(int(rng.integers(1, 4))):
+                b[offs[k] + int(rng.integers(0, counts[k]))] ^= int(rng.integers(1, 256))
+        elif kind == "zeros":
+            at = offs[k] + int(rng.integers(0, counts[k]))
+            end = min(at + int(rng.integers(1, 16)), offs[k] + counts[k])
+            b[at:end] = bytes(end - at)
+        else:
+            counts[k] = max(1, int(counts[k] * rng.uniform(0.05, 0.95))) if kind == "cut" else int(
+                rng.choice([0, 10 ** 6]))
+            b = bytearray(_set_counts(bytes(b), counts, tag))
+        files.append(bytes(b))
+    return files
+
+
+@pytest.mark.parametrize("codec,layout", YCBCR_DAMAGE)
+def test_damaged_ycbcr_chunks_read_on_as_pillow(codec, layout):
+    """TIFFRGBAImage (Pillow passes stop = 0) reads on past a YCbCr strip or tile that fails to decode, with its
+    buffer as the failed call left it: LZW's and PackBits' output and zeros after, Deflate's output before the
+    symbol zlib rejects and zeros after, zeros for a ZSTD error, the differences where the predictor's rows do not
+    divide the chunk; a chunk libtiff cannot read fails the file where it starts one of Pillow's calls (a strip,
+    a row of tiles), else reads as zeros.  The twin gives Pillow's pixels, or raises where Pillow raises."""
+    decoded = 0
+    for data in damaged_ycbcr_files(codec, layout):
+        ref = pillow_rgb(data)
+        if isinstance(ref, Exception):
+            with pytest.raises(ValueError, match=r"^f\.tif: "):
+                tiff.decode_twin(data, "f.tif")
+            assert not isinstance(_raises(tiff.decode_twin, data), jpeg.UnsupportedImageFormat)
+            continue
+        np.testing.assert_array_equal(tiff.decode_twin(data, "f.tif"), ref)
+        decoded += 1
+    assert decoded >= 6
+
+
+def _lzw_codes(codes: list) -> bytes:
+    """MSB-first TIFF LZW of the given codes (9-12 bits, widening as libtiff's decoder expects)."""
+    acc = n = 0
+    out, nbits, free, first = bytearray(), 9, 258, True
+    for c in codes:
+        acc, n = (acc << nbits) | c, n + nbits
+        while n >= 8:
+            n -= 8
+            out.append((acc >> n) & 0xFF)
+        acc &= (1 << n) - 1
+        if c == 256:
+            nbits, free, first = 9, 258, True
+            continue
+        free += 0 if first else 1
+        first = False
+        if free + 1 >= (1 << nbits) and nbits < 12:
+            nbits += 1
+    return bytes(out) + (bytes([(acc << (8 - n)) & 0xFF]) if n else b"")
+
+
+@pytest.mark.parametrize("case", ["no_clear", "clear_then_big", "past_free", "no_eoi", "early_eoi", "packbits_cut"])
+def test_codec_failures_leave_what_libtiff_leaves(case):
+    """One strip of a 2 x 2 YCbCr file replaced by a stream libtiff 4.7 fails on, TIFFRGBAImage reading on with
+    what the failed call left: LZW without a leading clear code (nothing: LZWPreDecode leaves no free entry),
+    a code above 255 after a clear, a code past the next free entry, no EOI, an early EOI (the output so far,
+    zeros after), a PackBits literal run cut by the data's end (dropped, zeros after); twin and Pillow agree."""
+    import struct
+
+    rgb = np.random.default_rng(3).integers(0, 256, (12, 10, 3), np.uint8)
+    comp = 32773 if case == "packbits_cut" else 5
+    data = chip_smoke.tiff_bytes(rgb, 6, compression=comp, subsampling=(2, 2), rows_per_strip=4)
+    stream = {"no_clear": [65, 66, 67, 257], "clear_then_big": [256, 65, 66, 256, 300, 257],
+              "past_free": [256, 65, 66, 400, 257], "no_eoi": [256, 65, 66, 67], "early_eoi": [256, 65, 66, 257]}
+    strip = _lzw_codes(stream[case]) if comp == 5 else bytes([3, 9, 8, 7, 0xFE, 5, 20, 1, 2, 3])
+    t = tiff.parse(data)
+    offsets, counts = list(t.tags[273]), list(t.tags[279])
+    offsets[1], counts[1] = len(data), len(strip)
+    out = bytearray(_set_counts(data + strip, counts))
+    at = struct.unpack("<L", out[4:8])[0]
+    for k in range(struct.unpack("<H", out[at:at + 2])[0]):
+        tag, typ, n = struct.unpack("<HHL", out[at + 2 + 12 * k: at + 10 + 12 * k])
+        if tag == 273:
+            fmt = "<H" if typ == 3 else "<L"
+            where = at + 10 + 12 * k if n * struct.calcsize(fmt) <= 4 else struct.unpack("<L", out[at + 10 + 12 * k:
+                                                                                                 at + 14 + 12 * k])[0]
+            struct.pack_into(fmt, out, where + struct.calcsize(fmt), offsets[1])
+    assert_as_pillow(bytes(out))
+
+
+def _raises(fn, data):
+    try:
+        fn(data, "f.tif")
+    except ValueError as err:
+        return err
+    return None
 
 
 @pytest.mark.parametrize("kind", ["g3", "g3-2d", "g4", "g3-writer", "jpeg"])
@@ -553,6 +681,18 @@ def test_native_is_bit_equal_to_twin(native, tag):
     before = tiff.decode_native.calls
     np.testing.assert_array_equal(native(data, "f.tif"), want)
     assert tiff.decode_native.calls == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec,layout", YCBCR_DAMAGE)
+def test_native_reads_on_past_damaged_ycbcr_chunks_as_the_twin(native, codec, layout):
+    for data in damaged_ycbcr_files(codec, layout):
+        want = _raises(tiff.decode_twin, data)
+        if want is not None:
+            with pytest.raises(type(want), match=r"^f\.tif: "):
+                native(data, "f.tif")
+            continue
+        np.testing.assert_array_equal(native(data, "f.tif"), tiff.decode_twin(data, "f.tif"))
 
 
 @pytest.mark.gpu

@@ -22,7 +22,9 @@
 // box replication where a 2x-wide component is at most 2 samples wide),
 // lossless SOF3 (jdlhuff.c's differences, jdlossls.c's seven predictors and
 // the point transform, box upsampling; YCbCr refused, as libjpeg refuses to
-// convert it), the colour space jdapimin.c's default_decompress_parms picks
+// convert it; damaged data as jddiffct.c decodes it a row of MCUs at a time:
+// the row that runs out read on zeros, the interval's later rows differences
+// 0 with the undifferencer restarted), the colour space jdapimin.c's default_decompress_parms picks
 // (3 components: YCbCr under JFIF, RGB under Adobe transform 0 or, without
 // either marker, ids 'R' 'G' 'B'; 4: CMYK under Adobe transform 0 or none,
 // else YCCK), jdcolor.c's fixed-point YCbCr -> RGB tables (YCCK's YCC
@@ -38,7 +40,7 @@
 // the MCU and the rest of the interval left as it is, restart markers
 // resynchronised as jpeg_resync_to_restart does, smoothing by
 // last_good_iMCU_row), and what libjpeg refuses (data that ends before EOI,
-// an unknown marker, a bad table or progression, a damaged lossless scan)
+// an unknown marker, a bad table or progression)
 // returns an error with the twin's message; nothing reads or writes out of
 // bounds.
 //
@@ -144,10 +146,11 @@ struct Decoder {
   bool arith = false;     // SOF9 / SOF10
   bool lossless = false;  // SOF3
   int dac_l[16], dac_u[16], dac_k[16];  // arithmetic conditioning (jdmarker.c get_soi's defaults)
-  // lossless: each component's differences [mcuy * v][mcux * h] and its last scan's predictor, point
-  // transform and rows between restarts (0: none)
+  // lossless: each component's differences [mcuy * v][mcux * h], its last scan's predictor and point
+  // transform, and the rows at which that scan restarted jdlossls.c's undifferencer (first_rows[c][row])
   std::vector<std::vector<int32_t>> diffs;
-  int psv[4] = {0, 0, 0, 0}, pt[4] = {0, 0, 0, 0}, restart_rows[4] = {0, 0, 0, 0};
+  std::vector<std::vector<uint8_t>> first_rows;
+  int psv[4] = {0, 0, 0, 0}, pt[4] = {0, 0, 0, 0};
   bool have_plane[4] = {false, false, false, false};
   Decoder() {
     for (int t = 0; t < 16; t++) dac_l[t] = 0, dac_u[t] = 1, dac_k[t] = 5;
@@ -801,7 +804,11 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
   if (!dec.n_scans) dec.multiscan = dec.progressive || ns < (int)dec.comps.size();
   if (dec.lossless) {
     if (dec.diffs.empty())
-      for (auto& c : dec.comps) dec.diffs.emplace_back((size_t)c.bh * c.bw, 0);
+      for (auto& c : dec.comps) {
+        dec.diffs.emplace_back((size_t)c.bh * c.bw, 0);
+        dec.first_rows.emplace_back((size_t)c.bh, 0);
+      }
+    for (int s = 0; s < ns; s++) std::fill(dec.first_rows[scan.comp[s]].begin(), dec.first_rows[scan.comp[s]].end(), 0);
   } else {
     for (auto& c : dec.comps)
       if (c.coef.empty()) c.coef.assign((size_t)c.bh * c.bw * 64, 0);
@@ -834,13 +841,20 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
   bool dc_scan = !dec.progressive || (scan.ss == 0 && scan.ah == 0);
   int64_t pred[4] = {0, 0, 0, 0}, eobrun = 0;
   // libjpeg's insufficient_data: once an MCU has read past its interval's data (zeros), the interval's later MCUs
-  // are left as they are; the next restart clears it unless its marker was left unread
+  // are left as they are; the next restart clears it unless its marker was left unread.  A lossless scan tests it
+  // once a row of MCUs (jddiffct.c calls decode_mcus a row at a time): a short row's differences are 0 and it
+  // restarts the undifferencer, as a restart does, at the first sample row of each component's iMCU row
   bool short_data = false;
+  auto restart_undifferencer = [&](int r) {
+    for (int s = 0; s < ns; s++) {
+      int v = dec.comps[scan.comp[s]].v;
+      dec.first_rows[scan.comp[s]][(size_t)(single ? r / v : r) * v] = 1;
+    }
+  };
   for (int64_t u = 0; u < total; u++) {
     if (!dec.arith && !short_data) dec.last_good = (int)(u / units_x / rows_per_imcu);  // before the restart
     if (u % interval == 0) {
       int64_t from = starts[(size_t)(u / interval)];
-      if (dec.lossless && from < 0) dec.fail("unsupported: marker 0xFFDA: corrupt lossless scan (a restart marker out of place)");
       br = BitReader{dec.d, dec.n, from < 0 ? 0 : (size_t)from};
       br.at_marker = from < 0;
       ar = Arith{dec.d, dec.n, from < 0 ? 0 : (size_t)from};
@@ -849,14 +863,26 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
       pred[0] = pred[1] = pred[2] = pred[3] = 0;  // predictions, EOB run and statistics restart each interval
       ctx[0] = ctx[1] = ctx[2] = ctx[3] = 0;
       eobrun = 0;
+      if (dec.lossless) restart_undifferencer((int)(u / units_x));
       if (dec.arith)
         for (int s = 0; s < ns; s++) {
           if (dc_scan) memset(dc_st[scan.dc[s]], 0, 64);
           if (!dec.progressive || scan.ss) memset(ac_st[scan.ac[s]], 0, 256);
         }
     }
-    if (dec.arith ? ar.dead : short_data) continue;
     int r = (int)(u / units_x), q = (int)(u % units_x);
+    if (dec.lossless && short_data) {
+      if (q == 0) restart_undifferencer(r);
+      for (int s = 0; s < ns; s++) {
+        Component& c = dec.comps[scan.comp[s]];
+        int ny = single ? 1 : c.v, nx = single ? 1 : c.h;
+        for (int y = 0; y < ny; y++)
+          for (int x = 0; x < nx; x++)
+            dec.diffs[scan.comp[s]][(size_t)(single ? r : r * c.v + y) * c.bw + (single ? q : q * c.h + x)] = 0;
+      }
+      continue;
+    }
+    if (dec.arith ? ar.dead : short_data) continue;
     for (int s = 0; s < ns && !(dec.arith && ar.dead); s++) {
       Component& c = dec.comps[scan.comp[s]];
       int ny = single ? 1 : c.v, nx = single ? 1 : c.h;
@@ -864,11 +890,8 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
         for (int x = 0; x < nx; x++) {
           int row = single ? r : r * c.v + y, col = single ? q : q * c.h + x;
           if (dec.lossless) {
-            const auto& lut = dec.huff[0][scan.dc[s]];
-            if (!lut[br.peek32() >> 16]) dec.fail("unsupported: marker 0xFFDA: corrupt Huffman code (lossless)");
-            int sz = huff(br, lut);
+            int sz = huff(br, dec.huff[0][scan.dc[s]]);
             dec.diffs[scan.comp[s]][(size_t)row * c.bw + col] = sz == 16 ? 32768 : (sz ? extend(get_bits(br, sz), sz) : 0);
-            if (br.over()) dec.fail("unsupported: marker 0xFFDA: truncated JPEG stream (lossless)");
             continue;
           }
           int16_t* out = &c.coef[((size_t)row * c.bw + col) * 64];
@@ -911,7 +934,7 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
           }
         }
     }
-    short_data = !dec.arith && br.over();
+    if (!dec.lossless || q == units_x - 1) short_data = !dec.arith && br.over();
   }
   if (dec.arith) dec.last_good = dec.mcuy - 1;  // jdarith.c never runs short of data
   if (dec.lossless)
@@ -919,7 +942,6 @@ void read_scan(Decoder& dec, const uint8_t* seg, int len, size_t data_start, Mar
       int c = scan.comp[s];
       dec.psv[c] = scan.ss;
       dec.pt[c] = scan.al;
-      dec.restart_rows[c] = dec.restart ? (int)(interval / units_x) * (single ? 1 : dec.comps[c].v) : 0;
       dec.have_plane[c] = true;
     }
 }
@@ -1303,12 +1325,13 @@ std::vector<int32_t> lossless_plane(Decoder& dec, int ci) {
   const Component& c = dec.comps[ci];
   if (!dec.have_plane[ci]) dec.fail("marker 0xFFDA: a component no scan names (lossless)");
   const std::vector<int32_t>& d = dec.diffs[ci];
-  int w = c.cw, h = c.ch, psv = dec.psv[ci], pt = dec.pt[ci], rr = dec.restart_rows[ci];
+  int w = c.cw, h = c.ch, psv = dec.psv[ci], pt = dec.pt[ci];
+  const std::vector<uint8_t>& first = dec.first_rows[ci];
   std::vector<int32_t> out((size_t)w * h);
   for (int y = 0; y < h; y++) {
     const int32_t* dy = &d[(size_t)y * c.bw];
     int32_t* row = &out[(size_t)y * w];
-    if (y == 0 || (rr && y % rr == 0)) {  // jpeg_undifference_first_row
+    if (y == 0 || first[y]) {  // jpeg_undifference_first_row
       int32_t ra = (dy[0] + (1 << (7 - pt))) & 0xFFFF;
       row[0] = ra;
       for (int x = 1; x < w; x++) row[x] = ra = (dy[x] + ra) & 0xFFFF;

@@ -9,10 +9,12 @@
 //
 //   * LZW (5): tif_lzw.c's LZWDecode (MSB-first codes of 9-12 bits, the
 //     early change) or, where the stream's first two bytes say so,
-//     LZWDecodeCompat (LSB-first, widened an entry later); a code past the
-//     next free entry, a first code after a clear above 255, or a stream
-//     that ends (or meets its EOI code) before the chunk is full is an error;
-//   * PackBits (32773): tif_packbits.c, a stream that ends short an error;
+//     LZWDecodeCompat (LSB-first, widened an entry later); a first code
+//     other than a clear, a code past the next free entry, a first code
+//     after a clear above 255, or a stream that ends (or meets its EOI code)
+//     before the chunk is full is an error;
+//   * PackBits (32773): tif_packbits.c, a stream that ends short an error (a
+//     run cut short by the data's end dropped);
 //   * CCITT (2, 3, 4): tif_fax3.c's Fax3DecodeRLE, Fax3Decode1D /
 //     Fax3Decode2D (T4Options bit 0) and Fax4Decode over tif_fax3sm.c's state
 //     tables, with libtiff's bit accumulator (zeros padded where a request
@@ -28,15 +30,21 @@
 //     the decoder alone, as ZSTD_decompress or as one strip);
 //
 // -- FillOrder 2 undone on the compressed bytes, 16 / 32-bit samples of a
-// big-endian file swapped to native order, the predictors (2: horizontal;
-// 3: libtiff's fpAcc), Pillow's unpackers of the raw modes (bits and bands,
+// big-endian file swapped to native order, the predictors (2: horizontal,
+// over PredictorSetup's rows of bytes for YCbCr data units; 3: libtiff's
+// fpAcc), Pillow's unpackers of the raw modes (bits and bands,
 // inverted grey, bit-reversed bytes, the high byte of 16-bit samples, RGBa
 // unpremultiplied, 12 / 16 / 32-bit and float samples, separate planes, a
 // LAB plane's sign bit, YCbCr data units as TIFFRGBAImage places them),
 // Convert.c's conversions to RGB (I;16 clamped, I clipped, F truncated,
 // palettes, cmyk2rgb; YCbCr by libtiff's tables, which Python computes) and
 // exif_transpose's orientations.  A truncated or corrupt stream returns an
-// error with a message, never reads or writes out of bounds.
+// error with a message, never reads or writes out of bounds -- except in a
+// chunk of YCbCr data units, which TIFFRGBAImage reads on past with its
+// buffer as the failed call left it: what each codec wrote and its zeros
+// after (LZW, PackBits, Deflate in Python), zeros (a ZSTD error, a tile
+// libtiff cannot read), the differences (a predictor whose rows do not
+// divide the chunk).
 //
 // Why host code and not a kernel: each code depends on the one before, and
 // the images are resized on the host after decoding.  One call an image and
@@ -78,7 +86,7 @@ void lzw_decode(const uint8_t* src, size_t n, uint8_t* out, size_t size) {
     length[i] = 1;
     first[i] = last[i] = (uint8_t)i;
   }
-  int nbits = 9, free_ent = 258, old = -1;
+  int nbits = 9, free_ent = 258, old = -2;  // -2: before the first clear code (LZWPreDecode: no free entry)
   uint64_t acc = 0;
   int nacc = 0;
   size_t pos = 0, got = 0;
@@ -108,6 +116,7 @@ void lzw_decode(const uint8_t* src, size_t n, uint8_t* out, size_t size) {
       old = -1;
       continue;
     }
+    if (old == -2) fail("corrupted LZW table (code %ld before the first clear code)", code);
     if (old < 0) {
       if (code >= 256) fail("corrupted LZW table (a code above 255 after a clear)");
       out[got++] = (uint8_t)code;
@@ -147,13 +156,9 @@ void packbits_decode(const uint8_t* src, size_t n, uint8_t* out, size_t size) {
       for (size_t k = 0; k < count && got < size; k++) out[got++] = src[i];
       i++;
     } else {
-      size_t take = (size_t)c + 1;
-      if (i + take > n) {
-        for (size_t k = 0; i + k < n && got < size && k < take; k++) out[got++] = src[i + k];
-        i = n;
-        break;
-      }
-      for (size_t k = 0; k < take && got < size; k++) out[got++] = src[i + k];
+      size_t take = (size_t)c + 1 < size - got ? (size_t)c + 1 : size - got;
+      if (i + take > n) break;  // "Terminating PackBitsDecode due to lack of data": the run is dropped
+      for (size_t k = 0; k < take; k++) out[got++] = src[i + k];
       i += take;
     }
   }
@@ -658,8 +663,17 @@ uint8_t clip8(int64_t v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
 // chunk rows: [kind, offset, length, x0, y0, width (pixels unpacked), rows, row stride, band, spec, decoded size,
 // chunk width] with kind 0: file bytes as they stand (Pillow's raw decoder), 1: `pre` bytes (decoded by Python:
-// zlib / lzma), 2: a codec of this file
+// zlib / lzma), 2: a codec of this file, 3: a chunk of data units libtiff cannot read (zeros), 4: `pre` bytes of
+// a zlib chunk that failed (what the failed call left)
 const int kChunkFields = 12;
+
+// tif_predict.c's PredictorDecodeTile with horAcc8 over YCbCr data units: every third byte summed within each
+// `rowsize` bytes; nothing where the rows do not divide the chunk or are not whole 3-byte strides (it fails).
+void predictor2_units(std::vector<uint8_t>& buf, size_t rowsize) {
+  if (!rowsize || buf.size() % rowsize || rowsize % 3) return;
+  for (size_t r = 0; r < buf.size(); r += rowsize)
+    for (size_t i = r + 3; i < r + rowsize; i++) buf[i] = (uint8_t)(buf[i] + buf[i - 3]);
+}
 
 }  // namespace
 
@@ -670,7 +684,7 @@ extern "C" {
 // transposed by the orientation into out (uint8 [out_h][out_w][3]).
 // params: width, height, bands, storage (0 u8, 1 i32, 2 f32), mode, compression, t4options, predictor,
 // fillorder, swap bytes (0, 2, 4), predictor samples per pixel, sample bytes, orientation, planar RGBa, the
-// strip buffer of YCbCr data units
+// strip buffer of YCbCr data units, the predictor's row size for them
 int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int n_chunks, const int32_t* specs,
                       int n_specs, const int32_t* params, const uint8_t* pre, size_t pre_n, const uint8_t* palette,
                       const int64_t* ycc, uint8_t* out, char* err, int errlen) {
@@ -679,6 +693,7 @@ int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int 
     const int compression = params[5], options = params[6], predictor = params[7], fillorder = params[8];
     const int swap = params[9], pred_spp = params[10], sample_bytes = params[11], orientation = params[12];
     const int planar_premult = params[13];
+    const size_t unit_rowsize = (size_t)params[15];
     Image im{W, H, bands, {}, {}, {}};
     if (storage == 0) im.u8.assign((size_t)W * H * bands, 0);
     else if (storage == 1) im.i32.assign((size_t)W * H, 0);
@@ -699,7 +714,13 @@ int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int 
       Spec sp;
       memcpy(&sp, specs + (size_t)spec * 9, sizeof(Spec));
       const uint8_t* rowsrc;
-      if (kind == 0) {  // Pillow's raw decoder: rows read with their stride from the file (size: one row's bytes)
+      const bool units = sp.op == kUnits;
+      if (units && (kind == 3 || kind == 4)) {  // TIFFRGBAImage reads on: zeros, or what the failed zlib call left
+        if (kind == 4 && (off < 0 || len < size || off + len > (int64_t)pre_n)) fail("bad decoded chunk %ld", k);
+        buf.assign((size_t)size, 0);
+        if (kind == 4) memcpy(buf.data(), pre + off, (size_t)size);
+        rowsrc = buf.data();
+      } else if (kind == 0) {  // Pillow's raw decoder: rows read with their stride from the file (size: one row's bytes)
         int64_t need = stride * (rows - 1) + size;
         if (off < 0 || off > (int64_t)n || (int64_t)n - off < need)
           fail("truncated TIFF file (image file is truncated)");
@@ -715,35 +736,46 @@ int uniir_tiff_decode(const uint8_t* data, size_t n, const int64_t* chunks, int 
           if (fillorder == 2)
             for (auto& b : raw) b = rev[b];
           buf.assign((size_t)size, 0);
-          if (compression == 5) {
-            lzw_decode(raw.data(), raw.size(), buf.data(), buf.size());
-          } else if (compression == 32773) {
-            packbits_decode(raw.data(), raw.size(), buf.data(), buf.size());
-          } else if (compression == 2 || compression == 3 || compression == 4) {
-            if (runs.empty()) runs.assign((size_t)4 * (((int)cw + 1 + 31) / 32 * 32), 0);
-            ccitt_decode(raw.data(), raw.size(), compression, options, (int)cw, (int)rows, buf.data(), buf.size(),
-                         runs.data(), noeol);
-          } else if (compression == 50000) {
-            size_t got;
-            try {
-              got = zstd::stream(raw.data(), raw.size(), buf.data(), buf.size());
-            } catch (const zstd::Corrupt& e) {
-              throw Error{"corrupt ZSTD data (" + e.msg + ")"};
+          try {
+            if (compression == 5) {
+              lzw_decode(raw.data(), raw.size(), buf.data(), buf.size());
+            } else if (compression == 32773) {
+              packbits_decode(raw.data(), raw.size(), buf.data(), buf.size());
+            } else if (compression == 2 || compression == 3 || compression == 4) {
+              if (runs.empty()) runs.assign((size_t)4 * (((int)cw + 1 + 31) / 32 * 32), 0);
+              ccitt_decode(raw.data(), raw.size(), compression, options, (int)cw, (int)rows, buf.data(), buf.size(),
+                           runs.data(), noeol);
+            } else if (compression == 50000) {
+              size_t got;
+              try {
+                got = zstd::stream(raw.data(), raw.size(), buf.data(), buf.size());
+              } catch (const zstd::Corrupt& e) {  // one call of ZSTD_decompressStream fails: no output reported
+                std::fill(buf.begin(), buf.end(), 0);
+                throw Error{"corrupt ZSTD data (" + e.msg + ")"};
+              }
+              if (got < buf.size()) fail("ZSTD stream ends before the strip is full (not enough data)");
+            } else {
+              fail("compression %ld has no native chunk decoder", compression);
             }
-            if (got < buf.size()) fail("ZSTD stream ends before the strip is full (not enough data)");
-          } else {
-            fail("compression %ld has no native chunk decoder", compression);
+          } catch (const Error&) {
+            if (!units) throw;
+            kind = 4;  // data units: TIFFRGBAImage reads on with the buffer as the codec left it
           }
         }
         if (swap == 2)
           for (size_t i = 0; i + 1 < buf.size(); i += 2) std::swap(buf[i], buf[i + 1]);
         else if (swap == 4)
           for (size_t i = 0; i + 3 < buf.size(); i += 4) std::swap(buf[i], buf[i + 3]), std::swap(buf[i + 1], buf[i + 2]);
-        if (predictor == 2) predictor2(buf.data(), (int)rows, (int)cw, pred_spp, sample_bytes);
-        else if (predictor == 3) predictor3(buf.data(), (int)rows, (int)cw, pred_spp, sample_bytes);
+        if (units) {
+          if (predictor == 2 && kind != 4) predictor2_units(buf, unit_rowsize);
+        } else if (predictor == 2) {
+          predictor2(buf.data(), (int)rows, (int)cw, pred_spp, sample_bytes);
+        } else if (predictor == 3) {
+          predictor3(buf.data(), (int)rows, (int)cw, pred_spp, sample_bytes);
+        }
         rowsrc = buf.data();
       }
-      if (sp.op == kUnits) {  // YCbCr data units: h x v Y samples, then Cb and Cr (see data/tiff.py _units)
+      if (units) {  // YCbCr data units: h x v Y samples, then Cb and Cr (see data/tiff.py _units)
         if (buf.size() > held.size()) fail("YCbCr strip larger than its buffer");
         std::fill(held.begin(), held.end(), 0);
         memcpy(held.data(), buf.data(), buf.size());

@@ -28,8 +28,9 @@ the same uint8 [H, W, 3] array, bit for bit:
     (`smooth_blocks`, found by probing it);
   * lossless SOF3 (jdlhuff.c, jdlossls.c): Huffman-coded differences, the
     seven predictors and the first row's and first column's, the point
-    transform, restarts (a multiple of the MCU row), box upsampling; a
-    lossless YCbCr or YCCK frame raises, as libjpeg refuses to convert it;
+    transform, restarts (a multiple of the MCU row), box upsampling, damaged
+    data decoded on as jddiffct.c / jdlhuff.c do; a lossless YCbCr or YCCK
+    frame raises, as libjpeg refuses to convert it;
   * the integer IDCT (JDCT_ISLOW: CONST_BITS 13, PASS1_BITS 2) as
     libjpeg-turbo's x86-64 SIMD code computes it (jidctint-sse2 / -avx2,
     which Pillow's wheels run): 16-bit products and sums that wrap, each
@@ -80,11 +81,11 @@ and SOF13-15, 2 components, 12- and 16-bit samples (Pillow: "cannot
 handle 12-bit layers"), data that ends before EOI (Pillow: "image file is
 truncated"), an unknown marker or a second SOI, frame or (in a single-scan
 file) scan, a bad table (the all-ones Huffman code, a DC symbol above 15),
-a bad progression.  A damaged lossless (SOF3) scan, which libjpeg decodes
-on past, raises UnsupportedImageFormat, which keeps the file in the image
-pass.  `decode_samples` gives libjpeg's output before Pillow reads it (the
-TIFF decoder's JPEG strips, with libtiff's colour space and, with
-`libtiff`, libtiff's leniency past the scan).
+a bad progression.  A damaged lossless (SOF3) scan decodes as jddiffct.c
+decodes it, a row of MCUs at a time (`_lossless_planes`).
+`decode_samples` gives libjpeg's output before Pillow reads it (the TIFF
+decoder's JPEG strips, with libtiff's colour space and, with `libtiff`,
+libtiff's leniency past the scan).
 
 Two decoders compute that function: `decode_twin`, plain Python for the
 markers and entropy decoding and numpy over all blocks at once for the rest
@@ -101,7 +102,7 @@ build or load raises.
 Pillow's `_accept` takes it), TIFF (Pillow's six prefixes), ICO / CUR and
 Netpbm (P and one of 0-6, f, y) are decoded, and so are the formats of
 `_DECODED` (JPEG 2000 among them) found in Image.open's order; the other
-formats Pillow's Image.open identifies (AVIF, BLP, FITS, EPS, ...)
+formats Pillow's Image.open identifies (AVIF, FITS, EPS, ...)
 raise `UnsupportedImageFormat`, a ValueError naming the file and the format,
 told apart from corrupt data, which raises the decoders' own ValueError, as
 does a file no format names ("unknown"), which Image.open cannot identify.
@@ -127,7 +128,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from uniir_tpu_torch.data import bmp, dds, gif, icns, ico, im, msp, netpbm, pcx, png, psd, qoi, raster, sgi, sun
-from uniir_tpu_torch.data import jpeg2000, tga, tiff, webp, xbm, xpm
+from uniir_tpu_torch.data import blp, ftex, gbr, imt, jpeg2000, mcidas, pixar, spider, tga, tiff, webp, xbm, xpm
+from uniir_tpu_torch.data import xvthumb
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -618,10 +620,11 @@ class _Bits:
         self.nbits = 8 * len(segment)
         self.pos = 0
 
-    def pad(self) -> None:
-        """Zeros enough for one more MCU read past the end (10 blocks of at most 64 codes of 17 + 15 bits)."""
-        if self.pos + 20480 + 64 > 8 * len(self.buf):
-            self.buf += bytes(2600)
+    def pad(self, nbits: int = 20480) -> None:
+        """Zeros enough for `nbits` more read past the end (by default one MCU: 10 blocks of at most 64 codes of
+        17 + 15 bits)."""
+        if self.pos + nbits + 64 > 8 * len(self.buf):
+            self.buf += bytes(nbits // 8 + 16)
 
     def peek(self) -> int:
         b = self.pos >> 3
@@ -1225,7 +1228,15 @@ def _lossless_planes(frame: _Frame, name: str) -> list:
     32768), undone by jdlossls.c's predictors (the first row of the image
     and of each restart interval from its left neighbour, starting at
     2^(7 - Pt); the first column from above), then shifted left by the
-    point transform and kept to 8 bits."""
+    point transform and kept to 8 bits.
+
+    Damaged data decodes as jddiffct.c / jdlhuff.c decode it: a bad code
+    reads 17 bits as difference 0; the MCU row in which the data runs out
+    reads zeros to its end; every later MCU row of the interval (all of
+    them past a restart marker left unread) has differences 0 and restarts
+    the undifferencer, as decode_mcus' insufficient_data path does.  A
+    restart of the undifferencer, at a restart marker or there, takes
+    effect at the first sample row of the component's iMCU row."""
     hmax = max(c[1] for c in frame.components)
     vmax = max(c[2] for c in frame.components)
     mcux, mcuy = -(-frame.width // hmax), -(-frame.height // vmax)
@@ -1235,8 +1246,8 @@ def _lossless_planes(frame: _Frame, name: str) -> list:
     for scan in frame.scans:
         if len(scan.comps) == 1:
             c = scan.comps[0]
-            cols = dims[c][0]
-            units = [[(0, c, r, q)] for r in range(dims[c][1]) for q in range(cols)]
+            cols, n_rows = dims[c]
+            units = [[(0, c, r, q)] for r in range(n_rows) for q in range(cols)]
         else:
             cols = mcux
             units = [[(i, c, r * v + y, q * h + x) for i, c in enumerate(scan.comps)
@@ -1246,41 +1257,53 @@ def _lossless_planes(frame: _Frame, name: str) -> list:
         if interval % cols:
             raise ValueError(f"{name}: marker 0xFFDD: restart interval {interval} is not a multiple of the "
                              f"{cols} MCUs of a row (lossless)")
-        # damaged lossless data, which libjpeg's jdlhuff.c decodes on past with warnings, is not modelled: it raises
-        # UnsupportedImageFormat, which keeps the file
-        if None in scan.segments:
-            raise UnsupportedImageFormat(f"{name}: marker 0xFFDA: corrupt lossless scan (a restart marker out of "
-                                         "place, which libjpeg decodes on past)")
-        for k, segment in enumerate(scan.segments):
-            bits = _Bits(segment)
-            for unit in units[k * interval: (k + 1) * interval]:
+        rows_per_interval = interval // cols
+        # the sample rows where jdlossls.c's undifferencer restarts: the first of each iMCU row (v rows of the
+        # component) in which the scan starts, a restart marker is read or an MCU row runs short
+        resets = {c: np.zeros(diffs[c].shape[0], bool) for c in scan.comps}
+
+        def reset(row: int) -> None:
+            for _, c, _, _ in units[row * cols]:
+                v = frame.components[c][2]
+                resets[c][(row // v if len(scan.comps) == 1 else row) * v] = True
+
+        # jdhuff.c's insufficient_data, which jdlhuff.c's decode_mcus tests once an MCU row (jddiffct.c calls it
+        # a row at a time)
+        short, bits = False, None
+        for row in range(len(units) // cols):
+            if row % rows_per_interval == 0:
+                segment = scan.segments[row // rows_per_interval]
+                bits = _Bits(segment or b"")
+                short = short and segment is None  # the restart clears it unless its marker was left unread
+                reset(row)
+            if short:  # the differences stay 0 (the buffer starts zeroed) and the undifferencer restarts
+                reset(row)
+                continue
+            row_units = units[row * cols: (row + 1) * cols]
+            bits.pad(32 * sum(len(u) for u in row_units))
+            for unit in row_units:
                 for i, c, r, q in unit:
-                    if not scan.dc[i][bits.peek() >> 16]:
-                        raise UnsupportedImageFormat(f"{name}: marker 0xFFDA: corrupt Huffman code (lossless, which "
-                                                     "libjpeg decodes on past)")
                     s = bits.huff(scan.dc[i])
                     diffs[c][r, q] = 32768 if s == 16 else (_extend(bits.get(s), s) if s else 0)
-                if bits.over():
-                    raise UnsupportedImageFormat(f"{name}: marker 0xFFDA: truncated JPEG stream (lossless, which "
-                                                 "libjpeg decodes on past with zeros)")
+            short = bits.over()
         for c in scan.comps:
             cw, ch = dims[c]
-            rows_per_restart = interval // cols * (frame.components[c][2] if len(scan.comps) > 1 else 1)
-            planes[c] = _undifference(diffs[c][:ch, :cw], scan.ss, scan.al, rows_per_restart if scan.restart else 0)
+            planes[c] = _undifference(diffs[c][:ch, :cw], scan.ss, scan.al, resets[c][:ch])
     if any(p is None for p in planes):
         raise ValueError(f"{name}: marker 0xFFDA: a component no scan names (lossless)")
     return planes
 
 
-def _undifference(diff: np.ndarray, psv: int, pt: int, restart_rows: int) -> np.ndarray:
-    """jdlossls.c's undifferencing of one component and the point transform."""
+def _undifference(diff: np.ndarray, psv: int, pt: int, first: np.ndarray) -> np.ndarray:
+    """jdlossls.c's undifferencing of one component (`first`: the rows undone by jpeg_undifference_first_row)
+    and the point transform."""
     h, w = diff.shape
     d = diff.tolist()
     out = [[0] * w for _ in range(h)]
     prev = None
     for y in range(h):
         row, dy = out[y], d[y]
-        if prev is None or (restart_rows and y % restart_rows == 0):  # jpeg_undifference_first_row
+        if prev is None or first[y]:  # jpeg_undifference_first_row
             ra = (dy[0] + (1 << (7 - pt))) & 0xFFFF
             row[0] = ra
             for x in range(1, w):
@@ -1429,37 +1452,6 @@ def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     return decode_native if _build.is_cuda(device) else decode_twin
 
 
-def _imt(d: bytes) -> bool:
-    """ImtImagePlugin's header: "key value" lines up to a form feed, a width and a height above 0, 8-bit
-    pixels."""
-    if b"\n" not in d[:100]:
-        return False
-    size = {b"pixel": 0}
-    for line in d.split(b"\x0c", 1)[0].split(b"\n"):
-        if len(line) < 1 or len(line) > 99:
-            break
-        if line[:1] == b"*":
-            continue
-        m = re.match(rb"([a-z]*) ([^ \r\n]*)", line)
-        if not m:
-            break
-        if m[1] in (b"width", b"height"):
-            size[m[1]] = int(m[2]) if m[2].isdigit() else 0
-        elif m[1] == b"pixel":
-            size[m[1]] = m[2] == b"n8"
-    return size.get(b"width", 0) > 0 and size.get(b"height", 0) > 0 and size[b"pixel"]
-
-
-def _gbr(d: bytes) -> bool:
-    """GbrImagePlugin's _accept and the header tests of its _open: a header of 20 bytes or more, version 1 or
-    2 (2 with the GIMP magic), a size of no zero and 1 or 4 bytes a pixel."""
-    if len(d) < 20:
-        return False
-    header, version, width, height, depth = (int.from_bytes(d[k : k + 4], "big") for k in range(0, 20, 4))
-    return (header >= 20 and version in (1, 2) and width != 0 and height != 0 and depth in (1, 4)
-            and (version == 1 or d[20:24] == b"GIMP" and len(d) >= 28))
-
-
 def _iptc(d: bytes) -> bool:
     """IptcImageFile._open (it has no _accept), run on the bytes: its fields up to (8, 10), then the mode,
     size and compression fields it needs; True where it opens the file or raises what Image.open raises."""
@@ -1503,54 +1495,37 @@ def _iptc(d: bytes) -> bool:
     return bool(mode) and size[0] > 0 and size[1] > 0
 
 
-def _spider(d: bytes) -> bool:
-    """SpiderImagePlugin's header: 27 floats, big- or little-endian, whose counts are whole and agree, of a
-    2D image (iform 1)."""
-    if len(d) < 108:
-        return False
-    for order in ">", "<":
-        h = (99.0,) + struct.unpack(order + "27f", d[:108])
-        whole = all(np.isfinite(h[i]) and h[i] == int(h[i]) for i in (1, 2, 5, 12, 13, 22, 23))
-        if whole and int(h[5]) in (1, 3, -11, -12, -21, -22) and int(h[22]) == int(h[13]) * int(h[23]) != 0:
-            return int(h[5]) == 1
-    return False
-
-
 # the formats Pillow 12.1's Image.open identifies that the port does not decode yet (ROADMAP Queue 3; the
-# others are `_DECODED`'s, below): each plugin's _accept test of the file's first bytes or, for the four with
-# none (IMT, IPTC, PCD, SPIDER), the header test its _open makes (a wider one where Pillow reads further); BUFR,
-# GRIB, HDF5, MPEG and WMF are stubs that Image.open names and cannot load.  A file none of Image.open's readers takes is one it cannot identify:
-# the decoders call it corrupt, as Pillow does.
+# others are `_DECODED`'s, below): each plugin's _accept test of the file's first bytes or, for the two with
+# none (IPTC, PCD), the header test its _open makes (a wider one where Pillow reads further); BUFR, GRIB, HDF5,
+# MPEG and WMF are stubs that Image.open names and cannot load.  A file none of Image.open's readers takes is
+# one it cannot identify: the decoders call it corrupt, as Pillow does.
 _REFUSED = (
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
-    (lambda d: d[:4] in (b"BLP1", b"BLP2"), "BLP"),
     (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
     (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
     (lambda d: d[:6] == b"SIMPLE", "FITS"),
     (lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf") and d[14:16] in (b"\0\0", b"\3\0"), "FLI"),
-    (lambda d: d[:4] == b"FTEX", "FTEX"),
-    (_gbr, "GBR"),
     (lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "GRIB"),
     (lambda d: d[:4] == b"\x89HDF", "HDF5"),
-    (_imt, "IMT"),
     (_iptc, "IPTC"),
-    (lambda d: d[:8] == b"\0\0\0\0\0\0\0\4", "McIdas"),
     (lambda d: d[:4] == b"\x00\x00\x01\xb3", "MPEG"),
     (lambda d: d[2048:2052] == b"PCD_", "PCD"),
-    (lambda d: d[:4] == b"\x80\xe8\x00\x00", "PIXAR"),
-    (_spider, "SPIDER"),
     (lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or d[:4] == b"\x01\x00\x00\x00", "WMF"),
-    (lambda d: d[:6] == b"P7 332", "XVThumb"),
 )
 
 
 # the readers after Pillow's first six (BMP, DIB, GIF, JPEG, PPM, PNG), in Image.ID's order: the refused formats
 # and the ones decoded here (WebP, TIFF and ICO / CUR are tested before them: no reader before theirs takes
-# their signatures)
-_ORDER = ("AVIF", "BLP", "BUFR", "pcx", "dcx", "dds", "EPS", "FITS", "FLI", "FTEX", "GBR", "GRIB", "HDF5",
-          "jpeg2000", "icns", "im", "IMT", "IPTC", "McIdas", "MPEG", "msp", "PCD", "PIXAR", "psd", "qoi", "sgi",
-          "SPIDER", "sun", "tga", "WMF", "xbm", "xpm", "XVThumb")
+# their signatures); a decoded reader's `parse` is its _open's header test
+_ORDER = ("AVIF", "blp", "BUFR", "pcx", "dcx", "dds", "EPS", "FITS", "FLI", "ftex", "gbr", "GRIB", "HDF5",
+          "jpeg2000", "icns", "im", "imt", "IPTC", "mcidas", "MPEG", "msp", "PCD", "pixar", "psd", "qoi", "sgi",
+          "spider", "sun", "tga", "WMF", "xbm", "xpm", "xvthumb")
 _DECODED = {
+    "blp": (blp.accepts, blp.parse), "ftex": (ftex.accepts, ftex.parse), "gbr": (gbr.accepts, gbr.parse),
+    "imt": (imt.accepts, imt.parse), "mcidas": (mcidas.accepts, mcidas.parse),
+    "pixar": (pixar.accepts, pixar.parse), "spider": (spider.accepts, spider.parse),
+    "xvthumb": (xvthumb.accepts, xvthumb.parse),
     "pcx": (pcx.accepts, pcx.parse),
     "dcx": (pcx.dcx_accepts, lambda d: pcx.parse(d, at=pcx.dcx_first_page(d))),
     "dds": (dds.accepts, dds.parse), "icns": (icns.accepts, icns.parse),
@@ -1726,7 +1701,7 @@ def image_comment(data: bytes, name: str = "<bytes>"):
     """The comment Pillow keeps in `info["comment"]` and its JPEG writer carries over: a JPEG file's last
     COM segment before the scan, a GIF's comment extensions before the first image joined by newlines, a
     PNG's last text chunk keyed "comment" (a str, written as UTF-8), a JPEG 2000 file's first COM segment of
-    its main header after its Rcom; None for every other file."""
+    its main header after its Rcom, a GIMP brush's comment; None for every other file."""
     kind = image_format(data)
     if kind == "jpeg":
         return open_header(data, name)[2]
@@ -1736,6 +1711,8 @@ def image_comment(data: bytes, name: str = "<bytes>"):
         return gif.parse(data, name).comment or None
     if kind == "png":
         return png.comment(data, name)
+    if kind == "gbr":
+        return gbr.comment(data, name) or None
     return None
 
 
@@ -1747,8 +1724,9 @@ class UnsupportedImageFormat(ValueError):
 def image_format(data: bytes) -> str:
     """The format a file's first bytes name, as Image.open tries its readers: "jpeg", "png", "gif", "bmp",
     "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "dds", "icns", "im", "jpeg2000", "msp", "psd",
-    "qoi", "sgi", "sun", "tga", "xbm", "xpm", or the name of another format Pillow's Image.open identifies ("AVIF",
-    "BLP", ...), or "unknown"."""
+    "qoi", "sgi", "sun", "tga", "xbm", "xpm", "blp", "ftex", "gbr", "imt", "mcidas", "pixar", "spider", "xvthumb"
+    (Pillow's `format`, lower-case), or the name of another format Pillow's Image.open identifies ("AVIF", "EPS",
+    ...), or "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
@@ -1774,30 +1752,33 @@ def image_format(data: bytes) -> str:
 
 
 DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, DDS, ICNS, IM, JPEG 2000, MSP, "
-           "PSD, QOI, SGI, Sun raster, TGA, XBM and XPM")
+           "PSD, QOI, SGI, Sun raster, TGA, XBM, XPM, BLP, FTEX, GBR, IMT, McIdas, PIXAR, SPIDER and XVThumb")
 
 
 def decode_image(data: bytes, name: str, device) -> np.ndarray:
-    """uint8 [H, W, 3] of an image file's bytes, told apart by its signature (or, for TGA and IM, its
-    header) and decoded as a run on `device` decodes (BMP, DIB, ICO / CUR's DIBs, Netpbm, IM, XBM and XPM
-    have one decoder, numpy; a PSD, DDS or ICNS file's raw pixels too).  A format the port does not decode
-    raises UnsupportedImageFormat; an empty file or one of no format Image.open identifies, and corrupt
-    data, raise ValueError."""
+    """uint8 [H, W, 3] of an image file's bytes, told apart by its signature (or, for TGA, IM and the
+    plugins without one, its header) and decoded as a run on `device` decodes (BMP, DIB, ICO / CUR's DIBs,
+    Netpbm, IM, XBM, XPM, GBR, IMT, McIdas, PIXAR, SPIDER and XVThumb have one decoder, numpy; a PSD, DDS or
+    ICNS file's raw pixels too, and a BLP file's but a BLP1 JPEG).  A format the port does not decode raises
+    UnsupportedImageFormat; an empty file or one of no format Image.open identifies, and corrupt data, raise
+    ValueError."""
     if not data:
         raise ValueError(f"{name}: empty file (cannot identify image file)")
     kind = image_format(data)
     if kind == "jpeg":
         return decoder_for(device)(data, name)
     if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga", "dds", "icns", "psd",
-                "jpeg2000"):
+                "jpeg2000", "ftex", "blp"):
         modules = {"png": png, "gif": gif, "webp": webp, "tiff": tiff, "pcx": pcx, "msp": msp, "qoi": qoi,
-                   "sgi": sgi, "sun": sun, "tga": tga, "dds": dds, "icns": icns, "psd": psd, "jpeg2000": jpeg2000}
+                   "sgi": sgi, "sun": sun, "tga": tga, "dds": dds, "icns": icns, "psd": psd, "jpeg2000": jpeg2000,
+                   "ftex": ftex, "blp": blp}
         return modules[kind].decoder_for(device)(data, name)
     if kind == "dcx":
         return pcx.dcx_decoder_for(device)(data, name)
-    if kind in ("bmp", "dib", "netpbm", "im", "xbm", "xpm"):
+    if kind in ("bmp", "dib", "netpbm", "im", "xbm", "xpm", "gbr", "imt", "mcidas", "pixar", "spider", "xvthumb"):
         return {"bmp": bmp.decode, "dib": bmp.decode_dib, "netpbm": netpbm.decode, "im": im.decode,
-                "xbm": xbm.decode, "xpm": xpm.decode}[kind](data, name)
+                "xbm": xbm.decode, "xpm": xpm.decode, "gbr": gbr.decode, "imt": imt.decode, "mcidas": mcidas.decode,
+                "pixar": pixar.decode, "spider": spider.decode, "xvthumb": xvthumb.decode}[kind](data, name)
     if kind == "ico":
         return ico.decode_ico(data, name, device)
     if kind == "cur":

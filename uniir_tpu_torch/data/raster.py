@@ -46,6 +46,8 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
+
 from uniir_tpu_torch.data.bmp import MAX_PIXELS
 
 KINDS = ("qoi", "tga_rle", "sgi_rle", "pcx_rle", "sun_rle", "msp_rle", "packbits", "icns_rle")
@@ -63,6 +65,21 @@ def check_size(width: int, height: int, name: str) -> None:
         raise NotThisFormat(f"{name}: size {width} x {height}")
     if width * height > MAX_PIXELS:
         raise ValueError(f"{name}: {width * height} pixels (decompression bomb)")
+
+
+def raw_rows(data: bytes, offset: int, height: int, row_bytes: int, name: str, stride: int = 0) -> np.ndarray:
+    """uint8 [height, row_bytes]: the rows Pillow's raw decoder (RawDecode.c) reads from `offset`, `stride` bytes
+    apart (0: packed); ValueError where it fails: a negative offset, a stride below a row's bytes, data that
+    ends first (Image.load: "image file is truncated")."""
+    step = stride or row_bytes
+    if offset < 0:
+        raise ValueError(f"{name}: negative offset {offset} of the pixel data")
+    if step < row_bytes:
+        raise ValueError(f"{name}: row stride {stride} below a row's {row_bytes} bytes (raw decoder configuration)")
+    if offset + (height - 1) * step + row_bytes > len(data):
+        raise ValueError(f"{name}: pixel data cut short (image file is truncated)")
+    return np.lib.stride_tricks.as_strided(np.frombuffer(data, np.uint8, offset=offset), (height, row_bytes),
+                                           (step, 1)).copy()
 
 
 # --- the twins -----------------------------------------------------------------

@@ -36,8 +36,8 @@ For a TIFF file that is the first image (IFD) of the file, read as Pillow
     ReferenceBlackWhite; uncompressed YCbCr as Pillow's raw decoder reads it
     (raw mode RGBX, no conversion);
   * the codecs: PackBits (32773), LZW (5; the MSB-first code with early
-    change, and the old LSB-first "compat" code libtiff detects by its
-    first two bytes), Deflate (8 and 32946, stdlib zlib), LZMA (34925,
+    change, a clear code first, and the old LSB-first "compat" code libtiff
+    detects by its first two bytes), Deflate (8 and 32946, stdlib zlib), LZMA (34925,
     stdlib lzma), ZSTD (50000, `data.zstd`: libtiff's ZSTDDecode over
     libzstd's ZSTD_decompressStream), CCITT for bilevel images (2: modified
     Huffman rows, byte aligned; 3: T.4 1-D or 2-D rows after EOL codes per
@@ -58,12 +58,17 @@ For a TIFF file that is the first image (IFD) of the file, read as Pillow
   * the Orientation tag applied after decoding, as `exif_transpose` does in
     `load_end` (2-8; 5-8 swap width and height).
 
-Refused with UnsupportedImageFormat (kept by the image pass): what Pillow
-reads from what this module does not model -- a Group 4 strip that ends
-before its last row (libtiff leaves the later rows as Pillow's buffer held
-them, uninitialised memory for the first strip), damaged YCbCr strips under
-TIFFRGBAImage (it reads on with the buffer as the codec's failure left it),
-subsampled YCbCr with a predictor.  Refused with ValueError naming the
+Damaged contiguous YCbCr under TIFFRGBAImage, which Pillow begins with
+stop = 0, reads on past a strip or tile that fails with the buffer as the
+failure left it: LZW's, PackBits' and Deflate's output and zeros after it
+(`ChunkError.written`), zeros for ZSTD and for a tile libtiff cannot read;
+the horizontal predictor runs over PredictorSetup's rows of data units, or
+fails and leaves the differences.  Refused with UnsupportedImageFormat (kept
+by the image pass): what Pillow reads from what this module does not model
+-- a Group 4 strip that ends before its last row (libtiff leaves the later
+rows as Pillow's buffer held them, uninitialised memory for the first
+strip), damaged YCbCr planes, JPEG planes or LZMA chunks under
+TIFFRGBAImage.  Refused with ValueError naming the
 file: what Pillow refuses as well (old-style JPEG 6, WebP 50001, NeXT,
 ThunderScan, SGILog, JBIG, LERC, layouts outside OPEN_INFO, a raw mode
 Pillow has no unpacker for, a predictor libtiff's PredictorSetup refuses,
@@ -470,17 +475,35 @@ def orient(rgb: np.ndarray, orientation) -> np.ndarray:
 # --- the codecs
 
 
+class ChunkError(ValueError):
+    """A chunk libtiff's codec fails on, with what the failed call leaves in the first `size` bytes of the
+    caller's buffer (`written`; the bytes past it stay as they were), which TIFFRGBAImage reads on with."""
+
+    def __init__(self, msg: str, written: bytes = b""):
+        super().__init__(msg)
+        self.written = written
+
+
 def lzw_decode(src: bytes, size: int, name: str) -> bytes:
     """libtiff's LZWDecode (MSB-first codes, early change) or LZWDecodeCompat (LSB-first, the old style,
-    chosen by the stream's first two bytes) into `size` bytes."""
-    compat = len(src) >= 2 and src[0] == 0 and src[1] & 1
+    chosen by the stream's first two bytes) into `size` bytes; on an error the bytes decoded so far and zeros
+    to `size` (its memset of the rest), in ChunkError."""
     out = bytearray()
+    try:
+        _lzw(src, size, name, out)
+    except ValueError as err:
+        raise ChunkError(str(err), bytes(out[:size]) + bytes(max(0, size - len(out)))) from None
+    return bytes(out[:size])
+
+
+def _lzw(src: bytes, size: int, name: str, out: bytearray) -> None:
+    compat = len(src) >= 2 and src[0] == 0 and src[1] & 1
     prefix = list(range(258)) + [0] * 4096
     suffix = list(range(256)) + [0, 0] + [0] * 4096
     first = list(range(256)) + [0, 0] + [0] * 4096
     length = [1] * 258 + [0] * 4096
     strings = [bytes([i]) for i in range(256)] + [b"", b""]
-    nbits, free, old = 9, 258, -1
+    nbits, free, old = 9, 258, -2  # -2: before the first clear code, where LZWPreDecode leaves no free entry
     acc, nacc, pos = 0, 0, 0
     n = len(src)
     while len(out) < size:
@@ -506,6 +529,8 @@ def lzw_decode(src: bytes, size: int, name: str) -> bytes:
             del strings[258:]
             nbits, free, old = 9, 258, -1
             continue
+        if old == -2:  # libtiff 4.7's "Using code not yet in table"
+            raise ValueError(f"{name}: corrupted LZW table (code {code} before the first clear code)")
         if old < 0:
             if code >= 256:
                 raise ValueError(f"{name}: corrupted LZW table (a code above 255 after a clear)")
@@ -530,11 +555,11 @@ def lzw_decode(src: bytes, size: int, name: str) -> bytes:
             nbits += 1
     if len(out) < size:
         raise ValueError(f"{name}: LZW stream ends before the strip is full (not enough data)")
-    return bytes(out[:size])
 
 
 def packbits_decode(src: bytes, size: int, name: str) -> bytes:
-    """libtiff's PackBitsDecode into `size` bytes."""
+    """libtiff's PackBitsDecode into `size` bytes: a run cut short by the data's end is dropped (a literal run
+    whole), and short data fails with the rest zeroed (ChunkError)."""
     out = bytearray()
     i, n = 0, len(src)
     while i < n and len(out) < size:
@@ -543,32 +568,178 @@ def packbits_decode(src: bytes, size: int, name: str) -> bytes:
         if c >= 128:
             if c == 128:
                 continue
-            count = 257 - c
             if i >= n:
                 break
-            out += bytes([src[i]]) * min(count, size - len(out))
+            out += bytes([src[i]]) * min(257 - c, size - len(out))
             i += 1
         else:
             take = min(c + 1, size - len(out))
-            if i + c + 1 > n:
-                out += src[i:i + take]
-                i = n
+            if i + take > n:
                 break
             out += src[i: i + take]
-            i += c + 1
+            i += take
     if len(out) < size:
-        raise ValueError(f"{name}: PackBits stream ends before the strip is full (not enough data)")
+        raise ChunkError(f"{name}: PackBits stream ends before the strip is full (not enough data)",
+                         bytes(out) + bytes(size - len(out)))
     return bytes(out)
 
 
 def deflate_decode(src: bytes, size: int, name: str) -> bytes:
+    """libtiff's ZIPDecode into `size` bytes; a failure leaves what inflate wrote before it and zeros to `size`
+    (ChunkError)."""
     try:
         out = zlib.decompressobj().decompress(src, size)
     except zlib.error as err:
-        raise ValueError(f"{name}: corrupt Deflate data ({err})") from None
+        raise ChunkError(f"{name}: corrupt Deflate data ({err})", _inflated_before_error(src, size)) from None
     if len(out) < size:
-        raise ValueError(f"{name}: Deflate stream ends before the strip is full (not enough data)")
+        raise ChunkError(f"{name}: Deflate stream ends before the strip is full (not enough data)",
+                         out + bytes(size - len(out)))
     return out
+
+
+def _huffman_decoder(lengths: list, incomplete_ok: bool):
+    """zlib's inflate_table of code `lengths`: {(length, code): symbol}, None where it refuses the set (over-
+    subscribed, or incomplete unless `incomplete_ok` and the set is a single code of length 1); a set of no code
+    is taken, and no code decodes by it."""
+    counts = [0] * 16
+    for n in lengths:
+        counts[n] += 1
+    counts[0] = 0
+    left, top = 1, max(lengths, default=0)
+    if not top:
+        return {}
+    for n in range(1, 16):
+        left = 2 * left - counts[n]
+        if left < 0:
+            return None
+    if left > 0 and not (incomplete_ok and top == 1):
+        return None
+    code, nxt = 0, [0] * 16
+    for n in range(1, 16):
+        code = (code + counts[n - 1]) << 1
+        nxt[n] = code
+    table = {}
+    for sym, n in enumerate(lengths):
+        if n:
+            table[(n, nxt[n])] = sym
+            nxt[n] += 1
+    return table
+
+
+_LEN_BASE = [3, 4, 5, 6, 7, 8, 9, 10, 11, 13, 15, 17, 19, 23, 27, 31, 35, 43, 51, 59, 67, 83, 99, 115, 131, 163, 195,
+             227, 258]
+_LEN_EXTRA = [0] * 8 + [1] * 4 + [2] * 4 + [3] * 4 + [4] * 4 + [5] * 4 + [0]
+_DIST_BASE = [1, 2, 3, 4, 5, 7, 9, 13, 17, 25, 33, 49, 65, 97, 129, 193, 257, 385, 513, 769, 1025, 1537, 2049, 3073,
+              4097, 6145, 8193, 12289, 16385, 24577]
+_DIST_EXTRA = [0, 0, 0, 0] + [k // 2 for k in range(2, 28)]
+_ORDER = [16, 17, 18, 0, 8, 7, 9, 6, 10, 5, 11, 4, 12, 3, 13, 2, 14, 1, 15]
+
+
+class _InflateStop(Exception):
+    """Where zlib's inflate stops on a stream: a check it fails, or the data's end."""
+
+
+def _inflated_before_error(src: bytes, size: int) -> bytes:
+    """The `size` bytes libtiff's buffer holds after zlib's inflate fails on `src` (a zlib stream): the output of
+    every symbol before the one zlib rejects, zeros after it.  zlib's checks: the header, the block types, the
+    stored lengths, the code length sets (over-subscribed or incomplete ones refused, a single distance or
+    literal code of length 1 allowed), the literal / length symbols 286-287 and distance symbols 30-31, a
+    distance past the output, and the checksum (which fails after all the output)."""
+    out = bytearray()
+    pos = 0  # bit position
+
+    def bits(n: int) -> int:
+        nonlocal pos
+        v = 0
+        for k in range(n):
+            if pos >> 3 >= len(src):
+                raise _InflateStop("the data ends")
+            v |= ((src[pos >> 3] >> (pos & 7)) & 1) << k
+            pos += 1
+        return v
+
+    def symbol(table: dict) -> int:
+        code = 0
+        for n in range(1, 16):
+            code = (code << 1) | bits(1)
+            if (n, code) in table:
+                return table[(n, code)]
+        raise _InflateStop("invalid code")
+
+    try:
+        if len(src) < 2 or ((src[0] << 8) | src[1]) % 31 or src[0] & 15 != 8 or src[0] >> 4 > 7 or src[1] & 0x20:
+            raise _InflateStop("bad header")
+        pos = 16
+        final = False
+        while not final and len(out) < size:
+            final, kind = bits(1), bits(2)
+            if kind == 0:
+                pos = (pos + 7) & ~7
+                n, nn = bits(16), bits(16)
+                if n != nn ^ 0xFFFF:
+                    raise _InflateStop("invalid stored block lengths")
+                for _ in range(n):
+                    out.append(bits(8))
+                continue
+            if kind == 3:
+                raise _InflateStop("invalid block type")
+            if kind == 1:
+                lit = _huffman_decoder([8] * 144 + [9] * 112 + [7] * 24 + [8] * 8, False)
+                dist = _huffman_decoder([5] * 32, False)
+            else:
+                nlen, ndist, ncode = bits(5) + 257, bits(5) + 1, bits(4) + 4
+                if nlen > 286 or ndist > 30:
+                    raise _InflateStop("too many length or distance symbols")
+                lens = [0] * 19
+                for k in range(ncode):
+                    lens[_ORDER[k]] = bits(3)
+                codes = _huffman_decoder(lens, False)
+                if codes is None:
+                    raise _InflateStop("invalid code lengths set")
+                lengths = []
+                while len(lengths) < nlen + ndist:
+                    sym = symbol(codes)
+                    if sym < 16:
+                        lengths.append(sym)
+                        continue
+                    if sym == 16:
+                        if not lengths:
+                            raise _InflateStop("invalid bit length repeat")
+                        rep, value = 3 + bits(2), lengths[-1]
+                    else:
+                        rep, value = (3 + bits(3), 0) if sym == 17 else (11 + bits(7), 0)
+                    if len(lengths) + rep > nlen + ndist:
+                        raise _InflateStop("invalid bit length repeat")
+                    lengths += [value] * rep
+                if not lengths[256]:
+                    raise _InflateStop("invalid code -- missing end-of-block")
+                lit = _huffman_decoder(lengths[:nlen], True)
+                if lit is None:
+                    raise _InflateStop("invalid literal/lengths set")
+                dist = _huffman_decoder(lengths[nlen:], True)
+                if dist is None:
+                    raise _InflateStop("invalid distances set")
+            while True:
+                sym = symbol(lit)
+                if sym < 256:
+                    out.append(sym)
+                    continue
+                if sym == 256:
+                    break
+                if sym > 285:
+                    raise _InflateStop("invalid literal/length code")
+                length = _LEN_BASE[sym - 257] + bits(_LEN_EXTRA[sym - 257])
+                d = symbol(dist)
+                if d > 29:
+                    raise _InflateStop("invalid distance code")
+                d = _DIST_BASE[d] + bits(_DIST_EXTRA[d])
+                if d > len(out):
+                    raise _InflateStop("invalid distance too far back")
+                for _ in range(length):
+                    out.append(out[-d])
+    except _InflateStop:  # what inflate wrote before the symbol it rejects stays
+        pass
+    return bytes(out[:size]) + bytes(max(0, size - len(out)))
 
 
 def lzma_decode(src: bytes, size: int, name: str) -> bytes:
@@ -1165,7 +1336,10 @@ def plan(data: bytes, t: Tiff, name: str, inflate: bool) -> Plan:
                 if inflate and t.compression in (8, 32946, 34925):  # zlib / lzma here, releasing the GIL
                     if t.fillorder == 2:
                         raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-                    out = (deflate_decode if t.compression != 34925 else lzma_decode)(raw, size, name)
+                    try:
+                        out = (deflate_decode if t.compression != 34925 else lzma_decode)(raw, size, name)
+                    except ChunkError as err:  # outside TIFFRGBAImage a failed chunk fails the file
+                        raise ValueError(str(err)) from None
                     kind, off, count = 1, len(pre), size
                     pre += out[:size]
                 chunks.append([kind, off, count, x0, y0, x1 - x0, rows, row_bytes, p if planar else -1,
@@ -1183,12 +1357,12 @@ def subsampling(t: Tiff) -> tuple:
 
 # TIFFRGBAImage's put routines for contiguous YCbCr by subsampling, and the bytes each skips for a data unit left
 # of a clipped tile's edge: 4x4 skips by the 4x2 unit's size (putcontig8bitYCbCr44tile's "(4 * 2 + 2)")
-_PUT_SKIP = {(4, 4): 10, (4, 2): 10, (4, 1): 6, (2, 2): 6, (2, 1): 4, (1, 2): 4}
+_PUT_SKIP = {(4, 4): 10, (4, 2): 10, (4, 1): 6, (2, 2): 6, (2, 1): 4, (1, 2): 4, (1, 1): 3}
 
 
 def ycbcr_units(t: Tiff, name: str):
-    """(horizontal, vertical) subsampling where libtiff's TIFFRGBAImage reads contiguous YCbCr in data units
-    (each h x v block's Y samples, then Cb and Cr), None for 1x1 (samples as they stand) and planes; ValueError
+    """(horizontal, vertical) subsampling of contiguous YCbCr, which libtiff's TIFFRGBAImage reads in data units
+    (each h x v block's Y samples, then Cb and Cr; 1x1: the samples as they stand), None for planes; ValueError
     where TIFFRGBAImage has no put routine (Pillow: decoder error)."""
     sub = subsampling(t)
     if t.bps != (8, 8, 8):
@@ -1198,25 +1372,21 @@ def ycbcr_units(t: Tiff, name: str):
             raise ValueError(f"{name}: YCbCr in separate planes with subsampling {sub} (TIFFRGBAImage "
                              "reads planes at 1x1 only)")
         return None
-    if sub == (1, 1):
-        return None
     if sub not in _PUT_SKIP:
         raise ValueError(f"{name}: YCbCr subsampling {sub} (TIFFRGBAImage has no put routine for it)")
     return sub
 
 
 def _unit_plan(data: bytes, t: Tiff, lay: _Layout, name: str, sub: tuple, inflate: bool, spec_of, rawmodes) -> Plan:
-    """The chunks of subsampled contiguous YCbCr as TIFFRGBAImage reads them: a strip decoded to ceil(rows / v)
-    rows of data units (a tile to its whole height), only the bytes gtStripContig asks for (its rows rounded up to
-    v, times TIFFScanlineSize, which cuts an odd 4x4 unit row short; the rest of its buffer zeros); row r of units
-    `stride` bytes after row r - 1 (a clipped tile skips the units right of its edge as `_PUT_SKIP` says)."""
+    """The chunks of contiguous YCbCr as TIFFRGBAImage reads them: a strip decoded to ceil(rows / v) rows of data
+    units (a tile to its whole height), only the bytes gtStripContig asks for (its rows rounded up to v, times
+    TIFFScanlineSize, which cuts an odd 4x4 unit row short; the rest of its buffer zeros); row r of units `stride`
+    bytes after row r - 1 (a clipped tile skips the units right of its edge as `_PUT_SKIP` says).  A chunk
+    libtiff cannot read (TIFFFillStrip / TIFFFillTile: no byte count, or bytes past the file's end) is kind 3
+    (zeros where it does not fail the file); with `inflate`, a zlib chunk that fails is kind 4, its `pre` bytes
+    what the failed call leaves."""
     sh, sv = sub
     unit = sh * sv + 2
-    if _predictor(t, name) != 1:
-        from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
-
-        raise UnsupportedImageFormat(f"{name}: YCbCr subsampled {sh}x{sv} with a predictor (libtiff undoes it over "
-                                     "TIFFScanlineSize rows of data units, which the port does not model)")
     spec = spec_of(f"YCC;{sh}{sv}")
     across = -(-t.width // lay.cw) if lay.tiled else 1
     down = -(-t.height // lay.ch)
@@ -1233,13 +1403,19 @@ def _unit_plan(data: bytes, t: Tiff, lay: _Layout, name: str, sub: tuple, inflat
             x0, y0 = i * lay.cw, j * lay.ch
             vis = min(x0 + lay.cw, t.width) - x0
             stride = -(-vis // sh) * unit + (lay.cw - vis) // sh * _PUT_SKIP[sub]
+            if k >= len(lay.counts) or not lay.counts[k] or lay.offsets[k] + lay.counts[k] > len(data):
+                chunks.append([3, 0, 0, x0, y0, vis, rows, stride, -1, spec, size, lay.cw])
+                continue
             raw = _chunk_bytes(data, lay, k, name)
             kind, off, count = 2, lay.offsets[k], len(raw)
             if inflate and t.compression in (8, 32946, 34925):
                 if t.fillorder == 2:
                     raw = _REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
-                out = (deflate_decode if t.compression != 34925 else lzma_decode)(raw, size, name)
-                kind, off, count = 1, len(pre), size
+                try:
+                    out, kind = (deflate_decode if t.compression != 34925 else lzma_decode)(raw, size, name), 1
+                except ChunkError as err:
+                    out, kind = err.written, 4
+                off, count = len(pre), size
                 pre += out[:size]
             chunks.append([kind, off, count, x0, y0, vis, rows, stride, -1, spec, size, lay.cw])
     return Plan(chunks, rawmodes, bytes(pre), False)
@@ -1264,15 +1440,24 @@ def _pixels_twin(data: bytes, t: Tiff, name: str, p: Plan) -> np.ndarray:
         rows = min(rows, t.height - y0)
         if p.rawmodes[r].startswith("YCC;"):
             sh, sv = int(p.rawmodes[r][4]), int(p.rawmodes[r][5])
-            dec = pre_or_codec(kind, off, count, size, rows, cw)
-            held = bytearray(_strip_buffer(t, name))  # gtStripContig's buffer, zeroed for each of Pillow's calls
-            held[: len(dec)] = dec
+            # gtStripContig's / gtTileContig's buffer: every call writes all `size` bytes it asks for, a chunk
+            # that cannot be read zeros (TIFFReadEncodedTile's memset), so nothing of an earlier chunk shows
+            held = bytearray(_strip_buffer(t, name))
+            if kind != 3:
+                try:
+                    dec = pre_or_codec(kind, off, count, size, rows, cw)
+                except ChunkError as err:  # TIFFRGBAImage reads on (Pillow passes stop = 0)
+                    dec = err.written
+                held[: len(dec)] = dec
             img[y0:y0 + rows, x0:x0 + w] = _units(held, sh, sv, stride, rows, w)
             continue
         if kind == 0:
             rows_arr = np.lib.stride_tricks.as_strided(whole[off:], (rows, size), (stride, 1))
         else:
-            dec = codec(data[off: off + count], size, size // stride, cw)
+            try:
+                dec = codec(data[off: off + count], size, size // stride, cw)
+            except ChunkError as err:  # outside TIFFRGBAImage a failed chunk fails the file
+                raise ValueError(str(err)) from None
             rows_arr = np.frombuffer(dec, np.uint8)[: stride * rows].reshape(rows, stride)
         px = unpack(p.rawmodes[r], rows_arr, w)
         if band >= 0:
@@ -1283,12 +1468,30 @@ def _pixels_twin(data: bytes, t: Tiff, name: str, p: Plan) -> np.ndarray:
 
 
 def _strip_buffer(t: Tiff, name: str) -> int:
-    """TIFFStripSize (TIFFTileSize) of subsampled YCbCr: the buffer TIFFRGBAImage decodes every strip into."""
-    sub = ycbcr_units(t, name) if is_rgba_image(t) else None
+    """TIFFStripSize (TIFFTileSize) of contiguous YCbCr: the buffer TIFFRGBAImage decodes every strip into."""
+    sub = ycbcr_units(t, name) if is_rgba_image(t) and t.compression != 7 else None
     if not sub:
         return 0
     lay = _layout(t, name)
     return -(-lay.cw // sub[0]) * (sub[0] * sub[1] + 2) * -(-lay.ch // sub[1])
+
+
+def _unit_rowsize(t: Tiff, name: str) -> int:
+    """The row size libtiff's PredictorSetup takes for contiguous YCbCr: TIFFScanlineSize of a strip (a row of
+    data units over v, rounded down) or TIFFTileRowSize of a tile (its width times 3, subsampling ignored)."""
+    lay = _layout(t, name)
+    sh, sv = ycbcr_units(t, name)
+    return lay.cw * 3 if lay.tiled else -(-t.width // sh) * (sh * sv + 2) // sv
+
+
+def _predictor2_units(buf: np.ndarray, rowsize: int, name: str) -> np.ndarray:
+    """tif_predict.c's PredictorDecodeTile with horAcc8 over contiguous YCbCr data units: sums of every third
+    byte within each `rowsize` bytes; a chunk not a whole number of rows, or rows not of whole 3-byte strides,
+    fails with the bytes left undifferenced (ChunkError)."""
+    if buf.size % rowsize or rowsize % 3:
+        raise ChunkError(f"{name}: horizontal differencing over rows of {rowsize} bytes in a chunk of {buf.size} "
+                         "(libtiff's predictor fails)", buf.tobytes())
+    return np.cumsum(buf.reshape(-1, rowsize // 3, 3), axis=1, dtype=np.uint8).reshape(-1)
 
 
 def _units(buf, sh: int, sv: int, stride: int, rows: int, width: int) -> np.ndarray:
@@ -1322,6 +1525,7 @@ def _codec_for(t: Tiff, name: str):
     predictor = _predictor(t, name)
     spp = 1 if t.planar == 2 else t.spp
     sample_bits = t.bps[0]
+    unit_rowsize = _unit_rowsize(t, name) if predictor == 2 and _strip_buffer(t, name) else 0
     swap = t.order == "MM" and sample_bits in (16, 32) and all(b == sample_bits for b in t.bps)
     fax = None  # libtiff's CCITT run arrays, which live from strip to strip
 
@@ -1349,7 +1553,9 @@ def _codec_for(t: Tiff, name: str):
         buf = np.frombuffer(out, np.uint8)[:size].copy()
         if swap and predictor != 3:  # libtiff's postdecode: samples to native (little-endian) order
             buf = buf.view(f">u{sample_bits // 8}").astype(f"<u{sample_bits // 8}").view(np.uint8)
-        if predictor == 2:
+        if unit_rowsize:
+            buf = _predictor2_units(buf, unit_rowsize, name)
+        elif predictor == 2:
             buf = _predictor2(buf, rows, width, spp, sample_bits)
         elif predictor == 3:
             buf = _predictor3(buf, rows, width, spp, sample_bits)
@@ -1471,27 +1677,43 @@ def is_rgba_image(t: Tiff) -> bool:
 
 def _rgba_image(data: bytes, t: Tiff, name: str, native: bool) -> np.ndarray:
     """RGB of YCbCr as TIFFRGBAImage gives it (data units or planes, libtiff's YCbCr -> RGB tables), then
-    Pillow's exif_transpose (TIFFRGBAImage itself flips nothing for Pillow).  Its reader carries on past a chunk that fails to decode (its buffer
-    as the failure left it), which the port does not model: such damage raises UnsupportedImageFormat, and only a
-    first chunk that cannot be read at all fails the file, as in Pillow."""
+    Pillow's exif_transpose (TIFFRGBAImage itself flips nothing for Pillow).  Pillow begins it with stop = 0, so
+    gtStripContig / gtTileContig read on past a contiguous chunk that fails to decode, with their buffer as the
+    failure left it (`_pixels_twin`); a chunk that cannot be read fails the file where it starts one of Pillow's
+    calls (a strip, or a row of tiles), whose buffer is then not yet allocated.  Damage elsewhere -- planes,
+    JPEG planes, LZMA chunks -- raises UnsupportedImageFormat: gtStripSeparate's buffer and libjpeg's and
+    liblzma's partial output are not modelled."""
     from uniir_tpu_torch.data.jpeg import UnsupportedImageFormat
 
     ycbcr_units(t, name)
     _predictor(t, name)
     _chunk_bytes(data, _layout(t, name), 0, name)
+
+    def unmodelled(err: ValueError) -> UnsupportedImageFormat:
+        return UnsupportedImageFormat(f"{name}: damaged YCbCr TIFF data, which libtiff's TIFFRGBAImage decodes on "
+                                      f"past ({str(err).removeprefix(name + ': ')})")
+
     try:
         if t.compression == 7:  # JPEG planes, YCbCr 1x1 (ycbcr_units)
             px = _jpeg_chunks(data, t, name, native)
         else:
             p = plan(data, t, name, inflate=native)
-            if native:
-                return _decode_native(data, t, name, p, None)  # converted and transposed there
-            px = _pixels_twin(data, t, name, p)
     except UnsupportedImageFormat:
         raise
     except ValueError as err:
-        raise UnsupportedImageFormat(f"{name}: damaged YCbCr TIFF data, which libtiff's TIFFRGBAImage decodes on "
-                                     f"past ({str(err).removeprefix(name + ': ')})") from None
+        raise unmodelled(err) from None
+    if t.compression != 7:
+        unread = [k for k, c in enumerate(p.chunks) if c[0] == 3 and c[3] == 0]
+        if unread:
+            raise ValueError(f"{name}: truncated TIFF file (strip or tile {unread[0]} cannot be read; read error)")
+        try:
+            if native:
+                return _decode_native(data, t, name, p, None)  # converted and transposed there
+            px = _pixels_twin(data, t, name, p)
+        except UnsupportedImageFormat:
+            raise
+        except ValueError as err:
+            raise unmodelled(err) from None
     y_tab, cr_r, cb_b, cr_g, cb_g = _ycc_of(t)
     y, cb, cr = (px[..., k].astype(np.int64) for k in range(3))
     rgb = np.stack([y_tab[y] + cr_r[cr], y_tab[y] + ((cb_g[cb] + cr_g[cr]) >> 16), y_tab[y] + cb_b[cb]], axis=2)
@@ -1562,7 +1784,8 @@ def _decode_native(data: bytes, t: Tiff, name: str, p: Plan, palette) -> np.ndar
     orientation = t.orientation if t.orientation in range(2, 9) else 1
     params = np.array([t.width, t.height, bands, storage, mode, t.compression, _one(t.tags, T4OPTIONS, 0) or 0,
                        predictor, t.fillorder, swap, 1 if t.planar == 2 else t.spp, max(sample_bits // 8, 1),
-                       orientation, int(p.premult), _strip_buffer(t, name)], np.int32)
+                       orientation, int(p.premult), _strip_buffer(t, name),
+                       _unit_rowsize(t, name) if predictor == 2 and _strip_buffer(t, name) else 0], np.int32)
     chunk_arr = np.array(p.chunks, np.int64).reshape(-1, len(CHUNK_FIELDS))
     spec_arr = np.array([native_spec(r) for r in p.rawmodes], np.int32).reshape(-1, 9)
     palette = palette.tobytes() if palette is not None else bytes(768)

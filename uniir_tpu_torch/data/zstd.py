@@ -966,13 +966,18 @@ def _frame_extent(data: bytes, h: Header):
 
 
 def decode_stream(data: bytes, size: int, name: str = "<bytes>") -> bytes:
-    """libtiff's ZSTDDecode of one strip or tile into `size` bytes (module docstring)."""
+    """libtiff's ZSTDDecode of one strip or tile into `size` bytes (module docstring).  Its one call of
+    ZSTD_decompressStream either fails, which reports no output, or stops where the data ends: what a failure
+    leaves is zeros from the output position on (ChunkError)."""
+    from uniir_tpu_torch.data.tiff import ChunkError
+
     try:
         out = _stream(bytes(data), size)
-    except _Corrupt as err:
-        raise ValueError(f"{name}: corrupt ZSTD data ({err})") from None
+    except _Corrupt as err:  # the one call's progress is not reported: ZSTDDecode zeroes all it asked for
+        raise ChunkError(f"{name}: corrupt ZSTD data ({err})", bytes(size)) from None
     if len(out) < size:
-        raise ValueError(f"{name}: ZSTD stream ends before the strip is full (not enough data)")
+        raise ChunkError(f"{name}: ZSTD stream ends before the strip is full (not enough data)",
+                         out + bytes(size - len(out)))
     return out
 
 
@@ -990,6 +995,10 @@ def _native(data: bytes, capacity: int, stream: int, name: str) -> bytes:
     size = ctypes.c_size_t(0)
     err = ctypes.create_string_buffer(256)
     if lib.uniir_zstd_decompress(data, len(data), out, capacity, stream, ctypes.byref(size), err, len(err)) != 0:
+        if stream:  # ZSTDDecode zeroes all it asked for (`decode_stream`)
+            from uniir_tpu_torch.data.tiff import ChunkError
+
+            raise ChunkError(f"{name}: {err.value.decode()}", bytes(capacity))
         raise ValueError(f"{name}: {err.value.decode()}")
     return out.raw[: size.value]
 
@@ -1000,8 +1009,11 @@ def decompress_native(data: bytes, capacity: int, name: str = "<bytes>") -> byte
 
 
 def decode_stream_native(data: bytes, size: int, name: str = "<bytes>") -> bytes:
-    """`decode_stream` through csrc/zstd.cuh."""
+    """`decode_stream` through csrc/zstd.cuh, failing as it does (ChunkError with what the call leaves)."""
+    from uniir_tpu_torch.data.tiff import ChunkError
+
     out = _native(data, size, 1, name)
     if len(out) < size:
-        raise ValueError(f"{name}: ZSTD stream ends before the strip is full (not enough data)")
+        raise ChunkError(f"{name}: ZSTD stream ends before the strip is full (not enough data)",
+                         out + bytes(size - len(out)))
     return out
