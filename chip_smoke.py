@@ -638,12 +638,14 @@ RAISING_KINDS = (*TIFF_KINDS, "zstd")
 # the forms whose bytes csrc/raster.cu decodes: each file goes through one of its entries once
 RASTER_CASE_FORMS = ("qoi_rgb", "qoi_rgba", "tga_rle_rgb", "tga_rle_rgba", "tga_rle_grey", "tga_rle_cmap16",
                      "sgi_rle", "sgi_rle_16", "pcx_rgb", "pcx_palette", "pcx_planar", "dcx", "sun_rle",
-                     "sun_rle_palette", "msp_v2")
+                     "sun_rle_palette", "msp_v2", "fli_brun", "fli_color64_lc", "flc_brun_ss2", "flc_copy_lc",
+                     "flc_black_ss2_odd", "flc_pstamp", "flc_palette_mid", "flc_two_frames")
 
 
 def raster_case(form: str, rng, w: int, h: int) -> bytes:
     """A seeded file of `form` (RASTER_CASE_FORMS) at w x h: samples in runs along rows, repeated rows and
-    noise, so each format's runs and literals both occur."""
+    noise, so each format's runs and literals both occur (FLI / FLC: the first band as palette indices, each
+    delta from a seeded change of them)."""
     img = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
     img = np.where(rng.random((h, w, 1)) < 0.6, img[:, :1], img)
     img = np.where(rng.random((h, 1, 1)) < 0.3, img[:1], img).astype(np.uint8)
@@ -670,6 +672,8 @@ def raster_case(form: str, rng, w: int, h: int) -> bytes:
         return sun_bytes(img[..., :3])
     if form == "sun_rle_palette":
         return sun_bytes(idx, palette=palette[:48])
+    if form in FLI_FORMS:
+        return fli_bytes(form, img[..., 0], rng)
     return msp_bytes(img[..., 0] > 127)
 
 
@@ -1282,6 +1286,7 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     check_raising_kinds(cases, smi)
     check_tiff_rates(smi)
     check_raster_size(cases["raster_size"], threads, smi)
+    check_plugin_rates(smi)
     check_container_size(cases["container_size"], smi)
     check_jpeg2000(cases["jpeg2000"], cases["jpeg2000_twin"], threads, smi)
     check_jpeg_damage(cases["jpeg_damage"], threads, smi)
@@ -3565,7 +3570,7 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
 TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi",
-               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged", "tiff_zstd", "ftex_bc1")
+               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged", "tiff_zstd", "ftex_bc1", "flc")
 # phase 10's JPEG 2000 queries: files of the stored corpus (no JPEG 2000 writer here)
 JPEG2000_QUERIES = {"jp2_lossless": "11_rlcp.jp2", "j2k_irreversible": "53_style_bypass_irreversible.j2k"}
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
@@ -3575,8 +3580,8 @@ def swapped_decoders():
     """Every native image decoder swapped for its twin (`data.jpeg.read_image` looks each up at each call),
     each file's bytes decoded once: the loader pads a one-query batch by repeating its row, and the numpy
     twins would decode the same bytes to the same pixels BATCH times.  Call the result to swap them back."""
-    from uniir_tpu_torch.data import dds, ftex, gif, icns, jpeg, jpeg2000, msp, pcx, png, psd, qoi, sgi, sun, tga, tiff
-    from uniir_tpu_torch.data import webp
+    from uniir_tpu_torch.data import dds, fli, ftex, gif, icns, jpeg, jpeg2000, msp, pcx, png, psd, qoi, sgi, sun, tga
+    from uniir_tpu_torch.data import tiff, webp
 
     def decoded_once(twin):
         pixels = {}
@@ -3589,7 +3594,7 @@ def swapped_decoders():
         return decode
 
     saved = [(m, m.decoder_for) for m in (gif, jpeg, png, tiff, webp, qoi, tga, sgi, pcx, sun, msp, dds, icns, psd,
-                                          jpeg2000, ftex)]
+                                          jpeg2000, ftex, fli)]
     for module, _ in saved:
         module.decoder_for = lambda device, twin=decoded_once(module.decode_twin): twin
 
@@ -3605,9 +3610,10 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     """One request of one image query from a file of `form` (`fixture_file`: a GIF, a BMP, a CMYK JPEG, a
     lossy WebP, a lossless WebP with alpha, an LZW TIFF, a ZSTD TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
     QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD, a lossless JP2 or an irreversible J2K file of the
-    stored corpus, a damaged 4:2:0 JPEG of the damaged-JPEG corpus, or an FTEX file of BC1 blocks
-    (`dxt1_encode`)) through the interactive retriever: the native decoder (GIF / JPEG / WebP / TIFF / JPEG
-    2000, csrc/raster.cu for TGA, QOI and PSD, csrc/bcn.cu for DDS and FTEX; BMP has one decoder), K1, K2; held to
+    stored corpus, a damaged 4:2:0 JPEG of the damaged-JPEG corpus, an FTEX file of BC1 blocks
+    (`dxt1_encode`), or an FLC file of BRUN and SS2 chunks) through the interactive retriever: the native
+    decoder (GIF / JPEG / WebP / TIFF / JPEG 2000, csrc/raster.cu for TGA, QOI, PSD and FLC, csrc/bcn.cu for
+    DDS and FTEX; BMP has one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
     from uniir_tpu_torch.data import gif, jpeg, jpeg2000, tiff, webp
@@ -3622,7 +3628,7 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
               "jpeg_arith": jpeg.decode_native, "tga_rle": RasterNative(), "qoi": RasterNative(),
               "dds_bc7": ContainerNative(), "psd_rle": ContainerNative(), "jp2_lossless": jpeg2000.decode_native,
               "j2k_irreversible": jpeg2000.decode_native, "jpeg_damaged": jpeg.decode_native,
-              "ftex_bc1": ContainerNative()}.get(form)
+              "ftex_bc1": ContainerNative(), "flc": RasterNative()}.get(form)
 
     def request(query_rel: str):
         retriever = InteractiveRetriever(index_path, cands_path, "MSCOCO", tools_config(root), bundle=bundle,
@@ -6229,6 +6235,382 @@ def blp_bytes(form: str, image: np.ndarray, rng) -> bytes:
     return head + offsets + lengths + extra + mip
 
 
+# ------------------------------- writers of FITS, FLI / FLC, PCD and IPTC files (Pillow writes none of them)
+
+
+def fits_card(key: str, value=None) -> bytes:
+    """An 80-byte FITS card: the keyword, and "= " and the value right-aligned to column 30 where given."""
+    card = key.ljust(8).encode()
+    if value is not None:
+        card += b"= " + (value if isinstance(value, bytes) else str(value).encode()).rjust(20)
+    return card.ljust(80)
+
+
+def fits_header(cards: list) -> bytes:
+    """Cards, END, and blanks to a multiple of 2880 bytes."""
+    head = b"".join(cards) + fits_card("END")
+    return head + b" " * (-len(head) % 2880)
+
+
+def fits_bytes(pixels: bytes, bitpix: int, w: int, h: int, *, naxis: int = 2, cards: tuple = ()) -> bytes:
+    """A FITS file of one primary image: SIMPLE = T, BITPIX, NAXIS (1: NAXIS1 = h, as Pillow reads it; 3: a
+    second plane of zeros after the first), `cards`, then `pixels` (the file's bytes of h rows of w samples,
+    the first row the bottom one as Pillow reads it), padded with zeros to a multiple of 2880."""
+    axes = [fits_card("NAXIS1", h)] if naxis == 1 else [fits_card("NAXIS1", w), fits_card("NAXIS2", h)]
+    if naxis == 3:
+        axes.append(fits_card("NAXIS3", 2))
+        pixels += bytes(len(pixels))
+    head = fits_header([fits_card("SIMPLE", "T"), fits_card("BITPIX", bitpix), fits_card("NAXIS", naxis), *axes,
+                        *cards])
+    return head + pixels + bytes(-len(pixels) % 2880)
+
+
+def fits_gzip_bytes(groups: bytes, zbitpix: int, w: int, h: int, table: tuple = (8, 1)) -> bytes:
+    """A tiled FITS file as Pillow's GZIP_1 reader takes it: a primary header of NAXIS 0, a BINTABLE extension
+    (ZIMAGE = T, ZCMPTYPE = 'GZIP_1  ', ZBITPIX, ZNAXIS1 / 2 = w / h) of `table` (NAXIS1, NAXIS2) bytes, then
+    the gzip stream of `groups` (4 bytes a pixel, rows bottom-up as Pillow reads them) and zeros to 2880."""
+    primary = fits_header([fits_card("SIMPLE", "T"), fits_card("BITPIX", 8), fits_card("NAXIS", 0),
+                           fits_card("EXTEND", "T")])
+    ext = fits_header([fits_card("XTENSION", b"'BINTABLE'"), fits_card("BITPIX", 8), fits_card("NAXIS", 2),
+                       fits_card("NAXIS1", table[0]), fits_card("NAXIS2", table[1]), fits_card("ZIMAGE", "T"),
+                       fits_card("ZCMPTYPE", b"'GZIP_1  '"), fits_card("ZBITPIX", zbitpix), fits_card("ZNAXIS", 2),
+                       fits_card("ZNAXIS1", w), fits_card("ZNAXIS2", h)])
+    data = bytes(table[0] * table[1]) + gzip_member(groups)
+    return primary + ext + data + bytes(-len(data) % 2880)
+
+
+def gzip_member(data: bytes) -> bytes:
+    """A gzip member of `data` (zlib's deflate, no name, mtime 0)."""
+    c = zlib.compressobj(6, zlib.DEFLATED, -15)
+    body = c.compress(data) + c.flush()
+    return b"\x1f\x8b\x08\x00\x00\x00\x00\x00\x00\xff" + body + struct.pack("<II", zlib.crc32(data), len(data))
+
+
+def fits_samples(image: np.ndarray, bitpix: int, rng) -> bytes:
+    """A FITS data part whose samples Pillow reads as the grey image uint8 [H, W] (its rows bottom-up): BITPIX
+    16 / 32 as the little-endian bytes Pillow's reading takes, a seeded few above 255 or below 0; -32 / -64
+    as little-endian float32 within 0.5 of the value (-64: each sample's second 4 bytes seeded, since Pillow
+    reads float32 from the first half of the rows' bytes)."""
+    grey = image[::-1].astype(np.int64)
+    odd = rng.random(grey.shape) < 0.05
+    if bitpix == 8:
+        return grey.astype(np.uint8).tobytes()
+    if bitpix == 16:
+        return np.where(odd, grey + 256 * rng.integers(1, 256, grey.shape), grey).astype("<u2").tobytes()
+    if bitpix == 32:
+        return np.where(odd, rng.integers(-(2 ** 31), 2 ** 31, grey.shape), grey).astype("<i4").tobytes()
+    values = (grey + rng.uniform(-0.5, 0.5, grey.shape)).astype("<f4")
+    if bitpix == -32:
+        return values.tobytes()
+    h, w = grey.shape  # Pillow reads 4 * w * h bytes from the 8 * w * h the rows hold
+    return values.tobytes() + rng.bytes(4 * w * h)
+
+
+def fli_chunk(kind: int, body: bytes, pad: bool = True) -> bytes:
+    """An FLI subchunk: its size (6 + the body, made even where `pad`), type and body."""
+    body += b"\0" * (pad and len(body) % 2)
+    return struct.pack("<IH", 6 + len(body), kind) + body
+
+
+def fli_frame(chunks: list, kind: int = 0xF1FA) -> bytes:
+    """An FLI frame chunk of subchunks: its size, type, count and 8 reserved bytes."""
+    body = b"".join(chunks)
+    return struct.pack("<IHH8x", 16 + len(body), kind, len(chunks)) + body
+
+
+def fli_palette(palette: np.ndarray, packets: list, shift: int) -> bytes:
+    """A COLOR_256 (shift 0) / COLOR_64 (shift 2) chunk's body: packets of (skip, count) over the palette's
+    [256, 3] entries (a count of 256 written as 0), each entry shifted right by `shift`."""
+    out, i = bytearray(struct.pack("<H", len(packets))), 0
+    for skip, count in packets:
+        i += skip
+        out += bytes((skip, count % 256)) + (palette[i : i + count] >> shift).astype(np.uint8).tobytes()
+        i += count
+    return bytes(out)
+
+
+def _runs(row: np.ndarray) -> list:
+    """(value, length) runs of a uint8 row."""
+    edges = np.flatnonzero(np.diff(row.astype(np.int16))) + 1
+    starts = np.concatenate([[0], edges])
+    lengths = np.diff(np.concatenate([starts, [len(row)]]))
+    return list(zip(row[starts].tolist(), lengths.tolist()))
+
+
+def fli_brun(indices: np.ndarray) -> bytes:
+    """A BRUN chunk's body: each row a packet count byte, runs of 2-127 equal bytes (count, value) and
+    literals of 1-128 bytes (256 - count, bytes)."""
+    out = bytearray()
+    for row in indices:
+        packets, line, literal = 0, bytearray(), bytearray()
+
+        def flush():
+            nonlocal packets, literal
+            for k in range(0, len(literal), 128):
+                part = literal[k : k + 128]
+                line.extend(bytes((256 - len(part),)) + part)
+                packets += 1
+            literal = bytearray()
+
+        for value, length in _runs(row):
+            if length < 2:
+                literal.append(value)
+                continue
+            flush()
+            while length:
+                n = min(length, 127)
+                if n < 2:
+                    literal.append(value)
+                    flush()
+                else:
+                    line += bytes((n, value))
+                    packets += 1
+                length -= n
+        flush()
+        out += bytes((packets % 256,)) + line
+    return bytes(out)
+
+
+def fli_ss2(old: np.ndarray, new: np.ndarray) -> bytes:
+    """An SS2 (word delta) chunk's body taking `old` to `new`: unchanged rows skipped by a skip word, an odd
+    width's last pixel by its word, each row's changed words as runs of 2-128 equal words (-count) or literals
+    of up to 127 words, skips of more than 255 pixels split by empty literals."""
+    h, w = new.shape
+    even = w - w % 2
+    records, skip = [], 0
+    for y in range(h):
+        if np.array_equal(old[y], new[y]):
+            skip += 1
+            continue
+        rec = bytearray()
+        while skip:
+            n = min(skip, 16384)
+            rec += struct.pack("<H", 65536 - n)
+            skip -= n
+        if w % 2:
+            rec += struct.pack("<H", 0x8000 | int(new[y, -1]))
+        words = new[y, :even].view("<u2") if even else np.zeros(0, "<u2")
+        changed = (old[y, :even].view("<u2") != words).tolist() if even else []
+        values = words.tolist()
+        packets, body, x, i, n = 0, bytearray(), 0, 0, len(values)
+        while i < n:
+            if not changed[i]:
+                i += 1
+                continue
+            while 2 * i - x > 255:
+                body += bytes((255, 0))
+                x += 255
+                packets += 1
+            run = 1
+            while i + run < n and run < 128 and values[i + run] == values[i]:
+                run += 1
+            if run >= 2:
+                body += bytes((2 * i - x, 256 - run)) + struct.pack("<H", values[i])
+            else:
+                while i + run < n and run < 127 and changed[i + run] and values[i + run] != values[i + run - 1]:
+                    run += 1
+                body += bytes((2 * i - x, run)) + struct.pack(f"<{run}H", *values[i : i + run])
+            packets += 1
+            i += run
+            x = 2 * i
+        rec += struct.pack("<H", packets) + body
+        records.append(bytes(rec))
+    return struct.pack("<H", len(records)) + b"".join(records)
+
+
+def fli_lc(old: np.ndarray, new: np.ndarray) -> bytes:
+    """An LC (byte delta) chunk's body taking `old` to `new`: the first changed row and the rows' count, then
+    each row's packets (skip, count): literals of up to 127 bytes, runs of 2-128 equal bytes as -count."""
+    rows = np.flatnonzero((old != new).any(1))
+    if not len(rows):
+        return struct.pack("<HH", 0, 0)
+    first, last = int(rows[0]), int(rows[-1])
+    out = bytearray(struct.pack("<HH", first, last - first + 1))
+    for y in range(first, last + 1):
+        changed = np.flatnonzero(old[y] != new[y])
+        packets, body, x, k = 0, bytearray(), 0, 0
+        while k < len(changed):
+            start = int(changed[k])
+            while start - x > 255:
+                body += bytes((255, 0))
+                x += 255
+                packets += 1
+            run = 1
+            while start + run < new.shape[1] and run < 128 and new[y, start + run] == new[y, start]:
+                run += 1
+            if run >= 2:
+                body += bytes((start - x, 256 - run, int(new[y, start])))
+            else:
+                end = start + 1
+                while end < new.shape[1] and end - start < 127 and new[y, end] != old[y, end]:
+                    end += 1
+                run = end - start
+                body += bytes((start - x, run)) + new[y, start:end].tobytes()
+            packets += 1
+            x = start + run
+            k = int(np.searchsorted(changed, x))
+        out += bytes((packets,)) + body
+    return bytes(out)
+
+
+FLI_FORMS = ("fli_brun", "fli_color64_lc", "flc_brun_ss2", "flc_copy_lc", "flc_black_ss2_odd", "flc_pstamp",
+             "flc_palette_mid", "flc_two_frames")
+
+
+def fli_bytes(form: str, indices: np.ndarray, rng, palette: np.ndarray = None, packets: list = None) -> bytes:
+    """An FLI (0xAF11) or FLC (0xAF12) file of `form` (FLI_FORMS) whose first frame gives the palette indices
+    uint8 [H, W] as Pillow reads it: BRUN (15), COPY (16) or BLACK (13), and after it an LC (12) or SS2 (7)
+    delta from a seeded change of the image, or a postage stamp (18); a COLOR_256 (4) or COLOR_64 (11)
+    chunk of `packets` ((skip, count) pairs, seeded where None) over `palette` ([256, 3], seeded where None)
+    first, or after the image chunk
+    ("flc_palette_mid": the header's walk still reads it); "flc_two_frames" adds a second frame, which Pillow
+    does not read for the first."""
+    indices = np.ascontiguousarray(indices, np.uint8)
+    h, w = indices.shape
+    if palette is None:
+        palette = rng.integers(0, 256, (256, 3), dtype=np.uint8)
+    shift = 2 if "color64" in form else 0
+    start = int(rng.integers(0, 8))
+    if packets is None:
+        packets = [(start, int(rng.integers(1, 129))), (int(rng.integers(0, 4)), int(rng.integers(1, 64)))]
+    colour = fli_chunk(11 if shift else 4, fli_palette(palette, packets, shift))
+    base = indices.copy()
+    rows = rng.random(h) < 0.7
+    base[rows] = np.roll(indices[rows], int(rng.integers(1, 9)), axis=1)
+    base[rng.random((h, w)) < 0.1] = int(rng.integers(0, 256))
+    if form in ("fli_brun", "flc_pstamp", "flc_palette_mid", "flc_two_frames"):
+        image = [fli_chunk(15, fli_brun(indices))]
+    elif form == "flc_copy_lc":
+        image = [fli_chunk(16, base.tobytes()), fli_chunk(12, fli_lc(base, indices))]
+    elif form == "fli_color64_lc":
+        image = [fli_chunk(15, fli_brun(base)), fli_chunk(12, fli_lc(base, indices))]
+    elif form == "flc_brun_ss2":
+        image = [fli_chunk(15, fli_brun(base)), fli_chunk(7, fli_ss2(base, indices))]
+    else:  # flc_black_ss2_odd: BLACK, then SS2 from zeros
+        image = [fli_chunk(13, b""), fli_chunk(7, fli_ss2(np.zeros_like(indices), indices))]
+    if form == "flc_pstamp":
+        image = [fli_chunk(18, struct.pack("<HHH", 20, 30, 1) + rng.bytes(40))] + image
+    chunks = image[:1] + [colour] + image[1:] if form == "flc_palette_mid" else [colour] + image
+    frames = [fli_frame(chunks)]
+    if form == "flc_two_frames":
+        frames.append(fli_frame([fli_chunk(13, b"")]))
+    body = b"".join(frames)
+    head = bytearray(128)
+    struct.pack_into("<IHHHHHHI", head, 0, 128 + len(body), 0xAF11 if form.startswith("fli") else 0xAF12,
+                     len(frames), w, h, 8, 3 if form.startswith("flc") else 0, 70)
+    return bytes(head) + body
+
+
+PCD_SIZE = 96 * 2048 + 256 * 3 * 768
+
+
+def pcd_bytes(image: np.ndarray, orientation: int = 0, rng=None) -> bytes:
+    """A PhotoCD file of Photo YCC samples for uint8 [512, 768, 3] `image` (each pixel's luma from its RGB,
+    chroma from its pair of rows and columns; a seeded preamble where `rng` is given), "PCD_" at 2048 and
+    `orientation` at 2048 + 1538."""
+    rgb = image.astype(np.float64)
+    y = 0.299 * rgb[..., 0] + 0.587 * rgb[..., 1] + 0.114 * rgb[..., 2]
+    luma = np.clip(y / 1.3584, 0, 255)
+    c1 = np.clip((rgb[..., 2] - y) / 2.2179 + 156, 0, 255).reshape(256, 2, 384, 2).mean((1, 3))
+    c2 = np.clip((rgb[..., 0] - y) / 1.8215 + 137, 0, 255).reshape(256, 2, 384, 2).mean((1, 3))
+    chunks = np.concatenate([luma.reshape(256, 2 * 768), c1, c2], axis=1).round().astype(np.uint8)
+    head = bytearray(rng.bytes(96 * 2048) if rng is not None else bytes(96 * 2048))
+    head[2048:2052] = b"PCD_"
+    head[2048 + 1538] = orientation
+    return bytes(head) + chunks.tobytes()
+
+
+def iptc_field(record: int, dataset: int, data: bytes, long: bool = False) -> bytes:
+    """An IPTC/NAA field: 0x1C, record, dataset, and its length: two bytes below 0x8000, or where `long` (or
+    longer) as Pillow reads an extended length: 0x84, a byte it skips, then 4 bytes."""
+    if long or len(data) > 0x7FFF:
+        return bytes((0x1C, record, dataset, 0x84, 0)) + struct.pack(">I", len(data)) + data
+    return bytes((0x1C, record, dataset)) + struct.pack(">H", len(data)) + data
+
+
+def iptc_bytes(image: bytes, w: int, h: int, *, layers: int = 1, component: int = 0, band: int = None,
+               compression: int = 1, pieces: int = 1) -> bytes:
+    """An IPTC/NAA file as Pillow's IptcImagePlugin reads it: a record-2 field, the size (3, 20) / (3, 30),
+    layers and component (3, 60), the band (3, 65) where given, the compression (3, 120; 1 raw, 5 a file
+    Image.open reads), then `image` in `pieces` (8, 10) fields."""
+    fields = [iptc_field(2, 0, b"\x00\x02"), iptc_field(3, 20, struct.pack(">H", w)),
+              iptc_field(3, 30, struct.pack(">H", h)), iptc_field(3, 60, bytes((layers, component)))]
+    if band is not None:
+        fields.append(iptc_field(3, 65, bytes((band,))))
+    fields.append(iptc_field(3, 120, bytes((compression,))))
+    cuts = np.linspace(0, len(image), pieces + 1).astype(int)
+    fields += [iptc_field(8, 10, image[a:b], long=k % 2 == 1) for k, (a, b) in enumerate(zip(cuts[:-1], cuts[1:]))]
+    return b"".join(fields)
+
+
+
+def plugin_file(form: str, seed: int, w: int, h: int) -> bytes:
+    """One seeded w x h file of `form` (P13_PLUGINS): a FITS image of BITPIX 16 (the grey of a smooth field),
+    an FLC file of the field's colour-cube indices (BRUN and an SS2 delta, the cube a COLOR_256 chunk), a
+    PhotoCD file (its fixed 768 x 512, orientation 1) or an IPTC file of a baseline JPEG (compression 5)."""
+    rng = np.random.default_rng(seed)
+    if form == "pcd":
+        return pcd_bytes(raw_image(seed, 768, 512), 1, rng)
+    img = raw_image(seed, w, h)
+    if form == "fits":
+        return fits_bytes(fits_samples(img[..., 1], 16, rng), 16, w, h)
+    if form == "iptc":
+        return iptc_bytes(jpeg_bytes(img), w, h, compression=5)
+    idx, cube = colour_cube(img)
+    palette = np.zeros((256, 3), np.uint8)
+    palette[:216] = np.frombuffer(cube, np.uint8).reshape(216, 3)
+    return fli_bytes("flc_brun_ss2", idx, rng, palette, packets=[(0, 256)])
+
+
+def plugin_rate_files() -> dict:
+    """name -> file bytes: the FITS, FLI / FLC, PCD and IPTC files whose one-thread decode rates the decoder
+    phase and scripts/rare_format_rates.py report: FITS 640 x 480 at BITPIX 8, 16 and -32 and in GZIP_1 tiles
+    (ZBITPIX 8), FLI 320 x 200 of BRUN, FLC 640 x 480 of BRUN and SS2, PCD (768 x 512), IPTC 640 x 480 raw and
+    of a baseline JPEG."""
+    w, h = RASTER_SIZE
+    rng = np.random.default_rng(SEED + 8700)
+    rgb = raw_image(SEED + 8701, w, h)
+    grey = rgb[..., 1]
+    groups = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    groups[..., 3] = grey[::-1]
+    idx = colour_cube(rgb)[0]
+    return {
+        **{f"fits_{abs(bits)}{'' if bits > 0 else 'f'}": fits_bytes(fits_samples(grey, bits, rng), bits, w, h)
+           for bits in (8, 16, -32)},
+        "fits_gzip_8": fits_gzip_bytes(groups.tobytes(), 8, w, h),
+        "fli_brun_320x200": fli_bytes("fli_brun", colour_cube(raw_image(SEED + 8702, 320, 200))[0], rng),
+        "flc_brun_ss2_640x480": fli_bytes("flc_brun_ss2", idx, rng),
+        "pcd_768x512": pcd_bytes(raw_image(SEED + 8703, 768, 512), 0, rng),
+        "iptc_raw": iptc_bytes(grey.tobytes(), w, h),
+        "iptc_jpeg": iptc_bytes(jpeg_bytes(rgb), w, h, compression=5),
+    }
+
+
+def check_plugin_rates(smi: str) -> None:
+    """One-thread decode rates of plugin_rate_files() through `jpeg.decode_image` on the card's run (FLI /
+    FLC through csrc/raster.cu, IPTC's JPEG through csrc/jpeg.cu, FITS / PCD / IPTC raw numpy on both paths),
+    median of 5 after a first decode held to the twins' pixels, beside one decode on the twins' path."""
+    from uniir_tpu_torch.data import jpeg, raster
+
+    for name, data in plugin_rate_files().items():
+        t0 = time.perf_counter()
+        want = jpeg.decode_image(data, name, "cpu")
+        twin_ms = (time.perf_counter() - t0) * 1e3
+        calls = raster.native_calls["fli"]
+        got = jpeg.decode_image(data, name, DEVICE)
+        check(np.array_equal(got, want) and raster.native_calls["fli"] - calls == int(name.startswith("fl")),
+              f"decoder phase: {name} differs from its twins, or missed the native FLI stage")
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            jpeg.decode_image(data, name, DEVICE)
+            times.append(time.perf_counter() - t0)
+        ms = float(np.median(times)) * 1e3
+        h, w = got.shape[:2]
+        log(f"decoder phase: {jpeg.image_format(data).upper()} rate {name} ({w} x {h}, {len(data)} bytes): {ms:.3f} ms "
+            f"({1e3 / ms:.1f} images/s, {w * h / ms / 1e3:.2f} Mpixel/s) on one thread, median of 5; the twins' "
+            f"path {twin_ms:.1f} ms (host CPU {host_cpu()}; card {smi})")
+
 def icns_rle(plane: bytes) -> bytes:
     """An ICNS RLE channel: runs of 3-130 equal bytes as (n + 125, v), literals of 1-128 bytes as (n - 1, ...)."""
     out, i, n = bytearray(), 0, len(plane)
@@ -8389,7 +8771,7 @@ def fixture_image(seed: int) -> np.ndarray:
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
 FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
                "tiff": "tif", "tiff_zstd": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd", "jp2_lossless": "jp2",
-               "j2k_irreversible": "j2k", "ftex_bc1": "ftc"}
+               "j2k_irreversible": "j2k", "ftex_bc1": "ftc", "flc": "flc"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -8418,9 +8800,9 @@ def fixture_file(form: str, seed: int) -> bytes:
     horizontal predictor, 32 x 32 tiles, big-endian), `tiff_zstd` (ZSTD strips, the horizontal predictor),
     `jpeg_arith` (arithmetic-coded, libjpeg's simple
     progression, quality 90), `tga_rle` (24-bit RLE, bottom-up), `qoi` (RGB), `dds_bc7` (BC7 mode 6 blocks,
-    `bc7_mode6`), `psd_rle` (RGB, PackBits rows), `ftex_bc1` (FTEX of BC1 blocks, `dxt1_encode`), the JPEG
-    2000 files of JPEG2000_QUERIES (the stored corpus's) and `jpeg_damaged` (JPEG_DAMAGE_QUERY of the
-    damaged-JPEG corpus)."""
+    `bc7_mode6`), `psd_rle` (RGB, PackBits rows), `ftex_bc1` (FTEX of BC1 blocks, `dxt1_encode`), `flc` (the
+    colour cube's indices in BRUN and an SS2 delta, the cube a COLOR_256 chunk), the JPEG 2000 files of
+    JPEG2000_QUERIES (the stored corpus's) and `jpeg_damaged` (JPEG_DAMAGE_QUERY of the damaged-JPEG corpus)."""
     if form in PROGRESSIVE_FILES:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     if form in JPEG2000_QUERIES:
@@ -8446,6 +8828,11 @@ def fixture_file(form: str, seed: int) -> bytes:
         return psd_bytes(np.ascontiguousarray(img.transpose(2, 0, 1)), "RGB", compression=1)
     if form == "ftex_bc1":
         return ftex_bytes(img.shape[1], img.shape[0], 0, dxt1_encode(img))
+    if form == "flc":
+        idx, cube = colour_cube(img)
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:216] = np.frombuffer(cube, np.uint8).reshape(216, 3)
+        return fli_bytes("flc_brun_ss2", idx, np.random.default_rng(seed), palette, packets=[(0, 256)])
     if form.startswith("webp"):
         alpha = np.random.default_rng(seed).integers(0, 256, img.shape[:2] + (1,), dtype=np.uint8)
         kind, image = {"webp_lossy": ("lossy", img), "webp_lossless_alpha": ("lossless", np.concatenate([img, alpha], 2)),
@@ -9188,6 +9575,7 @@ P13_COUNTS = {"mscoco": 110, "cirr": 40, "fashioniq": 40, "fashion200k": 40, "ed
 P13_FORMS = ("jpeg", "jpeg_comment", "progressive", "jpeg", "png_palette_trns", "png_comment", "jpeg",
              "gif_comment", "jpeg_cmyk", "jpeg", "ico", "ppm", "jpeg_444", "pgm", "png_rgb", "jpeg", "webp")
 P13_SMALL = ("webp", "ico")  # forms written at most 160 px a side (the script's WebP writer is slow)
+P13_PLUGINS = ("fits", "flc", "pcd", "iptc")  # one MSCOCO file of each under a .jpg name, converted by both passes
 P13_JP2 = "58_vga_irreversible.jp2"  # MSCOCO's JPEG 2000 file, from the corpus (tests/data/jpeg2000)
 P13_CONVERTERS = ("mscoco", "cirr", "fashioniq", "fashion200k", "edis", "nights", "visualnews", "webqa", "oven",
                   "infoseek")
@@ -9227,7 +9615,8 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
     `garbage`: an HTML error page, which no image reader identifies, `psd`: a PSD header of no mode Pillow
     reads and noise after it, which no reader identifies either, `eps`: a format the port does not decode,
     an EPS header and noise after it (Pillow identifies it and, without Ghostscript, cannot load it), `jp2`: a JPEG 2000 file of
-    the stored corpus, P13_JP2, `tiff_zstd`: ZSTD strips with the horizontal predictor)."""
+    the stored corpus, P13_JP2, `tiff_zstd`: ZSTD strips with the horizontal predictor, and the forms of
+    P13_PLUGINS, `plugin_file`'s)."""
     if form == "progressive":  # Pillow-made files of their own size
         return base64.b64decode(PROGRESSIVE_FILES[sorted(PROGRESSIVE_FILES)[seed % 3]][0])
     if form == "garbage":  # what a scraper saves as the image when the server answers with an error page
@@ -9243,6 +9632,8 @@ def raw_file(form: str, seed: int, w: int, h: int) -> bytes:
         return (JPEG2000_CORPUS / P13_JP2).read_bytes()
     if form == "tiff_zstd":
         return tiff_bytes(raw_image(seed, w, h), 2, compression=50000, predictor=2, rows_per_strip=32)
+    if form in P13_PLUGINS:
+        return plugin_file(form, seed, w, h)
     if form in P13_SMALL:
         w, h = min(w, 160), min(h, 160)
     img = raw_image(seed, w, h)
@@ -9295,9 +9686,10 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     to 1600 px for OVEN / InfoSeek), by `pool`'s workers if given.  MSCOCO also holds a missing image, a
     truncated JPEG, an HTML page under a .jpg name, a JP2 file under a .jpg name and (with `refused`) a PSD
     file no reader identifies under a .png name and an EPS file, a format the port does not decode, under a
-    .jpg name, and a ZSTD TIFF (which the pass converted once it was no longer deleted) under a .jpg name.
-    Returns {"images": {path: form}, "truncated": path, "garbage": path, "unidentified": path or
-    None, "refused": path or None, "jp2": path, "zstd": path, "captions": [every caption and question]}."""
+    .jpg name, a ZSTD TIFF (which the pass converted once it was no longer deleted) under a .jpg name, and a
+    FITS, FLC, PCD and IPTC file (P13_PLUGINS) under .jpg names.  Returns {"images": {path: form}, "truncated":
+    path, "garbage": path, "unidentified": path or None, "refused": path or None, "jp2": path, "zstd": path,
+    "plugins": {form: path}, "captions": [every caption and question]}."""
     counts = {**P13_COUNTS, **(counts or {})}
     rng = np.random.default_rng(P13_SEED)
     vocab = fixture_words(rng, 400)
@@ -9336,7 +9728,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
             caps[2] = caps[1]  # a repeated caption: the pool holds it once
         coco[split].append({"image": name, "caption": caps if i % 11 else caps[0], "image_id": i})
         form = {8: "truncated", 10: "psd" if refused else None, 12: "eps" if refused else None, 13: "garbage",
-                14: "jp2", 16: "tiff_zstd"}.get(i)
+                14: "jp2", 16: "tiff_zstd", **{18 + k: plugin for k, plugin in enumerate(P13_PLUGINS)}}.get(i)
         if i != 5:  # image 5 is missing
             image(f"mbeir_images/mscoco_images/{name}", photo(), form)
         if form:
@@ -9490,7 +9882,8 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
         list(pool.map(write_raw_file, jobs, chunksize=4))
     return {"images": {p: form for p, form, *_ in jobs}, "truncated": special["truncated"],
             "garbage": special["garbage"], "unidentified": special.get("psd"), "refused": special.get("eps"),
-            "jp2": special.get("jp2"), "zstd": special.get("tiff_zstd"), "captions": texts}
+            "jp2": special.get("jp2"), "zstd": special.get("tiff_zstd"),
+            "plugins": {form: special[form] for form in P13_PLUGINS if form in special}, "captions": texts}
 
 
 P13_GENERATOR_FLAGS = ("--generate_union_train_cand_pool", "--generate_union_all_cand_pool", "--unify_train_data",
@@ -9707,7 +10100,7 @@ def drive_construction(results: dict, smi: str) -> None:
         special = ("truncated", "garbage", "unidentified", "refused")
         in_cli = {k: Path(raw[k].replace(str(root / "raw"), str(root / "cli"))) for k in special}
         check(not any(in_cli[k].exists() for k in special[:3]) and in_cli["refused"].exists(),
-              "phase 13: the truncated JPEG, the HTML page and the unidentified PSD file must be deleted and the BLP "
+              "phase 13: the truncated JPEG, the HTML page and the unidentified PSD file must be deleted and the EPS "
               "file left in place")
         jp2_out = Path(raw["jp2"].replace(str(root / "raw"), str(root / "cli")))
         check(jp2_out.read_bytes()[:2] == b"\xff\xd8", "phase 13: the JP2 file under a .jpg name was not converted")
@@ -9718,6 +10111,12 @@ def drive_construction(results: dict, smi: str) -> None:
               "phase 13: the ZSTD TIFF under a .jpg name was deleted or not converted")
         log(f"phase 13: the ZSTD TIFF converted to a JPEG of {zstd_out.stat().st_size} bytes, held to the twins' "
             "pass with every other file")
+        for form, path in raw["plugins"].items():
+            out = Path(os.path.splitext(path.replace(str(root / "raw"), str(root / "cli")))[0] + ".jpg")
+            check(out.exists() and out.read_bytes()[:2] == b"\xff\xd8",
+                  f"phase 13: the {form} file under a .jpg name was deleted or not converted")
+        log(f"phase 13: the {', '.join(raw['plugins'])} files converted to JPEGs, held to the twins' pass with every "
+            "other file")
 
         # the rates, alone on the host: one process stage by stage over a seeded sample of the raw images, then
         # the pass's pool over all of them in a process of its own (as a CLI runs it: the pool's workers import

@@ -1,11 +1,13 @@
 """Decode rates of the image forms read since the damaged-lossless-JPEG / rare-plugin slice, at 640 x 480 on one
 thread: damaged lossless (SOF3) JPEG, predicted and damaged subsampled YCbCr TIFF, McIdas, PIXAR, SPIDER,
-XVThumb, GBR, IMT, FTEX and BLP files of the seeded writers (chip_smoke.py, tests/rare_format_files.py).  Each
+XVThumb, GBR, IMT, FTEX and BLP files of the seeded writers (chip_smoke.py, tests/rare_format_files.py), then
+FITS (BITPIX 8, 16, -32, GZIP_1 tiles), FLI 320 x 200 (BRUN), FLC (BRUN + SS2), PCD (768 x 512) and IPTC (raw,
+JPEG) files (`chip_smoke.plugin_rate_files`).  Each
 file is decoded as a run on `--device` decodes it (`jpeg.decode_image`: the native libraries on a CUDA run's
 host, the twins on a CPU run), after one warm-up call, median of `--repeats` calls.  Prints one line a file and
 the card's name and power limit (nvidia-smi) where there is one.
 
-    python scripts/rare_format_rates.py [--device cuda] [--repeats 5]
+    python scripts/rare_format_rates.py [--device cuda] [--repeats 5] [--only fits,fli,flc,pcd,iptc]
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ def files() -> dict:
         "ftex_bc1": chip_smoke.ftex_bytes(w, h, 0, chip_smoke.dxt1_encode(rgb)),
         "ftex_rgb": chip_smoke.ftex_bytes(w, h, 1, rgb.tobytes()),
         **{form: chip_smoke.blp_bytes(form, rgb, np.random.default_rng(k)) for k, form in enumerate(chip_smoke.BLP_FORMS)},
+        **chip_smoke.plugin_rate_files(),
     }
 
 
@@ -67,6 +70,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--only", default="", help="comma-separated name prefixes of the files to time (all by default)")
     args = ap.parse_args(argv)
     from uniir_tpu_torch.data import jpeg
 
@@ -76,6 +80,8 @@ def main(argv=None) -> None:
     except FileNotFoundError:
         smi = "no nvidia-smi"
     for name, data in files().items():
+        if args.only and not name.startswith(tuple(args.only.split(","))):
+            continue
         out = jpeg.decode_image(data, name, args.device)  # warm-up: builds and loads the native libraries
         times = []
         for _ in range(args.repeats):

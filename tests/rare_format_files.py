@@ -124,3 +124,45 @@ def corpus(seed: int = 0) -> dict:
     files.update({f"{form}.blp": chip_smoke.blp_bytes(form, rgb, np.random.default_rng(seed + k))
                   for k, form in enumerate(chip_smoke.BLP_FORMS)})
     return files
+
+
+def pillow_pgm(grey: np.ndarray) -> bytes:
+    """Pillow's PGM save of a grey image."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(grey).save(buf, "PPM")
+    return buf.getvalue()
+
+
+def fits_pcd_fli_iptc(seed: int = 0) -> dict:
+    """name -> file bytes: every form of FITS, FLI / FLC, PCD and IPTC at a small size (PCD's base image is
+    always 768 x 512), seeded; the samples of each FITS form are ones Pillow's reading puts inside 0-255."""
+    rng = np.random.default_rng(seed)
+    rgb = image(seed, 37, 23)
+    grey = rgb[..., 1]
+    idx = (grey // 8).astype(np.uint8)
+    w, h = 37, 23
+    files = {f"fits_{name}.fits": chip_smoke.fits_bytes(chip_smoke.fits_samples(grey, bitpix, rng), bitpix, w, h)
+             for name, bitpix in (("8", 8), ("16", 16), ("32", 32), ("m32", -32), ("m64", -64))}
+    files["fits_naxis1.fits"] = chip_smoke.fits_bytes(grey[:, 0].tobytes(), 8, 1, h, naxis=1)
+    files["fits_naxis3.fits"] = chip_smoke.fits_bytes(grey[::-1].tobytes(), 8, w, h, naxis=3,
+                                                      cards=(chip_smoke.fits_card("COMMENT"),))
+    for name, bits, keep in (("8", 8, 1), ("16", 16, 2), ("32", 32, 4)):
+        groups = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+        groups[..., 4 - keep :] = 0
+        groups[..., 4 - keep] = grey[::-1]  # the first kept byte: Pillow reads them little-endian
+        files[f"fits_gzip_{name}.fits"] = chip_smoke.fits_gzip_bytes(groups.tobytes(), bits, w, h)
+    files.update({f"{form}.fli": chip_smoke.fli_bytes(form, idx[:, :36] if "odd" not in form else idx, rng)
+                  for form in chip_smoke.FLI_FORMS})
+    big = image(seed + 1, 768, 512)
+    for orientation in (0, 1, 3):
+        files[f"pcd_{orientation}.pcd"] = chip_smoke.pcd_bytes(big, orientation, rng)
+    files["iptc_raw.iim"] = chip_smoke.iptc_bytes(grey.tobytes(), w, h, pieces=3)
+    files["iptc_raw_rgb_band2.iim"] = chip_smoke.iptc_bytes(grey.tobytes(), w, h, layers=3, component=1, band=2)
+    files["iptc_raw_cmyk_band4.iim"] = chip_smoke.iptc_bytes(grey.tobytes(), w, h, layers=4, component=1, band=4)
+    files["iptc_jpeg.iim"] = chip_smoke.iptc_bytes(chip_smoke.jpeg_bytes(rgb, 85), w, h, compression=5, pieces=2)
+    files["iptc_jpeg_grey_band1.iim"] = chip_smoke.iptc_bytes(chip_smoke.jpeg_bytes(grey, 85), w, h, layers=3,
+                                                             component=1, band=1, compression=5)
+    files["iptc_pgm.iim"] = chip_smoke.iptc_bytes(pillow_pgm(grey), w, h, compression=5)
+    return files

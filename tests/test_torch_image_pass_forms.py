@@ -1,5 +1,5 @@
 """The M-BEIR image pass on every form that the port once refused or still refuses by name (the rarer plugins'
-files too: McIdas, PIXAR, SPIDER, XVThumb, GBR, IMT, FTEX, BLP)
+files too: McIdas, PIXAR, SPIDER, XVThumb, GBR, IMT, FTEX, BLP, FITS, FLI / FLC, PCD, IPTC)
 (`uniir_tpu_torch.data.preprocessing.io_utils.resize_and_convert_image_to_jpg` beside the JAX package's): where
 the JAX pass writes a JPEG, the port writes the same bytes or leaves the file in place (UnsupportedImageFormat);
 where the JAX pass deletes a file as corrupt, the port deletes it too.  The port's pass used to delete any file
@@ -86,6 +86,13 @@ def _forms() -> dict:
                  "blp2_dxt1.blp", "blp2_dxt3.blp", "blp2_dxt5.blp"):
         forms[name] = rare[name]
     forms["blp2_dxt1_cut.blp"] = rare["blp2_dxt1.blp"][:-40]  # deleted by both passes
+    # FITS, FLI / FLC, PCD and IPTC: one file of each, and one cut short of each
+    more = rare_format_files.fits_pcd_fli_iptc(25)
+    for name in ("fits_16.fits", "fits_gzip_8.fits", "flc_brun_ss2.fli", "pcd_1.pcd", "iptc_jpeg.iim",
+                 "iptc_raw_rgb_band2.iim"):
+        forms[name] = more[name]
+        stem, ext = os.path.splitext(name)
+        forms[f"{stem}_cut{ext}"] = more[name][: len(more[name]) * 3 // 4]
     return forms
 
 

@@ -82,6 +82,10 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.imt",
     "uniir_tpu_torch.data.ftex",
     "uniir_tpu_torch.data.blp",
+    "uniir_tpu_torch.data.fits",
+    "uniir_tpu_torch.data.fli",
+    "uniir_tpu_torch.data.iptc",
+    "uniir_tpu_torch.data.pcd",
     "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",

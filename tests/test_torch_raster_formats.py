@@ -62,7 +62,8 @@ def port(data: bytes):
 # Pillow's format name -> the port's
 KINDS = {"DIB": "dib", "QOI": "qoi", "TGA": "tga", "SGI": "sgi", "PCX": "pcx", "DCX": "dcx", "SUN": "sun",
          "MSP": "msp", "XBM": "xbm", "XPM": "xpm", "IM": "im", "BMP": "bmp", "ICO": "ico", "CUR": "cur",
-         "PPM": "netpbm", "TIFF": "tiff", "WEBP": "webp", "GIF": "gif", "PNG": "png", "JPEG": "jpeg"}
+         "PPM": "netpbm", "TIFF": "tiff", "WEBP": "webp", "GIF": "gif", "PNG": "png", "JPEG": "jpeg",
+         "FLI": "fli"}
 
 
 def assert_same(data: bytes, what: str = "") -> None:

@@ -88,6 +88,7 @@ SIGNATURES = {
         "uniir_raster_msp_rle": (_P, _S, _I, _I, _P, _S, _P, _I),
         "uniir_raster_packbits": (_P, _S, _P, _I, _I, _I, _P, _S, _P, _I),
         "uniir_raster_icns_rle": (_P, _S, _S, _I, _P, _S, _P, _I),
+        "uniir_raster_fli": (_P, _S, _S, _S, _I, _I, _P, _S, _P, _I),
     },
     "bcn": {
         **{f"uniir_bcn_{kind}": (_P, _S, _S, _I, _I, _I, _P, _P, _I)

@@ -24,6 +24,11 @@
 //                         end cut there, data cut short refused.
 //   uniir_raster_icns_rle IcnsImagePlugin's read_32: three channels in turn,
 //                         runs of b - 125 copies, literals of b + 1 bytes.
+//   uniir_raster_fli      FliDecode.c over an FLI / FLC file's first frame as
+//                         ImageFile.load feeds it: a frame's size of bytes a
+//                         read, appended to what the decoder left; BRUN,
+//                         COPY, BLACK, LC and SS2 chunks into a zeroed image,
+//                         palettes and the postage stamp skipped.
 //
 // Why host code and not a kernel: each step depends on the bytes before it,
 // and the images are resized on the host after decoding.  No global state,
@@ -359,4 +364,168 @@ extern "C" int uniir_raster_icns_rle(const uint8_t* s, size_t n, size_t pos, int
       return fail(err, errlen, "ICNS RLE channel %ld: %ld bytes short (not enough image data)", band, pixels - got);
   }
   return 0;
+}
+
+namespace {
+
+uint16_t le16(const uint8_t* p) { return (uint16_t)(p[0] | p[1] << 8); }
+
+uint32_t le32(const uint8_t* p) { return (uint32_t)p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 | (uint32_t)p[3] << 24; }
+
+// One call of ImagingFliDecode on buf[0, end): the bytes consumed (>= 0) or -1 at the frame's end; -2 with
+// `err` set where it sets an error code.  Every read is bounded by the buffer's end, not by the chunk's size.
+long fli_chunks(const uint8_t* buf, size_t end, uint8_t* img, int width, int height, char* err, int errlen) {
+  if (end < 4) return 0;
+  uint32_t framesize = le32(buf);
+  if (end + end % 2 < framesize) return 0;  // one pad byte may be missing
+  if (end < 8) return fail(err, errlen, "FLI frame header cut short (buffer overrun)"), -2;
+  if (le16(buf + 4) != 0xF1FA) return fail(err, errlen, "FLI frame of another chunk type (unknown)"), -2;
+  int chunks = le16(buf + 6);
+  size_t ptr = 16;
+  const size_t w = (size_t)width;
+#define FLI_OOB(at)                                                              \
+  if ((at) > end) {                                                              \
+    fail(err, errlen, "FLI chunk data past the frame's bytes (buffer overrun)"); \
+    return -2;                                                                   \
+  }
+  for (int c = 0; c < chunks; ++c) {
+    if (ptr > end || end - ptr < 10) return fail(err, errlen, "FLI chunk header past the frame's bytes (buffer overrun)"), -2;
+    size_t data = ptr + 6;
+    int kind = le16(buf + ptr + 4);
+    if (kind == 7) {  // SS2: word-oriented delta
+      int lines = le16(buf + data);
+      data += 2;
+      long y = 0;
+      int line = 0;
+      for (; line < lines && y < height; ++line, ++y) {
+        uint8_t* row = img + (size_t)y * w;
+        FLI_OOB(data + 2)
+        int packets = le16(buf + data);
+        data += 2;
+        while (packets & 0x8000) {
+          if (packets & 0x4000) {  // skip lines
+            y += 65536 - packets;
+            if (y >= height) return fail(err, errlen, "FLI SS2 skips past the image (buffer overrun)"), -2;
+            row = img + (size_t)y * w;
+          } else {  // the last pixel of an odd-width line
+            row[w - 1] = (uint8_t)packets;
+          }
+          FLI_OOB(data + 2)
+          packets = le16(buf + data);
+          data += 2;
+        }
+        int p = 0;
+        size_t x = 0;
+        for (; p < packets; ++p) {
+          FLI_OOB(data + 2)
+          x += buf[data];
+          if (buf[data + 1] >= 128) {
+            FLI_OOB(data + 4)
+            size_t i = 256 - buf[data + 1];
+            if (x + 2 * i > w) break;
+            for (size_t j = 0; j < i; ++j) {
+              row[x++] = buf[data + 2];
+              row[x++] = buf[data + 3];
+            }
+            data += 4;
+          } else {
+            size_t i = 2 * (size_t)buf[data + 1];
+            if (x + i > w) break;
+            FLI_OOB(data + 2 + i)
+            memcpy(row + x, buf + data + 2, i);
+            data += 2 + i;
+            x += i;
+          }
+        }
+        if (p < packets) break;
+      }
+      if (line < lines) return fail(err, errlen, "FLI SS2 lines past the image or its packets (buffer overrun)"), -2;
+    } else if (kind == 12) {  // LC: byte-oriented delta
+      long y = le16(buf + data);
+      long ymax = y + le16(buf + data + 2);
+      data += 4;
+      for (; y < ymax && y < height; ++y) {
+        uint8_t* row = img + (size_t)y * w;
+        FLI_OOB(data + 1)
+        int packets = buf[data++];
+        int p = 0;
+        size_t x = 0, i = 0;
+        for (; p < packets; ++p, x += i) {
+          FLI_OOB(data + 2)
+          x += buf[data];
+          if (buf[data + 1] & 0x80) {
+            i = 256 - buf[data + 1];
+            if (x + i > w) break;
+            FLI_OOB(data + 3)
+            memset(row + x, buf[data + 2], i);
+            data += 3;
+          } else {
+            i = buf[data + 1];
+            if (x + i > w) break;
+            FLI_OOB(data + 2 + i)
+            memcpy(row + x, buf + data + 2, i);
+            data += 2 + i;
+          }
+        }
+        if (p < packets) break;
+      }
+      if (y < ymax) return fail(err, errlen, "FLI LC lines past the image or its packets (buffer overrun)"), -2;
+    } else if (kind == 13) {  // BLACK
+      memset(img, 0, w * (size_t)height);
+    } else if (kind == 15) {  // BRUN: byte runs
+      for (int y = 0; y < height; ++y) {
+        uint8_t* row = img + (size_t)y * w;
+        data += 1;  // the packet count, not read
+        size_t x = 0, i = 0;
+        for (; x < w; x += i) {
+          FLI_OOB(data + 2)
+          if (buf[data] & 0x80) {
+            i = 256 - buf[data];
+            if (x + i > w) break;
+            FLI_OOB(data + i + 1)
+            memcpy(row + x, buf + data + 1, i);
+            data += i + 1;
+          } else {
+            i = buf[data];
+            if (x + i > w) break;
+            memset(row + x, buf[data + 1], i);
+            data += 2;
+          }
+        }
+        if (x != w) return fail(err, errlen, "FLI BRUN line not filled (buffer overrun)"), -2;
+      }
+    } else if (kind == 16) {  // COPY
+      if (data + w * (size_t)height > end) return (long)ptr;  // the bytes before this chunk: the caller reads on
+      memcpy(img, buf + data, w * (size_t)height);
+    } else if (kind != 4 && kind != 11 && kind != 18) {  // palettes and the postage stamp are skipped
+      return fail(err, errlen, "FLI chunk of unknown type %ld", (long)kind), -2;
+    }
+    int32_t advance = (int32_t)le32(buf + ptr);
+    if (advance == 0) return fail(err, errlen, "FLI chunk of size 0 (broken)"), -2;
+    if (advance < 0 || (size_t)advance > end - ptr) return fail(err, errlen, "FLI chunk past the frame's bytes (buffer overrun)"), -2;
+    ptr += (size_t)advance;
+  }
+#undef FLI_OOB
+  return -1;
+}
+
+}  // namespace
+
+extern "C" int uniir_raster_fli(const uint8_t* s, size_t n, size_t pos, size_t block, int width, int height,
+                                uint8_t* out, size_t need, char* err, int errlen) {
+  (void)need;
+  std::vector<uint8_t> buf;
+  size_t start = 0;  // the decoder's bytes are buf[start, buf.size())
+  for (;;) {
+    size_t take = pos < n ? (n - pos < block ? n - pos : block) : 0;
+    if (!take) return fail(err, errlen, "FLI frame cut short (image file is truncated)");
+    buf.erase(buf.begin(), buf.begin() + (long)start);
+    start = 0;
+    buf.insert(buf.end(), s + pos, s + pos + take);
+    pos += take;
+    long used = fli_chunks(buf.data(), buf.size(), out, width, height, err, errlen);
+    if (used == -2) return 1;
+    if (used < 0) return 0;
+    start = (size_t)used;
+  }
 }

@@ -119,9 +119,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import io
 import re
-import struct
 import threading
 from typing import Callable, NamedTuple
 
@@ -129,7 +127,7 @@ import numpy as np
 
 from uniir_tpu_torch.data import bmp, dds, gif, icns, ico, im, msp, netpbm, pcx, png, psd, qoi, raster, sgi, sun
 from uniir_tpu_torch.data import blp, ftex, gbr, imt, jpeg2000, mcidas, pixar, spider, tga, tiff, webp, xbm, xpm
-from uniir_tpu_torch.data import xvthumb
+from uniir_tpu_torch.data import fits, fli, iptc, pcd, xvthumb
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -1452,65 +1450,17 @@ def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
     return decode_native if _build.is_cuda(device) else decode_twin
 
 
-def _iptc(d: bytes) -> bool:
-    """IptcImageFile._open (it has no _accept), run on the bytes: its fields up to (8, 10), then the mode,
-    size and compression fields it needs; True where it opens the file or raises what Image.open raises."""
-    fp, info = io.BytesIO(d), {}
-
-    def number(c: bytes) -> int:
-        return int.from_bytes((bytes(4) + c)[-4:], "big")
-
-    def field() -> tuple:
-        s = fp.read(5)
-        if not s.strip(b"\x00"):
-            return None, 0
-        if s[0] != 0x1C or s[1] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            raise SyntaxError("invalid IPTC/NAA file")
-        tag, size = (s[1], s[2]), s[3]
-        if size > 132:
-            raise OSError("illegal field length in IPTC/NAA file")
-        size = 0 if size == 128 else number(fp.read(size - 128)) if size > 128 else struct.unpack_from(">H", s, 3)[0]
-        return tag, size
-
-    try:
-        while True:
-            tag, size = field()
-            if not tag or tag == (8, 10):
-                break
-            data = fp.read(size) if size else None
-            old = info.get(tag, ...)
-            info[tag] = data if old is ... else old + [data] if isinstance(old, list) else [old, data]
-        layers, component = info[(3, 60)][0], info[(3, 60)][1]
-        mode = "L" if layers == 1 and not component else "RGB" if layers == 3 and component else \
-            "CMYK" if layers == 4 and component else ""
-        if mode != "L" and (3, 65) in info:
-            _ = info[(3, 65)][0] - 1  # the band Pillow reads: a field it cannot read passes the file on
-        size = number(info[(3, 20)]), number(info[(3, 30)])
-        if (3, 120) not in info or number(info[(3, 120)]) not in (1, 5):
-            return True  # "Unknown IPTC image compression": Image.open raises
-    except (SyntaxError, IndexError, TypeError, KeyError, EOFError, struct.error):
-        return False
-    except OSError:
-        return True
-    return bool(mode) and size[0] > 0 and size[1] > 0
-
-
-# the formats Pillow 12.1's Image.open identifies that the port does not decode yet (ROADMAP Queue 3; the
-# others are `_DECODED`'s, below): each plugin's _accept test of the file's first bytes or, for the two with
-# none (IPTC, PCD), the header test its _open makes (a wider one where Pillow reads further); BUFR, GRIB, HDF5,
-# MPEG and WMF are stubs that Image.open names and cannot load.  A file none of Image.open's readers takes is
-# one it cannot identify: the decoders call it corrupt, as Pillow does.
+# the formats Pillow 12.1's Image.open identifies that the port does not decode (the others are `_DECODED`'s,
+# below): each plugin's _accept test of the file's first bytes; AVIF waits for its decoder (ROADMAP Queue 3),
+# EPS needs Ghostscript, and BUFR, GRIB, HDF5, MPEG and WMF are stubs that Image.open names and cannot load.  A
+# file none of Image.open's readers takes is one it cannot identify: the decoders call it corrupt, as Pillow does.
 _REFUSED = (
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
     (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
     (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
-    (lambda d: d[:6] == b"SIMPLE", "FITS"),
-    (lambda d: len(d) >= 16 and d[4:6] in (b"\x11\xaf", b"\x12\xaf") and d[14:16] in (b"\0\0", b"\3\0"), "FLI"),
     (lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "GRIB"),
     (lambda d: d[:4] == b"\x89HDF", "HDF5"),
-    (_iptc, "IPTC"),
     (lambda d: d[:4] == b"\x00\x00\x01\xb3", "MPEG"),
-    (lambda d: d[2048:2052] == b"PCD_", "PCD"),
     (lambda d: d[:6] == b"\xd7\xcd\xc6\x9a\x00\x00" or d[:4] == b"\x01\x00\x00\x00", "WMF"),
 )
 
@@ -1518,10 +1468,12 @@ _REFUSED = (
 # the readers after Pillow's first six (BMP, DIB, GIF, JPEG, PPM, PNG), in Image.ID's order: the refused formats
 # and the ones decoded here (WebP, TIFF and ICO / CUR are tested before them: no reader before theirs takes
 # their signatures); a decoded reader's `parse` is its _open's header test
-_ORDER = ("AVIF", "blp", "BUFR", "pcx", "dcx", "dds", "EPS", "FITS", "FLI", "ftex", "gbr", "GRIB", "HDF5",
-          "jpeg2000", "icns", "im", "imt", "IPTC", "mcidas", "MPEG", "msp", "PCD", "pixar", "psd", "qoi", "sgi",
+_ORDER = ("AVIF", "blp", "BUFR", "pcx", "dcx", "dds", "EPS", "fits", "fli", "ftex", "gbr", "GRIB", "HDF5",
+          "jpeg2000", "icns", "im", "imt", "iptc", "mcidas", "MPEG", "msp", "pcd", "pixar", "psd", "qoi", "sgi",
           "spider", "sun", "tga", "WMF", "xbm", "xpm", "xvthumb")
 _DECODED = {
+    "fits": (fits.accepts, fits.parse), "fli": (fli.accepts, fli.parse), "iptc": (iptc.accepts, iptc.parse),
+    "pcd": (pcd.accepts, pcd.parse),
     "blp": (blp.accepts, blp.parse), "ftex": (ftex.accepts, ftex.parse), "gbr": (gbr.accepts, gbr.parse),
     "imt": (imt.accepts, imt.parse), "mcidas": (mcidas.accepts, mcidas.parse),
     "pixar": (pixar.accepts, pixar.parse), "spider": (spider.accepts, spider.parse),
@@ -1724,9 +1676,9 @@ class UnsupportedImageFormat(ValueError):
 def image_format(data: bytes) -> str:
     """The format a file's first bytes name, as Image.open tries its readers: "jpeg", "png", "gif", "bmp",
     "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "dds", "icns", "im", "jpeg2000", "msp", "psd",
-    "qoi", "sgi", "sun", "tga", "xbm", "xpm", "blp", "ftex", "gbr", "imt", "mcidas", "pixar", "spider", "xvthumb"
-    (Pillow's `format`, lower-case), or the name of another format Pillow's Image.open identifies ("AVIF", "EPS",
-    ...), or "unknown"."""
+    "qoi", "sgi", "sun", "tga", "xbm", "xpm", "blp", "ftex", "gbr", "imt", "mcidas", "pixar", "spider", "xvthumb",
+    "fits", "fli", "iptc", "pcd" (Pillow's `format`, lower-case), or the name of another format Pillow's
+    Image.open identifies ("AVIF", "EPS", ...), or "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
@@ -1752,14 +1704,16 @@ def image_format(data: bytes) -> str:
 
 
 DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, DDS, ICNS, IM, JPEG 2000, MSP, "
-           "PSD, QOI, SGI, Sun raster, TGA, XBM, XPM, BLP, FTEX, GBR, IMT, McIdas, PIXAR, SPIDER and XVThumb")
+           "PSD, QOI, SGI, Sun raster, TGA, XBM, XPM, BLP, FTEX, GBR, IMT, McIdas, PIXAR, SPIDER, XVThumb, FITS, "
+           "FLI / FLC, IPTC and PCD")
 
 
 def decode_image(data: bytes, name: str, device) -> np.ndarray:
     """uint8 [H, W, 3] of an image file's bytes, told apart by its signature (or, for TGA, IM and the
     plugins without one, its header) and decoded as a run on `device` decodes (BMP, DIB, ICO / CUR's DIBs,
-    Netpbm, IM, XBM, XPM, GBR, IMT, McIdas, PIXAR, SPIDER and XVThumb have one decoder, numpy; a PSD, DDS or
-    ICNS file's raw pixels too, and a BLP file's but a BLP1 JPEG).  A format the port does not decode raises
+    Netpbm, IM, XBM, XPM, GBR, IMT, McIdas, PIXAR, SPIDER, XVThumb, FITS and PCD have one decoder, numpy; a
+    PSD, DDS or ICNS file's raw pixels too, and a BLP file's but a BLP1 JPEG; an IPTC file's image is decoded
+    as this function decodes a file).  A format the port does not decode raises
     UnsupportedImageFormat; an empty file or one of no format Image.open identifies, and corrupt data, raise
     ValueError."""
     if not data:
@@ -1768,17 +1722,19 @@ def decode_image(data: bytes, name: str, device) -> np.ndarray:
     if kind == "jpeg":
         return decoder_for(device)(data, name)
     if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga", "dds", "icns", "psd",
-                "jpeg2000", "ftex", "blp"):
+                "jpeg2000", "ftex", "blp", "fli", "iptc"):
         modules = {"png": png, "gif": gif, "webp": webp, "tiff": tiff, "pcx": pcx, "msp": msp, "qoi": qoi,
                    "sgi": sgi, "sun": sun, "tga": tga, "dds": dds, "icns": icns, "psd": psd, "jpeg2000": jpeg2000,
-                   "ftex": ftex, "blp": blp}
+                   "ftex": ftex, "blp": blp, "fli": fli, "iptc": iptc}
         return modules[kind].decoder_for(device)(data, name)
     if kind == "dcx":
         return pcx.dcx_decoder_for(device)(data, name)
-    if kind in ("bmp", "dib", "netpbm", "im", "xbm", "xpm", "gbr", "imt", "mcidas", "pixar", "spider", "xvthumb"):
+    if kind in ("bmp", "dib", "netpbm", "im", "xbm", "xpm", "gbr", "imt", "mcidas", "pixar", "spider", "xvthumb",
+                "fits", "pcd"):
         return {"bmp": bmp.decode, "dib": bmp.decode_dib, "netpbm": netpbm.decode, "im": im.decode,
                 "xbm": xbm.decode, "xpm": xpm.decode, "gbr": gbr.decode, "imt": imt.decode, "mcidas": mcidas.decode,
-                "pixar": pixar.decode, "spider": spider.decode, "xvthumb": xvthumb.decode}[kind](data, name)
+                "pixar": pixar.decode, "spider": spider.decode, "xvthumb": xvthumb.decode, "fits": fits.decode,
+                "pcd": pcd.decode}[kind](data, name)
     if kind == "ico":
         return ico.decode_ico(data, name, device)
     if kind == "cur":

@@ -146,9 +146,13 @@ def _scaled(data: bytes, mode: str, maxval: int, count: int, name: str) -> np.nd
     return np.minimum(out_max, np.rint(raw.astype(np.float64) / maxval * out_max)).astype(np.int64)
 
 
-def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a Netpbm file."""
-    data = bytes(data)
+def mode(data: bytes, name: str = "<bytes>") -> str:
+    """The mode Pillow opens a Netpbm file in (its header alone)."""
+    return _open(bytes(data), name)[0]
+
+
+def _open(data: bytes, name: str) -> tuple:
+    """PpmImageFile._open: (mode, width, height, maxval, scale, the data's offset, plain)."""
     h = _Header(data, name)
     magic = h.magic()
     if magic not in MODES:
@@ -175,7 +179,14 @@ def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
             mode = "I"
     if width * height > bmp.MAX_PIXELS:
         raise ValueError(f"{name}: Netpbm image of size {width} x {height} (decompression bomb)")
-    body = data[h.pos :]
+    return mode, width, height, maxval, scale, h.pos, plain
+
+
+def decode(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """uint8 [H, W, 3]: `PIL.Image.open(...).convert("RGB")` of a Netpbm file."""
+    data = bytes(data)
+    mode, width, height, maxval, scale, pos, plain = _open(data, name)
+    body = data[pos:]
     bands = BANDS[mode]
     count = width * height * bands
     if plain:

@@ -1,7 +1,7 @@
 """The byte-serial stages of the small raster formats, as Pillow 12.1 runs them.
 
-`data/qoi.py`, `tga.py`, `sgi.py`, `pcx.py`, `sun.py`, `msp.py`, `psd.py`
-and `icns.py` read a file's header, palette and orientation in numpy; what is left is a loop
+`data/qoi.py`, `tga.py`, `sgi.py`, `pcx.py`, `sun.py`, `msp.py`, `psd.py`,
+`icns.py` and `fli.py` read a file's header, palette and orientation in numpy; what is left is a loop
 over the file's bytes in which each step depends on the one before.  This
 module holds that loop for each of them twice: a plain Python twin, the
 reference, and a native entry in host C++ (`csrc/raster.cu`, built by
@@ -34,7 +34,9 @@ ValueError with the same message:
   * `icns_rle`: IcnsImagePlugin's `read_32` (three channels one after the
     other, runs of b - 125 copies and literals of b + 1 bytes whatever the
     entry's length, a channel whose counts miss its size or whose bytes
-    run out refused).
+    run out refused);
+  * `fli`: `FliDecode.c` over an FLI / FLC file's first frame as
+    ImageFile.load feeds it (`fli_twin`'s docstring), into a zeroed image.
 
 The output is the image's rows in the order the file gives them (the
 caller flips and unpacks them).  `expander(native)` gives the twin or the
@@ -50,7 +52,7 @@ import numpy as np
 
 from uniir_tpu_torch.data.bmp import MAX_PIXELS
 
-KINDS = ("qoi", "tga_rle", "sgi_rle", "pcx_rle", "sun_rle", "msp_rle", "packbits", "icns_rle")
+KINDS = ("qoi", "tga_rle", "sgi_rle", "pcx_rle", "sun_rle", "msp_rle", "packbits", "icns_rle", "fli")
 
 
 class NotThisFormat(Exception):
@@ -370,8 +372,180 @@ def icns_rle_twin(data: bytes, pos: int, pixels: int, name: str) -> bytes:
     return bytes(out)
 
 
+class _FliError(Exception):
+    """FliDecode.c set an error code: ImageFile.load raises after its loop."""
+
+
+def _fli_chunks(buf: bytes, img: bytearray, width: int, height: int) -> int:
+    """One call of ImagingFliDecode on `buf`: the bytes it consumed, or -1 at the frame's end (_FliError where it
+    sets an error code).  Every read is bounded by the buffer's end, not by the chunk's size."""
+    end = len(buf)
+    if end < 4:
+        return 0
+    framesize = int.from_bytes(buf[:4], "little")
+    if end + end % 2 < framesize:  # one pad byte may be missing
+        return 0
+    if end < 8:
+        raise _FliError("FLI frame header cut short (buffer overrun)")
+    if buf[4] | buf[5] << 8 != 0xF1FA:
+        raise _FliError("FLI frame of another chunk type (unknown)")
+    chunks = buf[6] | buf[7] << 8
+    ptr = 16
+
+    def oob(at: int) -> None:
+        if at > end:
+            raise _FliError("FLI chunk data past the frame's bytes (buffer overrun)")
+
+    for _ in range(chunks):
+        if end - ptr < 10:
+            raise _FliError("FLI chunk header past the frame's bytes (buffer overrun)")
+        data = ptr + 6
+        kind = buf[ptr + 4] | buf[ptr + 5] << 8
+        if kind == 7:  # SS2: word-oriented delta
+            lines = buf[data] | buf[data + 1] << 8
+            data += 2
+            y = line = 0
+            while line < lines and y < height:
+                row = y * width
+                oob(data + 2)
+                packets = buf[data] | buf[data + 1] << 8
+                data += 2
+                while packets & 0x8000:
+                    if packets & 0x4000:  # skip lines
+                        y += 65536 - packets
+                        if y >= height:
+                            raise _FliError("FLI SS2 skips past the image (buffer overrun)")
+                        row = y * width
+                    else:  # the last pixel of an odd-width line
+                        img[row + width - 1] = packets & 0xFF
+                    oob(data + 2)
+                    packets = buf[data] | buf[data + 1] << 8
+                    data += 2
+                p = x = 0
+                while p < packets:
+                    oob(data + 2)
+                    x += buf[data]
+                    if buf[data + 1] >= 128:
+                        oob(data + 4)
+                        i = 256 - buf[data + 1]
+                        if x + 2 * i > width:
+                            break
+                        img[row + x : row + x + 2 * i] = buf[data + 2 : data + 4] * i
+                        x += 2 * i
+                        data += 4
+                    else:
+                        i = 2 * buf[data + 1]
+                        if x + i > width:
+                            break
+                        oob(data + 2 + i)
+                        img[row + x : row + x + i] = buf[data + 2 : data + 2 + i]
+                        data += 2 + i
+                        x += i
+                    p += 1
+                if p < packets:
+                    break
+                line += 1
+                y += 1
+            if line < lines:
+                raise _FliError("FLI SS2 lines past the image or its packets (buffer overrun)")
+        elif kind == 12:  # LC: byte-oriented delta
+            y = buf[data] | buf[data + 1] << 8
+            ymax = y + (buf[data + 2] | buf[data + 3] << 8)
+            data += 4
+            while y < ymax and y < height:
+                row = y * width
+                oob(data + 1)
+                packets = buf[data]
+                data += 1
+                p = x = 0
+                while p < packets:
+                    oob(data + 2)
+                    x += buf[data]
+                    if buf[data + 1] & 0x80:
+                        i = 256 - buf[data + 1]
+                        if x + i > width:
+                            break
+                        oob(data + 3)
+                        img[row + x : row + x + i] = buf[data + 2 : data + 3] * i
+                        data += 3
+                    else:
+                        i = buf[data + 1]
+                        if x + i > width:
+                            break
+                        oob(data + 2 + i)
+                        img[row + x : row + x + i] = buf[data + 2 : data + 2 + i]
+                        data += 2 + i
+                    p += 1
+                    x += i
+                if p < packets:
+                    break
+                y += 1
+            if y < ymax:
+                raise _FliError("FLI LC lines past the image or its packets (buffer overrun)")
+        elif kind == 13:  # BLACK
+            img[:] = bytes(len(img))
+        elif kind == 15:  # BRUN: byte runs
+            for y in range(height):
+                row = y * width
+                data += 1  # the packet count, not read
+                x = 0
+                while x < width:
+                    oob(data + 2)
+                    if buf[data] & 0x80:
+                        i = 256 - buf[data]
+                        if x + i > width:
+                            break
+                        oob(data + i + 1)
+                        img[row + x : row + x + i] = buf[data + 1 : data + 1 + i]
+                        data += i + 1
+                    else:
+                        i = buf[data]
+                        if x + i > width:
+                            break
+                        img[row + x : row + x + i] = buf[data + 1 : data + 2] * i
+                        data += 2
+                    x += i
+                if x != width:
+                    raise _FliError("FLI BRUN line not filled (buffer overrun)")
+        elif kind == 16:  # COPY
+            if data + width * height > end:
+                return ptr  # the bytes before this chunk: ImageFile.load reads on
+            img[:] = buf[data : data + width * height]
+        elif kind not in (4, 11, 18):  # palettes (read by the header) and the postage stamp are skipped
+            raise _FliError(f"FLI chunk of unknown type {kind}")
+        advance = int.from_bytes(buf[ptr : ptr + 4], "little", signed=True)
+        if advance == 0:
+            raise _FliError("FLI chunk of size 0 (broken)")
+        if advance < 0 or advance > end - ptr:
+            raise _FliError("FLI chunk past the frame's bytes (buffer overrun)")
+        ptr += advance
+    return -1
+
+
+def fli_twin(data: bytes, pos: int, block: int, width: int, height: int, name: str) -> bytes:
+    """width * height palette indices of an FLI / FLC frame at `pos`: ImageFile.load's loop over the file,
+    `block` (the frame's size) bytes a read appended to what the decoder left, each call of FliDecode.c on
+    the whole; a read of nothing before the decoder ends the frame, or an error code, raises."""
+    img = bytearray(width * height)
+    buf = b""
+    while True:
+        s = data[pos : pos + block]
+        pos += len(s)
+        if not s:
+            raise ValueError(f"{name}: FLI frame cut short (image file is truncated)")
+        buf += s
+        try:
+            n = _fli_chunks(buf, img, width, height)
+        except _FliError as err:
+            raise ValueError(f"{name}: {err}") from None
+        if n < 0:
+            return bytes(img)
+        buf = buf[n:]
+
+
 TWINS = {"qoi": qoi_twin, "tga_rle": tga_rle_twin, "sgi_rle": sgi_rle_twin, "pcx_rle": pcx_rle_twin,
-         "sun_rle": sun_rle_twin, "msp_rle": msp_rle_twin, "packbits": packbits_twin, "icns_rle": icns_rle_twin}
+         "sun_rle": sun_rle_twin, "msp_rle": msp_rle_twin, "packbits": packbits_twin, "icns_rle": icns_rle_twin,
+         "fli": fli_twin}
 
 
 # --- the native entries ----------------------------------------------------------
@@ -428,9 +602,13 @@ def icns_rle_native(data: bytes, pos: int, pixels: int, name: str) -> bytes:
     return _run("icns_rle", 3 * pixels, name, (data, len(data), pos, pixels))
 
 
+def fli_native(data: bytes, pos: int, block: int, width: int, height: int, name: str) -> bytes:
+    return _run("fli", width * height, name, (data, len(data), pos, block, width, height))
+
+
 NATIVES = {"qoi": qoi_native, "tga_rle": tga_rle_native, "sgi_rle": sgi_rle_native, "pcx_rle": pcx_rle_native,
            "sun_rle": sun_rle_native, "msp_rle": msp_rle_native, "packbits": packbits_native,
-           "icns_rle": icns_rle_native}
+           "icns_rle": icns_rle_native, "fli": fli_native}
 
 
 def expander(kind: str, native: bool):
