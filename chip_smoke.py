@@ -23,7 +23,9 @@
    flipped) in both its readings, the native JPEG decoder on the
    damaged-JPEG corpus and its seeded derivatives (damaged lossless SOF3
    scans among them), subsampled YCbCr TIFFs predicted or with a strip
-   damaged, and FTEX's BC1 blocks through csrc/bcn.cu, printing their images/s on one thread
+   damaged, and FTEX's BC1 blocks through csrc/bcn.cu, and the AVIF decoder (numpy on both hosts) to
+   Pillow's digests of the stored corpus (tests/data/avif, scripts/make_avif_files.py) up to 160 px a side,
+   printing their images/s on one thread
    and on the loader's threads (JPEG 2000's at 640 x 480 and 1920 x 1080,
    on 1 and 16; TIFF's ZSTD levels 3 / 19, CIELAB and 2 x 2 YCbCr at
    640 x 480 on one);
@@ -147,11 +149,11 @@
    twins, and one request each of one PNG, one GIF, one BMP, one CMYK JPEG,
    one lossy WebP and one lossless WebP (with alpha) image query and one
    each of an LZW TIFF, a ZSTD TIFF, an arithmetic JPEG, an RLE TGA, a QOI,
-   a BC7 DDS, a PackBits PSD, a lossless JP2, an irreversible J2K file and
-   an FTEX file of BC1 blocks (the native
+   a BC7 DDS, a PackBits PSD, a lossless JP2, an irreversible J2K file,
+   an FTEX file of BC1 blocks, an FLC file and an AVIF file (the native
    PNG / GIF / JPEG / WebP / TIFF / JPEG 2000 decoders and
-   the native stages of csrc/raster.cu and csrc/bcn.cu -- BMP has one
-   decoder, numpy --, K1, K2) held
+   the native stages of csrc/raster.cu and csrc/bcn.cu -- BMP and AVIF have
+   one decoder, numpy --, K1, K2) held
    the same way to the twins, the twin decoders among them, the GIF / BMP /
    CMYK / WebP queries' embeddings also to the same pixels sent as a
    baseline JPEG (cosine >= 0.999);
@@ -221,8 +223,9 @@
    OVEN: the writer's baseline JPEGs, JPEGs with COM segments, Pillow's
    progressive files, palette PNGs with tRNS, PNGs with a comment, GIFs with
    a comment, lossless WebP, CMYK JPEG, ICO, PPM / PGM; a truncated JPEG, an
-   HTML error page under a .jpg name, a JP2 file under a .jpg name (which the
-   pass converts), a PSD file no reader identifies under a
+   HTML error page under a .jpg name, a JP2 file and FITS, FLC, PCD, IPTC and
+   AVIF files under .jpg names (which the pass converts), a PSD file no reader
+   identifies under a
    .png name and an EPS file under a .jpg name), then each converter's CLI with every step
    (`--enable_image_processing`, the candidate pool, the conversion, the
    training pool) and the union generator's (union pools, the union train
@@ -797,6 +800,7 @@ def start_decoder_cases(pool) -> dict:
     that they are written and decoded while the card checks its kernels; kind -> futures."""
     # JPEG 2000's twin work first, the longest items (a Python tier 1), so they do not make the pool's tail
     pending = {"jpeg2000_twin": [pool.submit(jpeg2000_twin_digest, name) for name in jpeg2000_small()],
+               "avif": [pool.submit(avif_digest, name) for name in avif_small()],
                "jpeg2000": [pool.submit(jpeg2000_case, k) for k in range(DECODER_CASES)],
                "jpeg_damage": [pool.submit(jpeg_damage_case, k) for k in range(JPEG_DAMAGE_CASES)]}
     pending.update({kind: [pool.submit(decoder_case, (kind, k)) for k in range(DECODER_CASES)]
@@ -964,6 +968,45 @@ JPEG2000_CORPUS = REPO / "tests" / "data" / "jpeg2000"
 JPEG2000_TWIN_TOP = 160  # the twin (Python tier 1) decodes the corpus files up to this size a side
 JPEG2000_CASE_TOP = 64  # the seeded derivatives' sources: up to this size a side (the pool decodes each twice)
 JPEG2000_RATE_FILES = ("57_vga_lossless.jp2", "58_vga_irreversible.jp2", "60_hd_irreversible.jp2")
+
+
+# the AVIF corpus scripts/make_avif_files.py writes with Pillow (libavif, aom), which this machine lacks: each
+# file beside the shape and SHA-256 of Pillow's pixels (digests.json); the decoder (numpy, both hosts) is held
+# to every file up to AVIF_TOP a side here, the 640 x 480 ones timed by scripts/rare_format_rates.py
+AVIF_CORPUS = REPO / "tests" / "data" / "avif"
+AVIF_TOP = 160
+AVIF_QUERY = "04_default_33x65.avif"  # phase 10's AVIF query (the loader decodes it BATCH times)
+P13_AVIF = "05_default_70x130.avif"  # MSCOCO's AVIF file under a .jpg name
+
+
+def avif_small() -> list:
+    corpus = json.loads((AVIF_CORPUS / "digests.json").read_text())
+    return [name for name, e in corpus.items() if max(e["shape"][:2]) <= AVIF_TOP]
+
+
+def avif_digest(name: str) -> tuple:
+    """(name, shape, SHA-256 of the decoder's pixels, seconds) of one corpus file (a pool worker's job)."""
+    import hashlib
+
+    from uniir_tpu_torch.data import avif
+
+    t0 = time.perf_counter()
+    out = avif.decode((AVIF_CORPUS / name).read_bytes(), name)
+    return name, list(out.shape), hashlib.sha256(out.tobytes()).hexdigest(), time.perf_counter() - t0
+
+
+def check_avif(results: list, smi: str) -> None:
+    """The AVIF decoder (data/avif.py and av1_*.py, numpy on both hosts) equal to Pillow's digests on every
+    corpus file up to AVIF_TOP a side, decoded in the decoder phase's pool."""
+    corpus = json.loads((AVIF_CORPUS / "digests.json").read_text())
+    differ = [name for name, shape, digest, _ in results
+              if shape != corpus[name]["shape"] or digest != corpus[name]["sha256"]]
+    check(not differ, f"decoder phase: the AVIF decoder differs from Pillow's digests on {differ}")
+    pixels = sum(int(np.prod(shape[:2])) for _, shape, _, _ in results)
+    seconds = sum(dt for *_, dt in results)
+    log(f"decoder phase: AVIF equal to Pillow's digests on all {len(results)} corpus files up to {AVIF_TOP} px a "
+        f"side (of {len(corpus)}); {pixels / seconds / 1e6:.3f} Mpixel/s on one pool worker (host CPU "
+        f"{host_cpu()}; card {smi})")
 
 
 def jpeg2000_corpus() -> dict:
@@ -1289,6 +1332,7 @@ def check_decoders(smi: str, pending: dict, t_started: float) -> None:
     check_plugin_rates(smi)
     check_container_size(cases["container_size"], smi)
     check_jpeg2000(cases["jpeg2000"], cases["jpeg2000_twin"], threads, smi)
+    check_avif(cases["avif"], smi)
     check_jpeg_damage(cases["jpeg_damage"], threads, smi)
     log(f"decoder phase passed in {time.perf_counter() - t_phase:.1f} s")
 
@@ -3570,7 +3614,8 @@ def drive_interactive_retriever(results: dict, bundle, cfg, cands: list) -> None
 
 # phase 10's image queries beyond PNG, as `fixture_file` writes them
 TOOLS_FORMS = ("gif", "bmp", "jpeg_cmyk", "webp_lossy", "webp_lossless_alpha", "tiff", "jpeg_arith", "tga_rle", "qoi",
-               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged", "tiff_zstd", "ftex_bc1", "flc")
+               "dds_bc7", "psd_rle", "jp2_lossless", "j2k_irreversible", "jpeg_damaged", "tiff_zstd", "ftex_bc1", "flc",
+               "avif")
 # phase 10's JPEG 2000 queries: files of the stored corpus (no JPEG 2000 writer here)
 JPEG2000_QUERIES = {"jp2_lossless": "11_rlcp.jp2", "j2k_irreversible": "53_style_bypass_irreversible.j2k"}
 QUERY_COS = 0.999  # an image query against the same pixels sent as a baseline JPEG
@@ -3611,9 +3656,10 @@ def drive_image_query(results: dict, bundle, index_path: str, cands_path: str, i
     lossy WebP, a lossless WebP with alpha, an LZW TIFF, a ZSTD TIFF, an arithmetic-coded progressive JPEG, an RLE TGA, a
     QOI file, a BC7 DDS (`bc7_mode6`), a PackBits PSD, a lossless JP2 or an irreversible J2K file of the
     stored corpus, a damaged 4:2:0 JPEG of the damaged-JPEG corpus, an FTEX file of BC1 blocks
-    (`dxt1_encode`), or an FLC file of BRUN and SS2 chunks) through the interactive retriever: the native
+    (`dxt1_encode`), an FLC file of BRUN and SS2 chunks, or an AVIF file of the stored corpus (AVIF_QUERY)) through
+    the interactive retriever: the native
     decoder (GIF / JPEG / WebP / TIFF / JPEG 2000, csrc/raster.cu for TGA, QOI, PSD and FLC, csrc/bcn.cu for
-    DDS and FTEX; BMP has one decoder), K1, K2; held to
+    DDS and FTEX; BMP and AVIF have one decoder), K1, K2; held to
     the same request through the twins (the twin decoders, K1's twin, an fp32 search over the bf16 pool), and
     its embedding held to the same pixels sent as a baseline JPEG (quality 95, 4:4:4) through the same path."""
     from uniir_tpu_torch.data import gif, jpeg, jpeg2000, tiff, webp
@@ -6547,8 +6593,11 @@ def iptc_bytes(image: bytes, w: int, h: int, *, layers: int = 1, component: int 
 def plugin_file(form: str, seed: int, w: int, h: int) -> bytes:
     """One seeded w x h file of `form` (P13_PLUGINS): a FITS image of BITPIX 16 (the grey of a smooth field),
     an FLC file of the field's colour-cube indices (BRUN and an SS2 delta, the cube a COLOR_256 chunk), a
-    PhotoCD file (its fixed 768 x 512, orientation 1) or an IPTC file of a baseline JPEG (compression 5)."""
+    PhotoCD file (its fixed 768 x 512, orientation 1), an IPTC file of a baseline JPEG (compression 5) or an
+    AVIF file of the stored corpus (P13_AVIF: no AVIF writer here)."""
     rng = np.random.default_rng(seed)
+    if form == "avif":  # no AVIF writer here: a file of the stored corpus
+        return (AVIF_CORPUS / P13_AVIF).read_bytes()
     if form == "pcd":
         return pcd_bytes(raw_image(seed, 768, 512), 1, rng)
     img = raw_image(seed, w, h)
@@ -8771,7 +8820,7 @@ def fixture_image(seed: int) -> np.ndarray:
 # a fixture file's name suffix by form: png_* .png, the rest .jpg
 FORM_SUFFIX = {"gif": "gif", "bmp": "bmp", "webp_lossy": "webp", "webp_lossless_alpha": "webp", "webp_alpha": "webp",
                "tiff": "tif", "tiff_zstd": "tif", "tga_rle": "tga", "qoi": "qoi", "dds_bc7": "dds", "psd_rle": "psd", "jp2_lossless": "jp2",
-               "j2k_irreversible": "j2k", "ftex_bc1": "ftc", "flc": "flc"}
+               "j2k_irreversible": "j2k", "ftex_bc1": "ftc", "flc": "flc", "avif": "avif"}
 
 
 def colour_cube(img: np.ndarray) -> tuple:
@@ -8807,6 +8856,8 @@ def fixture_file(form: str, seed: int) -> bytes:
         return base64.b64decode(PROGRESSIVE_FILES[form][0])
     if form in JPEG2000_QUERIES:
         return (JPEG2000_CORPUS / JPEG2000_QUERIES[form]).read_bytes()
+    if form == "avif":
+        return (AVIF_CORPUS / AVIF_QUERY).read_bytes()
     if form == "jpeg_damaged":
         return (JPEG_DAMAGE_CORPUS / JPEG_DAMAGE_QUERY).read_bytes()
     img = fixture_image(seed)
@@ -9575,7 +9626,7 @@ P13_COUNTS = {"mscoco": 110, "cirr": 40, "fashioniq": 40, "fashion200k": 40, "ed
 P13_FORMS = ("jpeg", "jpeg_comment", "progressive", "jpeg", "png_palette_trns", "png_comment", "jpeg",
              "gif_comment", "jpeg_cmyk", "jpeg", "ico", "ppm", "jpeg_444", "pgm", "png_rgb", "jpeg", "webp")
 P13_SMALL = ("webp", "ico")  # forms written at most 160 px a side (the script's WebP writer is slow)
-P13_PLUGINS = ("fits", "flc", "pcd", "iptc")  # one MSCOCO file of each under a .jpg name, converted by both passes
+P13_PLUGINS = ("fits", "flc", "pcd", "iptc", "avif")  # one MSCOCO file of each under a .jpg name, converted by both passes
 P13_JP2 = "58_vga_irreversible.jp2"  # MSCOCO's JPEG 2000 file, from the corpus (tests/data/jpeg2000)
 P13_CONVERTERS = ("mscoco", "cirr", "fashioniq", "fashion200k", "edis", "nights", "visualnews", "webqa", "oven",
                   "infoseek")
@@ -9687,7 +9738,7 @@ def write_raw_trees(root: Path, counts: dict = None, side: float = 1.0, refused:
     truncated JPEG, an HTML page under a .jpg name, a JP2 file under a .jpg name and (with `refused`) a PSD
     file no reader identifies under a .png name and an EPS file, a format the port does not decode, under a
     .jpg name, a ZSTD TIFF (which the pass converted once it was no longer deleted) under a .jpg name, and a
-    FITS, FLC, PCD and IPTC file (P13_PLUGINS) under .jpg names.  Returns {"images": {path: form}, "truncated":
+    FITS, FLC, PCD, IPTC and AVIF file (P13_PLUGINS) under .jpg names.  Returns {"images": {path: form}, "truncated":
     path, "garbage": path, "unidentified": path or None, "refused": path or None, "jp2": path, "zstd": path,
     "plugins": {form: path}, "captions": [every caption and question]}."""
     counts = {**P13_COUNTS, **(counts or {})}

@@ -2,12 +2,13 @@
 thread: damaged lossless (SOF3) JPEG, predicted and damaged subsampled YCbCr TIFF, McIdas, PIXAR, SPIDER,
 XVThumb, GBR, IMT, FTEX and BLP files of the seeded writers (chip_smoke.py, tests/rare_format_files.py), then
 FITS (BITPIX 8, 16, -32, GZIP_1 tiles), FLI 320 x 200 (BRUN), FLC (BRUN + SS2), PCD (768 x 512) and IPTC (raw,
-JPEG) files (`chip_smoke.plugin_rate_files`).  Each
+JPEG) files (`chip_smoke.plugin_rate_files`), then AVIF files of the stored corpus (tests/data/avif, written by
+scripts/make_avif_files.py: Pillow's default save and its lossless 4:4:4 save at 640 x 480).  Each
 file is decoded as a run on `--device` decodes it (`jpeg.decode_image`: the native libraries on a CUDA run's
 host, the twins on a CPU run), after one warm-up call, median of `--repeats` calls.  Prints one line a file and
 the card's name and power limit (nvidia-smi) where there is one.
 
-    python scripts/rare_format_rates.py [--device cuda] [--repeats 5] [--only fits,fli,flc,pcd,iptc]
+    python scripts/rare_format_rates.py [--device cuda] [--repeats 5] [--only fits,fli,flc,pcd,iptc,avif]
 """
 
 from __future__ import annotations
@@ -63,6 +64,8 @@ def files() -> dict:
         "ftex_rgb": chip_smoke.ftex_bytes(w, h, 1, rgb.tobytes()),
         **{form: chip_smoke.blp_bytes(form, rgb, np.random.default_rng(k)) for k, form in enumerate(chip_smoke.BLP_FORMS)},
         **chip_smoke.plugin_rate_files(),
+        "avif_vga_default": (chip_smoke.AVIF_CORPUS / "30_vga_default.avif").read_bytes(),
+        "avif_vga_lossless": (chip_smoke.AVIF_CORPUS / "31_vga_lossless.avif").read_bytes(),
     }
 
 

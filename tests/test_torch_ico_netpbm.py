@@ -266,7 +266,7 @@ def test_data_no_reader_identifies_is_corrupt(name):
 
 
 # Pillow 12.1's openers -> the port's name for each: decoded, or named in `jpeg._REFUSED`
-PILLOW_OPENERS = {"AVIF": "AVIF", "BLP": "blp", "BMP": "bmp", "DIB": "dib", "BUFR": "BUFR", "CUR": "cur",
+PILLOW_OPENERS = {"AVIF": "avif", "BLP": "blp", "BMP": "bmp", "DIB": "dib", "BUFR": "BUFR", "CUR": "cur",
                   "PCX": "pcx", "DCX": "dcx", "DDS": "dds", "EPS": "EPS", "FITS": "fits", "FLI": "fli",
                   "FTEX": "ftex", "GBR": "gbr", "GIF": "gif", "GRIB": "GRIB", "HDF5": "HDF5", "PNG": "png",
                   "JPEG2000": "jpeg2000", "ICNS": "icns", "ICO": "ico", "IM": "im", "IMT": "imt", "IPTC": "iptc",
@@ -285,5 +285,5 @@ def test_every_format_pillow_identifies_is_decoded_or_named():
     assert set(Image.ID) <= set(PILLOW_OPENERS), sorted(set(Image.ID) - set(PILLOW_OPENERS))
     decoded = {"jpeg", "png", "gif", "bmp", "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "im", "msp",
                "qoi", "sgi", "sun", "tga", "xbm", "xpm", "dds", "icns", "psd", "jpeg2000", "blp", "ftex", "gbr", "imt",
-               "mcidas", "pixar", "spider", "xvthumb", "fits", "fli", "iptc", "pcd"}
+               "mcidas", "pixar", "spider", "xvthumb", "fits", "fli", "iptc", "pcd", "avif"}
     assert set(PILLOW_OPENERS.values()) == {label for _, label in jpeg._REFUSED} | decoded

@@ -1,5 +1,5 @@
 """The M-BEIR image pass on every form that the port once refused or still refuses by name (the rarer plugins'
-files too: McIdas, PIXAR, SPIDER, XVThumb, GBR, IMT, FTEX, BLP, FITS, FLI / FLC, PCD, IPTC)
+files too: McIdas, PIXAR, SPIDER, XVThumb, GBR, IMT, FTEX, BLP, FITS, FLI / FLC, PCD, IPTC, and AVIF)
 (`uniir_tpu_torch.data.preprocessing.io_utils.resize_and_convert_image_to_jpg` beside the JAX package's): where
 the JAX pass writes a JPEG, the port writes the same bytes or leaves the file in place (UnsupportedImageFormat);
 where the JAX pass deletes a file as corrupt, the port deletes it too.  The port's pass used to delete any file
@@ -93,11 +93,22 @@ def _forms() -> dict:
         forms[name] = more[name]
         stem, ext = os.path.splitext(name)
         forms[f"{stem}_cut{ext}"] = more[name][: len(more[name]) * 3 // 4]
+    # AVIF: Pillow's default save, premultiplied alpha, a sequence, grey; a matrix libavif converts in its own
+    # float path (refused by name); one cut short (deleted by both passes)
+    import avif_files
+
+    forms["avif_default.avif"] = avif_files.pillow_file("RGB", 40, 30, seed=25)
+    forms["avif_rgba_premultiplied.avif"] = avif_files.pillow_file("RGBA", 33, 21, seed=26, alpha_premultiplied=True)
+    forms["avif_sequence.avif"] = avif_files.pillow_file("RGB", 24, 40, seed=27, frames=1)
+    forms["avif_grey_limited.avif"] = avif_files.pillow_file("L", 30, 30, seed=28, subsampling="4:0:0", range="limited")
+    forms["avif_matrix_ycgco.avif"] = avif_files.set_colr(forms["avif_default.avif"], matrix=8)
+    forms["avif_cut.avif"] = forms["avif_default.avif"][: len(forms["avif_default.avif"]) * 2 // 3]
     return forms
 
 
-# the forms the port leaves in place where the JAX pass writes a JPEG (their pixels are not modelled)
-KEPT = {"g4_cut.tif"}
+# the forms the port leaves in place where the JAX pass writes a JPEG (their pixels are not modelled; an AVIF
+# matrix libavif converts in floating point is refused by name, ROADMAP Queue 3)
+KEPT = {"g4_cut.tif", "avif_matrix_ycgco.avif"}
 
 
 @pytest.mark.parametrize("name", sorted(_forms()))

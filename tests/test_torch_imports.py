@@ -86,6 +86,13 @@ SMOKE_MODULES = [
     "uniir_tpu_torch.data.fli",
     "uniir_tpu_torch.data.iptc",
     "uniir_tpu_torch.data.pcd",
+    "uniir_tpu_torch.data.av1_tables",
+    "uniir_tpu_torch.data.av1_obu",
+    "uniir_tpu_torch.data.av1_entropy",
+    "uniir_tpu_torch.data.av1_block",
+    "uniir_tpu_torch.data.av1_recon",
+    "uniir_tpu_torch.data.av1_filters",
+    "uniir_tpu_torch.data.avif",
     "uniir_tpu_torch.entry",
     "uniir_tpu_torch.models.blip_ff",
     "uniir_tpu_torch.models.blip_sf",

@@ -262,14 +262,13 @@ def test_native_in_threads_and_refusals(native):
 
 
 # QOI, SGI, PCX, Sun raster, XBM and XPM are decoded now: their cases are in tests/test_torch_raster_formats.py
-REFUSED_FORMATS = {
-    "AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00", "EPS": b"%!PS-Adobe-3.0", "HDF5": b"\x89HDF\r\n",
-}
-# PSD, DDS, ICNS, JPEG 2000 and BLP are decoded now (tests/test_torch_container_formats.py,
-# tests/test_torch_jpeg2000*.py, tests/test_torch_rare_formats.py): these stubs of theirs, which Pillow cannot
-# read either, fail as corrupt data
+REFUSED_FORMATS = {"EPS": b"%!PS-Adobe-3.0", "HDF5": b"\x89HDF\r\n"}
+# PSD, DDS, ICNS, JPEG 2000, BLP and AVIF are decoded now (tests/test_torch_container_formats.py,
+# tests/test_torch_jpeg2000*.py, tests/test_torch_rare_formats.py, tests/test_torch_avif*.py): these stubs of
+# theirs, which Pillow cannot read either, fail as corrupt data
 DECODED_STUBS = {"PSD": b"8BPS\x00\x01", "DDS": b"DDS \x7c\x00\x00\x00", "ICNS": b"icns\x00\x00",
-                 "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00", "BLP": b"BLP2\x01"}
+                 "JPEG 2000": b"\x00\x00\x00\x0cjP  \r\n\x87\n\x00", "BLP": b"BLP2\x01",
+                 "AVIF": b"\x00\x00\x00\x1cftypavif\x00\x00\x00\x00"}
 
 
 @pytest.mark.parametrize("name", sorted({**REFUSED_FORMATS, **DECODED_STUBS}))
@@ -277,9 +276,9 @@ def test_formats_pillow_reads_and_the_port_does_not_are_named(tmp_path, name):
     """A file of a format Pillow's Image.open reads and the port does not decode raises
     UnsupportedImageFormat naming the format (ROADMAP Queue 3), not "unknown"; ICO, CUR and PPM are
     decoded now (tests/test_torch_ico_netpbm.py), DIB, QOI, TGA, SGI, PCX / DCX, Sun raster, MSP, XBM,
-    XPM and IM (tests/test_torch_raster_formats.py), and PSD, DDS, ICNS and JPEG 2000, whose stubs here raise
-    the decoders' own ValueError where Pillow raises too (tests/test_torch_container_formats.py,
-    tests/test_torch_jpeg2000*.py)."""
+    XPM and IM (tests/test_torch_raster_formats.py), and PSD, DDS, ICNS, JPEG 2000, BLP and AVIF, whose stubs
+    here raise the decoders' own ValueError where Pillow raises too (tests/test_torch_container_formats.py,
+    tests/test_torch_jpeg2000*.py, tests/test_torch_avif*.py)."""
     path = tmp_path / "x.jpg"
     if name in DECODED_STUBS:
         from PIL import Image

@@ -102,7 +102,7 @@ build or load raises.
 Pillow's `_accept` takes it), TIFF (Pillow's six prefixes), ICO / CUR and
 Netpbm (P and one of 0-6, f, y) are decoded, and so are the formats of
 `_DECODED` (JPEG 2000 among them) found in Image.open's order; the other
-formats Pillow's Image.open identifies (AVIF, FITS, EPS, ...)
+formats Pillow's Image.open identifies (EPS, BUFR, ...)
 raise `UnsupportedImageFormat`, a ValueError naming the file and the format,
 told apart from corrupt data, which raises the decoders' own ValueError, as
 does a file no format names ("unknown"), which Image.open cannot identify.
@@ -127,7 +127,7 @@ import numpy as np
 
 from uniir_tpu_torch.data import bmp, dds, gif, icns, ico, im, msp, netpbm, pcx, png, psd, qoi, raster, sgi, sun
 from uniir_tpu_torch.data import blp, ftex, gbr, imt, jpeg2000, mcidas, pixar, spider, tga, tiff, webp, xbm, xpm
-from uniir_tpu_torch.data import fits, fli, iptc, pcd, xvthumb
+from uniir_tpu_torch.data import avif, fits, fli, iptc, pcd, xvthumb
 
 # natural-order index of each zigzag position
 ZIGZAG = np.array([
@@ -1451,11 +1451,10 @@ def decoder_for(device) -> Callable[[bytes, str], np.ndarray]:
 
 
 # the formats Pillow 12.1's Image.open identifies that the port does not decode (the others are `_DECODED`'s,
-# below): each plugin's _accept test of the file's first bytes; AVIF waits for its decoder (ROADMAP Queue 3),
-# EPS needs Ghostscript, and BUFR, GRIB, HDF5, MPEG and WMF are stubs that Image.open names and cannot load.  A
-# file none of Image.open's readers takes is one it cannot identify: the decoders call it corrupt, as Pillow does.
+# below): each plugin's _accept test of the file's first bytes; EPS needs Ghostscript, and BUFR, GRIB, HDF5,
+# MPEG and WMF are stubs that Image.open names and cannot load.  A file none of Image.open's readers takes is
+# one it cannot identify: the decoders call it corrupt, as Pillow does.
 _REFUSED = (
-    (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis", b"mif1", b"msf1"), "AVIF"),
     (lambda d: d[:4] in (b"BUFR", b"ZCZC"), "BUFR"),
     (lambda d: d[:4] in (b"%!PS", b"\xc5\xd0\xd3\xc6"), "EPS"),
     (lambda d: len(d) >= 8 and d[:4] == b"GRIB" and d[7] == 1, "GRIB"),
@@ -1468,10 +1467,11 @@ _REFUSED = (
 # the readers after Pillow's first six (BMP, DIB, GIF, JPEG, PPM, PNG), in Image.ID's order: the refused formats
 # and the ones decoded here (WebP, TIFF and ICO / CUR are tested before them: no reader before theirs takes
 # their signatures); a decoded reader's `parse` is its _open's header test
-_ORDER = ("AVIF", "blp", "BUFR", "pcx", "dcx", "dds", "EPS", "fits", "fli", "ftex", "gbr", "GRIB", "HDF5",
+_ORDER = ("avif", "blp", "BUFR", "pcx", "dcx", "dds", "EPS", "fits", "fli", "ftex", "gbr", "GRIB", "HDF5",
           "jpeg2000", "icns", "im", "imt", "iptc", "mcidas", "MPEG", "msp", "pcd", "pixar", "psd", "qoi", "sgi",
           "spider", "sun", "tga", "WMF", "xbm", "xpm", "xvthumb")
 _DECODED = {
+    "avif": (avif.accepts, avif.open_header),
     "fits": (fits.accepts, fits.parse), "fli": (fli.accepts, fli.parse), "iptc": (iptc.accepts, iptc.parse),
     "pcd": (pcd.accepts, pcd.parse),
     "blp": (blp.accepts, blp.parse), "ftex": (ftex.accepts, ftex.parse), "gbr": (gbr.accepts, gbr.parse),
@@ -1677,8 +1677,8 @@ def image_format(data: bytes) -> str:
     """The format a file's first bytes name, as Image.open tries its readers: "jpeg", "png", "gif", "bmp",
     "dib", "webp", "tiff", "ico", "cur", "netpbm", "pcx", "dcx", "dds", "icns", "im", "jpeg2000", "msp", "psd",
     "qoi", "sgi", "sun", "tga", "xbm", "xpm", "blp", "ftex", "gbr", "imt", "mcidas", "pixar", "spider", "xvthumb",
-    "fits", "fli", "iptc", "pcd" (Pillow's `format`, lower-case), or the name of another format Pillow's
-    Image.open identifies ("AVIF", "EPS", ...), or "unknown"."""
+    "fits", "fli", "iptc", "pcd", "avif" (Pillow's `format`, lower-case), or the name of another format
+    Pillow's Image.open identifies ("EPS", "BUFR", ...), or "unknown"."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == png.SIGNATURE:
@@ -1705,15 +1705,15 @@ def image_format(data: bytes) -> str:
 
 DECODED = ("JPEG, PNG, GIF, BMP, DIB, WebP, TIFF, ICO / CUR, Netpbm, PCX / DCX, DDS, ICNS, IM, JPEG 2000, MSP, "
            "PSD, QOI, SGI, Sun raster, TGA, XBM, XPM, BLP, FTEX, GBR, IMT, McIdas, PIXAR, SPIDER, XVThumb, FITS, "
-           "FLI / FLC, IPTC and PCD")
+           "FLI / FLC, IPTC, PCD and AVIF")
 
 
 def decode_image(data: bytes, name: str, device) -> np.ndarray:
     """uint8 [H, W, 3] of an image file's bytes, told apart by its signature (or, for TGA, IM and the
     plugins without one, its header) and decoded as a run on `device` decodes (BMP, DIB, ICO / CUR's DIBs,
-    Netpbm, IM, XBM, XPM, GBR, IMT, McIdas, PIXAR, SPIDER, XVThumb, FITS and PCD have one decoder, numpy; a
-    PSD, DDS or ICNS file's raw pixels too, and a BLP file's but a BLP1 JPEG; an IPTC file's image is decoded
-    as this function decodes a file).  A format the port does not decode raises
+    Netpbm, IM, XBM, XPM, GBR, IMT, McIdas, PIXAR, SPIDER, XVThumb, FITS, PCD and AVIF have one decoder,
+    numpy; a PSD, DDS or ICNS file's raw pixels too, and a BLP file's but a BLP1 JPEG; an IPTC file's image is
+    decoded as this function decodes a file).  A format the port does not decode raises
     UnsupportedImageFormat; an empty file or one of no format Image.open identifies, and corrupt data, raise
     ValueError."""
     if not data:
@@ -1722,10 +1722,10 @@ def decode_image(data: bytes, name: str, device) -> np.ndarray:
     if kind == "jpeg":
         return decoder_for(device)(data, name)
     if kind in ("png", "gif", "webp", "tiff", "pcx", "msp", "qoi", "sgi", "sun", "tga", "dds", "icns", "psd",
-                "jpeg2000", "ftex", "blp", "fli", "iptc"):
+                "jpeg2000", "ftex", "blp", "fli", "iptc", "avif"):
         modules = {"png": png, "gif": gif, "webp": webp, "tiff": tiff, "pcx": pcx, "msp": msp, "qoi": qoi,
                    "sgi": sgi, "sun": sun, "tga": tga, "dds": dds, "icns": icns, "psd": psd, "jpeg2000": jpeg2000,
-                   "ftex": ftex, "blp": blp, "fli": fli, "iptc": iptc}
+                   "ftex": ftex, "blp": blp, "fli": fli, "iptc": iptc, "avif": avif}
         return modules[kind].decoder_for(device)(data, name)
     if kind == "dcx":
         return pcx.dcx_decoder_for(device)(data, name)
